@@ -3,23 +3,53 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name and power limit), torch and
-         nvcc, and builds the path kernel from csrc/ (timed as set-up).
-Phase 1  runs the kernel and its plain PyTorch version on the same CUDA
-         inputs, the fixture at 160x90 with all 16 spp, and holds them to
-         the per-ray bar of tests/test_torch_path_kernel.py; both timed
-         with CUDA events, median of 3 after one warm-up.
-Phase 2  renders samples/scene.json at 640x360, 16 spp, through
-         deploy_render (the CLI's path) and checks the image, the PNG and
-         that every pass launched the kernel; then holds the kernel to
-         the same per-ray bar against its plain version on that pass's
-         3.7M-ray batch, and times both there.
+         nvcc, and builds both kernel libraries from csrc/ (one nvcc
+         each, started together) and the SAH BVH builder (g++), timed as
+         set-up.
+Phase 1  runs the path kernel and its plain PyTorch version on the same
+         CUDA inputs, the fixture at 160x90 with all 16 spp, and holds
+         them to the per-ray bar of tests/test_torch_path_kernel.py; both
+         timed with CUDA events, median of 3 after one warm-up.
+Phase 2  the Path main path: renders samples/scene.json at 640x360, 16
+         spp, through deploy_render (the CLI's path) and checks the
+         image, the PNG and that every pass launched the path kernel;
+         then holds the kernel to the same per-ray bar against its plain
+         version on that pass's 3.7M-ray batch, and times both there.
+Phase 3  the Debug main path: the same for samples/scene_debug.json
+         (Debug, max_depth 4) through the direct kernel; then a 160x90x16
+         DirectLighting variant with the one-light strategy, held to the
+         same bar.
+Phase 4  mesh scenes: the 1,600-cube grid (19,200 triangles of grid, 19,224
+         in all, over the in-kernel BVH) written into build/chip_smoke/,
+         rendered with Path at 640x360x8 through the path kernel's BVH
+         branch and with Debug at 640x360x16 through the direct kernel's;
+         each BVH kernel is held to the bar against its plain version (a
+         masked torch stack walk) on a seeded random eighth (Path) or
+         sixteenth (Debug) of the rays of its main-path batch, 230,400
+         rays, so that every lane and pixel column can be among them.
 
-Every phase prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the kernel, the last line
+Every driven main path starts with all launch counts at 0 and must show
+one launch of its kernel per pass and none of the others.  Every phase
+prints one line; any failure raises and exits non-zero.  The
+second-to-last line is a JSON record of the four kernels, the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
-build/chip_smoke/chip_smoke.json and the image beside it.  Without a
+build/chip_smoke/chip_smoke.json and the images beside it.  Without a
 CUDA device, or without the rest of the repository, it exits non-zero
 before printing any result.
+
+Each kernel's `bound_ms` is the least time the card could take for the
+pass: the larger of its bytes over 3.35 TB/s and its FP32 operations
+over 67 TFLOP/s (the H100 SXM data sheet).  The bytes are each ray's 16
+in and 16 out, of each BVH node once its two child boxes and its offset,
+count and axis, and of each triangle's row once the columns a kernel
+reads: the 9 geometry columns, the 7 of normal, dpdu and lobe count, and
+16 per lobe of its material; the raw normals and the texture block are
+never read.  The operations are the Moller-Trumbore tests (45 each),
+slab tests (27) and lobe evaluations (3, lambert's; a floor) that the
+plain version counts on the same inputs, scaled by the batch over the
+subset where it ran on a subset; the lens trace, the sampler hashes and
+the shading are left out, so the bound is a lower one.  No single
+PyTorch call computes a sample pass: `library_ms` is null.
 """
 
 import json
@@ -27,26 +57,45 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.ops import _build
+from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.render import deploy_render, render_job, sample_batch
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
+from rs_ray_toy_tpu_torch.scene.gen import write_grid_scene
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "samples" / "scene.json"
+SCENE_DEBUG = ROOT / "samples" / "scene_debug.json"
 OUT = ROOT / "build" / "chip_smoke"
-KERNEL = dict(
-    name="path_mega_cam",
-    route="cuda",
-    source="rs_ray_toy_tpu_torch/csrc/path_megakernel.cu",
-    replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3814",
-)
+PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
+DIRECT_SRC = "rs_ray_toy_tpu_torch/csrc/direct_megakernel.cu"
+KERNELS = {
+    "path_mega_cam": dict(source=PATH_SRC, replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3814"),
+    "path_mega_cam_bvh": dict(
+        source=PATH_SRC, replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3843"
+    ),
+    "direct_mega_cam": dict(
+        source=DIRECT_SRC, replaces="rs_ray_toy_tpu/ops/direct_megakernel.py:678"
+    ),
+    "direct_mega_cam_bvh": dict(
+        source=DIRECT_SRC, replaces="rs_ray_toy_tpu/ops/direct_megakernel.py:706"
+    ),
+}
+FLOPS = {"mt": 45, "slab": 27, "lobe": 3}  # FP32 operations per counted test
+PEAK_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+RAY_BYTES = 8 + 4 + 4 + 12 + 4  # pixel_xy, pixel id, sample index in; L, weight out
+ROW_HEAD_COLS = 9 + 7  # p0, e1, e2; ng, dpdu, lobe count
+LOBE_COLS = 16
+NODE_READ_COLS = 12 + 3  # both child boxes; offset, n_prims, axis
 
 
 def check(cond, msg):
@@ -67,6 +116,18 @@ def timed_ms(fn, reps=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def once_ms(fn):
+    """CUDA-event milliseconds of one run (no warm-up)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def per_ray_bar(l, l_ref):
@@ -90,28 +151,138 @@ def per_ray_bar(l, l_ref):
     return stats
 
 
+def bound(work, scale, n_rays, packed):
+    """(bound_ms, bound_by) of one pass over n_rays (see the module
+    docstring); `work` is the plain version's counts, `scale` the batch
+    over the rays it ran on."""
+    flops = scale * sum(FLOPS[k] * float(v) for k, v in work.items())
+    cols = ROW_HEAD_COLS + LOBE_COLS * packed.table[:, 15]
+    nbytes = n_rays * RAY_BYTES + int(cols.sum()) * 4
+    if packed.bvh is not None:
+        nbytes += packed.bvh.nodes_f.shape[0] * NODE_READ_COLS * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
 
+def zero_counts():
+    for counts in (pmk.LAUNCHES, dmk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def all_counts():
+    return {**pmk.LAUNCHES, **dmk.LAUNCHES}
+
+
+def drive(scene, png, kernel, fused, spp_override=None):
+    """One main path through deploy_render with every count set to 0 just
+    before; checks the image and that `kernel`, and no other, launched
+    once per pass.  Returns (result, coloured pixels, launches)."""
+    zero_counts()
+    res = deploy_render(str(scene), str(png), spp_override=spp_override)
+    counts = all_counts()
+    rgb = res["rgb_srgb_input"]
+    check(bool(torch.isfinite(rgb).all()), f"{png.name}: non-finite image")
+    check(png.exists() and png.stat().st_size > 0, f"{png.name}: no PNG written")
+    colored = int((rgb.sum(-1) > 0).sum())
+    check(colored > 0, f"{png.name}: no coloured pixels")
+    check(res["fused_kernel"] == fused and res["render_path"] == "megakernel",
+          f"{png.name}: wrong path")
+    check(counts[kernel] == res["passes"] > 0,
+          f"{png.name}: {counts[kernel]} {kernel} launches for {res['passes']} passes")
+    check(sum(counts.values()) == counts[kernel], f"{png.name}: other kernels launched: {counts}")
+    return res, colored, counts[kernel]
+
+
+def hold(mod, job, stride, dev):
+    """The kernel against its plain version on the main path's batch for
+    `job` (one pass): the kernel on the whole batch, the plain version on
+    a seeded random 1/`stride` of its rays.  Returns the measured numbers."""
+    fn, ref = (
+        (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference)
+        if mod is pmk
+        else (dmk.li_levels_mega_cam, dmk.li_levels_mega_cam_reference)
+    )
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+    packed = pmk.pack_scene(job.scene, dev)
+    sampler = StratifiedSampler(job.sampler)
+    pxy, pid, soff = sample_batch(job.film, min(16, sampler.spp), dev)
+    args = (packed, cam, pxy, pid, soff, sampler, job.integrator)
+    l, w = fn(*args)
+    torch.cuda.synchronize()
+    n = pxy.shape[0]
+    pick = torch.randperm(n, generator=torch.Generator().manual_seed(stride))[: n // stride]
+    sub = pick.sort().values.to(dev)
+    scale = n / sub.numel()
+    sub_args = (packed, cam, pxy[sub], pid[sub], soff[sub], sampler, job.integrator)
+    work = {}
+    l_ref, w_ref = ref(*sub_args, work=work)
+    bar = per_ray_bar(l[sub], l_ref)
+    max_abs_err = max(float((l[sub] - l_ref).abs().max()), float((w[sub] - w_ref).abs().max()))
+    del l, w, l_ref, w_ref
+    ms = timed_ms(mod.prepare_launch(*args), reps=10)
+    wrapper_ms = timed_ms(lambda: fn(*args))
+    plain_ms = once_ms(lambda: ref(*sub_args))
+    bound_ms, bound_by = bound(work, scale, n, packed)
+    return dict(
+        rays=n, plain_rays=pxy[sub].shape[0], bvh=packed.bvh is not None,
+        max_abs_err=max_abs_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
+        work={k: float(v) * scale for k, v in work.items()}, **bar,
+    )
+
+
+def warm_rates(job, dev, n=3):
+    return [render_job(job, dev)["mrays_per_s"] for _ in range(n)]
+
+
+def describe(tag, res, launches, colored, held, warm, card):
+    return (
+        f"{tag}: {res['camera_rays']} rays in {res['passes']} pass(es), {launches} launch(es), "
+        f"{colored} coloured px; first render {res['mrays_per_s']:.2f} Mrays/s, warm "
+        f"{', '.join(f'{m:.1f}' for m in warm)} Mrays/s; kernel {held['ms']:.3f} ms "
+        f"(wrapper {held['wrapper_ms']:.3f} ms) over {held['rays']} rays, bound "
+        f"{held['bound_ms']:.4f} ms by {held['bound_by']}; plain {held['plain_ms']:.1f} ms over "
+        f"{held['plain_rays']} rays; kernel vs plain: diverged {held['diverged']:.2e}, q99 "
+        f"{held['q99']:.2e}, mean {held['mean']:.6g} vs {held['mean_ref']:.6g}, max_abs_err "
+        f"{held['max_abs_err']:.3g} [{card}]"
+    )
+
+
 def main():
     record = {}
-    # ---- phase 0: the card, the toolchain, the build ----
+    # ---- phase 0: the card, the toolchain, the builds ----
     check(torch.cuda.is_available(), "no CUDA device")
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     nvcc = run([_build.nvcc_path(), "--version"]).splitlines()[-1]
     t0 = time.perf_counter()
-    lib_path, log = _build.build("path_megakernel")
+    with ThreadPoolExecutor(3) as pool:
+        builds = {
+            name: pool.submit(_build.build, name)
+            for name in ("path_megakernel", "direct_megakernel")
+        }
+        host = pool.submit(_build.load_host, "bvh_builder")
+        logs = {name: f.result()[1] for name, f in builds.items()}
+        host.result()
     build_s = time.perf_counter() - t0
     pmk.load_kernel()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    dmk.load_kernel()
+    ptxas = {
+        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        for name, log in logs.items()
+    }
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
                   build_s=build_s, ptxas=ptxas)
     print(f"phase 0: card [{card}] torch {torch.__version__} (CUDA {torch.version.cuda}) "
-          f"nvcc [{nvcc}] build {build_s:.1f}s {lib_path.name} ptxas {ptxas}")
+          f"nvcc [{nvcc}] builds {build_s:.1f}s ptxas {ptxas}")
     dev = torch.device("cuda")
+    OUT.mkdir(parents=True, exist_ok=True)
 
-    # ---- phase 1: kernel against its plain version, 160x90 x 16 spp ----
+    # ---- phase 1: path kernel against its plain version, 160x90 x 16 spp ----
     job = load_scene(str(SCENE))
     job.film.xres, job.film.yres = 160, 90
     t0 = time.perf_counter()
@@ -122,79 +293,100 @@ def main():
     check(pmk.supports(job.scene, job.integrator, sampler), "fixture outside the kernel subset")
     pxy, pid, soff = sample_batch(job.film, 16, dev)
     args = (packed, cam, pxy, pid, soff, sampler, job.integrator)
-    launches0 = pmk.LAUNCHES
+    launches0 = pmk.LAUNCHES["path_mega_cam"]
     l, w = pmk.li_path_mega_cam(*args)
     torch.cuda.synchronize()
     l_ref, w_ref = pmk.li_path_mega_cam_reference(*args)
-    check(pmk.LAUNCHES > launches0, "the wrapper did not launch the kernel")
+    check(pmk.LAUNCHES["path_mega_cam"] > launches0, "the wrapper did not launch the kernel")
     bar = per_ray_bar(l, l_ref)
-    max_abs_err = max(float((l - l_ref).abs().max()), float((w - w_ref).abs().max()))
-    # the kernel alone (prepared launches), then the wrapper call with its
-    # host work, then the plain version
+    max_abs_err1 = max(float((l - l_ref).abs().max()), float((w - w_ref).abs().max()))
     ms = timed_ms(pmk.prepare_launch(*args), reps=20)
     wrapper_ms = timed_ms(lambda: pmk.li_path_mega_cam(*args))
     plain_ms = timed_ms(lambda: pmk.li_path_mega_cam_reference(*args))
     n1 = pxy.shape[0]
-    record["phase1"] = dict(rays=n1, camera_setup_s=setup_s, max_abs_err=max_abs_err,
+    record["phase1"] = dict(rays=n1, camera_setup_s=setup_s, max_abs_err=max_abs_err1,
                             ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, **bar)
     print(f"phase 1: 160x90x16 = {n1} rays, kernel {ms:.3f} ms (wrapper call "
           f"{wrapper_ms:.3f} ms), plain {plain_ms:.3f} ms, diverged {bar['diverged']:.2e}, "
           f"q99 {bar['q99']:.2e}, mean {bar['mean']:.6g} vs {bar['mean_ref']:.6g}, "
-          f"max_abs_err {max_abs_err:.3g} [{card}]")
+          f"max_abs_err {max_abs_err1:.3g} [{card}]")
 
-    # ---- phase 2: the main path, 640x360 x 16 spp through deploy_render ----
-    OUT.mkdir(parents=True, exist_ok=True)
-    png = OUT / "chip_smoke_640x360.png"
-    pmk.LAUNCHES = 0
-    res = deploy_render(str(SCENE), str(png))
-    launches = pmk.LAUNCHES
-    rgb = res["rgb_srgb_input"]
-    check(bool(torch.isfinite(rgb).all()), "non-finite image")
-    check(png.exists() and png.stat().st_size > 0, "no PNG written")
-    colored = int((rgb.sum(-1) > 0).sum())
-    check(colored > 0, "no coloured pixels")
-    check(res["fused_kernel"] == "path" and res["render_path"] == "megakernel", "wrong path")
-    check(launches == res["passes"] and launches > 0,
-          f"{launches} kernel launches for {res['passes']} passes")
-    # the kernel against its plain version on the main path's batch
+    kernels = {}
+
+    def entry(name, launches, held, extra_err=0.0):
+        kernels[name] = dict(
+            name=name, route="cuda", **KERNELS[name], launches=launches,
+            max_abs_err=max(held["max_abs_err"], extra_err), ms=held["ms"],
+            plain_ms=held["plain_ms"], bound_ms=held["bound_ms"], bound_by=held["bound_by"],
+            library_ms=None, rays=held["rays"], plain_rays=held["plain_rays"],
+        )
+
+    # ---- phase 2: the Path main path, 640x360 x 16 spp ----
+    res, colored, launches = drive(SCENE, OUT / "chip_smoke_640x360.png", "path_mega_cam", "path")
     full = load_scene(str(SCENE))
-    cam2 = pmk.pack_camera(RealisticCamera(full.camera, full.film, device=dev))
-    packed2 = pmk.pack_scene(full.scene, dev)
-    pxy2, pid2, soff2 = sample_batch(full.film, 16, dev)
-    args2 = (packed2, cam2, pxy2, pid2, soff2, StratifiedSampler(full.sampler), full.integrator)
-    n2 = pxy2.shape[0]
-    l2, w2 = pmk.li_path_mega_cam(*args2)
-    torch.cuda.synchronize()
-    l2_ref, w2_ref = pmk.li_path_mega_cam_reference(*args2)
-    bar2 = per_ray_bar(l2, l2_ref)
-    max_abs_err2 = max(float((l2 - l2_ref).abs().max()), float((w2 - w2_ref).abs().max()))
-    del l2, w2, l2_ref, w2_ref
-    warm = [render_job(full, dev)["mrays_per_s"] for _ in range(3)]
-    kernel_ms2 = timed_ms(pmk.prepare_launch(*args2), reps=20)
-    plain_ms2 = timed_ms(lambda: pmk.li_path_mega_cam_reference(*args2), reps=1)
-    record["phase2"] = dict(
-        rays=res["camera_rays"], passes=res["passes"], launches=launches,
-        colored=colored, max_abs_err=max_abs_err2, **bar2, render_mrays_per_s=res["mrays_per_s"], render_s=res["elapsed_s"],
-        warm_render_mrays_per_s=warm,
-        kernel_ms=kernel_ms2, kernel_mrays_per_s=n2 / kernel_ms2 / 1e3,
-        plain_ms=plain_ms2, plain_mrays_per_s=n2 / plain_ms2 / 1e3,
-    )
-    print(f"phase 2: deploy_render 640x360x16 = {res['camera_rays']} rays in "
-          f"{res['passes']} pass(es), {launches} launch(es), {colored} coloured px; "
-          f"render {res['mrays_per_s']:.2f} Mrays/s (first at this size), warm renders "
-          f"{', '.join(f'{m:.1f}' for m in warm)} Mrays/s; kernel alone "
-          f"{n2 / kernel_ms2 / 1e3:.1f} Mrays/s, plain version {n2 / plain_ms2 / 1e3:.3f} "
-          f"Mrays/s (same batch, one timed run); kernel vs plain there: diverged "
-          f"{bar2['diverged']:.2e}, q99 {bar2['q99']:.2e}, mean {bar2['mean']:.6g} vs "
-          f"{bar2['mean_ref']:.6g}, max_abs_err {max_abs_err2:.3g} [{card}]")
+    held = hold(pmk, full, 1, dev)
+    check(not held["bvh"], "the fixture took the BVH")
+    warm = warm_rates(full, dev)
+    record["phase2"] = dict(launches=launches, colored=colored, render_mrays_per_s=res["mrays_per_s"],
+                            render_s=res["elapsed_s"], warm_render_mrays_per_s=warm, **held)
+    entry("path_mega_cam", launches, held, max_abs_err1)
+    print(describe("phase 2: Path, samples/scene.json 640x360x16", res, launches, colored,
+                   held, warm, card))
 
-    # times at the main path's shape; the larger error of the two phases
-    kernels = [dict(KERNEL, launches=launches, max_abs_err=max(max_abs_err, max_abs_err2),
-                    ms=kernel_ms2, plain_ms=plain_ms2)]
-    record["kernels"] = kernels
+    # ---- phase 3: the Debug main path, 640x360 x 16 spp ----
+    res, colored, launches = drive(
+        SCENE_DEBUG, OUT / "chip_smoke_debug_640x360.png", "direct_mega_cam", "direct"
+    )
+    full = load_scene(str(SCENE_DEBUG))
+    held = hold(dmk, full, 1, dev)
+    check(not held["bvh"], "the Debug fixture took the BVH")
+    warm = warm_rates(full, dev)
+    record["phase3"] = dict(launches=launches, colored=colored, render_mrays_per_s=res["mrays_per_s"],
+                            render_s=res["elapsed_s"], warm_render_mrays_per_s=warm, **held)
+    # DirectLighting, one light per hit, 160x90 x 16 spp
+    small = load_scene(str(SCENE_DEBUG))
+    small.film.xres, small.film.yres = 160, 90
+    small.integrator.kind, small.integrator.light_strategy = "direct", "one"
+    one = hold(dmk, small, 1, dev)
+    record["phase3_direct_one"] = one
+    entry("direct_mega_cam", launches, held, one["max_abs_err"])
+    print(describe("phase 3: Debug, samples/scene_debug.json 640x360x16", res, launches,
+                   colored, held, warm, card)
+          + f"; DirectLighting one-light 160x90x16: diverged {one['diverged']:.2e}, q99 "
+          f"{one['q99']:.2e}, mean {one['mean']:.6g} vs {one['mean_ref']:.6g}, kernel "
+          f"{one['ms']:.3f} ms, plain {one['plain_ms']:.1f} ms")
+
+    # ---- phase 4: the 19,224-triangle grid over the in-kernel BVH ----
+    grid_path = write_grid_scene(str(OUT / "grid_path"), base=str(SCENE), integrator="Path")
+    grid_debug = write_grid_scene(
+        str(OUT / "grid_debug"), base=str(SCENE_DEBUG), integrator="Debug", max_depth=4
+    )
+    for tag, scene, kernel, fused, mod, spp, stride in (
+        ("Path", grid_path, "path_mega_cam_bvh", "path", pmk, 8, 8),
+        ("Debug", grid_debug, "direct_mega_cam_bvh", "direct", dmk, 16, 16),
+    ):
+        res, colored, launches = drive(
+            scene, OUT / f"chip_smoke_grid_{tag.lower()}_640x360.png", kernel, fused, spp
+        )
+        check(res["bvh"], f"the {tag} grid did not take the BVH")
+        full = load_scene(scene)
+        full.sampler.xsamp, full.sampler.ysamp = (2, 4) if spp == 8 else (4, 4)
+        held = hold(mod, full, stride, dev)
+        warm = warm_rates(full, dev, 2)
+        t = full.scene.triangles.count
+        record[f"phase4_{tag.lower()}"] = dict(
+            triangles=t, launches=launches, colored=colored, render_mrays_per_s=res["mrays_per_s"],
+            render_s=res["elapsed_s"], warm_render_mrays_per_s=warm, **held,
+        )
+        entry(kernel, launches, held)
+        print(describe(f"phase 4: {tag}, grid of {t} triangles 640x360x{spp}", res, launches,
+                       colored, held, warm, card))
+
+    lines = [kernels[name] for name in KERNELS]
+    record["kernels"] = lines
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -23,6 +23,8 @@ LOBE_SPEC_TRANS = 5
 LOBE_FRESNEL_SPEC = 6
 LOBE_MF_REFL = 7
 LOBE_MF_TRANS = 8
+LOBE_DEBUG_DIFFUSE = 10  # debug_material.rs: constant green diffuse
+LOBE_DEBUG_SPECULAR = 11  # debug_material.rs: constant blue specular
 
 # fresnel codes (reflection.rs:565-619)
 FRESNEL_NOOP = 0

@@ -2,7 +2,8 @@
 (rs_ray_toy_tpu/bsdf/recipes.py, constant-parameter subset).
 
 Mirrors the lobe assembly of matte.rs:35-61, plastic.rs:46-77,
-metal.rs:47-95, mirror.rs:29-49 and glass.rs:52-113.  Parameters are
+metal.rs:47-95, mirror.rs:29-49, glass.rs:52-113 and
+debug_material.rs:36-49.  Parameters are
 constants (RGB arrays or floats); a black spectrum drops its lobe at
 build time, as the reference's `!r.is_black()` gate does.  Plastic gates
 its specular lobe on ks, fixing the reference's kd gate (docs/PARITY.md).
@@ -17,6 +18,8 @@ from .lobes import (
     FRESNEL_NOOP,
     HostMaterial,
     Lobe,
+    LOBE_DEBUG_DIFFUSE,
+    LOBE_DEBUG_SPECULAR,
     LOBE_FRESNEL_SPEC,
     LOBE_LAMBERT_REFL,
     LOBE_MF_REFL,
@@ -122,3 +125,15 @@ def glass(name, kr, kt, u_roughness, v_roughness, eta, remap, allow_multiple_lob
                 )
             )
     return HostMaterial(name, eta, lobes)
+
+
+def debug(name) -> HostMaterial:
+    """debug_material.rs:36-49: fixed green-diffuse + blue-specular lobes."""
+    return HostMaterial(
+        name,
+        1.0,
+        [
+            Lobe(LOBE_DEBUG_DIFFUSE, s0=np.array([0.0, 1.0, 0.0])),
+            Lobe(LOBE_DEBUG_SPECULAR, s0=np.array([0.0, 0.0, 1.0])),
+        ],
+    )

@@ -1,0 +1,303 @@
+// Debug / DirectLighting sample pass for Hopper (sm_90a): one thread per
+// camera ray.
+//
+// Replaces the TPU kernels rs_ray_toy_tpu/ops/direct_megakernel.py ·
+// _kernel_cam (brute force, pallas_call in _run_cam for T <= 2048) and
+// _kernel_bvh_cam (the in-kernel BVH, up to 65,536 triangles): _raygen, then
+// _chain_loop, the reference's recursive specular tree (intersect_debug.rs,
+// directlighting.rs, integrator/mod.rs:150-301).  At every tree node: the
+// closest hit, the Debug integrator's flat 0.1 base, point-light NEE (every
+// light once, or one light picked by a 1-D sample) with an any-hit
+// shadow ray, then a reflect child (DEBUG_SPECULAR cosine sample or
+// SPEC_REFL mirror) and a transmit child (SPEC_TRANS refraction).  Output:
+// RGB radiance and the camera weight per ray.
+//
+// The TPU kernel unrolls the tree at trace time with a static branch id per
+// node.  Here each thread walks its own tree depth first with a small stack
+// of frames (origin, direction, beta, branch, depth); the branch id keeps
+// the sampler dimensions of the TPU kernel (dim_base = 8 + branch*257, the
+// reflect child 2b+1, the transmit child 2b+2).  A node whose beta is zero
+// contributes exactly zero and is not visited, so dead subtrees cost
+// nothing.  Radiance is summed in the order the nodes are visited: the node,
+// then its reflect subtree, then its transmit subtree (the plain version
+// li_levels_mega_cam_reference sums in the same order).
+//
+// What bounds it on this card: like the path kernel, divergent per-thread
+// FP32 ALU work (Moller-Trumbore, slab tests, lobes) over small read-only
+// tables; 20 bytes in and 16 bytes out per ray.  Geometry as in
+// common.cuh: staged in shared memory for brute force, a per-ray BVH stack
+// walk otherwise.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int DEPTH_MAX = 8;  // ops/direct_megakernel.DEPTH_MAX
+
+struct Frame {
+  float ox, oy, oz, dx, dy, dz, br, bg, bb;
+  uint32_t branch;
+  int depth;
+};
+
+// _lobe_f_dbg: NEE f over the non-specular lobes; debug-diffuse is the
+// constant (0, 1, 0), debug-specular and the specular kinds are 0
+__device__ void lobe_f_dbg(const Lobe& lob, float wox, float woy, float woz, float wix,
+                           float wiy, float wiz, float f[3]) {
+  if (lob.kind == LOBE_DEBUG_DIFFUSE) {
+    f[0] = 0.0f;
+    f[1] = 1.0f;
+    f[2] = 0.0f;
+  } else if (lob.kind == LOBE_DEBUG_SPECULAR) {
+    f[0] = f[1] = f[2] = 0.0f;
+  } else {
+    lobe_f(lob, wox, woy, woz, wix, wiy, wiz, f);
+  }
+}
+
+// The last lobe of the stack whose kind is a or b; false when there is none
+__device__ bool select_matching(const float* row, int n_lob, int a, int b, Lobe& out) {
+  bool has = false;
+  for (int l = 0; l < n_lob; ++l) {
+    const int kind = (int)__ldg(row + 16 + 16 * l);
+    if (kind == a || kind == b) {
+      out = load_lobe(row, l);
+      has = true;
+    }
+  }
+  return has;
+}
+
+template <bool kBvh>
+__global__ void __launch_bounds__(BLOCK)
+    direct_mega_cam_kernel(const float* __restrict__ table, int n_tris,
+                           const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                           const float* __restrict__ pixel_xy, const int* __restrict__ pid,
+                           const int* __restrict__ sid, float* __restrict__ out_l,
+                           float* __restrict__ out_w, int n, const __grid_constant__ Params p) {
+  extern __shared__ float s_geo[];
+  const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Sampler smp{(uint32_t)pid[i], (uint32_t)sid[i], &p};
+
+  float ox, oy, oz, dx, dy, dz, weight;
+  raygen(p, smp, pixel_xy[2 * i], pixel_xy[2 * i + 1], ox, oy, oz, dx, dy, dz, weight);
+
+  float Lr = 0.0f, Lg = 0.0f, Lb = 0.0f;
+  Frame stack[DEPTH_MAX];
+  int sp = 0;
+  if (weight > 0.0f) stack[sp++] = Frame{ox, oy, oz, dx, dy, dz, 1.0f, 1.0f, 1.0f, 0u, 1};
+  while (sp > 0) {
+    const Frame f = stack[--sp];
+    const uint32_t dim_base = 8u + f.branch * 257u;
+    float t;
+    const int best = geom.closest(f.ox, f.oy, f.oz, f.dx, f.dy, f.dz, t);
+    if (best < 0) continue;  // escaped: no infinite lights in this subset
+    const float* row = table + (size_t)best * TABLE_COLS;
+    const float ngx = __ldg(row + 9), ngy = __ldg(row + 10), ngz = __ldg(row + 11);
+    const int n_lob = (int)__ldg(row + 15);
+    float ssx, ssy, ssz, tsx, tsy, tsz;
+    shading_frame(ngx, ngy, ngz, __ldg(row + 12), __ldg(row + 13), __ldg(row + 14), ssx, ssy,
+                  ssz, tsx, tsy, tsz);
+    const float px = f.ox + f.dx * t, py = f.oy + f.dy * t, pz = f.oz + f.dz * t;
+    const float wox = -f.dx, woy = -f.dy, woz = -f.dz;
+    const float wol_x = dot3(wox, woy, woz, ssx, ssy, ssz);
+    const float wol_y = dot3(wox, woy, woz, tsx, tsy, tsz);
+    const float wo_z = dot3(wox, woy, woz, ngx, ngy, ngz);
+
+    // flat 0.1 base on any hit (intersect_debug.rs:69-72)
+    float lvl_r = 0.0f, lvl_g = 0.0f, lvl_b = 0.0f;
+    if (p.debug) lvl_r = lvl_g = lvl_b = 0.1f;
+    const float mag = fabsf(px) + fabsf(py) + fabsf(pz);
+    const float eps = 1e-4f + 1e-5f * mag;
+
+    // estimate_direct for one point light (integrator/mod.rs:403-470)
+    auto estimate = [&](int j, float e[3]) {
+      const float lpx = p.light_p[3 * j], lpy = p.light_p[3 * j + 1], lpz = p.light_p[3 * j + 2];
+      const float tlx = lpx - px, tly = lpy - py, tlz = lpz - pz;
+      const float dist2 = fmaxf(tlx * tlx + tly * tly + tlz * tlz, 1e-20f);
+      const float inv_d = rsqrt_exact(dist2);
+      const float wix = tlx * inv_d, wiy = tly * inv_d, wiz = tlz * inv_d;
+      const float wil_x = dot3(wix, wiy, wiz, ssx, ssy, ssz);
+      const float wil_y = dot3(wix, wiy, wiz, tsx, tsy, tsz);
+      const float wi_ng = dot3(wix, wiy, wiz, ngx, ngy, ngz);
+      float fr[3] = {0.0f, 0.0f, 0.0f};
+      if ((wi_ng * wo_z) > 0.0f && wo_z != 0.0f) {
+        for (int l = 0; l < n_lob; ++l) {
+          float lf[3];
+          lobe_f_dbg(load_lobe(row, l), wol_x, wol_y, wo_z, wil_x, wil_y, wi_ng, lf);
+          for (int c = 0; c < 3; ++c) fr[c] = fr[c] + lf[c];
+        }
+      }
+      e[0] = e[1] = e[2] = 0.0f;
+      // f == 0 contributes exactly 0 whether or not the light is occluded
+      if (fr[0] == 0.0f && fr[1] == 0.0f && fr[2] == 0.0f) return;
+      const float off = wi_ng < 0.0f ? -eps : eps;
+      const float sox = px + ngx * off, soy = py + ngy * off, soz = pz + ngz * off;
+      if (geom.occluded(sox, soy, soz, lpx - sox, lpy - soy, lpz - soz, SHADOW_T_MAX)) return;
+      const float s = fabsf(wi_ng) / dist2;
+      for (int c = 0; c < 3; ++c) e[c] = fr[c] * p.light_emit[3 * j + c] * s;
+    };
+
+    uint32_t dim_child;
+    if (p.strategy_all) {  // uniform_sample_all_lights (mod.rs:304-355)
+      // one sample per light: a point light's n_samples is 1
+      uint32_t dim = dim_base;
+      for (int j = 0; j < p.n_lights; ++j) {
+        float e[3];
+        dim += 2;  // (u_light, u_scatter): unread for delta lights
+        estimate(j, e);
+        lvl_r = lvl_r + e[0];
+        lvl_g = lvl_g + e[1];
+        lvl_b = lvl_b + e[2];
+      }
+      dim_child = dim;
+    } else {  // uniform_sample_one_light (mod.rs:359-401)
+      const float u_pick = smp.get_1d(dim_base);
+      const int li = min((int)(u_pick * (float)p.n_lights), p.n_lights - 1);
+      float e[3];
+      estimate(li, e);
+      lvl_r = lvl_r + e[0] * (float)p.n_lights;
+      lvl_g = lvl_g + e[1] * (float)p.n_lights;
+      lvl_b = lvl_b + e[2] * (float)p.n_lights;
+      dim_child = dim_base + 3u;
+    }
+    Lr = Lr + f.br * lvl_r;
+    Lg = Lg + f.bg * lvl_g;
+    Lb = Lb + f.bb * lvl_b;
+
+    if (f.depth + 1 >= p.max_depth) continue;
+
+    // child tail (integrator/mod.rs:162-176): beta = f |wi.n| / pdf, origin
+    // offset to the sampled side; false when the child's beta is zero
+    auto child = [&](float wsx, float wsy, float wsz, const float fs[3], float pdf, int ci,
+                     Frame& c) {
+      const float nwx = ssx * wsx + tsx * wsy + ngx * wsz;
+      const float nwy = ssy * wsx + tsy * wsy + ngy * wsz;
+      const float nwz = ssz * wsx + tsz * wsy + ngz * wsz;
+      const float dn = dot3(nwx, nwy, nwz, ngx, ngy, ngz);
+      const float cosw = fabsf(dn);
+      if (!(wo_z != 0.0f && pdf > 0.0f && cosw != 0.0f &&
+            (fs[0] != 0.0f || fs[1] != 0.0f || fs[2] != 0.0f)))
+        return false;
+      const float scale = cosw / fmaxf(pdf, 1e-20f);
+      c.br = f.br * fs[0] * scale;
+      c.bg = f.bg * fs[1] * scale;
+      c.bb = f.bb * fs[2] * scale;
+      if (c.br == 0.0f && c.bg == 0.0f && c.bb == 0.0f) return false;
+      const float off2 = dn < 0.0f ? -eps : eps;
+      c.ox = px + ngx * off2;
+      c.oy = py + ngy * off2;
+      c.oz = pz + ngz * off2;
+      c.dx = nwx;
+      c.dy = nwy;
+      c.dz = nwz;
+      c.branch = f.branch * 2u + 1u + (uint32_t)ci;
+      c.depth = f.depth + 1;
+      return true;
+    };
+
+    Frame refl, trans;
+    bool has_refl = false, has_trans = false;
+    Lobe lob;
+    if (p.can_chain && select_matching(row, n_lob, LOBE_DEBUG_SPECULAR, LOBE_SPEC_REFL, lob)) {
+      // reflect child: sample_f over SPECULAR|REFLECTION
+      float ub0, ub1;
+      smp.get_2d(dim_child, ub0, ub1);
+      float fs[3] = {0.0f, 0.0f, 0.0f};
+      float wsx, wsy, wsz, pdf;
+      if (lob.kind == LOBE_DEBUG_SPECULAR) {  // cosine sample, f = (0, 0, 1)
+        float dxo, dyo;
+        concentric_disk(fminf(ub0, ONE_MINUS_EPSILON), ub1, dxo, dyo);
+        float z_cos = sqrtf(fmaxf(0.0f, 1.0f - dxo * dxo - dyo * dyo));
+        if (wo_z < 0.0f) z_cos = -z_cos;
+        wsx = dxo;
+        wsy = dyo;
+        wsz = z_cos;
+        fs[2] = 1.0f;
+        pdf = (wo_z * wsz) > 0.0f ? fabsf(wsz) / PI_F : 0.0f;
+      } else {  // mirror
+        wsx = -wol_x;
+        wsy = -wol_y;
+        wsz = wo_z;
+        const float aci = fmaxf(fabsf(wsz), 1e-20f);
+        float fr[3];
+        fresnel(lob, wsz, fr);
+        for (int c = 0; c < 3; ++c) fs[c] = lob.s0[c] * fr[c] / aci;
+        pdf = 1.0f;
+      }
+      has_refl = child(wsx, wsy, wsz, fs, pdf, 0, refl);
+    }
+    if (p.has_st && select_matching(row, n_lob, LOBE_SPEC_TRANS, LOBE_SPEC_TRANS, lob)) {
+      // transmit child: SpecularTransmission::sample_f (reflection.rs:686-715)
+      const bool entering = wo_z > 0.0f;
+      const float ei = entering ? lob.eta_a : lob.eta_b;
+      const float et = entering ? lob.eta_b : lob.eta_a;
+      const float eta_rel = ei / fmaxf(et, 1e-9f);
+      const float abs_cz = fabsf(wo_z);
+      const float sin2_t = eta_rel * eta_rel * fmaxf(0.0f, 1.0f - abs_cz * abs_cz);
+      const bool st_ok = sin2_t < 1.0f;  // total internal reflection gate
+      const float cos_t = sqrtf(fmaxf(0.0f, 1.0f - sin2_t));
+      const float nz_sign = entering ? 1.0f : -1.0f;
+      const float wsx = -eta_rel * wol_x;
+      const float wsy = -eta_rel * wol_y;
+      const float wsz = -eta_rel * wo_z + (eta_rel * abs_cz - cos_t) * nz_sign;
+      const float scale_t = (ei * ei) / fmaxf(et * et, 1e-20f);
+      const float fr_t = fr_dielectric(wsz, lob.eta_a, lob.eta_b);
+      const float aci = fmaxf(fabsf(wsz), 1e-20f);
+      const float fac = st_ok ? (1.0f - fr_t) * scale_t / aci : 0.0f;
+      const float fs[3] = {lob.s0[0] * fac, lob.s0[1] * fac, lob.s0[2] * fac};
+      has_trans = child(wsx, wsy, wsz, fs, st_ok ? 1.0f : 0.0f, 1, trans);
+    }
+    // the reflect subtree is visited first: push it last
+    if (has_trans) stack[sp++] = trans;
+    if (has_refl) stack[sp++] = refl;
+  }
+  out_l[3 * i + 0] = Lr;
+  out_l[3 * i + 1] = Lg;
+  out_l[3 * i + 2] = Lb;
+  out_w[i] = weight;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch one sample pass on `stream`: brute force when nodes_f is null, the
+// BVH walk otherwise.  Returns cudaGetLastError() of the launch (0 when it
+// was accepted); nothing is synchronised.
+int direct_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
+                           const int* nodes_i, const Params* params, const float* pixel_xy,
+                           const int* pid, const int* sid, float* out_l, float* out_w, int n,
+                           void* stream) {
+  cudaGetLastError();  // clear any stale error of this runtime
+  if (n <= 0) return 0;
+  if (params->max_depth < 1 || params->max_depth > DEPTH_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nodes_f != nullptr) {
+    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
+      return (int)cudaErrorInvalidValue;
+    direct_mega_cam_kernel<true><<<grid, BLOCK, 0, st>>>(
+        table, n_tris, nodes_f, nodes_i, pixel_xy, pid, sid, out_l, out_w, n, *params);
+    return (int)cudaGetLastError();
+  }
+  if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(direct_mega_cam_kernel<false>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
+  direct_mega_cam_kernel<false><<<grid, BLOCK, smem, st>>>(
+      table, n_tris, nullptr, nullptr, pixel_xy, pid, sid, out_l, out_w, n, *params);
+  return (int)cudaGetLastError();
+}
+
+const char* direct_mega_cam_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int direct_mega_cam_params_size() { return (int)sizeof(Params); }
+
+}  // extern "C"

@@ -1,592 +1,52 @@
 // Path-integrator sample pass for Hopper (sm_90a): one thread per camera ray.
 //
-// Replaces the TPU kernel rs_ray_toy_tpu/ops/path_megakernel.py · _kernel_cam
-// (pallas_call in _run_cam), on its brute-force, triangle-only, flat-shaded,
-// stratified-sampler, point-light subset.  Per ray it evaluates the sampler
-// hash for every slot it consumes, traces the lens system (_raygen), and runs
-// the bounce loop (_bounce_loop): Moller-Trumbore closest hit over the whole
+// Replaces the TPU kernels rs_ray_toy_tpu/ops/path_megakernel.py · _kernel_cam
+// (brute force, pallas_call in _run_cam for T <= 2048) and _kernel_cam_bvh
+// (the in-kernel BVH, up to 65,536 triangles), on their triangle-only,
+// flat-shaded, stratified-sampler, point-light subset.  Per ray it evaluates
+// the sampler hash for every slot it consumes, traces the lens system
+// (_raygen), and runs the bounce loop (_bounce_loop): closest hit over the
 // triangle table, point-light NEE with an any-hit shadow ray, one BSDF sample
 // over lambert / Trowbridge-Reitz microfacet / specular-reflect /
 // fresnel-specular lobes with the etaScale factor, and Russian roulette after
 // bounce 3.  Output: RGB radiance and the camera weight per ray.
 //
-// What bounds it on this card: divergent per-thread FP32 ALU work over tiny
-// read-only tables (a few KB of triangles, lights and lens constants).  It
-// moves 20 bytes in and 16 bytes out per ray, so it is latency- and
-// occupancy-bound, not bandwidth-bound.  The simple design answers that with
+// What bounds it on this card: divergent per-thread FP32 ALU work over
+// read-only tables (a few KB of triangles for the fixture, ~9 MB of table and
+// nodes for a 19,200-triangle mesh), lights and lens constants.  It moves 20
+// bytes in and 16 bytes out per ray, so it is latency- and occupancy-bound,
+// not bandwidth-bound.  The simple design answers that with
 // (a) no packets and no padding: each thread walks its own ray to
 // termination, so dead rays retire instead of idling in a masked tile;
-// (b) the intersect-side triangle columns (p0, e1, e2: 36 B per triangle,
-// 72 KB at TRI_MAX) staged once per block in shared memory, where all lanes
-// of a warp read the same triangle, so loads broadcast;
+// (b) brute force (T <= 2048): the intersect-side triangle columns (p0, e1,
+// e2: 36 B per triangle, 72 KB at TRI_MAX) staged once per block in shared
+// memory, where all lanes of a warp read the same triangle, so loads
+// broadcast; BVH mode: a per-ray stack walk with the node rows and the
+// triangle table read through the read-only cache (common.cuh, Geometry);
 // (c) lens, pupil and light constants in one __grid_constant__ parameter
-// block (constant bank).  Warp divergence between lobes and path lengths is
-// accepted for now.
+// block (constant bank).  Warp divergence between lobes, path lengths and
+// BVH walks is accepted for now.
 //
 // Numerics follow the plain PyTorch version (li_path_mega_cam_reference)
-// expression by expression, built with --fmad=false so that no product is
-// contracted into an FMA.  Reciprocal square roots are 1.0f / sqrtf(x), both
-// correctly rounded, as the plain version computes them.
+// expression by expression; see common.cuh.
 
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int TABLE_COLS = 115;  // per-triangle table width (pack_scene)
-constexpr int GEO_COLS = 9;      // p0, e1, e2
-constexpr int TRI_MAX = 2048;    // ops/path_megakernel.TRI_MAX
-constexpr int LIGHT_MAX = 8;
-constexpr int ELEM_MAX = 16;
-constexpr int BIN_MAX = 64;
-
-constexpr int LOBE_LAMBERT_REFL = 1;
-constexpr int LOBE_SPEC_REFL = 4;
-constexpr int LOBE_SPEC_TRANS = 5;
-constexpr int LOBE_FRESNEL_SPEC = 6;
-constexpr int LOBE_MF_REFL = 7;
-constexpr int FRESNEL_DIELECTRIC = 1;
-constexpr int FRESNEL_CONDUCTOR = 2;
-
-constexpr float PI_F = 3.14159265358979323846f;
-constexpr float TWO_PI_F = (float)(2.0 * 3.14159265358979323846);
-constexpr float PI_OVER_2_F = (float)(3.14159265358979323846 / 2.0);
-constexpr float PI_OVER_4_F = (float)(3.14159265358979323846 / 4.0);
-constexpr float TRI_EPS = 1e-7f;
-constexpr float BIG_T = 3.0e38f;
-constexpr float U_TOP = (float)(1.0 - 1e-7);  // sampler clamp
-constexpr float ONE_MINUS_EPSILON = 0.99999994f;
-constexpr float SHADOW_T_MAX = (float)(1.0 - 1e-4);
-
-}  // namespace
-
-// Must match ops/path_megakernel._Params field for field (all 4-byte fields).
-struct Params {
-  int max_depth;
-  float rr_threshold;
-  int spp, xs, ys, xs_shift, jitter;
-  uint32_t seed;
-  int n_lights;
-  float light_p[LIGHT_MAX * 3];
-  float light_emit[LIGHT_MAX * 3];
-  int n_elem;
-  // per element, film side first; element_z, zc, radius^2, aperture^2, the
-  // refraction ratio and its square are folded on the host in float64
-  float elem_z[ELEM_MAX];
-  float radius[ELEM_MAX];
-  float zc[ELEM_MAX];
-  float radius2[ELEM_MAX];
-  float aperture2[ELEM_MAX];
-  float eta[ELEM_MAX];
-  float eta2[ELEM_MAX];
-  int n_bins;
-  float bounds[BIN_MAX * 4];
-  float half_diag, xres, yres, extent_x, extent_y, rear_z, rear_z_sq, area0, shutter;
-  int simple_weighting;
-  float cam_to_world[12];
-};
-
-namespace {
-
-// ---- counter-based sampler (core/rng.py, sampler/stratified.py) ----
-
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t hash_combine(uint32_t a, uint32_t b) {
-  return hash_u32(a ^ (b + 0x9E3779B9u + (a << 6) + (a >> 2)));
-}
-
-__device__ __forceinline__ uint32_t permute_pow2(uint32_t i, uint32_t n, uint32_t p) {
-  const uint32_t w = n - 1;
-  i ^= p;
-  i *= 0xE170893Du;
-  i ^= p >> 16;
-  i ^= (i & w) >> 4;
-  i ^= p >> 8;
-  i *= 0x0929EB3Fu;
-  i ^= p >> 23;
-  i ^= (i & w) >> 1;
-  i *= 1u | (p >> 27);
-  i *= 0x6935FA69u;
-  i ^= (i & w) >> 11;
-  i *= 0x74DCCA23u;
-  i ^= p >> 2;
-  i *= 0x9E501CC3u;
-  i ^= (i & w) >> 2;
-  i *= 0xC860A3DFu;
-  i &= w;
-  i ^= i >> 5;
-  return (i + p) & w;
-}
-
-__device__ __forceinline__ float uniform_float(uint32_t pid, uint32_t sid, uint32_t dim,
-                                               uint32_t seed) {
-  uint32_t h = hash_combine(pid, sid);
-  h = hash_combine(h, dim);
-  h = hash_combine(h, seed);
-  return (float)(int32_t)(h >> 8) * 5.9604644775390625e-8f;  // 2^-24
-}
-
-struct Sampler {
-  uint32_t pid, sid;
-  const Params* p;
-
-  __device__ uint32_t stratum(int dim) const {
-    uint32_t dk = (uint32_t)dim * 2654435761u + p->seed;
-    return permute_pow2(sid, (uint32_t)p->spp, hash_combine(pid, dk));
-  }
-  __device__ float get_1d(int dim) const {
-    uint32_t s = stratum(dim);
-    float j = p->jitter ? uniform_float(pid, sid, (uint32_t)dim * 64u, p->seed) : 0.5f;
-    return fminf(((float)(int32_t)s + j) / (float)p->spp, U_TOP);
-  }
-  __device__ void get_2d(int dim, float& u0, float& u1) const {
-    uint32_t s = stratum(dim);
-    float sx = (float)(int32_t)(s & (uint32_t)(p->xs - 1));
-    float sy = (float)(int32_t)(s >> p->xs_shift);
-    float jx = 0.5f, jy = 0.5f;
-    if (p->jitter) {
-      jx = uniform_float(pid, sid, (uint32_t)dim * 64u + 1u, p->seed);
-      jy = uniform_float(pid, sid, (uint32_t)dim * 64u + 2u, p->seed);
-    }
-    u0 = fminf((sx + jx) / (float)p->xs, U_TOP);
-    u1 = fminf((sy + jy) / (float)p->ys, U_TOP);
-  }
-};
-
-__device__ __forceinline__ float rsqrt_exact(float x) { return 1.0f / sqrtf(x); }
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
-                                      float bz) {
-  return ax * bx + ay * by + az * bz;
-}
-
-// ---- camera (ops/path_megakernel._raygen) ----
-
-__device__ void raygen(const Params& p, const Sampler& smp, float px, float py,
-                       float& ox_w, float& oy_w, float& oz_w, float& dx_w, float& dy_w,
-                       float& dz_w, float& weight) {
-  float uf0, uf1, ul0, ul1;
-  smp.get_2d(0, uf0, uf1);
-  smp.get_2d(1, ul0, ul1);
-  const float sx = (px + uf0) / p.xres;
-  const float sy = (py + uf1) / p.yres;
-  const float pfx = -((sx - 0.5f) * p.extent_x);
-  const float pfy = (sy - 0.5f) * p.extent_y;
-
-  // exit pupil sample (camera.rs:492-521)
-  const float r_film = sqrtf(pfx * pfx + pfy * pfy);
-  int r_idx = (int)(r_film / p.half_diag * (float)p.n_bins);
-  r_idx = min(max(r_idx, 0), p.n_bins - 1);
-  const float b0 = p.bounds[4 * r_idx + 0], b1 = p.bounds[4 * r_idx + 1];
-  const float b2 = p.bounds[4 * r_idx + 2], b3 = p.bounds[4 * r_idx + 3];
-  const float prx = b0 + ul0 * (b2 - b0);
-  const float pry = b1 + ul1 * (b3 - b1);
-  const float area = (b2 - b0) * (b3 - b1);
-  const float safe_r = r_film == 0.0f ? 1.0f : r_film;
-  const float sin_t = r_film != 0.0f ? pfy / safe_r : 0.0f;
-  const float cos_t = r_film != 0.0f ? pfx / safe_r : 1.0f;
-  const float rearx = cos_t * prx - sin_t * pry;
-  const float reary = sin_t * prx + cos_t * pry;
-
-  // dz's square is the host's float64 rear_z^2 until the first refraction
-  // (the plain version keeps dz a python float until then)
-  const float dx0 = rearx - pfx, dy0 = reary - pfy, dz0 = p.rear_z - 0.0f;
-  const float dlen = sqrtf(fmaxf(dx0 * dx0 + dy0 * dy0 + p.rear_z_sq, 1e-30f));
-  const float cos_theta = dz0 / dlen;
-  const float c2 = cos_theta * cos_theta;
-  const float cos4 = c2 * c2;
-
-  // film-side trace through every element, lens space (z flipped)
-  float ox = pfx, oy = pfy, oz = 0.0f;
-  float dx = dx0, dy = dy0, dz = -dz0;
-  bool alive = true;
-  bool dz_host = true;
-  for (int i = 0; i < p.n_elem; ++i) {
-    const float ez = p.elem_z[i];
-    const float radius = p.radius[i];
-    const bool is_stop = radius == 0.0f;
-    float t;
-    bool ok;
-    float zc = 0.0f;
-    if (is_stop) {
-      ok = dz < 0.0f;
-      t = (ez - oz) / (ok ? dz : -1.0f);
-    } else {
-      zc = p.zc[i];
-      const float ocx = ox, ocy = oy, ocz = oz - zc;
-      const float a = dx * dx + dy * dy + (dz_host ? p.rear_z_sq : dz * dz);
-      const float bq = 2.0f * (dx * ocx + dy * ocy + dz * ocz);
-      const float cq = ocx * ocx + ocy * ocy + ocz * ocz - p.radius2[i];
-      const float disc = bq * bq - 4.0f * a * cq;
-      ok = disc >= 0.0f;
-      const float root = sqrtf(fmaxf(disc, 0.0f));
-      const float q = bq < 0.0f ? -0.5f * (bq - root) : -0.5f * (bq + root);
-      const float t0 = q / a;
-      const float t1 = cq / (q == 0.0f ? 1.0f : q);
-      const float lo = fminf(t0, t1), hi = fmaxf(t0, t1);
-      const bool use_closer = (dz > 0.0f) != (radius < 0.0f);
-      t = use_closer ? lo : hi;
-      ok = ok && (t >= 0.0f);
-    }
-    const float hx = ox + dx * t, hy = oy + dy * t, hz = oz + dz * t;
-    const float r2 = hx * hx + hy * hy;
-    ok = ok && (r2 < p.aperture2[i]);
-    alive = alive && ok;
-    if (alive) {
-      ox = hx;
-      oy = hy;
-      oz = hz;
-    }
-    if (!is_stop) {
-      const float pcx = ox, pcy = oy, pcz = oz - zc;
-      const float ninv = rsqrt_exact(fmaxf(pcx * pcx + pcy * pcy + pcz * pcz, 1e-30f));
-      float nx = pcx * ninv, ny = pcy * ninv, nz = pcz * ninv;
-      if (nx * dx + ny * dy + nz * dz > 0.0f) {
-        nx = -nx;
-        ny = -ny;
-        nz = -nz;
-      }
-      const float eta = p.eta[i];
-      const float dinv =
-          rsqrt_exact(fmaxf(dx * dx + dy * dy + (dz_host ? p.rear_z_sq : dz * dz), 1e-30f));
-      dz_host = false;
-      const float wix = -dx * dinv, wiy = -dy * dinv, wiz = -dz * dinv;
-      const float cos_i = nx * wix + ny * wiy + nz * wiz;
-      const float sin2_i = fmaxf(0.0f, 1.0f - cos_i * cos_i);
-      const float sin2_t = p.eta2[i] * sin2_i;
-      const bool rok = sin2_t < 1.0f;
-      const float cos_tr = sqrtf(fmaxf(0.0f, 1.0f - sin2_t));
-      const float fac = eta * cos_i - cos_tr;
-      const float wtx = -wix * eta + nx * fac;
-      const float wty = -wiy * eta + ny * fac;
-      const float wtz = -wiz * eta + nz * fac;
-      alive = alive && rok;
-      if (alive) {
-        dx = wtx;
-        dy = wty;
-        dz = wtz;
-      }
-    }
-  }
-  oz = -oz;  // lens -> camera space
-  dz = -dz;
-
-  const float* m = p.cam_to_world;
-  ox_w = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
-  oy_w = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
-  oz_w = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
-  float vx = m[0] * dx + m[1] * dy + m[2] * dz;
-  float vy = m[4] * dx + m[5] * dy + m[6] * dz;
-  float vz = m[8] * dx + m[9] * dy + m[10] * dz;
-  const float vinv = 1.0f / fmaxf(sqrtf(vx * vx + vy * vy + vz * vz), 1e-30f);
-  dx_w = vx * vinv;
-  dy_w = vy * vinv;
-  dz_w = vz * vinv;
-  if (p.simple_weighting) {
-    weight = cos4 * area / p.area0;
-  } else {
-    weight = p.shutter * (cos4 * area);
-  }
-  if (!alive) weight = 0.0f;
-}
-
-// ---- geometry (ops/path_megakernel._closest_hit / _occluded) ----
-
-struct Geometry {
-  const float* geo;  // the intersect columns in shared memory, GEO_COLS wide
-  __device__ float at(int j, int c) const { return geo[j * GEO_COLS + c]; }
-  // Moller-Trumbore; true (and t) when the hit passes every test but t_max
-  __device__ bool hit(int j, float ox, float oy, float oz, float dx, float dy, float dz,
-                      float& t) const {
-    const float p0x = at(j, 0), p0y = at(j, 1), p0z = at(j, 2);
-    const float e1x = at(j, 3), e1y = at(j, 4), e1z = at(j, 5);
-    const float e2x = at(j, 6), e2y = at(j, 7), e2z = at(j, 8);
-    const float pvx = dy * e2z - dz * e2y;
-    const float pvy = dz * e2x - dx * e2z;
-    const float pvz = dx * e2y - dy * e2x;
-    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-    const bool ok = fabsf(det) >= TRI_EPS;
-    const float inv = 1.0f / (ok ? det : 1.0f);
-    const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-    const float qvx = tvy * e1z - tvz * e1y;
-    const float qvy = tvz * e1x - tvx * e1z;
-    const float qvz = tvx * e1y - tvy * e1x;
-    const float v = (dx * qvx + dy * qvy + dz * qvz) * inv;
-    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
-    return ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t >= TRI_EPS;
-  }
-  // strict < in table order: ties keep the lower row, as on the TPU
-  __device__ int closest(int n_tris, float ox, float oy, float oz, float dx, float dy,
-                         float dz, float& t_best) const {
-    t_best = BIG_T;
-    int best = -1;
-    for (int j = 0; j < n_tris; ++j) {
-      float t;
-      if (hit(j, ox, oy, oz, dx, dy, dz, t) && t < t_best) {
-        t_best = t;
-        best = j;
-      }
-    }
-    return best;
-  }
-  __device__ bool occluded(int n_tris, float ox, float oy, float oz, float dx, float dy,
-                           float dz, float t_max) const {
-    for (int j = 0; j < n_tris; ++j) {
-      float t;
-      if (hit(j, ox, oy, oz, dx, dy, dz, t) && t < t_max) return true;
-    }
-    return false;
-  }
-};
-
-// ---- lobes (ops/path_megakernel._lobe_f_k, _lobe_pdf_k, _fresnel_k) ----
-
-struct Lobe {
-  int kind;
-  float s0[3], s1[3], s2[3];
-  float au, av;
-  int fres;
-  float eta_a, eta_b;
-};
-
-__device__ Lobe load_lobe(const float* row, int l) {
-  const float* b = row + 16 + 16 * l;
-  Lobe lob;
-  lob.kind = (int)__ldg(b + 0);
-  for (int c = 0; c < 3; ++c) {
-    lob.s0[c] = __ldg(b + 1 + c);
-    lob.s1[c] = __ldg(b + 4 + c);
-    lob.s2[c] = __ldg(b + 7 + c);
-  }
-  lob.au = __ldg(b + 10);
-  lob.av = __ldg(b + 11);
-  lob.fres = (int)__ldg(b + 12);
-  lob.eta_a = __ldg(b + 13);
-  lob.eta_b = __ldg(b + 14);
-  return lob;
-}
-
-__device__ __forceinline__ bool is_spec_kind(int k) {
-  return k == LOBE_SPEC_REFL || k == LOBE_SPEC_TRANS || k == LOBE_FRESNEL_SPEC;
-}
-
-__device__ void trig_theta_phi(float x, float y, float z, float& cos2, float& tan2,
-                               float& c2p, float& s2p) {
-  cos2 = z * z;
-  const float sin2 = fmaxf(0.0f, 1.0f - cos2);
-  tan2 = sin2 / (cos2 == 0.0f ? 1e-30f : cos2);
-  const float sin_t = sqrtf(sin2);
-  const float safe = sin_t == 0.0f ? 1.0f : sin_t;
-  const float cos_p = sin_t == 0.0f ? 1.0f : fminf(fmaxf(x / safe, -1.0f), 1.0f);
-  const float sin_p = sin_t == 0.0f ? 0.0f : fminf(fmaxf(y / safe, -1.0f), 1.0f);
-  c2p = cos_p * cos_p;
-  s2p = sin_p * sin_p;
-}
-
-__device__ float tr_d(float x, float y, float z, float au, float av) {
-  float cos2, tan2, c2p, s2p;
-  trig_theta_phi(x, y, z, cos2, tan2, c2p, s2p);
-  const float c4 = cos2 * cos2;
-  const float e = (c2p / (au * au) + s2p / (av * av)) * tan2;
-  const float ope = 1.0f + e;
-  const float d = 1.0f / (PI_F * au * av * c4 * (ope * ope));
-  return (tan2 <= FLT_MAX && c4 > 0.0f) ? d : 0.0f;  // tan2 >= 0: finite test
-}
-
-__device__ float tr_lambda(float x, float y, float z, float au, float av) {
-  float cos2, tan2, c2p, s2p;
-  trig_theta_phi(x, y, z, cos2, tan2, c2p, s2p);
-  const float alpha2 = c2p * au * au + s2p * av * av;
-  const float lam = (-1.0f + sqrtf(1.0f + alpha2 * tan2)) / 2.0f;
-  return tan2 <= FLT_MAX ? lam : 0.0f;
-}
-
-__device__ float fr_dielectric(float cos_i, float eta_i, float eta_t) {
-  cos_i = fminf(fmaxf(cos_i, -1.0f), 1.0f);
-  const bool entering = cos_i > 0.0f;
-  const float ei = entering ? eta_i : eta_t;
-  const float et = entering ? eta_t : eta_i;
-  const float ci = fabsf(cos_i);
-  const float sin_i = sqrtf(fmaxf(0.0f, 1.0f - ci * ci));
-  const float sin_t = ei / et * sin_i;
-  const bool tir = sin_t >= 1.0f;
-  const float ct = sqrtf(fmaxf(0.0f, 1.0f - sin_t * sin_t));
-  const float r_par = (et * ci - ei * ct) / fmaxf(et * ci + ei * ct, 1e-20f);
-  const float r_perp = (ei * ci - et * ct) / fmaxf(ei * ci + et * ct, 1e-20f);
-  return tir ? 1.0f : 0.5f * (r_par * r_par + r_perp * r_perp);
-}
-
-__device__ float fr_conductor(float ci2, float si2, float eta, float k) {
-  const float e2 = eta * eta;
-  const float k2 = k * k;
-  const float t0 = e2 - k2 - si2;
-  const float a2b2 = sqrtf(fmaxf(t0 * t0 + 4.0f * e2 * k2, 0.0f));
-  const float t1 = a2b2 + ci2;
-  const float a = sqrtf(fmaxf(0.5f * (a2b2 + t0), 0.0f));
-  const float t2 = 2.0f * a * sqrtf(ci2);
-  const float rs = (t1 - t2) / fmaxf(t1 + t2, 1e-20f);
-  const float t3 = a2b2 * ci2 + si2 * si2;
-  const float t4 = t2 * si2;
-  const float rp = rs * (t3 - t4) / fmaxf(t3 + t4, 1e-20f);
-  return 0.5f * (rp + rs);
-}
-
-__device__ void fresnel(const Lobe& lob, float cos_i, float fr[3]) {
-  if (lob.fres == FRESNEL_DIELECTRIC) {
-    const float v = fr_dielectric(cos_i, lob.eta_a, lob.eta_b);
-    fr[0] = fr[1] = fr[2] = v;
-  } else if (lob.fres == FRESNEL_CONDUCTOR) {
-    const float ci = fminf(fmaxf(fabsf(cos_i), 0.0f), 1.0f);
-    const float ci2 = ci * ci;
-    const float si2 = 1.0f - ci2;
-    for (int c = 0; c < 3; ++c) fr[c] = fr_conductor(ci2, si2, lob.s2[c], lob.s1[c]);
-  } else {
-    fr[0] = fr[1] = fr[2] = 1.0f;
-  }
-}
-
-// lobe_f on local-frame directions; specular kinds evaluate to 0
-__device__ void lobe_f(const Lobe& lob, float wox, float woy, float woz, float wix,
-                       float wiy, float wiz, float f[3]) {
-  f[0] = f[1] = f[2] = 0.0f;
-  if (lob.kind == LOBE_LAMBERT_REFL) {
-    for (int c = 0; c < 3; ++c) f[c] = lob.s0[c] / PI_F;
-  } else if (lob.kind == LOBE_MF_REFL) {
-    const float whx = wox + wix, why = woy + wiy, whz = woz + wiz;
-    const float wh2 = whx * whx + why * why + whz * whz;
-    const float wh_len = sqrtf(fmaxf(wh2, 0.0f));
-    const float inv_l = 1.0f / fmaxf(wh_len, 1e-20f);
-    const float nhx = whx * inv_l, nhy = why * inv_l, nhz = whz * inv_l;
-    const float co = fabsf(woz), ci = fabsf(wiz);
-    const bool ok = co > 0.0f && ci > 0.0f && wh_len > 0.0f;
-    const float s = nhz < 0.0f ? -1.0f : 1.0f;
-    float fr[3];
-    fresnel(lob, wix * (s * nhx) + wiy * (s * nhy) + wiz * (s * nhz), fr);
-    const float d_val = tr_d(nhx, nhy, nhz, lob.au, lob.av);
-    const float lam_o = tr_lambda(wox, woy, woz, lob.au, lob.av);
-    const float lam_i = tr_lambda(wix, wiy, wiz, lob.au, lob.av);
-    const float g = 1.0f / (1.0f + lam_o + lam_i);
-    const float scale = d_val * g / fmaxf(4.0f * ci * co, 1e-20f);
-    if (ok)
-      for (int c = 0; c < 3; ++c) f[c] = lob.s0[c] * fr[c] * scale;
-  }
-}
-
-__device__ float lobe_pdf(const Lobe& lob, float wox, float woy, float woz, float wix,
-                          float wiy, float wiz) {
-  if (is_spec_kind(lob.kind)) return 0.0f;
-  const bool same = (woz * wiz) > 0.0f;
-  if (lob.kind != LOBE_MF_REFL) return same ? fabsf(wiz) / PI_F : 0.0f;
-  float whx = wox + wix, why = woy + wiy, whz = woz + wiz;
-  const float inv_l = rsqrt_exact(fmaxf(whx * whx + why * why + whz * whz, 1e-30f));
-  whx *= inv_l;
-  why *= inv_l;
-  whz *= inv_l;
-  const float d_val = tr_d(whx, why, whz, lob.au, lob.av);
-  const float lam_o = tr_lambda(wox, woy, woz, lob.au, lob.av);
-  const float dot_owh = wox * whx + woy * why + woz * whz;
-  const float pdf_wh = d_val / (1.0f + lam_o) * fabsf(dot_owh) / fmaxf(fabsf(woz), 1e-20f);
-  return same ? pdf_wh / fmaxf(4.0f * dot_owh, 1e-20f) : 0.0f;
-}
-
-// tr_sample_wh_visible (bsdf/microfacet.py), local frame
-__device__ void tr_sample_wh(float wox, float woy, float woz, float au, float av, float u0,
-                             float u1, float& hx, float& hy, float& hz) {
-  const bool flip = woz < 0.0f;
-  const float wx = flip ? -wox : wox, wy = flip ? -woy : woy, wz = flip ? -woz : woz;
-  const float sx_ = wx * au, sy_ = wy * av, sz_ = wz;
-  const float inv = rsqrt_exact(fmaxf(sx_ * sx_ + sy_ * sy_ + sz_ * sz_, 1e-30f));
-  const float wsx = sx_ * inv, wsy = sy_ * inv, wsz = sz_ * inv;
-
-  const float cos_theta = wsz;
-  float slope_x, slope_y;
-  if (cos_theta > 0.9999f) {
-    const float r_spec = sqrtf(u0 / fmaxf(1.0f - u0, 1e-9f));
-    const float phi_spec = TWO_PI_F * u1;
-    slope_x = r_spec * cosf(phi_spec);
-    slope_y = r_spec * sinf(phi_spec);
-  } else {
-    const float sin_theta = sqrtf(fmaxf(0.0f, 1.0f - cos_theta * cos_theta));
-    const float tan_theta = sin_theta / fmaxf(cos_theta, 1e-9f);
-    const float a_inv = 1.0f / fmaxf(tan_theta, 1e-9f);
-    const float g1v = 2.0f / (1.0f + sqrtf(1.0f + 1.0f / (a_inv * a_inv)));
-    const float a = 2.0f * u0 / g1v - 1.0f;
-    float tmp = fminf(1.0f / fmaxf(a * a - 1.0f, 1e-12f), 1e10f);
-    if (a * a - 1.0f <= 0.0f) tmp = 1e10f;
-    const float b = tan_theta;
-    const float dsc = fmaxf(b * b * tmp * tmp - (a * a - b * b) * tmp, 0.0f);
-    const float dq = sqrtf(dsc);
-    const float sx1 = b * tmp - dq;
-    const float sx2 = b * tmp + dq;
-    slope_x = (a < 0.0f || sx2 > 1.0f / fmaxf(tan_theta, 1e-9f)) ? sx1 : sx2;
-    const float sgn = u1 > 0.5f ? 1.0f : -1.0f;
-    const float nu2 = u1 > 0.5f ? 2.0f * (u1 - 0.5f) : 2.0f * (0.5f - u1);
-    const float z = (nu2 * (nu2 * (nu2 * 0.27385f - 0.73369f) + 0.46341f)) /
-                    (nu2 * (nu2 * (nu2 * 0.093073f + 0.309420f) - 1.0f) + 0.597999f);
-    slope_y = sgn * z * sqrtf(1.0f + slope_x * slope_x);
-  }
-  const float s2 = fmaxf(0.0f, 1.0f - wsz * wsz);
-  const float sin_t = sqrtf(s2);
-  const float safe = sin_t == 0.0f ? 1.0f : sin_t;
-  const float cos_p = sin_t == 0.0f ? 1.0f : wsx / safe;
-  const float sin_p = sin_t == 0.0f ? 0.0f : wsy / safe;
-  const float rx = cos_p * slope_x - sin_p * slope_y;
-  const float ry = sin_p * slope_x + cos_p * slope_y;
-  hx = -au * rx;
-  hy = -av * ry;
-  hz = 1.0f;
-  const float inv_h = rsqrt_exact(fmaxf(hx * hx + hy * hy + hz * hz, 1e-30f));
-  hx *= inv_h;
-  hy *= inv_h;
-  hz *= inv_h;
-  if (flip) {
-    hx = -hx;
-    hy = -hy;
-    hz = -hz;
-  }
-}
-
-__device__ void concentric_disk(float u0, float u1, float& dxo, float& dyo) {
-  const float x = 2.0f * u0 - 1.0f;
-  const float y = 2.0f * u1 - 1.0f;
-  if (x == 0.0f && y == 0.0f) {
-    dxo = dyo = 0.0f;
-    return;
-  }
-  const bool use_x = fabsf(x) > fabsf(y);
-  const float safe_x = x == 0.0f ? 1.0f : x;
-  const float safe_y = y == 0.0f ? 1.0f : y;
-  const float r = use_x ? x : y;
-  const float theta =
-      use_x ? PI_OVER_4_F * (y / safe_x) : PI_OVER_2_F - PI_OVER_4_F * (x / safe_y);
-  dxo = cosf(theta) * r;
-  dyo = sinf(theta) * r;
-}
 
 // ---- one sample pass per thread ----
 
-__global__ void __launch_bounds__(128)
+template <bool kBvh>
+__global__ void __launch_bounds__(BLOCK)
     path_mega_cam_kernel(const float* __restrict__ table, int n_tris,
+                         const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
                          const float* __restrict__ pixel_xy, const int* __restrict__ pid,
                          const int* __restrict__ sid, float* __restrict__ out_l,
                          float* __restrict__ out_w, int n, const __grid_constant__ Params p) {
   extern __shared__ float s_geo[];
-  for (int k = threadIdx.x; k < n_tris * GEO_COLS; k += blockDim.x)
-    s_geo[k] = __ldg(table + (k / GEO_COLS) * TABLE_COLS + k % GEO_COLS);
-  __syncthreads();
+  const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Geometry geom{s_geo};
   const Sampler smp{(uint32_t)pid[i], (uint32_t)sid[i], &p};
 
   float ox, oy, oz, dx, dy, dz, weight;
@@ -598,7 +58,7 @@ __global__ void __launch_bounds__(128)
   bool active = weight > 0.0f;
   for (int bounce = 0; bounce < p.max_depth && active; ++bounce) {
     float t;
-    const int best = geom.closest(n_tris, ox, oy, oz, dx, dy, dz, t);
+    const int best = geom.closest(ox, oy, oz, dx, dy, dz, t);
     if (!(t < BIG_T)) break;  // escaped: no infinite lights in this subset
     const float* row = table + (size_t)best * TABLE_COLS;
     const float ngx = __ldg(row + 9), ngy = __ldg(row + 10), ngz = __ldg(row + 11);
@@ -610,26 +70,8 @@ __global__ void __launch_bounds__(128)
 
     const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
 
-    // shading frame (bsdf/eval.make_frame): ss = normalize(dpdu), or
-    // coordinate_system(ns) for a degenerate dpdu; ts = ns x ss
-    const float du2 = dux * dux + duy * duy + duz * duz;
-    float ssx, ssy, ssz;
-    if (du2 < 1e-20f) {
-      const bool big_x = fabsf(nsx) > fabsf(nsy);
-      const float inv_a =
-          rsqrt_exact(fmaxf(big_x ? nsx * nsx + nsz * nsz : nsy * nsy + nsz * nsz, 1e-30f));
-      ssx = (big_x ? -nsz : 0.0f) * inv_a;
-      ssy = (big_x ? 0.0f : nsz) * inv_a;
-      ssz = (big_x ? nsx : -nsy) * inv_a;
-    } else {
-      const float inv = rsqrt_exact(fmaxf(du2, 1e-30f));
-      ssx = dux * inv;
-      ssy = duy * inv;
-      ssz = duz * inv;
-    }
-    const float tsx = nsy * ssz - nsz * ssy;
-    const float tsy = nsz * ssx - nsx * ssz;
-    const float tsz = nsx * ssy - nsy * ssx;
+    float ssx, ssy, ssz, tsx, tsy, tsz;
+    shading_frame(nsx, nsy, nsz, dux, duy, duz, ssx, ssy, ssz, tsx, tsy, tsz);
 
     const float wox = -dx, woy = -dy, woz = -dz;
     const float wol_x = dot3(wox, woy, woz, ssx, ssy, ssz);
@@ -668,7 +110,7 @@ __global__ void __launch_bounds__(128)
       const float off = wi_ng < 0.0f ? -eps : eps;
       const float sox = px + ngx * off, soy = py + ngy * off, soz = pz + ngz * off;
       const bool occ =
-          geom.occluded(n_tris, sox, soy, soz, lpx - sox, lpy - soy, lpz - soz, SHADOW_T_MAX);
+          geom.occluded(sox, soy, soz, lpx - sox, lpy - soy, lpz - soz, SHADOW_T_MAX);
       const float li_scale = occ ? 0.0f : cos_ns * (float)p.n_lights / dist2;
       Lr = Lr + br * fn[0] * p.light_emit[3 * li] * li_scale;
       Lg = Lg + bg * fn[1] * p.light_emit[3 * li + 1] * li_scale;
@@ -792,29 +234,36 @@ __global__ void __launch_bounds__(128)
   out_w[i] = weight;
 }
 
-constexpr int BLOCK = 128;
-constexpr size_t SMEM_MAX = (size_t)TRI_MAX * GEO_COLS * sizeof(float);
-
 }  // namespace
 
 extern "C" {
 
-// Launch one sample pass on `stream`.  Returns cudaGetLastError() of the
-// launch (0 when it was accepted); nothing is synchronised.
-int path_mega_cam_launch(const float* table, int n_tris, const Params* params,
-                         const float* pixel_xy, const int* pid, const int* sid,
-                         float* out_l, float* out_w, int n, void* stream) {
+// Launch one sample pass on `stream`: brute force when nodes_f is null, the
+// BVH walk otherwise.  Returns cudaGetLastError() of the launch (0 when it
+// was accepted); nothing is synchronised.
+int path_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
+                         const int* nodes_i, const Params* params, const float* pixel_xy,
+                         const int* pid, const int* sid, float* out_l, float* out_w, int n,
+                         void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (n <= 0) return 0;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nodes_f != nullptr) {
+    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
+      return (int)cudaErrorInvalidValue;
+    path_mega_cam_kernel<true><<<grid, BLOCK, 0, st>>>(
+        table, n_tris, nodes_f, nodes_i, pixel_xy, pid, sid, out_l, out_w, n, *params);
+    return (int)cudaGetLastError();
+  }
   if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
   // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
   const cudaError_t attr = cudaFuncSetAttribute(
-      path_mega_cam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+      path_mega_cam_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
   if (attr != cudaSuccess) return (int)attr;
-  const int grid = (n + BLOCK - 1) / BLOCK;
   const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  path_mega_cam_kernel<<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
-      table, n_tris, pixel_xy, pid, sid, out_l, out_w, n, *params);
+  path_mega_cam_kernel<false><<<grid, BLOCK, smem, st>>>(
+      table, n_tris, nullptr, nullptr, pixel_xy, pid, sid, out_l, out_w, n, *params);
   return (int)cudaGetLastError();
 }
 

@@ -29,8 +29,12 @@ def from_jax_packed(table_np, wide_lights, cam_packed, device):
         light_p=tuple(tuple(float(v) for v in l.p) for l in wide_lights),
         light_emit=tuple(tuple(float(v) for v in l.emit) for l in wide_lights),
     )
-    cam = {
+    return packed, camera_from_jax(cam_packed)
+
+
+def camera_from_jax(cam_packed):
+    """The JAX pack_camera dict as this package's camera bundle."""
+    return {
         k: (tuple(tuple(r) for r in v) if k == "bounds" else v)
         for k, v in dict(cam_packed).items()
     }
-    return packed, cam

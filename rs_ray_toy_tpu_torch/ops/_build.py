@@ -1,22 +1,29 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's native sources and load them with ctypes.
 
-Each `csrc/<name>.cu` compiles, on first use, into
+Each `csrc/<name>.cu` compiles with nvcc, on first use, into
 `build/torch_kernels/lib<name>-<hash>.so` at the repository root, a
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds).  The hash covers the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  A failed build raises
-with nvcc's output.  Only this repository's sources are ever compiled.
+takes seconds).  The hash covers the source, every header it includes
+(`#include "..."`, followed through nested includes) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.
+
+`build_host` compiles a host-only C++ source with g++ the same way (the
+SAH BVH builder shared with the JAX package, `csrc/bvh_builder.cpp` at the
+repository root, with csrc/Makefile's flags).  A failed build raises with
+the compiler's output.  Only this repository's sources are ever compiled.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+REPO_CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -27,6 +34,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# csrc/Makefile's CXXFLAGS, so that the port's builder library is the one
+# the JAX package builds (same leaf order, same winner on exact ties)
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc_path():
@@ -36,26 +47,38 @@ def nvcc_path():
     return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
 
 
-def build(name):
-    """Compile csrc/<name>.cu unless an up-to-date library exists.
-    Returns (library path, nvcc's output or "" when it was cached)."""
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def source_digest(src, flags):
+    """sha256 over the source, its quoted includes (recursively) and the
+    compiler flags."""
+    h = hashlib.sha256()
+    seen = set()
+    todo = [Path(src)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        todo.extend(path.parent / inc for inc in _INCLUDE.findall(text.decode()))
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()
+
+
+def _compile(cmd, src, flags):
+    """Run `cmd + flags -o <lib> src` unless an up-to-date library exists.
+    Returns (library path, the compiler's output or "" when cached)."""
+    out = BUILD_DIR / f"lib{src.stem}-{source_digest(src, flags)[:16]}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True,
-            text=True,
-        )
+        proc = subprocess.run([cmd, *flags, "-o", tmp, str(src)], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                f"{cmd} failed to build {src} (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)
@@ -65,7 +88,20 @@ def build(name):
     return out, proc.stdout + proc.stderr
 
 
+def build(name):
+    """Compile csrc/<name>.cu with nvcc unless an up-to-date library
+    exists.  Returns (library path, nvcc's output or "" when cached)."""
+    return _compile(nvcc_path(), SRC_DIR / f"{name}.cu", NVCC_FLAGS)
+
+
 def load(name):
     """The built library for csrc/<name>.cu (building it if needed)."""
     path, _ = build(name)
+    return ctypes.CDLL(str(path))
+
+
+def load_host(name):
+    """The g++ build of the repository's csrc/<name>.cpp (building it if
+    needed)."""
+    path, _ = _compile("g++", REPO_CSRC / f"{name}.cpp", CXX_FLAGS)
     return ctypes.CDLL(str(path))

@@ -1,5 +1,6 @@
 """Fused Path sample pass: camera raygen + bounce loop, one CUDA kernel
-(rs_ray_toy_tpu/ops/path_megakernel.py, brute-force camera variant).
+(rs_ray_toy_tpu/ops/path_megakernel.py, camera variants: brute force and
+the in-kernel BVH).
 
 `li_path_mega_cam` runs a whole sample pass per camera ray: the
 stratified sampler hash for every slot, the lens trace, Moller-Trumbore
@@ -9,7 +10,10 @@ specular reflection, fresnel-specular glass) with the etaScale factor,
 and Russian roulette after bounce 3.  The estimator is the JAX kernel's
 (`_kernel_cam` -> `_raygen` + `_bounce_loop`), sample slot for sample
 slot, on its flat, triangle-only, point-light, stratified subset;
-`supports` pins that subset.
+`supports` pins that subset.  Up to TRI_MAX triangles the hits are brute
+force; above it (or when `pack_scene` is asked to) the table is reordered
+into the leaf order of a BVH and every hit walks the tree per ray
+(accel/bvh.py), up to BVH_TRI_MAX triangles.
 
 On a CUDA tensor the wrapper launches csrc/path_megakernel.cu (built by
 ops/_build.py) or raises.  On a CPU tensor it runs
@@ -20,6 +24,8 @@ lanes.  Nothing else selects the path.
 Scene tables are baked per triangle (`pack_scene`): the material
 indirection collapses to lobe columns on each row, in the JAX package's
 (T, 115) layout, so a packed table can be compared column by column.
+The kernel library and its parameter block (`_Params`) are shared with
+ops/direct_megakernel.py: the device code lives in csrc/common.cuh.
 """
 
 import ctypes
@@ -28,6 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..accel.bvh import STACK_DEPTH, build_bvh, pack_bvh_tables, tree_depth
 from ..bsdf.lobes import (
     DIST_TROWBRIDGE_REITZ,
     FRESNEL_CONDUCTOR,
@@ -45,7 +52,9 @@ from ..scene.types import LIGHT_POINT
 from . import _build
 
 TRI_EPS = 1e-7
-TRI_MAX = 2048
+TRI_MAX = 2048  # brute force up to here
+BVH_TRI_MAX = 65536  # the in-kernel BVH up to here (MEGA_BVH_TRI_MAX)
+BVH_LEAF = 16  # requested leaf size of the kernels' BVH
 LOBES_MAX = 5
 NRM_COL = 16 + 16 * LOBES_MAX  # raw vertex normals (smooth shading, unused here)
 TEX0 = NRM_COL + 9  # textured-kd block (not ported; zeros)
@@ -58,32 +67,40 @@ BIG_T = 3.0e38
 SPEC_KINDS = (LOBE_SPEC_REFL, LOBE_SPEC_TRANS, LOBE_FRESNEL_SPEC)
 PORTED_KINDS = (LOBE_LAMBERT_REFL, LOBE_MF_REFL, LOBE_SPEC_REFL, LOBE_FRESNEL_SPEC)
 
-# Kernel launches made by li_path_mega_cam; the one piece of module state.
-LAUNCHES = 0
+# Kernel launches made by li_path_mega_cam, by kernel (brute force, BVH);
+# the one piece of module state.
+LAUNCHES = {"path_mega_cam": 0, "path_mega_cam_bvh": 0}
+
+
+class BvhTables(NamedTuple):
+    nodes_f: torch.Tensor  # (M, 16) float32 fused-children rows
+    nodes_i: torch.Tensor  # (M, 4) int32: offset, n_prims, axis, 0
+    max_leaf: int  # most triangles in one leaf
 
 
 class PackedScene(NamedTuple):
     table: torch.Tensor  # (T, 115) float32 on the render device
     light_p: tuple  # per point light, (x, y, z) float32 values
     light_emit: tuple  # per point light, (r, g, b) intensity
+    kinds_present: tuple = ()  # lobe kinds live on some triangle
+    bvh: Optional[BvhTables] = None  # BVH mode: table rows in leaf order
 
 
 def _pow2(n):
     return n > 0 and (n & (n - 1)) == 0
 
 
-def unsupported_feature(scene, spec, sampler) -> Optional[str]:
-    """Name of the first scene feature outside the kernel's subset, or
-    None when the path kernel renders the job exactly."""
-    if spec.kind != "path":
-        return f"{spec.kind} integrator"
-    if not 1 <= spec.max_depth <= DEPTH_MAX:
-        return f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}"
+def scene_unsupported(scene, sampler, kinds) -> Optional[str]:
+    """The checks both camera kernels share (common_scene_checks):
+    power-of-two stratified grid, 1..BVH_TRI_MAX flat triangles, up to
+    LIGHT_MAX point lights, and every live lobe of a used material among
+    `kinds` (microfacets: visible-normal Trowbridge-Reitz only).  Returns
+    the first feature outside them, or None."""
     if not (_pow2(sampler.spp) and _pow2(sampler.xs) and _pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     tri = scene.triangles
-    if tri.count > TRI_MAX:
-        return f"{tri.count} triangles (brute force up to {TRI_MAX}; BVH not ported)"
+    if tri.count > BVH_TRI_MAX:
+        return f"{tri.count} triangles (the BVH kernels take up to {BVH_TRI_MAX})"
     lk = np.asarray(scene.lights.kind)
     if lk.size == 0:
         return "unlit scenes"
@@ -99,7 +116,7 @@ def unsupported_feature(scene, spec, sampler) -> Optional[str]:
     for m in used:
         for l in range(int(n_lobes[m])):
             kind = int(mats["kind"][m, l])
-            if kind not in PORTED_KINDS:
+            if kind not in kinds:
                 return f"lobe kind {kind}"
             if kind == LOBE_MF_REFL and (
                 mats["dist"][m, l] != DIST_TROWBRIDGE_REITZ
@@ -110,6 +127,16 @@ def unsupported_feature(scene, spec, sampler) -> Optional[str]:
             if kind == LOBE_FRESNEL_SPEC and n_lobes[m] > 1:
                 return "fresnel-specular lobes in a multi-lobe material"
     return None
+
+
+def unsupported_feature(scene, spec, sampler) -> Optional[str]:
+    """Name of the first scene feature outside the kernel's subset, or
+    None when the path kernel renders the job exactly."""
+    if spec.kind != "path":
+        return f"{spec.kind} integrator"
+    if not 1 <= spec.max_depth <= DEPTH_MAX:
+        return f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}"
+    return scene_unsupported(scene, sampler, PORTED_KINDS)
 
 
 def supports(scene, spec, sampler) -> bool:
@@ -145,7 +172,18 @@ def _resolve_mat_arrays(m, mat):
     )
 
 
-def pack_scene(scene, device) -> PackedScene:
+def kinds_present(table):
+    """Sorted tuple of the lobe kinds live on some row of a (T, 115) numpy
+    table (a lobe is live below the row's n_lobes)."""
+    n_lob = table[:, 15].astype(np.int64)
+    kinds = set()
+    for l in range(LOBES_MAX):
+        live = n_lob > l
+        kinds.update(int(k) for k in np.unique(table[live, 16 + 16 * l]))
+    return tuple(sorted(kinds))
+
+
+def pack_scene(scene, device, bvh=None) -> PackedScene:
     """(T, 115) float32 per-triangle table plus the point lights.
 
     cols 0:15  p0, e1, e2, ng, dpdu
@@ -154,7 +192,13 @@ def pack_scene(scene, device) -> PackedScene:
                   fresnel, eta_a, eta_b, pad (col 31 = Bsdf eta, col 47 =
                   material id)
     cols 96:105  raw vertex normals; cols 105:115 the textured-kd block
-                  (zeros: textures are not ported)."""
+                  (zeros: textures are not ported).
+
+    BVH mode (bvh=True, or bvh=None and more than TRI_MAX triangles): a
+    SAH BVH with leaves of up to BVH_LEAF triangles, its fused-children
+    node tables, and the table's rows reordered into leaf order
+    (ops/path_megakernel.pack_scene's RS_MEGA_BVH mode; all 115 columns
+    are kept)."""
     tri = scene.triangles
     p0 = tri.p0.astype(np.float32)
     r = _resolve_mat_arrays(scene.materials, tri.mat)
@@ -180,11 +224,26 @@ def pack_scene(scene, device) -> PackedScene:
     table[:, 31] = r["mat_eta"]
     table[:, 47] = tri.mat
     table[:, NRM_COL : NRM_COL + 9] = np.concatenate([tri.n0, tri.n1, tri.n2], axis=1)
+    kinds = kinds_present(table)
+    tables = None
+    if (t_count > TRI_MAX) if bvh is None else bvh:
+        flat = build_bvh(tri, BVH_LEAF)
+        if tree_depth(flat) >= STACK_DEPTH:
+            raise ValueError(f"BVH deeper than the {STACK_DEPTH}-entry traversal stack")
+        nodes_f, nodes_i = pack_bvh_tables(flat)
+        table = table[flat.prim_index]
+        tables = BvhTables(
+            torch.as_tensor(nodes_f, device=device),
+            torch.as_tensor(nodes_i, device=device),
+            flat.max_leaf,
+        )
     lights = scene.lights
     return PackedScene(
         table=torch.as_tensor(table, device=device),
         light_p=tuple(tuple(float(v) for v in row) for row in lights.p),
         light_emit=tuple(tuple(float(v) for v in row) for row in lights.emit),
+        kinds_present=kinds,
+        bvh=tables,
     )
 
 
@@ -216,7 +275,7 @@ def pack_camera(cam):
 
 
 class _Params(ctypes.Structure):
-    """Mirror of `struct Params` in csrc/path_megakernel.cu."""
+    """Mirror of `struct Params` in csrc/common.cuh."""
 
     _fields_ = [
         ("max_depth", ctypes.c_int),
@@ -230,6 +289,10 @@ class _Params(ctypes.Structure):
         ("n_lights", ctypes.c_int),
         ("light_p", ctypes.c_float * (LIGHT_MAX * 3)),
         ("light_emit", ctypes.c_float * (LIGHT_MAX * 3)),
+        ("debug", ctypes.c_int),
+        ("strategy_all", ctypes.c_int),
+        ("can_chain", ctypes.c_int),
+        ("has_st", ctypes.c_int),
         ("n_elem", ctypes.c_int),
         ("elem_z", ctypes.c_float * ELEM_MAX),
         ("radius", ctypes.c_float * ELEM_MAX),
@@ -309,22 +372,29 @@ def _kernel_params(packed, cam, sampler, spec):
     return prm
 
 
-def load_kernel():
-    """Build (on first use) and load the kernel library; checks that the
-    parameter block layout agrees with the compiled one."""
-    lib = _build.load("path_megakernel")
-    lib.path_mega_cam_launch.restype = ctypes.c_int
-    lib.path_mega_cam_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Params),
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+def load_library(name, prefix):
+    """Build (on first use) and load csrc/<name>.cu, whose C interface is
+    `<prefix>_launch`, `<prefix>_error_string` and `<prefix>_params_size`;
+    checks that the parameter block layout agrees with the compiled one."""
+    lib = _build.load(name)
+    launch = getattr(lib, f"{prefix}_launch")
+    launch.restype = ctypes.c_int
+    launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.path_mega_cam_error_string.restype = ctypes.c_char_p
-    lib.path_mega_cam_error_string.argtypes = [ctypes.c_int]
-    lib.path_mega_cam_params_size.restype = ctypes.c_int
-    if lib.path_mega_cam_params_size() != ctypes.sizeof(_Params):
-        raise RuntimeError("path kernel parameter block differs from _Params")
+    getattr(lib, f"{prefix}_error_string").restype = ctypes.c_char_p
+    getattr(lib, f"{prefix}_error_string").argtypes = [ctypes.c_int]
+    getattr(lib, f"{prefix}_params_size").restype = ctypes.c_int
+    if getattr(lib, f"{prefix}_params_size")() != ctypes.sizeof(_Params):
+        raise RuntimeError(f"{name} parameter block differs from _Params")
     return lib
+
+
+def load_kernel():
+    """The path kernel's library (built on first use)."""
+    return load_library("path_megakernel", "path_mega_cam")
 
 
 def _sample_indices(s_idx, n, device):
@@ -351,48 +421,70 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
     """Check the CUDA inputs, build the parameter block and the outputs,
     and return launch(): one kernel launch on the current stream
     returning (L, weight).  Relaunching rewrites the same outputs."""
+    prm = _kernel_params(packed, cam_packed, sampler, spec)
+    return launcher(load_kernel(), "path_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm,
+                    LAUNCHES)
+
+
+def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches):
+    """launch() for a camera-fused kernel of `lib` (see prepare_launch).
+    Every accepted launch adds one to `launches[prefix]`, or to
+    `launches[prefix + "_bvh"]` for the BVH kernel."""
     dev = pixel_xy.device
     if dev.type != "cuda":
-        raise ValueError(f"the path kernel runs on cuda tensors, not {dev}")
+        raise ValueError(f"the {prefix} kernel runs on cuda tensors, not {dev}")
     n = pixel_xy.shape[0]
     if pixel_xy.dtype != torch.float32 or pixel_xy.shape != (n, 2) or n == 0:
         raise ValueError("pixel_xy must be float32 of shape (N, 2), N > 0")
     if pixel_id.shape != (n,) or pixel_id.is_floating_point() or pixel_id.device != dev:
         raise ValueError("pixel_id must be an integer (N,) tensor on pixel_xy's device")
-    table = packed.table
+    table, bvh = packed.table, packed.bvh
+    t_max = TRI_MAX if bvh is None else BVH_TRI_MAX
     if (
         table.device != dev
         or table.dtype != torch.float32
         or table.dim() != 2
         or table.shape[1] != TABLE_COLS
-        or not 0 < table.shape[0] <= TRI_MAX
+        or not 0 < table.shape[0] <= t_max
         or not table.is_contiguous()
     ):
         raise ValueError(
             f"packed table must be contiguous float32 (T, {TABLE_COLS}), "
-            f"0 < T <= {TRI_MAX}, on {dev}"
+            f"0 < T <= {t_max}, on {dev}"
         )
+    nodes_f = nodes_i = None
+    if bvh is not None:
+        nodes_f, nodes_i = bvh.nodes_f, bvh.nodes_i
+        m = nodes_f.shape[0]
+        if (
+            nodes_f.device != dev or nodes_i.device != dev
+            or nodes_f.dtype != torch.float32 or nodes_i.dtype != torch.int32
+            or nodes_f.shape != (m, 16) or nodes_i.shape != (m, 4)
+            or not (nodes_f.is_contiguous() and nodes_i.is_contiguous())
+        ):
+            raise ValueError(f"BVH nodes must be contiguous (M, 16) float32 and (M, 4) int32 on {dev}")
     pxy = pixel_xy.contiguous()
     # u32 ids travel as their int32 bit patterns
     pid32 = pixel_id.to(torch.int32).contiguous()
     sid32 = _sample_indices(s_idx, n, dev).to(torch.int32).contiguous()
-    prm = _kernel_params(packed, cam_packed, sampler, spec)
-    lib = load_kernel()
     out_l = torch.empty((n, 3), dtype=torch.float32, device=dev)
     out_w = torch.empty((n,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = getattr(lib, f"{prefix}_launch")
+    nf = None if nodes_f is None else nodes_f.data_ptr()
+    ni = None if nodes_i is None else nodes_i.data_ptr()
+    name = prefix if bvh is None else prefix + "_bvh"
 
     def launch():
-        global LAUNCHES
-        err = lib.path_mega_cam_launch(
-            table.data_ptr(), table.shape[0], ctypes.byref(prm),
+        err = fn(
+            table.data_ptr(), table.shape[0], nf, ni, ctypes.byref(prm),
             pxy.data_ptr(), pid32.data_ptr(), sid32.data_ptr(),
             out_l.data_ptr(), out_w.data_ptr(), n, stream,
         )
         if err != 0:
-            msg = lib.path_mega_cam_error_string(err).decode()
-            raise RuntimeError(f"path kernel launch failed: CUDA error {err} ({msg})")
-        LAUNCHES += 1
+            msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+        launches[name] += 1
         return out_l, out_w
 
     return launch
@@ -541,8 +633,9 @@ def _raygen(px, py, pid, sid, sampler, cam):
 
 
 def _mt(g, ox, oy, oz, dx, dy, dz):
-    """Moller-Trumbore against one triangle row g = (p0, e1, e2) of python
-    floats.  Returns (hit before any t_max test, t)."""
+    """Moller-Trumbore against triangle rows g = (p0, e1, e2): nine python
+    floats, or nine tensors broadcasting against the ray.  Returns (hit
+    before any t_max test, t)."""
     p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = g
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
@@ -561,24 +654,167 @@ def _mt(g, ox, oy, oz, dx, dy, dz):
     return hit, t
 
 
-def _closest_hit(geo, ox, oy, oz, dx, dy, dz):
-    """Strict < in table order (ties keep the lower row)."""
-    t_best = torch.full_like(ox, BIG_T)
-    best = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
-    for j, g in enumerate(geo):
-        hit, t = _mt(g, ox, oy, oz, dx, dy, dz)
-        upd = hit & (t < t_best)
-        t_best = torch.where(upd, t, t_best)
-        best = torch.where(upd, j, best)
-    return t_best, best
+def _inv_dir(d):
+    tiny = torch.where(d < 0.0, -1e-20, 1e-20)
+    return 1.0 / torch.where(torch.abs(d) < 1e-20, tiny, d)
 
 
-def _occluded(geo, ox, oy, oz, dx, dy, dz, t_max):
-    occ = torch.zeros_like(ox, dtype=torch.bool)
-    for g in geo:
-        hit, t = _mt(g, ox, oy, oz, dx, dy, dz)
-        occ = occ | (hit & (t < t_max))
-    return occ
+def _slab(b, ox, oy, oz, ix, iy, iz, t_cur):
+    """Slab test of the boxes b[:, 0:6] = (min xyz, max xyz) with the
+    traversal's t bound (ops/bvh_pallas._slab6)."""
+    t0x, t1x = (b[:, 0] - ox) * ix, (b[:, 3] - ox) * ix
+    t0y, t1y = (b[:, 1] - oy) * iy, (b[:, 4] - oy) * iy
+    t0z, t1z = (b[:, 2] - oz) * iz, (b[:, 5] - oz) * iz
+    tn = torch.maximum(
+        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)), torch.minimum(t0z, t1z)
+    )
+    tf = torch.minimum(
+        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)), torch.maximum(t0z, t1z)
+    ) * 1.0000004
+    return (tn <= tf) & (tf > 0.0) & (tn < t_cur) & (t_cur > 0.0)
+
+
+def tally(work, key, count):
+    """work[key] += count.sum(), on the device (no host sync); `work` is
+    None when nobody counts."""
+    if work is not None:
+        work[key] = work.get(key, 0) + count.sum()
+
+
+class PlainGeometry:
+    """The kernels' geometry (csrc/common.cuh, Geometry) on flat (N,)
+    tensors.  Brute force: every triangle in table order, strict < (ties
+    keep the lower row).  BVH: the per-ray stack walk, the rays that still
+    walk compacted after every step; at an interior node both children's
+    boxes are slab-tested against the ray's best t and only hit children
+    are pushed, the near child (by the sign of the ray's direction on the
+    split axis) last; a leaf tests its triangles in table order with
+    strict <.  `work`, when given, counts the Moller-Trumbore ("mt") and
+    slab ("slab") tests of the live rays, as the kernel performs them."""
+
+    def __init__(self, packed, device, work=None):
+        self.table = packed.table.to(device)
+        self.work = work
+        self.bvh = packed.bvh
+        if self.bvh is None:
+            self.rows = self.table[:, :9].tolist()
+        else:
+            self.geo = self.table[:, :9].contiguous()
+            self.nodes_f = self.bvh.nodes_f.to(device)
+            self.nodes_i = self.bvh.nodes_i.to(device).to(torch.int64)
+
+    def closest(self, ox, oy, oz, dx, dy, dz, live):
+        """(t, row) of the closest hit, t = BIG_T and row -1 on a miss; a
+        lane that is not live reports a miss."""
+        if self.bvh is not None:
+            return self._walk(ox, oy, oz, dx, dy, dz, torch.full_like(ox, BIG_T), live, False)
+        t_best = torch.full_like(ox, BIG_T)
+        best = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+        for j, g in enumerate(self.rows):
+            hit, t = _mt(g, ox, oy, oz, dx, dy, dz)
+            upd = live & hit & (t < t_best)
+            t_best = torch.where(upd, t, t_best)
+            best = torch.where(upd, j, best)
+        tally(self.work, "mt", live * len(self.rows))
+        return t_best, best
+
+    def occluded(self, ox, oy, oz, dx, dy, dz, t_max, live):
+        """Any hit with t in [TRI_EPS, t_max) along the caller's
+        unnormalised direction; False where not live."""
+        if self.bvh is not None:
+            _, row = self._walk(ox, oy, oz, dx, dy, dz, torch.full_like(ox, t_max), live, True)
+            return row >= 0
+        occ = torch.zeros_like(ox, dtype=torch.bool)
+        tests = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
+        for g in self.rows:
+            tests = tests + (live & ~occ)  # the kernel stops at the first hit
+            hit, t = _mt(g, ox, oy, oz, dx, dy, dz)
+            occ = occ | (live & hit & (t < t_max))
+        tally(self.work, "mt", tests)
+        return occ
+
+    def _walk(self, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit):
+        t_out = t_bound.clone()
+        row_out = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+        idx = torch.nonzero(live).squeeze(1)
+        o = (ox[idx], oy[idx], oz[idx])
+        d = (dx[idx], dy[idx], dz[idx])
+        inv = tuple(_inv_dir(c) for c in d)
+        tb = t_bound[idx]
+        best = torch.full_like(idx, -1)
+        m = idx.numel()
+        stack = torch.zeros((m, STACK_DEPTH), dtype=torch.int64, device=ox.device)
+        sp = torch.ones_like(idx)  # the root, node 0, is on the stack
+        k = torch.arange(self.bvh.max_leaf, device=ox.device)
+        while m:
+            lane = torch.arange(m, device=ox.device)
+            sp = sp - 1
+            node = stack[lane, sp]
+            ni = self.nodes_i[node]
+            off, n_prims, axis = ni[:, 0], ni[:, 1], ni[:, 2]
+            leaf = n_prims > 0
+            # leaf: its triangles in table order
+            tri = off[:, None] + k
+            valid = leaf[:, None] & (k < n_prims[:, None])
+            g = self.geo[torch.where(valid, tri, 0)].unbind(-1)
+            hit, t = _mt(g, *(c[:, None] for c in o + d))
+            hit = valid & hit & (t < tb[:, None])
+            tally(self.work, "mt", valid)
+            found = hit.any(1)
+            if any_hit:
+                best = torch.where(found, 1, best)
+            else:
+                tm = torch.where(hit, t, BIG_T)
+                t_min = tm.min(1).values
+                first = torch.where(hit & (tm == t_min[:, None]), k, k.numel()).min(1).values
+                tb = torch.where(found, t_min, tb)
+                best = torch.where(found, off + first, best)
+            # interior: test both children's boxes, push the hit ones
+            interior = ~leaf
+            row = self.nodes_f[node]
+            hit_l = interior & _slab(row[:, 0:6], *o, *inv, tb)
+            hit_r = interior & _slab(row[:, 6:12], *o, *inv, tb)
+            tally(self.work, "slab", 2 * interior)
+            d_ax = torch.where(axis == 0, d[0], torch.where(axis == 1, d[1], d[2]))
+            near_left = d_ax >= 0.0
+            left, right = node + 1, off
+            for child, push in (
+                (torch.where(near_left, right, left), torch.where(near_left, hit_r, hit_l)),
+                (torch.where(near_left, left, right), torch.where(near_left, hit_l, hit_r)),
+            ):
+                slot = sp.clamp(max=STACK_DEPTH - 1)  # pack_scene bounds the depth
+                stack[lane, slot] = torch.where(push, child, stack[lane, slot])
+                sp = sp + push
+            done = (sp == 0) | (found if any_hit else False)
+            if bool(done.any()):
+                t_out[idx[done]] = tb[done]
+                row_out[idx[done]] = best[done]
+                keep = ~done
+                idx, tb, best, stack, sp = idx[keep], tb[keep], best[keep], stack[keep], sp[keep]
+                o = tuple(c[keep] for c in o)
+                d = tuple(c[keep] for c in d)
+                inv = tuple(c[keep] for c in inv)
+                m = idx.numel()
+        return t_out, row_out
+
+
+def shading_frame(nsx, nsy, nsz, dux, duy, duz):
+    """(ss, ts) of the shading frame on the normal ns: ss = normalize(dpdu),
+    coordinate_system(ns) when dpdu is degenerate; ts = ns x ss."""
+    du2 = dux * dux + duy * duy + duz * duz
+    inv = _rsqrt(torch.clamp(du2, min=1e-30))
+    big_x = torch.abs(nsx) > torch.abs(nsy)
+    inv_a = _rsqrt(
+        torch.clamp(torch.where(big_x, nsx * nsx + nsz * nsz, nsy * nsy + nsz * nsz), min=1e-30)
+    )
+    bad = du2 < 1e-20
+    ssx = torch.where(bad, torch.where(big_x, -nsz, 0.0) * inv_a, dux * inv)
+    ssy = torch.where(bad, torch.where(big_x, 0.0, nsz) * inv_a, duy * inv)
+    ssz = torch.where(bad, torch.where(big_x, nsx, -nsy) * inv_a, duz * inv)
+    tsx = nsy * ssz - nsz * ssy
+    tsy = nsz * ssx - nsx * ssz
+    tsz = nsx * ssy - nsy * ssx
+    return ssx, ssy, ssz, tsx, tsy, tsz
 
 
 def _lobe(row, base):
@@ -875,9 +1111,13 @@ def _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1):
     return wsx, wsy, wsz, out, pdf, is_fs & ~fs_reflect
 
 
-def li_path_mega_cam_reference(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
+def li_path_mega_cam_reference(
+    packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec, work=None
+):
     """Plain PyTorch version of `li_path_mega_cam` (same arguments and
-    return), on any device."""
+    return), on any device.  `work`, a dict, gets the counts of the
+    triangle and box tests ("mt", "slab") and lobe evaluations ("lobe")
+    that the kernel performs on these inputs (0-d tensors)."""
     dev = pixel_xy.device
     n = pixel_xy.shape[0]
     pid = pixel_id.to(torch.int64)
@@ -885,8 +1125,8 @@ def li_path_mega_cam_reference(packed, cam_packed, pixel_xy, pixel_id, s_idx, sa
     ox, oy, oz, dx, dy, dz, weight = _raygen(
         pixel_xy[:, 0], pixel_xy[:, 1], pid, sid, sampler, cam_packed
     )
-    table = packed.table.to(dev)
-    geo = table[:, :9].tolist()
+    geom = PlainGeometry(packed, dev, work)
+    table = geom.table
     max_lobes = int(table[:, 15].max()) if table.shape[0] else 0
     n_lights = len(packed.light_p)
     light_p = torch.tensor(packed.light_p, dtype=DTYPE, device=dev)
@@ -898,7 +1138,7 @@ def li_path_mega_cam_reference(packed, cam_packed, pixel_xy, pixel_id, s_idx, sa
     es = one  # etaScale (path.rs:150-163)
     active = weight > 0.0
     for bounce in range(spec.max_depth):
-        t, best = _closest_hit(geo, ox, oy, oz, dx, dy, dz)
+        t, best = geom.closest(ox, oy, oz, dx, dy, dz, active)
         found = t < BIG_T
         active = active & found
         row = torch.where(found[:, None], table[best.clamp(min=0)], 0.0)
@@ -912,21 +1152,7 @@ def li_path_mega_cam_reference(packed, cam_packed, pixel_xy, pixel_id, s_idx, sa
         py = oy + dy * t
         pz = oz + dz * t
 
-        # shading frame: ss = normalize(dpdu), coordinate_system(ns) when
-        # dpdu is degenerate; ts = ns x ss
-        du2 = dux * dux + duy * duy + duz * duz
-        inv = _rsqrt(torch.clamp(du2, min=1e-30))
-        big_x = torch.abs(nsx) > torch.abs(nsy)
-        inv_a = _rsqrt(
-            torch.clamp(torch.where(big_x, nsx * nsx + nsz * nsz, nsy * nsy + nsz * nsz), min=1e-30)
-        )
-        bad = du2 < 1e-20
-        ssx = torch.where(bad, torch.where(big_x, -nsz, 0.0) * inv_a, dux * inv)
-        ssy = torch.where(bad, torch.where(big_x, 0.0, nsz) * inv_a, duy * inv)
-        ssz = torch.where(bad, torch.where(big_x, nsx, -nsy) * inv_a, duz * inv)
-        tsx = nsy * ssz - nsz * ssy
-        tsy = nsz * ssx - nsx * ssz
-        tsz = nsx * ssy - nsy * ssx
+        ssx, ssy, ssz, tsx, tsy, tsz = shading_frame(nsx, nsy, nsz, dux, duy, duz)
 
         wox, woy, woz = -dx, -dy, -dz
         wol_x = _dot3(wox, woy, woz, ssx, ssy, ssz)
@@ -956,13 +1182,14 @@ def li_path_mega_cam_reference(packed, cam_packed, pixel_xy, pixel_id, s_idx, sa
         for l in range(max_lobes):
             lf = _lobe_f(_lobe(row, 16 + 16 * l), wol_x, wol_y, wo_z, wil_x, wil_y, wil_z)
             use = f_gate & (l < n_lob)
+            tally(work, "lobe", active & use)
             fn = [fn[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
         cos_ns = torch.abs(wil_z)
         off = torch.where(wi_ng < 0.0, -eps, eps)
         sox, soy, soz = px + ngx * off, py + ngy * off, pz + ngz * off
-        occ = _occluded(
-            geo, sox, soy, soz, lp[:, 0] - sox, lp[:, 1] - soy, lp[:, 2] - soz,
-            1.0 - SHADOW_EPSILON,
+        occ = geom.occluded(
+            sox, soy, soz, lp[:, 0] - sox, lp[:, 1] - soy, lp[:, 2] - soz,
+            1.0 - SHADOW_EPSILON, active,
         )
         li_scale = torch.where(active & ~occ, cos_ns * n_lights / dist2, 0.0)
         Lr = Lr + br * fn[0] * le[:, 0] * li_scale
@@ -974,6 +1201,7 @@ def li_path_mega_cam_reference(packed, cam_packed, pixel_xy, pixel_id, s_idx, sa
         wsx, wsy, wsz, fs, pdf, transmitted = _bsdf_sample(
             row, n_lob, wol_x, wol_y, wo_z, ub[:, 0], ub[:, 1]
         )
+        tally(work, "lobe", active)
         nwx = ssx * wsx + tsx * wsy + nsx * wsz
         nwy = ssy * wsx + tsy * wsy + nsy * wsz
         nwz = ssz * wsx + tsz * wsy + nsz * wsz

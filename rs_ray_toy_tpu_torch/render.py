@@ -1,10 +1,13 @@
-"""Render entry points (rs_ray_toy_tpu/render.py), Path / path-kernel branch.
+"""Render entry points (rs_ray_toy_tpu/render.py), fused-kernel branches.
 
 `deploy_render(scene.json, out.png)` loads the scene, builds the camera,
 and renders in sample passes of k_spp = min(16, spp) samples: every
-pixel's k samples form one sample-outer batch that a single
-`li_path_mega_cam` call traces, and the film adds the batch with the
-aligned reshape-add.  Scenes outside the path kernel's subset raise
+pixel's k samples form one sample-outer batch that a single fused call
+traces, and the film adds the batch with the aligned reshape-add.  The
+integrator picks the call: Path goes to the path kernel
+(`li_path_mega_cam`), Debug and DirectLighting to the direct kernel
+(`li_levels_mega_cam`); both take the scene packed by `pack_scene`, for
+the in-kernel BVH above TRI_MAX triangles.  Scenes outside the chosen kernel's subset raise
 NotImplementedError; there is no slower fallback loop.
 
 Every tensor lives on the explicit `device`.  On "cuda" the passes run
@@ -20,6 +23,7 @@ import torch
 from .camera.realistic import RealisticCamera
 from .film import film as fmod
 from .integrators.common import scrub_radiance
+from .ops import direct_megakernel as dmk
 from .ops import path_megakernel as pmk
 from .sampler.stratified import StratifiedSampler
 from .scene.loader import load_scene
@@ -58,10 +62,19 @@ def sample_batch(film_spec, k_spp, device):
     return pixel_xy, pixel_id, sample_offset
 
 
+# integrator kind -> (fused kernel, its module, its pass function)
+FUSED = {
+    "path": ("path", pmk, pmk.li_path_mega_cam),
+    "debug": ("direct", dmk, dmk.li_levels_mega_cam),
+    "direct": ("direct", dmk, dmk.li_levels_mega_cam),
+}
+
+
 def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0):
     """Render `job` on `device`.  Returns the film, the linear RGB image,
     the timed passes' seconds and camera Mrays/s (render.py:699-703),
-    `render_path`, `fused_kernel` and the kernel launches it made."""
+    `render_path`, `fused_kernel`, whether the BVH was used and the
+    kernel launches it made."""
     device = require_device(device)
     film_spec = job.film
     cam = RealisticCamera(job.camera, film_spec, pupil_samples=pupil_samples, device=device)
@@ -73,19 +86,22 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0):
         sampler.xs = side
         sampler.ys = max(1, spp_override // side)
         sampler.spp = spp = sampler.xs * sampler.ys
-    reason = pmk.unsupported_feature(job.scene, job.integrator, sampler)
+    if job.integrator.kind not in FUSED:
+        raise NotImplementedError(f"{job.integrator.kind} integrator")
+    fused, mod, li_pass = FUSED[job.integrator.kind]
+    reason = mod.unsupported_feature(job.scene, job.integrator, sampler)
     if reason is not None:
-        raise NotImplementedError(f"scene outside the path-kernel subset: {reason}")
+        raise NotImplementedError(f"scene outside the {fused}-kernel subset: {reason}")
     packed = pmk.pack_scene(job.scene, device)
     cam_packed = pmk.pack_camera(cam)
     if device.type == "cuda":
-        pmk.load_kernel()  # build outside the timed region
+        mod.load_kernel()  # build outside the timed region
 
-    k_spp = min(16, spp)  # divides spp: the path-kernel subset needs a power of two
+    k_spp = min(16, spp)  # divides spp: both kernel subsets need a power of two
     pixel_xy, pixel_id, sample_offset = sample_batch(film_spec, k_spp, device)
 
     film = fmod.make_film(film_spec, device)
-    launches0 = pmk.LAUNCHES
+    launches0 = sum(mod.LAUNCHES.values())
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -97,7 +113,7 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0):
         s_idx = sample_offset + s_base
         # the kernel derives each ray's film jitter (sampler slot 0) itself;
         # the aligned film add puts every sample on its own pixel
-        l, weight = pmk.li_path_mega_cam(
+        l, weight = li_pass(
             packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, job.integrator
         )
         l = scrub_radiance(l)
@@ -109,7 +125,7 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0):
         elapsed = start.elapsed_time(end) / 1e3
     else:
         elapsed = time.perf_counter() - t0
-    launches = pmk.LAUNCHES - launches0
+    launches = sum(mod.LAUNCHES.values()) - launches0
 
     n_rays = film_spec.xres * film_spec.yres * spp
     return {
@@ -121,7 +137,8 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0):
         "device": str(device),
         # the kernel on a card, its plain PyTorch version on the host
         "render_path": "megakernel" if launches else "plain",
-        "fused_kernel": "path",
+        "fused_kernel": fused,
+        "bvh": packed.bvh is not None,
         "launches": launches,
         "passes": spp // k_spp,
     }

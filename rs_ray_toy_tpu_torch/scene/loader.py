@@ -2,9 +2,10 @@
 
 Parses the reference's scene schema with the same typed accessors and
 defaults (renderprocess.rs:136-252).  Ported: materials (matte, plastic,
-metal, mirror, glass), `objs`, triangle primitives with `instances`,
-point lights, Film, StratifiedSampler, RealisticCamera and the Path
-integrator.  Every other feature the schema can name raises
+metal, mirror, glass, debug), `objs`, triangle primitives with
+`instances`, point lights, Film, StratifiedSampler, RealisticCamera and
+the Path, Debug and DirectLighting integrators.  Every other feature the
+schema can name raises
 NotImplementedError with the feature's name; nothing is dropped
 silently.  Host numpy throughout; `load_scene` returns the same
 `RenderJob` fields as the JAX package.
@@ -110,8 +111,9 @@ class SamplerSpec:
 
 @dataclass
 class IntegratorSpec:
-    kind: str
+    kind: str  # "path", "debug" or "direct"
     max_depth: int = 5
+    light_strategy: str = "one"  # DirectLighting: "one" or "all"
     rr_threshold: float = 1.0
 
 
@@ -183,7 +185,7 @@ _UNPORTED_SECTIONS = (
     ("rgb_texture", "textures"),
     ("infinite_lights", "infinite lights"),
 )
-_UNPORTED_MATERIALS = ("TranslucentMaterial", "MixMaterial", "DisneyMaterial", "Debug")
+_UNPORTED_MATERIALS = ("TranslucentMaterial", "MixMaterial", "DisneyMaterial")
 
 
 def load_scene(path: str) -> RenderJob:
@@ -198,11 +200,13 @@ def load_scene(path: str) -> RenderJob:
         raise NotImplementedError("participating media (Camera.medium)")
 
     integrator = _make_integrator_spec(cfg.get("Integrator", {}))
+    # smooth glass is one FresnelSpecular lobe only under Path (glass.rs)
+    allow_multiple_lobes = integrator.kind == "path"
 
     mat_builder = MaterialTableBuilder()
     mat_ids: Dict[str, int] = {}
     for mat_cfg in cfg.get("materials", []) or []:
-        hm = _make_material(mat_cfg)
+        hm = _make_material(mat_cfg, allow_multiple_lobes)
         if hm is not None:
             mat_ids[hm.name] = mat_builder.add(hm)
 
@@ -252,7 +256,7 @@ def _float_param(cfg, key, default):
     return default
 
 
-def _make_material(cfg):
+def _make_material(cfg, allow_multiple_lobes):
     mtype = read_string(cfg, "material_type", "")
     name = read_string(cfg, "material_name", "DefaultMaterialName")
     remap = read_bool(cfg, "remap_roughness", False)
@@ -273,9 +277,10 @@ def _make_material(cfg):
     if mtype == "GlassMaterial":
         return recipes.glass(
             name, R("kr", 1.0), R("kt", 1.0), F("u_roughness", 0.0),
-            F("v_roughness", 0.0), F("eta", 1.5), remap,
-            allow_multiple_lobes=True,  # Path is the only ported integrator
+            F("v_roughness", 0.0), F("eta", 1.5), remap, allow_multiple_lobes,
         )
+    if mtype == "Debug":
+        return recipes.debug(name)
     if mtype in _UNPORTED_MATERIALS:
         raise NotImplementedError(f"material type {mtype}")
     return None
@@ -460,12 +465,18 @@ def _make_sampler_spec(scfg) -> SamplerSpec:
     )
 
 
+# integrator_type -> IntegratorSpec.kind for the ported integrators;
+# Volpath, SPPM and AO (the default) raise
+_INTEGRATORS = {"Path": "path", "Debug": "debug", "DirectLighting": "direct"}
+
+
 def _make_integrator_spec(icfg) -> IntegratorSpec:
-    kind = read_string(icfg, "integrator_type", "AO")
-    if kind != "Path":
-        raise NotImplementedError(f"{kind} integrator")
+    name = read_string(icfg, "integrator_type", "AO")
+    if name not in _INTEGRATORS:
+        raise NotImplementedError(f"{name} integrator")
     return IntegratorSpec(
-        kind="path",
+        kind=_INTEGRATORS[name],
         max_depth=read_i64(icfg, "max_depth", 5),
+        light_strategy=read_string(icfg, "light_strategy", "one"),
         rr_threshold=read_f64(icfg, "rr_threshold", 1.0),
     )

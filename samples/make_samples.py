@@ -1,4 +1,5 @@
-"""Write the in-repo scene fixture: samples/scene.json and samples/cube.obj.
+"""Write the in-repo scene fixture: samples/scene.json, samples/scene_debug.json
+and samples/cube.obj.
 
 This fixture stands in for the reference renderer's `samples/scene.json`,
 which is not part of this repository.  It follows the reference's scene
@@ -6,6 +7,12 @@ schema and its documented layout: three instances of a 12-triangle cube
 spanning +-1, placed about 35 units down +x in front of a RealisticCamera
 at the origin, lit by three coloured point lights, on a 640x360 film with
 a 4x4 jittered StratifiedSampler and the Path integrator at max_depth 5.
+
+scene_debug.json is the same geometry, camera, lights, film and sampler
+under the reference scene's default integrator, Debug at max_depth 4:
+the first cube takes a Debug material (its blue specular lobe runs the
+reflect chain), the second smooth glass of eta 1.5 (the reflect and
+transmit tree), the third stays metal.
 
 The scene is synthetic.  In particular its `lens_data` is NOT the
 reference's lens prescription: it is the classic 50 mm f/2 double-Gauss
@@ -144,12 +151,26 @@ def scene():
     }
 
 
+def scene_debug():
+    cfg = scene()
+    cfg["materials"] += [
+        {"material_type": "Debug", "material_name": "mat_debug"},
+        {"material_type": "GlassMaterial", "material_name": "mat_glass", "eta": 1.5},
+    ]
+    prims = cfg["Aggregate"]["primitives"]
+    prims[0]["material_name"] = "mat_debug"
+    prims[1]["material_name"] = "mat_glass"
+    cfg["Integrator"] = {"integrator_type": "Debug", "max_depth": 4}
+    return cfg
+
+
 def main(out_dir=HERE):
     with open(os.path.join(out_dir, "cube.obj"), "w") as fh:
         fh.write(cube_obj())
-    with open(os.path.join(out_dir, "scene.json"), "w") as fh:
-        json.dump(scene(), fh, indent=1)
-        fh.write("\n")
+    for name, cfg in (("scene.json", scene()), ("scene_debug.json", scene_debug())):
+        with open(os.path.join(out_dir, name), "w") as fh:
+            json.dump(cfg, fh, indent=1)
+            fh.write("\n")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""On the card: the CUDA path kernel against its plain PyTorch version.
+"""On the card: the CUDA camera kernels (path and direct, brute force and
+BVH) against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -14,9 +15,11 @@ import pytest
 import torch
 
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.render import render_job, sample_batch
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
+from rs_ray_toy_tpu_torch.scene.gen import write_grid_scene
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
 SAMPLES = Path(__file__).resolve().parents[1] / "samples"
@@ -29,8 +32,8 @@ def _device():
     return torch.device("cuda")
 
 
-def _job(tmp_path, w=64, h=36):
-    cfg = json.loads((SAMPLES / "scene.json").read_text())
+def _job(tmp_path, w=64, h=36, scene="scene.json"):
+    cfg = json.loads((SAMPLES / scene).read_text())
     cfg["Film"]["xres"], cfg["Film"]["yres"] = w, h
     shutil.copy(SAMPLES / "cube.obj", tmp_path)
     (tmp_path / "scene.json").write_text(json.dumps(cfg))
@@ -44,10 +47,10 @@ def test_kernel_matches_plain_version(tmp_path):
     sampler = StratifiedSampler(job.sampler)
     pxy, pid, soff = sample_batch(job.film, 16, dev)
     args = (pmk.pack_scene(job.scene, dev), cam, pxy, pid, soff, sampler, job.integrator)
-    before = pmk.LAUNCHES
+    before = pmk.LAUNCHES["path_mega_cam"]
     l, w = pmk.li_path_mega_cam(*args)
     torch.cuda.synchronize()
-    assert pmk.LAUNCHES == before + 1
+    assert pmk.LAUNCHES["path_mega_cam"] == before + 1
     l_ref, w_ref = pmk.li_path_mega_cam_reference(*args)
     assert torch.isfinite(l).all()
     torch.testing.assert_close(w, w_ref, rtol=2e-5, atol=1e-7)
@@ -110,3 +113,73 @@ def test_kernel_matches_plain_version_with_many_triangles(tmp_path, rows):
     rel = (l - l_ref).abs() / l_ref.abs().clamp(min=1e-3)
     assert float((rel.amax(-1) > 1e-3).float().mean()) < 5e-3
     assert abs(float(l.mean()) - float(l_ref.mean())) < 1e-6 + 3e-3 * abs(float(l_ref.mean()))
+
+
+def _hold(mod, job, dev, bvh=None):
+    """The kernel and its plain version on the same 16-spp batch: launches
+    once, equal camera weights, the per-ray bar."""
+    fn, ref = (
+        (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference)
+        if mod is pmk
+        else (dmk.li_levels_mega_cam, dmk.li_levels_mega_cam_reference)
+    )
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, pupil_samples=1 << 14, device=dev))
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    packed = pmk.pack_scene(job.scene, dev, bvh)
+    args = (packed, cam, pxy, pid, soff, StratifiedSampler(job.sampler), job.integrator)
+    before = sum(mod.LAUNCHES.values())
+    l, w = fn(*args)
+    torch.cuda.synchronize()
+    assert sum(mod.LAUNCHES.values()) == before + 1
+    l_ref, w_ref = ref(*args)
+    assert torch.isfinite(l).all() and float(l_ref.max()) > 0
+    torch.testing.assert_close(w, w_ref, rtol=2e-5, atol=1e-7)
+    rel = (l - l_ref).abs() / l_ref.abs().clamp(min=1e-3)
+    assert float((rel.amax(-1) > 1e-3).float().mean()) < 5e-3
+    assert float(torch.quantile(rel.flatten(), 0.99)) < 1e-5
+    assert abs(float(l.mean()) - float(l_ref.mean())) < 1e-6 + 3e-3 * abs(float(l_ref.mean()))
+    return packed
+
+
+@pytest.mark.parametrize("variant", ["debug", "direct-one", "direct-all"])
+def test_direct_kernel_matches_plain_version(tmp_path, variant):
+    """The Debug fixture (a Debug cube, a glass cube, a metal one), under
+    Debug and under DirectLighting with either light strategy."""
+    dev = _device()
+    job = _job(tmp_path, scene="scene_debug.json")
+    if variant != "debug":
+        job.integrator.kind = "direct"
+        job.integrator.light_strategy = variant.split("-")[1]
+    before = dmk.LAUNCHES["direct_mega_cam"]
+    assert _hold(dmk, job, dev).bvh is None
+    assert dmk.LAUNCHES["direct_mega_cam"] == before + 1
+
+
+@pytest.mark.parametrize("mod", [pmk, dmk], ids=["path", "direct"])
+@pytest.mark.parametrize("grid", [0, 8])
+def test_bvh_kernels_match_plain_versions(tmp_path, mod, grid):
+    """The BVH branch of each kernel: on the fixture forced into BVH mode
+    (grid 0) and on an 8x8 grid of cubes (792 triangles)."""
+    dev = _device()
+    scene = "scene.json" if mod is pmk else "scene_debug.json"
+    if grid:
+        path = write_grid_scene(
+            str(tmp_path / "grid"), ny=grid, nz=grid, base=str(SAMPLES / scene),
+            integrator="Path" if mod is pmk else "Debug", max_depth=5 if mod is pmk else 4,
+            xres=64, yres=36,
+        )
+        job = load_scene(path)
+    else:
+        job = _job(tmp_path, scene=scene)
+    name = "path_mega_cam_bvh" if mod is pmk else "direct_mega_cam_bvh"
+    before = mod.LAUNCHES[name]
+    assert _hold(mod, job, dev, bvh=True).bvh is not None
+    assert mod.LAUNCHES[name] == before + 1
+
+
+def test_debug_render_launches_once_per_pass(tmp_path):
+    dev = _device()
+    res = render_job(_job(tmp_path, scene="scene_debug.json"), dev, pupil_samples=1 << 16)
+    assert res["fused_kernel"] == "direct" and res["render_path"] == "megakernel"
+    assert res["launches"] == res["passes"] == 1 and not res["bvh"]
+    assert float(res["rgb_srgb_input"].max()) > 0

@@ -1,7 +1,8 @@
 """Scene loading and packing: the port's tables equal the JAX package's.
 
-Both packages load the in-repo fixture (samples/scene.json, written by
-samples/make_samples.py) and pack it for the path kernel; the packed
+Both packages load the in-repo fixtures (samples/scene.json and
+samples/scene_debug.json, written by samples/make_samples.py) and pack
+them for the camera kernels; the packed
 triangle table, the point lights and the camera bundle must agree.
 Features outside the ported slice must raise, never load silently.
 """
@@ -18,6 +19,14 @@ from rs_ray_toy_tpu.integrators.common import SceneCtx
 from rs_ray_toy_tpu.ops import path_megakernel as jpmk
 from rs_ray_toy_tpu.sampler.stratified import StratifiedSampler as JaxStratified
 from rs_ray_toy_tpu.scene.loader import load_scene as jax_load_scene
+from rs_ray_toy_tpu_torch.bsdf.lobes import (
+    LOBE_DEBUG_DIFFUSE,
+    LOBE_DEBUG_SPECULAR,
+    LOBE_FRESNEL_SPEC,
+    LOBE_MF_REFL,
+    LOBE_SPEC_REFL,
+    LOBE_SPEC_TRANS,
+)
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
@@ -50,7 +59,7 @@ def test_fixture_is_what_make_samples_writes(tmp_path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.main(str(tmp_path))
-    for name in ("scene.json", "cube.obj"):
+    for name in ("scene.json", "scene_debug.json", "cube.obj"):
         assert (tmp_path / name).read_bytes() == (SAMPLES / name).read_bytes()
 
 
@@ -115,7 +124,7 @@ UNSUPPORTED = {
     "participating media": _prim0(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "diffuse lights": _set("lights", [{"light_type": "diffuse"}]),
     "HaltonSampler": _set("Sampler", {"sampler_type": "HaltonSampler"}),
-    "Debug integrator": _set("Integrator", {"integrator_type": "Debug"}),
+    "SPPM integrator": _set("Integrator", {"integrator_type": "SPPM"}),
     "material type DisneyMaterial": _set(
         "materials", [{"material_type": "DisneyMaterial", "material_name": "d"}]
     ),
@@ -139,3 +148,33 @@ def test_supports_rejects_outside_the_kernel_subset(tmp_path):
     )
     job.integrator.max_depth = pmk.DEPTH_MAX + 1
     assert not pmk.supports(job.scene, job.integrator, sampler)
+
+
+def test_debug_fixture_tables_equal():
+    """samples/scene_debug.json packs to the JAX package's table: the
+    Debug lobes and glass as its two-lobe SPEC_REFL + SPEC_TRANS form."""
+    path = str(SAMPLES / "scene_debug.json")
+    jjob = jax_load_scene(path)
+    jtable = jpmk.pack_scene(SceneCtx(jjob.scene))[0]
+    job = load_scene(path)
+    assert job.integrator.kind == "debug" and job.integrator.max_depth == 4
+    packed = pmk.pack_scene(job.scene, "cpu")
+    assert np.array_equal(packed.table.numpy(), np.asarray(jtable))
+    assert packed.kinds_present == (
+        LOBE_SPEC_REFL, LOBE_SPEC_TRANS, LOBE_MF_REFL, LOBE_DEBUG_DIFFUSE, LOBE_DEBUG_SPECULAR,
+    )
+
+
+@pytest.mark.parametrize("integ", ["Path", "Debug", "DirectLighting"])
+def test_glass_lobe_form_follows_the_integrator(tmp_path, integ):
+    """glass.rs: smooth glass is one FresnelSpecular lobe under Path and
+    separate reflect and transmit lobes under the other integrators, in
+    both packages."""
+    path = write_scene(tmp_path, _set("Integrator", {"integrator_type": integ}))
+    job = load_scene(path)
+    mats = job.scene.materials
+    glass = len(mats["n_lobes"]) - 1  # EXTRA_MATERIALS puts it last
+    kinds = list(mats["kind"][glass, : mats["n_lobes"][glass]])
+    assert kinds == ([LOBE_FRESNEL_SPEC] if integ == "Path" else [LOBE_SPEC_REFL, LOBE_SPEC_TRANS])
+    jmats = jax_load_scene(path).scene.materials
+    assert list(np.asarray(jmats["kind"])[glass, : int(jmats["n_lobes"][glass])]) == kinds
