@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name and power limit), torch and
-         nvcc, and builds both kernel libraries from csrc/ (one nvcc
+         nvcc, and builds the three kernel libraries from csrc/ (one nvcc
          each, started together) and the SAH BVH builder (g++), timed as
          set-up.
 Phase 1  runs the path kernel and its plain PyTorch version on the same
@@ -27,11 +27,22 @@ Phase 4  mesh scenes: the 1,600-cube grid (19,200 triangles of grid, 19,224
          masked torch stack walk) on a seeded random eighth (Path) or
          sixteenth (Debug) of the rays of its main-path batch, 230,400
          rays, so that every lane and pixel column can be among them.
+Phase 5  the Volpath main path through the Volpath kernel: (a)
+         samples/scene_fog.json (the fixture in a thin homogeneous fog)
+         at 640x360x16; (b) the same with the JAX bench's fog_area sphere
+         light at 160x90x16; (c) write_grid_fog_scene's 16^3 grid plume
+         (sigma_scale 0.5, the bench's grid_fog medium) at 640x360x16;
+         (d) the 19,224-triangle grid under the fixture's fog at
+         640x360x8, over the BVH.  Each is held to the per-ray bar
+         against the plain version, on the whole batch or a seeded random
+         subset of it.  Last, the fog fixture with every cube matte at
+         160x90x16, held the same way: without the glossy cubes' chaotic
+         sampler, what diverges there is CUDA's logf / expf / sinf / cosf.
 
 Every driven main path starts with all launch counts at 0 and must show
 one launch of its kernel per pass and none of the others.  Every phase
 prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the four kernels, the last line
+second-to-last line is a JSON record of the six kernels, the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
 build/chip_smoke/chip_smoke.json and the images beside it.  Without a
 CUDA device, or without the rest of the repository, it exits non-zero
@@ -44,11 +55,15 @@ in and 16 out, of each BVH node once its two child boxes and its offset,
 count and axis, and of each triangle's row once the columns a kernel
 reads: the 9 geometry columns, the 7 of normal, dpdu and lobe count, and
 16 per lobe of its material; the raw normals and the texture block are
-never read.  The operations are the Moller-Trumbore tests (45 each),
-slab tests (27) and lobe evaluations (3, lambert's; a floor) that the
-plain version counts on the same inputs, scaled by the batch over the
-subset where it ran on a subset; the lens trace, the sampler hashes and
-the shading are left out, so the bound is a lower one.  No single
+never read.  For the Volpath kernel the density grid is read once
+too.  The operations are the Moller-Trumbore tests (45 each), slab
+tests (27), lobe evaluations (3, lambert's; a floor) and the grid
+tracking steps' trilinear density taps (40: the point and its scaled
+coordinates, 12, and seven lerps of 4) that the plain version counts on
+the same inputs, scaled by the batch over the subset where it ran on a
+subset; the lens trace, the sampler hashes, the shading, the light
+sampling and the medium's closed forms are left out, so the bound is a
+lower one.  No single
 PyTorch call computes a sample pass: `library_ms` is null.
 """
 
@@ -66,17 +81,25 @@ from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.ops import _build
 from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
 from rs_ray_toy_tpu_torch.render import deploy_render, render_job, sample_batch
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
-from rs_ray_toy_tpu_torch.scene.gen import write_grid_scene
+from rs_ray_toy_tpu_torch.scene.gen import (
+    THIN_FOG,
+    write_fog_scene,
+    write_grid_fog_scene,
+    write_grid_scene,
+)
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "samples" / "scene.json"
 SCENE_DEBUG = ROOT / "samples" / "scene_debug.json"
+SCENE_FOG = ROOT / "samples" / "scene_fog.json"
 OUT = ROOT / "build" / "chip_smoke"
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
 DIRECT_SRC = "rs_ray_toy_tpu_torch/csrc/direct_megakernel.cu"
+VOLPATH_SRC = "rs_ray_toy_tpu_torch/csrc/volpath_megakernel.cu"
 KERNELS = {
     "path_mega_cam": dict(source=PATH_SRC, replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3814"),
     "path_mega_cam_bvh": dict(
@@ -88,8 +111,21 @@ KERNELS = {
     "direct_mega_cam_bvh": dict(
         source=DIRECT_SRC, replaces="rs_ray_toy_tpu/ops/direct_megakernel.py:706"
     ),
+    "volpath_mega_cam": dict(
+        source=VOLPATH_SRC, replaces="rs_ray_toy_tpu/ops/volpath_megakernel.py:1111"
+    ),
+    "volpath_mega_cam_bvh": dict(
+        source=VOLPATH_SRC, replaces="rs_ray_toy_tpu/ops/volpath_megakernel.py:1145"
+    ),
 }
-FLOPS = {"mt": 45, "slab": 27, "lobe": 3}  # FP32 operations per counted test
+# FP32 operations per counted test or density tap
+FLOPS = {"mt": 45, "slab": 27, "lobe": 3, "track": 40}
+# module: (kernel wrapper, plain version, packing)
+PASSES = {
+    pmk: (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference, pmk.pack_scene),
+    dmk: (dmk.li_levels_mega_cam, dmk.li_levels_mega_cam_reference, pmk.pack_scene),
+    vmk: (vmk.li_volpath_mega_cam, vmk.li_volpath_mega_cam_reference, vmk.pack_volpath),
+}
 PEAK_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 RAY_BYTES = 8 + 4 + 4 + 12 + 4  # pixel_xy, pixel id, sample index in; L, weight out
@@ -160,6 +196,8 @@ def bound(work, scale, n_rays, packed):
     nbytes = n_rays * RAY_BYTES + int(cols.sum()) * 4
     if packed.bvh is not None:
         nbytes += packed.bvh.nodes_f.shape[0] * NODE_READ_COLS * 4
+    if getattr(packed, "grid", False):
+        nbytes += packed.medium["density"][0].numel() * 4
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -169,13 +207,13 @@ def run(cmd):
 
 
 def zero_counts():
-    for counts in (pmk.LAUNCHES, dmk.LAUNCHES):
+    for counts in (pmk.LAUNCHES, dmk.LAUNCHES, vmk.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def all_counts():
-    return {**pmk.LAUNCHES, **dmk.LAUNCHES}
+    return {**pmk.LAUNCHES, **dmk.LAUNCHES, **vmk.LAUNCHES}
 
 
 def drive(scene, png, kernel, fused, spp_override=None):
@@ -202,13 +240,9 @@ def hold(mod, job, stride, dev):
     """The kernel against its plain version on the main path's batch for
     `job` (one pass): the kernel on the whole batch, the plain version on
     a seeded random 1/`stride` of its rays.  Returns the measured numbers."""
-    fn, ref = (
-        (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference)
-        if mod is pmk
-        else (dmk.li_levels_mega_cam, dmk.li_levels_mega_cam_reference)
-    )
+    fn, ref, pack = PASSES[mod]
     cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
-    packed = pmk.pack_scene(job.scene, dev)
+    packed = pack(job.scene, dev)
     sampler = StratifiedSampler(job.sampler)
     pxy, pid, soff = sample_batch(job.film, min(16, sampler.spp), dev)
     args = (packed, cam, pxy, pid, soff, sampler, job.integrator)
@@ -230,6 +264,7 @@ def hold(mod, job, stride, dev):
     bound_ms, bound_by = bound(work, scale, n, packed)
     return dict(
         rays=n, plain_rays=pxy[sub].shape[0], bvh=packed.bvh is not None,
+        grid=getattr(packed, "grid", False),
         max_abs_err=max_abs_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by,
         work={k: float(v) * scale for k, v in work.items()}, **bar,
@@ -260,10 +295,10 @@ def main():
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     nvcc = run([_build.nvcc_path(), "--version"]).splitlines()[-1]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = {
             name: pool.submit(_build.build, name)
-            for name in ("path_megakernel", "direct_megakernel")
+            for name in ("path_megakernel", "direct_megakernel", "volpath_megakernel")
         }
         host = pool.submit(_build.load_host, "bvh_builder")
         logs = {name: f.result()[1] for name, f in builds.items()}
@@ -271,6 +306,7 @@ def main():
     build_s = time.perf_counter() - t0
     pmk.load_kernel()
     dmk.load_kernel()
+    vmk.load_kernel()
     ptxas = {
         name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         for name, log in logs.items()
@@ -381,6 +417,52 @@ def main():
         entry(kernel, launches, held)
         print(describe(f"phase 4: {tag}, grid of {t} triangles 640x360x{spp}", res, launches,
                        colored, held, warm, card))
+
+    # ---- phase 5: the Volpath main path ----
+    fog_area = write_fog_scene(str(OUT / "fog_area"), area_light=True, base=str(SCENE_FOG),
+                               medium=THIN_FOG, xres=160, yres=90)
+    grid_fog = write_grid_fog_scene(str(OUT / "grid_fog"), n=16, sigma_scale=0.5)
+    grid_bvh = write_grid_scene(str(OUT / "grid_volpath"), base=str(SCENE_FOG),
+                                integrator="Volpath")
+    held5 = {}
+    for step, tag, scene, kernel, spp, stride in (
+        ("5a", "fog", SCENE_FOG, "volpath_mega_cam", None, 1),
+        ("5b", "fog_area", fog_area, "volpath_mega_cam", None, 1),
+        ("5c", "grid_fog", grid_fog, "volpath_mega_cam", None, 4),
+        ("5d", "grid_bvh", grid_bvh, "volpath_mega_cam_bvh", 8, 8),
+    ):
+        res, colored, launches = drive(scene, OUT / f"chip_smoke_{tag}.png", kernel, "volpath", spp)
+        check(res["bvh"] == (tag == "grid_bvh"), f"{tag}: BVH {res['bvh']}")
+        full = load_scene(str(scene))
+        if spp == 8:
+            full.sampler.xsamp, full.sampler.ysamp = 2, 4
+        held = hold(vmk, full, stride, dev)
+        check(held["grid"] == (tag == "grid_fog"), f"{tag}: wrong medium")
+        warm = warm_rates(full, dev, 2)
+        held5[tag] = dict(launches=launches, **held)
+        record[f"phase5_{tag}"] = dict(
+            triangles=full.scene.triangles.count, launches=launches, colored=colored,
+            render_mrays_per_s=res["mrays_per_s"], render_s=res["elapsed_s"],
+            warm_render_mrays_per_s=warm, **held,
+        )
+        size = f"{full.film.xres}x{full.film.yres}x{full.sampler.spp}"
+        print(describe(f"phase {step}: Volpath, {tag} {size}", res, launches, colored, held,
+                       warm, card))
+    matte_scene = write_fog_scene(str(OUT / "fog_matte"), base=str(SCENE_FOG), medium=THIN_FOG,
+                                  xres=160, yres=90)
+    cfg = json.loads(Path(matte_scene).read_text())
+    for prim in cfg["Aggregate"]["primitives"]:
+        prim["material_name"] = "mat_matte"
+    Path(matte_scene).write_text(json.dumps(cfg))
+    matte = hold(vmk, load_scene(matte_scene), 1, dev)
+    record["phase5_fog_matte"] = matte
+    print(f"phase 5: Volpath, fog with matte cubes 160x90x16: kernel vs plain diverged "
+          f"{matte['diverged']:.2e}, q99 {matte['q99']:.2e}, mean {matte['mean']:.6g} vs "
+          f"{matte['mean_ref']:.6g}, max_abs_err {matte['max_abs_err']:.3g}; kernel "
+          f"{matte['ms']:.3f} ms, plain {matte['plain_ms']:.1f} ms [{card}]")
+    entry("volpath_mega_cam", held5["fog"]["launches"], held5["fog"],
+          max([held5[t]["max_abs_err"] for t in ("fog_area", "grid_fog")] + [matte["max_abs_err"]]))
+    entry("volpath_mega_cam_bvh", held5["grid_bvh"]["launches"], held5["grid_bvh"])
 
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines

@@ -1,9 +1,10 @@
-// Device code shared by the camera-fused kernels (path_megakernel.cu and
-// direct_megakernel.cu): the parameter block, the counter-based sampler, the
-// RealisticCamera lens trace, Moller-Trumbore over the triangle table (brute
-// force from shared memory, or a per-ray stack walk of the BVH from global
-// memory), and the lobe evaluations.  Everything here follows the plain
-// PyTorch versions (ops/path_megakernel.py) expression by expression; the
+// Device code shared by the camera-fused kernels (path_megakernel.cu,
+// direct_megakernel.cu and volpath_megakernel.cu): the parameter block, the
+// counter-based sampler, the RealisticCamera lens trace, Moller-Trumbore over
+// the triangle table (brute force from shared memory, or a per-ray stack walk
+// of the BVH from global memory), the lobe evaluations, sphere-light sampling
+// and the MIS power heuristic.  Everything here follows the plain
+// PyTorch versions (ops/*_megakernel.py) expression by expression; the
 // kernels are built with --fmad=false so that no product is contracted into
 // an FMA, and reciprocal square roots are 1.0f / sqrtf(x).
 
@@ -686,6 +687,137 @@ __device__ void concentric_disk(float u0, float u1, float& dxo, float& dyo) {
       use_x ? PI_OVER_4_F * (y / safe_x) : PI_OVER_2_F - PI_OVER_4_F * (x / safe_y);
   dxo = cosf(theta) * r;
   dyo = sinf(theta) * r;
+}
+
+// One BSDF sample at a surface vertex (Bsdf::sample_f, reference-quirk exact;
+// ops/path_megakernel._bsdf_sample): a lobe picked uniformly by ub0, the
+// lobe's direction in the local frame, its f and pdf (divided by the lobe
+// count), and whether a fresnel-specular lobe transmitted (the etaScale
+// factor).  A zero f or pdf ends the path.
+struct BsdfSample {
+  float wx, wy, wz;
+  float f[3];
+  float pdf;
+  bool transmitted;
+};
+
+__device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, float wol_y,
+                                  float wo_z, float ub0, float ub1) {
+  const int matching = max(n_lob, 1);
+  const int comp = min((int)(ub0 * (float)matching), matching - 1);
+  const float u0 = fminf(ub0 * (float)matching - (float)comp, ONE_MINUS_EPSILON);
+  const float u1 = ub1;
+  const Lobe lc = n_lob > 0 ? load_lobe(row, comp) : Lobe{};
+  BsdfSample s;
+  s.wx = s.wy = s.wz = 0.0f;
+  bool mf_ok = true, fs_reflect = false, st_ok = true;
+  float fr_fs = 0.0f, scale_t = 1.0f;
+  if (lc.kind == LOBE_MF_REFL) {
+    float hx, hy, hz;
+    tr_sample_wh(wol_x, wol_y, wo_z, lc.au, lc.av, u0, u1, hx, hy, hz);
+    const float dot_owh = wol_x * hx + wol_y * hy + wo_z * hz;
+    s.wx = 2.0f * dot_owh * hx - wol_x;
+    s.wy = 2.0f * dot_owh * hy - wol_y;
+    s.wz = 2.0f * dot_owh * hz - wo_z;
+    mf_ok = dot_owh >= 0.0f && (wo_z * s.wz) > 0.0f && wo_z != 0.0f;
+  } else if (lc.kind == LOBE_SPEC_REFL) {
+    s.wx = -wol_x;
+    s.wy = -wol_y;
+    s.wz = wo_z;
+  } else if (lc.kind == LOBE_FRESNEL_SPEC) {
+    fr_fs = fr_dielectric(wo_z, lc.eta_a, lc.eta_b);
+    fs_reflect = u0 < fr_fs;
+    if (fs_reflect) {
+      s.wx = -wol_x;
+      s.wy = -wol_y;
+      s.wz = wo_z;
+    } else {
+      const bool entering = wo_z > 0.0f;
+      const float ei = entering ? lc.eta_a : lc.eta_b;
+      const float et = entering ? lc.eta_b : lc.eta_a;
+      const float eta_rel = ei / fmaxf(et, 1e-9f);
+      const float abs_cz = fabsf(wo_z);
+      const float sin2_t = eta_rel * eta_rel * fmaxf(0.0f, 1.0f - abs_cz * abs_cz);
+      st_ok = sin2_t < 1.0f;
+      const float cos_t = sqrtf(fmaxf(0.0f, 1.0f - sin2_t));
+      const float nz_sign = entering ? 1.0f : -1.0f;
+      s.wx = -eta_rel * wol_x;
+      s.wy = -eta_rel * wol_y;
+      s.wz = -eta_rel * wo_z + (eta_rel * abs_cz - cos_t) * nz_sign;
+      scale_t = (ei * ei) / fmaxf(et * et, 1e-20f);
+    }
+  } else {  // cosine-weighted hemisphere on wo's side (lambert)
+    float dxo, dyo;
+    concentric_disk(u0, u1, dxo, dyo);
+    float z_cos = sqrtf(fmaxf(0.0f, 1.0f - dxo * dxo - dyo * dyo));
+    if (wo_z < 0.0f) z_cos = -z_cos;
+    s.wx = dxo;
+    s.wy = dyo;
+    s.wz = z_cos;
+  }
+  lobe_f(lc, wol_x, wol_y, wo_z, s.wx, s.wy, s.wz, s.f);
+  s.pdf = lobe_pdf(lc, wol_x, wol_y, wo_z, s.wx, s.wy, s.wz);
+  if (!mf_ok) s.f[0] = s.f[1] = s.f[2] = 0.0f;
+  const float aci = fmaxf(fabsf(s.wz), 1e-20f);
+  if (lc.kind == LOBE_SPEC_REFL) {
+    float fr[3];
+    fresnel(lc, s.wz, fr);
+    for (int c = 0; c < 3; ++c) s.f[c] = lc.s0[c] * fr[c] / aci;
+    s.pdf = 1.0f;
+  } else if (lc.kind == LOBE_FRESNEL_SPEC) {
+    for (int c = 0; c < 3; ++c)
+      s.f[c] = fs_reflect ? lc.s0[c] * fr_fs / aci
+                          : (st_ok ? lc.s1[c] * (1.0f - fr_fs) * scale_t / aci : 0.0f);
+    s.pdf = fs_reflect ? fr_fs : 1.0f - fr_fs;
+  }
+  if (matching > 1) s.pdf = s.pdf / (float)matching;
+  s.transmitted = lc.kind == LOBE_FRESNEL_SPEC && !fs_reflect;
+  return s;
+}
+
+// ---- lights beyond the point light (lights/lights.py sample_li) ----
+
+// One sample of a diffuse light on a full sphere (lights/diffuse.rs sample_li,
+// sphere.rs sample): a uniform point on the sphere, its normal through the
+// inverse's transpose, the reference's area pdf dist^2 / |cos| without the
+// 1 / area (shape/mod.rs:33-47), emission on the front side only.
+// o2w: 12 floats (3x4 rows); w2o: the inverse's 3x3, row major.
+__device__ void sample_sphere_light(const float* o2w, const float* w2o, float radius,
+                                    const float* emit, float px, float py, float pz, float u0,
+                                    float u1, float& wix, float& wiy, float& wiz, float li[3],
+                                    float& pdf, float& lpx, float& lpy, float& lpz) {
+  const float z = 1.0f - 2.0f * u0;
+  const float r_ = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+  const float phi = TWO_PI_F * u1;
+  const float pox = r_ * cosf(phi) * radius, poy = r_ * sinf(phi) * radius, poz = z * radius;
+  lpx = o2w[0] * pox + o2w[1] * poy + o2w[2] * poz + o2w[3];
+  lpy = o2w[4] * pox + o2w[5] * poy + o2w[6] * poz + o2w[7];
+  lpz = o2w[8] * pox + o2w[9] * poy + o2w[10] * poz + o2w[11];
+  float nsx = w2o[0] * pox + w2o[3] * poy + w2o[6] * poz;
+  float nsy = w2o[1] * pox + w2o[4] * poy + w2o[7] * poz;
+  float nsz = w2o[2] * pox + w2o[5] * poy + w2o[8] * poz;
+  const float ninv = rsqrt_exact(fmaxf(nsx * nsx + nsy * nsy + nsz * nsz, 1e-30f));
+  nsx = nsx * ninv;
+  nsy = nsy * ninv;
+  nsz = nsz * ninv;
+  const float tsx = lpx - px, tsy = lpy - py, tsz = lpz - pz;
+  const float d2 = tsx * tsx + tsy * tsy + tsz * tsz;
+  const float dn = sqrtf(fmaxf(d2, 1e-20f));
+  wix = tsx / dn;
+  wiy = tsy / dn;
+  wiz = tsz / dn;
+  const float cos_l = fabsf(-(wix * nsx + wiy * nsy + wiz * nsz));
+  pdf = d2 / fmaxf(cos_l, 1e-20f);
+  if (!(d2 > 0.0f && pdf <= FLT_MAX)) pdf = 0.0f;  // pdf >= 0: the finite test
+  const bool front = (nsx * -wix + nsy * -wiy + nsz * -wiz) > 0.0f;
+  for (int c = 0; c < 3; ++c) li[c] = front ? emit[c] : 0.0f;
+}
+
+// MIS power heuristic with one sample of each strategy (sampling.rs:324-328)
+__device__ __forceinline__ float power_heuristic(float f_pdf, float g_pdf) {
+  const float f2 = f_pdf * f_pdf;
+  const float denom = f2 + g_pdf * g_pdf;
+  return denom > 0.0f ? f2 / fmaxf(denom, 1e-30f) : 0.0f;
 }
 
 constexpr int BLOCK = 128;

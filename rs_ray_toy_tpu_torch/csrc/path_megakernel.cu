@@ -120,88 +120,20 @@ __global__ void __launch_bounds__(BLOCK)
     // ---- BSDF sample (Bsdf::sample_f, reference-quirk exact) ----
     float ub0, ub1;
     smp.get_2d(dim0 + 3, ub0, ub1);
-    const int matching = max(n_lob, 1);
-    const int comp = min((int)(ub0 * (float)matching), matching - 1);
-    const float u0 = fminf(ub0 * (float)matching - (float)comp, ONE_MINUS_EPSILON);
-    const float u1 = ub1;
-    const Lobe lc = n_lob > 0 ? load_lobe(row, comp) : Lobe{};
-    float wsx = 0.0f, wsy = 0.0f, wsz = 0.0f;
-    bool mf_ok = true, fs_reflect = false, st_ok = true;
-    float fr_fs = 0.0f, scale_t = 1.0f;
-    if (lc.kind == LOBE_MF_REFL) {
-      float hx, hy, hz;
-      tr_sample_wh(wol_x, wol_y, wo_z, lc.au, lc.av, u0, u1, hx, hy, hz);
-      const float dot_owh = wol_x * hx + wol_y * hy + wo_z * hz;
-      wsx = 2.0f * dot_owh * hx - wol_x;
-      wsy = 2.0f * dot_owh * hy - wol_y;
-      wsz = 2.0f * dot_owh * hz - wo_z;
-      mf_ok = dot_owh >= 0.0f && (wo_z * wsz) > 0.0f && wo_z != 0.0f;
-    } else if (lc.kind == LOBE_SPEC_REFL) {
-      wsx = -wol_x;
-      wsy = -wol_y;
-      wsz = wo_z;
-    } else if (lc.kind == LOBE_FRESNEL_SPEC) {
-      fr_fs = fr_dielectric(wo_z, lc.eta_a, lc.eta_b);
-      fs_reflect = u0 < fr_fs;
-      if (fs_reflect) {
-        wsx = -wol_x;
-        wsy = -wol_y;
-        wsz = wo_z;
-      } else {
-        const bool entering = wo_z > 0.0f;
-        const float ei = entering ? lc.eta_a : lc.eta_b;
-        const float et = entering ? lc.eta_b : lc.eta_a;
-        const float eta_rel = ei / fmaxf(et, 1e-9f);
-        const float abs_cz = fabsf(wo_z);
-        const float sin2_t = eta_rel * eta_rel * fmaxf(0.0f, 1.0f - abs_cz * abs_cz);
-        st_ok = sin2_t < 1.0f;
-        const float cos_t = sqrtf(fmaxf(0.0f, 1.0f - sin2_t));
-        const float nz_sign = entering ? 1.0f : -1.0f;
-        wsx = -eta_rel * wol_x;
-        wsy = -eta_rel * wol_y;
-        wsz = -eta_rel * wo_z + (eta_rel * abs_cz - cos_t) * nz_sign;
-        scale_t = (ei * ei) / fmaxf(et * et, 1e-20f);
-      }
-    } else {  // cosine-weighted hemisphere on wo's side (lambert)
-      float dxo, dyo;
-      concentric_disk(u0, u1, dxo, dyo);
-      float z_cos = sqrtf(fmaxf(0.0f, 1.0f - dxo * dxo - dyo * dyo));
-      if (wo_z < 0.0f) z_cos = -z_cos;
-      wsx = dxo;
-      wsy = dyo;
-      wsz = z_cos;
-    }
-    float fs[3];
-    lobe_f(lc, wol_x, wol_y, wo_z, wsx, wsy, wsz, fs);
-    float pdf = lobe_pdf(lc, wol_x, wol_y, wo_z, wsx, wsy, wsz);
-    if (!mf_ok) fs[0] = fs[1] = fs[2] = 0.0f;
-    const float aci = fmaxf(fabsf(wsz), 1e-20f);
-    if (lc.kind == LOBE_SPEC_REFL) {
-      float fr[3];
-      fresnel(lc, wsz, fr);
-      for (int c = 0; c < 3; ++c) fs[c] = lc.s0[c] * fr[c] / aci;
-      pdf = 1.0f;
-    } else if (lc.kind == LOBE_FRESNEL_SPEC) {
-      for (int c = 0; c < 3; ++c)
-        fs[c] = fs_reflect ? lc.s0[c] * fr_fs / aci
-                           : (st_ok ? lc.s1[c] * (1.0f - fr_fs) * scale_t / aci : 0.0f);
-      pdf = fs_reflect ? fr_fs : 1.0f - fr_fs;
-    }
-    if (matching > 1) pdf = pdf / (float)matching;
-
-    const float nwx = ssx * wsx + tsx * wsy + nsx * wsz;
-    const float nwy = ssy * wsx + tsy * wsy + nsy * wsz;
-    const float nwz = ssz * wsx + tsz * wsy + nsz * wsz;
+    const BsdfSample bs = bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1);
+    const float nwx = ssx * bs.wx + tsx * bs.wy + nsx * bs.wz;
+    const float nwy = ssy * bs.wx + tsy * bs.wy + nsy * bs.wz;
+    const float nwz = ssz * bs.wx + tsz * bs.wy + nsz * bs.wz;
     const float cosw = fabsf(dot3(nwx, nwy, nwz, nsx, nsy, nsz));
-    const bool any_f = fs[0] != 0.0f || fs[1] != 0.0f || fs[2] != 0.0f;
-    if (!(n_lob > 0 && wo_z != 0.0f && pdf > 0.0f && any_f)) break;
-    const float inv_pdf = cosw / fmaxf(pdf, 1e-20f);
-    br = br * fs[0] * inv_pdf;
-    bg = bg * fs[1] * inv_pdf;
-    bb = bb * fs[2] * inv_pdf;
+    const bool any_f = bs.f[0] != 0.0f || bs.f[1] != 0.0f || bs.f[2] != 0.0f;
+    if (!(n_lob > 0 && wo_z != 0.0f && bs.pdf > 0.0f && any_f)) break;
+    const float inv_pdf = cosw / fmaxf(bs.pdf, 1e-20f);
+    br = br * bs.f[0] * inv_pdf;
+    bg = bg * bs.f[1] * inv_pdf;
+    bb = bb * bs.f[2] * inv_pdf;
 
     // etaScale: a transmitted fresnel-specular sample, entering test on ng
-    if (lc.kind == LOBE_FRESNEL_SPEC && !fs_reflect) {
+    if (bs.transmitted) {
       const float e2 = mat_eta * mat_eta;
       es = es * (wo_ng > 0.0f ? e2 : 1.0f / fmaxf(e2, 1e-20f));
     }

@@ -3,15 +3,20 @@
 `from_jax_packed` takes what `rs_ray_toy_tpu.ops.path_megakernel`'s
 `pack_scene` / `pack_camera` return, as numpy arrays and python tuples
 (no JAX object crosses over), and builds this package's PackedScene and
-camera bundle.  Tests use it to feed both kernels identical tables, so a
-kernel comparison does not depend on the two loaders agreeing.
+camera bundle; `from_jax_volpath` does the same for the Volpath kernel's
+`pack_volpath` (its light constants, medium and power distribution, and
+the grid density as numpy).  Tests use them to feed both kernels
+identical tables, so a kernel comparison does not depend on the two
+loaders agreeing.
 """
 
 import numpy as np
 import torch
 
-from .ops.path_megakernel import TABLE_COLS, PackedScene
-from .scene.types import LIGHT_POINT
+from .ops.path_megakernel import TABLE_COLS, PackedScene, kinds_present
+from .ops.volpath_megakernel import PackedVolpath
+from .scene.types import LIGHT_DIFFUSE_AREA, LIGHT_POINT, MediumSpec
+from .scene import medium as med
 
 
 def from_jax_packed(table_np, wide_lights, cam_packed, device):
@@ -38,3 +43,50 @@ def camera_from_jax(cam_packed):
         k: (tuple(tuple(r) for r in v) if k == "bounds" else v)
         for k, v in dict(cam_packed).items()
     }
+
+
+def from_jax_volpath(table_np, wide_lights, vol_static, density_np, device):
+    """table_np and wide_lights as for from_jax_packed (point and sphere
+    lights; a sphere light's o2w / w2o are 12-float 3x4 rows, its radius
+    a float); vol_static: the JAX VolStatic (medium = MediumC, with GridC
+    for a grid), density_np: the (nz, ny, nx) grid or None.  Returns the
+    port's PackedVolpath."""
+    table = np.array(table_np, np.float32)  # a writable copy of the JAX buffer
+    if table.ndim != 2 or table.shape[1] != TABLE_COLS:
+        raise ValueError(f"expected a (T, {TABLE_COLS}) table, got {table.shape}")
+    kinds =tuple(int(l.kind) for l in wide_lights)
+    if any(k not in (LIGHT_POINT, LIGHT_DIFFUSE_AREA) for k in kinds):
+        raise NotImplementedError("lights other than point and sphere lights")
+    eye12 = (1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+    rows12 = [tuple(l.o2w) if l.o2w is not None else eye12 for l in wide_lights]
+    w2o9 = [
+        tuple(l.w2o[i] for i in (0, 1, 2, 4, 5, 6, 8, 9, 10)) if l.w2o is not None
+        else (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+        for l in wide_lights
+    ]
+    m = vol_static.medium
+    gr = m.grid
+    spec = MediumSpec("homogeneous", np.asarray(m.sigma_a), np.asarray(m.sigma_s), m.g)
+    if gr is not None:
+        w2m = np.eye(4)
+        w2m[:3, :4] = np.asarray(gr.w2m).reshape(3, 4)
+        spec = MediumSpec(
+            "grid", spec.sigma_a, spec.sigma_s, m.g, gr.nx, gr.ny, gr.nz,
+            np.asarray(density_np, np.float32).reshape(gr.nz, gr.ny, gr.nx), w2m,
+        )
+    return PackedVolpath(
+        scene=PackedScene(
+            table=torch.as_tensor(table, device=device),
+            light_p=tuple(tuple(float(v) for v in l.p) for l in wide_lights),
+            light_emit=tuple(tuple(float(v) for v in l.emit) for l in wide_lights),
+            kinds_present=kinds_present(table),
+        ),
+        medium=med.pack_mediums([spec], device),
+        light_kind=kinds,
+        sph_o2w=tuple(rows12),
+        sph_w2o=tuple(w2o9),
+        sph_radius=tuple(float(l.radius) for l in wide_lights),
+        cdf=tuple(vol_static.cdf),
+        pick_pdf=tuple(vol_static.pick_pdf),
+        world_radius=float(vol_static.world_radius),
+    )

@@ -48,7 +48,7 @@ from ..bsdf.lobes import (
 from ..bsdf.microfacet import roughness_to_alpha
 from ..config import DTYPE, ONE_MINUS_EPSILON, PI, SHADOW_EPSILON
 from ..sampler.dims import CAMERA_FILM, CAMERA_LENS, PATH_BSDF, PATH_NEE, PATH_RR, path_dim0
-from ..scene.types import LIGHT_POINT
+from ..scene.types import LIGHT_DIFFUSE_AREA, LIGHT_POINT
 from . import _build
 
 TRI_EPS = 1e-7
@@ -90,12 +90,15 @@ def _pow2(n):
     return n > 0 and (n & (n - 1)) == 0
 
 
-def scene_unsupported(scene, sampler, kinds) -> Optional[str]:
-    """The checks both camera kernels share (common_scene_checks):
+def scene_unsupported(scene, sampler, kinds, volpath=False) -> Optional[str]:
+    """The checks the camera kernels share (common_scene_checks):
     power-of-two stratified grid, 1..BVH_TRI_MAX flat triangles, up to
     LIGHT_MAX point lights, and every live lobe of a used material among
-    `kinds` (microfacets: visible-normal Trowbridge-Reitz only).  Returns
-    the first feature outside them, or None."""
+    `kinds` (microfacets: visible-normal Trowbridge-Reitz only); no media.
+    With `volpath`, sphere lights too, and the Volpath kernel checks the
+    medium itself.  Returns the first feature outside them, or None."""
+    if scene.mediums and not volpath:
+        return "participating media (Camera.medium) outside Volpath"
     if not (_pow2(sampler.spp) and _pow2(sampler.xs) and _pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     tri = scene.triangles
@@ -104,8 +107,10 @@ def scene_unsupported(scene, sampler, kinds) -> Optional[str]:
     lk = np.asarray(scene.lights.kind)
     if lk.size == 0:
         return "unlit scenes"
-    if lk.size > LIGHT_MAX or np.any(lk != LIGHT_POINT):
-        return f"lights other than up to {LIGHT_MAX} point lights"
+    ok = (lk == LIGHT_POINT) | ((lk == LIGHT_DIFFUSE_AREA) & volpath)
+    if lk.size > LIGHT_MAX or not ok.all():
+        what = "point and sphere lights" if volpath else "point lights"
+        return f"lights other than up to {LIGHT_MAX} {what}"
     mats = scene.materials
     used = np.unique(tri.mat[tri.mat >= 0])
     if used.size == 0:
@@ -372,17 +377,18 @@ def _kernel_params(packed, cam, sampler, spec):
     return prm
 
 
-def load_library(name, prefix):
+def load_library(name, prefix, extra_argtypes=()):
     """Build (on first use) and load csrc/<name>.cu, whose C interface is
     `<prefix>_launch`, `<prefix>_error_string` and `<prefix>_params_size`;
-    checks that the parameter block layout agrees with the compiled one."""
+    checks that the parameter block layout agrees with the compiled one.
+    `extra_argtypes` follow the launch's common arguments."""
     lib = _build.load(name)
     launch = getattr(lib, f"{prefix}_launch")
     launch.restype = ctypes.c_int
     launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, *extra_argtypes,
     ]
     getattr(lib, f"{prefix}_error_string").restype = ctypes.c_char_p
     getattr(lib, f"{prefix}_error_string").argtypes = [ctypes.c_int]
@@ -426,8 +432,9 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
                     LAUNCHES)
 
 
-def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches):
-    """launch() for a camera-fused kernel of `lib` (see prepare_launch).
+def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extra=()):
+    """launch() for a camera-fused kernel of `lib` (see prepare_launch);
+    `extra`, arguments after the common ones, are kept alive with it.
     Every accepted launch adds one to `launches[prefix]`, or to
     `launches[prefix + "_bvh"]` for the BVH kernel."""
     dev = pixel_xy.device
@@ -473,13 +480,14 @@ def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches):
     fn = getattr(lib, f"{prefix}_launch")
     nf = None if nodes_f is None else nodes_f.data_ptr()
     ni = None if nodes_i is None else nodes_i.data_ptr()
+    extra_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra)
     name = prefix if bvh is None else prefix + "_bvh"
 
     def launch():
         err = fn(
             table.data_ptr(), table.shape[0], nf, ni, ctypes.byref(prm),
             pxy.data_ptr(), pid32.data_ptr(), sid32.data_ptr(),
-            out_l.data_ptr(), out_w.data_ptr(), n, stream,
+            out_l.data_ptr(), out_w.data_ptr(), n, stream, *extra_args,
         )
         if err != 0:
             msg = getattr(lib, f"{prefix}_error_string")(err).decode()
@@ -720,9 +728,10 @@ class PlainGeometry:
 
     def occluded(self, ox, oy, oz, dx, dy, dz, t_max, live):
         """Any hit with t in [TRI_EPS, t_max) along the caller's
-        unnormalised direction; False where not live."""
+        direction (t_max a float or per ray); False where not live."""
         if self.bvh is not None:
-            _, row = self._walk(ox, oy, oz, dx, dy, dz, torch.full_like(ox, t_max), live, True)
+            t_bound = torch.zeros_like(ox) + t_max
+            _, row = self._walk(ox, oy, oz, dx, dy, dz, t_bound, live, True)
             return row >= 0
         occ = torch.zeros_like(ox, dtype=torch.bool)
         tests = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)

@@ -6,9 +6,12 @@ pixel's k samples form one sample-outer batch that a single fused call
 traces, and the film adds the batch with the aligned reshape-add.  The
 integrator picks the call: Path goes to the path kernel
 (`li_path_mega_cam`), Debug and DirectLighting to the direct kernel
-(`li_levels_mega_cam`); both take the scene packed by `pack_scene`, for
-the in-kernel BVH above TRI_MAX triangles.  Scenes outside the chosen kernel's subset raise
-NotImplementedError; there is no slower fallback loop.
+(`li_levels_mega_cam`), Volpath to the Volpath kernel
+(`li_volpath_mega_cam`); all take the scene packed by `pack_scene` (the
+Volpath kernel by `pack_volpath`, which adds the medium and the light
+distribution), for the in-kernel BVH above TRI_MAX triangles.  Scenes
+outside the chosen kernel's subset raise NotImplementedError
+(`select_kernel`); there is no slower fallback loop.
 
 Every tensor lives on the explicit `device`.  On "cuda" the passes run
 the CUDA kernel and are timed with CUDA events; on "cpu" they run the
@@ -25,6 +28,7 @@ from .film import film as fmod
 from .integrators.common import scrub_radiance
 from .ops import direct_megakernel as dmk
 from .ops import path_megakernel as pmk
+from .ops import volpath_megakernel as vmk
 from .sampler.stratified import StratifiedSampler
 from .scene.loader import load_scene
 
@@ -62,12 +66,25 @@ def sample_batch(film_spec, k_spp, device):
     return pixel_xy, pixel_id, sample_offset
 
 
-# integrator kind -> (fused kernel, its module, its pass function)
+# integrator kind -> (fused kernel, its module, its packing, its pass function)
 FUSED = {
-    "path": ("path", pmk, pmk.li_path_mega_cam),
-    "debug": ("direct", dmk, dmk.li_levels_mega_cam),
-    "direct": ("direct", dmk, dmk.li_levels_mega_cam),
+    "path": ("path", pmk, pmk.pack_scene, pmk.li_path_mega_cam),
+    "debug": ("direct", dmk, pmk.pack_scene, dmk.li_levels_mega_cam),
+    "direct": ("direct", dmk, pmk.pack_scene, dmk.li_levels_mega_cam),
+    "volpath": ("volpath", vmk, vmk.pack_volpath, vmk.li_volpath_mega_cam),
 }
+
+
+def select_kernel(job, sampler):
+    """FUSED's entry for `job`; raises NotImplementedError naming the
+    first feature outside the chosen kernel's subset."""
+    if job.integrator.kind not in FUSED:
+        raise NotImplementedError(f"{job.integrator.kind} integrator")
+    entry = FUSED[job.integrator.kind]
+    reason = entry[1].unsupported_feature(job.scene, job.integrator, sampler)
+    if reason is not None:
+        raise NotImplementedError(f"scene outside the {entry[0]}-kernel subset: {reason}")
+    return entry
 
 
 def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0):
@@ -86,13 +103,8 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0):
         sampler.xs = side
         sampler.ys = max(1, spp_override // side)
         sampler.spp = spp = sampler.xs * sampler.ys
-    if job.integrator.kind not in FUSED:
-        raise NotImplementedError(f"{job.integrator.kind} integrator")
-    fused, mod, li_pass = FUSED[job.integrator.kind]
-    reason = mod.unsupported_feature(job.scene, job.integrator, sampler)
-    if reason is not None:
-        raise NotImplementedError(f"scene outside the {fused}-kernel subset: {reason}")
-    packed = pmk.pack_scene(job.scene, device)
+    fused, mod, pack, li_pass = select_kernel(job, sampler)
+    packed = pack(job.scene, device)
     cam_packed = pmk.pack_camera(cam)
     if device.type == "cuda":
         mod.load_kernel()  # build outside the timed region

@@ -2,7 +2,8 @@
 
 Slots 0-7 belong to the camera sample (0: film jitter 2d, 1: lens 2d);
 the Path integrator uses a block of PATH_DPB slots per bounce starting at
-path_dim0(bounce).  Only the Path slots of the ported slice are listed.
+path_dim0(bounce), Volpath a block of VOLPATH_DPB at volpath_dim0(bounce).
+Only the slots of the ported integrators are listed.
 """
 
 INTEGRATOR_DIM0 = 8  # dims 0-7 reserved for the camera sample
@@ -17,3 +18,14 @@ PATH_RR = 4  # 1d
 
 def path_dim0(bounce: int) -> int:
     return INTEGRATOR_DIM0 + bounce * PATH_DPB
+
+
+VOLPATH_DPB = 8
+VOL_PICK = 0  # light pick (1d)
+VOL_LIGHT = 1  # light sample (2d); +2, the counter-branch sample, is unread
+VOL_NEXT = 3  # phase or BSDF sample of the next direction (2d)
+VOL_RR = 4  # Russian roulette (1d)
+
+
+def volpath_dim0(bounce: int) -> int:
+    return INTEGRATOR_DIM0 + bounce * VOLPATH_DPB

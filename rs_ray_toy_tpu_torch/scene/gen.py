@@ -1,10 +1,15 @@
-"""Procedural mesh scenes (rs_ray_toy_tpu/scene/gen.py, grid scene).
+"""Procedural scenes (rs_ray_toy_tpu/scene/gen.py and the JAX bench's scene edits).
 
 `write_grid_scene` tiles the fixture's cube mesh into an ny x nz instance
 grid about 35 units in front of the camera, through the schema's
 `instances` path (renderprocess.rs:1214-1282): the first primitive of the
 base scene takes the grid, the others stay.  ny = nz = 40 gives 1,600
 cubes, 19,200 triangles of grid: the JAX bench's `grid` row.
+
+`write_fog_scene` puts a base scene in a homogeneous camera medium under
+Volpath, optionally with the sphere light of the JAX bench's `fog_area`
+row (bench.py:103-111, 138-143); `write_grid_fog_scene` gives the fixture
+an n^3 GridDensity camera medium, the bench's `grid_fog` row.
 """
 
 import json
@@ -12,8 +17,43 @@ import os
 import shutil
 from pathlib import Path
 
+import numpy as np
+
 FIXTURE = str(Path(__file__).resolve().parents[2] / "samples" / "scene.json")
 SPAN_Y, SPAN_Z = 6.0, 4.0  # extent of the grid, world units
+# the JAX bench's fog rows: the reference's default coefficients (sigma_t
+# about 2.6-3.8 per unit, a wall of fog over the 35-unit scene)
+BENCH_FOG = {"medium_type": "Homogeneous", "g": 0.0}
+# samples/scene_fog.json's thin fog
+THIN_FOG = {"medium_type": "Homogeneous", "g": 0.0, "preset": "Clorox"}
+# the bench's fog_area light
+FOG_AREA_LIGHT = {
+    "light_type": "diffuse",
+    "spectrum": {"values": [60.0, 50.0, 40.0]},
+    "light_shape": {"shape_type": "sphere", "radius": 0.6, "world_pos": [33.0, 3.0, 1.0]},
+}
+
+
+def _write(cfg, base, out_dir, name):
+    """cfg as out_dir/name, with the base scene's cube.obj beside it."""
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(os.path.dirname(base), "cube.obj")
+    if os.path.exists(src):
+        shutil.copy(src, out_dir)
+    path = os.path.join(out_dir, name)
+    with open(path, "w") as fh:
+        json.dump(cfg, fh)
+    return path
+
+
+def _load(base, xres, yres):
+    with open(base) as fh:
+        cfg = json.load(fh)
+    if xres:
+        cfg["Film"]["xres"] = xres
+    if yres:
+        cfg["Film"]["yres"] = yres
+    return cfg
 
 
 def write_grid_scene(
@@ -28,12 +68,7 @@ def write_grid_scene(
 ):
     """Write grid.json (+ cube.obj) under out_dir; returns the json path.
     ny*nz cube instances -> 12*ny*nz triangles of grid."""
-    with open(base) as fh:
-        cfg = json.load(fh)
-    if xres:
-        cfg["Film"]["xres"] = xres
-    if yres:
-        cfg["Film"]["yres"] = yres
+    cfg = _load(base, xres, yres)
     cfg["Integrator"] = {"integrator_type": integrator, "max_depth": max_depth}
     prim = cfg["Aggregate"]["primitives"][0]
     # cube.obj spans +-1: scale so neighbours don't touch
@@ -50,11 +85,44 @@ def write_grid_scene(
         for j in range(ny)
         for k in range(nz)
     ]
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(os.path.dirname(base), "cube.obj")
-    if os.path.exists(src):
-        shutil.copy(src, out_dir)
-    path = os.path.join(out_dir, "grid.json")
-    with open(path, "w") as fh:
-        json.dump(cfg, fh)
-    return path
+    return _write(cfg, base, out_dir, "grid.json")
+
+
+def write_fog_scene(out_dir, area_light=False, base=FIXTURE, medium=BENCH_FOG, xres=None,
+                    yres=None):
+    """Write fog.json, or fog_area.json with the bench's sphere light added
+    to the base's lights, under out_dir: the base scene under Volpath (its
+    other integrator settings kept) in the camera medium `medium`.
+    Returns the json path."""
+    cfg = _load(base, xres, yres)
+    cfg["Integrator"] = {**(cfg.get("Integrator") or {}), "integrator_type": "Volpath"}
+    cfg.setdefault("Camera", {})["medium"] = dict(medium)
+    if area_light:
+        cfg["lights"] = list(cfg.get("lights") or []) + [FOG_AREA_LIGHT]
+    return _write(cfg, base, out_dir, "fog_area.json" if area_light else "fog.json")
+
+
+def write_grid_fog_scene(
+    out_dir, n=16, base=FIXTURE, max_depth=5, xres=None, yres=None, sigma_scale=1.0
+):
+    """Write grid_fog.json under out_dir: the base scene under Volpath in
+    an n^3 GridDensity camera medium, a smooth gaussian plume of peak
+    sigma_scale over the view volume x in [25, 45] (the JAX package's
+    write_grid_fog_scene).  The unit density box is placed by world_pos
+    and scale alone: the schema's p0 / p1 data-to-medium composition is
+    broken in the reference, so portable scenes omit it.  Returns the
+    json path."""
+    cfg = _load(base, xres, yres)
+    cfg["Integrator"] = {"integrator_type": "Volpath", "max_depth": max_depth}
+    zi, yi, xi = [(np.arange(n) + 0.5) / n - 0.5 for _ in range(3)]
+    r2 = xi[None, None, :] ** 2 + yi[None, :, None] ** 2 + zi[:, None, None] ** 2
+    d = sigma_scale * np.exp(-r2 / 0.09)
+    cfg.setdefault("Camera", {})["medium"] = {
+        "medium_type": "GridDensity",
+        "g": 0.0,
+        "nx": n, "ny": n, "nz": n,
+        "d": [round(float(v), 5) for v in d.ravel()],
+        "world_pos": [25.0, -8.0, -6.0],
+        "scale": [20.0, 16.0, 12.0],
+    }
+    return _write(cfg, base, out_dir, "grid_fog.json")

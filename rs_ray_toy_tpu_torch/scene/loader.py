@@ -3,9 +3,11 @@
 Parses the reference's scene schema with the same typed accessors and
 defaults (renderprocess.rs:136-252).  Ported: materials (matte, plastic,
 metal, mirror, glass, debug), `objs`, triangle primitives with
-`instances`, point lights, Film, StratifiedSampler, RealisticCamera and
-the Path, Debug and DirectLighting integrators.  Every other feature the
-schema can name raises
+`instances`, point lights, diffuse lights on a sphere `light_shape`, the
+camera medium (`Camera.medium`: Homogeneous or GridDensity, by preset or
+the reference's default coefficients), Film, StratifiedSampler,
+RealisticCamera and the Path, Debug, DirectLighting and Volpath
+integrators.  Every other feature the schema can name raises
 NotImplementedError with the feature's name; nothing is dropped
 silently.  Host numpy throughout; `load_scene` returns the same
 `RenderJob` fields as the JAX package.
@@ -13,8 +15,8 @@ silently.  Host numpy throughout; `load_scene` returns the same
 
 import json
 import os
-from dataclasses import dataclass
-from typing import Dict, List
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -23,7 +25,14 @@ from ..bsdf.lobes import MaterialTableBuilder
 from ..core import spectrum
 from ..core.transform import Transform
 from .objparser import parse_obj
-from .types import LIGHT_POINT, LightSoA, TriangleSoA
+from .subsurface_presets import SUBSURFACE_PARAMETER_TABLE
+from .types import (
+    LIGHT_DIFFUSE_AREA,
+    LIGHT_POINT,
+    LightSoA,
+    MediumSpec,
+    TriangleSoA,
+)
 
 # ---- typed accessors (renderprocess.rs:136-240) ----
 
@@ -111,7 +120,7 @@ class SamplerSpec:
 
 @dataclass
 class IntegratorSpec:
-    kind: str  # "path", "debug" or "direct"
+    kind: str  # "path", "debug", "direct" or "volpath"
     max_depth: int = 5
     light_strategy: str = "one"  # DirectLighting: "one" or "all"
     rr_threshold: float = 1.0
@@ -133,6 +142,8 @@ class SceneBundle:
     triangles: TriangleSoA
     lights: LightSoA
     materials: Dict
+    mediums: List[MediumSpec] = field(default_factory=list)
+    camera_medium: int = -1  # index into mediums, -1: the camera sits in vacuum
 
 
 @dataclass
@@ -196,12 +207,11 @@ def load_scene(path: str) -> RenderJob:
     for section, feature in _UNPORTED_SECTIONS:
         if cfg.get(section):
             raise NotImplementedError(f"{feature} (scene section '{section}')")
-    if isinstance((cfg.get("Camera") or {}).get("medium"), dict):
-        raise NotImplementedError("participating media (Camera.medium)")
 
     integrator = _make_integrator_spec(cfg.get("Integrator", {}))
-    # smooth glass is one FresnelSpecular lobe only under Path (glass.rs)
-    allow_multiple_lobes = integrator.kind == "path"
+    # smooth glass is one FresnelSpecular lobe only under Path and Volpath
+    # (glass.rs)
+    allow_multiple_lobes = integrator.kind in ("path", "volpath")
 
     mat_builder = MaterialTableBuilder()
     mat_ids: Dict[str, int] = {}
@@ -222,9 +232,13 @@ def load_scene(path: str) -> RenderJob:
     tris = _make_aggregate(cfg, meshes, mat_ids)
     bundle = SceneBundle(
         triangles=_pack_triangles(tris),
-        lights=_make_lights(cfg),
+        lights=_make_lights(cfg, _world_radius(tris)),
         materials=mat_builder.pack(),
     )
+    cam_medium = _parse_medium((cfg.get("Camera", {}) or {}).get("medium"))
+    if cam_medium is not None:
+        bundle.mediums.append(cam_medium)
+        bundle.camera_medium = len(bundle.mediums) - 1
     return RenderJob(
         bundle,
         _make_camera_spec(cfg.get("Camera", {})),
@@ -398,21 +412,106 @@ def _pack_triangles(tris) -> TriangleSoA:
 # ---- lights (renderprocess.rs:921-1053) ----
 
 
-def _make_lights(cfg) -> LightSoA:
-    p, emit = [], []
+def _world_radius(tris):
+    """Radius of the triangles' bounding sphere, float32 (the JAX
+    loader's _world_bound / _make_lights, float64 until the cast)."""
+    p = np.concatenate([t["p"] for t in tris])
+    lo, hi = p.min(axis=0), p.max(axis=0)
+    center = 0.5 * (lo + hi)
+    return np.float32(np.linalg.norm(hi - center))
+
+
+def _sphere_light(lcfg):
+    """(o2w, radius) of a diffuse light's `light_shape`; a full sphere
+    only (sphere.rs sample_ref samples the whole sphere)."""
+    shape_cfg = lcfg.get("light_shape")
+    stype = read_string(shape_cfg, "shape_type", "") if isinstance(shape_cfg, dict) else ""
+    if stype != "sphere":
+        raise NotImplementedError(
+            f"diffuse lights without a sphere light_shape ({stype or 'none'})"
+        )
+    radius = read_f64(shape_cfg, "radius", 1.0)
+    partial = (
+        read_f64(shape_cfg, "z_min", -radius) != -radius
+        or read_f64(shape_cfg, "z_max", radius) != radius
+        or read_f64(shape_cfg, "phi_max", 360.0) != 360.0
+    )
+    if partial:
+        raise NotImplementedError("diffuse lights on a partial sphere")
+    return make_to_world(shape_cfg).m, radius
+
+
+def _make_lights(cfg, world_radius) -> LightSoA:
+    rows = []
     for lcfg in cfg.get("lights", []) or []:
         ltype = read_string(lcfg, "light_type", "")
-        if ltype != "point":
+        eye = np.eye(4)
+        if ltype == "point":
+            # PointLight at the light-to-world image of the origin
+            rows.append((LIGHT_POINT, make_to_world(lcfg).apply_point(np.zeros(3)),
+                         make_spectrum(lcfg, "spectrum", 1.0), eye, eye, 1.0, 1.0, 1))
+        elif ltype == "diffuse":
+            o2w, radius = _sphere_light(lcfg)
+            rows.append((
+                LIGHT_DIFFUSE_AREA, np.zeros(3), make_spectrum(lcfg, "spectrum", 1.0),
+                o2w, np.linalg.inv(o2w), radius, 4.0 * np.pi * radius**2,
+                read_i64(lcfg, "n_samples", 1),
+            ))
+        else:
             raise NotImplementedError(f"{ltype or 'untyped'} lights")
-        # PointLight at the light-to-world image of the origin
-        p.append(make_to_world(lcfg).apply_point(np.zeros(3)))
-        emit.append(make_spectrum(lcfg, "spectrum", 1.0))
-    n = len(p)
+    n = len(rows)
+    col = lambda i, dtype, shape: np.asarray([r[i] for r in rows], dtype).reshape((n,) + shape)
     return LightSoA(
-        kind=np.full(n, LIGHT_POINT, np.int32),
-        p=np.asarray(p, np.float32).reshape(n, 3),
-        emit=np.asarray(emit, np.float32).reshape(n, 3),
+        kind=col(0, np.int32, ()),
+        p=col(1, np.float32, (3,)),
+        emit=col(2, np.float32, (3,)),
+        sph_o2w=col(3, np.float32, (4, 4)),
+        sph_w2o=col(4, np.float32, (4, 4)),
+        sph_radius=col(5, np.float32, ()),
+        area=col(6, np.float32, ()),
+        n_samples=col(7, np.int32, ()),
+        world_radius=world_radius,
     )
+
+
+# ---- media (renderprocess.rs:1108-1176) ----
+
+# the reference's fallback coefficients when no preset names a medium
+# (renderprocess.rs:1126-1131)
+_DEFAULT_SIGMA_A = np.array([0.0011, 0.0024, 0.014])
+_DEFAULT_SIGMA_S = np.array([2.55, 3.21, 3.77])
+
+
+def _parse_medium(mcfg) -> Optional[MediumSpec]:
+    """(renderprocess.rs:1135-1176).  GridDensity keeps the reference's
+    data-to-medium composition as the JAX loader has it (p0 / p1 into a
+    translate * scale, composed un-inverted; scene/gen.py notes that it
+    is broken)."""
+    if not isinstance(mcfg, dict):
+        return None
+    mtype = read_string(mcfg, "medium_type", "")
+    sigma_a, sigma_s = _DEFAULT_SIGMA_A, _DEFAULT_SIGMA_S
+    preset = read_string(mcfg, "preset", "")
+    if preset in SUBSURFACE_PARAMETER_TABLE:
+        ss, sa = SUBSURFACE_PARAMETER_TABLE[preset]
+        sigma_s, sigma_a = np.asarray(ss), np.asarray(sa)
+    g = read_f64(mcfg, "g", 0.0)
+    to_world = make_to_world(mcfg)
+    if mtype == "Homogeneous":
+        return MediumSpec("homogeneous", sigma_a, sigma_s, g)
+    if mtype == "GridDensity":
+        nx = read_i64(mcfg, "nx", 1)
+        ny = read_i64(mcfg, "ny", nx)
+        nz = read_i64(mcfg, "nz", nx)
+        d = np.asarray(mcfg.get("d", []), np.float64)
+        p0 = fetch_xyz(mcfg, "p0", [0.0, 0.0, 0.0])
+        p1 = fetch_xyz(mcfg, "p1", [1.0, 1.0, 1.0])
+        data2medium = Transform.translate(p0) * Transform.scale(
+            p1[0] - p0[0], p1[1] - p0[1], p1[2] - p0[2]
+        )
+        w2m = (to_world.inverse() * data2medium).m
+        return MediumSpec("grid", sigma_a, sigma_s, g, nx, ny, nz, d.reshape(nz, ny, nx), w2m)
+    return None
 
 
 # ---- film, camera, sampler and integrator specs (renderprocess.rs:1306-1499) ----
@@ -466,8 +565,10 @@ def _make_sampler_spec(scfg) -> SamplerSpec:
 
 
 # integrator_type -> IntegratorSpec.kind for the ported integrators;
-# Volpath, SPPM and AO (the default) raise
-_INTEGRATORS = {"Path": "path", "Debug": "debug", "DirectLighting": "direct"}
+# SPPM and AO (the default) raise
+_INTEGRATORS = {
+    "Path": "path", "Debug": "debug", "DirectLighting": "direct", "Volpath": "volpath",
+}
 
 
 def _make_integrator_spec(icfg) -> IntegratorSpec:

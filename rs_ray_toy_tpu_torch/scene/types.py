@@ -2,15 +2,19 @@
 
 Triangles are instance-expanded and baked to world space at load; lights
 are a typed table.  Only the slice's kinds are ported (triangles, point
-lights); the constants keep the JAX package's codes.
+lights, diffuse lights on a full sphere, homogeneous and grid media); the
+constants keep the JAX package's codes.
 """
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
-# light type code (the JAX package's; the other kinds are not ported)
+# light type codes (the JAX package's; distant and infinite lights are not
+# ported)
 LIGHT_POINT = 0
+LIGHT_DIFFUSE_AREA = 2  # on a full sphere; the triangle shape is not ported
 
 
 @dataclass
@@ -36,9 +40,34 @@ class TriangleSoA:
 @dataclass
 class LightSoA:
     kind: np.ndarray  # (L,) int32 LIGHT_*
-    p: np.ndarray  # (L,3) float32 point-light position
-    emit: np.ndarray  # (L,3) float32 point-light intensity
+    p: np.ndarray  # (L,3) float32 point-light position (zeros for area lights)
+    emit: np.ndarray  # (L,3) float32 point intensity I / area radiance L
+    # diffuse sphere lights own their shape (lights/diffuse.rs); identity
+    # and radius 1 on the other rows
+    sph_o2w: np.ndarray  # (L,4,4) float32 object-to-world
+    sph_w2o: np.ndarray  # (L,4,4) float32 its inverse
+    sph_radius: np.ndarray  # (L,) float32
+    area: np.ndarray  # (L,) float32 full-sphere area; 1 on the other rows
+    n_samples: np.ndarray  # (L,) int32, the schema's (1 by default); no ported kernel reads it
+    world_radius: np.float32  # bounding sphere of the triangles
 
     @property
     def count(self):
         return self.kind.shape[0]
+
+
+@dataclass
+class MediumSpec:
+    """A participating medium as the schema states it
+    (rs_ray_toy_tpu/scene/loader.py MediumSpec)."""
+
+    kind: str  # "homogeneous" | "grid"
+    sigma_a: np.ndarray  # (3,) float64
+    sigma_s: np.ndarray
+    g: float
+    # grid only
+    nx: int = 1
+    ny: int = 1
+    nz: int = 1
+    density: Optional[np.ndarray] = None  # (nz, ny, nx)
+    world_to_medium: Optional[np.ndarray] = None  # (4, 4) float64

@@ -1,5 +1,5 @@
-"""Write the in-repo scene fixture: samples/scene.json, samples/scene_debug.json
-and samples/cube.obj.
+"""Write the in-repo scene fixture: samples/scene.json, samples/scene_debug.json,
+samples/scene_fog.json and samples/cube.obj.
 
 This fixture stands in for the reference renderer's `samples/scene.json`,
 which is not part of this repository.  It follows the reference's scene
@@ -13,6 +13,11 @@ under the reference scene's default integrator, Debug at max_depth 4:
 the first cube takes a Debug material (its blue specular lobe runs the
 reflect chain), the second smooth glass of eta 1.5 (the reflect and
 transmit tree), the third stays metal.
+
+scene_fog.json is scene.json in a thin fog: the Volpath integrator at
+max_depth 5 with a homogeneous camera medium of the "Clorox" preset
+(sigma_t about 0.006-0.03 per unit, albedo 0.1-0.4), so the ~35-unit
+scene is attenuated, not hidden, and the fog itself scatters light.
 
 The scene is synthetic.  In particular its `lens_data` is NOT the
 reference's lens prescription: it is the classic 50 mm f/2 double-Gauss
@@ -164,10 +169,21 @@ def scene_debug():
     return cfg
 
 
+def scene_fog():
+    cfg = scene()
+    cfg["Integrator"] = {"integrator_type": "Volpath", "max_depth": 5}
+    cfg["Camera"]["medium"] = {"medium_type": "Homogeneous", "g": 0.0, "preset": "Clorox"}
+    return cfg
+
+
 def main(out_dir=HERE):
     with open(os.path.join(out_dir, "cube.obj"), "w") as fh:
         fh.write(cube_obj())
-    for name, cfg in (("scene.json", scene()), ("scene_debug.json", scene_debug())):
+    for name, cfg in (
+        ("scene.json", scene()),
+        ("scene_debug.json", scene_debug()),
+        ("scene_fog.json", scene_fog()),
+    ):
         with open(os.path.join(out_dir, name), "w") as fh:
             json.dump(cfg, fh, indent=1)
             fh.write("\n")

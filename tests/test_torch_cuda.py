@@ -1,5 +1,5 @@
-"""On the card: the CUDA camera kernels (path and direct, brute force and
-BVH) against their plain PyTorch versions.
+"""On the card: the CUDA camera kernels (path, direct and Volpath, brute
+force and BVH) against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -15,11 +15,18 @@ import pytest
 import torch
 
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+from rs_ray_toy_tpu_torch.ops import _build
 from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
 from rs_ray_toy_tpu_torch.render import render_job, sample_batch
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
-from rs_ray_toy_tpu_torch.scene.gen import write_grid_scene
+from rs_ray_toy_tpu_torch.scene.gen import (
+    THIN_FOG,
+    write_fog_scene,
+    write_grid_fog_scene,
+    write_grid_scene,
+)
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
 SAMPLES = Path(__file__).resolve().parents[1] / "samples"
@@ -115,17 +122,20 @@ def test_kernel_matches_plain_version_with_many_triangles(tmp_path, rows):
     assert abs(float(l.mean()) - float(l_ref.mean())) < 1e-6 + 3e-3 * abs(float(l_ref.mean()))
 
 
+PASSES = {  # module: (kernel wrapper, plain version, packing)
+    pmk: (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference, pmk.pack_scene),
+    dmk: (dmk.li_levels_mega_cam, dmk.li_levels_mega_cam_reference, pmk.pack_scene),
+    vmk: (vmk.li_volpath_mega_cam, vmk.li_volpath_mega_cam_reference, vmk.pack_volpath),
+}
+
+
 def _hold(mod, job, dev, bvh=None):
     """The kernel and its plain version on the same 16-spp batch: launches
     once, equal camera weights, the per-ray bar."""
-    fn, ref = (
-        (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference)
-        if mod is pmk
-        else (dmk.li_levels_mega_cam, dmk.li_levels_mega_cam_reference)
-    )
+    fn, ref, pack = PASSES[mod]
     cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, pupil_samples=1 << 14, device=dev))
     pxy, pid, soff = sample_batch(job.film, 16, dev)
-    packed = pmk.pack_scene(job.scene, dev, bvh)
+    packed = pack(job.scene, dev, bvh)
     args = (packed, cam, pxy, pid, soff, StratifiedSampler(job.sampler), job.integrator)
     before = sum(mod.LAUNCHES.values())
     l, w = fn(*args)
@@ -183,3 +193,78 @@ def test_debug_render_launches_once_per_pass(tmp_path):
     assert res["fused_kernel"] == "direct" and res["render_path"] == "megakernel"
     assert res["launches"] == res["passes"] == 1 and not res["bvh"]
     assert float(res["rgb_srgb_input"].max()) > 0
+
+
+def _fog_job(tmp_path, medium):
+    """64x36 Volpath scenes: the fixture's thin fog, with the fog_area
+    sphere light, or an 8^3 grid plume."""
+    if medium == "grid":
+        return load_scene(write_grid_fog_scene(str(tmp_path), n=8, xres=64, yres=36,
+                                               max_depth=3, sigma_scale=0.6))
+    return load_scene(write_fog_scene(str(tmp_path), area_light=medium == "area",
+                                      base=str(SAMPLES / "scene_fog.json"), medium=THIN_FOG,
+                                      xres=64, yres=36))
+
+
+@pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
+@pytest.mark.parametrize("medium", ["homogeneous", "area", "grid"])
+def test_volpath_kernel_matches_plain_version(tmp_path, medium, bvh):
+    dev = _device()
+    job = _fog_job(tmp_path, medium)
+    name = "volpath_mega_cam_bvh" if bvh else "volpath_mega_cam"
+    before = vmk.LAUNCHES[name]
+    packed = _hold(vmk, job, dev, bvh=bvh)
+    assert (packed.bvh is not None) == bvh and packed.grid == (medium == "grid")
+    assert vmk.LAUNCHES[name] == before + 1
+
+
+def _volpath_args(tmp_path, dev):
+    job = _fog_job(tmp_path, "homogeneous")
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, pupil_samples=1 << 12, device=dev))
+    pxy, pid, soff = sample_batch(job.film, 1, dev)
+    return (vmk.pack_volpath(job.scene, dev), cam, pxy, pid, soff, StratifiedSampler(job.sampler),
+            job.integrator)
+
+
+def _no_plain_version(*args, **kwargs):
+    raise AssertionError("the wrapper fell back to the plain version")
+
+
+def test_volpath_launch_fault_raises(tmp_path, monkeypatch):
+    """A launch the kernel library refuses (a grid medium of no cells)
+    raises; the wrapper never runs the plain version instead."""
+    dev = _device()
+    args = _volpath_args(tmp_path, dev)
+    bad = vmk._vol_params(args[0])
+    bad.grid, bad.nx = 1, 0
+    monkeypatch.setattr(vmk, "_vol_params", lambda packed: bad)
+    monkeypatch.setattr(vmk, "li_volpath_mega_cam_reference", _no_plain_version)
+    before = dict(vmk.LAUNCHES)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        vmk.li_volpath_mega_cam(*args)
+    assert vmk.LAUNCHES == before
+
+
+def test_volpath_build_fault_raises(tmp_path, monkeypatch):
+    """A kernel that does not build raises with nvcc's output."""
+    dev = _device()
+    args = _volpath_args(tmp_path, dev)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("--no-such-nvcc-flag",))
+    monkeypatch.setattr(vmk, "li_volpath_mega_cam_reference", _no_plain_version)
+    with pytest.raises(RuntimeError, match="failed to build"):
+        vmk.li_volpath_mega_cam(*args)
+
+
+def test_fog_render_launches_the_volpath_kernel_once_per_pass(tmp_path):
+    dev = _device()
+    job = _job(tmp_path, scene="scene_fog.json")
+    counts = (pmk.LAUNCHES, dmk.LAUNCHES, vmk.LAUNCHES)
+    before = [dict(c) for c in counts]
+    res = render_job(job, dev, pupil_samples=1 << 16)
+    assert res["fused_kernel"] == "volpath" and res["render_path"] == "megakernel"
+    assert res["launches"] == res["passes"] == 1 and not res["bvh"]
+    assert pmk.LAUNCHES == before[0] and dmk.LAUNCHES == before[1]
+    assert vmk.LAUNCHES["volpath_mega_cam"] == before[2]["volpath_mega_cam"] + 1
+    assert vmk.LAUNCHES["volpath_mega_cam_bvh"] == before[2]["volpath_mega_cam_bvh"]
+    # the fog scatters light into most of the frame
+    assert float((res["rgb_srgb_input"].sum(-1) > 0).float().mean()) > 0.5

@@ -1,10 +1,11 @@
 """Scene loading and packing: the port's tables equal the JAX package's.
 
-Both packages load the in-repo fixtures (samples/scene.json and
-samples/scene_debug.json, written by samples/make_samples.py) and pack
-them for the camera kernels; the packed
+Both packages load the in-repo fixtures (samples/scene.json,
+samples/scene_debug.json and samples/scene_fog.json, written by
+samples/make_samples.py) and pack them for the camera kernels; the packed
 triangle table, the point lights and the camera bundle must agree.
-Features outside the ported slice must raise, never load silently.
+Features outside the ported slice must raise, at load or when the render
+picks its kernel, never render silently.
 """
 
 import json
@@ -29,7 +30,9 @@ from rs_ray_toy_tpu_torch.bsdf.lobes import (
 )
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+from rs_ray_toy_tpu_torch.render import select_kernel
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
+from rs_ray_toy_tpu_torch.scene.gen import FOG_AREA_LIGHT, THIN_FOG
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
 SAMPLES = Path(__file__).resolve().parents[1] / "samples"
@@ -59,7 +62,7 @@ def test_fixture_is_what_make_samples_writes(tmp_path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.main(str(tmp_path))
-    for name in ("scene.json", "scene_debug.json", "cube.obj"):
+    for name in ("scene.json", "scene_debug.json", "scene_fog.json", "cube.obj"):
         assert (tmp_path / name).read_bytes() == (SAMPLES / name).read_bytes()
 
 
@@ -117,12 +120,32 @@ def _prim0(**kw):
     return edit
 
 
+def _volpath(medium=THIN_FOG, light=None, **prim0):
+    """The fixture under Volpath in the camera medium `medium`, with an
+    extra light and primitive-0 keys."""
+
+    def edit(cfg):
+        cfg["Integrator"] = {"integrator_type": "Volpath", "max_depth": 3}
+        cfg["Camera"]["medium"] = medium
+        if light is not None:
+            cfg["lights"].append(light)
+        cfg["Aggregate"]["primitives"][0].update(prim0)
+
+    return edit
+
+
+GRID_MEDIUM = {"medium_type": "GridDensity", "nx": 2, "ny": 2, "nz": 2, "d": [0.5] * 8,
+               "world_pos": [25.0, -8.0, -6.0], "scale": [20.0, 16.0, 12.0]}
 UNSUPPORTED = {
     "textures": _set("rgb_texture", [{"texture_type": "UVTexture", "texture_name": "uv"}]),
     "infinite lights": _set("infinite_lights", [{"light_type": "infinite"}]),
     "sphere primitives": _prim0(primitive_type="sphere"),
     "participating media": _prim0(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
+    # a diffuse light needs a sphere light_shape, and only Volpath renders it
     "diffuse lights": _set("lights", [{"light_type": "diffuse"}]),
+    "lights other than up to 8 point lights": _set("lights", [FOG_AREA_LIGHT]),
+    "medium_interface": _volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
+    "grid media with lights other than point lights": _volpath(GRID_MEDIUM, FOG_AREA_LIGHT),
     "HaltonSampler": _set("Sampler", {"sampler_type": "HaltonSampler"}),
     "SPPM integrator": _set("Integrator", {"integrator_type": "SPPM"}),
     "material type DisneyMaterial": _set(
@@ -133,9 +156,11 @@ UNSUPPORTED = {
 
 @pytest.mark.parametrize("feature", sorted(UNSUPPORTED))
 def test_unsupported_features_raise(tmp_path, feature):
+    """At load, or where render_job picks the kernel (select_kernel)."""
     path = write_scene(tmp_path, UNSUPPORTED[feature])
     with pytest.raises(NotImplementedError, match=feature):
-        load_scene(path)
+        job = load_scene(path)
+        select_kernel(job, StratifiedSampler(job.sampler))
 
 
 def test_supports_rejects_outside_the_kernel_subset(tmp_path):
@@ -165,16 +190,17 @@ def test_debug_fixture_tables_equal():
     )
 
 
-@pytest.mark.parametrize("integ", ["Path", "Debug", "DirectLighting"])
+@pytest.mark.parametrize("integ", ["Path", "Debug", "DirectLighting", "Volpath"])
 def test_glass_lobe_form_follows_the_integrator(tmp_path, integ):
     """glass.rs: smooth glass is one FresnelSpecular lobe under Path and
-    separate reflect and transmit lobes under the other integrators, in
-    both packages."""
+    Volpath and separate reflect and transmit lobes under the other
+    integrators, in both packages."""
     path = write_scene(tmp_path, _set("Integrator", {"integrator_type": integ}))
     job = load_scene(path)
     mats = job.scene.materials
     glass = len(mats["n_lobes"]) - 1  # EXTRA_MATERIALS puts it last
     kinds = list(mats["kind"][glass, : mats["n_lobes"][glass]])
-    assert kinds == ([LOBE_FRESNEL_SPEC] if integ == "Path" else [LOBE_SPEC_REFL, LOBE_SPEC_TRANS])
+    one_lobe = integ in ("Path", "Volpath")
+    assert kinds == ([LOBE_FRESNEL_SPEC] if one_lobe else [LOBE_SPEC_REFL, LOBE_SPEC_TRANS])
     jmats = jax_load_scene(path).scene.materials
     assert list(np.asarray(jmats["kind"])[glass, : int(jmats["n_lobes"][glass])]) == kinds
