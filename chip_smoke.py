@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name and power limit), torch and
-         nvcc, and builds the three kernel libraries from csrc/ (one nvcc
+         nvcc, and builds the four kernel libraries from csrc/ (one nvcc
          each, started together) and the SAH BVH builder (g++), timed as
          set-up.
 Phase 1  runs the path kernel and its plain PyTorch version on the same
@@ -38,11 +38,34 @@ Phase 5  the Volpath main path through the Volpath kernel: (a)
          subset of it.  Last, the fog fixture with every cube matte at
          160x90x16, held the same way: without the glossy cubes' chaotic
          sampler, what diverges there is CUDA's logf / expf / sinf / cosf.
+Phase 6  the SPPM main path through its three kernels: (a)
+         samples/scene_sppm.json at 640x360, 4 iterations of 2^17 photons,
+         max_depth 3, through deploy_render, one launch of each kernel per
+         iteration; (b) on the inputs of that render's first iteration,
+         each kernel against its plain version: the camera walk to the
+         per-ray bar on ld with VP valid and material equal on 99.5% of
+         the pixels and the VP record (p, wo, beta, ng, dpdu) at rtol
+         2e-4 / atol 1e-5 on 99.9% of the pixels where both are valid
+         and ld agrees; the photon walk's events equal on 99.5% of the
+         photons with a live event in either version (at least 5 of
+         them), there and on a seeded batch of 2^17 photons aimed at and
+         started inside the cubes (a fifth to a third of them deposit; at
+         least an eighth must); the deposit (the kernel's VPs and events,
+         one sort) with M equal and phi within 1e-5 relative, on the main
+         path's events and on those of the batch's first sixteenth; (c) the 19,224-triangle grid
+         under the same SPPM block, 2 iterations, through the BVH
+         instances of the camera and photon kernels, held the same way on
+         all of its pixels and photons: few of its pixels see direct
+         light, and a few chaotic glossy walks can move the mean of a
+         subset past the bar, so the line also reports the camera walk's
+         agreement on a seeded random eighth and against the plain
+         version run on the CPU, and the plain version's on the card
+         against the CPU; (d) the warm render's camera and photon Mrays/s.
 
 Every driven main path starts with all launch counts at 0 and must show
 one launch of its kernel per pass and none of the others.  Every phase
 prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the six kernels, the last line
+second-to-last line is a JSON record of the eleven kernels, the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
 build/chip_smoke/chip_smoke.json and the images beside it.  Without a
 CUDA device, or without the rest of the repository, it exits non-zero
@@ -63,8 +86,21 @@ coordinates, 12, and seven lerps of 4) that the plain version counts on
 the same inputs, scaled by the batch over the subset where it ran on a
 subset; the lens trace, the sampler hashes, the shading, the light
 sampling and the medium's closed forms are left out, so the bound is a
-lower one.  No single
-PyTorch call computes a sample pass: `library_ms` is null.
+lower one.  The SPPM walks count their bytes the same way, with only the
+sampler values the plain version counts as read ("slot", 4 bytes each):
+per pixel its raster position in, the film and lens slots and per
+vertex reached the light pick, the BSDF pair and the roulette value
+where it is drawn, and ld and the VP record out; per photon its flag in
+and two events out, its ray and power where it is active, and the
+bounce and roulette uniforms of the vertices it reaches.  The deposit
+reads each VP's range and writes its phi and M, reads the rest of the VP
+(p, wo, ng, dpdu, material, r^2) where the range holds events, and reads
+once each sorted event that some range holds (40 bytes), not the dead
+or out-of-grid ones sorted past every range; its operations are the
+(VP, event) pairs its ranges walk (9 each: the distance and its
+compare) and 3 per lobe evaluation of the near pairs.  No single PyTorch
+call computes a sample pass or any of the SPPM kernels: `library_ms` is
+null.
 """
 
 import json
@@ -75,14 +111,17 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+from rs_ray_toy_tpu_torch.integrators import sppm
 from rs_ray_toy_tpu_torch.ops import _build
 from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
 from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
-from rs_ray_toy_tpu_torch.render import deploy_render, render_job, sample_batch
+from rs_ray_toy_tpu_torch.render import deploy_render, make_sampler, render_job, sample_batch
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.gen import (
     THIN_FOG,
@@ -96,10 +135,13 @@ ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "samples" / "scene.json"
 SCENE_DEBUG = ROOT / "samples" / "scene_debug.json"
 SCENE_FOG = ROOT / "samples" / "scene_fog.json"
+SCENE_SPPM = ROOT / "samples" / "scene_sppm.json"
 OUT = ROOT / "build" / "chip_smoke"
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
 DIRECT_SRC = "rs_ray_toy_tpu_torch/csrc/direct_megakernel.cu"
 VOLPATH_SRC = "rs_ray_toy_tpu_torch/csrc/volpath_megakernel.cu"
+SPPM_SRC = "rs_ray_toy_tpu_torch/csrc/sppm_megakernel.cu"
+SPPM_REF = "rs_ray_toy_tpu/ops/sppm_megakernel.py"
 KERNELS = {
     "path_mega_cam": dict(source=PATH_SRC, replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3814"),
     "path_mega_cam_bvh": dict(
@@ -117,9 +159,14 @@ KERNELS = {
     "volpath_mega_cam_bvh": dict(
         source=VOLPATH_SRC, replaces="rs_ray_toy_tpu/ops/volpath_megakernel.py:1145"
     ),
+    "sppm_camera_mega_cam": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:636"),
+    "sppm_camera_mega_cam_bvh": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:667"),
+    "sppm_photon_mega": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:1391"),
+    "sppm_photon_mega_bvh": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:1407"),
+    "sppm_deposit_mega": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:923"),
 }
-# FP32 operations per counted test or density tap
-FLOPS = {"mt": 45, "slab": 27, "lobe": 3, "track": 40}
+# FP32 operations per counted test, density tap or walked deposit pair
+FLOPS = {"mt": 45, "slab": 27, "lobe": 3, "track": 40, "pair": 9}
 # module: (kernel wrapper, plain version, packing)
 PASSES = {
     pmk: (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference, pmk.pack_scene),
@@ -129,6 +176,14 @@ PASSES = {
 PEAK_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 RAY_BYTES = 8 + 4 + 4 + 12 + 4  # pixel_xy, pixel id, sample index in; L, weight out
+SLOT_BYTES = 4  # a sampler value the plain version counts as read ("slot")
+SPPM_CAM_BYTES = 8 + 12 + 5 * 12 + 4 + 4  # pixel_xy in; ld, the VP record, mat, valid out
+SPPM_PHOTON_BYTES = 4 + 2 * (36 + 4)  # the flag in; two events out
+PHOTON_RAY_BYTES = 36  # an active photon's ray and power in
+VP_BYTES = 8 + 12 + 4  # every VP: its range in; phi, M out
+VP_WALK_BYTES = 4 * 12 + 4 + 4  # a VP with events in its range: p, wo, ng, dpdu, mat, r^2
+EVENT_BYTES = 40  # a sorted event row
+PHOTON_FLOOR = 5  # photons with a live event the main-path photon hold needs
 ROW_HEAD_COLS = 9 + 7  # p0, e1, e2; ng, dpdu, lobe count
 LOBE_COLS = 16
 NODE_READ_COLS = 12 + 3  # both child boxes; offset, n_prims, axis
@@ -187,14 +242,15 @@ def per_ray_bar(l, l_ref):
     return stats
 
 
-def bound(work, scale, n_rays, packed):
+def bound(work, scale, n_rays, packed, ray_bytes=RAY_BYTES, extra_bytes=0):
     """(bound_ms, bound_by) of one pass over n_rays (see the module
     docstring); `work` is the plain version's counts, `scale` the batch
-    over the rays it ran on."""
-    flops = scale * sum(FLOPS[k] * float(v) for k, v in work.items())
-    cols = ROW_HEAD_COLS + LOBE_COLS * packed.table[:, 15]
-    nbytes = n_rays * RAY_BYTES + int(cols.sum()) * 4
-    if packed.bvh is not None:
+    over the rays it ran on; `packed` None for no triangle table."""
+    flops = scale * sum(FLOPS[k] * float(v) for k, v in work.items() if k in FLOPS)
+    nbytes = n_rays * ray_bytes + extra_bytes + scale * SLOT_BYTES * float(work.get("slot", 0))
+    if packed is not None:
+        nbytes += int((ROW_HEAD_COLS + LOBE_COLS * packed.table[:, 15]).sum()) * 4
+    if packed is not None and packed.bvh is not None:
         nbytes += packed.bvh.nodes_f.shape[0] * NODE_READ_COLS * 4
     if getattr(packed, "grid", False):
         nbytes += packed.medium["density"][0].numel() * 4
@@ -207,13 +263,13 @@ def run(cmd):
 
 
 def zero_counts():
-    for counts in (pmk.LAUNCHES, dmk.LAUNCHES, vmk.LAUNCHES):
+    for counts in (pmk.LAUNCHES, dmk.LAUNCHES, vmk.LAUNCHES, smk.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def all_counts():
-    return {**pmk.LAUNCHES, **dmk.LAUNCHES, **vmk.LAUNCHES}
+    return {**pmk.LAUNCHES, **dmk.LAUNCHES, **vmk.LAUNCHES, **smk.LAUNCHES}
 
 
 def drive(scene, png, kernel, fused, spp_override=None):
@@ -271,6 +327,16 @@ def hold(mod, job, stride, dev):
     )
 
 
+def add_entry(kernels, name, launches, held, extra_err=0.0):
+    """kernels[name]: the `kernels` line's entry from a hold's numbers."""
+    kernels[name] = dict(
+        name=name, route="cuda", **KERNELS[name], launches=launches,
+        max_abs_err=max(held["max_abs_err"], extra_err), ms=held["ms"],
+        plain_ms=held["plain_ms"], bound_ms=held["bound_ms"], bound_by=held["bound_by"],
+        library_ms=None, rays=held["rays"], plain_rays=held["plain_rays"],
+    )
+
+
 def warm_rates(job, dev, n=3):
     return [render_job(job, dev)["mrays_per_s"] for _ in range(n)]
 
@@ -295,10 +361,11 @@ def main():
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     nvcc = run([_build.nvcc_path(), "--version"]).splitlines()[-1]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = {
             name: pool.submit(_build.build, name)
-            for name in ("path_megakernel", "direct_megakernel", "volpath_megakernel")
+            for name in ("path_megakernel", "direct_megakernel", "volpath_megakernel",
+                         "sppm_megakernel")
         }
         host = pool.submit(_build.load_host, "bvh_builder")
         logs = {name: f.result()[1] for name, f in builds.items()}
@@ -307,8 +374,10 @@ def main():
     pmk.load_kernel()
     dmk.load_kernel()
     vmk.load_kernel()
+    smk.load_kernel()
     ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        name: [ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln or "entry function" in ln]
         for name, log in logs.items()
     }
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
@@ -348,14 +417,7 @@ def main():
           f"max_abs_err {max_abs_err1:.3g} [{card}]")
 
     kernels = {}
-
-    def entry(name, launches, held, extra_err=0.0):
-        kernels[name] = dict(
-            name=name, route="cuda", **KERNELS[name], launches=launches,
-            max_abs_err=max(held["max_abs_err"], extra_err), ms=held["ms"],
-            plain_ms=held["plain_ms"], bound_ms=held["bound_ms"], bound_by=held["bound_by"],
-            library_ms=None, rays=held["rays"], plain_rays=held["plain_rays"],
-        )
+    entry = lambda *args: add_entry(kernels, *args)
 
     # ---- phase 2: the Path main path, 640x360 x 16 spp ----
     res, colored, launches = drive(SCENE, OUT / "chip_smoke_640x360.png", "path_mega_cam", "path")
@@ -464,6 +526,9 @@ def main():
           max([held5[t]["max_abs_err"] for t in ("fog_area", "grid_fog")] + [matte["max_abs_err"]]))
     entry("volpath_mega_cam_bvh", held5["grid_bvh"]["launches"], held5["grid_bvh"])
 
+    # ---- phase 6: the SPPM main path ----
+    sppm_phase(record, kernels, card, dev)
+
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -477,6 +542,321 @@ def main():
             "count": torch.cuda.device_count(),
         },
     }))
+
+
+def sppm_inputs(job, dev, it=0):
+    """What one SPPM iteration's kernels take, as render_sppm makes it."""
+    packed = smk.pack_sppm(job.scene, dev)
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+    w, h = job.film.xres, job.film.yres
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+    pid = (ys * w + xs).reshape(-1)
+    pxy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.float32)
+    u = make_sampler(job).slot_matrix(pid, it, smk.sppm_slots(job.integrator.max_depth))
+    return packed, cam, pxy, u
+
+
+def agreement(a, b):
+    """(rows off by more than 1e-3 relative, relative difference of the
+    means) of radiance `a` against `b`."""
+    a, b = a.double().cpu(), b.double().cpu()
+    rel = (a - b).abs() / b.abs().clamp(min=1e-3)
+    return int((rel.amax(-1) > 1e-3).sum()), float((a.mean() - b.mean()) / b.mean())
+
+
+def surface_photons(scene, n, depth, dev, seed=12):
+    """A seeded batch of photons, many of which deposit, made as
+    tests/test_torch_sppm.py makes its photons: half start inside a cube
+    whose material has a diffuse lobe (within 0.8 of its inscribed ball,
+    so each depth hits its inner faces) in a random direction, half
+    outside (x in [26.2, 29.8], y and z in [-6, 6]) aimed at a random point
+    of any cube; 95% of them active; uniform bounce and roulette values.
+    The scene's triangles must be cube.obj instances, 12 rows each.
+    Returns (ro, rd, beta, active, u_rows) on `dev`."""
+    tri = scene.triangles
+    check(tri.count % 12 == 0, "the photon batch needs a scene of cubes")
+    verts = np.stack([tri.p0, tri.p1, tri.p2], 1).astype(np.float64).reshape(-1, 36, 3)
+    centre = verts.mean(1)
+    half = np.abs(((tri.p0[::12] - centre) * tri.ng[::12]).sum(-1))  # centre to a face
+    mats = scene.materials
+    diffuse = np.array([np.isin(mats["kind"][m, : mats["n_lobes"][m]], smk.DIFFUSE_KINDS).any()
+                        for m in tri.mat[::12]])
+    rng = np.random.default_rng(seed)
+    inside = np.arange(n) < n // 2
+    pick = np.where(inside, rng.choice(np.nonzero(diffuse)[0], n), rng.integers(0, len(centre), n))
+    c, h = centre[pick], half[pick, None]
+    off = rng.normal(size=(n, 3))
+    off *= 0.8 * h * rng.random((n, 1)) ** (1 / 3) / np.linalg.norm(off, axis=-1, keepdims=True)
+    outside = np.array([28.0, 0.0, 0.0]) + rng.uniform(-6.0, 6.0, (n, 3)) * [0.3, 1.0, 1.0]
+    ro = np.where(inside[:, None], c + off, outside)
+    target = c + 0.9 * h * rng.uniform(-1.0, 1.0, (n, 3))
+    rd = np.where(inside[:, None], rng.normal(size=(n, 3)), target - ro)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    beta = rng.uniform(1.0, 50.0, (n, 3))
+    active = rng.random(n) < 0.95
+    u_rows = rng.random((3 * (depth - 1), n))
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    return f32(ro), f32(rd), f32(beta), torch.as_tensor(active, device=dev), f32(u_rows)
+
+
+def hold_photons(packed, ph, depth, floor):
+    """The photon kernel against its plain version on photons `ph`: the
+    events agree (the live flags equal; p, wi and beta at rtol 1e-4, atol
+    1e-5 where either is live) on 99.5% of the photons with a live event
+    in either version, of which there must be `floor` or more.  Returns
+    (numbers, the kernel's events, the plain version's work, launch)."""
+    launch = smk.prepare_photon(packed, *ph, depth)
+    ev = launch()
+    torch.cuda.synchronize()
+    work = {}
+    ev_ref = smk.sppm_photon_mega_reference(packed, *ph, depth, work=work)
+    live = ev[3] | ev_ref[3]
+    same = ev[3] == ev_ref[3]
+    err = 0.0
+    for k in range(3):
+        same &= torch.isclose(ev[k], ev_ref[k], rtol=1e-4, atol=1e-5).all(-1) | ~live
+        err = max(err, float((ev[k] - ev_ref[k]).abs().max()))
+    n = ph[0].shape[0]
+    live_photons = live.reshape(depth - 1, n).any(0)
+    n_live = int(live_photons.sum())
+    check(n_live >= floor, f"{n_live} photons with a live event, fewer than {floor}")
+    equal = float(same.reshape(depth - 1, n).all(0)[live_photons].double().mean())
+    check(equal >= 0.995, f"photon events equal on {equal:.4f} of the {n_live} live photons")
+    check(bool((ev[0][~ev[3]] == 0).all()), "a dead photon event is not zeros")
+    numbers = dict(photons=n, live_photons=n_live, live_events=int(ev[3].sum()),
+                   live_equal=equal, max_abs_err=err)
+    return numbers, ev, work, launch
+
+
+def hold_sppm_walks(job, dev, cross=False):
+    """The camera and photon kernels against their plain versions on the
+    first iteration's inputs, and the photon kernel also on a seeded
+    batch of surface-started photons (surface_photons).  With `cross`,
+    the camera walk's agreement also on a seeded random eighth of the
+    pixels and against the plain version on the CPU.  Returns (camera
+    numbers, photon numbers, the kernels' VPs, the main path's and the
+    batch's kernel events, radius, mats)."""
+    spec = job.integrator
+    depth = spec.max_depth
+    packed, cam, pxy, u = sppm_inputs(job, dev)
+    n = pxy.shape[0]
+    launch = smk.prepare_camera(packed, cam, pxy, u, depth)
+    ld, vp = launch()
+    torch.cuda.synchronize()
+    work = {}
+    ld_ref, vp_ref = smk.sppm_camera_mega_cam_reference(packed, cam, pxy, u, depth, work=work)
+    bar = per_ray_bar(ld, ld_ref)
+    valid_eq = float((vp.valid == vp_ref.valid).double().mean())
+    check(valid_eq >= 0.995, f"VP valid equal on {valid_eq:.4f} of the pixels")
+    both = vp.valid & vp_ref.valid
+    mat_eq = float((vp.mat[both] == vp_ref.mat[both]).double().mean())
+    check(mat_eq >= 0.995, f"VP material equal on {mat_eq:.4f} of the valid pixels")
+    # the VP record where both are valid and ld agrees, at the bar of
+    # tests/test_torch_cuda.py per pixel, on 99.9% of those pixels: the
+    # glossy cubes' chaotic sampler moves a rare beta by a few 1e-4
+    held = both & (((ld - ld_ref).abs() / ld_ref.abs().clamp(min=1e-3)).amax(-1) <= 1e-3)
+    n_held = int(held.sum())
+    check(n_held > 30, f"{n_held} VPs held")
+    check(bool((vp.mat[held] == vp_ref.mat[held]).all()), "VP material differs on a held pixel")
+    err = float((ld - ld_ref).abs().max())
+    close = torch.ones((n_held,), dtype=torch.bool, device=dev)
+    for f in ("p", "wo", "beta", "ng", "dpdu"):
+        a, b = getattr(vp, f)[held], getattr(vp_ref, f)[held]
+        close &= torch.isclose(a, b, rtol=2e-4, atol=1e-5).all(-1)
+        err = max(err, float((a - b).abs().max()))
+    record_eq = float(close.double().mean())
+    check(record_eq >= 0.999, f"VP record equal on {record_eq:.5f} of the {n_held} held pixels")
+    t_ms = timed_ms(launch, reps=10)
+    wrapper_ms = timed_ms(lambda: smk.sppm_camera_mega_cam(packed, cam, pxy, u, depth))
+    plain_ms = once_ms(lambda: smk.sppm_camera_mega_cam_reference(packed, cam, pxy, u, depth))
+    b_ms, b_by = bound(work, 1.0, n, packed, SPPM_CAM_BYTES)
+    camera = dict(rays=n, plain_rays=n, bvh=packed.bvh is not None, max_abs_err=err, ms=t_ms,
+                  wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  valid_equal=valid_eq, mat_equal=mat_eq, vps=int(vp.valid.sum()),
+                  vps_held=n_held, vp_record_equal=record_eq,
+                  work={k: float(v) for k, v in work.items()}, **bar)
+    if cross:
+        sub = torch.randperm(n, generator=torch.Generator().manual_seed(8))[: n // 8].to(dev)
+        ld_cpu, _ = smk.sppm_camera_mega_cam_reference(packed, cam, pxy.cpu(), u.cpu(), depth)
+        camera["cross"] = dict(eighth=agreement(ld[sub], ld_ref[sub]),
+                               kernel_vs_cpu=agreement(ld, ld_cpu),
+                               plain_vs_cpu=agreement(ld_ref, ld_cpu))
+
+    radius = torch.full((n,), spec.radius, dtype=torch.float32, device=dev)
+    lights = sppm.photon_lights(packed, job.scene.lights, dev)
+    n_ph = spec.photons_per_iter
+    ph = sppm.emit_photons(lights, torch.arange(n_ph, device=dev), depth)
+    main, ev, work, launch = hold_photons(packed, ph, depth, PHOTON_FLOOR)
+    batch, ev_batch, _, _ = hold_photons(
+        packed, surface_photons(job.scene, n_ph, depth, dev), depth, n_ph // 8
+    )
+    t_ms = timed_ms(launch, reps=10)
+    wrapper_ms = timed_ms(lambda: smk.sppm_photon_mega(packed, *ph, depth))
+    plain_ms = once_ms(lambda: smk.sppm_photon_mega_reference(packed, *ph, depth))
+    ray_bytes = int(ph[3].sum()) * PHOTON_RAY_BYTES
+    b_ms, b_by = bound(work, 1.0, n_ph, packed, SPPM_PHOTON_BYTES, ray_bytes)
+    photon = dict(rays=n_ph, plain_rays=n_ph, bvh=packed.bvh is not None,
+                  max_abs_err=max(main["max_abs_err"], batch["max_abs_err"]), ms=t_ms,
+                  wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  main=main, surface_batch=batch, work={k: float(v) for k, v in work.items()})
+    return camera, photon, vp, ev, ev_batch, radius, smk.resolve_mat_tables(job.scene, dev)
+
+
+def hold_deposit(vp, ev, radius, mats, timed=True):
+    """The deposit kernel against its plain version on the same sorted
+    events (the kernel's VPs and events of one iteration); with `timed`,
+    its times and bound too."""
+    lo, diag = sppm.grid_bounds(vp, radius)
+    inp = smk.deposit_inputs(vp, radius, ev, lo, diag)
+    launch = smk.prepare_deposit(vp, mats, inp)
+    phi, m = launch()
+    torch.cuda.synchronize()
+    work = {}
+    phi_ref, m_ref = smk.deposit_walk_reference(vp, mats, inp, work=work)
+    check(bool((m == m_ref).all()), "deposit M differs from its plain version")
+    rel = float(((phi - phi_ref).abs() / phi_ref.abs().clamp(min=1e-30)).max())
+    check(rel <= 1e-5, f"deposit phi off by {rel:.3g} relative")
+    check(int(m_ref.sum()) > 0, "no photon reached a visible point")
+    held = dict(max_abs_err=float((phi - phi_ref).abs().max()), phi_rel_err=rel,
+                bit_equal=bool((phi == phi_ref).all()), m_total=int(m_ref.sum()),
+                live_events=int(ev[3].sum()))
+    if not timed:
+        return held
+    n = vp.p.shape[0]
+    t_ms = timed_ms(launch, reps=10)
+    wrapper_ms = timed_ms(lambda: smk.deposit_mega(vp, radius, mats, ev, lo, diag))
+    plain_ms = once_ms(lambda: smk.deposit_walk_reference(vp, mats, inp))
+    # bytes: the VPs with a range, and each sorted event that some range holds once
+    walking = inp.end > inp.start
+    n_ev = inp.events.shape[0]
+    edge = torch.zeros(n_ev + 1, dtype=torch.int64, device=vp.p.device)
+    first, last = inp.start[walking].long(), inp.end[walking].long()
+    edge.index_add_(0, first, torch.ones_like(first))
+    edge.index_add_(0, last, -torch.ones_like(last))
+    read_events = int((edge.cumsum(0)[:n_ev] > 0).sum())
+    extra = int(walking.sum()) * VP_WALK_BYTES + read_events * EVENT_BYTES + mats.numel() * 4
+    b_ms, b_by = bound(work, 1.0, n, None, VP_BYTES, extra)
+    return dict(rays=n, plain_rays=n, ms=t_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, walked_pairs=float(work.get("pair", 0)),
+                events=n_ev, read_events=read_events, walking_vps=int(walking.sum()), **held)
+
+
+def first_photons(ev, depth, share):
+    """The depth-major events `ev` of the first 1/`share` of the photons."""
+    n = ev[3].shape[0] // (depth - 1)
+    return tuple(e.reshape(depth - 1, n, -1)[:, : n // share].reshape(-1, *e.shape[1:])
+                 for e in ev)
+
+
+def drive_sppm(scene, png, bvh):
+    """The SPPM main path through deploy_render with every count at 0 just
+    before: one launch of each SPPM kernel (BVH instances when `bvh`) per
+    iteration and none of the others.  Returns (result, coloured pixels)."""
+    zero_counts()
+    res = deploy_render(str(scene), str(png))
+    counts = all_counts()
+    rgb = res["rgb_srgb_input"]
+    check(bool(torch.isfinite(rgb).all()), f"{png.name}: non-finite image")
+    check(png.exists() and png.stat().st_size > 0, f"{png.name}: no PNG written")
+    colored = int((rgb.sum(-1) > 0).sum())
+    check(colored > 0, f"{png.name}: no coloured pixels")
+    check(res["fused_kernel"] == "sppm" and res["render_path"] == "megakernel" and res["bvh"] == bvh,
+          f"{png.name}: wrong path")
+    sfx = "_bvh" if bvh else ""
+    want = {f"sppm_camera_mega_cam{sfx}", f"sppm_photon_mega{sfx}", "sppm_deposit_mega"}
+    for k, v in counts.items():
+        check(v == (res["passes"] if k in want else 0), f"{png.name}: launches {counts}")
+    return res, colored
+
+
+def sppm_phase(record, kernels, card, dev):
+    """Phase 6 (see the module docstring)."""
+    entry = lambda *args: add_entry(kernels, *args)
+    t0 = time.perf_counter()
+    res, colored = drive_sppm(SCENE_SPPM, OUT / "chip_smoke_sppm.png", False)
+    job = load_scene(str(SCENE_SPPM))
+    camera, photon, vp, ev, ev_batch, radius, mats = hold_sppm_walks(job, dev)
+    deposit = hold_deposit(vp, ev, radius, mats)
+    batch_events = first_photons(ev_batch, job.integrator.max_depth, 16)
+    deposit_batch = hold_deposit(vp, batch_events, radius, mats, timed=False)
+    warm = [render_job(job, dev) for _ in range(2)]
+    rates = [(r["camera_mrays_per_s"], r["photon_mrays_per_s"]) for r in warm]
+    iters = res["passes"]
+    record["phase6"] = dict(
+        iterations=iters, colored=colored, render_s=res["elapsed_s"],
+        camera_mrays_per_s=res["camera_mrays_per_s"], photon_mrays_per_s=res["photon_mrays_per_s"],
+        warm_camera_photon_mrays_per_s=rates, warm_s=[r["elapsed_s"] for r in warm],
+        camera=camera, photon=photon, deposit=deposit, deposit_surface_batch=deposit_batch,
+        phase_s=time.perf_counter() - t0,
+    )
+    entry("sppm_camera_mega_cam", iters, camera)
+    entry("sppm_photon_mega", iters, photon)
+    entry("sppm_deposit_mega", iters, deposit, deposit_batch["max_abs_err"])
+    main, batch = photon["main"], photon["surface_batch"]
+    print(
+        f"phase 6: SPPM, samples/scene_sppm.json 640x360, {iters} iterations of "
+        f"{job.integrator.photons_per_iter} photons, {iters} launch(es) of each kernel, {colored} "
+        f"coloured px; first render {res['elapsed_s']:.3f} s ({res['camera_mrays_per_s']:.2f} "
+        f"camera / {res['photon_mrays_per_s']:.2f} photon Mrays/s), warm "
+        f"{', '.join(f'{c:.1f} / {p:.1f}' for c, p in rates)} Mrays/s; camera kernel "
+        f"{camera['ms']:.3f} ms (wrapper {camera['wrapper_ms']:.3f}, plain {camera['plain_ms']:.1f}, "
+        f"bound {camera['bound_ms']:.4f} by {camera['bound_by']}), diverged "
+        f"{camera['diverged']:.2e}, q99 {camera['q99']:.2e}, VP valid equal "
+        f"{camera['valid_equal']:.4f}, {camera['vps']} VPs, record equal on "
+        f"{camera['vp_record_equal']:.5f} of {camera['vps_held']}; "
+        f"photon kernel {photon['ms']:.3f} ms (wrapper {photon['wrapper_ms']:.3f}, plain "
+        f"{photon['plain_ms']:.1f}, bound {photon['bound_ms']:.4f} by {photon['bound_by']}), events "
+        f"equal on {main['live_equal']:.4f} of {main['live_photons']} live photons "
+        f"({main['live_events']} live events), surface batch {batch['live_equal']:.4f} of "
+        f"{batch['live_photons']}; deposit kernel {deposit['ms']:.3f} ms (wrapper with the sort "
+        f"{deposit['wrapper_ms']:.3f}, plain {deposit['plain_ms']:.1f}, bound "
+        f"{deposit['bound_ms']:.4f} by {deposit['bound_by']}), {deposit['walked_pairs']:.0f} pairs "
+        f"walked, {deposit['read_events']} events in ranges, M total {deposit['m_total']}, phi rel "
+        f"err {deposit['phi_rel_err']:.2e}, bit-equal {deposit['bit_equal']}; on the surface "
+        f"batch's events M total {deposit_batch['m_total']}, phi rel err "
+        f"{deposit_batch['phi_rel_err']:.2e}; {record['phase6']['phase_s']:.1f} s [{card}]"
+    )
+
+    t0 = time.perf_counter()
+    grid = write_grid_scene(str(OUT / "grid_sppm"), base=str(SCENE_SPPM), integrator="SPPM",
+                            max_depth=3)
+    cfg = json.loads(Path(grid).read_text())
+    cfg["Integrator"]["n_iters"] = 2
+    Path(grid).write_text(json.dumps(cfg))
+    res, colored = drive_sppm(grid, OUT / "chip_smoke_grid_sppm.png", True)
+    job = load_scene(grid)
+    camera, photon, vp, ev, ev_batch, radius, mats = hold_sppm_walks(job, dev, cross=True)
+    deposit = hold_deposit(vp, ev, radius, mats)
+    batch_events = first_photons(ev_batch, job.integrator.max_depth, 16)
+    deposit_batch = hold_deposit(vp, batch_events, radius, mats, timed=False)
+    record["phase6_grid"] = dict(
+        triangles=job.scene.triangles.count, iterations=res["passes"], colored=colored,
+        render_s=res["elapsed_s"], camera_mrays_per_s=res["camera_mrays_per_s"],
+        photon_mrays_per_s=res["photon_mrays_per_s"], camera=camera, photon=photon,
+        deposit=deposit, deposit_surface_batch=deposit_batch, phase_s=time.perf_counter() - t0,
+    )
+    cross = camera["cross"]
+    main, batch = photon["main"], photon["surface_batch"]
+    entry("sppm_camera_mega_cam_bvh", res["passes"], camera)
+    entry("sppm_photon_mega_bvh", res["passes"], photon)
+    print(
+        f"phase 6c: SPPM, grid of {job.scene.triangles.count} triangles 640x360, "
+        f"{res['passes']} iterations over the BVH, {colored} coloured px, "
+        f"{res['camera_mrays_per_s']:.2f} camera / {res['photon_mrays_per_s']:.2f} photon Mrays/s; "
+        f"camera kernel {camera['ms']:.3f} ms (plain {camera['plain_ms']:.1f}, bound "
+        f"{camera['bound_ms']:.4f} by {camera['bound_by']}), diverged {camera['diverged']:.2e}, "
+        f"VP valid equal {camera['valid_equal']:.4f}, record equal on "
+        f"{camera['vp_record_equal']:.5f} of {camera['vps_held']} "
+        f"(diverged px, relative mean difference: on an eighth {cross['eighth']}, kernel vs plain "
+        f"on the CPU {cross['kernel_vs_cpu']}, plain on the card vs on the CPU "
+        f"{cross['plain_vs_cpu']}); photon kernel {photon['ms']:.3f} ms (plain "
+        f"{photon['plain_ms']:.1f}, bound {photon['bound_ms']:.4f} by {photon['bound_by']}), events "
+        f"equal on {main['live_equal']:.4f} of {main['live_photons']} live photons, surface batch "
+        f"{batch['live_equal']:.4f} of {batch['live_photons']}; deposit {deposit['ms']:.3f} ms, "
+        f"M total {deposit['m_total']} (surface batch {deposit_batch['m_total']}), phi rel err "
+        f"{deposit['phi_rel_err']:.2e} / {deposit_batch['phi_rel_err']:.2e}; "
+        f"{record['phase6_grid']['phase_s']:.1f} s [{card}]"
+    )
 
 
 if __name__ == "__main__":

@@ -1,13 +1,16 @@
-"""Light-selection distribution and MIS weight (rs_ray_toy_tpu/core/sampling.py).
+"""Light-selection distribution, warps and MIS weight (rs_ray_toy_tpu/core/sampling.py).
 
 `Distribution1D` is built on the host in float64 (sampling.rs:10-127); the
 Volpath kernel reads its CDF and per-entry pick pdfs cast to float32
-(ops/volpath_megakernel.pack_volpath).  `power_heuristic` is the nf = ng
-= 1 form the kernels use.
+(ops/volpath_megakernel.pack_volpath), and `sample_discrete_1d` picks from
+its float32 device copy as the JAX package does (the SPPM photon
+emission).  `power_heuristic` is the nf = ng = 1 form the kernels use.
 """
 
 import numpy as np
 import torch
+
+from ..config import PI
 
 
 class Distribution1D:
@@ -34,6 +37,30 @@ class Distribution1D:
         if self.func_int > 0.0:
             return self.func / (self.func_int * self.n)
         return np.zeros(self.n)
+
+    def as_device(self, device):
+        """func, cdf and func_int as float32 tensors on `device`."""
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return {"func": f32(self.func), "cdf": f32(self.cdf), "func_int": f32(self.func_int)}
+
+
+def sample_discrete_1d(dist, u):
+    """Distribution1D::sample_discrete (sampling.rs:91-126) on the float32
+    device copy `dist` (as_device): the last index with cdf[i] <= u, and
+    its pdf func[i] / (func_int * n) in float32.  Returns (index, pdf)."""
+    cdf, func, func_int = dist["cdf"], dist["func"], dist["func_int"]
+    n = func.shape[0]
+    idx = torch.clamp(torch.searchsorted(cdf, u, right=True) - 1, 0, n - 1)
+    pdf = torch.where(func_int > 0.0, func[idx] / (func_int * n), 0.0)
+    return idx, pdf
+
+
+def uniform_sample_sphere(u0, u1):
+    """(sampling.rs:233-244): a uniform direction, as (x, y, z)."""
+    z = 1.0 - 2.0 * u0
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * PI * u1
+    return r * torch.cos(phi), r * torch.sin(phi), z
 
 
 def power_heuristic(f_pdf, g_pdf):

@@ -1,5 +1,5 @@
-// Device code shared by the camera-fused kernels (path_megakernel.cu,
-// direct_megakernel.cu and volpath_megakernel.cu): the parameter block, the
+// Device code shared by the kernels (path_megakernel.cu, direct_megakernel.cu,
+// volpath_megakernel.cu and sppm_megakernel.cu): the parameter block, the
 // counter-based sampler, the RealisticCamera lens trace, Moller-Trumbore over
 // the triangle table (brute force from shared memory, or a per-ray stack walk
 // of the BVH from global memory), the lobe evaluations, sphere-light sampling
@@ -163,12 +163,10 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, fl
 
 // ---- camera (ops/path_megakernel._raygen) ----
 
-__device__ void raygen(const Params& p, const Sampler& smp, float px, float py,
-                       float& ox_w, float& oy_w, float& oz_w, float& dx_w, float& dy_w,
-                       float& dz_w, float& weight) {
-  float uf0, uf1, ul0, ul1;
-  smp.get_2d(0, uf0, uf1);
-  smp.get_2d(1, ul0, ul1);
+// The lens trace of one camera ray from its film (uf) and lens (ul) uniforms
+__device__ void raygen_u(const Params& p, float uf0, float uf1, float ul0, float ul1, float px,
+                         float py, float& ox_w, float& oy_w, float& oz_w, float& dx_w,
+                         float& dy_w, float& dz_w, float& weight) {
   const float sx = (px + uf0) / p.xres;
   const float sy = (py + uf1) / p.yres;
   const float pfx = -((sx - 0.5f) * p.extent_x);
@@ -289,6 +287,16 @@ __device__ void raygen(const Params& p, const Sampler& smp, float px, float py,
     weight = p.shutter * (cos4 * area);
   }
   if (!alive) weight = 0.0f;
+}
+
+// raygen_u with the film and lens uniforms of sampler slots 0 and 1
+__device__ __forceinline__ void raygen(const Params& p, const Sampler& smp, float px, float py,
+                                       float& ox_w, float& oy_w, float& oz_w, float& dx_w,
+                                       float& dy_w, float& dz_w, float& weight) {
+  float uf0, uf1, ul0, ul1;
+  smp.get_2d(0, uf0, uf1);
+  smp.get_2d(1, ul0, ul1);
+  raygen_u(p, uf0, uf1, ul0, ul1, px, py, ox_w, oy_w, oz_w, dx_w, dy_w, dz_w, weight);
 }
 
 // ---- geometry (ops/path_megakernel._closest_hit / _occluded / _bvh_*) ----

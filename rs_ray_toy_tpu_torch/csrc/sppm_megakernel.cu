@@ -1,0 +1,426 @@
+// The SPPM iteration's three kernels for Hopper (sm_90a).
+//
+// K8, sppm_camera_kernel, one thread per pixel: replaces the TPU kernels
+// rs_ray_toy_tpu/ops/sppm_megakernel.py · _kernel_cam (brute force,
+// pallas_call in _run_cam for T <= 2048) and _kernel_bvh_cam (the in-kernel
+// BVH), both running _camera_loop.  The lens trace (raygen_u) from the film
+// and lens slots, then per depth the closest hit, one point light picked
+// uniformly and its NEE with an any-hit shadow ray (scale cos * n_lights /
+// dist^2), the visible point (VP) at the first vertex with a diffuse lobe or
+// a glossy vertex at the last depth (beta before the bounce), else a BSDF
+// sample and the camera roulette on the new beta's luminance (continue with
+// probability min(y, 1) when y < 0.25).  Every sampler value is read from
+// the (NC, N) Halton slot matrix (ops/sppm_megakernel.sppm_slots).
+//
+// K9, sppm_photon_kernel, one thread per photon: replaces _photon_kernel and
+// _photon_kernel_bvh (_photon_loop, pallas_call in _photon_run).  From the
+// emitted ray, per depth the closest hit; at depth >= 1 a deposit event (the
+// hit, -d, beta before this vertex's bounce, and whether the photon is still
+// alive after the hit test), depth-major; then a BSDF sample and the photon
+// roulette q = max(0, 1 - y(new) / y(old)), killed when u < q.
+//
+// K10, sppm_deposit_kernel, one thread per VP: replaces _deposit_kernel
+// (pallas_call in _deposit_run).  The events come Morton-sorted from torch
+// (ops/sppm_megakernel.deposit_inputs) with each VP's range of sorted events
+// [searchsorted(morton(cmin)), searchsorted(morton(cmax), right)): Morton
+// order is monotone, so the range holds every event whose cell lies in the
+// VP's p +- r cell box.  The thread walks its range in order and adds, for
+// an event within the radius (|p_ev - p_vp|^2 <= r^2), beta_ev * f(wo, wi)
+// over the VP material's lobes when wi lies on wo's side of ng, and one to
+// M; every other event adds 0.  No atomics: each VP owns its sums, so they
+// are deterministic.  (The JAX kernel walks per-1024-VP tile ranges in
+// chunks of 8192 events, a VMEM limit; the per-VP range is a subset of its
+// tile's, and the events outside it add 0.)
+//
+// What bounds them on this card: K8 and K9 are the path kernel's shape,
+// divergent per-thread FP32 work over read-only tables (triangles staged in
+// shared memory up to TRI_MAX, or the BVH through the read-only cache); K10
+// is the (VP, event) pairs of the ranges, about 40 bytes an event from L1/L2
+// and a distance test each, and the lobe evaluations of the few near pairs.
+// The events of one iteration fit in L2 (262,144 x 40 B at the fixture).
+//
+// Numerics follow the plain PyTorch versions (ops/sppm_megakernel.py)
+// expression by expression; see common.cuh.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int LOBE_LAMBERT = LOBE_LAMBERT_REFL;  // the ported diffuse kind
+constexpr int EV_COLS = 10;                       // p, wi, beta, live
+constexpr int MAT_COLS = 16 + 16 * 5;             // a resolved material row
+// luminance weights (core/spectrum.luminance), rounded as the plain
+// version's python floats are
+constexpr float LUM_R = (float)0.212671, LUM_G = (float)0.715160, LUM_B = (float)0.072169;
+
+__device__ __forceinline__ float luminance(float r, float g, float b) {
+  return LUM_R * r + LUM_G * g + LUM_B * b;
+}
+
+// ---- K8: the camera walk ----
+
+template <bool kBvh>
+__global__ void __launch_bounds__(BLOCK)
+    sppm_camera_kernel(const float* __restrict__ table, int n_tris,
+                       const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                       const float* __restrict__ pixel_xy, const float* __restrict__ u,
+                       float* __restrict__ out_ld, float* __restrict__ out_p,
+                       float* __restrict__ out_wo, float* __restrict__ out_beta,
+                       float* __restrict__ out_ng, float* __restrict__ out_dpdu,
+                       int* __restrict__ out_mat, int* __restrict__ out_valid, int n,
+                       const __grid_constant__ Params p) {
+  extern __shared__ float s_geo[];
+  const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // slot matrix rows: film (0, 1), lens (2, 3), then per depth the light
+  // pick, and but at the last depth the BSDF pair and the roulette
+  auto uv = [&](int row) { return u[(size_t)row * n + i]; };
+
+  float ox, oy, oz, dx, dy, dz, weight;
+  raygen_u(p, uv(0), uv(1), uv(2), uv(3), pixel_xy[2 * i], pixel_xy[2 * i + 1], ox, oy, oz, dx,
+           dy, dz, weight);
+
+  bool active = weight > 0.0f;
+  float br = active ? weight : 0.0f, bg = br, bb = br;
+  float ldr = 0.0f, ldg = 0.0f, ldb = 0.0f;
+  float vp[15] = {};  // p, wo, beta, ng, dpdu
+  int vp_mat = 0, vp_valid = 0;
+  for (int depth = 0; depth < p.max_depth && active; ++depth) {
+    const int col = 4 + 4 * depth;
+    float t;
+    const int best = geom.closest(ox, oy, oz, dx, dy, dz, t);
+    if (!(t < BIG_T)) break;
+    const float* row = table + (size_t)best * TABLE_COLS;
+    const float ngx = __ldg(row + 9), ngy = __ldg(row + 10), ngz = __ldg(row + 11);
+    const float dux = __ldg(row + 12), duy = __ldg(row + 13), duz = __ldg(row + 14);
+    const int n_lob = (int)__ldg(row + 15);
+    const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
+    float ssx, ssy, ssz, tsx, tsy, tsz;
+    shading_frame(ngx, ngy, ngz, dux, duy, duz, ssx, ssy, ssz, tsx, tsy, tsz);
+    const float wox = -dx, woy = -dy, woz = -dz;
+    const float wol_x = dot3(wox, woy, woz, ssx, ssy, ssz);
+    const float wol_y = dot3(wox, woy, woz, tsx, tsy, tsz);
+    const float wo_z = dot3(wox, woy, woz, ngx, ngy, ngz);
+    const float mag = fabsf(px) + fabsf(py) + fabsf(pz);
+    const float eps = 1e-4f + 1e-5f * mag;
+
+    // ---- NEE: one light picked uniformly (uniform_sample_one_light) ----
+    {
+      const int li = min((int)(uv(col) * (float)p.n_lights), p.n_lights - 1);
+      const float lpx = p.light_p[3 * li], lpy = p.light_p[3 * li + 1],
+                  lpz = p.light_p[3 * li + 2];
+      const float tlx = lpx - px, tly = lpy - py, tlz = lpz - pz;
+      const float dist2 = fmaxf(tlx * tlx + tly * tly + tlz * tlz, 1e-20f);
+      const float inv_d = rsqrt_exact(dist2);
+      const float wix = tlx * inv_d, wiy = tly * inv_d, wiz = tlz * inv_d;
+      const float wil_x = dot3(wix, wiy, wiz, ssx, ssy, ssz);
+      const float wil_y = dot3(wix, wiy, wiz, tsx, tsy, tsz);
+      const float wi_ng = dot3(wix, wiy, wiz, ngx, ngy, ngz);
+      const bool f_gate = (wi_ng * wo_z) > 0.0f && wo_z != 0.0f;
+      float fn[3] = {0.0f, 0.0f, 0.0f};
+      if (f_gate) {
+        for (int l = 0; l < n_lob; ++l) {
+          float lf[3];
+          lobe_f(load_lobe(row, l), wol_x, wol_y, wo_z, wil_x, wil_y, wi_ng, lf);
+          for (int c = 0; c < 3; ++c) fn[c] = fn[c] + lf[c];
+        }
+      }
+      const float cos_ns = fabsf(wi_ng);
+      const float off = wi_ng < 0.0f ? -eps : eps;
+      const float sox = px + ngx * off, soy = py + ngy * off, soz = pz + ngz * off;
+      const bool occ =
+          geom.occluded(sox, soy, soz, lpx - sox, lpy - soy, lpz - soz, SHADOW_T_MAX);
+      const float li_scale = occ ? 0.0f : cos_ns * (float)p.n_lights / dist2;
+      ldr = ldr + br * fn[0] * p.light_emit[3 * li] * li_scale;
+      ldg = ldg + bg * fn[1] * p.light_emit[3 * li + 1] * li_scale;
+      ldb = ldb + bb * fn[2] * p.light_emit[3 * li + 2] * li_scale;
+    }
+
+    // ---- the VP (sppm.rs:211-232) ----
+    bool diffuse = false, glossy = false;
+    for (int l = 0; l < n_lob; ++l) {
+      const int kind = (int)__ldg(row + 16 + 16 * l);
+      diffuse = diffuse || kind == LOBE_LAMBERT;
+      glossy = glossy || kind == LOBE_MF_REFL;
+    }
+    if (diffuse || (glossy && depth == p.max_depth - 1)) {
+      const float rec[15] = {px, py, pz, wox, woy, woz, br, bg, bb, ngx, ngy, ngz, dux, duy, duz};
+      for (int k = 0; k < 15; ++k) vp[k] = rec[k];
+      vp_mat = (int)__ldg(row + 47);
+      vp_valid = 1;
+      break;
+    }
+    if (depth >= p.max_depth - 1) break;
+
+    // ---- BSDF sample and the camera roulette (sppm.rs:236-253) ----
+    const BsdfSample bs = bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, uv(col + 1), uv(col + 2));
+    const float nwx = ssx * bs.wx + tsx * bs.wy + ngx * bs.wz;
+    const float nwy = ssy * bs.wx + tsy * bs.wy + ngy * bs.wz;
+    const float nwz = ssz * bs.wx + tsz * bs.wy + ngz * bs.wz;
+    const float cosw = fabsf(dot3(nwx, nwy, nwz, ngx, ngy, ngz));
+    const bool any_f = bs.f[0] != 0.0f || bs.f[1] != 0.0f || bs.f[2] != 0.0f;
+    if (!(n_lob > 0 && wo_z != 0.0f && bs.pdf > 0.0f && any_f)) break;
+    const float inv_pdf = cosw / fmaxf(bs.pdf, 1e-20f);
+    float bnr = br * bs.f[0] * inv_pdf;
+    float bng = bg * bs.f[1] * inv_pdf;
+    float bnb = bb * bs.f[2] * inv_pdf;
+    const float y = luminance(bnr, bng, bnb);
+    if (y < 0.25f) {
+      const float cont_p = fminf(y, 1.0f);
+      if (uv(col + 3) > cont_p) break;
+      const float inv_cont = 1.0f / fmaxf(cont_p, 1e-9f);
+      bnr = bnr * inv_cont;
+      bng = bng * inv_cont;
+      bnb = bnb * inv_cont;
+    }
+    br = bnr;
+    bg = bng;
+    bb = bnb;
+    const float off2 = dot3(nwx, nwy, nwz, ngx, ngy, ngz) < 0.0f ? -eps : eps;
+    ox = px + ngx * off2;
+    oy = py + ngy * off2;
+    oz = pz + ngz * off2;
+    dx = nwx;
+    dy = nwy;
+    dz = nwz;
+  }
+  out_ld[3 * i + 0] = ldr;
+  out_ld[3 * i + 1] = ldg;
+  out_ld[3 * i + 2] = ldb;
+  float* outs[5] = {out_p, out_wo, out_beta, out_ng, out_dpdu};
+  for (int k = 0; k < 15; ++k) outs[k / 3][3 * i + k % 3] = vp[k];
+  out_mat[i] = vp_mat;
+  out_valid[i] = vp_valid;
+}
+
+// ---- K9: the photon walk ----
+
+template <bool kBvh>
+__global__ void __launch_bounds__(BLOCK)
+    sppm_photon_kernel(const float* __restrict__ table, int n_tris,
+                       const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                       int max_depth, const float* __restrict__ ro, const float* __restrict__ rd,
+                       const float* __restrict__ beta, const int* __restrict__ alive,
+                       const float* __restrict__ u, float* __restrict__ ev_p,
+                       float* __restrict__ ev_wi, float* __restrict__ ev_beta,
+                       int* __restrict__ ev_live, int n) {
+  extern __shared__ float s_geo[];
+  const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float ox = ro[3 * i], oy = ro[3 * i + 1], oz = ro[3 * i + 2];
+  float dx = rd[3 * i], dy = rd[3 * i + 1], dz = rd[3 * i + 2];
+  float br = beta[3 * i], bg = beta[3 * i + 1], bb = beta[3 * i + 2];
+  bool active = alive[i] != 0;
+  for (int depth = 0; depth < max_depth; ++depth) {
+    float t = BIG_T;
+    int best = -1;
+    if (active) best = geom.closest(ox, oy, oz, dx, dy, dz, t);
+    active = active && t < BIG_T;
+    const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
+    if (depth > 0) {  // the deposit event of this vertex; zeros when dead
+      const size_t e = (size_t)(depth - 1) * n + i;
+      const float rec[9] = {px, py, pz, -dx, -dy, -dz, br, bg, bb};
+      for (int k = 0; k < 9; ++k) (k < 3 ? ev_p : k < 6 ? ev_wi : ev_beta)[3 * e + k % 3] =
+          active ? rec[k] : 0.0f;
+      ev_live[e] = active ? 1 : 0;
+    }
+    if (depth >= max_depth - 1 || !active) continue;
+
+    const float* row = table + (size_t)best * TABLE_COLS;
+    const float ngx = __ldg(row + 9), ngy = __ldg(row + 10), ngz = __ldg(row + 11);
+    const int n_lob = (int)__ldg(row + 15);
+    float ssx, ssy, ssz, tsx, tsy, tsz;
+    shading_frame(ngx, ngy, ngz, __ldg(row + 12), __ldg(row + 13), __ldg(row + 14), ssx, ssy,
+                  ssz, tsx, tsy, tsz);
+    const float wox = -dx, woy = -dy, woz = -dz;
+    const float wol_x = dot3(wox, woy, woz, ssx, ssy, ssz);
+    const float wol_y = dot3(wox, woy, woz, tsx, tsy, tsz);
+    const float wo_z = dot3(wox, woy, woz, ngx, ngy, ngz);
+    const float* ud = u + (size_t)(3 * depth) * n + i;
+    const BsdfSample bs = bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ud[0], ud[n]);
+    const float nwx = ssx * bs.wx + tsx * bs.wy + ngx * bs.wz;
+    const float nwy = ssy * bs.wx + tsy * bs.wy + ngy * bs.wz;
+    const float nwz = ssz * bs.wx + tsz * bs.wy + ngz * bs.wz;
+    const float cosw = fabsf(dot3(nwx, nwy, nwz, ngx, ngy, ngz));
+    const bool any_f = bs.f[0] != 0.0f || bs.f[1] != 0.0f || bs.f[2] != 0.0f;
+    const bool ok = n_lob > 0 && wo_z != 0.0f && bs.pdf > 0.0f && any_f;
+    const float inv_pdf = cosw / fmaxf(bs.pdf, 1e-20f);
+    const float bnr = br * bs.f[0] * inv_pdf;
+    const float bng = bg * bs.f[1] * inv_pdf;
+    const float bnb = bb * bs.f[2] * inv_pdf;
+    // photon roulette (sppm.rs:497-505)
+    const float q =
+        fmaxf(0.0f, 1.0f - luminance(bnr, bng, bnb) / fmaxf(luminance(br, bg, bb), 1e-20f));
+    active = ok && !(ud[2 * (size_t)n] < q);
+    if (!active) continue;
+    const float inv_cont = 1.0f / fmaxf(1.0f - q, 1e-9f);
+    br = bnr * inv_cont;
+    bg = bng * inv_cont;
+    bb = bnb * inv_cont;
+    const float mag = fabsf(px) + fabsf(py) + fabsf(pz);
+    const float eps = 1e-4f + 1e-5f * mag;
+    const float off2 = dot3(nwx, nwy, nwz, ngx, ngy, ngz) < 0.0f ? -eps : eps;
+    ox = px + ngx * off2;
+    oy = py + ngy * off2;
+    oz = pz + ngz * off2;
+    dx = nwx;
+    dy = nwy;
+    dz = nwz;
+  }
+}
+
+// ---- K10: the deposit ----
+
+__global__ void __launch_bounds__(BLOCK)
+    sppm_deposit_kernel(const float* __restrict__ vp_p, const float* __restrict__ vp_wo,
+                        const float* __restrict__ vp_ng, const float* __restrict__ vp_dpdu,
+                        const int* __restrict__ vp_mat, const float* __restrict__ vp_r2,
+                        const int* __restrict__ start, const int* __restrict__ end,
+                        const float* __restrict__ events, const float* __restrict__ mats,
+                        float* __restrict__ phi, int* __restrict__ m_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float px = vp_p[3 * i], py = vp_p[3 * i + 1], pz = vp_p[3 * i + 2];
+  const float ngx = vp_ng[3 * i], ngy = vp_ng[3 * i + 1], ngz = vp_ng[3 * i + 2];
+  float ssx, ssy, ssz, tsx, tsy, tsz;
+  shading_frame(ngx, ngy, ngz, vp_dpdu[3 * i], vp_dpdu[3 * i + 1], vp_dpdu[3 * i + 2], ssx, ssy,
+                ssz, tsx, tsy, tsz);
+  const float wox = vp_wo[3 * i], woy = vp_wo[3 * i + 1], woz = vp_wo[3 * i + 2];
+  const float wol_x = dot3(wox, woy, woz, ssx, ssy, ssz);
+  const float wol_y = dot3(wox, woy, woz, tsx, tsy, tsz);
+  const float wo_z = dot3(wox, woy, woz, ngx, ngy, ngz);
+  const float r2 = vp_r2[i];  // -1 for a VP that is not valid
+  const float* mrow = mats + (size_t)vp_mat[i] * MAT_COLS;
+  const int n_lob = (int)__ldg(mrow + 15);
+  float pr = 0.0f, pg = 0.0f, pb = 0.0f;
+  int m = 0;
+  for (int k = start[i]; k < end[i]; ++k) {
+    const float* ev = events + (size_t)k * EV_COLS;
+    const float ddx = px - __ldg(ev + 0), ddy = py - __ldg(ev + 1), ddz = pz - __ldg(ev + 2);
+    const float d2 = ddx * ddx + ddy * ddy + ddz * ddz;
+    const bool near = d2 <= r2 && __ldg(ev + 9) > 0.0f;
+    float fr[3] = {0.0f, 0.0f, 0.0f};
+    if (near) {
+      const float wix = __ldg(ev + 3), wiy = __ldg(ev + 4), wiz = __ldg(ev + 5);
+      const float wi_ng = wix * ngx + wiy * ngy + wiz * ngz;
+      if ((wi_ng * wo_z) > 0.0f && wo_z != 0.0f) {
+        const float wil_x = wix * ssx + wiy * ssy + wiz * ssz;
+        const float wil_y = wix * tsx + wiy * tsy + wiz * tsz;
+        for (int l = 0; l < n_lob; ++l) {
+          float lf[3];
+          lobe_f(load_lobe(mrow, l), wol_x, wol_y, wo_z, wil_x, wil_y, wi_ng, lf);
+          for (int c = 0; c < 3; ++c) fr[c] = fr[c] + lf[c];
+        }
+      }
+      m = m + 1;
+    }
+    pr = pr + fr[0] * __ldg(ev + 6);
+    pg = pg + fr[1] * __ldg(ev + 7);
+    pb = pb + fr[2] * __ldg(ev + 8);
+  }
+  phi[3 * i + 0] = pr;
+  phi[3 * i + 1] = pg;
+  phi[3 * i + 2] = pb;
+  m_out[i] = m;
+}
+
+template <typename K>
+cudaError_t allow_table_smem(K kernel) {
+  // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+}
+
+int check_table(int n_tris, const float* nodes_f, const int* nodes_i) {
+  if (nodes_f != nullptr)
+    return (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr) ? (int)cudaErrorInvalidValue
+                                                                       : 0;
+  return (n_tris <= 0 || n_tris > TRI_MAX) ? (int)cudaErrorInvalidValue : 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each launch returns cudaGetLastError() of the launch (0 when it was
+// accepted); nothing is synchronised.  Brute force when nodes_f is null, the
+// BVH walk otherwise.
+
+// K8 over n pixels; u is the (n_u, n) Halton slot matrix, n_u = 4 * max_depth + 1
+int sppm_camera_launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
+                       const Params* params, const float* pixel_xy, const float* u, int n_u,
+                       float* out_ld, float* out_p, float* out_wo, float* out_beta, float* out_ng,
+                       float* out_dpdu, int* out_mat, int* out_valid, int n, void* stream) {
+  cudaGetLastError();  // clear any stale error of this runtime
+  if (n <= 0) return 0;
+  if (params->n_lights < 1 || params->n_lights > LIGHT_MAX || params->max_depth < 1 ||
+      n_u != 4 * params->max_depth + 1)
+    return (int)cudaErrorInvalidValue;
+  if (const int bad = check_table(n_tris, nodes_f, nodes_i)) return bad;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nodes_f != nullptr) {
+    sppm_camera_kernel<true><<<grid, BLOCK, 0, st>>>(table, n_tris, nodes_f, nodes_i, pixel_xy, u,
+                                                     out_ld, out_p, out_wo, out_beta, out_ng,
+                                                     out_dpdu, out_mat, out_valid, n, *params);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t attr = allow_table_smem(sppm_camera_kernel<false>);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
+  sppm_camera_kernel<false><<<grid, BLOCK, smem, st>>>(table, n_tris, nullptr, nullptr, pixel_xy,
+                                                       u, out_ld, out_p, out_wo, out_beta, out_ng,
+                                                       out_dpdu, out_mat, out_valid, n, *params);
+  return (int)cudaGetLastError();
+}
+
+// K9 over n photons; u is the (3 * (max_depth - 1), n) bounce / roulette
+// matrix; the events are ((max_depth - 1) * n, .) depth-major
+int sppm_photon_launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
+                       int max_depth, const float* ro, const float* rd, const float* beta,
+                       const int* alive, const float* u, float* ev_p, float* ev_wi,
+                       float* ev_beta, int* ev_live, int n, void* stream) {
+  cudaGetLastError();
+  if (n <= 0) return 0;
+  if (max_depth < 2) return (int)cudaErrorInvalidValue;
+  if (const int bad = check_table(n_tris, nodes_f, nodes_i)) return bad;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nodes_f != nullptr) {
+    sppm_photon_kernel<true><<<grid, BLOCK, 0, st>>>(table, n_tris, nodes_f, nodes_i, max_depth,
+                                                     ro, rd, beta, alive, u, ev_p, ev_wi, ev_beta,
+                                                     ev_live, n);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t attr = allow_table_smem(sppm_photon_kernel<false>);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
+  sppm_photon_kernel<false><<<grid, BLOCK, smem, st>>>(table, n_tris, nullptr, nullptr, max_depth,
+                                                       ro, rd, beta, alive, u, ev_p, ev_wi,
+                                                       ev_beta, ev_live, n);
+  return (int)cudaGetLastError();
+}
+
+// K10 over n VPs: events is the (E, 10) sorted event table, mats the
+// (n_mats, 96) resolved material rows
+int sppm_deposit_launch(const float* vp_p, const float* vp_wo, const float* vp_ng,
+                        const float* vp_dpdu, const int* vp_mat, const float* vp_r2,
+                        const int* start, const int* end, const float* events, const float* mats,
+                        int n_mats, float* phi, int* m, int n, void* stream) {
+  cudaGetLastError();
+  if (n <= 0) return 0;
+  if (n_mats < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  sppm_deposit_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      vp_p, vp_wo, vp_ng, vp_dpdu, vp_mat, vp_r2, start, end, events, mats, phi, m, n);
+  return (int)cudaGetLastError();
+}
+
+const char* sppm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int sppm_params_size() { return (int)sizeof(Params); }
+
+}  // extern "C"

@@ -4,8 +4,9 @@ The film is two tensors on the render device, xyz (H, W, 3) and weight
 (H, W); splats are not ported.  Only the aligned box-filter add is
 ported: with a box of radius <= 0.5 every sample lands on its own pixel,
 so FilmTile::add_sample (film.rs:77-130) over a full-grid batch is a
-reshape-add whose summation order is fixed.  `write_png` encodes with
-zlib and struct from the standard library.
+reshape-add whose summation order is fixed.  `set_image` replaces the
+film's contents (the SPPM image).  `write_png` encodes with zlib and
+struct from the standard library.
 """
 
 import struct
@@ -58,6 +59,12 @@ def add_samples(film: FilmState, spec, p_film, radiance, sample_weight) -> FilmS
     k = p_film.shape[0] // (h * w)
     acc = xyz.reshape(k, h, w, 3).sum(dim=0)
     return FilmState(xyz=film.xyz + acc, weight=film.weight + float(k))
+
+
+def set_image(film: FilmState, rgb) -> FilmState:
+    """Film::set_image (film.rs:265-278): the (H, W, 3) linear RGB image
+    as the film's XYZ, weight 1 (the SPPM render's output)."""
+    return FilmState(xyz=rgb_to_xyz(rgb), weight=torch.ones_like(film.weight))
 
 
 def to_rgb(film: FilmState, spec):

@@ -5,7 +5,9 @@
 (no JAX object crosses over), and builds this package's PackedScene and
 camera bundle; `from_jax_volpath` does the same for the Volpath kernel's
 `pack_volpath` (its light constants, medium and power distribution, and
-the grid density as numpy).  Tests use them to feed both kernels
+the grid density as numpy); `from_jax_sppm` carries the SPPM pieces (the
+packed table, the resolved material tables, visible points, state,
+photon lights and rays).  Tests use them to feed both kernels
 identical tables, so a kernel comparison does not depend on the two
 loaders agreeing.
 """
@@ -13,6 +15,8 @@ loaders agreeing.
 import numpy as np
 import torch
 
+from .integrators.sppm import PhotonLights, SPPMState
+from .ops import sppm_megakernel as smk
 from .ops.path_megakernel import TABLE_COLS, PackedScene, kinds_present
 from .ops.volpath_megakernel import PackedVolpath
 from .scene.types import LIGHT_DIFFUSE_AREA, LIGHT_POINT, MediumSpec
@@ -90,3 +94,39 @@ def from_jax_volpath(table_np, wide_lights, vol_static, density_np, device):
         pick_pdf=tuple(vol_static.pick_pdf),
         world_radius=float(vol_static.world_radius),
     )
+
+
+def from_jax_sppm(device, packed=None, resolved=None, vp=None, state=None, power=None,
+                  photons=None):
+    """The JAX SPPM pieces that are given, as numpy, into the port: packed
+    (JAX pack_sppm(ctx): its table and point lights), resolved
+    (resolve_mat_tables(ctx), a dict of arrays), vp (a JAX VisiblePoints;
+    ns is ng in the kernels' flat subset), state (an SPPMState), power
+    (ctx._power_distribution, with packed's lights), photons (a tuple of
+    arrays, kept in order).  Returns a dict of the port's counterparts
+    under the same keys ("lights" for power)."""
+    t = lambda a: torch.as_tensor(np.array(a), device=device)
+    out = {}
+    if packed is not None:
+        table = np.array(packed[0], np.float32)
+        out["packed"] = PackedScene(
+            table=t(table),
+            light_p=tuple(tuple(float(v) for v in p) for p in packed[1]),
+            light_emit=tuple(tuple(float(v) for v in e) for e in packed[2]),
+            kinds_present=kinds_present(table),
+        )
+    if resolved is not None:
+        out["resolved"] = smk.mat_table({k: np.asarray(v) for k, v in resolved.items()}, device)
+    if vp is not None:
+        out["vp"] = smk.VisiblePoints(t(vp.p), t(vp.wo), t(vp.beta), t(vp.mat).to(torch.int64),
+                                      t(vp.ng), t(vp.dpdu), t(vp.valid))
+    if state is not None:
+        out["state"] = SPPMState(*(t(x) for x in state))
+    if power is not None:
+        lp = out["packed"]
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+        out["lights"] = PhotonLights(f32(lp.light_p), f32(lp.light_emit),
+                                     {k: t(v) for k, v in power.items()})
+    if photons is not None:
+        out["photons"] = tuple(t(x) for x in photons)
+    return out

@@ -6,7 +6,8 @@ componentwise as the JAX Volpath kernel does it (ops/path_megakernel.py
 _nee_light_k): a point light's I / r^2 toward its position, or a uniform
 point on a full sphere light (sphere.rs sample) with the reference's area
 pdf, dist^2 / |cos| without the 1 / area (shape/mod.rs:33-47, the
-AREA_PDF_QUIRK of the JAX package), and one-sided emission.
+AREA_PDF_QUIRK of the JAX package), and one-sided emission.  `sample_le`
+emits from point lights for the SPPM photon pass (point.rs:87-113).
 """
 
 from typing import NamedTuple
@@ -15,7 +16,13 @@ import numpy as np
 import torch
 
 from ..config import PI
+from ..core.sampling import uniform_sample_sphere
 from ..scene.types import LIGHT_DIFFUSE_AREA, LIGHT_POINT
+
+# lights/point.rs sample_le's pdf_dir is 1 / (2 pi) where PBRT has the
+# sphere's 1 / (4 pi); kept, as the JAX package keeps it
+# (integrators/sppm.py POINT_LE_PDF_QUIRK): photons carry half the power
+POINT_LE_PDF_QUIRK = True
 
 _Y_WEIGHTS = np.array([0.212671, 0.715160, 0.072169], np.float32)
 
@@ -100,3 +107,15 @@ def sample_li(table, light_idx, px, py, pz, u0, u1):
         pdf = torch.where(is_area, pdf_a, pdf)
         p_light = [torch.where(is_area, a, b) for a, b in zip((psx, psy, psz), p_light)]
     return tuple(wi), tuple(li), pdf, tuple(p_light), is_point
+
+
+def sample_le(light_p, light_emit, light_idx, u0, u1):
+    """Light::sample_le of point lights (the point branch of the JAX
+    package's integrators/sppm._sample_le): light_p and light_emit (L, 3)
+    tensors, light_idx (N,), the direction's uniforms (u0, u1).  Returns
+    (origin, direction, light normal, Le, pdf_pos, pdf_dir), the vectors
+    as (N, 3)."""
+    d = torch.stack(uniform_sample_sphere(u0, u1), -1)
+    pdf_dir = 1.0 / (2.0 * PI) if POINT_LE_PDF_QUIRK else 1.0 / (4.0 * PI)
+    return (light_p[light_idx], d, d, light_emit[light_idx], torch.ones_like(u0),
+            torch.full_like(u0, pdf_dir))

@@ -91,15 +91,16 @@ def _pow2(n):
 
 
 def scene_unsupported(scene, sampler, kinds, volpath=False) -> Optional[str]:
-    """The checks the camera kernels share (common_scene_checks):
-    power-of-two stratified grid, 1..BVH_TRI_MAX flat triangles, up to
-    LIGHT_MAX point lights, and every live lobe of a used material among
-    `kinds` (microfacets: visible-normal Trowbridge-Reitz only); no media.
-    With `volpath`, sphere lights too, and the Volpath kernel checks the
-    medium itself.  Returns the first feature outside them, or None."""
+    """The checks the kernels share (common_scene_checks): power-of-two
+    stratified grid (no check when `sampler` is None), 1..BVH_TRI_MAX flat
+    triangles, up to LIGHT_MAX point lights, and every live lobe of a used
+    material among `kinds` (microfacets: visible-normal Trowbridge-Reitz
+    only); no media.  With `volpath`, sphere lights too, and the Volpath
+    kernel checks the medium itself.  Returns the first feature outside
+    them, or None."""
     if scene.mediums and not volpath:
         return "participating media (Camera.medium) outside Volpath"
-    if not (_pow2(sampler.spp) and _pow2(sampler.xs) and _pow2(sampler.ys)):
+    if sampler is not None and not (_pow2(sampler.spp) and _pow2(sampler.xs) and _pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     tri = scene.triangles
     if tri.count > BVH_TRI_MAX:
@@ -335,12 +336,14 @@ def _kernel_params(packed, cam, sampler, spec):
     if n_elem > ELEM_MAX or n_bins > BIN_MAX:
         raise ValueError(f"{n_elem} lens elements / {n_bins} pupil bins exceed the kernel's")
     prm = _Params()
-    prm.max_depth = spec.max_depth
-    prm.rr_threshold = spec.rr_threshold
-    prm.spp, prm.xs, prm.ys = sampler.spp, sampler.xs, sampler.ys
-    prm.xs_shift = sampler.xs.bit_length() - 1
-    prm.jitter = int(bool(sampler.jitter))
-    prm.seed = sampler.seed & 0xFFFFFFFF
+    if spec is not None:  # None: the caller sets what its kernel reads
+        prm.max_depth = spec.max_depth
+        prm.rr_threshold = spec.rr_threshold
+    if sampler is not None:  # None: the kernel reads no stratified sampler
+        prm.spp, prm.xs, prm.ys = sampler.spp, sampler.xs, sampler.ys
+        prm.xs_shift = sampler.xs.bit_length() - 1
+        prm.jitter = int(bool(sampler.jitter))
+        prm.seed = sampler.seed & 0xFFFFFFFF
     prm.n_lights = n_lights
     for k in range(n_lights):
         for c in range(3):
@@ -432,19 +435,10 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
                     LAUNCHES)
 
 
-def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extra=()):
-    """launch() for a camera-fused kernel of `lib` (see prepare_launch);
-    `extra`, arguments after the common ones, are kept alive with it.
-    Every accepted launch adds one to `launches[prefix]`, or to
-    `launches[prefix + "_bvh"]` for the BVH kernel."""
-    dev = pixel_xy.device
-    if dev.type != "cuda":
-        raise ValueError(f"the {prefix} kernel runs on cuda tensors, not {dev}")
-    n = pixel_xy.shape[0]
-    if pixel_xy.dtype != torch.float32 or pixel_xy.shape != (n, 2) or n == 0:
-        raise ValueError("pixel_xy must be float32 of shape (N, 2), N > 0")
-    if pixel_id.shape != (n,) or pixel_id.is_floating_point() or pixel_id.device != dev:
-        raise ValueError("pixel_id must be an integer (N,) tensor on pixel_xy's device")
+def geometry_args(packed, dev):
+    """(table, nodes_f, nodes_i) of `packed`, checked for a launch on `dev`:
+    a contiguous float32 (T, TABLE_COLS) table with 0 < T <= TRI_MAX
+    (BVH_TRI_MAX with a BVH) and the BVH's node tables, None without."""
     table, bvh = packed.table, packed.bvh
     t_max = TRI_MAX if bvh is None else BVH_TRI_MAX
     if (
@@ -459,17 +453,34 @@ def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extr
             f"packed table must be contiguous float32 (T, {TABLE_COLS}), "
             f"0 < T <= {t_max}, on {dev}"
         )
-    nodes_f = nodes_i = None
-    if bvh is not None:
-        nodes_f, nodes_i = bvh.nodes_f, bvh.nodes_i
-        m = nodes_f.shape[0]
-        if (
-            nodes_f.device != dev or nodes_i.device != dev
-            or nodes_f.dtype != torch.float32 or nodes_i.dtype != torch.int32
-            or nodes_f.shape != (m, 16) or nodes_i.shape != (m, 4)
-            or not (nodes_f.is_contiguous() and nodes_i.is_contiguous())
-        ):
-            raise ValueError(f"BVH nodes must be contiguous (M, 16) float32 and (M, 4) int32 on {dev}")
+    if bvh is None:
+        return table, None, None
+    nodes_f, nodes_i = bvh.nodes_f, bvh.nodes_i
+    m = nodes_f.shape[0]
+    if (
+        nodes_f.device != dev or nodes_i.device != dev
+        or nodes_f.dtype != torch.float32 or nodes_i.dtype != torch.int32
+        or nodes_f.shape != (m, 16) or nodes_i.shape != (m, 4)
+        or not (nodes_f.is_contiguous() and nodes_i.is_contiguous())
+    ):
+        raise ValueError(f"BVH nodes must be contiguous (M, 16) float32 and (M, 4) int32 on {dev}")
+    return table, nodes_f, nodes_i
+
+
+def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extra=()):
+    """launch() for a camera-fused kernel of `lib` (see prepare_launch);
+    `extra`, arguments after the common ones, are kept alive with it.
+    Every accepted launch adds one to `launches[prefix]`, or to
+    `launches[prefix + "_bvh"]` for the BVH kernel."""
+    dev = pixel_xy.device
+    if dev.type != "cuda":
+        raise ValueError(f"the {prefix} kernel runs on cuda tensors, not {dev}")
+    n = pixel_xy.shape[0]
+    if pixel_xy.dtype != torch.float32 or pixel_xy.shape != (n, 2) or n == 0:
+        raise ValueError("pixel_xy must be float32 of shape (N, 2), N > 0")
+    if pixel_id.shape != (n,) or pixel_id.is_floating_point() or pixel_id.device != dev:
+        raise ValueError("pixel_id must be an integer (N,) tensor on pixel_xy's device")
+    table, nodes_f, nodes_i = geometry_args(packed, dev)
     pxy = pixel_xy.contiguous()
     # u32 ids travel as their int32 bit patterns
     pid32 = pixel_id.to(torch.int32).contiguous()
@@ -481,7 +492,7 @@ def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extr
     nf = None if nodes_f is None else nodes_f.data_ptr()
     ni = None if nodes_i is None else nodes_i.data_ptr()
     extra_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra)
-    name = prefix if bvh is None else prefix + "_bvh"
+    name = prefix if nodes_f is None else prefix + "_bvh"
 
     def launch():
         err = fn(

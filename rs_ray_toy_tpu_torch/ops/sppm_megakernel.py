@@ -1,0 +1,628 @@
+"""The SPPM iteration's kernels: the camera walk (K8), the photon walk (K9)
+and the Morton-sorted deposit (K10), one CUDA source
+(rs_ray_toy_tpu/ops/sppm_megakernel.py).
+
+- `sppm_camera_mega_cam`: per pixel, the lens trace and the walk of
+  sppm.rs:140-260 to the visible point (VP): point-light NEE with a
+  uniform light pick at every vertex (added to the pixel's direct light
+  `ld`), the VP at the first vertex with a diffuse lobe or a glossy
+  vertex at the last depth, BSDF bounces and the camera roulette between.
+  Every sampler value comes from the (NC, N) Halton slot matrix laid out
+  by `sppm_slots`.
+- `sppm_photon_mega`: per photon, from its emitted ray, the walk of
+  sppm.rs:346-506 with its bounce and roulette uniforms given, writing a
+  deposit event (the hit, -d, beta before the bounce, alive) at every
+  depth >= 1, depth-major.
+- `deposit_mega`: per VP, phi = sum of beta_ev * f(wo, wi) and M = the
+  count over the events within the VP's radius.  `deposit_inputs` keys
+  the events by the Morton code of their grid cell, sorts them (stable
+  torch.sort) and gives each VP its range of sorted events, which holds
+  every event its radius can reach; the kernel walks the range.
+
+Subset (`unsupported_feature`): triangles (brute force up to TRI_MAX,
+the BVH above), up to LIGHT_MAX point lights, no media, the path
+kernel's lobes (PORTED_KINDS), max_depth 2..DEPTH_MAX.  The triangle
+table is pack_scene's, whose column 47 carries the material id; the VP's
+BSDF in the deposit comes from `resolve_mat_tables`, one row per
+material in the table's lobe layout.
+
+On CUDA tensors each wrapper launches its kernel of
+csrc/sppm_megakernel.cu (built by ops/_build.py) or raises; on CPU
+tensors it runs its plain PyTorch version (`*_reference`), which mirrors
+the kernel expression by expression over flat (N,) tensors with masked
+lanes.  Nothing else selects the path.
+"""
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..bsdf.lobes import LOBE_LAMBERT_REFL, LOBE_MF_REFL
+from ..config import SHADOW_EPSILON
+from ..sampler.dims import CAMERA_FILM, CAMERA_LENS, SPPM_BSDF, SPPM_NEE, SPPM_RR, sppm_dim0
+from . import _build
+from . import path_megakernel as pmk
+
+DEPTH_MAX = pmk.DEPTH_MAX
+# of the ported lobe kinds, those that make a VP (bsdf/eval.num_components
+# over DIFFUSE | R | T, resp. GLOSSY | R | T)
+DIFFUSE_KINDS = (LOBE_LAMBERT_REFL,)
+GLOSSY_KINDS = (LOBE_MF_REFL,)
+LUM_R, LUM_G, LUM_B = 0.212671, 0.715160, 0.072169  # core/spectrum.luminance
+MAT_COL = 47  # the table column with the triangle's material id
+MAT_COLS = 16 + 16 * pmk.LOBES_MAX  # a resolved material row
+EV_COLS = 10  # a sorted event row: p, wi, beta, live
+MORTON_SENTINEL = 0x7FFFFFFF  # the key of a dead or out-of-grid event
+GRID_RES_MAX = 1024  # cells per axis of the Morton grid
+
+# Kernel launches by kernel; the one piece of module state.
+LAUNCHES = {
+    "sppm_camera_mega_cam": 0,
+    "sppm_camera_mega_cam_bvh": 0,
+    "sppm_photon_mega": 0,
+    "sppm_photon_mega_bvh": 0,
+    "sppm_deposit_mega": 0,
+}
+
+
+class VisiblePoints(NamedTuple):
+    """One VP per pixel (integrators/sppm.py VisiblePoints); flat shading,
+    so the shading normal is ng."""
+
+    p: torch.Tensor  # (N, 3)
+    wo: torch.Tensor  # (N, 3)
+    beta: torch.Tensor  # (N, 3)
+    mat: torch.Tensor  # (N,) int64 material id
+    ng: torch.Tensor  # (N, 3)
+    dpdu: torch.Tensor  # (N, 3)
+    valid: torch.Tensor  # (N,) bool
+
+
+def unsupported_feature(scene, spec) -> Optional[str]:
+    """Name of the first scene feature outside the kernels' subset, or None
+    when they render the job exactly (the SPPM render builds its own
+    Halton sampler)."""
+    if spec.kind != "sppm":
+        return f"{spec.kind} integrator"
+    if not 2 <= spec.max_depth <= DEPTH_MAX:
+        # max_depth 1 makes no deposit event (sppm.py:426-432)
+        return f"max_depth {spec.max_depth} outside 2..{DEPTH_MAX}"
+    if scene.mediums:
+        return "participating media (Camera.medium) in SPPM"
+    return pmk.scene_unsupported(scene, None, pmk.PORTED_KINDS)
+
+
+def supports(scene, spec) -> bool:
+    return unsupported_feature(scene, spec) is None
+
+
+def pack_sppm(scene, device, bvh=None) -> pmk.PackedScene:
+    """pack_scene: the triangle table (its column 47 is the material id)
+    and the point lights, in BVH leaf order above TRI_MAX triangles."""
+    return pmk.pack_scene(scene, device, bvh)
+
+
+def resolve_mat_tables(scene, device):
+    """(M, MAT_COLS) float32: per material, its resolved lobe columns in
+    the triangle table's layout (col 15 n_lobes, 16 + 16 l lobe l)."""
+    mats = scene.materials
+    n_mats = mats["kind"].shape[0]
+    return mat_table(pmk._resolve_mat_arrays(mats, np.arange(n_mats)), device)
+
+
+def mat_table(r, device):
+    """The MAT_COLS rows from resolved arrays: kinds (M, L), s0 / s1 / s2
+    (M, L, 3), au, av, fres, ea, eb (M, L) and n_lobes (M,)."""
+    kinds = np.asarray(r["kinds"])
+    rows = np.zeros((kinds.shape[0], MAT_COLS), np.float32)
+    rows[:, 15] = np.asarray(r["n_lobes"])
+    for l in range(min(pmk.LOBES_MAX, kinds.shape[1])):
+        b = 16 + 16 * l
+        rows[:, b] = kinds[:, l]
+        for k, key in enumerate(("s0", "s1", "s2")):
+            rows[:, b + 1 + 3 * k : b + 4 + 3 * k] = np.asarray(r[key])[:, l]
+        for k, key in enumerate(("au", "av", "fres", "ea", "eb")):
+            rows[:, b + 10 + k] = np.asarray(r[key])[:, l]
+    return torch.as_tensor(rows, device=device)
+
+
+def sppm_slots(max_depth):
+    """(slot, 1 or 2) of every sampler value the camera walk reads, in the
+    order of the slot matrix rows (_sppm_slots with the camera): film and
+    lens, then per depth the light pick and, below the last depth, the
+    BSDF sample and the roulette."""
+    slots = [(CAMERA_FILM, 2), (CAMERA_LENS, 2)]
+    for depth in range(max_depth):
+        d0 = sppm_dim0(depth)
+        slots.append((d0 + SPPM_NEE, 1))
+        if depth < max_depth - 1:
+            slots += [(d0 + SPPM_BSDF, 2), (d0 + SPPM_RR, 1)]
+    return tuple(slots)
+
+
+def _spread10(v):
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def morton3(c):
+    """30-bit Morton code of integer cells c (..., 3), int64; monotone
+    under componentwise <=."""
+    c = c.to(torch.int64)
+    return _spread10(c[..., 0]) | (_spread10(c[..., 1]) << 1) | (_spread10(c[..., 2]) << 2)
+
+
+# ---- the CUDA kernels ----
+
+def load_kernel():
+    """The SPPM kernels' library (built on first use)."""
+    lib = _build.load("sppm_megakernel")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sppm_camera_launch.argtypes = [p, i, p, p, ctypes.POINTER(pmk._Params), p, p, i] + [p] * 8 + [i, p]
+    lib.sppm_photon_launch.argtypes = [p, i, p, p, i] + [p] * 9 + [i, p]
+    lib.sppm_deposit_launch.argtypes = [p] * 10 + [i, p, p, i, p]
+    for fn in (lib.sppm_camera_launch, lib.sppm_photon_launch, lib.sppm_deposit_launch):
+        fn.restype = ctypes.c_int
+    lib.sppm_error_string.restype = ctypes.c_char_p
+    lib.sppm_error_string.argtypes = [ctypes.c_int]
+    lib.sppm_params_size.restype = ctypes.c_int
+    if lib.sppm_params_size() != ctypes.sizeof(pmk._Params):
+        raise RuntimeError("sppm_megakernel parameter block differs from _Params")
+    return lib
+
+
+def _check(x, shape, dtype, dev, what):
+    if x.device != dev or x.dtype != dtype or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dtype} tensor of shape {tuple(shape)} on {dev}")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launcher(lib, name, fn, args, outs, keep):
+    """launch(): one launch of `fn` on the current stream returning
+    `outs()`; adds one to LAUNCHES[name] when the launch is accepted.
+    `keep` holds the tensors behind the pointers in `args` that nothing
+    else keeps alive, for as long as launch() can run."""
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            msg = lib.sppm_error_string(err).decode()
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+        LAUNCHES[name] += 1
+        return outs()
+
+    launch.keep = keep
+    return launch
+
+
+def sppm_camera_mega_cam(packed, cam_packed, pixel_xy, u_halton, max_depth):
+    """The camera walk of one iteration.  pixel_xy: (N, 2) float32 integer
+    raster coordinates; u_halton: the (4 max_depth + 1, N) float32 slot
+    matrix (sppm_slots).  Returns (ld (N, 3), VisiblePoints).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if pixel_xy.device.type == "cpu":
+        return sppm_camera_mega_cam_reference(packed, cam_packed, pixel_xy, u_halton, max_depth)
+    return prepare_camera(packed, cam_packed, pixel_xy, u_halton, max_depth)()
+
+
+def prepare_camera(packed, cam_packed, pixel_xy, u_halton, max_depth):
+    """Check the CUDA inputs, build the parameter block and the outputs,
+    and return launch() (sppm_camera_mega_cam's result)."""
+    dev = pixel_xy.device
+    if dev.type != "cuda":
+        raise ValueError(f"the SPPM camera kernel runs on cuda tensors, not {dev}")
+    if not 2 <= max_depth <= DEPTH_MAX:
+        raise ValueError(f"max_depth {max_depth} outside 2..{DEPTH_MAX}")
+    n = pixel_xy.shape[0]
+    if n == 0:
+        raise ValueError("no pixels")
+    _check(pixel_xy, (n, 2), torch.float32, dev, "pixel_xy")
+    n_u = 4 * max_depth + 1
+    _check(u_halton, (n_u, n), torch.float32, dev, "u_halton")
+    table, nodes_f, nodes_i = pmk.geometry_args(packed, dev)
+    prm = pmk._kernel_params(packed, cam_packed, None, None)
+    prm.max_depth = max_depth
+    v3 = [torch.empty((n, 3), dtype=torch.float32, device=dev) for _ in range(6)]
+    mat = torch.empty((n,), dtype=torch.int32, device=dev)
+    valid = torch.empty((n,), dtype=torch.int32, device=dev)
+    lib = load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (table.data_ptr(), table.shape[0], _ptr(nodes_f), _ptr(nodes_i), ctypes.byref(prm),
+            pixel_xy.data_ptr(), u_halton.data_ptr(), n_u, *(t.data_ptr() for t in v3),
+            mat.data_ptr(), valid.data_ptr(), n, stream)
+
+    def outs():
+        ld, p, wo, beta, ng, dpdu = v3
+        return ld, VisiblePoints(p, wo, beta, mat.to(torch.int64), ng, dpdu, valid != 0)
+
+    name = "sppm_camera_mega_cam" if nodes_f is None else "sppm_camera_mega_cam_bvh"
+    return _launcher(lib, name, lib.sppm_camera_launch, args, outs,
+                     (packed, pixel_xy, u_halton, v3, mat, valid))
+
+
+def sppm_photon_mega(packed, ro, rd, beta, active, u_rows, max_depth):
+    """The photon walk of one iteration.  ro, rd, beta: (n, 3) float32
+    emitted rays and powers; active: (n,) bool; u_rows: the
+    (3 (max_depth - 1), n) float32 bounce and roulette uniforms.  Returns
+    the events (ev_p, ev_wi, ev_beta (E, 3), ev_live (E,) bool), depth-major,
+    E = (max_depth - 1) n; a dead event is all zeros.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if ro.device.type == "cpu":
+        return sppm_photon_mega_reference(packed, ro, rd, beta, active, u_rows, max_depth)
+    return prepare_photon(packed, ro, rd, beta, active, u_rows, max_depth)()
+
+
+def prepare_photon(packed, ro, rd, beta, active, u_rows, max_depth):
+    """Check the CUDA inputs, build the outputs, and return launch()
+    (sppm_photon_mega's result)."""
+    dev = ro.device
+    if dev.type != "cuda":
+        raise ValueError(f"the SPPM photon kernel runs on cuda tensors, not {dev}")
+    if not 2 <= max_depth <= DEPTH_MAX:
+        raise ValueError(f"max_depth {max_depth} outside 2..{DEPTH_MAX}")
+    n = ro.shape[0]
+    if n == 0:
+        raise ValueError("no photons")
+    for x, what in ((ro, "ro"), (rd, "rd"), (beta, "beta")):
+        _check(x, (n, 3), torch.float32, dev, what)
+    if active.shape != (n,) or active.device != dev:
+        raise ValueError(f"active must be an (n,) tensor on {dev}")
+    _check(u_rows, (3 * (max_depth - 1), n), torch.float32, dev, "u_rows")
+    table, nodes_f, nodes_i = pmk.geometry_args(packed, dev)
+    alive = active.to(torch.int32).contiguous()
+    e = (max_depth - 1) * n
+    ev = [torch.empty((e, 3), dtype=torch.float32, device=dev) for _ in range(3)]
+    live = torch.empty((e,), dtype=torch.int32, device=dev)
+    lib = load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (table.data_ptr(), table.shape[0], _ptr(nodes_f), _ptr(nodes_i), max_depth,
+            ro.data_ptr(), rd.data_ptr(), beta.data_ptr(), alive.data_ptr(), u_rows.data_ptr(),
+            *(t.data_ptr() for t in ev), live.data_ptr(), n, stream)
+    name = "sppm_photon_mega" if nodes_f is None else "sppm_photon_mega_bvh"
+    return _launcher(lib, name, lib.sppm_photon_launch, args, lambda: (*ev, live != 0),
+                     (packed, ro, rd, beta, alive, u_rows, ev, live))
+
+
+class DepositInputs(NamedTuple):
+    """The torch half of the deposit (deposit_inputs)."""
+
+    events: torch.Tensor  # (E, EV_COLS) float32, Morton-sorted
+    start: torch.Tensor  # (N,) int32: each VP's first sorted event
+    end: torch.Tensor  # (N,) int32: one past its last (start == end: none)
+    r2: torch.Tensor  # (N,) float32 radius^2, -1 for a VP that is not valid
+
+
+def deposit_inputs(vp, radius, events, lo, diag):
+    """Morton keys, the stable sort and the VP ranges, in float32 as the
+    JAX package's deposit_mega computes them: a grid over the box lo +
+    diag with cells of about the largest valid radius, at most
+    GRID_RES_MAX a side; dead and out-of-grid events take the sentinel key
+    and sort last, past every range."""
+    ev_p, ev_wi, ev_beta, ev_live = events
+    valid = vp.valid & (vp.beta > 0.0).any(-1)
+    safe_diag = torch.where(diag == 0.0, 1.0, diag)
+    max_diag = torch.clamp(diag.max(), min=1e-20)
+    max_radius = torch.clamp(torch.where(valid, radius, 0.0).max(), min=1e-20)
+    base_res = max_diag / max_radius
+    res = torch.clamp((base_res * diag / max_diag).to(torch.int32), 1, GRID_RES_MAX)
+
+    def cell_of(p):
+        c = ((p - lo) / safe_diag * res.to(torch.float32)).to(torch.int32)
+        inb = ((c >= 0) & (c < res)).all(-1)
+        return torch.minimum(torch.clamp(c, min=0), res - 1), inb
+
+    cell, inb = cell_of(ev_p)
+    key = torch.where(ev_live & inb, morton3(cell), MORTON_SENTINEL)
+    skey, order = torch.sort(key, stable=True)
+    table = torch.cat([ev_p, ev_wi, ev_beta, ev_live[:, None].to(torch.float32)], -1)
+    cmin, _ = cell_of(vp.p - radius[:, None])
+    cmax, _ = cell_of(vp.p + radius[:, None])
+    start = torch.searchsorted(skey, morton3(cmin))
+    end = torch.searchsorted(skey, morton3(cmax), right=True)
+    return DepositInputs(
+        events=table[order].contiguous(),
+        start=torch.where(valid, start, 0).to(torch.int32),
+        end=torch.where(valid, end, 0).to(torch.int32),
+        r2=torch.where(valid, radius * radius, -1.0),
+    )
+
+
+def deposit_mega(vp, radius, mats, events, lo, diag):
+    """phi (N, 3) and M (N,) int64 of one iteration: vp the VisiblePoints,
+    radius (N,) their radii, mats the resolve_mat_tables rows, events the
+    photon walk's (ev_p, ev_wi, ev_beta, ev_live), lo / diag (3,) the grid
+    box.  The sort runs in torch (deposit_inputs); the range walk is the
+    kernel on CUDA tensors and its plain version on CPU tensors."""
+    inp = deposit_inputs(vp, radius, events, lo, diag)
+    if vp.p.device.type == "cpu":
+        return deposit_walk_reference(vp, mats, inp)
+    return prepare_deposit(vp, mats, inp)()
+
+
+def prepare_deposit(vp, mats, inp):
+    """Check the CUDA inputs, build the outputs, and return launch() (the
+    range walk's phi and M)."""
+    dev = vp.p.device
+    if dev.type != "cuda":
+        raise ValueError(f"the SPPM deposit kernel runs on cuda tensors, not {dev}")
+    n = vp.p.shape[0]
+    if n == 0:
+        raise ValueError("no visible points")
+    for x, what in ((vp.p, "vp.p"), (vp.wo, "vp.wo"), (vp.ng, "vp.ng"), (vp.dpdu, "vp.dpdu")):
+        _check(x, (n, 3), torch.float32, dev, what)
+    _check(mats, (mats.shape[0], MAT_COLS), torch.float32, dev, "material rows")
+    _check(inp.events, (inp.events.shape[0], EV_COLS), torch.float32, dev, "sorted events")
+    mat = vp.mat.to(torch.int32).contiguous()
+    if bool((mat < 0).any()) or bool((mat >= mats.shape[0]).any()):
+        raise ValueError("VP material ids outside the material rows")
+    phi = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    m = torch.empty((n,), dtype=torch.int32, device=dev)
+    lib = load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (vp.p.data_ptr(), vp.wo.data_ptr(), vp.ng.data_ptr(), vp.dpdu.data_ptr(), mat.data_ptr(),
+            inp.r2.data_ptr(), inp.start.data_ptr(), inp.end.data_ptr(), inp.events.data_ptr(),
+            mats.data_ptr(), mats.shape[0], phi.data_ptr(), m.data_ptr(), n, stream)
+    return _launcher(lib, "sppm_deposit_mega", lib.sppm_deposit_launch, args,
+                     lambda: (phi, m.to(torch.int64)), (vp, mat, mats, inp, phi, m))
+
+
+# ---- the plain PyTorch versions ----
+
+
+class SlotSampler:
+    """get_1d / get_2d of the camera walk's slots, read from the slot
+    matrix (the plain camera walk's sampler; pixel and sample ids unused)."""
+
+    def __init__(self, u_halton, max_depth):
+        self.u = u_halton
+        self.rows = {}
+        r = 0
+        for slot, n in sppm_slots(max_depth):
+            self.rows[slot] = r
+            r += n
+
+    def get_1d(self, pixel_id, sample_index, dim):
+        return self.u[self.rows[dim]]
+
+    def get_2d(self, pixel_id, sample_index, dim):
+        r = self.rows[dim]
+        return self.u[r : r + 2].T
+
+
+def _lum(r, g, b):
+    return LUM_R * r + LUM_G * g + LUM_B * b
+
+
+def _hit_frame(table, best, found, d):
+    """The hit row and its frame: (row, ng, dpdu, n_lob, ss, ts, wol)."""
+    row = torch.where(found[:, None], table[best.clamp(min=0)], 0.0)
+    ng = (row[:, 9], row[:, 10], row[:, 11])
+    du = (row[:, 12], row[:, 13], row[:, 14])
+    frame = pmk.shading_frame(*ng, *du)
+    wo = tuple(-c for c in d)
+    wol = (pmk._dot3(*wo, *frame[:3]), pmk._dot3(*wo, *frame[3:]), pmk._dot3(*wo, *ng))
+    return row, ng, du, row[:, 15].to(torch.int64), frame, wol
+
+
+def _bounce(row, n_lob, frame, ng, wol, ub0, ub1, active, work):
+    """One BSDF sample: (new direction, f, pdf, ok)."""
+    wsx, wsy, wsz, fs, pdf, _ = pmk._bsdf_sample(row, n_lob, *wol, ub0, ub1)
+    pmk.tally(work, "lobe", active)
+    ssx, ssy, ssz, tsx, tsy, tsz = frame
+    nw = (ssx * wsx + tsx * wsy + ng[0] * wsz, ssy * wsx + tsy * wsy + ng[1] * wsz,
+          ssz * wsx + tsz * wsy + ng[2] * wsz)
+    cosw = torch.abs(pmk._dot3(*nw, *ng))
+    any_f = (fs[0] != 0.0) | (fs[1] != 0.0) | (fs[2] != 0.0)
+    ok = active & (n_lob > 0) & (wol[2] != 0.0) & (pdf > 0.0) & any_f
+    inv_pdf = cosw / torch.clamp(pdf, min=1e-20)
+    return nw, [f * inv_pdf for f in fs], ok
+
+
+def _next_origin(p, ng, nw, eps):
+    off2 = torch.where(pmk._dot3(*nw, *ng) < 0.0, -eps, eps)
+    return tuple(pc + nc * off2 for pc, nc in zip(p, ng))
+
+
+def sppm_camera_mega_cam_reference(packed, cam_packed, pixel_xy, u_halton, max_depth, work=None):
+    """Plain PyTorch version of `sppm_camera_mega_cam` (same arguments and
+    return), on any device.  `work`, a dict, gets the counts of the
+    triangle and box tests ("mt", "slab"), lobe evaluations ("lobe") and
+    slot values read ("slot") the kernel performs on these inputs."""
+    dev = pixel_xy.device
+    smp = SlotSampler(u_halton, max_depth)
+    ox, oy, oz, dx, dy, dz, weight = pmk._raygen(
+        pixel_xy[:, 0], pixel_xy[:, 1], None, None, smp, cam_packed
+    )
+    o, d = (ox, oy, oz), (dx, dy, dz)
+    geom = pmk.PlainGeometry(packed, dev, work)
+    table = geom.table
+    max_lobes = int(table[:, 15].max())
+    n_lights = len(packed.light_p)
+    light_p = torch.tensor(packed.light_p, dtype=torch.float32, device=dev)
+    light_emit = torch.tensor(packed.light_emit, dtype=torch.float32, device=dev)
+    pmk.tally(work, "slot", torch.full_like(ox, 4.0))  # film and lens
+    active = weight > 0.0
+    b0 = torch.where(active, weight, 0.0)
+    b = [b0, b0, b0]
+    zero = torch.zeros_like(ox)
+    ld = [zero, zero, zero]
+    vp = [zero] * 15  # p, wo, beta, ng, dpdu
+    vp_mat = torch.zeros(ox.shape, dtype=torch.int64, device=dev)
+    vp_valid = torch.zeros_like(active)
+    for depth in range(max_depth):
+        dim0 = sppm_dim0(depth)
+        t, best = geom.closest(*o, *d, active)
+        found = t < pmk.BIG_T
+        active = active & found
+        row, ng, du, n_lob, frame, wol = _hit_frame(table, best, found, d)
+        p = tuple(oc + dc * t for oc, dc in zip(o, d))
+        eps = 1e-4 + 1e-5 * (torch.abs(p[0]) + torch.abs(p[1]) + torch.abs(p[2]))
+
+        # ---- NEE: one light picked uniformly ----
+        u_pick = smp.get_1d(None, None, dim0 + SPPM_NEE)
+        pmk.tally(work, "slot", active)
+        li = torch.clamp((u_pick * n_lights).to(torch.int64), max=n_lights - 1)
+        lp, le = light_p[li], light_emit[li]
+        tl = (lp[:, 0] - p[0], lp[:, 1] - p[1], lp[:, 2] - p[2])
+        dist2 = torch.clamp(tl[0] * tl[0] + tl[1] * tl[1] + tl[2] * tl[2], min=1e-20)
+        inv_d = pmk._rsqrt(dist2)
+        wi = tuple(c * inv_d for c in tl)
+        wil_x, wil_y = pmk._dot3(*wi, *frame[:3]), pmk._dot3(*wi, *frame[3:])
+        wi_ng = pmk._dot3(*wi, *ng)
+        f_gate = ((wi_ng * wol[2]) > 0.0) & (wol[2] != 0.0)
+        fn = [zero, zero, zero]
+        for l in range(max_lobes):
+            lf = pmk._lobe_f(pmk._lobe(row, 16 + 16 * l), *wol, wil_x, wil_y, wi_ng)
+            use = f_gate & (l < n_lob)
+            pmk.tally(work, "lobe", active & use)
+            fn = [fn[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
+        off = torch.where(wi_ng < 0.0, -eps, eps)
+        so = tuple(pc + nc * off for pc, nc in zip(p, ng))
+        occ = geom.occluded(*so, *(lp[:, c] - so[c] for c in range(3)), 1.0 - SHADOW_EPSILON,
+                            active)
+        li_scale = torch.where(active & ~occ, torch.abs(wi_ng) * n_lights / dist2, 0.0)
+        ld = [ld[c] + b[c] * fn[c] * le[:, c] * li_scale for c in range(3)]
+
+        # ---- the VP: the first diffuse vertex, or glossy at the last depth ----
+        diffuse = torch.zeros_like(active)
+        glossy = torch.zeros_like(active)
+        for l in range(max_lobes):
+            kind = row[:, 16 + 16 * l].to(torch.int64)
+            live = l < n_lob
+            diffuse = diffuse | (live & torch.isin(kind, torch.tensor(DIFFUSE_KINDS, device=dev)))
+            glossy = glossy | (live & torch.isin(kind, torch.tensor(GLOSSY_KINDS, device=dev)))
+        make_vp = active & (diffuse | (glossy & (depth == max_depth - 1)))
+        rec = (*p, *(-c for c in d), *b, *ng, *du)
+        vp = [torch.where(make_vp, r, v) for r, v in zip(rec, vp)]
+        vp_mat = torch.where(make_vp, row[:, MAT_COL].to(torch.int64), vp_mat)
+        vp_valid = vp_valid | make_vp
+        active = active & ~make_vp
+        if depth >= max_depth - 1:
+            break
+
+        # ---- BSDF sample and the camera roulette ----
+        ub = smp.get_2d(None, None, dim0 + SPPM_BSDF)
+        pmk.tally(work, "slot", 2 * active)
+        nw, fw, ok = _bounce(row, n_lob, frame, ng, wol, ub[:, 0], ub[:, 1], active, work)
+        bn = [b[c] * fw[c] for c in range(3)]
+        y = _lum(*bn)
+        u_rr = smp.get_1d(None, None, dim0 + SPPM_RR)
+        rr = ok & (y < 0.25)
+        pmk.tally(work, "slot", rr)  # the roulette value is read only here
+        cont_p = torch.clamp(y, max=1.0)
+        killed = rr & (u_rr > cont_p)
+        inv_cont = 1.0 / torch.clamp(cont_p, min=1e-9)
+        bn = [torch.where(rr, c * inv_cont, c) for c in bn]
+        active = active & ok & ~killed
+        b = [torch.where(active, bn[c], b[c]) for c in range(3)]
+        o = tuple(torch.where(active, a, c) for a, c in zip(_next_origin(p, ng, nw, eps), o))
+        d = tuple(torch.where(active, a, c) for a, c in zip(nw, d))
+    v3 = lambda k: torch.stack(vp[3 * k : 3 * k + 3], -1)
+    return torch.stack(ld, -1), VisiblePoints(v3(0), v3(1), v3(2), vp_mat, v3(3), v3(4), vp_valid)
+
+
+def sppm_photon_mega_reference(packed, ro, rd, beta, active, u_rows, max_depth, work=None):
+    """Plain PyTorch version of `sppm_photon_mega` (same arguments and
+    return), on any device; `work` as for the camera walk, "slot" the
+    bounce and roulette uniforms read."""
+    geom = pmk.PlainGeometry(packed, ro.device, work)
+    table = geom.table
+    o, d, b = ro.unbind(-1), rd.unbind(-1), list(beta.unbind(-1))
+    active = active.clone()
+    events = []
+    for depth in range(max_depth):
+        t, best = geom.closest(*o, *d, active)
+        found = t < pmk.BIG_T
+        active = active & found
+        p = tuple(oc + dc * t for oc, dc in zip(o, d))
+        if depth > 0:
+            rec = torch.stack([*p, *(-c for c in d), *b], -1)
+            events.append((torch.where(active[:, None], rec, 0.0), active))
+        if depth >= max_depth - 1:
+            break
+        row, ng, _, n_lob, frame, wol = _hit_frame(table, best, found, d)
+        nw, fw, ok = _bounce(row, n_lob, frame, ng, wol, u_rows[3 * depth],
+                             u_rows[3 * depth + 1], active, work)
+        pmk.tally(work, "slot", 2 * active + ok)  # the roulette's only where ok
+        bn = [b[c] * fw[c] for c in range(3)]
+        # photon roulette (sppm.rs:497-505)
+        q = torch.clamp(1.0 - _lum(*bn) / torch.clamp(_lum(*b), min=1e-20), min=0.0)
+        active = ok & ~(u_rows[3 * depth + 2] < q)
+        inv_cont = 1.0 / torch.clamp(1.0 - q, min=1e-9)
+        b = [torch.where(active, bn[c] * inv_cont, b[c]) for c in range(3)]
+        eps = 1e-4 + 1e-5 * (torch.abs(p[0]) + torch.abs(p[1]) + torch.abs(p[2]))
+        o = tuple(torch.where(active, a, c) for a, c in zip(_next_origin(p, ng, nw, eps), o))
+        d = tuple(torch.where(active, a, c) for a, c in zip(nw, d))
+    rec = torch.cat([e[0] for e in events])
+    return rec[:, 0:3], rec[:, 3:6], rec[:, 6:9], torch.cat([e[1] for e in events])
+
+
+def deposit_mega_reference(vp, radius, mats, events, lo, diag, work=None):
+    """Plain PyTorch version of `deposit_mega` (same arguments and
+    return): deposit_inputs, then `deposit_walk_reference`."""
+    return deposit_walk_reference(vp, mats, deposit_inputs(vp, radius, events, lo, diag), work)
+
+
+def deposit_walk_reference(vp, mats, inp, work=None):
+    """The range walk on DepositInputs, step j adding every VP's j-th event
+    of its range: phi accumulates one event at a time in range order, as
+    the kernel adds them.  The VPs are ordered by range length, longest
+    first, so step j works on the prefix of VPs still walking.  `work`
+    gets the (VP, event) pairs walked ("pair") and the lobe evaluations of
+    the near pairs ("lobe")."""
+    dev = vp.p.device
+    n = vp.p.shape[0]
+    length = (inp.end - inp.start).to(torch.int64)
+    order = torch.argsort(length, descending=True, stable=True)
+    asc = length.sort().values
+    k_max = int(asc[-1]) if n else 0
+    walking = (n - torch.searchsorted(asc, torch.arange(k_max, device=dev), right=True)).tolist()
+    pmk.tally(work, "pair", length)
+    # per VP, in that order: its frame, wo in it, material rows, radius^2
+    ng = vp.ng[order].unbind(-1)
+    ss_ts = pmk.shading_frame(*ng, *vp.dpdu[order].unbind(-1))
+    wo = vp.wo[order].unbind(-1)
+    wol = (pmk._dot3(*wo, *ss_ts[:3]), pmk._dot3(*wo, *ss_ts[3:]), pmk._dot3(*wo, *ng))
+    p = vp.p[order]
+    mrow = mats[vp.mat[order]]
+    max_lobes = int(mats[:, 15].max())
+    start, r2 = inp.start[order].to(torch.int64), inp.r2[order]
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    m = torch.zeros((n,), dtype=torch.int64, device=dev)
+    for j, w in enumerate(walking):
+        ev = inp.events[start[:w] + j]
+        dd = [p[:w, c] - ev[:, c] for c in range(3)]
+        d2 = dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
+        near = (d2 <= r2[:w]) & (ev[:, 9] > 0.0)
+        g = tuple(c[:w] for c in ng)
+        f = tuple(c[:w] for c in ss_ts)
+        wl = tuple(c[:w] for c in wol)
+        wi = (ev[:, 3], ev[:, 4], ev[:, 5])
+        wi_ng = wi[0] * g[0] + wi[1] * g[1] + wi[2] * g[2]
+        gate = near & ((wi_ng * wl[2]) > 0.0) & (wl[2] != 0.0)
+        wil_x = wi[0] * f[0] + wi[1] * f[1] + wi[2] * f[2]
+        wil_y = wi[0] * f[3] + wi[1] * f[4] + wi[2] * f[5]
+        zero = torch.zeros_like(d2)
+        fr = [zero, zero, zero]
+        for l in range(max_lobes):
+            lf = pmk._lobe_f(pmk._lobe(mrow[:w], 16 + 16 * l), *wl, wil_x, wil_y, wi_ng)
+            use = gate & (l < mrow[:w, 15])
+            pmk.tally(work, "lobe", use)
+            fr = [fr[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
+        acc[:w] = acc[:w] + torch.stack([fr[c] * ev[:, 6 + c] for c in range(3)], -1)
+        m[:w] = m[:w] + near
+    phi = torch.empty_like(acc)
+    phi[order] = acc
+    m_out = torch.empty_like(m)
+    m_out[order] = m
+    return phi, m_out

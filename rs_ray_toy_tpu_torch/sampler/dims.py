@@ -2,7 +2,8 @@
 
 Slots 0-7 belong to the camera sample (0: film jitter 2d, 1: lens 2d);
 the Path integrator uses a block of PATH_DPB slots per bounce starting at
-path_dim0(bounce), Volpath a block of VOLPATH_DPB at volpath_dim0(bounce).
+path_dim0(bounce), Volpath a block of VOLPATH_DPB at volpath_dim0(bounce),
+the SPPM camera walk a block of SPPM_DPB at sppm_dim0(depth).
 Only the slots of the ported integrators are listed.
 """
 
@@ -29,3 +30,13 @@ VOL_RR = 4  # Russian roulette (1d)
 
 def volpath_dim0(bounce: int) -> int:
     return INTEGRATOR_DIM0 + bounce * VOLPATH_DPB
+
+
+SPPM_DPB = 8
+SPPM_NEE = 0  # light pick (1d); +1/+2 are unread (delta lights only)
+SPPM_BSDF = 5  # BSDF sample of the next direction (2d)
+SPPM_RR = 6  # camera-path Russian roulette (1d)
+
+
+def sppm_dim0(depth: int) -> int:
+    return INTEGRATOR_DIM0 + depth * SPPM_DPB

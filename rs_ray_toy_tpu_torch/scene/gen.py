@@ -4,7 +4,8 @@
 grid about 35 units in front of the camera, through the schema's
 `instances` path (renderprocess.rs:1214-1282): the first primitive of the
 base scene takes the grid, the others stay.  ny = nz = 40 gives 1,600
-cubes, 19,200 triangles of grid: the JAX bench's `grid` row.
+cubes, 19,200 triangles of grid: the JAX bench's `grid` row (under SPPM,
+the mesh scene of the SPPM kernels' BVH instances).
 
 `write_fog_scene` puts a base scene in a homogeneous camera medium under
 Volpath, optionally with the sphere light of the JAX bench's `fog_area`
@@ -67,9 +68,13 @@ def write_grid_scene(
     yres=None,
 ):
     """Write grid.json (+ cube.obj) under out_dir; returns the json path.
-    ny*nz cube instances -> 12*ny*nz triangles of grid."""
+    ny*nz cube instances -> 12*ny*nz triangles of grid.  The base's
+    Integrator block is kept when it names `integrator` (an SPPM base
+    keeps its radius and photon counts)."""
     cfg = _load(base, xres, yres)
-    cfg["Integrator"] = {"integrator_type": integrator, "max_depth": max_depth}
+    old = cfg.get("Integrator") or {}
+    keep = old if old.get("integrator_type") == integrator else {}
+    cfg["Integrator"] = {**keep, "integrator_type": integrator, "max_depth": max_depth}
     prim = cfg["Aggregate"]["primitives"][0]
     # cube.obj spans +-1: scale so neighbours don't touch
     sy = SPAN_Y / ny

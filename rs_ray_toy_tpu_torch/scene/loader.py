@@ -6,8 +6,8 @@ metal, mirror, glass, debug), `objs`, triangle primitives with
 `instances`, point lights, diffuse lights on a sphere `light_shape`, the
 camera medium (`Camera.medium`: Homogeneous or GridDensity, by preset or
 the reference's default coefficients), Film, StratifiedSampler,
-RealisticCamera and the Path, Debug, DirectLighting and Volpath
-integrators.  Every other feature the schema can name raises
+HaltonSampler, RealisticCamera and the Path, Debug, DirectLighting,
+Volpath and SPPM integrators.  Every other feature the schema can name raises
 NotImplementedError with the feature's name; nothing is dropped
 silently.  Host numpy throughout; `load_scene` returns the same
 `RenderJob` fields as the JAX package.
@@ -108,22 +108,30 @@ class FilmSpec:
 
 @dataclass
 class SamplerSpec:
-    kind: str  # "stratified"
+    kind: str  # "stratified" or "halton"
     jitter: bool = True
     xsamp: int = 4
     ysamp: int = 4
+    # HaltonSampler
+    nsamp: int = 16
+    sample_at_center: bool = False
 
     @property
     def spp(self):
-        return self.xsamp * self.ysamp
+        return self.xsamp * self.ysamp if self.kind == "stratified" else self.nsamp
 
 
 @dataclass
 class IntegratorSpec:
-    kind: str  # "path", "debug", "direct" or "volpath"
+    kind: str  # "path", "debug", "direct", "volpath" or "sppm"
     max_depth: int = 5
     light_strategy: str = "one"  # DirectLighting: "one" or "all"
     rr_threshold: float = 1.0
+    # SPPM
+    radius: float = 1.0
+    n_iters: int = 5
+    photons_per_iter: int = 1
+    write_freq: int = 1 << 31
 
 
 @dataclass
@@ -555,7 +563,11 @@ def _make_camera_spec(ccfg) -> CameraSpec:
 def _make_sampler_spec(scfg) -> SamplerSpec:
     kind = read_string(scfg, "sampler_type", "")
     if kind == "HaltonSampler":
-        raise NotImplementedError("HaltonSampler")
+        return SamplerSpec(
+            kind="halton",
+            nsamp=read_i64(scfg, "nsamp", 16),
+            sample_at_center=read_bool(scfg, "sample_at_center", False),
+        )
     return SamplerSpec(
         kind="stratified",
         jitter=read_bool(scfg, "jitter", True),
@@ -564,10 +576,11 @@ def _make_sampler_spec(scfg) -> SamplerSpec:
     )
 
 
-# integrator_type -> IntegratorSpec.kind for the ported integrators;
-# SPPM and AO (the default) raise
+# integrator_type -> IntegratorSpec.kind for the ported integrators; AO
+# (the default) raises
 _INTEGRATORS = {
     "Path": "path", "Debug": "debug", "DirectLighting": "direct", "Volpath": "volpath",
+    "SPPM": "sppm",
 }
 
 
@@ -580,4 +593,8 @@ def _make_integrator_spec(icfg) -> IntegratorSpec:
         max_depth=read_i64(icfg, "max_depth", 5),
         light_strategy=read_string(icfg, "light_strategy", "one"),
         rr_threshold=read_f64(icfg, "rr_threshold", 1.0),
+        radius=read_f64(icfg, "radius", 1.0),
+        n_iters=read_i64(icfg, "n_iters", 5),
+        photons_per_iter=read_i64(icfg, "photons_per_iter", 1),
+        write_freq=read_i64(icfg, "write_freq", 1 << 31),
     )

@@ -1,5 +1,5 @@
 """Write the in-repo scene fixture: samples/scene.json, samples/scene_debug.json,
-samples/scene_fog.json and samples/cube.obj.
+samples/scene_fog.json, samples/scene_sppm.json and samples/cube.obj.
 
 This fixture stands in for the reference renderer's `samples/scene.json`,
 which is not part of this repository.  It follows the reference's scene
@@ -18,6 +18,9 @@ scene_fog.json is scene.json in a thin fog: the Volpath integrator at
 max_depth 5 with a homogeneous camera medium of the "Clorox" preset
 (sigma_t about 0.006-0.03 per unit, albedo 0.1-0.4), so the ~35-unit
 scene is attenuated, not hidden, and the fog itself scatters light.
+
+scene_sppm.json is scene.json under SPPM as the JAX bench's SPPM row sets
+it: radius 1.0, 4 iterations of 131,072 photons, max_depth 3.
 
 The scene is synthetic.  In particular its `lens_data` is NOT the
 reference's lens prescription: it is the classic 50 mm f/2 double-Gauss
@@ -176,6 +179,23 @@ def scene_fog():
     return cfg
 
 
+def scene_sppm():
+    """The JAX bench's SPPM row (bench.py:233-235): radius 1.0, 4
+    iterations of 2^17 photons, max_depth 3.  The render builds its own
+    Halton sampler (n_iters samples at the pixel centres); the Sampler
+    block states it."""
+    cfg = scene()
+    cfg["Integrator"] = {
+        "integrator_type": "SPPM",
+        "max_depth": 3,
+        "radius": 1.0,
+        "n_iters": 4,
+        "photons_per_iter": 1 << 17,
+    }
+    cfg["Sampler"] = {"sampler_type": "HaltonSampler", "nsamp": 4, "sample_at_center": True}
+    return cfg
+
+
 def main(out_dir=HERE):
     with open(os.path.join(out_dir, "cube.obj"), "w") as fh:
         fh.write(cube_obj())
@@ -183,6 +203,7 @@ def main(out_dir=HERE):
         ("scene.json", scene()),
         ("scene_debug.json", scene_debug()),
         ("scene_fog.json", scene_fog()),
+        ("scene_sppm.json", scene_sppm()),
     ):
         with open(os.path.join(out_dir, name), "w") as fh:
             json.dump(cfg, fh, indent=1)

@@ -1,5 +1,6 @@
-"""On the card: the CUDA camera kernels (path, direct and Volpath, brute
-force and BVH) against their plain PyTorch versions.
+"""On the card: the CUDA kernels (the path, direct and Volpath camera
+kernels and the SPPM camera and photon walks, brute force and BVH, and
+the SPPM deposit) against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -15,11 +16,13 @@ import pytest
 import torch
 
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+from rs_ray_toy_tpu_torch.integrators import sppm
 from rs_ray_toy_tpu_torch.ops import _build
 from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
 from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
-from rs_ray_toy_tpu_torch.render import render_job, sample_batch
+from rs_ray_toy_tpu_torch.render import make_sampler, render_job, sample_batch
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.gen import (
     THIN_FOG,
@@ -268,3 +271,93 @@ def test_fog_render_launches_the_volpath_kernel_once_per_pass(tmp_path):
     assert vmk.LAUNCHES["volpath_mega_cam_bvh"] == before[2]["volpath_mega_cam_bvh"]
     # the fog scatters light into most of the frame
     assert float((res["rgb_srgb_input"].sum(-1) > 0).float().mean()) > 0.5
+
+
+def _sppm_job(tmp_path, grid=False):
+    """samples/scene_sppm.json at 64x36, 2 iterations of 4096 photons; or
+    an 8x8 grid of cubes (792 triangles) under the same SPPM block."""
+    cfg = json.loads((SAMPLES / "scene_sppm.json").read_text())
+    cfg["Film"]["xres"], cfg["Film"]["yres"] = 64, 36
+    cfg["Integrator"].update(n_iters=2, photons_per_iter=4096)
+    shutil.copy(SAMPLES / "cube.obj", tmp_path)
+    path = tmp_path / "sppm.json"
+    path.write_text(json.dumps(cfg))
+    if grid:
+        path = write_grid_scene(str(tmp_path / "grid"), ny=8, nz=8, base=str(path),
+                                integrator="SPPM", max_depth=3)
+    return load_scene(str(path))
+
+
+def _sppm_inputs(job, dev, bvh):
+    packed = smk.pack_sppm(job.scene, dev, bvh)
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, pupil_samples=1 << 14, device=dev))
+    w, h = job.film.xres, job.film.yres
+    pid = torch.arange(w * h, device=dev)
+    pxy = torch.stack([pid % w, pid // w], -1).to(torch.float32)
+    u = make_sampler(job).slot_matrix(pid, 1, smk.sppm_slots(job.integrator.max_depth))
+    return packed, cam, pxy, u
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["fixture", "grid"])
+@pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
+def test_sppm_kernels_match_plain_versions(tmp_path, bvh, grid):
+    """K8 and K9 (both instances) and K10 against their plain versions on
+    one iteration's inputs: ld to the per-ray bar and the VPs, events on
+    99.5% of the photons, the deposit's M equal and phi within 1e-5."""
+    dev = _device()
+    job = _sppm_job(tmp_path, grid)
+    depth = job.integrator.max_depth
+    packed, cam, pxy, u = _sppm_inputs(job, dev, bvh)
+    sfx = "_bvh" if bvh else ""
+    before = dict(smk.LAUNCHES)
+    ld, vp = smk.sppm_camera_mega_cam(packed, cam, pxy, u, depth)
+    torch.cuda.synchronize()
+    assert smk.LAUNCHES[f"sppm_camera_mega_cam{sfx}"] == before[f"sppm_camera_mega_cam{sfx}"] + 1
+    ld_ref, vp_ref = smk.sppm_camera_mega_cam_reference(packed, cam, pxy, u, depth)
+    assert torch.isfinite(ld).all() and float(ld_ref.max()) > 0
+    rel = (ld - ld_ref).abs() / ld_ref.abs().clamp(min=1e-3)
+    ok = rel.amax(-1) <= 1e-3
+    assert float((~ok).float().mean()) < 5e-3
+    assert float((vp.valid == vp_ref.valid).float().mean()) >= 0.995
+    both = vp.valid & vp_ref.valid & ok
+    assert int(both.sum()) > 30 and (vp.mat[both] == vp_ref.mat[both]).all()
+    for f in ("p", "wo", "beta", "ng", "dpdu"):
+        torch.testing.assert_close(getattr(vp, f)[both], getattr(vp_ref, f)[both], rtol=2e-4,
+                                   atol=1e-5)
+
+    lights = sppm.photon_lights(packed, job.scene.lights, dev)
+    n_ph = job.integrator.photons_per_iter
+    ph = sppm.emit_photons(lights, n_ph + torch.arange(n_ph, device=dev), depth)
+    ev = smk.sppm_photon_mega(packed, *ph, depth)
+    torch.cuda.synchronize()
+    assert smk.LAUNCHES[f"sppm_photon_mega{sfx}"] == before[f"sppm_photon_mega{sfx}"] + 1
+    ev_ref = smk.sppm_photon_mega_reference(packed, *ph, depth)
+    same = ev[3] == ev_ref[3]
+    for k in range(3):
+        same &= torch.isclose(ev[k], ev_ref[k], rtol=1e-4, atol=1e-5).all(-1) | ~ev_ref[3]
+    assert float(same.reshape(depth - 1, n_ph).all(0).float().mean()) >= 0.995
+
+    radius = torch.full((pxy.shape[0],), job.integrator.radius, device=dev)
+    lo, diag = sppm.grid_bounds(vp, radius)
+    mats = smk.resolve_mat_tables(job.scene, dev)
+    phi, m = smk.deposit_mega(vp, radius, mats, ev, lo, diag)
+    torch.cuda.synchronize()
+    assert smk.LAUNCHES["sppm_deposit_mega"] == before["sppm_deposit_mega"] + 1
+    phi_ref, m_ref = smk.deposit_mega_reference(vp, radius, mats, ev, lo, diag)
+    assert torch.equal(m, m_ref)
+    torch.testing.assert_close(phi, phi_ref, rtol=1e-5, atol=0.0)
+
+
+def test_sppm_render_launches_each_kernel_once_per_iteration(tmp_path):
+    dev = _device()
+    counts = (pmk.LAUNCHES, dmk.LAUNCHES, vmk.LAUNCHES)
+    before = [dict(c) for c in counts]
+    res = render_job(_sppm_job(tmp_path), dev, pupil_samples=1 << 16)
+    assert res["fused_kernel"] == "sppm" and res["render_path"] == "megakernel" and not res["bvh"]
+    assert res["launches"] == {
+        "sppm_camera_mega_cam": 2, "sppm_camera_mega_cam_bvh": 0, "sppm_photon_mega": 2,
+        "sppm_photon_mega_bvh": 0, "sppm_deposit_mega": 2,
+    }
+    assert [dict(c) for c in counts] == before
+    img = res["rgb_srgb_input"]
+    assert torch.isfinite(img).all() and float(img.max()) > 0

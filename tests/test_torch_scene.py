@@ -1,9 +1,10 @@
 """Scene loading and packing: the port's tables equal the JAX package's.
 
 Both packages load the in-repo fixtures (samples/scene.json,
-samples/scene_debug.json and samples/scene_fog.json, written by
-samples/make_samples.py) and pack them for the camera kernels; the packed
-triangle table, the point lights and the camera bundle must agree.
+samples/scene_debug.json, samples/scene_fog.json and
+samples/scene_sppm.json, written by samples/make_samples.py) and pack
+them for the camera kernels; the packed triangle table, the point lights
+and the camera bundle must agree.
 Features outside the ported slice must raise, at load or when the render
 picks its kernel, never render silently.
 """
@@ -30,7 +31,7 @@ from rs_ray_toy_tpu_torch.bsdf.lobes import (
 )
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
-from rs_ray_toy_tpu_torch.render import select_kernel
+from rs_ray_toy_tpu_torch.render import make_sampler, select_kernel
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.gen import FOG_AREA_LIGHT, THIN_FOG
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
@@ -62,7 +63,7 @@ def test_fixture_is_what_make_samples_writes(tmp_path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.main(str(tmp_path))
-    for name in ("scene.json", "scene_debug.json", "scene_fog.json", "cube.obj"):
+    for name in ("scene.json", "scene_debug.json", "scene_fog.json", "scene_sppm.json", "cube.obj"):
         assert (tmp_path / name).read_bytes() == (SAMPLES / name).read_bytes()
 
 
@@ -147,7 +148,7 @@ UNSUPPORTED = {
     "medium_interface": _volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "grid media with lights other than point lights": _volpath(GRID_MEDIUM, FOG_AREA_LIGHT),
     "HaltonSampler": _set("Sampler", {"sampler_type": "HaltonSampler"}),
-    "SPPM integrator": _set("Integrator", {"integrator_type": "SPPM"}),
+    "AO integrator": _set("Integrator", {"integrator_type": "AO"}),
     "material type DisneyMaterial": _set(
         "materials", [{"material_type": "DisneyMaterial", "material_name": "d"}]
     ),
@@ -160,7 +161,7 @@ def test_unsupported_features_raise(tmp_path, feature):
     path = write_scene(tmp_path, UNSUPPORTED[feature])
     with pytest.raises(NotImplementedError, match=feature):
         job = load_scene(path)
-        select_kernel(job, StratifiedSampler(job.sampler))
+        select_kernel(job, make_sampler(job))
 
 
 def test_supports_rejects_outside_the_kernel_subset(tmp_path):
