@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name and power limit), torch and
-         nvcc, and builds the four kernel libraries from csrc/ (one nvcc
+         nvcc, and builds the six kernel libraries from csrc/ (one nvcc
          each, started together) and the SAH BVH builder (g++), timed as
          set-up.
 Phase 1  runs the path kernel and its plain PyTorch version on the same
@@ -62,10 +62,32 @@ Phase 6  the SPPM main path through its three kernels: (a)
          version run on the CPU, and the plain version's on the card
          against the CPU; (d) the warm render's camera and photon Mrays/s.
 
+Phase 7  the wavefront loop, whose intersection queries are kernels K4
+         (brute force) and K3 (BVH closest and any hit, and the shaded
+         closest hit): (a) AO on samples/scene_ao.json at 640x360, 16 spp,
+         64 probes, through K4 alone (one camera and 64 probe launches a
+         pass); (b) AO on the 19,224-triangle grid at 640x360x8: the
+         shaded kernel for the camera hits, the any-hit kernel for the
+         probes; (c) Path on an 80x80 grid of cubes (76,824 triangles,
+         above the path kernel's 65,536) at 640x360x8, max_depth 5, which
+         the render announces and sends down the wavefront loop: the
+         shaded and any-hit kernels, no path-kernel launch; each kernel
+         held to its plain version on a seeded sixteenth of one of its
+         main-path batches (a probe batch; the camera batch and the
+         bounce-0 shadow rays), the BVH closest-hit instance on 7b's probe
+         batch: hit or miss equal on all but 1e-5 of the rays, where both
+         hit the triangle equal and t within rtol 1e-6, the shaded
+         attributes within rtol 1e-5 / atol 1e-6; (d) the wavefront
+         li_path (over K4) against the path kernel on samples/scene.json
+         at 160x90x16, the same estimator in two implementations, held to
+         the per-ray bar (0.5% of rays past 1e-3 relative, means within
+         3e-3).
+
 Every driven main path starts with all launch counts at 0 and must show
-one launch of its kernel per pass and none of the others.  Every phase
+the launches of its kernels (one per pass, or per query of the wavefront
+loop) and none of the others.  Every phase
 prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the eleven kernels, the last line
+second-to-last line is a JSON record of the fourteen kernels, the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
 build/chip_smoke/chip_smoke.json and the images beside it.  Without a
 CUDA device, or without the rest of the repository, it exits non-zero
@@ -98,9 +120,16 @@ reads each VP's range and writes its phi and M, reads the rest of the VP
 once each sorted event that some range holds (40 bytes), not the dead
 or out-of-grid ones sorted past every range; its operations are the
 (VP, event) pairs its ranges walk (9 each: the distance and its
-compare) and 3 per lobe evaluation of the near pairs.  No single PyTorch
-call computes a sample pass or any of the SPPM kernels: `library_ms` is
-null.
+compare) and 3 per lobe evaluation of the near pairs.  The intersection
+kernels move per ray its origin, direction and t_max in (28 bytes) and t
+and the triangle out (8; the shaded kernel also material, area light and
+16 attribute floats), and read once the triangles' intersect columns (36
+bytes, and their original row in BVH mode), the BVH nodes as above and,
+for the shaded kernel, the 15 shade floats and 2 ints of each triangle;
+their operations are the Moller-Trumbore and slab tests the plain
+version counts.  No single PyTorch call computes a sample pass, any of
+the SPPM kernels, or a closest hit over a triangle list or a BVH:
+`library_ms` is null.
 """
 
 import json
@@ -116,12 +145,23 @@ import torch
 
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.integrators import sppm
+from rs_ray_toy_tpu_torch.integrators.ao import li_ao
+from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
+from rs_ray_toy_tpu_torch.integrators.path import li_path
 from rs_ray_toy_tpu_torch.ops import _build
+from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
 from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
+from rs_ray_toy_tpu_torch.ops import intersect_kernel as ik
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
 from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
-from rs_ray_toy_tpu_torch.render import deploy_render, make_sampler, render_job, sample_batch
+from rs_ray_toy_tpu_torch.render import (
+    camera_rays,
+    deploy_render,
+    make_sampler,
+    render_job,
+    sample_batch,
+)
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.gen import (
     THIN_FOG,
@@ -136,12 +176,15 @@ SCENE = ROOT / "samples" / "scene.json"
 SCENE_DEBUG = ROOT / "samples" / "scene_debug.json"
 SCENE_FOG = ROOT / "samples" / "scene_fog.json"
 SCENE_SPPM = ROOT / "samples" / "scene_sppm.json"
+SCENE_AO = ROOT / "samples" / "scene_ao.json"
 OUT = ROOT / "build" / "chip_smoke"
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
 DIRECT_SRC = "rs_ray_toy_tpu_torch/csrc/direct_megakernel.cu"
 VOLPATH_SRC = "rs_ray_toy_tpu_torch/csrc/volpath_megakernel.cu"
 SPPM_SRC = "rs_ray_toy_tpu_torch/csrc/sppm_megakernel.cu"
 SPPM_REF = "rs_ray_toy_tpu/ops/sppm_megakernel.py"
+INTERSECT_SRC = "rs_ray_toy_tpu_torch/csrc/intersect_kernel.cu"
+BVH_SRC = "rs_ray_toy_tpu_torch/csrc/bvh_kernel.cu"
 KERNELS = {
     "path_mega_cam": dict(source=PATH_SRC, replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3814"),
     "path_mega_cam_bvh": dict(
@@ -164,6 +207,10 @@ KERNELS = {
     "sppm_photon_mega": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:1391"),
     "sppm_photon_mega_bvh": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:1407"),
     "sppm_deposit_mega": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:923"),
+    "intersect": dict(source=INTERSECT_SRC, replaces="rs_ray_toy_tpu/ops/intersect_pallas.py:46"),
+    # both instances of the walk: closest hit and any hit
+    "bvh": dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:249"),
+    "bvh_shaded": dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:400"),
 }
 # FP32 operations per counted test, density tap or walked deposit pair
 FLOPS = {"mt": 45, "slab": 27, "lobe": 3, "track": 40, "pair": 9}
@@ -187,6 +234,9 @@ PHOTON_FLOOR = 5  # photons with a live event the main-path photon hold needs
 ROW_HEAD_COLS = 9 + 7  # p0, e1, e2; ng, dpdu, lobe count
 LOBE_COLS = 16
 NODE_READ_COLS = 12 + 3  # both child boxes; offset, n_prims, axis
+QUERY_BYTES = 28 + 8  # o, d, t_max in; t, triangle out
+SHADED_OUT_BYTES = 4 * 4 + 16 * 4  # t, triangle, material, area light; 16 attribute floats
+MISS_HOLD = 1e-5  # hit or miss may differ on this share of the held rays (ties)
 
 
 def check(cond, msg):
@@ -262,14 +312,17 @@ def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
 
+COUNTS = (pmk.LAUNCHES, dmk.LAUNCHES, vmk.LAUNCHES, smk.LAUNCHES, ik.LAUNCHES, bk.LAUNCHES)
+
+
 def zero_counts():
-    for counts in (pmk.LAUNCHES, dmk.LAUNCHES, vmk.LAUNCHES, smk.LAUNCHES):
+    for counts in COUNTS:
         for k in counts:
             counts[k] = 0
 
 
 def all_counts():
-    return {**pmk.LAUNCHES, **dmk.LAUNCHES, **vmk.LAUNCHES, **smk.LAUNCHES}
+    return {k: v for counts in COUNTS for k, v in counts.items()}
 
 
 def drive(scene, png, kernel, fused, spp_override=None):
@@ -361,11 +414,11 @@ def main():
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     nvcc = run([_build.nvcc_path(), "--version"]).splitlines()[-1]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(7) as pool:
         builds = {
             name: pool.submit(_build.build, name)
             for name in ("path_megakernel", "direct_megakernel", "volpath_megakernel",
-                         "sppm_megakernel")
+                         "sppm_megakernel", "intersect_kernel", "bvh_kernel")
         }
         host = pool.submit(_build.load_host, "bvh_builder")
         logs = {name: f.result()[1] for name, f in builds.items()}
@@ -375,6 +428,8 @@ def main():
     dmk.load_kernel()
     vmk.load_kernel()
     smk.load_kernel()
+    ik.load_kernel()
+    bk.load_kernel()
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln or "entry function" in ln]
@@ -528,6 +583,9 @@ def main():
 
     # ---- phase 6: the SPPM main path ----
     sppm_phase(record, kernels, card, dev)
+
+    # ---- phase 7: the wavefront loop (AO, and Path past the path kernel) ----
+    wavefront_phase(record, kernels, card, dev)
 
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
@@ -857,6 +915,298 @@ def sppm_phase(record, kernels, card, dev):
         f"{deposit['phi_rel_err']:.2e} / {deposit_batch['phi_rel_err']:.2e}; "
         f"{record['phase6_grid']['phase_s']:.1f} s [{card}]"
     )
+
+
+# ---- phase 7: the wavefront loop ----
+
+
+class RecordingCtx(SceneCtx):
+    """SceneCtx that keeps the inputs of the first call of each of the
+    loop's queries, as (o, d, t_max) under "shaded" and "occluded"."""
+
+    def __init__(self, ctx):
+        super().__init__(ctx.tri_packed, ctx.shade, ctx.mat_rows, ctx.lights, ctx.bvh)
+        self.batches = {}
+
+    def intersect_shaded(self, o, d, t_max):
+        self.batches.setdefault("shaded", (o, d, t_max))
+        return super().intersect_shaded(o, d, t_max)
+
+    def occluded(self, o, d, t_max):
+        self.batches.setdefault("occluded", (o, d, t_max))
+        return super().occluded(o, d, t_max)
+
+
+def first_pass_batches(job, dev, spp):
+    """The first pass of the wavefront render of `job` at `spp` samples per
+    pixel, run again with a recording context: its first camera (shaded)
+    and occlusion batches, and the context."""
+    sampler = make_sampler(job)
+    sampler.xs, sampler.ys = (2, 4) if spp == 8 else (4, 4)
+    sampler.spp = spp
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    ctx = RecordingCtx(SceneCtx.from_scene(job.scene, dev))
+    pxy, pid, soff = sample_batch(job.film, spp, dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    li = li_ao if job.integrator.kind == "ao" else li_path
+    li(ctx, o, d, w, sampler, pid, soff, job.integrator)
+    torch.cuda.synchronize()
+    return ctx, ctx.batches
+
+
+# query: (prepare_launch, the wrapper, the plain version)
+QUERIES = {
+    "intersect": (
+        lambda ctx, o, d, t: ik.prepare_launch(ctx.tri_packed, o, d, t),
+        lambda ctx, o, d, t: ik.intersect_triangles(ctx.tri_packed, o, d, t),
+        lambda ctx, o, d, t, work: ik.intersect_triangles_reference(ctx.tri_packed, o, d, t, work),
+    ),
+    "closest": (
+        lambda ctx, o, d, t: bk.prepare_launch(ctx.bvh, o, d, t, False),
+        lambda ctx, o, d, t: bk.intersect_bvh(ctx.bvh, o, d, t),
+        lambda ctx, o, d, t, work: bk.intersect_bvh_reference(ctx.bvh, o, d, t, work),
+    ),
+    "any": (
+        lambda ctx, o, d, t: bk.prepare_launch(ctx.bvh, o, d, t, True),
+        lambda ctx, o, d, t: bk.occluded_bvh(ctx.bvh, o, d, t),
+        lambda ctx, o, d, t, work: bk.occluded_bvh_reference(ctx.bvh, o, d, t, work),
+    ),
+    "shaded": (
+        lambda ctx, o, d, t: bk.prepare_shaded_launch(ctx.bvh, o, d, t),
+        lambda ctx, o, d, t: bk.intersect_bvh_shaded(ctx.bvh, o, d, t),
+        lambda ctx, o, d, t, work: bk.intersect_bvh_shaded_reference(ctx.bvh, o, d, t, work),
+    ),
+}
+
+
+def query_bytes(query, ctx, n):
+    """Bytes of one query over n rays (see the module docstring)."""
+    if query == "intersect":
+        return n * QUERY_BYTES + ctx.tri_packed.shape[0] * 9 * 4
+    m, p = ctx.bvh.nodes_f.shape[0], ctx.bvh.prims_f.shape[0]
+    nbytes = m * NODE_READ_COLS * 4 + p * (9 * 4 + 4)
+    if query == "shaded":
+        return nbytes + n * (28 + SHADED_OUT_BYTES) + p * (15 * 4 + 2 * 4)
+    return nbytes + n * QUERY_BYTES
+
+
+def hold_query(query, ctx, batch, stride=16):
+    """One query kernel on a main-path batch against its plain version on
+    a seeded random 1/`stride` of the rays (see the module docstring for
+    the bars).  Returns the measured numbers."""
+    prepare, wrapper, plain = QUERIES[query]
+    o, d, t_max = batch
+    n = o.shape[0]
+    launch = prepare(ctx, o, d, t_max)
+    out = [x.clone() for x in launch()]
+    torch.cuda.synchronize()
+    pick = torch.randperm(n, generator=torch.Generator().manual_seed(stride))[: n // stride]
+    sub = pick.sort().values.to(o.device)
+    work = {}
+    ref = plain(ctx, o[sub], d[sub], t_max[sub], work)
+    if query == "any":
+        hit_k, hit_p = out[1][sub] >= 0, ref
+    else:
+        hit_k, hit_p = out[1][sub] >= 0, ref[1] >= 0
+    both = hit_k & hit_p
+    stats = dict(rays=n, plain_rays=int(sub.numel()), hits=int(hit_p.sum()),
+                 miss_mismatch=float((hit_k != hit_p).double().mean()))
+    check(stats["hits"] > 0, f"{query}: the held rays hit nothing")
+    check(stats["miss_mismatch"] <= MISS_HOLD,
+          f"{query}: hit or miss differs on {stats['miss_mismatch']:.2e} of the rays")
+    max_abs_err = 0.0
+    if query != "any":
+        t_k, t_p = out[0][sub][both], ref[0][both]
+        check(bool((out[1][sub][both].long() == ref[1][both]).all()), f"{query}: triangles differ")
+        check(bool(torch.isclose(t_k, t_p, rtol=1e-6, atol=0.0).all()), f"{query}: t differs")
+        max_abs_err = float((t_k - t_p).abs().max()) if both.any() else 0.0
+    if query == "shaded":
+        for k, name in ((2, "material"), (3, "area light")):
+            check(bool((out[k][sub][both].long() == ref[k][both]).all()), f"shaded: {name} differs")
+        a_k, a_p = out[4][:, sub][:, both], ref[4][:, both]
+        check(bool(torch.isclose(a_k, a_p, rtol=1e-5, atol=1e-6).all()), "shaded: attributes differ")
+        max_abs_err = max(max_abs_err, float((a_k - a_p).abs().max()))
+    stats["max_abs_err"] = max_abs_err
+    stats["ms"] = timed_ms(launch, reps=10)
+    stats["wrapper_ms"] = timed_ms(lambda: wrapper(ctx, o, d, t_max))
+    stats["plain_ms"] = once_ms(lambda: plain(ctx, o[sub], d[sub], t_max[sub], None))
+    scale = n / sub.numel()
+    flops = scale * sum(FLOPS[k] * float(v) for k, v in work.items() if k in FLOPS)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, query_bytes(query, ctx, n) / PEAK_BYTES * 1e3
+    stats["bound_ms"] = max(t_ops, t_bytes)
+    stats["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    stats["work"] = {k: float(v) * scale for k, v in work.items()}
+    return stats
+
+
+def drive_wavefront(scene, png, want, spp_override=None):
+    """One wavefront render through deploy_render with every count at 0
+    just before; `want` maps each kernel count to the launches the render
+    must make, every other count must stay 0.  Returns (result, coloured
+    pixels, counts)."""
+    zero_counts()
+    res = deploy_render(str(scene), str(png), spp_override=spp_override)
+    counts = all_counts()
+    rgb = res["rgb_srgb_input"]
+    check(bool(torch.isfinite(rgb).all()), f"{png.name}: non-finite image")
+    check(png.exists() and png.stat().st_size > 0, f"{png.name}: no PNG written")
+    colored = int((rgb.sum(-1) > 0).sum())
+    check(colored > 0, f"{png.name}: no coloured pixels")
+    check(res["render_path"] == "wavefront", f"{png.name}: render path {res['render_path']}")
+    for k, v in counts.items():
+        check(v == want.get(k, 0), f"{png.name}: launches {counts}, want {want}")
+    return res, colored, counts
+
+
+def warm_rates_s(results):
+    return ", ".join(f"{r['mrays_per_s']:.1f}" for r in results)
+
+
+def wavefront_entry(kernels, name, launches, held):
+    add_entry(kernels, name, launches, held)
+    kernels[name]["library_ms"] = None
+
+
+def wavefront_phase(record, kernels, card, dev):
+    """Phase 7 (see the module docstring)."""
+    t0 = time.perf_counter()
+    # (a) AO on the fixture through K4
+    ao = load_scene(str(SCENE_AO))
+    n_probe = ao.integrator.n_samples
+    res, colored, counts = drive_wavefront(
+        SCENE_AO, OUT / "chip_smoke_ao.png", {"intersect": 1 + n_probe})
+    check(not res["bvh"], "the AO fixture took the BVH")
+    ctx, batches = first_pass_batches(ao, dev, 16)
+    k4 = hold_query("intersect", ctx, batches["occluded"])
+    warm = [render_job(ao, dev) for _ in range(2)]
+    rays = res["camera_rays"]
+    rate = lambda r, m: (r["camera_rays"] * m) / max(r["elapsed_s"], 1e-9) / 1e6
+    record["phase7a"] = dict(colored=colored, launches=counts, camera_rays=rays,
+                             camera_mrays_per_s=res["mrays_per_s"],
+                             probe_mrays_per_s=rate(res, n_probe),
+                             warm_camera_mrays_per_s=[r["mrays_per_s"] for r in warm],
+                             warm_probe_mrays_per_s=[rate(r, n_probe) for r in warm],
+                             render_s=res["elapsed_s"], k4=k4, phase_s=time.perf_counter() - t0)
+    wavefront_entry(kernels, "intersect", counts["intersect"], k4)
+    print(f"phase 7a: AO, samples/scene_ao.json {ao.film.xres}x{ao.film.yres}x16, {n_probe} "
+          f"probes: {rays} camera and "
+          f"{rays * n_probe} probe rays, {counts['intersect']} K4 launches, {colored} coloured px; "
+          f"first render {res['mrays_per_s']:.2f} camera / {rate(res, n_probe):.1f} probe Mrays/s, "
+          f"warm {warm_rates_s(warm)} camera Mrays/s; "
+          f"K4 {k4['ms']:.3f} ms a probe launch (wrapper {k4['wrapper_ms']:.3f}), bound "
+          f"{k4['bound_ms']:.4f} ms by {k4['bound_by']}, plain {k4['plain_ms']:.1f} ms over "
+          f"{k4['plain_rays']} rays, hits {k4['hits']}, hit/miss differ {k4['miss_mismatch']:.2e}, "
+          f"max_abs_err {k4['max_abs_err']:.3g}; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (b) AO on the 19,224-triangle grid through K3
+    t0 = time.perf_counter()
+    grid = write_grid_scene(str(OUT / "grid_ao"), base=str(SCENE_AO), integrator="AO")
+    res, colored, counts = drive_wavefront(
+        grid, OUT / "chip_smoke_grid_ao.png", {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
+    check(res["bvh"], "the AO grid did not take the BVH")
+    job = load_scene(grid)
+    ctx, batches = first_pass_batches(job, dev, 8)
+    shaded = hold_query("shaded", ctx, batches["shaded"])
+    any_hit = hold_query("any", ctx, batches["occluded"])
+    closest = hold_query("closest", ctx, batches["occluded"])
+    wavefront_entry(kernels, "bvh", counts["bvh_any"] + counts["bvh_closest"], any_hit)
+    kernels["bvh"].update(closest_ms=closest["ms"], closest_bound_ms=closest["bound_ms"],
+                          closest_plain_ms=closest["plain_ms"])
+    wavefront_entry(kernels, "bvh_shaded", counts["bvh_shaded"], shaded)
+    job.sampler.xsamp, job.sampler.ysamp = 2, 4
+    warm = [render_job(job, dev) for _ in range(2)]
+    rays = res["camera_rays"]
+    record["phase7b"] = dict(triangles=job.scene.triangles.count, colored=colored, launches=counts,
+                             camera_rays=rays, camera_mrays_per_s=res["mrays_per_s"],
+                             probe_mrays_per_s=rate(res, n_probe),
+                             warm_camera_mrays_per_s=[r["mrays_per_s"] for r in warm],
+                             warm_probe_mrays_per_s=[rate(r, n_probe) for r in warm],
+                             render_s=res["elapsed_s"], shaded=shaded, any_hit=any_hit,
+                             closest=closest, phase_s=time.perf_counter() - t0)
+    print(f"phase 7b: AO, grid of {job.scene.triangles.count} triangles "
+          f"{job.film.xres}x{job.film.yres}x8: {rays} camera "
+          f"rays, launches {counts}, {colored} coloured px; first render {res['mrays_per_s']:.2f} "
+          f"camera / {rate(res, n_probe):.1f} probe Mrays/s, warm "
+          f"{', '.join(f'{rate(r, n_probe):.1f}' for r in warm)} probe Mrays/s; "
+          + "; ".join(
+              f"{tag} {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}, bound {h['bound_ms']:.4f} by "
+              f"{h['bound_by']}, plain {h['plain_ms']:.1f} over {h['plain_rays']} rays, hits "
+              f"{h['hits']}, hit/miss differ {h['miss_mismatch']:.2e}, max_abs_err "
+              f"{h['max_abs_err']:.3g})"
+              for tag, h in (("K3-shaded", shaded), ("K3 any", any_hit), ("K3 closest", closest)))
+          + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (c) Path past the path kernel's 65,536 triangles
+    t0 = time.perf_counter()
+    big = write_grid_scene(str(OUT / "grid80_path"), ny=80, nz=80, integrator="Path")
+    job = load_scene(big)
+    depth = job.integrator.max_depth
+    check(job.scene.triangles.count > pmk.BVH_TRI_MAX, "the 80x80 grid fits the path kernel")
+    res, colored, counts = drive_wavefront(
+        big, OUT / "chip_smoke_grid80_path.png", {"bvh_shaded": depth, "bvh_any": depth}, 8)
+    ctx, batches = first_pass_batches(job, dev, 8)
+    check(ctx.bvh.depth < pmk.STACK_DEPTH, "the 80x80 grid's BVH is too deep")
+    shaded_c = hold_query("shaded", ctx, batches["shaded"])
+    any_c = hold_query("any", ctx, batches["occluded"])
+    job.sampler.xsamp, job.sampler.ysamp = 2, 4
+    warm = [render_job(job, dev) for _ in range(2)]
+    rays = res["camera_rays"]
+    record["phase7c"] = dict(triangles=job.scene.triangles.count, bvh_depth=ctx.bvh.depth,
+                             colored=colored, launches=counts, camera_rays=rays,
+                             camera_mrays_per_s=res["mrays_per_s"],
+                             shadow_slots_per_s=rate(res, depth),
+                             warm_camera_mrays_per_s=[r["mrays_per_s"] for r in warm],
+                             render_s=res["elapsed_s"], shaded=shaded_c, any_hit=any_c,
+                             phase_s=time.perf_counter() - t0)
+    kernels["bvh"]["max_abs_err"] = max(any_c["max_abs_err"], closest["max_abs_err"],
+                                        any_hit["max_abs_err"])
+    kernels["bvh_shaded"]["max_abs_err"] = max(shaded_c["max_abs_err"], shaded["max_abs_err"])
+    print(f"phase 7c: Path, grid of {job.scene.triangles.count} triangles (BVH depth "
+          f"{ctx.bvh.depth}) {job.film.xres}x{job.film.yres}x8, max_depth {depth}: {rays} rays, "
+          f"launches {counts}, "
+          f"{colored} coloured px; first render {res['mrays_per_s']:.2f} camera Mrays/s "
+          f"({rate(res, depth):.1f} M shadow-ray slots/s), warm "
+          f"{warm_rates_s(warm)}; "
+          + "; ".join(
+              f"{tag} {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}, bound {h['bound_ms']:.4f} by "
+              f"{h['bound_by']}, plain {h['plain_ms']:.1f} over {h['plain_rays']} rays, hits "
+              f"{h['hits']}, hit/miss differ {h['miss_mismatch']:.2e})"
+              for tag, h in (("K3-shaded", shaded_c), ("K3 any", any_c)))
+          + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (d) the wavefront li_path against the path kernel on the fixture
+    t0 = time.perf_counter()
+    job = load_scene(str(SCENE))
+    job.film.xres, job.film.yres = 160, 90
+    sampler = StratifiedSampler(job.sampler)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    zero_counts()
+    l_k1, w_k1 = pmk.li_path_mega_cam(pmk.pack_scene(job.scene, dev), pmk.pack_camera(cam), pxy,
+                                      pid, soff, sampler, job.integrator)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    l_wf = li_path(SceneCtx.from_scene(job.scene, dev), o, d, w, sampler, pid, soff,
+                   job.integrator)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts["path_mega_cam"] == 1 and counts["intersect"] > 0, f"7d launches {counts}")
+    l_wf = torch.where((w > 0.0)[:, None], l_wf, 0.0).double()
+    l_k1 = torch.where((w_k1 > 0.0)[:, None], l_k1, 0.0).double()
+    rel = (l_wf - l_k1).abs() / l_k1.abs().clamp(min=1e-3)
+    bar = dict(rays=int(l_k1.shape[0]), lit=int((l_k1.amax(-1) > 0).sum()),
+               diverged=float((rel.amax(-1) > 1e-3).double().mean()),
+               q99=float(torch.quantile(rel.flatten(), 0.99)), mean=float(l_wf.mean()),
+               mean_ref=float(l_k1.mean()), weight_max_abs_err=float((w - w_k1).abs().max()))
+    check(bar["lit"] >= 1000, f"7d: {bar['lit']} lit rays")
+    check(bar["diverged"] < 5e-3, f"7d: {bar['diverged']:.2%} of rays diverged")
+    check(abs(bar["mean"] - bar["mean_ref"]) < 1e-6 + 3e-3 * abs(bar["mean_ref"]),
+          f"7d: means {bar['mean']:.6g} vs {bar['mean_ref']:.6g}")
+    record["phase7d"] = dict(launches=counts, phase_s=time.perf_counter() - t0, **bar)
+    print(f"phase 7d: wavefront li_path (K4) vs the path kernel, samples/scene.json "
+          f"{job.film.xres}x{job.film.yres}x16: "
+          f"{bar['rays']} rays, {bar['lit']} lit, diverged {bar['diverged']:.2e}, q99 "
+          f"{bar['q99']:.2e}, mean {bar['mean']:.6g} vs {bar['mean_ref']:.6g}, camera weight "
+          f"max_abs_err {bar['weight_max_abs_err']:.3g}; {time.perf_counter() - t0:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

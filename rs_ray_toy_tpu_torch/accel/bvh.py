@@ -129,3 +129,26 @@ def pack_bvh_tables(bvh: FlatBVH):
         nodes2_f[interior, 6:9] = nmin[c1]
         nodes2_f[interior, 9:12] = nmax[c1]
     return nodes2_f, nodes_i
+
+
+def pack_prim_tables(tri, bvh: FlatBVH):
+    """The wavefront kernels' triangle rows in leaf order
+    (ops/bvh_pallas.pack_bvh_tables): prims_f (P, 12) float32 [p0, e1, e2,
+    pad], prims_i (P, 4) int32 [original row, material, area light (-1:
+    the port has no triangle area lights), 0], and the flat shade rows
+    shade_f (P, 15) float32 [uv0, uv1, uv2, dpdu, dpdv, ng]."""
+    order = np.asarray(bvh.prim_index, np.int64)
+    p0 = np.asarray(tri.p0, np.float32)[order]
+    prims_f = np.zeros((order.shape[0], 12), np.float32)
+    prims_f[:, 0:3] = p0
+    prims_f[:, 3:6] = np.asarray(tri.p1, np.float32)[order] - p0
+    prims_f[:, 6:9] = np.asarray(tri.p2, np.float32)[order] - p0
+    prims_i = np.zeros((order.shape[0], 4), np.int32)
+    prims_i[:, 0] = order
+    prims_i[:, 1] = np.asarray(tri.mat, np.int32)[order]
+    prims_i[:, 2] = -1
+    shade_f = np.concatenate(
+        [np.asarray(a, np.float32)[order]
+         for a in (tri.uv0, tri.uv1, tri.uv2, tri.dpdu, tri.dpdv, tri.ng)], axis=1
+    )
+    return prims_f, prims_i, shade_f

@@ -1,0 +1,485 @@
+"""BSDF evaluation and sampling over lobe rows (rs_ray_toy_tpu/bsdf/eval.py).
+
+A hit's lobes are one row of the packed layout (ops/path_megakernel
+.pack_scene): col 15 the lobe count, col 31 the Bsdf eta, and lobe l in
+cols 16 + 16 * l: kind, s0, s1, s2, alpha_u, alpha_v, fresnel code and
+the eta pair.  The kernels' plain versions read the per-triangle table
+(`_lobe`, `_lobe_f`, `_lobe_pdf`, `_lobe_sample`, `_bsdf_sample` on
+local-frame components), the wavefront loop a per-material row
+(integrators/common.SceneCtx.shade_params) through the Bsdf methods on
+(N, 3) world vectors: `bsdf_f_pdf` (Bsdf::f and Bsdf::pdf, fused as the
+JAX package fuses them for NEE), `bsdf_sample` and `num_components`.
+
+Only the lobes the port's loader emits are evaluated: lambert
+reflection, visible-normal Trowbridge-Reitz reflection, specular
+reflection and fresnel specular; the other kinds evaluate to zero.
+Flags follow reflection.rs: BxDF::match_flags and the geometric-normal
+reflect / transmit gate of Bsdf::f.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import DTYPE, ONE_MINUS_EPSILON, PI
+from ..core.sampling import concentric_sample_disk
+from ..core.vec import dot, rsqrt
+from .lobes import (
+    FRESNEL_CONDUCTOR,
+    FRESNEL_DIELECTRIC,
+    LOBE_FRESNEL_SPEC,
+    LOBE_LAMBERT_REFL,
+    LOBE_MF_REFL,
+    LOBE_SPEC_REFL,
+    LOBE_SPEC_TRANS,
+)
+
+# BxDF type flags (reflection.rs BxDFType)
+BXDF_REFLECTION = 1 << 0
+BXDF_TRANSMISSION = 1 << 1
+BXDF_DIFFUSE = 1 << 2
+BXDF_GLOSSY = 1 << 3
+BXDF_SPECULAR = 1 << 4
+BXDF_ALL = BXDF_REFLECTION | BXDF_TRANSMISSION | BXDF_DIFFUSE | BXDF_GLOSSY | BXDF_SPECULAR
+# flags of the ported lobe kinds, by kind code (0: no lobe)
+LOBE_FLAGS = {
+    LOBE_LAMBERT_REFL: BXDF_DIFFUSE | BXDF_REFLECTION,
+    LOBE_SPEC_REFL: BXDF_SPECULAR | BXDF_REFLECTION,
+    LOBE_SPEC_TRANS: BXDF_SPECULAR | BXDF_TRANSMISSION,
+    LOBE_FRESNEL_SPEC: BXDF_ALL,  # reflection.rs:801-803
+    LOBE_MF_REFL: BXDF_GLOSSY | BXDF_REFLECTION,
+}
+_FLAG_TABLE = [LOBE_FLAGS.get(k, 0) for k in range(16)]
+
+
+def shading_frame(nsx, nsy, nsz, dux, duy, duz):
+    """(ss, ts) of the shading frame on the normal ns: ss = normalize(dpdu),
+    coordinate_system(ns) when dpdu is degenerate; ts = ns x ss."""
+    du2 = dux * dux + duy * duy + duz * duz
+    inv = rsqrt(torch.clamp(du2, min=1e-30))
+    big_x = torch.abs(nsx) > torch.abs(nsy)
+    inv_a = rsqrt(
+        torch.clamp(torch.where(big_x, nsx * nsx + nsz * nsz, nsy * nsy + nsz * nsz), min=1e-30)
+    )
+    bad = du2 < 1e-20
+    ssx = torch.where(bad, torch.where(big_x, -nsz, 0.0) * inv_a, dux * inv)
+    ssy = torch.where(bad, torch.where(big_x, 0.0, nsz) * inv_a, duy * inv)
+    ssz = torch.where(bad, torch.where(big_x, nsx, -nsy) * inv_a, duz * inv)
+    tsx = nsy * ssz - nsz * ssy
+    tsy = nsz * ssx - nsx * ssz
+    tsz = nsx * ssy - nsy * ssx
+    return ssx, ssy, ssz, tsx, tsy, tsz
+
+
+def _lobe(row, base):
+    """Lobe columns starting at `base` of (N, >=base+15) rows."""
+    return dict(
+        kind=row[:, base].to(torch.int32),
+        s0=(row[:, base + 1], row[:, base + 2], row[:, base + 3]),
+        s1=(row[:, base + 4], row[:, base + 5], row[:, base + 6]),
+        s2=(row[:, base + 7], row[:, base + 8], row[:, base + 9]),
+        au=row[:, base + 10],
+        av=row[:, base + 11],
+        fres=row[:, base + 12].to(torch.int32),
+        eta_a=row[:, base + 13],
+        eta_b=row[:, base + 14],
+    )
+
+
+def _is_spec(kind):
+    return (kind == LOBE_SPEC_REFL) | (kind == LOBE_SPEC_TRANS) | (kind == LOBE_FRESNEL_SPEC)
+
+
+def _trig_theta_phi(x, y, z):
+    cos2 = z * z
+    sin2 = torch.clamp(1.0 - cos2, min=0.0)
+    tan2 = sin2 / torch.where(cos2 == 0.0, 1e-30, cos2)
+    sin_t = torch.sqrt(sin2)
+    zs = sin_t == 0.0
+    safe = torch.where(zs, 1.0, sin_t)
+    cos_p = torch.where(zs, 1.0, torch.clamp(x / safe, -1.0, 1.0))
+    sin_p = torch.where(zs, 0.0, torch.clamp(y / safe, -1.0, 1.0))
+    return cos2, tan2, cos_p * cos_p, sin_p * sin_p
+
+
+def _tr_d(x, y, z, au, av):
+    cos2, tan2, c2p, s2p = _trig_theta_phi(x, y, z)
+    c4 = cos2 * cos2
+    e = (c2p / (au * au) + s2p / (av * av)) * tan2
+    ope = 1.0 + e
+    d = 1.0 / (PI * au * av * c4 * (ope * ope))
+    return torch.where(torch.isfinite(tan2) & (c4 > 0.0), d, 0.0)
+
+
+def _tr_lambda(x, y, z, au, av):
+    _, tan2, c2p, s2p = _trig_theta_phi(x, y, z)
+    alpha2 = c2p * au * au + s2p * av * av
+    lam = (-1.0 + torch.sqrt(1.0 + alpha2 * tan2)) / 2.0
+    return torch.where(torch.isfinite(tan2), lam, 0.0)
+
+
+def _fr_dielectric(cos_i, eta_i, eta_t):
+    cos_i = torch.clamp(cos_i, -1.0, 1.0)
+    entering = cos_i > 0.0
+    ei = torch.where(entering, eta_i, eta_t)
+    et = torch.where(entering, eta_t, eta_i)
+    ci = torch.abs(cos_i)
+    sin_i = torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
+    sin_t = ei / et * sin_i
+    tir = sin_t >= 1.0
+    ct = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+    r_par = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-20)
+    r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-20)
+    return torch.where(tir, 1.0, 0.5 * (r_par * r_par + r_perp * r_perp))
+
+
+def _fr_conductor(ci2, si2, eta, k):
+    e2 = eta * eta
+    k2 = k * k
+    t0 = e2 - k2 - si2
+    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * e2 * k2, min=0.0))
+    t1 = a2b2 + ci2
+    a = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
+    t2 = 2.0 * a * torch.sqrt(ci2)
+    rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-20)
+    t3 = a2b2 * ci2 + si2 * si2
+    t4 = t2 * si2
+    rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-20)
+    return 0.5 * (rp + rs)
+
+
+def _fresnel(lob, cos_i):
+    """(fr, fg, fb) by the lobe's fresnel code: dielectric, conductor, or
+    1 (no-op)."""
+    fr_d = _fr_dielectric(cos_i, lob["eta_a"], lob["eta_b"])
+    ci = torch.clamp(torch.abs(cos_i), 0.0, 1.0)
+    ci2 = ci * ci
+    si2 = 1.0 - ci2
+    code = lob["fres"]
+    return tuple(
+        torch.where(
+            code == FRESNEL_DIELECTRIC,
+            fr_d,
+            torch.where(
+                code == FRESNEL_CONDUCTOR,
+                _fr_conductor(ci2, si2, lob["s2"][c], lob["s1"][c]),
+                1.0,
+            ),
+        )
+        for c in range(3)
+    )
+
+
+def _lobe_f(lob, wox, woy, woz, wix, wiy, wiz):
+    """lobe_f on local-frame directions: lambert or TR microfacet by the
+    lobe's kind; specular (and unported) kinds evaluate to 0."""
+    kind = lob["kind"]
+    whx, why, whz = wox + wix, woy + wiy, woz + wiz
+    wh_len = torch.sqrt(torch.clamp(whx * whx + why * why + whz * whz, min=0.0))
+    inv_l = 1.0 / torch.clamp(wh_len, min=1e-20)
+    nhx, nhy, nhz = whx * inv_l, why * inv_l, whz * inv_l
+    co = torch.abs(woz)
+    ci = torch.abs(wiz)
+    ok = (co > 0.0) & (ci > 0.0) & (wh_len > 0.0)
+    s = torch.where(nhz < 0.0, -1.0, 1.0)
+    fr3 = _fresnel(lob, wix * (s * nhx) + wiy * (s * nhy) + wiz * (s * nhz))
+    au, av = lob["au"], lob["av"]
+    d_val = _tr_d(nhx, nhy, nhz, au, av)
+    lam_o = _tr_lambda(wox, woy, woz, au, av)
+    lam_i = _tr_lambda(wix, wiy, wiz, au, av)
+    g = 1.0 / (1.0 + lam_o + lam_i)
+    scale = d_val * g / torch.clamp(4.0 * ci * co, min=1e-20)
+    is_mf = kind == LOBE_MF_REFL
+    is_lam = kind == LOBE_LAMBERT_REFL
+    out = []
+    for c in range(3):
+        mf = torch.where(ok, lob["s0"][c] * fr3[c] * scale, 0.0)
+        lam = lob["s0"][c] / PI
+        out.append(torch.where(is_mf, mf, torch.where(is_lam, lam, 0.0)))
+    return out
+
+
+def _lobe_pdf(lob, wox, woy, woz, wix, wiy, wiz):
+    """Cosine pdf for lambert, visible-normal TR pdf for microfacets,
+    0 for specular kinds."""
+    same = (woz * wiz) > 0.0
+    cos_pdf = torch.where(same, torch.abs(wiz) / PI, 0.0)
+    whx, why, whz = wox + wix, woy + wiy, woz + wiz
+    inv_l = rsqrt(torch.clamp(whx * whx + why * why + whz * whz, min=1e-30))
+    whx, why, whz = whx * inv_l, why * inv_l, whz * inv_l
+    au, av = lob["au"], lob["av"]
+    d_val = _tr_d(whx, why, whz, au, av)
+    lam_o = _tr_lambda(wox, woy, woz, au, av)
+    dot_owh = wox * whx + woy * why + woz * whz
+    pdf_wh = d_val / (1.0 + lam_o) * torch.abs(dot_owh) / torch.clamp(torch.abs(woz), min=1e-20)
+    mf_pdf = torch.where(same, pdf_wh / torch.clamp(4.0 * dot_owh, min=1e-20), 0.0)
+    out = torch.where(lob["kind"] == LOBE_MF_REFL, mf_pdf, cos_pdf)
+    return torch.where(_is_spec(lob["kind"]), 0.0, out)
+
+
+def _tr_sample_wh(wox, woy, woz, au, av, u0, u1):
+    """tr_sample_wh_visible (bsdf/microfacet.py:108-166), local frame."""
+    flip = woz < 0.0
+    wx = torch.where(flip, -wox, wox)
+    wy = torch.where(flip, -woy, woy)
+    wz = torch.where(flip, -woz, woz)
+    sx_, sy_, sz_ = wx * au, wy * av, wz
+    inv = rsqrt(torch.clamp(sx_ * sx_ + sy_ * sy_ + sz_ * sz_, min=1e-30))
+    wsx, wsy, wsz = sx_ * inv, sy_ * inv, sz_ * inv
+
+    cos_theta = wsz
+    r_spec = torch.sqrt(u0 / torch.clamp(1.0 - u0, min=1e-9))
+    phi_spec = 2.0 * PI * u1
+    sx_spec = r_spec * torch.cos(phi_spec)
+    sy_spec = r_spec * torch.sin(phi_spec)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    tan_theta = sin_theta / torch.clamp(cos_theta, min=1e-9)
+    a_inv = 1.0 / torch.clamp(tan_theta, min=1e-9)
+    g1v = 2.0 / (1.0 + torch.sqrt(1.0 + 1.0 / (a_inv * a_inv)))
+    a = 2.0 * u0 / g1v - 1.0
+    tmp = torch.clamp(1.0 / torch.clamp(a * a - 1.0, min=1e-12), max=1e10)
+    tmp = torch.where(a * a - 1.0 <= 0.0, 1e10, tmp)
+    b = tan_theta
+    dsc = torch.clamp(b * b * tmp * tmp - (a * a - b * b) * tmp, min=0.0)
+    dq = torch.sqrt(dsc)
+    sx1 = b * tmp - dq
+    sx2 = b * tmp + dq
+    slope_x = torch.where((a < 0.0) | (sx2 > 1.0 / torch.clamp(tan_theta, min=1e-9)), sx1, sx2)
+    upper = u1 > 0.5
+    sgn = torch.where(upper, 1.0, -1.0)
+    nu2 = torch.where(upper, 2.0 * (u1 - 0.5), 2.0 * (0.5 - u1))
+    z = (nu2 * (nu2 * (nu2 * 0.27385 - 0.73369) + 0.46341)) / (
+        nu2 * (nu2 * (nu2 * 0.093073 + 0.309420) - 1.0) + 0.597999
+    )
+    slope_y = sgn * z * torch.sqrt(1.0 + slope_x * slope_x)
+    near_n = cos_theta > 0.9999
+    slope_x = torch.where(near_n, sx_spec, slope_x)
+    slope_y = torch.where(near_n, sy_spec, slope_y)
+
+    sin_t = torch.sqrt(torch.clamp(1.0 - wsz * wsz, min=0.0))
+    zs = sin_t == 0.0
+    safe = torch.where(zs, 1.0, sin_t)
+    cos_p = torch.where(zs, 1.0, wsx / safe)
+    sin_p = torch.where(zs, 0.0, wsy / safe)
+    rx = cos_p * slope_x - sin_p * slope_y
+    ry = sin_p * slope_x + cos_p * slope_y
+    hx, hy, hz = -au * rx, -av * ry, torch.ones_like(rx)
+    inv_h = rsqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-30))
+    hx, hy, hz = hx * inv_h, hy * inv_h, hz * inv_h
+    return (
+        torch.where(flip, -hx, hx),
+        torch.where(flip, -hy, hy),
+        torch.where(flip, -hz, hz),
+    )
+
+
+
+def _lobe_sample(lob, wol_x, wol_y, wo_z, u0, u1):
+    """sample_f of one chosen lobe (reflection.rs: lambert's cosine
+    hemisphere, the visible-normal Trowbridge-Reitz reflection, specular
+    reflection, fresnel-specular reflect or transmit by u0 < Fr).
+    Returns (wi x, y, z, f (3 channels), pdf, transmitted)."""
+    kind = lob["kind"]
+    is_mf = kind == LOBE_MF_REFL
+    is_sr = kind == LOBE_SPEC_REFL
+    is_fs = kind == LOBE_FRESNEL_SPEC
+
+    # cosine hemisphere on wo's side (lambert)
+    dxo, dyo = concentric_sample_disk(u0, u1)
+    z_cos = torch.sqrt(torch.clamp(1.0 - dxo * dxo - dyo * dyo, min=0.0))
+    z_cos = torch.where(wo_z < 0.0, -z_cos, z_cos)
+    # microfacet: visible-normal sample, reflect
+    hx, hy, hz = _tr_sample_wh(wol_x, wol_y, wo_z, lob["au"], lob["av"], u0, u1)
+    dot_owh = wol_x * hx + wol_y * hy + wo_z * hz
+    mrx = 2.0 * dot_owh * hx - wol_x
+    mry = 2.0 * dot_owh * hy - wol_y
+    mrz = 2.0 * dot_owh * hz - wo_z
+    mr_ok = (dot_owh >= 0.0) & ((wo_z * mrz) > 0.0) & (wo_z != 0.0)
+    # specular reflection and fresnel-specular transmission
+    srx, sry, srz = -wol_x, -wol_y, wo_z
+    ea, eb = lob["eta_a"], lob["eta_b"]
+    entering = wo_z > 0.0
+    ei = torch.where(entering, ea, eb)
+    et = torch.where(entering, eb, ea)
+    eta_rel = ei / torch.clamp(et, min=1e-9)
+    abs_cz = torch.abs(wo_z)
+    sin2_t = eta_rel * eta_rel * torch.clamp(1.0 - abs_cz * abs_cz, min=0.0)
+    st_ok = sin2_t < 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    nz_sign = torch.where(entering, 1.0, -1.0)
+    stx = -eta_rel * wol_x
+    sty = -eta_rel * wol_y
+    stz = -eta_rel * wo_z + (eta_rel * abs_cz - cos_t) * nz_sign
+    scale_t = (ei * ei) / torch.clamp(et * et, min=1e-20)
+    fr_fs = _fr_dielectric(wo_z, ea, eb)
+    fs_reflect = u0 < fr_fs
+
+    def pick(cos_v, mf_v, sr_v, st_v):
+        v = torch.where(is_mf, mf_v, cos_v)
+        v = torch.where(is_sr, sr_v, v)
+        return torch.where(is_fs, torch.where(fs_reflect, sr_v, st_v), v)
+
+    wsx = pick(dxo, mrx, srx, stx)
+    wsy = pick(dyo, mry, sry, sty)
+    wsz = pick(z_cos, mrz, srz, stz)
+
+    fs = _lobe_f(lob, wol_x, wol_y, wo_z, wsx, wsy, wsz)
+    pdf = _lobe_pdf(lob, wol_x, wol_y, wo_z, wsx, wsy, wsz)
+    dead_mf = is_mf & ~mr_ok
+    aci = torch.clamp(torch.abs(wsz), min=1e-20)
+    fr3 = _fresnel(lob, wsz)
+    out = []
+    for c in range(3):
+        f = torch.where(dead_mf, 0.0, fs[c])
+        f = torch.where(is_sr, lob["s0"][c] * fr3[c] / aci, f)
+        f_fs = torch.where(
+            fs_reflect,
+            lob["s0"][c] * fr_fs / aci,
+            torch.where(st_ok, lob["s1"][c] * (1.0 - fr_fs) * scale_t / aci, 0.0),
+        )
+        out.append(torch.where(is_fs, f_fs, f))
+    pdf = torch.where(is_sr, 1.0, pdf)
+    pdf = torch.where(is_fs, torch.where(fs_reflect, fr_fs, 1.0 - fr_fs), pdf)
+    # a microfacet sample below the surface is no sample: f and pdf 0
+    pdf = torch.where(dead_mf, 0.0, pdf)
+    return wsx, wsy, wsz, out, pdf, is_fs & ~fs_reflect
+
+
+def _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1):
+    """Bsdf::sample_f (reflection.rs:302-381, reference-quirk exact):
+    uniform lobe choice among the row's n_lob lobes, the chosen lobe's
+    direction, f and pdf, the pdf averaged over the matching lobes.  The
+    other lobes' pdfs are added only when the chosen lobe does not reflect
+    (reflection.rs:358), which no lobe of the ported kinds is."""
+    matching = torch.clamp(n_lob, min=1)
+    comp = torch.minimum((ub0 * matching).to(torch.int64), matching - 1)
+    u0 = torch.clamp(ub0 * matching - comp.to(DTYPE), max=ONE_MINUS_EPSILON)
+    cols = (16 + 16 * comp)[:, None] + torch.arange(16, device=row.device)
+    lob = _lobe(torch.gather(row, 1, cols), 0)
+    wsx, wsy, wsz, out, pdf, transmitted = _lobe_sample(lob, wol_x, wol_y, wo_z, u0, ub1)
+    pdf = torch.where(matching > 1, pdf / matching.to(DTYPE), pdf)
+    return wsx, wsy, wsz, out, pdf, transmitted
+
+
+# ---- the Bsdf methods on (N, 3) world vectors (the wavefront loop) ----
+
+
+class Frame(NamedTuple):
+    """Shading frame (Bsdf::new, reflection.rs:216-227), (N, 3) each."""
+
+    ns: torch.Tensor
+    ng: torch.Tensor
+    ss: torch.Tensor
+    ts: torch.Tensor
+
+
+class BsdfSample(NamedTuple):
+    f: torch.Tensor  # (N, 3)
+    wi_world: torch.Tensor  # (N, 3)
+    pdf: torch.Tensor  # (N,)
+    transmitted: torch.Tensor  # (N,) bool: a specular transmission was sampled
+    valid: torch.Tensor  # (N,) bool
+
+
+def make_frame(ns, ng, dpdu):
+    """ss = normalize(dpdu), or coordinate_system(ns) where dpdu is
+    degenerate; ts = ns x ss."""
+    ss_ts = shading_frame(ns[:, 0], ns[:, 1], ns[:, 2], dpdu[:, 0], dpdu[:, 1], dpdu[:, 2])
+    return Frame(ns, ng, torch.stack(ss_ts[:3], -1), torch.stack(ss_ts[3:], -1))
+
+
+def world_to_local(fr, v):
+    return torch.stack([dot(v, fr.ss), dot(v, fr.ts), dot(v, fr.ns)], -1)
+
+
+def local_to_world(fr, v):
+    return fr.ss * v[:, 0:1] + fr.ts * v[:, 1:2] + fr.ns * v[:, 2:3]
+
+
+def lobe_count(params):
+    """Lobe slots of a row tensor (its columns beyond the 16 of the head)."""
+    return (params.shape[1] - 16) // 16
+
+
+def lobe_flags(kind):
+    """BxDFType flags of each lobe kind (int64, 0 for no lobe)."""
+    return torch.tensor(_FLAG_TABLE, device=kind.device)[kind.long()]
+
+
+def _matches(lob, l, n_lob, flags):
+    """BxDF::match_flags (reflection.rs:490-492) of lobe slot l, live
+    below the row's lobe count."""
+    lf = lobe_flags(lob["kind"])
+    return (l < n_lob) & (lob["kind"] != 0) & ((lf & flags) == lf), lf
+
+
+def lobe_f(lob, wo, wi):
+    """f(wo, wi) of one lobe slot on local (N, 3) directions: (N, 3)."""
+    return torch.stack(_lobe_f(lob, *wo.unbind(-1), *wi.unbind(-1)), -1)
+
+
+def lobe_pdf(lob, wo, wi):
+    return _lobe_pdf(lob, *wo.unbind(-1), *wi.unbind(-1))
+
+
+def num_components(params, flags):
+    """Bsdf::num_components: (N,) int64."""
+    n_lob = params[:, 15].to(torch.int64)
+    count = torch.zeros_like(n_lob)
+    for l in range(lobe_count(params)):
+        count = count + _matches(_lobe(params, 16 + 16 * l), l, n_lob, flags)[0]
+    return count
+
+
+def bsdf_f_pdf(params, fr, wo_w, wi_w, flags):
+    """Bsdf::f (reflection.rs:252-268: matching lobes under the
+    geometric-normal reflect / transmit gate) and Bsdf::pdf (:382-404:
+    the mean over matching lobes) in one sweep.  Returns ((N, 3), (N,))."""
+    wo = world_to_local(fr, wo_w)
+    wi = world_to_local(fr, wi_w)
+    reflect = (dot(wi_w, fr.ng) * dot(wo_w, fr.ng)) > 0.0
+    n_lob = params[:, 15].to(torch.int64)
+    f_total = torch.zeros_like(wo)
+    p_total = torch.zeros_like(wo[:, 0])
+    count = torch.zeros_like(n_lob)
+    for l in range(lobe_count(params)):
+        lob = _lobe(params, 16 + 16 * l)
+        m, lf = _matches(lob, l, n_lob, flags)
+        use_f = m & ((reflect & ((lf & BXDF_REFLECTION) > 0))
+                     | (~reflect & ((lf & BXDF_TRANSMISSION) > 0)))
+        f_total = f_total + torch.where(use_f[:, None], lobe_f(lob, wo, wi), 0.0)
+        p_total = p_total + torch.where(m, lobe_pdf(lob, wo, wi), 0.0)
+        count = count + m
+    ok = wo[:, 2] != 0.0
+    f_total = torch.where(ok[:, None], f_total, 0.0)
+    pdf = torch.where(ok & (count > 0), p_total / torch.clamp(count, min=1), 0.0)
+    return f_total, pdf
+
+
+def bsdf_f(params, fr, wo_w, wi_w, flags):
+    return bsdf_f_pdf(params, fr, wo_w, wi_w, flags)[0]
+
+
+def bsdf_pdf(params, fr, wo_w, wi_w, flags):
+    return bsdf_f_pdf(params, fr, wo_w, wi_w, flags)[1]
+
+
+def bsdf_sample(params, fr, wo_w, u, flags=BXDF_ALL):
+    """Bsdf::sample_f (reflection.rs:302-381) over every lobe of the row;
+    `u` (N, 2).  Only BXDF_ALL is taken: the loop samples no other set."""
+    if flags != BXDF_ALL:
+        raise NotImplementedError("bsdf_sample over a subset of the lobes")
+    wo = world_to_local(fr, wo_w)
+    n_lob = params[:, 15].to(torch.int64)
+    wsx, wsy, wsz, fs, pdf, transmitted = _bsdf_sample(
+        params, n_lob, wo[:, 0], wo[:, 1], wo[:, 2], u[:, 0], u[:, 1]
+    )
+    valid = (n_lob > 0) & (wo[:, 2] != 0.0) & (pdf > 0.0)
+    wi_w = local_to_world(fr, torch.stack([wsx, wsy, wsz], -1))
+    return BsdfSample(
+        f=torch.where(valid[:, None], torch.stack(fs, -1), 0.0),
+        wi_world=wi_w,
+        pdf=torch.where(valid, pdf, 0.0),
+        transmitted=valid & transmitted,
+        valid=valid,
+    )

@@ -5,6 +5,9 @@ Volpath kernel reads its CDF and per-entry pick pdfs cast to float32
 (ops/volpath_megakernel.pack_volpath), and `sample_discrete_1d` picks from
 its float32 device copy as the JAX package does (the SPPM photon
 emission).  `power_heuristic` is the nf = ng = 1 form the kernels use.
+The hemisphere warps take and return (N, 2) / (N, 3) tensors, as the
+wavefront loop holds its vectors; `concentric_sample_disk` works on the
+components, as the kernels' plain versions call it.
 """
 
 import numpy as np
@@ -61,6 +64,38 @@ def uniform_sample_sphere(u0, u1):
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = 2.0 * PI * u1
     return r * torch.cos(phi), r * torch.sin(phi), z
+
+
+def uniform_sample_hemisphere(u):
+    """(sampling.rs:250-256): (N, 2) uniforms -> (N, 3) local directions."""
+    z = u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def concentric_sample_disk(u0, u1):
+    """sampling.rs:286-311, componentwise: returns (x, y)."""
+    x = 2.0 * u0 - 1.0
+    y = 2.0 * u1 - 1.0
+    zero = (x == 0.0) & (y == 0.0)
+    use_x = torch.abs(x) > torch.abs(y)
+    safe_x = torch.where(x == 0.0, 1.0, x)
+    safe_y = torch.where(y == 0.0, 1.0, y)
+    r = torch.where(use_x, x, y)
+    theta = torch.where(
+        use_x, (PI / 4.0) * (y / safe_x), (PI / 2.0) - (PI / 4.0) * (x / safe_y)
+    )
+    dxo = torch.cos(theta) * r
+    dyo = torch.sin(theta) * r
+    return torch.where(zero, 0.0, dxo), torch.where(zero, 0.0, dyo)
+
+
+def cosine_sample_hemisphere(u):
+    """Malley's method (sampling.rs:273-278): (N, 2) -> (N, 3)."""
+    x, y = concentric_sample_disk(u[..., 0], u[..., 1])
+    z = torch.sqrt(torch.clamp(1.0 - x * x - y * y, min=0.0))
+    return torch.stack([x, y, z], dim=-1)
 
 
 def power_heuristic(f_pdf, g_pdf):

@@ -1,0 +1,187 @@
+// BVH closest hit, any hit and shaded closest hit for Hopper (sm_90a), K3:
+// one thread per ray.
+//
+// Replaces the TPU kernels rs_ray_toy_tpu/ops/bvh_pallas.py · _traverse_kernel
+// with fused=True (pallas_call in _call: intersect_bvh_pallas with
+// any_hit=False, occluded_bvh_pallas with any_hit=True) and
+// _traverse_shaded_kernel (intersect_bvh_pallas_shaded), which the wavefront
+// loop (integrators/common.SceneCtx) uses above 256 primitives: every AO
+// probe and Path shadow ray is an any-hit query, every AO camera hit and Path
+// bounce a shaded closest hit.  The tables are the JAX package's: the
+// fused-children node rows (M, 16) with (offset, n_prims, axis, 0), the
+// triangles in leaf order as (P, 12) [p0, e1, e2, pad] with (P, 4)
+// [original row, material, area light, 0], and for the shaded kernel the
+// flat shade rows (P, 15) [uv0, uv1, uv2, dpdu, dpdv, ng] in leaf order.
+//
+// Per ray: common.cuh's Geometry<true> walk (a per-ray stack of up to 64
+// nodes; at an interior node both child boxes are slab-tested against the
+// current best t and only the hit children are pushed, near child last; a
+// leaf's triangles in leaf order with strict <), bounded by the ray's t_max.
+// A lane with t_max <= 0 (the loop's dead lanes) misses at once.  Closest
+// hit: t (t_max on a miss) and the original row (-1).  Any hit: stops at the
+// first triangle with t in [1e-7, t_max).  Shaded: the winner's barycentric
+// u, v (the Moller-Trumbore values of the walk, recomputed from its row),
+// its interpolated uv, ns = ng (flat rows), dpdu, dpdv, material and area
+// light, as _traverse_shaded_kernel's finalize computes them.
+//
+// What bounds it on this card: latency of the dependent node and triangle
+// loads of the walk (read through the read-only cache) and divergence between
+// the rays of a warp; per ray only 28 bytes come in and 8 (any hit) or 80
+// (shaded) go out.  The simple design: no packets (the TPU kernel walks one
+// tree per 4096-ray tile, descending where any ray of the tile hits; here each
+// ray walks only its own nodes and retires when done), outputs written once.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int PRIM_COLS = 12;   // p0, e1, e2, pad
+constexpr int PRIM_I_COLS = 4;  // original row, material, area light, 0
+constexpr int SHADE_COLS = 15;  // uv0, uv1, uv2, dpdu, dpdv, ng
+constexpr int ATTR_ROWS = 16;   // u, v, uv, ns, ng, dpdu, dpdv
+constexpr int BVH_PRIM_MAX = 120000;  // ops/bvh_pallas.PALLAS_BVH_PRIM_MAX
+
+using Bvh = Geometry<true, PRIM_COLS>;
+
+template <bool kAny>
+__global__ void __launch_bounds__(BLOCK)
+bvh_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+           const float* __restrict__ prims_f, const int* __restrict__ prims_i, int n_prims,
+           const float* __restrict__ o, const float* __restrict__ d,
+           const float* __restrict__ t_max, float* __restrict__ t_out,
+           int* __restrict__ idx_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float tm = __ldg(t_max + i);
+  float t_bound = tm;
+  int best = -1;
+  if (tm > 0.0f) {
+    const Bvh geom{nullptr, n_prims, prims_f, nodes_f, nodes_i};
+    best = geom.walk<kAny>(__ldg(o + 3 * i), __ldg(o + 3 * i + 1), __ldg(o + 3 * i + 2),
+                           __ldg(d + 3 * i), __ldg(d + 3 * i + 1), __ldg(d + 3 * i + 2),
+                           t_bound);
+  }
+  t_out[i] = best >= 0 ? t_bound : tm;
+  idx_out[i] = best >= 0 ? __ldg(prims_i + PRIM_I_COLS * best) : -1;
+}
+
+// Barycentric u, v of the ray on the row g = (p0, e1, e2): mt_hit's
+// expressions, so the values are those the walk tested
+__device__ __forceinline__ void mt_uv(const float* g, float ox, float oy, float oz, float dx,
+                                      float dy, float dz, float& u, float& v) {
+  const float p0x = __ldg(g + 0), p0y = __ldg(g + 1), p0z = __ldg(g + 2);
+  const float e1x = __ldg(g + 3), e1y = __ldg(g + 4), e1z = __ldg(g + 5);
+  const float e2x = __ldg(g + 6), e2y = __ldg(g + 7), e2z = __ldg(g + 8);
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv = 1.0f / (fabsf(det) >= TRI_EPS ? det : 1.0f);
+  const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
+  u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  v = (dx * qvx + dy * qvy + dz * qvz) * inv;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                  const float* __restrict__ prims_f, const int* __restrict__ prims_i,
+                  const float* __restrict__ shade_f, int n_prims, const float* __restrict__ o,
+                  const float* __restrict__ d, const float* __restrict__ t_max,
+                  float* __restrict__ t_out, int* __restrict__ idx_out,
+                  int* __restrict__ mat_out, int* __restrict__ al_out,
+                  float* __restrict__ attrs, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
+  const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1), dz = __ldg(d + 3 * i + 2);
+  const float tm = __ldg(t_max + i);
+  float t_bound = tm;
+  int best = -1;
+  if (tm > 0.0f) {
+    const Bvh geom{nullptr, n_prims, prims_f, nodes_f, nodes_i};
+    best = geom.walk<false>(ox, oy, oz, dx, dy, dz, t_bound);
+  }
+  float a[ATTR_ROWS];
+#pragma unroll
+  for (int k = 0; k < ATTR_ROWS; ++k) a[k] = 0.0f;
+  int idx = -1, mat = -1, al = -1;
+  if (best >= 0) {
+    float u, v;
+    mt_uv(prims_f + (size_t)PRIM_COLS * best, ox, oy, oz, dx, dy, dz, u, v);
+    const float* s = shade_f + (size_t)SHADE_COLS * best;
+    const float w = 1.0f - u - v;
+    a[0] = u;
+    a[1] = v;
+    a[2] = __ldg(s + 0) * w + __ldg(s + 2) * u + __ldg(s + 4) * v;
+    a[3] = __ldg(s + 1) * w + __ldg(s + 3) * u + __ldg(s + 5) * v;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      a[4 + c] = __ldg(s + 12 + c);   // ns = ng on flat rows
+      a[7 + c] = __ldg(s + 12 + c);   // ng
+      a[10 + c] = __ldg(s + 6 + c);   // dpdu
+      a[13 + c] = __ldg(s + 9 + c);   // dpdv
+    }
+    const int* pi = prims_i + PRIM_I_COLS * best;
+    idx = __ldg(pi + 0);
+    mat = __ldg(pi + 1);
+    al = __ldg(pi + 2);
+  }
+  t_out[i] = best >= 0 ? t_bound : tm;
+  idx_out[i] = idx;
+  mat_out[i] = mat;
+  al_out[i] = al;
+#pragma unroll
+  for (int k = 0; k < ATTR_ROWS; ++k) attrs[(size_t)k * n + i] = a[k];
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the closest-hit (any_hit 0) or any-hit (1) walk over n rays on
+// `stream`.  Returns cudaGetLastError() of the launch (0 when it was
+// accepted); nothing is synchronised.
+int bvh_launch(int any_hit, const float* nodes_f, const int* nodes_i, const float* prims_f,
+               const int* prims_i, int n_prims, const float* o, const float* d,
+               const float* t_max, float* t_out, int* idx_out, int n, void* stream) {
+  cudaGetLastError();  // clear any stale error of this runtime
+  if (n <= 0) return 0;
+  if (n_prims <= 0 || n_prims > BVH_PRIM_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (any_hit) {
+    bvh_kernel<true><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i, n_prims, o, d,
+                                            t_max, t_out, idx_out, n);
+  } else {
+    bvh_kernel<false><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i, n_prims, o, d,
+                                             t_max, t_out, idx_out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launch the shaded closest-hit walk; attrs is (16, n): u, v, uv, ns, ng,
+// dpdu, dpdv.
+int bvh_shaded_launch(const float* nodes_f, const int* nodes_i, const float* prims_f,
+                      const int* prims_i, const float* shade_f, int n_prims, const float* o,
+                      const float* d, const float* t_max, float* t_out, int* idx_out,
+                      int* mat_out, int* al_out, float* attrs, int n, void* stream) {
+  cudaGetLastError();
+  if (n <= 0) return 0;
+  if (n_prims <= 0 || n_prims > BVH_PRIM_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  bvh_shaded_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      nodes_f, nodes_i, prims_f, prims_i, shade_f, n_prims, o, d, t_max, t_out, idx_out,
+      mat_out, al_out, attrs, n);
+  return (int)cudaGetLastError();
+}
+
+const char* bvh_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int bvh_prim_max() { return BVH_PRIM_MAX; }
+
+}  // extern "C"

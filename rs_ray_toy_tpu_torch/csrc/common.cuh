@@ -350,12 +350,14 @@ __device__ __forceinline__ bool slab_hit(const float* b, float ox, float oy, flo
 // the current best hit and only hit children are pushed, the near child (by
 // the sign of this ray's direction on the split axis) last, so it is popped
 // first; a leaf tests its triangles in table order with strict <.  Both
-// return the winning row of `table` (-1 on a miss).
-template <bool kBvh>
+// return the winning row of `table` (-1 on a miss).  kCols is the table's
+// row width: the packed scene's TABLE_COLS, or the wavefront kernels' 12
+// (p0, e1, e2, pad).
+template <bool kBvh, int kCols = TABLE_COLS>
 struct Geometry {
   const float* s_geo;    // brute force: GEO_COLS per triangle, shared memory
   int n_tris;
-  const float* table;    // (T, TABLE_COLS), BVH leaf order in BVH mode
+  const float* table;    // (T, kCols), BVH leaf order in BVH mode
   const float* nodes_f;  // (M, NODE_COLS): left child box, right child box
   const int* nodes_i;    // (M, 4): offset, n_prims, axis, 0
 
@@ -363,7 +365,7 @@ struct Geometry {
                           float& t) const {
     if constexpr (kBvh) {
       float g[GEO_COLS];
-      const float* row = table + (size_t)j * TABLE_COLS;
+      const float* row = table + (size_t)j * kCols;
 #pragma unroll
       for (int c = 0; c < GEO_COLS; ++c) g[c] = __ldg(row + c);
       return mt_hit(g, ox, oy, oz, dx, dy, dz, t);

@@ -7,15 +7,23 @@ camera bundle; `from_jax_volpath` does the same for the Volpath kernel's
 `pack_volpath` (its light constants, medium and power distribution, and
 the grid density as numpy); `from_jax_sppm` carries the SPPM pieces (the
 packed table, the resolved material tables, visible points, state,
-photon lights and rays).  Tests use them to feed both kernels
-identical tables, so a kernel comparison does not depend on the two
-loaders agreeing.
+photon lights and rays); `from_jax_scene_ctx` builds the wavefront
+loop's SceneCtx from a JAX SceneCtx's triangle SoA, packed triangles,
+material table, lights and (optionally) its BVH kernel tables.  Tests use
+them to feed both packages identical tables, so a comparison does not
+depend on the two loaders agreeing.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from .accel.geometry import pack_shade_tables
+from .integrators.common import SceneCtx, material_rows
 from .integrators.sppm import PhotonLights, SPPMState
+from .lights.lights import point_lights
+from .ops import bvh_kernel as bk
 from .ops import sppm_megakernel as smk
 from .ops.path_megakernel import TABLE_COLS, PackedScene, kinds_present
 from .ops.volpath_megakernel import PackedVolpath
@@ -130,3 +138,44 @@ def from_jax_sppm(device, packed=None, resolved=None, vp=None, state=None, power
     if photons is not None:
         out["photons"] = tuple(t(x) for x in photons)
     return out
+
+
+MAT_KEYS = ("kind", "s0", "s1", "s2", "fparams", "remap", "fresnel", "n_lobes", "eta")
+
+
+def from_jax_scene_ctx(ctx, device, bvh_tables=None):
+    """The port's SceneCtx on a JAX SceneCtx's tables, read as numpy: its
+    triangle SoA (ctx.tri), packed triangles (ctx.tri_packed), material
+    table (ctx.mats) and point lights (ctx.lights).  bvh_tables: the dict
+    of the JAX package's pack_bvh_tables (nodes2_f, nodes_i, prims_f,
+    prims_i, shade_f with flat rows, max_leaf, depth) for a BVH context,
+    None for brute force."""
+    a = np.asarray
+    tri = ctx.tri
+    if a(tri.has_n).any():
+        raise NotImplementedError("smooth shading (vertex normals)")
+    lights = ctx.lights
+    if np.any(a(lights.kind) != LIGHT_POINT):
+        raise NotImplementedError("lights other than point lights")
+    soa = SimpleNamespace(
+        **{k: a(getattr(tri, k)) for k in ("p0", "p1", "p2", "uv0", "uv1", "uv2", "dpdu", "dpdv",
+                                           "ng", "mat")},
+        count=int(tri.count),
+    )
+    shade = pack_shade_tables(soa, device)
+    shade["tri_i"][:, 1] = torch.as_tensor(np.array(tri.area_light, np.int64), device=device)
+    bvh = None
+    if bvh_tables is not None:
+        t = lambda k, dt: torch.as_tensor(np.array(a(bvh_tables[k]), dt), device=device)
+        bvh = bk.BvhTables(
+            t("nodes2_f", np.float32), t("nodes_i", np.int32), t("prims_f", np.float32),
+            t("prims_i", np.int32), t("shade_f", np.float32), int(bvh_tables["max_leaf"]),
+            int(bvh_tables["depth"]),
+        )
+    return SceneCtx(
+        tri_packed=torch.as_tensor(np.array(a(ctx.tri_packed), np.float32), device=device),
+        shade=shade,
+        mat_rows=material_rows({k: a(ctx.mats[k]) for k in MAT_KEYS}, device),
+        lights=point_lights(a(lights.p), a(lights.emit), device),
+        bvh=bvh,
+    )

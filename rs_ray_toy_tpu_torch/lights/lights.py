@@ -1,6 +1,8 @@
 """Light sampling for point and diffuse sphere lights (rs_ray_toy_tpu/lights/lights.py).
 
 `power` weights the Volpath light pick (integrator/mod.rs:560-571);
+`point_lights` builds the table of a point-light scene, `pdf_li` is the
+wavefront loop's (point lights only);
 `sample_li` draws one light sample per ray for the light each ray picked,
 componentwise as the JAX Volpath kernel does it (ops/path_megakernel.py
 _nee_light_k): a point light's I / r^2 toward its position, or a uniform
@@ -56,6 +58,13 @@ def light_table(kind, p, emit, o2w, w2o, radius, device):
     )
 
 
+def point_lights(p, emit, device):
+    """LightTable of point lights at p (L, 3) with intensities emit."""
+    n = len(p)
+    return light_table([LIGHT_POINT] * n, p, emit, np.zeros((n, 12)), np.zeros((n, 9)),
+                       np.ones(n), device)
+
+
 def sample_li(table, light_idx, px, py, pz, u0, u1):
     """One sample of light `light_idx` (N,) seen from (px, py, pz) with
     uniforms u0, u1.  Returns (wi, li, pdf, p_light, delta): wi and li
@@ -107,6 +116,15 @@ def sample_li(table, light_idx, px, py, pz, u0, u1):
         pdf = torch.where(is_area, pdf_a, pdf)
         p_light = [torch.where(is_area, a, b) for a, b in zip((psx, psy, psz), p_light)]
     return tuple(wi), tuple(li), pdf, tuple(p_light), is_point
+
+
+def pdf_li(table, light_idx, px, py, pz, wix, wiy, wiz):
+    """Light::pdf_li (lights/mod.rs): 0 for point lights, which a direction
+    never hits.  Sphere lights (Shape::pdf_ref) are not ported here: the
+    wavefront loop takes point lights only, so no caller passes one."""
+    if bool((table.kind[light_idx] != LIGHT_POINT).any()):
+        raise NotImplementedError("pdf_li of lights other than point lights")
+    return torch.zeros_like(px)
 
 
 def sample_le(light_p, light_emit, light_idx, u0, u1):

@@ -1,0 +1,245 @@
+"""BVH closest hit, any hit and shaded closest hit, K3
+(rs_ray_toy_tpu/ops/bvh_pallas.py: intersect_bvh_pallas, occluded_bvh_pallas,
+intersect_bvh_pallas_shaded).
+
+`pack_bvh` builds the wavefront kernels' tables for a triangle scene: the
+repository's SAH BVH with leaves of KERNEL_LEAF triangles (SceneCtx's
+kernel leaf), its fused-children node rows, and the triangles in leaf
+order (intersect rows, original row / material / area light, the 15 flat
+shade columns).  A tree deeper than the kernels' 64-entry stack raises
+NotImplementedError: there is no slower walk to fall back to.
+
+- `intersect_bvh(tables, o, d, t_max)`: closest hit with t in
+  [TRI_EPS, t_max): (t, idx, valid), t = t_max and idx = -1 on a miss.
+- `occluded_bvh(...)`: any hit in the same interval.
+- `intersect_bvh_shaded(...)`: the closest hit and the winner's surface
+  attributes (barycentric u, v, uv, ns = ng, dpdu, dpdv, material, area
+  light).
+
+A lane with t_max <= 0 misses without walking (the loop's dead lanes).  On
+a CUDA tensor each wrapper launches csrc/bvh_kernel.cu (built by
+ops/_build.py) or raises; on a CPU tensor it runs the plain version: the
+stack walk of accel/traverse (`*_reference`).
+"""
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..accel import traverse
+from ..accel.bvh import STACK_DEPTH, build_bvh, pack_bvh_tables, pack_prim_tables, tree_depth
+from . import _build
+from .intersect_kernel import ray_args
+
+KERNEL_LEAF = 16  # SceneCtx's kernel leaf size (integrators/common.py in the JAX package)
+BVH_PRIM_MAX = 120_000  # ops/bvh_pallas.PALLAS_BVH_PRIM_MAX
+SHADE_COLS = 15
+ATTR_ROWS = 16  # u, v, uv (2), ns (3), ng (3), dpdu (3), dpdv (3)
+
+# Kernel launches, by kernel; the one piece of module state.
+LAUNCHES = {"bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0}
+_LIB = None
+
+
+class BvhTables(NamedTuple):
+    nodes_f: torch.Tensor  # (M, 16) float32 fused-children rows
+    nodes_i: torch.Tensor  # (M, 4) int32: offset, n_prims, axis, 0
+    prims_f: torch.Tensor  # (P, 12) float32 leaf order: p0, e1, e2, pad
+    prims_i: torch.Tensor  # (P, 4) int32: original row, material, area light, 0
+    shade_f: torch.Tensor  # (P, 15) float32: uv0, uv1, uv2, dpdu, dpdv, ng
+    max_leaf: int
+    depth: int
+
+
+def pack_bvh(tri, device) -> BvhTables:
+    if tri.count > BVH_PRIM_MAX:
+        raise NotImplementedError(f"{tri.count} triangles (the BVH kernels take up to "
+                                  f"{BVH_PRIM_MAX})")
+    flat = build_bvh(tri, KERNEL_LEAF)
+    depth = tree_depth(flat)
+    if depth >= STACK_DEPTH:
+        raise NotImplementedError(f"a BVH of depth {depth} (the kernels' traversal stack "
+                                  f"holds {STACK_DEPTH} nodes)")
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    nodes_f, nodes_i = pack_bvh_tables(flat)
+    prims_f, prims_i, shade_f = pack_prim_tables(tri, flat)
+    return BvhTables(t(nodes_f), t(nodes_i), t(prims_f), t(prims_i), t(shade_f), flat.max_leaf,
+                     depth)
+
+
+# ---- the plain PyTorch versions ----
+
+
+def intersect_bvh_reference(tables, o, d, t_max, work=None):
+    return traverse.intersect_bvh(tables, o, d, t_max, work)
+
+
+def occluded_bvh_reference(tables, o, d, t_max, work=None):
+    return traverse.occluded_bvh(tables, o, d, t_max, work)
+
+
+def intersect_bvh_shaded_reference(tables, o, d, t_max, work=None):
+    """Plain version of the shaded kernel, with its outputs: (t, idx,
+    material, area light, attrs (16, N)); misses carry t_max, -1, -1, -1
+    and zeros."""
+    t, row = traverse.walk(tables, o, d, t_max, False, work)
+    valid = row >= 0
+    r = row.clamp(min=0)
+    g = tables.prims_f[r]
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    # Moller-Trumbore's u, v on the winner, the kernel's expressions
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = g[:, :9].unbind(-1)
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv = 1.0 / torch.where(torch.abs(det) >= 1e-7, det, 1.0)
+    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv
+    s = tables.shade_f[r]
+    w = 1.0 - u - v
+    uvx = s[:, 0] * w + s[:, 2] * u + s[:, 4] * v
+    uvy = s[:, 1] * w + s[:, 3] * u + s[:, 5] * v
+    rows = [u, v, uvx, uvy, *s[:, 12:15].unbind(-1), *s[:, 12:15].unbind(-1),
+            *s[:, 6:9].unbind(-1), *s[:, 9:12].unbind(-1)]
+    attrs = torch.where(valid, torch.stack(rows), 0.0)
+    pi = tables.prims_i[r].to(torch.int64)
+    none = torch.full_like(row, -1)
+    return (t, torch.where(valid, pi[:, 0], none), torch.where(valid, pi[:, 1], none),
+            torch.where(valid, pi[:, 2], none), attrs)
+
+
+# ---- the CUDA kernels ----
+
+
+def load_kernel():
+    """The K3 library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("bvh_kernel")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.bvh_launch.restype = i
+        lib.bvh_launch.argtypes = [i, p, p, p, p, i, p, p, p, p, p, i, p]
+        lib.bvh_shaded_launch.restype = i
+        lib.bvh_shaded_launch.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p, p, p, i, p]
+        lib.bvh_error_string.restype = ctypes.c_char_p
+        lib.bvh_error_string.argtypes = [i]
+        if lib.bvh_prim_max() != BVH_PRIM_MAX:
+            raise RuntimeError("bvh_kernel's primitive limit differs from BVH_PRIM_MAX")
+        _LIB = lib
+    return _LIB
+
+
+def _check_tables(tables, dev):
+    m, p = tables.nodes_f.shape[0], tables.prims_f.shape[0]
+    for name, x, dtype, shape in (
+        ("nodes_f", tables.nodes_f, torch.float32, (m, 16)),
+        ("nodes_i", tables.nodes_i, torch.int32, (m, 4)),
+        ("prims_f", tables.prims_f, torch.float32, (p, 12)),
+        ("prims_i", tables.prims_i, torch.int32, (p, 4)),
+        ("shade_f", tables.shade_f, torch.float32, (p, SHADE_COLS)),
+    ):
+        if x.device != dev or x.dtype != dtype or x.shape != shape or not x.is_contiguous():
+            raise ValueError(f"BVH table {name} must be contiguous {dtype} {shape} on {dev}")
+    if not 0 < p <= BVH_PRIM_MAX or tables.depth >= STACK_DEPTH:
+        raise ValueError(f"{p} primitives / depth {tables.depth} outside the kernels' limits")
+    return p
+
+
+def prepare_launch(tables, o, d, t_max, any_hit):
+    """Check the CUDA inputs, allocate the outputs and return launch(): one
+    launch of the closest-hit (any_hit False) or any-hit walk on the
+    current stream returning (t, idx int32); relaunching rewrites them."""
+    dev = o.device
+    if dev.type != "cuda":
+        raise ValueError(f"the BVH kernel runs on cuda tensors, not {dev}")
+    o, d, t_max = ray_args(o, d, t_max)
+    p = _check_tables(tables, dev)
+    n = o.shape[0]
+    t_out = torch.empty(n, dtype=torch.float32, device=dev)
+    idx_out = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = "bvh_any" if any_hit else "bvh_closest"
+
+    def launch():
+        err = lib.bvh_launch(int(any_hit), tables.nodes_f.data_ptr(), tables.nodes_i.data_ptr(),
+                             tables.prims_f.data_ptr(), tables.prims_i.data_ptr(), p,
+                             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(),
+                             idx_out.data_ptr(), n, stream)
+        if err != 0:
+            msg = lib.bvh_error_string(err).decode()
+            raise RuntimeError(f"{key} kernel launch failed: CUDA error {err} ({msg})")
+        LAUNCHES[key] += 1
+        return t_out, idx_out
+
+    return launch
+
+
+def prepare_shaded_launch(tables, o, d, t_max):
+    """As prepare_launch for the shaded kernel; launch() returns (t, idx,
+    material, area light (int32), attrs (16, N))."""
+    dev = o.device
+    if dev.type != "cuda":
+        raise ValueError(f"the BVH kernel runs on cuda tensors, not {dev}")
+    o, d, t_max = ray_args(o, d, t_max)
+    p = _check_tables(tables, dev)
+    n = o.shape[0]
+    t_out = torch.empty(n, dtype=torch.float32, device=dev)
+    ints = torch.empty((3, n), dtype=torch.int32, device=dev)
+    attrs = torch.empty((ATTR_ROWS, n), dtype=torch.float32, device=dev)
+    lib = load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = lib.bvh_shaded_launch(
+            tables.nodes_f.data_ptr(), tables.nodes_i.data_ptr(), tables.prims_f.data_ptr(),
+            tables.prims_i.data_ptr(), tables.shade_f.data_ptr(), p, o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), t_out.data_ptr(), ints[0].data_ptr(), ints[1].data_ptr(),
+            ints[2].data_ptr(), attrs.data_ptr(), n, stream,
+        )
+        if err != 0:
+            msg = lib.bvh_error_string(err).decode()
+            raise RuntimeError(f"bvh_shaded kernel launch failed: CUDA error {err} ({msg})")
+        LAUNCHES["bvh_shaded"] += 1
+        return t_out, ints[0], ints[1], ints[2], attrs
+
+    return launch
+
+
+def intersect_bvh(tables, o, d, t_max):
+    """Closest hit: (t, idx int64, valid).  CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    if o.device.type == "cpu":
+        return intersect_bvh_reference(tables, o, d, t_max)
+    t, idx = prepare_launch(tables, o, d, t_max, False)()
+    idx = idx.to(torch.int64)
+    return t, idx, idx >= 0
+
+
+def occluded_bvh(tables, o, d, t_max):
+    if o.device.type == "cpu":
+        return occluded_bvh_reference(tables, o, d, t_max)
+    return prepare_launch(tables, o, d, t_max, True)()[1] >= 0
+
+
+def intersect_bvh_shaded(tables, o, d, t_max):
+    """Closest hit and the winner's attributes: (t, idx, valid, attrs)
+    with attrs a dict of uv (N, 2), ns, ng, dpdu, dpdv (N, 3), mat and
+    area_light (N,) int64, as intersect_bvh_pallas_shaded returns them."""
+    if o.device.type == "cpu":
+        t, idx, mat, al, a = intersect_bvh_shaded_reference(tables, o, d, t_max)
+    else:
+        t, idx, mat, al, a = prepare_shaded_launch(tables, o, d, t_max)()
+    idx = idx.to(torch.int64)
+    v3 = lambda k: a[k:k + 3].T
+    attrs = dict(uv=a[2:4].T, ns=v3(4), ng=v3(7), dpdu=v3(10), dpdv=v3(13),
+                 mat=mat.to(torch.int64), area_light=al.to(torch.int64))
+    return t, idx, idx >= 0, attrs

@@ -38,15 +38,27 @@ from ..accel.bvh import STACK_DEPTH, build_bvh, pack_bvh_tables, tree_depth
 from ..bsdf.lobes import (
     DIST_TROWBRIDGE_REITZ,
     FRESNEL_CONDUCTOR,
-    FRESNEL_DIELECTRIC,
     LOBE_FRESNEL_SPEC,
     LOBE_LAMBERT_REFL,
     LOBE_MF_REFL,
     LOBE_SPEC_REFL,
     LOBE_SPEC_TRANS,
 )
+from ..bsdf.eval import (  # noqa: F401 (the lobe helpers, shared with the other kernels)
+    _bsdf_sample,
+    _fr_dielectric,
+    _fresnel,
+    _is_spec,
+    _lobe,
+    _lobe_f,
+    _lobe_pdf,
+    shading_frame,
+)
 from ..bsdf.microfacet import roughness_to_alpha
-from ..config import DTYPE, ONE_MINUS_EPSILON, PI, SHADOW_EPSILON
+from ..config import DTYPE, SHADOW_EPSILON
+from ..core.sampling import concentric_sample_disk as _concentric_disk  # noqa: F401
+from ..core.vec import dot3 as _dot3
+from ..core.vec import rsqrt as _rsqrt
 from ..sampler.dims import CAMERA_FILM, CAMERA_LENS, PATH_BSDF, PATH_NEE, PATH_RR, path_dim0
 from ..scene.types import LIGHT_DIFFUSE_AREA, LIGHT_POINT
 from . import _build
@@ -90,9 +102,10 @@ def _pow2(n):
     return n > 0 and (n & (n - 1)) == 0
 
 
-def scene_unsupported(scene, sampler, kinds, volpath=False) -> Optional[str]:
+def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None) -> Optional[str]:
     """The checks the kernels share (common_scene_checks): power-of-two
-    stratified grid (no check when `sampler` is None), 1..BVH_TRI_MAX flat
+    stratified grid (no check when `sampler` is None), 1..tri_max (default
+    BVH_TRI_MAX) flat
     triangles, up to LIGHT_MAX point lights, and every live lobe of a used
     material among `kinds` (microfacets: visible-normal Trowbridge-Reitz
     only); no media.  With `volpath`, sphere lights too, and the Volpath
@@ -103,8 +116,9 @@ def scene_unsupported(scene, sampler, kinds, volpath=False) -> Optional[str]:
     if sampler is not None and not (_pow2(sampler.spp) and _pow2(sampler.xs) and _pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     tri = scene.triangles
-    if tri.count > BVH_TRI_MAX:
-        return f"{tri.count} triangles (the BVH kernels take up to {BVH_TRI_MAX})"
+    tri_max = BVH_TRI_MAX if tri_max is None else tri_max
+    if tri.count > tri_max:
+        return f"{tri.count} triangles (the BVH kernels take up to {tri_max})"
     lk = np.asarray(scene.lights.kind)
     if lk.size == 0:
         return "unlit scenes"
@@ -178,6 +192,26 @@ def _resolve_mat_arrays(m, mat):
     )
 
 
+def fill_lobe_columns(table, r, slots):
+    """Write the lobe count (col 15), up to `slots` lobes (cols 16 + 16 * l:
+    kind, s0, s1, s2, alpha_u, alpha_v, fresnel, eta_a, eta_b) and the
+    Bsdf eta (col 31) of the resolved materials r (_resolve_mat_arrays)
+    into the rows of the float32 numpy `table`."""
+    table[:, 15] = r["n_lobes"]
+    for l in range(min(slots, r["kinds"].shape[1])):
+        base = 16 + 16 * l
+        table[:, base + 0] = r["kinds"][:, l]
+        table[:, base + 1 : base + 4] = r["s0"][:, l]
+        table[:, base + 4 : base + 7] = r["s1"][:, l]
+        table[:, base + 7 : base + 10] = r["s2"][:, l]
+        table[:, base + 10] = r["au"][:, l]
+        table[:, base + 11] = r["av"][:, l]
+        table[:, base + 12] = r["fres"][:, l]
+        table[:, base + 13] = r["ea"][:, l]
+        table[:, base + 14] = r["eb"][:, l]
+    table[:, 31] = r["mat_eta"]
+
+
 def kinds_present(table):
     """Sorted tuple of the lobe kinds live on some row of a (T, 115) numpy
     table (a lobe is live below the row's n_lobes)."""
@@ -215,19 +249,7 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
     table[:, 6:9] = tri.p2 - p0
     table[:, 9:12] = tri.ng
     table[:, 12:15] = tri.dpdu
-    table[:, 15] = r["n_lobes"]
-    for l in range(min(LOBES_MAX, r["kinds"].shape[1])):
-        base = 16 + 16 * l
-        table[:, base + 0] = r["kinds"][:, l]
-        table[:, base + 1 : base + 4] = r["s0"][:, l]
-        table[:, base + 4 : base + 7] = r["s1"][:, l]
-        table[:, base + 7 : base + 10] = r["s2"][:, l]
-        table[:, base + 10] = r["au"][:, l]
-        table[:, base + 11] = r["av"][:, l]
-        table[:, base + 12] = r["fres"][:, l]
-        table[:, base + 13] = r["ea"][:, l]
-        table[:, base + 14] = r["eb"][:, l]
-    table[:, 31] = r["mat_eta"]
+    fill_lobe_columns(table, r, LOBES_MAX)
     table[:, 47] = tri.mat
     table[:, NRM_COL : NRM_COL + 9] = np.concatenate([tri.n0, tri.n1, tri.n2], axis=1)
     kinds = kinds_present(table)
@@ -517,14 +539,6 @@ def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extr
 # JAX.  1 / sqrt stands for every reciprocal square root.
 
 
-def _rsqrt(x):
-    return 1.0 / torch.sqrt(x)
-
-
-def _dot3(ax, ay, az, bx, by, bz):
-    return ax * bx + ay * by + az * bz
-
-
 def _where(cond, a, b):
     """torch.where that also takes a python bool condition."""
     if isinstance(cond, bool):
@@ -726,7 +740,7 @@ class PlainGeometry:
         """(t, row) of the closest hit, t = BIG_T and row -1 on a miss; a
         lane that is not live reports a miss."""
         if self.bvh is not None:
-            return self._walk(ox, oy, oz, dx, dy, dz, torch.full_like(ox, BIG_T), live, False)
+            return self.walk(ox, oy, oz, dx, dy, dz, torch.full_like(ox, BIG_T), live, False)
         t_best = torch.full_like(ox, BIG_T)
         best = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
         for j, g in enumerate(self.rows):
@@ -742,7 +756,7 @@ class PlainGeometry:
         direction (t_max a float or per ray); False where not live."""
         if self.bvh is not None:
             t_bound = torch.zeros_like(ox) + t_max
-            _, row = self._walk(ox, oy, oz, dx, dy, dz, t_bound, live, True)
+            _, row = self.walk(ox, oy, oz, dx, dy, dz, t_bound, live, True)
             return row >= 0
         occ = torch.zeros_like(ox, dtype=torch.bool)
         tests = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
@@ -753,7 +767,10 @@ class PlainGeometry:
         tally(self.work, "mt", tests)
         return occ
 
-    def _walk(self, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit):
+    def walk(self, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit):
+        """The BVH stack walk of the live rays, bounded by the per-ray
+        t_bound: (t, table row), t_bound and -1 where nothing is hit; with
+        any_hit a ray stops at its first hit (its t is then t_bound)."""
         t_out = t_bound.clone()
         row_out = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
         idx = torch.nonzero(live).squeeze(1)
@@ -816,319 +833,6 @@ class PlainGeometry:
                 inv = tuple(c[keep] for c in inv)
                 m = idx.numel()
         return t_out, row_out
-
-
-def shading_frame(nsx, nsy, nsz, dux, duy, duz):
-    """(ss, ts) of the shading frame on the normal ns: ss = normalize(dpdu),
-    coordinate_system(ns) when dpdu is degenerate; ts = ns x ss."""
-    du2 = dux * dux + duy * duy + duz * duz
-    inv = _rsqrt(torch.clamp(du2, min=1e-30))
-    big_x = torch.abs(nsx) > torch.abs(nsy)
-    inv_a = _rsqrt(
-        torch.clamp(torch.where(big_x, nsx * nsx + nsz * nsz, nsy * nsy + nsz * nsz), min=1e-30)
-    )
-    bad = du2 < 1e-20
-    ssx = torch.where(bad, torch.where(big_x, -nsz, 0.0) * inv_a, dux * inv)
-    ssy = torch.where(bad, torch.where(big_x, 0.0, nsz) * inv_a, duy * inv)
-    ssz = torch.where(bad, torch.where(big_x, nsx, -nsy) * inv_a, duz * inv)
-    tsx = nsy * ssz - nsz * ssy
-    tsy = nsz * ssx - nsx * ssz
-    tsz = nsx * ssy - nsy * ssx
-    return ssx, ssy, ssz, tsx, tsy, tsz
-
-
-def _lobe(row, base):
-    """Lobe columns starting at `base` of (N, >=base+15) rows."""
-    return dict(
-        kind=row[:, base].to(torch.int32),
-        s0=(row[:, base + 1], row[:, base + 2], row[:, base + 3]),
-        s1=(row[:, base + 4], row[:, base + 5], row[:, base + 6]),
-        s2=(row[:, base + 7], row[:, base + 8], row[:, base + 9]),
-        au=row[:, base + 10],
-        av=row[:, base + 11],
-        fres=row[:, base + 12].to(torch.int32),
-        eta_a=row[:, base + 13],
-        eta_b=row[:, base + 14],
-    )
-
-
-def _is_spec(kind):
-    return (kind == LOBE_SPEC_REFL) | (kind == LOBE_SPEC_TRANS) | (kind == LOBE_FRESNEL_SPEC)
-
-
-def _trig_theta_phi(x, y, z):
-    cos2 = z * z
-    sin2 = torch.clamp(1.0 - cos2, min=0.0)
-    tan2 = sin2 / torch.where(cos2 == 0.0, 1e-30, cos2)
-    sin_t = torch.sqrt(sin2)
-    zs = sin_t == 0.0
-    safe = torch.where(zs, 1.0, sin_t)
-    cos_p = torch.where(zs, 1.0, torch.clamp(x / safe, -1.0, 1.0))
-    sin_p = torch.where(zs, 0.0, torch.clamp(y / safe, -1.0, 1.0))
-    return cos2, tan2, cos_p * cos_p, sin_p * sin_p
-
-
-def _tr_d(x, y, z, au, av):
-    cos2, tan2, c2p, s2p = _trig_theta_phi(x, y, z)
-    c4 = cos2 * cos2
-    e = (c2p / (au * au) + s2p / (av * av)) * tan2
-    ope = 1.0 + e
-    d = 1.0 / (PI * au * av * c4 * (ope * ope))
-    return torch.where(torch.isfinite(tan2) & (c4 > 0.0), d, 0.0)
-
-
-def _tr_lambda(x, y, z, au, av):
-    _, tan2, c2p, s2p = _trig_theta_phi(x, y, z)
-    alpha2 = c2p * au * au + s2p * av * av
-    lam = (-1.0 + torch.sqrt(1.0 + alpha2 * tan2)) / 2.0
-    return torch.where(torch.isfinite(tan2), lam, 0.0)
-
-
-def _fr_dielectric(cos_i, eta_i, eta_t):
-    cos_i = torch.clamp(cos_i, -1.0, 1.0)
-    entering = cos_i > 0.0
-    ei = torch.where(entering, eta_i, eta_t)
-    et = torch.where(entering, eta_t, eta_i)
-    ci = torch.abs(cos_i)
-    sin_i = torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
-    sin_t = ei / et * sin_i
-    tir = sin_t >= 1.0
-    ct = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
-    r_par = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-20)
-    r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-20)
-    return torch.where(tir, 1.0, 0.5 * (r_par * r_par + r_perp * r_perp))
-
-
-def _fr_conductor(ci2, si2, eta, k):
-    e2 = eta * eta
-    k2 = k * k
-    t0 = e2 - k2 - si2
-    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * e2 * k2, min=0.0))
-    t1 = a2b2 + ci2
-    a = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
-    t2 = 2.0 * a * torch.sqrt(ci2)
-    rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-20)
-    t3 = a2b2 * ci2 + si2 * si2
-    t4 = t2 * si2
-    rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-20)
-    return 0.5 * (rp + rs)
-
-
-def _fresnel(lob, cos_i):
-    """(fr, fg, fb) by the lobe's fresnel code: dielectric, conductor, or
-    1 (no-op)."""
-    fr_d = _fr_dielectric(cos_i, lob["eta_a"], lob["eta_b"])
-    ci = torch.clamp(torch.abs(cos_i), 0.0, 1.0)
-    ci2 = ci * ci
-    si2 = 1.0 - ci2
-    code = lob["fres"]
-    return tuple(
-        torch.where(
-            code == FRESNEL_DIELECTRIC,
-            fr_d,
-            torch.where(
-                code == FRESNEL_CONDUCTOR,
-                _fr_conductor(ci2, si2, lob["s2"][c], lob["s1"][c]),
-                1.0,
-            ),
-        )
-        for c in range(3)
-    )
-
-
-def _lobe_f(lob, wox, woy, woz, wix, wiy, wiz):
-    """lobe_f on local-frame directions: lambert or TR microfacet by the
-    lobe's kind; specular (and unported) kinds evaluate to 0."""
-    kind = lob["kind"]
-    whx, why, whz = wox + wix, woy + wiy, woz + wiz
-    wh_len = torch.sqrt(torch.clamp(whx * whx + why * why + whz * whz, min=0.0))
-    inv_l = 1.0 / torch.clamp(wh_len, min=1e-20)
-    nhx, nhy, nhz = whx * inv_l, why * inv_l, whz * inv_l
-    co = torch.abs(woz)
-    ci = torch.abs(wiz)
-    ok = (co > 0.0) & (ci > 0.0) & (wh_len > 0.0)
-    s = torch.where(nhz < 0.0, -1.0, 1.0)
-    fr3 = _fresnel(lob, wix * (s * nhx) + wiy * (s * nhy) + wiz * (s * nhz))
-    au, av = lob["au"], lob["av"]
-    d_val = _tr_d(nhx, nhy, nhz, au, av)
-    lam_o = _tr_lambda(wox, woy, woz, au, av)
-    lam_i = _tr_lambda(wix, wiy, wiz, au, av)
-    g = 1.0 / (1.0 + lam_o + lam_i)
-    scale = d_val * g / torch.clamp(4.0 * ci * co, min=1e-20)
-    is_mf = kind == LOBE_MF_REFL
-    is_lam = kind == LOBE_LAMBERT_REFL
-    out = []
-    for c in range(3):
-        mf = torch.where(ok, lob["s0"][c] * fr3[c] * scale, 0.0)
-        lam = lob["s0"][c] / PI
-        out.append(torch.where(is_mf, mf, torch.where(is_lam, lam, 0.0)))
-    return out
-
-
-def _lobe_pdf(lob, wox, woy, woz, wix, wiy, wiz):
-    """Cosine pdf for lambert, visible-normal TR pdf for microfacets,
-    0 for specular kinds."""
-    same = (woz * wiz) > 0.0
-    cos_pdf = torch.where(same, torch.abs(wiz) / PI, 0.0)
-    whx, why, whz = wox + wix, woy + wiy, woz + wiz
-    inv_l = _rsqrt(torch.clamp(whx * whx + why * why + whz * whz, min=1e-30))
-    whx, why, whz = whx * inv_l, why * inv_l, whz * inv_l
-    au, av = lob["au"], lob["av"]
-    d_val = _tr_d(whx, why, whz, au, av)
-    lam_o = _tr_lambda(wox, woy, woz, au, av)
-    dot_owh = wox * whx + woy * why + woz * whz
-    pdf_wh = d_val / (1.0 + lam_o) * torch.abs(dot_owh) / torch.clamp(torch.abs(woz), min=1e-20)
-    mf_pdf = torch.where(same, pdf_wh / torch.clamp(4.0 * dot_owh, min=1e-20), 0.0)
-    out = torch.where(lob["kind"] == LOBE_MF_REFL, mf_pdf, cos_pdf)
-    return torch.where(_is_spec(lob["kind"]), 0.0, out)
-
-
-def _tr_sample_wh(wox, woy, woz, au, av, u0, u1):
-    """tr_sample_wh_visible (bsdf/microfacet.py:108-166), local frame."""
-    flip = woz < 0.0
-    wx = torch.where(flip, -wox, wox)
-    wy = torch.where(flip, -woy, woy)
-    wz = torch.where(flip, -woz, woz)
-    sx_, sy_, sz_ = wx * au, wy * av, wz
-    inv = _rsqrt(torch.clamp(sx_ * sx_ + sy_ * sy_ + sz_ * sz_, min=1e-30))
-    wsx, wsy, wsz = sx_ * inv, sy_ * inv, sz_ * inv
-
-    cos_theta = wsz
-    r_spec = torch.sqrt(u0 / torch.clamp(1.0 - u0, min=1e-9))
-    phi_spec = 2.0 * PI * u1
-    sx_spec = r_spec * torch.cos(phi_spec)
-    sy_spec = r_spec * torch.sin(phi_spec)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
-    tan_theta = sin_theta / torch.clamp(cos_theta, min=1e-9)
-    a_inv = 1.0 / torch.clamp(tan_theta, min=1e-9)
-    g1v = 2.0 / (1.0 + torch.sqrt(1.0 + 1.0 / (a_inv * a_inv)))
-    a = 2.0 * u0 / g1v - 1.0
-    tmp = torch.clamp(1.0 / torch.clamp(a * a - 1.0, min=1e-12), max=1e10)
-    tmp = torch.where(a * a - 1.0 <= 0.0, 1e10, tmp)
-    b = tan_theta
-    dsc = torch.clamp(b * b * tmp * tmp - (a * a - b * b) * tmp, min=0.0)
-    dq = torch.sqrt(dsc)
-    sx1 = b * tmp - dq
-    sx2 = b * tmp + dq
-    slope_x = torch.where((a < 0.0) | (sx2 > 1.0 / torch.clamp(tan_theta, min=1e-9)), sx1, sx2)
-    upper = u1 > 0.5
-    sgn = torch.where(upper, 1.0, -1.0)
-    nu2 = torch.where(upper, 2.0 * (u1 - 0.5), 2.0 * (0.5 - u1))
-    z = (nu2 * (nu2 * (nu2 * 0.27385 - 0.73369) + 0.46341)) / (
-        nu2 * (nu2 * (nu2 * 0.093073 + 0.309420) - 1.0) + 0.597999
-    )
-    slope_y = sgn * z * torch.sqrt(1.0 + slope_x * slope_x)
-    near_n = cos_theta > 0.9999
-    slope_x = torch.where(near_n, sx_spec, slope_x)
-    slope_y = torch.where(near_n, sy_spec, slope_y)
-
-    sin_t = torch.sqrt(torch.clamp(1.0 - wsz * wsz, min=0.0))
-    zs = sin_t == 0.0
-    safe = torch.where(zs, 1.0, sin_t)
-    cos_p = torch.where(zs, 1.0, wsx / safe)
-    sin_p = torch.where(zs, 0.0, wsy / safe)
-    rx = cos_p * slope_x - sin_p * slope_y
-    ry = sin_p * slope_x + cos_p * slope_y
-    hx, hy, hz = -au * rx, -av * ry, torch.ones_like(rx)
-    inv_h = _rsqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-30))
-    hx, hy, hz = hx * inv_h, hy * inv_h, hz * inv_h
-    return (
-        torch.where(flip, -hx, hx),
-        torch.where(flip, -hy, hy),
-        torch.where(flip, -hz, hz),
-    )
-
-
-def _concentric_disk(u0, u1):
-    """sampling.rs:286-311."""
-    x = 2.0 * u0 - 1.0
-    y = 2.0 * u1 - 1.0
-    zero = (x == 0.0) & (y == 0.0)
-    use_x = torch.abs(x) > torch.abs(y)
-    safe_x = torch.where(x == 0.0, 1.0, x)
-    safe_y = torch.where(y == 0.0, 1.0, y)
-    r = torch.where(use_x, x, y)
-    theta = torch.where(
-        use_x, (PI / 4.0) * (y / safe_x), (PI / 2.0) - (PI / 4.0) * (x / safe_y)
-    )
-    dxo = torch.cos(theta) * r
-    dyo = torch.sin(theta) * r
-    return torch.where(zero, 0.0, dxo), torch.where(zero, 0.0, dyo)
-
-
-def _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1):
-    """Bsdf::sample_f (reflection.rs:302-381, reference-quirk exact):
-    uniform lobe choice, the chosen lobe's direction, f and pdf, the pdf
-    averaged over the matching lobes."""
-    matching = torch.clamp(n_lob, min=1)
-    comp = torch.minimum((ub0 * matching).to(torch.int64), matching - 1)
-    u0 = torch.clamp(ub0 * matching - comp.to(DTYPE), max=ONE_MINUS_EPSILON)
-    u1 = ub1
-    cols = (16 + 16 * comp)[:, None] + torch.arange(16, device=row.device)
-    lob = _lobe(torch.gather(row, 1, cols), 0)
-    kind = lob["kind"]
-    is_mf = kind == LOBE_MF_REFL
-    is_sr = kind == LOBE_SPEC_REFL
-    is_fs = kind == LOBE_FRESNEL_SPEC
-
-    # cosine hemisphere on wo's side (lambert)
-    dxo, dyo = _concentric_disk(u0, u1)
-    z_cos = torch.sqrt(torch.clamp(1.0 - dxo * dxo - dyo * dyo, min=0.0))
-    z_cos = torch.where(wo_z < 0.0, -z_cos, z_cos)
-    # microfacet: visible-normal sample, reflect
-    hx, hy, hz = _tr_sample_wh(wol_x, wol_y, wo_z, lob["au"], lob["av"], u0, u1)
-    dot_owh = wol_x * hx + wol_y * hy + wo_z * hz
-    mrx = 2.0 * dot_owh * hx - wol_x
-    mry = 2.0 * dot_owh * hy - wol_y
-    mrz = 2.0 * dot_owh * hz - wo_z
-    mr_ok = (dot_owh >= 0.0) & ((wo_z * mrz) > 0.0) & (wo_z != 0.0)
-    # specular reflection and fresnel-specular transmission
-    srx, sry, srz = -wol_x, -wol_y, wo_z
-    ea, eb = lob["eta_a"], lob["eta_b"]
-    entering = wo_z > 0.0
-    ei = torch.where(entering, ea, eb)
-    et = torch.where(entering, eb, ea)
-    eta_rel = ei / torch.clamp(et, min=1e-9)
-    abs_cz = torch.abs(wo_z)
-    sin2_t = eta_rel * eta_rel * torch.clamp(1.0 - abs_cz * abs_cz, min=0.0)
-    st_ok = sin2_t < 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
-    nz_sign = torch.where(entering, 1.0, -1.0)
-    stx = -eta_rel * wol_x
-    sty = -eta_rel * wol_y
-    stz = -eta_rel * wo_z + (eta_rel * abs_cz - cos_t) * nz_sign
-    scale_t = (ei * ei) / torch.clamp(et * et, min=1e-20)
-    fr_fs = _fr_dielectric(wo_z, ea, eb)
-    fs_reflect = u0 < fr_fs
-
-    def pick(cos_v, mf_v, sr_v, st_v):
-        v = torch.where(is_mf, mf_v, cos_v)
-        v = torch.where(is_sr, sr_v, v)
-        return torch.where(is_fs, torch.where(fs_reflect, sr_v, st_v), v)
-
-    wsx = pick(dxo, mrx, srx, stx)
-    wsy = pick(dyo, mry, sry, sty)
-    wsz = pick(z_cos, mrz, srz, stz)
-
-    fs = _lobe_f(lob, wol_x, wol_y, wo_z, wsx, wsy, wsz)
-    pdf = _lobe_pdf(lob, wol_x, wol_y, wo_z, wsx, wsy, wsz)
-    dead_mf = is_mf & ~mr_ok
-    aci = torch.clamp(torch.abs(wsz), min=1e-20)
-    fr3 = _fresnel(lob, wsz)
-    out = []
-    for c in range(3):
-        f = torch.where(dead_mf, 0.0, fs[c])
-        f = torch.where(is_sr, lob["s0"][c] * fr3[c] / aci, f)
-        f_fs = torch.where(
-            fs_reflect,
-            lob["s0"][c] * fr_fs / aci,
-            torch.where(st_ok, lob["s1"][c] * (1.0 - fr_fs) * scale_t / aci, 0.0),
-        )
-        out.append(torch.where(is_fs, f_fs, f))
-    pdf = torch.where(is_sr, 1.0, pdf)
-    pdf = torch.where(is_fs, torch.where(fs_reflect, fr_fs, 1.0 - fr_fs), pdf)
-    pdf = torch.where(matching > 1, pdf / matching.to(DTYPE), pdf)
-    return wsx, wsy, wsz, out, pdf, is_fs & ~fs_reflect
 
 
 def li_path_mega_cam_reference(

@@ -12,15 +12,23 @@ integrator picks the call: Path goes to the path kernel
 (`li_levels_mega_cam`), Volpath to the Volpath kernel
 (`li_volpath_mega_cam`); all take the scene packed by `pack_scene` (the
 Volpath kernel by `pack_volpath`, which adds the medium and the light
-distribution), for the in-kernel BVH above TRI_MAX triangles.  Scenes
-outside the chosen kernel's subset raise NotImplementedError
-(`select_kernel`); there is no slower fallback loop.
+distribution), for the in-kernel BVH above TRI_MAX triangles.
+
+AO, and Path on a scene outside the path kernel's subset that the
+wavefront loop takes (in the port's loader subset: a mesh above the
+kernel's 65,536 triangles), render through the wavefront loop instead
+(`render_wavefront_job`): raygen on the host (camera/realistic), then
+integrators/ao.li_ao or integrators/path.li_path over SceneCtx, whose
+intersection queries are kernels K4 and K3.  Path says so on stderr, as
+the JAX package does.  Scenes outside every subset raise
+NotImplementedError (`select_kernel`).
 
 Every tensor lives on the explicit `device`.  On "cuda" the passes run
 the CUDA kernel and are timed with CUDA events; on "cpu" they run the
 kernel's plain PyTorch version and are timed with the host clock.
 """
 
+import sys
 import time
 
 import numpy as np
@@ -28,15 +36,21 @@ import torch
 
 from .camera.realistic import RealisticCamera
 from .film import film as fmod
+from .integrators import path as wpath
 from .integrators import sppm
-from .integrators.common import scrub_radiance
+from .integrators.ao import li_ao
+from .integrators.common import SceneCtx, scrub_radiance
+from .ops import bvh_kernel as bk
 from .ops import direct_megakernel as dmk
+from .ops import intersect_kernel as ik
 from .ops import path_megakernel as pmk
 from .ops import sppm_megakernel as smk
 from .ops import volpath_megakernel as vmk
+from .sampler.dims import CAMERA_FILM, CAMERA_LENS
 from .sampler.halton import HaltonSampler
 from .sampler.stratified import StratifiedSampler
 from .scene.loader import SamplerSpec, load_scene
+from .scene.types import LIGHT_POINT
 
 
 def require_device(device):
@@ -56,6 +70,42 @@ def deploy_render(scene_path, save_to, spp_override=None, pupil_samples=1 << 20,
     colored = fmod.write_png(result["rgb_srgb_input"], save_to)
     print(f"Total pixels: {job.film.xres * job.film.yres}. Colored Pixels: {colored}")
     return result
+
+
+class PassTimer:
+    """The timed window of a render's sample passes: CUDA events around
+    them on a card (after a synchronize, ended by one), the host clock on
+    the CPU; `seconds` once the window closes.  The window is the
+    torch.profiler range RENDER_PASSES (profile_render reads it)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.seconds = None
+
+    def __enter__(self):
+        self.label = torch.profiler.record_function(RENDER_PASSES)
+        self.label.__enter__()
+        if self.device.type == "cuda":
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(self.device)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.device.type == "cuda":
+            self.end.record()
+            torch.cuda.synchronize(self.device)
+            self.seconds = self.start.elapsed_time(self.end) / 1e3
+        else:
+            self.seconds = time.perf_counter() - self.t0
+        self.label.__exit__(*exc)
+        return False
+
+
+RENDER_PASSES = "render_passes"
 
 
 def sample_batch(film_spec, k_spp, device):
@@ -99,18 +149,53 @@ def make_sampler(job, seed=0):
     return StratifiedSampler(job.sampler, seed=seed)
 
 
+# select_kernel's answer for the wavefront loop
+WAVEFRONT = ("wavefront", None, None, None)
+
+
+def wavefront_unsupported(job, sampler):
+    """The first feature of an AO or Path job outside the wavefront loop,
+    or None.  AO takes any triangle scene of point lights (or none) up to
+    the BVH kernels' triangle limit, without media."""
+    if job.integrator.kind == "path":
+        return wpath.unsupported_feature(job.scene, job.integrator, sampler)
+    scene = job.scene
+    if scene.mediums:
+        return "participating media (Camera.medium) outside Volpath"
+    if not (pmk._pow2(sampler.spp) and pmk._pow2(sampler.xs) and pmk._pow2(sampler.ys)):
+        return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
+    if scene.triangles.count > bk.BVH_PRIM_MAX:
+        return f"{scene.triangles.count} triangles (the BVH kernels take up to {bk.BVH_PRIM_MAX})"
+    if np.any(np.asarray(scene.lights.kind) != LIGHT_POINT):
+        return "lights other than point lights (their shapes are not in the wavefront loop)"
+    return None
+
+
 def select_kernel(job, sampler):
-    """FUSED's entry for `job`; raises NotImplementedError naming the
-    first feature outside the chosen kernel's subset."""
-    if job.integrator.kind not in FUSED:
-        raise NotImplementedError(f"{job.integrator.kind} integrator")
-    entry = FUSED[job.integrator.kind]
+    """FUSED's entry for `job`, or WAVEFRONT for AO and for Path scenes
+    outside the path kernel that the wavefront loop takes (announced on
+    stderr); raises NotImplementedError naming the first feature outside
+    the chosen path's subset."""
+    kind = job.integrator.kind
+    if kind == "ao":
+        reason = wavefront_unsupported(job, sampler)
+        if reason is not None:
+            raise NotImplementedError(f"scene outside the AO integrator's subset: {reason}")
+        return WAVEFRONT
+    if kind not in FUSED:
+        raise NotImplementedError(f"{kind} integrator")
+    entry = FUSED[kind]
     mod = entry[1]
     if mod is smk:  # SPPM reads no stratified sampler
         reason = mod.unsupported_feature(job.scene, job.integrator)
     else:
         reason = mod.unsupported_feature(job.scene, job.integrator, sampler)
     if reason is not None:
+        if kind == "path" and wavefront_unsupported(job, sampler) is None:
+            # loud fallback, as the JAX package's render.py:217-224
+            print(f"rs_ray_toy_tpu_torch: scene outside the path-kernel subset ({reason})"
+                  " — using the wavefront loop", file=sys.stderr)
+            return WAVEFRONT
         raise NotImplementedError(f"scene outside the {entry[0]}-kernel subset: {reason}")
     return entry
 
@@ -120,7 +205,8 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0, wr
     the timed passes' seconds and camera Mrays/s (render.py:699-703),
     `render_path`, `fused_kernel`, whether the BVH was used and the
     kernel launches it made.  SPPM: see render_sppm_job (spp_override
-    does not apply; `write_to` takes the periodic images)."""
+    does not apply; `write_to` takes the periodic images); AO and the
+    Path wavefront route: render_wavefront_job."""
     device = require_device(device)
     film_spec = job.film
     sampler = make_sampler(job, seed)
@@ -134,6 +220,8 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0, wr
         sampler.ys = max(1, spp_override // side)
         sampler.spp = spp = sampler.xs * sampler.ys
     fused, mod, pack, li_pass = select_kernel(job, sampler)
+    if fused == "wavefront":
+        return render_wavefront_job(job, device, sampler, spp, pupil_samples)
     cam = RealisticCamera(job.camera, film_spec, pupil_samples=pupil_samples, device=device)
     packed = pack(job.scene, device)
     cam_packed = pmk.pack_camera(cam)
@@ -145,29 +233,18 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0, wr
 
     film = fmod.make_film(film_spec, device)
     launches0 = sum(mod.LAUNCHES.values())
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(device)
-        start.record()
-    else:
-        t0 = time.perf_counter()
-    for s_base in range(0, spp, k_spp):
-        s_idx = sample_offset + s_base
-        # the kernel derives each ray's film jitter (sampler slot 0) itself;
-        # the aligned film add puts every sample on its own pixel
-        l, weight = li_pass(
-            packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, job.integrator
-        )
-        l = scrub_radiance(l)
-        l = torch.where((weight > 0.0)[:, None], l, 0.0)
-        film = fmod.add_samples(film, film_spec, pixel_xy, l, weight)
-    if device.type == "cuda":
-        end.record()
-        torch.cuda.synchronize(device)
-        elapsed = start.elapsed_time(end) / 1e3
-    else:
-        elapsed = time.perf_counter() - t0
+    with PassTimer(device) as timer:
+        for s_base in range(0, spp, k_spp):
+            s_idx = sample_offset + s_base
+            # the kernel derives each ray's film jitter (sampler slot 0) itself;
+            # the aligned film add puts every sample on its own pixel
+            l, weight = li_pass(
+                packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, job.integrator
+            )
+            l = scrub_radiance(l)
+            l = torch.where((weight > 0.0)[:, None], l, 0.0)
+            film = fmod.add_samples(film, film_spec, pixel_xy, l, weight)
+    elapsed = timer.seconds
     launches = sum(mod.LAUNCHES.values()) - launches0
 
     n_rays = film_spec.xres * film_spec.yres * spp
@@ -182,6 +259,62 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0, wr
         "render_path": "megakernel" if launches else "plain",
         "fused_kernel": fused,
         "bvh": packed.bvh is not None,
+        "launches": launches,
+        "passes": spp // k_spp,
+    }
+
+
+def wavefront_launches():
+    return {**ik.LAUNCHES, **bk.LAUNCHES}
+
+
+def camera_rays(cam, sampler, pixel_xy, pixel_id, s_idx):
+    """One pass's camera rays as the wavefront render makes them: the film
+    and lens values of sampler dims 0 and 1, then the lens trace
+    (camera/realistic.generate_rays).  Returns (o, d, weight)."""
+    u_film = sampler.get_2d(pixel_id, s_idx, CAMERA_FILM)
+    u_lens = sampler.get_2d(pixel_id, s_idx, CAMERA_LENS)
+    return cam.generate_rays(pixel_xy + u_film, u_lens)
+
+
+def render_wavefront_job(job, device, sampler, spp, pupil_samples=1 << 20):
+    """The wavefront render (render.py:400-457, 508-517): SceneCtx (its BVH
+    build) and the camera are set-up; each timed pass of k_spp samples
+    per pixel draws the film and lens values (sampler dims 0 and 1),
+    generates the camera rays on the host and runs li_ao or li_path over
+    them.  Returns render_job's keys, `render_path` "wavefront" and the
+    launches of each intersection kernel."""
+    film_spec = job.film
+    cam = RealisticCamera(job.camera, film_spec, pupil_samples=pupil_samples, device=device)
+    ctx = SceneCtx.from_scene(job.scene, device)
+    if device.type == "cuda":
+        (ik if ctx.bvh is None else bk).load_kernel()  # build outside the timed region
+    li = li_ao if job.integrator.kind == "ao" else wpath.li_path
+
+    k_spp = min(16, spp)
+    pixel_xy, pixel_id, sample_offset = sample_batch(film_spec, k_spp, device)
+    film = fmod.make_film(film_spec, device)
+    launches0 = wavefront_launches()
+    with PassTimer(device) as timer:
+        for s_base in range(0, spp, k_spp):
+            s_idx = sample_offset + s_base
+            o, d, weight = camera_rays(cam, sampler, pixel_xy, pixel_id, s_idx)
+            l = scrub_radiance(li(ctx, o, d, weight, sampler, pixel_id, s_idx, job.integrator))
+            l = torch.where((weight > 0.0)[:, None], l, 0.0)
+            film = fmod.add_samples(film, film_spec, pixel_xy, l, weight)
+    elapsed = timer.seconds
+    launches = {k: v - launches0[k] for k, v in wavefront_launches().items()}
+    n_rays = film_spec.xres * film_spec.yres * spp
+    return {
+        "film": film,
+        "rgb_srgb_input": fmod.to_rgb(film, film_spec),
+        "elapsed_s": elapsed,
+        "camera_rays": n_rays,
+        "mrays_per_s": n_rays / max(elapsed, 1e-9) / 1e6,
+        "device": str(device),
+        "render_path": "wavefront",
+        "fused_kernel": None,
+        "bvh": ctx.bvh is not None,
         "launches": launches,
         "passes": spp // k_spp,
     }

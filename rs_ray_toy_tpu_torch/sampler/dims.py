@@ -3,7 +3,8 @@
 Slots 0-7 belong to the camera sample (0: film jitter 2d, 1: lens 2d);
 the Path integrator uses a block of PATH_DPB slots per bounce starting at
 path_dim0(bounce), Volpath a block of VOLPATH_DPB at volpath_dim0(bounce),
-the SPPM camera walk a block of SPPM_DPB at sppm_dim0(depth).
+the SPPM camera walk a block of SPPM_DPB at sppm_dim0(depth); AO's probe
+k reads ao_dim(k).
 Only the slots of the ported integrators are listed.
 """
 
@@ -40,3 +41,8 @@ SPPM_RR = 6  # camera-path Russian roulette (1d)
 
 def sppm_dim0(depth: int) -> int:
     return INTEGRATOR_DIM0 + depth * SPPM_DPB
+
+
+def ao_dim(k: int) -> int:
+    """AO's probe k reads its 2D value here (ao.rs: dims 8 + k, k < n_samples)."""
+    return INTEGRATOR_DIM0 + k

@@ -123,10 +123,13 @@ class SamplerSpec:
 
 @dataclass
 class IntegratorSpec:
-    kind: str  # "path", "debug", "direct", "volpath" or "sppm"
+    kind: str  # "path", "debug", "direct", "volpath", "ao" or "sppm"
     max_depth: int = 5
     light_strategy: str = "one"  # DirectLighting: "one" or "all"
     rr_threshold: float = 1.0
+    # AO (integrator/ao.rs)
+    cos_sample: bool = True
+    n_samples: int = 64
     # SPPM
     radius: float = 1.0
     n_iters: int = 5
@@ -393,27 +396,32 @@ def _pack_triangles(tris) -> TriangleSoA:
     degen = np.abs(deter) < 1e-8
     idet = 1.0 / np.where(degen, 1.0, deter)
     dpdu = (dp02 * duv12[:, 1:2] - dp12 * duv02[:, 1:2]) * idet[:, None]
+    dpdv = (-dp02 * duv12[:, 0:1] + dp12 * duv02[:, 0:1]) * idet[:, None]
     if degen.any():
-        # coordinate_system(ng) first axis, in float32 like the JAX loader
+        # coordinate_system(ng), in float32 like the JAX loader
         g = ng[degen].astype(np.float32)
         use_x = np.abs(g[:, 0]) > np.abs(g[:, 1])
         inv_a = np.float32(1.0) / np.sqrt(
             np.where(use_x, g[:, 0] ** 2 + g[:, 2] ** 2, g[:, 1] ** 2 + g[:, 2] ** 2)
         )
         zero = np.zeros_like(g[:, 0])
-        dpdu[degen] = np.where(
+        v2 = np.where(
             use_x[:, None],
             np.stack([-g[:, 2], zero, g[:, 0]], -1) * inv_a[:, None],
             np.stack([zero, g[:, 2], -g[:, 1]], -1) * inv_a[:, None],
         )
+        dpdu[degen] = v2
+        dpdv[degen] = np.cross(g, v2)
     n = np.stack([t["n"] if t["n"] is not None else np.zeros((3, 3)) for t in tris])
     f32 = lambda a: np.asarray(a, np.float32)
     return TriangleSoA(
         p0=f32(p[:, 0]), p1=f32(p[:, 1]), p2=f32(p[:, 2]),
         n0=f32(n[:, 0]), n1=f32(n[:, 1]), n2=f32(n[:, 2]),
+        uv0=f32(uv[:, 0]), uv1=f32(uv[:, 1]), uv2=f32(uv[:, 2]),
         mat=np.asarray([t["mat"] for t in tris], np.int32),
         ng=f32(ng),
         dpdu=f32(dpdu),
+        dpdv=f32(dpdv),
     )
 
 
@@ -576,11 +584,11 @@ def _make_sampler_spec(scfg) -> SamplerSpec:
     )
 
 
-# integrator_type -> IntegratorSpec.kind for the ported integrators; AO
-# (the default) raises
+# integrator_type -> IntegratorSpec.kind for the ported integrators; AO is
+# the default
 _INTEGRATORS = {
     "Path": "path", "Debug": "debug", "DirectLighting": "direct", "Volpath": "volpath",
-    "SPPM": "sppm",
+    "SPPM": "sppm", "AO": "ao",
 }
 
 
@@ -593,6 +601,8 @@ def _make_integrator_spec(icfg) -> IntegratorSpec:
         max_depth=read_i64(icfg, "max_depth", 5),
         light_strategy=read_string(icfg, "light_strategy", "one"),
         rr_threshold=read_f64(icfg, "rr_threshold", 1.0),
+        cos_sample=read_bool(icfg, "cos_sample", True),
+        n_samples=read_i64(icfg, "n_samples", 64),
         radius=read_f64(icfg, "radius", 1.0),
         n_iters=read_i64(icfg, "n_iters", 5),
         photons_per_iter=read_i64(icfg, "photons_per_iter", 1),

@@ -27,10 +27,14 @@ class TriangleSoA:
     n0: np.ndarray  # (T,3) float32
     n1: np.ndarray
     n2: np.ndarray
+    uv0: np.ndarray  # (T,2) float32 vertex uvs, (0,0), (1,0), (1,1) by default
+    uv1: np.ndarray
+    uv2: np.ndarray
     mat: np.ndarray  # (T,) int32 material ids
     # ray-independent shading geometry, baked in float64 then cast
     ng: np.ndarray  # (T,3) geometric normal
     dpdu: np.ndarray  # (T,3)
+    dpdv: np.ndarray  # (T,3)
 
     @property
     def count(self):

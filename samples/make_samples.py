@@ -1,5 +1,6 @@
 """Write the in-repo scene fixture: samples/scene.json, samples/scene_debug.json,
-samples/scene_fog.json, samples/scene_sppm.json and samples/cube.obj.
+samples/scene_fog.json, samples/scene_sppm.json, samples/scene_ao.json and
+samples/cube.obj.
 
 This fixture stands in for the reference renderer's `samples/scene.json`,
 which is not part of this repository.  It follows the reference's scene
@@ -21,6 +22,10 @@ scene is attenuated, not hidden, and the fog itself scatters light.
 
 scene_sppm.json is scene.json under SPPM as the JAX bench's SPPM row sets
 it: radius 1.0, 4 iterations of 131,072 photons, max_depth 3.
+
+scene_ao.json is scene.json under the reference's default integrator, AO,
+with its defaults written out: 64 cosine-distributed probes per camera
+hit.
 
 The scene is synthetic.  In particular its `lens_data` is NOT the
 reference's lens prescription: it is the classic 50 mm f/2 double-Gauss
@@ -196,6 +201,12 @@ def scene_sppm():
     return cfg
 
 
+def scene_ao():
+    cfg = scene()
+    cfg["Integrator"] = {"integrator_type": "AO", "n_samples": 64, "cos_sample": True}
+    return cfg
+
+
 def main(out_dir=HERE):
     with open(os.path.join(out_dir, "cube.obj"), "w") as fh:
         fh.write(cube_obj())
@@ -204,6 +215,7 @@ def main(out_dir=HERE):
         ("scene_debug.json", scene_debug()),
         ("scene_fog.json", scene_fog()),
         ("scene_sppm.json", scene_sppm()),
+        ("scene_ao.json", scene_ao()),
     ):
         with open(os.path.join(out_dir, name), "w") as fh:
             json.dump(cfg, fh, indent=1)

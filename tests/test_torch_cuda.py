@@ -1,6 +1,7 @@
 """On the card: the CUDA kernels (the path, direct and Volpath camera
-kernels and the SPPM camera and photon walks, brute force and BVH, and
-the SPPM deposit) against their plain PyTorch versions.
+kernels and the SPPM camera and photon walks, brute force and BVH, the
+SPPM deposit, and the wavefront loop's intersection kernels K4 and K3)
+against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -12,13 +13,17 @@ import json
 import shutil
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.integrators import sppm
+from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
 from rs_ray_toy_tpu_torch.ops import _build
+from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
 from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
+from rs_ray_toy_tpu_torch.ops import intersect_kernel as ik
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
 from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
@@ -361,3 +366,76 @@ def test_sppm_render_launches_each_kernel_once_per_iteration(tmp_path):
     assert [dict(c) for c in counts] == before
     img = res["rgb_srgb_input"]
     assert torch.isfinite(img).all() and float(img.max()) > 0
+
+
+# ---- the wavefront loop's intersection kernels K4 and K3 ----
+
+
+def _aimed_rays(n, seed, dev, x=(33.0, 38.0), y=(-8.0, 8.0), z=(-5.0, 5.0)):
+    """Seeded rays from near the camera toward the cubes, and t_max:
+    infinite, finite (short of many hits) or 0, a third each."""
+    r = np.random.default_rng(seed)
+    o = r.normal(0.0, 0.3, (n, 3))
+    target = np.stack([r.uniform(*x, n), r.uniform(*y, n), r.uniform(*z, n)], -1)
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    lane = np.arange(n) % 3
+    t_max = np.where(lane == 0, np.inf, np.where(lane == 1, r.uniform(30.0, 37.0, n), 0.0))
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    return f(o), f(d), f(t_max)
+
+
+def test_wavefront_intersect_kernel_matches_plain_version():
+    dev = _device()
+    ctx = SceneCtx.from_scene(load_scene(str(SAMPLES / "scene.json")).scene, dev)
+    o, d, t_max = _aimed_rays(1 << 16, 1, dev)
+    before = ik.LAUNCHES["intersect"]
+    t, idx, hit = ik.intersect_triangles(ctx.tri_packed, o, d, t_max)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["intersect"] == before + 1
+    t_ref, idx_ref, hit_ref = ik.intersect_triangles_reference(ctx.tri_packed, o, d, t_max)
+    assert int(hit_ref.sum()) > 1000
+    assert torch.equal(hit, hit_ref) and torch.equal(idx, idx_ref)
+    assert torch.equal(t[hit], t_ref[hit]) and bool(torch.isinf(t[~hit]).all())
+
+
+def test_wavefront_bvh_kernels_match_plain_versions(tmp_path):
+    dev = _device()
+    job = load_scene(write_grid_scene(str(tmp_path), ny=12, nz=12))
+    ctx = SceneCtx.from_scene(job.scene, dev)
+    assert ctx.bvh is not None
+    o, d, t_max = _aimed_rays(1 << 15, 2, dev, x=(34.5, 36.0), y=(-3.5, 3.5), z=(-2.5, 2.5))
+    before = dict(bk.LAUNCHES)
+    t, idx, valid = bk.intersect_bvh(ctx.bvh, o, d, t_max)
+    occ = bk.occluded_bvh(ctx.bvh, o, d, t_max)
+    t_s, idx_s, valid_s, at = bk.intersect_bvh_shaded(ctx.bvh, o, d, t_max)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in bk.LAUNCHES.items()} == {
+        "bvh_closest": 1, "bvh_any": 1, "bvh_shaded": 1}
+    t_ref, idx_ref, valid_ref = bk.intersect_bvh_reference(ctx.bvh, o, d, t_max)
+    assert int(valid_ref.sum()) > 5000 and not bool(valid_ref[t_max == 0].any())
+    for tt, ii, vv in ((t, idx, valid), (t_s, idx_s, valid_s)):
+        assert torch.equal(vv, valid_ref) and torch.equal(ii, idx_ref) and torch.equal(tt, t_ref)
+    assert torch.equal(occ, bk.occluded_bvh_reference(ctx.bvh, o, d, t_max))
+    _, _, mat, al, a_ref = bk.intersect_bvh_shaded_reference(ctx.bvh, o, d, t_max)
+    assert torch.equal(at["mat"], mat) and torch.equal(at["area_light"], al)
+    torch.testing.assert_close(at["ng"], a_ref[7:10].T, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(at["uv"], a_ref[2:4].T, rtol=1e-5, atol=1e-6)
+
+
+def test_wavefront_renders_launch_the_intersection_kernels(tmp_path, monkeypatch):
+    dev = _device()
+    ao = _job(tmp_path, scene="scene_ao.json")
+    res = render_job(ao, dev, spp_override=4, pupil_samples=1 << 16)
+    assert res["render_path"] == "wavefront" and not res["bvh"]
+    assert res["launches"] == {"intersect": 65, "bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0}
+    assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
+    monkeypatch.setattr(pmk, "BVH_TRI_MAX", 400)
+    grid = load_scene(write_grid_scene(str(tmp_path / "grid"), ny=6, nz=6, xres=64, yres=36))
+    before = dict(pmk.LAUNCHES)
+    res = render_job(grid, dev, spp_override=4, pupil_samples=1 << 16)
+    assert res["render_path"] == "wavefront" and res["bvh"] and dict(pmk.LAUNCHES) == before
+    depth = grid.integrator.max_depth
+    assert res["launches"] == {"intersect": 0, "bvh_closest": 0, "bvh_any": depth,
+                               "bvh_shaded": depth}
+    assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0

@@ -1,8 +1,9 @@
 """Scene loading and packing: the port's tables equal the JAX package's.
 
 Both packages load the in-repo fixtures (samples/scene.json,
-samples/scene_debug.json, samples/scene_fog.json and
-samples/scene_sppm.json, written by samples/make_samples.py) and pack
+samples/scene_debug.json, samples/scene_fog.json,
+samples/scene_sppm.json and samples/scene_ao.json, written by
+samples/make_samples.py) and pack
 them for the camera kernels; the packed triangle table, the point lights
 and the camera bundle must agree.
 Features outside the ported slice must raise, at load or when the render
@@ -63,7 +64,8 @@ def test_fixture_is_what_make_samples_writes(tmp_path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.main(str(tmp_path))
-    for name in ("scene.json", "scene_debug.json", "scene_fog.json", "scene_sppm.json", "cube.obj"):
+    for name in ("scene.json", "scene_debug.json", "scene_fog.json", "scene_sppm.json",
+                 "scene_ao.json", "cube.obj"):
         assert (tmp_path / name).read_bytes() == (SAMPLES / name).read_bytes()
 
 
@@ -121,12 +123,12 @@ def _prim0(**kw):
     return edit
 
 
-def _volpath(medium=THIN_FOG, light=None, **prim0):
-    """The fixture under Volpath in the camera medium `medium`, with an
+def _volpath(medium=THIN_FOG, light=None, integrator="Volpath", **prim0):
+    """The fixture under `integrator` in the camera medium `medium`, with an
     extra light and primitive-0 keys."""
 
     def edit(cfg):
-        cfg["Integrator"] = {"integrator_type": "Volpath", "max_depth": 3}
+        cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 3}
         cfg["Camera"]["medium"] = medium
         if light is not None:
             cfg["lights"].append(light)
@@ -148,7 +150,8 @@ UNSUPPORTED = {
     "medium_interface": _volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "grid media with lights other than point lights": _volpath(GRID_MEDIUM, FOG_AREA_LIGHT),
     "HaltonSampler": _set("Sampler", {"sampler_type": "HaltonSampler"}),
-    "AO integrator": _set("Integrator", {"integrator_type": "AO"}),
+    # AO renders through the wavefront loop, which takes no camera medium
+    "AO integrator": _volpath(integrator="AO"),
     "material type DisneyMaterial": _set(
         "materials", [{"material_type": "DisneyMaterial", "material_name": "d"}]
     ),
