@@ -82,12 +82,31 @@ Phase 7  the wavefront loop, whose intersection queries are kernels K4
          at 160x90x16, the same estimator in two implementations, held to
          the per-ray bar (0.5% of rays past 1e-3 relative, means within
          3e-3).
+Phase 8  the widened path kernel: (a) samples/scene_sphere_area.json
+         (two matte spheres and a sphere light among the cubes) and (b)
+         samples/scene_env.json (a unit constant environment, sampled and
+         escape-only) at 640x360x16 through deploy_render, one launch of
+         the camera instance a pass and no other kernel; (c) the
+         19,224-triangle grid with the spheres and the sphere light at
+         640x360x8 through the BVH instance; (d) the rays-in instance #3
+         on 2^20 parallel rays into samples/scene_furnace.json's sphere,
+         made as tests/test_furnace.py:62-88 makes them about its centre:
+         every channel's mean within 0.015 rho + 0.004 of rho = 0.5, and
+         escaped rays 1 within 1e-6; (e) the rays-in BVH instance #4 on
+         (c)'s camera rays (render.camera_rays); (f) Path on
+         scene.gen.write_wavefront_scene (a partial sphere, a distant and
+         a triangle light) at 320x180x16, announced on stderr and rendered
+         through the wavefront loop's K4 alone, no path-kernel launch; (g)
+         the wavefront li_path against the path kernel on (a) at
+         160x90x16, held as 7d.  Each path-kernel instance is held to the
+         per-ray bar against its plain version on a seeded subset of its
+         main-path batch.
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
 loop) and none of the others.  Every phase
 prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the fourteen kernels, the last line
+second-to-last line is a JSON record of the sixteen kernels, the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
 build/chip_smoke/chip_smoke.json and the images beside it.  Without a
 CUDA device, or without the rest of the repository, it exits non-zero
@@ -100,9 +119,14 @@ in and 16 out, of each BVH node once its two child boxes and its offset,
 count and axis, and of each triangle's row once the columns a kernel
 reads: the 9 geometry columns, the 7 of normal, dpdu and lobe count, and
 16 per lobe of its material; the raw normals and the texture block are
-never read.  For the Volpath kernel the density grid is read once
+never read; of each sphere row its 13 intersect columns, 12 of
+object-to-world, 2 of lobe count and eta and 16 per lobe.  A rays-in
+instance moves per ray its origin, direction, weight, pixel id and sample
+index in (36 bytes) and L out (12).  For the Volpath kernel the density grid is read once
 too.  The operations are the Moller-Trumbore tests (45 each), slab
-tests (27), lobe evaluations (3, lambert's; a floor) and the grid
+tests (27), sphere tests (30: the object-space quadratic and its roots;
+the ray's transform into the sphere is left out), lobe evaluations (3,
+lambert's; a floor) and the grid
 tracking steps' trilinear density taps (40: the point and its scaled
 coordinates, 12, and seven lerps of 4) that the plain version counts on
 the same inputs, scaled by the batch over the subset where it ran on a
@@ -132,6 +156,8 @@ the SPPM kernels, or a closest hit over a triangle list or a BVH:
 `library_ms` is null.
 """
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -168,6 +194,7 @@ from rs_ray_toy_tpu_torch.scene.gen import (
     write_fog_scene,
     write_grid_fog_scene,
     write_grid_scene,
+    write_wavefront_scene,
 )
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
@@ -177,6 +204,9 @@ SCENE_DEBUG = ROOT / "samples" / "scene_debug.json"
 SCENE_FOG = ROOT / "samples" / "scene_fog.json"
 SCENE_SPPM = ROOT / "samples" / "scene_sppm.json"
 SCENE_AO = ROOT / "samples" / "scene_ao.json"
+SCENE_SPHERE_AREA = ROOT / "samples" / "scene_sphere_area.json"
+SCENE_ENV = ROOT / "samples" / "scene_env.json"
+SCENE_FURNACE = ROOT / "samples" / "scene_furnace.json"
 OUT = ROOT / "build" / "chip_smoke"
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
 DIRECT_SRC = "rs_ray_toy_tpu_torch/csrc/direct_megakernel.cu"
@@ -190,6 +220,8 @@ KERNELS = {
     "path_mega_cam_bvh": dict(
         source=PATH_SRC, replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3843"
     ),
+    "path_mega": dict(source=PATH_SRC, replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3352"),
+    "path_mega_bvh": dict(source=PATH_SRC, replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3375"),
     "direct_mega_cam": dict(
         source=DIRECT_SRC, replaces="rs_ray_toy_tpu/ops/direct_megakernel.py:678"
     ),
@@ -213,7 +245,7 @@ KERNELS = {
     "bvh_shaded": dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:400"),
 }
 # FP32 operations per counted test, density tap or walked deposit pair
-FLOPS = {"mt": 45, "slab": 27, "lobe": 3, "track": 40, "pair": 9}
+FLOPS = {"mt": 45, "slab": 27, "sph": 30, "lobe": 3, "track": 40, "pair": 9}
 # module: (kernel wrapper, plain version, packing)
 PASSES = {
     pmk: (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference, pmk.pack_scene),
@@ -223,6 +255,8 @@ PASSES = {
 PEAK_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 RAY_BYTES = 8 + 4 + 4 + 12 + 4  # pixel_xy, pixel id, sample index in; L, weight out
+RAYS_IN_BYTES = 12 + 12 + 4 + 4 + 4 + 12  # o, d, weight, pixel id, sample index in; L out
+SPH_ROW_COLS = 13 + 12 + 2  # w2o rows and radius; o2w rows; lobe count and eta
 SLOT_BYTES = 4  # a sampler value the plain version counts as read ("slot")
 SPPM_CAM_BYTES = 8 + 12 + 5 * 12 + 4 + 4  # pixel_xy in; ld, the VP record, mat, valid out
 SPPM_PHOTON_BYTES = 4 + 2 * (36 + 4)  # the flag in; two events out
@@ -300,6 +334,9 @@ def bound(work, scale, n_rays, packed, ray_bytes=RAY_BYTES, extra_bytes=0):
     nbytes = n_rays * ray_bytes + extra_bytes + scale * SLOT_BYTES * float(work.get("slot", 0))
     if packed is not None:
         nbytes += int((ROW_HEAD_COLS + LOBE_COLS * packed.table[:, 15]).sum()) * 4
+    sph = getattr(packed, "sph_table", None)
+    if sph is not None:
+        nbytes += int((SPH_ROW_COLS + LOBE_COLS * sph[:, 15]).sum()) * 4
     if packed is not None and packed.bvh is not None:
         nbytes += packed.bvh.nodes_f.shape[0] * NODE_READ_COLS * 4
     if getattr(packed, "grid", False):
@@ -586,6 +623,9 @@ def main():
 
     # ---- phase 7: the wavefront loop (AO, and Path past the path kernel) ----
     wavefront_phase(record, kernels, card, dev)
+
+    # ---- phase 8: the widened path kernel ----
+    wide_phase(record, kernels, card, dev)
 
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
@@ -1205,6 +1245,199 @@ def wavefront_phase(record, kernels, card, dev):
     print(f"phase 7d: wavefront li_path (K4) vs the path kernel, samples/scene.json "
           f"{job.film.xres}x{job.film.yres}x16: "
           f"{bar['rays']} rays, {bar['lit']} lit, diverged {bar['diverged']:.2e}, q99 "
+          f"{bar['q99']:.2e}, mean {bar['mean']:.6g} vs {bar['mean_ref']:.6g}, camera weight "
+          f"max_abs_err {bar['weight_max_abs_err']:.3g}; {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+# ---- phase 8: the widened path kernel ----
+
+
+def hold_rays(job, packed, rays, stride, dev):
+    """The rays-in kernel (#3, or #4 over a BVH) against its plain version
+    on `rays` = (o, d, weight, pixel_id, s_idx, sampler): the kernel on
+    all of them, the plain version on a seeded random 1/`stride`.  Returns
+    the measured numbers."""
+    o, d, w, pid, sid, sampler = rays
+    args = (packed, o, d, w, pid, sid, sampler, job.integrator)
+    l = pmk.li_path_mega(*args)
+    torch.cuda.synchronize()
+    n = o.shape[0]
+    pick = torch.randperm(n, generator=torch.Generator().manual_seed(stride))[: n // stride]
+    sub = pick.sort().values.to(dev)
+    sub_args = (packed, o[sub], d[sub], w[sub], pid[sub], sid[sub], sampler, job.integrator)
+    work = {}
+    l_ref = pmk.li_path_mega_reference(*sub_args, work=work)
+    bar = per_ray_bar(l[sub], l_ref)
+    max_abs_err = float((l[sub] - l_ref).abs().max())
+    del l, l_ref
+    ms = timed_ms(pmk.prepare_rays_launch(*args), reps=10)
+    wrapper_ms = timed_ms(lambda: pmk.li_path_mega(*args))
+    plain_ms = once_ms(lambda: pmk.li_path_mega_reference(*sub_args))
+    scale = n / sub.numel()
+    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=RAYS_IN_BYTES)
+    return dict(rays=n, plain_rays=int(sub.numel()), bvh=packed.bvh is not None,
+                max_abs_err=max_abs_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                work={k: float(v) * scale for k, v in work.items()}, **bar)
+
+
+def furnace_rays(job, n, dev, seed=3):
+    """tests/test_furnace.py:62-88's rays about the furnace sphere's centre:
+    n parallel rays down +x through a disk of radius 0.6."""
+    centre = job.scene.spheres.o2w[0, :3, 3].astype(np.float64)
+    rng = np.random.default_rng(seed)
+    yz = rng.random((2 * n, 2)) * 1.2 - 0.6
+    yz = yz[np.hypot(yz[:, 0], yz[:, 1]) < 0.6][:n]
+    o = np.concatenate([np.full((n, 1), -5.0), yz], 1) + centre
+    o = torch.tensor(o, dtype=torch.float32, device=dev)
+    d = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(n, 3).contiguous()
+    return (o, d, torch.ones(n, device=dev), torch.arange(n, device=dev),
+            torch.zeros(n, dtype=torch.int64, device=dev), StratifiedSampler(job.sampler, seed=seed))
+
+
+def wide_entry(kernels, name, tag, held):
+    """The widened kernel's numbers on a new fixture, beside the line's."""
+    kernels[name].update({f"{tag}_{k}": held[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                          "rays")})
+    kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], held["max_abs_err"])
+
+
+def wide_phase(record, kernels, card, dev):
+    """Phase 8 (see the module docstring)."""
+    # (a), (b): the sphere-area and environment fixtures through the camera instance
+    for tag, scene in (("sphere_area", SCENE_SPHERE_AREA), ("env", SCENE_ENV)):
+        t0 = time.perf_counter()
+        step = "8a" if tag == "sphere_area" else "8b"
+        res, colored, launches = drive(scene, OUT / f"chip_smoke_{tag}.png", "path_mega_cam",
+                                       "path")
+        job = load_scene(str(scene))
+        held = hold(pmk, job, 4, dev)
+        warm = warm_rates(job, dev, 2)
+        wide_entry(kernels, "path_mega_cam", tag, held)
+        record[f"phase{step}"] = dict(launches=launches, colored=colored,
+                                      render_mrays_per_s=res["mrays_per_s"], warm_mrays_per_s=warm,
+                                      phase_s=time.perf_counter() - t0, **held)
+        print(describe(f"phase {step}: Path, {scene.relative_to(ROOT)} 640x360x16", res, launches,
+                       colored, held, warm, card))
+
+    # (c) the grid with the spheres and the sphere light over the BVH
+    t0 = time.perf_counter()
+    grid = write_grid_scene(str(OUT / "grid_spheres"), base=str(SCENE_SPHERE_AREA))
+    res, colored, launches = drive(grid, OUT / "chip_smoke_grid_spheres.png", "path_mega_cam_bvh",
+                                   "path", 8)
+    job = load_scene(grid)
+    check(res["bvh"] and job.scene.spheres.count == 2, "8c: not the BVH instance with spheres")
+    job.sampler.xsamp, job.sampler.ysamp = 2, 4
+    held = hold(pmk, job, 8, dev)
+    warm = warm_rates(job, dev, 2)
+    wide_entry(kernels, "path_mega_cam_bvh", "grid_spheres", held)
+    record["phase8c"] = dict(triangles=job.scene.triangles.count, launches=launches,
+                             colored=colored, render_mrays_per_s=res["mrays_per_s"],
+                             warm_mrays_per_s=warm, phase_s=time.perf_counter() - t0, **held)
+    print(describe(f"phase 8c: Path, grid of {job.scene.triangles.count} triangles, 2 spheres and "
+                   f"a sphere light 640x360x8", res, launches, colored, held, warm, card))
+
+    # (d) the rays-in instance on the white furnace
+    t0 = time.perf_counter()
+    fjob = load_scene(str(SCENE_FURNACE))
+    packed = pmk.pack_scene(fjob.scene, dev)
+    rays = furnace_rays(fjob, 1 << 20, dev)
+    o, d, w, pid, sid, sampler = rays
+    zero_counts()
+    l = pmk.li_path_mega(packed, o, d, w, pid, sid, sampler, fjob.integrator)
+    l_esc = pmk.li_path_mega(packed, o, -d, w, pid, sid, sampler, fjob.integrator)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts["path_mega"] == 2 and sum(counts.values()) == 2, f"8d launches {counts}")
+    mean = l.double().mean(0)
+    esc_err = float((l_esc - 1.0).abs().max())
+    check(bool(torch.isfinite(l).all()) and l.shape == o.shape, "8d: bad furnace radiance")
+    check(float((mean - 0.5).abs().max()) < 0.015 * 0.5 + 0.004, f"8d: furnace mean {mean.tolist()}")
+    check(esc_err <= 1e-6, f"8d: escaped rays read {esc_err:.3g} off 1")
+    held = hold_rays(fjob, packed, rays, 16, dev)
+    add_entry(kernels, "path_mega", counts["path_mega"], held)
+    record["phase8d"] = dict(launches=counts, furnace_mean=mean.tolist(),
+                             escaped_max_abs_err=esc_err, phase_s=time.perf_counter() - t0, **held)
+    print(f"phase 8d: rays-in #3, white furnace on {o.shape[0]} parallel rays: mean "
+          f"{', '.join(f'{v:.6f}' for v in mean.tolist())} (rho 0.5, bar 0.0115), escaped max "
+          f"|L - 1| {esc_err:.3g}, {counts['path_mega']} launches; kernel {held['ms']:.3f} ms "
+          f"(wrapper {held['wrapper_ms']:.3f}), bound {held['bound_ms']:.4f} ms by "
+          f"{held['bound_by']}, plain {held['plain_ms']:.1f} ms over {held['plain_rays']} rays, "
+          f"diverged {held['diverged']:.2e}, q99 {held['q99']:.2e}, max_abs_err "
+          f"{held['max_abs_err']:.3g}; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (e) the rays-in BVH instance on (c)'s camera rays
+    t0 = time.perf_counter()
+    packed = pmk.pack_scene(job.scene, dev)
+    sampler = StratifiedSampler(job.sampler)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 8, dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    zero_counts()
+    pmk.li_path_mega(packed, o, d, w, pid, soff, sampler, job.integrator)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts["path_mega_bvh"] == 1 and sum(counts.values()) == 1, f"8e launches {counts}")
+    held = hold_rays(job, packed, (o, d, w, pid, soff, sampler), 8, dev)
+    add_entry(kernels, "path_mega_bvh", counts["path_mega_bvh"], held)
+    record["phase8e"] = dict(launches=counts, phase_s=time.perf_counter() - t0, **held)
+    print(f"phase 8e: rays-in #4 over the BVH, 8c's {held['rays']} camera rays: 1 launch; kernel "
+          f"{held['ms']:.3f} ms (wrapper {held['wrapper_ms']:.3f}), bound {held['bound_ms']:.4f} ms "
+          f"by {held['bound_by']}, plain {held['plain_ms']:.1f} ms over {held['plain_rays']} rays, "
+          f"diverged {held['diverged']:.2e}, q99 {held['q99']:.2e}, mean {held['mean']:.6g} vs "
+          f"{held['mean_ref']:.6g}, max_abs_err {held['max_abs_err']:.3g}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (f) Path on what only the wavefront loop renders
+    t0 = time.perf_counter()
+    scene = write_wavefront_scene(str(OUT / "wavefront"), xres=320, yres=180)
+    job = load_scene(scene)
+    depth = job.integrator.max_depth
+    reason = pmk.unsupported_feature(job.scene, job.integrator, StratifiedSampler(job.sampler))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        res, colored, counts = drive_wavefront(scene, OUT / "chip_smoke_wavefront.png",
+                                               {"intersect": 2 * depth})
+    line = err.getvalue().strip()
+    check("wavefront loop" in line and reason in line, f"8f: stderr {line!r}")
+    record["phase8f"] = dict(reason=reason, launches=counts, colored=colored,
+                             camera_rays=res["camera_rays"], mrays_per_s=res["mrays_per_s"],
+                             render_s=res["elapsed_s"], phase_s=time.perf_counter() - t0)
+    print(f"phase 8f: Path, {Path(scene).name} 320x180x16 (a partial sphere, a distant and a "
+          f"triangle light): stderr [{line}]; {res['camera_rays']} rays, launches {counts}, "
+          f"{colored} coloured px, {res['mrays_per_s']:.2f} Mrays/s; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (g) the wavefront li_path against the path kernel on (a)
+    t0 = time.perf_counter()
+    job = load_scene(str(SCENE_SPHERE_AREA))
+    job.film.xres, job.film.yres = 160, 90
+    sampler = StratifiedSampler(job.sampler)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    zero_counts()
+    l_k1, w_k1 = pmk.li_path_mega_cam(pmk.pack_scene(job.scene, dev), pmk.pack_camera(cam), pxy,
+                                      pid, soff, sampler, job.integrator)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    l_wf = li_path(SceneCtx.from_scene(job.scene, dev), o, d, w, sampler, pid, soff,
+                   job.integrator)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts["path_mega_cam"] == 1 and counts["intersect"] > 0, f"8g launches {counts}")
+    l_wf = torch.where((w > 0.0)[:, None], l_wf, 0.0).double()
+    l_k1 = torch.where((w_k1 > 0.0)[:, None], l_k1, 0.0).double()
+    rel = (l_wf - l_k1).abs() / l_k1.abs().clamp(min=1e-3)
+    bar = dict(rays=int(l_k1.shape[0]), lit=int((l_k1.amax(-1) > 0).sum()),
+               diverged=float((rel.amax(-1) > 1e-3).double().mean()),
+               q99=float(torch.quantile(rel.flatten(), 0.99)), mean=float(l_wf.mean()),
+               mean_ref=float(l_k1.mean()), weight_max_abs_err=float((w - w_k1).abs().max()))
+    check(bar["lit"] >= 1000, f"8g: {bar['lit']} lit rays")
+    check(bar["diverged"] < 5e-3, f"8g: {bar['diverged']:.2%} of rays diverged")
+    check(abs(bar["mean"] - bar["mean_ref"]) < 1e-6 + 3e-3 * abs(bar["mean_ref"]),
+          f"8g: means {bar['mean']:.6g} vs {bar['mean_ref']:.6g}")
+    record["phase8g"] = dict(launches=counts, phase_s=time.perf_counter() - t0, **bar)
+    print(f"phase 8g: wavefront li_path (K4) vs the path kernel, samples/scene_sphere_area.json "
+          f"160x90x16: {bar['rays']} rays, {bar['lit']} lit, diverged {bar['diverged']:.2e}, q99 "
           f"{bar['q99']:.2e}, mean {bar['mean']:.6g} vs {bar['mean_ref']:.6g}, camera weight "
           f"max_abs_err {bar['weight_max_abs_err']:.3g}; {time.perf_counter() - t0:.1f} s [{card}]")
 

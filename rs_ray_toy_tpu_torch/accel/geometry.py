@@ -1,14 +1,19 @@
-"""Ray-triangle queries and surface interactions for the wavefront loop
-(rs_ray_toy_tpu/accel/geometry.py, its triangle branch).
+"""Ray-primitive queries and surface interactions for the wavefront loop
+(rs_ray_toy_tpu/accel/geometry.py).
 
 `Hit` and `SurfaceHit` are the JAX package's records, (N,) and (N, 3)
 tensors.  Moller-Trumbore keeps the reference's epsilons (triangle.rs:
-167-180: |det| >= 1e-7, t >= 1e-7) and honours t_max.  The brute-force
-queries (`intersect_triangles`, `intersect_brute`, `occluded_brute`) are
-the plain version of kernel K4 (ops/intersect_kernel); `surface_interaction`
-gathers a hit's shading geometry from the scene-order shade table
-(`pack_shade_tables`), as the JAX package does where no shaded BVH kernel
-returns it.  Spheres, smooth normals and ray differentials are not ported.
+167-180: |det| >= 1e-7, t >= 1e-7) and honours t_max.  Spheres
+(`intersect_spheres`) solve the quadratic in object space and apply the
+partial-sphere clip to the near root, then retry it on the far one (the
+PBRT-intended clip; the reference tests its clip on uninitialised state,
+sphere.rs:50-108).  The brute-force queries (`intersect_triangles`,
+`intersect_brute`, `occluded_brute`) are the plain version of kernel K4
+(ops/intersect_kernel) min-combined with the spheres, which JAX computes
+outside any kernel too; `surface_interaction` gathers a hit's shading
+geometry from the scene-order shade tables (`pack_shade_tables`), as the
+JAX package does where no shaded BVH kernel returns it.  Smooth normals
+and ray differentials are not ported.
 """
 
 from typing import NamedTuple
@@ -21,7 +26,9 @@ from ..ops.intersect_kernel import intersect_triangles_reference
 
 PRIM_NONE = -1
 PRIM_TRI = 0
+PRIM_SPHERE = 1
 TRI_EPS = 1e-7
+SPH_EPS = 1e-4
 
 
 class Hit(NamedTuple):
@@ -61,52 +68,184 @@ def intersect_triangles_any(tri_packed, o, d, t_max):
     return intersect_triangles(tri_packed, o, d, t_max)[2]
 
 
-def intersect_brute(tri_packed, o, d, t_max):
-    return tri_hit(*intersect_triangles(tri_packed, o, d, t_max))
+def sphere_tables(sph, device):
+    """A SphereSoA's columns as float32 tensors on `device` (mat int64),
+    or None for a scene without spheres."""
+    if sph is None or sph.count == 0:
+        return None
+    f = lambda a: torch.as_tensor(np.array(a, np.float32), device=device)
+    keys = ("o2w", "w2o", "radius", "z_min", "z_max", "theta_min", "theta_max", "phi_max")
+    out = {k: f(getattr(sph, k)) for k in keys}
+    out["mat"] = torch.as_tensor(np.array(sph.mat, np.int64), device=device)
+    return out
 
 
-def occluded_brute(tri_packed, o, d, t_max):
-    return intersect_brute(tri_packed, o, d, t_max).valid
+def _sphere_rays(sph, o, d):
+    """Rays in each sphere's object space: (N, S, 3) origins and directions."""
+    w2o = sph["w2o"]
+    oo = torch.einsum("sij,nj->nsi", w2o[:, :3, :3], o) + w2o[None, :, :3, 3]
+    od = torch.einsum("sij,nj->nsi", w2o[:, :3, :3], d)
+    return oo, od
 
 
-def pack_shade_tables(tri, device):
-    """Per-triangle shading rows in scene order: tri_f (T, 24) float32
+def quadratic(a, b, c):
+    """a t^2 + b t + c = 0 (misc.rs:231-252): (ok, t0 <= t1), zeros where
+    no real root."""
+    disc = b * b - 4.0 * a * c
+    ok = disc >= 0.0
+    root = torch.sqrt(torch.clamp(disc, min=0.0))
+    q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
+    t0 = q / torch.where(a == 0.0, 1.0, a)
+    t1 = c / torch.where(q == 0.0, 1.0, q)
+    lo = torch.where(ok, torch.minimum(t0, t1), 0.0)
+    hi = torch.where(ok, torch.maximum(t0, t1), 0.0)
+    return ok, lo, hi
+
+
+def intersect_spheres(sph, o, d, t_max):
+    """Every sphere of the tables `sph` (sphere_tables, or None): the
+    closest (t, idx, hit) with t in (SPH_EPS, t_max), t = +inf on a miss."""
+    n = o.shape[0]
+    if sph is None:
+        return (torch.full((n,), torch.inf, dtype=o.dtype, device=o.device),
+                torch.full((n,), -1, dtype=torch.int64, device=o.device),
+                torch.zeros(n, dtype=torch.bool, device=o.device))
+    oo, od = _sphere_rays(sph, o, d)
+    radius = sph["radius"][None]
+    a = (od * od).sum(-1)
+    b = 2.0 * (od * oo).sum(-1)
+    c = (oo * oo).sum(-1) - radius**2
+    ok, t0, t1 = quadratic(a, b, c)
+
+    def clip_ok(t):
+        p = oo + od * t[..., None]
+        z = torch.clamp(p[..., 2], -radius, radius)
+        phi = torch.atan2(p[..., 1], p[..., 0])
+        phi = torch.where(phi < 0.0, phi + 2.0 * np.pi, phi)
+        zok = (z >= sph["z_min"][None] - 1e-6) & (z <= sph["z_max"][None] + 1e-6)
+        return zok & (phi <= sph["phi_max"][None] + 1e-6)
+
+    tm = t_max[:, None]
+    t0_ok = ok & (t0 > SPH_EPS) & (t0 < tm) & clip_ok(t0)
+    t1_ok = ok & (t1 > SPH_EPS) & (t1 < tm) & clip_ok(t1)
+    t = torch.where(t0_ok, t0, torch.where(t1_ok, t1, torch.inf))
+    tbest, idx = t.min(-1)
+    hit = torch.isfinite(tbest)
+    return tbest, torch.where(hit, idx, -1), hit
+
+
+def combine_spheres(hit, sph, o, d, t_max):
+    """Min-combine the spheres' closest hits with a triangle hit
+    (SceneCtx._combine_spheres: primitives.rs intersect semantics)."""
+    st, sidx, sh = intersect_spheres(sph, o, d, t_max)
+    use_s = sh & (st < torch.where(hit.valid, hit.t, t_max))
+    return Hit(
+        t=torch.where(use_s, st, hit.t),
+        kind=torch.where(use_s, PRIM_SPHERE, hit.kind),
+        index=torch.where(use_s, sidx, hit.index),
+        valid=hit.valid | sh,
+    )
+
+
+def intersect_brute(tri_packed, o, d, t_max, sph=None):
+    hit = tri_hit(*intersect_triangles(tri_packed, o, d, t_max))
+    return hit if sph is None else combine_spheres(hit, sph, o, d, t_max)
+
+
+def occluded_brute(tri_packed, o, d, t_max, sph=None):
+    return intersect_brute(tri_packed, o, d, t_max, sph).valid
+
+
+def pack_shade_tables(tri, device, sph=None):
+    """Per-primitive shading rows in scene order: tri_f (T, 24) float32
     [p0, p1, p2, uv0, uv1, uv2, dpdu, dpdv, ng] and tri_i (T, 2) int64
-    [material, area light]."""
+    [material, area light]; with spheres (sphere_tables) also "sph", the
+    tables themselves."""
     f = np.concatenate(
-        [np.asarray(a, np.float32)
-         for a in (tri.p0, tri.p1, tri.p2, tri.uv0, tri.uv1, tri.uv2, tri.dpdu, tri.dpdv, tri.ng)],
+        [np.asarray(a, np.float32).reshape(-1, k)
+         for a, k in ((tri.p0, 3), (tri.p1, 3), (tri.p2, 3), (tri.uv0, 2), (tri.uv1, 2),
+                      (tri.uv2, 2), (tri.dpdu, 3), (tri.dpdv, 3), (tri.ng, 3))],
         axis=1,
     )
     i = np.stack([np.asarray(tri.mat, np.int64), np.full(tri.count, -1, np.int64)], axis=1)
-    return {"tri_f": torch.as_tensor(f, device=device), "tri_i": torch.as_tensor(i, device=device)}
+    out = {"tri_f": torch.as_tensor(f, device=device), "tri_i": torch.as_tensor(i, device=device)}
+    if sph is not None:
+        out["sph"] = sph
+    return out
+
+
+def _sphere_surface(sph, idx, p_hit):
+    """The sphere branch of surface_interaction (sphere.rs Shape::intersect):
+    the hit reprojected onto the sphere in object space, ng = ns through
+    w2o's transpose, (u, v) from (phi, theta), dpdu = o2w (-phi_max y,
+    phi_max x, 0), dpdv along theta.  Returns (ng, uv, dpdu, dpdv, mat)."""
+    w2o = sph["w2o"][idx]
+    o2w = sph["o2w"][idx]
+    radius = sph["radius"][idx]
+    po = torch.einsum("nij,nj->ni", w2o[:, :3, :3], p_hit) + w2o[:, :3, 3]
+    po = po * (radius / torch.clamp(torch.linalg.vector_norm(po, dim=-1), min=1e-30))[:, None]
+    phi = torch.atan2(po[:, 1], po[:, 0])
+    phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+    theta = torch.arccos(torch.clamp(po[:, 2] / radius, -1.0, 1.0))
+    phi_max = sph["phi_max"][idx]
+    th_min, th_max = sph["theta_min"][idx], sph["theta_max"][idx]
+    uv = torch.stack([phi / phi_max,
+                      (theta - th_min) / torch.where(th_max == th_min, 1.0, th_max - th_min)], -1)
+    inv_zr = 1.0 / torch.sqrt(torch.clamp(po[:, 0] ** 2 + po[:, 1] ** 2, min=1e-20))
+    cos_phi, sin_phi = po[:, 0] * inv_zr, po[:, 1] * inv_zr
+    dpdu_o = torch.stack([-phi_max * po[:, 1], phi_max * po[:, 0], torch.zeros_like(phi)], -1)
+    dpdv_o = torch.stack([po[:, 2] * cos_phi, po[:, 2] * sin_phi,
+                          -radius * torch.sin(theta)], -1) * (th_max - th_min)[:, None]
+    ng = torch.einsum("nji,nj->ni", w2o[:, :3, :3], po)
+    ng = ng / torch.clamp(torch.linalg.vector_norm(ng, dim=-1), min=1e-30)[:, None]
+    dpdu = torch.einsum("nij,nj->ni", o2w[:, :3, :3], dpdu_o)
+    dpdv = torch.einsum("nij,nj->ni", o2w[:, :3, :3], dpdv_o)
+    return ng, uv, dpdu, dpdv, sph["mat"][idx]
 
 
 def surface_interaction(shade_tables, hit, o, d):
-    """The hit's shading geometry (triangle.rs:220-320): the barycentrics
-    recomputed from the stored triangle, the interpolated uv, the baked
-    dpdu, dpdv and ng, and ns = ng."""
+    """The hit's shading geometry: for a triangle (triangle.rs:220-320)
+    the barycentrics recomputed from the stored triangle, the
+    interpolated uv, the baked dpdu, dpdv and ng, and ns = ng; for a
+    sphere _sphere_surface."""
     idx = hit.index.clamp(min=0)
     t_safe = torch.where(hit.valid, hit.t, 0.0)
     p_hit = o + d * t_safe[:, None]
-    tf = shade_tables["tri_f"][idx]
-    ti = shade_tables["tri_i"][idx]
-    p0 = tf[:, 0:3]
-    e1 = tf[:, 3:6] - p0
-    e2 = tf[:, 6:9] - p0
-    pv = cross(d, e2)
-    det = dot(e1, pv)
-    inv = 1.0 / torch.where(torch.abs(det) < TRI_EPS, 1.0, det)
-    tv = o - p0
-    ub = dot(tv, pv) * inv
-    vb = dot(d, cross(tv, e1)) * inv
-    w = 1.0 - ub - vb
-    uv = tf[:, 9:11] * w[:, None] + tf[:, 11:13] * ub[:, None] + tf[:, 13:15] * vb[:, None]
-    ng = tf[:, 21:24]
+    n = o.shape[0]
+    if shade_tables["tri_f"].shape[0]:
+        tf = shade_tables["tri_f"][idx.clamp(max=shade_tables["tri_f"].shape[0] - 1)]
+        ti = shade_tables["tri_i"][idx.clamp(max=shade_tables["tri_f"].shape[0] - 1)]
+        p0 = tf[:, 0:3]
+        e1 = tf[:, 3:6] - p0
+        e2 = tf[:, 6:9] - p0
+        pv = cross(d, e2)
+        det = dot(e1, pv)
+        inv = 1.0 / torch.where(torch.abs(det) < TRI_EPS, 1.0, det)
+        tv = o - p0
+        ub = dot(tv, pv) * inv
+        vb = dot(d, cross(tv, e1)) * inv
+        w = 1.0 - ub - vb
+        uv = tf[:, 9:11] * w[:, None] + tf[:, 11:13] * ub[:, None] + tf[:, 13:15] * vb[:, None]
+        ng, dpdu, dpdv = tf[:, 21:24], tf[:, 15:18], tf[:, 18:21]
+        mat, al = ti[:, 0], ti[:, 1]
+    else:
+        ng = dpdu = dpdv = torch.zeros_like(o)
+        uv = torch.zeros((n, 2), dtype=o.dtype, device=o.device)
+        mat = al = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    sph = shade_tables.get("sph")
+    if sph is not None:
+        is_s = hit.kind == PRIM_SPHERE
+        s_ng, s_uv, s_dpdu, s_dpdv, s_mat = _sphere_surface(
+            sph, idx.clamp(max=sph["radius"].shape[0] - 1), p_hit)
+        sel = is_s[:, None]
+        ng, uv = torch.where(sel, s_ng, ng), torch.where(sel, s_uv, uv)
+        dpdu, dpdv = torch.where(sel, s_dpdu, dpdu), torch.where(sel, s_dpdv, dpdv)
+        mat = torch.where(is_s, s_mat, mat)
+        al = torch.where(is_s, -1, al)
     return SurfaceHit(
-        p=p_hit, ng=ng, ns=ng, uv=uv, dpdu=tf[:, 15:18], dpdv=tf[:, 18:21], wo=-d,
-        mat=torch.where(hit.valid, ti[:, 0], -1),
-        area_light=torch.where(hit.valid, ti[:, 1], -1),
+        p=p_hit, ng=ng, ns=ng, uv=uv, dpdu=dpdu, dpdv=dpdv, wo=-d,
+        mat=torch.where(hit.valid, mat, -1),
+        area_light=torch.where(hit.valid, al, -1),
         valid=hit.valid,
     )
 

@@ -361,6 +361,13 @@ def _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1):
     return wsx, wsy, wsz, out, pdf, transmitted
 
 
+def _chosen_kind(row, n_lob, ub0):
+    """The kind of the lobe _bsdf_sample picks with ub0, (N,) int64."""
+    matching = torch.clamp(n_lob, min=1)
+    comp = torch.minimum((ub0 * matching).to(torch.int64), matching - 1)
+    return torch.gather(row, 1, (16 + 16 * comp)[:, None])[:, 0].to(torch.int64)
+
+
 # ---- the Bsdf methods on (N, 3) world vectors (the wavefront loop) ----
 
 
@@ -379,6 +386,7 @@ class BsdfSample(NamedTuple):
     pdf: torch.Tensor  # (N,)
     transmitted: torch.Tensor  # (N,) bool: a specular transmission was sampled
     valid: torch.Tensor  # (N,) bool
+    specular: torch.Tensor = None  # (N,) bool: the sampled lobe is specular
 
 
 def make_frame(ns, ng, dpdu):
@@ -465,16 +473,43 @@ def bsdf_pdf(params, fr, wo_w, wi_w, flags):
 
 
 def bsdf_sample(params, fr, wo_w, u, flags=BXDF_ALL):
-    """Bsdf::sample_f (reflection.rs:302-381) over every lobe of the row;
-    `u` (N, 2).  Only BXDF_ALL is taken: the loop samples no other set."""
-    if flags != BXDF_ALL:
-        raise NotImplementedError("bsdf_sample over a subset of the lobes")
+    """Bsdf::sample_f (reflection.rs:302-381) over the row's lobes that
+    match `flags`; `u` (N, 2).  The (comp + 1)-th matching lobe is chosen
+    by u[:, 0], its pdf averaged over the matching lobes; the others'
+    pdfs are added only when the chosen lobe does not reflect (the
+    reference's gate, reflection.rs:358)."""
     wo = world_to_local(fr, wo_w)
     n_lob = params[:, 15].to(torch.int64)
-    wsx, wsy, wsz, fs, pdf, transmitted = _bsdf_sample(
-        params, n_lob, wo[:, 0], wo[:, 1], wo[:, 2], u[:, 0], u[:, 1]
-    )
-    valid = (n_lob > 0) & (wo[:, 2] != 0.0) & (pdf > 0.0)
+    u0, u1 = u[:, 0], u[:, 1]
+    if flags == BXDF_ALL:
+        wsx, wsy, wsz, fs, pdf, transmitted = _bsdf_sample(
+            params, n_lob, wo[:, 0], wo[:, 1], wo[:, 2], u0, u1
+        )
+        matching = n_lob
+        chosen_kind = _chosen_kind(params, n_lob, u0)
+    else:
+        slots = lobe_count(params)
+        lobs = [_lobe(params, 16 + 16 * l) for l in range(slots)]
+        match = torch.stack([_matches(lob, l, n_lob, flags)[0] for l, lob in enumerate(lobs)], -1)
+        matching = match.sum(-1)
+        comp = torch.minimum((u0 * matching).to(torch.int64), matching)
+        cum = torch.cumsum(match.to(torch.int64), -1)
+        chosen = torch.argmax(((cum == (comp + 1)[:, None]) & match).to(torch.int64), -1)
+        u0r = torch.clamp(u0 * matching - comp.to(DTYPE), max=ONE_MINUS_EPSILON)
+        cols = (16 + 16 * chosen)[:, None] + torch.arange(16, device=params.device)
+        lob = _lobe(torch.gather(params, 1, cols), 0)
+        wsx, wsy, wsz, fs, pdf, transmitted = _lobe_sample(lob, wo[:, 0], wo[:, 1], wo[:, 2],
+                                                           u0r, u1)
+        chosen_kind = lob["kind"]
+        wi = torch.stack([wsx, wsy, wsz], -1)
+        refl = (lobe_flags(chosen_kind) & BXDF_REFLECTION) != 0
+        extra = torch.zeros_like(pdf)
+        for l, lb in enumerate(lobs):
+            use = match[:, l] & (chosen != l)
+            extra = extra + torch.where(use, lobe_pdf(lb, wo, wi), 0.0)
+        pdf = pdf + torch.where(~refl & (matching > 1), extra, 0.0)
+        pdf = torch.where(matching > 1, pdf / torch.clamp(matching, min=1).to(DTYPE), pdf)
+    valid = (matching > 0) & (wo[:, 2] != 0.0) & (pdf > 0.0)
     wi_w = local_to_world(fr, torch.stack([wsx, wsy, wsz], -1))
     return BsdfSample(
         f=torch.where(valid[:, None], torch.stack(fs, -1), 0.0),
@@ -482,4 +517,5 @@ def bsdf_sample(params, fr, wo_w, u, flags=BXDF_ALL):
         pdf=torch.where(valid, pdf, 0.0),
         transmitted=valid & transmitted,
         valid=valid,
+        specular=valid & _is_spec(chosen_kind.to(torch.int64)),
     )

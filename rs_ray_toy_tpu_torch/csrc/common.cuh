@@ -702,13 +702,15 @@ __device__ void concentric_disk(float u0, float u1, float& dxo, float& dyo) {
 // One BSDF sample at a surface vertex (Bsdf::sample_f, reference-quirk exact;
 // ops/path_megakernel._bsdf_sample): a lobe picked uniformly by ub0, the
 // lobe's direction in the local frame, its f and pdf (divided by the lobe
-// count), and whether a fresnel-specular lobe transmitted (the etaScale
-// factor).  A zero f or pdf ends the path.
+// count), whether a fresnel-specular lobe transmitted (the etaScale
+// factor) and whether the picked lobe is specular.  A zero f or pdf ends the
+// path.
 struct BsdfSample {
   float wx, wy, wz;
   float f[3];
   float pdf;
   bool transmitted;
+  bool specular;
 };
 
 __device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, float wol_y,
@@ -782,6 +784,7 @@ __device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, floa
   }
   if (matching > 1) s.pdf = s.pdf / (float)matching;
   s.transmitted = lc.kind == LOBE_FRESNEL_SPEC && !fs_reflect;
+  s.specular = is_spec_kind(lc.kind);
   return s;
 }
 

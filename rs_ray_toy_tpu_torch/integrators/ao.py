@@ -4,7 +4,9 @@ Each camera ray's first hit sends n_samples probe rays over the hemisphere
 of the shading normal faced toward the viewer, cosine- or uniformly
 distributed (sampler dimensions 8 + k); L = the mean of the unoccluded
 probes' cos / pdf, over pi (ao.rs:53-99), the same on every channel.  Every
-probe is one occlusion query of SceneCtx (K4 or K3 any hit on the card).
+probe is one occlusion query of SceneCtx (K4 or K3 any hit on the card,
+spheres in plain torch).  AO reads no light: it takes every scene the
+loader takes, but for a camera medium.
 """
 
 import torch

@@ -1,19 +1,25 @@
 """Shared integrator machinery (rs_ray_toy_tpu/integrators/common.py).
 
-`SceneCtx` holds a triangle scene's device tables and answers the
-wavefront loop's queries whatever the accelerator, as the JAX package's
-does (:86-165): up to BRUTE_FORCE_CUTOFF primitives every query is the
-brute-force kernel K4 (ops/intersect_kernel; occlusion is its hit flag),
-above it a BVH with leaves of 16 triangles and kernel K3
+`SceneCtx` holds a scene's device tables and answers the wavefront
+loop's queries whatever the accelerator, as the JAX package's does
+(:86-165): up to BRUTE_FORCE_CUTOFF triangles every triangle query is
+the brute-force kernel K4 (ops/intersect_kernel; occlusion is its hit
+flag), above it a BVH with leaves of 16 triangles and kernel K3
 (ops/bvh_kernel): closest and any hit, and the shaded closest hit that
-returns the winner's surface attributes.  On CPU tensors the kernels'
+returns the winner's surface attributes.  Spheres are intersected brute
+force in plain torch and min-combined with the triangle winner
+(`_combine_spheres` in the JAX package), in `intersect`,
+`intersect_shaded` and `occluded` alike.  On CPU tensors the kernels'
 plain versions answer.
 
 `estimate_direct` and `uniform_sample_one_light` are integrator/mod.rs:
-359-558 in batched form for the ported lights (point lights: delta, so
-only the light-sampling branch contributes, and the BSDF-sampling branch,
-which can only reach infinite lights, is never taken).  `scrub_radiance`
-is the film's radiance scrub.
+359-558 in batched form: the light-sampling branch with its power-
+heuristic MIS weight (1 for delta lights), and for scenes with
+environment lights the BSDF-sampling branch, whose escaped rays collect
+the sampled environment (the reference's aggregate links no area light to
+a primitive, so a BSDF ray never identifies an area light and that
+branch adds nothing for one; integrator/mod.rs:540-547).
+`scrub_radiance` is the film's radiance scrub.
 """
 
 import numpy as np
@@ -22,13 +28,14 @@ import torch
 from ..accel import geometry as geom
 from ..bsdf import eval as beval
 from ..config import DTYPE, SHADOW_EPSILON
+from ..core.sampling import power_heuristic
 from ..core.spectrum import luminance
 from ..core.vec import dot
 from ..lights import lights as lmod
 from ..ops import bvh_kernel as bk
 from ..ops import intersect_kernel as ik
 from ..ops.path_megakernel import LOBES_MAX, _resolve_mat_arrays, fill_lobe_columns
-from ..scene.types import LIGHT_POINT
+from ..scene.types import LIGHT_INFINITE
 
 BRUTE_FORCE_CUTOFF = 256  # accel/bvh.py: brute force up to here
 
@@ -46,48 +53,67 @@ def material_rows(materials, device):
 
 
 class SceneCtx:
-    """Device tables of a triangle scene and the wavefront loop's queries.
+    """Device tables of a scene and the wavefront loop's queries.
 
-    tri_packed (T, 12) [p0, e1, e2, pad] (K4's table), shade: the scene-order
-    shade rows (accel/geometry.pack_shade_tables), mat_rows: material_rows,
-    lights: a point-light LightTable, bvh: K3's tables (ops/bvh_kernel) or
-    None for brute force.  `from_scene` builds them from a loaded scene."""
+    tri_packed (T, 12) [p0, e1, e2, pad] (K4's table), shade: the
+    scene-order shade rows with the sphere tables (accel/geometry
+    .pack_shade_tables), mat_rows: material_rows, lights: a LightTable,
+    bvh: K3's tables (ops/bvh_kernel) or None for brute force.
+    `from_scene` builds them from a loaded scene."""
 
     def __init__(self, tri_packed, shade, mat_rows, lights, bvh=None):
         self.tri_packed = tri_packed
         self.shade = shade
+        self.sph = shade.get("sph")
         self.mat_rows = mat_rows
         self.lights = lights
         self.n_lights = int(lights.kind.shape[0])
         self.bvh = bvh
+        self.n_tris = int(tri_packed.shape[0])
 
     @classmethod
     def from_scene(cls, scene, device):
         """The tables of a loaded scene: a BVH above BRUTE_FORCE_CUTOFF
-        primitives."""
+        triangles."""
         tri = scene.triangles
-        lk = np.asarray(scene.lights.kind)
-        if np.any(lk != LIGHT_POINT):
-            raise NotImplementedError("lights other than point lights in the wavefront loop")
+        sph = geom.sphere_tables(scene.spheres, device)
         return cls(
             tri_packed=torch.as_tensor(ik.pack_triangles(tri.p0, tri.p1, tri.p2), device=device),
-            shade=geom.pack_shade_tables(tri, device),
+            shade=geom.pack_shade_tables(tri, device, sph),
             mat_rows=material_rows(scene.materials, device),
-            lights=lmod.point_lights(scene.lights.p, scene.lights.emit, device),
+            lights=lmod.scene_lights(scene, device),
             bvh=bk.pack_bvh(tri, device) if tri.count > BRUTE_FORCE_CUTOFF else None,
         )
 
-    def intersect(self, o, d, t_max):
+    def _no_hit(self, o):
+        n = o.shape[0]
+        return geom.Hit(
+            t=torch.full((n,), torch.inf, dtype=o.dtype, device=o.device),
+            kind=torch.full((n,), geom.PRIM_NONE, dtype=torch.int64, device=o.device),
+            index=torch.full((n,), -1, dtype=torch.int64, device=o.device),
+            valid=torch.zeros(n, dtype=torch.bool, device=o.device),
+        )
+
+    def _tri_intersect(self, o, d, t_max):
+        if self.n_tris == 0:
+            return self._no_hit(o)
         if self.bvh is not None:
             return geom.tri_hit(*bk.intersect_bvh(self.bvh, o, d, t_max))
         return geom.tri_hit(*ik.intersect_triangles(self.tri_packed, o, d, t_max))
+
+    def intersect(self, o, d, t_max):
+        hit = self._tri_intersect(o, d, t_max)
+        if self.sph is None:
+            return hit
+        return geom.combine_spheres(hit, self.sph, o, d, t_max)
 
     def surface(self, hit, o, d):
         return geom.surface_interaction(self.shade, hit, o, d)
 
     def intersect_shaded(self, o, d, t_max):
         """Closest hit and its surface interaction: the shaded kernel over
-        a BVH, else the hit and the gathered shade rows."""
+        a BVH (sphere winners shaded from the sphere tables), else the hit
+        and the gathered shade rows."""
         if self.bvh is None:
             hit = self.intersect(o, d, t_max)
             return hit, self.surface(hit, o, d)
@@ -98,12 +124,35 @@ class SceneCtx:
             p=o + d * t_safe[:, None], ng=at["ng"], ns=at["ns"], uv=at["uv"], dpdu=at["dpdu"],
             dpdv=at["dpdv"], wo=-d, mat=at["mat"], area_light=at["area_light"], valid=valid,
         )
-        return hit, si
+        if self.sph is None:
+            return hit, si
+        hit2 = geom.combine_spheres(hit, self.sph, o, d, t_max)
+        is_s = hit2.kind == geom.PRIM_SPHERE
+        si_s = geom.surface_interaction(
+            {"tri_f": self.shade["tri_f"][:0], "tri_i": self.shade["tri_i"][:0], "sph": self.sph},
+            geom.Hit(hit2.t, torch.where(is_s, geom.PRIM_SPHERE, geom.PRIM_NONE), hit2.index, is_s),
+            o, d,
+        )
+        sel = is_s[:, None]
+        si = geom.SurfaceHit(
+            p=torch.where(sel, si_s.p, si.p), ng=torch.where(sel, si_s.ng, si.ng),
+            ns=torch.where(sel, si_s.ns, si.ns), uv=torch.where(sel, si_s.uv, si.uv),
+            dpdu=torch.where(sel, si_s.dpdu, si.dpdu), dpdv=torch.where(sel, si_s.dpdv, si.dpdv),
+            wo=si.wo, mat=torch.where(is_s, si_s.mat, si.mat),
+            area_light=torch.where(is_s, si_s.area_light, si.area_light), valid=hit2.valid,
+        )
+        return hit2, si
 
     def occluded(self, o, d, t_max):
-        if self.bvh is not None:
-            return bk.occluded_bvh(self.bvh, o, d, t_max)
-        return self.intersect(o, d, t_max).valid
+        if self.n_tris == 0:
+            occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+        elif self.bvh is not None:
+            occ = bk.occluded_bvh(self.bvh, o, d, t_max)
+        else:
+            occ = self._tri_intersect(o, d, t_max).valid
+        if self.sph is not None:
+            occ = occ | geom.intersect_spheres(self.sph, o, d, t_max)[2]
+        return occ
 
     def shade_params(self, si):
         """Each hit's lobe row (material_rows); no lobes where there is no
@@ -124,38 +173,62 @@ def shadow_unoccluded(ctx, si, p_light):
     return ~ctx.occluded(origin, p_light - origin, t_max)
 
 
-def estimate_direct(ctx, si, params, frame, light_idx, u_light):
+def estimate_direct(ctx, si, params, frame, light_idx, u_light, u_scatter):
     """One light's direct contribution at each shading point, (N, 3)
-    (integrator/mod.rs:403-558, no media, bsdf flags ALL & ~SPECULAR).
-    Point lights are delta lights: the light sample takes weight 1 and the
-    BSDF-sampling branch is skipped (it can only reach infinite lights,
-    which the loop does not take)."""
+    (integrator/mod.rs:403-558, no media, bsdf flags ALL & ~SPECULAR):
+    the light sample weighted by the power heuristic against the BSDF's
+    pdf (1 for delta lights), and with environment lights the BSDF sample
+    whose ray escapes toward the sampled environment, weighted against
+    the light's pdf."""
     flags = beval.BXDF_ALL & ~beval.BXDF_SPECULAR
     p = si.p
-    wi, li, pdf, p_light, _ = lmod.sample_li(ctx.lights, light_idx, p[:, 0], p[:, 1], p[:, 2],
-                                             u_light[:, 0], u_light[:, 1])
+    lt = ctx.lights
+    wi, li, pdf, p_light, delta = lmod.sample_li(lt, light_idx, p[:, 0], p[:, 1], p[:, 2],
+                                                 u_light[:, 0], u_light[:, 1])
     wi = torch.stack(wi, -1)
     li = torch.stack(li, -1)
-    f, _ = beval.bsdf_f_pdf(params, frame, si.wo, wi, flags)
+    f, scattering_pdf = beval.bsdf_f_pdf(params, frame, si.wo, wi, flags)
     f = f * torch.abs(dot(wi, frame.ns))[:, None]
     live = si.valid & (pdf > 0.0) & torch.any(li > 0.0, -1) & torch.any(f > 0.0, -1)
     unocc = shadow_unoccluded(ctx, si, torch.stack(p_light, -1))
     li = torch.where((live & unocc)[:, None], li, 0.0)
-    ld = li * f * (1.0 / torch.clamp(pdf, min=1e-20))[:, None]
+    weight = torch.where(delta, 1.0, power_heuristic(pdf, scattering_pdf))
+    ld = li * f * (weight / torch.clamp(pdf, min=1e-20))[:, None]
+
+    if lt.envs and bool((lt.kind == LIGHT_INFINITE).any()):
+        bs = beval.bsdf_sample(params, frame, si.wo, u_scatter, flags)
+        f2 = bs.f * torch.abs(dot(bs.wi_world, frame.ns))[:, None]
+        light_pdf2 = lmod.pdf_li(lt, light_idx, p[:, 0], p[:, 1], p[:, 2], *bs.wi_world.unbind(-1))
+        w2 = torch.where(bs.specular, 1.0, power_heuristic(bs.pdf, light_pdf2))
+        live2 = (si.valid & bs.valid & torch.any(f2 > 0.0, -1) & (bs.pdf > 0.0)
+                 & (bs.specular | (light_pdf2 > 0.0)))
+        origin = geom.offset_ray_origin(si.p, si.ng, bs.wi_world)
+        hit2 = ctx.intersect(origin, bs.wi_world, torch.where(live2, torch.inf, 0.0).to(DTYPE))
+        # a hit never identifies the sampled light (no emissive
+        # primitives); an escaped ray sees the sampled environment
+        li2 = torch.zeros_like(f2)
+        kind = lt.kind[light_idx]
+        for env_id, env in enumerate(lt.envs):
+            sel = (kind == LIGHT_INFINITE) & (lt.shape_index[light_idx] == env_id) & ~hit2.valid
+            li2 = torch.where(sel[:, None], env["rgb"], li2)
+        ld = ld + torch.where(live2[:, None],
+                              li2 * f2 * (w2 / torch.clamp(bs.pdf, min=1e-20))[:, None], 0.0)
     return torch.where(si.valid[:, None], ld, 0.0)
 
 
 def uniform_sample_one_light(ctx, si, params, frame, sampler, pixel_id, s_idx, dim_base):
     """(integrator/mod.rs:359-401): one light picked uniformly with the
     1D value at dim_base, its sample with the 2D value at dim_base + 1,
-    the estimate divided by the pick pdf.  Returns (ld, next dimension)."""
+    the BSDF sample of MIS with the 2D value at dim_base + 2, the
+    estimate divided by the pick pdf.  Returns (ld, next dimension)."""
     if ctx.n_lights == 0:
         return torch.zeros_like(si.p), dim_base
     u_pick = sampler.get_1d(pixel_id, s_idx, dim_base)
     idx = torch.clamp((u_pick * ctx.n_lights).to(torch.int64), max=ctx.n_lights - 1)
     pdf = torch.full_like(u_pick, 1.0 / ctx.n_lights)
     u_light = sampler.get_2d(pixel_id, s_idx, dim_base + 1)
-    ld = estimate_direct(ctx, si, params, frame, idx, u_light)
+    u_scatter = sampler.get_2d(pixel_id, s_idx, dim_base + 2)
+    ld = estimate_direct(ctx, si, params, frame, idx, u_light, u_scatter)
     return ld / torch.clamp(pdf, min=1e-20)[:, None], dim_base + 3
 
 

@@ -2,20 +2,26 @@
 integrator/path.rs).
 
 The bounce loop of path.rs:51-226 as a masked loop over (N,) rays: every
-ray advances one bounce per step under an active mask.  Per bounce: the
-shaded closest hit (dead lanes carry t_max = 0, so the kernels retire them
-at once), NEE with one uniformly picked light unless the BSDF is purely
-specular (path.rs:108-122), one BSDF sample for the next direction
-(reflection.rs:302-381), the etaScale factor of specular transmissions,
-and Russian roulette on beta * etaScale after bounce 3 (path.rs:212-222).
-Surface emission is identically zero in the reference (its aggregate never
-links area lights to primitives) and the loop takes no infinite lights, so
-escaped rays carry nothing.
+ray advances one bounce per step under an active mask, max_depth steps
+and, with `infinite_lights`, one more.  Per step: the shaded closest hit
+(dead lanes carry t_max = 0, so the kernels retire them at once); an
+escaped ray collects the radiance of the `infinite_lights` environments
+at the first step or after a specular bounce (path.rs:79-88), and the
+extra step does nothing else; NEE with one
+uniformly picked light unless the BSDF is purely specular (path.rs:
+108-122), with MIS for area and environment lights; one BSDF sample for
+the next direction (reflection.rs:302-381), the etaScale factor of
+specular transmissions, and Russian roulette on beta * etaScale after
+bounce 3 (path.rs:212-222).  Surface emission is identically zero in the
+reference (its aggregate never links area lights to primitives).
 
 This is the JAX package's `li_path`, the jnp twin of the path kernel K1;
-the render takes it where K1 does not (`unsupported_feature` names what it
-does not take either: BSSRDF, textures and environment lights are outside
-the port's loader already).
+the render takes it where K1 does not: partial spheres, more than 8
+spheres or lights, distant and triangle lights, more than one
+environment light, an environment light beside a specular lobe, meshes
+past K1's 65,536 triangles (`unsupported_feature` names what it does not
+take either: BSSRDF, textures and image-map environments are outside the
+port's loader already).
 """
 
 from typing import Optional
@@ -26,6 +32,7 @@ from ..bsdf import eval as beval
 from ..config import DTYPE
 from ..core.vec import dot
 from ..accel.geometry import offset_ray_origin
+from ..lights.lights import has_escape, le_escape
 from ..ops import bvh_kernel as bk
 from ..ops.path_megakernel import DEPTH_MAX, PORTED_KINDS, scene_unsupported
 from ..sampler.dims import PATH_BSDF, PATH_RR, path_dim0
@@ -34,12 +41,14 @@ from .common import uniform_sample_one_light
 
 def unsupported_feature(scene, spec, sampler) -> Optional[str]:
     """The first feature of the job outside the wavefront Path loop, or
-    None: the path kernel's subset, up to BVH_PRIM_MAX triangles."""
+    None: the path kernel's lobes and sampler, any number of spheres and
+    lights of every loaded kind, up to BVH_PRIM_MAX triangles."""
     if spec.kind != "path":
         return f"{spec.kind} integrator"
     if not 1 <= spec.max_depth <= DEPTH_MAX:
         return f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}"
-    return scene_unsupported(scene, sampler, PORTED_KINDS, tri_max=bk.BVH_PRIM_MAX)
+    return scene_unsupported(scene, sampler, PORTED_KINDS, tri_max=bk.BVH_PRIM_MAX,
+                             wavefront=True)
 
 
 def li_path(ctx, o, d, cam_weight, sampler, pixel_id, s_idx, spec):
@@ -49,14 +58,27 @@ def li_path(ctx, o, d, cam_weight, sampler, pixel_id, s_idx, spec):
     active = cam_weight > 0.0
     beta = torch.ones((n, 3), dtype=DTYPE, device=o.device) * active[:, None]
     eta_scale = torch.ones(n, dtype=DTYPE, device=o.device)
+    specular_bounce = torch.zeros(n, dtype=torch.bool, device=o.device)
+    escape = has_escape(ctx.lights)
     ro, rd = o, d
     nonspec = beval.BXDF_ALL & ~beval.BXDF_SPECULAR
-    # bounce max_depth would only collect escaped infinite light: not traced
-    for bounces in range(spec.max_depth):
+    # the last step only collects the escape radiance: without
+    # infinite_lights it adds nothing and is not traced
+    for bounces in range(spec.max_depth + (1 if escape else 0)):
         dim0 = path_dim0(bounces)
         t_max = torch.where(active, torch.inf, 0.0).to(DTYPE)
         hit, si = ctx.intersect_shaded(ro, rd, t_max)
-        active = active & hit.valid
+        found = hit.valid & active
+        # escaped rays: the environments at bounce 0 or after a specular
+        # bounce (path.rs:79-88); surface emission is zero
+        if escape:
+            collect = active & ~found
+            if bounces > 0:
+                collect = collect & specular_bounce
+            L = L + torch.where(collect[:, None], beta * le_escape(ctx.lights, n, o.device), 0.0)
+        active = found & (bounces < spec.max_depth)
+        if bounces == spec.max_depth:
+            break
         si = si._replace(valid=si.valid & active)
         params = ctx.shade_params(si)
         frame = ctx.frame(si)
@@ -74,6 +96,7 @@ def li_path(ctx, o, d, cam_weight, sampler, pixel_id, s_idx, spec):
         cos_pdf = torch.abs(dot(bs.wi_world, frame.ns)) / torch.clamp(bs.pdf, min=1e-20)
         beta = torch.where(ok[:, None], beta * bs.f * cos_pdf[:, None], beta)
         active = active & ok
+        specular_bounce = bs.specular
 
         # etaScale (path.rs:150-163)
         eta = params[:, 31]

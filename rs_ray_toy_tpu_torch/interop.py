@@ -2,14 +2,17 @@
 
 `from_jax_packed` takes what `rs_ray_toy_tpu.ops.path_megakernel`'s
 `pack_scene` / `pack_camera` return, as numpy arrays and python tuples
-(no JAX object crosses over), and builds this package's PackedScene and
-camera bundle; `from_jax_volpath` does the same for the Volpath kernel's
+(no JAX object crosses over), and builds this package's PackedScene
+(with the sphere rows, sphere-light rows, environment constants and
+escape radiance of the JAX SceneStatic when it is given) and camera
+bundle; `from_jax_volpath` does the same for the Volpath kernel's
 `pack_volpath` (its light constants, medium and power distribution, and
 the grid density as numpy); `from_jax_sppm` carries the SPPM pieces (the
 packed table, the resolved material tables, visible points, state,
 photon lights and rays); `from_jax_scene_ctx` builds the wavefront
-loop's SceneCtx from a JAX SceneCtx's triangle SoA, packed triangles,
-material table, lights and (optionally) its BVH kernel tables.  Tests use
+loop's SceneCtx from a JAX SceneCtx's triangle and sphere SoAs, packed
+triangles, material table, lights, environments and (optionally) its BVH
+kernel tables.  Tests use
 them to feed both packages identical tables, so a comparison does not
 depend on the two loaders agreeing.
 """
@@ -19,34 +22,87 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .accel.geometry import pack_shade_tables
+from .accel.geometry import pack_shade_tables, sphere_tables
 from .integrators.common import SceneCtx, material_rows
 from .integrators.sppm import PhotonLights, SPPMState
-from .lights.lights import point_lights
+from .lights.lights import light_table
 from .ops import bvh_kernel as bk
 from .ops import sppm_megakernel as smk
-from .ops.path_megakernel import TABLE_COLS, PackedScene, kinds_present
+from .ops.path_megakernel import (
+    SPH_O2W_COL,
+    SPH_RADIUS_COL,
+    TABLE_COLS,
+    EnvC,
+    PackedScene,
+    kinds_present,
+)
 from .ops.volpath_megakernel import PackedVolpath
-from .scene.types import LIGHT_DIFFUSE_AREA, LIGHT_POINT, MediumSpec
+from .scene.types import LIGHT_DIFFUSE_AREA, LIGHT_INFINITE, LIGHT_POINT, MediumSpec
 from .scene import medium as med
 
+_ROT9 = (0, 1, 2, 4, 5, 6, 8, 9, 10)  # the 3x3 of 12 rows
 
-def from_jax_packed(table_np, wide_lights, cam_packed, device):
+
+def _sphere_rows(spheres):
+    """(S, TABLE_COLS) rows of the JAX SphereC tuple (w2o / o2w 12 rows,
+    radius, n_lobes, mat_eta, LobeC lobes), or None."""
+    if not spheres:
+        return None
+    rows = np.zeros((len(spheres), TABLE_COLS), np.float32)
+    for i, s in enumerate(spheres):
+        rows[i, 0:12] = s.w2o
+        rows[i, SPH_RADIUS_COL] = s.radius
+        rows[i, 15] = s.n_lobes
+        rows[i, 31] = s.mat_eta
+        for l, lob in enumerate(s.lobes):
+            b = 16 + 16 * l
+            rows[i, b] = lob.kind
+            rows[i, b + 1:b + 4], rows[i, b + 4:b + 7], rows[i, b + 7:b + 10] = lob.s0, lob.s1, lob.s2
+            rows[i, b + 10:b + 15] = lob.au, lob.av, lob.fres, lob.eta_a, lob.eta_b
+        rows[i, SPH_O2W_COL:SPH_O2W_COL + 12] = s.o2w
+    return rows
+
+
+def from_jax_packed(table_np, wide_lights, cam_packed, device, wide=None):
     """table_np: the (T, 115) float32 table; wide_lights: the `lights`
-    tuple of the JAX SceneStatic payload (items with .kind, .p, .emit);
-    cam_packed: the JAX pack_camera dict.  Returns (PackedScene, camera
-    bundle)."""
+    tuple of the JAX SceneStatic payload (items with .kind, .p, .emit,
+    and for sphere lights .o2w / .w2o 12 rows and .radius, for the
+    environment .env, an EnvC); cam_packed: the JAX pack_camera dict or
+    None; wide: the whole SceneStatic (its spheres, escape radiance and
+    world radius), or None for a point-light scene.  Returns (PackedScene,
+    camera bundle)."""
     table = np.asarray(table_np, np.float32)
     if table.ndim != 2 or table.shape[1] != TABLE_COLS:
         raise ValueError(f"expected a (T, {TABLE_COLS}) table, got {table.shape}")
-    if any(int(l.kind) != LIGHT_POINT for l in wide_lights):
-        raise NotImplementedError("lights other than point lights")
+    kinds = tuple(int(l.kind) for l in wide_lights)
+    if wide is None and any(k != LIGHT_POINT for k in kinds):
+        raise NotImplementedError("lights other than point lights without the SceneStatic")
+    eye12 = (1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+    more = {}
+    if wide is not None:
+        env = next((l.env for l in wide_lights if int(l.kind) == LIGHT_INFINITE), None)
+        sph = _sphere_rows(wide.spheres)
+        rows_all = table if sph is None else np.concatenate([table, sph])
+        more = dict(
+            sph_table=None if sph is None else torch.as_tensor(sph, device=device),
+            kinds_present=kinds_present(rows_all),
+            light_kind=kinds,
+            light_o2w=tuple(tuple(l.o2w) if l.o2w is not None else eye12 for l in wide_lights),
+            light_w2o=tuple(tuple(l.w2o[i] for i in _ROT9) if l.w2o is not None
+                            else (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+                            for l in wide_lights),
+            light_radius=tuple(float(l.radius) for l in wide_lights),
+            env=None if env is None else EnvC(*(getattr(env, f) for f in EnvC._fields)),
+            esc_rgb=None if wide.esc_rgb is None else tuple(wide.esc_rgb),
+            world_radius=float(wide.world_radius),
+        )
     packed = PackedScene(
         table=torch.as_tensor(table, device=device),
         light_p=tuple(tuple(float(v) for v in l.p) for l in wide_lights),
         light_emit=tuple(tuple(float(v) for v in l.emit) for l in wide_lights),
+        **more,
     )
-    return packed, camera_from_jax(cam_packed)
+    return packed, None if cam_packed is None else camera_from_jax(cam_packed)
 
 
 def camera_from_jax(cam_packed):
@@ -143,26 +199,48 @@ def from_jax_sppm(device, packed=None, resolved=None, vp=None, state=None, power
 MAT_KEYS = ("kind", "s0", "s1", "s2", "fparams", "remap", "fresnel", "n_lobes", "eta")
 
 
-def from_jax_scene_ctx(ctx, device, bvh_tables=None):
+def _env_from_jax(env, rgb, device):
+    """The port's device environment of a JAX infinite_envs entry (its
+    `dist` device dict, to_world, to_local, escape_le) with the constant
+    texel `rgb`."""
+    f = lambda v: torch.tensor(np.array(v, np.float32), device=device)
+    dist = env["dist"]
+    return {
+        "rgb": f(rgb),
+        "dist": {k: f(dist[k]) for k in ("cond_func", "cond_cdf", "cond_int")}
+        | {"marginal": {k: f(v) for k, v in dist["marginal"].items()}},
+        "to_world": f(np.asarray(env["to_world"])[:3, :3]),
+        "to_local": f(np.asarray(env["to_local"])[:3, :3]),
+        "escape_le": bool(env.get("escape_le", False)),
+    }
+
+
+def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
     """The port's SceneCtx on a JAX SceneCtx's tables, read as numpy: its
-    triangle SoA (ctx.tri), packed triangles (ctx.tri_packed), material
-    table (ctx.mats) and point lights (ctx.lights).  bvh_tables: the dict
-    of the JAX package's pack_bvh_tables (nodes2_f, nodes_i, prims_f,
-    prims_i, shade_f with flat rows, max_leaf, depth) for a BVH context,
-    None for brute force."""
+    triangle and sphere SoAs (ctx.tri, ctx.sph), packed triangles
+    (ctx.tri_packed), material table (ctx.mats), lights (ctx.lights) and
+    environments (ctx.infinite_envs, with env_rgb the constant texel of
+    each).  bvh_tables: the dict of the JAX package's pack_bvh_tables
+    (nodes2_f, nodes_i, prims_f, prims_i, shade_f with flat rows,
+    max_leaf, depth) for a BVH context, None for brute force."""
     a = np.asarray
     tri = ctx.tri
-    if a(tri.has_n).any():
+    if tri.count and a(tri.has_n).any():
         raise NotImplementedError("smooth shading (vertex normals)")
-    lights = ctx.lights
-    if np.any(a(lights.kind) != LIGHT_POINT):
-        raise NotImplementedError("lights other than point lights")
+    if len(env_rgb) != len(ctx.infinite_envs):
+        raise ValueError("env_rgb needs the constant texel of every environment")
     soa = SimpleNamespace(
         **{k: a(getattr(tri, k)) for k in ("p0", "p1", "p2", "uv0", "uv1", "uv2", "dpdu", "dpdv",
                                            "ng", "mat")},
         count=int(tri.count),
     )
-    shade = pack_shade_tables(soa, device)
+    sph = ctx.sph
+    sph_ns = SimpleNamespace(
+        **{k: a(getattr(sph, k)) for k in ("o2w", "w2o", "radius", "z_min", "z_max", "theta_min",
+                                           "theta_max", "phi_max", "mat")},
+        count=int(sph.count),
+    )
+    shade = pack_shade_tables(soa, device, sphere_tables(sph_ns, device))
     shade["tri_i"][:, 1] = torch.as_tensor(np.array(tri.area_light, np.int64), device=device)
     bvh = None
     if bvh_tables is not None:
@@ -172,10 +250,21 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None):
             t("prims_i", np.int32), t("shade_f", np.float32), int(bvh_tables["max_leaf"]),
             int(bvh_tables["depth"]),
         )
+    lt = ctx.lights
+    n = int(lt.count)
+    lights = light_table(
+        a(lt.kind), a(lt.p), a(lt.emit), a(lt.sph_o2w)[:, :3, :4].reshape(n, 12),
+        a(lt.sph_w2o)[:, :3, :3].reshape(n, 9), a(lt.sph_radius), device,
+        w=a(lt.w_light), shape_kind=a(lt.shape_kind), tri_p=a(lt.tri_p).reshape(n, 9),
+        area=a(lt.area), w2o_t=a(lt.sph_w2o)[:, :3, 3], shape_index=a(lt.shape_index),
+        world_radius=float(a(lt.world_radius)),
+        envs=tuple(_env_from_jax(e, rgb, device) for e, rgb in zip(ctx.infinite_envs, env_rgb)),
+    )
     return SceneCtx(
-        tri_packed=torch.as_tensor(np.array(a(ctx.tri_packed), np.float32), device=device),
+        tri_packed=torch.as_tensor(np.array(a(ctx.tri_packed), np.float32).reshape(-1, 12)
+                                   if tri.count else np.zeros((0, 12), np.float32), device=device),
         shade=shade,
         mat_rows=material_rows({k: a(ctx.mats[k]) for k in MAT_KEYS}, device),
-        lights=point_lights(a(lights.p), a(lights.emit), device),
+        lights=lights,
         bvh=bvh,
     )

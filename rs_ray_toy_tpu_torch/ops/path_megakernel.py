@@ -1,29 +1,37 @@
-"""Fused Path sample pass: camera raygen + bounce loop, one CUDA kernel
-(rs_ray_toy_tpu/ops/path_megakernel.py, camera variants: brute force and
-the in-kernel BVH).
+"""Fused Path sample pass: camera raygen (or given rays) + bounce loop, one
+CUDA kernel (rs_ray_toy_tpu/ops/path_megakernel.py: the camera variants
+_kernel_cam / _kernel_cam_bvh and the rays-in variants _kernel /
+_kernel_bvh, brute force and the in-kernel BVH).
 
 `li_path_mega_cam` runs a whole sample pass per camera ray: the
 stratified sampler hash for every slot, the lens trace, Moller-Trumbore
-closest hit over the triangle table, point-light NEE with an any-hit
-shadow ray, one BSDF sample (lambert, Trowbridge-Reitz microfacet,
-specular reflection, fresnel-specular glass) with the etaScale factor,
-and Russian roulette after bounce 3.  The estimator is the JAX kernel's
-(`_kernel_cam` -> `_raygen` + `_bounce_loop`), sample slot for sample
-slot, on its flat, triangle-only, point-light, stratified subset;
-`supports` pins that subset.  Up to TRI_MAX triangles the hits are brute
-force; above it (or when `pack_scene` is asked to) the table is reordered
-into the leaf order of a BVH and every hit walks the tree per ray
-(accel/bvh.py), up to BVH_TRI_MAX triangles.
+closest hit over the triangle table min-combined with up to SPH_MAX full
+spheres, NEE with an any-hit shadow ray (point lights alone: the delta
+form; with sphere or environment lights the power-heuristic MIS of
+estimate_direct and, for the environment, the BSDF sample whose ray
+escapes toward it), one BSDF sample (lambert, Trowbridge-Reitz
+microfacet, specular reflection, fresnel-specular glass) with the
+etaScale factor, Russian roulette after bounce 3, and with
+`infinite_lights` the escape radiance at bounce 0 or after a specular
+bounce, one step past max_depth.  `li_path_mega` runs the same bounce
+loop on given rays.  The estimator is the JAX kernel's (`_raygen` +
+`_bounce_loop`), sample slot for sample slot, on its flat, stratified
+subset of up to 8 full spheres, point and sphere lights and one constant
+environment; `supports` pins that subset.  Up to TRI_MAX triangles the
+hits are brute force; above it (or when `pack_scene` is asked to) the
+table is reordered into the leaf order of a BVH and every hit walks the
+tree per ray (accel/bvh.py), up to BVH_TRI_MAX triangles.
 
-On a CUDA tensor the wrapper launches csrc/path_megakernel.cu (built by
-ops/_build.py) or raises.  On a CPU tensor it runs
-`li_path_mega_cam_reference`, the plain PyTorch version, which mirrors
-the kernel expression by expression over flat (N,) tensors with masked
-lanes.  Nothing else selects the path.
+On a CUDA tensor the wrappers launch csrc/path_megakernel.cu (built by
+ops/_build.py) or raise.  On a CPU tensor they run
+`li_path_mega_cam_reference` / `li_path_mega_reference`, the plain
+PyTorch version, which mirrors the kernel expression by expression over
+flat (N,) tensors with masked lanes.  Nothing else selects the path.
 
-Scene tables are baked per triangle (`pack_scene`): the material
-indirection collapses to lobe columns on each row, in the JAX package's
-(T, 115) layout, so a packed table can be compared column by column.
+Scene tables are baked per triangle and per sphere (`pack_scene`): the
+material indirection collapses to lobe columns on each row, in the JAX
+package's (T, 115) layout, so a packed table can be compared column by
+column; the light and environment constants ride in the parameter blocks.
 The kernel library and its parameter block (`_Params`) are shared with
 ops/direct_megakernel.py: the device code lives in csrc/common.cuh.
 """
@@ -46,6 +54,7 @@ from ..bsdf.lobes import (
 )
 from ..bsdf.eval import (  # noqa: F401 (the lobe helpers, shared with the other kernels)
     _bsdf_sample,
+    _chosen_kind,
     _fr_dielectric,
     _fresnel,
     _is_spec,
@@ -55,15 +64,17 @@ from ..bsdf.eval import (  # noqa: F401 (the lobe helpers, shared with the other
     shading_frame,
 )
 from ..bsdf.microfacet import roughness_to_alpha
-from ..config import DTYPE, SHADOW_EPSILON
+from ..config import DTYPE, PI, SHADOW_EPSILON
 from ..core.sampling import concentric_sample_disk as _concentric_disk  # noqa: F401
+from ..core.sampling import power_heuristic
 from ..core.vec import dot3 as _dot3
 from ..core.vec import rsqrt as _rsqrt
 from ..sampler.dims import CAMERA_FILM, CAMERA_LENS, PATH_BSDF, PATH_NEE, PATH_RR, path_dim0
-from ..scene.types import LIGHT_DIFFUSE_AREA, LIGHT_POINT
+from ..scene.types import AREA_SHAPE_SPHERE, LIGHT_DIFFUSE_AREA, LIGHT_INFINITE, LIGHT_POINT
 from . import _build
 
 TRI_EPS = 1e-7
+SPH_EPS = 1e-4
 TRI_MAX = 2048  # brute force up to here
 BVH_TRI_MAX = 65536  # the in-kernel BVH up to here (MEGA_BVH_TRI_MAX)
 BVH_LEAF = 16  # requested leaf size of the kernels' BVH
@@ -72,6 +83,7 @@ NRM_COL = 16 + 16 * LOBES_MAX  # raw vertex normals (smooth shading, unused here
 TEX0 = NRM_COL + 9  # textured-kd block (not ported; zeros)
 TABLE_COLS = TEX0 + 10  # 115
 LIGHT_MAX = 8
+SPH_MAX = 8  # full spheres the path kernel takes
 DEPTH_MAX = 15
 ELEM_MAX = 16  # lens elements
 BIN_MAX = 64  # exit-pupil bins
@@ -79,9 +91,11 @@ BIG_T = 3.0e38
 SPEC_KINDS = (LOBE_SPEC_REFL, LOBE_SPEC_TRANS, LOBE_FRESNEL_SPEC)
 PORTED_KINDS = (LOBE_LAMBERT_REFL, LOBE_MF_REFL, LOBE_SPEC_REFL, LOBE_FRESNEL_SPEC)
 
-# Kernel launches made by li_path_mega_cam, by kernel (brute force, BVH);
-# the one piece of module state.
-LAUNCHES = {"path_mega_cam": 0, "path_mega_cam_bvh": 0}
+ENV_BINS = 16  # theta and phi rows of a constant map's Distribution2D (8x8 texels)
+
+# Kernel launches made by li_path_mega_cam and li_path_mega, by kernel
+# (camera or given rays; brute force, BVH); the one piece of module state.
+LAUNCHES = {"path_mega_cam": 0, "path_mega_cam_bvh": 0, "path_mega": 0, "path_mega_bvh": 0}
 
 
 class BvhTables(NamedTuple):
@@ -90,54 +104,134 @@ class BvhTables(NamedTuple):
     max_leaf: int  # most triangles in one leaf
 
 
+class EnvC(NamedTuple):
+    """A constant environment light as kernel constants (the JAX package's
+    _pack_env_static): the texel radiance, the Distribution2D's marginal
+    CDF and per-row pdfs, its (shared) conditional CDF, the pdf_2d value
+    of each theta row, the cos(theta) thresholds of the rows (no arccos in
+    the kernel), the map's (nu, nv) and its 3x3 transforms, float32
+    values."""
+
+    rgb: tuple
+    marg_cdf: tuple  # nv + 1
+    marg_pdf: tuple  # nv
+    cond_cdf: tuple  # nu + 1
+    pdf2d_bins: tuple  # nv
+    cos_bins: tuple  # nv - 1 python floats, rounded to float32 where used
+    nu: int
+    nv: int
+    to_world: tuple  # 9, row major
+    to_local: tuple
+
+
 class PackedScene(NamedTuple):
     table: torch.Tensor  # (T, 115) float32 on the render device
-    light_p: tuple  # per point light, (x, y, z) float32 values
-    light_emit: tuple  # per point light, (r, g, b) intensity
-    kinds_present: tuple = ()  # lobe kinds live on some triangle
+    light_p: tuple  # per light, (x, y, z) float32 values (point position)
+    light_emit: tuple  # per light, (r, g, b): intensity or radiance
+    kinds_present: tuple = ()  # lobe kinds live on some triangle or sphere
     bvh: Optional[BvhTables] = None  # BVH mode: table rows in leaf order
+    # sphere primitives, (S, 115) rows in the table's layout: cols 0:12
+    # the world-to-object 3x4 rows, col 12 the radius, the lobe columns
+    # as a triangle's, cols 96:108 the object-to-world rows; None: none
+    sph_table: Optional[torch.Tensor] = None
+    light_kind: tuple = ()  # per light, LIGHT_*; empty: every light a point light
+    light_o2w: tuple = ()  # per light, 12 floats of a sphere light's object-to-world
+    light_w2o: tuple = ()  # per light, 9 floats of its inverse's 3x3
+    light_radius: tuple = ()
+    env: Optional[EnvC] = None  # the environment light NEE samples
+    esc_rgb: Optional[tuple] = None  # summed radiance of the infinite_lights environments
+    world_radius: float = 0.0  # float32 value
 
 
 def _pow2(n):
     return n > 0 and (n & (n - 1)) == 0
 
 
-def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None) -> Optional[str]:
+def full_spheres(sph):
+    """Every sphere unclipped (no z or phi clip: sphere.rs:50-108's clip
+    tests are vacuous), the JAX package's _full_spheres."""
+    if sph is None or sph.count == 0:
+        return True
+    r = sph.radius
+    return bool(np.all(sph.z_min <= -r + 1e-6 * r) and np.all(sph.z_max >= r - 1e-6 * r)
+                and np.all(sph.phi_max >= 2.0 * np.pi - 1e-6))
+
+
+def _light_unsupported(scene, volpath, path, wavefront, spec_live):
+    """The lights check of scene_unsupported."""
+    lk = np.asarray(scene.lights.kind)
+    escape = any(e.escape_le for e in scene.infinite)
+    if scene.infinite and not (path or wavefront):
+        return "infinite lights (environment maps)"
+    if lk.size == 0 and not ((path or wavefront) and escape):
+        return "unlit scenes"
+    if wavefront:
+        return None
+    if path:
+        sk = np.asarray(scene.lights.shape_kind)
+        ok = ((lk == LIGHT_POINT) | (lk == LIGHT_INFINITE)
+              | ((lk == LIGHT_DIFFUSE_AREA) & (sk == AREA_SHAPE_SPHERE)))
+        what = "point, sphere and environment lights"
+    else:
+        sk = np.asarray(scene.lights.shape_kind)
+        ok = (lk == LIGHT_POINT) | ((lk == LIGHT_DIFFUSE_AREA) & (sk == AREA_SHAPE_SPHERE) & volpath)
+        what = "point and sphere lights" if volpath else "point lights"
+    if lk.size > LIGHT_MAX or not ok.all():
+        return f"lights other than up to {LIGHT_MAX} {what}"
+    n_env = int(np.sum(lk == LIGHT_INFINITE))
+    if n_env > 1:
+        return "more than one environment light"
+    if n_env and spec_live:
+        # the kernel's BSDF sample of MIS draws over every lobe, which is
+        # the reference's non-specular draw only without specular lobes
+        return "an environment light beside a specular lobe"
+    return None
+
+
+def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=False,
+                      wavefront=False) -> Optional[str]:
     """The checks the kernels share (common_scene_checks): power-of-two
-    stratified grid (no check when `sampler` is None), 1..tri_max (default
-    BVH_TRI_MAX) flat
-    triangles, up to LIGHT_MAX point lights, and every live lobe of a used
-    material among `kinds` (microfacets: visible-normal Trowbridge-Reitz
-    only); no media.  With `volpath`, sphere lights too, and the Volpath
-    kernel checks the medium itself.  Returns the first feature outside
-    them, or None."""
+    stratified grid (no check when `sampler` is None), up to tri_max
+    (default BVH_TRI_MAX) flat triangles, up to LIGHT_MAX point lights,
+    and every live lobe of a used material among `kinds` (microfacets:
+    visible-normal Trowbridge-Reitz only); no media.  With `volpath`,
+    sphere lights too, and the Volpath kernel checks the medium itself.
+    With `path` (the path kernel) up to SPH_MAX full spheres and point,
+    sphere and one environment light, the environment only without
+    specular lobes; with `wavefront` (the wavefront Path loop) any
+    spheres and lights.  Returns the first feature outside them, or
+    None."""
     if scene.mediums and not volpath:
         return "participating media (Camera.medium) outside Volpath"
     if sampler is not None and not (_pow2(sampler.spp) and _pow2(sampler.xs) and _pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     tri = scene.triangles
+    sph = scene.spheres
+    n_sph = 0 if sph is None else sph.count
     tri_max = BVH_TRI_MAX if tri_max is None else tri_max
     if tri.count > tri_max:
         return f"{tri.count} triangles (the BVH kernels take up to {tri_max})"
-    lk = np.asarray(scene.lights.kind)
-    if lk.size == 0:
-        return "unlit scenes"
-    ok = (lk == LIGHT_POINT) | ((lk == LIGHT_DIFFUSE_AREA) & volpath)
-    if lk.size > LIGHT_MAX or not ok.all():
-        what = "point and sphere lights" if volpath else "point lights"
-        return f"lights other than up to {LIGHT_MAX} {what}"
+    if n_sph and not (path or wavefront):
+        return "sphere primitives"
+    if path and n_sph > SPH_MAX:
+        return f"more than {SPH_MAX} sphere primitives"
+    if path and not full_spheres(sph):
+        return "partial sphere primitives"
     mats = scene.materials
-    used = np.unique(tri.mat[tri.mat >= 0])
-    if used.size == 0:
+    prim_mat = np.concatenate([tri.mat, sph.mat if n_sph else np.zeros(0, np.int32)])
+    used = np.unique(prim_mat[prim_mat >= 0])
+    if used.size == 0 and not wavefront:
         return "scenes without materials"
     n_lobes = mats["n_lobes"]
     if np.any(n_lobes[used] > LOBES_MAX):
         return f"materials with more than {LOBES_MAX} lobes"
+    spec_live = False
     for m in used:
         for l in range(int(n_lobes[m])):
             kind = int(mats["kind"][m, l])
             if kind not in kinds:
                 return f"lobe kind {kind}"
+            spec_live |= kind in SPEC_KINDS
             if kind == LOBE_MF_REFL and (
                 mats["dist"][m, l] != DIST_TROWBRIDGE_REITZ
                 or not mats["sample_visible"][m, l]
@@ -146,7 +240,7 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None) -> Opt
                 return "microfacet lobes other than visible-normal Trowbridge-Reitz"
             if kind == LOBE_FRESNEL_SPEC and n_lobes[m] > 1:
                 return "fresnel-specular lobes in a multi-lobe material"
-    return None
+    return _light_unsupported(scene, volpath, path, wavefront, spec_live)
 
 
 def unsupported_feature(scene, spec, sampler) -> Optional[str]:
@@ -156,7 +250,7 @@ def unsupported_feature(scene, spec, sampler) -> Optional[str]:
         return f"{spec.kind} integrator"
     if not 1 <= spec.max_depth <= DEPTH_MAX:
         return f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}"
-    return scene_unsupported(scene, sampler, PORTED_KINDS)
+    return scene_unsupported(scene, sampler, PORTED_KINDS, path=True)
 
 
 def supports(scene, spec, sampler) -> bool:
@@ -223,8 +317,86 @@ def kinds_present(table):
     return tuple(sorted(kinds))
 
 
+SPH_RADIUS_COL = 12
+SPH_O2W_COL = NRM_COL
+
+
+def _rows12(m4):
+    return tuple(float(v) for v in np.asarray(m4, np.float32)[:3, :4].ravel())
+
+
+def pack_env(env):
+    """EnvC of a loaded constant environment (scene.types.EnvLight), from
+    the float32 copy of its Distribution2D that the wavefront loop
+    samples."""
+    dist = env.dist
+    f32 = lambda a: np.asarray(a, np.float32)
+    marg_func, marg_cdf = f32(dist.marginal.func), f32(dist.marginal.cdf)
+    marg_int = np.float32(dist.marginal.func_int)
+    cond_cdf, cond_func = f32(dist.cond_cdf), f32(dist.cond_func)
+    if not (np.all(cond_cdf == cond_cdf[0]) and np.all(cond_func == cond_func[:, :1])):
+        raise ValueError("a constant environment with varying conditional rows")
+    nv, nu = cond_func.shape
+    t = lambda a: tuple(float(v) for v in a)
+    return EnvC(
+        rgb=t(f32(env.rgb)),
+        marg_cdf=t(marg_cdf),
+        marg_pdf=t(np.where(marg_int > 0, marg_func / marg_int, np.float32(0))),
+        cond_cdf=t(cond_cdf[0]),
+        pdf2d_bins=t(np.where(marg_int > 0, cond_func[:, 0] / marg_int, np.float32(0))),
+        cos_bins=tuple(float(np.cos(np.pi * k / nv)) for k in range(1, nv)),
+        nu=int(nu),
+        nv=int(nv),
+        to_world=t(f32(env.to_world)[:3, :3].ravel()),
+        to_local=t(f32(env.to_local)[:3, :3].ravel()),
+    )
+
+
+def pack_lights(scene):
+    """The light constants of PackedScene: kinds, sphere-light rows, the
+    sampled environment and the escape radiance (_pack_lights_static)."""
+    lt = scene.lights
+    kinds = tuple(int(k) for k in lt.kind)
+    env = None
+    for k, idx in zip(kinds, lt.shape_index):
+        if k == LIGHT_INFINITE:
+            env = pack_env(scene.infinite[int(idx)])
+    esc = [e for e in scene.infinite if e.escape_le]
+    esc_rgb = None
+    if esc:
+        total = np.zeros(3, np.float32)
+        for e in esc:
+            total = total + np.asarray(e.rgb, np.float32)
+        esc_rgb = tuple(float(v) for v in total)
+    return dict(
+        light_kind=kinds,
+        light_o2w=tuple(_rows12(m) for m in lt.sph_o2w),
+        light_w2o=tuple(tuple(float(v) for v in np.asarray(m, np.float32)[:3, :3].ravel())
+                        for m in lt.sph_w2o),
+        light_radius=tuple(float(r) for r in np.asarray(lt.sph_radius, np.float32)),
+        env=env,
+        esc_rgb=esc_rgb,
+        world_radius=float(np.float32(lt.world_radius)),
+    )
+
+
+def pack_spheres(scene):
+    """(S, TABLE_COLS) float32 sphere rows (_pack_spheres_static in the
+    table's layout), or None without spheres."""
+    sph = scene.spheres
+    if sph is None or sph.count == 0:
+        return None
+    rows = np.zeros((sph.count, TABLE_COLS), np.float32)
+    rows[:, 0:12] = np.asarray(sph.w2o, np.float32)[:, :3, :4].reshape(-1, 12)
+    rows[:, SPH_RADIUS_COL] = sph.radius
+    fill_lobe_columns(rows, _resolve_mat_arrays(scene.materials, sph.mat), LOBES_MAX)
+    rows[:, 47] = sph.mat
+    rows[:, SPH_O2W_COL:SPH_O2W_COL + 12] = np.asarray(sph.o2w, np.float32)[:, :3, :4].reshape(-1, 12)
+    return rows
+
+
 def pack_scene(scene, device, bvh=None) -> PackedScene:
-    """(T, 115) float32 per-triangle table plus the point lights.
+    """(T, 115) float32 per-triangle table, the sphere rows and the lights.
 
     cols 0:15  p0, e1, e2, ng, dpdu
     col  15    n_lobes
@@ -252,9 +424,10 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
     fill_lobe_columns(table, r, LOBES_MAX)
     table[:, 47] = tri.mat
     table[:, NRM_COL : NRM_COL + 9] = np.concatenate([tri.n0, tri.n1, tri.n2], axis=1)
-    kinds = kinds_present(table)
+    sph_rows = pack_spheres(scene)
+    kinds = kinds_present(table if sph_rows is None else np.concatenate([table, sph_rows]))
     tables = None
-    if (t_count > TRI_MAX) if bvh is None else bvh:
+    if t_count > 0 and ((t_count > TRI_MAX) if bvh is None else bvh):
         flat = build_bvh(tri, BVH_LEAF)
         if tree_depth(flat) >= STACK_DEPTH:
             raise ValueError(f"BVH deeper than the {STACK_DEPTH}-entry traversal stack")
@@ -272,6 +445,8 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
         light_emit=tuple(tuple(float(v) for v in row) for row in lights.emit),
         kinds_present=kinds,
         bvh=tables,
+        sph_table=None if sph_rows is None else torch.as_tensor(sph_rows, device=device),
+        **pack_lights(scene),
     )
 
 
@@ -345,15 +520,90 @@ class _Params(ctypes.Structure):
     ]
 
 
+class _WideParams(ctypes.Structure):
+    """Mirror of `struct WideParams` in csrc/path_megakernel.cu: the
+    lights beyond the point light, the sampled environment and the escape
+    radiance."""
+
+    _fields_ = [
+        ("light_kind", ctypes.c_int * LIGHT_MAX),
+        ("area_o2w", ctypes.c_float * (LIGHT_MAX * 12)),
+        ("area_w2o", ctypes.c_float * (LIGHT_MAX * 9)),
+        ("area_radius", ctypes.c_float * LIGHT_MAX),
+        ("all_point", ctypes.c_int),
+        ("has_env", ctypes.c_int),
+        ("has_esc", ctypes.c_int),
+        ("has_spec", ctypes.c_int),
+        ("n_sph", ctypes.c_int),
+        ("esc_rgb", ctypes.c_float * 3),
+        ("world_radius", ctypes.c_float),
+        ("env_rgb", ctypes.c_float * 3),
+        ("env_nu", ctypes.c_int),
+        ("env_nv", ctypes.c_int),
+        ("env_marg_cdf", ctypes.c_float * (ENV_BINS + 1)),
+        ("env_marg_pdf", ctypes.c_float * ENV_BINS),
+        ("env_cond_cdf", ctypes.c_float * (ENV_BINS + 1)),
+        ("env_pdf2d", ctypes.c_float * ENV_BINS),
+        ("env_cos_bins", ctypes.c_float * ENV_BINS),
+        ("env_to_world", ctypes.c_float * 9),
+        ("env_to_local", ctypes.c_float * 9),
+    ]
+
+
+def _wide_params(packed):
+    """The kernel's WideParams of `packed`."""
+    w = _WideParams()
+    n_lights = len(packed.light_p)
+    kinds = packed.light_kind or (LIGHT_POINT,) * n_lights
+    for k in range(n_lights):
+        w.light_kind[k] = kinds[k]
+        if kinds[k] == LIGHT_DIFFUSE_AREA:
+            for j in range(12):
+                w.area_o2w[12 * k + j] = packed.light_o2w[k][j]
+            for j in range(9):
+                w.area_w2o[9 * k + j] = packed.light_w2o[k][j]
+            w.area_radius[k] = packed.light_radius[k]
+    w.all_point = int(n_lights > 0 and all(k == LIGHT_POINT for k in kinds))
+    w.has_spec = int(any(k in SPEC_KINDS for k in packed.kinds_present))
+    w.n_sph = 0 if packed.sph_table is None else int(packed.sph_table.shape[0])
+    if packed.esc_rgb is not None:
+        w.has_esc = 1
+        for c in range(3):
+            w.esc_rgb[c] = packed.esc_rgb[c]
+    w.world_radius = packed.world_radius
+    env = packed.env
+    if env is not None:
+        if env.nu > ENV_BINS or env.nv > ENV_BINS:
+            raise ValueError(f"environment distribution {env.nu}x{env.nv} exceeds {ENV_BINS}")
+        w.has_env = 1
+        w.env_nu, w.env_nv = env.nu, env.nv
+        for c in range(3):
+            w.env_rgb[c] = env.rgb[c]
+        for k, v in enumerate(env.marg_cdf):
+            w.env_marg_cdf[k] = v
+        for k, v in enumerate(env.marg_pdf):
+            w.env_marg_pdf[k] = v
+        for k, v in enumerate(env.cond_cdf):
+            w.env_cond_cdf[k] = v
+        for k, v in enumerate(env.pdf2d_bins):
+            w.env_pdf2d[k] = v
+        for k, v in enumerate(env.cos_bins):
+            w.env_cos_bins[k] = v
+        for k in range(9):
+            w.env_to_world[k] = env.to_world[k]
+            w.env_to_local[k] = env.to_local[k]
+    return w
+
+
 def _kernel_params(packed, cam, sampler, spec):
     """The kernel's parameter block.  Lens constants are folded in float64
     exactly where the plain version folds python floats (element z,
     sphere centre, squared radius and aperture, the refraction ratio and
     its square) and rounded to float32 once."""
     n_lights = len(packed.light_p)
-    n_elem = len(cam["curvature"])
-    n_bins = len(cam["bounds"])
-    if not 1 <= n_lights <= LIGHT_MAX:
+    n_elem = len(cam["curvature"]) if cam is not None else 0
+    n_bins = len(cam["bounds"]) if cam is not None else 0
+    if not (0 if packed.esc_rgb is not None else 1) <= n_lights <= LIGHT_MAX:
         raise ValueError(f"{n_lights} lights; the kernel takes 1..{LIGHT_MAX}")
     if n_elem > ELEM_MAX or n_bins > BIN_MAX:
         raise ValueError(f"{n_elem} lens elements / {n_bins} pupil bins exceed the kernel's")
@@ -371,6 +621,8 @@ def _kernel_params(packed, cam, sampler, spec):
         for c in range(3):
             prm.light_p[3 * k + c] = packed.light_p[k][c]
             prm.light_emit[3 * k + c] = packed.light_emit[k][c]
+    if cam is None:  # rays-in: no lens
+        return prm
     prm.n_elem = n_elem
     element_z = 0.0
     for k, i in enumerate(reversed(range(n_elem))):  # film side first
@@ -423,9 +675,39 @@ def load_library(name, prefix, extra_argtypes=()):
     return lib
 
 
+_WIDE_ARGS = (ctypes.c_void_p, ctypes.POINTER(_WideParams))
+
+
 def load_kernel():
-    """The path kernel's library (built on first use)."""
-    return load_library("path_megakernel", "path_mega_cam")
+    """The path kernel's library (built on first use): the camera entry
+    `path_mega_cam_launch` and the rays-in entry `path_mega_rays_launch`,
+    both taking the sphere rows and WideParams after the common
+    arguments."""
+    lib = load_library("path_megakernel", "path_mega_cam", _WIDE_ARGS)
+    if lib.path_mega_wide_params_size() != ctypes.sizeof(_WideParams):
+        raise RuntimeError("path_megakernel WideParams differs from _WideParams")
+    rays = lib.path_mega_rays_launch
+    rays.restype = ctypes.c_int
+    rays.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        *_WIDE_ARGS,
+    ]
+    return lib
+
+
+def _sphere_arg(packed, dev):
+    """The sphere rows of `packed`, checked for a launch on `dev`, or None."""
+    sph = packed.sph_table
+    if sph is None:
+        return None
+    if (sph.device != dev or sph.dtype != torch.float32 or sph.dim() != 2
+            or sph.shape[1] != TABLE_COLS or not 0 < sph.shape[0] <= SPH_MAX
+            or not sph.is_contiguous()):
+        raise ValueError(f"sphere rows must be contiguous float32 (S, {TABLE_COLS}), "
+                         f"0 < S <= {SPH_MAX}, on {dev}")
+    return sph
 
 
 def _sample_indices(s_idx, n, device):
@@ -453,14 +735,74 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
     and return launch(): one kernel launch on the current stream
     returning (L, weight).  Relaunching rewrites the same outputs."""
     prm = _kernel_params(packed, cam_packed, sampler, spec)
+    dev = pixel_xy.device
+    wide = _wide_params(packed)
+    sph = _sphere_arg(packed, dev)
     return launcher(load_kernel(), "path_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm,
-                    LAUNCHES)
+                    LAUNCHES, extra=(sph, ctypes.byref(wide)), allow_empty=sph is not None)
 
 
-def geometry_args(packed, dev):
+def li_path_mega(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
+    """The bounce loop on given rays (kernels #3 and #4 of the JAX
+    package, `li_path_mega`): o, d (N, 3) float32, weight (N,) (a ray with
+    weight <= 0 is not traced), pixel_id (N,) integer pixel ids, s_idx
+    (N,) or a scalar.  Returns L (N, 3).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if o.device.type == "cpu":
+        return li_path_mega_reference(packed, o, d, weight, pixel_id, s_idx, sampler, spec)
+    return prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec)()
+
+
+def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
+    """launch() of the rays-in kernel on the current stream, returning L;
+    every accepted launch adds one to LAUNCHES["path_mega"] (or
+    ["path_mega_bvh"])."""
+    dev = o.device
+    if dev.type != "cuda":
+        raise ValueError(f"the path_mega kernel runs on cuda tensors, not {dev}")
+    n = o.shape[0]
+    if (o.dtype != torch.float32 or d.dtype != torch.float32 or o.shape != (n, 3)
+            or d.shape != (n, 3) or n == 0 or d.device != dev):
+        raise ValueError("o and d must be float32 (N, 3) on one device, N > 0")
+    if weight.shape != (n,) or weight.device != dev:
+        raise ValueError("weight must be an (N,) tensor on o's device")
+    if pixel_id.shape != (n,) or pixel_id.is_floating_point() or pixel_id.device != dev:
+        raise ValueError("pixel_id must be an integer (N,) tensor on o's device")
+    prm = _kernel_params(packed, None, sampler, spec)
+    wide = _wide_params(packed)
+    sph = _sphere_arg(packed, dev)
+    table, nodes_f, nodes_i = geometry_args(packed, dev, allow_empty=sph is not None)
+    oc, dc = o.contiguous(), d.contiguous()
+    wc = weight.to(torch.float32).contiguous()
+    pid32 = pixel_id.to(torch.int32).contiguous()
+    sid32 = _sample_indices(s_idx, n, dev).to(torch.int32).contiguous()
+    out_l = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = load_kernel()
+    name = "path_mega" if nodes_f is None else "path_mega_bvh"
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def launch():
+        err = lib.path_mega_rays_launch(
+            ptr(table), table.shape[0], ptr(nodes_f), ptr(nodes_i), ctypes.byref(prm),
+            oc.data_ptr(), dc.data_ptr(), wc.data_ptr(), pid32.data_ptr(), sid32.data_ptr(),
+            out_l.data_ptr(), n, stream, ptr(sph), ctypes.byref(wide),
+        )
+        if err != 0:
+            msg = lib.path_mega_cam_error_string(err).decode()
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+        LAUNCHES[name] += 1
+        return out_l
+
+    return launch
+
+
+def geometry_args(packed, dev, allow_empty=False):
     """(table, nodes_f, nodes_i) of `packed`, checked for a launch on `dev`:
     a contiguous float32 (T, TABLE_COLS) table with 0 < T <= TRI_MAX
-    (BVH_TRI_MAX with a BVH) and the BVH's node tables, None without."""
+    (BVH_TRI_MAX with a BVH; T = 0 allowed with `allow_empty`) and the
+    BVH's node tables, None without."""
     table, bvh = packed.table, packed.bvh
     t_max = TRI_MAX if bvh is None else BVH_TRI_MAX
     if (
@@ -468,7 +810,7 @@ def geometry_args(packed, dev):
         or table.dtype != torch.float32
         or table.dim() != 2
         or table.shape[1] != TABLE_COLS
-        or not 0 < table.shape[0] <= t_max
+        or not (0 if allow_empty else 1) <= table.shape[0] <= t_max
         or not table.is_contiguous()
     ):
         raise ValueError(
@@ -489,7 +831,8 @@ def geometry_args(packed, dev):
     return table, nodes_f, nodes_i
 
 
-def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extra=()):
+def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extra=(),
+             allow_empty=False):
     """launch() for a camera-fused kernel of `lib` (see prepare_launch);
     `extra`, arguments after the common ones, are kept alive with it.
     Every accepted launch adds one to `launches[prefix]`, or to
@@ -502,7 +845,7 @@ def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extr
         raise ValueError("pixel_xy must be float32 of shape (N, 2), N > 0")
     if pixel_id.shape != (n,) or pixel_id.is_floating_point() or pixel_id.device != dev:
         raise ValueError("pixel_id must be an integer (N,) tensor on pixel_xy's device")
-    table, nodes_f, nodes_i = geometry_args(packed, dev)
+    table, nodes_f, nodes_i = geometry_args(packed, dev, allow_empty)
     pxy = pixel_xy.contiguous()
     # u32 ids travel as their int32 bit patterns
     pid32 = pixel_id.to(torch.int32).contiguous()
@@ -514,11 +857,12 @@ def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extr
     nf = None if nodes_f is None else nodes_f.data_ptr()
     ni = None if nodes_i is None else nodes_i.data_ptr()
     extra_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra)
+    table_ptr = table.data_ptr() if table.shape[0] else None
     name = prefix if nodes_f is None else prefix + "_bvh"
 
     def launch():
         err = fn(
-            table.data_ptr(), table.shape[0], nf, ni, ctypes.byref(prm),
+            table_ptr, table.shape[0], nf, ni, ctypes.byref(prm),
             pxy.data_ptr(), pid32.data_ptr(), sid32.data_ptr(),
             out_l.data_ptr(), out_w.data_ptr(), n, stream, *extra_args,
         )
@@ -840,8 +1184,9 @@ def li_path_mega_cam_reference(
 ):
     """Plain PyTorch version of `li_path_mega_cam` (same arguments and
     return), on any device.  `work`, a dict, gets the counts of the
-    triangle and box tests ("mt", "slab") and lobe evaluations ("lobe")
-    that the kernel performs on these inputs (0-d tensors)."""
+    triangle, box and sphere tests ("mt", "slab", "sph") and lobe
+    evaluations ("lobe") that the kernel performs on these inputs (0-d
+    tensors)."""
     dev = pixel_xy.device
     n = pixel_xy.shape[0]
     pid = pixel_id.to(torch.int64)
@@ -849,28 +1194,294 @@ def li_path_mega_cam_reference(
     ox, oy, oz, dx, dy, dz, weight = _raygen(
         pixel_xy[:, 0], pixel_xy[:, 1], pid, sid, sampler, cam_packed
     )
+    L = bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, weight > 0.0, pid, sid, sampler,
+                              spec, work)
+    return L, weight
+
+
+def li_path_mega_reference(packed, o, d, weight, pixel_id, s_idx, sampler, spec, work=None):
+    """Plain PyTorch version of `li_path_mega` (same arguments and return)."""
+    n = o.shape[0]
+    pid = pixel_id.to(torch.int64)
+    sid = _sample_indices(s_idx, n, o.device)
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    return bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, weight > 0.0, pid, sid,
+                                 sampler, spec, work)
+
+
+def _affine12(rows, x, y, z):
+    """A 3x4 row-major transform (12 floats, or (N, 12) columns) on a point."""
+    return (rows[0] * x + rows[1] * y + rows[2] * z + rows[3],
+            rows[4] * x + rows[5] * y + rows[6] * z + rows[7],
+            rows[8] * x + rows[9] * y + rows[10] * z + rows[11])
+
+
+def _rot12(rows, x, y, z):
+    return (rows[0] * x + rows[1] * y + rows[2] * z,
+            rows[4] * x + rows[5] * y + rows[6] * z,
+            rows[8] * x + rows[9] * y + rows[10] * z)
+
+
+def _rot12_t(rows, x, y, z):
+    """The transposed 3x3 of 12 rows: a normal through the inverse."""
+    return (rows[0] * x + rows[4] * y + rows[8] * z,
+            rows[1] * x + rows[5] * y + rows[9] * z,
+            rows[2] * x + rows[6] * y + rows[10] * z)
+
+
+def _rot9(rows, x, y, z):
+    return (rows[0] * x + rows[1] * y + rows[2] * z,
+            rows[3] * x + rows[4] * y + rows[5] * z,
+            rows[6] * x + rows[7] * y + rows[8] * z)
+
+
+def _rot9_t(rows, x, y, z):
+    return (rows[0] * x + rows[3] * y + rows[6] * z,
+            rows[1] * x + rows[4] * y + rows[7] * z,
+            rows[2] * x + rows[5] * y + rows[8] * z)
+
+
+def _sphere_candidate(w2o, radius, ox, oy, oz, dx, dy, dz, t_lim):
+    """The closest root of a full sphere along the ray in (SPH_EPS, t_lim)
+    (_sphere_candidate_t): (t, BIG_T on a miss; object-space origin and
+    direction)."""
+    oo = _affine12(w2o, ox, oy, oz)
+    od = _rot12(w2o, dx, dy, dz)
+    a = od[0] * od[0] + od[1] * od[1] + od[2] * od[2]
+    b = 2.0 * (od[0] * oo[0] + od[1] * oo[1] + od[2] * oo[2])
+    c = oo[0] * oo[0] + oo[1] * oo[1] + oo[2] * oo[2] - radius * radius
+    disc = b * b - 4.0 * a * c
+    ok = disc >= 0.0
+    root = torch.sqrt(torch.clamp(disc, min=0.0))
+    q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
+    t0 = q / torch.where(a == 0.0, 1.0, a)
+    t1 = c / torch.where(q == 0.0, 1.0, q)
+    lo = torch.where(ok, torch.minimum(t0, t1), 0.0)
+    hi = torch.where(ok, torch.maximum(t0, t1), 0.0)
+    lo_ok = ok & (lo > SPH_EPS) & (lo < t_lim)
+    hi_ok = ok & (hi > SPH_EPS) & (hi < t_lim)
+    return torch.where(lo_ok, lo, torch.where(hi_ok, hi, BIG_T)), oo, od
+
+
+class PlainSpheres:
+    """The kernel's sphere primitives: every sphere in row order, strict <
+    (ties keep the lower row), as _spheres_closest does; shading as
+    _sphere_shading."""
+
+    def __init__(self, sph_table, device, work=None):
+        self.rows = sph_table.to(device)
+        host = sph_table.cpu()
+        self.geo = [(tuple(float(v) for v in r[:12]), float(r[SPH_RADIUS_COL])) for r in host]
+        self.work = work
+
+    def closest(self, ox, oy, oz, dx, dy, dz, live):
+        """(t, BIG_T on a miss; the winner's row; its object-space hit)."""
+        t_best = torch.full_like(ox, BIG_T)
+        best = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
+        po = [torch.zeros_like(ox)] * 3
+        for j, (w2o, radius) in enumerate(self.geo):
+            t, oo, od = _sphere_candidate(w2o, radius, ox, oy, oz, dx, dy, dz, BIG_T)
+            upd = t < t_best
+            t_best = torch.where(upd, t, t_best)
+            best = torch.where(upd, j, best)
+            po = [torch.where(upd, oo[c] + od[c] * t, po[c]) for c in range(3)]
+        tally(self.work, "sph", live * len(self.geo))
+        return t_best, best, po
+
+    def occluded(self, ox, oy, oz, dx, dy, dz, t_max, live):
+        occ = torch.zeros_like(ox, dtype=torch.bool)
+        tests = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
+        for w2o, radius in self.geo:
+            tests = tests + (live & ~occ)  # the kernel stops at the first hit
+            t, _, _ = _sphere_candidate(w2o, radius, ox, oy, oz, dx, dy, dz, t_max)
+            occ = occ | (t < BIG_T)
+        tally(self.work, "sph", tests)
+        return occ & live
+
+    def shading(self, row, po):
+        """(ng, dpdu) of sphere hits: the object point reprojected onto the
+        sphere, the normal through w2o's transpose, dpdu = o2w (-2 pi y,
+        2 pi x, 0)."""
+        w2o = [row[:, c] for c in range(12)]
+        o2w = [row[:, SPH_O2W_COL + c] for c in range(12)]
+        radius = row[:, SPH_RADIUS_COL]
+        pox, poy, poz = po
+        plen = torch.sqrt(pox * pox + poy * poy + poz * poz)
+        scale = radius / torch.clamp(plen, min=1e-30)
+        pox, poy, poz = pox * scale, poy * scale, poz * scale
+        ngx, ngy, ngz = _rot12_t(w2o, pox, poy, poz)
+        ng_len = torch.clamp(torch.sqrt(ngx * ngx + ngy * ngy + ngz * ngz), min=1e-30)
+        two_pi = 2.0 * PI
+        du = _rot12(o2w, -two_pi * poy, two_pi * pox, torch.zeros_like(pox))
+        return (ngx / ng_len, ngy / ng_len, ngz / ng_len), du
+
+
+def _cdf_scan(cdf, u):
+    """sample_continuous_1d over a float32 CDF tuple (_cdf_scan): (index,
+    its float, the offset in the bin)."""
+    n = len(cdf) - 1
+    c = torch.tensor(cdf, dtype=DTYPE, device=u.device)
+    cnt = (c[None, :] <= u[:, None]).sum(-1)
+    idx = torch.clamp(cnt - 1, 0, n - 1)
+    c0 = c[idx]
+    dc = c[idx + 1] - c0
+    du = torch.where(dc > 0.0, (u - c0) / torch.clamp(dc, min=1e-30), u - c0)
+    return idx, idx.to(DTYPE), du
+
+
+def _env_sample(env, px, py, pz, u0, u1, world_radius):
+    """InfiniteAreaLight::sample_li on a constant map (_env_sample_k):
+    (wi, pdf, p_light)."""
+    idx1, idx1f, du1 = _cdf_scan(env.marg_cdf, u1)
+    d1 = (idx1f + du1) / env.nv
+    pdf1 = torch.tensor(env.marg_pdf, dtype=DTYPE, device=u0.device)[idx1]
+    _, idx0f, du0 = _cdf_scan(env.cond_cdf, u0)
+    d0 = (idx0f + du0) / env.nu
+    theta = d1 * PI
+    phi = d0 * 2.0 * PI
+    sin_t = torch.sin(theta)
+    w = _rot9(env.to_world, sin_t * torch.cos(phi), sin_t * torch.sin(phi), torch.cos(theta))
+    pdf = torch.where(sin_t > 0.0, pdf1 / (2.0 * PI * PI * torch.clamp(sin_t, min=1e-9)), 0.0)
+    two_r = 2.0 * world_radius
+    return w, pdf, (px + w[0] * two_r, py + w[1] * two_r, pz + w[2] * two_r)
+
+
+def _env_pdf_dir(env, wx, wy, wz):
+    """InfiniteAreaLight::pdf_li along world directions (_env_pdf_dir_k):
+    the theta row from cos thresholds, no arccos."""
+    lx, ly, lz = _rot9(env.to_local, wx, wy, wz)
+    lz = lz * _rsqrt(torch.clamp(lx * lx + ly * ly + lz * lz, min=1e-30))
+    bins = torch.tensor(env.cos_bins, dtype=DTYPE, device=wx.device)
+    iv = (lz[:, None] <= bins[None, :]).sum(-1)
+    pdf_row = torch.tensor(env.pdf2d_bins, dtype=DTYPE, device=wx.device)[iv]
+    sin_t = torch.sqrt(torch.clamp(1.0 - lz * lz, min=0.0))
+    return torch.where(sin_t > 0.0, pdf_row / (2.0 * PI * PI * torch.clamp(sin_t, min=1e-9)), 0.0)
+
+
+def _nee_light(packed, li, px, py, pz, u0, u1):
+    """sample_li of each lane's light li (_nee_light_k's generic branch):
+    a point light (wi = d / |d|, I / d^2), a sphere light or the
+    environment.  Returns (wi, li, pdf, p_light, delta, sel_env)."""
+    dev = px.device
+    kinds = packed.light_kind
+    kind = torch.tensor(kinds, device=dev)[li]
+    emit = torch.tensor(packed.light_emit, dtype=DTYPE, device=dev)[li]
+    lp = torch.tensor(packed.light_p, dtype=DTYPE, device=dev)[li]
+    is_point = kind == LIGHT_POINT
+    is_area = kind == LIGHT_DIFFUSE_AREA
+    sel_env = kind == LIGHT_INFINITE
+    zero = torch.zeros_like(px)
+    wi, le, pdf, pl = (zero,) * 3, (zero,) * 3, zero, (lp[:, 0], lp[:, 1], lp[:, 2])
+    if LIGHT_POINT in kinds:
+        tlx, tly, tlz = lp[:, 0] - px, lp[:, 1] - py, lp[:, 2] - pz
+        dist2 = torch.clamp(tlx * tlx + tly * tly + tlz * tlz, min=1e-20)
+        sq = torch.sqrt(dist2)
+        wi = (tlx / sq, tly / sq, tlz / sq)
+        le = tuple(emit[:, c] / dist2 for c in range(3))
+        pdf = torch.where(is_point, 1.0, 0.0)
+    if LIGHT_DIFFUSE_AREA in kinds:
+        o2w = torch.tensor(packed.light_o2w, dtype=DTYPE, device=dev)[li]
+        w2o = torch.tensor(packed.light_w2o, dtype=DTYPE, device=dev)[li]
+        rad = torch.tensor(packed.light_radius, dtype=DTYPE, device=dev)[li]
+        z = 1.0 - 2.0 * u0
+        r_ = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+        phi = 2.0 * PI * u1
+        pox, poy, poz = r_ * torch.cos(phi) * rad, r_ * torch.sin(phi) * rad, z * rad
+        ps = _affine12(o2w.unbind(-1), pox, poy, poz)
+        nsx, nsy, nsz = _rot9_t(w2o.unbind(-1), pox, poy, poz)
+        ninv = _rsqrt(torch.clamp(nsx * nsx + nsy * nsy + nsz * nsz, min=1e-30))
+        nsx, nsy, nsz = nsx * ninv, nsy * ninv, nsz * ninv
+        ts = (ps[0] - px, ps[1] - py, ps[2] - pz)
+        d2 = ts[0] * ts[0] + ts[1] * ts[1] + ts[2] * ts[2]
+        dn = torch.sqrt(torch.clamp(d2, min=1e-20))
+        wa = (ts[0] / dn, ts[1] / dn, ts[2] / dn)
+        cos_l = torch.abs(-(wa[0] * nsx + wa[1] * nsy + wa[2] * nsz))
+        pdf_a = d2 / torch.clamp(cos_l, min=1e-20)
+        pdf_a = torch.where((d2 > 0.0) & torch.isfinite(pdf_a), pdf_a, 0.0)
+        front = (nsx * -wa[0] + nsy * -wa[1] + nsz * -wa[2]) > 0.0
+        wi = tuple(torch.where(is_area, a, b) for a, b in zip(wa, wi))
+        le = tuple(torch.where(is_area, torch.where(front, emit[:, c], 0.0), le[c])
+                   for c in range(3))
+        pdf = torch.where(is_area, pdf_a, pdf)
+        pl = tuple(torch.where(is_area, a, b) for a, b in zip(ps, pl))
+    if packed.env is not None:
+        we, pdf_e, pe = _env_sample(packed.env, px, py, pz, u0, u1, packed.world_radius)
+        wi = tuple(torch.where(sel_env, a, b) for a, b in zip(we, wi))
+        le = tuple(torch.where(sel_env, packed.env.rgb[c], le[c]) for c in range(3))
+        pdf = torch.where(sel_env, pdf_e, pdf)
+        pl = tuple(torch.where(sel_env, a, b) for a, b in zip(pe, pl))
+    return wi, le, pdf, pl, is_point, sel_env
+
+
+def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, sampler, spec,
+                          work=None):
+    """The kernel's bounce loop (_bounce_loop) on flat (N,) rays: returns
+    L (N, 3).  `active` (N,) bool marks the rays to trace."""
+    dev = ox.device
     geom = PlainGeometry(packed, dev, work)
+    spheres = None if packed.sph_table is None else PlainSpheres(packed.sph_table, dev, work)
     table = geom.table
-    max_lobes = int(table[:, 15].max()) if table.shape[0] else 0
+    rows_all = table if spheres is None else torch.cat([table, spheres.rows])
+    max_lobes = int(rows_all[:, 15].max()) if rows_all.shape[0] else 0
     n_lights = len(packed.light_p)
-    light_p = torch.tensor(packed.light_p, dtype=DTYPE, device=dev)
-    light_emit = torch.tensor(packed.light_emit, dtype=DTYPE, device=dev)
+    kinds = packed.light_kind or (LIGHT_POINT,) * n_lights
+    all_point = n_lights > 0 and all(k == LIGHT_POINT for k in kinds)
+    has_env = packed.env is not None
+    esc = packed.esc_rgb
+    has_spec = any(k in SPEC_KINDS for k in packed.kinds_present)
+    light_p = torch.tensor(packed.light_p, dtype=DTYPE, device=dev).reshape(-1, 3)
+    light_emit = torch.tensor(packed.light_emit, dtype=DTYPE, device=dev).reshape(-1, 3)
+    packed = packed._replace(light_kind=kinds)
+
+    def occluded(sox, soy, soz, sdx, sdy, sdz, t_max, live):
+        occ = geom.occluded(sox, soy, soz, sdx, sdy, sdz, t_max, live)
+        if spheres is not None:
+            occ = occ | spheres.occluded(sox, soy, soz, sdx, sdy, sdz, t_max, live & ~occ)
+        return occ
 
     one = torch.ones_like(ox)
     br, bg, bb = one, one, one
     Lr = Lg = Lb = torch.zeros_like(ox)
     es = one  # etaScale (path.rs:150-163)
-    active = weight > 0.0
-    for bounce in range(spec.max_depth):
+    spec_prev = torch.zeros_like(active)
+    # an extra step collects the escape radiance of the last bounce
+    for bounce in range(spec.max_depth + (1 if esc is not None else 0)):
         t, best = geom.closest(ox, oy, oz, dx, dy, dz, active)
         found = t < BIG_T
-        active = active & found
-        row = torch.where(found[:, None], table[best.clamp(min=0)], 0.0)
+        if table.shape[0]:
+            row = torch.where(found[:, None], table[best.clamp(min=0)], 0.0)
+        else:
+            row = torch.zeros((ox.shape[0], TABLE_COLS), dtype=DTYPE, device=dev)
         ngx, ngy, ngz = row[:, 9], row[:, 10], row[:, 11]
         dux, duy, duz = row[:, 12], row[:, 13], row[:, 14]
+        if spheres is not None:
+            # spheres min-combined with the triangle winner
+            t_s, s_best, po = spheres.closest(ox, oy, oz, dx, dy, dz, active)
+            use_s = t_s < t
+            s_row = spheres.rows[s_best]
+            (sgx, sgy, sgz), (sdx_, sdy_, sdz_) = spheres.shading(s_row, po)
+            t = torch.where(use_s, t_s, t)
+            row = torch.where(use_s[:, None], s_row, row)
+            ngx, ngy, ngz = (torch.where(use_s, a, b) for a, b in zip((sgx, sgy, sgz), (ngx, ngy, ngz)))
+            dux, duy, duz = (torch.where(use_s, a, b) for a, b in zip((sdx_, sdy_, sdz_), (dux, duy, duz)))
+            found = t < BIG_T
         n_lob = row[:, 15].to(torch.int64)
         mat_eta = row[:, 31]
         nsx, nsy, nsz = ngx, ngy, ngz  # flat shading
+
+        # escaped rays collect the infinite_lights radiance at bounce 0 or
+        # after a specular bounce (path.rs:84-87)
+        if esc is not None:
+            collect = active & ~found
+            if bounce > 0:
+                collect = collect & spec_prev
+            Lr = Lr + torch.where(collect, br * esc[0], 0.0)
+            Lg = Lg + torch.where(collect, bg * esc[1], 0.0)
+            Lb = Lb + torch.where(collect, bb * esc[2], 0.0)
+        if bounce == spec.max_depth:
+            break
+        active = active & found
 
         px = ox + dx * t
         py = oy + dy * t
@@ -887,38 +1498,108 @@ def li_path_mega_cam_reference(
         dim0 = path_dim0(bounce)
         mag = torch.abs(px) + torch.abs(py) + torch.abs(pz)
         eps = 1e-4 + 1e-5 * mag
+        lobes = [_lobe(row, 16 + 16 * l) for l in range(max_lobes)]
 
-        # ---- NEE, point lights (uniform_sample_one_light) ----
-        u_pick = sampler.get_1d(pid, sid, dim0 + PATH_NEE)
-        li = torch.clamp((u_pick * n_lights).to(torch.int64), max=n_lights - 1)
-        lp = light_p[li]
-        le = light_emit[li]
-        tlx, tly, tlz = lp[:, 0] - px, lp[:, 1] - py, lp[:, 2] - pz
-        dist2 = torch.clamp(tlx * tlx + tly * tly + tlz * tlz, min=1e-20)
-        inv_d = _rsqrt(dist2)
-        wix, wiy, wiz = tlx * inv_d, tly * inv_d, tlz * inv_d
-        wil_x = _dot3(wix, wiy, wiz, ssx, ssy, ssz)
-        wil_y = _dot3(wix, wiy, wiz, tsx, tsy, tsz)
-        wil_z = _dot3(wix, wiy, wiz, nsx, nsy, nsz)
-        wi_ng = wil_z
-        f_gate = ((wi_ng * wo_ng) > 0.0) & (wo_z != 0.0)
-        fn = [torch.zeros_like(px)] * 3
-        for l in range(max_lobes):
-            lf = _lobe_f(_lobe(row, 16 + 16 * l), wol_x, wol_y, wo_z, wil_x, wil_y, wil_z)
-            use = f_gate & (l < n_lob)
-            tally(work, "lobe", active & use)
-            fn = [fn[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
-        cos_ns = torch.abs(wil_z)
-        off = torch.where(wi_ng < 0.0, -eps, eps)
-        sox, soy, soz = px + ngx * off, py + ngy * off, pz + ngz * off
-        occ = geom.occluded(
-            sox, soy, soz, lp[:, 0] - sox, lp[:, 1] - soy, lp[:, 2] - soz,
-            1.0 - SHADOW_EPSILON, active,
-        )
-        li_scale = torch.where(active & ~occ, cos_ns * n_lights / dist2, 0.0)
-        Lr = Lr + br * fn[0] * le[:, 0] * li_scale
-        Lg = Lg + bg * fn[1] * le[:, 1] * li_scale
-        Lb = Lb + bb * fn[2] * le[:, 2] * li_scale
+        if all_point:
+            # ---- NEE, point lights only: no light sample, no MIS ----
+            u_pick = sampler.get_1d(pid, sid, dim0 + PATH_NEE)
+            li = torch.clamp((u_pick * n_lights).to(torch.int64), max=n_lights - 1)
+            lp = light_p[li]
+            le = light_emit[li]
+            tlx, tly, tlz = lp[:, 0] - px, lp[:, 1] - py, lp[:, 2] - pz
+            dist2 = torch.clamp(tlx * tlx + tly * tly + tlz * tlz, min=1e-20)
+            inv_d = _rsqrt(dist2)
+            wix, wiy, wiz = tlx * inv_d, tly * inv_d, tlz * inv_d
+            wil_x = _dot3(wix, wiy, wiz, ssx, ssy, ssz)
+            wil_y = _dot3(wix, wiy, wiz, tsx, tsy, tsz)
+            wil_z = _dot3(wix, wiy, wiz, nsx, nsy, nsz)
+            wi_ng = wil_z
+            f_gate = ((wi_ng * wo_ng) > 0.0) & (wo_z != 0.0)
+            fn = [torch.zeros_like(px)] * 3
+            for l in range(max_lobes):
+                lf = _lobe_f(lobes[l], wol_x, wol_y, wo_z, wil_x, wil_y, wil_z)
+                use = f_gate & (l < n_lob)
+                tally(work, "lobe", active & use)
+                fn = [fn[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
+            cos_ns = torch.abs(wil_z)
+            off = torch.where(wi_ng < 0.0, -eps, eps)
+            sox, soy, soz = px + ngx * off, py + ngy * off, pz + ngz * off
+            occ = occluded(
+                sox, soy, soz, lp[:, 0] - sox, lp[:, 1] - soy, lp[:, 2] - soz,
+                1.0 - SHADOW_EPSILON, active,
+            )
+            li_scale = torch.where(active & ~occ, cos_ns * n_lights / dist2, 0.0)
+            Lr = Lr + br * fn[0] * le[:, 0] * li_scale
+            Lg = Lg + bg * fn[1] * le[:, 1] * li_scale
+            Lb = Lb + bb * fn[2] * le[:, 2] * li_scale
+        elif n_lights > 0:
+            # ---- NEE with MIS: sphere and environment lights
+            # (estimate_direct, integrator/mod.rs:403-558) ----
+            u_pick = sampler.get_1d(pid, sid, dim0 + PATH_NEE)
+            li = torch.clamp((u_pick * n_lights).to(torch.int64), max=n_lights - 1)
+            ul = sampler.get_2d(pid, sid, dim0 + PATH_NEE + 1)
+            (wix, wiy, wiz), (lr_, lg_, lb_), ls_pdf, (plx, ply, plz), delta, sel_env = _nee_light(
+                packed, li, px, py, pz, ul[:, 0], ul[:, 1])
+            wil_x = _dot3(wix, wiy, wiz, ssx, ssy, ssz)
+            wil_y = _dot3(wix, wiy, wiz, tsx, tsy, tsz)
+            wil_z = _dot3(wix, wiy, wiz, nsx, nsy, nsz)
+            wi_ng = wil_z
+            f_gate = ((wi_ng * wo_ng) > 0.0) & (wo_z != 0.0)
+            fn = [torch.zeros_like(px)] * 3
+            pdf_scat = torch.zeros_like(px)
+            cnt = torch.zeros_like(n_lob)
+            for l in range(max_lobes):
+                m_l = (l < n_lob) & ~_is_spec(lobes[l]["kind"])
+                lf = _lobe_f(lobes[l], wol_x, wol_y, wo_z, wil_x, wil_y, wil_z)
+                use = f_gate & m_l
+                fn = [fn[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
+                lpdf = _lobe_pdf(lobes[l], wol_x, wol_y, wo_z, wil_x, wil_y, wil_z)
+                tally(work, "lobe", active & m_l)
+                pdf_scat = pdf_scat + torch.where(m_l, lpdf, 0.0)
+                cnt = cnt + m_l
+            pdf_scat = torch.where((wo_z != 0.0) & (cnt > 0),
+                                   pdf_scat / torch.clamp(cnt, min=1).to(DTYPE), 0.0)
+            cos_ns = torch.abs(wil_z)
+            fc = [fn[c] * cos_ns for c in range(3)]
+            w_mis = torch.where(delta, 1.0, power_heuristic(ls_pdf, pdf_scat))
+            off = torch.where(wi_ng < 0.0, -eps, eps)
+            sox, soy, soz = px + ngx * off, py + ngy * off, pz + ngz * off
+            any_li = (lr_ > 0.0) | (lg_ > 0.0) | (lb_ > 0.0)
+            any_f = (fc[0] > 0.0) | (fc[1] > 0.0) | (fc[2] > 0.0)
+            live = active & (ls_pdf > 0.0) & any_li & any_f
+            occ = occluded(sox, soy, soz, plx - sox, ply - soy, plz - soz,
+                           1.0 - SHADOW_EPSILON, live)
+            scale = torch.where(live & ~occ,
+                                w_mis * n_lights / torch.clamp(ls_pdf, min=1e-20), 0.0)
+            Lr = Lr + br * fc[0] * lr_ * scale
+            Lg = Lg + bg * fc[1] * lg_ * scale
+            Lb = Lb + bb * fc[2] * lb_ * scale
+
+            if has_env:
+                # the BSDF sample of MIS: only an escaped ray toward the
+                # sampled environment contributes (no emissive primitives)
+                us = sampler.get_2d(pid, sid, dim0 + PATH_NEE + 2)
+                w2sx, w2sy, w2sz, f2s, pdf2, _ = _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z,
+                                                               us[:, 0], us[:, 1])
+                tally(work, "lobe", active & sel_env)
+                w2x = ssx * w2sx + tsx * w2sy + nsx * w2sz
+                w2y = ssy * w2sx + tsy * w2sy + nsy * w2sz
+                w2z = ssz * w2sx + tsz * w2sy + nsz * w2sz
+                cos2 = torch.abs(_dot3(w2x, w2y, w2z, nsx, nsy, nsz))
+                f2 = [fc_ * cos2 for fc_ in f2s]
+                lpdf2 = _env_pdf_dir(packed.env, w2x, w2y, w2z)
+                w2mis = power_heuristic(pdf2, lpdf2)
+                off2n = torch.where(_dot3(w2x, w2y, w2z, ngx, ngy, ngz) < 0.0, -eps, eps)
+                any_f2 = (f2[0] > 0.0) | (f2[1] > 0.0) | (f2[2] > 0.0)
+                live2 = (active & sel_env & (n_lob > 0) & (wo_z != 0.0) & any_f2 & (pdf2 > 0.0)
+                         & (lpdf2 > 0.0))
+                escaped = ~occluded(px + ngx * off2n, py + ngy * off2n, pz + ngz * off2n,
+                                    w2x, w2y, w2z, torch.inf, live2)
+                scale2 = torch.where(live2 & escaped,
+                                     w2mis * n_lights / torch.clamp(pdf2, min=1e-20), 0.0)
+                Lr = Lr + br * f2[0] * packed.env.rgb[0] * scale2
+                Lg = Lg + bg * f2[1] * packed.env.rgb[1] * scale2
+                Lb = Lb + bb * f2[2] * packed.env.rgb[2] * scale2
 
         # ---- BSDF sample ----
         ub = sampler.get_2d(pid, sid, dim0 + PATH_BSDF)
@@ -937,6 +1618,8 @@ def li_path_mega_cam_reference(
         bg = torch.where(ok, bg * fs[1] * inv_pdf, bg)
         bb = torch.where(ok, bb * fs[2] * inv_pdf, bb)
         active = active & ok
+        if esc is not None and has_spec:
+            spec_prev = _is_spec(_chosen_kind(row, n_lob, ub[:, 0]))
 
         # etaScale: a transmitted fresnel-specular sample, entering test on ng
         e2 = mat_eta * mat_eta
@@ -966,4 +1649,4 @@ def li_path_mega_cam_reference(
             bg = torch.where(surv, bg * inv_q, bg)
             bb = torch.where(surv, bb * inv_q, bb)
 
-    return torch.stack([Lr, Lg, Lb], dim=-1), weight
+    return torch.stack([Lr, Lg, Lb], dim=-1)

@@ -15,13 +15,15 @@ Volpath kernel by `pack_volpath`, which adds the medium and the light
 distribution), for the in-kernel BVH above TRI_MAX triangles.
 
 AO, and Path on a scene outside the path kernel's subset that the
-wavefront loop takes (in the port's loader subset: a mesh above the
-kernel's 65,536 triangles), render through the wavefront loop instead
+wavefront loop takes (partial spheres, more than 8 spheres or lights,
+distant and triangle lights, more than one environment light, an
+environment light beside a specular lobe, a mesh above the kernel's
+65,536 triangles), render through the wavefront loop instead
 (`render_wavefront_job`): raygen on the host (camera/realistic), then
 integrators/ao.li_ao or integrators/path.li_path over SceneCtx, whose
-intersection queries are kernels K4 and K3.  Path says so on stderr, as
-the JAX package does.  Scenes outside every subset raise
-NotImplementedError (`select_kernel`).
+triangle queries are kernels K4 and K3 (spheres in plain torch).  Path
+says so on stderr, as the JAX package does.  Scenes outside every subset
+raise NotImplementedError (`select_kernel`).
 
 Every tensor lives on the explicit `device`.  On "cuda" the passes run
 the CUDA kernel and are timed with CUDA events; on "cpu" they run the
@@ -50,7 +52,6 @@ from .sampler.dims import CAMERA_FILM, CAMERA_LENS
 from .sampler.halton import HaltonSampler
 from .sampler.stratified import StratifiedSampler
 from .scene.loader import SamplerSpec, load_scene
-from .scene.types import LIGHT_POINT
 
 
 def require_device(device):
@@ -155,8 +156,8 @@ WAVEFRONT = ("wavefront", None, None, None)
 
 def wavefront_unsupported(job, sampler):
     """The first feature of an AO or Path job outside the wavefront loop,
-    or None.  AO takes any triangle scene of point lights (or none) up to
-    the BVH kernels' triangle limit, without media."""
+    or None.  AO reads no light: it takes any scene of triangles and
+    spheres up to the BVH kernels' triangle limit, without media."""
     if job.integrator.kind == "path":
         return wpath.unsupported_feature(job.scene, job.integrator, sampler)
     scene = job.scene
@@ -166,8 +167,6 @@ def wavefront_unsupported(job, sampler):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     if scene.triangles.count > bk.BVH_PRIM_MAX:
         return f"{scene.triangles.count} triangles (the BVH kernels take up to {bk.BVH_PRIM_MAX})"
-    if np.any(np.asarray(scene.lights.kind) != LIGHT_POINT):
-        return "lights other than point lights (their shapes are not in the wavefront loop)"
     return None
 
 

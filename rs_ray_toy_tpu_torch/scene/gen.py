@@ -11,6 +11,8 @@ the mesh scene of the SPPM kernels' BVH instances).
 Volpath, optionally with the sphere light of the JAX bench's `fog_area`
 row (bench.py:103-111, 138-143); `write_grid_fog_scene` gives the fixture
 an n^3 GridDensity camera medium, the bench's `grid_fog` row.
+`write_wavefront_scene` gives a base scene what only the wavefront Path
+loop renders: a partial sphere, a distant light and a triangle-area light.
 """
 
 import json
@@ -131,3 +133,29 @@ def write_grid_fog_scene(
         "scale": [20.0, 16.0, 12.0],
     }
     return _write(cfg, base, out_dir, "grid_fog.json")
+
+
+def write_wavefront_scene(out_dir, base=FIXTURE, xres=None, yres=None, matte=False):
+    """Write wavefront.json under out_dir: the base scene with a sphere of
+    radius 1.2 at (34, 0.8, 0.5) clipped at z_max 0.3 and phi_max 270
+    degrees, a distant light of radiance 1.5 from above the camera, and a
+    diffuse light of radiance 20 on one triangle of a cube mesh `lamp`
+    centred at (33, 0, 6), its downward face (triangle 8 of cube.obj, the
+    z = -1 face).  The path kernel takes none of the three: Path renders
+    it through the wavefront loop.  `matte` gives every cube the matte
+    material."""
+    cfg = _load(base, xres, yres)
+    cfg["objs"].append({"obj_name": "lamp", "filename": "cube.obj", "world_pos": [33.0, 0.0, 6.0]})
+    prims = cfg["Aggregate"]["primitives"]
+    if matte:
+        for prim in prims:
+            prim["material_name"] = "mat_matte"
+    prims.append({"primitive_type": "sphere", "material_name": "mat_matte", "radius": 1.2,
+                  "world_pos": [34.0, 0.8, 0.5], "z_max": 0.3, "phi_max": 270.0})
+    cfg["lights"] += [
+        {"light_type": "distant", "l": {"values": [1.5, 1.5, 1.5]}, "from": [0.0, 0.0, 0.0],
+         "to": [1.0, 0.3, -0.6]},
+        {"light_type": "diffuse", "spectrum": {"values": [20.0, 20.0, 20.0]},
+         "light_shape": {"shape_type": "triangle", "obj_name": "lamp", "tri_num": 8}},
+    ]
+    return _write(cfg, base, out_dir, "wavefront.json")

@@ -2,15 +2,19 @@
 
 Parses the reference's scene schema with the same typed accessors and
 defaults (renderprocess.rs:136-252).  Ported: materials (matte, plastic,
-metal, mirror, glass, debug), `objs`, triangle primitives with
-`instances`, point lights, diffuse lights on a sphere `light_shape`, the
-camera medium (`Camera.medium`: Homogeneous or GridDensity, by preset or
-the reference's default coefficients), Film, StratifiedSampler,
-HaltonSampler, RealisticCamera and the Path, Debug, DirectLighting,
-Volpath and SPPM integrators.  Every other feature the schema can name raises
-NotImplementedError with the feature's name; nothing is dropped
-silently.  Host numpy throughout; `load_scene` returns the same
-`RenderJob` fields as the JAX package.
+metal, mirror, glass, debug), `objs`, triangle and sphere primitives with
+`instances` (spheres with their z / phi clips), point and distant lights,
+diffuse lights on a sphere (a partial one sampled whole, as the JAX
+loader does) or one triangle `light_shape`, infinite lights in `lights`
+and `infinite_lights` on a constant map (no `mapname`, or one that does
+not exist), the camera medium (`Camera.medium`: Homogeneous or
+GridDensity, by preset or the reference's default coefficients), Film,
+StratifiedSampler, HaltonSampler, RealisticCamera and the Path, Debug,
+DirectLighting, Volpath, SPPM and AO integrators (any other name is AO,
+as in the JAX package).  Every other feature the schema can name raises
+NotImplementedError with the feature's name (an existing environment
+image among them); nothing is dropped silently.  Host numpy throughout;
+`load_scene` returns the same `RenderJob` fields as the JAX package.
 """
 
 import json
@@ -26,11 +30,19 @@ from ..core import spectrum
 from ..core.transform import Transform
 from .objparser import parse_obj
 from .subsurface_presets import SUBSURFACE_PARAMETER_TABLE
+from ..core.sampling import Distribution2D
 from .types import (
+    AREA_SHAPE_NONE,
+    AREA_SHAPE_SPHERE,
+    AREA_SHAPE_TRIANGLE,
     LIGHT_DIFFUSE_AREA,
+    LIGHT_DISTANT,
+    LIGHT_INFINITE,
     LIGHT_POINT,
+    EnvLight,
     LightSoA,
     MediumSpec,
+    SphereSoA,
     TriangleSoA,
 )
 
@@ -155,6 +167,11 @@ class SceneBundle:
     materials: Dict
     mediums: List[MediumSpec] = field(default_factory=list)
     camera_medium: int = -1  # index into mediums, -1: the camera sits in vacuum
+    spheres: Optional[SphereSoA] = None
+    # the environments of the infinite lights, `lights` entries first in
+    # file order (LightSoA.shape_index points here), then the
+    # escape-only `infinite_lights` ones
+    infinite: List[EnvLight] = field(default_factory=list)
 
 
 @dataclass
@@ -205,7 +222,6 @@ COPPER_K_RGB = spectrum.from_sampled_rgb(_COPPER_WAVELENGTHS, _COPPER_K)
 _UNPORTED_SECTIONS = (
     ("float_texture", "textures"),
     ("rgb_texture", "textures"),
-    ("infinite_lights", "infinite lights"),
 )
 _UNPORTED_MATERIALS = ("TranslucentMaterial", "MixMaterial", "DisneyMaterial")
 
@@ -240,11 +256,14 @@ def load_scene(path: str) -> RenderJob:
             "to_world": make_to_world(obj_cfg),
         }
 
-    tris = _make_aggregate(cfg, meshes, mat_ids)
+    tris, sphs = _make_aggregate(cfg, meshes, mat_ids)
+    lights, infinite = _make_lights(cfg, meshes, _world_radius(tris, sphs), root_dir)
     bundle = SceneBundle(
         triangles=_pack_triangles(tris),
-        lights=_make_lights(cfg, _world_radius(tris)),
+        lights=lights,
         materials=mat_builder.pack(),
+        spheres=_pack_spheres(sphs),
+        infinite=infinite,
     )
     cam_medium = _parse_medium((cfg.get("Camera", {}) or {}).get("medium"))
     if cam_medium is not None:
@@ -339,28 +358,74 @@ def _expand_mesh(mesh_entry, instance_to_world, mat_id):
     ]
 
 
+def _sphere_from_cfg(cfg, extra_to_world=None):
+    """A sphere's transform, radius and clips (renderprocess.rs)."""
+    to_world = make_to_world(cfg)
+    if extra_to_world is not None:
+        to_world = extra_to_world * to_world
+    radius = read_f64(cfg, "radius", 1.0)
+    return {
+        "o2w": to_world.m,
+        "radius": radius,
+        "z_min": read_f64(cfg, "z_min", -radius),
+        "z_max": read_f64(cfg, "z_max", radius),
+        "phi_max_deg": read_f64(cfg, "phi_max", 360.0),
+    }
+
+
 def _make_aggregate(cfg, meshes, mat_ids):
+    """(triangles, spheres) of the aggregate; a primitive whose material
+    or mesh is unknown is skipped, as in the reference."""
     agg = cfg.get("Aggregate", {}) or {}
     tris: List[Dict] = []
+    sphs: List[Dict] = []
     for prim in agg.get("primitives", []) or []:
         ptype = read_string(prim, "primitive_type", "")
         if isinstance(prim.get("medium_interface"), dict):
             raise NotImplementedError("participating media (medium_interface)")
+        mat_id = mat_ids.get(read_string(prim, "material_name", "DefaultMaterialName"), -1)
+        instances = prim.get("instances")
         if ptype == "sphere":
-            raise NotImplementedError("sphere primitives")
+            if mat_id < 0:
+                continue
+            xfs = [make_to_world(inst) for inst in instances] if isinstance(instances, list) \
+                else [None]
+            sphs.extend(dict(_sphere_from_cfg(prim, xf), mat=mat_id) for xf in xfs)
+            continue
         if ptype != "triangle":
             continue
-        mat_id = mat_ids.get(read_string(prim, "material_name", "DefaultMaterialName"), -1)
         obj_name = read_string(prim, "obj_name", "DefaultObjName")
         if obj_name not in meshes or mat_id < 0:
             continue
-        instances = prim.get("instances")
         if isinstance(instances, list):
             for inst in instances:
                 tris.extend(_expand_mesh(meshes[obj_name], make_to_world(inst), mat_id))
         else:
             tris.extend(_expand_mesh(meshes[obj_name], None, mat_id))
-    return tris
+    return tris, sphs
+
+
+def _pack_spheres(sphs) -> SphereSoA:
+    """Sphere table, float32: clips ordered and clamped to the radius,
+    theta of each z clip, phi_max in radians (the JAX loader's)."""
+    radius = np.array([s["radius"] for s in sphs], np.float64)
+    zlo = np.array([s["z_min"] for s in sphs], np.float64)
+    zhi = np.array([s["z_max"] for s in sphs], np.float64)
+    z_min = np.clip(np.minimum(zlo, zhi), -radius, radius)
+    z_max = np.clip(np.maximum(zlo, zhi), -radius, radius)
+    o2w = np.asarray([s["o2w"] for s in sphs], np.float64).reshape(-1, 4, 4)
+    f32 = lambda a: np.asarray(a, np.float32)
+    return SphereSoA(
+        o2w=f32(o2w),
+        w2o=f32(np.linalg.inv(o2w) if sphs else o2w),
+        radius=f32(radius),
+        z_min=f32(z_min),
+        z_max=f32(z_max),
+        theta_min=f32(np.arccos(np.clip(z_min / radius, -1, 1))),
+        theta_max=f32(np.arccos(np.clip(z_max / radius, -1, 1))),
+        phi_max=f32(np.deg2rad(np.clip([s["phi_max_deg"] for s in sphs], 0.0, 360.0))),
+        mat=np.asarray([s["mat"] for s in sphs], np.int32),
+    )
 
 
 def _smooth_normals(tris, ng):
@@ -379,7 +444,8 @@ def _smooth_normals(tris, ng):
 
 def _pack_triangles(tris) -> TriangleSoA:
     if not tris:
-        raise NotImplementedError("scenes without triangles")
+        z3, z2 = np.zeros((0, 3), np.float32), np.zeros((0, 2), np.float32)
+        return TriangleSoA(z3, z3, z3, z3, z3, z3, z2, z2, z2, np.zeros(0, np.int32), z3, z3, z3)
     p = np.stack([t["p"] for t in tris])  # (T,3,3)
     default_uv = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]])
     uv = np.stack([t["uv"] if t["uv"] is not None else default_uv for t in tris])
@@ -428,66 +494,136 @@ def _pack_triangles(tris) -> TriangleSoA:
 # ---- lights (renderprocess.rs:921-1053) ----
 
 
-def _world_radius(tris):
-    """Radius of the triangles' bounding sphere, float32 (the JAX
-    loader's _world_bound / _make_lights, float64 until the cast)."""
-    p = np.concatenate([t["p"] for t in tris])
+def _world_radius(tris, sphs):
+    """Radius of the bounding sphere of the triangles and the spheres'
+    object boxes, float32 (the JAX loader's _world_bound / _make_lights,
+    float64 until the cast); 0 for an empty aggregate."""
+    pts = [t["p"] for t in tris]
+    for s in sphs:
+        r = s["radius"]
+        corners = np.array([[x, y, z] for x in (-r, r) for y in (-r, r) for z in (-r, r)])
+        pts.append(corners @ s["o2w"][:3, :3].T + s["o2w"][:3, 3])
+    if not pts:
+        return np.float32(0.0)
+    p = np.concatenate(pts)
     lo, hi = p.min(axis=0), p.max(axis=0)
     center = 0.5 * (lo + hi)
     return np.float32(np.linalg.norm(hi - center))
 
 
-def _sphere_light(lcfg):
-    """(o2w, radius) of a diffuse light's `light_shape`; a full sphere
-    only (sphere.rs sample_ref samples the whole sphere)."""
+def _diffuse_shape(lcfg, meshes):
+    """A diffuse light's shape (renderprocess.rs:999-1017): (shape kind,
+    sphere o2w, sphere radius, triangle vertices, area).  A sphere's area
+    is the full sphere's and it is sampled whole, whatever its clips (the
+    JAX loader's)."""
     shape_cfg = lcfg.get("light_shape")
-    stype = read_string(shape_cfg, "shape_type", "") if isinstance(shape_cfg, dict) else ""
-    if stype != "sphere":
-        raise NotImplementedError(
-            f"diffuse lights without a sphere light_shape ({stype or 'none'})"
-        )
-    radius = read_f64(shape_cfg, "radius", 1.0)
-    partial = (
-        read_f64(shape_cfg, "z_min", -radius) != -radius
-        or read_f64(shape_cfg, "z_max", radius) != radius
-        or read_f64(shape_cfg, "phi_max", 360.0) != 360.0
+    if not isinstance(shape_cfg, dict):
+        raise NotImplementedError("diffuse lights without a light_shape")
+    stype = read_string(shape_cfg, "shape_type", "")
+    if stype == "sphere":
+        sph = _sphere_from_cfg(shape_cfg)
+        r = sph["radius"]
+        return AREA_SHAPE_SPHERE, sph["o2w"], r, np.zeros((3, 3)), 4.0 * np.pi * r**2
+    if stype == "triangle":
+        obj_name = read_string(shape_cfg, "obj_name", "")
+        if obj_name not in meshes:
+            raise NotImplementedError(f"diffuse lights on an unknown mesh ({obj_name!r})")
+        tri = _expand_mesh(meshes[obj_name], None, -1)[read_i64(shape_cfg, "tri_num", 0)]
+        p = tri["p"]
+        area = 0.5 * np.linalg.norm(np.cross(p[1] - p[0], p[2] - p[0]))
+        return AREA_SHAPE_TRIANGLE, np.eye(4), 1.0, p, area
+    raise NotImplementedError(f"diffuse lights on a {stype or 'untyped'} light_shape")
+
+
+def _build_env_map(texmap_path, to_world: Transform, escape_le):
+    """InfiniteAreaLight construction (lights/infinite.rs:34-112) on the
+    constant map the JAX loader builds when the image is absent: 8x8
+    texels of 1, and a Distribution2D over luminance * sin(theta) at
+    twice the map's resolution.  The radiance is the texel; the light's
+    `l` and `scale` reach only its power."""
+    if texmap_path and os.path.exists(texmap_path):
+        raise NotImplementedError("image-map environment lights")
+    base = np.ones((8, 8, 3), np.float64)
+    h2, w2 = 2 * base.shape[0], 2 * base.shape[1]
+    vs = (np.arange(h2) + 0.5) / h2
+    us = (np.arange(w2) + 0.5) / w2
+    vi = np.clip((vs * base.shape[0]).astype(int), 0, base.shape[0] - 1)
+    ui = np.clip((us * base.shape[1]).astype(int), 0, base.shape[1] - 1)
+    lum = 0.212671 * base[..., 0] + 0.715160 * base[..., 1] + 0.072169 * base[..., 2]
+    func = lum[np.ix_(vi, ui)] * np.sin(np.pi * vs)[:, None]
+    return EnvLight(
+        rgb=base[0, 0].astype(np.float32),
+        dist=Distribution2D(func.ravel(), w2, h2),
+        to_world=np.asarray(to_world.m, np.float32),
+        to_local=np.asarray(to_world.m_inv, np.float32),
+        escape_le=escape_le,
     )
-    if partial:
-        raise NotImplementedError("diffuse lights on a partial sphere")
-    return make_to_world(shape_cfg).m, radius
 
 
-def _make_lights(cfg, world_radius) -> LightSoA:
+def _make_lights(cfg, meshes, world_radius, root_dir):
+    """(LightSoA of the `lights` section, environments).  An infinite
+    light in `lights` is sampled by NEE; one in `infinite_lights` is
+    collected by escaped rays only (scene.rs keeps the two lists)."""
     rows = []
-    for lcfg in cfg.get("lights", []) or []:
-        ltype = read_string(lcfg, "light_type", "")
-        eye = np.eye(4)
-        if ltype == "point":
-            # PointLight at the light-to-world image of the origin
-            rows.append((LIGHT_POINT, make_to_world(lcfg).apply_point(np.zeros(3)),
-                         make_spectrum(lcfg, "spectrum", 1.0), eye, eye, 1.0, 1.0, 1))
-        elif ltype == "diffuse":
-            o2w, radius = _sphere_light(lcfg)
-            rows.append((
-                LIGHT_DIFFUSE_AREA, np.zeros(3), make_spectrum(lcfg, "spectrum", 1.0),
-                o2w, np.linalg.inv(o2w), radius, 4.0 * np.pi * radius**2,
-                read_i64(lcfg, "n_samples", 1),
-            ))
-        else:
-            raise NotImplementedError(f"{ltype or 'untyped'} lights")
+    infinite: List[EnvLight] = []
+    escape_only: List[EnvLight] = []
+
+    def row(kind, emit, p=np.zeros(3), w=np.zeros(3), shape=None, env_id=-1, n_samples=1):
+        sk, o2w, radius, tri_p, area = shape or (AREA_SHAPE_NONE, np.eye(4), 1.0,
+                                                 np.zeros((3, 3)), 1.0)
+        rows.append((kind, p, emit, w, sk, env_id, o2w, np.linalg.inv(o2w), radius, tri_p,
+                     area, n_samples))
+
+    for section in ("lights", "infinite_lights"):
+        escape = section == "infinite_lights"
+        for lcfg in cfg.get(section, []) or []:
+            ltype = read_string(lcfg, "light_type", "")
+            to_world = make_to_world(lcfg)
+            if ltype == "infinite":
+                texmap = read_string(lcfg, "mapname", "")
+                env = _build_env_map(os.path.join(root_dir, texmap) if texmap else "",
+                                     to_world, escape)
+                if escape:
+                    escape_only.append(env)
+                    continue
+                infinite.append(env)
+                row(LIGHT_INFINITE, make_spectrum(lcfg, "l", 1.0) * make_spectrum(lcfg, "scale", 1.0),
+                    env_id=len(infinite) - 1, n_samples=read_i64(lcfg, "n_samples", 1))
+            elif escape:
+                raise NotImplementedError(f"{ltype or 'untyped'} lights in infinite_lights")
+            elif ltype == "point":
+                # PointLight at the light-to-world image of the origin
+                row(LIGHT_POINT, make_spectrum(lcfg, "spectrum", 1.0),
+                    p=to_world.apply_point(np.zeros(3)))
+            elif ltype == "distant":
+                # lights/distant.rs: w = normalize(to_world(from - to))
+                d = to_world.apply_vector(fetch_xyz(lcfg, "from", [0.0, 0.0, 0.0])
+                                          - fetch_xyz(lcfg, "to", [0.0, 0.0, 1.0]))
+                row(LIGHT_DISTANT, make_spectrum(lcfg, "l", 1.0) * make_spectrum(lcfg, "scale", 1.0),
+                    w=d / np.linalg.norm(d))
+            elif ltype == "diffuse":
+                row(LIGHT_DIFFUSE_AREA, make_spectrum(lcfg, "spectrum", 1.0),
+                    shape=_diffuse_shape(lcfg, meshes), n_samples=read_i64(lcfg, "n_samples", 1))
+            else:
+                raise NotImplementedError(f"{ltype or 'untyped'} lights")
     n = len(rows)
     col = lambda i, dtype, shape: np.asarray([r[i] for r in rows], dtype).reshape((n,) + shape)
-    return LightSoA(
+    lights = LightSoA(
         kind=col(0, np.int32, ()),
         p=col(1, np.float32, (3,)),
         emit=col(2, np.float32, (3,)),
-        sph_o2w=col(3, np.float32, (4, 4)),
-        sph_w2o=col(4, np.float32, (4, 4)),
-        sph_radius=col(5, np.float32, ()),
-        area=col(6, np.float32, ()),
-        n_samples=col(7, np.int32, ()),
+        w_light=col(3, np.float32, (3,)),
+        shape_kind=col(4, np.int32, ()),
+        shape_index=col(5, np.int32, ()),
+        sph_o2w=col(6, np.float32, (4, 4)),
+        sph_w2o=col(7, np.float32, (4, 4)),
+        sph_radius=col(8, np.float32, ()),
+        tri_p=col(9, np.float32, (3, 3)),
+        area=col(10, np.float32, ()),
+        n_samples=col(11, np.int32, ()),
         world_radius=world_radius,
     )
+    return lights, infinite + escape_only
 
 
 # ---- media (renderprocess.rs:1108-1176) ----
@@ -584,20 +720,18 @@ def _make_sampler_spec(scfg) -> SamplerSpec:
     )
 
 
-# integrator_type -> IntegratorSpec.kind for the ported integrators; AO is
-# the default
+# integrator_type -> IntegratorSpec.kind; every other name is AO, the
+# reference's default (the JAX loader's mapping.get(kind, "ao"))
 _INTEGRATORS = {
     "Path": "path", "Debug": "debug", "DirectLighting": "direct", "Volpath": "volpath",
-    "SPPM": "sppm", "AO": "ao",
+    "SPPM": "sppm",
 }
 
 
 def _make_integrator_spec(icfg) -> IntegratorSpec:
     name = read_string(icfg, "integrator_type", "AO")
-    if name not in _INTEGRATORS:
-        raise NotImplementedError(f"{name} integrator")
     return IntegratorSpec(
-        kind=_INTEGRATORS[name],
+        kind=_INTEGRATORS.get(name, "ao"),
         max_depth=read_i64(icfg, "max_depth", 5),
         light_strategy=read_string(icfg, "light_strategy", "one"),
         rr_threshold=read_f64(icfg, "rr_threshold", 1.0),

@@ -1,9 +1,11 @@
 """Scene data model (rs_ray_toy_tpu/scene/types.py), host numpy SoA tables.
 
-Triangles are instance-expanded and baked to world space at load; lights
-are a typed table.  Only the slice's kinds are ported (triangles, point
-lights, diffuse lights on a full sphere, homogeneous and grid media); the
-constants keep the JAX package's codes.
+Triangles are instance-expanded and baked to world space at load;
+spheres keep their object-to-world transforms, since partial-sphere clips
+(z_min, z_max, phi_max) happen in object space (shape/sphere.rs); lights
+are a typed table.  The kinds are the JAX package's: triangles, spheres,
+point, distant, diffuse (on a sphere or one triangle) and infinite lights,
+homogeneous and grid media; the constants keep its codes.
 """
 
 from dataclasses import dataclass
@@ -11,10 +13,17 @@ from typing import Optional
 
 import numpy as np
 
-# light type codes (the JAX package's; distant and infinite lights are not
-# ported)
+# light type codes (the JAX package's)
 LIGHT_POINT = 0
-LIGHT_DIFFUSE_AREA = 2  # on a full sphere; the triangle shape is not ported
+LIGHT_DISTANT = 1
+LIGHT_DIFFUSE_AREA = 2
+LIGHT_INFINITE = 3
+
+# area-light shape codes (diffuse lights sample a sphere or one triangle,
+# renderprocess.rs:999-1017)
+AREA_SHAPE_NONE = -1
+AREA_SHAPE_SPHERE = 0
+AREA_SHAPE_TRIANGLE = 1
 
 
 @dataclass
@@ -42,22 +51,60 @@ class TriangleSoA:
 
 
 @dataclass
+class SphereSoA:
+    o2w: np.ndarray  # (S,4,4) float32 object-to-world
+    w2o: np.ndarray  # (S,4,4) float32 its inverse
+    radius: np.ndarray  # (S,) float32
+    z_min: np.ndarray  # (S,) float32, clipped to [-radius, radius]
+    z_max: np.ndarray
+    theta_min: np.ndarray  # (S,) float32 arccos(z_min / radius)
+    theta_max: np.ndarray
+    phi_max: np.ndarray  # (S,) float32 radians
+    mat: np.ndarray  # (S,) int32 material ids
+
+    @property
+    def count(self):
+        return self.radius.shape[0]
+
+
+@dataclass
 class LightSoA:
     kind: np.ndarray  # (L,) int32 LIGHT_*
-    p: np.ndarray  # (L,3) float32 point-light position (zeros for area lights)
-    emit: np.ndarray  # (L,3) float32 point intensity I / area radiance L
-    # diffuse sphere lights own their shape (lights/diffuse.rs); identity
-    # and radius 1 on the other rows
+    p: np.ndarray  # (L,3) float32 point-light position (zeros for the others)
+    # point intensity I / distant, area or infinite radiance L (* scale)
+    emit: np.ndarray  # (L,3) float32
+    w_light: np.ndarray  # (L,3) float32 distant-light direction (normalized)
+    shape_kind: np.ndarray  # (L,) int32 AREA_SHAPE_* of diffuse lights
+    # (L,) int32: an infinite light's entry in the scene's environment list
+    shape_index: np.ndarray
+    # diffuse lights own their shape (lights/diffuse.rs); identity and
+    # radius 1 (zeros for tri_p) on the other rows
     sph_o2w: np.ndarray  # (L,4,4) float32 object-to-world
     sph_w2o: np.ndarray  # (L,4,4) float32 its inverse
     sph_radius: np.ndarray  # (L,) float32
-    area: np.ndarray  # (L,) float32 full-sphere area; 1 on the other rows
+    tri_p: np.ndarray  # (L,3,3) float32 a triangle light's world vertices
+    area: np.ndarray  # (L,) float32 the shape's area (a sphere's full area); 1 elsewhere
     n_samples: np.ndarray  # (L,) int32, the schema's (1 by default); no ported kernel reads it
-    world_radius: np.float32  # bounding sphere of the triangles
+    world_radius: np.float32  # bounding sphere of the triangles and spheres
 
     @property
     def count(self):
         return self.kind.shape[0]
+
+
+@dataclass
+class EnvLight:
+    """An infinite light's environment (lights/infinite.rs:34-112) on a
+    constant map: the texel radiance (the map's, not the light's `l`),
+    its Distribution2D over luminance * sin(theta) (core/sampling), the
+    light-to-world transform and its inverse, and whether escaped rays
+    collect it (it stood in `infinite_lights`)."""
+
+    rgb: np.ndarray  # (3,) float32 texel radiance
+    dist: object  # core.sampling.Distribution2D
+    to_world: np.ndarray  # (4,4) float32
+    to_local: np.ndarray  # (4,4) float32
+    escape_le: bool
 
 
 @dataclass

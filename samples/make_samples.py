@@ -1,6 +1,7 @@
 """Write the in-repo scene fixture: samples/scene.json, samples/scene_debug.json,
-samples/scene_fog.json, samples/scene_sppm.json, samples/scene_ao.json and
-samples/cube.obj.
+samples/scene_fog.json, samples/scene_sppm.json, samples/scene_ao.json,
+samples/scene_sphere_area.json, samples/scene_env.json,
+samples/scene_furnace.json and samples/cube.obj.
 
 This fixture stands in for the reference renderer's `samples/scene.json`,
 which is not part of this repository.  It follows the reference's scene
@@ -26,6 +27,22 @@ it: radius 1.0, 4 iterations of 131,072 photons, max_depth 3.
 scene_ao.json is scene.json under the reference's default integrator, AO,
 with its defaults written out: 64 cosine-distributed probes per camera
 hit.
+
+scene_sphere_area.json is the JAX bench's `sphere_area` row (bench.py:
+88-101) on this fixture: two matte spheres (radius 1.2 at (34, 0.8, 0.5),
+0.8 at (36, -1.2, -1.5)) among the cubes, and a diffuse sphere light of
+radius 0.5 at (33, 3, 1) with radiance (30, 25, 20) beside the three
+point lights.
+
+scene_env.json is the bench's `env` row (bench.py:112-120): the point
+lights give way to one unit constant environment, listed in `lights`
+(sampled by NEE) and in `infinite_lights` (seen by escaped rays).
+
+scene_furnace.json is the white furnace of tests/test_furnace.py:29-58 in
+front of this fixture's camera: one unit matte sphere (kd 0.5) at
+(35, 0, 0), where the cubes stand, under the same unit environment, no
+triangles.  A convex Lambertian body under
+constant light L reflects exactly kd * L, so it is an absolute check.
 
 The scene is synthetic.  In particular its `lens_data` is NOT the
 reference's lens prescription: it is the classic 50 mm f/2 double-Gauss
@@ -207,6 +224,45 @@ def scene_ao():
     return cfg
 
 
+UNIT_ENV = {"light_type": "infinite", "l": {"values": [1.0, 1.0, 1.0]}}
+
+
+def scene_sphere_area():
+    cfg = scene()
+    cfg["Aggregate"]["primitives"] += [
+        {"primitive_type": "sphere", "material_name": "mat_matte", "radius": 1.2,
+         "world_pos": [34.0, 0.8, 0.5]},
+        {"primitive_type": "sphere", "material_name": "mat_matte", "radius": 0.8,
+         "world_pos": [36.0, -1.2, -1.5]},
+    ]
+    cfg["lights"].append({
+        "light_type": "diffuse",
+        "spectrum": {"values": [30.0, 25.0, 20.0]},
+        "light_shape": {"shape_type": "sphere", "radius": 0.5, "world_pos": [33.0, 3.0, 1.0]},
+    })
+    return cfg
+
+
+def scene_env():
+    cfg = scene()
+    cfg["lights"] = [dict(UNIT_ENV)]
+    cfg["infinite_lights"] = [dict(UNIT_ENV)]
+    return cfg
+
+
+def scene_furnace():
+    cfg = scene()
+    cfg["materials"] = [{"material_type": "MatteMaterial", "material_name": "mat_m"}]
+    cfg["objs"] = []
+    cfg["lights"] = [dict(UNIT_ENV)]
+    cfg["infinite_lights"] = [dict(UNIT_ENV)]
+    cfg["Aggregate"] = {
+        "primitives": [{"primitive_type": "sphere", "material_name": "mat_m", "radius": 1.0,
+                        "world_pos": [35.0, 0.0, 0.0]}]
+    }
+    return cfg
+
+
 def main(out_dir=HERE):
     with open(os.path.join(out_dir, "cube.obj"), "w") as fh:
         fh.write(cube_obj())
@@ -216,6 +272,9 @@ def main(out_dir=HERE):
         ("scene_fog.json", scene_fog()),
         ("scene_sppm.json", scene_sppm()),
         ("scene_ao.json", scene_ao()),
+        ("scene_sphere_area.json", scene_sphere_area()),
+        ("scene_env.json", scene_env()),
+        ("scene_furnace.json", scene_furnace()),
     ):
         with open(os.path.join(out_dir, name), "w") as fh:
             json.dump(cfg, fh, indent=1)

@@ -439,3 +439,71 @@ def test_wavefront_renders_launch_the_intersection_kernels(tmp_path, monkeypatch
     assert res["launches"] == {"intersect": 0, "bvh_closest": 0, "bvh_any": depth,
                                "bvh_shaded": depth}
     assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
+
+
+def _wide_bar(l, l_ref, q99=1e-5):
+    assert torch.isfinite(l).all() and float(l_ref.max()) > 0
+    rel = (l - l_ref).abs() / l_ref.abs().clamp(min=1e-3)
+    assert float((rel.amax(-1) > 1e-3).float().mean()) < 5e-3
+    assert float(torch.quantile(rel.flatten(), 0.99)) < q99
+    assert abs(float(l.mean()) - float(l_ref.mean())) < 1e-6 + 3e-3 * abs(float(l_ref.mean()))
+
+
+@pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
+@pytest.mark.parametrize("scene", ["scene_sphere_area.json", "scene_env.json"])
+def test_wide_kernel_instances_match_plain_versions(tmp_path, scene, bvh):
+    """The widened path kernel on the sphere-area and environment fixtures:
+    the camera instance (#1, #2 with the BVH) and the rays-in instance
+    (#3, #4) on the same camera rays, each against its plain version."""
+    from rs_ray_toy_tpu_torch.render import camera_rays
+
+    dev = _device()
+    job = _job(tmp_path, scene=scene)
+    camera = RealisticCamera(job.camera, job.film, pupil_samples=1 << 16, device=dev)
+    sampler = StratifiedSampler(job.sampler)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    packed = pmk.pack_scene(job.scene, dev, bvh=bvh)
+    args = (packed, pmk.pack_camera(camera), pxy, pid, soff, sampler, job.integrator)
+    name = "path_mega_cam_bvh" if bvh else "path_mega_cam"
+    before = pmk.LAUNCHES[name]
+    l, w = pmk.li_path_mega_cam(*args)
+    torch.cuda.synchronize()
+    assert pmk.LAUNCHES[name] == before + 1
+    l_ref, w_ref = pmk.li_path_mega_cam_reference(*args)
+    torch.testing.assert_close(w, w_ref, rtol=2e-5, atol=1e-7)
+    _wide_bar(l, l_ref)
+    o, d, wt = camera_rays(camera, sampler, pxy, pid, soff)
+    rays = (packed, o, d, wt, pid, soff, sampler, job.integrator)
+    name = "path_mega_bvh" if bvh else "path_mega"
+    before = pmk.LAUNCHES[name]
+    l = pmk.li_path_mega(*rays)
+    torch.cuda.synchronize()
+    assert pmk.LAUNCHES[name] == before + 1
+    _wide_bar(l, pmk.li_path_mega_reference(*rays))
+
+
+def test_rays_in_kernel_white_furnace():
+    """#3 on 2^18 parallel rays into samples/scene_furnace.json's sphere:
+    the mean within 0.015 rho + 0.004 of rho = 0.5, escaped rays 1 within
+    1e-6, and the plain version's per-ray bar."""
+    dev = _device()
+    job = load_scene(str(SAMPLES / "scene_furnace.json"))
+    packed = pmk.pack_scene(job.scene, dev)
+    sampler = StratifiedSampler(job.sampler, seed=3)
+    rng = np.random.default_rng(3)
+    n = 1 << 18
+    yz = rng.random((2 * n, 2)) * 1.2 - 0.6
+    yz = yz[np.hypot(yz[:, 0], yz[:, 1]) < 0.6][:n]
+    o = np.concatenate([np.full((n, 1), -5.0), yz], 1) + np.array([35.0, 0.0, 0.0])
+    o = torch.tensor(o, dtype=torch.float32, device=dev)
+    d = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(n, 3).contiguous()
+    w = torch.ones(n, device=dev)
+    pid = torch.arange(n, device=dev)
+    sid = torch.zeros(n, dtype=torch.int64, device=dev)
+    l = pmk.li_path_mega(packed, o, d, w, pid, sid, sampler, job.integrator)
+    l_esc = pmk.li_path_mega(packed, o, -d, w, pid, sid, sampler, job.integrator)
+    assert float((l.mean(0) - 0.5).abs().max()) < 0.015 * 0.5 + 0.004
+    assert float((l_esc - 1.0).abs().max()) <= 1e-6
+    sub = slice(0, 1 << 14)
+    _wide_bar(l[sub], pmk.li_path_mega_reference(packed, o[sub], d[sub], w[sub], pid[sub],
+                                                 sid[sub], sampler, job.integrator))

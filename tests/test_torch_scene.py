@@ -2,8 +2,8 @@
 
 Both packages load the in-repo fixtures (samples/scene.json,
 samples/scene_debug.json, samples/scene_fog.json,
-samples/scene_sppm.json and samples/scene_ao.json, written by
-samples/make_samples.py) and pack
+samples/scene_sppm.json, samples/scene_ao.json and the sphere, environment
+and furnace fixtures, written by samples/make_samples.py) and pack
 them for the camera kernels; the packed triangle table, the point lights
 and the camera bundle must agree.
 Features outside the ported slice must raise, at load or when the render
@@ -65,7 +65,8 @@ def test_fixture_is_what_make_samples_writes(tmp_path):
     spec.loader.exec_module(mod)
     mod.main(str(tmp_path))
     for name in ("scene.json", "scene_debug.json", "scene_fog.json", "scene_sppm.json",
-                 "scene_ao.json", "cube.obj"):
+                 "scene_ao.json", "scene_sphere_area.json", "scene_env.json",
+                 "scene_furnace.json", "cube.obj"):
         assert (tmp_path / name).read_bytes() == (SAMPLES / name).read_bytes()
 
 
@@ -139,14 +140,33 @@ def _volpath(medium=THIN_FOG, light=None, integrator="Volpath", **prim0):
 
 GRID_MEDIUM = {"medium_type": "GridDensity", "nx": 2, "ny": 2, "nz": 2, "d": [0.5] * 8,
                "world_pos": [25.0, -8.0, -6.0], "scale": [20.0, 16.0, 12.0]}
+def _sphere_under(integrator):
+    """A sphere primitive beside the cubes under `integrator`."""
+
+    def edit(cfg):
+        cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 3}
+        cfg["Aggregate"]["primitives"].append(
+            {"primitive_type": "sphere", "material_name": "mat_matte", "radius": 1.0,
+             "world_pos": [34.0, 0.0, 0.0]})
+
+    return edit
+
+
+def _sppm_area_light(cfg):
+    cfg["Integrator"] = {"integrator_type": "SPPM", "max_depth": 3, "n_iters": 1}
+    cfg["lights"].append(FOG_AREA_LIGHT)
+
+
 UNSUPPORTED = {
     "textures": _set("rgb_texture", [{"texture_type": "UVTexture", "texture_name": "uv"}]),
-    "infinite lights": _set("infinite_lights", [{"light_type": "infinite"}]),
-    "sphere primitives": _prim0(primitive_type="sphere"),
+    # any existing file as the map: image maps are not ported
+    "image-map environment lights": _set(
+        "infinite_lights", [{"light_type": "infinite", "mapname": "cube.obj"}]),
+    "sphere primitives": _sphere_under("Debug"),
     "participating media": _prim0(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     # a diffuse light needs a sphere light_shape, and only Volpath renders it
     "diffuse lights": _set("lights", [{"light_type": "diffuse"}]),
-    "lights other than up to 8 point lights": _set("lights", [FOG_AREA_LIGHT]),
+    "lights other than up to 8 point lights": _sppm_area_light,
     "medium_interface": _volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "grid media with lights other than point lights": _volpath(GRID_MEDIUM, FOG_AREA_LIGHT),
     "HaltonSampler": _set("Sampler", {"sampler_type": "HaltonSampler"}),
@@ -165,6 +185,55 @@ def test_unsupported_features_raise(tmp_path, feature):
     with pytest.raises(NotImplementedError, match=feature):
         job = load_scene(path)
         select_kernel(job, make_sampler(job))
+
+
+ENV = {"light_type": "infinite", "l": {"values": [1.0, 1.0, 1.0]}}
+DISTANT = {"light_type": "distant", "l": {"values": [1.0, 1.0, 1.0]}, "to": [1.0, 0.0, 0.0]}
+TRIANGLE_LIGHT = {"light_type": "diffuse", "spectrum": {"values": [5.0, 5.0, 5.0]},
+                  "light_shape": {"shape_type": "triangle", "obj_name": "cube", "tri_num": 3}}
+
+
+@pytest.mark.parametrize("integrator,edit,feature", [
+    ("DirectLighting", "sphere", "sphere primitives"),
+    ("Volpath", "sphere", "sphere primitives"),
+    ("SPPM", "sphere", "sphere primitives"),
+    ("Volpath", TRIANGLE_LIGHT, "lights other than up to 8 point and sphere lights"),
+    ("Debug", DISTANT, "lights other than up to 8 point lights"),
+    ("DirectLighting", ENV, "infinite lights"),
+    ("SPPM", ENV, "infinite lights"),
+], ids=lambda v: v if isinstance(v, str) else v["light_type"])
+def test_other_kernels_raise_on_what_only_path_takes(tmp_path, integrator, edit, feature):
+    """The Debug / DirectLighting, Volpath and SPPM kernels keep their
+    subsets: spheres, and lights outside each, raise naming the feature."""
+
+    def apply(cfg):
+        block = {"integrator_type": integrator, "max_depth": 3}
+        if integrator == "Volpath":
+            cfg["Camera"]["medium"] = THIN_FOG
+        cfg["Integrator"] = block
+        if edit == "sphere":
+            _sphere_under(integrator)(cfg)
+            cfg["Integrator"] = block
+        else:
+            cfg["lights"].append(edit)
+
+    path = write_scene(tmp_path, apply)
+    job = load_scene(path)
+    with pytest.raises(NotImplementedError, match=feature):
+        select_kernel(job, make_sampler(job))
+
+
+@pytest.mark.parametrize("name", ["Whitted", "BDPT"])
+def test_unknown_integrator_loads_as_ao(tmp_path, name):
+    """renderprocess.rs: an integrator_type the reference does not know
+    renders AO, in both packages (the JAX loader's mapping.get(kind,
+    "ao")), with the same spec."""
+    path = write_scene(tmp_path, _set("Integrator", {"integrator_type": name, "n_samples": 8}))
+    spec, jspec = load_scene(path).integrator, jax_load_scene(path).integrator
+    assert spec.kind == jspec.kind == "ao"
+    for key in ("max_depth", "light_strategy", "rr_threshold", "cos_sample", "n_samples",
+                "radius", "n_iters", "photons_per_iter", "write_freq"):
+        assert getattr(spec, key) == getattr(jspec, key), key
 
 
 def test_supports_rejects_outside_the_kernel_subset(tmp_path):

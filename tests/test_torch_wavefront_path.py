@@ -119,15 +119,19 @@ def test_path_past_the_kernel_limit_renders_wavefront(tmp_path, monkeypatch, cap
 
 def test_scenes_outside_every_path_raise(tmp_path, monkeypatch):
     """Past the path kernel, a Path scene the wavefront loop does not take
-    either raises, naming the feature; AO does the same with a sphere
-    light, whose sphere the loop does not intersect."""
-    from rs_ray_toy_tpu_torch.render import make_sampler, select_kernel
+    either raises, naming the feature; AO does the same past the BVH
+    kernels' limit.  AO reads no light: a sphere light beside its scene
+    renders through the wavefront loop."""
+    from rs_ray_toy_tpu_torch.render import WAVEFRONT, make_sampler, select_kernel
 
     grid = write_grid_scene(str(tmp_path), ny=6, nz=6, xres=64, yres=36)
     monkeypatch.setattr(pmk, "BVH_TRI_MAX", 400)
     monkeypatch.setattr(bk, "BVH_PRIM_MAX", 450)
     job = load_scene(grid)
     with pytest.raises(NotImplementedError, match="456 triangles"):
+        select_kernel(job, make_sampler(job))
+    job.integrator.kind = "ao"
+    with pytest.raises(NotImplementedError, match="AO integrator.*456 triangles"):
         select_kernel(job, make_sampler(job))
     cfg = json.loads((SAMPLES / "scene_ao.json").read_text())
     cfg["lights"].append({"light_type": "diffuse", "spectrum": {"values": [5.0, 5.0, 5.0]},
@@ -136,5 +140,4 @@ def test_scenes_outside_every_path_raise(tmp_path, monkeypatch):
     (tmp_path / "ao.json").write_text(json.dumps(cfg))
     (tmp_path / "cube.obj").write_bytes((SAMPLES / "cube.obj").read_bytes())
     job = load_scene(str(tmp_path / "ao.json"))
-    with pytest.raises(NotImplementedError, match="AO integrator.*point lights"):
-        select_kernel(job, make_sampler(job))
+    assert select_kernel(job, make_sampler(job)) == WAVEFRONT
