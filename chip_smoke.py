@@ -101,12 +101,40 @@ Phase 8  the widened path kernel: (a) samples/scene_sphere_area.json
          160x90x16, held as 7d.  Each path-kernel instance is held to the
          per-ray bar against its plain version on a seeded subset of its
          main-path batch.
+Phase 9  the path kernel's Halton and smooth instances and K3-shaded's
+         smooth instance: (a) samples/scene_halton.json (the fixture under
+         a 256-sample HaltonSampler, the JAX bench's `halton` row) at
+         640x360 through deploy_render, 16 passes of 3.69M rays, one launch
+         of the Halton camera instance each, the slot matrix
+         (HaltonSampler.slot_matrix) timed apart; (b) the fixture at
+         160x90 x 6 Halton samples, one pass of six; (c) the rays-in
+         Halton instance on 8d's 2^20 furnace rays, mean 0.5 within 0.0115
+         and escaped rays 1 within 1e-6; (d) AO on samples/scene_ao.json
+         under a 16-sample HaltonSampler through the wavefront loop, 65 K4
+         launches; (e) samples/scene_smooth.json (the cubes and two smooth
+         UV spheres, 1,956 triangles) at 640x360x16 through the smooth
+         camera instance, and the smooth rays-in instance on its camera
+         rays; (f) write_smooth_grid_scene's 20 spheres (19,236
+         triangles) at 640x360x8 through the smooth BVH camera instance,
+         and the smooth rays-in BVH instance on its camera rays; (g) its
+         80 spheres (76,836 triangles) at 640x360x8, past the path kernel:
+         the wavefront loop, K3-shaded's smooth instance and K3 any hit
+         (max_depth launches of each), no path-kernel launch, the smooth
+         instance held as 7b holds the flat one; (h) the wavefront li_path
+         (over K3, smooth) against the smooth camera instance on (e) at
+         160x90x16, held as 7d; (i) the remaining instances at 640x360 x
+         6 Halton samples (one pass of 1.38M rays): (e)'s fixture (Halton
+         and smooth), the 19,224-triangle cube grid (BVH, Halton) and (f)'s
+         grid (BVH, Halton and smooth), each camera instance through
+         deploy_render and its rays-in twin on the pass's camera rays.
+         Every instance is held to the per-ray bar against its plain
+         version on a seeded subset of its batch.
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
 loop) and none of the others.  Every phase
 prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the sixteen kernels, the last line
+second-to-last line is a JSON record of the 29 kernels, the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
 build/chip_smoke/chip_smoke.json and the images beside it.  Without a
 CUDA device, or without the rest of the repository, it exits non-zero
@@ -122,8 +150,15 @@ reads: the 9 geometry columns, the 7 of normal, dpdu and lobe count, and
 never read; of each sphere row its 13 intersect columns, 12 of
 object-to-world, 2 of lobe count and eta and 16 per lobe.  A rays-in
 instance moves per ray its origin, direction, weight, pixel id and sample
-index in (36 bytes) and L out (12).  For the Volpath kernel the density grid is read once
-too.  The operations are the Moller-Trumbore tests (45 each), slab
+index in (36 bytes) and L out (12).  Under a HaltonSampler an instance
+reads no pixel id or sample index but the values of the slot matrix
+(SLOT_BYTES each) that the plain version counts as read ("slot"): the
+film and lens values of every camera ray, and per vertex reached the
+light pick and light sample, the environment's BSDF sample where the
+environment was picked, the BSDF sample, and the roulette value where it
+is drawn; on a smooth mesh each triangle row's 9 raw normal columns
+count too.  For the Volpath kernel the
+density grid is read once too.  The operations are the Moller-Trumbore tests (45 each), slab
 tests (27), sphere tests (30: the object-space quadratic and its roots;
 the ray's transform into the sphere is left out), lobe evaluations (3,
 lambert's; a floor) and the grid
@@ -149,11 +184,14 @@ kernels move per ray its origin, direction and t_max in (28 bytes) and t
 and the triangle out (8; the shaded kernel also material, area light and
 16 attribute floats), and read once the triangles' intersect columns (36
 bytes, and their original row in BVH mode), the BVH nodes as above and,
-for the shaded kernel, the 15 shade floats and 2 ints of each triangle;
+for the shaded kernel, the 15 shade floats (31 smooth, which also
+writes 6 attribute floats more a ray) and 2 ints of each triangle;
 their operations are the Moller-Trumbore and slab tests the plain
 version counts.  No single PyTorch call computes a sample pass, any of
 the SPPM kernels, or a closest hit over a triangle list or a BVH:
-`library_ms` is null.
+`library_ms` is null.  A path-kernel instance held on a subset gives as
+`plain_ms` the time of the plain version's one run there, the run that
+counts its work.
 """
 
 import contextlib
@@ -185,17 +223,22 @@ from rs_ray_toy_tpu_torch.render import (
     camera_rays,
     deploy_render,
     make_sampler,
+    pass_spp,
     render_job,
     sample_batch,
 )
+from rs_ray_toy_tpu_torch.sampler.halton import HaltonSampler
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.gen import (
     THIN_FOG,
     write_fog_scene,
     write_grid_fog_scene,
     write_grid_scene,
+    write_smooth_grid_scene,
+    write_variant,
     write_wavefront_scene,
 )
+from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
 ROOT = Path(__file__).resolve().parent
@@ -207,6 +250,9 @@ SCENE_AO = ROOT / "samples" / "scene_ao.json"
 SCENE_SPHERE_AREA = ROOT / "samples" / "scene_sphere_area.json"
 SCENE_ENV = ROOT / "samples" / "scene_env.json"
 SCENE_FURNACE = ROOT / "samples" / "scene_furnace.json"
+SCENE_HALTON = ROOT / "samples" / "scene_halton.json"
+SCENE_SMOOTH = ROOT / "samples" / "scene_smooth.json"
+HALTON6 = {"sampler_type": "HaltonSampler", "nsamp": 6}
 OUT = ROOT / "build" / "chip_smoke"
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
 DIRECT_SRC = "rs_ray_toy_tpu_torch/csrc/direct_megakernel.cu"
@@ -244,6 +290,15 @@ KERNELS = {
     "bvh": dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:249"),
     "bvh_shaded": dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:400"),
 }
+# the path kernel's Halton and smooth instances (phase 9), each replacing
+# the JAX body of its (camera or rays-in, brute force or BVH) kernel
+for _base, _bvh, _line in (("path_mega_cam", False, 3814), ("path_mega_cam", True, 3843),
+                           ("path_mega", False, 3352), ("path_mega", True, 3375)):
+    for _halton, _smooth in ((True, False), (False, True), (True, True)):
+        KERNELS[pmk.kernel_name(_base, _bvh, _halton, _smooth)] = dict(
+            source=PATH_SRC, replaces=f"rs_ray_toy_tpu/ops/path_megakernel.py:{_line}")
+KERNELS["bvh_shaded_smooth"] = dict(source=BVH_SRC,
+                                    replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:400")
 # FP32 operations per counted test, density tap or walked deposit pair
 FLOPS = {"mt": 45, "slab": 27, "sph": 30, "lobe": 3, "track": 40, "pair": 9}
 # module: (kernel wrapper, plain version, packing)
@@ -266,6 +321,7 @@ VP_WALK_BYTES = 4 * 12 + 4 + 4  # a VP with events in its range: p, wo, ng, dpdu
 EVENT_BYTES = 40  # a sorted event row
 PHOTON_FLOOR = 5  # photons with a live event the main-path photon hold needs
 ROW_HEAD_COLS = 9 + 7  # p0, e1, e2; ng, dpdu, lobe count
+NORMAL_COLS = 9  # a smooth mesh's raw vertex normals n0, n1, n2
 LOBE_COLS = 16
 NODE_READ_COLS = 12 + 3  # both child boxes; offset, n_prims, axis
 QUERY_BYTES = 28 + 8  # o, d, t_max in; t, triangle out
@@ -293,16 +349,21 @@ def timed_ms(fn, reps=3):
     return statistics.median(times)
 
 
-def once_ms(fn):
-    """CUDA-event milliseconds of one run (no warm-up)."""
+def timed_once(fn):
+    """(result, CUDA-event milliseconds) of one run (no warm-up)."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    return out, start.elapsed_time(end)
+
+
+def once_ms(fn):
+    """CUDA-event milliseconds of one run (no warm-up)."""
+    return timed_once(fn)[1]
 
 
 def per_ray_bar(l, l_ref):
@@ -333,7 +394,8 @@ def bound(work, scale, n_rays, packed, ray_bytes=RAY_BYTES, extra_bytes=0):
     flops = scale * sum(FLOPS[k] * float(v) for k, v in work.items() if k in FLOPS)
     nbytes = n_rays * ray_bytes + extra_bytes + scale * SLOT_BYTES * float(work.get("slot", 0))
     if packed is not None:
-        nbytes += int((ROW_HEAD_COLS + LOBE_COLS * packed.table[:, 15]).sum()) * 4
+        head = ROW_HEAD_COLS + (NORMAL_COLS if getattr(packed, "smooth", False) else 0)
+        nbytes += int((head + LOBE_COLS * packed.table[:, 15]).sum()) * 4
     sph = getattr(packed, "sph_table", None)
     if sph is not None:
         nbytes += int((SPH_ROW_COLS + LOBE_COLS * sph[:, 15]).sum()) * 4
@@ -382,15 +444,24 @@ def drive(scene, png, kernel, fused, spp_override=None):
     return res, colored, counts[kernel]
 
 
+def halton_slots(packed, spec, sampler, with_cam):
+    """The used_slots of the Halton slot matrix, or None for the
+    stratified sampler."""
+    if not isinstance(sampler, HaltonSampler):
+        return None
+    return pmk.packed_slots(packed, spec, with_cam)
+
+
 def hold(mod, job, stride, dev):
     """The kernel against its plain version on the main path's batch for
     `job` (one pass): the kernel on the whole batch, the plain version on
-    a seeded random 1/`stride` of its rays.  Returns the measured numbers."""
+    a seeded random 1/`stride` of its rays.  Returns the measured numbers;
+    under a HaltonSampler also the slot matrix's ms ("slot_ms")."""
     fn, ref, pack = PASSES[mod]
     cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
     packed = pack(job.scene, dev)
-    sampler = StratifiedSampler(job.sampler)
-    pxy, pid, soff = sample_batch(job.film, min(16, sampler.spp), dev)
+    sampler = make_sampler(job)
+    pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
     args = (packed, cam, pxy, pid, soff, sampler, job.integrator)
     l, w = fn(*args)
     torch.cuda.synchronize()
@@ -400,20 +471,26 @@ def hold(mod, job, stride, dev):
     scale = n / sub.numel()
     sub_args = (packed, cam, pxy[sub], pid[sub], soff[sub], sampler, job.integrator)
     work = {}
-    l_ref, w_ref = ref(*sub_args, work=work)
+    (l_ref, w_ref), plain_ms = timed_once(lambda: ref(*sub_args, work=work))
     bar = per_ray_bar(l[sub], l_ref)
     max_abs_err = max(float((l[sub] - l_ref).abs().max()), float((w[sub] - w_ref).abs().max()))
     del l, w, l_ref, w_ref
     ms = timed_ms(mod.prepare_launch(*args), reps=10)
     wrapper_ms = timed_ms(lambda: fn(*args))
-    plain_ms = once_ms(lambda: ref(*sub_args))
-    bound_ms, bound_by = bound(work, scale, n, packed)
+    slots = halton_slots(packed, job.integrator, sampler, True)
+    # under Halton the kernel reads no pixel id or sample index, but slot values
+    ray_bytes = RAY_BYTES - (8 if slots else 0)
+    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=ray_bytes)
+    extra = {}
+    if slots is not None:
+        extra["slot_ms"] = timed_ms(lambda: sampler.slot_matrix(pid, soff, slots))
+        extra["slot_rows"] = pmk.slot_cols(slots)[1]
     return dict(
         rays=n, plain_rays=pxy[sub].shape[0], bvh=packed.bvh is not None,
         grid=getattr(packed, "grid", False),
         max_abs_err=max_abs_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by,
-        work={k: float(v) * scale for k, v in work.items()}, **bar,
+        work={k: float(v) * scale for k, v in work.items()}, **bar, **extra,
     )
 
 
@@ -432,11 +509,13 @@ def warm_rates(job, dev, n=3):
 
 
 def describe(tag, res, launches, colored, held, warm, card):
+    slot = (f"slot matrix {held['slot_ms']:.3f} ms ({held['slot_rows']} rows); "
+            if "slot_ms" in held else "")
     return (
         f"{tag}: {res['camera_rays']} rays in {res['passes']} pass(es), {launches} launch(es), "
         f"{colored} coloured px; first render {res['mrays_per_s']:.2f} Mrays/s, warm "
-        f"{', '.join(f'{m:.1f}' for m in warm)} Mrays/s; kernel {held['ms']:.3f} ms "
-        f"(wrapper {held['wrapper_ms']:.3f} ms) over {held['rays']} rays, bound "
+        f"{', '.join(f'{m:.1f}' for m in warm) or '-'} Mrays/s; kernel {held['ms']:.3f} ms "
+        f"(wrapper {held['wrapper_ms']:.3f} ms) over {held['rays']} rays, {slot}bound "
         f"{held['bound_ms']:.4f} ms by {held['bound_by']}; plain {held['plain_ms']:.1f} ms over "
         f"{held['plain_rays']} rays; kernel vs plain: diverged {held['diverged']:.2e}, q99 "
         f"{held['q99']:.2e}, mean {held['mean']:.6g} vs {held['mean_ref']:.6g}, max_abs_err "
@@ -626,6 +705,9 @@ def main():
 
     # ---- phase 8: the widened path kernel ----
     wide_phase(record, kernels, card, dev)
+
+    # ---- phase 9: the Halton sampler and smooth normals ----
+    halton_smooth_phase(record, kernels, card, dev)
 
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
@@ -1026,7 +1108,11 @@ def query_bytes(query, ctx, n):
     m, p = ctx.bvh.nodes_f.shape[0], ctx.bvh.prims_f.shape[0]
     nbytes = m * NODE_READ_COLS * 4 + p * (9 * 4 + 4)
     if query == "shaded":
-        return nbytes + n * (28 + SHADED_OUT_BYTES) + p * (15 * 4 + 2 * 4)
+        # the smooth instance reads 31 shade floats a triangle and writes 6
+        # attribute floats more a ray
+        cols = ctx.bvh.shade_f.shape[1]
+        out = SHADED_OUT_BYTES + (24 if ctx.bvh.smooth else 0)
+        return nbytes + n * (28 + out) + p * (cols * 4 + 2 * 4)
     return nbytes + n * QUERY_BYTES
 
 
@@ -1256,7 +1342,7 @@ def hold_rays(job, packed, rays, stride, dev):
     """The rays-in kernel (#3, or #4 over a BVH) against its plain version
     on `rays` = (o, d, weight, pixel_id, s_idx, sampler): the kernel on
     all of them, the plain version on a seeded random 1/`stride`.  Returns
-    the measured numbers."""
+    the measured numbers (with the slot matrix's ms under Halton)."""
     o, d, w, pid, sid, sampler = rays
     args = (packed, o, d, w, pid, sid, sampler, job.integrator)
     l = pmk.li_path_mega(*args)
@@ -1266,19 +1352,24 @@ def hold_rays(job, packed, rays, stride, dev):
     sub = pick.sort().values.to(dev)
     sub_args = (packed, o[sub], d[sub], w[sub], pid[sub], sid[sub], sampler, job.integrator)
     work = {}
-    l_ref = pmk.li_path_mega_reference(*sub_args, work=work)
+    l_ref, plain_ms = timed_once(lambda: pmk.li_path_mega_reference(*sub_args, work=work))
     bar = per_ray_bar(l[sub], l_ref)
     max_abs_err = float((l[sub] - l_ref).abs().max())
     del l, l_ref
     ms = timed_ms(pmk.prepare_rays_launch(*args), reps=10)
     wrapper_ms = timed_ms(lambda: pmk.li_path_mega(*args))
-    plain_ms = once_ms(lambda: pmk.li_path_mega_reference(*sub_args))
     scale = n / sub.numel()
-    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=RAYS_IN_BYTES)
+    slots = halton_slots(packed, job.integrator, sampler, False)
+    bound_ms, bound_by = bound(work, scale, n, packed,
+                               ray_bytes=RAYS_IN_BYTES - (8 if slots else 0))
+    extra = {}
+    if slots is not None:
+        extra["slot_ms"] = timed_ms(lambda: sampler.slot_matrix(pid, sid, slots))
+        extra["slot_rows"] = pmk.slot_cols(slots)[1]
     return dict(rays=n, plain_rays=int(sub.numel()), bvh=packed.bvh is not None,
                 max_abs_err=max_abs_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
-                work={k: float(v) * scale for k, v in work.items()}, **bar)
+                work={k: float(v) * scale for k, v in work.items()}, **bar, **extra)
 
 
 def furnace_rays(job, n, dev, seed=3):
@@ -1440,6 +1531,237 @@ def wide_phase(record, kernels, card, dev):
           f"160x90x16: {bar['rays']} rays, {bar['lit']} lit, diverged {bar['diverged']:.2e}, q99 "
           f"{bar['q99']:.2e}, mean {bar['mean']:.6g} vs {bar['mean_ref']:.6g}, camera weight "
           f"max_abs_err {bar['weight_max_abs_err']:.3g}; {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+
+# ---- phase 9: the Halton sampler and smooth normals ----
+
+
+def launched(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def halton6(base, out_dir, xres=640, yres=360):
+    """base at xres x yres under a 6-sample HaltonSampler: one pass of six."""
+    return Path(write_variant(str(base), str(out_dir), xres, yres, HALTON6))
+
+
+def drive_rays(job, stride, dev, bvh=None):
+    """The rays-in instance on the camera rays of one pass of `job` (its
+    sampler), counts set to 0 just before: (kernel name, launches, held)."""
+    packed = pmk.pack_scene(job.scene, dev, bvh=bvh)
+    sampler = make_sampler(job)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    name = pmk.kernel_name("path_mega", packed.bvh is not None,
+                           isinstance(sampler, HaltonSampler), packed.smooth)
+    zero_counts()
+    pmk.li_path_mega(packed, o, d, w, pid, soff, sampler, job.integrator)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts[name] == 1 and sum(counts.values()) == 1, f"{name} launches {counts}")
+    return name, counts[name], hold_rays(job, packed, (o, d, w, pid, soff, sampler), stride, dev)
+
+
+def rays_line(tag, name, held, t0, card):
+    slot = (f"slot matrix {held['slot_ms']:.3f} ms ({held['slot_rows']} rows), "
+            if "slot_ms" in held else "")
+    return (f"{tag}: {name}, 1 launch on {held['rays']} rays; kernel {held['ms']:.3f} ms (wrapper "
+            f"{held['wrapper_ms']:.3f}), {slot}bound {held['bound_ms']:.4f} ms by "
+            f"{held['bound_by']}, plain {held['plain_ms']:.1f} ms over {held['plain_rays']} rays, "
+            f"diverged {held['diverged']:.2e}, q99 {held['q99']:.2e}, mean {held['mean']:.6g} vs "
+            f"{held['mean_ref']:.6g}, max_abs_err {held['max_abs_err']:.3g}; "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def camera_step(record, kernels, card, dev, step, tag, scene, kernel, stride, spp=None,
+                warm_n=2, entry=True):
+    """One camera-instance main path: deploy_render of `scene` through
+    `kernel` (counts at 0 before, read after), the kernel held to its plain
+    version on a seeded 1/`stride` of one pass, warm renders; adds the
+    kernel's entry (or, when it has one, this scene's numbers beside it)."""
+    t0 = time.perf_counter()
+    res, colored, launches = drive(scene, OUT / f"chip_smoke_{tag}.png", kernel, "path", spp)
+    job = load_scene(str(scene))
+    if spp == 8:
+        job.sampler.xsamp, job.sampler.ysamp = 2, 4
+    held = hold(pmk, job, stride, dev)
+    warm = warm_rates(job, dev, warm_n) if warm_n else []
+    if kernel in kernels:
+        wide_entry(kernels, kernel, tag, held)
+    else:
+        add_entry(kernels, kernel, launches, held)
+    record[f"phase{step}"] = dict(triangles=job.scene.triangles.count, launches=launches,
+                                  passes=res["passes"], colored=colored,
+                                  render_mrays_per_s=res["mrays_per_s"], warm_mrays_per_s=warm,
+                                  phase_s=time.perf_counter() - t0, **held)
+    size = f"{job.film.xres}x{job.film.yres}x{res['camera_rays'] // (job.film.xres * job.film.yres)}"
+    print(describe(f"phase {step}: Path, {tag} {size} ({job.scene.triangles.count} triangles)",
+                   res, launches, colored, held, warm, card))
+    return job
+
+
+def halton_smooth_phase(record, kernels, card, dev):
+    """Phase 9 (see the module docstring)."""
+    # (a) the bench's halton row: 256 spp, 16 passes of 3.69M rays
+    camera_step(record, kernels, card, dev, "9a", "halton", SCENE_HALTON,
+                "path_mega_cam_halton", 4)
+    check(record["phase9a"]["passes"] == 16, "9a: not 16 passes")
+    # (b) 6 spp: one pass of six, not a power of two
+    camera_step(record, kernels, card, dev, "9b", "halton6",
+                halton6(SCENE, OUT / "halton6", 160, 90),
+                "path_mega_cam_halton", 1, warm_n=0)
+
+    # (c) #3 under Halton on the white furnace
+    t0 = time.perf_counter()
+    fjob = load_scene(str(SCENE_FURNACE))
+    packed = pmk.pack_scene(fjob.scene, dev)
+    o, d, w, pid, sid, _ = furnace_rays(fjob, 1 << 20, dev)
+    sampler = HaltonSampler(SamplerSpec("halton", nsamp=1), 1024, 1024)
+    zero_counts()
+    l = pmk.li_path_mega(packed, o, d, w, pid, sid, sampler, fjob.integrator)
+    l_esc = pmk.li_path_mega(packed, o, -d, w, pid, sid, sampler, fjob.integrator)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts["path_mega_halton"] == 2 and sum(counts.values()) == 2, f"9c launches {counts}")
+    mean = l.double().mean(0)
+    esc_err = float((l_esc - 1.0).abs().max())
+    check(bool(torch.isfinite(l).all()) and l.shape == o.shape, "9c: bad furnace radiance")
+    check(float((mean - 0.5).abs().max()) < 0.015 * 0.5 + 0.004, f"9c: furnace mean {mean.tolist()}")
+    check(esc_err <= 1e-6, f"9c: escaped rays read {esc_err:.3g} off 1")
+    held = hold_rays(fjob, packed, (o, d, w, pid, sid, sampler), 16, dev)
+    add_entry(kernels, "path_mega_halton", counts["path_mega_halton"], held)
+    record["phase9c"] = dict(launches=counts, furnace_mean=mean.tolist(),
+                             escaped_max_abs_err=esc_err, phase_s=time.perf_counter() - t0, **held)
+    print(f"phase 9c: rays-in #3 under Halton, white furnace on {o.shape[0]} rays: mean "
+          f"{', '.join(f'{v:.6f}' for v in mean.tolist())} (rho 0.5, bar 0.0115), escaped max "
+          f"|L - 1| {esc_err:.3g}; " + rays_line("held", "path_mega_halton", held, t0, card))
+
+    # (d) AO under Halton through the wavefront loop and K4
+    t0 = time.perf_counter()
+    ao = write_variant(str(SCENE_AO), str(OUT / "ao_halton"),
+                       sampler={"sampler_type": "HaltonSampler", "nsamp": 16})
+    job = load_scene(str(ao))
+    check(isinstance(make_sampler(job), HaltonSampler), "9d: not a Halton sampler")
+    n_probe = job.integrator.n_samples
+    res, colored, counts = drive_wavefront(ao, OUT / "chip_smoke_ao_halton.png",
+                                           {"intersect": 1 + n_probe})
+    warm = [render_job(job, dev) for _ in range(2)]
+    record["phase9d"] = dict(launches=counts, colored=colored, camera_rays=res["camera_rays"],
+                             camera_mrays_per_s=res["mrays_per_s"],
+                             warm_camera_mrays_per_s=[r["mrays_per_s"] for r in warm],
+                             phase_s=time.perf_counter() - t0)
+    print(f"phase 9d: AO under Halton, samples/scene_ao.json 640x360x16, {n_probe} probes: "
+          f"{res['camera_rays']} camera rays, launches {launched(counts)}, {colored} coloured px; "
+          f"first "
+          f"render {res['mrays_per_s']:.2f} camera Mrays/s, warm {warm_rates_s(warm)}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (e) the smooth fixture through #1
+    job = camera_step(record, kernels, card, dev, "9e", "smooth", SCENE_SMOOTH,
+                      "path_mega_cam_smooth", 16)
+    # and #3 smooth on its 3.69M camera rays (the plain version on 1/64)
+    t0 = time.perf_counter()
+    name, launches, held = drive_rays(job, 64, dev)
+    check(name == "path_mega_smooth", f"9e: {name}")
+    add_entry(kernels, name, launches, held)
+    record["phase9e_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0, **held)
+    print(rays_line("phase 9e: rays-in #3 smooth on its camera rays", name, held, t0, card))
+
+    # (f) 20 smooth spheres (19,236 triangles) through #2, and #4 on its rays
+    grid20 = Path(write_smooth_grid_scene(str(OUT / "smooth_grid20"), n=20))
+    job = camera_step(record, kernels, card, dev, "9f", "smooth_grid20", grid20,
+                      "path_mega_cam_bvh_smooth", 8, spp=8)
+    check(record["phase9f"]["bvh"], "9f: not the BVH instance")
+    t0 = time.perf_counter()
+    name, launches, held = drive_rays(job, 8, dev)
+    check(name == "path_mega_bvh_smooth", f"9f: {name}")
+    add_entry(kernels, name, launches, held)
+    record["phase9f_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0, **held)
+    print(rays_line("phase 9f: rays-in #4 smooth on the grid's camera rays", name, held, t0, card))
+
+    # (g) 80 smooth spheres (76,836 triangles): the wavefront loop, K3-shaded smooth
+    t0 = time.perf_counter()
+    grid80 = write_smooth_grid_scene(str(OUT / "smooth_grid80"), n=80)
+    job = load_scene(grid80)
+    depth = job.integrator.max_depth
+    check(job.scene.triangles.count > pmk.BVH_TRI_MAX, "9g: the grid fits the path kernel")
+    res, colored, counts = drive_wavefront(
+        grid80, OUT / "chip_smoke_smooth_grid80.png",
+        {"bvh_shaded_smooth": depth, "bvh_any": depth}, 8)
+    ctx, batches = first_pass_batches(job, dev, 8)
+    check(ctx.bvh.smooth, "9g: flat shade rows")
+    shaded = hold_query("shaded", ctx, batches["shaded"])
+    wavefront_entry(kernels, "bvh_shaded_smooth", counts["bvh_shaded_smooth"], shaded)
+    record["phase9g"] = dict(triangles=job.scene.triangles.count, launches=counts,
+                             colored=colored, camera_rays=res["camera_rays"],
+                             camera_mrays_per_s=res["mrays_per_s"], shaded=shaded,
+                             phase_s=time.perf_counter() - t0)
+    h = shaded
+    print(f"phase 9g: Path, {job.scene.triangles.count} smooth triangles 640x360x8 through the "
+          f"wavefront loop: launches {launched(counts)}, {colored} coloured px, "
+          f"{res['mrays_per_s']:.2f} "
+          f"camera Mrays/s; K3-shaded smooth {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}, "
+          f"bound {h['bound_ms']:.4f} by {h['bound_by']}, plain {h['plain_ms']:.1f} over "
+          f"{h['plain_rays']} rays, hits {h['hits']}, hit/miss differ {h['miss_mismatch']:.2e}, "
+          f"max_abs_err {h['max_abs_err']:.3g}); {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (h) the wavefront li_path against the path kernel on the smooth fixture
+    t0 = time.perf_counter()
+    job = load_scene(str(SCENE_SMOOTH))
+    job.film.xres, job.film.yres = 160, 90
+    sampler = StratifiedSampler(job.sampler)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    zero_counts()
+    l_k1, w_k1 = pmk.li_path_mega_cam(pmk.pack_scene(job.scene, dev), pmk.pack_camera(cam), pxy,
+                                      pid, soff, sampler, job.integrator)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    l_wf = li_path(SceneCtx.from_scene(job.scene, dev), o, d, w, sampler, pid, soff,
+                   job.integrator)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts["path_mega_cam_smooth"] == 1 and counts["bvh_shaded_smooth"] > 0,
+          f"9h launches {counts}")
+    l_wf = torch.where((w > 0.0)[:, None], l_wf, 0.0).double()
+    l_k1 = torch.where((w_k1 > 0.0)[:, None], l_k1, 0.0).double()
+    rel = (l_wf - l_k1).abs() / l_k1.abs().clamp(min=1e-3)
+    bar = dict(rays=int(l_k1.shape[0]), lit=int((l_k1.amax(-1) > 0).sum()),
+               diverged=float((rel.amax(-1) > 1e-3).double().mean()),
+               q99=float(torch.quantile(rel.flatten(), 0.99)), mean=float(l_wf.mean()),
+               mean_ref=float(l_k1.mean()), weight_max_abs_err=float((w - w_k1).abs().max()))
+    check(bar["lit"] >= 1000, f"9h: {bar['lit']} lit rays")
+    check(bar["diverged"] < 5e-3, f"9h: {bar['diverged']:.2%} of rays diverged")
+    check(abs(bar["mean"] - bar["mean_ref"]) < 1e-6 + 3e-3 * abs(bar["mean_ref"]),
+          f"9h: means {bar['mean']:.6g} vs {bar['mean_ref']:.6g}")
+    record["phase9h"] = dict(launches=counts, phase_s=time.perf_counter() - t0, **bar)
+    print(f"phase 9h: wavefront li_path (K3 smooth) vs the path kernel, samples/scene_smooth.json "
+          f"160x90x16: {bar['rays']} rays, {bar['lit']} lit, diverged {bar['diverged']:.2e}, q99 "
+          f"{bar['q99']:.2e}, mean {bar['mean']:.6g} vs {bar['mean_ref']:.6g}, camera weight "
+          f"max_abs_err {bar['weight_max_abs_err']:.3g}; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (i) the other Halton instances at 640x360 x 6, one pass of 1.38M
+    # rays: smooth brute force, the cube grid and the smooth grid over the
+    # BVH, and their rays-in twins.  The brute-force plain version over
+    # 1,956 triangles takes ~10 s whatever the rays (a loop of triangles):
+    # it runs on a seeded 1/64 there, the BVH ones on 1/16
+    grid = write_grid_scene(str(OUT / "grid_halton"), base=str(SCENE))
+    for step, tag, scene, kernel, stride in (
+        ("9i1", "smooth_halton6", halton6(SCENE_SMOOTH, OUT / "smooth_halton6"),
+         "path_mega_cam_halton_smooth", 64),
+        ("9i2", "grid_halton6", halton6(grid, OUT / "grid_halton6"), "path_mega_cam_bvh_halton",
+         16),
+        ("9i3", "smooth_grid_halton6", halton6(grid20, OUT / "smooth_grid_halton6"),
+         "path_mega_cam_bvh_halton_smooth", 16),
+    ):
+        job = camera_step(record, kernels, card, dev, step, tag, scene, kernel, stride, warm_n=0)
+        t0 = time.perf_counter()
+        name, launches, held = drive_rays(job, stride, dev)
+        add_entry(kernels, name, launches, held)
+        record[f"phase{step}_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0,
+                                           **held)
+        print(rays_line(f"phase {step}: rays-in on its camera rays", name, held, t0, card))
 
 
 if __name__ == "__main__":

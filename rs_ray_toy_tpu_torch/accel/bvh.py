@@ -131,12 +131,19 @@ def pack_bvh_tables(bvh: FlatBVH):
     return nodes2_f, nodes_i
 
 
-def pack_prim_tables(tri, bvh: FlatBVH):
+SHADE_COLS_FLAT = 15  # uv0, uv1, uv2, dpdu, dpdv, ng
+SHADE_COLS_SMOOTH = 31  # ... and n0, n1, n2, dndu, dndv, has_n
+
+
+def pack_prim_tables(tri, bvh: FlatBVH, tri_f, has_n):
     """The wavefront kernels' triangle rows in leaf order
     (ops/bvh_pallas.pack_bvh_tables): prims_f (P, 12) float32 [p0, e1, e2,
     pad], prims_i (P, 4) int32 [original row, material, area light (-1:
-    the port has no triangle area lights), 0], and the flat shade rows
-    shade_f (P, 15) float32 [uv0, uv1, uv2, dpdu, dpdv, ng]."""
+    the port has no triangle area lights), 0], and the shade rows shade_f
+    from the scene-order rows tri_f (accel/geometry.shade_rows): (P, 15)
+    float32 [uv0, uv1, uv2, dpdu, dpdv, ng], or when any triangle has
+    vertex normals (has_n, (T,)) (P, 31) with [n0, n1, n2, dndu, dndv,
+    has_n] after them."""
     order = np.asarray(bvh.prim_index, np.int64)
     p0 = np.asarray(tri.p0, np.float32)[order]
     prims_f = np.zeros((order.shape[0], 12), np.float32)
@@ -147,8 +154,15 @@ def pack_prim_tables(tri, bvh: FlatBVH):
     prims_i[:, 0] = order
     prims_i[:, 1] = np.asarray(tri.mat, np.int32)[order]
     prims_i[:, 2] = -1
-    shade_f = np.concatenate(
-        [np.asarray(a, np.float32)[order]
-         for a in (tri.uv0, tri.uv1, tri.uv2, tri.dpdu, tri.dpdv, tri.ng)], axis=1
-    )
+    tf = np.asarray(tri_f, np.float32)[order]
+    has_n = np.asarray(has_n, bool)[order]
+    smooth = bool(has_n.any())
+    shade_f = np.zeros((order.shape[0], SHADE_COLS_SMOOTH if smooth else SHADE_COLS_FLAT),
+                       np.float32)
+    shade_f[:, 0:6] = tf[:, 9:15]
+    shade_f[:, 6:15] = tf[:, 24:33]
+    if smooth:
+        shade_f[:, 15:24] = tf[:, 15:24]
+        shade_f[:, 24:30] = tf[:, 33:39]
+        shade_f[:, 30] = has_n
     return prims_f, prims_i, shade_f

@@ -12,8 +12,10 @@ sphere.rs:50-108).  The brute-force queries (`intersect_triangles`,
 (ops/intersect_kernel) min-combined with the spheres, which JAX computes
 outside any kernel too; `surface_interaction` gathers a hit's shading
 geometry from the scene-order shade tables (`pack_shade_tables`), as the
-JAX package does where no shaded BVH kernel returns it.  Smooth normals
-and ray differentials are not ported.
+JAX package does where no shaded BVH kernel returns it: on a triangle with
+vertex normals the shading normal is interpolated from them and ng faced
+onto it (triangle.rs:301+); the normal partials dndu and dndv are carried
+for the texture slice.  Ray differentials are not ported.
 """
 
 from typing import NamedTuple
@@ -21,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.vec import cross, dot
+from ..core.vec import coordinate_system, cross, dot, faceforward
 from ..ops.intersect_kernel import intersect_triangles_reference
 
 PRIM_NONE = -1
@@ -42,8 +44,8 @@ class SurfaceHit(NamedTuple):
     """Shading geometry of each hit (interaction.rs SurfaceInteraction)."""
 
     p: torch.Tensor  # (N, 3)
-    ng: torch.Tensor  # geometric normal
-    ns: torch.Tensor  # shading normal (= ng: flat triangles)
+    ng: torch.Tensor  # geometric normal, faced onto ns
+    ns: torch.Tensor  # shading normal (interpolated vertex normals, or ng)
     uv: torch.Tensor  # (N, 2)
     dpdu: torch.Tensor
     dpdv: torch.Tensor
@@ -51,6 +53,8 @@ class SurfaceHit(NamedTuple):
     mat: torch.Tensor  # (N,) int64, -1 on a miss
     area_light: torch.Tensor  # (N,) int64, -1: no triangle area lights
     valid: torch.Tensor  # (N,) bool
+    dndu: torch.Tensor  # (N, 3) shading-normal partials (zeros on flat triangles)
+    dndv: torch.Tensor
 
 
 def tri_hit(t, idx, hit):
@@ -156,18 +160,56 @@ def occluded_brute(tri_packed, o, d, t_max, sph=None):
     return intersect_brute(tri_packed, o, d, t_max, sph).valid
 
 
-def pack_shade_tables(tri, device, sph=None):
-    """Per-primitive shading rows in scene order: tri_f (T, 24) float32
-    [p0, p1, p2, uv0, uv1, uv2, dpdu, dpdv, ng] and tri_i (T, 2) int64
-    [material, area light]; with spheres (sphere_tables) also "sph", the
-    tables themselves."""
+def _normalize(v):
+    return v / torch.clamp(torch.sqrt((v * v).sum(-1)), min=1e-30)[..., None]
+
+
+def _normal_partials(tri):
+    """dndu, dndv (T, 3) float32 of the vertex normals (triangle.rs:351-386,
+    the JAX package's pack_shade_tables bakes): zero without vertex
+    normals; with degenerate uvs a frame about the normals' variation."""
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    uv0, uv1, uv2, n0, n1, n2 = (t(a) for a in (tri.uv0, tri.uv1, tri.uv2, tri.n0, tri.n1, tri.n2))
+    duv02, duv12 = uv0 - uv2, uv1 - uv2
+    dn1, dn2 = n0 - n2, n1 - n2
+    det = duv02[:, 0] * duv12[:, 1] - duv02[:, 1] * duv12[:, 0]
+    degen = torch.abs(det) < 1e-8
+    i_det = 1.0 / torch.where(degen, 1.0, det)
+    dndu = (dn1 * duv12[:, 1:2] - dn2 * duv02[:, 1:2]) * i_det[:, None]
+    dndv = (-dn1 * duv12[:, 0:1] + dn2 * duv02[:, 0:1]) * i_det[:, None]
+    dnc = cross(n2 - n0, n1 - n0)
+    has_dn = (dnc * dnc).sum(-1) > 0.0
+    safe = _normalize(torch.where(has_dn[:, None], dnc, torch.tensor([0.0, 0.0, 1.0])))
+    dnu_f, dnv_f = coordinate_system(safe)
+    dndu = torch.where(degen[:, None], torch.where(has_dn[:, None], dnu_f, 0.0), dndu)
+    dndv = torch.where(degen[:, None], torch.where(has_dn[:, None], dnv_f, 0.0), dndv)
+    flat = ~torch.as_tensor(np.asarray(tri.has_n, bool))[:, None]
+    return torch.where(flat, 0.0, dndu).numpy(), torch.where(flat, 0.0, dndv).numpy()
+
+
+def shade_rows(tri):
+    """The scene-order shading rows of the triangles (the JAX package's
+    pack_shade_tables): tri_f (T, 39) float32 [p0, p1, p2 (0:9), uv0, uv1,
+    uv2 (9:15), n0, n1, n2 (15:24), dpdu, dpdv, ng (24:33), dndu, dndv
+    (33:39)] and tri_i (T, 3) int64 [has_n, material, area light (-1: the
+    port has no triangle area lights)]."""
+    dndu, dndv = _normal_partials(tri)
     f = np.concatenate(
         [np.asarray(a, np.float32).reshape(-1, k)
          for a, k in ((tri.p0, 3), (tri.p1, 3), (tri.p2, 3), (tri.uv0, 2), (tri.uv1, 2),
-                      (tri.uv2, 2), (tri.dpdu, 3), (tri.dpdv, 3), (tri.ng, 3))],
+                      (tri.uv2, 2), (tri.n0, 3), (tri.n1, 3), (tri.n2, 3), (tri.dpdu, 3),
+                      (tri.dpdv, 3), (tri.ng, 3), (dndu, 3), (dndv, 3))],
         axis=1,
     )
-    i = np.stack([np.asarray(tri.mat, np.int64), np.full(tri.count, -1, np.int64)], axis=1)
+    i = np.stack([np.asarray(tri.has_n, np.int64), np.asarray(tri.mat, np.int64),
+                  np.full(tri.count, -1, np.int64)], axis=1)
+    return f, i
+
+
+def pack_shade_tables(tri, device, sph=None):
+    """shade_rows on `device` as {"tri_f", "tri_i"}; with spheres
+    (sphere_tables) also "sph", the tables themselves."""
+    f, i = shade_rows(tri)
     out = {"tri_f": torch.as_tensor(f, device=device), "tri_i": torch.as_tensor(i, device=device)}
     if sph is not None:
         out["sph"] = sph
@@ -178,7 +220,9 @@ def _sphere_surface(sph, idx, p_hit):
     """The sphere branch of surface_interaction (sphere.rs Shape::intersect):
     the hit reprojected onto the sphere in object space, ng = ns through
     w2o's transpose, (u, v) from (phi, theta), dpdu = o2w (-phi_max y,
-    phi_max x, 0), dpdv along theta.  Returns (ng, uv, dpdu, dpdv, mat)."""
+    phi_max x, 0), dpdv along theta, dndu and dndv their object-space
+    partials through w2o's transpose over |ng|.  Returns (ng, uv, dpdu,
+    dpdv, dndu, dndv, mat)."""
     w2o = sph["w2o"][idx]
     o2w = sph["o2w"][idx]
     radius = sph["radius"][idx]
@@ -197,17 +241,22 @@ def _sphere_surface(sph, idx, p_hit):
     dpdv_o = torch.stack([po[:, 2] * cos_phi, po[:, 2] * sin_phi,
                           -radius * torch.sin(theta)], -1) * (th_max - th_min)[:, None]
     ng = torch.einsum("nji,nj->ni", w2o[:, :3, :3], po)
-    ng = ng / torch.clamp(torch.linalg.vector_norm(ng, dim=-1), min=1e-30)[:, None]
+    ng_len = torch.clamp(torch.linalg.vector_norm(ng, dim=-1), min=1e-30)[:, None]
+    ng = ng / ng_len
     dpdu = torch.einsum("nij,nj->ni", o2w[:, :3, :3], dpdu_o)
     dpdv = torch.einsum("nij,nj->ni", o2w[:, :3, :3], dpdv_o)
-    return ng, uv, dpdu, dpdv, sph["mat"][idx]
+    dndu = torch.einsum("nji,nj->ni", w2o[:, :3, :3], dpdu_o) / ng_len
+    dndv = torch.einsum("nji,nj->ni", w2o[:, :3, :3], dpdv_o) / ng_len
+    return ng, uv, dpdu, dpdv, dndu, dndv, sph["mat"][idx]
 
 
 def surface_interaction(shade_tables, hit, o, d):
     """The hit's shading geometry: for a triangle (triangle.rs:220-320)
     the barycentrics recomputed from the stored triangle, the
-    interpolated uv, the baked dpdu, dpdv and ng, and ns = ng; for a
-    sphere _sphere_surface."""
+    interpolated uv, the baked dpdu, dpdv, ng, dndu and dndv, and ns the
+    normalised interpolation of its vertex normals (ng where it has none
+    or they sum to zero), ng faced onto ns; for a sphere _sphere_surface
+    (ns = ng)."""
     idx = hit.index.clamp(min=0)
     t_safe = torch.where(hit.valid, hit.t, 0.0)
     p_hit = o + d * t_safe[:, None]
@@ -226,27 +275,33 @@ def surface_interaction(shade_tables, hit, o, d):
         vb = dot(d, cross(tv, e1)) * inv
         w = 1.0 - ub - vb
         uv = tf[:, 9:11] * w[:, None] + tf[:, 11:13] * ub[:, None] + tf[:, 13:15] * vb[:, None]
-        ng, dpdu, dpdv = tf[:, 21:24], tf[:, 15:18], tf[:, 18:21]
-        mat, al = ti[:, 0], ti[:, 1]
+        dpdu, dpdv, ng = tf[:, 24:27], tf[:, 27:30], tf[:, 30:33]
+        dndu, dndv = tf[:, 33:36], tf[:, 36:39]
+        ns_raw = tf[:, 15:18] * w[:, None] + tf[:, 18:21] * ub[:, None] + tf[:, 21:24] * vb[:, None]
+        has_n = (ti[:, 0] != 0) & ((ns_raw * ns_raw).sum(-1) > 0.0)
+        ns = torch.where(has_n[:, None], _normalize(ns_raw), ng)
+        ng = faceforward(ng, ns)
+        mat, al = ti[:, 1], ti[:, 2]
     else:
-        ng = dpdu = dpdv = torch.zeros_like(o)
+        ng = ns = dpdu = dpdv = dndu = dndv = torch.zeros_like(o)
         uv = torch.zeros((n, 2), dtype=o.dtype, device=o.device)
         mat = al = torch.full((n,), -1, dtype=torch.int64, device=o.device)
     sph = shade_tables.get("sph")
     if sph is not None:
         is_s = hit.kind == PRIM_SPHERE
-        s_ng, s_uv, s_dpdu, s_dpdv, s_mat = _sphere_surface(
+        s_ng, s_uv, s_dpdu, s_dpdv, s_dndu, s_dndv, s_mat = _sphere_surface(
             sph, idx.clamp(max=sph["radius"].shape[0] - 1), p_hit)
         sel = is_s[:, None]
-        ng, uv = torch.where(sel, s_ng, ng), torch.where(sel, s_uv, uv)
+        ng, ns, uv = torch.where(sel, s_ng, ng), torch.where(sel, s_ng, ns), torch.where(sel, s_uv, uv)
         dpdu, dpdv = torch.where(sel, s_dpdu, dpdu), torch.where(sel, s_dpdv, dpdv)
+        dndu, dndv = torch.where(sel, s_dndu, dndu), torch.where(sel, s_dndv, dndv)
         mat = torch.where(is_s, s_mat, mat)
         al = torch.where(is_s, -1, al)
     return SurfaceHit(
-        p=p_hit, ng=ng, ns=ng, uv=uv, dpdu=dpdu, dpdv=dpdv, wo=-d,
+        p=p_hit, ng=ng, ns=ns, uv=uv, dpdu=dpdu, dpdv=dpdv, wo=-d,
         mat=torch.where(hit.valid, mat, -1),
         area_light=torch.where(hit.valid, al, -1),
-        valid=hit.valid,
+        valid=hit.valid, dndu=dndu, dndv=dndv,
     )
 
 

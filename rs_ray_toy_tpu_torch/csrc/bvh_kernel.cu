@@ -11,7 +11,10 @@
 // fused-children node rows (M, 16) with (offset, n_prims, axis, 0), the
 // triangles in leaf order as (P, 12) [p0, e1, e2, pad] with (P, 4)
 // [original row, material, area light, 0], and for the shaded kernel the
-// flat shade rows (P, 15) [uv0, uv1, uv2, dpdu, dpdv, ng] in leaf order.
+// shade rows in leaf order: flat (P, 15) [uv0, uv1, uv2, dpdu, dpdv, ng], or
+// for a mesh with vertex normals (P, 31) [..., n0, n1, n2, dndu, dndv,
+// has_n], which the smooth instance (_traverse_shaded_kernel with
+// smooth=True) reads.
 //
 // Per ray: common.cuh's Geometry<true> walk (a per-ray stack of up to 64
 // nodes; at an interior node both child boxes are slab-tested against the
@@ -21,13 +24,18 @@
 // hit: t (t_max on a miss) and the original row (-1).  Any hit: stops at the
 // first triangle with t in [1e-7, t_max).  Shaded: the winner's barycentric
 // u, v (the Moller-Trumbore values of the walk, recomputed from its row),
-// its interpolated uv, ns = ng (flat rows), dpdu, dpdv, material and area
-// light, as _traverse_shaded_kernel's finalize computes them.
+// its interpolated uv, ns, ng, dpdu, dpdv, material and area light, as
+// _traverse_shaded_kernel's finalize computes them: flat, ns = ng; smooth,
+// ns the normalised interpolation of the vertex normals (ng where the row has
+// none or they sum to zero), ng faced onto ns, and dndu, dndv after dpdv.
+// The TPU kernel carries the winner's 15 or 31 attribute columns through the
+// walk; here the walk keeps only the winner's row and reads its columns once
+// at the end, so the smooth instance costs no registers in the walk.
 //
 // What bounds it on this card: latency of the dependent node and triangle
 // loads of the walk (read through the read-only cache) and divergence between
-// the rays of a warp; per ray only 28 bytes come in and 8 (any hit) or 80
-// (shaded) go out.  The simple design: no packets (the TPU kernel walks one
+// the rays of a warp; per ray only 28 bytes come in and 8 (any hit), 80
+// (shaded) or 104 (shaded smooth) go out.  The simple design: no packets (the TPU kernel walks one
 // tree per 4096-ray tile, descending where any ray of the tile hits; here each
 // ray walks only its own nodes and retires when done), outputs written once.
 
@@ -37,8 +45,10 @@ namespace {
 
 constexpr int PRIM_COLS = 12;   // p0, e1, e2, pad
 constexpr int PRIM_I_COLS = 4;  // original row, material, area light, 0
-constexpr int SHADE_COLS = 15;  // uv0, uv1, uv2, dpdu, dpdv, ng
-constexpr int ATTR_ROWS = 16;   // u, v, uv, ns, ng, dpdu, dpdv
+constexpr int SHADE_COLS_FLAT = 15;    // uv0, uv1, uv2, dpdu, dpdv, ng
+constexpr int SHADE_COLS_SMOOTH = 31;  // ... n0, n1, n2, dndu, dndv, has_n
+constexpr int ATTR_ROWS = 16;          // u, v, uv, ns, ng, dpdu, dpdv
+constexpr int ATTR_ROWS_SMOOTH = 22;   // ... dndu, dndv
 constexpr int BVH_PRIM_MAX = 120000;  // ops/bvh_pallas.PALLAS_BVH_PRIM_MAX
 
 using Bvh = Geometry<true, PRIM_COLS>;
@@ -85,6 +95,7 @@ __device__ __forceinline__ void mt_uv(const float* g, float ox, float oy, float 
   v = (dx * qvx + dy * qvy + dz * qvz) * inv;
 }
 
+template <bool kSmooth>
 __global__ void __launch_bounds__(BLOCK)
 bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
                   const float* __restrict__ prims_f, const int* __restrict__ prims_i,
@@ -104,14 +115,16 @@ bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nod
     const Bvh geom{nullptr, n_prims, prims_f, nodes_f, nodes_i};
     best = geom.walk<false>(ox, oy, oz, dx, dy, dz, t_bound);
   }
-  float a[ATTR_ROWS];
+  constexpr int kCols = kSmooth ? SHADE_COLS_SMOOTH : SHADE_COLS_FLAT;
+  constexpr int kRows = kSmooth ? ATTR_ROWS_SMOOTH : ATTR_ROWS;
+  float a[kRows];
 #pragma unroll
-  for (int k = 0; k < ATTR_ROWS; ++k) a[k] = 0.0f;
+  for (int k = 0; k < kRows; ++k) a[k] = 0.0f;
   int idx = -1, mat = -1, al = -1;
   if (best >= 0) {
     float u, v;
     mt_uv(prims_f + (size_t)PRIM_COLS * best, ox, oy, oz, dx, dy, dz, u, v);
-    const float* s = shade_f + (size_t)SHADE_COLS * best;
+    const float* s = shade_f + (size_t)kCols * best;
     const float w = 1.0f - u - v;
     a[0] = u;
     a[1] = v;
@@ -124,6 +137,25 @@ bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nod
       a[10 + c] = __ldg(s + 6 + c);   // dpdu
       a[13 + c] = __ldg(s + 9 + c);   // dpdv
     }
+    if constexpr (kSmooth) {
+      const float nx = __ldg(s + 15) * w + __ldg(s + 18) * u + __ldg(s + 21) * v;
+      const float ny = __ldg(s + 16) * w + __ldg(s + 19) * u + __ldg(s + 22) * v;
+      const float nz = __ldg(s + 17) * w + __ldg(s + 20) * u + __ldg(s + 23) * v;
+      const float len2 = nx * nx + ny * ny + nz * nz;
+      if (__ldg(s + 30) != 0.0f && len2 > 0.0f) {
+        const float rinv = 1.0f / sqrtf(fmaxf(len2, 1e-30f));
+        a[4] = nx * rinv;
+        a[5] = ny * rinv;
+        a[6] = nz * rinv;
+      }
+      if (a[7] * a[4] + a[8] * a[5] + a[9] * a[6] < 0.0f) {  // ng faced onto ns
+        a[7] = -a[7];
+        a[8] = -a[8];
+        a[9] = -a[9];
+      }
+#pragma unroll
+      for (int c = 0; c < 6; ++c) a[16 + c] = __ldg(s + 24 + c);  // dndu, dndv
+    }
     const int* pi = prims_i + PRIM_I_COLS * best;
     idx = __ldg(pi + 0);
     mat = __ldg(pi + 1);
@@ -134,7 +166,7 @@ bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nod
   mat_out[i] = mat;
   al_out[i] = al;
 #pragma unroll
-  for (int k = 0; k < ATTR_ROWS; ++k) attrs[(size_t)k * n + i] = a[k];
+  for (int k = 0; k < kRows; ++k) attrs[(size_t)k * n + i] = a[k];
 }
 
 }  // namespace
@@ -162,19 +194,28 @@ int bvh_launch(int any_hit, const float* nodes_f, const int* nodes_i, const floa
   return (int)cudaGetLastError();
 }
 
-// Launch the shaded closest-hit walk; attrs is (16, n): u, v, uv, ns, ng,
-// dpdu, dpdv.
+// Launch the shaded closest-hit walk; with `smooth` the smooth instance on
+// (n_prims, 31) shade rows.  attrs is (16, n): u, v, uv, ns, ng, dpdu, dpdv,
+// or (22, n) smooth: ..., dndu, dndv.
 int bvh_shaded_launch(const float* nodes_f, const int* nodes_i, const float* prims_f,
-                      const int* prims_i, const float* shade_f, int n_prims, const float* o,
-                      const float* d, const float* t_max, float* t_out, int* idx_out,
-                      int* mat_out, int* al_out, float* attrs, int n, void* stream) {
+                      const int* prims_i, const float* shade_f, int smooth, int n_prims,
+                      const float* o, const float* d, const float* t_max, float* t_out,
+                      int* idx_out, int* mat_out, int* al_out, float* attrs, int n,
+                      void* stream) {
   cudaGetLastError();
   if (n <= 0) return 0;
   if (n_prims <= 0 || n_prims > BVH_PRIM_MAX) return (int)cudaErrorInvalidValue;
   const int grid = (n + BLOCK - 1) / BLOCK;
-  bvh_shaded_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes_f, nodes_i, prims_f, prims_i, shade_f, n_prims, o, d, t_max, t_out, idx_out,
-      mat_out, al_out, attrs, n);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smooth) {
+    bvh_shaded_kernel<true><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i, shade_f,
+                                                   n_prims, o, d, t_max, t_out, idx_out,
+                                                   mat_out, al_out, attrs, n);
+  } else {
+    bvh_shaded_kernel<false><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i,
+                                                    shade_f, n_prims, o, d, t_max, t_out,
+                                                    idx_out, mat_out, al_out, attrs, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // Device code shared by the kernels (path_megakernel.cu, direct_megakernel.cu,
 // volpath_megakernel.cu and sppm_megakernel.cu): the parameter block, the
-// counter-based sampler, the RealisticCamera lens trace, Moller-Trumbore over
+// counter-based sampler and the Halton slot-matrix reader, the RealisticCamera
+// lens trace, Moller-Trumbore over
 // the triangle table (brute force from shared memory, or a per-ray stack walk
 // of the BVH from global memory), the lobe evaluations, sphere-light sampling
 // and the MIS power heuristic.  Everything here follows the plain
@@ -154,6 +155,31 @@ struct Sampler {
   }
 };
 
+// The Halton sampler's mode: every value is read from the (NC, n) slot matrix
+// the host computed for the batch (HaltonSampler.slot_matrix), component-major
+// so that a warp's reads of one row coalesce; row[slot] is the first row of
+// the slot (ops/path_megakernel.used_slots), two rows for a 2D slot.  A slot
+// the host did not list (row -1, a drift of used_slots from the kernel's reads)
+// reads row 0 and marks the ray: its radiance is written NaN.
+struct SlotSampler {
+  const float* u;
+  const short* row;  // slot -> row, in the __grid_constant__ parameter block
+  int n, i;
+  mutable bool unlisted = false;
+
+  __device__ const float* at(uint32_t dim) const {
+    const int r = row[dim];
+    unlisted |= r < 0;
+    return u + (size_t)max(r, 0) * n + i;
+  }
+  __device__ float get_1d(uint32_t dim) const { return __ldg(at(dim)); }
+  __device__ void get_2d(uint32_t dim, float& u0, float& u1) const {
+    const float* r = at(dim);
+    u0 = __ldg(r);
+    u1 = __ldg(r + n);
+  }
+};
+
 __device__ __forceinline__ float rsqrt_exact(float x) { return 1.0f / sqrtf(x); }
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
@@ -290,7 +316,8 @@ __device__ void raygen_u(const Params& p, float uf0, float uf1, float ul0, float
 }
 
 // raygen_u with the film and lens uniforms of sampler slots 0 and 1
-__device__ __forceinline__ void raygen(const Params& p, const Sampler& smp, float px, float py,
+template <class Smp>
+__device__ __forceinline__ void raygen(const Params& p, const Smp& smp, float px, float py,
                                        float& ox_w, float& oy_w, float& oz_w, float& dx_w,
                                        float& dy_w, float& dz_w, float& weight) {
   float uf0, uf1, ul0, ul1;
@@ -435,6 +462,45 @@ struct Geometry {
     return walk<true>(ox, oy, oz, dx, dy, dz, t_max) >= 0;
   }
 };
+
+// The shading normal of a smooth mesh at a triangle hit (accel/geometry.py
+// surface_interaction): the barycentrics rebuilt from the winner's row (p0,
+// e1, e2 in cols 0-8) with its guards, the raw vertex normals n0, n1, n2 (cols
+// nrm_col..nrm_col+8) interpolated and normalised; ng where they sum to zero.
+__device__ void smooth_normal(const float* row, int nrm_col, float ox, float oy, float oz,
+                              float dx, float dy, float dz, float ngx, float ngy, float ngz,
+                              float& nsx, float& nsy, float& nsz) {
+  const float p0x = __ldg(row + 0), p0y = __ldg(row + 1), p0z = __ldg(row + 2);
+  const float e1x = __ldg(row + 3), e1y = __ldg(row + 4), e1z = __ldg(row + 5);
+  const float e2x = __ldg(row + 6), e2y = __ldg(row + 7), e2z = __ldg(row + 8);
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv = 1.0f / (fabsf(det) < TRI_EPS ? 1.0f : det);
+  const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
+  const float b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float b2 = (dx * qvx + dy * qvy + dz * qvz) * inv;
+  const float b0 = 1.0f - b1 - b2;
+  const float* nv = row + nrm_col;
+  const float nx = b0 * __ldg(nv + 0) + b1 * __ldg(nv + 3) + b2 * __ldg(nv + 6);
+  const float ny = b0 * __ldg(nv + 1) + b1 * __ldg(nv + 4) + b2 * __ldg(nv + 7);
+  const float nz = b0 * __ldg(nv + 2) + b1 * __ldg(nv + 5) + b2 * __ldg(nv + 8);
+  const float len2 = nx * nx + ny * ny + nz * nz;
+  if (len2 > 0.0f) {
+    const float inv_l = rsqrt_exact(fmaxf(len2, 1e-30f));
+    nsx = nx * inv_l;
+    nsy = ny * inv_l;
+    nsz = nz * inv_l;
+  } else {
+    nsx = ngx;
+    nsy = ngy;
+    nsz = ngz;
+  }
+}
 
 // Kernel prologue: brute force stages the intersect columns in shared memory
 // (the whole block syncs once); BVH mode reads global memory and stages

@@ -3,11 +3,17 @@
 // Replaces the TPU kernels rs_ray_toy_tpu/ops/path_megakernel.py · _kernel_cam
 // (brute force, pallas_call in _run_cam for T <= 2048), _kernel_cam_bvh (the
 // in-kernel BVH, up to 65,536 triangles) and their rays-in twins _kernel and
-// _kernel_bvh (pallas_call in _run), on their flat-shaded, stratified-sampler
-// subset with up to 8 full spheres, point and sphere-area lights and one
-// constant environment.  Per ray the camera instances evaluate the sampler
-// hash for the film and lens slots and trace the lens system (_raygen); the
-// rays-in instances load o, d and the weight.  Then the bounce loop
+// _kernel_bvh (pallas_call in _run), on their subset with up to 8 full
+// spheres, point and sphere-area lights and one constant environment.  Each
+// is four template instances: the stratified sampler's in-kernel hash or the
+// Halton sampler's slot values read from an (NC, N) matrix the host computes
+// per pass (kSlots; _mk_sdim's u_ref branch), and flat or smooth shading
+// (kSmooth; the JAX kernel's `smooth`: the winner's barycentrics rebuilt from
+// its row, its raw vertex normals interpolated, spheres keeping ns = ng, ng
+// faced onto ns, and the reflect / transmit tests, the ray offsets and the
+// etaScale entering test on ng's side).  Per ray the camera instances read
+// the film and lens slots and trace the lens system (_raygen); the rays-in
+// instances load o, d and the weight.  Then the bounce loop
 // (_bounce_loop): closest hit over the triangle table min-combined with the
 // spheres, NEE (point lights alone: the delta-light form; otherwise the
 // generic branch with the power-heuristic MIS weight, a sphere-light or
@@ -36,9 +42,13 @@
 // the read-only cache; (c) lens, pupil and point-light constants in one
 // __grid_constant__ parameter block (Params, constant bank), the other
 // lights, the environment's distribution and the escape radiance in a second
-// one (WideParams): both together stay under the 4 KB kernel-parameter
-// limit, checked below.  Warp divergence between lobes, light kinds, path
-// lengths and BVH walks is accepted for now.
+// one (WideParams, with the Halton slot-to-row map): both together stay under
+// the 4 KB kernel-parameter limit, checked below; (d) the flat and stratified
+// instances are separate template instances, so the Halton matrix reads and
+// the smooth normals cost them nothing (a smooth hit reads the winner's 9
+// intersect and 9 normal columns once, through the read-only cache; nothing
+// more is staged in shared memory).  Warp divergence between lobes, light
+// kinds, path lengths and BVH walks is accepted for now.
 //
 // Numerics follow the plain PyTorch version (bounce_loop_reference) expression
 // by expression; see common.cuh.  sinf and cosf are CUDA's (not correctly
@@ -47,6 +57,7 @@
 #include "common.cuh"
 
 constexpr int ENV_BINS = 16;  // rows of a constant map's Distribution2D (8x8 texels)
+constexpr int SLOT_MAX = 176;  // sampler slots of the slot-to-row map
 
 // Must match ops/path_megakernel._WideParams field for field.
 struct WideParams {
@@ -70,9 +81,11 @@ struct WideParams {
   float env_cos_bins[ENV_BINS];  // cos(k pi / nv), k = 1..nv-1: the theta rows
   float env_to_world[9];
   float env_to_local[9];
+  int smooth;                // the mesh has smooth vertex normals
+  short slot_row[SLOT_MAX];  // Halton: slot -> first row of the slot matrix, -1 unused
 };
 
-// the kernel's parameters: both blocks and 13 pointer or int arguments
+// the kernel's parameters: both blocks and 14 pointer or int arguments
 static_assert(sizeof(Params) + sizeof(WideParams) + 16 * 8 <= 4096,
               "kernel parameters exceed the 4 KB limit");
 
@@ -84,6 +97,7 @@ constexpr int LIGHT_ENV_KIND = 3;
 constexpr int SPH_MAX = 8;
 constexpr int SPH_GEO = 13;       // w2o 3x4 rows and the radius: cols 0..12 of a sphere row
 constexpr int SPH_O2W_COL = 96;   // o2w 3x4 rows of a sphere row
+constexpr int NRM_COL = 96;       // raw vertex normals n0, n1, n2 of a triangle row
 constexpr float SPH_EPS = 1e-4f;
 constexpr float TWO_PI2_F = (float)(2.0 * 3.14159265358979323846 * 3.14159265358979323846);
 
@@ -173,10 +187,10 @@ __device__ float env_pdf_dir(const WideParams& w, float wx, float wy, float wz) 
 
 // ---- the bounce loop (_bounce_loop), one ray ----
 
-template <bool kBvh>
+template <bool kBvh, bool kSmooth, class Smp>
 __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
                             const float* sph_rows, const float* s_sph, const Params& p,
-                            const WideParams& w, const Sampler& smp, float ox, float oy,
+                            const WideParams& w, const Smp& smp, float ox, float oy,
                             float oz, float dx, float dy, float dz, bool active, float L[3]) {
   // shadow any-hit over the triangles and the spheres
   auto occluded_all = [&](float sox, float soy, float soz, float sdx, float sdy, float sdz,
@@ -201,9 +215,12 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
     const int best = geom.closest(ox, oy, oz, dx, dy, dz, t);
     const float* row = table + (size_t)max(best, 0) * TABLE_COLS;
     float ngx = 0.0f, ngy = 0.0f, ngz = 0.0f, dux = 0.0f, duy = 0.0f, duz = 0.0f;
+    float nsx = 0.0f, nsy = 0.0f, nsz = 0.0f;
     if (best >= 0) {
       ngx = __ldg(row + 9), ngy = __ldg(row + 10), ngz = __ldg(row + 11);
       dux = __ldg(row + 12), duy = __ldg(row + 13), duz = __ldg(row + 14);
+      if constexpr (kSmooth)
+        smooth_normal(row, NRM_COL, ox, oy, oz, dx, dy, dz, ngx, ngy, ngz, nsx, nsy, nsz);
     }
     // spheres, min-combined with the triangle winner (strict <)
     if (w.n_sph > 0) {
@@ -238,6 +255,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
         dux = __ldg(o2w + 0) * ux + __ldg(o2w + 1) * uy + __ldg(o2w + 2) * uz;
         duy = __ldg(o2w + 4) * ux + __ldg(o2w + 5) * uy + __ldg(o2w + 6) * uz;
         duz = __ldg(o2w + 8) * ux + __ldg(o2w + 9) * uy + __ldg(o2w + 10) * uz;
+        nsx = ngx, nsy = ngy, nsz = ngz;  // spheres shade ns = ng
       }
     }
     if (!(t < BIG_T)) {
@@ -253,8 +271,17 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
     if (bounce == p.max_depth) break;  // the escape step only
     const int n_lob = (int)__ldg(row + 15);
     const float mat_eta = __ldg(row + 31);
-    // flat shading: the shading normal is the geometric normal
-    const float nsx = ngx, nsy = ngy, nsz = ngz;
+    if constexpr (kSmooth) {
+      // ng faced onto ns (surface_interaction's faceforward(ng, ns))
+      if (ngx * nsx + ngy * nsy + ngz * nsz < 0.0f) {
+        ngx = -ngx;
+        ngy = -ngy;
+        ngz = -ngz;
+      }
+    } else {
+      // flat shading: the shading normal is the geometric normal
+      nsx = ngx, nsy = ngy, nsz = ngz;
+    }
 
     const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
 
@@ -265,7 +292,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
     const float wol_x = dot3(wox, woy, woz, ssx, ssy, ssz);
     const float wol_y = dot3(wox, woy, woz, tsx, tsy, tsz);
     const float wo_z = dot3(wox, woy, woz, nsx, nsy, nsz);
-    const float wo_ng = wo_z;
+    const float wo_ng = kSmooth ? dot3(wox, woy, woz, ngx, ngy, ngz) : wo_z;
 
     const int dim0 = 8 + bounce * 11;  // sampler/dims.path_dim0
     const float mag = fabsf(px) + fabsf(py) + fabsf(pz);
@@ -284,7 +311,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
       const float wil_x = dot3(wix, wiy, wiz, ssx, ssy, ssz);
       const float wil_y = dot3(wix, wiy, wiz, tsx, tsy, tsz);
       const float wil_z = dot3(wix, wiy, wiz, nsx, nsy, nsz);
-      const float wi_ng = wil_z;
+      const float wi_ng = kSmooth ? dot3(wix, wiy, wiz, ngx, ngy, ngz) : wil_z;
       const bool f_gate = (wi_ng * wo_ng) > 0.0f && wo_z != 0.0f;
       float fn[3] = {0.0f, 0.0f, 0.0f};
       if (f_gate) {
@@ -331,7 +358,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
       const float wil_x = dot3(wix, wiy, wiz, ssx, ssy, ssz);
       const float wil_y = dot3(wix, wiy, wiz, tsx, tsy, tsz);
       const float wil_z = dot3(wix, wiy, wiz, nsx, nsy, nsz);
-      const float wi_ng = wil_z;
+      const float wi_ng = kSmooth ? dot3(wix, wiy, wiz, ngx, ngy, ngz) : wil_z;
       const bool f_gate = (wi_ng * wo_ng) > 0.0f && wo_z != 0.0f;
       // f and the scattering pdf over the non-specular lobes
       float fn[3] = {0.0f, 0.0f, 0.0f};
@@ -441,15 +468,16 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
 
 // ---- one sample pass per thread: camera rays (kRaysIn false) or given rays ----
 
-template <bool kBvh, bool kRaysIn>
+template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth>
 __global__ void __launch_bounds__(BLOCK)
     path_mega_kernel(const float* __restrict__ table, int n_tris,
                      const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
                      const float* __restrict__ sph_rows, const float* __restrict__ in_a,
                      const float* __restrict__ in_d, const float* __restrict__ in_w,
                      const int* __restrict__ pid, const int* __restrict__ sid,
-                     float* __restrict__ out_l, float* __restrict__ out_w, int n,
-                     const __grid_constant__ Params p, const __grid_constant__ WideParams w) {
+                     const float* __restrict__ slot_u, float* __restrict__ out_l,
+                     float* __restrict__ out_w, int n, const __grid_constant__ Params p,
+                     const __grid_constant__ WideParams w) {
   extern __shared__ float s_geo[];
   __shared__ float s_sph[SPH_MAX * SPH_GEO];
   for (int k = threadIdx.x; k < w.n_sph * SPH_GEO; k += blockDim.x)
@@ -458,7 +486,12 @@ __global__ void __launch_bounds__(BLOCK)
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Sampler smp{(uint32_t)pid[i], (uint32_t)sid[i], &p};
+  const auto smp = [&] {
+    if constexpr (kSlots)
+      return SlotSampler{slot_u, w.slot_row, n, i};
+    else
+      return Sampler{(uint32_t)pid[i], (uint32_t)sid[i], &p};
+  }();
 
   float ox, oy, oz, dx, dy, dz, weight;
   if constexpr (kRaysIn) {
@@ -469,48 +502,80 @@ __global__ void __launch_bounds__(BLOCK)
     raygen(p, smp, in_a[2 * i], in_a[2 * i + 1], ox, oy, oz, dx, dy, dz, weight);
   }
   float L[3];
-  bounce_loop<kBvh>(geom, table, sph_rows, s_sph, p, w, smp, ox, oy, oz, dx, dy, dz,
-                    weight > 0.0f, L);
+  bounce_loop<kBvh, kSmooth>(geom, table, sph_rows, s_sph, p, w, smp, ox, oy, oz, dx, dy, dz,
+                             weight > 0.0f, L);
+  if constexpr (kSlots) {
+    if (smp.unlisted) L[0] = L[1] = L[2] = __int_as_float(0x7fffffff);
+  }
   out_l[3 * i + 0] = L[0];
   out_l[3 * i + 1] = L[1];
   out_l[3 * i + 2] = L[2];
   if constexpr (!kRaysIn) out_w[i] = weight;
 }
 
-template <bool kRaysIn>
-int launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
-           const Params* params, const float* in_a, const float* in_d, const float* in_w,
-           const int* pid, const int* sid, float* out_l, float* out_w, int n, void* stream,
-           const float* sph_rows, const WideParams* wide) {
-  cudaGetLastError();  // clear any stale error of this runtime
-  if (n <= 0) return 0;
-  if (params->n_lights < 0 || params->n_lights > LIGHT_MAX || wide->n_sph < 0 ||
-      wide->n_sph > SPH_MAX || (wide->n_sph > 0 && sph_rows == nullptr) ||
-      (wide->has_env && (wide->env_nu < 1 || wide->env_nu > ENV_BINS || wide->env_nv < 1 ||
-                         wide->env_nv > ENV_BINS)))
-    return (int)cudaErrorInvalidValue;
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nodes_f != nullptr) {
-    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
-      return (int)cudaErrorInvalidValue;
-    path_mega_kernel<true, kRaysIn><<<grid, BLOCK, 0, st>>>(
-        table, n_tris, nodes_f, nodes_i, sph_rows, in_a, in_d, in_w, pid, sid, out_l, out_w, n,
-        *params, *wide);
-    return (int)cudaGetLastError();
+// The arguments of one launch, whichever instance takes them
+struct Launch {
+  const float* table;
+  int n_tris;
+  const float *nodes_f;
+  const int* nodes_i;
+  const Params* params;
+  const float *in_a, *in_d, *in_w;
+  const int *pid, *sid;
+  float *out_l, *out_w;
+  int n;
+  cudaStream_t stream;
+  const float* sph_rows;
+  const WideParams* wide;
+  const float* slot_u;
+};
+
+template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth>
+int launch_instance(const Launch& a) {
+  const int grid = (a.n + BLOCK - 1) / BLOCK;
+  size_t smem = 0;
+  if constexpr (!kBvh) {
+    // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
+    const cudaError_t attr = cudaFuncSetAttribute(
+        path_mega_kernel<false, kRaysIn, kSlots, kSmooth>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+    if (attr != cudaSuccess) return (int)attr;
+    smem = (size_t)a.n_tris * GEO_COLS * sizeof(float);
   }
-  if (n_tris < 0 || n_tris > TRI_MAX || (n_tris > 0 && table == nullptr))
-    return (int)cudaErrorInvalidValue;
-  // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
-  const cudaError_t attr = cudaFuncSetAttribute(
-      path_mega_kernel<false, kRaysIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_MAX);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  path_mega_kernel<false, kRaysIn><<<grid, BLOCK, smem, st>>>(
-      table, n_tris, nullptr, nullptr, sph_rows, in_a, in_d, in_w, pid, sid, out_l, out_w, n,
-      *params, *wide);
+  path_mega_kernel<kBvh, kRaysIn, kSlots, kSmooth><<<grid, BLOCK, smem, a.stream>>>(
+      a.table, a.n_tris, a.nodes_f, a.nodes_i, a.sph_rows, a.in_a, a.in_d, a.in_w, a.pid, a.sid,
+      a.slot_u, a.out_l, a.out_w, a.n, *a.params, *a.wide);
   return (int)cudaGetLastError();
+}
+
+template <bool kBvh, bool kRaysIn>
+int launch_shading(const Launch& a) {
+  if (a.slot_u != nullptr)
+    return a.wide->smooth ? launch_instance<kBvh, kRaysIn, true, true>(a)
+                          : launch_instance<kBvh, kRaysIn, true, false>(a);
+  return a.wide->smooth ? launch_instance<kBvh, kRaysIn, false, true>(a)
+                        : launch_instance<kBvh, kRaysIn, false, false>(a);
+}
+
+template <bool kRaysIn>
+int launch(const Launch& a) {
+  cudaGetLastError();  // clear any stale error of this runtime
+  if (a.n <= 0) return 0;
+  const WideParams* w = a.wide;
+  if (a.params->n_lights < 0 || a.params->n_lights > LIGHT_MAX || w->n_sph < 0 ||
+      w->n_sph > SPH_MAX || (w->n_sph > 0 && a.sph_rows == nullptr) ||
+      (w->has_env && (w->env_nu < 1 || w->env_nu > ENV_BINS || w->env_nv < 1 ||
+                      w->env_nv > ENV_BINS)) ||
+      (w->smooth && a.n_tris <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (a.nodes_f != nullptr) {
+    if (a.n_tris <= 0 || a.n_tris > BVH_TRI_MAX || a.nodes_i == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return launch_shading<true, kRaysIn>(a);
+  }
+  if (a.n_tris < 0 || a.n_tris > TRI_MAX || (a.n_tris > 0 && a.table == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return launch_shading<false, kRaysIn>(a);
 }
 
 }  // namespace
@@ -519,14 +584,18 @@ extern "C" {
 
 // Launch one camera sample pass on `stream`: brute force when nodes_f is
 // null, the BVH walk otherwise; sph_rows the (n_sph, TABLE_COLS) sphere rows
-// (null without spheres).  Returns cudaGetLastError() of the launch (0 when
-// it was accepted); nothing is synchronised.
+// (null without spheres); slot_u the Halton slot matrix, (NC, n) float32 rows
+// of the slots wide->slot_row maps, or null for the stratified sampler; the
+// smooth instance when wide->smooth.  Returns cudaGetLastError() of the
+// launch (0 when it was accepted); nothing is synchronised.
 int path_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
                          const int* nodes_i, const Params* params, const float* pixel_xy,
                          const int* pid, const int* sid, float* out_l, float* out_w, int n,
-                         void* stream, const float* sph_rows, const WideParams* wide) {
-  return launch<false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr, nullptr, pid,
-                       sid, out_l, out_w, n, stream, sph_rows, wide);
+                         void* stream, const float* sph_rows, const WideParams* wide,
+                         const float* slot_u) {
+  return launch<false>(Launch{table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr,
+                              nullptr, pid, sid, out_l, out_w, n,
+                              static_cast<cudaStream_t>(stream), sph_rows, wide, slot_u});
 }
 
 // The same on given rays: o, d (n, 3) and weight (n,); out_l only.
@@ -534,9 +603,10 @@ int path_mega_rays_launch(const float* table, int n_tris, const float* nodes_f,
                           const int* nodes_i, const Params* params, const float* o,
                           const float* d, const float* weight, const int* pid, const int* sid,
                           float* out_l, int n, void* stream, const float* sph_rows,
-                          const WideParams* wide) {
-  return launch<true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid, out_l,
-                      nullptr, n, stream, sph_rows, wide);
+                          const WideParams* wide, const float* slot_u) {
+  return launch<true>(Launch{table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid,
+                             out_l, nullptr, n, static_cast<cudaStream_t>(stream), sph_rows,
+                             wide, slot_u});
 }
 
 const char* path_mega_cam_error_string(int err) {

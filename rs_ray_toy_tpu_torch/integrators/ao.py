@@ -3,7 +3,11 @@
 Each camera ray's first hit sends n_samples probe rays over the hemisphere
 of the shading normal faced toward the viewer, cosine- or uniformly
 distributed (sampler dimensions 8 + k); L = the mean of the unoccluded
-probes' cos / pdf, over pi (ao.rs:53-99), the same on every channel.  Every
+probes' cos / pdf, over pi (ao.rs:53-99), the same on every channel.
+Under a HaltonSampler the probes read the sampler's hash at slot 8 + k
+(HaltonSampler.traced_2d), as the JAX package's li_ao does: it draws the
+probes in a fori_loop, where its Halton sampler sees a traced slot and
+falls back to the hash.  Every
 probe is one occlusion query of SceneCtx (K4 or K3 any hit on the card,
 spheres in plain torch).  AO reads no light: it takes every scene the
 loader takes, but for a camera medium.
@@ -17,6 +21,7 @@ from ..core.sampling import cosine_sample_hemisphere, uniform_sample_hemisphere
 from ..core.vec import dot, faceforward
 from ..accel.geometry import offset_ray_origin
 from ..sampler.dims import ao_dim
+from ..sampler.halton import HaltonSampler
 
 
 def li_ao(ctx, o, d, cam_weight, sampler, pixel_id, s_idx, spec):
@@ -28,8 +33,9 @@ def li_ao(ctx, o, d, cam_weight, sampler, pixel_id, s_idx, spec):
     ns = faceforward(si.ns, si.wo)
     frame = beval.make_frame(ns, si.ng, si.dpdu)
     total = torch.zeros(n, dtype=DTYPE, device=o.device)
+    probe_2d = sampler.traced_2d if isinstance(sampler, HaltonSampler) else sampler.get_2d
     for k in range(spec.n_samples):
-        u = sampler.get_2d(pixel_id, s_idx, ao_dim(k))
+        u = probe_2d(pixel_id, s_idx, ao_dim(k))
         if spec.cos_sample:
             w_local = cosine_sample_hemisphere(u)
             pdf = w_local[:, 2] * (1.0 / PI)

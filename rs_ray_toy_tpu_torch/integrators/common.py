@@ -58,7 +58,9 @@ class SceneCtx:
     tri_packed (T, 12) [p0, e1, e2, pad] (K4's table), shade: the
     scene-order shade rows with the sphere tables (accel/geometry
     .pack_shade_tables), mat_rows: material_rows, lights: a LightTable,
-    bvh: K3's tables (ops/bvh_kernel) or None for brute force.
+    bvh: K3's tables (ops/bvh_kernel; with the 31 smooth shade columns,
+    which the shaded kernel's smooth instance reads, when any triangle has
+    vertex normals) or None for brute force.
     `from_scene` builds them from a loaded scene."""
 
     def __init__(self, tri_packed, shade, mat_rows, lights, bvh=None):
@@ -123,6 +125,7 @@ class SceneCtx:
         si = geom.SurfaceHit(
             p=o + d * t_safe[:, None], ng=at["ng"], ns=at["ns"], uv=at["uv"], dpdu=at["dpdu"],
             dpdv=at["dpdv"], wo=-d, mat=at["mat"], area_light=at["area_light"], valid=valid,
+            dndu=at["dndu"], dndv=at["dndv"],
         )
         if self.sph is None:
             return hit, si
@@ -140,6 +143,7 @@ class SceneCtx:
             dpdu=torch.where(sel, si_s.dpdu, si.dpdu), dpdv=torch.where(sel, si_s.dpdv, si.dpdv),
             wo=si.wo, mat=torch.where(is_s, si_s.mat, si.mat),
             area_light=torch.where(is_s, si_s.area_light, si.area_light), valid=hit2.valid,
+            dndu=torch.where(sel, si_s.dndu, si.dndu), dndv=torch.where(sel, si_s.dndv, si.dndv),
         )
         return hit2, si
 

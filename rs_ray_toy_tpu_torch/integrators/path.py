@@ -41,14 +41,15 @@ from .common import uniform_sample_one_light
 
 def unsupported_feature(scene, spec, sampler) -> Optional[str]:
     """The first feature of the job outside the wavefront Path loop, or
-    None: the path kernel's lobes and sampler, any number of spheres and
-    lights of every loaded kind, up to BVH_PRIM_MAX triangles."""
+    None: the path kernel's lobes and samplers (stratified or Halton), any
+    number of spheres and lights of every loaded kind, up to BVH_PRIM_MAX
+    triangles, flat or with smooth vertex normals."""
     if spec.kind != "path":
         return f"{spec.kind} integrator"
     if not 1 <= spec.max_depth <= DEPTH_MAX:
         return f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}"
     return scene_unsupported(scene, sampler, PORTED_KINDS, tri_max=bk.BVH_PRIM_MAX,
-                             wavefront=True)
+                             wavefront=True, allow_smooth=True)
 
 
 def li_path(ctx, o, d, cam_weight, sampler, pixel_id, s_idx, spec):

@@ -10,9 +10,11 @@ bundle; `from_jax_volpath` does the same for the Volpath kernel's
 the grid density as numpy); `from_jax_sppm` carries the SPPM pieces (the
 packed table, the resolved material tables, visible points, state,
 photon lights and rays); `from_jax_scene_ctx` builds the wavefront
-loop's SceneCtx from a JAX SceneCtx's triangle and sphere SoAs, packed
-triangles, material table, lights, environments and (optionally) its BVH
-kernel tables.  Tests use
+loop's SceneCtx from a JAX SceneCtx's triangle and sphere SoAs (smooth
+vertex normals included), packed triangles, material table, lights,
+environments and (optionally) its BVH kernel tables; `sampler_from_jax`
+builds the port's HaltonSampler with a JAX HaltonSampler's spec and
+seed.  Tests use
 them to feed both packages identical tables, so a comparison does not
 depend on the two loaders agreeing.
 """
@@ -37,6 +39,8 @@ from .ops.path_megakernel import (
     kinds_present,
 )
 from .ops.volpath_megakernel import PackedVolpath
+from .sampler.halton import HaltonSampler
+from .scene.loader import SamplerSpec
 from .scene.types import LIGHT_DIFFUSE_AREA, LIGHT_INFINITE, LIGHT_POINT, MediumSpec
 from .scene import medium as med
 
@@ -95,6 +99,7 @@ def from_jax_packed(table_np, wide_lights, cam_packed, device, wide=None):
             env=None if env is None else EnvC(*(getattr(env, f) for f in EnvC._fields)),
             esc_rgb=None if wide.esc_rgb is None else tuple(wide.esc_rgb),
             world_radius=float(wide.world_radius),
+            smooth=bool(wide.smooth),
         )
     packed = PackedScene(
         table=torch.as_tensor(table, device=device),
@@ -103,6 +108,15 @@ def from_jax_packed(table_np, wide_lights, cam_packed, device, wide=None):
         **more,
     )
     return packed, None if cam_packed is None else camera_from_jax(cam_packed)
+
+
+def sampler_from_jax(sampler, xres, yres):
+    """The port's HaltonSampler with a JAX HaltonSampler's sample count,
+    sample_at_center and seed (the same digit permutations) on an xres x
+    yres film."""
+    spec = SamplerSpec("halton", nsamp=int(sampler.spp),
+                       sample_at_center=bool(sampler.sample_at_center))
+    return HaltonSampler(spec, xres, yres, seed=int(sampler.seed))
 
 
 def camera_from_jax(cam_packed):
@@ -221,17 +235,16 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
     (ctx.tri_packed), material table (ctx.mats), lights (ctx.lights) and
     environments (ctx.infinite_envs, with env_rgb the constant texel of
     each).  bvh_tables: the dict of the JAX package's pack_bvh_tables
-    (nodes2_f, nodes_i, prims_f, prims_i, shade_f with flat rows,
-    max_leaf, depth) for a BVH context, None for brute force."""
+    (nodes2_f, nodes_i, prims_f, prims_i, shade_f with flat or smooth
+    rows, max_leaf, depth) for a BVH context, None for brute force."""
     a = np.asarray
     tri = ctx.tri
-    if tri.count and a(tri.has_n).any():
-        raise NotImplementedError("smooth shading (vertex normals)")
     if len(env_rgb) != len(ctx.infinite_envs):
         raise ValueError("env_rgb needs the constant texel of every environment")
     soa = SimpleNamespace(
-        **{k: a(getattr(tri, k)) for k in ("p0", "p1", "p2", "uv0", "uv1", "uv2", "dpdu", "dpdv",
-                                           "ng", "mat")},
+        **{k: a(getattr(tri, k)) for k in ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
+                                           "dpdu", "dpdv", "ng", "mat")},
+        has_n=a(tri.has_n).astype(bool),
         count=int(tri.count),
     )
     sph = ctx.sph
@@ -241,7 +254,7 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
         count=int(sph.count),
     )
     shade = pack_shade_tables(soa, device, sphere_tables(sph_ns, device))
-    shade["tri_i"][:, 1] = torch.as_tensor(np.array(tri.area_light, np.int64), device=device)
+    shade["tri_i"][:, 2] = torch.as_tensor(np.array(tri.area_light, np.int64), device=device)
     bvh = None
     if bvh_tables is not None:
         t = lambda k, dt: torch.as_tensor(np.array(a(bvh_tables[k]), dt), device=device)

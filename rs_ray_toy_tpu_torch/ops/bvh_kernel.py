@@ -5,16 +5,19 @@ intersect_bvh_pallas_shaded).
 `pack_bvh` builds the wavefront kernels' tables for a triangle scene: the
 repository's SAH BVH with leaves of KERNEL_LEAF triangles (SceneCtx's
 kernel leaf), its fused-children node rows, and the triangles in leaf
-order (intersect rows, original row / material / area light, the 15 flat
-shade columns).  A tree deeper than the kernels' 64-entry stack raises
+order (intersect rows, original row / material / area light, and the 15
+flat shade columns, or 31 with the vertex normals, their partials and
+has_n when any triangle has vertex normals).  A tree deeper than the kernels' 64-entry stack raises
 NotImplementedError: there is no slower walk to fall back to.
 
 - `intersect_bvh(tables, o, d, t_max)`: closest hit with t in
   [TRI_EPS, t_max): (t, idx, valid), t = t_max and idx = -1 on a miss.
 - `occluded_bvh(...)`: any hit in the same interval.
 - `intersect_bvh_shaded(...)`: the closest hit and the winner's surface
-  attributes (barycentric u, v, uv, ns = ng, dpdu, dpdv, material, area
-  light).
+  attributes (barycentric u, v, uv, ns, ng, dpdu, dpdv, material, area
+  light): on flat rows ns = ng, on smooth rows (the `bvh_shaded_smooth`
+  instance) ns interpolated from the vertex normals and ng faced onto it,
+  and dndu, dndv.
 
 A lane with t_max <= 0 misses without walking (the loop's dead lanes).  On
 a CUDA tensor each wrapper launches csrc/bvh_kernel.cu (built by
@@ -29,17 +32,26 @@ import numpy as np
 import torch
 
 from ..accel import traverse
-from ..accel.bvh import STACK_DEPTH, build_bvh, pack_bvh_tables, pack_prim_tables, tree_depth
+from ..accel.bvh import (
+    SHADE_COLS_FLAT,
+    SHADE_COLS_SMOOTH,
+    STACK_DEPTH,
+    build_bvh,
+    pack_bvh_tables,
+    pack_prim_tables,
+    tree_depth,
+)
+from ..accel.geometry import shade_rows
 from . import _build
 from .intersect_kernel import ray_args
 
 KERNEL_LEAF = 16  # SceneCtx's kernel leaf size (integrators/common.py in the JAX package)
 BVH_PRIM_MAX = 120_000  # ops/bvh_pallas.PALLAS_BVH_PRIM_MAX
-SHADE_COLS = 15
 ATTR_ROWS = 16  # u, v, uv (2), ns (3), ng (3), dpdu (3), dpdv (3)
+ATTR_ROWS_SMOOTH = 22  # ... and dndu (3), dndv (3)
 
 # Kernel launches, by kernel; the one piece of module state.
-LAUNCHES = {"bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0}
+LAUNCHES = {"bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0, "bvh_shaded_smooth": 0}
 _LIB = None
 
 
@@ -48,9 +60,15 @@ class BvhTables(NamedTuple):
     nodes_i: torch.Tensor  # (M, 4) int32: offset, n_prims, axis, 0
     prims_f: torch.Tensor  # (P, 12) float32 leaf order: p0, e1, e2, pad
     prims_i: torch.Tensor  # (P, 4) int32: original row, material, area light, 0
-    shade_f: torch.Tensor  # (P, 15) float32: uv0, uv1, uv2, dpdu, dpdv, ng
+    # (P, 15) float32: uv0, uv1, uv2, dpdu, dpdv, ng; smooth (P, 31): and
+    # n0, n1, n2, dndu, dndv, has_n
+    shade_f: torch.Tensor
     max_leaf: int
     depth: int
+
+    @property
+    def smooth(self):
+        return self.shade_f.shape[1] == SHADE_COLS_SMOOTH
 
 
 def pack_bvh(tri, device) -> BvhTables:
@@ -64,7 +82,8 @@ def pack_bvh(tri, device) -> BvhTables:
                                   f"holds {STACK_DEPTH} nodes)")
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     nodes_f, nodes_i = pack_bvh_tables(flat)
-    prims_f, prims_i, shade_f = pack_prim_tables(tri, flat)
+    tri_f, tri_i = shade_rows(tri)
+    prims_f, prims_i, shade_f = pack_prim_tables(tri, flat, tri_f, tri_i[:, 0])
     return BvhTables(t(nodes_f), t(nodes_i), t(prims_f), t(prims_i), t(shade_f), flat.max_leaf,
                      depth)
 
@@ -82,8 +101,8 @@ def occluded_bvh_reference(tables, o, d, t_max, work=None):
 
 def intersect_bvh_shaded_reference(tables, o, d, t_max, work=None):
     """Plain version of the shaded kernel, with its outputs: (t, idx,
-    material, area light, attrs (16, N)); misses carry t_max, -1, -1, -1
-    and zeros."""
+    material, area light, attrs (16, N), or (22, N) on smooth rows);
+    misses carry t_max, -1, -1, -1 and zeros."""
     t, row = traverse.walk(tables, o, d, t_max, False, work)
     valid = row >= 0
     r = row.clamp(min=0)
@@ -107,8 +126,26 @@ def intersect_bvh_shaded_reference(tables, o, d, t_max, work=None):
     w = 1.0 - u - v
     uvx = s[:, 0] * w + s[:, 2] * u + s[:, 4] * v
     uvy = s[:, 1] * w + s[:, 3] * u + s[:, 5] * v
-    rows = [u, v, uvx, uvy, *s[:, 12:15].unbind(-1), *s[:, 12:15].unbind(-1),
-            *s[:, 6:9].unbind(-1), *s[:, 9:12].unbind(-1)]
+    ngx, ngy, ngz = s[:, 12:15].unbind(-1)
+    nsx, nsy, nsz = ngx, ngy, ngz
+    rows_d = []
+    if tables.smooth:
+        # _traverse_shaded_kernel's finalize: ns interpolated from the raw
+        # vertex normals (ng without them), ng faced onto it
+        nx = s[:, 15] * w + s[:, 18] * u + s[:, 21] * v
+        ny = s[:, 16] * w + s[:, 19] * u + s[:, 22] * v
+        nz = s[:, 17] * w + s[:, 20] * u + s[:, 23] * v
+        len2 = nx * nx + ny * ny + nz * nz
+        has_n = (s[:, 30] != 0.0) & (len2 > 0.0)
+        rinv = 1.0 / torch.sqrt(torch.clamp(len2, min=1e-30))
+        nsx = torch.where(has_n, nx * rinv, ngx)
+        nsy = torch.where(has_n, ny * rinv, ngy)
+        nsz = torch.where(has_n, nz * rinv, ngz)
+        flip = ngx * nsx + ngy * nsy + ngz * nsz < 0.0
+        ngx, ngy, ngz = (torch.where(flip, -c, c) for c in (ngx, ngy, ngz))
+        rows_d = s[:, 24:30].unbind(-1)
+    rows = [u, v, uvx, uvy, nsx, nsy, nsz, ngx, ngy, ngz, *s[:, 6:9].unbind(-1),
+            *s[:, 9:12].unbind(-1), *rows_d]
     attrs = torch.where(valid, torch.stack(rows), 0.0)
     pi = tables.prims_i[r].to(torch.int64)
     none = torch.full_like(row, -1)
@@ -128,7 +165,7 @@ def load_kernel():
         lib.bvh_launch.restype = i
         lib.bvh_launch.argtypes = [i, p, p, p, p, i, p, p, p, p, p, i, p]
         lib.bvh_shaded_launch.restype = i
-        lib.bvh_shaded_launch.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p, p, p, i, p]
+        lib.bvh_shaded_launch.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p, p, p, p, i, p]
         lib.bvh_error_string.restype = ctypes.c_char_p
         lib.bvh_error_string.argtypes = [i]
         if lib.bvh_prim_max() != BVH_PRIM_MAX:
@@ -144,7 +181,8 @@ def _check_tables(tables, dev):
         ("nodes_i", tables.nodes_i, torch.int32, (m, 4)),
         ("prims_f", tables.prims_f, torch.float32, (p, 12)),
         ("prims_i", tables.prims_i, torch.int32, (p, 4)),
-        ("shade_f", tables.shade_f, torch.float32, (p, SHADE_COLS)),
+        ("shade_f", tables.shade_f, torch.float32,
+         (p, SHADE_COLS_SMOOTH if tables.smooth else SHADE_COLS_FLAT)),
     ):
         if x.device != dev or x.dtype != dtype or x.shape != shape or not x.is_contiguous():
             raise ValueError(f"BVH table {name} must be contiguous {dtype} {shape} on {dev}")
@@ -184,8 +222,9 @@ def prepare_launch(tables, o, d, t_max, any_hit):
 
 
 def prepare_shaded_launch(tables, o, d, t_max):
-    """As prepare_launch for the shaded kernel; launch() returns (t, idx,
-    material, area light (int32), attrs (16, N))."""
+    """As prepare_launch for the shaded kernel (its smooth instance on
+    smooth rows); launch() returns (t, idx, material, area light (int32),
+    attrs (16, N), or (22, N) smooth)."""
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"the BVH kernel runs on cuda tensors, not {dev}")
@@ -194,21 +233,24 @@ def prepare_shaded_launch(tables, o, d, t_max):
     n = o.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     ints = torch.empty((3, n), dtype=torch.int32, device=dev)
-    attrs = torch.empty((ATTR_ROWS, n), dtype=torch.float32, device=dev)
+    smooth = tables.smooth
+    attrs = torch.empty((ATTR_ROWS_SMOOTH if smooth else ATTR_ROWS, n), dtype=torch.float32,
+                        device=dev)
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    key = "bvh_shaded_smooth" if smooth else "bvh_shaded"
 
     def launch():
         err = lib.bvh_shaded_launch(
             tables.nodes_f.data_ptr(), tables.nodes_i.data_ptr(), tables.prims_f.data_ptr(),
-            tables.prims_i.data_ptr(), tables.shade_f.data_ptr(), p, o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), t_out.data_ptr(), ints[0].data_ptr(), ints[1].data_ptr(),
-            ints[2].data_ptr(), attrs.data_ptr(), n, stream,
+            tables.prims_i.data_ptr(), tables.shade_f.data_ptr(), int(smooth), p, o.data_ptr(),
+            d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(), ints[0].data_ptr(),
+            ints[1].data_ptr(), ints[2].data_ptr(), attrs.data_ptr(), n, stream,
         )
         if err != 0:
             msg = lib.bvh_error_string(err).decode()
-            raise RuntimeError(f"bvh_shaded kernel launch failed: CUDA error {err} ({msg})")
-        LAUNCHES["bvh_shaded"] += 1
+            raise RuntimeError(f"{key} kernel launch failed: CUDA error {err} ({msg})")
+        LAUNCHES[key] += 1
         return t_out, ints[0], ints[1], ints[2], attrs
 
     return launch
@@ -232,14 +274,17 @@ def occluded_bvh(tables, o, d, t_max):
 
 def intersect_bvh_shaded(tables, o, d, t_max):
     """Closest hit and the winner's attributes: (t, idx, valid, attrs)
-    with attrs a dict of uv (N, 2), ns, ng, dpdu, dpdv (N, 3), mat and
-    area_light (N,) int64, as intersect_bvh_pallas_shaded returns them."""
+    with attrs a dict of uv (N, 2), ns, ng, dpdu, dpdv, dndu, dndv (N, 3;
+    the partials zeros on flat rows), mat and area_light (N,) int64, as
+    intersect_bvh_pallas_shaded returns them."""
     if o.device.type == "cpu":
         t, idx, mat, al, a = intersect_bvh_shaded_reference(tables, o, d, t_max)
     else:
         t, idx, mat, al, a = prepare_shaded_launch(tables, o, d, t_max)()
     idx = idx.to(torch.int64)
     v3 = lambda k: a[k:k + 3].T
+    zeros = torch.zeros_like(a[:3].T)
     attrs = dict(uv=a[2:4].T, ns=v3(4), ng=v3(7), dpdu=v3(10), dpdv=v3(13),
+                 dndu=v3(16) if tables.smooth else zeros, dndv=v3(19) if tables.smooth else zeros,
                  mat=mat.to(torch.int64), area_light=al.to(torch.int64))
     return t, idx, idx >= 0, attrs

@@ -3,8 +3,11 @@ CUDA kernel (rs_ray_toy_tpu/ops/path_megakernel.py: the camera variants
 _kernel_cam / _kernel_cam_bvh and the rays-in variants _kernel /
 _kernel_bvh, brute force and the in-kernel BVH).
 
-`li_path_mega_cam` runs a whole sample pass per camera ray: the
-stratified sampler hash for every slot, the lens trace, Moller-Trumbore
+`li_path_mega_cam` runs a whole sample pass per camera ray: every
+sampler slot (the stratified sampler's hash, or a HaltonSampler's
+values, computed per pass by `HaltonSampler.slot_matrix` and read from
+an (NC, N) matrix, one row per component of each slot `used_slots`
+lists), the lens trace, Moller-Trumbore
 closest hit over the triangle table min-combined with up to SPH_MAX full
 spheres, NEE with an any-hit shadow ray (point lights alone: the delta
 form; with sphere or environment lights the power-heuristic MIS of
@@ -15,9 +18,12 @@ etaScale factor, Russian roulette after bounce 3, and with
 `infinite_lights` the escape radiance at bounce 0 or after a specular
 bounce, one step past max_depth.  `li_path_mega` runs the same bounce
 loop on given rays.  The estimator is the JAX kernel's (`_raygen` +
-`_bounce_loop`), sample slot for sample slot, on its flat, stratified
-subset of up to 8 full spheres, point and sphere lights and one constant
-environment; `supports` pins that subset.  Up to TRI_MAX triangles the
+`_bounce_loop`), sample slot for sample slot, on its subset of up to 8
+full spheres, point and sphere lights and one constant environment,
+under the stratified or the Halton sampler; on a mesh with smooth vertex
+normals (`mesh_smooth`) the shading normal is interpolated from the
+winner's raw vertex normals at its rebuilt barycentrics, and ng is
+faced onto it (`supports` pins that subset).  Up to TRI_MAX triangles the
 hits are brute force; above it (or when `pack_scene` is asked to) the
 table is reordered into the leaf order of a BVH and every hit walks the
 tree per ray (accel/bvh.py), up to BVH_TRI_MAX triangles.
@@ -70,6 +76,7 @@ from ..core.sampling import power_heuristic
 from ..core.vec import dot3 as _dot3
 from ..core.vec import rsqrt as _rsqrt
 from ..sampler.dims import CAMERA_FILM, CAMERA_LENS, PATH_BSDF, PATH_NEE, PATH_RR, path_dim0
+from ..sampler.halton import HaltonSampler
 from ..scene.types import AREA_SHAPE_SPHERE, LIGHT_DIFFUSE_AREA, LIGHT_INFINITE, LIGHT_POINT
 from . import _build
 
@@ -79,7 +86,7 @@ TRI_MAX = 2048  # brute force up to here
 BVH_TRI_MAX = 65536  # the in-kernel BVH up to here (MEGA_BVH_TRI_MAX)
 BVH_LEAF = 16  # requested leaf size of the kernels' BVH
 LOBES_MAX = 5
-NRM_COL = 16 + 16 * LOBES_MAX  # raw vertex normals (smooth shading, unused here)
+NRM_COL = 16 + 16 * LOBES_MAX  # raw vertex normals n0, n1, n2 (smooth shading)
 TEX0 = NRM_COL + 9  # textured-kd block (not ported; zeros)
 TABLE_COLS = TEX0 + 10  # 115
 LIGHT_MAX = 8
@@ -92,10 +99,25 @@ SPEC_KINDS = (LOBE_SPEC_REFL, LOBE_SPEC_TRANS, LOBE_FRESNEL_SPEC)
 PORTED_KINDS = (LOBE_LAMBERT_REFL, LOBE_MF_REFL, LOBE_SPEC_REFL, LOBE_FRESNEL_SPEC)
 
 ENV_BINS = 16  # theta and phi rows of a constant map's Distribution2D (8x8 texels)
+SLOT_MAX = 176  # sampler slots the slot-to-row map covers: path_dim0(DEPTH_MAX), rounded up
+
+
+def kernel_name(base, bvh=False, halton=False, smooth=False):
+    """The name (and LAUNCHES key) of a kernel instance: the camera
+    ("path_mega_cam") or rays-in ("path_mega") kernel, over the BVH, under
+    the Halton sampler, with smooth normals."""
+    return base + "_bvh" * bvh + "_halton" * halton + "_smooth" * smooth
+
 
 # Kernel launches made by li_path_mega_cam and li_path_mega, by kernel
-# (camera or given rays; brute force, BVH); the one piece of module state.
-LAUNCHES = {"path_mega_cam": 0, "path_mega_cam_bvh": 0, "path_mega": 0, "path_mega_bvh": 0}
+# instance; the one piece of module state.
+LAUNCHES = {
+    kernel_name(base, bvh, halton, smooth): 0
+    for base in ("path_mega_cam", "path_mega")
+    for bvh in (False, True)
+    for halton in (False, True)
+    for smooth in (False, True)
+}
 
 
 class BvhTables(NamedTuple):
@@ -141,6 +163,7 @@ class PackedScene(NamedTuple):
     env: Optional[EnvC] = None  # the environment light NEE samples
     esc_rgb: Optional[tuple] = None  # summed radiance of the infinite_lights environments
     world_radius: float = 0.0  # float32 value
+    smooth: bool = False  # mesh_smooth: interpolate the raw vertex normals
 
 
 def _pow2(n):
@@ -155,6 +178,24 @@ def full_spheres(sph):
     r = sph.radius
     return bool(np.all(sph.z_min <= -r + 1e-6 * r) and np.all(sph.z_max >= r - 1e-6 * r)
                 and np.all(sph.phi_max >= 2.0 * np.pi - 1e-6))
+
+
+def mesh_smooth(tri):
+    """Does any triangle carry vertex normals that differ in direction
+    from its face normal (the JAX package's _mesh_smooth)?  Parallel but
+    unnormalised or zero-length normals shade flat and stay in the flat
+    subset."""
+    if tri.count == 0 or not tri.has_n.any():
+        return False
+    has_n = tri.has_n
+    ng = np.asarray(tri.ng, np.float32)[has_n]
+    for vn in (tri.n0, tri.n1, tri.n2):
+        v = np.asarray(vn, np.float32)[has_n]
+        nrm = np.linalg.norm(v, axis=-1, keepdims=True)
+        unit = v / np.maximum(nrm, 1e-20)
+        if np.any((nrm[..., 0] > 0) & (np.abs(unit - ng).max(-1) > 1e-5)):
+            return True
+    return False
 
 
 def _light_unsupported(scene, volpath, path, wavefront, spec_live):
@@ -189,10 +230,11 @@ def _light_unsupported(scene, volpath, path, wavefront, spec_live):
 
 
 def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=False,
-                      wavefront=False) -> Optional[str]:
+                      wavefront=False, allow_smooth=False) -> Optional[str]:
     """The checks the kernels share (common_scene_checks): power-of-two
-    stratified grid (no check when `sampler` is None), up to tri_max
-    (default BVH_TRI_MAX) flat triangles, up to LIGHT_MAX point lights,
+    stratified grid (no check when `sampler` is None; a HaltonSampler only
+    with `path` or `wavefront`), up to tri_max (default BVH_TRI_MAX)
+    triangles, flat unless `allow_smooth`, up to LIGHT_MAX point lights,
     and every live lobe of a used material among `kinds` (microfacets:
     visible-normal Trowbridge-Reitz only); no media.  With `volpath`,
     sphere lights too, and the Volpath kernel checks the medium itself.
@@ -203,7 +245,11 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     None."""
     if scene.mediums and not volpath:
         return "participating media (Camera.medium) outside Volpath"
-    if sampler is not None and not (_pow2(sampler.spp) and _pow2(sampler.xs) and _pow2(sampler.ys)):
+    if isinstance(sampler, HaltonSampler):
+        if not (path or wavefront):
+            return "HaltonSampler"
+    elif sampler is not None and not (_pow2(sampler.spp) and _pow2(sampler.xs)
+                                      and _pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     tri = scene.triangles
     sph = scene.spheres
@@ -211,6 +257,8 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     tri_max = BVH_TRI_MAX if tri_max is None else tri_max
     if tri.count > tri_max:
         return f"{tri.count} triangles (the BVH kernels take up to {tri_max})"
+    if not allow_smooth and mesh_smooth(tri):
+        return "smooth shading (vertex normals)"
     if n_sph and not (path or wavefront):
         return "sphere primitives"
     if path and n_sph > SPH_MAX:
@@ -250,7 +298,7 @@ def unsupported_feature(scene, spec, sampler) -> Optional[str]:
         return f"{spec.kind} integrator"
     if not 1 <= spec.max_depth <= DEPTH_MAX:
         return f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}"
-    return scene_unsupported(scene, sampler, PORTED_KINDS, path=True)
+    return scene_unsupported(scene, sampler, PORTED_KINDS, path=True, allow_smooth=True)
 
 
 def supports(scene, spec, sampler) -> bool:
@@ -403,8 +451,9 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
     cols 16+16*l  per lobe l: kind, s0(3), s1(3), s2(3), alpha_u, alpha_v,
                   fresnel, eta_a, eta_b, pad (col 31 = Bsdf eta, col 47 =
                   material id)
-    cols 96:105  raw vertex normals; cols 105:115 the textured-kd block
-                  (zeros: textures are not ported).
+    cols 96:105  raw vertex normals n0, n1, n2 (read when `smooth`);
+                  cols 105:115 the textured-kd block (zeros: textures are
+                  not ported).
 
     BVH mode (bvh=True, or bvh=None and more than TRI_MAX triangles): a
     SAH BVH with leaves of up to BVH_LEAF triangles, its fused-children
@@ -446,8 +495,75 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
         kinds_present=kinds,
         bvh=tables,
         sph_table=None if sph_rows is None else torch.as_tensor(sph_rows, device=device),
+        smooth=mesh_smooth(tri),
         **pack_lights(scene),
     )
+
+
+def used_slots(max_depth, n_lights, all_point, has_env_nee, with_cam):
+    """The sampler slots the bounce loop (and with `with_cam` the lens
+    trace) reads, in order, as (slot, 1 or 2 components) pairs: the JAX
+    package's _used_slots without the BSSRDF slots (not ported).  It
+    mirrors every get_1d / get_2d of bounce_loop_reference and of the
+    kernel; a slot left out makes the plain version raise KeyError and
+    the kernel write NaN radiance for the rays that read it."""
+    slots = [(CAMERA_FILM, 2), (CAMERA_LENS, 2)] if with_cam else []
+    for bounce in range(max_depth):
+        d0 = path_dim0(bounce)
+        if all_point:
+            slots.append((d0 + PATH_NEE, 1))
+        elif n_lights > 0:
+            slots += [(d0 + PATH_NEE, 1), (d0 + PATH_NEE + 1, 2)]
+            if has_env_nee:
+                slots.append((d0 + PATH_NEE + 2, 2))
+        slots.append((d0 + PATH_BSDF, 2))
+        if bounce > 3:
+            slots.append((d0 + PATH_RR, 1))
+    return tuple(slots)
+
+
+def slot_cols(slots):
+    """(slot -> its first row in the slot matrix, the number of rows)."""
+    cols, c = {}, 0
+    for slot, n in slots:
+        cols[slot] = c
+        c += n
+    return cols, c
+
+
+def packed_slots(packed, spec, with_cam):
+    """used_slots of a packed scene under the integrator spec `spec`."""
+    n_lights = len(packed.light_p)
+    kinds = packed.light_kind or (LIGHT_POINT,) * n_lights
+    all_point = n_lights > 0 and all(k == LIGHT_POINT for k in kinds)
+    return used_slots(spec.max_depth, n_lights, all_point, packed.env is not None, with_cam)
+
+
+class SlotReader:
+    """A HaltonSampler's values of the slots `packed` and `spec` read, for
+    one batch, read back by slot as the kernel reads them (_mk_sdim's
+    Halton branch): u, the (NC, N) float32 matrix of
+    HaltonSampler.slot_matrix (one row per component, computed once a
+    pass), and cols, slot -> its first row."""
+
+    def __init__(self, sampler, packed, spec, pid, sid, with_cam):
+        slots = packed_slots(packed, spec, with_cam)
+        self.u = sampler.slot_matrix(pid.to(torch.int64), sid, slots).contiguous()
+        self.cols = slot_cols(slots)[0]
+
+    def get_1d(self, pid, sid, dim):
+        return self.u[self.cols[dim]]
+
+    def get_2d(self, pid, sid, dim):
+        c = self.cols[dim]
+        return self.u[c:c + 2].T
+
+
+def tally_slots(work, sampler, count):
+    """Count the slot values the kernel reads ("slot", `count` a ray) when
+    `sampler` is a SlotReader; the stratified kernel hashes its own."""
+    if isinstance(sampler, SlotReader):
+        tally(work, "slot", count)
 
 
 def pack_camera(cam):
@@ -547,12 +663,21 @@ class _WideParams(ctypes.Structure):
         ("env_cos_bins", ctypes.c_float * ENV_BINS),
         ("env_to_world", ctypes.c_float * 9),
         ("env_to_local", ctypes.c_float * 9),
+        ("smooth", ctypes.c_int),
+        ("slot_row", ctypes.c_short * SLOT_MAX),
     ]
 
 
-def _wide_params(packed):
-    """The kernel's WideParams of `packed`."""
+def _wide_params(packed, reader=None):
+    """The kernel's WideParams of `packed`; a SlotReader `reader` (None:
+    the stratified sampler) fills the slot-to-row map."""
     w = _WideParams()
+    w.smooth = int(packed.smooth)
+    for k in range(SLOT_MAX):
+        w.slot_row[k] = -1
+    if reader is not None:
+        for slot, row in reader.cols.items():
+            w.slot_row[slot] = row
     n_lights = len(packed.light_p)
     kinds = packed.light_kind or (LIGHT_POINT,) * n_lights
     for k in range(n_lights):
@@ -611,7 +736,8 @@ def _kernel_params(packed, cam, sampler, spec):
     if spec is not None:  # None: the caller sets what its kernel reads
         prm.max_depth = spec.max_depth
         prm.rr_threshold = spec.rr_threshold
-    if sampler is not None:  # None: the kernel reads no stratified sampler
+    # None or a HaltonSampler: the kernel reads no stratified sampler
+    if sampler is not None and not isinstance(sampler, HaltonSampler):
         prm.spp, prm.xs, prm.ys = sampler.spp, sampler.xs, sampler.ys
         prm.xs_shift = sampler.xs.bit_length() - 1
         prm.jitter = int(bool(sampler.jitter))
@@ -675,14 +801,14 @@ def load_library(name, prefix, extra_argtypes=()):
     return lib
 
 
-_WIDE_ARGS = (ctypes.c_void_p, ctypes.POINTER(_WideParams))
+_WIDE_ARGS = (ctypes.c_void_p, ctypes.POINTER(_WideParams), ctypes.c_void_p)
 
 
 def load_kernel():
     """The path kernel's library (built on first use): the camera entry
     `path_mega_cam_launch` and the rays-in entry `path_mega_rays_launch`,
-    both taking the sphere rows and WideParams after the common
-    arguments."""
+    both taking the sphere rows, WideParams and the Halton slot matrix
+    (null under the stratified sampler) after the common arguments."""
     lib = load_library("path_megakernel", "path_mega_cam", _WIDE_ARGS)
     if lib.path_mega_wide_params_size() != ctypes.sizeof(_WideParams):
         raise RuntimeError("path_megakernel WideParams differs from _WideParams")
@@ -730,16 +856,29 @@ def li_path_mega_cam(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spe
     return prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)()
 
 
+def slot_reader(packed, spec, sampler, pixel_id, s_idx, with_cam):
+    """The SlotReader of a HaltonSampler on this batch, or None for the
+    stratified sampler, whose hash the kernel evaluates itself."""
+    if not isinstance(sampler, HaltonSampler):
+        return None
+    sid = _sample_indices(s_idx, pixel_id.shape[0], pixel_id.device)
+    return SlotReader(sampler, packed, spec, pixel_id, sid, with_cam)
+
+
 def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
-    """Check the CUDA inputs, build the parameter block and the outputs,
-    and return launch(): one kernel launch on the current stream
-    returning (L, weight).  Relaunching rewrites the same outputs."""
+    """Check the CUDA inputs, build the parameter block, the outputs and,
+    under a HaltonSampler, the slot matrix, and return launch(): one
+    kernel launch on the current stream returning (L, weight).
+    Relaunching rewrites the same outputs."""
     prm = _kernel_params(packed, cam_packed, sampler, spec)
     dev = pixel_xy.device
-    wide = _wide_params(packed)
+    reader = slot_reader(packed, spec, sampler, pixel_id, s_idx, True)
+    wide = _wide_params(packed, reader)
     sph = _sphere_arg(packed, dev)
     return launcher(load_kernel(), "path_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm,
-                    LAUNCHES, extra=(sph, ctypes.byref(wide)), allow_empty=sph is not None)
+                    LAUNCHES, extra=(sph, ctypes.byref(wide), reader and reader.u),
+                    allow_empty=sph is not None,
+                    variant=kernel_name("", halton=reader is not None, smooth=packed.smooth))
 
 
 def li_path_mega(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
@@ -770,7 +909,9 @@ def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
     if pixel_id.shape != (n,) or pixel_id.is_floating_point() or pixel_id.device != dev:
         raise ValueError("pixel_id must be an integer (N,) tensor on o's device")
     prm = _kernel_params(packed, None, sampler, spec)
-    wide = _wide_params(packed)
+    reader = slot_reader(packed, spec, sampler, pixel_id, s_idx, False)
+    u = reader and reader.u
+    wide = _wide_params(packed, reader)
     sph = _sphere_arg(packed, dev)
     table, nodes_f, nodes_i = geometry_args(packed, dev, allow_empty=sph is not None)
     oc, dc = o.contiguous(), d.contiguous()
@@ -780,14 +921,14 @@ def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
     out_l = torch.empty((n, 3), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = load_kernel()
-    name = "path_mega" if nodes_f is None else "path_mega_bvh"
+    name = kernel_name("path_mega", nodes_f is not None, u is not None, packed.smooth)
     ptr = lambda t: None if t is None else t.data_ptr()
 
     def launch():
         err = lib.path_mega_rays_launch(
             ptr(table), table.shape[0], ptr(nodes_f), ptr(nodes_i), ctypes.byref(prm),
             oc.data_ptr(), dc.data_ptr(), wc.data_ptr(), pid32.data_ptr(), sid32.data_ptr(),
-            out_l.data_ptr(), n, stream, ptr(sph), ctypes.byref(wide),
+            out_l.data_ptr(), n, stream, ptr(sph), ctypes.byref(wide), ptr(u),
         )
         if err != 0:
             msg = lib.path_mega_cam_error_string(err).decode()
@@ -832,11 +973,12 @@ def geometry_args(packed, dev, allow_empty=False):
 
 
 def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extra=(),
-             allow_empty=False):
+             allow_empty=False, variant=""):
     """launch() for a camera-fused kernel of `lib` (see prepare_launch);
-    `extra`, arguments after the common ones, are kept alive with it.
-    Every accepted launch adds one to `launches[prefix]`, or to
-    `launches[prefix + "_bvh"]` for the BVH kernel."""
+    `extra`, arguments after the common ones, are kept alive with it
+    (None passes a null pointer).  Every accepted launch adds one to
+    `launches[prefix + variant]`, or to `launches[prefix + "_bvh" +
+    variant]` for the BVH kernel."""
     dev = pixel_xy.device
     if dev.type != "cuda":
         raise ValueError(f"the {prefix} kernel runs on cuda tensors, not {dev}")
@@ -858,7 +1000,7 @@ def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extr
     ni = None if nodes_i is None else nodes_i.data_ptr()
     extra_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra)
     table_ptr = table.data_ptr() if table.shape[0] else None
-    name = prefix if nodes_f is None else prefix + "_bvh"
+    name = prefix + ("" if nodes_f is None else "_bvh") + variant
 
     def launch():
         err = fn(
@@ -1058,23 +1200,27 @@ def tally(work, key, count):
         work[key] = work.get(key, 0) + count.sum()
 
 
+PLAIN_BLOCK = 1 << 22  # elements of the (rays, triangles) block a brute-force plain test takes
+
+
 class PlainGeometry:
     """The kernels' geometry (csrc/common.cuh, Geometry) on flat (N,)
     tensors.  Brute force: every triangle in table order, strict < (ties
-    keep the lower row).  BVH: the per-ray stack walk, the rays that still
-    walk compacted after every step; at an interior node both children's
-    boxes are slab-tested against the ray's best t and only hit children
-    are pushed, the near child (by the sign of the ray's direction on the
-    split axis) last; a leaf tests its triangles in table order with
-    strict <.  `work`, when given, counts the Moller-Trumbore ("mt") and
-    slab ("slab") tests of the live rays, as the kernel performs them."""
+    keep the lower row), a block of triangles tested at a time.  BVH: the
+    per-ray stack walk, the rays that still walk compacted after every
+    step; at an interior node both children's boxes are slab-tested
+    against the ray's best t and only hit children are pushed, the near
+    child (by the sign of the ray's direction on the split axis) last; a
+    leaf tests its triangles in table order with strict <.  `work`, when
+    given, counts the Moller-Trumbore ("mt") and slab ("slab") tests of
+    the live rays, as the kernel performs them."""
 
     def __init__(self, packed, device, work=None):
         self.table = packed.table.to(device)
         self.work = work
         self.bvh = packed.bvh
         if self.bvh is None:
-            self.rows = self.table[:, :9].tolist()
+            self.cols = self.table[:, :9].T.contiguous()  # (9, T): p0, e1, e2
         else:
             self.geo = self.table[:, :9].contiguous()
             self.nodes_f = self.bvh.nodes_f.to(device)
@@ -1087,13 +1233,24 @@ class PlainGeometry:
             return self.walk(ox, oy, oz, dx, dy, dz, torch.full_like(ox, BIG_T), live, False)
         t_best = torch.full_like(ox, BIG_T)
         best = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
-        for j, g in enumerate(self.rows):
-            hit, t = _mt(g, ox, oy, oz, dx, dy, dz)
-            upd = live & hit & (t < t_best)
-            t_best = torch.where(upd, t, t_best)
-            best = torch.where(upd, j, best)
-        tally(self.work, "mt", live * len(self.rows))
+        for j, g, ray in self._blocks(ox, oy, oz, dx, dy, dz):
+            hit, t = _mt(g, *ray)
+            # min takes the first of equal t: ties keep the lower row
+            t_c, j_c = torch.where(live[:, None] & hit, t, BIG_T).min(1)
+            upd = t_c < t_best
+            t_best = torch.where(upd, t_c, t_best)
+            best = torch.where(upd, j + j_c, best)
+        tally(self.work, "mt", live * self.cols.shape[1])
         return t_best, best
+
+    def _blocks(self, *ray):
+        """(first row, its block's 9 geometry columns, the ray as (N, 1)
+        columns) of each block of triangles, PLAIN_BLOCK tests at most."""
+        n, n_tris = ray[0].shape[0], self.cols.shape[1]
+        c = max(1, min(n_tris, PLAIN_BLOCK // max(n, 1)))
+        ray = [r[:, None] for r in ray]
+        for j in range(0, n_tris, c):
+            yield j, self.cols[:, j:j + c], ray
 
     def occluded(self, ox, oy, oz, dx, dy, dz, t_max, live):
         """Any hit with t in [TRI_EPS, t_max) along the caller's
@@ -1104,10 +1261,15 @@ class PlainGeometry:
             return row >= 0
         occ = torch.zeros_like(ox, dtype=torch.bool)
         tests = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
-        for g in self.rows:
-            tests = tests + (live & ~occ)  # the kernel stops at the first hit
-            hit, t = _mt(g, ox, oy, oz, dx, dy, dz)
-            occ = occ | (live & hit & (t < t_max))
+        t_max = t_max[:, None] if torch.is_tensor(t_max) and t_max.dim() else t_max
+        for _, g, ray in self._blocks(ox, oy, oz, dx, dy, dz):
+            hit, t = _mt(g, *ray)
+            block = hit & (t < t_max)
+            found = block.any(1)
+            # the kernel stops at the first hit: it tests the block up to it
+            n_tested = torch.where(found, block.int().argmax(1) + 1, g.shape[1])
+            tests = tests + torch.where(live & ~occ, n_tested, 0)
+            occ = occ | (live & found)
         tally(self.work, "mt", tests)
         return occ
 
@@ -1185,15 +1347,18 @@ def li_path_mega_cam_reference(
     """Plain PyTorch version of `li_path_mega_cam` (same arguments and
     return), on any device.  `work`, a dict, gets the counts of the
     triangle, box and sphere tests ("mt", "slab", "sph") and lobe
-    evaluations ("lobe") that the kernel performs on these inputs (0-d
+    evaluations ("lobe") that the kernel performs on these inputs, and
+    under a HaltonSampler the slot values it reads ("slot") (0-d
     tensors)."""
     dev = pixel_xy.device
     n = pixel_xy.shape[0]
     pid = pixel_id.to(torch.int64)
     sid = _sample_indices(s_idx, n, dev)
+    sampler = slot_reader(packed, spec, sampler, pid, sid, True) or sampler
     ox, oy, oz, dx, dy, dz, weight = _raygen(
         pixel_xy[:, 0], pixel_xy[:, 1], pid, sid, sampler, cam_packed
     )
+    tally_slots(work, sampler, torch.full_like(weight, 4.0))  # film and lens
     L = bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, weight > 0.0, pid, sid, sampler,
                               spec, work)
     return L, weight
@@ -1204,6 +1369,7 @@ def li_path_mega_reference(packed, o, d, weight, pixel_id, s_idx, sampler, spec,
     n = o.shape[0]
     pid = pixel_id.to(torch.int64)
     sid = _sample_indices(s_idx, n, o.device)
+    sampler = slot_reader(packed, spec, sampler, pid, sid, False) or sampler
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
     return bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, weight > 0.0, pid, sid,
@@ -1414,10 +1580,44 @@ def _nee_light(packed, li, px, py, pz, u0, u1):
     return wi, le, pdf, pl, is_point, sel_env
 
 
+def smooth_normal(row, ox, oy, oz, dx, dy, dz, ngx, ngy, ngz):
+    """The shading normal of a smooth mesh at the rows' hits: the winner's
+    barycentrics rebuilt from its intersect columns with
+    surface_interaction's guards, its raw vertex normals (cols NRM_COL:
+    NRM_COL + 9) interpolated and normalised, ng where they sum to zero
+    (the JAX kernel's smooth branch)."""
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = row[:, 0:9].unbind(-1)
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv = 1.0 / torch.where(torch.abs(det) < TRI_EPS, 1.0, det)
+    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+    b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    b2 = (dx * qvx + dy * qvy + dz * qvz) * inv
+    b0 = 1.0 - b1 - b2
+    n = row[:, NRM_COL:NRM_COL + 9]
+    nx = b0 * n[:, 0] + b1 * n[:, 3] + b2 * n[:, 6]
+    ny = b0 * n[:, 1] + b1 * n[:, 4] + b2 * n[:, 7]
+    nz = b0 * n[:, 2] + b1 * n[:, 5] + b2 * n[:, 8]
+    len2 = nx * nx + ny * ny + nz * nz
+    has_vn = len2 > 0.0
+    inv_l = _rsqrt(torch.clamp(len2, min=1e-30))
+    return (torch.where(has_vn, nx * inv_l, ngx), torch.where(has_vn, ny * inv_l, ngy),
+            torch.where(has_vn, nz * inv_l, ngz))
+
+
 def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, sampler, spec,
                           work=None):
     """The kernel's bounce loop (_bounce_loop) on flat (N,) rays: returns
-    L (N, 3).  `active` (N,) bool marks the rays to trace."""
+    L (N, 3).  `active` (N,) bool marks the rays to trace.  With
+    `packed.smooth` the shading normal ns is interpolated (smooth_normal;
+    a sphere keeps ns = ng), ng is faced onto it, and the reflect and
+    transmit tests, the offsets and the etaScale entering test read ng's
+    side; flat, ns is ng."""
     dev = ox.device
     geom = PlainGeometry(packed, dev, work)
     spheres = None if packed.sph_table is None else PlainSpheres(packed.sph_table, dev, work)
@@ -1430,6 +1630,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
     has_env = packed.env is not None
     esc = packed.esc_rgb
     has_spec = any(k in SPEC_KINDS for k in packed.kinds_present)
+    smooth = packed.smooth
     light_p = torch.tensor(packed.light_p, dtype=DTYPE, device=dev).reshape(-1, 3)
     light_emit = torch.tensor(packed.light_emit, dtype=DTYPE, device=dev).reshape(-1, 3)
     packed = packed._replace(light_kind=kinds)
@@ -1455,6 +1656,8 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
             row = torch.zeros((ox.shape[0], TABLE_COLS), dtype=DTYPE, device=dev)
         ngx, ngy, ngz = row[:, 9], row[:, 10], row[:, 11]
         dux, duy, duz = row[:, 12], row[:, 13], row[:, 14]
+        if smooth:
+            nsx, nsy, nsz = smooth_normal(row, ox, oy, oz, dx, dy, dz, ngx, ngy, ngz)
         if spheres is not None:
             # spheres min-combined with the triangle winner
             t_s, s_best, po = spheres.closest(ox, oy, oz, dx, dy, dz, active)
@@ -1465,10 +1668,18 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
             row = torch.where(use_s[:, None], s_row, row)
             ngx, ngy, ngz = (torch.where(use_s, a, b) for a, b in zip((sgx, sgy, sgz), (ngx, ngy, ngz)))
             dux, duy, duz = (torch.where(use_s, a, b) for a, b in zip((sdx_, sdy_, sdz_), (dux, duy, duz)))
+            if smooth:  # spheres shade ns = ng
+                nsx, nsy, nsz = (torch.where(use_s, a, b)
+                                 for a, b in zip((sgx, sgy, sgz), (nsx, nsy, nsz)))
             found = t < BIG_T
         n_lob = row[:, 15].to(torch.int64)
         mat_eta = row[:, 31]
-        nsx, nsy, nsz = ngx, ngy, ngz  # flat shading
+        if smooth:
+            # ng faced onto ns (surface_interaction's faceforward(ng, ns))
+            sgn = torch.where(ngx * nsx + ngy * nsy + ngz * nsz < 0.0, -1.0, 1.0)
+            ngx, ngy, ngz = ngx * sgn, ngy * sgn, ngz * sgn
+        else:
+            nsx, nsy, nsz = ngx, ngy, ngz  # flat shading
 
         # escaped rays collect the infinite_lights radiance at bounce 0 or
         # after a specular bounce (path.rs:84-87)
@@ -1493,7 +1704,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
         wol_x = _dot3(wox, woy, woz, ssx, ssy, ssz)
         wol_y = _dot3(wox, woy, woz, tsx, tsy, tsz)
         wo_z = _dot3(wox, woy, woz, nsx, nsy, nsz)
-        wo_ng = wo_z
+        wo_ng = _dot3(wox, woy, woz, ngx, ngy, ngz) if smooth else wo_z
 
         dim0 = path_dim0(bounce)
         mag = torch.abs(px) + torch.abs(py) + torch.abs(pz)
@@ -1503,6 +1714,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
         if all_point:
             # ---- NEE, point lights only: no light sample, no MIS ----
             u_pick = sampler.get_1d(pid, sid, dim0 + PATH_NEE)
+            tally_slots(work, sampler, active)
             li = torch.clamp((u_pick * n_lights).to(torch.int64), max=n_lights - 1)
             lp = light_p[li]
             le = light_emit[li]
@@ -1513,7 +1725,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
             wil_x = _dot3(wix, wiy, wiz, ssx, ssy, ssz)
             wil_y = _dot3(wix, wiy, wiz, tsx, tsy, tsz)
             wil_z = _dot3(wix, wiy, wiz, nsx, nsy, nsz)
-            wi_ng = wil_z
+            wi_ng = _dot3(wix, wiy, wiz, ngx, ngy, ngz) if smooth else wil_z
             f_gate = ((wi_ng * wo_ng) > 0.0) & (wo_z != 0.0)
             fn = [torch.zeros_like(px)] * 3
             for l in range(max_lobes):
@@ -1538,12 +1750,13 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
             u_pick = sampler.get_1d(pid, sid, dim0 + PATH_NEE)
             li = torch.clamp((u_pick * n_lights).to(torch.int64), max=n_lights - 1)
             ul = sampler.get_2d(pid, sid, dim0 + PATH_NEE + 1)
+            tally_slots(work, sampler, 3 * active)
             (wix, wiy, wiz), (lr_, lg_, lb_), ls_pdf, (plx, ply, plz), delta, sel_env = _nee_light(
                 packed, li, px, py, pz, ul[:, 0], ul[:, 1])
             wil_x = _dot3(wix, wiy, wiz, ssx, ssy, ssz)
             wil_y = _dot3(wix, wiy, wiz, tsx, tsy, tsz)
             wil_z = _dot3(wix, wiy, wiz, nsx, nsy, nsz)
-            wi_ng = wil_z
+            wi_ng = _dot3(wix, wiy, wiz, ngx, ngy, ngz) if smooth else wil_z
             f_gate = ((wi_ng * wo_ng) > 0.0) & (wo_z != 0.0)
             fn = [torch.zeros_like(px)] * 3
             pdf_scat = torch.zeros_like(px)
@@ -1579,6 +1792,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
                 # the BSDF sample of MIS: only an escaped ray toward the
                 # sampled environment contributes (no emissive primitives)
                 us = sampler.get_2d(pid, sid, dim0 + PATH_NEE + 2)
+                tally_slots(work, sampler, 2 * (active & sel_env & (n_lob > 0) & (wo_z != 0.0)))
                 w2sx, w2sy, w2sz, f2s, pdf2, _ = _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z,
                                                                us[:, 0], us[:, 1])
                 tally(work, "lobe", active & sel_env)
@@ -1603,6 +1817,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
 
         # ---- BSDF sample ----
         ub = sampler.get_2d(pid, sid, dim0 + PATH_BSDF)
+        tally_slots(work, sampler, 2 * active)
         wsx, wsy, wsz, fs, pdf, transmitted = _bsdf_sample(
             row, n_lob, wol_x, wol_y, wo_z, ub[:, 0], ub[:, 1]
         )
@@ -1641,6 +1856,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
             do_rr = active & (beta_max < spec.rr_threshold)
             q = torch.clamp(1.0 - beta_max, min=0.05)
             u_rr = sampler.get_1d(pid, sid, dim0 + PATH_RR)
+            tally_slots(work, sampler, do_rr)
             killed = do_rr & (u_rr < q)
             active = active & ~killed
             surv = do_rr & ~killed

@@ -4,9 +4,11 @@
 and renders.  SPPM runs its iterations (integrators/sppm.render_sppm:
 per iteration one launch each of the camera, photon and deposit kernels
 of ops/sppm_megakernel.py) on the Halton sampler it builds itself.  Every
-other integrator renders in sample passes of k_spp = min(16, spp) samples: every
-pixel's k samples form one sample-outer batch that a single fused call
-traces, and the film adds the batch with the aligned reshape-add.  The
+other integrator renders, under the scene's stratified sampler or (Path
+and AO) its HaltonSampler, in sample passes of k_spp samples, the largest
+divisor of spp up to 16: every pixel's k samples form one sample-outer
+batch that a single fused call traces, and the film adds the batch with
+the aligned reshape-add.  The
 integrator picks the call: Path goes to the path kernel
 (`li_path_mega_cam`), Debug and DirectLighting to the direct kernel
 (`li_levels_mega_cam`), Volpath to the Volpath kernel
@@ -137,17 +139,30 @@ FUSED = {
 
 def make_sampler(job, seed=0):
     """The render's sampler: for SPPM a Halton sampler of n_iters samples
-    at the pixel centres (sppm.rs:130, render.py:43-48), else the scene's
-    stratified one; the other kernels take no HaltonSampler and raise
+    at the pixel centres (sppm.rs:130, render.py:43-48), else the scene's:
+    its StratifiedSampler, or its HaltonSampler under Path and AO; Debug,
+    DirectLighting and Volpath take no HaltonSampler and raise
     NotImplementedError naming it."""
     film = job.film
-    if job.integrator.kind == "sppm":
+    kind = job.integrator.kind
+    if kind == "sppm":
         spec = SamplerSpec("halton", nsamp=job.integrator.n_iters, sample_at_center=True)
         return HaltonSampler(spec, film.xres, film.yres, seed=seed)
     if job.sampler.kind == "halton":
-        raise NotImplementedError(f"HaltonSampler under the {job.integrator.kind} integrator "
-                                  "(only SPPM renders with it)")
+        if kind not in ("path", "ao"):
+            raise NotImplementedError(f"HaltonSampler under the {kind} integrator "
+                                      "(Path, AO and SPPM render with it)")
+        return HaltonSampler(job.sampler, film.xres, film.yres, seed=seed)
     return StratifiedSampler(job.sampler, seed=seed)
+
+
+def pass_spp(spp):
+    """Samples per pixel of one pass: the largest divisor of spp up to 16
+    (render.py:299-300), so that the passes cover every sample once."""
+    k = min(16, spp)
+    while spp % k:
+        k -= 1
+    return k
 
 
 # select_kernel's answer for the wavefront loop
@@ -163,7 +178,8 @@ def wavefront_unsupported(job, sampler):
     scene = job.scene
     if scene.mediums:
         return "participating media (Camera.medium) outside Volpath"
-    if not (pmk._pow2(sampler.spp) and pmk._pow2(sampler.xs) and pmk._pow2(sampler.ys)):
+    if isinstance(sampler, StratifiedSampler) and not (
+            pmk._pow2(sampler.spp) and pmk._pow2(sampler.xs) and pmk._pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     if scene.triangles.count > bk.BVH_PRIM_MAX:
         return f"{scene.triangles.count} triangles (the BVH kernels take up to {bk.BVH_PRIM_MAX})"
@@ -218,6 +234,8 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0, wr
         sampler.xs = side
         sampler.ys = max(1, spp_override // side)
         sampler.spp = spp = sampler.xs * sampler.ys
+    elif spp_override is not None:
+        sampler.spp = spp = spp_override  # a Halton sampler takes any count
     fused, mod, pack, li_pass = select_kernel(job, sampler)
     if fused == "wavefront":
         return render_wavefront_job(job, device, sampler, spp, pupil_samples)
@@ -227,7 +245,7 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0, wr
     if device.type == "cuda":
         mod.load_kernel()  # build outside the timed region
 
-    k_spp = min(16, spp)  # divides spp: both kernel subsets need a power of two
+    k_spp = pass_spp(spp)
     pixel_xy, pixel_id, sample_offset = sample_batch(film_spec, k_spp, device)
 
     film = fmod.make_film(film_spec, device)
@@ -290,7 +308,7 @@ def render_wavefront_job(job, device, sampler, spp, pupil_samples=1 << 20):
         (ik if ctx.bvh is None else bk).load_kernel()  # build outside the timed region
     li = li_ao if job.integrator.kind == "ao" else wpath.li_path
 
-    k_spp = min(16, spp)
+    k_spp = pass_spp(spp)
     pixel_xy, pixel_id, sample_offset = sample_batch(film_spec, k_spp, device)
     film = fmod.make_film(film_spec, device)
     launches0 = wavefront_launches()

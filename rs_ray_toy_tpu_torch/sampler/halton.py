@@ -10,7 +10,9 @@ with the global digit permutations (core/lowdiscrepancy).
 
 Slot rule (sampler/dims.py rule 3): slot d owns dimensions (2d, 2d+1);
 get_1d reads 2d, get_2d both.  Dimensions past the 1024 primes fall back
-to the counter-based hash, as in the JAX package.  The JAX package's
+to the counter-based hash, as in the JAX package; so does a slot the
+JAX package reads as a traced value (`traced_2d`: AO's probes, drawn
+inside a fori_loop).  The JAX package's
 `payload_grid` (a gather-free broadcast of the slot values for the TPU)
 is not ported: `slot_matrix` evaluates every slot of a batch in one
 batched radical inverse.
@@ -129,6 +131,14 @@ class HaltonSampler:
         """(N, 2): slot `dim` -> Halton dimensions (2 dim, 2 dim + 1), so
         that slots 0 (film) and 1 (lens) are the reference's dims 0-3."""
         return self.dims_values(pixel_id, sample_index, [2 * dim, 2 * dim + 1]).T
+
+    def traced_2d(self, pixel_id, sample_index, dim):
+        """(N, 2): what the JAX package's get_2d returns for a slot that is
+        a traced value rather than a python int: the counter-based hash
+        at (dim, dim + 7919), not the Halton dimensions."""
+        u0 = rng.uniform_float(pixel_id, sample_index, dim, self.seed)
+        u1 = rng.uniform_float(pixel_id, sample_index, dim + 7919, self.seed)
+        return torch.stack([u0, u1], -1)
 
     def slot_matrix(self, pixel_id, sample_index, slots):
         """(NC, N) float32 matrix of the values of `slots`, (slot, 1 or 2)

@@ -13,6 +13,11 @@ row (bench.py:103-111, 138-143); `write_grid_fog_scene` gives the fixture
 an n^3 GridDensity camera medium, the bench's `grid_fog` row.
 `write_wavefront_scene` gives a base scene what only the wavefront Path
 loop renders: a partial sphere, a distant light and a triangle-area light.
+`write_smooth_grid_scene` puts a grid of n smooth-shaded UV spheres
+(samples/sphere_smooth.obj, 960 triangles each) behind the fixture's
+cubes: n = 20 (19,236 triangles) renders Path through the path kernel's
+BVH instances, n = 80 (76,836) past its 65,536 triangles through the
+wavefront loop and the shaded BVH kernel's smooth instance.
 """
 
 import json
@@ -22,7 +27,9 @@ from pathlib import Path
 
 import numpy as np
 
-FIXTURE = str(Path(__file__).resolve().parents[2] / "samples" / "scene.json")
+SAMPLES = Path(__file__).resolve().parents[2] / "samples"
+FIXTURE = str(SAMPLES / "scene.json")
+SMOOTH_SPHERE = "sphere_smooth.obj"  # a 960-triangle UV sphere with vertex normals
 SPAN_Y, SPAN_Z = 6.0, 4.0  # extent of the grid, world units
 # the JAX bench's fog rows: the reference's default coefficients (sigma_t
 # about 2.6-3.8 per unit, a wall of fog over the 35-unit scene)
@@ -38,11 +45,14 @@ FOG_AREA_LIGHT = {
 
 
 def _write(cfg, base, out_dir, name):
-    """cfg as out_dir/name, with the base scene's cube.obj beside it."""
+    """cfg as out_dir/name, with the base scene's cube.obj (and the fixture's
+    smooth sphere, when cfg names it) beside it."""
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(os.path.dirname(base), "cube.obj")
     if os.path.exists(src):
         shutil.copy(src, out_dir)
+    if any(o.get("filename") == SMOOTH_SPHERE for o in cfg.get("objs", [])):
+        shutil.copy(SAMPLES / SMOOTH_SPHERE, out_dir)
     path = os.path.join(out_dir, name)
     with open(path, "w") as fh:
         json.dump(cfg, fh)
@@ -57,6 +67,16 @@ def _load(base, xres, yres):
     if yres:
         cfg["Film"]["yres"] = yres
     return cfg
+
+
+def write_variant(base, out_dir, xres=None, yres=None, sampler=None):
+    """Write the scene `base` under out_dir (its meshes beside it) at
+    xres x yres and, given `sampler`, with that Sampler block instead of
+    its own.  Returns the json path."""
+    cfg = _load(base, xres, yres)
+    if sampler:
+        cfg["Sampler"] = sampler
+    return _write(cfg, base, out_dir, os.path.basename(base))
 
 
 def write_grid_scene(
@@ -159,3 +179,29 @@ def write_wavefront_scene(out_dir, base=FIXTURE, xres=None, yres=None, matte=Fal
          "light_shape": {"shape_type": "triangle", "obj_name": "lamp", "tri_num": 8}},
     ]
     return _write(cfg, base, out_dir, "wavefront.json")
+
+
+def write_smooth_grid_scene(out_dir, n=20, xres=None, yres=None):
+    """Write smooth_grid.json (+ cube.obj, sphere_smooth.obj) under out_dir:
+    the fixture under Path with max_depth 5 and n instances of the smooth
+    UV sphere on a grid of columns x rows (about 3 : 2) in the plane
+    x = 38 behind the cubes, spanning y in [-8, 8] and z in [-5, 5],
+    radius 0.45 of the cell, alternately matte and plastic.  960 n
+    triangles of spheres.  Returns the json path."""
+    cfg = _load(FIXTURE, xres, yres)
+    cfg["Integrator"] = {"integrator_type": "Path", "max_depth": 5}
+    cfg["objs"].append({"obj_name": "sphere", "filename": SMOOTH_SPHERE})
+    cols = int(np.ceil(np.sqrt(1.5 * n)))
+    rows = int(np.ceil(n / cols))
+    sy, sz = 16.0 / cols, 10.0 / rows
+    r = 0.45 * min(sy, sz)
+    cells = [(-8.0 + (k % cols + 0.5) * sy, -5.0 + (k // cols + 0.5) * sz) for k in range(n)]
+    for parity, material in ((0, "mat_matte"), (1, "mat_plastic")):
+        insts = [{"world_pos": [38.0, y, z], "scale": [r, r, r]}
+                 for k, (y, z) in enumerate(cells) if k % 2 == parity]
+        if insts:
+            cfg["Aggregate"]["primitives"].append({
+                "primitive_type": "triangle", "obj_name": "sphere", "material_name": material,
+                "instances": insts,
+            })
+    return _write(cfg, FIXTURE, out_dir, "smooth_grid.json")

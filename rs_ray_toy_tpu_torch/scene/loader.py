@@ -428,24 +428,11 @@ def _pack_spheres(sphs) -> SphereSoA:
     )
 
 
-def _smooth_normals(tris, ng):
-    """Does any triangle carry vertex normals that differ in direction
-    from its face normal?  (ops/path_megakernel._mesh_smooth)"""
-    for t, g in zip(tris, ng.astype(np.float32)):
-        if t["n"] is None:
-            continue
-        v = t["n"].astype(np.float32)
-        nrm = np.linalg.norm(v, axis=-1, keepdims=True)
-        unit = v / np.maximum(nrm, 1e-20)
-        if np.any((nrm[..., 0] > 0) & (np.abs(unit - g).max(-1) > 1e-5)):
-            return True
-    return False
-
-
 def _pack_triangles(tris) -> TriangleSoA:
     if not tris:
         z3, z2 = np.zeros((0, 3), np.float32), np.zeros((0, 2), np.float32)
-        return TriangleSoA(z3, z3, z3, z3, z3, z3, z2, z2, z2, np.zeros(0, np.int32), z3, z3, z3)
+        return TriangleSoA(z3, z3, z3, z3, z3, z3, z2, z2, z2, np.zeros(0, np.int32), z3, z3, z3,
+                           np.zeros(0, bool))
     p = np.stack([t["p"] for t in tris])  # (T,3,3)
     default_uv = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]])
     uv = np.stack([t["uv"] if t["uv"] is not None else default_uv for t in tris])
@@ -454,8 +441,6 @@ def _pack_triangles(tris) -> TriangleSoA:
     dp12 = p[:, 1] - p[:, 2]
     ng = np.cross(dp02, dp12)
     ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-30)
-    if _smooth_normals(tris, ng):
-        raise NotImplementedError("smooth shading (vertex normals)")
     duv02 = uv[:, 0] - uv[:, 2]
     duv12 = uv[:, 1] - uv[:, 2]
     deter = duv02[:, 0] * duv12[:, 1] - duv02[:, 1] * duv12[:, 0]
@@ -488,6 +473,7 @@ def _pack_triangles(tris) -> TriangleSoA:
         ng=f32(ng),
         dpdu=f32(dpdu),
         dpdv=f32(dpdv),
+        has_n=np.array([t["n"] is not None for t in tris]),
     )
 
 

@@ -31,8 +31,8 @@ class TriangleSoA:
     p0: np.ndarray  # (T,3) float32 world-space vertices
     p1: np.ndarray
     p2: np.ndarray
-    # raw vertex normals, zeros where the mesh has none; flat meshes only
-    # (smooth shading is not ported), carried so the packed table matches
+    # raw vertex normals (world space, unnormalised), zeros where the mesh
+    # has none; shading interpolates them where has_n
     n0: np.ndarray  # (T,3) float32
     n1: np.ndarray
     n2: np.ndarray
@@ -44,6 +44,7 @@ class TriangleSoA:
     ng: np.ndarray  # (T,3) geometric normal
     dpdu: np.ndarray  # (T,3)
     dpdv: np.ndarray  # (T,3)
+    has_n: np.ndarray  # (T,) bool: the mesh gave vertex normals
 
     @property
     def count(self):

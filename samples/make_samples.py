@@ -1,7 +1,8 @@
 """Write the in-repo scene fixture: samples/scene.json, samples/scene_debug.json,
 samples/scene_fog.json, samples/scene_sppm.json, samples/scene_ao.json,
 samples/scene_sphere_area.json, samples/scene_env.json,
-samples/scene_furnace.json and samples/cube.obj.
+samples/scene_furnace.json, samples/scene_halton.json,
+samples/scene_smooth.json, samples/cube.obj and samples/sphere_smooth.obj.
 
 This fixture stands in for the reference renderer's `samples/scene.json`,
 which is not part of this repository.  It follows the reference's scene
@@ -43,6 +44,16 @@ front of this fixture's camera: one unit matte sphere (kd 0.5) at
 (35, 0, 0), where the cubes stand, under the same unit environment, no
 triangles.  A convex Lambertian body under
 constant light L reflects exactly kd * L, so it is an absolute check.
+
+scene_halton.json is the JAX bench's `halton` row (bench.py:144-148,
+230-231): scene.json under a HaltonSampler of 256 samples per pixel.
+
+scene_smooth.json is scene.json with two instances of sphere_smooth.obj,
+a UV sphere of 32 x 16 segments (960 triangles, unit radius) whose vertex
+normals are the vertex directions, so that Path shades it smooth: one
+matte of radius 1.2 at (34, 0.8, 0.5), one plastic of radius 0.8 at
+(36, -1.2, -1.5), 1,956 triangles in all (under the path kernel's
+brute-force limit of 2,048).
 
 The scene is synthetic.  In particular its `lens_data` is NOT the
 reference's lens prescription: it is the classic 50 mm f/2 double-Gauss
@@ -100,6 +111,38 @@ def cube_obj():
     for a, b, c, d in quads:
         lines.append(f"f {a + 1} {b + 1} {c + 1}")
         lines.append(f"f {a + 1} {c + 1} {d + 1}")
+    return "\n".join(lines) + "\n"
+
+
+def uv_sphere_obj(n_phi=32, n_theta=16):
+    """A unit UV sphere, n_phi segments around z and n_theta from pole to
+    pole, outward-wound, with one normal per vertex: its direction."""
+    verts = [(0.0, 0.0, 1.0)]
+    for i in range(1, n_theta):
+        theta = np.pi * i / n_theta
+        for j in range(n_phi):
+            phi = 2.0 * np.pi * j / n_phi
+            verts.append((np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)))
+    verts.append((0.0, 0.0, -1.0))
+    v = np.array([[float(f"{c:.6f}") for c in p] for p in verts])
+    ring = lambda i, j: 1 + (i - 1) * n_phi + j % n_phi  # 0-based vertex of ring i
+    south = len(verts) - 1
+    faces = []
+    for j in range(n_phi):
+        faces.append((0, ring(1, j), ring(1, j + 1)))
+        for i in range(1, n_theta - 1):
+            a, b = ring(i, j), ring(i, j + 1)
+            c, d = ring(i + 1, j + 1), ring(i + 1, j)
+            faces += [(a, d, c), (a, c, b)]
+        faces.append((south, ring(n_theta - 1, j + 1), ring(n_theta - 1, j)))
+    for f in faces:  # every face wound outward
+        p0, p1, p2 = v[list(f)]
+        assert np.dot(np.cross(p1 - p0, p2 - p0), p0 + p1 + p2) > 0
+    lines = [f"# unit UV sphere, {n_phi} x {n_theta} segments, {len(faces)} triangles, "
+             "vertex normals = vertex directions"]
+    lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in v]
+    lines += [f"vn {x:.6f} {y:.6f} {z:.6f}" for x, y, z in v]
+    lines += ["f " + " ".join(f"{k + 1}//{k + 1}" for k in f) for f in faces]
     return "\n".join(lines) + "\n"
 
 
@@ -263,9 +306,31 @@ def scene_furnace():
     return cfg
 
 
+def scene_halton():
+    cfg = scene()
+    cfg["Sampler"] = {"sampler_type": "HaltonSampler", "nsamp": 256}
+    return cfg
+
+
+def scene_smooth():
+    cfg = scene()
+    cfg["objs"].append({"obj_name": "sphere", "filename": "sphere_smooth.obj"})
+    for material, radius, pos in (("mat_matte", 1.2, [34.0, 0.8, 0.5]),
+                                  ("mat_plastic", 0.8, [36.0, -1.2, -1.5])):
+        cfg["Aggregate"]["primitives"].append({
+            "primitive_type": "triangle",
+            "obj_name": "sphere",
+            "material_name": material,
+            "instances": [{"world_pos": pos, "scale": [radius] * 3}],
+        })
+    return cfg
+
+
 def main(out_dir=HERE):
     with open(os.path.join(out_dir, "cube.obj"), "w") as fh:
         fh.write(cube_obj())
+    with open(os.path.join(out_dir, "sphere_smooth.obj"), "w") as fh:
+        fh.write(uv_sphere_obj())
     for name, cfg in (
         ("scene.json", scene()),
         ("scene_debug.json", scene_debug()),
@@ -275,6 +340,8 @@ def main(out_dir=HERE):
         ("scene_sphere_area.json", scene_sphere_area()),
         ("scene_env.json", scene_env()),
         ("scene_furnace.json", scene_furnace()),
+        ("scene_halton.json", scene_halton()),
+        ("scene_smooth.json", scene_smooth()),
     ):
         with open(os.path.join(out_dir, name), "w") as fh:
             json.dump(cfg, fh, indent=1)

@@ -10,6 +10,7 @@ Scenes: the in-repo fixture (36 triangles) and a 4x4 grid of cubes
 """
 
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -107,6 +108,35 @@ def test_walk_matches_brute_force(scene_path):
     dead = torch.zeros_like(live)
     assert bool((walk.closest(*o, *d, dead)[1] == -1).all())
     assert not bool(walk.occluded(*o, *seg, 1.0 - 1e-4, dead).any())
+
+
+@pytest.mark.parametrize("block", [1 << 22, 4096 * 7, 4096])
+def test_brute_force_blocks_equal_one_triangle_at_a_time(scene_path, monkeypatch, block):
+    """Brute force a block of triangles at a time finds what it finds one
+    triangle at a time (PLAIN_BLOCK under the ray count): t, triangle,
+    occlusion and the occlusion tests counted; the table is doubled, so
+    that every hit ties and keeps the lower row."""
+    job = load_scene(scene_path)
+    table = pmk.pack_scene(job.scene, "cpu", bvh=False).table
+    packed = SimpleNamespace(table=torch.cat([table, table]), bvh=None)
+    o, d, seg = _rays(4096, 11)
+    live = torch.rand(4096, generator=torch.Generator().manual_seed(0)) < 0.9
+
+    def run(plain_block):
+        monkeypatch.setattr(pmk, "PLAIN_BLOCK", plain_block)
+        work = {}
+        geom = pmk.PlainGeometry(packed, "cpu", work)
+        t, row = geom.closest(*o, *d, live)
+        work.clear()
+        occ = geom.occluded(*o, *seg, 1.0 - 1e-4, live)
+        return t, row, occ, int(work["mt"])
+
+    t1, row1, occ1, tests1 = run(1)
+    assert int((row1 >= 0).sum()) > 400 and bool((row1 < table.shape[0]).all())
+    assert 100 < int(occ1.sum()) < 4000
+    t, row, occ, tests = run(block)
+    assert torch.equal(t, t1) and torch.equal(row, row1)
+    assert torch.equal(occ, occ1) and tests == tests1
 
 
 def test_work_counts(scene_path):

@@ -1,7 +1,8 @@
 """On the card: the CUDA kernels (the path, direct and Volpath camera
 kernels and the SPPM camera and photon walks, brute force and BVH, the
-SPPM deposit, and the wavefront loop's intersection kernels K4 and K3)
-against their plain PyTorch versions.
+SPPM deposit, and the wavefront loop's intersection kernels K4 and K3;
+the path kernel's Halton and smooth instances and K3's smooth shaded
+instance) against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -34,8 +35,9 @@ from rs_ray_toy_tpu_torch.scene.gen import (
     write_fog_scene,
     write_grid_fog_scene,
     write_grid_scene,
+    write_variant,
 )
-from rs_ray_toy_tpu_torch.scene.loader import load_scene
+from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec, load_scene
 
 SAMPLES = Path(__file__).resolve().parents[1] / "samples"
 pytestmark = pytest.mark.cuda
@@ -411,7 +413,7 @@ def test_wavefront_bvh_kernels_match_plain_versions(tmp_path):
     t_s, idx_s, valid_s, at = bk.intersect_bvh_shaded(ctx.bvh, o, d, t_max)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in bk.LAUNCHES.items()} == {
-        "bvh_closest": 1, "bvh_any": 1, "bvh_shaded": 1}
+        "bvh_closest": 1, "bvh_any": 1, "bvh_shaded": 1, "bvh_shaded_smooth": 0}
     t_ref, idx_ref, valid_ref = bk.intersect_bvh_reference(ctx.bvh, o, d, t_max)
     assert int(valid_ref.sum()) > 5000 and not bool(valid_ref[t_max == 0].any())
     for tt, ii, vv in ((t, idx, valid), (t_s, idx_s, valid_s)):
@@ -428,7 +430,8 @@ def test_wavefront_renders_launch_the_intersection_kernels(tmp_path, monkeypatch
     ao = _job(tmp_path, scene="scene_ao.json")
     res = render_job(ao, dev, spp_override=4, pupil_samples=1 << 16)
     assert res["render_path"] == "wavefront" and not res["bvh"]
-    assert res["launches"] == {"intersect": 65, "bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0}
+    assert res["launches"] == {"intersect": 65, "bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0,
+                               "bvh_shaded_smooth": 0}
     assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
     monkeypatch.setattr(pmk, "BVH_TRI_MAX", 400)
     grid = load_scene(write_grid_scene(str(tmp_path / "grid"), ny=6, nz=6, xres=64, yres=36))
@@ -437,7 +440,7 @@ def test_wavefront_renders_launch_the_intersection_kernels(tmp_path, monkeypatch
     assert res["render_path"] == "wavefront" and res["bvh"] and dict(pmk.LAUNCHES) == before
     depth = grid.integrator.max_depth
     assert res["launches"] == {"intersect": 0, "bvh_closest": 0, "bvh_any": depth,
-                               "bvh_shaded": depth}
+                               "bvh_shaded": depth, "bvh_shaded_smooth": 0}
     assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
 
 
@@ -482,6 +485,36 @@ def test_wide_kernel_instances_match_plain_versions(tmp_path, scene, bvh):
     _wide_bar(l, pmk.li_path_mega_reference(*rays))
 
 
+def test_halton_kernel_marks_a_slot_the_host_did_not_list(monkeypatch):
+    """A drift of used_slots from the kernel's reads fails loudly: with the
+    bounce-0 BSDF slot left out of the slot matrix, every ray into the
+    white furnace's sphere reads NaN radiance, the escaped ones read 1,
+    and the plain version raises."""
+    from rs_ray_toy_tpu_torch.sampler.halton import HaltonSampler
+
+    dev = _device()
+    job = load_scene(str(SAMPLES / "scene_furnace.json"))
+    packed = pmk.pack_scene(job.scene, dev)
+    bsdf0 = 8 + 3  # sampler/dims.path_dim0(0) + PATH_BSDF
+    full = pmk.packed_slots
+    monkeypatch.setattr(pmk, "packed_slots",
+                        lambda *a: [s for s in full(*a) if s[0] != bsdf0])
+    n = 1 << 12
+    yz = (np.random.default_rng(5).random((n, 2)) - 0.5) * 1.2  # inside the radius of 1
+    o = torch.tensor(np.c_[np.full(n, 30.0), yz], dtype=torch.float32, device=dev)
+    d = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(n, 3).contiguous()
+    w = torch.ones(n, device=dev)
+    pid = torch.arange(n, device=dev)
+    sampler = HaltonSampler(SamplerSpec("halton", nsamp=1), 64, 64)
+    args = (packed, o, d, w, pid, 0, sampler, job.integrator)
+    assert torch.isnan(pmk.li_path_mega(*args)).all()
+    torch.testing.assert_close(pmk.li_path_mega(packed, o, -d, w, pid, 0, sampler,
+                                                job.integrator),
+                               torch.ones(n, 3, device=dev), rtol=0, atol=1e-6)
+    with pytest.raises(KeyError):
+        pmk.li_path_mega_reference(*args)
+
+
 def test_rays_in_kernel_white_furnace():
     """#3 on 2^18 parallel rays into samples/scene_furnace.json's sphere:
     the mean within 0.015 rho + 0.004 of rho = 0.5, escaped rays 1 within
@@ -507,3 +540,79 @@ def test_rays_in_kernel_white_furnace():
     sub = slice(0, 1 << 14)
     _wide_bar(l[sub], pmk.li_path_mega_reference(packed, o[sub], d[sub], w[sub], pid[sub],
                                                  sid[sub], sampler, job.integrator))
+
+
+def _fixture(tmp_path, scene, w=64, h=36, halton=False):
+    """A samples/ fixture at w x h in tmp_path (its meshes beside it),
+    under a 6-sample HaltonSampler with `halton`."""
+    sampler = {"sampler_type": "HaltonSampler", "nsamp": 6} if halton else None
+    return load_scene(write_variant(str(SAMPLES / scene), str(tmp_path), w, h, sampler))
+
+
+@pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
+@pytest.mark.parametrize("halton,smooth", [(True, False), (False, True), (True, True)],
+                         ids=["halton", "smooth", "halton-smooth"])
+def test_halton_and_smooth_path_instances_match_plain_versions(tmp_path, halton, smooth, bvh):
+    """The path kernel's Halton and smooth instances, camera (#1, #2) and
+    rays-in (#3, #4) on the same camera rays, against their plain versions
+    on the smooth fixture (or the sphere-area one, flat), 6 samples a
+    pixel."""
+    from rs_ray_toy_tpu_torch.render import camera_rays
+
+    dev = _device()
+    job = _fixture(tmp_path, "scene_smooth.json" if smooth else "scene_sphere_area.json",
+                   halton=halton)
+    camera = RealisticCamera(job.camera, job.film, pupil_samples=1 << 16, device=dev)
+    sampler = make_sampler(job)
+    pxy, pid, soff = sample_batch(job.film, 6 if halton else 16, dev)
+    packed = pmk.pack_scene(job.scene, dev, bvh=bvh)
+    assert packed.smooth == smooth
+    args = (packed, pmk.pack_camera(camera), pxy, pid, soff, sampler, job.integrator)
+    name = pmk.kernel_name("path_mega_cam", bvh, halton, smooth)
+    before = dict(pmk.LAUNCHES)
+    l, w = pmk.li_path_mega_cam(*args)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in pmk.LAUNCHES.items() if v != before[k]} == {name: 1}
+    l_ref, w_ref = pmk.li_path_mega_cam_reference(*args)
+    torch.testing.assert_close(w, w_ref, rtol=2e-5, atol=1e-7)
+    _wide_bar(l, l_ref)
+    o, d, wt = camera_rays(camera, sampler, pxy, pid, soff)
+    rays = (packed, o, d, wt, pid, soff, sampler, job.integrator)
+    name = pmk.kernel_name("path_mega", bvh, halton, smooth)
+    before = pmk.LAUNCHES[name]
+    l = pmk.li_path_mega(*rays)
+    torch.cuda.synchronize()
+    assert pmk.LAUNCHES[name] == before + 1
+    _wide_bar(l, pmk.li_path_mega_reference(*rays))
+
+
+def test_halton_render_launches_once_per_pass(tmp_path):
+    """A 24-sample Halton render of the fixture: two passes of 12, one
+    launch of the Halton camera instance each."""
+    dev = _device()
+    job = _fixture(tmp_path, "scene_halton.json")
+    res = render_job(job, dev, spp_override=24, pupil_samples=1 << 16)
+    assert res["fused_kernel"] == "path" and res["passes"] == 2 and res["launches"] == 2
+    assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
+
+
+def test_smooth_shaded_bvh_instance_matches_plain_version(tmp_path):
+    """K3-shaded's smooth instance on rays aimed at a grid of four smooth
+    spheres: hits equal, the 22 attribute rows within rtol 1e-5."""
+    from rs_ray_toy_tpu_torch.scene.gen import write_smooth_grid_scene
+
+    dev = _device()
+    job = load_scene(write_smooth_grid_scene(str(tmp_path), n=4, xres=64, yres=36))
+    ctx = SceneCtx.from_scene(job.scene, dev)
+    assert ctx.bvh is not None and ctx.bvh.smooth
+    o, d, t_max = _aimed_rays(1 << 15, 2, dev, x=(37.0, 39.0), y=(-7.0, 7.0), z=(-4.5, 4.5))
+    before = dict(bk.LAUNCHES)
+    t, idx, valid, at = bk.intersect_bvh_shaded(ctx.bvh, o, d, t_max)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in bk.LAUNCHES.items()} == {
+        "bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0, "bvh_shaded_smooth": 1}
+    t_ref, idx_ref, mat, al, a_ref = bk.intersect_bvh_shaded_reference(ctx.bvh, o, d, t_max)
+    assert int((idx_ref >= 0).sum()) > 2000
+    assert torch.equal(idx, idx_ref) and torch.equal(t, t_ref) and torch.equal(at["mat"], mat)
+    for k, key in ((4, "ns"), (7, "ng"), (10, "dpdu"), (16, "dndu"), (19, "dndv")):
+        torch.testing.assert_close(at[key], a_ref[k:k + 3].T, rtol=1e-5, atol=1e-6)

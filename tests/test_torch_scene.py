@@ -152,6 +152,17 @@ def _sphere_under(integrator):
     return edit
 
 
+def _halton_under(integrator):
+    """The fixture under a HaltonSampler and `integrator` (Path, AO and SPPM
+    render with it; the others raise)."""
+
+    def edit(cfg):
+        cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 3}
+        cfg["Sampler"] = {"sampler_type": "HaltonSampler"}
+
+    return edit
+
+
 def _sppm_area_light(cfg):
     cfg["Integrator"] = {"integrator_type": "SPPM", "max_depth": 3, "n_iters": 1}
     cfg["lights"].append(FOG_AREA_LIGHT)
@@ -169,7 +180,7 @@ UNSUPPORTED = {
     "lights other than up to 8 point lights": _sppm_area_light,
     "medium_interface": _volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "grid media with lights other than point lights": _volpath(GRID_MEDIUM, FOG_AREA_LIGHT),
-    "HaltonSampler": _set("Sampler", {"sampler_type": "HaltonSampler"}),
+    "HaltonSampler": _halton_under("Debug"),
     # AO renders through the wavefront loop, which takes no camera medium
     "AO integrator": _volpath(integrator="AO"),
     "material type DisneyMaterial": _set(

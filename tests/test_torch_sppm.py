@@ -337,7 +337,8 @@ UNSUPPORTED = {
     "lights other than up to 8 point lights": _add("lights", None, FOG_AREA_LIGHT),
     "participating media": _add("Camera", "medium", THIN_FOG),
     "max_depth 1 outside 2..15": _edit(max_depth=1),
-    "HaltonSampler": _edit(integrator_type="Path"),
+    # the scene's HaltonSampler under Debug (Path, AO and SPPM take it)
+    "HaltonSampler": _edit(integrator_type="Debug"),
 }
 
 
