@@ -129,6 +129,24 @@ Phase 9  the path kernel's Halton and smooth instances and K3-shaded's
          deploy_render and its rays-in twin on the pass's camera rays.
          Every instance is held to the per-ray bar against its plain
          version on a seeded subset of its batch.
+Phase 10 every untextured material of the scene schema: (a)
+         samples/scene_disney.json (the cubes in the plain Disney
+         material's five lobes, a sphere in the anisotropic three-lobe
+         one) at 640x360x16 through deploy_render, one launch of the
+         camera instance a pass, every Disney lobe live; (b) the rays-in
+         instance #3 on (a)'s camera rays, write_grid_scene's grid of
+         Disney cubes (19,224 triangles) at 640x360x8 through the BVH
+         instance #2, and #4 on its camera rays; (c) the Halton instance
+         on the Disney fixture at 640x360 x 6 Halton samples, and the
+         smooth instance on samples/scene_smooth.json in the Disney
+         materials at 640x360x16; each held to the per-ray bar against
+         its plain version on a seeded subset; (d)
+         samples/scene_materials.json (Oren-Nayar matte, Translucent, a
+         Mix of matte and metal, rough glass, a thin and a transmissive
+         Disney material) at 640x360x16 through deploy_render, announced
+         on stderr and rendered through the wavefront loop's K4 alone,
+         no path-kernel launch, and its li_path on the card against the
+         same on the CPU on 80x45x16 camera rays, held as 7d.
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
@@ -163,7 +181,11 @@ tests (27), sphere tests (30: the object-space quadratic and its roots;
 the ray's transform into the sphere is left out), lobe evaluations (3,
 lambert's; a floor) and the grid
 tracking steps' trilinear density taps (40: the point and its scaled
-coordinates, 12, and seven lerps of 4) that the plain version counts on
+coordinates, 12, and seven lerps of 4), and for the Disney lobes the
+operations of their f and pdf beyond those 3 ("disney_ops",
+ops/path_megakernel.DISNEY_OPS, counted from common.cuh: f / pdf 41 / 10
+diffuse, 50 / 10 retro, 47 / 10 sheen, 81 / 62 clearcoat with log10f as
+16, 201 / 100 microfacet with the Disney fresnel) that the plain version counts on
 the same inputs, scaled by the batch over the subset where it ran on a
 subset; the lens trace, the sampler hashes, the shading, the light
 sampling and the medium's closed forms are left out, so the bound is a
@@ -252,6 +274,8 @@ SCENE_ENV = ROOT / "samples" / "scene_env.json"
 SCENE_FURNACE = ROOT / "samples" / "scene_furnace.json"
 SCENE_HALTON = ROOT / "samples" / "scene_halton.json"
 SCENE_SMOOTH = ROOT / "samples" / "scene_smooth.json"
+SCENE_DISNEY = ROOT / "samples" / "scene_disney.json"
+SCENE_MATERIALS = ROOT / "samples" / "scene_materials.json"
 HALTON6 = {"sampler_type": "HaltonSampler", "nsamp": 6}
 OUT = ROOT / "build" / "chip_smoke"
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
@@ -300,7 +324,7 @@ for _base, _bvh, _line in (("path_mega_cam", False, 3814), ("path_mega_cam", Tru
 KERNELS["bvh_shaded_smooth"] = dict(source=BVH_SRC,
                                     replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:400")
 # FP32 operations per counted test, density tap or walked deposit pair
-FLOPS = {"mt": 45, "slab": 27, "sph": 30, "lobe": 3, "track": 40, "pair": 9}
+FLOPS = {"mt": 45, "slab": 27, "sph": 30, "lobe": 3, "track": 40, "pair": 9, "disney_ops": 1}
 # module: (kernel wrapper, plain version, packing)
 PASSES = {
     pmk: (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference, pmk.pack_scene),
@@ -546,11 +570,7 @@ def main():
     smk.load_kernel()
     ik.load_kernel()
     bk.load_kernel()
-    ptxas = {
-        name: [ln.strip() for ln in log.splitlines()
-               if "registers" in ln or "spill" in ln or "entry function" in ln]
-        for name, log in logs.items()
-    }
+    ptxas = {name: _build.ptxas_lines(log) for name, log in logs.items()}
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
                   build_s=build_s, ptxas=ptxas)
     print(f"phase 0: card [{card}] torch {torch.__version__} (CUDA {torch.version.cuda}) "
@@ -708,6 +728,9 @@ def main():
 
     # ---- phase 9: the Halton sampler and smooth normals ----
     halton_smooth_phase(record, kernels, card, dev)
+
+    # ---- phase 10: every untextured material: Disney through the path kernel ----
+    materials_phase(record, kernels, card, dev)
 
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
@@ -1762,6 +1785,109 @@ def halton_smooth_phase(record, kernels, card, dev):
         record[f"phase{step}_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0,
                                            **held)
         print(rays_line(f"phase {step}: rays-in on its camera rays", name, held, t0, card))
+
+
+# ---- phase 10: Disney through the path kernel, the rest through the wavefront loop ----
+
+
+def disney_smooth(out_dir):
+    """samples/scene_smooth.json with every primitive in the plain Disney
+    material of samples/scene_disney.json (its cubes) or its anisotropic
+    one (the two smooth spheres)."""
+    cfg = json.loads(SCENE_SMOOTH.read_text())
+    cfg["materials"] += json.loads(SCENE_DISNEY.read_text())["materials"][-2:]
+    for prim in cfg["Aggregate"]["primitives"]:
+        prim["material_name"] = "mat_disney_aniso" if prim["obj_name"] == "sphere" else "mat_disney"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for mesh in ("cube.obj", "sphere_smooth.obj"):
+        (out_dir / mesh).write_bytes((ROOT / "samples" / mesh).read_bytes())
+    path = out_dir / "scene_disney_smooth.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def materials_phase(record, kernels, card, dev):
+    """Phase 10 (see the module docstring)."""
+    # (a) the Disney fixture through the camera instance, one launch a pass
+    job = camera_step(record, kernels, card, dev, "10a", "disney", SCENE_DISNEY,
+                      "path_mega_cam", 4)
+    check(set(pmk.DISNEY_KINDS) <= set(pmk.pack_scene(job.scene, dev).kinds_present),
+          "10a: not every Disney lobe live")
+    # (b) #3 on (a)'s camera rays; the grid of Disney cubes over the BVH (#2)
+    # and #4 on its camera rays
+    t0 = time.perf_counter()
+    name, launches, held = drive_rays(job, 4, dev)
+    wide_entry(kernels, name, "disney", held)
+    record["phase10b_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0, **held)
+    print(rays_line("phase 10b: rays-in #3 on the Disney fixture's camera rays", name, held, t0,
+                    card))
+    grid = write_grid_scene(str(OUT / "grid_disney"), base=str(SCENE_DISNEY))
+    job = camera_step(record, kernels, card, dev, "10b", "grid_disney", grid, "path_mega_cam_bvh",
+                      8, spp=8)
+    t0 = time.perf_counter()
+    name, launches, held = drive_rays(job, 16, dev)
+    wide_entry(kernels, name, "grid_disney", held)
+    record["phase10b_grid_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0,
+                                        **held)
+    print(rays_line("phase 10b: rays-in #4 on the Disney grid's camera rays", name, held, t0, card))
+    # (c) the Halton and smooth instances on Disney rays
+    camera_step(record, kernels, card, dev, "10c1", "disney_halton6",
+                halton6(SCENE_DISNEY, OUT / "disney_halton6"), "path_mega_cam_halton", 4,
+                warm_n=0)
+    camera_step(record, kernels, card, dev, "10c2", "disney_smooth",
+                disney_smooth(OUT / "disney_smooth"), "path_mega_cam_smooth", 64, warm_n=0)
+
+    # (d) the materials only the wavefront loop takes, through it
+    t0 = time.perf_counter()
+    zero_counts()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        res = deploy_render(str(SCENE_MATERIALS), str(OUT / "chip_smoke_materials.png"))
+    counts = all_counts()
+    rgb = res["rgb_srgb_input"]
+    colored = int((rgb.sum(-1) > 0).sum())
+    check(res["render_path"] == "wavefront" and "wavefront loop" in err.getvalue(),
+          "10d: not announced on the wavefront loop")
+    check(bool(torch.isfinite(rgb).all()) and colored > 0, "10d: image")
+    check(counts["intersect"] > 0 and sum(counts.values()) == counts["intersect"],
+          f"10d launches {counts}")
+    # its li_path on the card (K4) against the same on the CPU (K4's plain
+    # version) on the same camera rays, at 80x45x16: the bar of 7d
+    job = load_scene(str(SCENE_MATERIALS))
+    job.film.xres, job.film.yres = 80, 45
+    sampler = StratifiedSampler(job.sampler)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    zero_counts()
+    l_card = li_path(SceneCtx.from_scene(job.scene, dev), o, d, w, sampler, pid, soff,
+                     job.integrator)
+    torch.cuda.synchronize()
+    check(all_counts()["intersect"] > 0, "10d: the card's li_path launched no K4")
+    cpu = torch.device("cpu")
+    t_cpu = time.perf_counter()
+    l_cpu = li_path(SceneCtx.from_scene(job.scene, cpu), o.cpu(), d.cpu(), w.cpu(), sampler,
+                    pid.cpu(), soff.cpu(), job.integrator)
+    cpu_s = time.perf_counter() - t_cpu
+    l_card, l_cpu = l_card.cpu().double(), l_cpu.double()
+    rel = (l_card - l_cpu).abs() / l_cpu.abs().clamp(min=1e-3)
+    bar = dict(rays=int(l_cpu.shape[0]), lit=int((l_cpu.amax(-1) > 0).sum()),
+               diverged=float((rel.amax(-1) > 1e-3).double().mean()),
+               q99=float(torch.quantile(rel.flatten(), 0.99)), mean=float(l_card.mean()),
+               mean_ref=float(l_cpu.mean()), cpu_s=cpu_s)
+    check(bar["lit"] >= 1000, f"10d: {bar['lit']} lit rays")
+    check(bar["diverged"] < 5e-3, f"10d: {bar['diverged']:.2%} of rays diverged")
+    check(abs(bar["mean"] - bar["mean_ref"]) < 1e-6 + 3e-3 * abs(bar["mean_ref"]),
+          f"10d: means {bar['mean']:.6g} vs {bar['mean_ref']:.6g}")
+    record["phase10d"] = dict(launches=counts, colored=colored, camera_rays=res["camera_rays"],
+                              render_mrays_per_s=res["mrays_per_s"],
+                              phase_s=time.perf_counter() - t0, **bar)
+    print(f"phase 10d: Path, samples/scene_materials.json 640x360x16 through the wavefront loop: "
+          f"{res['camera_rays']} rays, launches {launched(counts)}, {colored} coloured px, "
+          f"{res['mrays_per_s']:.2f} camera Mrays/s (first render); li_path on the card vs the "
+          f"CPU at 80x45x16: {bar['rays']} rays, {bar['lit']} lit, diverged "
+          f"{bar['diverged']:.2e}, q99 {bar['q99']:.2e}, mean {bar['mean']:.6g} vs "
+          f"{bar['mean_ref']:.6g} (CPU {cpu_s:.1f} s); {time.perf_counter() - t0:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

@@ -8,13 +8,20 @@ the eta pair.  The kernels' plain versions read the per-triangle table
 local-frame components), the wavefront loop a per-material row
 (integrators/common.SceneCtx.shade_params) through the Bsdf methods on
 (N, 3) world vectors: `bsdf_f_pdf` (Bsdf::f and Bsdf::pdf, fused as the
-JAX package fuses them for NEE), `bsdf_sample` and `num_components`.
+JAX package fuses them for NEE), `bsdf_sample` and `num_components`.  A
+wavefront row of S lobe slots carries, after the 16 * S lobe columns,
+four more per slot: the lobe's RGB scale (ScaledBxdf) and its
+microfacet distribution code.
 
-Only the lobes the port's loader emits are evaluated: lambert
-reflection, visible-normal Trowbridge-Reitz reflection, specular
-reflection and fresnel specular; the other kinds evaluate to zero.
-Flags follow reflection.rs: BxDF::match_flags and the geometric-normal
-reflect / transmit gate of Bsdf::f.
+The lobes the port's loader emits are evaluated: lambert reflection and
+transmission, Oren-Nayar, visible-normal Trowbridge-Reitz reflection and
+transmission (joint or Disney's separable Smith G), specular reflection,
+fresnel specular, and the Disney diffuse, fake subsurface, retro,
+sheen, clearcoat and microfacet lobes (disney.rs, with the reference's
+log10 in GTR1 and its clearcoat sample form); a kind the rows do not
+hold costs nothing (`_has`).  Flags follow reflection.rs:
+BxDF::match_flags and the geometric-normal reflect / transmit gate of
+Bsdf::f.
 """
 
 from typing import NamedTuple
@@ -25,11 +32,22 @@ from ..config import DTYPE, ONE_MINUS_EPSILON, PI
 from ..core.sampling import concentric_sample_disk
 from ..core.vec import dot, rsqrt
 from .lobes import (
+    DIST_DISNEY_SEPARABLE_G,
     FRESNEL_CONDUCTOR,
     FRESNEL_DIELECTRIC,
+    FRESNEL_DISNEY,
+    LOBE_DISNEY_CLEARCOAT,
+    LOBE_DISNEY_DIFFUSE,
+    LOBE_DISNEY_FAKE_SS,
+    LOBE_DISNEY_MICROFACET_REFL,
+    LOBE_DISNEY_RETRO,
+    LOBE_DISNEY_SHEEN,
     LOBE_FRESNEL_SPEC,
     LOBE_LAMBERT_REFL,
+    LOBE_LAMBERT_TRANS,
     LOBE_MF_REFL,
+    LOBE_MF_TRANS,
+    LOBE_OREN_NAYAR,
     LOBE_SPEC_REFL,
     LOBE_SPEC_TRANS,
 )
@@ -44,12 +62,24 @@ BXDF_ALL = BXDF_REFLECTION | BXDF_TRANSMISSION | BXDF_DIFFUSE | BXDF_GLOSSY | BX
 # flags of the ported lobe kinds, by kind code (0: no lobe)
 LOBE_FLAGS = {
     LOBE_LAMBERT_REFL: BXDF_DIFFUSE | BXDF_REFLECTION,
+    LOBE_OREN_NAYAR: BXDF_DIFFUSE | BXDF_REFLECTION,
+    LOBE_LAMBERT_TRANS: BXDF_DIFFUSE | BXDF_TRANSMISSION,
     LOBE_SPEC_REFL: BXDF_SPECULAR | BXDF_REFLECTION,
     LOBE_SPEC_TRANS: BXDF_SPECULAR | BXDF_TRANSMISSION,
     LOBE_FRESNEL_SPEC: BXDF_ALL,  # reflection.rs:801-803
     LOBE_MF_REFL: BXDF_GLOSSY | BXDF_REFLECTION,
+    LOBE_MF_TRANS: BXDF_GLOSSY | BXDF_TRANSMISSION,
+    LOBE_DISNEY_DIFFUSE: BXDF_DIFFUSE | BXDF_REFLECTION,
+    LOBE_DISNEY_FAKE_SS: BXDF_DIFFUSE | BXDF_REFLECTION,
+    LOBE_DISNEY_RETRO: BXDF_DIFFUSE | BXDF_REFLECTION,
+    LOBE_DISNEY_SHEEN: BXDF_DIFFUSE | BXDF_REFLECTION,
+    LOBE_DISNEY_CLEARCOAT: BXDF_GLOSSY | BXDF_REFLECTION,
+    LOBE_DISNEY_MICROFACET_REFL: BXDF_GLOSSY | BXDF_REFLECTION,
 }
-_FLAG_TABLE = [LOBE_FLAGS.get(k, 0) for k in range(16)]
+_FLAG_TABLE = [LOBE_FLAGS.get(k, 0) for k in range(32)]
+# the microfacet reflection kinds: Trowbridge-Reitz D, visible-normal sampled
+MF_KINDS = (LOBE_MF_REFL, LOBE_DISNEY_MICROFACET_REFL)
+EXTRA_COLS = 4  # a wavefront row's per-slot scale (3) and distribution code
 
 
 def shading_frame(nsx, nsy, nsz, dux, duy, duz):
@@ -71,9 +101,12 @@ def shading_frame(nsx, nsy, nsz, dux, duy, duz):
     return ssx, ssy, ssz, tsx, tsy, tsz
 
 
-def _lobe(row, base):
-    """Lobe columns starting at `base` of (N, >=base+15) rows."""
-    return dict(
+def _lobe(row, base, extra=None):
+    """Lobe columns starting at `base` of (N, >=base+15) rows; `extra`, the
+    column of a wavefront row's scale and distribution code for this slot
+    (the kernels' tables hold neither: scale 1, and the distribution the
+    kind implies)."""
+    lob = dict(
         kind=row[:, base].to(torch.int32),
         s0=(row[:, base + 1], row[:, base + 2], row[:, base + 3]),
         s1=(row[:, base + 4], row[:, base + 5], row[:, base + 6]),
@@ -84,6 +117,23 @@ def _lobe(row, base):
         eta_a=row[:, base + 13],
         eta_b=row[:, base + 14],
     )
+    if extra is not None:
+        lob["scale"] = (row[:, extra], row[:, extra + 1], row[:, extra + 2])
+        lob["dist"] = row[:, extra + 3].to(torch.int32)
+    return lob
+
+
+def _in(kind, kinds):
+    m = kind == kinds[0]
+    for k in kinds[1:]:
+        m = m | (kind == k)
+    return m
+
+
+def _has(kind, *kinds):
+    """(mask, any lane has it): a branch no lane takes is not computed."""
+    m = _in(kind, kinds)
+    return m, bool(m.any())
 
 
 def _is_spec(kind):
@@ -148,15 +198,21 @@ def _fr_conductor(ci2, si2, eta, k):
     return 0.5 * (rp + rs)
 
 
+def _schlick_weight(cos_t):
+    m = torch.clamp(1.0 - cos_t, 0.0, 1.0)
+    return (m * m) * (m * m) * m
+
+
 def _fresnel(lob, cos_i):
-    """(fr, fg, fb) by the lobe's fresnel code: dielectric, conductor, or
-    1 (no-op)."""
+    """(fr, fg, fb) by the lobe's fresnel code: dielectric, conductor,
+    Disney (disney.rs:310-333: lerp(metallic in eta_a, dielectric(1, eta
+    in eta_b), Schlick(c_spec0 in s1))), or 1 (no-op)."""
     fr_d = _fr_dielectric(cos_i, lob["eta_a"], lob["eta_b"])
     ci = torch.clamp(torch.abs(cos_i), 0.0, 1.0)
     ci2 = ci * ci
     si2 = 1.0 - ci2
     code = lob["fres"]
-    return tuple(
+    out = [
         torch.where(
             code == FRESNEL_DIELECTRIC,
             fr_d,
@@ -167,54 +223,227 @@ def _fresnel(lob, cos_i):
             ),
         )
         for c in range(3)
-    )
+    ]
+    dis, any_dis = _has(code, FRESNEL_DISNEY)
+    if any_dis:
+        metallic = lob["eta_a"]
+        fr_d1 = _fr_dielectric(cos_i, torch.ones_like(cos_i), lob["eta_b"])
+        sw = _schlick_weight(cos_i)
+        s1 = lob["s1"]
+        out = [
+            torch.where(dis, (1.0 - metallic) * fr_d1 + metallic * (s1[c] + (1.0 - s1[c]) * sw),
+                        out[c])
+            for c in range(3)
+        ]
+    return out
+
+
+def _gtr1(cos_theta, alpha):
+    """disney.rs GTR1 with the reference's log10 (PBRT's is ln)."""
+    a2 = alpha * alpha
+    return (a2 - 1.0) / (PI * torch.log10(torch.clamp(a2, min=1e-9))
+                         * (1.0 + (a2 - 1.0) * cos_theta * cos_theta))
+
+
+def _cc_g(cos_theta):
+    """Smith G_GGX at the clearcoat's fixed alpha 0.25."""
+    a2 = 0.0625
+    c2 = cos_theta * cos_theta
+    return 1.0 / torch.clamp(cos_theta + torch.sqrt(torch.clamp(a2 + c2 - a2 * c2, min=0.0)),
+                             min=1e-9)
+
+
+def _sep_g(lob, kind):
+    """Lanes whose microfacet G is Disney's separable G1(wo) G1(wi): the
+    Disney microfacet kind, and a wavefront row's distribution code."""
+    sep = kind == LOBE_DISNEY_MICROFACET_REFL
+    if "dist" in lob:
+        sep = sep | (lob["dist"] == DIST_DISNEY_SEPARABLE_G)
+    return sep
+
+
+def _eta_t(lob, woz):
+    """MF_TRANS's relative eta, eta_b / eta_a entering."""
+    return torch.where(woz > 0.0, lob["eta_b"] / lob["eta_a"], lob["eta_a"] / lob["eta_b"])
+
+
+def _scaled(lob, f):
+    if "scale" not in lob:
+        return f
+    return [f[c] * lob["scale"][c] for c in range(3)]
 
 
 def _lobe_f(lob, wox, woy, woz, wix, wiy, wiz):
-    """lobe_f on local-frame directions: lambert or TR microfacet by the
-    lobe's kind; specular (and unported) kinds evaluate to 0."""
+    """lobe_f on local-frame directions by the lobe's kind, times its
+    scale; specular (and unported) kinds evaluate to 0."""
     kind = lob["kind"]
     whx, why, whz = wox + wix, woy + wiy, woz + wiz
-    wh_len = torch.sqrt(torch.clamp(whx * whx + why * why + whz * whz, min=0.0))
+    wh2 = whx * whx + why * why + whz * whz
+    wh_len = torch.sqrt(torch.clamp(wh2, min=0.0))
+    wh_zero = wh2 == 0.0
     inv_l = 1.0 / torch.clamp(wh_len, min=1e-20)
     nhx, nhy, nhz = whx * inv_l, why * inv_l, whz * inv_l
     co = torch.abs(woz)
     ci = torch.abs(wiz)
-    ok = (co > 0.0) & (ci > 0.0) & (wh_len > 0.0)
-    s = torch.where(nhz < 0.0, -1.0, 1.0)
-    fr3 = _fresnel(lob, wix * (s * nhx) + wiy * (s * nhy) + wiz * (s * nhz))
+    zero = torch.zeros_like(wox)
+    out = [zero, zero, zero]
+
+    def put(mask, v):
+        out[:] = [torch.where(mask, v[c], out[c]) for c in range(3)]
+
+    is_lam, any_lam = _has(kind, LOBE_LAMBERT_REFL, LOBE_LAMBERT_TRANS)
+    if any_lam:
+        put(is_lam, [lob["s0"][c] / PI for c in range(3)])
+    is_mf, any_mf = _has(kind, *MF_KINDS)
+    if any_mf:
+        ok = (co > 0.0) & (ci > 0.0) & (wh_len > 0.0)
+        s = torch.where(nhz < 0.0, -1.0, 1.0)
+        fr3 = _fresnel(lob, wix * (s * nhx) + wiy * (s * nhy) + wiz * (s * nhz))
+        au, av = lob["au"], lob["av"]
+        d_val = _tr_d(nhx, nhy, nhz, au, av)
+        lam_o = _tr_lambda(wox, woy, woz, au, av)
+        lam_i = _tr_lambda(wix, wiy, wiz, au, av)
+        g = 1.0 / (1.0 + lam_o + lam_i)
+        g = torch.where(_sep_g(lob, kind), (1.0 / (1.0 + lam_o)) * (1.0 / (1.0 + lam_i)), g)
+        scale = d_val * g / torch.clamp(4.0 * ci * co, min=1e-20)
+        put(is_mf, [torch.where(ok, lob["s0"][c] * fr3[c] * scale, 0.0) for c in range(3)])
+    is_dif, any_dif = _has(kind, LOBE_DISNEY_DIFFUSE, LOBE_DISNEY_RETRO, LOBE_DISNEY_SHEEN,
+                           LOBE_DISNEY_FAKE_SS)
+    if any_dif:
+        fo = _schlick_weight(co)
+        fi = _schlick_weight(ci)
+        cos_d = wix * nhx + wiy * nhy + wiz * nhz
+        is_dd, any_dd = _has(kind, LOBE_DISNEY_DIFFUSE)
+        if any_dd:
+            dfac = (1.0 - fo / 2.0) * (1.0 - fi / 2.0) / PI
+            put(is_dd, [lob["s0"][c] * dfac for c in range(3)])
+        is_rt, any_rt = _has(kind, LOBE_DISNEY_RETRO)
+        if any_rt:
+            rr = 2.0 * lob["au"] * cos_d * cos_d
+            fac = rr * (fo + fi + fo * fi * (rr - 1.0)) / PI
+            put(is_rt, [torch.where(wh_zero, 0.0, lob["s0"][c] * fac) for c in range(3)])
+        is_sh, any_sh = _has(kind, LOBE_DISNEY_SHEEN)
+        if any_sh:
+            swd = _schlick_weight(cos_d)
+            put(is_sh, [torch.where(wh_zero, 0.0, lob["s0"][c] * swd) for c in range(3)])
+        is_ss, any_ss = _has(kind, LOBE_DISNEY_FAKE_SS)
+        if any_ss:
+            fss90 = cos_d * cos_d * lob["au"]
+            fss = (1.0 + fo * (fss90 - 1.0)) * (1.0 + fi * (fss90 - 1.0))
+            ss = 1.25 * (fss * (1.0 / torch.clamp(co + ci, min=1e-9) - 0.5) + 0.5)
+            put(is_ss, [torch.where(wh_zero, 0.0, lob["s0"][c] / PI * ss) for c in range(3)])
+    is_cc, any_cc = _has(kind, LOBE_DISNEY_CLEARCOAT)
+    if any_cc:
+        v_cc = torch.where(
+            wh_zero,
+            0.0,
+            lob["au"] * _cc_g(co) * _cc_g(ci)
+            * (0.04 + 0.96 * _schlick_weight(wox * nhx + woy * nhy + woz * nhz))
+            * _gtr1(torch.abs(nhz), lob["av"]) / 4.0,
+        )
+        put(is_cc, [v_cc, v_cc, v_cc])
+    is_on, any_on = _has(kind, LOBE_OREN_NAYAR)
+    if any_on:
+        put(is_on, _oren_nayar_f(lob, wox, woy, woz, wix, wiy, wiz))
+    is_mt, any_mt = _has(kind, LOBE_MF_TRANS)
+    if any_mt:
+        put(is_mt, _mf_trans_f(lob, kind, wox, woy, woz, wix, wiy, wiz))
+    return _scaled(lob, out)
+
+
+def _oren_nayar_f(lob, wox, woy, woz, wix, wiy, wiz):
+    """(reflection.rs:916-945), sigma in degrees in alpha_u."""
+    sigma2 = (lob["au"] * PI / 180.0) ** 2
+    a = 1.0 - sigma2 / (2.0 * (sigma2 + 0.33))
+    b = 0.45 * sigma2 / (sigma2 + 0.09)
+    sin_i = torch.sqrt(torch.clamp(1.0 - wiz * wiz, min=0.0))
+    sin_o = torch.sqrt(torch.clamp(1.0 - woz * woz, min=0.0))
+    safe_i = torch.where(sin_i == 0.0, 1.0, sin_i)
+    safe_o = torch.where(sin_o == 0.0, 1.0, sin_o)
+    d_cos = torch.clamp((wix / safe_i) * (wox / safe_o) + (wiy / safe_i) * (woy / safe_o),
+                        min=0.0)
+    max_cos = torch.where((sin_i > 1e-4) & (sin_o > 1e-4), d_cos, 0.0)
+    aci, aco = torch.abs(wiz), torch.abs(woz)
+    use_i = aci > aco
+    sin_alpha = torch.where(use_i, sin_o, sin_i)
+    tan_beta = torch.where(use_i, sin_i / torch.clamp(aci, min=1e-9),
+                           sin_o / torch.clamp(aco, min=1e-9))
+    fac = a + b * max_cos * sin_alpha * tan_beta
+    return [lob["s0"][c] / PI * fac for c in range(3)]
+
+
+def _norm3(x, y, z):
+    inv = 1.0 / torch.clamp(torch.sqrt(x * x + y * y + z * z), min=1e-30)
+    return x * inv, y * inv, z * inv
+
+
+def _mf_trans_f(lob, kind, wox, woy, woz, wix, wiy, wiz):
+    """(reflection.rs:1059-1101), radiance mode."""
+    ok = ~((woz * wiz) > 0.0) & (woz != 0.0) & (wiz != 0.0)
+    eta = _eta_t(lob, woz)
+    hx, hy, hz = _norm3(wox + wix * eta, woy + wiy * eta, woz + wiz * eta)
+    flip = hz < 0.0
+    hx, hy, hz = (torch.where(flip, -v, v) for v in (hx, hy, hz))
+    dot_o = wox * hx + woy * hy + woz * hz
+    dot_i = wix * hx + wiy * hy + wiz * hz
+    fr = _fr_dielectric(dot_o, lob["eta_a"], lob["eta_b"])
+    sqrt_denom = dot_o + eta * dot_i
+    factor = 1.0 / eta
     au, av = lob["au"], lob["av"]
-    d_val = _tr_d(nhx, nhy, nhz, au, av)
+    d_val = _tr_d(hx, hy, hz, au, av)
     lam_o = _tr_lambda(wox, woy, woz, au, av)
     lam_i = _tr_lambda(wix, wiy, wiz, au, av)
-    g = 1.0 / (1.0 + lam_o + lam_i)
-    scale = d_val * g / torch.clamp(4.0 * ci * co, min=1e-20)
-    is_mf = kind == LOBE_MF_REFL
-    is_lam = kind == LOBE_LAMBERT_REFL
-    out = []
-    for c in range(3):
-        mf = torch.where(ok, lob["s0"][c] * fr3[c] * scale, 0.0)
-        lam = lob["s0"][c] / PI
-        out.append(torch.where(is_mf, mf, torch.where(is_lam, lam, 0.0)))
-    return out
+    g = torch.where(_sep_g(lob, kind), (1.0 / (1.0 + lam_o)) * (1.0 / (1.0 + lam_i)),
+                    1.0 / (1.0 + lam_o + lam_i))
+    mag = torch.abs(d_val * g * eta * eta * torch.abs(dot_i) * torch.abs(dot_o) * factor * factor
+                    / torch.clamp(torch.abs(wiz * woz * sqrt_denom * sqrt_denom), min=1e-20))
+    return [torch.where(ok, (1.0 - fr) * lob["s0"][c] * mag, 0.0) for c in range(3)]
 
 
 def _lobe_pdf(lob, wox, woy, woz, wix, wiy, wiz):
-    """Cosine pdf for lambert, visible-normal TR pdf for microfacets,
-    0 for specular kinds."""
+    """Cosine pdf for the diffuse kinds (the opposite hemisphere for
+    lambert transmission), visible-normal TR pdf for the microfacets,
+    GTR1 for the clearcoat, 0 for specular kinds."""
+    kind = lob["kind"]
     same = (woz * wiz) > 0.0
-    cos_pdf = torch.where(same, torch.abs(wiz) / PI, 0.0)
-    whx, why, whz = wox + wix, woy + wiy, woz + wiz
-    inv_l = rsqrt(torch.clamp(whx * whx + why * why + whz * whz, min=1e-30))
-    whx, why, whz = whx * inv_l, why * inv_l, whz * inv_l
-    au, av = lob["au"], lob["av"]
-    d_val = _tr_d(whx, why, whz, au, av)
-    lam_o = _tr_lambda(wox, woy, woz, au, av)
-    dot_owh = wox * whx + woy * why + woz * whz
-    pdf_wh = d_val / (1.0 + lam_o) * torch.abs(dot_owh) / torch.clamp(torch.abs(woz), min=1e-20)
-    mf_pdf = torch.where(same, pdf_wh / torch.clamp(4.0 * dot_owh, min=1e-20), 0.0)
-    out = torch.where(lob["kind"] == LOBE_MF_REFL, mf_pdf, cos_pdf)
-    return torch.where(_is_spec(lob["kind"]), 0.0, out)
+    out = torch.where(same, torch.abs(wiz) / PI, 0.0)
+    is_mf, any_mf = _has(kind, *MF_KINDS)
+    is_cc, any_cc = _has(kind, LOBE_DISNEY_CLEARCOAT)
+    if any_mf or any_cc:
+        whx, why, whz = wox + wix, woy + wiy, woz + wiz
+        wh2 = whx * whx + why * why + whz * whz
+        inv_l = rsqrt(torch.clamp(wh2, min=1e-30))
+        whx, why, whz = whx * inv_l, why * inv_l, whz * inv_l
+        dot_owh = wox * whx + woy * why + woz * whz
+    if any_mf:
+        au, av = lob["au"], lob["av"]
+        d_val = _tr_d(whx, why, whz, au, av)
+        lam_o = _tr_lambda(wox, woy, woz, au, av)
+        pdf_wh = d_val / (1.0 + lam_o) * torch.abs(dot_owh) / torch.clamp(torch.abs(woz), min=1e-20)
+        out = torch.where(is_mf, torch.where(same, pdf_wh / torch.clamp(4.0 * dot_owh, min=1e-20),
+                                             0.0), out)
+    if any_cc:
+        dr = _gtr1(torch.abs(whz), lob["av"])
+        cc = torch.where(same & (wh2 > 0.0),
+                         dr * torch.abs(whz) / torch.clamp(4.0 * dot_owh, min=1e-9), 0.0)
+        out = torch.where(is_cc, cc, out)
+    is_lt, any_lt = _has(kind, LOBE_LAMBERT_TRANS)
+    if any_lt:
+        out = torch.where(is_lt, torch.where(~same, torch.abs(wiz) / PI, 0.0), out)
+    is_mt, any_mt = _has(kind, LOBE_MF_TRANS)
+    if any_mt:
+        eta = _eta_t(lob, woz)
+        hx, hy, hz = _norm3(wox + wix * eta, woy + wiy * eta, woz + wiz * eta)
+        dot_o = wox * hx + woy * hy + woz * hz
+        dot_i = wix * hx + wiy * hy + wiz * hz
+        sq = dot_o + eta * dot_i
+        dwh_dwi = torch.abs((eta * eta * dot_i) / torch.clamp(sq * sq, min=1e-20))
+        au, av = lob["au"], lob["av"]
+        lam_o = _tr_lambda(wox, woy, woz, au, av)
+        pdf_wh = (_tr_d(hx, hy, hz, au, av) * (1.0 / (1.0 + lam_o)) * torch.abs(dot_o)
+                  / torch.clamp(torch.abs(woz), min=1e-20))
+        out = torch.where(is_mt, torch.where(~same, pdf_wh * dwh_dwi, 0.0), out)
+    return torch.where(_is_spec(kind), 0.0, out)
 
 
 def _tr_sample_wh(wox, woy, woz, au, av, u0, u1):
@@ -275,12 +504,16 @@ def _tr_sample_wh(wox, woy, woz, au, av, u0, u1):
 
 
 def _lobe_sample(lob, wol_x, wol_y, wo_z, u0, u1):
-    """sample_f of one chosen lobe (reflection.rs: lambert's cosine
-    hemisphere, the visible-normal Trowbridge-Reitz reflection, specular
-    reflection, fresnel-specular reflect or transmit by u0 < Fr).
-    Returns (wi x, y, z, f (3 channels), pdf, transmitted)."""
+    """sample_f of one chosen lobe (reflection.rs, disney.rs): the cosine
+    hemisphere on wo's side for the diffuse kinds (the other side for
+    lambert transmission), the visible-normal Trowbridge-Reitz half
+    vector reflected (microfacet reflection) or refracted (transmission),
+    the clearcoat's GTR1 half vector in the reference's form, specular
+    reflection, fresnel-specular reflect or transmit by u0 < Fr.
+    Returns (wi x, y, z, f (3 channels, times the lobe's scale), pdf,
+    transmitted)."""
     kind = lob["kind"]
-    is_mf = kind == LOBE_MF_REFL
+    is_mf = _in(kind, MF_KINDS)
     is_sr = kind == LOBE_SPEC_REFL
     is_fs = kind == LOBE_FRESNEL_SPEC
 
@@ -322,26 +555,63 @@ def _lobe_sample(lob, wol_x, wol_y, wo_z, u0, u1):
     wsx = pick(dxo, mrx, srx, stx)
     wsy = pick(dyo, mry, sry, sty)
     wsz = pick(z_cos, mrz, srz, stz)
+    dead = is_mf & ~mr_ok  # a microfacet sample below the surface is no sample
+
+    is_lt, any_lt = _has(kind, LOBE_LAMBERT_TRANS)
+    if any_lt:  # the cosine sample flipped to the other side (reflection.rs:857-871)
+        wsz = torch.where(is_lt, -z_cos, wsz)
+    is_cc, any_cc = _has(kind, LOBE_DISNEY_CLEARCOAT)
+    if any_cc:
+        # DisneyClearcoat::sample_f, the reference's form without the sqrt
+        a2c = lob["av"] * lob["av"]
+        cc_cos = ((1.0 - torch.pow(torch.clamp(a2c, min=1e-9), 1.0 - u0))
+                  / torch.sqrt(torch.clamp(1.0 - a2c, min=1e-9)))
+        cc_cos = torch.clamp(cc_cos, -1.0, 1.0)
+        cc_sin = torch.sqrt(torch.clamp(1.0 - cc_cos * cc_cos, min=0.0))
+        cc_phi = 2.0 * PI * u1
+        whcx, whcy, whcz = cc_sin * torch.cos(cc_phi), cc_sin * torch.sin(cc_phi), cc_cos
+        flip_cc = (wo_z * whcz) <= 0.0
+        whcx, whcy, whcz = (torch.where(flip_cc, -v, v) for v in (whcx, whcy, whcz))
+        dot_ow = wol_x * whcx + wol_y * whcy + wo_z * whcz
+        ccx = 2.0 * dot_ow * whcx - wol_x
+        ccy = 2.0 * dot_ow * whcy - wol_y
+        ccz = 2.0 * dot_ow * whcz - wo_z
+        wsx, wsy, wsz = (torch.where(is_cc, a, b) for a, b in zip((ccx, ccy, ccz), (wsx, wsy, wsz)))
+        dead = dead | (is_cc & ~(((wo_z * ccz) > 0.0) & (wo_z != 0.0)))
+    is_mt, any_mt = _has(kind, LOBE_MF_TRANS)
+    if any_mt:
+        # the same half vector, faced onto wo and refracted (reflection.rs:1102-1128)
+        sgn = torch.where(dot_owh < 0.0, -1.0, 1.0)
+        nx, ny, nz = hx * sgn, hy * sgn, hz * sgn
+        eta_mt = torch.where(entering, ea / eb, eb / ea)
+        cos_i = nx * wol_x + ny * wol_y + nz * wo_z
+        sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+        sin2_tt = eta_mt * eta_mt * sin2_i
+        cos_tt = torch.sqrt(torch.clamp(1.0 - sin2_tt, min=0.0))
+        k = eta_mt * cos_i - cos_tt
+        mtx, mty, mtz = -wol_x * eta_mt + nx * k, -wol_y * eta_mt + ny * k, -wo_z * eta_mt + nz * k
+        wsx, wsy, wsz = (torch.where(is_mt, a, b) for a, b in zip((mtx, mty, mtz), (wsx, wsy, wsz)))
+        dead = dead | (is_mt & ~((dot_owh >= 0.0) & (sin2_tt < 1.0) & (wo_z != 0.0)))
 
     fs = _lobe_f(lob, wol_x, wol_y, wo_z, wsx, wsy, wsz)
     pdf = _lobe_pdf(lob, wol_x, wol_y, wo_z, wsx, wsy, wsz)
-    dead_mf = is_mf & ~mr_ok
     aci = torch.clamp(torch.abs(wsz), min=1e-20)
     fr3 = _fresnel(lob, wsz)
+    one = (1.0, 1.0, 1.0)
+    sc = lob.get("scale", one)
     out = []
     for c in range(3):
-        f = torch.where(dead_mf, 0.0, fs[c])
-        f = torch.where(is_sr, lob["s0"][c] * fr3[c] / aci, f)
+        f = torch.where(dead, 0.0, fs[c])
+        f = torch.where(is_sr, lob["s0"][c] * fr3[c] / aci * sc[c], f)
         f_fs = torch.where(
             fs_reflect,
             lob["s0"][c] * fr_fs / aci,
             torch.where(st_ok, lob["s1"][c] * (1.0 - fr_fs) * scale_t / aci, 0.0),
         )
-        out.append(torch.where(is_fs, f_fs, f))
+        out.append(torch.where(is_fs, f_fs * sc[c], f))
     pdf = torch.where(is_sr, 1.0, pdf)
     pdf = torch.where(is_fs, torch.where(fs_reflect, fr_fs, 1.0 - fr_fs), pdf)
-    # a microfacet sample below the surface is no sample: f and pdf 0
-    pdf = torch.where(dead_mf, 0.0, pdf)
+    pdf = torch.where(dead, 0.0, pdf)
     return wsx, wsy, wsz, out, pdf, is_fs & ~fs_reflect
 
 
@@ -350,7 +620,8 @@ def _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1):
     uniform lobe choice among the row's n_lob lobes, the chosen lobe's
     direction, f and pdf, the pdf averaged over the matching lobes.  The
     other lobes' pdfs are added only when the chosen lobe does not reflect
-    (reflection.rs:358), which no lobe of the ported kinds is."""
+    (reflection.rs:358), which no lobe of the path kernel's kinds is (the
+    wavefront loop's `bsdf_sample` adds them)."""
     matching = torch.clamp(n_lob, min=1)
     comp = torch.minimum((ub0 * matching).to(torch.int64), matching - 1)
     u0 = torch.clamp(ub0 * matching - comp.to(DTYPE), max=ONE_MINUS_EPSILON)
@@ -405,8 +676,15 @@ def local_to_world(fr, v):
 
 
 def lobe_count(params):
-    """Lobe slots of a row tensor (its columns beyond the 16 of the head)."""
-    return (params.shape[1] - 16) // 16
+    """Lobe slots of a wavefront row tensor (16 columns each beyond the 16
+    of the head, then EXTRA_COLS each)."""
+    return (params.shape[1] - 16) // (16 + EXTRA_COLS)
+
+
+def row_lobe(params, l):
+    """Lobe slot l of wavefront rows, its scale and distribution code
+    included."""
+    return _lobe(params, 16 + 16 * l, 16 + 16 * lobe_count(params) + EXTRA_COLS * l)
 
 
 def lobe_flags(kind):
@@ -435,7 +713,7 @@ def num_components(params, flags):
     n_lob = params[:, 15].to(torch.int64)
     count = torch.zeros_like(n_lob)
     for l in range(lobe_count(params)):
-        count = count + _matches(_lobe(params, 16 + 16 * l), l, n_lob, flags)[0]
+        count = count + _matches(row_lobe(params, l), l, n_lob, flags)[0]
     return count
 
 
@@ -451,7 +729,7 @@ def bsdf_f_pdf(params, fr, wo_w, wi_w, flags):
     p_total = torch.zeros_like(wo[:, 0])
     count = torch.zeros_like(n_lob)
     for l in range(lobe_count(params)):
-        lob = _lobe(params, 16 + 16 * l)
+        lob = row_lobe(params, l)
         m, lf = _matches(lob, l, n_lob, flags)
         use_f = m & ((reflect & ((lf & BXDF_REFLECTION) > 0))
                      | (~reflect & ((lf & BXDF_TRANSMISSION) > 0)))
@@ -481,34 +759,28 @@ def bsdf_sample(params, fr, wo_w, u, flags=BXDF_ALL):
     wo = world_to_local(fr, wo_w)
     n_lob = params[:, 15].to(torch.int64)
     u0, u1 = u[:, 0], u[:, 1]
-    if flags == BXDF_ALL:
-        wsx, wsy, wsz, fs, pdf, transmitted = _bsdf_sample(
-            params, n_lob, wo[:, 0], wo[:, 1], wo[:, 2], u0, u1
-        )
-        matching = n_lob
-        chosen_kind = _chosen_kind(params, n_lob, u0)
-    else:
-        slots = lobe_count(params)
-        lobs = [_lobe(params, 16 + 16 * l) for l in range(slots)]
-        match = torch.stack([_matches(lob, l, n_lob, flags)[0] for l, lob in enumerate(lobs)], -1)
-        matching = match.sum(-1)
-        comp = torch.minimum((u0 * matching).to(torch.int64), matching)
-        cum = torch.cumsum(match.to(torch.int64), -1)
-        chosen = torch.argmax(((cum == (comp + 1)[:, None]) & match).to(torch.int64), -1)
-        u0r = torch.clamp(u0 * matching - comp.to(DTYPE), max=ONE_MINUS_EPSILON)
-        cols = (16 + 16 * chosen)[:, None] + torch.arange(16, device=params.device)
-        lob = _lobe(torch.gather(params, 1, cols), 0)
-        wsx, wsy, wsz, fs, pdf, transmitted = _lobe_sample(lob, wo[:, 0], wo[:, 1], wo[:, 2],
-                                                           u0r, u1)
-        chosen_kind = lob["kind"]
+    slots = lobe_count(params)
+    lobs = [row_lobe(params, l) for l in range(slots)]
+    match = torch.stack([_matches(lob, l, n_lob, flags)[0] for l, lob in enumerate(lobs)], -1)
+    matching = match.sum(-1)
+    comp = torch.minimum((u0 * matching).to(torch.int64), matching)
+    cum = torch.cumsum(match.to(torch.int64), -1)
+    chosen = torch.argmax(((cum == (comp + 1)[:, None]) & match).to(torch.int64), -1)
+    u0r = torch.clamp(u0 * matching - comp.to(DTYPE), max=ONE_MINUS_EPSILON)
+    lob = {k: (tuple(_take(c, chosen) for c in zip(*(lb[k] for lb in lobs)))
+               if isinstance(v, tuple) else _take(torch.stack([lb[k] for lb in lobs], -1), chosen))
+           for k, v in lobs[0].items()}
+    wsx, wsy, wsz, fs, pdf, transmitted = _lobe_sample(lob, wo[:, 0], wo[:, 1], wo[:, 2], u0r, u1)
+    chosen_kind = lob["kind"]
+    accumulate = ((lobe_flags(chosen_kind) & BXDF_REFLECTION) == 0) & (matching > 1)
+    if bool(accumulate.any()):
         wi = torch.stack([wsx, wsy, wsz], -1)
-        refl = (lobe_flags(chosen_kind) & BXDF_REFLECTION) != 0
         extra = torch.zeros_like(pdf)
         for l, lb in enumerate(lobs):
             use = match[:, l] & (chosen != l)
             extra = extra + torch.where(use, lobe_pdf(lb, wo, wi), 0.0)
-        pdf = pdf + torch.where(~refl & (matching > 1), extra, 0.0)
-        pdf = torch.where(matching > 1, pdf / torch.clamp(matching, min=1).to(DTYPE), pdf)
+        pdf = pdf + torch.where(accumulate, extra, 0.0)
+    pdf = torch.where(matching > 1, pdf / torch.clamp(matching, min=1).to(DTYPE), pdf)
     valid = (matching > 0) & (wo[:, 2] != 0.0) & (pdf > 0.0)
     wi_w = local_to_world(fr, torch.stack([wsx, wsy, wsz], -1))
     return BsdfSample(
@@ -519,3 +791,10 @@ def bsdf_sample(params, fr, wo_w, u, flags=BXDF_ALL):
         valid=valid,
         specular=valid & _is_spec(chosen_kind.to(torch.int64)),
     )
+
+
+def _take(stacked, idx):
+    """stacked (N, S)[n, idx[n]]."""
+    if not isinstance(stacked, torch.Tensor):
+        stacked = torch.stack(stacked, -1)
+    return torch.gather(stacked, 1, idx[:, None])[:, 0]

@@ -3,7 +3,9 @@
 Each material compiles at load time to a static recipe of up to
 MAX_LOBES lobe rows: a kind code, three RGB spectra and four scalars.
 The codes and the packed layout are the JAX package's, so a packed table
-can be compared column by column.  Textured parameters are not ported.
+can be compared column by column, the per-lobe RGB `scale` (ScaledBxdf,
+reflection.rs:516-563: Translucent's reflect / transmit, MixMaterial's
+s and 1 - s) among them.  Textured parameters are not ported.
 """
 
 from dataclasses import dataclass, field
@@ -23,16 +25,28 @@ LOBE_SPEC_TRANS = 5
 LOBE_FRESNEL_SPEC = 6
 LOBE_MF_REFL = 7
 LOBE_MF_TRANS = 8
+LOBE_FRESNEL_BLEND = 9  # emitted by no recipe of the loader
 LOBE_DEBUG_DIFFUSE = 10  # debug_material.rs: constant green diffuse
 LOBE_DEBUG_SPECULAR = 11  # debug_material.rs: constant blue specular
+# Disney lobes (material/disney.rs)
+LOBE_DISNEY_DIFFUSE = 12
+LOBE_DISNEY_FAKE_SS = 13
+LOBE_DISNEY_RETRO = 14
+LOBE_DISNEY_SHEEN = 15
+LOBE_DISNEY_CLEARCOAT = 16
+LOBE_DISNEY_MICROFACET_REFL = 17
 
 # fresnel codes (reflection.rs:565-619)
 FRESNEL_NOOP = 0
 FRESNEL_DIELECTRIC = 1
 FRESNEL_CONDUCTOR = 2
+FRESNEL_DISNEY = 3  # disney.rs:310-333: metallic in f2, eta in f3, c_spec0 in s1
 
 # microfacet distribution codes (microfacet.rs)
 DIST_TROWBRIDGE_REITZ = 0
+# TR D and lambda with Disney's separable masking-shadowing G = G1(wo) G1(wi)
+# (DisneyMicrofacetDistribution, disney.rs:345-360)
+DIST_DISNEY_SEPARABLE_G = 3
 
 
 @dataclass
@@ -41,7 +55,10 @@ class Lobe:
 
     Scalars by kind -- specular: f0=eta_a, f1=eta_b; microfacet:
     f0=rough_u, f1=rough_v (pre-remap), f2=eta_a, f3=eta_b; Oren-Nayar:
-    f0=sigma (degrees)."""
+    f0=sigma (degrees); Disney retro and fake subsurface: f0=roughness;
+    Disney clearcoat: f0=weight, f1=gloss; Disney microfacet: f0=ax,
+    f1=ay, f2=metallic, f3=eta, s1=c_spec0.  `scale` multiplies the
+    lobe's f (ScaledBxdf)."""
 
     kind: int
     s0: np.ndarray = field(default_factory=lambda: np.zeros(3))  # R/T/Rd
@@ -55,6 +72,7 @@ class Lobe:
     dist: int = DIST_TROWBRIDGE_REITZ
     remap_roughness: bool = False
     sample_visible: bool = True
+    scale: np.ndarray = field(default_factory=lambda: np.ones(3))
 
 
 @dataclass
@@ -88,6 +106,7 @@ class MaterialTableBuilder:
         dist = np.zeros((m, n_l), np.int32)
         remap = np.zeros((m, n_l), bool)
         sample_vis = np.zeros((m, n_l), bool)
+        scale = np.ones((m, n_l, 3), np.float32)
         n_lobes = np.zeros((m,), np.int32)
         eta = np.ones((m,), np.float32)
         for i, mat in enumerate(self.materials):
@@ -103,6 +122,7 @@ class MaterialTableBuilder:
                 dist[i, j] = lb.dist
                 remap[i, j] = lb.remap_roughness
                 sample_vis[i, j] = lb.sample_visible
+                scale[i, j] = lb.scale
         return {
             "kind": kind,
             "s0": s0,
@@ -113,6 +133,7 @@ class MaterialTableBuilder:
             "dist": dist,
             "remap": remap,
             "sample_visible": sample_vis,
+            "scale": scale,
             "n_lobes": n_lobes,
             "eta": eta,
         }

@@ -34,8 +34,14 @@ constexpr int LOBE_FRESNEL_SPEC = 6;
 constexpr int LOBE_MF_REFL = 7;
 constexpr int LOBE_DEBUG_DIFFUSE = 10;
 constexpr int LOBE_DEBUG_SPECULAR = 11;
+constexpr int LOBE_DISNEY_DIFFUSE = 12;
+constexpr int LOBE_DISNEY_RETRO = 14;
+constexpr int LOBE_DISNEY_SHEEN = 15;
+constexpr int LOBE_DISNEY_CLEARCOAT = 16;
+constexpr int LOBE_DISNEY_MICROFACET_REFL = 17;
 constexpr int FRESNEL_DIELECTRIC = 1;
 constexpr int FRESNEL_CONDUCTOR = 2;
+constexpr int FRESNEL_DISNEY = 3;
 
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = (float)(2.0 * 3.14159265358979323846);
@@ -633,6 +639,30 @@ __device__ float fr_conductor(float ci2, float si2, float eta, float k) {
   return 0.5f * (rp + rs);
 }
 
+__device__ __forceinline__ float schlick_weight(float cos_t) {
+  const float m = fminf(fmaxf(1.0f - cos_t, 0.0f), 1.0f);
+  return (m * m) * (m * m) * m;
+}
+
+// disney.rs GTR1 with the reference's log10 (PBRT's is ln)
+__device__ __forceinline__ float gtr1(float cos_theta, float alpha) {
+  const float a2 = alpha * alpha;
+  return (a2 - 1.0f) /
+         (PI_F * log10f(fmaxf(a2, 1e-9f)) * (1.0f + (a2 - 1.0f) * cos_theta * cos_theta));
+}
+
+// Smith G_GGX at the clearcoat's fixed alpha 0.25
+__device__ __forceinline__ float cc_g(float cos_theta) {
+  const float a2 = 0.0625f;
+  const float c2 = cos_theta * cos_theta;
+  return 1.0f / fmaxf(cos_theta + sqrtf(fmaxf(a2 + c2 - a2 * c2, 0.0f)), 1e-9f);
+}
+
+// The Disney lobes (K5 e: DisneyDiffuse, retro, sheen, clearcoat, and the
+// Disney microfacet with its fresnel and separable G) are compiled in only
+// where kDisney is set: the path kernel's instances.  The other kernels take
+// none of them and keep their code.
+template <bool kDisney = false>
 __device__ void fresnel(const Lobe& lob, float cos_i, float fr[3]) {
   if (lob.fres == FRESNEL_DIELECTRIC) {
     const float v = fr_dielectric(cos_i, lob.eta_a, lob.eta_b);
@@ -642,18 +672,101 @@ __device__ void fresnel(const Lobe& lob, float cos_i, float fr[3]) {
     const float ci2 = ci * ci;
     const float si2 = 1.0f - ci2;
     for (int c = 0; c < 3; ++c) fr[c] = fr_conductor(ci2, si2, lob.s2[c], lob.s1[c]);
+  } else if (kDisney && lob.fres == FRESNEL_DISNEY) {
+    // disney.rs:310-333: metallic in eta_a, eta in eta_b, c_spec0 in s1
+    const float metallic = lob.eta_a;
+    const float fr_d1 = fr_dielectric(cos_i, 1.0f, lob.eta_b);
+    const float sw = schlick_weight(cos_i);
+    for (int c = 0; c < 3; ++c)
+      fr[c] = (1.0f - metallic) * fr_d1 + metallic * (lob.s1[c] + (1.0f - lob.s1[c]) * sw);
   } else {
     fr[0] = fr[1] = fr[2] = 1.0f;
   }
 }
 
+struct F3 {
+  float r, g, b;
+};
+
+// f of the Disney diffuse, retro, sheen and clearcoat lobes (disney.rs;
+// roughness, or the clearcoat's weight, in au, its gloss in av).  Out of
+// line: the path kernel inlines its lobe functions at four call sites; one
+// called copy of this code leaves their registers and their other lobes'
+// code nearly as they are without it (a call costs some stack).
+__device__ __noinline__ F3 disney_f(int kind, float s0r, float s0g, float s0b, float au, float av,
+                                    float wox, float woy, float woz, float wix, float wiy,
+                                    float wiz) {
+  const float whx = wox + wix, why = woy + wiy, whz = woz + wiz;
+  const float wh2 = whx * whx + why * why + whz * whz;
+  const float wh_len = sqrtf(fmaxf(wh2, 0.0f));
+  const bool wh_zero = wh2 == 0.0f;
+  const float inv_l = 1.0f / fmaxf(wh_len, 1e-20f);
+  const float nhx = whx * inv_l, nhy = why * inv_l, nhz = whz * inv_l;
+  const float co = fabsf(woz), ci = fabsf(wiz);
+  if (kind == LOBE_DISNEY_CLEARCOAT) {
+    // GTR1 D, fixed-alpha Smith G, Schlick 0.04
+    const float v = wh_zero ? 0.0f
+                            : au * cc_g(co) * cc_g(ci) *
+                                  (0.04f + 0.96f * schlick_weight(wox * nhx + woy * nhy + woz * nhz)) *
+                                  gtr1(fabsf(nhz), av) / 4.0f;
+    return F3{v, v, v};
+  }
+  const float fo = schlick_weight(co), fi = schlick_weight(ci);
+  float fac = 0.0f;
+  if (kind == LOBE_DISNEY_DIFFUSE) {
+    fac = (1.0f - fo / 2.0f) * (1.0f - fi / 2.0f) / PI_F;
+  } else if (!wh_zero) {
+    const float cos_d = wix * nhx + wiy * nhy + wiz * nhz;
+    if (kind == LOBE_DISNEY_RETRO) {
+      const float rr = 2.0f * au * cos_d * cos_d;
+      fac = rr * (fo + fi + fo * fi * (rr - 1.0f)) / PI_F;
+    } else {  // sheen
+      fac = schlick_weight(cos_d);
+    }
+  }
+  return F3{s0r * fac, s0g * fac, s0b * fac};
+}
+
+// the clearcoat's pdf: GTR1 D |cos wh| / (4 wo.wh); out of line as disney_f
+__device__ __noinline__ float clearcoat_pdf(float av, float wox, float woy, float woz, float wix,
+                                            float wiy, float wiz) {
+  const bool same = (woz * wiz) > 0.0f;
+  const float whx = wox + wix, why = woy + wiy, whz = woz + wiz;
+  const float wh2 = whx * whx + why * why + whz * whz;
+  const float inv_l = rsqrt_exact(fmaxf(wh2, 1e-30f));
+  const float nhx = whx * inv_l, nhy = why * inv_l, nhz = whz * inv_l;
+  const float dr = gtr1(fabsf(nhz), av);
+  const float dot_owh = wox * nhx + woy * nhy + woz * nhz;
+  return (same && wh2 > 0.0f) ? dr * fabsf(nhz) / fmaxf(4.0f * dot_owh, 1e-9f) : 0.0f;
+}
+
+// DisneyClearcoat::sample_f's direction, the reference's form without the
+// sqrt; out of line as disney_f
+__device__ __noinline__ F3 clearcoat_sample(float av, float wol_x, float wol_y, float wo_z,
+                                            float u0, float u1) {
+  const float a2c = av * av;
+  float cc_cos = (1.0f - powf(fmaxf(a2c, 1e-9f), 1.0f - u0)) / sqrtf(fmaxf(1.0f - a2c, 1e-9f));
+  cc_cos = fminf(fmaxf(cc_cos, -1.0f), 1.0f);
+  const float cc_sin = sqrtf(fmaxf(0.0f, 1.0f - cc_cos * cc_cos));
+  const float cc_phi = TWO_PI_F * u1;
+  float hx = cc_sin * cosf(cc_phi), hy = cc_sin * sinf(cc_phi), hz = cc_cos;
+  if ((wo_z * hz) <= 0.0f) {
+    hx = -hx;
+    hy = -hy;
+    hz = -hz;
+  }
+  const float dot_ow = wol_x * hx + wol_y * hy + wo_z * hz;
+  return F3{2.0f * dot_ow * hx - wol_x, 2.0f * dot_ow * hy - wol_y, 2.0f * dot_ow * hz - wo_z};
+}
+
 // lobe_f on local-frame directions; specular kinds evaluate to 0
+template <bool kDisney = false>
 __device__ void lobe_f(const Lobe& lob, float wox, float woy, float woz, float wix,
                        float wiy, float wiz, float f[3]) {
   f[0] = f[1] = f[2] = 0.0f;
   if (lob.kind == LOBE_LAMBERT_REFL) {
     for (int c = 0; c < 3; ++c) f[c] = lob.s0[c] / PI_F;
-  } else if (lob.kind == LOBE_MF_REFL) {
+  } else if (lob.kind == LOBE_MF_REFL || (kDisney && lob.kind == LOBE_DISNEY_MICROFACET_REFL)) {
     const float whx = wox + wix, why = woy + wiy, whz = woz + wiz;
     const float wh2 = whx * whx + why * why + whz * whz;
     const float wh_len = sqrtf(fmaxf(wh2, 0.0f));
@@ -663,22 +776,35 @@ __device__ void lobe_f(const Lobe& lob, float wox, float woy, float woz, float w
     const bool ok = co > 0.0f && ci > 0.0f && wh_len > 0.0f;
     const float s = nhz < 0.0f ? -1.0f : 1.0f;
     float fr[3];
-    fresnel(lob, wix * (s * nhx) + wiy * (s * nhy) + wiz * (s * nhz), fr);
+    fresnel<kDisney>(lob, wix * (s * nhx) + wiy * (s * nhy) + wiz * (s * nhz), fr);
     const float d_val = tr_d(nhx, nhy, nhz, lob.au, lob.av);
     const float lam_o = tr_lambda(wox, woy, woz, lob.au, lob.av);
     const float lam_i = tr_lambda(wix, wiy, wiz, lob.au, lob.av);
-    const float g = 1.0f / (1.0f + lam_o + lam_i);
+    float g = 1.0f / (1.0f + lam_o + lam_i);
+    if (kDisney && lob.kind == LOBE_DISNEY_MICROFACET_REFL)  // separable Smith G
+      g = (1.0f / (1.0f + lam_o)) * (1.0f / (1.0f + lam_i));
     const float scale = d_val * g / fmaxf(4.0f * ci * co, 1e-20f);
     if (ok)
       for (int c = 0; c < 3; ++c) f[c] = lob.s0[c] * fr[c] * scale;
+  } else if (kDisney && (lob.kind == LOBE_DISNEY_DIFFUSE || lob.kind == LOBE_DISNEY_RETRO ||
+                         lob.kind == LOBE_DISNEY_SHEEN || lob.kind == LOBE_DISNEY_CLEARCOAT)) {
+    const F3 v = disney_f(lob.kind, lob.s0[0], lob.s0[1], lob.s0[2], lob.au, lob.av, wox, woy, woz,
+                          wix, wiy, wiz);
+    f[0] = v.r;
+    f[1] = v.g;
+    f[2] = v.b;
   }
 }
 
+template <bool kDisney = false>
 __device__ float lobe_pdf(const Lobe& lob, float wox, float woy, float woz, float wix,
                           float wiy, float wiz) {
   if (is_spec_kind(lob.kind)) return 0.0f;
   const bool same = (woz * wiz) > 0.0f;
-  if (lob.kind != LOBE_MF_REFL) return same ? fabsf(wiz) / PI_F : 0.0f;
+  if (kDisney && lob.kind == LOBE_DISNEY_CLEARCOAT)
+    return clearcoat_pdf(lob.av, wox, woy, woz, wix, wiy, wiz);
+  if (lob.kind != LOBE_MF_REFL && !(kDisney && lob.kind == LOBE_DISNEY_MICROFACET_REFL))
+    return same ? fabsf(wiz) / PI_F : 0.0f;
   float whx = wox + wix, why = woy + wiy, whz = woz + wiz;
   const float inv_l = rsqrt_exact(fmaxf(whx * whx + why * why + whz * whz, 1e-30f));
   whx *= inv_l;
@@ -779,6 +905,7 @@ struct BsdfSample {
   bool specular;
 };
 
+template <bool kDisney = false>
 __device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, float wol_y,
                                   float wo_z, float ub0, float ub1) {
   const int matching = max(n_lob, 1);
@@ -790,7 +917,7 @@ __device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, floa
   s.wx = s.wy = s.wz = 0.0f;
   bool mf_ok = true, fs_reflect = false, st_ok = true;
   float fr_fs = 0.0f, scale_t = 1.0f;
-  if (lc.kind == LOBE_MF_REFL) {
+  if (lc.kind == LOBE_MF_REFL || (kDisney && lc.kind == LOBE_DISNEY_MICROFACET_REFL)) {
     float hx, hy, hz;
     tr_sample_wh(wol_x, wol_y, wo_z, lc.au, lc.av, u0, u1, hx, hy, hz);
     const float dot_owh = wol_x * hx + wol_y * hy + wo_z * hz;
@@ -798,6 +925,12 @@ __device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, floa
     s.wy = 2.0f * dot_owh * hy - wol_y;
     s.wz = 2.0f * dot_owh * hz - wo_z;
     mf_ok = dot_owh >= 0.0f && (wo_z * s.wz) > 0.0f && wo_z != 0.0f;
+  } else if (kDisney && lc.kind == LOBE_DISNEY_CLEARCOAT) {
+    const F3 w = clearcoat_sample(lc.av, wol_x, wol_y, wo_z, u0, u1);
+    s.wx = w.r;
+    s.wy = w.g;
+    s.wz = w.b;
+    mf_ok = (wo_z * s.wz) > 0.0f && wo_z != 0.0f;
   } else if (lc.kind == LOBE_SPEC_REFL) {
     s.wx = -wol_x;
     s.wy = -wol_y;
@@ -833,9 +966,9 @@ __device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, floa
     s.wy = dyo;
     s.wz = z_cos;
   }
-  lobe_f(lc, wol_x, wol_y, wo_z, s.wx, s.wy, s.wz, s.f);
-  s.pdf = lobe_pdf(lc, wol_x, wol_y, wo_z, s.wx, s.wy, s.wz);
-  if (!mf_ok) s.f[0] = s.f[1] = s.f[2] = 0.0f;
+  lobe_f<kDisney>(lc, wol_x, wol_y, wo_z, s.wx, s.wy, s.wz, s.f);
+  s.pdf = lobe_pdf<kDisney>(lc, wol_x, wol_y, wo_z, s.wx, s.wy, s.wz);
+  if (!mf_ok) s.f[0] = s.f[1] = s.f[2] = 0.0f;  // every caller gates on f
   const float aci = fmaxf(fabsf(s.wz), 1e-20f);
   if (lc.kind == LOBE_SPEC_REFL) {
     float fr[3];

@@ -20,7 +20,9 @@
 // environment sample, and for the environment the BSDF sample whose ray
 // escapes toward it), an any-hit shadow ray, one BSDF sample over lambert /
 // Trowbridge-Reitz microfacet / specular-reflect / fresnel-specular lobes
-// with the etaScale factor, Russian roulette after bounce 3, and for a scene
+// and the Disney diffuse, retro, sheen, clearcoat and microfacet lobes
+// (common.cuh's lobe functions with kDisney set: K5 e) with the etaScale
+// factor, Russian roulette after bounce 3, and for a scene
 // with `infinite_lights` the escape radiance at bounce 0 or after a specular
 // bounce, one step past max_depth.  Output: RGB radiance (and for the camera
 // instances the camera weight) per ray.
@@ -317,7 +319,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
       if (f_gate) {
         for (int l = 0; l < n_lob; ++l) {
           float lf[3];
-          lobe_f(load_lobe(row, l), wol_x, wol_y, wo_z, wil_x, wil_y, wil_z, lf);
+          lobe_f<true>(load_lobe(row, l), wol_x, wol_y, wo_z, wil_x, wil_y, wil_z, lf);
           for (int c = 0; c < 3; ++c) fn[c] = fn[c] + lf[c];
         }
       }
@@ -369,10 +371,10 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
         if (is_spec_kind(lob.kind)) continue;
         if (f_gate) {
           float lf[3];
-          lobe_f(lob, wol_x, wol_y, wo_z, wil_x, wil_y, wil_z, lf);
+          lobe_f<true>(lob, wol_x, wol_y, wo_z, wil_x, wil_y, wil_z, lf);
           for (int c = 0; c < 3; ++c) fn[c] = fn[c] + lf[c];
         }
-        pdf_scat = pdf_scat + lobe_pdf(lob, wol_x, wol_y, wo_z, wil_x, wil_y, wil_z);
+        pdf_scat = pdf_scat + lobe_pdf<true>(lob, wol_x, wol_y, wo_z, wil_x, wil_y, wil_z);
         ++cnt;
       }
       pdf_scat = (wo_z != 0.0f && cnt > 0) ? pdf_scat / (float)max(cnt, 1) : 0.0f;
@@ -396,7 +398,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
       if (w.has_env && kind == LIGHT_ENV_KIND && n_lob > 0 && wo_z != 0.0f) {
         float us0, us1;
         smp.get_2d(dim0 + 2, us0, us1);
-        const BsdfSample s2 = bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, us0, us1);
+        const BsdfSample s2 = bsdf_sample<true>(row, n_lob, wol_x, wol_y, wo_z, us0, us1);
         const float w2x = ssx * s2.wx + tsx * s2.wy + nsx * s2.wz;
         const float w2y = ssy * s2.wx + tsy * s2.wy + nsy * s2.wz;
         const float w2z = ssz * s2.wx + tsz * s2.wy + nsz * s2.wz;
@@ -420,7 +422,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
     // ---- BSDF sample (Bsdf::sample_f, reference-quirk exact) ----
     float ub0, ub1;
     smp.get_2d(dim0 + 3, ub0, ub1);
-    const BsdfSample bs = bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1);
+    const BsdfSample bs = bsdf_sample<true>(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1);
     const float nwx = ssx * bs.wx + tsx * bs.wy + nsx * bs.wz;
     const float nwy = ssy * bs.wx + tsy * bs.wy + nsy * bs.wz;
     const float nwz = ssz * bs.wx + tsz * bs.wy + nsz * bs.wz;

@@ -34,21 +34,28 @@ from ..core.vec import dot
 from ..lights import lights as lmod
 from ..ops import bvh_kernel as bk
 from ..ops import intersect_kernel as ik
-from ..ops.path_megakernel import LOBES_MAX, _resolve_mat_arrays, fill_lobe_columns
+from ..bsdf.lobes import MAX_LOBES
+from ..ops.path_megakernel import _resolve_mat_arrays, fill_lobe_columns
 from ..scene.types import LIGHT_INFINITE
 
 BRUTE_FORCE_CUTOFF = 256  # accel/bvh.py: brute force up to here
 
 
 def material_rows(materials, device):
-    """(M, 16 + 16 * slots) float32: each material's lobe count, lobes and
-    Bsdf eta in pack_scene's column layout (bsdf/eval), slots the most
-    lobes any material has (at least one)."""
+    """(M, 16 + (16 + EXTRA_COLS) * slots) float32: each material's lobe
+    count, lobes and Bsdf eta in pack_scene's column layout, then each
+    lobe's scale and distribution code (bsdf/eval), slots the most lobes
+    any material has (at least one, at most MAX_LOBES)."""
     n_mats = materials["n_lobes"].shape[0]
     r = _resolve_mat_arrays(materials, np.arange(n_mats))
-    slots = int(min(LOBES_MAX, max(1, r["n_lobes"].max(initial=1))))
-    rows = np.zeros((n_mats, 16 + 16 * slots), np.float32)
+    slots = int(min(MAX_LOBES, max(1, r["n_lobes"].max(initial=1))))
+    rows = np.zeros((n_mats, 16 + (16 + beval.EXTRA_COLS) * slots), np.float32)
     fill_lobe_columns(rows, r, slots)
+    extra = 16 + 16 * slots
+    for l in range(min(slots, r["kinds"].shape[1])):
+        c = extra + beval.EXTRA_COLS * l
+        rows[:, c:c + 3] = r["scale"][:, l]
+        rows[:, c + 3] = r["dist"][:, l]
     return torch.as_tensor(rows, device=device)
 
 

@@ -19,9 +19,11 @@ This is the JAX package's `li_path`, the jnp twin of the path kernel K1;
 the render takes it where K1 does not: partial spheres, more than 8
 spheres or lights, distant and triangle lights, more than one
 environment light, an environment light beside a specular lobe, meshes
-past K1's 65,536 triangles (`unsupported_feature` names what it does not
-take either: BSSRDF, textures and image-map environments are outside the
-port's loader already).
+past K1's 65,536 triangles, and the materials K1 does not take: matte
+with sigma > 0 (Oren-Nayar), rough glass, TranslucentMaterial,
+MixMaterial, thin or transmissive DisneyMaterial (`unsupported_feature`
+names what it does not take either: BSSRDF, textures and image-map
+environments are outside the port's loader already).
 """
 
 from typing import Optional
@@ -34,21 +36,24 @@ from ..core.vec import dot
 from ..accel.geometry import offset_ray_origin
 from ..lights.lights import has_escape, le_escape
 from ..ops import bvh_kernel as bk
-from ..ops.path_megakernel import DEPTH_MAX, PORTED_KINDS, scene_unsupported
+from ..ops.path_megakernel import DEPTH_MAX, WAVEFRONT_KINDS, scene_unsupported
 from ..sampler.dims import PATH_BSDF, PATH_RR, path_dim0
 from .common import uniform_sample_one_light
 
 
 def unsupported_feature(scene, spec, sampler) -> Optional[str]:
     """The first feature of the job outside the wavefront Path loop, or
-    None: the path kernel's lobes and samplers (stratified or Halton), any
-    number of spheres and lights of every loaded kind, up to BVH_PRIM_MAX
-    triangles, flat or with smooth vertex normals."""
+    None: every lobe the loader emits under Path (the path kernel's, and
+    Oren-Nayar, lambert and microfacet transmission, Disney's fake
+    subsurface, scaled lobes, up to MAX_LOBES a material, fresnel specular
+    among others), the stratified or Halton sampler, any number of spheres
+    and lights of every loaded kind, up to BVH_PRIM_MAX triangles, flat or
+    with smooth vertex normals."""
     if spec.kind != "path":
         return f"{spec.kind} integrator"
     if not 1 <= spec.max_depth <= DEPTH_MAX:
         return f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}"
-    return scene_unsupported(scene, sampler, PORTED_KINDS, tri_max=bk.BVH_PRIM_MAX,
+    return scene_unsupported(scene, sampler, WAVEFRONT_KINDS, tri_max=bk.BVH_PRIM_MAX,
                              wavefront=True, allow_smooth=True)
 
 

@@ -11,7 +11,8 @@ the grid density as numpy); `from_jax_sppm` carries the SPPM pieces (the
 packed table, the resolved material tables, visible points, state,
 photon lights and rays); `from_jax_scene_ctx` builds the wavefront
 loop's SceneCtx from a JAX SceneCtx's triangle and sphere SoAs (smooth
-vertex normals included), packed triangles, material table, lights,
+vertex normals included), packed triangles, material table (with each
+lobe's scale and distribution code), lights,
 environments and (optionally) its BVH kernel tables; `sampler_from_jax`
 builds the port's HaltonSampler with a JAX HaltonSampler's spec and
 seed.  Tests use
@@ -210,7 +211,8 @@ def from_jax_sppm(device, packed=None, resolved=None, vp=None, state=None, power
     return out
 
 
-MAT_KEYS = ("kind", "s0", "s1", "s2", "fparams", "remap", "fresnel", "n_lobes", "eta")
+MAT_KEYS = ("kind", "s0", "s1", "s2", "fparams", "remap", "fresnel", "n_lobes", "eta", "scale",
+            "dist")
 
 
 def _env_from_jax(env, rgb, device):

@@ -88,10 +88,17 @@ def _compile(cmd, src, flags):
     return out, proc.stdout + proc.stderr
 
 
-def build(name):
-    """Compile csrc/<name>.cu with nvcc unless an up-to-date library
+def build(name, src_dir=SRC_DIR):
+    """Compile <src_dir>/<name>.cu with nvcc unless an up-to-date library
     exists.  Returns (library path, nvcc's output or "" when cached)."""
-    return _compile(nvcc_path(), SRC_DIR / f"{name}.cu", NVCC_FLAGS)
+    return _compile(nvcc_path(), Path(src_dir) / f"{name}.cu", NVCC_FLAGS)
+
+
+def ptxas_lines(log):
+    """ptxas's per-instance lines of an nvcc log: the entry function, its
+    registers and its stack and spill."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
 
 
 def load(name):
@@ -105,3 +112,23 @@ def load_host(name):
     needed)."""
     path, _ = _compile("g++", REPO_CSRC / f"{name}.cpp", CXX_FLAGS)
     return ctypes.CDLL(str(path))
+
+
+def main(argv=None):
+    import argparse
+    from concurrent.futures import ThreadPoolExecutor
+
+    ap = argparse.ArgumentParser(description="build the kernel sources, print ptxas's lines")
+    ap.add_argument("--src", default=str(SRC_DIR))
+    src = Path(ap.parse_args(argv).src)
+    names = sorted(p.stem for p in src.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:
+        logs = dict(zip(names, pool.map(lambda n: build(n, src)[1], names)))
+    for name in names:
+        print(f"== {src / name}.cu")
+        for ln in ptxas_lines(logs[name]) or ["(cached build: no ptxas output)"]:
+            print(ln)
+
+
+if __name__ == "__main__":
+    main()

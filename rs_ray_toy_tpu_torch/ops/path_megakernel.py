@@ -13,9 +13,10 @@ spheres, NEE with an any-hit shadow ray (point lights alone: the delta
 form; with sphere or environment lights the power-heuristic MIS of
 estimate_direct and, for the environment, the BSDF sample whose ray
 escapes toward it), one BSDF sample (lambert, Trowbridge-Reitz
-microfacet, specular reflection, fresnel-specular glass) with the
-etaScale factor, Russian roulette after bounce 3, and with
-`infinite_lights` the escape radiance at bounce 0 or after a specular
+microfacet, specular reflection, fresnel-specular glass, and the Disney
+diffuse, retro, sheen, clearcoat and microfacet lobes of a constant
+DisneyMaterial) with the etaScale factor, Russian roulette after bounce
+3, and with `infinite_lights` the escape radiance at bounce 0 or after a specular
 bounce, one step past max_depth.  `li_path_mega` runs the same bounce
 loop on given rays.  The estimator is the JAX kernel's (`_raygen` +
 `_bounce_loop`), sample slot for sample slot, on its subset of up to 8
@@ -50,13 +51,27 @@ import torch
 
 from ..accel.bvh import STACK_DEPTH, build_bvh, pack_bvh_tables, tree_depth
 from ..bsdf.lobes import (
+    DIST_DISNEY_SEPARABLE_G,
     DIST_TROWBRIDGE_REITZ,
     FRESNEL_CONDUCTOR,
+    FRESNEL_DISNEY,
+    LOBE_DEBUG_DIFFUSE,
+    LOBE_DEBUG_SPECULAR,
+    LOBE_DISNEY_CLEARCOAT,
+    LOBE_DISNEY_DIFFUSE,
+    LOBE_DISNEY_FAKE_SS,
+    LOBE_DISNEY_MICROFACET_REFL,
+    LOBE_DISNEY_RETRO,
+    LOBE_DISNEY_SHEEN,
     LOBE_FRESNEL_SPEC,
     LOBE_LAMBERT_REFL,
+    LOBE_LAMBERT_TRANS,
     LOBE_MF_REFL,
+    LOBE_MF_TRANS,
+    LOBE_OREN_NAYAR,
     LOBE_SPEC_REFL,
     LOBE_SPEC_TRANS,
+    MAX_LOBES,
 )
 from ..bsdf.eval import (  # noqa: F401 (the lobe helpers, shared with the other kernels)
     _bsdf_sample,
@@ -96,7 +111,30 @@ ELEM_MAX = 16  # lens elements
 BIN_MAX = 64  # exit-pupil bins
 BIG_T = 3.0e38
 SPEC_KINDS = (LOBE_SPEC_REFL, LOBE_SPEC_TRANS, LOBE_FRESNEL_SPEC)
-PORTED_KINDS = (LOBE_LAMBERT_REFL, LOBE_MF_REFL, LOBE_SPEC_REFL, LOBE_FRESNEL_SPEC)
+# the lobes of the Volpath and SPPM kernels; the path kernel adds Disney's
+# (K5 e), the wavefront loop every lobe the loader emits under Path
+BASE_KINDS = (LOBE_LAMBERT_REFL, LOBE_MF_REFL, LOBE_SPEC_REFL, LOBE_FRESNEL_SPEC)
+DISNEY_KINDS = (LOBE_DISNEY_DIFFUSE, LOBE_DISNEY_RETRO, LOBE_DISNEY_SHEEN,
+                LOBE_DISNEY_CLEARCOAT, LOBE_DISNEY_MICROFACET_REFL)
+PORTED_KINDS = BASE_KINDS + DISNEY_KINDS
+WAVEFRONT_KINDS = PORTED_KINDS + (LOBE_OREN_NAYAR, LOBE_LAMBERT_TRANS, LOBE_MF_TRANS,
+                                  LOBE_DISNEY_FAKE_SS)
+# what a kernel that does not take a lobe kind names in its error
+LOBE_NAMES = {
+    LOBE_OREN_NAYAR: "Oren-Nayar (MatteMaterial sigma > 0)",
+    LOBE_LAMBERT_TRANS: "lambert transmission (TranslucentMaterial, thin DisneyMaterial)",
+    LOBE_SPEC_TRANS: "specular transmission",
+    LOBE_MF_TRANS: "microfacet transmission (rough GlassMaterial, TranslucentMaterial,"
+                   " DisneyMaterial spec_trans)",
+    LOBE_DEBUG_DIFFUSE: "Debug material",
+    LOBE_DEBUG_SPECULAR: "Debug material",
+    LOBE_DISNEY_DIFFUSE: "Disney diffuse (DisneyMaterial)",
+    LOBE_DISNEY_FAKE_SS: "Disney fake subsurface (thin DisneyMaterial)",
+    LOBE_DISNEY_RETRO: "Disney retro-reflection (DisneyMaterial)",
+    LOBE_DISNEY_SHEEN: "Disney sheen (DisneyMaterial)",
+    LOBE_DISNEY_CLEARCOAT: "Disney clearcoat (DisneyMaterial)",
+    LOBE_DISNEY_MICROFACET_REFL: "Disney microfacet (DisneyMaterial)",
+}
 
 ENV_BINS = 16  # theta and phi rows of a constant map's Distribution2D (8x8 texels)
 SLOT_MAX = 176  # sampler slots the slot-to-row map covers: path_dim0(DEPTH_MAX), rounded up
@@ -236,7 +274,9 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     with `path` or `wavefront`), up to tri_max (default BVH_TRI_MAX)
     triangles, flat unless `allow_smooth`, up to LIGHT_MAX point lights,
     and every live lobe of a used material among `kinds` (microfacets:
-    visible-normal Trowbridge-Reitz only); no media.  With `volpath`,
+    visible-normal Trowbridge-Reitz only; unscaled, up to LOBES_MAX of
+    them and fresnel specular alone, except in the wavefront loop, which
+    takes up to MAX_LOBES); no media.  With `volpath`,
     sphere lights too, and the Volpath kernel checks the medium itself.
     With `path` (the path kernel) up to SPH_MAX full spheres and point,
     sphere and one environment light, the environment only without
@@ -271,24 +311,44 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     if used.size == 0 and not wavefront:
         return "scenes without materials"
     n_lobes = mats["n_lobes"]
-    if np.any(n_lobes[used] > LOBES_MAX):
-        return f"materials with more than {LOBES_MAX} lobes"
+    lobes_max = MAX_LOBES if wavefront else LOBES_MAX
+    if np.any(n_lobes[used] > lobes_max):
+        return f"materials with more than {lobes_max} lobes"
     spec_live = False
     for m in used:
         for l in range(int(n_lobes[m])):
             kind = int(mats["kind"][m, l])
             if kind not in kinds:
-                return f"lobe kind {kind}"
+                return f"{LOBE_NAMES.get(kind, f'lobe kind {kind}')} lobes"
             spec_live |= kind in SPEC_KINDS
-            if kind == LOBE_MF_REFL and (
-                mats["dist"][m, l] != DIST_TROWBRIDGE_REITZ
-                or not mats["sample_visible"][m, l]
-                or not 0 <= mats["fresnel"][m, l] <= FRESNEL_CONDUCTOR
-            ):
-                return "microfacet lobes other than visible-normal Trowbridge-Reitz"
-            if kind == LOBE_FRESNEL_SPEC and n_lobes[m] > 1:
+            reason = _lobe_unsupported(mats, m, l, kind, wavefront)
+            if reason is not None:
+                return reason
+            if kind == LOBE_FRESNEL_SPEC and n_lobes[m] > 1 and not wavefront:
                 return "fresnel-specular lobes in a multi-lobe material"
     return _light_unsupported(scene, volpath, path, wavefront, spec_live)
+
+
+def _lobe_unsupported(mats, m, l, kind, wavefront):
+    """The per-lobe checks of scene_unsupported: microfacets with
+    visible-normal Trowbridge-Reitz sampling (the reflection lobe with a
+    dielectric or conductor fresnel, Disney's with its fresnel and
+    separable G, transmission with either G); a scale other than 1 only
+    in the wavefront loop."""
+    dist, fres = mats["dist"][m, l], mats["fresnel"][m, l]
+    visible = mats["sample_visible"][m, l]
+    if kind == LOBE_MF_REFL and (dist != DIST_TROWBRIDGE_REITZ or not visible
+                                 or not 0 <= fres <= FRESNEL_CONDUCTOR):
+        return "microfacet lobes other than visible-normal Trowbridge-Reitz"
+    if kind == LOBE_DISNEY_MICROFACET_REFL and (dist != DIST_DISNEY_SEPARABLE_G or not visible
+                                                or fres != FRESNEL_DISNEY):
+        return "Disney microfacet lobes other than the separable-G Disney-fresnel form"
+    if kind == LOBE_MF_TRANS and (dist not in (DIST_TROWBRIDGE_REITZ, DIST_DISNEY_SEPARABLE_G)
+                                  or not visible):
+        return "microfacet transmission other than visible-normal Trowbridge-Reitz"
+    if not wavefront and np.any(mats["scale"][m, l] != 1.0):
+        return "scaled lobes (TranslucentMaterial reflect / transmit, MixMaterial scale)"
+    return None
 
 
 def unsupported_feature(scene, spec, sampler) -> Optional[str]:
@@ -309,8 +369,9 @@ def supports(scene, spec, sampler) -> bool:
 def _resolve_mat_arrays(m, mat):
     """Per-triangle material constants: kind, s0, s1, s2, alpha after the
     roughness remap, fresnel code, eta pair, n_lobes and the Bsdf eta
-    (ops/path_megakernel._resolve_mat_arrays).  The remap runs in the
-    table's float32, as in the JAX package."""
+    (ops/path_megakernel._resolve_mat_arrays), and for the wavefront rows
+    the lobes' scale and distribution code.  The remap runs in the table's
+    float32, as in the JAX package."""
     safe = np.maximum(mat, 0)
     kinds = m["kind"][safe]
     fp = m["fparams"][safe]
@@ -331,6 +392,8 @@ def _resolve_mat_arrays(m, mat):
         eb=np.where(is_spec, fp[..., 1], fp[..., 3]),
         n_lobes=m["n_lobes"][safe] * (mat >= 0),
         mat_eta=m["eta"][safe],
+        scale=m["scale"][safe],
+        dist=m["dist"][safe],
     )
 
 
@@ -1200,6 +1263,34 @@ def tally(work, key, count):
         work[key] = work.get(key, 0) + count.sum()
 
 
+# FP32 operations of one Disney lobe's f and pdf, counted from common.cuh's
+# lobe_f / lobe_pdf (each add, multiply, divide, square root, min / max,
+# abs and compare one; log10f sixteen), beyond the 3 of every lobe
+# evaluation ("lobe"): f, then pdf
+DISNEY_OPS = {
+    LOBE_DISNEY_DIFFUSE: (41 - 3, 10),
+    LOBE_DISNEY_RETRO: (50 - 3, 10),
+    LOBE_DISNEY_SHEEN: (47 - 3, 10),
+    LOBE_DISNEY_CLEARCOAT: (81 - 3, 62),
+    LOBE_DISNEY_MICROFACET_REFL: (201 - 3, 100),
+}
+_OPS_F = torch.zeros(32, dtype=torch.int64)  # by kind code
+_OPS_PDF = torch.zeros(32, dtype=torch.int64)
+for _k, (_f, _p) in DISNEY_OPS.items():
+    _OPS_F[_k], _OPS_PDF[_k] = _f, _p
+
+
+def tally_lobe(work, mask, kind, pdf):
+    """One lobe evaluation on the lanes of `mask` ("lobe"), and for the
+    Disney kinds their operations beyond it ("disney_ops"): f, and the
+    pdf too where `pdf`."""
+    if work is None:
+        return
+    tally(work, "lobe", mask)
+    ops = _OPS_F + _OPS_PDF if pdf else _OPS_F
+    tally(work, "disney_ops", torch.where(mask, ops.to(kind.device)[kind.long()], 0))
+
+
 PLAIN_BLOCK = 1 << 22  # elements of the (rays, triangles) block a brute-force plain test takes
 
 
@@ -1731,7 +1822,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
             for l in range(max_lobes):
                 lf = _lobe_f(lobes[l], wol_x, wol_y, wo_z, wil_x, wil_y, wil_z)
                 use = f_gate & (l < n_lob)
-                tally(work, "lobe", active & use)
+                tally_lobe(work, active & use, lobes[l]["kind"], pdf=False)
                 fn = [fn[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
             cos_ns = torch.abs(wil_z)
             off = torch.where(wi_ng < 0.0, -eps, eps)
@@ -1767,7 +1858,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
                 use = f_gate & m_l
                 fn = [fn[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
                 lpdf = _lobe_pdf(lobes[l], wol_x, wol_y, wo_z, wil_x, wil_y, wil_z)
-                tally(work, "lobe", active & m_l)
+                tally_lobe(work, active & m_l, lobes[l]["kind"], pdf=True)
                 pdf_scat = pdf_scat + torch.where(m_l, lpdf, 0.0)
                 cnt = cnt + m_l
             pdf_scat = torch.where((wo_z != 0.0) & (cnt > 0),
@@ -1795,7 +1886,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
                 tally_slots(work, sampler, 2 * (active & sel_env & (n_lob > 0) & (wo_z != 0.0)))
                 w2sx, w2sy, w2sz, f2s, pdf2, _ = _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z,
                                                                us[:, 0], us[:, 1])
-                tally(work, "lobe", active & sel_env)
+                tally_lobe(work, active & sel_env, _chosen_kind(row, n_lob, us[:, 0]), pdf=True)
                 w2x = ssx * w2sx + tsx * w2sy + nsx * w2sz
                 w2y = ssy * w2sx + tsy * w2sy + nsy * w2sz
                 w2z = ssz * w2sx + tsz * w2sy + nsz * w2sz
@@ -1821,7 +1912,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
         wsx, wsy, wsz, fs, pdf, transmitted = _bsdf_sample(
             row, n_lob, wol_x, wol_y, wo_z, ub[:, 0], ub[:, 1]
         )
-        tally(work, "lobe", active)
+        tally_lobe(work, active, _chosen_kind(row, n_lob, ub[:, 0]), pdf=True)
         nwx = ssx * wsx + tsx * wsy + nsx * wsz
         nwy = ssy * wsx + tsy * wsy + nsy * wsz
         nwz = ssz * wsx + tsz * wsy + nsz * wsz

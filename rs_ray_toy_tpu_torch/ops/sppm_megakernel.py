@@ -21,7 +21,7 @@ and the Morton-sorted deposit (K10), one CUDA source
 
 Subset (`unsupported_feature`): triangles (brute force up to TRI_MAX,
 the BVH above), up to LIGHT_MAX point lights, no media, the path
-kernel's lobes (PORTED_KINDS), max_depth 2..DEPTH_MAX.  The triangle
+kernel's lobes without Disney's (BASE_KINDS), max_depth 2..DEPTH_MAX.  The triangle
 table is pack_scene's, whose column 47 carries the material id; the VP's
 BSDF in the deposit comes from `resolve_mat_tables`, one row per
 material in the table's lobe layout.
@@ -91,7 +91,7 @@ def unsupported_feature(scene, spec) -> Optional[str]:
         return f"max_depth {spec.max_depth} outside 2..{DEPTH_MAX}"
     if scene.mediums:
         return "participating media (Camera.medium) in SPPM"
-    return pmk.scene_unsupported(scene, None, pmk.PORTED_KINDS)
+    return pmk.scene_unsupported(scene, None, pmk.BASE_KINDS)
 
 
 def supports(scene, spec) -> bool:

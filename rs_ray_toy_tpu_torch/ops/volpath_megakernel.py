@@ -93,7 +93,7 @@ def unsupported_feature(scene, spec, sampler):
     lk = np.asarray(scene.lights.kind)
     if scene.mediums[0].kind == "grid" and np.any(lk != LIGHT_POINT):
         return "grid media with lights other than point lights"
-    return pmk.scene_unsupported(scene, sampler, pmk.PORTED_KINDS, volpath=True)
+    return pmk.scene_unsupported(scene, sampler, pmk.BASE_KINDS, volpath=True)
 
 
 def supports(scene, spec, sampler) -> bool:

@@ -2,7 +2,8 @@
 
 Parses the reference's scene schema with the same typed accessors and
 defaults (renderprocess.rs:136-252).  Ported: materials (matte, plastic,
-metal, mirror, glass, debug), `objs`, triangle and sphere primitives with
+metal, mirror, glass, translucent, mix, Disney without a BSSRDF, debug),
+`objs`, triangle and sphere primitives with
 `instances` (spheres with their z / phi clips), point and distant lights,
 diffuse lights on a sphere (a partial one sampled whole, as the JAX
 loader does) or one triangle `light_shape`, infinite lights in `lights`
@@ -223,7 +224,6 @@ _UNPORTED_SECTIONS = (
     ("float_texture", "textures"),
     ("rgb_texture", "textures"),
 )
-_UNPORTED_MATERIALS = ("TranslucentMaterial", "MixMaterial", "DisneyMaterial")
 
 
 def load_scene(path: str) -> RenderJob:
@@ -242,10 +242,12 @@ def load_scene(path: str) -> RenderJob:
 
     mat_builder = MaterialTableBuilder()
     mat_ids: Dict[str, int] = {}
+    host_mats = {}  # MixMaterial names materials defined before it
     for mat_cfg in cfg.get("materials", []) or []:
-        hm = _make_material(mat_cfg, allow_multiple_lobes)
+        hm = _make_material(mat_cfg, host_mats, allow_multiple_lobes)
         if hm is not None:
             mat_ids[hm.name] = mat_builder.add(hm)
+            host_mats[hm.name] = hm
 
     meshes: Dict[str, Dict] = {}
     for obj_cfg in cfg.get("objs", []) or []:
@@ -300,7 +302,7 @@ def _float_param(cfg, key, default):
     return default
 
 
-def _make_material(cfg, allow_multiple_lobes):
+def _make_material(cfg, host_mats, allow_multiple_lobes):
     mtype = read_string(cfg, "material_type", "")
     name = read_string(cfg, "material_name", "DefaultMaterialName")
     remap = read_bool(cfg, "remap_roughness", False)
@@ -323,10 +325,32 @@ def _make_material(cfg, allow_multiple_lobes):
             name, R("kr", 1.0), R("kt", 1.0), F("u_roughness", 0.0),
             F("v_roughness", 0.0), F("eta", 1.5), remap, allow_multiple_lobes,
         )
+    if mtype == "TranslucentMaterial":
+        return recipes.translucent(
+            name, R("kd", 0.25), R("ks", 0.25), F("roughness", 0.1), R("reflect", 0.25),
+            R("transmit", 0.25), remap,
+        )
+    if mtype == "MixMaterial":
+        m1 = host_mats.get(read_string(cfg, "mat1", ""))
+        m2 = host_mats.get(read_string(cfg, "mat2", ""))
+        if m1 is None or m2 is None:
+            return None
+        return recipes.mix(name, m1, m2, R("scale", 0.5))
+    if mtype == "DisneyMaterial":
+        thin = read_bool(cfg, "thin", False)
+        if recipes.disney_bssrdf(thin, R("scatter_distance", 0.0)):
+            raise NotImplementedError(
+                f"BSSRDF (DisneyMaterial scatter_distance) of material type DisneyMaterial"
+                f" '{name}': subsurface scattering is not ported"
+            )
+        return recipes.disney(
+            name, R("color", 0.5), F("metallic", 0.0), F("eta", 1.5), F("roughness", 0.5),
+            F("specular_tint", 0.0), F("anisotropic", 0.0), F("sheen", 0.0),
+            F("sheen_tint", 0.5), F("clearcoat", 0.0), F("clearcoat_gloss", 1.0),
+            F("spec_trans", 0.0), thin, F("flatness", 0.0), F("diff_trans", 1.0),
+        )
     if mtype == "Debug":
         return recipes.debug(name)
-    if mtype in _UNPORTED_MATERIALS:
-        raise NotImplementedError(f"material type {mtype}")
     return None
 
 

@@ -2,7 +2,8 @@
 samples/scene_fog.json, samples/scene_sppm.json, samples/scene_ao.json,
 samples/scene_sphere_area.json, samples/scene_env.json,
 samples/scene_furnace.json, samples/scene_halton.json,
-samples/scene_smooth.json, samples/cube.obj and samples/sphere_smooth.obj.
+samples/scene_smooth.json, samples/scene_disney.json,
+samples/scene_materials.json, samples/cube.obj and samples/sphere_smooth.obj.
 
 This fixture stands in for the reference renderer's `samples/scene.json`,
 which is not part of this repository.  It follows the reference's scene
@@ -54,6 +55,22 @@ normals are the vertex directions, so that Path shades it smooth: one
 matte of radius 1.2 at (34, 0.8, 0.5), one plastic of radius 0.8 at
 (36, -1.2, -1.5), 1,956 triangles in all (under the path kernel's
 brute-force limit of 2,048).
+
+scene_disney.json is scene.json with every cube in the JAX package's plain
+Disney material (tests/test_megakernel.py:541-549: color (0.8, 0.5, 0.3),
+roughness 0.4, metallic 0.3, sheen 0.5, clearcoat 0.6: the five-lobe
+stack of diffuse, retro, sheen, Disney microfacet and clearcoat) and a
+full sphere of radius 1.2 at (34, 0.8, 0.5) in a second Disney material
+(metallic 0.5, anisotropic 0.5, specular_tint 0.5, no sheen or
+clearcoat: the three-lobe stack, with ax != ay).  The path kernel takes
+it.
+
+scene_materials.json is the same stage in the materials the path kernel
+does not take, which Path renders through the wavefront loop: the cubes
+in Oren-Nayar matte (sigma 20), a TranslucentMaterial and a MixMaterial
+of matte and metal (scale 0.3), and three spheres in rough glass
+(u = v = 0.2), a thin Disney material (flatness 0.5, diff_trans 0.6,
+spec_trans 0.3) and a Disney material with spec_trans 0.4.
 
 The scene is synthetic.  In particular its `lens_data` is NOT the
 reference's lens prescription: it is the classic 50 mm f/2 double-Gauss
@@ -326,6 +343,66 @@ def scene_smooth():
     return cfg
 
 
+DISNEY_PLAIN = {
+    "material_type": "DisneyMaterial",
+    "material_name": "mat_disney",
+    "color": {"values": [0.8, 0.5, 0.3]},
+    "roughness": 0.4,
+    "metallic": 0.3,
+    "sheen": 0.5,
+    "clearcoat": 0.6,
+}
+
+
+def _sphere(material, radius, pos):
+    return {"primitive_type": "sphere", "material_name": material, "radius": radius,
+            "world_pos": pos}
+
+
+def scene_disney():
+    cfg = scene()
+    cfg["materials"] += [
+        DISNEY_PLAIN,
+        {"material_type": "DisneyMaterial", "material_name": "mat_disney_aniso",
+         "color": {"values": [0.3, 0.6, 0.8]}, "roughness": 0.3, "metallic": 0.5,
+         "anisotropic": 0.5, "specular_tint": 0.5},
+    ]
+    for prim in cfg["Aggregate"]["primitives"]:
+        prim["material_name"] = "mat_disney"
+    cfg["Aggregate"]["primitives"].append(_sphere("mat_disney_aniso", 1.2, [34.0, 0.8, 0.5]))
+    return cfg
+
+
+def scene_materials():
+    cfg = scene()
+    cfg["materials"] += [
+        {"material_type": "MatteMaterial", "material_name": "mat_oren_nayar",
+         "kd": {"values": [0.7, 0.6, 0.5]}, "sigma": 20.0},
+        {"material_type": "GlassMaterial", "material_name": "mat_rough_glass",
+         "u_roughness": 0.2, "v_roughness": 0.2, "eta": 1.5},
+        {"material_type": "TranslucentMaterial", "material_name": "mat_translucent",
+         "kd": {"values": [0.5, 0.6, 0.4]}, "ks": {"values": [0.3, 0.3, 0.3]},
+         "roughness": 0.2, "reflect": {"values": [0.6, 0.6, 0.6]},
+         "transmit": {"values": [0.4, 0.4, 0.4]}},
+        {"material_type": "MixMaterial", "material_name": "mat_mix", "mat1": "mat_matte",
+         "mat2": "mat_metal", "scale": {"values": [0.3, 0.3, 0.3]}},
+        {"material_type": "DisneyMaterial", "material_name": "mat_disney_thin", "thin": True,
+         "color": {"values": [0.8, 0.5, 0.3]}, "roughness": 0.4, "flatness": 0.5,
+         "diff_trans": 0.6, "spec_trans": 0.3},
+        {"material_type": "DisneyMaterial", "material_name": "mat_disney_trans",
+         "color": {"values": [0.6, 0.8, 0.7]}, "roughness": 0.3, "spec_trans": 0.4},
+    ]
+    prims = cfg["Aggregate"]["primitives"]
+    for prim, material in zip(prims, ("mat_oren_nayar", "mat_translucent", "mat_mix")):
+        prim["material_name"] = material
+    prims += [
+        _sphere("mat_rough_glass", 1.2, [34.0, 0.8, 0.5]),
+        _sphere("mat_disney_thin", 0.8, [36.0, -1.2, -1.5]),
+        _sphere("mat_disney_trans", 0.9, [33.0, -2.8, 1.6]),
+    ]
+    return cfg
+
+
 def main(out_dir=HERE):
     with open(os.path.join(out_dir, "cube.obj"), "w") as fh:
         fh.write(cube_obj())
@@ -342,6 +419,8 @@ def main(out_dir=HERE):
         ("scene_furnace.json", scene_furnace()),
         ("scene_halton.json", scene_halton()),
         ("scene_smooth.json", scene_smooth()),
+        ("scene_disney.json", scene_disney()),
+        ("scene_materials.json", scene_materials()),
     ):
         with open(os.path.join(out_dir, name), "w") as fh:
             json.dump(cfg, fh, indent=1)

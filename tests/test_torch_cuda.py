@@ -2,7 +2,8 @@
 kernels and the SPPM camera and photon walks, brute force and BVH, the
 SPPM deposit, and the wavefront loop's intersection kernels K4 and K3;
 the path kernel's Halton and smooth instances and K3's smooth shaded
-instance) against their plain PyTorch versions.
+instance; the Disney lobes in the path kernel, and the wavefront loop
+on the materials only it takes) against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -453,11 +454,13 @@ def _wide_bar(l, l_ref, q99=1e-5):
 
 
 @pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
-@pytest.mark.parametrize("scene", ["scene_sphere_area.json", "scene_env.json"])
+@pytest.mark.parametrize("scene", ["scene_sphere_area.json", "scene_env.json",
+                                   "scene_disney.json"])
 def test_wide_kernel_instances_match_plain_versions(tmp_path, scene, bvh):
-    """The widened path kernel on the sphere-area and environment fixtures:
-    the camera instance (#1, #2 with the BVH) and the rays-in instance
-    (#3, #4) on the same camera rays, each against its plain version."""
+    """The widened path kernel on the sphere-area, environment and Disney
+    fixtures: the camera instance (#1, #2 with the BVH) and the rays-in
+    instance (#3, #4) on the same camera rays, each against its plain
+    version."""
     from rs_ray_toy_tpu_torch.render import camera_rays
 
     dev = _device()
@@ -483,6 +486,34 @@ def test_wide_kernel_instances_match_plain_versions(tmp_path, scene, bvh):
     torch.cuda.synchronize()
     assert pmk.LAUNCHES[name] == before + 1
     _wide_bar(l, pmk.li_path_mega_reference(*rays))
+
+
+def test_materials_render_through_the_wavefront_loop(tmp_path):
+    """samples/scene_materials.json (Oren-Nayar, Translucent, Mix, rough
+    glass, thin and transmissive Disney) renders through the wavefront
+    loop's K4, no path-kernel launch; its li_path on the card matches the
+    same on the CPU at 80x45x16 (the per-ray bar, 1,000 lit rays)."""
+    from rs_ray_toy_tpu_torch.integrators.path import li_path
+    from rs_ray_toy_tpu_torch.render import camera_rays
+
+    dev = _device()
+    job = _job(tmp_path, scene="scene_materials.json")
+    before = dict(pmk.LAUNCHES)
+    res = render_job(job, dev, pupil_samples=1 << 16)
+    assert res["render_path"] == "wavefront" and dict(pmk.LAUNCHES) == before
+    assert res["launches"]["intersect"] > 0
+    assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
+    job = _job(tmp_path, 80, 45, scene="scene_materials.json")
+    sampler = StratifiedSampler(job.sampler)
+    camera = RealisticCamera(job.camera, job.film, pupil_samples=1 << 16, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    o, d, w = camera_rays(camera, sampler, pxy, pid, soff)
+    l = li_path(SceneCtx.from_scene(job.scene, dev), o, d, w, sampler, pid, soff, job.integrator)
+    cpu = torch.device("cpu")
+    l_ref = li_path(SceneCtx.from_scene(job.scene, cpu), o.cpu(), d.cpu(), w.cpu(), sampler,
+                    pid.cpu(), soff.cpu(), job.integrator)
+    assert int((l_ref.amax(-1) > 0).sum()) >= 1000
+    _wide_bar(l.cpu(), l_ref)
 
 
 def test_halton_kernel_marks_a_slot_the_host_did_not_list(monkeypatch):

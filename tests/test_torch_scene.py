@@ -183,8 +183,10 @@ UNSUPPORTED = {
     "HaltonSampler": _halton_under("Debug"),
     # AO renders through the wavefront loop, which takes no camera medium
     "AO integrator": _volpath(integrator="AO"),
+    # a Disney material with a BSSRDF (non-zero scatter_distance, not thin)
     "material type DisneyMaterial": _set(
-        "materials", [{"material_type": "DisneyMaterial", "material_name": "d"}]
+        "materials", [{"material_type": "DisneyMaterial", "material_name": "d",
+                       "scatter_distance": {"values": [0.5, 0.3, 0.2]}}]
     ),
 }
 
