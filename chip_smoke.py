@@ -147,12 +147,39 @@ Phase 10 every untextured material of the scene schema: (a)
          on stderr and rendered through the wavefront loop's K4 alone,
          no path-kernel launch, and its li_path on the card against the
          same on the CPU on 80x45x16 camera rays, held as 7d.
+Phase 11 subsurface Path, the path kernel's BSSRDF instances: (a)
+         samples/scene_sss.json (every cube in the bench's mat_sss, the
+         JAX bench's `sss` row) at 640x360x16 through deploy_render, one
+         launch of the subsurface camera instance a pass; (b) its grid
+         (19,224 triangles in mat_sss) at 640x360x8 through the BVH
+         instance #2; (c) the rays-in instances #3 and #4 on (a)'s and
+         (b)'s camera rays; (d) the Halton instances, camera and rays-in,
+         on both at 640x360 x 6 Halton samples; each held to the per-ray
+         bar against its plain version on a seeded subset; (e)
+         samples/scene_sss_mixed.json (two cubes in mat_sss, one matte,
+         a sphere light) at 640x360x16 through deploy_render, announced
+         on stderr and rendered through the wavefront loop's K4 alone
+         (the probe chain's closest hits among its queries), and its
+         li_path on the card against the same on the CPU on 160x90x16
+         camera rays, held as 7d; then its grid (the first cube replaced
+         by 19,200 triangles in mat_sss) through the wavefront loop over
+         K3: shaded, any-hit and, for the probe chain, closest-hit
+         launches (the `bvh` entry's `closest_launches`), no other; the
+         closest-hit instance held to its plain version as in 7 on the
+         chain's first batch (segments cut off at seg_len (1 - 1e-4)), its
+         times the `bvh` entry's `closest_ms`, `closest_plain_ms` and
+         `closest_bound_ms`; and the grid's li_path on the card against
+         the CPU on 80x45x16 camera rays.  Every hold of this phase also
+         meets the bar over its lit rays alone (a reference ray with any
+         radiance, at least 1,000 of them): under 0.5% of them past 1e-3
+         relative and, where kernel and plain version trace the same rays
+         (not the camera instances), their 99th percentile under 1e-5.
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
 loop) and none of the others.  Every phase
 prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the 29 kernels, the last line
+second-to-last line is a JSON record of the 37 kernels, the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
 build/chip_smoke/chip_smoke.json and the images beside it.  Without a
 CUDA device, or without the rest of the repository, it exits non-zero
@@ -276,6 +303,8 @@ SCENE_HALTON = ROOT / "samples" / "scene_halton.json"
 SCENE_SMOOTH = ROOT / "samples" / "scene_smooth.json"
 SCENE_DISNEY = ROOT / "samples" / "scene_disney.json"
 SCENE_MATERIALS = ROOT / "samples" / "scene_materials.json"
+SCENE_SSS = ROOT / "samples" / "scene_sss.json"
+SCENE_SSS_MIXED = ROOT / "samples" / "scene_sss_mixed.json"
 HALTON6 = {"sampler_type": "HaltonSampler", "nsamp": 6}
 OUT = ROOT / "build" / "chip_smoke"
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
@@ -320,6 +349,12 @@ for _base, _bvh, _line in (("path_mega_cam", False, 3814), ("path_mega_cam", Tru
                            ("path_mega", False, 3352), ("path_mega", True, 3375)):
     for _halton, _smooth in ((True, False), (False, True), (True, True)):
         KERNELS[pmk.kernel_name(_base, _bvh, _halton, _smooth)] = dict(
+            source=PATH_SRC, replaces=f"rs_ray_toy_tpu/ops/path_megakernel.py:{_line}")
+# its subsurface instances (phase 11), each replacing the same JAX body
+for _base, _bvh, _line in (("path_mega_cam", False, 3814), ("path_mega_cam", True, 3843),
+                           ("path_mega", False, 3352), ("path_mega", True, 3375)):
+    for _halton in (False, True):
+        KERNELS[pmk.kernel_name(_base, _bvh, _halton, bss=True)] = dict(
             source=PATH_SRC, replaces=f"rs_ray_toy_tpu/ops/path_megakernel.py:{_line}")
 KERNELS["bvh_shaded_smooth"] = dict(source=BVH_SRC,
                                     replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:400")
@@ -390,17 +425,48 @@ def once_ms(fn):
     return timed_once(fn)[1]
 
 
+def q99(rel):
+    return float(torch.quantile(rel.flatten()[:: max(1, rel.numel() // 2**24)], 0.99))
+
+
+def lit_stats(rel, l_ref):
+    """The bar's shares over the lit rays alone (a reference ray with any
+    radiance): most rays of these scenes are black on both sides."""
+    lit = l_ref.amax(-1) > 0
+    rel_lit = rel[lit]
+    return dict(lit=int(lit.sum()),
+                lit_diverged=float((rel_lit.amax(-1) > 1e-3).double().mean()),
+                lit_q99=q99(rel_lit) if rel_lit.numel() else float("nan"))
+
+
+def check_lit(stats, tag, same_rays=True):
+    """The per-ray bar over the lit rays alone, on at least 1,000 of them:
+    under 0.5% past 1e-3 relative and, where both sides trace the same
+    rays (`same_rays`), the 99th percentile under 1e-5.  A camera
+    instance traces its own lens rays, which differ from its plain
+    version's in the last bits; through the subsurface walk that puts the
+    lit rays' 99th percentile at 2-3e-5 (H100), so there only the share
+    is held."""
+    check(stats["lit"] >= 1000, f"{tag}: {stats['lit']} lit rays")
+    check(stats["lit_diverged"] < 5e-3,
+          f"{tag}: {stats['lit_diverged']:.2%} of the lit rays diverged")
+    if same_rays:
+        check(stats["lit_q99"] < 1e-5, f"{tag}: lit 99th percentile {stats['lit_q99']:.3g}")
+
+
 def per_ray_bar(l, l_ref):
-    """tests/test_megakernel.py:127-132; returns the measured numbers."""
+    """tests/test_megakernel.py:127-132; returns the measured numbers, the
+    shares over the lit rays among them."""
     l, l_ref = l.double(), l_ref.double()
     check(bool(torch.isfinite(l).all()), "non-finite kernel radiance")
     check(float(l_ref.max()) > 0, "plain version rendered nothing")
     rel = (l - l_ref).abs() / l_ref.abs().clamp(min=1e-3)
     stats = dict(
         diverged=float((rel.amax(-1) > 1e-3).double().mean()),
-        q99=float(torch.quantile(rel.flatten()[:: max(1, rel.numel() // 2**24)], 0.99)),
+        q99=q99(rel),
         mean=float(l.mean()),
         mean_ref=float(l_ref.mean()),
+        **lit_stats(rel, l_ref),
     )
     check(stats["diverged"] < 5e-3, f"{stats['diverged']:.2%} of rays diverged")
     check(stats["q99"] < 1e-5, f"99th percentile relative difference {stats['q99']:.3g}")
@@ -542,8 +608,9 @@ def describe(tag, res, launches, colored, held, warm, card):
         f"(wrapper {held['wrapper_ms']:.3f} ms) over {held['rays']} rays, {slot}bound "
         f"{held['bound_ms']:.4f} ms by {held['bound_by']}; plain {held['plain_ms']:.1f} ms over "
         f"{held['plain_rays']} rays; kernel vs plain: diverged {held['diverged']:.2e}, q99 "
-        f"{held['q99']:.2e}, mean {held['mean']:.6g} vs {held['mean_ref']:.6g}, max_abs_err "
-        f"{held['max_abs_err']:.3g} [{card}]"
+        f"{held['q99']:.2e} ({held['lit']} lit: {held['lit_diverged']:.2e}, "
+        f"{held['lit_q99']:.2e}), mean {held['mean']:.6g} vs {held['mean_ref']:.6g}, "
+        f"max_abs_err {held['max_abs_err']:.3g} [{card}]"
     )
 
 
@@ -731,6 +798,9 @@ def main():
 
     # ---- phase 10: every untextured material: Disney through the path kernel ----
     materials_phase(record, kernels, card, dev)
+
+    # ---- phase 11: subsurface Path: the BSSRDF through the path kernel ----
+    subsurface_phase(record, kernels, card, dev)
 
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
@@ -1067,10 +1137,12 @@ def sppm_phase(record, kernels, card, dev):
 
 class RecordingCtx(SceneCtx):
     """SceneCtx that keeps the inputs of the first call of each of the
-    loop's queries, as (o, d, t_max) under "shaded" and "occluded"."""
+    loop's queries, as (o, d, t_max) under "shaded" and "occluded" and,
+    over a BVH, "closest" (the subsurface probe chain's re-casts)."""
 
     def __init__(self, ctx):
-        super().__init__(ctx.tri_packed, ctx.shade, ctx.mat_rows, ctx.lights, ctx.bvh)
+        super().__init__(ctx.tri_packed, ctx.shade, ctx.mat_rows, ctx.lights, ctx.bvh,
+                         ctx.bssrdf)
         self.batches = {}
 
     def intersect_shaded(self, o, d, t_max):
@@ -1080,6 +1152,11 @@ class RecordingCtx(SceneCtx):
     def occluded(self, o, d, t_max):
         self.batches.setdefault("occluded", (o, d, t_max))
         return super().occluded(o, d, t_max)
+
+    def intersect(self, o, d, t_max):
+        if self.bvh is not None:
+            self.batches.setdefault("closest", (o, d, t_max))
+        return super().intersect(o, d, t_max)
 
 
 def first_pass_batches(job, dev, spp):
@@ -1259,8 +1336,6 @@ def wavefront_phase(record, kernels, card, dev):
     any_hit = hold_query("any", ctx, batches["occluded"])
     closest = hold_query("closest", ctx, batches["occluded"])
     wavefront_entry(kernels, "bvh", counts["bvh_any"] + counts["bvh_closest"], any_hit)
-    kernels["bvh"].update(closest_ms=closest["ms"], closest_bound_ms=closest["bound_ms"],
-                          closest_plain_ms=closest["plain_ms"])
     wavefront_entry(kernels, "bvh_shaded", counts["bvh_shaded"], shaded)
     job.sampler.xsamp, job.sampler.ysamp = 2, 4
     warm = [render_job(job, dev) for _ in range(2)]
@@ -1578,7 +1653,8 @@ def drive_rays(job, stride, dev, bvh=None):
     pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
     o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
     name = pmk.kernel_name("path_mega", packed.bvh is not None,
-                           isinstance(sampler, HaltonSampler), packed.smooth)
+                           isinstance(sampler, HaltonSampler), packed.smooth,
+                           packed.bssrdf is not None)
     zero_counts()
     pmk.li_path_mega(packed, o, d, w, pid, soff, sampler, job.integrator)
     torch.cuda.synchronize()
@@ -1593,7 +1669,8 @@ def rays_line(tag, name, held, t0, card):
     return (f"{tag}: {name}, 1 launch on {held['rays']} rays; kernel {held['ms']:.3f} ms (wrapper "
             f"{held['wrapper_ms']:.3f}), {slot}bound {held['bound_ms']:.4f} ms by "
             f"{held['bound_by']}, plain {held['plain_ms']:.1f} ms over {held['plain_rays']} rays, "
-            f"diverged {held['diverged']:.2e}, q99 {held['q99']:.2e}, mean {held['mean']:.6g} vs "
+            f"diverged {held['diverged']:.2e}, q99 {held['q99']:.2e} ({held['lit']} lit: "
+            f"{held['lit_diverged']:.2e}, {held['lit_q99']:.2e}), mean {held['mean']:.6g} vs "
             f"{held['mean_ref']:.6g}, max_abs_err {held['max_abs_err']:.3g}; "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
 
@@ -1839,22 +1916,49 @@ def materials_phase(record, kernels, card, dev):
 
     # (d) the materials only the wavefront loop takes, through it
     t0 = time.perf_counter()
+    res, colored, counts = drive_announced(SCENE_MATERIALS, OUT / "chip_smoke_materials.png",
+                                           "10d")
+    # its li_path on the card (K4) against the same on the CPU (K4's plain
+    # version) on the same camera rays, at 80x45x16: the bar of 7d
+    bar = card_vs_cpu(SCENE_MATERIALS, 80, 45, dev, "10d")
+    record["phase10d"] = dict(launches=counts, colored=colored, camera_rays=res["camera_rays"],
+                              render_mrays_per_s=res["mrays_per_s"],
+                              phase_s=time.perf_counter() - t0, **bar)
+    print(f"phase 10d: Path, samples/scene_materials.json 640x360x16 through the wavefront loop: "
+          f"{res['camera_rays']} rays, launches {launched(counts)}, {colored} coloured px, "
+          f"{res['mrays_per_s']:.2f} camera Mrays/s (first render); li_path on the card vs the "
+          f"CPU at 80x45x16: {card_cpu_line(bar)}, mean {bar['mean']:.6g} vs "
+          f"{bar['mean_ref']:.6g} (CPU {bar['cpu_s']:.1f} s); {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+
+
+def drive_announced(scene, png, tag, want=("intersect",)):
+    """deploy_render of a Path scene the path kernel rejects, counts at 0
+    before: it must announce the wavefront loop on stderr and launch the
+    intersection kernels `want`, each at least once, and no other.
+    Returns (result, coloured pixels, counts)."""
     zero_counts()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        res = deploy_render(str(SCENE_MATERIALS), str(OUT / "chip_smoke_materials.png"))
+        res = deploy_render(str(scene), str(png))
     counts = all_counts()
     rgb = res["rgb_srgb_input"]
     colored = int((rgb.sum(-1) > 0).sum())
     check(res["render_path"] == "wavefront" and "wavefront loop" in err.getvalue(),
-          "10d: not announced on the wavefront loop")
-    check(bool(torch.isfinite(rgb).all()) and colored > 0, "10d: image")
-    check(counts["intersect"] > 0 and sum(counts.values()) == counts["intersect"],
-          f"10d launches {counts}")
-    # its li_path on the card (K4) against the same on the CPU (K4's plain
-    # version) on the same camera rays, at 80x45x16: the bar of 7d
-    job = load_scene(str(SCENE_MATERIALS))
-    job.film.xres, job.film.yres = 80, 45
+          f"{tag}: not announced on the wavefront loop")
+    check(bool(torch.isfinite(rgb).all()) and colored > 0, f"{tag}: image")
+    check(all(counts[k] > 0 for k in want) and sum(counts.values()) == sum(counts[k] for k in want),
+          f"{tag} launches {counts}")
+    return res, colored, counts
+
+
+def card_vs_cpu(scene, w_, h_, dev, tag, want=("intersect",), lit_bar=False):
+    """The wavefront li_path of `scene` on the card (its queries' kernels
+    `want`, each launched) against the same on the CPU (their plain
+    versions) on its camera rays at w_ x h_ x 16: the bar of 7d, at least
+    1,000 lit rays; with `lit_bar` the bar over the lit rays too."""
+    job = load_scene(str(scene))
+    job.film.xres, job.film.yres = w_, h_
     sampler = StratifiedSampler(job.sampler)
     cam = RealisticCamera(job.camera, job.film, device=dev)
     pxy, pid, soff = sample_batch(job.film, 16, dev)
@@ -1863,7 +1967,8 @@ def materials_phase(record, kernels, card, dev):
     l_card = li_path(SceneCtx.from_scene(job.scene, dev), o, d, w, sampler, pid, soff,
                      job.integrator)
     torch.cuda.synchronize()
-    check(all_counts()["intersect"] > 0, "10d: the card's li_path launched no K4")
+    counts = all_counts()
+    check(all(counts[k] > 0 for k in want), f"{tag}: the card's li_path launches {counts}")
     cpu = torch.device("cpu")
     t_cpu = time.perf_counter()
     l_cpu = li_path(SceneCtx.from_scene(job.scene, cpu), o.cpu(), d.cpu(), w.cpu(), sampler,
@@ -1871,23 +1976,123 @@ def materials_phase(record, kernels, card, dev):
     cpu_s = time.perf_counter() - t_cpu
     l_card, l_cpu = l_card.cpu().double(), l_cpu.double()
     rel = (l_card - l_cpu).abs() / l_cpu.abs().clamp(min=1e-3)
-    bar = dict(rays=int(l_cpu.shape[0]), lit=int((l_cpu.amax(-1) > 0).sum()),
-               diverged=float((rel.amax(-1) > 1e-3).double().mean()),
-               q99=float(torch.quantile(rel.flatten(), 0.99)), mean=float(l_card.mean()),
-               mean_ref=float(l_cpu.mean()), cpu_s=cpu_s)
-    check(bar["lit"] >= 1000, f"10d: {bar['lit']} lit rays")
-    check(bar["diverged"] < 5e-3, f"10d: {bar['diverged']:.2%} of rays diverged")
+    bar = dict(rays=int(l_cpu.shape[0]), diverged=float((rel.amax(-1) > 1e-3).double().mean()),
+               q99=q99(rel), max_abs_err=float((l_card - l_cpu).abs().max()),
+               mean=float(l_card.mean()), mean_ref=float(l_cpu.mean()), cpu_s=cpu_s,
+               **lit_stats(rel, l_cpu))
+    check(bar["lit"] >= 1000, f"{tag}: {bar['lit']} lit rays")
+    if lit_bar:
+        check_lit(bar, tag)
+    check(bar["diverged"] < 5e-3, f"{tag}: {bar['diverged']:.2%} of rays diverged")
     check(abs(bar["mean"] - bar["mean_ref"]) < 1e-6 + 3e-3 * abs(bar["mean_ref"]),
-          f"10d: means {bar['mean']:.6g} vs {bar['mean_ref']:.6g}")
-    record["phase10d"] = dict(launches=counts, colored=colored, camera_rays=res["camera_rays"],
+          f"{tag}: means {bar['mean']:.6g} vs {bar['mean_ref']:.6g}")
+    return bar
+
+
+def card_cpu_line(bar):
+    return (f"{bar['rays']} rays, diverged {bar['diverged']:.2e}, q99 {bar['q99']:.2e}; "
+            f"{bar['lit']} lit: diverged {bar['lit_diverged']:.2e}, q99 {bar['lit_q99']:.2e}; "
+            f"max_abs_err {bar['max_abs_err']:.3g}")
+
+
+# ---- phase 11: subsurface Path ----
+
+
+def subsurface_phase(record, kernels, card, dev):
+    """Phase 11 (see the module docstring)."""
+    # (a) the bench's sss row through the camera instance, one launch a pass
+    job = camera_step(record, kernels, card, dev, "11a", "sss", SCENE_SSS, "path_mega_cam_bss", 4)
+    check(pmk.pack_scene(job.scene, dev).bssrdf is not None, "11a: no subsurface constants")
+    check_lit(record["phase11a"], "11a", same_rays=False)
+    # (c) #3 on (a)'s camera rays
+    t0 = time.perf_counter()
+    name, launches, held = drive_rays(job, 4, dev)
+    check(name == "path_mega_bss", f"11c: {name}")
+    check_lit(held, "11c")
+    add_entry(kernels, name, launches, held)
+    record["phase11c_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0, **held)
+    print(rays_line("phase 11c: rays-in #3 on the sss fixture's camera rays", name, held, t0,
+                    card))
+    # (b) the grid in mat_sss over the BVH (#2), and (c) #4 on its camera rays
+    grid = write_grid_scene(str(OUT / "grid_sss"), base=str(SCENE_SSS))
+    job = camera_step(record, kernels, card, dev, "11b", "grid_sss", grid,
+                      "path_mega_cam_bvh_bss", 8, spp=8)
+    check_lit(record["phase11b"], "11b", same_rays=False)
+    t0 = time.perf_counter()
+    name, launches, held = drive_rays(job, 16, dev)
+    check(name == "path_mega_bvh_bss", f"11c: {name}")
+    check_lit(held, "11c grid")
+    add_entry(kernels, name, launches, held)
+    record["phase11c_grid_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0,
+                                        **held)
+    print(rays_line("phase 11c: rays-in #4 on the sss grid's camera rays", name, held, t0, card))
+    # (d) the Halton instances at 640x360 x 6, camera and rays-in
+    for step, tag, scene, kernel, stride in (
+        ("11d1", "sss_halton6", halton6(SCENE_SSS, OUT / "sss_halton6"),
+         "path_mega_cam_halton_bss", 4),
+        ("11d2", "grid_sss_halton6", halton6(grid, OUT / "grid_sss_halton6"),
+         "path_mega_cam_bvh_halton_bss", 16),
+    ):
+        job = camera_step(record, kernels, card, dev, step, tag, scene, kernel, stride, warm_n=0)
+        check_lit(record[f"phase{step}"], step, same_rays=False)
+        t0 = time.perf_counter()
+        name, launches, held = drive_rays(job, stride, dev)
+        check(name == kernel.replace("_cam", ""), f"{step}: {name}")
+        check_lit(held, f"{step} rays-in")
+        add_entry(kernels, name, launches, held)
+        record[f"phase{step}_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0,
+                                           **held)
+        print(rays_line(f"phase {step}: rays-in on its camera rays", name, held, t0, card))
+
+    # (e) a subsurface material among others, beside a sphere light: the
+    # wavefront loop over K4, the card against the CPU
+    t0 = time.perf_counter()
+    res, colored, counts = drive_announced(SCENE_SSS_MIXED, OUT / "chip_smoke_sss_mixed.png",
+                                           "11e")
+    bar = card_vs_cpu(SCENE_SSS_MIXED, 160, 90, dev, "11e", lit_bar=True)
+    record["phase11e"] = dict(launches=counts, colored=colored, camera_rays=res["camera_rays"],
                               render_mrays_per_s=res["mrays_per_s"],
                               phase_s=time.perf_counter() - t0, **bar)
-    print(f"phase 10d: Path, samples/scene_materials.json 640x360x16 through the wavefront loop: "
+    print(f"phase 11e: Path, samples/scene_sss_mixed.json 640x360x16 through the wavefront loop: "
           f"{res['camera_rays']} rays, launches {launched(counts)}, {colored} coloured px, "
           f"{res['mrays_per_s']:.2f} camera Mrays/s (first render); li_path on the card vs the "
-          f"CPU at 80x45x16: {bar['rays']} rays, {bar['lit']} lit, diverged "
-          f"{bar['diverged']:.2e}, q99 {bar['q99']:.2e}, mean {bar['mean']:.6g} vs "
-          f"{bar['mean_ref']:.6g} (CPU {cpu_s:.1f} s); {time.perf_counter() - t0:.1f} s [{card}]")
+          f"CPU at 160x90x16: {card_cpu_line(bar)}, mean {bar['mean']:.6g} vs "
+          f"{bar['mean_ref']:.6g} (CPU {bar['cpu_s']:.1f} s); {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    # and its grid over K3: the probe chain's closest hits are the BVH
+    # closest-hit instance's calls on a main path.  That instance is held
+    # to its plain version on the chain's first batch (the transmitting
+    # lanes' segments, each cut off at seg_len (1 - 1e-4)), and the grid's
+    # li_path on the card against the same on the CPU at 80x45x16
+    t0 = time.perf_counter()
+    grid = write_grid_scene(str(OUT / "grid_sss_mixed"), base=str(SCENE_SSS_MIXED))
+    res, colored, counts = drive_announced(grid, OUT / "chip_smoke_grid_sss_mixed.png", "11e",
+                                           ("bvh_closest", "bvh_shaded", "bvh_any"))
+    job = load_scene(grid)
+    ctx, batches = first_pass_batches(job, dev, 16)
+    check("closest" in batches, "11e: the grid's probe chain cast no closest-hit batch")
+    closest = hold_query("closest", ctx, batches["closest"])
+    kernels["bvh"].update(closest_launches=counts["bvh_closest"], closest_ms=closest["ms"],
+                          closest_bound_ms=closest["bound_ms"],
+                          closest_plain_ms=closest["plain_ms"], closest_rays=closest["rays"],
+                          max_abs_err=max(kernels["bvh"]["max_abs_err"], closest["max_abs_err"]))
+    grid_bar = card_vs_cpu(grid, 80, 45, dev, "11e grid",
+                           ("bvh_closest", "bvh_shaded", "bvh_any"), lit_bar=True)
+    record["phase11e_grid"] = dict(launches=counts, colored=colored,
+                                   camera_rays=res["camera_rays"],
+                                   render_mrays_per_s=res["mrays_per_s"], closest=closest,
+                                   card_vs_cpu=grid_bar, phase_s=time.perf_counter() - t0)
+    print(f"phase 11e: Path, grid of {job.scene.triangles.count} triangles with "
+          f"mat_sss cubes 640x360x16 through the wavefront loop over K3: {res['camera_rays']} "
+          f"rays, launches {launched(counts)}, {colored} coloured px, {res['mrays_per_s']:.2f} "
+          f"camera Mrays/s (first render); K3 closest on the probe chain's first batch "
+          f"{closest['ms']:.3f} ms (wrapper {closest['wrapper_ms']:.3f}, bound "
+          f"{closest['bound_ms']:.4f} by {closest['bound_by']}) over {closest['rays']} segments, "
+          f"plain {closest['plain_ms']:.1f} over {closest['plain_rays']}, hits {closest['hits']}, "
+          f"hit/miss differ {closest['miss_mismatch']:.2e}, max_abs_err "
+          f"{closest['max_abs_err']:.3g}; li_path on the card vs the CPU at 80x45x16: "
+          f"{card_cpu_line(grid_bar)} (CPU {grid_bar['cpu_s']:.1f} s); "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

@@ -15,8 +15,8 @@ microfacet distribution code.
 
 The lobes the port's loader emits are evaluated: lambert reflection and
 transmission, Oren-Nayar, visible-normal Trowbridge-Reitz reflection and
-transmission (joint or Disney's separable Smith G), specular reflection,
-fresnel specular, and the Disney diffuse, fake subsurface, retro,
+transmission (joint or Disney's separable Smith G), specular reflection
+and transmission, fresnel specular, and the Disney diffuse, fake subsurface, retro,
 sheen, clearcoat and microfacet lobes (disney.rs, with the reference's
 log10 in GTR1 and its clearcoat sample form); a kind the rows do not
 hold costs nothing (`_has`).  Flags follow reflection.rs:
@@ -509,12 +509,13 @@ def _lobe_sample(lob, wol_x, wol_y, wo_z, u0, u1):
     lambert transmission), the visible-normal Trowbridge-Reitz half
     vector reflected (microfacet reflection) or refracted (transmission),
     the clearcoat's GTR1 half vector in the reference's form, specular
-    reflection, fresnel-specular reflect or transmit by u0 < Fr.
-    Returns (wi x, y, z, f (3 channels, times the lobe's scale), pdf,
-    transmitted)."""
+    reflection and transmission, fresnel-specular reflect or transmit by
+    u0 < Fr.  Returns (wi x, y, z, f (3 channels, times the lobe's scale),
+    pdf, transmitted: a specular transmission was sampled)."""
     kind = lob["kind"]
     is_mf = _in(kind, MF_KINDS)
     is_sr = kind == LOBE_SPEC_REFL
+    is_st = kind == LOBE_SPEC_TRANS
     is_fs = kind == LOBE_FRESNEL_SPEC
 
     # cosine hemisphere on wo's side (lambert)
@@ -550,6 +551,7 @@ def _lobe_sample(lob, wol_x, wol_y, wo_z, u0, u1):
     def pick(cos_v, mf_v, sr_v, st_v):
         v = torch.where(is_mf, mf_v, cos_v)
         v = torch.where(is_sr, sr_v, v)
+        v = torch.where(is_st, st_v, v)
         return torch.where(is_fs, torch.where(fs_reflect, sr_v, st_v), v)
 
     wsx = pick(dxo, mrx, srx, stx)
@@ -600,9 +602,13 @@ def _lobe_sample(lob, wol_x, wol_y, wo_z, u0, u1):
     one = (1.0, 1.0, 1.0)
     sc = lob.get("scale", one)
     out = []
+    # specular transmission (reflection.rs:706-714), radiance mode
+    fr_t = _fr_dielectric(wsz, ea, eb)
     for c in range(3):
         f = torch.where(dead, 0.0, fs[c])
         f = torch.where(is_sr, lob["s0"][c] * fr3[c] / aci * sc[c], f)
+        f_st = torch.where(st_ok, lob["s0"][c] * (1.0 - fr_t) * scale_t / aci, 0.0)
+        f = torch.where(is_st, f_st * sc[c], f)
         f_fs = torch.where(
             fs_reflect,
             lob["s0"][c] * fr_fs / aci,
@@ -610,9 +616,10 @@ def _lobe_sample(lob, wol_x, wol_y, wo_z, u0, u1):
         )
         out.append(torch.where(is_fs, f_fs * sc[c], f))
     pdf = torch.where(is_sr, 1.0, pdf)
+    pdf = torch.where(is_st, torch.where(st_ok, 1.0, 0.0), pdf)
     pdf = torch.where(is_fs, torch.where(fs_reflect, fr_fs, 1.0 - fr_fs), pdf)
     pdf = torch.where(dead, 0.0, pdf)
-    return wsx, wsy, wsz, out, pdf, is_fs & ~fs_reflect
+    return wsx, wsy, wsz, out, pdf, (is_fs & ~fs_reflect) | is_st
 
 
 def _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1):
@@ -620,14 +627,23 @@ def _bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1):
     uniform lobe choice among the row's n_lob lobes, the chosen lobe's
     direction, f and pdf, the pdf averaged over the matching lobes.  The
     other lobes' pdfs are added only when the chosen lobe does not reflect
-    (reflection.rs:358), which no lobe of the path kernel's kinds is (the
-    wavefront loop's `bsdf_sample` adds them)."""
+    (reflection.rs:358): of the path kernel's kinds only specular
+    transmission (a subsurface Disney material's), `_bsdf_sample_k`'s
+    accumulation."""
     matching = torch.clamp(n_lob, min=1)
     comp = torch.minimum((ub0 * matching).to(torch.int64), matching - 1)
     u0 = torch.clamp(ub0 * matching - comp.to(DTYPE), max=ONE_MINUS_EPSILON)
     cols = (16 + 16 * comp)[:, None] + torch.arange(16, device=row.device)
     lob = _lobe(torch.gather(row, 1, cols), 0)
     wsx, wsy, wsz, out, pdf, transmitted = _lobe_sample(lob, wol_x, wol_y, wo_z, u0, ub1)
+    is_st = (lob["kind"] == LOBE_SPEC_TRANS) & (matching > 1)
+    if bool(is_st.any()):
+        extra = torch.zeros_like(pdf)
+        for l in range(int(n_lob.max())):
+            use = (l < n_lob) & (comp != l)
+            lpdf = _lobe_pdf(_lobe(row, 16 + 16 * l), wol_x, wol_y, wo_z, wsx, wsy, wsz)
+            extra = extra + torch.where(use, lpdf, 0.0)
+        pdf = pdf + torch.where(is_st, extra, 0.0)
     pdf = torch.where(matching > 1, pdf / matching.to(DTYPE), pdf)
     return wsx, wsy, wsz, out, pdf, transmitted
 
@@ -658,6 +674,7 @@ class BsdfSample(NamedTuple):
     transmitted: torch.Tensor  # (N,) bool: a specular transmission was sampled
     valid: torch.Tensor  # (N,) bool
     specular: torch.Tensor = None  # (N,) bool: the sampled lobe is specular
+    transmission: torch.Tensor = None  # (N,) bool: the sampled flags transmit
 
 
 def make_frame(ns, ng, dpdu):
@@ -783,6 +800,8 @@ def bsdf_sample(params, fr, wo_w, u, flags=BXDF_ALL):
     pdf = torch.where(matching > 1, pdf / torch.clamp(matching, min=1).to(DTYPE), pdf)
     valid = (matching > 0) & (wo[:, 2] != 0.0) & (pdf > 0.0)
     wi_w = local_to_world(fr, torch.stack([wsx, wsy, wsz], -1))
+    # a fresnel-specular sample transmits on its transmit branch
+    trans_flag = (lobe_flags(chosen_kind) & BXDF_TRANSMISSION) != 0
     return BsdfSample(
         f=torch.where(valid[:, None], torch.stack(fs, -1), 0.0),
         wi_world=wi_w,
@@ -790,6 +809,8 @@ def bsdf_sample(params, fr, wo_w, u, flags=BXDF_ALL):
         transmitted=valid & transmitted,
         valid=valid,
         specular=valid & _is_spec(chosen_kind.to(torch.int64)),
+        transmission=valid & torch.where(chosen_kind == LOBE_FRESNEL_SPEC, transmitted,
+                                         trans_flag),
     )
 
 

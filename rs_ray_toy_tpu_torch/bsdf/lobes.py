@@ -5,7 +5,9 @@ MAX_LOBES lobe rows: a kind code, three RGB spectra and four scalars.
 The codes and the packed layout are the JAX package's, so a packed table
 can be compared column by column, the per-lobe RGB `scale` (ScaledBxdf,
 reflection.rs:516-563: Translucent's reflect / transmit, MixMaterial's
-s and 1 - s) among them.  Textured parameters are not ported.
+s and 1 - s) among them, and a Disney material's BSSRDF profile
+(`has_bssrdf`, `bssrdf_R`, `bssrdf_d`, `bssrdf_eta`).  Textured
+parameters are not ported.
 """
 
 from dataclasses import dataclass, field
@@ -80,6 +82,11 @@ class HostMaterial:
     name: str
     eta: float  # Bsdf::eta (reflection.rs:205-216); 1.0 for opaque
     lobes: List[Lobe]
+    # Disney BSSRDF profile (disney.rs:585-601): albedo R and scatter
+    # distance d per channel, and its eta; None without one
+    bssrdf_R: object = None
+    bssrdf_d: object = None
+    bssrdf_eta: float = 1.0
 
 
 class MaterialTableBuilder:
@@ -109,9 +116,18 @@ class MaterialTableBuilder:
         scale = np.ones((m, n_l, 3), np.float32)
         n_lobes = np.zeros((m,), np.int32)
         eta = np.ones((m,), np.float32)
+        has_bssrdf = np.zeros((m,), bool)
+        bssrdf_R = np.zeros((m, 3), np.float32)
+        bssrdf_d = np.ones((m, 3), np.float32)
+        bssrdf_eta = np.ones((m,), np.float32)
         for i, mat in enumerate(self.materials):
             n_lobes[i] = len(mat.lobes)
             eta[i] = mat.eta
+            if mat.bssrdf_R is not None:
+                has_bssrdf[i] = True
+                bssrdf_R[i] = mat.bssrdf_R
+                bssrdf_d[i] = np.maximum(mat.bssrdf_d, 1e-6)
+                bssrdf_eta[i] = mat.bssrdf_eta
             for j, lb in enumerate(mat.lobes):
                 kind[i, j] = lb.kind
                 s0[i, j] = lb.s0
@@ -136,4 +152,8 @@ class MaterialTableBuilder:
             "scale": scale,
             "n_lobes": n_lobes,
             "eta": eta,
+            "has_bssrdf": has_bssrdf,
+            "bssrdf_R": bssrdf_R,
+            "bssrdf_d": bssrdf_d,
+            "bssrdf_eta": bssrdf_eta,
         }

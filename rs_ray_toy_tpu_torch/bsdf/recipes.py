@@ -181,17 +181,15 @@ def mix(name, m1, m2, scale) -> HostMaterial:
     return HostMaterial(name, 1.0, lobes[:MAX_LOBES])
 
 
-def disney_bssrdf(thin, scatter_distance):
-    """Does a Disney material carry a BSSRDF (disney.rs:585-601): not
-    thin, with a positive scatter distance?"""
-    return (not thin) and bool(np.any(np.clip(scatter_distance, 0.0, np.inf) > 0.0))
-
-
 def disney(name, color, metallic, eta, roughness, specular_tint, anisotropic, sheen,
            sheen_tint, clearcoat, clearcoat_gloss, spec_trans, thin, flatness,
-           diff_trans) -> HostMaterial:
-    """Disney BSDF lobe assembly (disney.rs:530-676), constant parameters
-    and no BSSRDF (the loader raises on one: `disney_bssrdf`)."""
+           diff_trans, scatter_distance) -> HostMaterial:
+    """Disney BSDF lobe assembly (disney.rs:530-676), constant parameters.
+    A material that is not thin and has a positive scatter distance
+    carries the Burley BSSRDF (disney.rs:585-601): a specular transmission
+    lobe takes the diffuse lobe's place, and the material keeps the
+    profile's albedo (the color times the diffuse weight), scatter
+    distance (a fifth of scatter_distance) and eta."""
     lobes = []
     c = np.clip(color, 0.0, np.inf)
     mw, e, strans, dt, rough = metallic, eta, spec_trans, diff_trans, roughness
@@ -200,6 +198,8 @@ def disney(name, color, metallic, eta, roughness, specular_tint, anisotropic, sh
     lum = float(0.212671 * c[0] + 0.715160 * c[1] + 0.072169 * c[2])
     c_tint = c / lum if lum > 0 else np.ones(3)
     c_sheen = (1.0 - sheen_tint) * np.ones(3) + sheen_tint * c_tint if sheen > 0 else np.zeros(3)
+    sd = np.clip(scatter_distance, 0.0, np.inf)
+    has_bssrdf = (not thin) and bool(np.any(sd > 0.0))
 
     if diffuse_weight > 0:
         if thin:
@@ -207,6 +207,8 @@ def disney(name, color, metallic, eta, roughness, specular_tint, anisotropic, sh
                               s0=c * diffuse_weight * (1 - flatness) * (1 - dt)))
             lobes.append(Lobe(LOBE_DISNEY_FAKE_SS, s0=c * diffuse_weight * flatness * (1 - dt),
                               f0=rough))
+        elif has_bssrdf:
+            lobes.append(Lobe(LOBE_SPEC_TRANS, s0=np.ones(3), f0=1.0, f1=e))
         else:
             lobes.append(Lobe(LOBE_DISNEY_DIFFUSE, s0=c * diffuse_weight))
         lobes.append(Lobe(LOBE_DISNEY_RETRO, s0=c * diffuse_weight, f0=rough))
@@ -241,7 +243,10 @@ def disney(name, color, metallic, eta, roughness, specular_tint, anisotropic, sh
                               dist=DIST_DISNEY_SEPARABLE_G))
     if thin:
         lobes.append(Lobe(LOBE_LAMBERT_TRANS, s0=c * dt))
-    return HostMaterial(name, 1.0, lobes)
+    if not has_bssrdf:
+        return HostMaterial(name, 1.0, lobes)
+    return HostMaterial(name, 1.0, lobes, bssrdf_R=c * diffuse_weight, bssrdf_d=sd * 0.2,
+                        bssrdf_eta=e)
 
 
 def debug(name) -> HostMaterial:

@@ -457,10 +457,16 @@ struct Geometry {
     return best;
   }
 
+  // the closest hit with t < t_lim (the walk's bound from the start): t_best
+  // = t_lim and -1 on a miss
+  __device__ int closest_below(float ox, float oy, float oz, float dx, float dy, float dz,
+                               float t_lim, float& t_best) const {
+    t_best = t_lim;
+    return walk<false>(ox, oy, oz, dx, dy, dz, t_best);
+  }
   __device__ int closest(float ox, float oy, float oz, float dx, float dy, float dz,
                          float& t_best) const {
-    t_best = BIG_T;
-    return walk<false>(ox, oy, oz, dx, dy, dz, t_best);
+    return closest_below(ox, oy, oz, dx, dy, dz, BIG_T, t_best);
   }
   // t in [TRI_EPS, t_max) along the caller's unnormalised direction
   __device__ bool occluded(float ox, float oy, float oz, float dx, float dy, float dz,
@@ -896,7 +902,9 @@ __device__ void concentric_disk(float u0, float u1, float& dxo, float& dyo) {
 // lobe's direction in the local frame, its f and pdf (divided by the lobe
 // count), whether a fresnel-specular lobe transmitted (the etaScale
 // factor) and whether the picked lobe is specular.  A zero f or pdf ends the
-// path.
+// path.  kSt (the path kernel's subsurface instances only) adds the specular
+// transmission lobe: its refraction, f and pdf, and the other lobes' pdfs
+// added to a chosen one's, since it does not reflect (reflection.rs:358).
 struct BsdfSample {
   float wx, wy, wz;
   float f[3];
@@ -905,7 +913,27 @@ struct BsdfSample {
   bool specular;
 };
 
-template <bool kDisney = false>
+// A specular lobe's transmitted direction (reflection.rs:686-715): wo
+// refracted through the eta pair, whether it is not totally reflected and
+// the radiance scale (eta_i / eta_t)^2
+__device__ __forceinline__ void refract_spec(const Lobe& lc, float wol_x, float wol_y, float wo_z,
+                                             BsdfSample& s, bool& st_ok, float& scale_t) {
+  const bool entering = wo_z > 0.0f;
+  const float ei = entering ? lc.eta_a : lc.eta_b;
+  const float et = entering ? lc.eta_b : lc.eta_a;
+  const float eta_rel = ei / fmaxf(et, 1e-9f);
+  const float abs_cz = fabsf(wo_z);
+  const float sin2_t = eta_rel * eta_rel * fmaxf(0.0f, 1.0f - abs_cz * abs_cz);
+  st_ok = sin2_t < 1.0f;
+  const float cos_t = sqrtf(fmaxf(0.0f, 1.0f - sin2_t));
+  const float nz_sign = entering ? 1.0f : -1.0f;
+  s.wx = -eta_rel * wol_x;
+  s.wy = -eta_rel * wol_y;
+  s.wz = -eta_rel * wo_z + (eta_rel * abs_cz - cos_t) * nz_sign;
+  scale_t = (ei * ei) / fmaxf(et * et, 1e-20f);
+}
+
+template <bool kDisney = false, bool kSt = false>
 __device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, float wol_y,
                                   float wo_z, float ub0, float ub1) {
   const int matching = max(n_lob, 1);
@@ -943,20 +971,10 @@ __device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, floa
       s.wy = -wol_y;
       s.wz = wo_z;
     } else {
-      const bool entering = wo_z > 0.0f;
-      const float ei = entering ? lc.eta_a : lc.eta_b;
-      const float et = entering ? lc.eta_b : lc.eta_a;
-      const float eta_rel = ei / fmaxf(et, 1e-9f);
-      const float abs_cz = fabsf(wo_z);
-      const float sin2_t = eta_rel * eta_rel * fmaxf(0.0f, 1.0f - abs_cz * abs_cz);
-      st_ok = sin2_t < 1.0f;
-      const float cos_t = sqrtf(fmaxf(0.0f, 1.0f - sin2_t));
-      const float nz_sign = entering ? 1.0f : -1.0f;
-      s.wx = -eta_rel * wol_x;
-      s.wy = -eta_rel * wol_y;
-      s.wz = -eta_rel * wo_z + (eta_rel * abs_cz - cos_t) * nz_sign;
-      scale_t = (ei * ei) / fmaxf(et * et, 1e-20f);
+      refract_spec(lc, wol_x, wol_y, wo_z, s, st_ok, scale_t);
     }
+  } else if (kSt && lc.kind == LOBE_SPEC_TRANS) {
+    refract_spec(lc, wol_x, wol_y, wo_z, s, st_ok, scale_t);
   } else {  // cosine-weighted hemisphere on wo's side (lambert)
     float dxo, dyo;
     concentric_disk(u0, u1, dxo, dyo);
@@ -980,9 +998,22 @@ __device__ BsdfSample bsdf_sample(const float* row, int n_lob, float wol_x, floa
       s.f[c] = fs_reflect ? lc.s0[c] * fr_fs / aci
                           : (st_ok ? lc.s1[c] * (1.0f - fr_fs) * scale_t / aci : 0.0f);
     s.pdf = fs_reflect ? fr_fs : 1.0f - fr_fs;
+  } else if (kSt && lc.kind == LOBE_SPEC_TRANS) {
+    // T (1 - Fr(cos wi)) (eta_i / eta_t)^2 / |cos wi| (radiance mode)
+    const float fr_t = fr_dielectric(s.wz, lc.eta_a, lc.eta_b);
+    for (int c = 0; c < 3; ++c) s.f[c] = st_ok ? lc.s0[c] * (1.0f - fr_t) * scale_t / aci : 0.0f;
+    s.pdf = st_ok ? 1.0f : 0.0f;
+    if (matching > 1) {
+      float extra = 0.0f;
+      for (int j = 0; j < n_lob; ++j)
+        if (j != comp)
+          extra = extra + lobe_pdf<kDisney>(load_lobe(row, j), wol_x, wol_y, wo_z, s.wx, s.wy, s.wz);
+      s.pdf = s.pdf + extra;
+    }
   }
   if (matching > 1) s.pdf = s.pdf / (float)matching;
-  s.transmitted = lc.kind == LOBE_FRESNEL_SPEC && !fs_reflect;
+  s.transmitted = (lc.kind == LOBE_FRESNEL_SPEC && !fs_reflect) ||
+                  (kSt && lc.kind == LOBE_SPEC_TRANS);
   s.specular = is_spec_kind(lc.kind);
   return s;
 }

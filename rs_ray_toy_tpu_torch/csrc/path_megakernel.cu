@@ -83,6 +83,13 @@ struct WideParams {
   float env_cos_bins[ENV_BINS];  // cos(k pi / nv), k = 1..nv-1: the theta rows
   float env_to_world[9];
   float env_to_local[9];
+  // the subsurface branch (kBss): the one material's profile, its folded
+  // constants (3 d, 8 pi d, 2 pi d, 6 pi d) and the Sw adapter's
+  int has_bss;
+  float bss_R[3], bss_d[3], bss_d3[3], bss_sr_den[3], bss_pdf1_den[3], bss_pdf3_den[3];
+  float bss_eta;
+  float bss_sw_den;  // max(c_sw pi, 1e-9)
+  float bss_eta2;
   int smooth;                // the mesh has smooth vertex normals
   short slot_row[SLOT_MAX];  // Halton: slot -> first row of the slot matrix, -1 unused
 };
@@ -187,9 +194,175 @@ __device__ float env_pdf_dir(const WideParams& w, float wx, float wy, float wz) 
   return sin_t > 0.0f ? w.env_pdf2d[iv] / (TWO_PI2_F * fmaxf(sin_t, 1e-9f)) : 0.0f;
 }
 
+// ---- the subsurface branch (the JAX kernel's BSSRDF flow, _sample_sr_k,
+// _pdf_sr_k, _sw_f_k) ----
+
+constexpr int PROBE_SEGMENTS = 4;
+constexpr float PROBE_T_SCALE = (float)(1.0 - 1e-4);  // a segment's t limit over its length
+
+__device__ __forceinline__ float sample_sr(float d_ch, float u) {
+  const float u1 = fminf(u * 4.0f, ONE_MINUS_EPSILON);
+  const float u2 = fminf((u - 0.25f) / 0.75f, ONE_MINUS_EPSILON);
+  return u < 0.25f ? d_ch * logf(1.0f / (1.0f - u1)) : 3.0f * d_ch * logf(1.0f / (1.0f - u2));
+}
+
+__device__ __forceinline__ float pdf_sr(const WideParams& w, int c, float r) {
+  const float rr = fmaxf(r, 1e-6f);
+  return 0.25f * expf(-rr / w.bss_d[c]) / (w.bss_pdf1_den[c] * rr) +
+         0.75f * expf(-rr / w.bss_d3[c]) / (w.bss_pdf3_den[c] * rr);
+}
+
+__device__ __forceinline__ float sw_f(const WideParams& w, float cos_w) {
+  return (1.0f - fr_dielectric(cos_w, 1.0f, w.bss_eta)) / w.bss_sw_den * w.bss_eta2;
+}
+
+// A ray that specular-transmitted into the subsurface material at pt: the
+// projection axis and channel (u[0], with the reference's u * u * 3 - ch
+// remap), a radius of the channel's profile (u[1]) and angle (u[2]), the chord
+// through the profile's 0.999 radius re-cast as PROBE_SEGMENTS closest hits,
+// each limited to the rest of the chord (the one material: every hit counts),
+// the uniform pick among the hits, pdf_sp over 3 axes x 3 channels divided by
+// their count; beta times Sp / pdf; the point-light NEE at the exit with the
+// Sw adapter and a shadow ray (u[3] picks the light); the cosine exit
+// direction (u[4], u[5]), beta times Sw pi.  fr holds ss, ts and ng.  Returns
+// false where no exit is found (the path ends), else updates beta and L and
+// writes the next ray.  Out of line: one copy per instance, called where a
+// sample chose the transmission lobe; the arrays live in its frame.
+template <bool kBvh>
+__device__ __noinline__ bool subsurface(const Geometry<kBvh> geom, const Params& p,
+                                        const WideParams& w, const float* pt, const float* fr,
+                                        const float* u, float* beta, float* L, float* ray) {
+  const float px = pt[0], py = pt[1], pz = pt[2];
+  // projection axis (bssrdf.rs:118-141): 1/2 the normal, 1/4 each tangent
+  const bool sel0 = u[0] < 0.5f;
+  const bool sel1 = u[0] >= 0.5f && u[0] < 0.75f;
+  float ub = sel0 ? u[0] * 2.0f : (sel1 ? (u[0] - 0.5f) * 4.0f : (u[0] - 0.75f) * 4.0f);
+  const int ax = sel0 ? 0 : (sel1 ? 1 : 2);
+  const float* vx = fr + 3 * ax;              // ss, ts, ng
+  const float* vy = fr + 3 * ((ax + 1) % 3);  // ts, ng, ss
+  const float* vz = fr + 3 * ((ax + 2) % 3);  // ng, ss, ts
+  const int chb = min(max((int)(ub * 3.0f), 0), 2);
+  ub = ub * ub * 3.0f - (float)chb;
+  const float d_ch = w.bss_d[chb];
+  const float r_b = sample_sr(d_ch, u[1]);
+  const float u999 = fminf((0.999f - 0.25f) / 0.75f, ONE_MINUS_EPSILON);
+  const float r_mx = 3.0f * d_ch * logf(1.0f / (1.0f - u999));
+  if (!(r_b >= 0.0f && r_b < r_mx)) return false;
+  const float l_ch = 2.0f * sqrtf(fmaxf(r_mx * r_mx - r_b * r_b, 0.0f));
+  const float phi = TWO_PI_F * u[2];
+  const float cphi = cosf(phi), sphi = sinf(phi);
+  float c[3], tg[3];
+  for (int k = 0; k < 3; ++k) {
+    c[k] = pt[k] + (vx[k] * cphi + vy[k] * sphi) * r_b - vz[k] * (l_ch * 0.5f);
+    tg[k] = c[k] + vz[k] * l_ch;
+  }
+
+  // the probe chain: a miss ends it, so the hits are its first nf segments
+  float hit_p[PROBE_SEGMENTS][3];
+  int hit_row[PROBE_SEGMENTS];
+  int nf = 0;
+  for (; nf < PROBE_SEGMENTS; ++nf) {
+    const float sgx = tg[0] - c[0], sgy = tg[1] - c[1], sgz = tg[2] - c[2];
+    const float sl = sqrtf(fmaxf(sgx * sgx + sgy * sgy + sgz * sgz, 0.0f));
+    const float inv_sl = 1.0f / fmaxf(sl, 1e-20f);
+    const float pdx = sgx * inv_sl, pdy = sgy * inv_sl, pdz = sgz * inv_sl;
+    if (!(sl > 1e-9f)) break;
+    float t;
+    const int best = geom.closest_below(c[0], c[1], c[2], pdx, pdy, pdz, sl * PROBE_T_SCALE, t);
+    if (best < 0) break;
+    const float* row = geom.table + (size_t)best * TABLE_COLS;
+    const float pnx = __ldg(row + 9), pny = __ldg(row + 10), pnz = __ldg(row + 11);
+    const float hx = c[0] + pdx * t, hy = c[1] + pdy * t, hz = c[2] + pdz * t;
+    hit_p[nf][0] = hx;
+    hit_p[nf][1] = hy;
+    hit_p[nf][2] = hz;
+    hit_row[nf] = best;
+    const float eps = 1e-4f + 1e-5f * (fabsf(hx) + fabsf(hy) + fabsf(hz));
+    const float off = pdx * pnx + pdy * pny + pdz * pnz < 0.0f ? -eps : eps;
+    c[0] = hx + pnx * off;
+    c[1] = hy + pny * off;
+    c[2] = hz + pnz * off;
+  }
+  if (nf == 0) return false;
+  const int pick = min(max((int)(ub * (float)nf), 0), max(nf - 1, 0));
+  const float ex = hit_p[pick][0], ey = hit_p[pick][1], ez = hit_p[pick][2];
+  const float* erow = geom.table + (size_t)hit_row[pick] * TABLE_COLS;
+  const float enx = __ldg(erow + 9), eny = __ldg(erow + 10), enz = __ldg(erow + 11);
+
+  // pdf_sp (bssrdf.rs:195-232): 3 axes x 3 channels / nf
+  const float dvx = px - ex, dvy = py - ey, dvz = pz - ez;
+  float dl[3], nl[3];
+  for (int k = 0; k < 3; ++k) {
+    dl[k] = dot3(fr[3 * k], fr[3 * k + 1], fr[3 * k + 2], dvx, dvy, dvz);
+    nl[k] = dot3(fr[3 * k], fr[3 * k + 1], fr[3 * k + 2], enx, eny, enz);
+  }
+  const float rp[3] = {sqrtf(fmaxf(dl[1] * dl[1] + dl[2] * dl[2], 0.0f)),
+                       sqrtf(fmaxf(dl[2] * dl[2] + dl[0] * dl[0], 0.0f)),
+                       sqrtf(fmaxf(dl[0] * dl[0] + dl[1] * dl[1], 0.0f))};
+  const float aprob[3] = {0.25f, 0.25f, 0.5f};
+  float pdf_b = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    const float anl = fabsf(nl[k]);
+    for (int ch = 0; ch < 3; ++ch) pdf_b = pdf_b + pdf_sr(w, ch, rp[k]) * anl * aprob[k];
+  }
+  pdf_b = pdf_b * (1.0f / 3.0f);
+  pdf_b = pdf_b / fmaxf((float)nf, 1.0f);
+  if (!(pdf_b > 0.0f)) return false;
+  const float dist = sqrtf(fmaxf(dvx * dvx + dvy * dvy + dvz * dvz, 0.0f));
+  const float rr = fmaxf(dist, 1e-6f);
+  const float inv_pb = 1.0f / fmaxf(pdf_b, 1e-20f);
+  for (int ch = 0; ch < 3; ++ch) {
+    const float sp = w.bss_R[ch] * (expf(-rr / w.bss_d[ch]) + expf(-rr / w.bss_d3[ch])) /
+                     (w.bss_sr_den[ch] * rr);
+    beta[ch] = beta[ch] * sp * inv_pb;
+  }
+
+  const float eps = 1e-4f + 1e-5f * (fabsf(ex) + fabsf(ey) + fabsf(ez));
+  if (p.n_lights > 0) {
+    // the exit's direct light: a uniformly picked point light, the Sw adapter
+    const int li = min((int)(u[3] * (float)p.n_lights), p.n_lights - 1);
+    const float lx = p.light_p[3 * li], ly = p.light_p[3 * li + 1], lz = p.light_p[3 * li + 2];
+    const float t2x = lx - ex, t2y = ly - ey, t2z = lz - ez;
+    const float d2b = fmaxf(t2x * t2x + t2y * t2y + t2z * t2z, 1e-20f);
+    const float inv_db = rsqrt_exact(d2b);
+    const float cwi = dot3(t2x * inv_db, t2y * inv_db, t2z * inv_db, enx, eny, enz);
+    const float fsw = sw_f(w, cwi) * fabsf(cwi);
+    const float off = dot3(t2x, t2y, t2z, enx, eny, enz) < 0.0f ? -eps : eps;
+    const float sx = ex + enx * off, sy = ey + eny * off, sz = ez + enz * off;
+    if (!geom.occluded(sx, sy, sz, lx - sx, ly - sy, lz - sz, SHADOW_T_MAX)) {
+      const float sc2 = fsw * (float)p.n_lights / d2b;
+      for (int ch = 0; ch < 3; ++ch) L[ch] = L[ch] + beta[ch] * p.light_emit[3 * li + ch] * sc2;
+    }
+  }
+
+  // the next direction: the Sw adapter cosine-sampled at the exit
+  float dxo, dyo;
+  concentric_disk(u[4], u[5], dxo, dyo);
+  const float zo = sqrtf(fmaxf(0.0f, 1.0f - dxo * dxo - dyo * dyo));
+  const bool use_x = fabsf(enx) > fabsf(eny);
+  const float inv_a = 1.0f / sqrtf(use_x ? enx * enx + enz * enz : eny * eny + enz * enz);
+  const float a1x = (use_x ? -enz : 0.0f) * inv_a;
+  const float a1y = (use_x ? 0.0f : enz) * inv_a;
+  const float a1z = (use_x ? enx : -eny) * inv_a;
+  const float a2x = eny * a1z - enz * a1y, a2y = enz * a1x - enx * a1z, a2z = enx * a1y - eny * a1x;
+  const float wx = a1x * dxo + a2x * dyo + enx * zo;
+  const float wy = a1y * dxo + a2y * dyo + eny * zo;
+  const float wz = a1z * dxo + a2z * dyo + enz * zo;
+  const float swo = sw_f(w, fmaxf(zo, 1e-9f)) * PI_F;
+  for (int ch = 0; ch < 3; ++ch) beta[ch] = beta[ch] * swo;
+  const float off = dot3(wx, wy, wz, enx, eny, enz) < 0.0f ? -eps : eps;
+  ray[0] = ex + enx * off;
+  ray[1] = ey + eny * off;
+  ray[2] = ez + enz * off;
+  ray[3] = wx;
+  ray[4] = wy;
+  ray[5] = wz;
+  return true;
+}
+
 // ---- the bounce loop (_bounce_loop), one ray ----
 
-template <bool kBvh, bool kSmooth, class Smp>
+template <bool kBvh, bool kSmooth, bool kBss, class Smp>
 __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
                             const float* sph_rows, const float* s_sph, const Params& p,
                             const WideParams& w, const Smp& smp, float ox, float oy,
@@ -422,7 +595,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
     // ---- BSDF sample (Bsdf::sample_f, reference-quirk exact) ----
     float ub0, ub1;
     smp.get_2d(dim0 + 3, ub0, ub1);
-    const BsdfSample bs = bsdf_sample<true>(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1);
+    const BsdfSample bs = bsdf_sample<true, kBss>(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1);
     const float nwx = ssx * bs.wx + tsx * bs.wy + nsx * bs.wz;
     const float nwy = ssy * bs.wx + tsy * bs.wy + nsy * bs.wz;
     const float nwz = ssz * bs.wx + tsz * bs.wy + nsz * bs.wz;
@@ -450,6 +623,28 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
     dy = nwy;
     dz = nwz;
 
+    if constexpr (kBss) {
+      // ---- the subsurface branch (path.rs:166-210) where the sample chose
+      // the transmission lobe of the one (subsurface) material ----
+      const int matching = max(n_lob, 1);
+      const int comp = min((int)(ub0 * (float)matching), matching - 1);
+      if ((int)__ldg(row + 16 + 16 * comp) == LOBE_SPEC_TRANS) {
+        float u[6], beta[3] = {br, bg, bb}, Lb3[3] = {Lr, Lg, Lb}, ray[6];
+        u[0] = smp.get_1d(dim0 + 5);
+        smp.get_2d(dim0 + 6, u[1], u[2]);
+        u[3] = smp.get_1d(dim0 + 7);
+        smp.get_2d(dim0 + 9, u[4], u[5]);
+        const float pt[3] = {px, py, pz};
+        const float fr[9] = {ssx, ssy, ssz, tsx, tsy, tsz, ngx, ngy, ngz};
+        if (!subsurface<kBvh>(geom, p, w, pt, fr, u, beta, Lb3, ray)) break;
+        br = beta[0], bg = beta[1], bb = beta[2];
+        Lr = Lb3[0], Lg = Lb3[1], Lb = Lb3[2];
+        ox = ray[0], oy = ray[1], oz = ray[2];
+        dx = ray[3], dy = ray[4], dz = ray[5];
+        spec_prev = false;
+      }
+    }
+
     // ---- Russian roulette (path.rs:212-222) on beta * etaScale ----
     if (bounce > 3) {
       const float beta_max = fmaxf(br, fmaxf(bg, bb)) * es;
@@ -470,7 +665,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
 
 // ---- one sample pass per thread: camera rays (kRaysIn false) or given rays ----
 
-template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth>
+template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss>
 __global__ void __launch_bounds__(BLOCK)
     path_mega_kernel(const float* __restrict__ table, int n_tris,
                      const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
@@ -504,8 +699,8 @@ __global__ void __launch_bounds__(BLOCK)
     raygen(p, smp, in_a[2 * i], in_a[2 * i + 1], ox, oy, oz, dx, dy, dz, weight);
   }
   float L[3];
-  bounce_loop<kBvh, kSmooth>(geom, table, sph_rows, s_sph, p, w, smp, ox, oy, oz, dx, dy, dz,
-                             weight > 0.0f, L);
+  bounce_loop<kBvh, kSmooth, kBss>(geom, table, sph_rows, s_sph, p, w, smp, ox, oy, oz, dx, dy,
+                                   dz, weight > 0.0f, L);
   if constexpr (kSlots) {
     if (smp.unlisted) L[0] = L[1] = L[2] = __int_as_float(0x7fffffff);
   }
@@ -532,19 +727,19 @@ struct Launch {
   const float* slot_u;
 };
 
-template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth>
+template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss = false>
 int launch_instance(const Launch& a) {
   const int grid = (a.n + BLOCK - 1) / BLOCK;
   size_t smem = 0;
   if constexpr (!kBvh) {
     // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
     const cudaError_t attr = cudaFuncSetAttribute(
-        path_mega_kernel<false, kRaysIn, kSlots, kSmooth>,
+        path_mega_kernel<false, kRaysIn, kSlots, kSmooth, kBss>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
     if (attr != cudaSuccess) return (int)attr;
     smem = (size_t)a.n_tris * GEO_COLS * sizeof(float);
   }
-  path_mega_kernel<kBvh, kRaysIn, kSlots, kSmooth><<<grid, BLOCK, smem, a.stream>>>(
+  path_mega_kernel<kBvh, kRaysIn, kSlots, kSmooth, kBss><<<grid, BLOCK, smem, a.stream>>>(
       a.table, a.n_tris, a.nodes_f, a.nodes_i, a.sph_rows, a.in_a, a.in_d, a.in_w, a.pid, a.sid,
       a.slot_u, a.out_l, a.out_w, a.n, *a.params, *a.wide);
   return (int)cudaGetLastError();
@@ -552,6 +747,9 @@ int launch_instance(const Launch& a) {
 
 template <bool kBvh, bool kRaysIn>
 int launch_shading(const Launch& a) {
+  if (a.wide->has_bss)  // the subsurface instances: flat triangles only
+    return a.slot_u != nullptr ? launch_instance<kBvh, kRaysIn, true, false, true>(a)
+                               : launch_instance<kBvh, kRaysIn, false, false, true>(a);
   if (a.slot_u != nullptr)
     return a.wide->smooth ? launch_instance<kBvh, kRaysIn, true, true>(a)
                           : launch_instance<kBvh, kRaysIn, true, false>(a);
@@ -568,7 +766,8 @@ int launch(const Launch& a) {
       w->n_sph > SPH_MAX || (w->n_sph > 0 && a.sph_rows == nullptr) ||
       (w->has_env && (w->env_nu < 1 || w->env_nu > ENV_BINS || w->env_nv < 1 ||
                       w->env_nv > ENV_BINS)) ||
-      (w->smooth && a.n_tris <= 0))
+      (w->smooth && a.n_tris <= 0) ||
+      (w->has_bss && (w->smooth || w->n_sph > 0 || a.n_tris <= 0)))
     return (int)cudaErrorInvalidValue;
   if (a.nodes_f != nullptr) {
     if (a.n_tris <= 0 || a.n_tris > BVH_TRI_MAX || a.nodes_i == nullptr)

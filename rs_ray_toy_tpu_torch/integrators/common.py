@@ -59,6 +59,17 @@ def material_rows(materials, device):
     return torch.as_tensor(rows, device=device)
 
 
+def bssrdf_tables(materials, device):
+    """The materials' BSSRDF profiles as device tensors (has (M,) bool, R
+    and d (M, 3), eta (M,)), or None when no material has one."""
+    has = np.asarray(materials["has_bssrdf"], bool)
+    if not has.any():
+        return None
+    t = lambda k: torch.as_tensor(np.asarray(materials[k], np.float32), device=device)
+    return dict(has=torch.as_tensor(has, device=device), R=t("bssrdf_R"), d=t("bssrdf_d"),
+                eta=t("bssrdf_eta"))
+
+
 class SceneCtx:
     """Device tables of a scene and the wavefront loop's queries.
 
@@ -67,11 +78,12 @@ class SceneCtx:
     .pack_shade_tables), mat_rows: material_rows, lights: a LightTable,
     bvh: K3's tables (ops/bvh_kernel; with the 31 smooth shade columns,
     which the shaded kernel's smooth instance reads, when any triangle has
-    vertex normals) or None for brute force.
-    `from_scene` builds them from a loaded scene."""
+    vertex normals) or None for brute force, bssrdf: bssrdf_tables or
+    None.  `from_scene` builds them from a loaded scene."""
 
-    def __init__(self, tri_packed, shade, mat_rows, lights, bvh=None):
+    def __init__(self, tri_packed, shade, mat_rows, lights, bvh=None, bssrdf=None):
         self.tri_packed = tri_packed
+        self.bssrdf = bssrdf
         self.shade = shade
         self.sph = shade.get("sph")
         self.mat_rows = mat_rows
@@ -92,6 +104,7 @@ class SceneCtx:
             mat_rows=material_rows(scene.materials, device),
             lights=lmod.scene_lights(scene, device),
             bvh=bk.pack_bvh(tri, device) if tri.count > BRUTE_FORCE_CUTOFF else None,
+            bssrdf=bssrdf_tables(scene.materials, device),
         )
 
     def _no_hit(self, o):

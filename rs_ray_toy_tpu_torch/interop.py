@@ -3,8 +3,9 @@
 `from_jax_packed` takes what `rs_ray_toy_tpu.ops.path_megakernel`'s
 `pack_scene` / `pack_camera` return, as numpy arrays and python tuples
 (no JAX object crosses over), and builds this package's PackedScene
-(with the sphere rows, sphere-light rows, environment constants and
-escape radiance of the JAX SceneStatic when it is given) and camera
+(with the sphere rows, sphere-light rows, environment constants,
+escape radiance and subsurface constants of the JAX SceneStatic when it
+is given) and camera
 bundle; `from_jax_volpath` does the same for the Volpath kernel's
 `pack_volpath` (its light constants, medium and power distribution, and
 the grid density as numpy); `from_jax_sppm` carries the SPPM pieces (the
@@ -12,7 +13,7 @@ packed table, the resolved material tables, visible points, state,
 photon lights and rays); `from_jax_scene_ctx` builds the wavefront
 loop's SceneCtx from a JAX SceneCtx's triangle and sphere SoAs (smooth
 vertex normals included), packed triangles, material table (with each
-lobe's scale and distribution code), lights,
+lobe's scale and distribution code, and the BSSRDF profiles), lights,
 environments and (optionally) its BVH kernel tables; `sampler_from_jax`
 builds the port's HaltonSampler with a JAX HaltonSampler's spec and
 seed.  Tests use
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from .accel.geometry import pack_shade_tables, sphere_tables
-from .integrators.common import SceneCtx, material_rows
+from .integrators.common import SceneCtx, bssrdf_tables, material_rows
 from .integrators.sppm import PhotonLights, SPPMState
 from .lights.lights import light_table
 from .ops import bvh_kernel as bk
@@ -35,6 +36,7 @@ from .ops.path_megakernel import (
     SPH_O2W_COL,
     SPH_RADIUS_COL,
     TABLE_COLS,
+    BssrdfC,
     EnvC,
     PackedScene,
     kinds_present,
@@ -101,6 +103,7 @@ def from_jax_packed(table_np, wide_lights, cam_packed, device, wide=None):
             esc_rgb=None if wide.esc_rgb is None else tuple(wide.esc_rgb),
             world_radius=float(wide.world_radius),
             smooth=bool(wide.smooth),
+            bssrdf=None if wide.bssrdf is None else BssrdfC(*wide.bssrdf),
         )
     packed = PackedScene(
         table=torch.as_tensor(table, device=device),
@@ -212,7 +215,7 @@ def from_jax_sppm(device, packed=None, resolved=None, vp=None, state=None, power
 
 
 MAT_KEYS = ("kind", "s0", "s1", "s2", "fparams", "remap", "fresnel", "n_lobes", "eta", "scale",
-            "dist")
+            "dist", "has_bssrdf", "bssrdf_R", "bssrdf_d", "bssrdf_eta")
 
 
 def _env_from_jax(env, rgb, device):
@@ -265,6 +268,7 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
             t("prims_i", np.int32), t("shade_f", np.float32), int(bvh_tables["max_leaf"]),
             int(bvh_tables["depth"]),
         )
+    mats = {k: a(ctx.mats[k]) for k in MAT_KEYS}
     lt = ctx.lights
     n = int(lt.count)
     lights = light_table(
@@ -279,7 +283,8 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
         tri_packed=torch.as_tensor(np.array(a(ctx.tri_packed), np.float32).reshape(-1, 12)
                                    if tri.count else np.zeros((0, 12), np.float32), device=device),
         shade=shade,
-        mat_rows=material_rows({k: a(ctx.mats[k]) for k in MAT_KEYS}, device),
+        mat_rows=material_rows(mats, device),
         lights=lights,
         bvh=bvh,
+        bssrdf=bssrdf_tables(mats, device),
     )

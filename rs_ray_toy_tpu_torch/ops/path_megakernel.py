@@ -15,8 +15,11 @@ estimate_direct and, for the environment, the BSDF sample whose ray
 escapes toward it), one BSDF sample (lambert, Trowbridge-Reitz
 microfacet, specular reflection, fresnel-specular glass, and the Disney
 diffuse, retro, sheen, clearcoat and microfacet lobes of a constant
-DisneyMaterial) with the etaScale factor, Russian roulette after bounce
-3, and with `infinite_lights` the escape radiance at bounce 0 or after a specular
+DisneyMaterial) with the etaScale factor, for a scene in one subsurface
+Disney material its specular transmission lobe and the BSSRDF branch
+(the probe chain, the exit's NEE and its cosine direction: K5 f,
+`subsurface_reference`), Russian roulette after bounce 3, and with
+`infinite_lights` the escape radiance at bounce 0 or after a specular
 bounce, one step past max_depth.  `li_path_mega` runs the same bounce
 loop on given rays.  The estimator is the JAX kernel's (`_raygen` +
 `_bounce_loop`), sample slot for sample slot, on its subset of up to 8
@@ -44,6 +47,7 @@ ops/direct_megakernel.py: the device code lives in csrc/common.cuh.
 """
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -85,12 +89,23 @@ from ..bsdf.eval import (  # noqa: F401 (the lobe helpers, shared with the other
     shading_frame,
 )
 from ..bsdf.microfacet import roughness_to_alpha
-from ..config import DTYPE, PI, SHADOW_EPSILON
+from ..config import DTYPE, ONE_MINUS_EPSILON, PI, SHADOW_EPSILON
 from ..core.sampling import concentric_sample_disk as _concentric_disk  # noqa: F401
 from ..core.sampling import power_heuristic
 from ..core.vec import dot3 as _dot3
 from ..core.vec import rsqrt as _rsqrt
-from ..sampler.dims import CAMERA_FILM, CAMERA_LENS, PATH_BSDF, PATH_NEE, PATH_RR, path_dim0
+from ..sampler.dims import (
+    CAMERA_FILM,
+    CAMERA_LENS,
+    PATH_BSDF,
+    PATH_BSS_OUT,
+    PATH_BSS_PICK,
+    PATH_BSS_PROBE_1D,
+    PATH_BSS_PROBE_2D,
+    PATH_NEE,
+    PATH_RR,
+    path_dim0,
+)
 from ..sampler.halton import HaltonSampler
 from ..scene.types import AREA_SHAPE_SPHERE, LIGHT_DIFFUSE_AREA, LIGHT_INFINITE, LIGHT_POINT
 from . import _build
@@ -116,9 +131,12 @@ SPEC_KINDS = (LOBE_SPEC_REFL, LOBE_SPEC_TRANS, LOBE_FRESNEL_SPEC)
 BASE_KINDS = (LOBE_LAMBERT_REFL, LOBE_MF_REFL, LOBE_SPEC_REFL, LOBE_FRESNEL_SPEC)
 DISNEY_KINDS = (LOBE_DISNEY_DIFFUSE, LOBE_DISNEY_RETRO, LOBE_DISNEY_SHEEN,
                 LOBE_DISNEY_CLEARCOAT, LOBE_DISNEY_MICROFACET_REFL)
-PORTED_KINDS = BASE_KINDS + DISNEY_KINDS
+# the path kernel's: specular transmission too, in a subsurface material only
+PORTED_KINDS = BASE_KINDS + DISNEY_KINDS + (LOBE_SPEC_TRANS,)
 WAVEFRONT_KINDS = PORTED_KINDS + (LOBE_OREN_NAYAR, LOBE_LAMBERT_TRANS, LOBE_MF_TRANS,
                                   LOBE_DISNEY_FAKE_SS)
+# what a kernel without the subsurface branch names for a BSSRDF material
+BSSRDF_NAME = "specular transmission (DisneyMaterial scatter_distance BSSRDF)"
 # what a kernel that does not take a lobe kind names in its error
 LOBE_NAMES = {
     LOBE_OREN_NAYAR: "Oren-Nayar (MatteMaterial sigma > 0)",
@@ -140,21 +158,22 @@ ENV_BINS = 16  # theta and phi rows of a constant map's Distribution2D (8x8 texe
 SLOT_MAX = 176  # sampler slots the slot-to-row map covers: path_dim0(DEPTH_MAX), rounded up
 
 
-def kernel_name(base, bvh=False, halton=False, smooth=False):
+def kernel_name(base, bvh=False, halton=False, smooth=False, bss=False):
     """The name (and LAUNCHES key) of a kernel instance: the camera
     ("path_mega_cam") or rays-in ("path_mega") kernel, over the BVH, under
-    the Halton sampler, with smooth normals."""
-    return base + "_bvh" * bvh + "_halton" * halton + "_smooth" * smooth
+    the Halton sampler, with smooth normals or with the subsurface branch
+    (never both)."""
+    return base + "_bvh" * bvh + "_halton" * halton + "_smooth" * smooth + "_bss" * bss
 
 
 # Kernel launches made by li_path_mega_cam and li_path_mega, by kernel
 # instance; the one piece of module state.
 LAUNCHES = {
-    kernel_name(base, bvh, halton, smooth): 0
+    kernel_name(base, bvh, halton, smooth, bss): 0
     for base in ("path_mega_cam", "path_mega")
     for bvh in (False, True)
     for halton in (False, True)
-    for smooth in (False, True)
+    for smooth, bss in ((False, False), (True, False), (False, True))
 }
 
 
@@ -184,6 +203,19 @@ class EnvC(NamedTuple):
     to_local: tuple
 
 
+class BssrdfC(NamedTuple):
+    """The one used material's BSSRDF as kernel constants (the JAX
+    package's BssrdfC): albedo R and scatter distance d (clamped at 1e-6)
+    per channel as float32 values, its eta, and the Sw adapter's
+    normalisation c_sw = 1 - 2 fresnel_moment1(1 / eta), folded in
+    float64."""
+
+    R: tuple
+    d: tuple
+    eta: float
+    c_sw: float
+
+
 class PackedScene(NamedTuple):
     table: torch.Tensor  # (T, 115) float32 on the render device
     light_p: tuple  # per light, (x, y, z) float32 values (point position)
@@ -202,6 +234,7 @@ class PackedScene(NamedTuple):
     esc_rgb: Optional[tuple] = None  # summed radiance of the infinite_lights environments
     world_radius: float = 0.0  # float32 value
     smooth: bool = False  # mesh_smooth: interpolate the raw vertex normals
+    bssrdf: Optional[BssrdfC] = None  # the subsurface branch's constants
 
 
 def _pow2(n):
@@ -281,7 +314,9 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     With `path` (the path kernel) up to SPH_MAX full spheres and point,
     sphere and one environment light, the environment only without
     specular lobes; with `wavefront` (the wavefront Path loop) any
-    spheres and lights.  Returns the first feature outside them, or
+    spheres and lights.  A used material with a BSSRDF only with `path`
+    (within _bssrdf_unsupported's subset, and specular transmission only
+    there) or `wavefront`.  Returns the first feature outside them, or
     None."""
     if scene.mediums and not volpath:
         return "participating media (Camera.medium) outside Volpath"
@@ -310,6 +345,14 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     used = np.unique(prim_mat[prim_mat >= 0])
     if used.size == 0 and not wavefront:
         return "scenes without materials"
+    has_bss = np.asarray(mats["has_bssrdf"], bool)
+    if has_bss[used].any():
+        if not (path or wavefront):
+            return f"{BSSRDF_NAME} of material type DisneyMaterial"
+        if path:
+            reason = _bssrdf_unsupported(scene, used)
+            if reason is not None:
+                return reason
     n_lobes = mats["n_lobes"]
     lobes_max = MAX_LOBES if wavefront else LOBES_MAX
     if np.any(n_lobes[used] > lobes_max):
@@ -318,7 +361,7 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     for m in used:
         for l in range(int(n_lobes[m])):
             kind = int(mats["kind"][m, l])
-            if kind not in kinds:
+            if kind not in kinds or (path and kind == LOBE_SPEC_TRANS and not has_bss[m]):
                 return f"{LOBE_NAMES.get(kind, f'lobe kind {kind}')} lobes"
             spec_live |= kind in SPEC_KINDS
             reason = _lobe_unsupported(mats, m, l, kind, wavefront)
@@ -327,6 +370,23 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
             if kind == LOBE_FRESNEL_SPEC and n_lobes[m] > 1 and not wavefront:
                 return "fresnel-specular lobes in a multi-lobe material"
     return _light_unsupported(scene, volpath, path, wavefront, spec_live)
+
+
+def _bssrdf_unsupported(scene, used):
+    """The path kernel's subsurface branch (the JAX package's `supports`,
+    path_megakernel.py:439-455): the one used material, point lights only
+    (the exit's NEE is the delta form), triangles only, no environment,
+    flat shading.  Returns the first feature outside it, or None."""
+    lk = np.asarray(scene.lights.kind)
+    if used.size != 1:
+        return f"{BSSRDF_NAME} beside other materials"
+    if lk.size == 0 or np.any(lk != LIGHT_POINT) or scene.infinite:
+        return f"{BSSRDF_NAME} under lights other than point lights"
+    if scene.spheres is not None and scene.spheres.count:
+        return f"{BSSRDF_NAME} on sphere primitives"
+    if mesh_smooth(scene.triangles):
+        return f"{BSSRDF_NAME} on smooth shading (vertex normals)"
+    return None
 
 
 def _lobe_unsupported(mats, m, l, kind, wavefront):
@@ -506,6 +566,24 @@ def pack_spheres(scene):
     return rows
 
 
+def pack_bssrdf(materials, mat):
+    """BssrdfC of the one material the triangles `mat` use when it has a
+    BSSRDF (pack_scene's host constants, path_megakernel.py:752-773), else
+    None."""
+    used = np.unique(mat[mat >= 0])
+    if used.size != 1 or not materials["has_bssrdf"][used[0]]:
+        return None
+    from ..bsdf.bssrdf import fresnel_moment1  # bssrdf -> accel -> ops imports this module
+
+    m = int(used[0])
+    eta = float(materials["bssrdf_eta"][m])
+    fm1 = float(fresnel_moment1(torch.tensor(1.0 / eta, dtype=torch.float64)))
+    f32 = lambda v: tuple(float(x) for x in np.asarray(v, np.float32))
+    return BssrdfC(R=f32(materials["bssrdf_R"][m]),
+                   d=f32(np.maximum(materials["bssrdf_d"][m], 1e-6)), eta=eta,
+                   c_sw=float(1.0 - 2.0 * fm1))
+
+
 def pack_scene(scene, device, bvh=None) -> PackedScene:
     """(T, 115) float32 per-triangle table, the sphere rows and the lights.
 
@@ -552,6 +630,7 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
         )
     lights = scene.lights
     return PackedScene(
+        bssrdf=pack_bssrdf(scene.materials, tri.mat),
         table=torch.as_tensor(table, device=device),
         light_p=tuple(tuple(float(v) for v in row) for row in lights.p),
         light_emit=tuple(tuple(float(v) for v in row) for row in lights.emit),
@@ -563,10 +642,10 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
     )
 
 
-def used_slots(max_depth, n_lights, all_point, has_env_nee, with_cam):
+def used_slots(max_depth, n_lights, all_point, has_env_nee, with_cam, has_bssrdf=False):
     """The sampler slots the bounce loop (and with `with_cam` the lens
     trace) reads, in order, as (slot, 1 or 2 components) pairs: the JAX
-    package's _used_slots without the BSSRDF slots (not ported).  It
+    package's _used_slots, the subsurface branch's with `has_bssrdf`.  It
     mirrors every get_1d / get_2d of bounce_loop_reference and of the
     kernel; a slot left out makes the plain version raise KeyError and
     the kernel write NaN radiance for the rays that read it."""
@@ -580,6 +659,11 @@ def used_slots(max_depth, n_lights, all_point, has_env_nee, with_cam):
             if has_env_nee:
                 slots.append((d0 + PATH_NEE + 2, 2))
         slots.append((d0 + PATH_BSDF, 2))
+        if has_bssrdf:
+            slots += [(d0 + PATH_BSS_PROBE_1D, 1), (d0 + PATH_BSS_PROBE_2D, 2)]
+            if n_lights > 0:
+                slots.append((d0 + PATH_BSS_PICK, 1))
+            slots.append((d0 + PATH_BSS_OUT, 2))
         if bounce > 3:
             slots.append((d0 + PATH_RR, 1))
     return tuple(slots)
@@ -599,7 +683,8 @@ def packed_slots(packed, spec, with_cam):
     n_lights = len(packed.light_p)
     kinds = packed.light_kind or (LIGHT_POINT,) * n_lights
     all_point = n_lights > 0 and all(k == LIGHT_POINT for k in kinds)
-    return used_slots(spec.max_depth, n_lights, all_point, packed.env is not None, with_cam)
+    return used_slots(spec.max_depth, n_lights, all_point, packed.env is not None, with_cam,
+                      getattr(packed, "bssrdf", None) is not None)
 
 
 class SlotReader:
@@ -701,8 +786,8 @@ class _Params(ctypes.Structure):
 
 class _WideParams(ctypes.Structure):
     """Mirror of `struct WideParams` in csrc/path_megakernel.cu: the
-    lights beyond the point light, the sampled environment and the escape
-    radiance."""
+    lights beyond the point light, the sampled environment, the escape
+    radiance and the subsurface branch's constants."""
 
     _fields_ = [
         ("light_kind", ctypes.c_int * LIGHT_MAX),
@@ -726,9 +811,35 @@ class _WideParams(ctypes.Structure):
         ("env_cos_bins", ctypes.c_float * ENV_BINS),
         ("env_to_world", ctypes.c_float * 9),
         ("env_to_local", ctypes.c_float * 9),
+        ("has_bss", ctypes.c_int),
+        ("bss_R", ctypes.c_float * 3),
+        ("bss_d", ctypes.c_float * 3),
+        ("bss_d3", ctypes.c_float * 3),
+        ("bss_sr_den", ctypes.c_float * 3),
+        ("bss_pdf1_den", ctypes.c_float * 3),
+        ("bss_pdf3_den", ctypes.c_float * 3),
+        ("bss_eta", ctypes.c_float),
+        ("bss_sw_den", ctypes.c_float),
+        ("bss_eta2", ctypes.c_float),
         ("smooth", ctypes.c_int),
         ("slot_row", ctypes.c_short * SLOT_MAX),
     ]
+
+
+def bss_constants(bss):
+    """WideParams' subsurface constants of the BssrdfC `bss`, float32
+    values: the python-float products fold in float64 and round once, as
+    the JAX kernel's static floats do (_sample_sr_k, _pdf_sr_k, _sw_f_k)."""
+    f32 = lambda v: float(np.float32(v))
+    per_c = lambda fn: tuple(f32(fn(c)) for c in range(3))
+    return dict(
+        bss_R=per_c(lambda c: bss.R[c]), bss_d=per_c(lambda c: bss.d[c]),
+        bss_d3=per_c(lambda c: 3.0 * bss.d[c]), bss_sr_den=per_c(lambda c: 8.0 * PI * bss.d[c]),
+        bss_pdf1_den=per_c(lambda c: 2.0 * PI * bss.d[c]),
+        bss_pdf3_den=per_c(lambda c: 6.0 * PI * bss.d[c]),
+        bss_eta=f32(bss.eta), bss_sw_den=f32(max(bss.c_sw * PI, 1e-9)),
+        bss_eta2=f32(bss.eta * bss.eta),
+    )
 
 
 def _wide_params(packed, reader=None):
@@ -736,6 +847,13 @@ def _wide_params(packed, reader=None):
     the stratified sampler) fills the slot-to-row map."""
     w = _WideParams()
     w.smooth = int(packed.smooth)
+    if packed.bssrdf is not None:
+        w.has_bss = 1
+        for k, v in bss_constants(packed.bssrdf).items():
+            if isinstance(v, tuple):
+                getattr(w, k)[:] = v
+            else:
+                setattr(w, k, v)
     for k in range(SLOT_MAX):
         w.slot_row[k] = -1
     if reader is not None:
@@ -941,7 +1059,8 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
     return launcher(load_kernel(), "path_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm,
                     LAUNCHES, extra=(sph, ctypes.byref(wide), reader and reader.u),
                     allow_empty=sph is not None,
-                    variant=kernel_name("", halton=reader is not None, smooth=packed.smooth))
+                    variant=kernel_name("", halton=reader is not None, smooth=packed.smooth,
+                                        bss=packed.bssrdf is not None))
 
 
 def li_path_mega(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
@@ -958,8 +1077,8 @@ def li_path_mega(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
 
 def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
     """launch() of the rays-in kernel on the current stream, returning L;
-    every accepted launch adds one to LAUNCHES["path_mega"] (or
-    ["path_mega_bvh"])."""
+    every accepted launch adds one to LAUNCHES of its instance
+    (kernel_name)."""
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"the path_mega kernel runs on cuda tensors, not {dev}")
@@ -984,7 +1103,8 @@ def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
     out_l = torch.empty((n, 3), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = load_kernel()
-    name = kernel_name("path_mega", nodes_f is not None, u is not None, packed.smooth)
+    name = kernel_name("path_mega", nodes_f is not None, u is not None, packed.smooth,
+                       packed.bssrdf is not None)
     ptr = lambda t: None if t is None else t.data_ptr()
 
     def launch():
@@ -1317,12 +1437,13 @@ class PlainGeometry:
             self.nodes_f = self.bvh.nodes_f.to(device)
             self.nodes_i = self.bvh.nodes_i.to(device).to(torch.int64)
 
-    def closest(self, ox, oy, oz, dx, dy, dz, live):
-        """(t, row) of the closest hit, t = BIG_T and row -1 on a miss; a
-        lane that is not live reports a miss."""
+    def closest(self, ox, oy, oz, dx, dy, dz, live, t_lim=BIG_T):
+        """(t, row) of the closest hit with t < t_lim (a float or per ray),
+        t = t_lim and row -1 on a miss; a lane that is not live reports a
+        miss."""
         if self.bvh is not None:
-            return self.walk(ox, oy, oz, dx, dy, dz, torch.full_like(ox, BIG_T), live, False)
-        t_best = torch.full_like(ox, BIG_T)
+            return self.walk(ox, oy, oz, dx, dy, dz, torch.zeros_like(ox) + t_lim, live, False)
+        t_best = torch.zeros_like(ox) + t_lim
         best = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
         for j, g, ray in self._blocks(ox, oy, oz, dx, dy, dz):
             hit, t = _mt(g, *ray)
@@ -1708,7 +1829,9 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
     `packed.smooth` the shading normal ns is interpolated (smooth_normal;
     a sphere keeps ns = ng), ng is faced onto it, and the reflect and
     transmit tests, the offsets and the etaScale entering test read ng's
-    side; flat, ns is ng."""
+    side; flat, ns is ng.  With `packed.bssrdf` a sample that chose the
+    specular transmission lobe takes the subsurface branch
+    (subsurface_reference) before the roulette."""
     dev = ox.device
     geom = PlainGeometry(packed, dev, work)
     spheres = None if packed.sph_table is None else PlainSpheres(packed.sph_table, dev, work)
@@ -1722,9 +1845,12 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
     esc = packed.esc_rgb
     has_spec = any(k in SPEC_KINDS for k in packed.kinds_present)
     smooth = packed.smooth
+    bss = packed.bssrdf
     light_p = torch.tensor(packed.light_p, dtype=DTYPE, device=dev).reshape(-1, 3)
     light_emit = torch.tensor(packed.light_emit, dtype=DTYPE, device=dev).reshape(-1, 3)
     packed = packed._replace(light_kind=kinds)
+    if bss is not None and (spheres is not None or smooth):
+        raise ValueError("the subsurface branch takes flat triangles only")
 
     def occluded(sox, soy, soz, sdx, sdy, sdz, t_max, live):
         occ = geom.occluded(sox, soy, soz, sdx, sdy, sdz, t_max, live)
@@ -1941,6 +2067,25 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
         dy = torch.where(active, nwy, dy)
         dz = torch.where(active, nwz, dz)
 
+        if bss is not None:
+            # ---- the subsurface branch (path.rs:166-210) where the sample
+            # transmitted into the one (subsurface) material ----
+            is_trans = active & (_chosen_kind(row, n_lob, ub[:, 0]) == LOBE_SPEC_TRANS)
+            us = [sampler.get_1d(pid, sid, dim0 + PATH_BSS_PROBE_1D),
+                  *sampler.get_2d(pid, sid, dim0 + PATH_BSS_PROBE_2D).unbind(-1),
+                  sampler.get_1d(pid, sid, dim0 + PATH_BSS_PICK),
+                  *sampler.get_2d(pid, sid, dim0 + PATH_BSS_OUT).unbind(-1)]
+            tally_slots(work, sampler, 6 * is_trans)
+            got, add, beta, ray = subsurface_reference(
+                geom, bss, (px, py, pz), (ssx, ssy, ssz, tsx, tsy, tsz, ngx, ngy, ngz), us,
+                is_trans, (br, bg, bb), light_p, light_emit, occluded)
+            Lr, Lg, Lb = Lr + add[0], Lg + add[1], Lb + add[2]
+            br, bg, bb = beta
+            active = (active & ~is_trans) | got
+            ox, oy, oz, dx, dy, dz = (torch.where(got, a, b)
+                                      for a, b in zip(ray, (ox, oy, oz, dx, dy, dz)))
+            spec_prev = spec_prev & ~got
+
         # ---- Russian roulette (path.rs:212-222) on beta * etaScale ----
         if bounce > 3:
             beta_max = torch.maximum(br, torch.maximum(bg, bb)) * es
@@ -1957,3 +2102,153 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
             bb = torch.where(surv, bb * inv_q, bb)
 
     return torch.stack([Lr, Lg, Lb], dim=-1)
+
+
+_U999 = np.float32(min((np.float32(0.999) - np.float32(0.25)) / np.float32(0.75),
+                       np.float32(ONE_MINUS_EPSILON)))
+
+
+def subsurface_reference(geom, bss, p, frame, us, is_trans, beta, light_p, light_emit, occluded):
+    """The kernel's subsurface branch (the JAX kernel's, path_megakernel.py:
+    3042-3300) at the hits p of the lanes `is_trans`, on their frame (ss,
+    ts, ng; flat shading) with the slot values us = (axis and channel,
+    radius, angle, light pick, exit direction 2d): the projection axis
+    and channel, a radius of the channel's profile, the chord through the
+    profile's 0.999 radius and PROBE_SEGMENTS closest-hit re-casts along
+    it, each limited to seg_len (1 - 1e-4) (the one material: every hit
+    counts), the uniform pick among the hits, pdf_sp over 3 axes x 3
+    channels / n_found, beta times Sp / pdf; the point-light NEE at the
+    exit with the Sw adapter and a shadow ray; the cosine exit direction,
+    beta times Sw pi.  Returns (got, the radiance added (3), the new beta
+    (3), the next ray (ox, oy, oz, dx, dy, dz), valid where got)."""
+    from ..bsdf import bssrdf  # see pack_bssrdf
+
+    w = SimpleNamespace(**bss_constants(bss))
+    sw_folded = (w.bss_sw_den, w.bss_eta2)
+    px, py, pz = p
+    ssx, ssy, ssz, tsx, tsy, tsz, ngx, ngy, ngz = frame
+    u1b, u2b0, u2b1, u_pk, uo0, uo1 = us
+    br, bg, bb = beta
+    # projection axis (bssrdf.rs:118-141): 1/2 the normal, 1/4 each tangent
+    sel0 = u1b < 0.5
+    sel1 = (u1b >= 0.5) & (u1b < 0.75)
+    ub = torch.where(sel0, u1b * 2.0, torch.where(sel1, (u1b - 0.5) * 4.0, (u1b - 0.75) * 4.0))
+    axsel = lambda a, b, c: torch.where(sel0, a, torch.where(sel1, b, c))
+    vx = (axsel(ssx, tsx, ngx), axsel(ssy, tsy, ngy), axsel(ssz, tsz, ngz))
+    vy = (axsel(tsx, ngx, ssx), axsel(tsy, ngy, ssy), axsel(tsz, ngz, ssz))
+    vz = (axsel(ngx, ssx, tsx), axsel(ngy, ssy, tsy), axsel(ngz, ssz, tsz))
+    # channel, with the reference's u * u * 3 - ch remap (bssrdf.rs:143-145)
+    chb = torch.clamp((ub * 3.0).to(torch.int32), 0, 2)
+    ub = ub * ub * 3.0 - chb.to(DTYPE)
+    d_ch = torch.where(chb == 0, w.bss_d[0], torch.where(chb == 1, w.bss_d[1], w.bss_d[2]))
+    r_b = bssrdf.sample_sr(d_ch, u2b0)
+    r_mx = 3.0 * d_ch * torch.log(1.0 / (1.0 - torch.tensor(_U999, device=px.device)))
+    ok = is_trans & (r_b >= 0.0) & (r_b < r_mx)
+    l_ch = 2.0 * torch.sqrt(torch.clamp(r_mx * r_mx - r_b * r_b, min=0.0))
+    phi = 2.0 * PI * u2b1
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    base = [p[c] + (vx[c] * cphi + vy[c] * sphi) * r_b - vz[c] * (l_ch * 0.5) for c in range(3)]
+    target = [base[c] + vz[c] * l_ch for c in range(3)]
+
+    # the probe chain
+    cx, cy, cz = base
+    alive = ok
+    found = []  # per segment: (hit, x, y, z, ngx, ngy, ngz)
+    for _ in range(bssrdf.PROBE_SEGMENTS):
+        sgx, sgy, sgz = target[0] - cx, target[1] - cy, target[2] - cz
+        sl = torch.sqrt(torch.clamp(sgx * sgx + sgy * sgy + sgz * sgz, min=0.0))
+        inv_sl = 1.0 / torch.clamp(sl, min=1e-20)
+        pdx, pdy, pdz = sgx * inv_sl, sgy * inv_sl, sgz * inv_sl
+        live = alive & (sl > 1e-9)
+        t, best = geom.closest(cx, cy, cz, pdx, pdy, pdz, live, sl * (1.0 - 1e-4))
+        gk = live & (best >= 0)
+        nrm = geom.table[best.clamp(min=0), 9:12]
+        pnx, pny, pnz = (torch.where(gk, nrm[:, c], 0.0) for c in range(3))
+        hx, hy, hz = cx + pdx * t, cy + pdy * t, cz + pdz * t
+        found.append((gk, hx, hy, hz, pnx, pny, pnz))
+        mag = torch.abs(hx) + torch.abs(hy) + torch.abs(hz)
+        eps = 1e-4 + 1e-5 * mag
+        off = torch.where(pdx * pnx + pdy * pny + pdz * pnz < 0.0, -eps, eps)
+        cx = torch.where(gk, hx + pnx * off, cx)
+        cy = torch.where(gk, hy + pny * off, cy)
+        cz = torch.where(gk, hz + pnz * off, cz)
+        alive = gk
+
+    nf = sum(f[0].to(torch.int32) for f in found)
+    ok = ok & (nf > 0)
+    pick = torch.minimum(torch.clamp((ub * nf.to(DTYPE)).to(torch.int32), min=0),
+                         torch.clamp(nf - 1, min=0))
+    cum = torch.zeros_like(nf)
+    ex = ey = ez = enx = eny = enz = torch.zeros_like(px)
+    for gk, hx, hy, hz, pnx, pny, pnz in found:
+        cum = cum + gk.to(torch.int32)
+        sel = gk & (cum == pick + 1)
+        ex, ey, ez = torch.where(sel, hx, ex), torch.where(sel, hy, ey), torch.where(sel, hz, ez)
+        enx, eny, enz = (torch.where(sel, a, b) for a, b in zip((pnx, pny, pnz), (enx, eny, enz)))
+
+    # pdf_sp (bssrdf.rs:195-232): 3 axes x 3 channels / n_found
+    dvx, dvy, dvz = px - ex, py - ey, pz - ez
+    dl = (_dot3(ssx, ssy, ssz, dvx, dvy, dvz), _dot3(tsx, tsy, tsz, dvx, dvy, dvz),
+          _dot3(ngx, ngy, ngz, dvx, dvy, dvz))
+    nl = (_dot3(ssx, ssy, ssz, enx, eny, enz), _dot3(tsx, tsy, tsz, enx, eny, enz),
+          _dot3(ngx, ngy, ngz, enx, eny, enz))
+    rp = (torch.sqrt(torch.clamp(dl[1] * dl[1] + dl[2] * dl[2], min=0.0)),
+          torch.sqrt(torch.clamp(dl[2] * dl[2] + dl[0] * dl[0], min=0.0)),
+          torch.sqrt(torch.clamp(dl[0] * dl[0] + dl[1] * dl[1], min=0.0)))
+    pdf_b = torch.zeros_like(px)
+    for axis, aprob in enumerate((0.25, 0.25, 0.5)):
+        anl = torch.abs(nl[axis])
+        for c in range(3):
+            folded = (w.bss_d3[c], w.bss_pdf1_den[c], w.bss_pdf3_den[c])
+            pdf_b = pdf_b + bssrdf.pdf_sr(w.bss_d[c], rp[axis], folded) * anl * aprob
+    pdf_b = pdf_b * (1.0 / 3.0)
+    pdf_b = pdf_b / torch.clamp(nf.to(DTYPE), min=1.0)
+    dist = torch.sqrt(torch.clamp(dvx * dvx + dvy * dvy + dvz * dvz, min=0.0))
+    rr = torch.clamp(dist, min=1e-6)
+    sp3 = [w.bss_R[c] * (torch.exp(-rr / w.bss_d[c]) + torch.exp(-rr / w.bss_d3[c]))
+           / (w.bss_sr_den[c] * rr) for c in range(3)]
+    got = is_trans & ok & (pdf_b > 0.0)
+    inv_pb = 1.0 / torch.clamp(pdf_b, min=1e-20)
+    br = torch.where(got, br * sp3[0] * inv_pb, br)
+    bg = torch.where(got, bg * sp3[1] * inv_pb, bg)
+    bb = torch.where(got, bb * sp3[2] * inv_pb, bb)
+
+    # the exit's direct light: a uniformly picked point light, the Sw adapter
+    n_lights = light_p.shape[0]
+    add = [torch.zeros_like(px)] * 3
+    if n_lights > 0:
+        li = torch.clamp((u_pk * n_lights).to(torch.int64), max=n_lights - 1)
+        lp, le = light_p[li], light_emit[li]
+        t2x, t2y, t2z = lp[:, 0] - ex, lp[:, 1] - ey, lp[:, 2] - ez
+        d2b = torch.clamp(t2x * t2x + t2y * t2y + t2z * t2z, min=1e-20)
+        inv_db = _rsqrt(d2b)
+        cwi = _dot3(t2x * inv_db, t2y * inv_db, t2z * inv_db, enx, eny, enz)
+        fsw = bssrdf.sw_f(w.bss_eta, cwi, sw_folded) * torch.abs(cwi)
+        mag = torch.abs(ex) + torch.abs(ey) + torch.abs(ez)
+        eps = 1e-4 + 1e-5 * mag
+        off = torch.where(_dot3(t2x, t2y, t2z, enx, eny, enz) < 0.0, -eps, eps)
+        sx, sy, sz = ex + enx * off, ey + eny * off, ez + enz * off
+        occ = occluded(sx, sy, sz, lp[:, 0] - sx, lp[:, 1] - sy, lp[:, 2] - sz,
+                       1.0 - SHADOW_EPSILON, got)
+        sc2 = torch.where(got & ~occ, fsw * float(n_lights) / d2b, 0.0)
+        add = [b * le[:, c] * sc2 for c, b in enumerate((br, bg, bb))]
+
+    # the next direction: the Sw adapter cosine-sampled at the exit
+    dxo, dyo = _concentric_disk(uo0, uo1)
+    zo = torch.sqrt(torch.clamp(1.0 - dxo * dxo - dyo * dyo, min=0.0))
+    use_x = torch.abs(enx) > torch.abs(eny)
+    inv_a = 1.0 / torch.sqrt(torch.where(use_x, enx * enx + enz * enz, eny * eny + enz * enz))
+    a1x = torch.where(use_x, -enz, 0.0) * inv_a
+    a1y = torch.where(use_x, 0.0, enz) * inv_a
+    a1z = torch.where(use_x, enx, -eny) * inv_a
+    a2x, a2y, a2z = eny * a1z - enz * a1y, enz * a1x - enx * a1z, enx * a1y - eny * a1x
+    wx = a1x * dxo + a2x * dyo + enx * zo
+    wy = a1y * dxo + a2y * dyo + eny * zo
+    wz = a1z * dxo + a2z * dyo + enz * zo
+    swo = bssrdf.sw_f(w.bss_eta, torch.clamp(zo, min=1e-9), sw_folded) * PI
+    br, bg, bb = (torch.where(got, b * swo, b) for b in (br, bg, bb))
+    mag = torch.abs(ex) + torch.abs(ey) + torch.abs(ez)
+    eps = 1e-4 + 1e-5 * mag
+    off = torch.where(_dot3(wx, wy, wz, enx, eny, enz) < 0.0, -eps, eps)
+    ray = (ex + enx * off, ey + eny * off, ez + enz * off, wx, wy, wz)
+    return got, add, (br, bg, bb), ray

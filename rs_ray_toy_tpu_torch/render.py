@@ -21,8 +21,9 @@ wavefront loop takes (partial spheres, more than 8 spheres or lights,
 distant and triangle lights, more than one environment light, an
 environment light beside a specular lobe, a mesh above the kernel's
 65,536 triangles, Oren-Nayar matte, rough glass, Translucent, Mix and
-thin or transmissive Disney materials), render through the wavefront
-loop instead
+thin or transmissive Disney materials, and a subsurface Disney material
+outside the path kernel's subsurface subset), render through the
+wavefront loop instead
 (`render_wavefront_job`): raygen on the host (camera/realistic), then
 integrators/ao.li_ao or integrators/path.li_path over SceneCtx, whose
 triangle queries are kernels K4 and K3 (spheres in plain torch).  Path

@@ -16,6 +16,12 @@ PATH_DPB = 11
 PATH_NEE = 0  # +0 light pick (1d); +1/+2 light and counter samples (2d)
 PATH_BSDF = 3  # 2d
 PATH_RR = 4  # 1d
+# the BSSRDF branch of a bounce that transmits into a subsurface material
+PATH_BSS_PROBE_1D = 5  # projection axis, channel and pick (1d)
+PATH_BSS_PROBE_2D = 6  # radius and angle of the probe (2d)
+PATH_BSS_PICK = 7  # the exit point's light pick (1d)
+PATH_BSS_LIGHT = 8  # the exit point's light sample (2d)
+PATH_BSS_OUT = 9  # the exit direction (2d)
 
 
 def path_dim0(bounce: int) -> int:

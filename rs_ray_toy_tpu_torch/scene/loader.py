@@ -2,7 +2,7 @@
 
 Parses the reference's scene schema with the same typed accessors and
 defaults (renderprocess.rs:136-252).  Ported: materials (matte, plastic,
-metal, mirror, glass, translucent, mix, Disney without a BSSRDF, debug),
+metal, mirror, glass, translucent, mix, Disney with its BSSRDF, debug),
 `objs`, triangle and sphere primitives with
 `instances` (spheres with their z / phi clips), point and distant lights,
 diffuse lights on a sphere (a partial one sampled whole, as the JAX
@@ -337,17 +337,12 @@ def _make_material(cfg, host_mats, allow_multiple_lobes):
             return None
         return recipes.mix(name, m1, m2, R("scale", 0.5))
     if mtype == "DisneyMaterial":
-        thin = read_bool(cfg, "thin", False)
-        if recipes.disney_bssrdf(thin, R("scatter_distance", 0.0)):
-            raise NotImplementedError(
-                f"BSSRDF (DisneyMaterial scatter_distance) of material type DisneyMaterial"
-                f" '{name}': subsurface scattering is not ported"
-            )
         return recipes.disney(
             name, R("color", 0.5), F("metallic", 0.0), F("eta", 1.5), F("roughness", 0.5),
             F("specular_tint", 0.0), F("anisotropic", 0.0), F("sheen", 0.0),
             F("sheen_tint", 0.5), F("clearcoat", 0.0), F("clearcoat_gloss", 1.0),
-            F("spec_trans", 0.0), thin, F("flatness", 0.0), F("diff_trans", 1.0),
+            F("spec_trans", 0.0), read_bool(cfg, "thin", False), F("flatness", 0.0),
+            F("diff_trans", 1.0), R("scatter_distance", 0.0),
         )
     if mtype == "Debug":
         return recipes.debug(name)

@@ -3,7 +3,8 @@ samples/scene_fog.json, samples/scene_sppm.json, samples/scene_ao.json,
 samples/scene_sphere_area.json, samples/scene_env.json,
 samples/scene_furnace.json, samples/scene_halton.json,
 samples/scene_smooth.json, samples/scene_disney.json,
-samples/scene_materials.json, samples/cube.obj and samples/sphere_smooth.obj.
+samples/scene_materials.json, samples/scene_sss.json,
+samples/scene_sss_mixed.json, samples/cube.obj and samples/sphere_smooth.obj.
 
 This fixture stands in for the reference renderer's `samples/scene.json`,
 which is not part of this repository.  It follows the reference's scene
@@ -71,6 +72,18 @@ in Oren-Nayar matte (sigma 20), a TranslucentMaterial and a MixMaterial
 of matte and metal (scale 0.3), and three spheres in rough glass
 (u = v = 0.2), a thin Disney material (flatness 0.5, diff_trans 0.6,
 spec_trans 0.3) and a Disney material with spec_trans 0.4.
+
+scene_sss.json is the JAX bench's `sss` row (bench.py:47-53, 242; BASELINE
+config 5): scene.json with every cube in the subsurface Disney material
+mat_sss (color (0.8, 0.6, 0.4), scatter_distance (1.0, 0.8, 0.6),
+roughness 0.3: the specular transmission, retro and Disney microfacet
+lobes and the Burley BSSRDF), the three point lights, 640x360 at 16 spp.
+The path kernel's subsurface branch takes it.
+
+scene_sss_mixed.json puts two of the cubes in mat_sss and the third in
+the fixture's matte, and adds scene_sphere_area.json's sphere light:
+another material and a sphere light, which the path kernel's subsurface
+branch does not take, so Path renders it through the wavefront loop.
 
 The scene is synthetic.  In particular its `lens_data` is NOT the
 reference's lens prescription: it is the classic 50 mm f/2 double-Gauss
@@ -403,6 +416,30 @@ def scene_materials():
     return cfg
 
 
+MAT_SSS = {
+    "material_type": "DisneyMaterial",
+    "material_name": "mat_sss",
+    "color": {"values": [0.8, 0.6, 0.4]},
+    "scatter_distance": {"values": [1.0, 0.8, 0.6]},
+    "roughness": 0.3,
+}
+
+
+def scene_sss():
+    cfg = scene()
+    cfg["materials"].append(MAT_SSS)
+    for prim in cfg["Aggregate"]["primitives"]:
+        prim["material_name"] = "mat_sss"
+    return cfg
+
+
+def scene_sss_mixed():
+    cfg = scene_sss()
+    cfg["Aggregate"]["primitives"][2]["material_name"] = "mat_matte"
+    cfg["lights"].append(scene_sphere_area()["lights"][-1])
+    return cfg
+
+
 def main(out_dir=HERE):
     with open(os.path.join(out_dir, "cube.obj"), "w") as fh:
         fh.write(cube_obj())
@@ -421,6 +458,8 @@ def main(out_dir=HERE):
         ("scene_smooth.json", scene_smooth()),
         ("scene_disney.json", scene_disney()),
         ("scene_materials.json", scene_materials()),
+        ("scene_sss.json", scene_sss()),
+        ("scene_sss_mixed.json", scene_sss_mixed()),
     ):
         with open(os.path.join(out_dir, name), "w") as fh:
             json.dump(cfg, fh, indent=1)

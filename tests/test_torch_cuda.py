@@ -3,7 +3,9 @@ kernels and the SPPM camera and photon walks, brute force and BVH, the
 SPPM deposit, and the wavefront loop's intersection kernels K4 and K3;
 the path kernel's Halton and smooth instances and K3's smooth shaded
 instance; the Disney lobes in the path kernel, and the wavefront loop
-on the materials only it takes) against their plain PyTorch versions.
+on the materials only it takes; the path kernel's subsurface instances
+and the wavefront loop's subsurface branch) against their plain PyTorch
+versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -647,3 +649,100 @@ def test_smooth_shaded_bvh_instance_matches_plain_version(tmp_path):
     assert torch.equal(idx, idx_ref) and torch.equal(t, t_ref) and torch.equal(at["mat"], mat)
     for k, key in ((4, "ns"), (7, "ng"), (10, "dpdu"), (16, "dndu"), (19, "dndv")):
         torch.testing.assert_close(at[key], a_ref[k:k + 3].T, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
+@pytest.mark.parametrize("halton", [False, True], ids=["stratified", "halton"])
+def test_subsurface_path_instances_match_plain_versions(tmp_path, halton, bvh):
+    """The path kernel's subsurface instances (K5 f) on
+    samples/scene_sss.json at 160x90: the camera instance (#1, #2 with the
+    BVH) and the rays-in instance (#3, #4) on the same camera rays, one
+    launch each, against their plain versions."""
+    from rs_ray_toy_tpu_torch.render import camera_rays
+
+    dev = _device()
+    job = _fixture(tmp_path, "scene_sss.json", 160, 90, halton=halton)
+    camera = RealisticCamera(job.camera, job.film, pupil_samples=1 << 16, device=dev)
+    sampler = make_sampler(job)
+    pxy, pid, soff = sample_batch(job.film, 6 if halton else 16, dev)
+    packed = pmk.pack_scene(job.scene, dev, bvh=bvh)
+    assert packed.bssrdf is not None
+    args = (packed, pmk.pack_camera(camera), pxy, pid, soff, sampler, job.integrator)
+    name = pmk.kernel_name("path_mega_cam", bvh, halton, bss=True)
+    before = dict(pmk.LAUNCHES)
+    l, w = pmk.li_path_mega_cam(*args)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in pmk.LAUNCHES.items() if v != before[k]} == {name: 1}
+    l_ref, w_ref = pmk.li_path_mega_cam_reference(*args)
+    torch.testing.assert_close(w, w_ref, rtol=2e-5, atol=1e-7)
+    assert int((l_ref.amax(-1) > 0).sum()) >= 1000
+    _wide_bar(l, l_ref)
+    o, d, wt = camera_rays(camera, sampler, pxy, pid, soff)
+    rays = (packed, o, d, wt, pid, soff, sampler, job.integrator)
+    name = pmk.kernel_name("path_mega", bvh, halton, bss=True)
+    before = pmk.LAUNCHES[name]
+    l = pmk.li_path_mega(*rays)
+    torch.cuda.synchronize()
+    assert pmk.LAUNCHES[name] == before + 1
+    _wide_bar(l, pmk.li_path_mega_reference(*rays))
+
+
+def test_subsurface_render_launches_the_path_kernel(tmp_path, capsys):
+    """samples/scene_sss.json renders through the subsurface camera
+    instance, one launch a pass and no fallback line; its mixed twin
+    (another material, a sphere light) through the wavefront loop's K4,
+    whose li_path on the card matches the same on the CPU."""
+    from rs_ray_toy_tpu_torch.integrators.path import li_path
+    from rs_ray_toy_tpu_torch.render import camera_rays
+
+    dev = _device()
+    res = render_job(_job(tmp_path, scene="scene_sss.json"), dev, pupil_samples=1 << 16)
+    assert res["render_path"] == "megakernel" and res["fused_kernel"] == "path"
+    assert res["launches"] == res["passes"] == 1 and "wavefront" not in capsys.readouterr().err
+    assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
+    before = dict(pmk.LAUNCHES)
+    res = render_job(_job(tmp_path, scene="scene_sss_mixed.json"), dev, pupil_samples=1 << 16)
+    assert res["render_path"] == "wavefront" and dict(pmk.LAUNCHES) == before
+    assert "wavefront loop" in capsys.readouterr().err
+    job = _job(tmp_path, 160, 90, scene="scene_sss_mixed.json")
+    sampler = StratifiedSampler(job.sampler)
+    camera = RealisticCamera(job.camera, job.film, pupil_samples=1 << 16, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    o, d, w = camera_rays(camera, sampler, pxy, pid, soff)
+    l = li_path(SceneCtx.from_scene(job.scene, dev), o, d, w, sampler, pid, soff, job.integrator)
+    cpu = torch.device("cpu")
+    l_ref = li_path(SceneCtx.from_scene(job.scene, cpu), o.cpu(), d.cpu(), w.cpu(), sampler,
+                    pid.cpu(), soff.cpu(), job.integrator)
+    assert int((l_ref.amax(-1) > 0).sum()) >= 1000
+    _wide_bar(l.cpu(), l_ref)
+
+
+def test_subsurface_grid_wavefront_matches_cpu(tmp_path):
+    """scene_sss_mixed.json's grid (its first cube replaced by the cube
+    grid in mat_sss) through the wavefront loop over K3: the probe chain's
+    segments, each cut off short of the chord's end, are K3 closest-hit
+    launches, and the li_path on the card matches the same on the CPU
+    over every ray and over the lit rays alone."""
+    from rs_ray_toy_tpu_torch.integrators.path import li_path
+    from rs_ray_toy_tpu_torch.render import camera_rays
+
+    dev = _device()
+    job = load_scene(write_grid_scene(str(tmp_path), base=str(SAMPLES / "scene_sss_mixed.json")))
+    job.film.xres, job.film.yres = 80, 45
+    sampler = StratifiedSampler(job.sampler)
+    camera = RealisticCamera(job.camera, job.film, pupil_samples=1 << 16, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    o, d, w = camera_rays(camera, sampler, pxy, pid, soff)
+    ctx = SceneCtx.from_scene(job.scene, dev)
+    assert ctx.bvh is not None and ctx.bssrdf is not None
+    before = bk.LAUNCHES["bvh_closest"]
+    l = li_path(ctx, o, d, w, sampler, pid, soff, job.integrator)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["bvh_closest"] > before
+    cpu = torch.device("cpu")
+    l_ref = li_path(SceneCtx.from_scene(job.scene, cpu), o.cpu(), d.cpu(), w.cpu(), sampler,
+                    pid.cpu(), soff.cpu(), job.integrator)
+    lit = l_ref.amax(-1) > 0
+    assert int(lit.sum()) >= 1000
+    _wide_bar(l.cpu(), l_ref)
+    _wide_bar(l.cpu()[lit], l_ref[lit])

@@ -26,8 +26,9 @@ JAX package, on the CPU.
   1e-3 relative, means within 3e-3.
 - The routes: the Disney fixture goes to the path kernel, a thin Disney
   material to the wavefront loop, a BSSRDF Disney material (non-zero
-  scatter_distance) raises at load naming it, and Debug, DirectLighting,
-  Volpath and SPPM raise naming the Disney lobes.
+  scatter_distance) loads with its BSSRDF and the direct kernel names it
+  (tests/test_torch_bssrdf.py holds the rest), and Debug,
+  DirectLighting, Volpath and SPPM raise naming the Disney lobes.
 """
 
 import json
@@ -306,14 +307,20 @@ def test_routes(tmp_path, capsys):
 
 
 def test_bssrdf_disney_raises_at_load(tmp_path):
+    """A BSSRDF Disney material no longer raises at load: it loads with its
+    BSSRDF, and a kernel without the subsurface branch names it."""
     path = _write(tmp_path, _with_materials(
-        [{**DISNEY, "scatter_distance": {"values": [0.5, 0.3, 0.2]}}]))
-    with pytest.raises(NotImplementedError, match=r"BSSRDF \(DisneyMaterial scatter_distance\)"):
-        load_scene(path)
-    # thin: no BSSRDF (disney.rs:585-601), so it loads
+        [{**DISNEY, "scatter_distance": {"values": [0.5, 0.3, 0.2]}}], "Debug"))
+    job = load_scene(path)
+    assert bool(job.scene.materials["has_bssrdf"][-1])
+    with pytest.raises(NotImplementedError,
+                       match=r"specular transmission \(DisneyMaterial scatter_distance BSSRDF\)"):
+        select_kernel(job, make_sampler(job))
+    # thin: no BSSRDF (disney.rs:585-601)
     path = _write(tmp_path, _with_materials(
         [{**DISNEY, "thin": True, "scatter_distance": {"values": [0.5, 0.3, 0.2]}}]))
-    assert load_scene(path).scene.materials["n_lobes"][-1] > 0
+    mats = load_scene(path).scene.materials
+    assert mats["n_lobes"][-1] > 0 and not mats["has_bssrdf"][-1]
 
 
 @pytest.mark.parametrize("integrator", ["Debug", "DirectLighting", "Volpath", "SPPM"])
