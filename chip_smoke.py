@@ -58,7 +58,7 @@ Phase 6  the SPPM main path through its three kernels: (a)
          all of its pixels and photons: few of its pixels see direct
          light, and a few chaotic glossy walks can move the mean of a
          subset past the bar, so the line also reports the camera walk's
-         agreement on a seeded random eighth and against the plain
+         agreement on a seeded random eighth, there also against the plain
          version run on the CPU, and the plain version's on the card
          against the CPU; (d) the warm render's camera and photon Mrays/s.
 
@@ -146,7 +146,8 @@ Phase 10 every untextured material of the scene schema: (a)
          Disney material) at 640x360x16 through deploy_render, announced
          on stderr and rendered through the wavefront loop's K4 alone,
          no path-kernel launch, and its li_path on the card against the
-         same on the CPU on 80x45x16 camera rays, held as 7d.
+         same on the CPU on 80x45x16 camera rays, held as 7d and over its
+         lit rays (at least 1,000, under 0.5% of them past 1e-3).
 Phase 11 subsurface Path, the path kernel's BSSRDF instances: (a)
          samples/scene_sss.json (every cube in the bench's mat_sss, the
          JAX bench's `sss` row) at 640x360x16 through deploy_render, one
@@ -174,12 +175,33 @@ Phase 11 subsurface Path, the path kernel's BSSRDF instances: (a)
          radiance, at least 1,000 of them): under 0.5% of them past 1e-3
          relative and, where kernel and plain version trace the same rays
          (not the camera instances), their 99th percentile under 1e-5.
+Phase 12 textured Path and the repairs: (a) K7, the EWA texture tap, alone
+         (csrc/texture_kernel.cu) on 2^20 seeded lookups of
+         samples/tex_checker.png's pyramid in each of the three wraps, with
+         anisotropic, clamped and degenerate footprints, against its plain
+         version (scene/mipmap.ewa_lookup): max relative error (floor
+         1e-6) under 1e-5; (b, d) samples/scene_textured.json (every cube's
+         kd the image) at 640x360x16 through deploy_render, the CLI's path:
+         the PNG written, nothing on stderr, one launch of the textured
+         camera instance a pass, and that instance held to its plain
+         version on a seeded eighth of one pass, also over its lit rays
+         (at least 1,000, under 0.5% past 1e-3); (c) write_grid_scene's
+         textured grid (19,224 triangles) at 640x360x8 through the textured
+         BVH instance, held the same way on a sixteenth; (e) the scenes the
+         port once refused, at 160x90: samples/scene_fog.json under Path through the
+         path kernel (the camera medium ignored), samples/scene.json at
+         max_depth 20 through the wavefront loop (announced), a 112x112
+         grid (150,552 triangles) under AO and Path over K3, and
+         write_deep_bvh_scene's tree of 97 levels under AO through K3's
+         deep instances, their shaded and any-hit walks held as 7b holds.
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
 loop) and none of the others.  Every phase
 prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the 37 kernels, the last line
+second-to-last line is a JSON record of the 40 kernels (K7's entry names
+the textured instance it runs inside, whose launches it carries, and its
+launches alone in 12a), the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
 build/chip_smoke/chip_smoke.json and the images beside it.  Without a
 CUDA device, or without the rest of the repository, it exits non-zero
@@ -191,8 +213,10 @@ over 67 TFLOP/s (the H100 SXM data sheet).  The bytes are each ray's 16
 in and 16 out, of each BVH node once its two child boxes and its offset,
 count and axis, and of each triangle's row once the columns a kernel
 reads: the 9 geometry columns, the 7 of normal, dpdu and lobe count, and
-16 per lobe of its material; the raw normals and the texture block are
-never read; of each sphere row its 13 intersect columns, 12 of
+16 per lobe of its material; the raw normals are never read, the
+texture block only by the textured instances, with the image's texels:
+the pyramid once, or the texels the taps weigh (12 bytes each) where
+they are fewer; of each sphere row its 13 intersect columns, 12 of
 object-to-world, 2 of lobe count and eta and 16 per lobe.  A rays-in
 instance moves per ray its origin, direction, weight, pixel id and sample
 index in (36 bytes) and L out (12).  Under a HaltonSampler an instance
@@ -212,8 +236,11 @@ coordinates, 12, and seven lerps of 4), and for the Disney lobes the
 operations of their f and pdf beyond those 3 ("disney_ops",
 ops/path_megakernel.DISNEY_OPS, counted from common.cuh: f / pdf 41 / 10
 diffuse, 50 / 10 retro, 47 / 10 sheen, 81 / 62 clearcoat with log10f as
-16, 201 / 100 microfacet with the Disney fresnel) that the plain version counts on
-the same inputs, scaled by the batch over the subset where it ran on a
+16, 201 / 100 microfacet with the Disney fresnel), the textured taps'
+weighed texels (10 each) and the differential rays' lens traces (the
+fixture's lens: 110, 94 for each of its 10 refracting surfaces and 15
+at its stop, counted from common.cuh's raygen_u) that the plain version
+counts on the same inputs, scaled by the batch over the subset where it ran on a
 subset; the lens trace, the sampler hashes, the shading, the light
 sampling and the medium's closed forms are left out, so the bound is a
 lower one.  The SPPM walks count their bytes the same way, with only the
@@ -267,6 +294,7 @@ from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
 from rs_ray_toy_tpu_torch.ops import intersect_kernel as ik
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
+from rs_ray_toy_tpu_torch.ops import texture as tex_ops
 from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
 from rs_ray_toy_tpu_torch.render import (
     camera_rays,
@@ -282,13 +310,16 @@ from rs_ray_toy_tpu_torch.scene.gen import (
     THIN_FOG,
     write_fog_scene,
     write_grid_fog_scene,
+    write_deep_bvh_scene,
     write_grid_scene,
     write_smooth_grid_scene,
     write_variant,
     write_wavefront_scene,
 )
+from rs_ray_toy_tpu_torch.scene import mipmap
 from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
+from rs_ray_toy_tpu_torch.scene.png import load_image
 
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "samples" / "scene.json"
@@ -305,6 +336,7 @@ SCENE_DISNEY = ROOT / "samples" / "scene_disney.json"
 SCENE_MATERIALS = ROOT / "samples" / "scene_materials.json"
 SCENE_SSS = ROOT / "samples" / "scene_sss.json"
 SCENE_SSS_MIXED = ROOT / "samples" / "scene_sss_mixed.json"
+SCENE_TEXTURED = ROOT / "samples" / "scene_textured.json"
 HALTON6 = {"sampler_type": "HaltonSampler", "nsamp": 6}
 OUT = ROOT / "build" / "chip_smoke"
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
@@ -314,6 +346,7 @@ SPPM_SRC = "rs_ray_toy_tpu_torch/csrc/sppm_megakernel.cu"
 SPPM_REF = "rs_ray_toy_tpu/ops/sppm_megakernel.py"
 INTERSECT_SRC = "rs_ray_toy_tpu_torch/csrc/intersect_kernel.cu"
 BVH_SRC = "rs_ray_toy_tpu_torch/csrc/bvh_kernel.cu"
+TEX_SRC = "rs_ray_toy_tpu_torch/csrc/texture.cuh"
 KERNELS = {
     "path_mega_cam": dict(source=PATH_SRC, replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3814"),
     "path_mega_cam_bvh": dict(
@@ -358,8 +391,16 @@ for _base, _bvh, _line in (("path_mega_cam", False, 3814), ("path_mega_cam", Tru
             source=PATH_SRC, replaces=f"rs_ray_toy_tpu/ops/path_megakernel.py:{_line}")
 KERNELS["bvh_shaded_smooth"] = dict(source=BVH_SRC,
                                     replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:400")
+# the textured instances (phase 12) and K7, the tap inside them (its own
+# entry point: csrc/texture_kernel.cu)
+KERNELS["path_mega_cam_tex"] = dict(source=PATH_SRC,
+                                    replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3814")
+KERNELS["path_mega_cam_bvh_tex"] = dict(source=PATH_SRC,
+                                        replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3843")
+KERNELS["tex_lookup"] = dict(source=TEX_SRC, replaces="rs_ray_toy_tpu/ops/tex_tile.py:211")
 # FP32 operations per counted test, density tap or walked deposit pair
-FLOPS = {"mt": 45, "slab": 27, "sph": 30, "lobe": 3, "track": 40, "pair": 9, "disney_ops": 1}
+FLOPS = {"mt": 45, "slab": 27, "sph": 30, "lobe": 3, "track": 40, "pair": 9, "disney_ops": 1,
+         "texel": 10, "fd_ray": 110 + 94 * 10 + 15}
 # module: (kernel wrapper, plain version, packing)
 PASSES = {
     pmk: (pmk.li_path_mega_cam, pmk.li_path_mega_cam_reference, pmk.pack_scene),
@@ -386,6 +427,9 @@ NODE_READ_COLS = 12 + 3  # both child boxes; offset, n_prims, axis
 QUERY_BYTES = 28 + 8  # o, d, t_max in; t, triangle out
 SHADED_OUT_BYTES = 4 * 4 + 16 * 4  # t, triangle, material, area light; 16 attribute floats
 MISS_HOLD = 1e-5  # hit or miss may differ on this share of the held rays (ties)
+TEXEL_BYTES = 12  # an RGB float32 texel
+TEX_BLOCK_COLS = 10  # a textured row's dpdv, uv0, uv1, uv2 and flag
+TEX_QUERY_BYTES = 8 + 16 + 12  # st, the two footprint axes in; RGB out
 
 
 def check(cond, msg):
@@ -489,6 +533,10 @@ def bound(work, scale, n_rays, packed, ray_bytes=RAY_BYTES, extra_bytes=0):
     sph = getattr(packed, "sph_table", None)
     if sph is not None:
         nbytes += int((SPH_ROW_COLS + LOBE_COLS * sph[:, 15]).sum()) * 4
+    tex = getattr(packed, "tex", None)
+    if tex is not None:
+        nbytes += packed.table.shape[0] * TEX_BLOCK_COLS * 4
+        nbytes += tex_bytes(tex.pyr, scale * float(work.get("texel", 0)))
     if packed is not None and packed.bvh is not None:
         nbytes += packed.bvh.nodes_f.shape[0] * NODE_READ_COLS * 4
     if getattr(packed, "grid", False):
@@ -497,11 +545,18 @@ def bound(work, scale, n_rays, packed, ray_bytes=RAY_BYTES, extra_bytes=0):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def tex_bytes(pyr, texels):
+    """Texel bytes a tap batch must read: the pyramid once, or where the
+    taps weigh fewer texels than it holds, those."""
+    return min(pyr.data.numel() * 4, texels * TEXEL_BYTES)
+
+
 def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
 
-COUNTS = (pmk.LAUNCHES, dmk.LAUNCHES, vmk.LAUNCHES, smk.LAUNCHES, ik.LAUNCHES, bk.LAUNCHES)
+COUNTS = (pmk.LAUNCHES, dmk.LAUNCHES, vmk.LAUNCHES, smk.LAUNCHES, ik.LAUNCHES, bk.LAUNCHES,
+          tex_ops.LAUNCHES)
 
 
 def zero_counts():
@@ -621,11 +676,11 @@ def main():
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     nvcc = run([_build.nvcc_path(), "--version"]).splitlines()[-1]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         builds = {
             name: pool.submit(_build.build, name)
             for name in ("path_megakernel", "direct_megakernel", "volpath_megakernel",
-                         "sppm_megakernel", "intersect_kernel", "bvh_kernel")
+                         "sppm_megakernel", "intersect_kernel", "bvh_kernel", "texture_kernel")
         }
         host = pool.submit(_build.load_host, "bvh_builder")
         logs = {name: f.result()[1] for name, f in builds.items()}
@@ -637,6 +692,7 @@ def main():
     smk.load_kernel()
     ik.load_kernel()
     bk.load_kernel()
+    tex_ops.load_kernel()
     ptxas = {name: _build.ptxas_lines(log) for name, log in logs.items()}
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
                   build_s=build_s, ptxas=ptxas)
@@ -802,6 +858,10 @@ def main():
     # ---- phase 11: subsurface Path: the BSSRDF through the path kernel ----
     subsurface_phase(record, kernels, card, dev)
 
+    # ---- phase 12: textured Path (K7 inside the path kernel); the repairs ----
+    texture_phase(record, kernels, card, dev)
+    repairs_phase(record, card, dev)
+
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -906,7 +966,7 @@ def hold_sppm_walks(job, dev, cross=False):
     first iteration's inputs, and the photon kernel also on a seeded
     batch of surface-started photons (surface_photons).  With `cross`,
     the camera walk's agreement also on a seeded random eighth of the
-    pixels and against the plain version on the CPU.  Returns (camera
+    pixels, there also against the plain version on the CPU.  Returns (camera
     numbers, photon numbers, the kernels' VPs, the main path's and the
     batch's kernel events, radius, mats)."""
     spec = job.integrator
@@ -950,10 +1010,13 @@ def hold_sppm_walks(job, dev, cross=False):
                   work={k: float(v) for k, v in work.items()}, **bar)
     if cross:
         sub = torch.randperm(n, generator=torch.Generator().manual_seed(8))[: n // 8].to(dev)
-        ld_cpu, _ = smk.sppm_camera_mega_cam_reference(packed, cam, pxy.cpu(), u.cpu(), depth)
+        # the plain version on the CPU over the same eighth
+        sub_cpu = sub.cpu()
+        ld_cpu, _ = smk.sppm_camera_mega_cam_reference(packed, cam, pxy.cpu()[sub_cpu],
+                                                       u.cpu()[:, sub_cpu], depth)
         camera["cross"] = dict(eighth=agreement(ld[sub], ld_ref[sub]),
-                               kernel_vs_cpu=agreement(ld, ld_cpu),
-                               plain_vs_cpu=agreement(ld_ref, ld_cpu))
+                               kernel_vs_cpu=agreement(ld[sub], ld_cpu),
+                               plain_vs_cpu=agreement(ld_ref[sub], ld_cpu))
 
     radius = torch.full((n,), spec.radius, dtype=torch.float32, device=dev)
     lights = sppm.photon_lights(packed, job.scene.lights, dev)
@@ -1921,6 +1984,10 @@ def materials_phase(record, kernels, card, dev):
     # its li_path on the card (K4) against the same on the CPU (K4's plain
     # version) on the same camera rays, at 80x45x16: the bar of 7d
     bar = card_vs_cpu(SCENE_MATERIALS, 80, 45, dev, "10d")
+    # with the 3-vector sums taken in one order on both devices, what
+    # still parts card from CPU here starts at atan2's last bits (python -m
+    # rs_ray_toy_tpu_torch.divergence): the lit rays' share is held
+    check_lit(bar, "10d", same_rays=False)
     record["phase10d"] = dict(launches=counts, colored=colored, camera_rays=res["camera_rays"],
                               render_mrays_per_s=res["mrays_per_s"],
                               phase_s=time.perf_counter() - t0, **bar)
@@ -2094,6 +2161,158 @@ def subsurface_phase(record, kernels, card, dev):
           f"{card_cpu_line(grid_bar)} (CPU {grid_bar['cpu_s']:.1f} s); "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
 
+
+
+# ---- phase 12: textured Path; the repairs ----
+
+
+def tex_queries(n, seed, dev):
+    """n seeded lookups: st over [-1.2, 2.2)^2, footprint axes from 1e-4 to
+    0.3 uv, the second often much shorter (the max_aniso clamp), a
+    sixteenth with a zero second axis and a thirty-second with both zero
+    (degenerate: level 0's bilinear tap)."""
+    rng = np.random.default_rng(seed)
+    st = rng.uniform(-1.2, 2.2, (n, 2))
+    scale = 10 ** rng.uniform(-4.0, -0.5, (n, 1))
+    d0 = rng.normal(size=(n, 2)) * scale
+    d1 = rng.normal(size=(n, 2)) * scale * 10 ** rng.uniform(-2.0, 0.0, (n, 1))
+    d1[: n // 16] = 0.0
+    d0[: n // 32] = 0.0
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    return f(st), f(d0), f(d1)
+
+
+def hold_tex(pyr, n, seed, dev):
+    """K7 alone on n seeded lookups against its plain version on the same
+    ones: max relative error (floor 1e-6) under 1e-5.  Returns the
+    measured numbers and the bound (the lookups' 36 bytes, the texels
+    the taps weigh, 10 FP32 operations each)."""
+    st, d0, d1 = tex_queries(n, seed, dev)
+    launch = tex_ops.prepare_launch(pyr, st, d0, d1)
+    out = launch().clone()
+    torch.cuda.synchronize()
+    work = {}
+    ref, plain_ms = timed_once(lambda: tex_ops.tex_lookup_reference(pyr, st, d0, d1, work))
+    check(bool(torch.isfinite(out).all()), "12a: non-finite taps")
+    rel = float(((out - ref).abs() / ref.abs().clamp(min=1e-6)).max())
+    check(rel < 1e-5, f"12a: K7 vs its plain version: max relative error {rel:.3g}")
+    texels = float(work["texel"])
+    t_ops = FLOPS["texel"] * texels / PEAK_FLOPS * 1e3
+    t_bytes = (n * TEX_QUERY_BYTES + tex_bytes(pyr, texels)) / PEAK_BYTES * 1e3
+    return dict(rays=n, plain_rays=n, max_rel_err=rel, max_abs_err=float((out - ref).abs().max()),
+                ms=timed_ms(launch, reps=10), wrapper_ms=timed_ms(lambda: tex_ops.tex_lookup(
+                    pyr, st, d0, d1)), plain_ms=plain_ms, texels=texels,
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def texture_phase(record, kernels, card, dev):
+    """Phase 12a-d (see the module docstring)."""
+    # (a) K7 alone, the fixture's image in the three wraps
+    t0 = time.perf_counter()
+    image = load_image(str(ROOT / "samples" / "tex_checker.png"), True)
+    zero_counts()
+    taps = {}
+    for wrap, name in ((mipmap.WRAP_REPEAT, "repeat"), (mipmap.WRAP_BLACK, "black"),
+                       (mipmap.WRAP_CLAMP, "clamp")):
+        pyr = mipmap.pyramid(mipmap.build_mipmap(image, wrap=wrap), dev)
+        taps[name] = hold_tex(pyr, 1 << 20, 12 + wrap, dev)
+    check(tex_ops.LAUNCHES["tex_lookup"] > 0, "12a: K7 was not launched")
+    record["phase12a"] = dict(taps=taps, phase_s=time.perf_counter() - t0)
+    print("phase 12a: K7 alone on 2^20 seeded lookups of tex_checker.png's pyramid: " + "; ".join(
+        f"{w}: {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}), {h['texels']:.0f} texels "
+        f"weighed, bound {h['bound_ms']:.4f} ms by {h['bound_by']}, plain {h['plain_ms']:.1f} ms, "
+        f"max rel err {h['max_rel_err']:.2e}" for w, h in taps.items())
+        + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (d) the CLI on samples/scene_textured.json: no stderr, one launch of
+    # the textured instance a pass; (b) that instance held to its plain
+    # version on a quarter of one pass
+    t0 = time.perf_counter()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        res, colored, launches = drive(SCENE_TEXTURED, OUT / "chip_smoke_textured.png",
+                                       "path_mega_cam_tex", "path")
+    check(err.getvalue() == "", f"12d: stderr {err.getvalue()!r}")
+    job = load_scene(str(SCENE_TEXTURED))
+    held = hold(pmk, job, 8, dev)
+    check_lit(held, "12b", same_rays=False)
+    warm = warm_rates(job, dev, 1)
+    add_entry(kernels, "path_mega_cam_tex", launches, held)
+    record["phase12b"] = dict(launches=launches, passes=res["passes"], colored=colored,
+                              render_mrays_per_s=res["mrays_per_s"], warm_mrays_per_s=warm,
+                              phase_s=time.perf_counter() - t0, **held)
+    print(describe("phase 12b/d: Path, samples/scene_textured.json 640x360x16 through the CLI's "
+                   "path, empty stderr", res, launches, colored, held, warm, card))
+    # K7's entry: the repeat-wrap batch; its tap runs inside every launch of
+    # the textured instances
+    rep = taps["repeat"]
+    kernels["tex_lookup"] = dict(
+        name="tex_lookup", route="cuda", **KERNELS["tex_lookup"], launches=launches,
+        launched_in="path_mega_cam_tex", standalone_launches=tex_ops.LAUNCHES["tex_lookup"],
+        max_abs_err=max(h["max_abs_err"] for h in taps.values()),
+        max_rel_err=max(h["max_rel_err"] for h in taps.values()), ms=rep["ms"],
+        plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+        library_ms=None, rays=rep["rays"], plain_rays=rep["plain_rays"])
+
+    # (c) the textured grid over the BVH instance, 640x360x8
+    grid = write_grid_scene(str(OUT / "grid_tex"), textured=True)
+    job = camera_step(record, kernels, card, dev, "12c", "grid_tex", grid,
+                      "path_mega_cam_bvh_tex", 16, spp=8, warm_n=1)
+    check_lit(record["phase12c"], "12c", same_rays=False)
+
+
+def repairs_phase(record, card, dev):
+    """Phase 12e (see the module docstring)."""
+    t0 = time.perf_counter()
+    # the fog fixture under Path: the camera medium ignored, K1
+    fog = write_variant(str(SCENE_FOG), str(OUT / "fog_path"))
+    cfg = json.loads(Path(fog).read_text())
+    cfg["Integrator"] = {"integrator_type": "Path", "max_depth": 5}
+    Path(fog).write_text(json.dumps(cfg))
+    res, colored, launches = drive(fog, OUT / "chip_smoke_fog_path.png", "path_mega_cam", "path")
+    fog_held = hold(pmk, load_scene(fog), 16, dev)
+    # the fixture at max_depth 20: the wavefront loop over K4
+    deep_path = write_variant(str(SCENE), str(OUT / "depth20"), 160, 90)
+    cfg = json.loads(Path(deep_path).read_text())
+    cfg["Integrator"]["max_depth"] = 20
+    Path(deep_path).write_text(json.dumps(cfg))
+    res20, colored20, counts20 = drive_announced(deep_path, OUT / "chip_smoke_depth20.png", "12e")
+    # past 120,000 triangles: a 112x112 grid under AO and Path, over K3
+    big_ao = write_grid_scene(str(OUT / "grid112_ao"), ny=112, nz=112, base=str(SCENE_AO),
+                              integrator="AO", xres=160, yres=90)
+    n_probe = load_scene(big_ao).integrator.n_samples
+    res_ao, _, counts_ao = drive_wavefront(big_ao, OUT / "chip_smoke_grid112_ao.png",
+                                           {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
+    big_path = write_grid_scene(str(OUT / "grid112_path"), ny=112, nz=112, xres=160, yres=90)
+    res_big, _, counts_big = drive_announced(big_path, OUT / "chip_smoke_grid112_path.png",
+                                             "12e", ("bvh_shaded", "bvh_any"))
+    job = load_scene(big_path)
+    check(job.scene.triangles.count > 120_000, "12e: the 112x112 grid")
+    # a BVH of 64 levels or more: K3's deep instances under AO, each held
+    deep = write_deep_bvh_scene(str(OUT / "deep_bvh"), xres=160, yres=90)
+    res_deep, _, counts_deep = drive_wavefront(deep, OUT / "chip_smoke_deep_bvh.png",
+                                               {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
+    ctx, batches = first_pass_batches(load_scene(deep), dev, 8)
+    check(ctx.bvh.stack == bk.DEEP_STACK, f"12e: a tree of depth {ctx.bvh.depth}")
+    deep_shaded = hold_query("shaded", ctx, batches["shaded"])
+    deep_any = hold_query("any", ctx, batches["occluded"])
+    record["phase12e"] = dict(
+        fog_path=dict(launches=launches, colored=colored, **fog_held),
+        depth20=dict(launches=counts20, colored=colored20, mrays_per_s=res20["mrays_per_s"]),
+        grid112_ao=dict(triangles=job.scene.triangles.count, launches=counts_ao,
+                        mrays_per_s=res_ao["mrays_per_s"]),
+        grid112_path=dict(launches=counts_big, mrays_per_s=res_big["mrays_per_s"]),
+        deep=dict(depth=ctx.bvh.depth, launches=counts_deep, shaded=deep_shaded,
+                  any_hit=deep_any),
+        phase_s=time.perf_counter() - t0)
+    print(f"phase 12e: repairs: fog under Path through K1 {launches} launch(es), {colored} "
+          f"coloured px, kernel vs plain diverged {fog_held['diverged']:.2e}; the fixture at "
+          f"max_depth 20 through the wavefront loop, launches {launched(counts20)}; "
+          f"{job.scene.triangles.count} triangles under AO {launched(counts_ao)} and Path "
+          f"{launched(counts_big)}; a BVH of depth {ctx.bvh.depth} under AO "
+          f"{launched(counts_deep)}, K3-shaded deep {deep_shaded['ms']:.3f} ms (hits "
+          f"{deep_shaded['hits']}), K3 any deep {deep_any['ms']:.3f} ms, each held to its plain "
+          f"version; {time.perf_counter() - t0:.1f} s [{card}]")
 
 if __name__ == "__main__":
     sys.exit(main())

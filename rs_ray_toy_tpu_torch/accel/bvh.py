@@ -22,6 +22,7 @@ import numpy as np
 from ..ops import _build
 
 STACK_DEPTH = 64  # traversal stack (ops/bvh_pallas.STACK_DEPTH)
+DEEP_STACK = 256  # the BVH kernels' deep instances: trees of depth 64..255
 NODE_COLS = 16  # fused-children row: left box (6), right box (6), 4 zeros
 
 _LIB = None
@@ -92,6 +93,19 @@ def build_bvh(tri, max_prims_in_node=4) -> FlatBVH:
         # the leaves actually built bound the traversal's leaf loop
         max_leaf=max(max_prims_in_node, int(nprims[:m].max(initial=1))),
     )
+
+
+def stack_for(depth):
+    """The traversal stack a walk of a tree of `depth` nodes needs:
+    STACK_DEPTH below it, else DEEP_STACK (the BVH kernels' deep
+    instances).  A tree of DEEP_STACK levels or more raises
+    NotImplementedError."""
+    if depth < STACK_DEPTH:
+        return STACK_DEPTH
+    if depth < DEEP_STACK:
+        return DEEP_STACK
+    raise NotImplementedError(f"a BVH of depth {depth} (the deepest traversal stack holds "
+                              f"{DEEP_STACK} nodes)")
 
 
 def tree_depth(bvh: FlatBVH) -> int:

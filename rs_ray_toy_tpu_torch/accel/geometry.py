@@ -15,7 +15,9 @@ geometry from the scene-order shade tables (`pack_shade_tables`), as the
 JAX package does where no shaded BVH kernel returns it: on a triangle with
 vertex normals the shading normal is interpolated from them and ng faced
 onto it (triangle.rs:301+); the normal partials dndu and dndv are carried
-for the texture slice.  Ray differentials are not ported.
+for the texture slice.  `compute_uv_differentials` and
+`dead_differentials` are the JAX package's camera-ray differentials at a
+hit; the specular-chain differentials are not ported.
 """
 
 from typing import NamedTuple
@@ -23,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.vec import coordinate_system, cross, dot, faceforward
+from ..core.vec import coordinate_system, cross, dot, faceforward, norm3, sum3
 from ..ops.intersect_kernel import intersect_triangles_reference
 
 PRIM_NONE = -1
@@ -116,9 +118,9 @@ def intersect_spheres(sph, o, d, t_max):
                 torch.zeros(n, dtype=torch.bool, device=o.device))
     oo, od = _sphere_rays(sph, o, d)
     radius = sph["radius"][None]
-    a = (od * od).sum(-1)
-    b = 2.0 * (od * oo).sum(-1)
-    c = (oo * oo).sum(-1) - radius**2
+    a = sum3(od * od)
+    b = 2.0 * sum3(od * oo)
+    c = sum3(oo * oo) - radius**2
     ok, t0, t1 = quadratic(a, b, c)
 
     def clip_ok(t):
@@ -161,7 +163,7 @@ def occluded_brute(tri_packed, o, d, t_max, sph=None):
 
 
 def _normalize(v):
-    return v / torch.clamp(torch.sqrt((v * v).sum(-1)), min=1e-30)[..., None]
+    return v / torch.clamp(norm3(v), min=1e-30)[..., None]
 
 
 def _normal_partials(tri):
@@ -178,7 +180,7 @@ def _normal_partials(tri):
     dndu = (dn1 * duv12[:, 1:2] - dn2 * duv02[:, 1:2]) * i_det[:, None]
     dndv = (-dn1 * duv12[:, 0:1] + dn2 * duv02[:, 0:1]) * i_det[:, None]
     dnc = cross(n2 - n0, n1 - n0)
-    has_dn = (dnc * dnc).sum(-1) > 0.0
+    has_dn = sum3(dnc * dnc) > 0.0
     safe = _normalize(torch.where(has_dn[:, None], dnc, torch.tensor([0.0, 0.0, 1.0])))
     dnu_f, dnv_f = coordinate_system(safe)
     dndu = torch.where(degen[:, None], torch.where(has_dn[:, None], dnu_f, 0.0), dndu)
@@ -227,7 +229,7 @@ def _sphere_surface(sph, idx, p_hit):
     o2w = sph["o2w"][idx]
     radius = sph["radius"][idx]
     po = torch.einsum("nij,nj->ni", w2o[:, :3, :3], p_hit) + w2o[:, :3, 3]
-    po = po * (radius / torch.clamp(torch.linalg.vector_norm(po, dim=-1), min=1e-30))[:, None]
+    po = po * (radius / torch.clamp(norm3(po), min=1e-30))[:, None]
     phi = torch.atan2(po[:, 1], po[:, 0])
     phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
     theta = torch.arccos(torch.clamp(po[:, 2] / radius, -1.0, 1.0))
@@ -241,7 +243,7 @@ def _sphere_surface(sph, idx, p_hit):
     dpdv_o = torch.stack([po[:, 2] * cos_phi, po[:, 2] * sin_phi,
                           -radius * torch.sin(theta)], -1) * (th_max - th_min)[:, None]
     ng = torch.einsum("nji,nj->ni", w2o[:, :3, :3], po)
-    ng_len = torch.clamp(torch.linalg.vector_norm(ng, dim=-1), min=1e-30)[:, None]
+    ng_len = torch.clamp(norm3(ng), min=1e-30)[:, None]
     ng = ng / ng_len
     dpdu = torch.einsum("nij,nj->ni", o2w[:, :3, :3], dpdu_o)
     dpdv = torch.einsum("nij,nj->ni", o2w[:, :3, :3], dpdv_o)
@@ -278,7 +280,7 @@ def surface_interaction(shade_tables, hit, o, d):
         dpdu, dpdv, ng = tf[:, 24:27], tf[:, 27:30], tf[:, 30:33]
         dndu, dndv = tf[:, 33:36], tf[:, 36:39]
         ns_raw = tf[:, 15:18] * w[:, None] + tf[:, 18:21] * ub[:, None] + tf[:, 21:24] * vb[:, None]
-        has_n = (ti[:, 0] != 0) & ((ns_raw * ns_raw).sum(-1) > 0.0)
+        has_n = (ti[:, 0] != 0) & (sum3(ns_raw * ns_raw) > 0.0)
         ns = torch.where(has_n[:, None], _normalize(ns_raw), ng)
         ng = faceforward(ng, ns)
         mat, al = ti[:, 1], ti[:, 2]
@@ -303,6 +305,55 @@ def surface_interaction(shade_tables, hit, o, d):
         area_light=torch.where(hit.valid, al, -1),
         valid=hit.valid, dndu=dndu, dndv=dndv,
     )
+
+
+def compute_uv_differentials(si, diff):
+    """Ray-differential UV footprints (interaction.rs:223-284; the JAX
+    package's compute_uv_differentials): the auxiliary rays diff = (rx_o,
+    rx_d, ry_o, ry_d) meet the tangent plane of ng at p, and their offsets
+    from p are solved against (dpdu, dpdv) on the two axes other than
+    ng's largest (first of equal ones).  Returns (duv (N, 4) = (dudx,
+    dvdx, dudy, dvdy), dpdx, dpdy), zeros where not finite or not valid."""
+    rx_o, rx_d, ry_o, ry_d = diff
+    n = si.ng
+    d_plane = dot(n, si.p)
+
+    def plane_hit(o, dd):
+        denom = dot(n, dd)
+        t = (d_plane - dot(n, o)) / torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
+        return o + dd * t[:, None]
+
+    dpdx = plane_hit(rx_o, rx_d) - si.p
+    dpdy = plane_hit(ry_o, ry_d) - si.p
+    kmax = torch.argmax(torch.abs(n), dim=-1)
+    dim0 = torch.where(kmax == 0, 1, 0)[:, None]
+    dim1 = torch.where(kmax == 2, 1, 2)[:, None]
+    col = lambda v, k: torch.gather(v, 1, k)[:, 0]
+
+    def solve(dp):
+        a00, a01 = col(si.dpdu, dim0), col(si.dpdv, dim0)
+        a10, a11 = col(si.dpdu, dim1), col(si.dpdv, dim1)
+        b0, b1 = col(dp, dim0), col(dp, dim1)
+        det = a00 * a11 - a01 * a10
+        ok = torch.abs(det) >= 1e-10
+        inv = 1.0 / torch.where(ok, det, 1.0)
+        du = (a11 * b0 - a01 * b1) * inv
+        dv = (a00 * b1 - a10 * b0) * inv
+        return torch.where(ok, du, 0.0), torch.where(ok, dv, 0.0)
+
+    dudx, dvdx = solve(dpdx)
+    dudy, dvdy = solve(dpdy)
+    fin = lambda x: torch.where(torch.isfinite(x) & si.valid, x, 0.0)
+    duv = torch.stack([fin(dudx), fin(dvdx), fin(dudy), fin(dvdy)], dim=-1)
+    fin3 = lambda x: torch.where(torch.isfinite(x).all(-1, keepdim=True) & si.valid[:, None],
+                                 x, 0.0)
+    return duv, fin3(dpdx), fin3(dpdy)
+
+
+def dead_differentials(o, d):
+    """Differential rays equal to the main ray: a zero footprint (the
+    reference's has_differentials = false)."""
+    return (o, d, o, d)
 
 
 def offset_ray_origin(p, n, w):

@@ -17,7 +17,7 @@ from ..ops.path_megakernel import BvhTables, PackedScene, PlainGeometry
 def _geometry(tables, work):
     packed = PackedScene(
         table=tables.prims_f, light_p=(), light_emit=(),
-        bvh=BvhTables(tables.nodes_f, tables.nodes_i, tables.max_leaf),
+        bvh=BvhTables(tables.nodes_f, tables.nodes_i, tables.max_leaf, tables.stack),
     )
     return PlainGeometry(packed, tables.prims_f.device, work)
 

@@ -27,7 +27,7 @@ import torch
 
 from ..accel import geometry as geom
 from ..config import DTYPE, ONE_MINUS_EPSILON, PI
-from ..core.vec import dot
+from ..core.vec import dot, norm3
 from .eval import _fr_dielectric
 
 PROBE_SEGMENTS = 4  # the bounded intersection chain
@@ -129,7 +129,7 @@ def sample_bssrdf(ctx, si, frame, u1, u2):
     cur, alive = base, ok
     for _ in range(PROBE_SEGMENTS):
         seg = target - cur
-        seg_len = torch.sqrt((seg * seg).sum(-1))
+        seg_len = norm3(seg)
         d_unit = seg / torch.clamp(seg_len, min=1e-20)[:, None]
         live = alive & (seg_len > 1e-9)
         hit = ctx.intersect(cur, d_unit, torch.where(live, seg_len * (1.0 - 1e-4), 0.0))
@@ -173,7 +173,7 @@ def sample_bssrdf(ctx, si, frame, u1, u2):
     pdf = pdf * (1.0 / 3.0)
     pdf = pdf / torch.clamp(n_found.to(DTYPE), min=1.0)
 
-    dist = torch.sqrt((d_vec * d_vec).sum(-1))
+    dist = norm3(d_vec)
     sp = sr_profile(R, d_prof, dist)
     return BssrdfSample(
         pi=pi,

@@ -6,8 +6,11 @@ The codes and the packed layout are the JAX package's, so a packed table
 can be compared column by column, the per-lobe RGB `scale` (ScaledBxdf,
 reflection.rs:516-563: Translucent's reflect / transmit, MixMaterial's
 s and 1 - s) among them, and a Disney material's BSSRDF profile
-(`has_bssrdf`, `bssrdf_R`, `bssrdf_d`, `bssrdf_eta`).  Textured
-parameters are not ported.
+(`has_bssrdf`, `bssrdf_R`, `bssrdf_d`, `bssrdf_eta`).  A lobe whose
+s0 is a texture carries its record id (`s0_tex`, -1 for the constant; the
+JAX package's packed_i column 6); a material's other textured parameters
+are listed by name (`textured`), since no renderer of the port evaluates
+them.
 """
 
 from dataclasses import dataclass, field
@@ -75,6 +78,7 @@ class Lobe:
     remap_roughness: bool = False
     sample_visible: bool = True
     scale: np.ndarray = field(default_factory=lambda: np.ones(3))
+    s0_tex: int = -1  # texture record of s0, -1: the constant s0
 
 
 @dataclass
@@ -87,6 +91,8 @@ class HostMaterial:
     bssrdf_R: object = None
     bssrdf_d: object = None
     bssrdf_eta: float = 1.0
+    # textured parameters other than a lobe's s0, e.g. "ks (PlasticMaterial)"
+    textured: tuple = ()
 
 
 class MaterialTableBuilder:
@@ -114,6 +120,7 @@ class MaterialTableBuilder:
         remap = np.zeros((m, n_l), bool)
         sample_vis = np.zeros((m, n_l), bool)
         scale = np.ones((m, n_l, 3), np.float32)
+        s0_tex = np.full((m, n_l), -1, np.int32)
         n_lobes = np.zeros((m,), np.int32)
         eta = np.ones((m,), np.float32)
         has_bssrdf = np.zeros((m,), bool)
@@ -139,6 +146,7 @@ class MaterialTableBuilder:
                 remap[i, j] = lb.remap_roughness
                 sample_vis[i, j] = lb.sample_visible
                 scale[i, j] = lb.scale
+                s0_tex[i, j] = lb.s0_tex
         return {
             "kind": kind,
             "s0": s0,
@@ -156,4 +164,6 @@ class MaterialTableBuilder:
             "bssrdf_R": bssrdf_R,
             "bssrdf_d": bssrdf_d,
             "bssrdf_eta": bssrdf_eta,
+            "s0_tex": s0_tex,
+            "textured": [mat.textured for mat in self.materials],
         }

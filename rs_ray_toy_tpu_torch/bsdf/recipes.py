@@ -4,7 +4,8 @@
 Mirrors the lobe assembly of matte.rs:35-61, plastic.rs:46-77,
 metal.rs:47-95, mirror.rs:29-49, glass.rs:52-113, translucent.rs:52-108,
 mixmat.rs:33-61, disney.rs:530-676 and debug_material.rs:36-49.  Parameters are
-constants (RGB arrays or floats); a black spectrum drops its lobe at
+constants (RGB arrays or floats), but for a matte's kd, which may be a
+texture record (`kd_tex`); a black spectrum drops its lobe at
 build time, as the reference's `!r.is_black()` gate does.  Plastic gates
 its specular lobe on ks, fixing the reference's kd gate (docs/PARITY.md).
 """
@@ -46,14 +47,16 @@ def _black(rgb):
     return bool(np.all(np.asarray(rgb) == 0.0))
 
 
-def matte(name, kd, sigma) -> HostMaterial:
-    """Lambert for sigma == 0, else Oren-Nayar."""
+def matte(name, kd, sigma, kd_tex=-1) -> HostMaterial:
+    """Lambert for sigma == 0, else Oren-Nayar; kd_tex >= 0: kd is that
+    texture record (its constant then zeros, never black)."""
     lobes = []
-    if not _black(kd):
+    if kd_tex >= 0 or not _black(kd):
         if sigma == 0.0:
-            lobes.append(Lobe(LOBE_LAMBERT_REFL, s0=kd))
+            lobes.append(Lobe(LOBE_LAMBERT_REFL, s0=kd, s0_tex=kd_tex))
         else:
-            lobes.append(Lobe(LOBE_OREN_NAYAR, s0=kd, f0=np.clip(sigma, 0.0, 90.0)))
+            lobes.append(Lobe(LOBE_OREN_NAYAR, s0=kd, f0=np.clip(sigma, 0.0, 90.0),
+                              s0_tex=kd_tex))
     return HostMaterial(name, 1.0, lobes)
 
 
@@ -178,7 +181,7 @@ def mix(name, m1, m2, scale) -> HostMaterial:
             lb = copy.deepcopy(lb)
             lb.scale = lb.scale * np.clip(s, 0.0, np.inf)
             lobes.append(lb)
-    return HostMaterial(name, 1.0, lobes[:MAX_LOBES])
+    return HostMaterial(name, 1.0, lobes[:MAX_LOBES], textured=m1.textured + m2.textured)
 
 
 def disney(name, color, metallic, eta, roughness, specular_tint, anisotropic, sheen,

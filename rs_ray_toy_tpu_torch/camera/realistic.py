@@ -258,6 +258,30 @@ class RealisticCamera:
         b = self.exit_pupil_bounds[i]
         return float((b[2] - b[0]) * (b[3] - b[1]))
 
+    def generate_ray_differentials(self, p_film_raster, u_lens, spp=1):
+        """(camera.rs:582-628; the JAX package's generate_ray_differentials):
+        the rays of generate_rays and finite-difference differentials from
+        film points shifted +0.05 px in x and in y through the same lens
+        sample, scaled by 1 / sqrt(spp) (integrator/mod.rs:94-96); where
+        a shifted trace dies its differential is the ray itself (the
+        reference retries with -0.05).  Returns (o, d, weight, (rx_o,
+        rx_d, ry_o, ry_d))."""
+        o, d, w = self.generate_rays(p_film_raster, u_lens)
+        eps = 0.05
+        dev = p_film_raster.device
+        ox, dx_, wx = self.generate_rays(
+            p_film_raster + torch.tensor([eps, 0.0], dtype=DTYPE, device=dev), u_lens)
+        oy, dy_, wy = self.generate_rays(
+            p_film_raster + torch.tensor([0.0, eps], dtype=DTYPE, device=dev), u_lens)
+        s = 1.0 / float(np.sqrt(max(spp, 1)))
+        okx = (wx > 0.0)[:, None]
+        oky = (wy > 0.0)[:, None]
+        rx_o = torch.where(okx, o + (ox - o) / eps * s, o)
+        rx_d = torch.where(okx, d + (dx_ - d) / eps * s, d)
+        ry_o = torch.where(oky, o + (oy - o) / eps * s, o)
+        ry_d = torch.where(oky, d + (dy_ - d) / eps * s, d)
+        return o, d, w, (rx_o, rx_d, ry_o, ry_d)
+
     def generate_rays(self, p_film_raster, u_lens):
         """p_film_raster: (N, 2) raster film points (x right, y down);
         u_lens: (N, 2) in [0, 1)^2.  Returns (o_world, d_world, weight)."""

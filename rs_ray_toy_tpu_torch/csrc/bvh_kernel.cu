@@ -17,7 +17,8 @@
 // smooth=True) reads.
 //
 // Per ray: common.cuh's Geometry<true> walk (a per-ray stack of up to 64
-// nodes; at an interior node both child boxes are slab-tested against the
+// nodes, or 256 in the deep instances for trees of 64 to 255 levels, chosen
+// per launch by the tables' depth; at an interior node both child boxes are slab-tested against the
 // current best t and only the hit children are pushed, near child last; a
 // leaf's triangles in leaf order with strict <), bounded by the ray's t_max.
 // A lane with t_max <= 0 (the loop's dead lanes) misses at once.  Closest
@@ -49,11 +50,11 @@ constexpr int SHADE_COLS_FLAT = 15;    // uv0, uv1, uv2, dpdu, dpdv, ng
 constexpr int SHADE_COLS_SMOOTH = 31;  // ... n0, n1, n2, dndu, dndv, has_n
 constexpr int ATTR_ROWS = 16;          // u, v, uv, ns, ng, dpdu, dpdv
 constexpr int ATTR_ROWS_SMOOTH = 22;   // ... dndu, dndv
-constexpr int BVH_PRIM_MAX = 120000;  // ops/bvh_pallas.PALLAS_BVH_PRIM_MAX
 
-using Bvh = Geometry<true, PRIM_COLS>;
+template <int kStack>
+using Bvh = Geometry<true, PRIM_COLS, kStack>;
 
-template <bool kAny>
+template <bool kAny, int kStack = STACK_DEPTH>
 __global__ void __launch_bounds__(BLOCK)
 bvh_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
            const float* __restrict__ prims_f, const int* __restrict__ prims_i, int n_prims,
@@ -66,8 +67,8 @@ bvh_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
   float t_bound = tm;
   int best = -1;
   if (tm > 0.0f) {
-    const Bvh geom{nullptr, n_prims, prims_f, nodes_f, nodes_i};
-    best = geom.walk<kAny>(__ldg(o + 3 * i), __ldg(o + 3 * i + 1), __ldg(o + 3 * i + 2),
+    const Bvh<kStack> geom{nullptr, n_prims, prims_f, nodes_f, nodes_i};
+    best = geom.template walk<kAny>(__ldg(o + 3 * i), __ldg(o + 3 * i + 1), __ldg(o + 3 * i + 2),
                            __ldg(d + 3 * i), __ldg(d + 3 * i + 1), __ldg(d + 3 * i + 2),
                            t_bound);
   }
@@ -95,7 +96,7 @@ __device__ __forceinline__ void mt_uv(const float* g, float ox, float oy, float 
   v = (dx * qvx + dy * qvy + dz * qvz) * inv;
 }
 
-template <bool kSmooth>
+template <bool kSmooth, int kStack = STACK_DEPTH>
 __global__ void __launch_bounds__(BLOCK)
 bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
                   const float* __restrict__ prims_f, const int* __restrict__ prims_i,
@@ -112,8 +113,8 @@ bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nod
   float t_bound = tm;
   int best = -1;
   if (tm > 0.0f) {
-    const Bvh geom{nullptr, n_prims, prims_f, nodes_f, nodes_i};
-    best = geom.walk<false>(ox, oy, oz, dx, dy, dz, t_bound);
+    const Bvh<kStack> geom{nullptr, n_prims, prims_f, nodes_f, nodes_i};
+    best = geom.template walk<false>(ox, oy, oz, dx, dy, dz, t_bound);
   }
   constexpr int kCols = kSmooth ? SHADE_COLS_SMOOTH : SHADE_COLS_FLAT;
   constexpr int kRows = kSmooth ? ATTR_ROWS_SMOOTH : ATTR_ROWS;
@@ -169,53 +170,82 @@ bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nod
   for (int k = 0; k < kRows; ++k) attrs[(size_t)k * n + i] = a[k];
 }
 
+template <int kStack>
+void launch_walk(int any_hit, int grid, cudaStream_t st, const float* nodes_f,
+                 const int* nodes_i, const float* prims_f, const int* prims_i, int n_prims,
+                 const float* o, const float* d, const float* t_max, float* t_out, int* idx_out,
+                 int n) {
+  if (any_hit) {
+    bvh_kernel<true, kStack><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i,
+                                                    n_prims, o, d, t_max, t_out, idx_out, n);
+  } else {
+    bvh_kernel<false, kStack><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i,
+                                                     n_prims, o, d, t_max, t_out, idx_out, n);
+  }
+}
+
+template <int kStack>
+void launch_shaded(int smooth, int grid, cudaStream_t st, const float* nodes_f,
+                   const int* nodes_i, const float* prims_f, const int* prims_i,
+                   const float* shade_f, int n_prims, const float* o, const float* d,
+                   const float* t_max, float* t_out, int* idx_out, int* mat_out, int* al_out,
+                   float* attrs, int n) {
+  if (smooth) {
+    bvh_shaded_kernel<true, kStack><<<grid, BLOCK, 0, st>>>(
+        nodes_f, nodes_i, prims_f, prims_i, shade_f, n_prims, o, d, t_max, t_out, idx_out,
+        mat_out, al_out, attrs, n);
+  } else {
+    bvh_shaded_kernel<false, kStack><<<grid, BLOCK, 0, st>>>(
+        nodes_f, nodes_i, prims_f, prims_i, shade_f, n_prims, o, d, t_max, t_out, idx_out,
+        mat_out, al_out, attrs, n);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch the closest-hit (any_hit 0) or any-hit (1) walk over n rays on
-// `stream`.  Returns cudaGetLastError() of the launch (0 when it was
-// accepted); nothing is synchronised.
-int bvh_launch(int any_hit, const float* nodes_f, const int* nodes_i, const float* prims_f,
-               const int* prims_i, int n_prims, const float* o, const float* d,
-               const float* t_max, float* t_out, int* idx_out, int n, void* stream) {
+// `stream`, the deep instance (a DEEP_STACK stack) when `deep`.  Returns
+// cudaGetLastError() of the launch (0 when it was accepted); nothing is
+// synchronised.
+int bvh_launch(int any_hit, int deep, const float* nodes_f, const int* nodes_i,
+               const float* prims_f, const int* prims_i, int n_prims, const float* o,
+               const float* d, const float* t_max, float* t_out, int* idx_out, int n,
+               void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (n <= 0) return 0;
-  if (n_prims <= 0 || n_prims > BVH_PRIM_MAX) return (int)cudaErrorInvalidValue;
+  if (n_prims <= 0) return (int)cudaErrorInvalidValue;
   const int grid = (n + BLOCK - 1) / BLOCK;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    bvh_kernel<true><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i, n_prims, o, d,
-                                            t_max, t_out, idx_out, n);
-  } else {
-    bvh_kernel<false><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i, n_prims, o, d,
-                                             t_max, t_out, idx_out, n);
-  }
+  if (deep)
+    launch_walk<DEEP_STACK>(any_hit, grid, st, nodes_f, nodes_i, prims_f, prims_i, n_prims, o,
+                            d, t_max, t_out, idx_out, n);
+  else
+    launch_walk<STACK_DEPTH>(any_hit, grid, st, nodes_f, nodes_i, prims_f, prims_i, n_prims, o,
+                             d, t_max, t_out, idx_out, n);
   return (int)cudaGetLastError();
 }
 
 // Launch the shaded closest-hit walk; with `smooth` the smooth instance on
-// (n_prims, 31) shade rows.  attrs is (16, n): u, v, uv, ns, ng, dpdu, dpdv,
-// or (22, n) smooth: ..., dndu, dndv.
-int bvh_shaded_launch(const float* nodes_f, const int* nodes_i, const float* prims_f,
+// (n_prims, 31) shade rows, with `deep` the deep one.  attrs is (16, n): u,
+// v, uv, ns, ng, dpdu, dpdv, or (22, n) smooth: ..., dndu, dndv.
+int bvh_shaded_launch(int deep, const float* nodes_f, const int* nodes_i, const float* prims_f,
                       const int* prims_i, const float* shade_f, int smooth, int n_prims,
                       const float* o, const float* d, const float* t_max, float* t_out,
                       int* idx_out, int* mat_out, int* al_out, float* attrs, int n,
                       void* stream) {
   cudaGetLastError();
   if (n <= 0) return 0;
-  if (n_prims <= 0 || n_prims > BVH_PRIM_MAX) return (int)cudaErrorInvalidValue;
+  if (n_prims <= 0) return (int)cudaErrorInvalidValue;
   const int grid = (n + BLOCK - 1) / BLOCK;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (smooth) {
-    bvh_shaded_kernel<true><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i, shade_f,
-                                                   n_prims, o, d, t_max, t_out, idx_out,
-                                                   mat_out, al_out, attrs, n);
-  } else {
-    bvh_shaded_kernel<false><<<grid, BLOCK, 0, st>>>(nodes_f, nodes_i, prims_f, prims_i,
-                                                    shade_f, n_prims, o, d, t_max, t_out,
-                                                    idx_out, mat_out, al_out, attrs, n);
-  }
+  if (deep)
+    launch_shaded<DEEP_STACK>(smooth, grid, st, nodes_f, nodes_i, prims_f, prims_i, shade_f,
+                              n_prims, o, d, t_max, t_out, idx_out, mat_out, al_out, attrs, n);
+  else
+    launch_shaded<STACK_DEPTH>(smooth, grid, st, nodes_f, nodes_i, prims_f, prims_i, shade_f,
+                               n_prims, o, d, t_max, t_out, idx_out, mat_out, al_out, attrs, n);
   return (int)cudaGetLastError();
 }
 
@@ -223,6 +253,6 @@ const char* bvh_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int bvh_prim_max() { return BVH_PRIM_MAX; }
+int bvh_deep_stack() { return DEEP_STACK; }
 
 }  // extern "C"

@@ -22,6 +22,7 @@ constexpr int GEO_COLS = 9;      // p0, e1, e2
 constexpr int TRI_MAX = 2048;    // brute force up to this many triangles
 constexpr int BVH_TRI_MAX = 65536;
 constexpr int STACK_DEPTH = 64;  // BVH traversal stack (ops/bvh_pallas.py)
+constexpr int DEEP_STACK = 256;  // the stack of K3's deep instances (accel/bvh.DEEP_STACK)
 constexpr int NODE_COLS = 16;    // fused-children node row: both child boxes
 constexpr int LIGHT_MAX = 8;
 constexpr int ELEM_MAX = 16;
@@ -385,8 +386,9 @@ __device__ __forceinline__ bool slab_hit(const float* b, float ox, float oy, flo
 // first; a leaf tests its triangles in table order with strict <.  Both
 // return the winning row of `table` (-1 on a miss).  kCols is the table's
 // row width: the packed scene's TABLE_COLS, or the wavefront kernels' 12
-// (p0, e1, e2, pad).
-template <bool kBvh, int kCols = TABLE_COLS>
+// (p0, e1, e2, pad); kStack the walk's stack, which holds a tree of fewer
+// than kStack levels (STACK_DEPTH, or DEEP_STACK in K3's deep instances).
+template <bool kBvh, int kCols = TABLE_COLS, int kStack = STACK_DEPTH>
 struct Geometry {
   const float* s_geo;    // brute force: GEO_COLS per triangle, shared memory
   int n_tris;
@@ -423,7 +425,7 @@ struct Geometry {
       }
     } else {
       const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-      int stack[STACK_DEPTH];
+      int stack[kStack];
       int sp = 0;
       stack[sp++] = 0;
       while (sp > 0) {

@@ -52,11 +52,23 @@
 // more is staged in shared memory).  Warp divergence between lobes, light
 // kinds, path lengths and BVH walks is accepted for now.
 //
+// The textured instances (kTex, K5 g; the camera pass, brute force and BVH,
+// stratified sampler, flat shading) give a matte's kd from an image texture:
+// each ray also traces the lens at film points 0.05 px to the right and below
+// through the same lens sample (_raygen_with_diff), and at a textured hit the
+// winner's uv is interpolated at its rebuilt barycentrics and mapped to st; at
+// bounce 0 the shifted rays meet the tangent plane and their offsets solve to
+// uv footprints against dpdu and dpdv (compute_uv_differentials), which K7's
+// EWA tap (texture.cuh) filters with; after bounce 0 the differentials are
+// dead and the tap is level 0's bilinear one.  The textured lobe is the
+// material's only one, a lambert lobe whose s0 the tap replaces.
+//
 // Numerics follow the plain PyTorch version (bounce_loop_reference) expression
 // by expression; see common.cuh.  sinf and cosf are CUDA's (not correctly
 // rounded; no fast-math).
 
 #include "common.cuh"
+#include "texture.cuh"
 
 constexpr int ENV_BINS = 16;  // rows of a constant map's Distribution2D (8x8 texels)
 constexpr int SLOT_MAX = 176;  // sampler slots of the slot-to-row map
@@ -94,8 +106,8 @@ struct WideParams {
   short slot_row[SLOT_MAX];  // Halton: slot -> first row of the slot matrix, -1 unused
 };
 
-// the kernel's parameters: both blocks and 14 pointer or int arguments
-static_assert(sizeof(Params) + sizeof(WideParams) + 16 * 8 <= 4096,
+// the kernel's parameters: the three blocks and 15 pointer or int arguments
+static_assert(sizeof(Params) + sizeof(WideParams) + sizeof(TexMap) + 16 * 8 <= 4096,
               "kernel parameters exceed the 4 KB limit");
 
 namespace {
@@ -107,6 +119,8 @@ constexpr int SPH_MAX = 8;
 constexpr int SPH_GEO = 13;       // w2o 3x4 rows and the radius: cols 0..12 of a sphere row
 constexpr int SPH_O2W_COL = 96;   // o2w 3x4 rows of a sphere row
 constexpr int NRM_COL = 96;       // raw vertex normals n0, n1, n2 of a triangle row
+constexpr int TEX0 = NRM_COL + 9;  // textured block: dpdv, uv0, uv1, uv2, textured flag
+constexpr float FD_EPS = 0.05f;    // the differentials' film offset, px
 constexpr float SPH_EPS = 1e-4f;
 constexpr float TWO_PI2_F = (float)(2.0 * 3.14159265358979323846 * 3.14159265358979323846);
 
@@ -360,13 +374,85 @@ __device__ __noinline__ bool subsurface(const Geometry<kBvh> geom, const Params&
   return true;
 }
 
+// ---- the textured kd (K5 g) ----
+
+// kd of a textured triangle row at the hit p of the ray (o, d): the uv at the
+// barycentrics rebuilt from the row (smooth_normal's guards), mapped to st;
+// at bounce 0 (fd: the differential rays) the EWA tap over the footprints
+// the offset rays give against dpdu and dpdv on ng's tangent plane, after it
+// (fd null: dead differentials) level 0's bilinear tap; times the scale.
+__device__ void textured_kd(const float* row, const float* tex, const TexMap& tm, float ox,
+                            float oy, float oz, float dx, float dy, float dz, float px, float py,
+                            float pz, float ngx, float ngy, float ngz, float dux, float duy,
+                            float duz, const float* fd, float kd[3]) {
+  const float p0x = __ldg(row + 0), p0y = __ldg(row + 1), p0z = __ldg(row + 2);
+  const float e1x = __ldg(row + 3), e1y = __ldg(row + 4), e1z = __ldg(row + 5);
+  const float e2x = __ldg(row + 6), e2y = __ldg(row + 7), e2z = __ldg(row + 8);
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv = 1.0f / (fabsf(det) < TRI_EPS ? 1.0f : det);
+  const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
+  const float b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float b2 = (dx * qvx + dy * qvy + dz * qvz) * inv;
+  const float b0 = 1.0f - b1 - b2;
+  const float* tb = row + TEX0;
+  const float uvu = b0 * __ldg(tb + 3) + b1 * __ldg(tb + 5) + b2 * __ldg(tb + 7);
+  const float uvv = b0 * __ldg(tb + 4) + b1 * __ldg(tb + 6) + b2 * __ldg(tb + 8);
+  const float s = tm.su * uvu + tm.du;
+  const float t = tm.sv * uvv + tm.dv;
+  if (fd == nullptr) {
+    tex_bilerp(tex, tm, 0, s, t, kd);
+  } else {
+    // compute_uv_differentials: the offset rays on the plane of ng at p
+    const float d_plane = ngx * px + ngy * py + ngz * pz;
+    float dp[2][3];
+    for (int k = 0; k < 2; ++k) {
+      const float* r = fd + 6 * k;  // origin, direction
+      float den = ngx * r[3] + ngy * r[4] + ngz * r[5];
+      den = fabsf(den) < 1e-9f ? 1e-9f : den;
+      const float th = (d_plane - (ngx * r[0] + ngy * r[1] + ngz * r[2])) / den;
+      dp[k][0] = r[0] + r[3] * th - px;
+      dp[k][1] = r[1] + r[4] * th - py;
+      dp[k][2] = r[2] + r[5] * th - pz;
+    }
+    // the two axes other than ng's largest (first of equal ones)
+    const float ax0 = fabsf(ngx), ax1 = fabsf(ngy), ax2 = fabsf(ngz);
+    const bool k0 = ax0 >= ax1 && ax0 >= ax2;
+    const bool kmax2 = !k0 && ax2 > ax1;
+    const float dvx = __ldg(tb + 0), dvy = __ldg(tb + 1), dvz = __ldg(tb + 2);
+    const float a00 = k0 ? duy : dux, a01 = k0 ? dvy : dvx;
+    const float a10 = kmax2 ? duy : duz, a11 = kmax2 ? dvy : dvz;
+    const float det_s = a00 * a11 - a01 * a10;
+    const bool okd = fabsf(det_s) >= 1e-10f;
+    const float invd = 1.0f / (okd ? det_s : 1.0f);
+    float duv[4];
+    for (int k = 0; k < 2; ++k) {
+      const float c0 = k0 ? dp[k][1] : dp[k][0];
+      const float c1 = kmax2 ? dp[k][1] : dp[k][2];
+      const float du = okd ? (a11 * c0 - a01 * c1) * invd : 0.0f;
+      const float dv = okd ? (a00 * c1 - a10 * c0) * invd : 0.0f;
+      duv[2 * k] = isfinite(du) ? du : 0.0f;
+      duv[2 * k + 1] = isfinite(dv) ? dv : 0.0f;
+    }
+    tex_ewa_lookup(tex, tm, s, t, duv[0] * tm.su, duv[1] * tm.sv, duv[2] * tm.su,
+                   duv[3] * tm.sv, kd);
+  }
+  for (int c = 0; c < 3; ++c) kd[c] = kd[c] * tm.scale;
+}
+
 // ---- the bounce loop (_bounce_loop), one ray ----
 
-template <bool kBvh, bool kSmooth, bool kBss, class Smp>
+template <bool kBvh, bool kSmooth, bool kBss, bool kTex, class Smp>
 __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
                             const float* sph_rows, const float* s_sph, const Params& p,
                             const WideParams& w, const Smp& smp, float ox, float oy,
-                            float oz, float dx, float dy, float dz, bool active, float L[3]) {
+                            float oz, float dx, float dy, float dz, bool active, float L[3],
+                            const float* tex, const TexMap& tm, const float* fd) {
   // shadow any-hit over the triangles and the spheres
   auto occluded_all = [&](float sox, float soy, float soz, float sdx, float sdy, float sdz,
                           float t_max) {
@@ -389,6 +475,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
     float t;
     const int best = geom.closest(ox, oy, oz, dx, dy, dz, t);
     const float* row = table + (size_t)max(best, 0) * TABLE_COLS;
+    bool texed = false;  // kTex: a textured triangle won
     float ngx = 0.0f, ngy = 0.0f, ngz = 0.0f, dux = 0.0f, duy = 0.0f, duz = 0.0f;
     float nsx = 0.0f, nsy = 0.0f, nsz = 0.0f;
     if (best >= 0) {
@@ -396,6 +483,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
       dux = __ldg(row + 12), duy = __ldg(row + 13), duz = __ldg(row + 14);
       if constexpr (kSmooth)
         smooth_normal(row, NRM_COL, ox, oy, oz, dx, dy, dz, ngx, ngy, ngz, nsx, nsy, nsz);
+      if constexpr (kTex) texed = __ldg(row + TEX0 + 9) > 0.0f;
     }
     // spheres, min-combined with the triangle winner (strict <)
     if (w.n_sph > 0) {
@@ -413,6 +501,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
       }
       if (t_s < t) {
         t = t_s;
+        texed = false;
         const float* g = s_sph + SPH_GEO * s_best;
         row = sph_rows + (size_t)s_best * TABLE_COLS;
         const float* o2w = row + SPH_O2W_COL;
@@ -460,6 +549,23 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
 
     const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
 
+    // the lobes of the hit; kTex: a textured row's one lambert lobe takes
+    // kd from the image texture
+    float kd[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (kTex) {
+      if (texed)
+        textured_kd(row, tex, tm, ox, oy, oz, dx, dy, dz, px, py, pz, ngx, ngy, ngz, dux, duy,
+                    duz, bounce == 0 ? fd : nullptr, kd);
+    }
+    const auto lobe_at = [&](int l) {
+      Lobe lob = load_lobe(row, l);
+      if constexpr (kTex) {
+        if (texed && l == 0)
+          for (int c = 0; c < 3; ++c) lob.s0[c] = kd[c];
+      }
+      return lob;
+    };
+
     float ssx, ssy, ssz, tsx, tsy, tsz;
     shading_frame(nsx, nsy, nsz, dux, duy, duz, ssx, ssy, ssz, tsx, tsy, tsz);
 
@@ -492,7 +598,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
       if (f_gate) {
         for (int l = 0; l < n_lob; ++l) {
           float lf[3];
-          lobe_f<true>(load_lobe(row, l), wol_x, wol_y, wo_z, wil_x, wil_y, wil_z, lf);
+          lobe_f<true>(lobe_at(l), wol_x, wol_y, wo_z, wil_x, wil_y, wil_z, lf);
           for (int c = 0; c < 3; ++c) fn[c] = fn[c] + lf[c];
         }
       }
@@ -540,7 +646,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
       float pdf_scat = 0.0f;
       int cnt = 0;
       for (int l = 0; l < n_lob; ++l) {
-        const Lobe lob = load_lobe(row, l);
+        const Lobe lob = lobe_at(l);
         if (is_spec_kind(lob.kind)) continue;
         if (f_gate) {
           float lf[3];
@@ -571,7 +677,10 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
       if (w.has_env && kind == LIGHT_ENV_KIND && n_lob > 0 && wo_z != 0.0f) {
         float us0, us1;
         smp.get_2d(dim0 + 2, us0, us1);
-        const BsdfSample s2 = bsdf_sample<true>(row, n_lob, wol_x, wol_y, wo_z, us0, us1);
+        BsdfSample s2 = bsdf_sample<true>(row, n_lob, wol_x, wol_y, wo_z, us0, us1);
+        if constexpr (kTex) {  // the textured lambert lobe is the only one
+          if (texed) lobe_f<true>(lobe_at(0), wol_x, wol_y, wo_z, s2.wx, s2.wy, s2.wz, s2.f);
+        }
         const float w2x = ssx * s2.wx + tsx * s2.wy + nsx * s2.wz;
         const float w2y = ssy * s2.wx + tsy * s2.wy + nsy * s2.wz;
         const float w2z = ssz * s2.wx + tsz * s2.wy + nsz * s2.wz;
@@ -595,7 +704,10 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
     // ---- BSDF sample (Bsdf::sample_f, reference-quirk exact) ----
     float ub0, ub1;
     smp.get_2d(dim0 + 3, ub0, ub1);
-    const BsdfSample bs = bsdf_sample<true, kBss>(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1);
+    BsdfSample bs = bsdf_sample<true, kBss>(row, n_lob, wol_x, wol_y, wo_z, ub0, ub1);
+    if constexpr (kTex) {  // the textured lambert lobe is the only one
+      if (texed) lobe_f<true>(lobe_at(0), wol_x, wol_y, wo_z, bs.wx, bs.wy, bs.wz, bs.f);
+    }
     const float nwx = ssx * bs.wx + tsx * bs.wy + nsx * bs.wz;
     const float nwy = ssy * bs.wx + tsy * bs.wy + nsy * bs.wz;
     const float nwz = ssz * bs.wx + tsz * bs.wy + nsz * bs.wz;
@@ -665,7 +777,7 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
 
 // ---- one sample pass per thread: camera rays (kRaysIn false) or given rays ----
 
-template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss>
+template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss, bool kTex>
 __global__ void __launch_bounds__(BLOCK)
     path_mega_kernel(const float* __restrict__ table, int n_tris,
                      const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
@@ -674,7 +786,8 @@ __global__ void __launch_bounds__(BLOCK)
                      const int* __restrict__ pid, const int* __restrict__ sid,
                      const float* __restrict__ slot_u, float* __restrict__ out_l,
                      float* __restrict__ out_w, int n, const __grid_constant__ Params p,
-                     const __grid_constant__ WideParams w) {
+                     const __grid_constant__ WideParams w, const float* __restrict__ tex,
+                     const __grid_constant__ TexMap tm) {
   extern __shared__ float s_geo[];
   __shared__ float s_sph[SPH_MAX * SPH_GEO];
   for (int k = threadIdx.x; k < w.n_sph * SPH_GEO; k += blockDim.x)
@@ -691,16 +804,35 @@ __global__ void __launch_bounds__(BLOCK)
   }();
 
   float ox, oy, oz, dx, dy, dz, weight;
+  float fd[12];  // kTex: the differential rays, origin and direction, x then y
   if constexpr (kRaysIn) {
     ox = in_a[3 * i], oy = in_a[3 * i + 1], oz = in_a[3 * i + 2];
     dx = in_d[3 * i], dy = in_d[3 * i + 1], dz = in_d[3 * i + 2];
     weight = in_w[i];
+  } else if constexpr (kTex) {
+    // _raygen_with_diff: the film points shifted FD_EPS px in x and in y
+    // through the same lens sample, scaled by 1 / sqrt(spp), the ray itself
+    // where a shifted trace dies
+    float uf0, uf1, ul0, ul1;
+    smp.get_2d(0, uf0, uf1);
+    smp.get_2d(1, ul0, ul1);
+    const float px = in_a[2 * i], py = in_a[2 * i + 1];
+    raygen_u(p, uf0, uf1, ul0, ul1, px, py, ox, oy, oz, dx, dy, dz, weight);
+    const float base[6] = {ox, oy, oz, dx, dy, dz};
+    for (int k = 0; k < 2; ++k) {
+      float r[6], wk;
+      raygen_u(p, uf0, uf1, ul0, ul1, k == 0 ? px + FD_EPS : px, k == 0 ? py : py + FD_EPS,
+               r[0], r[1], r[2], r[3], r[4], r[5], wk);
+      for (int c = 0; c < 6; ++c)
+        fd[6 * k + c] =
+            wk > 0.0f ? base[c] + (r[c] - base[c]) / FD_EPS * tm.fd_scale : base[c];
+    }
   } else {
     raygen(p, smp, in_a[2 * i], in_a[2 * i + 1], ox, oy, oz, dx, dy, dz, weight);
   }
   float L[3];
-  bounce_loop<kBvh, kSmooth, kBss>(geom, table, sph_rows, s_sph, p, w, smp, ox, oy, oz, dx, dy,
-                                   dz, weight > 0.0f, L);
+  bounce_loop<kBvh, kSmooth, kBss, kTex>(geom, table, sph_rows, s_sph, p, w, smp, ox, oy, oz, dx,
+                                         dy, dz, weight > 0.0f, L, tex, tm, fd);
   if constexpr (kSlots) {
     if (smp.unlisted) L[0] = L[1] = L[2] = __int_as_float(0x7fffffff);
   }
@@ -725,28 +857,35 @@ struct Launch {
   const float* sph_rows;
   const WideParams* wide;
   const float* slot_u;
+  const float* tex;  // the textured instances: the image's pyramid, else null
+  const TexMap* tm;
 };
 
-template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss = false>
+template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss = false,
+          bool kTex = false>
 int launch_instance(const Launch& a) {
   const int grid = (a.n + BLOCK - 1) / BLOCK;
   size_t smem = 0;
   if constexpr (!kBvh) {
     // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
     const cudaError_t attr = cudaFuncSetAttribute(
-        path_mega_kernel<false, kRaysIn, kSlots, kSmooth, kBss>,
+        path_mega_kernel<false, kRaysIn, kSlots, kSmooth, kBss, kTex>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
     if (attr != cudaSuccess) return (int)attr;
     smem = (size_t)a.n_tris * GEO_COLS * sizeof(float);
   }
-  path_mega_kernel<kBvh, kRaysIn, kSlots, kSmooth, kBss><<<grid, BLOCK, smem, a.stream>>>(
-      a.table, a.n_tris, a.nodes_f, a.nodes_i, a.sph_rows, a.in_a, a.in_d, a.in_w, a.pid, a.sid,
-      a.slot_u, a.out_l, a.out_w, a.n, *a.params, *a.wide);
+  path_mega_kernel<kBvh, kRaysIn, kSlots, kSmooth, kBss, kTex>
+      <<<grid, BLOCK, smem, a.stream>>>(a.table, a.n_tris, a.nodes_f, a.nodes_i, a.sph_rows,
+                                        a.in_a, a.in_d, a.in_w, a.pid, a.sid, a.slot_u, a.out_l,
+                                        a.out_w, a.n, *a.params, *a.wide, a.tex, *a.tm);
   return (int)cudaGetLastError();
 }
 
 template <bool kBvh, bool kRaysIn>
 int launch_shading(const Launch& a) {
+  if constexpr (!kRaysIn) {  // the textured instances: stratified, flat
+    if (a.tex != nullptr) return launch_instance<kBvh, false, false, false, false, true>(a);
+  }
   if (a.wide->has_bss)  // the subsurface instances: flat triangles only
     return a.slot_u != nullptr ? launch_instance<kBvh, kRaysIn, true, false, true>(a)
                                : launch_instance<kBvh, kRaysIn, false, false, true>(a);
@@ -767,7 +906,10 @@ int launch(const Launch& a) {
       (w->has_env && (w->env_nu < 1 || w->env_nu > ENV_BINS || w->env_nv < 1 ||
                       w->env_nv > ENV_BINS)) ||
       (w->smooth && a.n_tris <= 0) ||
-      (w->has_bss && (w->smooth || w->n_sph > 0 || a.n_tris <= 0)))
+      (w->has_bss && (w->smooth || w->n_sph > 0 || a.n_tris <= 0)) ||
+      (a.tex != nullptr && (kRaysIn || a.slot_u != nullptr || w->smooth || w->has_bss ||
+                            a.n_tris <= 0 || a.tm->n_levels < 1 ||
+                            a.tm->n_levels > TEX_LEVELS)))
     return (int)cudaErrorInvalidValue;
   if (a.nodes_f != nullptr) {
     if (a.n_tris <= 0 || a.n_tris > BVH_TRI_MAX || a.nodes_i == nullptr)
@@ -787,16 +929,18 @@ extern "C" {
 // null, the BVH walk otherwise; sph_rows the (n_sph, TABLE_COLS) sphere rows
 // (null without spheres); slot_u the Halton slot matrix, (NC, n) float32 rows
 // of the slots wide->slot_row maps, or null for the stratified sampler; the
-// smooth instance when wide->smooth.  Returns cudaGetLastError() of the
-// launch (0 when it was accepted); nothing is synchronised.
+// smooth instance when wide->smooth; the textured instance when tex (the
+// image's pyramid, tm its TexMap) is not null.  Returns cudaGetLastError() of
+// the launch (0 when it was accepted); nothing is synchronised.
 int path_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
                          const int* nodes_i, const Params* params, const float* pixel_xy,
                          const int* pid, const int* sid, float* out_l, float* out_w, int n,
                          void* stream, const float* sph_rows, const WideParams* wide,
-                         const float* slot_u) {
+                         const float* slot_u, const float* tex, const TexMap* tm) {
   return launch<false>(Launch{table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr,
                               nullptr, pid, sid, out_l, out_w, n,
-                              static_cast<cudaStream_t>(stream), sph_rows, wide, slot_u});
+                              static_cast<cudaStream_t>(stream), sph_rows, wide, slot_u, tex,
+                              tm});
 }
 
 // The same on given rays: o, d (n, 3) and weight (n,); out_l only.
@@ -805,9 +949,10 @@ int path_mega_rays_launch(const float* table, int n_tris, const float* nodes_f,
                           const float* d, const float* weight, const int* pid, const int* sid,
                           float* out_l, int n, void* stream, const float* sph_rows,
                           const WideParams* wide, const float* slot_u) {
+  static const TexMap no_tex{};
   return launch<true>(Launch{table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid,
                              out_l, nullptr, n, static_cast<cudaStream_t>(stream), sph_rows,
-                             wide, slot_u});
+                             wide, slot_u, nullptr, &no_tex});
 }
 
 const char* path_mega_cam_error_string(int err) {
@@ -817,5 +962,7 @@ const char* path_mega_cam_error_string(int err) {
 int path_mega_cam_params_size() { return (int)sizeof(Params); }
 
 int path_mega_wide_params_size() { return (int)sizeof(WideParams); }
+
+int path_mega_tex_map_size() { return (int)sizeof(TexMap); }
 
 }  // extern "C"

@@ -9,8 +9,8 @@ Under a HaltonSampler the probes read the sampler's hash at slot 8 + k
 probes in a fori_loop, where its Halton sampler sees a traced slot and
 falls back to the hash.  Every
 probe is one occlusion query of SceneCtx (K4 or K3 any hit on the card,
-spheres in plain torch).  AO reads no light: it takes every scene the
-loader takes, but for a camera medium.
+spheres in plain torch).  AO reads no light, no material and no medium:
+it takes every scene the loader takes, textured ones too.
 """
 
 import torch

@@ -180,7 +180,8 @@ class SceneCtx:
 
     def shade_params(self, si):
         """Each hit's lobe row (material_rows); no lobes where there is no
-        hit (untextured: the port has no textures)."""
+        hit (untextured: the loop's gate refuses textured materials, and
+        AO reads none)."""
         rows = self.mat_rows[si.mat.clamp(min=0)]
         return torch.where((si.mat >= 0)[:, None], rows, 0.0)
 

@@ -26,12 +26,13 @@ This is the JAX package's `li_path`, the jnp twin of the path kernel K1;
 the render takes it where K1 does not: partial spheres, more than 8
 spheres or lights, distant and triangle lights, more than one
 environment light, an environment light beside a specular lobe, meshes
-past K1's 65,536 triangles, and the materials K1 does not take: matte
-with sigma > 0 (Oren-Nayar), rough glass, TranslucentMaterial,
-MixMaterial, thin or transmissive DisneyMaterial, and a subsurface
-DisneyMaterial among other materials or beside lights, spheres or smooth
-meshes K1's subsurface branch does not take (textures and image-map
-environments are outside the port's loader already).
+past K1's 65,536 triangles, max_depth 0 and above K1's 15, and the
+materials K1 does not take: matte with sigma > 0 (Oren-Nayar), rough
+glass, TranslucentMaterial, MixMaterial, thin or transmissive
+DisneyMaterial, and a subsurface DisneyMaterial among other materials or
+beside lights, spheres or smooth meshes K1's subsurface branch does not
+take.  It evaluates no texture: a textured scene raises here rather than
+render untextured (image-map environments are outside the port's loader).
 """
 
 from typing import Optional
@@ -45,8 +46,7 @@ from ..config import DTYPE, PI
 from ..core.sampling import cosine_sample_hemisphere
 from ..core.vec import coordinate_system, dot
 from ..lights.lights import has_escape, le_escape, sample_li
-from ..ops import bvh_kernel as bk
-from ..ops.path_megakernel import DEPTH_MAX, WAVEFRONT_KINDS, scene_unsupported
+from ..ops.path_megakernel import WAVEFRONT_KINDS, scene_unsupported
 from ..sampler.dims import (
     PATH_BSDF,
     PATH_BSS_LIGHT,
@@ -67,14 +67,13 @@ def unsupported_feature(scene, spec, sampler) -> Optional[str]:
     subsurface, scaled lobes, up to MAX_LOBES a material, fresnel specular
     among others, specular transmission into a subsurface material), the
     stratified or Halton sampler, any number of spheres and lights of
-    every loaded kind, up to BVH_PRIM_MAX triangles, flat or with smooth
-    vertex normals."""
+    every loaded kind, any number of triangles, flat or with smooth vertex
+    normals, any max_depth >= 0 (the JAX package's li_path has no cap)."""
     if spec.kind != "path":
         return f"{spec.kind} integrator"
-    if not 1 <= spec.max_depth <= DEPTH_MAX:
-        return f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}"
-    return scene_unsupported(scene, sampler, WAVEFRONT_KINDS, tri_max=bk.BVH_PRIM_MAX,
-                             wavefront=True, allow_smooth=True)
+    if spec.max_depth < 0:
+        return f"max_depth {spec.max_depth}"
+    return scene_unsupported(scene, sampler, WAVEFRONT_KINDS, wavefront=True, allow_smooth=True)
 
 
 def li_path(ctx, o, d, cam_weight, sampler, pixel_id, s_idx, spec):

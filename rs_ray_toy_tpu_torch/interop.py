@@ -16,7 +16,10 @@ vertex normals included), packed triangles, material table (with each
 lobe's scale and distribution code, and the BSSRDF profiles), lights,
 environments and (optionally) its BVH kernel tables; `sampler_from_jax`
 builds the port's HaltonSampler with a JAX HaltonSampler's spec and
-seed.  Tests use
+seed; `registry_from_jax` the texture registry of a JAX loader's (its
+records' kinds, UV mapping and scale, and each image's exact MIPMap
+levels, not the packed coarse pyramid), and `texture_from_jax` the
+path kernel's TexC of one of its records.  Tests use
 them to feed both packages identical tables, so a comparison does not
 depend on the two loaders agreeing.
 """
@@ -39,11 +42,14 @@ from .ops.path_megakernel import (
     BssrdfC,
     EnvC,
     PackedScene,
+    TexC,
     kinds_present,
 )
 from .ops.volpath_megakernel import PackedVolpath
 from .sampler.halton import HaltonSampler
 from .scene.loader import SamplerSpec
+from .scene.mipmap import MIPMap, pyramid
+from .scene.textures import TEX_CONSTANT, TEX_IMAGE, TexRecord, TextureRegistry
 from .scene.types import LIGHT_DIFFUSE_AREA, LIGHT_INFINITE, LIGHT_POINT, MediumSpec
 from .scene import medium as med
 
@@ -112,6 +118,32 @@ def from_jax_packed(table_np, wide_lights, cam_packed, device, wide=None):
         **more,
     )
     return packed, None if cam_packed is None else camera_from_jax(cam_packed)
+
+
+def registry_from_jax(registry):
+    """The port's TextureRegistry of a JAX TextureRegistry: TEX_IMAGE and
+    TEX_CONSTANT records (kind, value, mapping, su, sv, du, dv, image id,
+    scale) and every image's MIPMap levels, wrap and filter settings."""
+    out = TextureRegistry()
+    for m in registry.images:
+        out.add_image(MIPMap([np.asarray(lv, np.float32) for lv in m.levels], int(m.wrap),
+                             bool(m.do_trilinear), float(m.max_aniso)))
+    for r in registry.records:
+        if r.kind not in (TEX_IMAGE, TEX_CONSTANT):
+            raise NotImplementedError(f"texture kind {r.kind}")
+        out.add(TexRecord(kind=int(r.kind), is_rgb=bool(r.is_rgb), value=np.asarray(r.value),
+                          mapping=int(r.mapping), su=float(r.su), sv=float(r.sv),
+                          du=float(r.du), dv=float(r.dv), image_id=int(r.image_id),
+                          scale=float(r.scale)))
+    return out
+
+
+def texture_from_jax(registry, record_id, device):
+    """The path kernel's TexC (ops/path_megakernel) of record `record_id`
+    of a JAX TextureRegistry, the pyramid on `device`."""
+    reg = registry_from_jax(registry)
+    rec = reg.records[record_id]
+    return TexC(pyramid(reg.images[rec.image_id], device), rec)
 
 
 def sampler_from_jax(sampler, xres, yres):

@@ -28,6 +28,7 @@ import torch
 
 from ..config import PI
 from ..core.sampling import pdf_2d, sample_continuous_2d, uniform_sample_sphere
+from ..core.vec import norm3, sum3
 from ..scene.types import (
     AREA_SHAPE_TRIANGLE,
     LIGHT_DIFFUSE_AREA,
@@ -137,7 +138,7 @@ def env_pdf(env, wx, wy, wz):
     """InfiniteAreaLight::pdf_li along world directions (the PBRT-intended
     math, as the JAX package has it)."""
     w = torch.stack([wx, wy, wz], -1) @ env["to_local"].T
-    w = w / torch.linalg.vector_norm(w, dim=-1, keepdim=True)
+    w = w / norm3(w)[:, None]
     theta = torch.arccos(torch.clamp(w[:, 2], -1.0, 1.0))
     phi = torch.atan2(w[:, 1], w[:, 0])
     phi = torch.where(phi < 0, phi + 2 * PI, phi)
@@ -225,7 +226,7 @@ def sample_li(table, light_idx, px, py, pz, u0, u1):
             e1 = tp[:, 3:6] - tp[:, 0:3]
             e2 = tp[:, 6:9] - tp[:, 0:3]
             nt = torch.linalg.cross(e1, e2)
-            nt = nt / torch.linalg.vector_norm(nt, dim=-1, keepdim=True)
+            nt = nt / norm3(nt)[:, None]
             psx, psy, psz = (torch.where(is_tri, a, b) for a, b in zip(pt, (psx, psy, psz)))
             nsx, nsy, nsz = (torch.where(is_tri, nt[:, c], b)
                              for c, b in enumerate((nsx, nsy, nsz)))
@@ -271,9 +272,9 @@ def pdf_li(table, light_idx, px, py, pz, wix, wiy, wiz):
         w2o = table.w2o[light_idx].reshape(-1, 3, 3)
         oo = torch.einsum("nij,nj->ni", w2o, p) + table.w2o_t[light_idx]
         od = torch.einsum("nij,nj->ni", w2o, wi)
-        a = (od * od).sum(-1)
-        b = 2.0 * (od * oo).sum(-1)
-        c = (oo * oo).sum(-1) - table.radius[light_idx] ** 2
+        a = sum3(od * od)
+        b = 2.0 * sum3(od * oo)
+        c = sum3(oo * oo) - table.radius[light_idx] ** 2
         disc = b * b - 4 * a * c
         hit_s = disc > 0.0
         sq = torch.sqrt(torch.clamp(disc, min=0.0))
@@ -287,31 +288,31 @@ def pdf_li(table, light_idx, px, py, pz, wix, wiy, wiz):
         o2w = table.o2w[light_idx].reshape(-1, 3, 4)
         p_hit_s = torch.einsum("nij,nj->ni", o2w[:, :, :3], p_hit_o) + o2w[:, :, 3]
         n_hit_s = torch.einsum("nji,nj->ni", w2o, p_hit_o)
-        n_hit_s = n_hit_s / torch.linalg.vector_norm(n_hit_s, dim=-1, keepdim=True)
+        n_hit_s = n_hit_s / norm3(n_hit_s)[:, None]
         # triangle
         tp = table.tri_p[light_idx]
         p0 = tp[:, 0:3]
         e1 = tp[:, 3:6] - p0
         e2 = tp[:, 6:9] - p0
         pv = torch.linalg.cross(wi, e2)
-        det = (e1 * pv).sum(-1)
+        det = sum3(e1 * pv)
         inv = 1.0 / torch.where(torch.abs(det) < 1e-9, 1.0, det)
         tv = p - p0
-        uu = (tv * pv).sum(-1) * inv
+        uu = sum3(tv * pv) * inv
         qv = torch.linalg.cross(tv, e1)
-        vv = (wi * qv).sum(-1) * inv
-        tt_t = (e2 * qv).sum(-1) * inv
+        vv = sum3(wi * qv) * inv
+        tt_t = sum3(e2 * qv) * inv
         hit_t = ((torch.abs(det) >= 1e-9) & (uu >= 0) & (uu <= 1) & (vv >= 0) & (uu + vv <= 1)
                  & (tt_t > 1e-4))
         p_hit_t = p + wi * tt_t[:, None]
         n_hit_t = torch.linalg.cross(e1, e2)
-        n_hit_t = n_hit_t / torch.linalg.vector_norm(n_hit_t, dim=-1, keepdim=True)
+        n_hit_t = n_hit_t / norm3(n_hit_t)[:, None]
         is_tri = (table.shape_kind[light_idx] == AREA_SHAPE_TRIANGLE)
         hit = torch.where(is_tri, hit_t, hit_s)
         p_hit = torch.where(is_tri[:, None], p_hit_t, p_hit_s)
         n_hit = torch.where(is_tri[:, None], n_hit_t, n_hit_s)
-        d2 = ((p - p_hit) ** 2).sum(-1)
-        denom = torch.abs((-wi * n_hit).sum(-1)) * table.area[light_idx]
+        d2 = sum3((p - p_hit) ** 2)
+        denom = torch.abs(sum3(-wi * n_hit)) * table.area[light_idx]
         pdf_a = torch.where(hit & (denom > 0.0), d2 / torch.clamp(denom, min=1e-20), 0.0)
         pdf = torch.where(kind == LIGHT_DIFFUSE_AREA, pdf_a, pdf)
     for env_id, env in enumerate(table.envs):

@@ -67,10 +67,12 @@ def source_digest(src, flags):
 
 def _compile(cmd, src, flags):
     """Run `cmd + flags -o <lib> src` unless an up-to-date library exists.
-    Returns (library path, the compiler's output or "" when cached)."""
+    Returns (library path, the compiler's output: kept beside the library,
+    so a cached build returns it too)."""
     out = BUILD_DIR / f"lib{src.stem}-{source_digest(src, flags)[:16]}.so"
+    log = out.with_suffix(".log")
     if out.exists():
-        return out, ""
+        return out, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -81,6 +83,7 @@ def _compile(cmd, src, flags):
                 f"{cmd} failed to build {src} (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -99,6 +102,55 @@ def ptxas_lines(log):
     registers and its stack and spill."""
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "entry function" in ln]
+
+
+_ENTRY = re.compile(r"entry function '([^']+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_KERNEL = re.compile(r"_cu_[0-9a-f]{8}(\d+)")  # the kernel's name follows, that long
+_TARGS = re.compile(r"L([bi])(\d+)E")
+# template arguments an instance that predates them took by default
+_DEFAULT_ARGS = {("b", "0"), ("i", "64")}
+
+
+def instances(lines):
+    """{(kernel, template arguments): (registers, stack, spill stores,
+    spill loads)} of ptxas_lines: an entry's own frame is the first frame
+    line after it (its out-of-line callees' follow)."""
+    out, cur, framed = {}, None, False
+    for ln in lines:
+        m = _ENTRY.search(ln)
+        if m:
+            name = m.group(1)
+            k = _KERNEL.search(name)
+            kernel = name[k.end():k.end() + int(k.group(1))]
+            cur = (kernel, tuple(_TARGS.findall(name[k.end():])))
+            out[cur], framed = [0, 0, 0, 0], False
+        elif cur is not None and not framed and _FRAME.search(ln):
+            out[cur][1:] = [int(x) for x in _FRAME.search(ln).groups()]
+            framed = True
+        elif cur is not None and _REGS.search(ln):
+            out[cur][0] = int(_REGS.search(ln).group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def compare(new, old):
+    """Lines comparing the instances of `new` with those of `old` (each an
+    `instances` dict of one source): an old instance matches the new one
+    whose template arguments extend its own by default values only."""
+    lines, matched = [], set()
+    for (kernel, args), vals in sorted(old.items()):
+        match = [k for k in new if k[0] == kernel and k[1][:len(args)] == args
+                 and set(k[1][len(args):]) <= _DEFAULT_ARGS]
+        if len(match) != 1:
+            lines.append(f"{kernel}{args}: no single match")
+            continue
+        matched.add(match[0])
+        state = "same" if new[match[0]] == vals else f"was {vals}"
+        lines.append(f"{kernel}{match[0][1]}: registers / stack / spill st, ld "
+                     f"{new[match[0]]} {state}")
+    lines += [f"{k[0]}{k[1]}: {new[k]} new" for k in sorted(set(new) - matched)]
+    return lines
 
 
 def load(name):
@@ -120,13 +172,20 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="build the kernel sources, print ptxas's lines")
     ap.add_argument("--src", default=str(SRC_DIR))
-    src = Path(ap.parse_args(argv).src)
-    names = sorted(p.stem for p in src.glob("*.cu"))
-    with ThreadPoolExecutor(len(names)) as pool:
-        logs = dict(zip(names, pool.map(lambda n: build(n, src)[1], names)))
-    for name in names:
+    ap.add_argument("--against", help="another csrc/ directory: compare every instance "
+                                      "the two builds share")
+    args = ap.parse_args(argv)
+    srcs = [Path(args.src)] + ([Path(args.against)] if args.against else [])
+    jobs = [(s, n) for s in srcs for n in sorted(p.stem for p in s.glob("*.cu"))]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        logs = dict(zip(jobs, pool.map(lambda j: build(j[1], j[0])[1], jobs)))
+    src = srcs[0]
+    for name in sorted(p.stem for p in src.glob("*.cu")):
         print(f"== {src / name}.cu")
-        for ln in ptxas_lines(logs[name]) or ["(cached build: no ptxas output)"]:
+        lines = ptxas_lines(logs[(src, name)]) or ["(cached build: no ptxas output)"]
+        if args.against and (srcs[1], name) in logs:
+            lines = compare(instances(lines), instances(ptxas_lines(logs[(srcs[1], name)])))
+        for ln in lines:
             print(ln)
 
 

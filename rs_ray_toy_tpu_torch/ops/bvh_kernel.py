@@ -7,8 +7,11 @@ repository's SAH BVH with leaves of KERNEL_LEAF triangles (SceneCtx's
 kernel leaf), its fused-children node rows, and the triangles in leaf
 order (intersect rows, original row / material / area light, and the 15
 flat shade columns, or 31 with the vertex normals, their partials and
-has_n when any triangle has vertex normals).  A tree deeper than the kernels' 64-entry stack raises
-NotImplementedError: there is no slower walk to fall back to.
+has_n when any triangle has vertex normals), for any number of
+triangles.  A tree of 64 levels or more is walked by the kernels' deep
+instances, whose stack holds 256 nodes (accel/bvh.stack_for); a tree of
+256 levels or more raises NotImplementedError: there is no slower walk to
+fall back to.
 
 - `intersect_bvh(tables, o, d, t_max)`: closest hit with t in
   [TRI_EPS, t_max): (t, idx, valid), t = t_max and idx = -1 on a miss.
@@ -35,10 +38,11 @@ from ..accel import traverse
 from ..accel.bvh import (
     SHADE_COLS_FLAT,
     SHADE_COLS_SMOOTH,
-    STACK_DEPTH,
+    DEEP_STACK,
     build_bvh,
     pack_bvh_tables,
     pack_prim_tables,
+    stack_for,
     tree_depth,
 )
 from ..accel.geometry import shade_rows
@@ -46,7 +50,6 @@ from . import _build
 from .intersect_kernel import ray_args
 
 KERNEL_LEAF = 16  # SceneCtx's kernel leaf size (integrators/common.py in the JAX package)
-BVH_PRIM_MAX = 120_000  # ops/bvh_pallas.PALLAS_BVH_PRIM_MAX
 ATTR_ROWS = 16  # u, v, uv (2), ns (3), ng (3), dpdu (3), dpdv (3)
 ATTR_ROWS_SMOOTH = 22  # ... and dndu (3), dndv (3)
 
@@ -70,16 +73,16 @@ class BvhTables(NamedTuple):
     def smooth(self):
         return self.shade_f.shape[1] == SHADE_COLS_SMOOTH
 
+    @property
+    def stack(self):
+        """The walk's stack: the deep instances' above 63 levels."""
+        return stack_for(self.depth)
+
 
 def pack_bvh(tri, device) -> BvhTables:
-    if tri.count > BVH_PRIM_MAX:
-        raise NotImplementedError(f"{tri.count} triangles (the BVH kernels take up to "
-                                  f"{BVH_PRIM_MAX})")
     flat = build_bvh(tri, KERNEL_LEAF)
     depth = tree_depth(flat)
-    if depth >= STACK_DEPTH:
-        raise NotImplementedError(f"a BVH of depth {depth} (the kernels' traversal stack "
-                                  f"holds {STACK_DEPTH} nodes)")
+    stack_for(depth)  # raises for a tree too deep for every instance
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     nodes_f, nodes_i = pack_bvh_tables(flat)
     tri_f, tri_i = shade_rows(tri)
@@ -163,13 +166,13 @@ def load_kernel():
         lib = _build.load("bvh_kernel")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bvh_launch.restype = i
-        lib.bvh_launch.argtypes = [i, p, p, p, p, i, p, p, p, p, p, i, p]
+        lib.bvh_launch.argtypes = [i, i, p, p, p, p, i, p, p, p, p, p, i, p]
         lib.bvh_shaded_launch.restype = i
-        lib.bvh_shaded_launch.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p, p, p, p, i, p]
+        lib.bvh_shaded_launch.argtypes = [i, p, p, p, p, p, i, i, p, p, p, p, p, p, p, p, i, p]
         lib.bvh_error_string.restype = ctypes.c_char_p
         lib.bvh_error_string.argtypes = [i]
-        if lib.bvh_prim_max() != BVH_PRIM_MAX:
-            raise RuntimeError("bvh_kernel's primitive limit differs from BVH_PRIM_MAX")
+        if lib.bvh_deep_stack() != DEEP_STACK:
+            raise RuntimeError("bvh_kernel's deep stack differs from accel/bvh.DEEP_STACK")
         _LIB = lib
     return _LIB
 
@@ -186,7 +189,7 @@ def _check_tables(tables, dev):
     ):
         if x.device != dev or x.dtype != dtype or x.shape != shape or not x.is_contiguous():
             raise ValueError(f"BVH table {name} must be contiguous {dtype} {shape} on {dev}")
-    if not 0 < p <= BVH_PRIM_MAX or tables.depth >= STACK_DEPTH:
+    if not 0 < p or tables.depth >= DEEP_STACK:
         raise ValueError(f"{p} primitives / depth {tables.depth} outside the kernels' limits")
     return p
 
@@ -206,9 +209,10 @@ def prepare_launch(tables, o, d, t_max, any_hit):
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     key = "bvh_any" if any_hit else "bvh_closest"
+    deep = int(tables.stack == DEEP_STACK)
 
     def launch():
-        err = lib.bvh_launch(int(any_hit), tables.nodes_f.data_ptr(), tables.nodes_i.data_ptr(),
+        err = lib.bvh_launch(int(any_hit), deep, tables.nodes_f.data_ptr(), tables.nodes_i.data_ptr(),
                              tables.prims_f.data_ptr(), tables.prims_i.data_ptr(), p,
                              o.data_ptr(), d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(),
                              idx_out.data_ptr(), n, stream)
@@ -239,10 +243,11 @@ def prepare_shaded_launch(tables, o, d, t_max):
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     key = "bvh_shaded_smooth" if smooth else "bvh_shaded"
+    deep = int(tables.stack == DEEP_STACK)
 
     def launch():
         err = lib.bvh_shaded_launch(
-            tables.nodes_f.data_ptr(), tables.nodes_i.data_ptr(), tables.prims_f.data_ptr(),
+            deep, tables.nodes_f.data_ptr(), tables.nodes_i.data_ptr(), tables.prims_f.data_ptr(),
             tables.prims_i.data_ptr(), tables.shade_f.data_ptr(), int(smooth), p, o.data_ptr(),
             d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(), ints[0].data_ptr(),
             ints[1].data_ptr(), ints[2].data_ptr(), attrs.data_ptr(), n, stream,

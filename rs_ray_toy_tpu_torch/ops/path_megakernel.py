@@ -18,7 +18,10 @@ diffuse, retro, sheen, clearcoat and microfacet lobes of a constant
 DisneyMaterial) with the etaScale factor, for a scene in one subsurface
 Disney material its specular transmission lobe and the BSSRDF branch
 (the probe chain, the exit's NEE and its cosine direction: K5 f,
-`subsurface_reference`), Russian roulette after bounce 3, and with
+`subsurface_reference`), for a matte whose kd is an image texture the
+textured instances' kd (K5 g: differential lens rays, the first hit's
+footprints into K7's EWA tap, level 0's bilinear tap after;
+`textured_kd_reference`), Russian roulette after bounce 3, and with
 `infinite_lights` the escape radiance at bounce 0 or after a specular
 bounce, one step past max_depth.  `li_path_mega` runs the same bounce
 loop on given rays.  The estimator is the JAX kernel's (`_raygen` +
@@ -92,6 +95,7 @@ from ..bsdf.microfacet import roughness_to_alpha
 from ..config import DTYPE, ONE_MINUS_EPSILON, PI, SHADOW_EPSILON
 from ..core.sampling import concentric_sample_disk as _concentric_disk  # noqa: F401
 from ..core.sampling import power_heuristic
+from ..core.vec import div as _div
 from ..core.vec import dot3 as _dot3
 from ..core.vec import rsqrt as _rsqrt
 from ..sampler.dims import (
@@ -107,8 +111,11 @@ from ..sampler.dims import (
     path_dim0,
 )
 from ..sampler.halton import HaltonSampler
+from ..scene.mipmap import bilerp_level, ewa_lookup, pyramid
+from ..scene.textures import map_uv
 from ..scene.types import AREA_SHAPE_SPHERE, LIGHT_DIFFUSE_AREA, LIGHT_INFINITE, LIGHT_POINT
 from . import _build
+from .texture import _TexMap, tex_map
 
 TRI_EPS = 1e-7
 SPH_EPS = 1e-4
@@ -117,7 +124,7 @@ BVH_TRI_MAX = 65536  # the in-kernel BVH up to here (MEGA_BVH_TRI_MAX)
 BVH_LEAF = 16  # requested leaf size of the kernels' BVH
 LOBES_MAX = 5
 NRM_COL = 16 + 16 * LOBES_MAX  # raw vertex normals n0, n1, n2 (smooth shading)
-TEX0 = NRM_COL + 9  # textured-kd block (not ported; zeros)
+TEX0 = NRM_COL + 9  # textured-kd block: dpdv, uv0, uv1, uv2, textured flag
 TABLE_COLS = TEX0 + 10  # 115
 LIGHT_MAX = 8
 SPH_MAX = 8  # full spheres the path kernel takes
@@ -137,6 +144,8 @@ WAVEFRONT_KINDS = PORTED_KINDS + (LOBE_OREN_NAYAR, LOBE_LAMBERT_TRANS, LOBE_MF_T
                                   LOBE_DISNEY_FAKE_SS)
 # what a kernel without the subsurface branch names for a BSSRDF material
 BSSRDF_NAME = "specular transmission (DisneyMaterial scatter_distance BSSRDF)"
+# what a renderer without the textured tap names for a textured matte
+TEXTURED_KD = "textured kd (ImageTexture)"
 # what a kernel that does not take a lobe kind names in its error
 LOBE_NAMES = {
     LOBE_OREN_NAYAR: "Oren-Nayar (MatteMaterial sigma > 0)",
@@ -152,28 +161,33 @@ LOBE_NAMES = {
     LOBE_DISNEY_SHEEN: "Disney sheen (DisneyMaterial)",
     LOBE_DISNEY_CLEARCOAT: "Disney clearcoat (DisneyMaterial)",
     LOBE_DISNEY_MICROFACET_REFL: "Disney microfacet (DisneyMaterial)",
+    LOBE_MF_REFL: "microfacet (PlasticMaterial, MetalMaterial)",
+    LOBE_SPEC_REFL: "specular reflection (MirrorMaterial, GlassMaterial)",
+    LOBE_FRESNEL_SPEC: "fresnel specular (GlassMaterial)",
 }
 
 ENV_BINS = 16  # theta and phi rows of a constant map's Distribution2D (8x8 texels)
 SLOT_MAX = 176  # sampler slots the slot-to-row map covers: path_dim0(DEPTH_MAX), rounded up
 
 
-def kernel_name(base, bvh=False, halton=False, smooth=False, bss=False):
+def kernel_name(base, bvh=False, halton=False, smooth=False, bss=False, tex=False):
     """The name (and LAUNCHES key) of a kernel instance: the camera
     ("path_mega_cam") or rays-in ("path_mega") kernel, over the BVH, under
-    the Halton sampler, with smooth normals or with the subsurface branch
-    (never both)."""
-    return base + "_bvh" * bvh + "_halton" * halton + "_smooth" * smooth + "_bss" * bss
+    the Halton sampler, with smooth normals, with the subsurface branch or
+    with the textured kd (camera, stratified and flat only)."""
+    return (base + "_bvh" * bvh + "_halton" * halton + "_smooth" * smooth + "_bss" * bss
+            + "_tex" * tex)
 
 
 # Kernel launches made by li_path_mega_cam and li_path_mega, by kernel
 # instance; the one piece of module state.
 LAUNCHES = {
-    kernel_name(base, bvh, halton, smooth, bss): 0
-    for base in ("path_mega_cam", "path_mega")
-    for bvh in (False, True)
-    for halton in (False, True)
-    for smooth, bss in ((False, False), (True, False), (False, True))
+    **{kernel_name(base, bvh, halton, smooth, bss): 0
+       for base in ("path_mega_cam", "path_mega")
+       for bvh in (False, True)
+       for halton in (False, True)
+       for smooth, bss in ((False, False), (True, False), (False, True))},
+    **{kernel_name("path_mega_cam", bvh, tex=True): 0 for bvh in (False, True)},
 }
 
 
@@ -181,6 +195,7 @@ class BvhTables(NamedTuple):
     nodes_f: torch.Tensor  # (M, 16) float32 fused-children rows
     nodes_i: torch.Tensor  # (M, 4) int32: offset, n_prims, axis, 0
     max_leaf: int  # most triangles in one leaf
+    stack: int = STACK_DEPTH  # entries of the walk's stack (accel/bvh.stack_for)
 
 
 class EnvC(NamedTuple):
@@ -216,6 +231,15 @@ class BssrdfC(NamedTuple):
     c_sw: float
 
 
+class TexC(NamedTuple):
+    """The one image texture of a textured scene: its pyramid on the
+    render device (scene/mipmap.Pyramid) and its record (the UV mapping
+    and scale)."""
+
+    pyr: object
+    rec: object
+
+
 class PackedScene(NamedTuple):
     table: torch.Tensor  # (T, 115) float32 on the render device
     light_p: tuple  # per light, (x, y, z) float32 values (point position)
@@ -235,6 +259,7 @@ class PackedScene(NamedTuple):
     world_radius: float = 0.0  # float32 value
     smooth: bool = False  # mesh_smooth: interpolate the raw vertex normals
     bssrdf: Optional[BssrdfC] = None  # the subsurface branch's constants
+    tex: Optional[TexC] = None  # the textured kd's image (TEX0 block filled)
 
 
 def _pow2(n):
@@ -305,21 +330,22 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     """The checks the kernels share (common_scene_checks): power-of-two
     stratified grid (no check when `sampler` is None; a HaltonSampler only
     with `path` or `wavefront`), up to tri_max (default BVH_TRI_MAX)
-    triangles, flat unless `allow_smooth`, up to LIGHT_MAX point lights,
-    and every live lobe of a used material among `kinds` (microfacets:
+    triangles but in the wavefront loop, flat unless `allow_smooth`, up
+    to LIGHT_MAX point lights, and every live lobe of a used material among `kinds` (microfacets:
     visible-normal Trowbridge-Reitz only; unscaled, up to LOBES_MAX of
     them and fresnel specular alone, except in the wavefront loop, which
-    takes up to MAX_LOBES); no media.  With `volpath`,
-    sphere lights too, and the Volpath kernel checks the medium itself.
+    takes up to MAX_LOBES).  A camera medium is not read here: outside
+    Volpath it is ignored, as the JAX package's integrators ignore it, and
+    the Volpath kernel checks it itself.  With `volpath`, sphere lights
+    too.
     With `path` (the path kernel) up to SPH_MAX full spheres and point,
     sphere and one environment light, the environment only without
     specular lobes; with `wavefront` (the wavefront Path loop) any
     spheres and lights.  A used material with a BSSRDF only with `path`
     (within _bssrdf_unsupported's subset, and specular transmission only
-    there) or `wavefront`.  Returns the first feature outside them, or
-    None."""
-    if scene.mediums and not volpath:
-        return "participating media (Camera.medium) outside Volpath"
+    there) or `wavefront`.  Textured materials only within the path
+    kernel's textured subset (_texture_unsupported).  Returns the first
+    feature outside them, or None."""
     if isinstance(sampler, HaltonSampler):
         if not (path or wavefront):
             return "HaltonSampler"
@@ -330,7 +356,7 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     sph = scene.spheres
     n_sph = 0 if sph is None else sph.count
     tri_max = BVH_TRI_MAX if tri_max is None else tri_max
-    if tri.count > tri_max:
+    if tri.count > tri_max and not wavefront:
         return f"{tri.count} triangles (the BVH kernels take up to {tri_max})"
     if not allow_smooth and mesh_smooth(tri):
         return "smooth shading (vertex normals)"
@@ -369,7 +395,55 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
                 return reason
             if kind == LOBE_FRESNEL_SPEC and n_lobes[m] > 1 and not wavefront:
                 return "fresnel-specular lobes in a multi-lobe material"
+    reason = _texture_unsupported(scene, sampler, used, path)
+    if reason is not None:
+        return reason
     return _light_unsupported(scene, volpath, path, wavefront, spec_live)
+
+
+def textured_lobes(mats, used):
+    """(material, lobe) of each live lobe of the `used` materials whose s0
+    is a texture."""
+    s0_tex, n_lobes = mats["s0_tex"], mats["n_lobes"]
+    return [(m, l) for m in used for l in range(int(n_lobes[m])) if s0_tex[m, l] >= 0]
+
+
+def _texture_unsupported(scene, sampler, used, path):
+    """Textured materials: only the path kernel's textured subset (the JAX
+    package's _textured_static and common_scene_checks' textured gate)
+    takes them, every other renderer but AO names them.  The subset: one
+    image texture, the kd of a matte (one lambert lobe: the kernel takes
+    no Oren-Nayar lobe, and a Mix's lobes are scaled), every live lobe
+    lambert, on triangles, flat shading, the stratified sampler (no
+    256-texel width cap: that is the TPU's packed table's).  Another
+    textured parameter (the loader's `textured`) is named."""
+    mats = scene.materials
+    others = [name for m in used for name in mats["textured"][m]]
+    if others:
+        return f"textured {others[0]}"
+    tex_lobes = textured_lobes(mats, used)
+    if not tex_lobes:
+        return None
+    if not path:
+        return TEXTURED_KD
+    kinds, n_lobes = mats["kind"], mats["n_lobes"]
+    for m in used:
+        for l in range(int(n_lobes[m])):
+            if kinds[m, l] != LOBE_LAMBERT_REFL:
+                kind = int(kinds[m, l])
+                return f"{TEXTURED_KD} beside {LOBE_NAMES.get(kind, f'kind {kind}')} lobes"
+    if len({int(mats["s0_tex"][m, l]) for m, l in tex_lobes}) > 1:
+        return f"{TEXTURED_KD} from more than one image texture"
+    if isinstance(sampler, HaltonSampler):
+        return f"{TEXTURED_KD} under the HaltonSampler"
+    if mesh_smooth(scene.triangles):
+        return f"{TEXTURED_KD} on smooth shading (vertex normals)"
+    sph = scene.spheres
+    if sph is not None and sph.count:
+        sph_mats = np.unique(sph.mat[sph.mat >= 0])
+        if textured_lobes(mats, sph_mats):
+            return f"{TEXTURED_KD} on sphere primitives"
+    return None
 
 
 def _bssrdf_unsupported(scene, used):
@@ -584,6 +658,20 @@ def pack_bssrdf(materials, mat):
                    c_sw=float(1.0 - 2.0 * fm1))
 
 
+def pack_texture(scene, mat, device):
+    """TexC of the one image texture whose kd the materials `mat` of the
+    triangles read (the pyramid on `device`), or None without one."""
+    mats = scene.materials
+    lobes = textured_lobes(mats, np.unique(mat[mat >= 0]))
+    if not lobes:
+        return None
+    ids = {int(mats["s0_tex"][m, l]) for m, l in lobes}
+    if len(ids) != 1:
+        raise ValueError(f"{TEXTURED_KD} from {len(ids)} textures; the path kernel takes one")
+    rec = scene.registry.records[ids.pop()]
+    return TexC(pyramid(scene.registry.images[rec.image_id], device), rec)
+
+
 def pack_scene(scene, device, bvh=None) -> PackedScene:
     """(T, 115) float32 per-triangle table, the sphere rows and the lights.
 
@@ -593,8 +681,9 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
                   fresnel, eta_a, eta_b, pad (col 31 = Bsdf eta, col 47 =
                   material id)
     cols 96:105  raw vertex normals n0, n1, n2 (read when `smooth`);
-                  cols 105:115 the textured-kd block (zeros: textures are
-                  not ported).
+    cols 105:115 the textured-kd block of a textured scene (dpdv, uv0,
+                  uv1, uv2, and 1 where the row's material takes kd from the
+                  texture, -1 elsewhere), zeros otherwise.
 
     BVH mode (bvh=True, or bvh=None and more than TRI_MAX triangles): a
     SAH BVH with leaves of up to BVH_LEAF triangles, its fused-children
@@ -614,6 +703,12 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
     fill_lobe_columns(table, r, LOBES_MAX)
     table[:, 47] = tri.mat
     table[:, NRM_COL : NRM_COL + 9] = np.concatenate([tri.n0, tri.n1, tri.n2], axis=1)
+    tex = pack_texture(scene, tri.mat, device)
+    if tex is not None:
+        table[:, TEX0:TEX0 + 3] = tri.dpdv
+        table[:, TEX0 + 3:TEX0 + 9] = np.concatenate([tri.uv0, tri.uv1, tri.uv2], axis=1)
+        s0_tex = scene.materials["s0_tex"][np.maximum(tri.mat, 0), 0]
+        table[:, TEX0 + 9] = np.where((tri.mat >= 0) & (s0_tex >= 0), 1.0, -1.0)
     sph_rows = pack_spheres(scene)
     kinds = kinds_present(table if sph_rows is None else np.concatenate([table, sph_rows]))
     tables = None
@@ -638,6 +733,7 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
         bvh=tables,
         sph_table=None if sph_rows is None else torch.as_tensor(sph_rows, device=device),
         smooth=mesh_smooth(tri),
+        tex=tex,
         **pack_lights(scene),
     )
 
@@ -989,10 +1085,15 @@ def load_kernel():
     """The path kernel's library (built on first use): the camera entry
     `path_mega_cam_launch` and the rays-in entry `path_mega_rays_launch`,
     both taking the sphere rows, WideParams and the Halton slot matrix
-    (null under the stratified sampler) after the common arguments."""
-    lib = load_library("path_megakernel", "path_mega_cam", _WIDE_ARGS)
+    (null under the stratified sampler) after the common arguments, the
+    camera entry then the textured scene's pyramid (null without one) and
+    its TexMap."""
+    lib = load_library("path_megakernel", "path_mega_cam",
+                       _WIDE_ARGS + (ctypes.c_void_p, ctypes.POINTER(_TexMap)))
     if lib.path_mega_wide_params_size() != ctypes.sizeof(_WideParams):
         raise RuntimeError("path_megakernel WideParams differs from _WideParams")
+    if lib.path_mega_tex_map_size() != ctypes.sizeof(_TexMap):
+        raise RuntimeError("path_megakernel TexMap differs from ops/texture._TexMap")
     rays = lib.path_mega_rays_launch
     rays.restype = ctypes.c_int
     rays.argtypes = [
@@ -1056,11 +1157,20 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
     reader = slot_reader(packed, spec, sampler, pixel_id, s_idx, True)
     wide = _wide_params(packed, reader)
     sph = _sphere_arg(packed, dev)
+    tex, tm = packed.tex, _TexMap()
+    if tex is not None:
+        if reader is not None or packed.smooth or packed.bssrdf is not None:
+            raise ValueError("the textured instances take the stratified sampler, flat shading "
+                             "and no subsurface branch")
+        if tex.pyr.data.device != dev or not tex.pyr.data.is_contiguous():
+            raise ValueError(f"the texture's pyramid must be contiguous on {dev}")
+        tm = tex_map(tex.pyr, tex.rec, sampler.spp)
     return launcher(load_kernel(), "path_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm,
-                    LAUNCHES, extra=(sph, ctypes.byref(wide), reader and reader.u),
+                    LAUNCHES, extra=(sph, ctypes.byref(wide), reader and reader.u,
+                                     None if tex is None else tex.pyr.data, ctypes.byref(tm)),
                     allow_empty=sph is not None,
                     variant=kernel_name("", halton=reader is not None, smooth=packed.smooth,
-                                        bss=packed.bssrdf is not None))
+                                        bss=packed.bssrdf is not None, tex=tex is not None))
 
 
 def li_path_mega(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
@@ -1069,10 +1179,17 @@ def li_path_mega(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
     weight <= 0 is not traced), pixel_id (N,) integer pixel ids, s_idx
     (N,) or a scalar.  Returns L (N, 3).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel.  A
+    textured scene raises: given rays carry no differentials."""
     if o.device.type == "cpu":
         return li_path_mega_reference(packed, o, d, weight, pixel_id, s_idx, sampler, spec)
     return prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec)()
+
+
+def _no_texture_on_given_rays(packed):
+    if packed.tex is not None:
+        raise NotImplementedError(f"{TEXTURED_KD} on given rays (the rays-in kernels take no "
+                                  "ray differentials)")
 
 
 def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
@@ -1082,6 +1199,7 @@ def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"the path_mega kernel runs on cuda tensors, not {dev}")
+    _no_texture_on_given_rays(packed)
     n = o.shape[0]
     if (o.dtype != torch.float32 or d.dtype != torch.float32 or o.shape != (n, 3)
             or d.shape != (n, 3) or n == 0 or d.device != dev):
@@ -1221,8 +1339,9 @@ def _raygen(px, py, pid, sid, sampler, cam):
     in world space."""
     uf = sampler.get_2d(pid, sid, CAMERA_FILM)
     ul = sampler.get_2d(pid, sid, CAMERA_LENS)
-    sx = (px + uf[:, 0]) / cam["xres"]
-    sy = (py + uf[:, 1]) / cam["yres"]
+    # a number divides through vec.div: once rounded, as in the kernel
+    sx = _div(px + uf[:, 0], cam["xres"])
+    sy = _div(py + uf[:, 1], cam["yres"])
     pfx = -((sx - 0.5) * cam["extent"][0])
     pfy = (sy - 0.5) * cam["extent"][1]
 
@@ -1230,7 +1349,7 @@ def _raygen(px, py, pid, sid, sampler, cam):
     r_film = torch.sqrt(pfx * pfx + pfy * pfy)
     n_bins = len(cam["bounds"])
     r_idx = torch.clamp(
-        (r_film / (cam["diagonal"] / 2.0) * n_bins).to(torch.int64), 0, n_bins - 1
+        (_div(r_film, cam["diagonal"] / 2.0) * n_bins).to(torch.int64), 0, n_bins - 1
     )
     b = torch.tensor(cam["bounds"], dtype=DTYPE, device=px.device)[r_idx]
     b0, b1, b2, b3 = b[:, 0], b[:, 1], b[:, 2], b[:, 3]
@@ -1251,7 +1370,7 @@ def _raygen(px, py, pid, sid, sampler, cam):
     dz0 = cam["rear_z"] - 0.0
     # the weight's cos^4 uses the pre-trace direction (camera.rs:569-571)
     dlen = torch.sqrt(torch.clamp(dx0 * dx0 + dy0 * dy0 + dz0 * dz0, min=1e-30))
-    cos_theta = dz0 / dlen
+    cos_theta = _div(dz0, dlen)
     c2 = cos_theta * cos_theta
     cos4 = c2 * c2
 
@@ -1327,7 +1446,7 @@ def _raygen(px, py, pid, sid, sampler, cam):
     vz = m[8] * dx + m[9] * dy + m[10] * dz
     vinv = 1.0 / torch.clamp(torch.sqrt(vx * vx + vy * vy + vz * vz), min=1e-30)
     if cam["simple_weighting"]:
-        weight = cos4 * area / cam["area0"]
+        weight = _div(cos4 * area, cam["area0"])
     else:
         weight = cam["shutter"] * (cos4 * area)
     weight = torch.where(alive, weight, 0.0)
@@ -1498,7 +1617,7 @@ class PlainGeometry:
         tb = t_bound[idx]
         best = torch.full_like(idx, -1)
         m = idx.numel()
-        stack = torch.zeros((m, STACK_DEPTH), dtype=torch.int64, device=ox.device)
+        stack = torch.zeros((m, self.bvh.stack), dtype=torch.int64, device=ox.device)
         sp = torch.ones_like(idx)  # the root, node 0, is on the stack
         k = torch.arange(self.bvh.max_leaf, device=ox.device)
         while m:
@@ -1537,7 +1656,7 @@ class PlainGeometry:
                 (torch.where(near_left, right, left), torch.where(near_left, hit_r, hit_l)),
                 (torch.where(near_left, left, right), torch.where(near_left, hit_l, hit_r)),
             ):
-                slot = sp.clamp(max=STACK_DEPTH - 1)  # pack_scene bounds the depth
+                slot = sp.clamp(max=self.bvh.stack - 1)  # the packer sizes the stack
                 stack[lane, slot] = torch.where(push, child, stack[lane, slot])
                 sp = sp + push
             done = (sp == 0) | (found if any_hit else False)
@@ -1561,23 +1680,46 @@ def li_path_mega_cam_reference(
     triangle, box and sphere tests ("mt", "slab", "sph") and lobe
     evaluations ("lobe") that the kernel performs on these inputs, and
     under a HaltonSampler the slot values it reads ("slot") (0-d
-    tensors)."""
+    tensors); a textured scene also the texels its taps weigh ("texel")
+    and its differential rays' lens traces ("fd_ray")."""
     dev = pixel_xy.device
     n = pixel_xy.shape[0]
     pid = pixel_id.to(torch.int64)
     sid = _sample_indices(s_idx, n, dev)
     sampler = slot_reader(packed, spec, sampler, pid, sid, True) or sampler
-    ox, oy, oz, dx, dy, dz, weight = _raygen(
-        pixel_xy[:, 0], pixel_xy[:, 1], pid, sid, sampler, cam_packed
-    )
+    ray = _raygen(pixel_xy[:, 0], pixel_xy[:, 1], pid, sid, sampler, cam_packed)
+    weight = ray[6]
     tally_slots(work, sampler, torch.full_like(weight, 4.0))  # film and lens
-    L = bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, weight > 0.0, pid, sid, sampler,
-                              spec, work)
+    fd = None
+    if packed.tex is not None:
+        fd = raygen_differentials(pixel_xy, pid, sid, sampler, cam_packed, ray[:6])
+        tally(work, "fd_ray", torch.full_like(pid, 2))
+    L = bounce_loop_reference(packed, *ray[:6], weight > 0.0, pid, sid, sampler, spec, work, fd)
     return L, weight
+
+
+FD_EPS = 0.05  # the film offset of the ray differentials, px
+
+
+def raygen_differentials(pixel_xy, pid, sid, sampler, cam, base):
+    """The differential rays of the camera rays `base` (ox, oy, oz, dx, dy,
+    dz), the JAX kernel's _raygen_with_diff: the lens traced at film points
+    FD_EPS px to the right and below through the same lens sample, scaled
+    by 1 / sqrt(spp), the ray itself where the shifted trace dies.
+    Returns 12 tensors: the x ray's origin and direction, then the y
+    ray's."""
+    scale = 1.0 / float(np.sqrt(max(sampler.spp, 1)))
+    fd = []
+    for sx, sy in ((FD_EPS, 0.0), (0.0, FD_EPS)):
+        r = _raygen(pixel_xy[:, 0] + sx, pixel_xy[:, 1] + sy, pid, sid, sampler, cam)
+        ok = r[6] > 0.0
+        fd += [torch.where(ok, b + _div(c - b, FD_EPS) * scale, b) for b, c in zip(base, r[:6])]
+    return fd
 
 
 def li_path_mega_reference(packed, o, d, weight, pixel_id, s_idx, sampler, spec, work=None):
     """Plain PyTorch version of `li_path_mega` (same arguments and return)."""
+    _no_texture_on_given_rays(packed)
     n = o.shape[0]
     pid = pixel_id.to(torch.int64)
     sid = _sample_indices(s_idx, n, o.device)
@@ -1792,12 +1934,9 @@ def _nee_light(packed, li, px, py, pz, u0, u1):
     return wi, le, pdf, pl, is_point, sel_env
 
 
-def smooth_normal(row, ox, oy, oz, dx, dy, dz, ngx, ngy, ngz):
-    """The shading normal of a smooth mesh at the rows' hits: the winner's
-    barycentrics rebuilt from its intersect columns with
-    surface_interaction's guards, its raw vertex normals (cols NRM_COL:
-    NRM_COL + 9) interpolated and normalised, ng where they sum to zero
-    (the JAX kernel's smooth branch)."""
+def barycentrics(row, ox, oy, oz, dx, dy, dz):
+    """(b0, b1, b2) of the rays at the rows' triangles, rebuilt from their
+    intersect columns with surface_interaction's guards."""
     p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = row[:, 0:9].unbind(-1)
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
@@ -1810,7 +1949,64 @@ def smooth_normal(row, ox, oy, oz, dx, dy, dz, ngx, ngy, ngz):
     qvy = tvz * e1x - tvx * e1z
     qvz = tvx * e1y - tvy * e1x
     b2 = (dx * qvx + dy * qvy + dz * qvz) * inv
-    b0 = 1.0 - b1 - b2
+    return 1.0 - b1 - b2, b1, b2
+
+
+def textured_kd_reference(row, tex, ray, p, ng, dpdu, fd, live, work=None):
+    """kd (N, 3) of textured rows (the kernel's textured_kd): the uv at the
+    rebuilt barycentrics, mapped to st; with the differential rays `fd`
+    (bounce 0) K7's EWA tap over the footprints their offsets on ng's
+    tangent plane at p solve to against dpdu and dpdv
+    (compute_uv_differentials), else (dead differentials) level 0's
+    bilinear tap; times the texture's scale.  `work` counts the taps'
+    texels on the `live` lanes ("texel")."""
+    b0, b1, b2 = barycentrics(row, *ray)
+    tb = row[:, TEX0:TEX0 + 10]
+    uvu = b0 * tb[:, 3] + b1 * tb[:, 5] + b2 * tb[:, 7]
+    uvv = b0 * tb[:, 4] + b1 * tb[:, 6] + b2 * tb[:, 8]
+    rec = tex.rec
+    s, t = map_uv(rec, uvu, uvv)
+    if fd is None:
+        kd = bilerp_level(tex.pyr, torch.zeros_like(live, dtype=torch.int64), s, t)
+        tally(work, "texel", 4 * live)
+        return kd * rec.scale
+    px, py, pz = p
+    ngx, ngy, ngz = ng
+    d_plane = ngx * px + ngy * py + ngz * pz
+    dp = []
+    for k in range(2):
+        rox, roy, roz, rdx, rdy, rdz = fd[6 * k:6 * k + 6]
+        den = ngx * rdx + ngy * rdy + ngz * rdz
+        den = torch.where(torch.abs(den) < 1e-9, 1e-9, den)
+        th = (d_plane - (ngx * rox + ngy * roy + ngz * roz)) / den
+        dp.append((rox + rdx * th - px, roy + rdy * th - py, roz + rdz * th - pz))
+    ax0, ax1, ax2 = torch.abs(ngx), torch.abs(ngy), torch.abs(ngz)
+    k0 = (ax0 >= ax1) & (ax0 >= ax2)
+    kmax2 = ~k0 & (ax2 > ax1)
+    dux, duy, duz = dpdu
+    dvx, dvy, dvz = tb[:, 0], tb[:, 1], tb[:, 2]
+    a00, a01 = torch.where(k0, duy, dux), torch.where(k0, dvy, dvx)
+    a10, a11 = torch.where(kmax2, duy, duz), torch.where(kmax2, dvy, dvz)
+    det = a00 * a11 - a01 * a10
+    okd = torch.abs(det) >= 1e-10
+    invd = 1.0 / torch.where(okd, det, 1.0)
+    duv = []
+    for dpx, dpy, dpz in dp:
+        c0, c1 = torch.where(k0, dpy, dpx), torch.where(kmax2, dpy, dpz)
+        for val in ((a11 * c0 - a01 * c1) * invd, (a00 * c1 - a10 * c0) * invd):
+            val = torch.where(okd, val, 0.0)
+            duv.append(torch.where(torch.isfinite(val), val, 0.0))
+    kd = ewa_lookup(tex.pyr, s, t, duv[0] * rec.su, duv[1] * rec.sv, duv[2] * rec.su,
+                    duv[3] * rec.sv, live, work)
+    return kd * rec.scale
+
+
+def smooth_normal(row, ox, oy, oz, dx, dy, dz, ngx, ngy, ngz):
+    """The shading normal of a smooth mesh at the rows' hits: the winner's
+    barycentrics (`barycentrics`), its raw vertex normals (cols NRM_COL:
+    NRM_COL + 9) interpolated and normalised, ng where they sum to zero
+    (the JAX kernel's smooth branch)."""
+    b0, b1, b2 = barycentrics(row, ox, oy, oz, dx, dy, dz)
     n = row[:, NRM_COL:NRM_COL + 9]
     nx = b0 * n[:, 0] + b1 * n[:, 3] + b2 * n[:, 6]
     ny = b0 * n[:, 1] + b1 * n[:, 4] + b2 * n[:, 7]
@@ -1823,7 +2019,7 @@ def smooth_normal(row, ox, oy, oz, dx, dy, dz, ngx, ngy, ngz):
 
 
 def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, sampler, spec,
-                          work=None):
+                          work=None, fd=None):
     """The kernel's bounce loop (_bounce_loop) on flat (N,) rays: returns
     L (N, 3).  `active` (N,) bool marks the rays to trace.  With
     `packed.smooth` the shading normal ns is interpolated (smooth_normal;
@@ -1831,7 +2027,9 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
     transmit tests, the offsets and the etaScale entering test read ng's
     side; flat, ns is ng.  With `packed.bssrdf` a sample that chose the
     specular transmission lobe takes the subsurface branch
-    (subsurface_reference) before the roulette."""
+    (subsurface_reference) before the roulette.  With `packed.tex` a
+    textured row's lobe 0 takes its s0 from textured_kd_reference, at
+    bounce 0 over the differential rays `fd`."""
     dev = ox.device
     geom = PlainGeometry(packed, dev, work)
     spheres = None if packed.sph_table is None else PlainSpheres(packed.sph_table, dev, work)
@@ -1914,6 +2112,15 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
         px = ox + dx * t
         py = oy + dy * t
         pz = oz + dz * t
+
+        if packed.tex is not None:
+            # a textured row's one lambert lobe takes kd from the image
+            texed = active & (row[:, TEX0 + 9] > 0.0)
+            kd = textured_kd_reference(row, packed.tex, (ox, oy, oz, dx, dy, dz), (px, py, pz),
+                                       (ngx, ngy, ngz), (dux, duy, duz),
+                                       fd if bounce == 0 else None, texed, work)
+            row = row.clone()
+            row[:, 17:20] = torch.where(texed[:, None], kd, row[:, 17:20])
 
         ssx, ssy, ssz, tsx, tsy, tsz = shading_frame(nsx, nsy, nsz, dux, duy, duz)
 

@@ -20,7 +20,8 @@ and the Morton-sorted deposit (K10), one CUDA source
   every event its radius can reach; the kernel walks the range.
 
 Subset (`unsupported_feature`): triangles (brute force up to TRI_MAX,
-the BVH above), up to LIGHT_MAX point lights, no media, the path
+the BVH above), up to LIGHT_MAX point lights (a camera medium is ignored,
+as in the JAX package), the path
 kernel's lobes without Disney's (BASE_KINDS), max_depth 2..DEPTH_MAX.  The triangle
 table is pack_scene's, whose column 47 carries the material id; the VP's
 BSDF in the deposit comes from `resolve_mat_tables`, one row per
@@ -89,8 +90,6 @@ def unsupported_feature(scene, spec) -> Optional[str]:
     if not 2 <= spec.max_depth <= DEPTH_MAX:
         # max_depth 1 makes no deposit event (sppm.py:426-432)
         return f"max_depth {spec.max_depth} outside 2..{DEPTH_MAX}"
-    if scene.mediums:
-        return "participating media (Camera.medium) in SPPM"
     return pmk.scene_unsupported(scene, None, pmk.BASE_KINDS)
 
 

@@ -14,13 +14,16 @@ integrator picks the call: Path goes to the path kernel
 (`li_levels_mega_cam`), Volpath to the Volpath kernel
 (`li_volpath_mega_cam`); all take the scene packed by `pack_scene` (the
 Volpath kernel by `pack_volpath`, which adds the medium and the light
-distribution), for the in-kernel BVH above TRI_MAX triangles.
+distribution), for the in-kernel BVH above TRI_MAX triangles.  A textured
+scene in the path kernel's textured subset goes to its textured instance
+(an image texture's kd, K7's tap inside); outside it, and under every
+other integrator but AO, it raises naming the feature.
 
 AO, and Path on a scene outside the path kernel's subset that the
 wavefront loop takes (partial spheres, more than 8 spheres or lights,
 distant and triangle lights, more than one environment light, an
 environment light beside a specular lobe, a mesh above the kernel's
-65,536 triangles, Oren-Nayar matte, rough glass, Translucent, Mix and
+65,536 triangles, max_depth 0 or above 15, Oren-Nayar matte, rough glass, Translucent, Mix and
 thin or transmissive Disney materials, and a subsurface Disney material
 outside the path kernel's subsurface subset), render through the
 wavefront loop instead
@@ -174,18 +177,13 @@ WAVEFRONT = ("wavefront", None, None, None)
 
 def wavefront_unsupported(job, sampler):
     """The first feature of an AO or Path job outside the wavefront loop,
-    or None.  AO reads no light: it takes any scene of triangles and
-    spheres up to the BVH kernels' triangle limit, without media."""
+    or None.  AO reads no light, material or medium: it takes any scene
+    of triangles and spheres, of any size, textured or not."""
     if job.integrator.kind == "path":
         return wpath.unsupported_feature(job.scene, job.integrator, sampler)
-    scene = job.scene
-    if scene.mediums:
-        return "participating media (Camera.medium) outside Volpath"
     if isinstance(sampler, StratifiedSampler) and not (
             pmk._pow2(sampler.spp) and pmk._pow2(sampler.xs) and pmk._pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
-    if scene.triangles.count > bk.BVH_PRIM_MAX:
-        return f"{scene.triangles.count} triangles (the BVH kernels take up to {bk.BVH_PRIM_MAX})"
     return None
 
 
@@ -209,11 +207,14 @@ def select_kernel(job, sampler):
     else:
         reason = mod.unsupported_feature(job.scene, job.integrator, sampler)
     if reason is not None:
-        if kind == "path" and wavefront_unsupported(job, sampler) is None:
+        wreason = wavefront_unsupported(job, sampler) if kind == "path" else None
+        if kind == "path" and wreason is None:
             # loud fallback, as the JAX package's render.py:217-224
             print(f"rs_ray_toy_tpu_torch: scene outside the path-kernel subset ({reason})"
                   " — using the wavefront loop", file=sys.stderr)
             return WAVEFRONT
+        if wreason is not None and wreason != reason:
+            reason = f"{reason}; and the wavefront loop's: {wreason}"
         raise NotImplementedError(f"scene outside the {entry[0]}-kernel subset: {reason}")
     return entry
 

@@ -13,8 +13,10 @@ row (bench.py:103-111, 138-143); `write_grid_fog_scene` gives the fixture
 an n^3 GridDensity camera medium, the bench's `grid_fog` row.
 `write_wavefront_scene` gives a base scene what only the wavefront Path
 loop renders: a partial sphere, a distant light and a triangle-area light.
-`write_smooth_grid_scene` puts a grid of n smooth-shaded UV spheres
-(samples/sphere_smooth.obj, 960 triangles each) behind the fixture's
+`write_deep_bvh_scene` writes a mesh whose BVH is deeper than the
+kernels' 64-entry traversal stack.  `write_smooth_grid_scene` puts a grid
+of n smooth-shaded UV spheres (samples/sphere_smooth.obj, 960 triangles
+each) behind the fixture's
 cubes: n = 20 (19,236 triangles) renders Path through the path kernel's
 BVH instances, n = 80 (76,836) past its 65,536 triangles through the
 wavefront loop and the shaded BVH kernel's smooth instance.
@@ -29,6 +31,8 @@ import numpy as np
 
 SAMPLES = Path(__file__).resolve().parents[2] / "samples"
 FIXTURE = str(SAMPLES / "scene.json")
+TEXTURED = str(SAMPLES / "scene_textured.json")
+TEX_IMAGE = "tex_checker.png"  # the textured fixture's image
 SMOOTH_SPHERE = "sphere_smooth.obj"  # a 960-triangle UV sphere with vertex normals
 SPAN_Y, SPAN_Z = 6.0, 4.0  # extent of the grid, world units
 # the JAX bench's fog rows: the reference's default coefficients (sigma_t
@@ -46,13 +50,15 @@ FOG_AREA_LIGHT = {
 
 def _write(cfg, base, out_dir, name):
     """cfg as out_dir/name, with the base scene's cube.obj (and the fixture's
-    smooth sphere, when cfg names it) beside it."""
+    smooth sphere and texture image, when cfg names them) beside it."""
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(os.path.dirname(base), "cube.obj")
     if os.path.exists(src):
         shutil.copy(src, out_dir)
     if any(o.get("filename") == SMOOTH_SPHERE for o in cfg.get("objs", [])):
         shutil.copy(SAMPLES / SMOOTH_SPHERE, out_dir)
+    if any(t.get("filename") == TEX_IMAGE for t in cfg.get("rgb_texture", [])):
+        shutil.copy(SAMPLES / TEX_IMAGE, out_dir)
     path = os.path.join(out_dir, name)
     with open(path, "w") as fh:
         json.dump(cfg, fh)
@@ -88,12 +94,21 @@ def write_grid_scene(
     max_depth=5,
     xres=None,
     yres=None,
+    textured=False,
 ):
     """Write grid.json (+ cube.obj) under out_dir; returns the json path.
     ny*nz cube instances -> 12*ny*nz triangles of grid.  The base's
     Integrator block is kept when it names `integrator` (an SPPM base
-    keeps its radius and photon counts)."""
+    keeps its radius and photon counts).  With `textured` every cube is
+    in samples/scene_textured.json's mat_textured (kd from
+    tex_checker.png, copied beside it)."""
     cfg = _load(base, xres, yres)
+    if textured:
+        textured_cfg = _load(TEXTURED, None, None)
+        cfg["rgb_texture"] = textured_cfg["rgb_texture"]
+        cfg["materials"] = textured_cfg["materials"]
+        for prim in cfg["Aggregate"]["primitives"]:
+            prim["material_name"] = "mat_textured"
     old = cfg.get("Integrator") or {}
     keep = old if old.get("integrator_type") == integrator else {}
     cfg["Integrator"] = {**keep, "integrator_type": integrator, "max_depth": max_depth}
@@ -205,3 +220,37 @@ def write_smooth_grid_scene(out_dir, n=20, xres=None, yres=None):
                 "instances": insts,
             })
     return _write(cfg, FIXTURE, out_dir, "smooth_grid.json")
+
+
+def write_deep_bvh_scene(out_dir, integrator="AO", n_bulk=200, reach=30, seed=0, xres=None,
+                         yres=None):
+    """Write deep.json (+ deep.obj) under out_dir: the fixture's camera and
+    lights over one mesh whose SAH BVH is deep.  n_bulk small triangles
+    (0.2 units, facing the camera) at seeded points in a 2-unit cube around (35, 0, 0), and
+    `reach` lone triangles along each of the six axis directions from it at
+    13, 13^2, ..., 13^reach units: each is more than 12 times as far out as
+    the next, so a split of the 12-bucket SAH builder peels one of them off
+    at a time, and the tree is deep (reach 30: 97 levels over 380
+    triangles).  Returns the json path."""
+    rng = np.random.default_rng(seed)
+    centre = np.array([35.0, 0.0, 0.0])
+    pts = [centre + rng.uniform(-1.0, 1.0, (n_bulk, 3))]
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            far = np.zeros((reach, 3))
+            far[:, axis] = sign * 13.0 ** np.arange(1, reach + 1)
+            pts.append(centre + far)
+    p0 = np.concatenate(pts)
+    # facing the camera, which looks down +x
+    verts = np.concatenate([p0, p0 + [0.0, 0.2, 0.0], p0 + [0.05, 0.0, 0.2]])
+    n = p0.shape[0]
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "deep.obj"), "w") as fh:
+        fh.writelines(f"v {float(x)!r} {float(y)!r} {float(z)!r}\n" for x, y, z in verts)
+        fh.writelines(f"f {k + 1} {n + k + 1} {2 * n + k + 1}\n" for k in range(n))
+    cfg = _load(FIXTURE, xres, yres)
+    cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 5}
+    cfg["objs"] = [{"obj_name": "deep", "filename": "deep.obj"}]
+    cfg["Aggregate"]["primitives"] = [
+        {"primitive_type": "triangle", "obj_name": "deep", "material_name": "mat_matte"}]
+    return _write(cfg, FIXTURE, out_dir, "deep.json")

@@ -1,7 +1,11 @@
 """Scene JSON loader (rs_ray_toy_tpu/scene/loader.py), main-path subset.
 
 Parses the reference's scene schema with the same typed accessors and
-defaults (renderprocess.rs:136-252).  Ported: materials (matte, plastic,
+defaults (renderprocess.rs:136-252).  Ported: RGB ImageTextures in
+`rgb_texture` (a PNG decoded by scene/png.py, the sRGB curve undone, its
+MIPMap built; UV mapping, wrap, scale, gamma and max_aniso; an entry of
+an unknown type or whose image cannot be read is skipped, as in the JAX
+loader), materials (matte, its kd possibly such a texture, plastic,
 metal, mirror, glass, translucent, mix, Disney with its BSSRDF, debug),
 `objs`, triangle and sphere primitives with
 `instances` (spheres with their z / phi clips), point and distant lights,
@@ -29,6 +33,8 @@ from ..bsdf import recipes
 from ..bsdf.lobes import MaterialTableBuilder
 from ..core import spectrum
 from ..core.transform import Transform
+from . import mipmap, png
+from . import textures as tex
 from .objparser import parse_obj
 from .subsurface_presets import SUBSURFACE_PARAMETER_TABLE
 from ..core.sampling import Distribution2D
@@ -173,6 +179,8 @@ class SceneBundle:
     # file order (LightSoA.shape_index points here), then the
     # escape-only `infinite_lights` ones
     infinite: List[EnvLight] = field(default_factory=list)
+    # the image textures (materials' s0_tex index its records)
+    registry: tex.TextureRegistry = field(default_factory=tex.TextureRegistry)
 
 
 @dataclass
@@ -219,21 +227,13 @@ _COPPER_K = np.array([
 COPPER_N_RGB = spectrum.from_sampled_rgb(_COPPER_WAVELENGTHS, _COPPER_N)
 COPPER_K_RGB = spectrum.from_sampled_rgb(_COPPER_WAVELENGTHS, _COPPER_K)
 
-# schema features outside the ported slice: (section, what it names)
-_UNPORTED_SECTIONS = (
-    ("float_texture", "textures"),
-    ("rgb_texture", "textures"),
-)
-
-
 def load_scene(path: str) -> RenderJob:
     """Parse a scene JSON in the reference's schema (renderprocess.rs)."""
     root_dir = os.path.dirname(os.path.abspath(path))
     with open(path) as fh:
         cfg = json.load(fh)
-    for section, feature in _UNPORTED_SECTIONS:
-        if cfg.get(section):
-            raise NotImplementedError(f"{feature} (scene section '{section}')")
+    registry = tex.TextureRegistry()
+    rgb_tex = _make_textures(cfg, root_dir, registry)
 
     integrator = _make_integrator_spec(cfg.get("Integrator", {}))
     # smooth glass is one FresnelSpecular lobe only under Path and Volpath
@@ -244,7 +244,7 @@ def load_scene(path: str) -> RenderJob:
     mat_ids: Dict[str, int] = {}
     host_mats = {}  # MixMaterial names materials defined before it
     for mat_cfg in cfg.get("materials", []) or []:
-        hm = _make_material(mat_cfg, host_mats, allow_multiple_lobes)
+        hm = _make_material(mat_cfg, host_mats, allow_multiple_lobes, rgb_tex)
         if hm is not None:
             mat_ids[hm.name] = mat_builder.add(hm)
             host_mats[hm.name] = hm
@@ -266,6 +266,7 @@ def load_scene(path: str) -> RenderJob:
         materials=mat_builder.pack(),
         spheres=_pack_spheres(sphs),
         infinite=infinite,
+        registry=registry,
     )
     cam_medium = _parse_medium((cfg.get("Camera", {}) or {}).get("medium"))
     if cam_medium is not None:
@@ -280,19 +281,89 @@ def load_scene(path: str) -> RenderJob:
     )
 
 
+# ---- textures (renderprocess.rs:298-515) ----
+
+# the texture kinds the JAX package evaluates and the port does not, by section
+_UNPORTED_TEXTURES = {
+    "float_texture": ("MixTexture", "BilerpTexture", "CheckerBoardTexture", "ScaleTexture",
+                      "WindyTexture", "WrinkledTexture"),
+    "rgb_texture": ("MixTexture", "BilerpTexture", "CheckerBoardTexture", "ScaleTexture",
+                    "WindyTexture", "WrinkledTexture", "UVTexture"),
+}
+
+
+def _make_mapping(rec, cfg):
+    """The JAX loader's _make_mapping for the UV mapping (its quirk kept: a
+    mapping block defaults du and dv to 1); the other known mappings
+    raise, an unknown one is a ValueError as there."""
+    mcfg = cfg.get("mapping")
+    if not isinstance(mcfg, dict):
+        return
+    kind = read_string(mcfg, "mapping", "uv")
+    if kind == "uv":
+        rec.su = read_f64(mcfg, "su", 1.0)
+        rec.sv = read_f64(mcfg, "sv", 1.0)
+        rec.du = read_f64(mcfg, "du", 1.0)
+        rec.dv = read_f64(mcfg, "dv", 1.0)
+    elif kind in ("spherical", "cylindrical", "planar"):
+        raise NotImplementedError(f"{kind} texture mapping (ImageTexture)")
+    else:
+        raise ValueError(f"Unsupported mapping type {kind}")
+
+
+def _make_textures(cfg, root_dir, registry):
+    """The JAX loader's _make_textures for RGB ImageTextures: name ->
+    record id.  As there, an entry of an unknown texture_type, or whose
+    image cannot be read, is skipped; the kinds the JAX package evaluates
+    and the port does not, float textures, and trilinear filtering raise
+    NotImplementedError naming them."""
+    rgb_tex: Dict[str, int] = {}
+    for section in ("float_texture", "rgb_texture"):
+        for tcfg in cfg.get(section, []) or []:
+            ttype = read_string(tcfg, "texture_type", "")
+            name = read_string(tcfg, "texture_name", "DefaultTextureName")
+            if ttype == "CheckerBoardTexture" and read_i64(tcfg, "dimension", 2) not in (2, 3):
+                continue  # the JAX loader skips it
+            if ttype in _UNPORTED_TEXTURES[section]:
+                raise NotImplementedError(f"{ttype} textures ({section} {name!r})")
+            if section == "float_texture" or ttype != "ImageTexture":
+                continue  # unknown here: skipped, as in the JAX loader
+            rec = tex.TexRecord(kind=tex.TEX_IMAGE, is_rgb=True)
+            _make_mapping(rec, tcfg)
+            filename = os.path.join(root_dir, read_string(tcfg, "filename", "DefaultTexture"))
+            wrap = mipmap.WRAP_NAMES.get(read_string(tcfg, "wrap", "repeat"), mipmap.WRAP_REPEAT)
+            rec.scale = read_f64(tcfg, "scale", 1.0)
+            gamma = read_bool(tcfg, "gamma", filename.endswith("png"))
+            if read_bool(tcfg, "do_trilinear", False):
+                raise NotImplementedError(f"trilinear filtering (ImageTexture {name!r} "
+                                          "do_trilinear)")
+            try:
+                img = png.load_image(filename, gamma)
+            except OSError:
+                continue  # an unreadable image: skipped, as in the JAX loader
+            rec.image_id = registry.add_image(mipmap.build_mipmap(
+                img, wrap=wrap, do_trilinear=False,
+                max_aniso=read_f64(tcfg, "max_aniso", 8.0)))
+            rgb_tex[name] = registry.add(rec)
+    return rgb_tex
+
+
 # ---- materials (renderprocess.rs:664-871) ----
 
 
-def _rgb_param(cfg, key, default):
-    """Constant RGB parameter: number, [r, g, b] or {"values": [r, g, b]}.
-    A name falls back to the default, as an unknown texture name does in
-    the reference (renderprocess.rs:288-294); texture sections raise."""
+def _rgb_param(cfg, key, default, rgb_tex=None):
+    """RGB parameter: (constant, texture record id or -1).  A name of a
+    loaded RGB texture is that texture (its constant zeros); a number,
+    [r, g, b] or {"values": [r, g, b]} is a constant; anything else,
+    an unknown name among them, the default (renderprocess.rs:288-294)."""
     v = cfg.get(key)
+    if isinstance(v, str) and rgb_tex and v in rgb_tex:
+        return np.zeros(3), rgb_tex[v]
     if isinstance(v, dict) and "values" in v:
         v = v["values"]
     if isinstance(v, (int, float, list)):
-        return np.asarray(v, np.float64) * np.ones(3)
-    return np.asarray(default, np.float64) * np.ones(3)
+        return np.asarray(v, np.float64) * np.ones(3), -1
+    return np.asarray(default, np.float64) * np.ones(3), -1
 
 
 def _float_param(cfg, key, default):
@@ -302,14 +373,33 @@ def _float_param(cfg, key, default):
     return default
 
 
-def _make_material(cfg, host_mats, allow_multiple_lobes):
+def _make_material(cfg, host_mats, allow_multiple_lobes, rgb_tex=None):
+    """The material of `cfg`: a matte's kd may be a texture; another
+    textured RGB parameter is listed in the material's `textured` (its
+    constant zeros), which every renderer but AO refuses."""
+    hm = _make_material_lobes(cfg, host_mats, allow_multiple_lobes, rgb_tex)
+    mtype = read_string(cfg, "material_type", "")
+    if hm is not None and mtype != "MixMaterial":
+        hm.textured = tuple(f"{key} ({mtype})" for key in cfg
+                            if key not in _NOT_PARAMS and (key, mtype) != ("kd", "MatteMaterial")
+                            and _rgb_param(cfg, key, 0.0, rgb_tex)[1] >= 0)
+    return hm
+
+
+# material keys that name no RGB parameter (a bump map is a float texture,
+# and every float texture kind raises at load)
+_NOT_PARAMS = ("material_type", "material_name", "mat1", "mat2", "bump_map")
+
+
+def _make_material_lobes(cfg, host_mats, allow_multiple_lobes, rgb_tex):
     mtype = read_string(cfg, "material_type", "")
     name = read_string(cfg, "material_name", "DefaultMaterialName")
     remap = read_bool(cfg, "remap_roughness", False)
-    R = lambda key, d: _rgb_param(cfg, key, d)
+    R = lambda key, d: _rgb_param(cfg, key, d, rgb_tex)[0]
     F = lambda key, d: _float_param(cfg, key, d)
     if mtype == "MatteMaterial":
-        return recipes.matte(name, R("kd", 0.5), F("sigma", 0.0))
+        kd, kd_tex = _rgb_param(cfg, "kd", 0.5, rgb_tex)
+        return recipes.matte(name, kd, F("sigma", 0.0), kd_tex)
     if mtype == "PlasticMaterial":
         return recipes.plastic(name, R("kd", 0.25), R("ks", 0.25), F("roughness", 0.1), remap)
     if mtype == "MetalMaterial":

@@ -4,7 +4,8 @@ samples/scene_sphere_area.json, samples/scene_env.json,
 samples/scene_furnace.json, samples/scene_halton.json,
 samples/scene_smooth.json, samples/scene_disney.json,
 samples/scene_materials.json, samples/scene_sss.json,
-samples/scene_sss_mixed.json, samples/cube.obj and samples/sphere_smooth.obj.
+samples/scene_sss_mixed.json, samples/scene_textured.json, samples/cube.obj,
+samples/sphere_smooth.obj and samples/tex_checker.png.
 
 This fixture stands in for the reference renderer's `samples/scene.json`,
 which is not part of this repository.  It follows the reference's scene
@@ -85,6 +86,16 @@ the fixture's matte, and adds scene_sphere_area.json's sphere light:
 another material and a sphere light, which the path kernel's subsurface
 branch does not take, so Path renders it through the wavefront loop.
 
+scene_textured.json is the JAX bench's `textured` row (bench.py:57-61,
+249): scene.json with every cube in mat_textured, a MatteMaterial whose
+kd is the ImageTexture `s_01` (defaults: UV mapping, repeat wrap, EWA
+filtering, the sRGB curve undone), here on tex_checker.png: a 512x512
+RGB image, a checker of 4-texel squares (full and quarter brightness)
+over a colour gradient in 16-texel steps (red along x, green down the
+rows, blue against red), so that the EWA filter's level choice shows in
+the image.  It is written as write_png writes (8-bit RGB, filter 0
+rows, zlib level 6).
+
 The scene is synthetic.  In particular its `lens_data` is NOT the
 reference's lens prescription: it is the classic 50 mm f/2 double-Gauss
 (W. Tronnier, US patent 2,673,491, as tabulated in W. J. Smith, "Modern
@@ -100,6 +111,8 @@ anywhere; it writes next to itself:
 
 import json
 import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -433,6 +446,45 @@ def scene_sss():
     return cfg
 
 
+MAT_TEXTURED = {
+    "material_type": "MatteMaterial",
+    "material_name": "mat_textured",
+    "kd": "s_01",
+}
+TEX_SIZE = 512
+
+
+def tex_checker_png():
+    """The bytes of tex_checker.png (see the module docstring)."""
+    y, x = np.mgrid[0:TEX_SIZE, 0:TEX_SIZE]
+    step = lambda a: (a // 16) / (TEX_SIZE // 16 - 1)
+    rgb = np.stack([step(x), step(y), 1.0 - step(x)], axis=-1)
+    bright = np.where(((x // 4) + (y // 4)) % 2 == 0, 1.0, 0.25)
+    q = np.clip(255.0 * rgb * bright[..., None] + 0.5, 0.0, 255.0).astype(np.uint8)
+    raw = b"".join(b"\x00" + q[r].tobytes() for r in range(TEX_SIZE))
+
+    def chunk(tag, data):
+        body = tag + data
+        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
+
+    return (
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", TEX_SIZE, TEX_SIZE, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw, 6))
+        + chunk(b"IEND", b"")
+    )
+
+
+def scene_textured():
+    cfg = scene()
+    cfg["rgb_texture"] = [{"texture_type": "ImageTexture", "texture_name": "s_01",
+                           "filename": "tex_checker.png"}]
+    cfg["materials"].append(MAT_TEXTURED)
+    for prim in cfg["Aggregate"]["primitives"]:
+        prim["material_name"] = "mat_textured"
+    return cfg
+
+
 def scene_sss_mixed():
     cfg = scene_sss()
     cfg["Aggregate"]["primitives"][2]["material_name"] = "mat_matte"
@@ -445,6 +497,8 @@ def main(out_dir=HERE):
         fh.write(cube_obj())
     with open(os.path.join(out_dir, "sphere_smooth.obj"), "w") as fh:
         fh.write(uv_sphere_obj())
+    with open(os.path.join(out_dir, "tex_checker.png"), "wb") as fh:
+        fh.write(tex_checker_png())
     for name, cfg in (
         ("scene.json", scene()),
         ("scene_debug.json", scene_debug()),
@@ -460,6 +514,7 @@ def main(out_dir=HERE):
         ("scene_materials.json", scene_materials()),
         ("scene_sss.json", scene_sss()),
         ("scene_sss_mixed.json", scene_sss_mixed()),
+        ("scene_textured.json", scene_textured()),
     ):
         with open(os.path.join(out_dir, name), "w") as fh:
             json.dump(cfg, fh, indent=1)

@@ -29,6 +29,7 @@ from rs_ray_toy_tpu.ops.bvh_pallas import (
 )
 from rs_ray_toy_tpu.scene.loader import load_scene as jax_load_scene
 from rs_ray_toy_tpu.scene.types import empty_spheres
+from rs_ray_toy_tpu_torch.accel import bvh as bvh_mod
 from rs_ray_toy_tpu_torch.interop import from_jax_scene_ctx
 from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
 from rs_ray_toy_tpu_torch.scene.gen import write_grid_scene
@@ -119,13 +120,20 @@ def test_shaded_hit_matches_jax_kernel(grid):
 
 
 def test_a_bvh_deeper_than_the_stack_raises(grid, monkeypatch):
-    """The kernels' walk has a 64-entry stack and no slower walk behind it:
-    a deeper tree is refused while packing (here: a stack lowered below
-    the 6x6 grid's depth)."""
+    """The kernels' walk has a 64-entry stack, and deep instances with a
+    256-entry one, and no slower walk behind them: a tree too deep for
+    the deep stack is refused while packing, a tree too deep for the
+    first takes the deep instances (here: both stacks lowered around the
+    6x6 grid's depth)."""
     path, _, jtab = grid
     tri = load_scene(path).scene.triangles
-    monkeypatch.setattr(bk, "STACK_DEPTH", jtab["depth"])
+    monkeypatch.setattr(bvh_mod, "STACK_DEPTH", jtab["depth"])
+    monkeypatch.setattr(bvh_mod, "DEEP_STACK", jtab["depth"])
     with pytest.raises(NotImplementedError, match="traversal stack"):
         bk.pack_bvh(tri, "cpu")
-    monkeypatch.setattr(bk, "STACK_DEPTH", jtab["depth"] + 1)
-    assert bk.pack_bvh(tri, "cpu").depth == jtab["depth"]
+    monkeypatch.setattr(bvh_mod, "DEEP_STACK", jtab["depth"] + 1)
+    tables = bk.pack_bvh(tri, "cpu")
+    assert tables.depth == jtab["depth"] and tables.stack == jtab["depth"] + 1
+    monkeypatch.setattr(bvh_mod, "STACK_DEPTH", jtab["depth"] + 1)
+    monkeypatch.setattr(bvh_mod, "DEEP_STACK", jtab["depth"] + 5)
+    assert bk.pack_bvh(tri, "cpu").stack == jtab["depth"] + 1

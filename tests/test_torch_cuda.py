@@ -4,8 +4,9 @@ SPPM deposit, and the wavefront loop's intersection kernels K4 and K3;
 the path kernel's Halton and smooth instances and K3's smooth shaded
 instance; the Disney lobes in the path kernel, and the wavefront loop
 on the materials only it takes; the path kernel's subsurface instances
-and the wavefront loop's subsurface branch) against their plain PyTorch
-versions.
+and the wavefront loop's subsurface branch; K7, the EWA texture tap, and
+the path kernel's textured instances; K3's deep instances and a mesh past
+120,000 triangles) against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -30,6 +31,7 @@ from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
 from rs_ray_toy_tpu_torch.ops import intersect_kernel as ik
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
+from rs_ray_toy_tpu_torch.ops import texture as tex_ops
 from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
 from rs_ray_toy_tpu_torch.render import make_sampler, render_job, sample_batch
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
@@ -37,10 +39,13 @@ from rs_ray_toy_tpu_torch.scene.gen import (
     THIN_FOG,
     write_fog_scene,
     write_grid_fog_scene,
+    write_deep_bvh_scene,
     write_grid_scene,
     write_variant,
 )
+from rs_ray_toy_tpu_torch.scene import mipmap
 from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec, load_scene
+from rs_ray_toy_tpu_torch.scene.png import load_image
 
 SAMPLES = Path(__file__).resolve().parents[1] / "samples"
 pytestmark = pytest.mark.cuda
@@ -746,3 +751,127 @@ def test_subsurface_grid_wavefront_matches_cpu(tmp_path):
     assert int(lit.sum()) >= 1000
     _wide_bar(l.cpu(), l_ref)
     _wide_bar(l.cpu()[lit], l_ref[lit])
+
+
+@pytest.mark.parametrize("wrap", [mipmap.WRAP_REPEAT, mipmap.WRAP_BLACK, mipmap.WRAP_CLAMP])
+def test_texture_tap_matches_plain_version(wrap):
+    """K7 alone on 2^16 seeded lookups (anisotropic, clamped and
+    degenerate footprints) of the fixture's image: the same sums in the
+    same order as its plain version, within 1e-5 relative."""
+    dev = _device()
+    pyr = mipmap.pyramid(mipmap.build_mipmap(load_image(str(SAMPLES / "tex_checker.png"), True),
+                                             wrap=wrap), dev)
+    rng = np.random.default_rng(wrap)
+    n = 1 << 16
+    st = rng.uniform(-1.2, 2.2, (n, 2))
+    scale = 10 ** rng.uniform(-4.0, -0.5, (n, 1))
+    d0 = rng.normal(size=(n, 2)) * scale
+    d1 = rng.normal(size=(n, 2)) * scale * 10 ** rng.uniform(-2.0, 0.0, (n, 1))
+    d1[: n // 16] = 0.0
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    before = tex_ops.LAUNCHES["tex_lookup"]
+    out = tex_ops.tex_lookup(pyr, f(st), f(d0), f(d1))
+    torch.cuda.synchronize()
+    assert tex_ops.LAUNCHES["tex_lookup"] == before + 1
+    ref = tex_ops.tex_lookup_reference(pyr, f(st), f(d0), f(d1))
+    assert torch.isfinite(out).all()
+    assert float(((out - ref).abs() / ref.abs().clamp(min=1e-6)).max()) < 1e-5
+
+
+@pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
+def test_textured_path_instances_match_plain_versions(tmp_path, bvh):
+    """samples/scene_textured.json at 160x90x16 through the textured
+    camera instance (brute force, or the BVH instance), held to the
+    per-ray bar and over its lit rays to under 0.5% diverged."""
+    dev = _device()
+    cfg = json.loads((SAMPLES / "scene_textured.json").read_text())
+    cfg["Film"]["xres"], cfg["Film"]["yres"] = 160, 90
+    for aux in ("cube.obj", "tex_checker.png"):
+        shutil.copy(SAMPLES / aux, tmp_path)
+    (tmp_path / "scene.json").write_text(json.dumps(cfg))
+    job = load_scene(str(tmp_path / "scene.json"))
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, pupil_samples=1 << 16, device=dev))
+    sampler = StratifiedSampler(job.sampler)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    packed = pmk.pack_scene(job.scene, dev, bvh=bvh)
+    assert packed.tex is not None
+    args = (packed, cam, pxy, pid, soff, sampler, job.integrator)
+    name = pmk.kernel_name("path_mega_cam", bvh, tex=True)
+    before = pmk.LAUNCHES[name]
+    l, w = pmk.li_path_mega_cam(*args)
+    torch.cuda.synchronize()
+    assert pmk.LAUNCHES[name] == before + 1
+    l_ref, _ = pmk.li_path_mega_cam_reference(*args)
+    rel = (l - l_ref).abs() / l_ref.abs().clamp(min=1e-3)
+    diverged = rel.amax(-1) > 1e-3
+    lit = l_ref.amax(-1) > 0
+    assert int(lit.sum()) > 1000
+    assert float(diverged.float().mean()) < 5e-3
+    assert float(diverged[lit].float().mean()) < 5e-3
+    assert abs(float(l.mean()) - float(l_ref.mean())) < 1e-6 + 3e-3 * abs(float(l_ref.mean()))
+
+
+def test_textured_render_launches_once_per_pass(tmp_path, capsys):
+    dev = _device()
+    cfg = json.loads((SAMPLES / "scene_textured.json").read_text())
+    cfg["Film"]["xres"], cfg["Film"]["yres"] = 160, 90
+    for aux in ("cube.obj", "tex_checker.png"):
+        shutil.copy(SAMPLES / aux, tmp_path)
+    (tmp_path / "scene.json").write_text(json.dumps(cfg))
+    before = dict(pmk.LAUNCHES)
+    res = render_job(load_scene(str(tmp_path / "scene.json")), dev)
+    launched = {k: v - before[k] for k, v in pmk.LAUNCHES.items() if v != before[k]}
+    assert launched == {"path_mega_cam_tex": res["passes"]}
+    assert capsys.readouterr().err == ""
+    assert float(res["rgb_srgb_input"].max()) > 0
+
+
+@pytest.mark.parametrize("scene", ["deep", "grid112"])
+def test_bvh_kernels_past_the_old_limits(tmp_path, scene):
+    """K3's deep instances on a tree of 97 levels, and K3 on 150,552
+    triangles, against the plain walk on 2^16 seeded rays."""
+    dev = _device()
+    path = (write_deep_bvh_scene(str(tmp_path)) if scene == "deep"
+            else write_grid_scene(str(tmp_path), ny=112, nz=112))
+    tables = bk.pack_bvh(load_scene(path).scene.triangles, dev)
+    assert (tables.stack == bk.DEEP_STACK) == (scene == "deep")
+    rng = np.random.default_rng(9)
+    n = 1 << 16
+    aim = np.array([35.0, 0.0, 0.0]) + rng.uniform(-1.0, 1.0, (n, 3)) * np.array([1.0, 3.0, 2.0])
+    o = torch.zeros((n, 3), device=dev)
+    d = torch.as_tensor((aim / np.linalg.norm(aim, axis=-1, keepdims=True)).astype(np.float32),
+                        device=dev)
+    t_max = torch.full((n,), torch.inf, device=dev)
+    t, idx, valid = bk.intersect_bvh(tables, o, d, t_max)
+    t_r, idx_r, valid_r = bk.intersect_bvh_reference(tables, o, d, t_max)
+    assert torch.equal(valid, valid_r) and int(valid.sum()) > 1000
+    assert torch.equal(t[valid], t_r[valid])
+    assert torch.equal(bk.occluded_bvh(tables, o, d, t_max),
+                       bk.occluded_bvh_reference(tables, o, d, t_max))
+
+
+def test_materials_wavefront_card_matches_cpu_over_lit_rays():
+    """samples/scene_materials.json's wavefront li_path on the card against
+    the same on the CPU at 80x45x16: under 0.5% of the lit rays past 1e-3
+    relative.  Its spheres' 3-vector sums once took another order on the
+    card, which parted 2% of the lit rays (core/vec.sum3)."""
+    dev = _device()
+    from rs_ray_toy_tpu_torch.integrators.path import li_path
+    from rs_ray_toy_tpu_torch.render import camera_rays
+
+    job = load_scene(str(SAMPLES / "scene_materials.json"))
+    job.film.xres, job.film.yres = 80, 45
+    sampler = StratifiedSampler(job.sampler)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    l_card = li_path(SceneCtx.from_scene(job.scene, dev), o, d, w, sampler, pid, soff,
+                     job.integrator).cpu()
+    cpu = torch.device("cpu")
+    l_cpu = li_path(SceneCtx.from_scene(job.scene, cpu), o.cpu(), d.cpu(), w.cpu(), sampler,
+                    pid.cpu(), soff.cpu(), job.integrator)
+    rel = (l_card - l_cpu).abs() / l_cpu.abs().clamp(min=1e-3)
+    lit = l_cpu.amax(-1) > 0
+    assert int(lit.sum()) > 1000
+    assert float((rel.amax(-1)[lit] > 1e-3).float().mean()) < 5e-3
+

@@ -66,7 +66,7 @@ def test_fixture_is_what_make_samples_writes(tmp_path):
     mod.main(str(tmp_path))
     for name in ("scene.json", "scene_debug.json", "scene_fog.json", "scene_sppm.json",
                  "scene_ao.json", "scene_sphere_area.json", "scene_env.json",
-                 "scene_furnace.json", "cube.obj"):
+                 "scene_furnace.json", "scene_textured.json", "tex_checker.png", "cube.obj"):
         assert (tmp_path / name).read_bytes() == (SAMPLES / name).read_bytes()
 
 
@@ -194,8 +194,11 @@ UNSUPPORTED = {
     "medium_interface": _volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "grid media with lights other than point lights": _volpath(GRID_MEDIUM, FOG_AREA_LIGHT),
     "HaltonSampler": _halton_under("Debug"),
-    # AO renders through the wavefront loop, which takes no camera medium
-    "AO integrator": _volpath(integrator="AO"),
+    # AO renders through the wavefront loop, which takes a camera medium
+    # (ignored) but only power-of-two stratified grids
+    "AO integrator": lambda cfg: cfg.update(
+        Integrator={"integrator_type": "AO"},
+        Sampler={"sampler_type": "StratifiedSampler", "xsamp": 3, "ysamp": 3}),
     # a Disney material with a BSSRDF (non-zero scatter_distance, not thin)
     # under Debug, whose kernel has no subsurface branch
     "material type DisneyMaterial": _bssrdf_under("Debug"),

@@ -47,7 +47,7 @@ from rs_ray_toy_tpu_torch.integrators import sppm
 from rs_ray_toy_tpu_torch.interop import camera_from_jax, from_jax_sppm
 from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
 from rs_ray_toy_tpu_torch.render import make_sampler, select_kernel
-from rs_ray_toy_tpu_torch.scene.gen import FOG_AREA_LIGHT, THIN_FOG
+from rs_ray_toy_tpu_torch.scene.gen import FOG_AREA_LIGHT
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
 SAMPLES = Path(__file__).resolve().parents[1] / "samples"
@@ -335,7 +335,10 @@ def _sphere(cfg):
 UNSUPPORTED = {
     "sphere primitives": _sphere,
     "lights other than up to 8 point lights": _add("lights", None, FOG_AREA_LIGHT),
-    "participating media": _add("Camera", "medium", THIN_FOG),
+    # a camera medium is ignored, as in the JAX package; a primitive's
+    # medium_interface is refused at load
+    "participating media": lambda cfg: cfg["Aggregate"]["primitives"][0].update(
+        medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "max_depth 1 outside 2..15": _edit(max_depth=1),
     # the scene's HaltonSampler under Debug (Path, AO and SPPM take it)
     "HaltonSampler": _edit(integrator_type="Debug"),

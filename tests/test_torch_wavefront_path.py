@@ -119,19 +119,22 @@ def test_path_past_the_kernel_limit_renders_wavefront(tmp_path, monkeypatch, cap
 
 def test_scenes_outside_every_path_raise(tmp_path, monkeypatch):
     """Past the path kernel, a Path scene the wavefront loop does not take
-    either raises, naming the feature; AO does the same past the BVH
-    kernels' limit.  AO reads no light: a sphere light beside its scene
-    renders through the wavefront loop."""
+    either raises, naming both features (here a textured grid above a
+    lowered kernel limit: the loop evaluates no texture); AO takes any
+    number of triangles and textures, and raises on a stratified grid
+    that is not a power of two.  AO reads no light: a sphere light beside
+    its scene renders through the wavefront loop."""
     from rs_ray_toy_tpu_torch.render import WAVEFRONT, make_sampler, select_kernel
 
-    grid = write_grid_scene(str(tmp_path), ny=6, nz=6, xres=64, yres=36)
+    grid = write_grid_scene(str(tmp_path), ny=6, nz=6, xres=64, yres=36, textured=True)
     monkeypatch.setattr(pmk, "BVH_TRI_MAX", 400)
-    monkeypatch.setattr(bk, "BVH_PRIM_MAX", 450)
     job = load_scene(grid)
-    with pytest.raises(NotImplementedError, match="456 triangles"):
+    with pytest.raises(NotImplementedError, match="456 triangles.*textured kd"):
         select_kernel(job, make_sampler(job))
     job.integrator.kind = "ao"
-    with pytest.raises(NotImplementedError, match="AO integrator.*456 triangles"):
+    assert select_kernel(job, make_sampler(job)) == WAVEFRONT
+    job.sampler.xsamp = 3
+    with pytest.raises(NotImplementedError, match="AO integrator.*power of two"):
         select_kernel(job, make_sampler(job))
     cfg = json.loads((SAMPLES / "scene_ao.json").read_text())
     cfg["lights"].append({"light_type": "diffuse", "spectrum": {"values": [5.0, 5.0, 5.0]},
