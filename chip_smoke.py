@@ -192,8 +192,11 @@ Phase 12 textured Path and the repairs: (a) K7, the EWA texture tap, alone
          path kernel (the camera medium ignored), samples/scene.json at
          max_depth 20 through the wavefront loop (announced), a 112x112
          grid (150,552 triangles) under AO and Path over K3, and
-         write_deep_bvh_scene's tree of 97 levels under AO through K3's
-         deep instances, their shaded and any-hit walks held as 7b holds.
+         write_deep_bvh_scene's tree of 101 levels over 2,180 triangles
+         under Path, past the path kernel (announced) through K3's deep
+         instances, their shaded and any-hit walks held as 7b holds on
+         2^17 seeded rays aimed at the tree (the plain version on an
+         eighth, at least 1,000 hits each).
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
@@ -237,7 +240,8 @@ operations of their f and pdf beyond those 3 ("disney_ops",
 ops/path_megakernel.DISNEY_OPS, counted from common.cuh: f / pdf 41 / 10
 diffuse, 50 / 10 retro, 47 / 10 sheen, 81 / 62 clearcoat with log10f as
 16, 201 / 100 microfacet with the Disney fresnel), the textured taps'
-weighed texels (10 each) and the differential rays' lens traces (the
+weighed texels (10 each) and the two differential rays' lens traces of
+each ray whose first hit is textured, the only rays that read them (the
 fixture's lens: 110, 94 for each of its 10 refracting surfaces and 15
 at its stop, counted from common.cuh's raygen_u) that the plain version
 counts on the same inputs, scaled by the batch over the subset where it ran on a
@@ -1985,8 +1989,8 @@ def materials_phase(record, kernels, card, dev):
     # version) on the same camera rays, at 80x45x16: the bar of 7d
     bar = card_vs_cpu(SCENE_MATERIALS, 80, 45, dev, "10d")
     # with the 3-vector sums taken in one order on both devices, what
-    # still parts card from CPU here starts at atan2's last bits (python -m
-    # rs_ray_toy_tpu_torch.divergence): the lit rays' share is held
+    # still parts card from CPU here starts at atan2's last bits (PERF.md
+    # section 7): the lit rays' share is held
     check_lit(bar, "10d", same_rays=False)
     record["phase10d"] = dict(launches=counts, colored=colored, camera_rays=res["camera_rays"],
                               render_mrays_per_s=res["mrays_per_s"],
@@ -2288,31 +2292,54 @@ def repairs_phase(record, card, dev):
                                              "12e", ("bvh_shaded", "bvh_any"))
     job = load_scene(big_path)
     check(job.scene.triangles.count > 120_000, "12e: the 112x112 grid")
-    # a BVH of 64 levels or more: K3's deep instances under AO, each held
-    deep = write_deep_bvh_scene(str(OUT / "deep_bvh"), xres=160, yres=90)
-    res_deep, _, counts_deep = drive_wavefront(deep, OUT / "chip_smoke_deep_bvh.png",
-                                               {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
-    ctx, batches = first_pass_batches(load_scene(deep), dev, 8)
+    # a BVH of 64 levels or more over more triangles than K1's brute force:
+    # Path past K1 (announced) through K3's deep instances, each held on
+    # seeded rays aimed at the tree's bulk
+    deep = write_deep_bvh_scene(str(OUT / "deep_bvh"), integrator="Path", n_bulk=2000,
+                                xres=160, yres=90)
+    res_deep, _, counts_deep = drive_announced(deep, OUT / "chip_smoke_deep_bvh.png", "12e",
+                                               ("bvh_shaded", "bvh_any"))
+    deep_job = load_scene(deep)
+    check(deep_job.scene.triangles.count > pmk.TRI_MAX, "12e: the deep tree's triangles")
+    ctx = SceneCtx.from_scene(deep_job.scene, dev)
     check(ctx.bvh.stack == bk.DEEP_STACK, f"12e: a tree of depth {ctx.bvh.depth}")
-    deep_shaded = hold_query("shaded", ctx, batches["shaded"])
-    deep_any = hold_query("any", ctx, batches["occluded"])
+    aimed = aimed_rays(1 << 17, (35.0, 0.0, 0.0), 1.0, dev)
+    deep_shaded = hold_query("shaded", ctx, aimed, stride=8)
+    deep_any = hold_query("any", ctx, aimed, stride=8)
+    check(min(deep_shaded["hits"], deep_any["hits"]) >= 1000, "12e: deep holds under 1,000 hits")
     record["phase12e"] = dict(
         fog_path=dict(launches=launches, colored=colored, **fog_held),
         depth20=dict(launches=counts20, colored=colored20, mrays_per_s=res20["mrays_per_s"]),
         grid112_ao=dict(triangles=job.scene.triangles.count, launches=counts_ao,
                         mrays_per_s=res_ao["mrays_per_s"]),
         grid112_path=dict(launches=counts_big, mrays_per_s=res_big["mrays_per_s"]),
-        deep=dict(depth=ctx.bvh.depth, launches=counts_deep, shaded=deep_shaded,
-                  any_hit=deep_any),
+        deep=dict(depth=ctx.bvh.depth, triangles=deep_job.scene.triangles.count,
+                  launches=counts_deep, mrays_per_s=res_deep["mrays_per_s"],
+                  shaded=deep_shaded, any_hit=deep_any),
         phase_s=time.perf_counter() - t0)
     print(f"phase 12e: repairs: fog under Path through K1 {launches} launch(es), {colored} "
           f"coloured px, kernel vs plain diverged {fog_held['diverged']:.2e}; the fixture at "
           f"max_depth 20 through the wavefront loop, launches {launched(counts20)}; "
           f"{job.scene.triangles.count} triangles under AO {launched(counts_ao)} and Path "
-          f"{launched(counts_big)}; a BVH of depth {ctx.bvh.depth} under AO "
-          f"{launched(counts_deep)}, K3-shaded deep {deep_shaded['ms']:.3f} ms (hits "
-          f"{deep_shaded['hits']}), K3 any deep {deep_any['ms']:.3f} ms, each held to its plain "
-          f"version; {time.perf_counter() - t0:.1f} s [{card}]")
+          f"{launched(counts_big)}; a BVH of depth {ctx.bvh.depth} over "
+          f"{deep_job.scene.triangles.count} triangles under Path {launched(counts_deep)}, on "
+          f"{deep_shaded['rays']} aimed rays K3-shaded deep {deep_shaded['ms']:.3f} ms (bound "
+          f"{deep_shaded['bound_ms']:.4f} by {deep_shaded['bound_by']}, plain "
+          f"{deep_shaded['plain_ms']:.1f} ms on {deep_shaded['plain_rays']}, "
+          f"{deep_shaded['hits']} hits), K3 any deep {deep_any['ms']:.3f} ms (bound "
+          f"{deep_any['bound_ms']:.4f} by {deep_any['bound_by']}, plain {deep_any['plain_ms']:.1f} "
+          f"ms, {deep_any['hits']} hits), each held to its plain version; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def aimed_rays(n, target, spread, dev, seed=9):
+    """n seeded rays from the origin at points within `spread` of `target`
+    on each axis, unbounded: (o, d, t_max) on `dev`."""
+    rng = np.random.default_rng(seed)
+    aim = np.asarray(target) + rng.uniform(-spread, spread, (n, 3))
+    d = (aim / np.linalg.norm(aim, axis=-1, keepdims=True)).astype(np.float32)
+    return (torch.zeros((n, 3), device=dev), torch.as_tensor(d, device=dev),
+            torch.full((n,), torch.inf, device=dev))
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -40,7 +40,7 @@ def sum3(v):
     """v[..., 0] + v[..., 1] + v[..., 2], left to right on every device: a
     torch sum over the last axis associates its terms one way on the CPU
     and another on a card, and a last-bit difference can grow into a
-    different path (python -m rs_ray_toy_tpu_torch.divergence)."""
+    different path."""
     return v[..., 0] + v[..., 1] + v[..., 2]
 
 

@@ -344,8 +344,10 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     spheres and lights.  A used material with a BSSRDF only with `path`
     (within _bssrdf_unsupported's subset, and specular transmission only
     there) or `wavefront`.  Textured materials only within the path
-    kernel's textured subset (_texture_unsupported).  Returns the first
-    feature outside them, or None."""
+    kernel's textured subset (_texture_unsupported).  Above TRI_MAX
+    triangles, but in the wavefront loop, a BVH the kernels' stack holds
+    (_depth_unsupported).  Returns the first feature outside them, or
+    None."""
     if isinstance(sampler, HaltonSampler):
         if not (path or wavefront):
             return "HaltonSampler"
@@ -398,7 +400,20 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     reason = _texture_unsupported(scene, sampler, used, path)
     if reason is not None:
         return reason
-    return _light_unsupported(scene, volpath, path, wavefront, spec_live)
+    reason = _light_unsupported(scene, volpath, path, wavefront, spec_live)
+    if reason is None and not wavefront and tri.count > TRI_MAX:
+        reason = _depth_unsupported(tri)
+    return reason
+
+
+def _depth_unsupported(tri):
+    """The depth of the BVH pack_scene builds over more than TRI_MAX
+    triangles when the kernels' STACK_DEPTH-entry traversal stack cannot
+    hold it (the wavefront loop's deep instances can), else None."""
+    depth = tree_depth(build_bvh(tri, BVH_LEAF))
+    if depth >= STACK_DEPTH:
+        return f"a BVH of depth {depth} (the kernels' traversal stack holds {STACK_DEPTH})"
+    return None
 
 
 def textured_lobes(mats, used):
@@ -1681,7 +1696,8 @@ def li_path_mega_cam_reference(
     evaluations ("lobe") that the kernel performs on these inputs, and
     under a HaltonSampler the slot values it reads ("slot") (0-d
     tensors); a textured scene also the texels its taps weigh ("texel")
-    and its differential rays' lens traces ("fd_ray")."""
+    and the lens traces of the differential rays that a textured hit at
+    bounce 0 reads ("fd_ray")."""
     dev = pixel_xy.device
     n = pixel_xy.shape[0]
     pid = pixel_id.to(torch.int64)
@@ -1693,7 +1709,6 @@ def li_path_mega_cam_reference(
     fd = None
     if packed.tex is not None:
         fd = raygen_differentials(pixel_xy, pid, sid, sampler, cam_packed, ray[:6])
-        tally(work, "fd_ray", torch.full_like(pid, 2))
     L = bounce_loop_reference(packed, *ray[:6], weight > 0.0, pid, sid, sampler, spec, work, fd)
     return L, weight
 
@@ -2116,6 +2131,8 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
         if packed.tex is not None:
             # a textured row's one lambert lobe takes kd from the image
             texed = active & (row[:, TEX0 + 9] > 0.0)
+            if fd is not None and bounce == 0:
+                tally(work, "fd_ray", 2 * texed)
             kd = textured_kd_reference(row, packed.tex, (ox, oy, oz, dx, dy, dz), (px, py, pz),
                                        (ngx, ngy, ngz), (dux, duy, duz),
                                        fd if bounce == 0 else None, texed, work)

@@ -18,7 +18,9 @@ glossy bounces diverge between any two implementations (ROADMAP Queue 3),
 which over lit rays alone is the whole 0.5% bar.
 - Past 120,000 triangles, and a BVH of 64 levels or more: the BVH
   kernels' plain walk (the deep instances' stack for the deep tree) held
-  to a brute-force closest hit on 512 seeded rays.
+  to a brute-force closest hit on 512 seeded rays; such a tree over more
+  than the path kernel's brute-force bound of triangles sends Path to the
+  wavefront loop and makes Debug raise, each naming the depth.
 """
 
 import json
@@ -234,3 +236,27 @@ def test_bvh_deeper_than_the_stack(tmp_path):
     assert select_kernel(job, make_sampler(job)) == WAVEFRONT
     o, d = _seeded_rays(512, np.array([35.0, 0.0, 0.0]), np.array([1.0, 1.0, 1.0]), 3)
     _closest_vs_brute(tri, tables, o, d)
+
+
+@pytest.mark.parametrize("integ", ["Path", "Debug"])
+def test_deep_bvh_past_the_brute_force_bound(tmp_path, capsys, integ):
+    """A tree of 64 levels or more over more than TRI_MAX triangles, the
+    path kernel's BVH range: its 64-entry stack cannot walk it, so Path
+    goes to the wavefront loop (announced, naming the depth) and renders
+    there over the deep instances' walk; Debug, which has no such loop,
+    raises naming the depth."""
+    path = write_deep_bvh_scene(str(tmp_path), integrator=integ, n_bulk=2000, xres=32, yres=18)
+    job = load_scene(path)
+    assert job.scene.triangles.count > pmk.TRI_MAX
+    sampler = make_sampler(job)
+    if integ == "Debug":
+        with pytest.raises(NotImplementedError, match="a BVH of depth"):
+            select_kernel(job, sampler)
+        return
+    assert select_kernel(job, sampler) == WAVEFRONT
+    assert "a BVH of depth" in capsys.readouterr().err
+    assert bk.pack_bvh(job.scene.triangles, "cpu").stack == DEEP_STACK
+    res = render_job(job, "cpu", spp_override=1, pupil_samples=PUPIL_SAMPLES)
+    assert res["render_path"] == "wavefront"
+    img = res["rgb_srgb_input"]
+    assert bool(torch.isfinite(img).all()) and float(img.max()) > 0
