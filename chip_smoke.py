@@ -197,12 +197,39 @@ Phase 12 textured Path and the repairs: (a) K7, the EWA texture tap, alone
          instances, their shaded and any-hit walks held as 7b holds on
          2^17 seeded rays aimed at the tree (the plain version on an
          eighth, at least 1,000 hits each).
+Phase 13 Debug and DirectLighting past the direct kernel, and the rays-in
+         kernels #6, #8 and #10: (a) samples/scene_materials.json under
+         Debug with its rough glass made smooth (both specular children
+         live: four tree levels, eight rays a camera ray at the deepest,
+         traced in chunks of camera rays) and samples/scene_sphere_area.json
+         under DirectLighting ("all"), each written into build/chip_smoke/
+         and rendered at 640x360x16 through deploy_render: announced on
+         stderr, K4 alone, its launches per pass, coloured pixels, first
+         and warm camera Mrays/s and the peak device memory; the wavefront
+         li_levels on the card against the same on the CPU on a seeded
+         64th of one pass's camera rays, at the per-ray bar (at least
+         1,000 lit rays); (b) the DirectLighting white furnace ("one",
+         max_depth 2) on 2^20 rays about samples/scene_furnace.json's
+         sphere (no triangle: no kernel launch): mean 0.5 within 0.0115,
+         escaped rays 1 within 1e-6; (c)
+         the direct kernel's rays-in instances #6 on the host-traced camera
+         rays (render.camera_rays) of one pass of samples/scene_debug.json
+         and of the Debug grid over the BVH, (d) the Volpath kernel's #8 on
+         those of samples/scene_fog.json and of the fog grid over the BVH
+         (640x360x8), (e) the SPPM camera walk's #10 on the first
+         iteration's camera rays of samples/scene_sppm.json and of phase
+         6c's grid, its slot matrix filled on the host from the render's
+         Halton sampler (equal to K8's); each launched once with the counts
+         at 0, held to its plain version at the per-ray bar on a seeded
+         subset (#10 on every pixel, VP valid and material equal on 99.5%),
+         and its output against the camera instance's on the same samples
+         reported (rays apart, relative mean difference).
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
 loop) and none of the others.  Every phase
 prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the 40 kernels (K7's entry names
+second-to-last line is a JSON record of the 46 kernels (K7's entry names
 the textured instance it runs inside, whose launches it carries, and its
 launches alone in 12a), the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
@@ -222,7 +249,8 @@ the pyramid once, or the texels the taps weigh (12 bytes each) where
 they are fewer; of each sphere row its 13 intersect columns, 12 of
 object-to-world, 2 of lobe count and eta and 16 per lobe.  A rays-in
 instance moves per ray its origin, direction, weight, pixel id and sample
-index in (36 bytes) and L out (12).  Under a HaltonSampler an instance
+index in (36 bytes) and L out (12); the SPPM walk's rays-in instance its
+origin, direction and weight in (28 bytes) and ld and the VP record out.  Under a HaltonSampler an instance
 reads no pixel id or sample index but the values of the slot matrix
 (SLOT_BYTES each) that the plain version counts as read ("slot"): the
 film and lens values of every camera ray, and per vertex reached the
@@ -291,6 +319,7 @@ from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.integrators import sppm
 from rs_ray_toy_tpu_torch.integrators.ao import li_ao
 from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
+from rs_ray_toy_tpu_torch.integrators.direct import li_levels
 from rs_ray_toy_tpu_torch.integrators.path import li_path
 from rs_ray_toy_tpu_torch.ops import _build
 from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
@@ -402,6 +431,17 @@ KERNELS["path_mega_cam_tex"] = dict(source=PATH_SRC,
 KERNELS["path_mega_cam_bvh_tex"] = dict(source=PATH_SRC,
                                         replaces="rs_ray_toy_tpu/ops/path_megakernel.py:3843")
 KERNELS["tex_lookup"] = dict(source=TEX_SRC, replaces="rs_ray_toy_tpu/ops/tex_tile.py:211")
+# the rays-in instances of the direct, Volpath and SPPM camera kernels (phase 13)
+KERNELS["direct_mega"] = dict(source=DIRECT_SRC,
+                              replaces="rs_ray_toy_tpu/ops/direct_megakernel.py:573")
+KERNELS["direct_mega_bvh"] = dict(source=DIRECT_SRC,
+                                  replaces="rs_ray_toy_tpu/ops/direct_megakernel.py:594")
+KERNELS["volpath_mega"] = dict(source=VOLPATH_SRC,
+                               replaces="rs_ray_toy_tpu/ops/volpath_megakernel.py:986")
+KERNELS["volpath_mega_bvh"] = dict(source=VOLPATH_SRC,
+                                   replaces="rs_ray_toy_tpu/ops/volpath_megakernel.py:1015")
+KERNELS["sppm_camera_mega"] = dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:437")
+KERNELS["sppm_camera_mega_bvh"] = dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:461")
 # FP32 operations per counted test, density tap or walked deposit pair
 FLOPS = {"mt": 45, "slab": 27, "sph": 30, "lobe": 3, "track": 40, "pair": 9, "disney_ops": 1,
          "texel": 10, "fd_ray": 110 + 94 * 10 + 15}
@@ -418,6 +458,7 @@ RAYS_IN_BYTES = 12 + 12 + 4 + 4 + 4 + 12  # o, d, weight, pixel id, sample index
 SPH_ROW_COLS = 13 + 12 + 2  # w2o rows and radius; o2w rows; lobe count and eta
 SLOT_BYTES = 4  # a sampler value the plain version counts as read ("slot")
 SPPM_CAM_BYTES = 8 + 12 + 5 * 12 + 4 + 4  # pixel_xy in; ld, the VP record, mat, valid out
+SPPM_RAYS_BYTES = SPPM_CAM_BYTES - 8 + 12 + 12 + 4  # o, d, weight in instead of pixel_xy
 SPPM_PHOTON_BYTES = 4 + 2 * (36 + 4)  # the flag in; two events out
 PHOTON_RAY_BYTES = 36  # an active photon's ray and power in
 VP_BYTES = 8 + 12 + 4  # every VP: its range in; phi, M out
@@ -865,6 +906,10 @@ def main():
     # ---- phase 12: textured Path (K7 inside the path kernel); the repairs ----
     texture_phase(record, kernels, card, dev)
     repairs_phase(record, card, dev)
+
+    # ---- phase 13: Debug / DirectLighting past K2; the rays-in kernels ----
+    direct_wavefront_phase(record, card, dev)
+    rays_in_phase(record, kernels, card, dev)
 
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
@@ -2340,6 +2385,253 @@ def aimed_rays(n, target, spread, dev, seed=9):
     d = (aim / np.linalg.norm(aim, axis=-1, keepdims=True)).astype(np.float32)
     return (torch.zeros((n, 3), device=dev), torch.as_tensor(d, device=dev),
             torch.full((n,), torch.inf, device=dev))
+
+# ---- phase 13: Debug / DirectLighting through the wavefront loop; #6, #8, #10 ----
+
+
+def integrator_variant(base, out_dir, integrator, edit=None, **block):
+    """`base` (its meshes beside it) under `integrator` with `block` in
+    its Integrator block, and `edit` applied to the config, written into
+    out_dir."""
+    path = write_variant(str(base), str(out_dir))
+    cfg = json.loads(Path(path).read_text())
+    cfg["Integrator"] = {**cfg["Integrator"], "integrator_type": integrator, **block}
+    if edit is not None:
+        edit(cfg)
+    Path(path).write_text(json.dumps(cfg))
+    return path
+
+
+def smooth_glass(cfg):
+    """The materials fixture's rough glass made smooth: specular reflect and
+    transmit lobes, so that both children of the Debug tree stay live."""
+    for mat in cfg["materials"]:
+        if mat["material_name"] == "mat_rough_glass":
+            mat["u_roughness"] = mat["v_roughness"] = 0.0
+
+
+def levels_card_vs_cpu(job, dev, stride, tag):
+    """The wavefront li_levels on the card against the same on the CPU, on
+    a seeded 1/`stride` of one pass's camera rays: the per-ray bar (under
+    0.5% past 1e-3 relative, means within 3e-3) on at least 1,000 lit rays,
+    the shares over the lit rays reported."""
+    sampler = make_sampler(job)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+    n = pxy.shape[0]
+    sub = torch.randperm(n, generator=torch.Generator().manual_seed(stride))[: n // stride]
+    sub = sub.sort().values.to(dev)
+    o, d, w = camera_rays(cam, sampler, pxy[sub], pid[sub], soff[sub])
+    args = (o, d, w, sampler, pid[sub], soff[sub], job.integrator)
+    l_card = li_levels(SceneCtx.from_scene(job.scene, dev), *args)
+    torch.cuda.synchronize()
+    cpu = torch.device("cpu")
+    t_cpu = time.perf_counter()
+    l_cpu = li_levels(SceneCtx.from_scene(job.scene, cpu), *(
+        a.cpu() if torch.is_tensor(a) else a for a in args))
+    cpu_s = time.perf_counter() - t_cpu
+    l_card, l_cpu = l_card.cpu().double(), l_cpu.double()
+    rel = (l_card - l_cpu).abs() / l_cpu.abs().clamp(min=1e-3)
+    bar = dict(rays=int(l_cpu.shape[0]), diverged=float((rel.amax(-1) > 1e-3).double().mean()),
+               q99=q99(rel), max_abs_err=float((l_card - l_cpu).abs().max()),
+               mean=float(l_card.mean()), mean_ref=float(l_cpu.mean()), cpu_s=cpu_s,
+               **lit_stats(rel, l_cpu))
+    check(bar["lit"] >= 1000, f"{tag}: {bar['lit']} lit rays")
+    check(bar["diverged"] < 5e-3, f"{tag}: {bar['diverged']:.2%} of rays diverged")
+    check(abs(bar["mean"] - bar["mean_ref"]) < 1e-6 + 3e-3 * abs(bar["mean_ref"]),
+          f"{tag}: means {bar['mean']:.6g} vs {bar['mean_ref']:.6g}")
+    return bar
+
+
+def direct_wavefront_phase(record, card, dev):
+    """Phase 13a, 13b (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    for step, tag, base, integrator, edit, block, stride in (
+        ("13a", "materials_debug", SCENE_MATERIALS, "Debug", smooth_glass, {}, 64),
+        ("13a", "sphere_area_direct", SCENE_SPHERE_AREA, "DirectLighting", None,
+         {"light_strategy": "all"}, 64),
+    ):
+        t1 = time.perf_counter()
+        scene = integrator_variant(base, OUT / tag, integrator, edit, **block)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, colored, counts = drive_announced(scene, OUT / f"chip_smoke_{tag}.png", step)
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(res["fused_kernel"] is None, f"{tag}: {res['fused_kernel']}")
+        job = load_scene(scene)
+        warm = render_job(job, dev)["mrays_per_s"]
+        bar = levels_card_vs_cpu(job, dev, stride, tag)
+        out[tag] = dict(passes=res["passes"], launches=counts, colored=colored,
+                        first_mrays_per_s=res["mrays_per_s"], warm_mrays_per_s=warm,
+                        peak_bytes=peak, card_vs_cpu=bar, phase_s=time.perf_counter() - t1)
+        print(f"phase {step}: {integrator}, {Path(base).name} 640x360x16 through the wavefront "
+              f"loop (announced): {res['passes']} pass(es), launches {launched(counts)}, "
+              f"{colored} coloured px, first {res['mrays_per_s']:.2f} / warm {warm:.2f} camera "
+              f"Mrays/s, peak {peak / 2**30:.2f} GiB; li_levels on the card vs the CPU on "
+              f"1/{stride} of a pass: {card_cpu_line(bar)}, mean {bar['mean']:.6g} vs "
+              f"{bar['mean_ref']:.6g} (CPU {bar['cpu_s']:.1f} s); "
+              f"{time.perf_counter() - t1:.1f} s [{card}]")
+    # 13b: the DirectLighting white furnace on the card
+    job = load_scene(integrator_variant(SCENE_FURNACE, OUT / "furnace_direct", "DirectLighting",
+                                        light_strategy="one", max_depth=2))
+    o, d, w, pid, sid, sampler = furnace_rays(job, 1 << 20, dev)
+    ctx = SceneCtx.from_scene(job.scene, dev)
+    zero_counts()
+    lit = li_levels(ctx, o, d, w, sampler, pid, sid, job.integrator)
+    esc = li_levels(ctx, o, -d, w, sampler, pid, sid, job.integrator)
+    counts = all_counts()
+    mean = lit.double().mean(0)
+    esc_err = float((esc - 1.0).abs().max())
+    check(bool(((mean - 0.5).abs() < 0.0115).all()), f"13b: furnace mean {mean.tolist()}")
+    check(esc_err <= 1e-6, f"13b: escaped rays off 1 by {esc_err:.3g}")
+    # a sphere alone: the loop's sphere tests are plain torch, no kernel runs
+    check(sum(counts.values()) == 0, f"13b: launches {launched(counts)}")
+    out["furnace"] = dict(rays=int(o.shape[0]), mean=mean.tolist(), escape_err=esc_err)
+    out["phase_s"] = time.perf_counter() - t0
+    record["phase13ab"] = out
+    print(f"phase 13b: DirectLighting white furnace, {o.shape[0]} rays through the wavefront "
+          f"li_levels on the card: mean {', '.join(f'{m:.6f}' for m in mean.tolist())} (0.5 "
+          f"within 0.0115), escaped rays 1 within {esc_err:.2e}; phase 13a-b "
+          f"{out['phase_s']:.1f} s [{card}]")
+
+
+def given_rays(job, dev):
+    """One pass's camera rays of `job`, traced on the host (render.camera_rays):
+    (o, d, weight, pixel_id, s_idx, sampler, pixel_xy)."""
+    sampler = make_sampler(job)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    return o, d, w, pid, soff, sampler, pxy
+
+
+def hold_rays_in(job, packed, rays, stride, dev, fns, name):
+    """A rays-in kernel (fns: its wrapper, plain version, prepare and the
+    camera instance's wrapper) against its plain version on `rays`, counts at 0
+    before its main launch; also its output against the camera instance's
+    on the same samples.  Returns the measured numbers."""
+    fn, ref, prepare, cam_fn = fns
+    o, d, w, pid, sid, sampler, pxy = rays
+    args = (packed, o, d, w, pid, sid, sampler, job.integrator)
+    zero_counts()
+    l = fn(*args)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts[name] == 1 and sum(counts.values()) == 1, f"{name} launches {counts}")
+    n = o.shape[0]
+    sub = torch.randperm(n, generator=torch.Generator().manual_seed(stride))[: n // stride]
+    sub = sub.sort().values.to(dev)
+    work = {}
+    sub_args = (packed, o[sub], d[sub], w[sub], pid[sub], sid[sub], sampler, job.integrator)
+    l_ref, plain_ms = timed_once(lambda: ref(*sub_args, work=work))
+    bar = per_ray_bar(l[sub], l_ref)
+    max_abs_err = float((l[sub] - l_ref).abs().max())
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+    l_cam, _ = cam_fn(packed, cam, pxy, pid, sid, sampler, job.integrator)
+    vs_cam = agreement(l, l_cam)
+    del l, l_ref, l_cam
+    ms = timed_ms(prepare(*args), reps=10)
+    scale = n / sub.numel()
+    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=RAYS_IN_BYTES)
+    return dict(rays=n, plain_rays=int(sub.numel()), bvh=packed.bvh is not None,
+                launches=counts[name], max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, vs_camera=vs_cam,
+                work={k: float(v) * scale for k, v in work.items()}, **bar)
+
+
+def hold_sppm_rays_in(job, dev, name):
+    """#10 on the first SPPM iteration's host-traced camera rays (its
+    Halton slot matrix's film and lens values): against its plain version
+    on every pixel (ld at the per-ray bar, VP valid and material equal on
+    99.5%), and against the camera walk K8 on the same slots."""
+    depth = job.integrator.max_depth
+    packed, cam, pxy, u = sppm_inputs(job, dev)
+    sampler = make_sampler(job)
+    n = pxy.shape[0]
+    pid = (pxy[:, 1] * job.film.xres + pxy[:, 0]).to(torch.int64)
+    ox, oy, oz, dx, dy, dz, w = pmk._raygen(pxy[:, 0], pxy[:, 1], None, None,
+                                            smk.SlotSampler(u, depth), cam)
+    o, d = torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)
+    zero_counts()
+    ld, vp = smk.sppm_camera_mega(packed, o, d, w, pid, 0, sampler, depth)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts[name] == 1 and sum(counts.values()) == 1, f"{name} launches {counts}")
+    u_rays = smk.slot_values(sampler, pid, 0, depth)
+    check(torch.equal(u_rays, u), "10: the rays-in slot matrix differs from the camera walk's")
+    work = {}
+    (ld_ref, vp_ref), plain_ms = timed_once(
+        lambda: smk.sppm_camera_mega_reference(packed, o, d, w, u_rays, depth, work=work))
+    bar = per_ray_bar(ld, ld_ref)
+    valid_eq = float((vp.valid == vp_ref.valid).double().mean())
+    both = vp.valid & vp_ref.valid
+    mat_eq = float((vp.mat[both] == vp_ref.mat[both]).double().mean())
+    check(valid_eq >= 0.995 and mat_eq >= 0.995, f"10: VP valid {valid_eq}, material {mat_eq}")
+    ld_cam, vp_cam = smk.sppm_camera_mega_cam(packed, cam, pxy, u, depth)
+    vs_cam = agreement(ld, ld_cam)
+    ms = timed_ms(smk.prepare_camera_rays(packed, o, d, w, u_rays, depth), reps=10)
+    bound_ms, bound_by = bound(work, 1.0, n, packed, SPPM_RAYS_BYTES)
+    return dict(rays=n, plain_rays=n, bvh=packed.bvh is not None, launches=counts[name],
+                max_abs_err=float((ld - ld_ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, valid_equal=valid_eq, mat_equal=mat_eq,
+                vs_camera=vs_cam,
+                vp_valid_vs_camera=float((vp.valid == vp_cam.valid).double().mean()),
+                work={k: float(v) for k, v in work.items()}, **bar)
+
+
+def rays_in_phase(record, kernels, card, dev):
+    """Phase 13c-e (see the module docstring)."""
+    t0 = time.perf_counter()
+    grid_debug = write_grid_scene(str(OUT / "grid_debug13"), base=str(SCENE_DEBUG),
+                                  integrator="Debug", max_depth=4)
+    grid_fog = write_grid_scene(str(OUT / "grid_volpath13"), base=str(SCENE_FOG),
+                                integrator="Volpath")
+    direct_fns = (dmk.li_levels_mega, dmk.li_levels_mega_reference, dmk.prepare_rays_launch,
+                  dmk.li_levels_mega_cam)
+    vol_fns = (vmk.li_volpath_mega, vmk.li_volpath_mega_reference, vmk.prepare_rays_launch,
+               vmk.li_volpath_mega_cam)
+    for step, tag, scene, name, fns, pack, spp, stride in (
+        ("13c", "debug", SCENE_DEBUG, "direct_mega", direct_fns, pmk.pack_scene, None, 4),
+        ("13c", "grid_debug", grid_debug, "direct_mega_bvh", direct_fns, pmk.pack_scene, None,
+         16),
+        ("13d", "fog", SCENE_FOG, "volpath_mega", vol_fns, vmk.pack_volpath, None, 4),
+        ("13d", "grid_fog_bvh", grid_fog, "volpath_mega_bvh", vol_fns, vmk.pack_volpath, 8, 8),
+    ):
+        t1 = time.perf_counter()
+        job = load_scene(str(scene))
+        if spp == 8:
+            job.sampler.xsamp, job.sampler.ysamp = 2, 4
+        packed = pack(job.scene, dev)
+        check((packed.bvh is not None) == name.endswith("_bvh"), f"{tag}: BVH {packed.bvh}")
+        held = hold_rays_in(job, packed, given_rays(job, dev), stride, dev, fns, name)
+        add_entry(kernels, name, held["launches"], held)
+        record[f"phase{step}_{tag}"] = dict(phase_s=time.perf_counter() - t1, **held)
+        print(f"phase {step}: {name} on {tag}'s host-traced camera rays: "
+              + rays_in_line(held, t1, card))
+    for tag, scene, name in (
+        ("sppm", SCENE_SPPM, "sppm_camera_mega"),
+        ("grid_sppm_bvh", OUT / "grid_sppm" / "grid.json", "sppm_camera_mega_bvh"),
+    ):
+        t1 = time.perf_counter()
+        held = hold_sppm_rays_in(load_scene(str(scene)), dev, name)
+        add_entry(kernels, name, held["launches"], held)
+        record[f"phase13e_{tag}"] = dict(phase_s=time.perf_counter() - t1, **held)
+        print(f"phase 13e: {name} on {tag}'s first iteration's camera rays: VP valid equal "
+              f"{held['valid_equal']:.4f} (vs K8 {held['vp_valid_vs_camera']:.4f}); "
+              + rays_in_line(held, t1, card))
+    record["phase13_rays_in_s"] = time.perf_counter() - t0
+
+
+def rays_in_line(held, t0, card):
+    return (f"{held['launches']} launch on {held['rays']} rays; kernel {held['ms']:.3f} ms, bound "
+            f"{held['bound_ms']:.4f} ms by {held['bound_by']} "
+            f"({held['bound_ms'] / held['ms']:.1%}), plain {held['plain_ms']:.1f} ms over "
+            f"{held['plain_rays']} rays, diverged {held['diverged']:.2e}, q99 {held['q99']:.2e} "
+            f"({held['lit']} lit: {held['lit_diverged']:.2e}), mean {held['mean']:.6g} vs "
+            f"{held['mean_ref']:.6g}, max_abs_err {held['max_abs_err']:.3g}; against the camera "
+            f"instance (diverged, relative mean difference) {held['vs_camera']}; "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -18,7 +18,9 @@ transmission, Oren-Nayar, visible-normal Trowbridge-Reitz reflection and
 transmission (joint or Disney's separable Smith G), specular reflection
 and transmission, fresnel specular, and the Disney diffuse, fake subsurface, retro,
 sheen, clearcoat and microfacet lobes (disney.rs, with the reference's
-log10 in GTR1 and its clearcoat sample form); a kind the rows do not
+log10 in GTR1 and its clearcoat sample form), and the Debug material's
+two (debug_material.rs: constant f (0, 1, 0) diffuse and (0, 0, 1)
+"specular", both cosine sampled, the second flagged specular); a kind the rows do not
 hold costs nothing (`_has`).  Flags follow reflection.rs:
 BxDF::match_flags and the geometric-normal reflect / transmit gate of
 Bsdf::f.
@@ -36,6 +38,8 @@ from .lobes import (
     FRESNEL_CONDUCTOR,
     FRESNEL_DIELECTRIC,
     FRESNEL_DISNEY,
+    LOBE_DEBUG_DIFFUSE,
+    LOBE_DEBUG_SPECULAR,
     LOBE_DISNEY_CLEARCOAT,
     LOBE_DISNEY_DIFFUSE,
     LOBE_DISNEY_FAKE_SS,
@@ -75,6 +79,8 @@ LOBE_FLAGS = {
     LOBE_DISNEY_SHEEN: BXDF_DIFFUSE | BXDF_REFLECTION,
     LOBE_DISNEY_CLEARCOAT: BXDF_GLOSSY | BXDF_REFLECTION,
     LOBE_DISNEY_MICROFACET_REFL: BXDF_GLOSSY | BXDF_REFLECTION,
+    LOBE_DEBUG_DIFFUSE: BXDF_DIFFUSE | BXDF_REFLECTION,
+    LOBE_DEBUG_SPECULAR: BXDF_SPECULAR | BXDF_REFLECTION,
 }
 _FLAG_TABLE = [LOBE_FLAGS.get(k, 0) for k in range(32)]
 # the microfacet reflection kinds: Trowbridge-Reitz D, visible-normal sampled
@@ -348,6 +354,12 @@ def _lobe_f(lob, wox, woy, woz, wix, wiy, wiz):
     is_mt, any_mt = _has(kind, LOBE_MF_TRANS)
     if any_mt:
         put(is_mt, _mf_trans_f(lob, kind, wox, woy, woz, wix, wiy, wiz))
+    # the Debug material's constants (debug_material.rs:26-28): even its
+    # "specular" lobe returns a nonzero f
+    for dbg_kind, c in ((LOBE_DEBUG_DIFFUSE, 1), (LOBE_DEBUG_SPECULAR, 2)):
+        is_dbg, any_dbg = _has(kind, dbg_kind)
+        if any_dbg:
+            put(is_dbg, [torch.full_like(wox, float(k == c)) for k in range(3)])
     return _scaled(lob, out)
 
 

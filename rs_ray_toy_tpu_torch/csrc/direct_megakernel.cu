@@ -1,10 +1,11 @@
 // Debug / DirectLighting sample pass for Hopper (sm_90a): one thread per
-// camera ray.
+// camera ray (kRaysIn false) or per given ray (kRaysIn true).
 //
 // Replaces the TPU kernels rs_ray_toy_tpu/ops/direct_megakernel.py ·
 // _kernel_cam (brute force, pallas_call in _run_cam for T <= 2048) and
 // _kernel_bvh_cam (the in-kernel BVH, up to 65,536 triangles): _raygen, then
-// _chain_loop, the reference's recursive specular tree (intersect_debug.rs,
+// _chain_loop; and, on given rays (o, d, weight), _kernel and _kernel_bvh
+// (pallas_call in _run, li_levels_mega): _chain_loop alone, the reference's recursive specular tree (intersect_debug.rs,
 // directlighting.rs, integrator/mod.rs:150-301).  At every tree node: the
 // closest hit, the Debug integrator's flat 0.1 base, point-light NEE (every
 // light once, or one light picked by a 1-D sample) with an any-hit
@@ -26,7 +27,8 @@
 // FP32 ALU work (Moller-Trumbore, slab tests, lobes) over small read-only
 // tables; 20 bytes in and 16 bytes out per ray.  Geometry as in
 // common.cuh: staged in shared memory for brute force, a per-ray BVH stack
-// walk otherwise.
+// walk otherwise.  Given rays add 28 bytes in (o, d, weight) and write no
+// weight.
 
 #include "common.cuh"
 
@@ -68,13 +70,14 @@ __device__ bool select_matching(const float* row, int n_lob, int a, int b, Lobe&
   return has;
 }
 
-template <bool kBvh>
+template <bool kBvh, bool kRaysIn>
 __global__ void __launch_bounds__(BLOCK)
-    direct_mega_cam_kernel(const float* __restrict__ table, int n_tris,
-                           const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
-                           const float* __restrict__ pixel_xy, const int* __restrict__ pid,
-                           const int* __restrict__ sid, float* __restrict__ out_l,
-                           float* __restrict__ out_w, int n, const __grid_constant__ Params p) {
+    direct_mega_kernel(const float* __restrict__ table, int n_tris,
+                       const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                       const float* __restrict__ in_a, const float* __restrict__ in_d,
+                       const float* __restrict__ in_w, const int* __restrict__ pid,
+                       const int* __restrict__ sid, float* __restrict__ out_l,
+                       float* __restrict__ out_w, int n, const __grid_constant__ Params p) {
   extern __shared__ float s_geo[];
   const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -82,7 +85,14 @@ __global__ void __launch_bounds__(BLOCK)
   const Sampler smp{(uint32_t)pid[i], (uint32_t)sid[i], &p};
 
   float ox, oy, oz, dx, dy, dz, weight;
-  raygen(p, smp, pixel_xy[2 * i], pixel_xy[2 * i + 1], ox, oy, oz, dx, dy, dz, weight);
+  if constexpr (kRaysIn) {
+    // a given ray's origin is the caller's, offset or not
+    ox = in_a[3 * i], oy = in_a[3 * i + 1], oz = in_a[3 * i + 2];
+    dx = in_d[3 * i], dy = in_d[3 * i + 1], dz = in_d[3 * i + 2];
+    weight = in_w[i];
+  } else {
+    raygen(p, smp, in_a[2 * i], in_a[2 * i + 1], ox, oy, oz, dx, dy, dz, weight);
+  }
 
   float Lr = 0.0f, Lg = 0.0f, Lb = 0.0f;
   Frame stack[DEPTH_MAX];
@@ -257,7 +267,34 @@ __global__ void __launch_bounds__(BLOCK)
   out_l[3 * i + 0] = Lr;
   out_l[3 * i + 1] = Lg;
   out_l[3 * i + 2] = Lb;
-  out_w[i] = weight;
+  if constexpr (!kRaysIn) out_w[i] = weight;
+}
+
+template <bool kRaysIn>
+int launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
+           const Params* params, const float* in_a, const float* in_d, const float* in_w,
+           const int* pid, const int* sid, float* out_l, float* out_w, int n, void* stream) {
+  cudaGetLastError();  // clear any stale error of this runtime
+  if (n <= 0) return 0;
+  if (params->max_depth < 1 || params->max_depth > DEPTH_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nodes_f != nullptr) {
+    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
+      return (int)cudaErrorInvalidValue;
+    direct_mega_kernel<true, kRaysIn><<<grid, BLOCK, 0, st>>>(
+        table, n_tris, nodes_f, nodes_i, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params);
+    return (int)cudaGetLastError();
+  }
+  if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(direct_mega_kernel<false, kRaysIn>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
+  direct_mega_kernel<false, kRaysIn><<<grid, BLOCK, smem, st>>>(
+      table, n_tris, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -271,27 +308,17 @@ int direct_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
                            const int* nodes_i, const Params* params, const float* pixel_xy,
                            const int* pid, const int* sid, float* out_l, float* out_w, int n,
                            void* stream) {
-  cudaGetLastError();  // clear any stale error of this runtime
-  if (n <= 0) return 0;
-  if (params->max_depth < 1 || params->max_depth > DEPTH_MAX) return (int)cudaErrorInvalidValue;
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nodes_f != nullptr) {
-    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
-      return (int)cudaErrorInvalidValue;
-    direct_mega_cam_kernel<true><<<grid, BLOCK, 0, st>>>(
-        table, n_tris, nodes_f, nodes_i, pixel_xy, pid, sid, out_l, out_w, n, *params);
-    return (int)cudaGetLastError();
-  }
-  if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
-  const cudaError_t attr = cudaFuncSetAttribute(direct_mega_cam_kernel<false>,
-                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                (int)SMEM_MAX);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  direct_mega_cam_kernel<false><<<grid, BLOCK, smem, st>>>(
-      table, n_tris, nullptr, nullptr, pixel_xy, pid, sid, out_l, out_w, n, *params);
-  return (int)cudaGetLastError();
+  return launch<false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr, nullptr, pid,
+                       sid, out_l, out_w, n, stream);
+}
+
+// The same on given rays: o, d (n, 3) and weight (n,); out_l only.
+int direct_mega_rays_launch(const float* table, int n_tris, const float* nodes_f,
+                            const int* nodes_i, const Params* params, const float* o,
+                            const float* d, const float* weight, const int* pid, const int* sid,
+                            float* out_l, int n, void* stream) {
+  return launch<true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid, out_l,
+                      nullptr, n, stream);
 }
 
 const char* direct_mega_cam_error_string(int err) {

@@ -3,8 +3,10 @@
 // K8, sppm_camera_kernel, one thread per pixel: replaces the TPU kernels
 // rs_ray_toy_tpu/ops/sppm_megakernel.py · _kernel_cam (brute force,
 // pallas_call in _run_cam for T <= 2048) and _kernel_bvh_cam (the in-kernel
-// BVH), both running _camera_loop.  The lens trace (raygen_u) from the film
-// and lens slots, then per depth the closest hit, one point light picked
+// BVH), both running _camera_loop, and (kRaysIn, on given rays o, d, weight:
+// sppm_camera_mega) _kernel and _kernel_bvh (pallas_call in _run).  The lens
+// trace (raygen_u) from the film and lens slots, or the given ray, then per
+// depth the closest hit, one point light picked
 // uniformly and its NEE with an any-hit shadow ray (scale cos * n_lights /
 // dist^2), the visible point (VP) at the first vertex with a diffuse lobe or
 // a glossy vertex at the last depth (beta before the bounce), else a BSDF
@@ -59,11 +61,12 @@ __device__ __forceinline__ float luminance(float r, float g, float b) {
 
 // ---- K8: the camera walk ----
 
-template <bool kBvh>
+template <bool kBvh, bool kRaysIn>
 __global__ void __launch_bounds__(BLOCK)
     sppm_camera_kernel(const float* __restrict__ table, int n_tris,
                        const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
-                       const float* __restrict__ pixel_xy, const float* __restrict__ u,
+                       const float* __restrict__ in_a, const float* __restrict__ in_d,
+                       const float* __restrict__ in_w, const float* __restrict__ u,
                        float* __restrict__ out_ld, float* __restrict__ out_p,
                        float* __restrict__ out_wo, float* __restrict__ out_beta,
                        float* __restrict__ out_ng, float* __restrict__ out_dpdu,
@@ -73,13 +76,20 @@ __global__ void __launch_bounds__(BLOCK)
   const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  // slot matrix rows: film (0, 1), lens (2, 3), then per depth the light
-  // pick, and but at the last depth the BSDF pair and the roulette
+  // slot matrix rows: film (0, 1), lens (2, 3; unread on given rays), then
+  // per depth the light pick, and but at the last depth the BSDF pair and
+  // the roulette
   auto uv = [&](int row) { return u[(size_t)row * n + i]; };
 
   float ox, oy, oz, dx, dy, dz, weight;
-  raygen_u(p, uv(0), uv(1), uv(2), uv(3), pixel_xy[2 * i], pixel_xy[2 * i + 1], ox, oy, oz, dx,
-           dy, dz, weight);
+  if constexpr (kRaysIn) {
+    ox = in_a[3 * i], oy = in_a[3 * i + 1], oz = in_a[3 * i + 2];
+    dx = in_d[3 * i], dy = in_d[3 * i + 1], dz = in_d[3 * i + 2];
+    weight = in_w[i];
+  } else {
+    raygen_u(p, uv(0), uv(1), uv(2), uv(3), in_a[2 * i], in_a[2 * i + 1], ox, oy, oz, dx, dy, dz,
+             weight);
+  }
 
   bool active = weight > 0.0f;
   float br = active ? weight : 0.0f, bg = br, bb = br;
@@ -339,6 +349,35 @@ int check_table(int n_tris, const float* nodes_f, const int* nodes_i) {
   return (n_tris <= 0 || n_tris > TRI_MAX) ? (int)cudaErrorInvalidValue : 0;
 }
 
+template <bool kRaysIn>
+int launch_camera(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
+                  const Params* params, const float* in_a, const float* in_d, const float* in_w,
+                  const float* u, int n_u, float* out_ld, float* out_p, float* out_wo,
+                  float* out_beta, float* out_ng, float* out_dpdu, int* out_mat, int* out_valid,
+                  int n, void* stream) {
+  cudaGetLastError();  // clear any stale error of this runtime
+  if (n <= 0) return 0;
+  if (params->n_lights < 1 || params->n_lights > LIGHT_MAX || params->max_depth < 1 ||
+      n_u != 4 * params->max_depth + 1)
+    return (int)cudaErrorInvalidValue;
+  if (const int bad = check_table(n_tris, nodes_f, nodes_i)) return bad;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nodes_f != nullptr) {
+    sppm_camera_kernel<true, kRaysIn><<<grid, BLOCK, 0, st>>>(
+        table, n_tris, nodes_f, nodes_i, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
+        out_ng, out_dpdu, out_mat, out_valid, n, *params);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t attr = allow_table_smem(sppm_camera_kernel<false, kRaysIn>);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
+  sppm_camera_kernel<false, kRaysIn><<<grid, BLOCK, smem, st>>>(
+      table, n_tris, nullptr, nullptr, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
+      out_ng, out_dpdu, out_mat, out_valid, n, *params);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -352,27 +391,22 @@ int sppm_camera_launch(const float* table, int n_tris, const float* nodes_f, con
                        const Params* params, const float* pixel_xy, const float* u, int n_u,
                        float* out_ld, float* out_p, float* out_wo, float* out_beta, float* out_ng,
                        float* out_dpdu, int* out_mat, int* out_valid, int n, void* stream) {
-  cudaGetLastError();  // clear any stale error of this runtime
-  if (n <= 0) return 0;
-  if (params->n_lights < 1 || params->n_lights > LIGHT_MAX || params->max_depth < 1 ||
-      n_u != 4 * params->max_depth + 1)
-    return (int)cudaErrorInvalidValue;
-  if (const int bad = check_table(n_tris, nodes_f, nodes_i)) return bad;
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nodes_f != nullptr) {
-    sppm_camera_kernel<true><<<grid, BLOCK, 0, st>>>(table, n_tris, nodes_f, nodes_i, pixel_xy, u,
-                                                     out_ld, out_p, out_wo, out_beta, out_ng,
-                                                     out_dpdu, out_mat, out_valid, n, *params);
-    return (int)cudaGetLastError();
-  }
-  const cudaError_t attr = allow_table_smem(sppm_camera_kernel<false>);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  sppm_camera_kernel<false><<<grid, BLOCK, smem, st>>>(table, n_tris, nullptr, nullptr, pixel_xy,
-                                                       u, out_ld, out_p, out_wo, out_beta, out_ng,
-                                                       out_dpdu, out_mat, out_valid, n, *params);
-  return (int)cudaGetLastError();
+  return launch_camera<false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr, nullptr,
+                              u, n_u, out_ld, out_p, out_wo, out_beta, out_ng, out_dpdu, out_mat,
+                              out_valid, n, stream);
+}
+
+// K8 on given rays: o, d (n, 3) and weight (n,); u as above (its film and
+// lens rows unread)
+int sppm_camera_rays_launch(const float* table, int n_tris, const float* nodes_f,
+                            const int* nodes_i, const Params* params, const float* o,
+                            const float* d, const float* weight, const float* u, int n_u,
+                            float* out_ld, float* out_p, float* out_wo, float* out_beta,
+                            float* out_ng, float* out_dpdu, int* out_mat, int* out_valid, int n,
+                            void* stream) {
+  return launch_camera<true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, u, n_u,
+                             out_ld, out_p, out_wo, out_beta, out_ng, out_dpdu, out_mat,
+                             out_valid, n, stream);
 }
 
 // K9 over n photons; u is the (3 * (max_depth - 1), n) bounce / roulette

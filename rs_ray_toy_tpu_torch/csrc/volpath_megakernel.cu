@@ -1,9 +1,12 @@
-// Volpath-integrator sample pass for Hopper (sm_90a): one thread per camera ray.
+// Volpath-integrator sample pass for Hopper (sm_90a): one thread per camera ray
+// (kRaysIn false) or per given ray (kRaysIn true).
 //
 // Replaces the TPU kernels rs_ray_toy_tpu/ops/volpath_megakernel.py ·
 // _kernel_vol_cam (brute force, pallas_call in _run_vol_cam for T <= 2048) and
-// _kernel_vol_bvh_cam (the in-kernel BVH, up to 65,536 triangles), both
-// running _vol_bounce_loop, on their subset: one camera medium (homogeneous or
+// _kernel_vol_bvh_cam (the in-kernel BVH, up to 65,536 triangles), and on given
+// rays (o, d, weight; li_volpath_mega, every ray starting in the camera medium)
+// _kernel_vol and _kernel_vol_bvh (pallas_call in _run_vol), all running
+// _vol_bounce_loop, on their subset: one camera medium (homogeneous or
 // a density grid) with no per-primitive interfaces, triangles, the path
 // kernel's lobes, point lights and, in homogeneous media, diffuse sphere
 // lights.  Per ray: the sampler hash for every slot it consumes, the lens trace
@@ -26,7 +29,8 @@
 // logf / expf, trilinear density taps) over read-only tables: the staged
 // triangle columns, the BVH nodes, and a float32 density grid of nz*ny*nx
 // values (16 KB at 16^3) read through the read-only cache.  It moves 20 bytes
-// in and 16 out per ray: latency- and occupancy-bound, not bandwidth-bound.
+// in and 16 out per ray (given rays: 36 in, 12 out): latency- and
+// occupancy-bound, not bandwidth-bound.
 // The design is the path kernel's (path_megakernel.cu): each thread walks its
 // own ray to termination, triangles staged in shared memory up to TRI_MAX or
 // walked in the BVH above, constants in __grid_constant__ parameter blocks.
@@ -219,15 +223,15 @@ __device__ float ratio_track(const VolParams& v, const float* __restrict__ dens,
 
 // ---- one sample pass per thread ----
 
-template <bool kBvh>
+template <bool kBvh, bool kRaysIn>
 __global__ void __launch_bounds__(BLOCK)
-    volpath_mega_cam_kernel(const float* __restrict__ table, int n_tris,
-                            const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
-                            const float* __restrict__ pixel_xy, const int* __restrict__ pid,
-                            const int* __restrict__ sid, float* __restrict__ out_l,
-                            float* __restrict__ out_w, int n, const __grid_constant__ Params p,
-                            const __grid_constant__ VolParams v,
-                            const float* __restrict__ density) {
+    volpath_mega_kernel(const float* __restrict__ table, int n_tris,
+                        const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                        const float* __restrict__ in_a, const float* __restrict__ in_d,
+                        const float* __restrict__ in_w, const int* __restrict__ pid,
+                        const int* __restrict__ sid, float* __restrict__ out_l,
+                        float* __restrict__ out_w, int n, const __grid_constant__ Params p,
+                        const __grid_constant__ VolParams v, const float* __restrict__ density) {
   extern __shared__ float s_geo[];
   const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -235,7 +239,13 @@ __global__ void __launch_bounds__(BLOCK)
   const Sampler smp{(uint32_t)pid[i], (uint32_t)sid[i], &p};
 
   float ox, oy, oz, dx, dy, dz, weight;
-  raygen(p, smp, pixel_xy[2 * i], pixel_xy[2 * i + 1], ox, oy, oz, dx, dy, dz, weight);
+  if constexpr (kRaysIn) {
+    ox = in_a[3 * i], oy = in_a[3 * i + 1], oz = in_a[3 * i + 2];
+    dx = in_d[3 * i], dy = in_d[3 * i + 1], dz = in_d[3 * i + 2];
+    weight = in_w[i];
+  } else {
+    raygen(p, smp, in_a[2 * i], in_a[2 * i + 1], ox, oy, oz, dx, dy, dz, weight);
+  }
 
   float Lr = 0.0f, Lg = 0.0f, Lb = 0.0f;
   float br = 1.0f, bg = 1.0f, bb = 1.0f;
@@ -463,7 +473,40 @@ __global__ void __launch_bounds__(BLOCK)
   out_l[3 * i + 0] = Lr;
   out_l[3 * i + 1] = Lg;
   out_l[3 * i + 2] = Lb;
-  out_w[i] = weight;
+  if constexpr (!kRaysIn) out_w[i] = weight;
+}
+
+template <bool kRaysIn>
+int launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
+           const Params* params, const float* in_a, const float* in_d, const float* in_w,
+           const int* pid, const int* sid, float* out_l, float* out_w, int n, void* stream,
+           const VolParams* vol, const float* density) {
+  cudaGetLastError();  // clear any stale error of this runtime
+  if (n <= 0) return 0;
+  if (params->n_lights < 1 || params->n_lights > LIGHT_MAX) return (int)cudaErrorInvalidValue;
+  if (vol->grid && (density == nullptr || vol->nx < 1 || vol->ny < 1 || vol->nz < 1))
+    return (int)cudaErrorInvalidValue;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nodes_f != nullptr) {
+    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
+      return (int)cudaErrorInvalidValue;
+    volpath_mega_kernel<true, kRaysIn><<<grid, BLOCK, 0, st>>>(
+        table, n_tris, nodes_f, nodes_i, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params,
+        *vol, density);
+    return (int)cudaGetLastError();
+  }
+  if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
+  // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
+  const cudaError_t attr =
+      cudaFuncSetAttribute(volpath_mega_kernel<false, kRaysIn>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
+  volpath_mega_kernel<false, kRaysIn><<<grid, BLOCK, smem, st>>>(
+      table, n_tris, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params,
+      *vol, density);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -478,31 +521,19 @@ int volpath_mega_cam_launch(const float* table, int n_tris, const float* nodes_f
                             const int* nodes_i, const Params* params, const float* pixel_xy,
                             const int* pid, const int* sid, float* out_l, float* out_w, int n,
                             void* stream, const VolParams* vol, const float* density) {
-  cudaGetLastError();  // clear any stale error of this runtime
-  if (n <= 0) return 0;
-  if (params->n_lights < 1 || params->n_lights > LIGHT_MAX) return (int)cudaErrorInvalidValue;
-  if (vol->grid && (density == nullptr || vol->nx < 1 || vol->ny < 1 || vol->nz < 1))
-    return (int)cudaErrorInvalidValue;
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nodes_f != nullptr) {
-    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
-      return (int)cudaErrorInvalidValue;
-    volpath_mega_cam_kernel<true><<<grid, BLOCK, 0, st>>>(table, n_tris, nodes_f, nodes_i,
-                                                          pixel_xy, pid, sid, out_l, out_w, n,
-                                                          *params, *vol, density);
-    return (int)cudaGetLastError();
-  }
-  if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
-  // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
-  const cudaError_t attr = cudaFuncSetAttribute(
-      volpath_mega_cam_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  volpath_mega_cam_kernel<false><<<grid, BLOCK, smem, st>>>(
-      table, n_tris, nullptr, nullptr, pixel_xy, pid, sid, out_l, out_w, n, *params, *vol,
-      density);
-  return (int)cudaGetLastError();
+  return launch<false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr, nullptr, pid,
+                       sid, out_l, out_w, n, stream, vol, density);
+}
+
+// The same on given rays: o, d (n, 3) and weight (n,), every ray in the
+// camera medium; out_l only.
+int volpath_mega_rays_launch(const float* table, int n_tris, const float* nodes_f,
+                             const int* nodes_i, const Params* params, const float* o,
+                             const float* d, const float* weight, const int* pid,
+                             const int* sid, float* out_l, int n, void* stream,
+                             const VolParams* vol, const float* density) {
+  return launch<true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid, out_l,
+                      nullptr, n, stream, vol, density);
 }
 
 const char* volpath_mega_cam_error_string(int err) {

@@ -12,8 +12,8 @@ force in plain torch and min-combined with the triangle winner
 `intersect_shaded` and `occluded` alike.  On CPU tensors the kernels'
 plain versions answer.
 
-`estimate_direct` and `uniform_sample_one_light` are integrator/mod.rs:
-359-558 in batched form: the light-sampling branch with its power-
+`estimate_direct`, `uniform_sample_one_light` and
+`uniform_sample_all_lights` are integrator/mod.rs:304-558 in batched form: the light-sampling branch with its power-
 heuristic MIS weight (1 for delta lights), and for scenes with
 environment lights the BSDF-sampling branch, whose escaped rays collect
 the sampled environment (the reference's aggregate links no area light to
@@ -30,7 +30,7 @@ from ..bsdf import eval as beval
 from ..config import DTYPE, SHADOW_EPSILON
 from ..core.sampling import power_heuristic
 from ..core.spectrum import luminance
-from ..core.vec import dot
+from ..core.vec import div, dot
 from ..lights import lights as lmod
 from ..ops import bvh_kernel as bk
 from ..ops import intersect_kernel as ik
@@ -91,6 +91,11 @@ class SceneCtx:
         self.n_lights = int(lights.kind.shape[0])
         self.bvh = bvh
         self.n_tris = int(tri_packed.shape[0])
+        # the lobe kinds of the material table (the JAX SceneCtx's
+        # static_kinds), which prune the Debug / DirectLighting tree
+        slots = beval.lobe_count(mat_rows)
+        kinds = mat_rows[:, 16:16 + 16 * slots:16].cpu()
+        self.static_kinds = frozenset(int(k) for k in torch.unique(kinds))
 
     @classmethod
     def from_scene(cls, scene, device):
@@ -255,6 +260,35 @@ def uniform_sample_one_light(ctx, si, params, frame, sampler, pixel_id, s_idx, d
     u_scatter = sampler.get_2d(pixel_id, s_idx, dim_base + 2)
     ld = estimate_direct(ctx, si, params, frame, idx, u_light, u_scatter)
     return ld / torch.clamp(pdf, min=1e-20)[:, None], dim_base + 3
+
+
+def uniform_sample_all_lights(ctx, si, params, frame, sampler, pixel_id, s_idx, dim_base):
+    """(integrator/mod.rs:304-355): every light estimated with its
+    round_up_pow2(n_samples) sample pairs, (u_light, u_scatter) on
+    consecutive 2D dimensions from dim_base, and averaged over its count.
+    dim_base may be a per-ray tensor.  Returns (ld, next dimension)."""
+    total = torch.zeros_like(si.p)
+    dim = dim_base
+    for j in range(ctx.n_lights):
+        ns = _round_up_pow2(ctx.lights.n_samples[j])
+        idx = torch.full(pixel_id.shape, j, dtype=torch.int64, device=si.p.device)
+        acc = torch.zeros_like(total)
+        for _ in range(ns):
+            u_light = sampler.get_2d(pixel_id, s_idx, dim)
+            u_scatter = sampler.get_2d(pixel_id, s_idx, dim + 1)
+            dim = dim + 2
+            acc = acc + estimate_direct(ctx, si, params, frame, idx, u_light, u_scatter)
+        total = total + div(acc, float(ns))
+    return total, dim
+
+
+def _round_up_pow2(n):
+    """The sampler's round_count (misc.rs round_up_pow2): the least power
+    of two at or above n, 1 for n <= 1."""
+    p = 1
+    while p < max(n, 1):
+        p <<= 1
+    return p
 
 
 def scrub_radiance(l):

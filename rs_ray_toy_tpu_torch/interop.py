@@ -308,7 +308,7 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
         a(lt.sph_w2o)[:, :3, :3].reshape(n, 9), a(lt.sph_radius), device,
         w=a(lt.w_light), shape_kind=a(lt.shape_kind), tri_p=a(lt.tri_p).reshape(n, 9),
         area=a(lt.area), w2o_t=a(lt.sph_w2o)[:, :3, 3], shape_index=a(lt.shape_index),
-        world_radius=float(a(lt.world_radius)),
+        world_radius=float(a(lt.world_radius)), n_samples=a(lt.n_samples),
         envs=tuple(_env_from_jax(e, rgb, device) for e, rgb in zip(ctx.infinite_envs, env_rgb)),
     )
     return SceneCtx(

@@ -83,13 +83,15 @@ class LightTable(NamedTuple):
     shape_index: torch.Tensor = None  # (L,) int64 environment of an infinite light
     world_radius: float = 0.0  # float32 value
     envs: tuple = ()  # device environments (env_device), the scene's order
+    n_samples: tuple = ()  # python ints, each light's requested samples (all-lights strategy)
 
 
 def light_table(kind, p, emit, o2w, w2o, radius, device, **more):
     """LightTable from host arrays; `more` takes the other columns as
-    host arrays (world_radius and envs as they are)."""
+    host arrays (world_radius and envs as they are, n_samples as ints)."""
     f = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
     cols = {k: v if k in ("world_radius", "envs") else
+            tuple(int(x) for x in np.asarray(v)) if k == "n_samples" else
             torch.tensor(np.asarray(v), dtype=torch.int64, device=device)
             if k in ("shape_kind", "shape_index") else f(v) for k, v in more.items()}
     return LightTable(
@@ -117,7 +119,7 @@ def scene_lights(scene, device):
         w=lt.w_light, shape_kind=lt.shape_kind, tri_p=lt.tri_p.reshape(n, 9), area=lt.area,
         w2o_t=lt.sph_w2o[:, :3, 3], shape_index=lt.shape_index,
         world_radius=float(lt.world_radius),
-        envs=tuple(env_device(e, device) for e in scene.infinite),
+        envs=tuple(env_device(e, device) for e in scene.infinite), n_samples=lt.n_samples,
     )
 
 

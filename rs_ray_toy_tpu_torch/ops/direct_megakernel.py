@@ -13,10 +13,13 @@ kernel's (`_kernel_cam` -> `_raygen` + `_chain_loop`), sample slot for
 sample slot: a node with branch id b reads its slots from
 8 + b*257, its reflect child is 2b+1 and its transmit child 2b+2.
 `unsupported_feature` pins the subset (supports_direct).
+`li_levels_mega` runs the same tree on given rays (o, d, weight: the JAX
+package's `li_levels_mega`, its `_kernel` / `_kernel_bvh`).
 
 On a CUDA tensor the wrapper launches csrc/direct_megakernel.cu (built by
 ops/_build.py) or raises.  On a CPU tensor it runs
-`li_levels_mega_cam_reference`, the plain PyTorch version: the tree
+`li_levels_mega_cam_reference` (`li_levels_mega_reference` on given
+rays), the plain PyTorch version: the tree
 unrolled over static branch ids on flat (N,) tensors with masked lanes,
 radiance summed in the kernel's visiting order (a node, its reflect
 subtree, its transmit subtree).  The scene table, the camera bundle, the
@@ -24,6 +27,7 @@ parameter block and the geometry (brute force or BVH) are the path
 kernel's (ops/path_megakernel.py).
 """
 
+import ctypes
 from typing import Optional
 
 import numpy as np
@@ -51,9 +55,10 @@ NEE_KINDS = (
     LOBE_SPEC_REFL,
 )
 
-# Kernel launches made by li_levels_mega_cam, by kernel (brute force, BVH);
-# the one piece of module state.
-LAUNCHES = {"direct_mega_cam": 0, "direct_mega_cam_bvh": 0}
+# Kernel launches made by li_levels_mega_cam and li_levels_mega, by kernel
+# (camera or given rays; brute force, BVH); the one piece of module state.
+LAUNCHES = {"direct_mega_cam": 0, "direct_mega_cam_bvh": 0, "direct_mega": 0,
+            "direct_mega_bvh": 0}
 
 
 def unsupported_feature(scene, spec, sampler) -> Optional[str]:
@@ -96,8 +101,12 @@ def tree_shape(packed, spec):
 
 
 def load_kernel():
-    """The direct kernel's library (built on first use)."""
-    return pmk.load_library("direct_megakernel", "direct_mega_cam")
+    """The direct kernel's library (built on first use): the camera entry
+    `direct_mega_cam_launch` and the rays-in entry `direct_mega_rays_launch`."""
+    lib = pmk.load_library("direct_megakernel", "direct_mega_cam")
+    lib.direct_mega_rays_launch.restype = ctypes.c_int
+    lib.direct_mega_rays_launch.argtypes = pmk.RAYS_LAUNCH_ARGS
+    return lib
 
 
 def li_levels_mega_cam(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
@@ -116,10 +125,8 @@ def li_levels_mega_cam(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, s
     return prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)()
 
 
-def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
-    """Check the CUDA inputs, build the parameter block and the outputs,
-    and return launch(): one kernel launch on the current stream
-    returning (L, weight).  Relaunching rewrites the same outputs."""
+def _tree_params(packed, cam_packed, sampler, spec):
+    """The parameter block of a launch (no camera on given rays)."""
     prm = pmk._kernel_params(packed, cam_packed, sampler, spec)
     debug, strategy_all, max_depth, can_chain, has_st = tree_shape(packed, spec)
     if not 1 <= max_depth <= DEPTH_MAX:
@@ -127,9 +134,38 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
     prm.max_depth = max_depth
     prm.debug, prm.strategy_all = int(debug), int(strategy_all)
     prm.can_chain, prm.has_st = int(can_chain), int(has_st)
+    return prm
+
+
+def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
+    """Check the CUDA inputs, build the parameter block and the outputs,
+    and return launch(): one kernel launch on the current stream
+    returning (L, weight).  Relaunching rewrites the same outputs."""
+    prm = _tree_params(packed, cam_packed, sampler, spec)
     return pmk.launcher(
         load_kernel(), "direct_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm, LAUNCHES
     )
+
+
+def li_levels_mega(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec):
+    """The tree on given rays (kernel #6 of the JAX package,
+    `li_levels_mega`): o, d (N, 3) float32, cam_weight (N,) (a ray with
+    weight <= 0 is not traced), pixel_id (N,) integer pixel ids, s_idx (N,)
+    or a scalar.  A given ray's origin is used as it is.  Returns L (N, 3).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if o.device.type == "cpu":
+        return li_levels_mega_reference(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec)
+    return prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec)()
+
+
+def prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec):
+    """launch() of the rays-in kernel on the current stream, returning L;
+    every accepted launch adds one to LAUNCHES["direct_mega"] (or
+    ["direct_mega_bvh"])."""
+    prm = _tree_params(packed, None, sampler, spec)
+    return pmk.rays_launcher(load_kernel(), "direct_mega", packed, o, d, cam_weight, pixel_id,
+                             s_idx, prm, LAUNCHES)
 
 
 # ---- the plain PyTorch version ----
@@ -140,8 +176,8 @@ def _lobe_f_dbg(lob, wo, wi):
     path kernel, DEBUG_DIFFUSE the constant (0, 1, 0); DEBUG_SPECULAR and
     the specular kinds 0."""
     f = pmk._lobe_f(lob, *wo, *wi)
-    is_dd = lob["kind"] == LOBE_DEBUG_DIFFUSE
-    return [torch.where(is_dd, v, f[c]) for c, v in enumerate((0.0, 1.0, 0.0))]
+    is_ds = lob["kind"] == LOBE_DEBUG_SPECULAR
+    return [torch.where(is_ds, 0.0, f[c]) for c in range(3)]
 
 
 def _select_matching(row, n_lob, max_lobes, kinds):
@@ -175,13 +211,29 @@ def li_levels_mega_cam_reference(
     return), on any device.  `work`, a dict, gets the counts of the
     triangle and box tests ("mt", "slab") and lobe evaluations ("lobe")
     that the kernel performs on these inputs (0-d tensors)."""
-    dev = pixel_xy.device
     n = pixel_xy.shape[0]
     pid = pixel_id.to(torch.int64)
-    sid = pmk._sample_indices(s_idx, n, dev)
-    ox, oy, oz, dx, dy, dz, weight = pmk._raygen(
-        pixel_xy[:, 0], pixel_xy[:, 1], pid, sid, sampler, cam_packed
-    )
+    sid = pmk._sample_indices(s_idx, n, pixel_xy.device)
+    ray = pmk._raygen(pixel_xy[:, 0], pixel_xy[:, 1], pid, sid, sampler, cam_packed)
+    return tree_reference(packed, ray[:6], ray[6], pid, sid, sampler, spec, work), ray[6]
+
+
+def li_levels_mega_reference(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec,
+                             work=None):
+    """Plain PyTorch version of `li_levels_mega` (same arguments and
+    return; `work` as for the camera pass)."""
+    pid = pixel_id.to(torch.int64)
+    sid = pmk._sample_indices(s_idx, o.shape[0], o.device)
+    return tree_reference(packed, (*o.unbind(-1), *d.unbind(-1)), cam_weight, pid, sid,
+                          sampler, spec, work)
+
+
+def tree_reference(packed, ray, weight, pid, sid, sampler, spec, work=None):
+    """The tree (`_chain_loop`) from rays (ox, oy, oz, dx, dy, dz) of
+    (N,) float32 with weights (N,); pid and sid (N,) int64.  Returns L
+    (N, 3)."""
+    ox, oy, oz, dx, dy, dz = ray
+    dev = ox.device
     geom = pmk.PlainGeometry(packed, dev, work)
     table = geom.table
     debug, strategy_all, max_depth, can_chain, has_st = tree_shape(packed, spec)
@@ -336,4 +388,4 @@ def li_levels_mega_cam_reference(
 
     b0 = torch.where(weight > 0.0, 1.0, 0.0)
     visit((ox, oy, oz, dx, dy, dz), (b0, b0, b0), 0, 1)
-    return torch.stack(L, dim=-1), weight
+    return torch.stack(L, dim=-1)

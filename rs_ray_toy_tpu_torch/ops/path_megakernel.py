@@ -1094,6 +1094,13 @@ def load_library(name, prefix, extra_argtypes=()):
 
 
 _WIDE_ARGS = (ctypes.c_void_p, ctypes.POINTER(_WideParams), ctypes.c_void_p)
+# the rays-in entries' common arguments: table, n_tris, nodes_f, nodes_i,
+# params, o, d, weight, pid, sid, out_l, n, stream
+RAYS_LAUNCH_ARGS = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Params),
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+]
 
 
 def load_kernel():
@@ -1111,12 +1118,7 @@ def load_kernel():
         raise RuntimeError("path_megakernel TexMap differs from ops/texture._TexMap")
     rays = lib.path_mega_rays_launch
     rays.restype = ctypes.c_int
-    rays.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        *_WIDE_ARGS,
-    ]
+    rays.argtypes = RAYS_LAUNCH_ARGS + list(_WIDE_ARGS)
     return lib
 
 
@@ -1211,10 +1213,34 @@ def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
     """launch() of the rays-in kernel on the current stream, returning L;
     every accepted launch adds one to LAUNCHES of its instance
     (kernel_name)."""
+    if o.device.type != "cuda":
+        raise ValueError(f"the path_mega kernel runs on cuda tensors, not {o.device}")
+    _no_texture_on_given_rays(packed)
+    prm = _kernel_params(packed, None, sampler, spec)
+    reader = slot_reader(packed, spec, sampler, pixel_id, s_idx, False)
+    u = reader and reader.u
+    wide = _wide_params(packed, reader)
+    sph = _sphere_arg(packed, o.device)
+    return rays_launcher(load_kernel(), "path_mega", packed, o, d, weight, pixel_id, s_idx, prm,
+                         LAUNCHES, extra=(sph, ctypes.byref(wide), u),
+                         allow_empty=sph is not None,
+                         variant=kernel_name("", halton=u is not None, smooth=packed.smooth,
+                                             bss=packed.bssrdf is not None))
+
+
+def rays_launcher(lib, prefix, packed, o, d, weight, pixel_id, s_idx, prm, launches, extra=(),
+                  allow_empty=False, variant=""):
+    """launch() for the rays-in entry `<prefix>_rays_launch` of `lib`
+    (errors named by `<prefix>_cam_error_string`) on the current stream,
+    returning L (N, 3): o, d (N, 3) float32, weight
+    (N,), pixel_id (N,) integer, s_idx (N,) or a scalar; `extra`,
+    arguments after the common ones (RAYS_LAUNCH_ARGS), kept alive with
+    it (None passes a null pointer).  Every accepted launch adds one to
+    `launches[prefix + variant]` (`prefix + "_bvh" + variant` for the BVH
+    kernel)."""
     dev = o.device
     if dev.type != "cuda":
-        raise ValueError(f"the path_mega kernel runs on cuda tensors, not {dev}")
-    _no_texture_on_given_rays(packed)
+        raise ValueError(f"the {prefix} kernel runs on cuda tensors, not {dev}")
     n = o.shape[0]
     if (o.dtype != torch.float32 or d.dtype != torch.float32 or o.shape != (n, 3)
             or d.shape != (n, 3) or n == 0 or d.device != dev):
@@ -1223,35 +1249,31 @@ def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
         raise ValueError("weight must be an (N,) tensor on o's device")
     if pixel_id.shape != (n,) or pixel_id.is_floating_point() or pixel_id.device != dev:
         raise ValueError("pixel_id must be an integer (N,) tensor on o's device")
-    prm = _kernel_params(packed, None, sampler, spec)
-    reader = slot_reader(packed, spec, sampler, pixel_id, s_idx, False)
-    u = reader and reader.u
-    wide = _wide_params(packed, reader)
-    sph = _sphere_arg(packed, dev)
-    table, nodes_f, nodes_i = geometry_args(packed, dev, allow_empty=sph is not None)
+    table, nodes_f, nodes_i = geometry_args(packed, dev, allow_empty)
     oc, dc = o.contiguous(), d.contiguous()
     wc = weight.to(torch.float32).contiguous()
     pid32 = pixel_id.to(torch.int32).contiguous()
     sid32 = _sample_indices(s_idx, n, dev).to(torch.int32).contiguous()
     out_l = torch.empty((n, 3), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = load_kernel()
-    name = kernel_name("path_mega", nodes_f is not None, u is not None, packed.smooth,
-                       packed.bssrdf is not None)
+    fn = getattr(lib, f"{prefix}_rays_launch")
     ptr = lambda t: None if t is None else t.data_ptr()
+    extra_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra)
+    name = prefix + ("" if nodes_f is None else "_bvh") + variant
 
     def launch():
-        err = lib.path_mega_rays_launch(
-            ptr(table), table.shape[0], ptr(nodes_f), ptr(nodes_i), ctypes.byref(prm),
-            oc.data_ptr(), dc.data_ptr(), wc.data_ptr(), pid32.data_ptr(), sid32.data_ptr(),
-            out_l.data_ptr(), n, stream, ptr(sph), ctypes.byref(wide), ptr(u),
+        err = fn(
+            ptr(table) if table.shape[0] else None, table.shape[0], ptr(nodes_f), ptr(nodes_i),
+            ctypes.byref(prm), oc.data_ptr(), dc.data_ptr(), wc.data_ptr(), pid32.data_ptr(),
+            sid32.data_ptr(), out_l.data_ptr(), n, stream, *extra_args,
         )
         if err != 0:
-            msg = lib.path_mega_cam_error_string(err).decode()
+            msg = getattr(lib, f"{prefix}_cam_error_string")(err).decode()
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-        LAUNCHES[name] += 1
+        launches[name] += 1
         return out_l
 
+    launch.keep = (extra, oc, dc, wc, pid32, sid32)
     return launch
 
 

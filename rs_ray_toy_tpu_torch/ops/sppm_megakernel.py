@@ -8,7 +8,9 @@ and the Morton-sorted deposit (K10), one CUDA source
   `ld`), the VP at the first vertex with a diffuse lobe or a glossy
   vertex at the last depth, BSDF bounces and the camera roulette between.
   Every sampler value comes from the (NC, N) Halton slot matrix laid out
-  by `sppm_slots`.
+  by `sppm_slots`.  `sppm_camera_mega` walks given rays (o, d, weight:
+  the JAX package's rays-in entry), its slot matrix filled on the host
+  from the caller's sampler, Halton or stratified (`slot_values`).
 - `sppm_photon_mega`: per photon, from its emitted ray, the walk of
   sppm.rs:346-506 with its bounce and roulette uniforms given, writing a
   deposit event (the hit, -d, beta before the bounce, alive) at every
@@ -62,6 +64,8 @@ GRID_RES_MAX = 1024  # cells per axis of the Morton grid
 LAUNCHES = {
     "sppm_camera_mega_cam": 0,
     "sppm_camera_mega_cam_bvh": 0,
+    "sppm_camera_mega": 0,
+    "sppm_camera_mega_bvh": 0,
     "sppm_photon_mega": 0,
     "sppm_photon_mega_bvh": 0,
     "sppm_deposit_mega": 0,
@@ -141,6 +145,22 @@ def sppm_slots(max_depth):
     return tuple(slots)
 
 
+def slot_values(sampler, pixel_id, s_idx, max_depth):
+    """The (4 max_depth + 1, N) float32 slot matrix of sppm_slots from any
+    sampler's get_1d / get_2d (a HaltonSampler's slot_matrix)."""
+    sid = pmk._sample_indices(s_idx, pixel_id.shape[0], pixel_id.device)
+    slots = sppm_slots(max_depth)
+    if hasattr(sampler, "slot_matrix"):
+        return sampler.slot_matrix(pixel_id, sid, slots).contiguous()
+    rows = []
+    for slot, k in slots:
+        if k == 1:
+            rows.append(sampler.get_1d(pixel_id, sid, slot))
+        else:
+            rows.extend(sampler.get_2d(pixel_id, sid, slot).unbind(-1))
+    return torch.stack(rows, 0).to(torch.float32).contiguous()
+
+
 def _spread10(v):
     v = v & 0x3FF
     v = (v | (v << 16)) & 0x030000FF
@@ -163,6 +183,9 @@ def load_kernel():
     lib = _build.load("sppm_megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sppm_camera_launch.argtypes = [p, i, p, p, ctypes.POINTER(pmk._Params), p, p, i] + [p] * 8 + [i, p]
+    lib.sppm_camera_rays_launch.argtypes = ([p, i, p, p, ctypes.POINTER(pmk._Params)] + [p] * 4
+                                            + [i] + [p] * 8 + [i, p])
+    lib.sppm_camera_rays_launch.restype = ctypes.c_int
     lib.sppm_photon_launch.argtypes = [p, i, p, p, i] + [p] * 9 + [i, p]
     lib.sppm_deposit_launch.argtypes = [p] * 10 + [i, p, p, i, p]
     for fn in (lib.sppm_camera_launch, lib.sppm_photon_launch, lib.sppm_deposit_launch):
@@ -217,16 +240,51 @@ def prepare_camera(packed, cam_packed, pixel_xy, u_halton, max_depth):
     """Check the CUDA inputs, build the parameter block and the outputs,
     and return launch() (sppm_camera_mega_cam's result)."""
     dev = pixel_xy.device
+    n = pixel_xy.shape[0]
+    _check(pixel_xy, (n, 2), torch.float32, dev, "pixel_xy")
+    return _camera_launcher(packed, cam_packed, (pixel_xy,), u_halton, max_depth, n, dev,
+                            "sppm_camera_mega_cam")
+
+
+def sppm_camera_mega(packed, o, d, cam_weight, pixel_id, s_idx, sampler, max_depth):
+    """The camera walk on given rays (kernel #10 of the JAX package,
+    `sppm_camera_mega`): o, d (N, 3) float32, cam_weight (N,) (a ray with
+    weight <= 0 is not traced; beta starts at it), pixel_id (N,) integer
+    pixel ids, s_idx (N,) or a scalar, `sampler` Halton or stratified,
+    whose values at sppm_slots(max_depth) fill the slot matrix on the host.
+    Returns (ld (N, 3), VisiblePoints).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    u = slot_values(sampler, pixel_id, s_idx, max_depth)
+    if o.device.type == "cpu":
+        return sppm_camera_mega_reference(packed, o, d, cam_weight, u, max_depth)
+    return prepare_camera_rays(packed, o, d, cam_weight, u, max_depth)()
+
+
+def prepare_camera_rays(packed, o, d, cam_weight, u, max_depth):
+    """launch() of the rays-in camera walk (sppm_camera_mega's result) on
+    the slot matrix u; adds one to LAUNCHES["sppm_camera_mega"] (or
+    ["sppm_camera_mega_bvh"]) when the launch is accepted."""
+    dev = o.device
+    n = o.shape[0]
+    _check(o, (n, 3), torch.float32, dev, "o")
+    _check(d, (n, 3), torch.float32, dev, "d")
+    w = cam_weight.to(torch.float32).contiguous()
+    _check(w, (n,), torch.float32, dev, "cam_weight")
+    return _camera_launcher(packed, None, (o, d, w), u, max_depth, n, dev, "sppm_camera_mega")
+
+
+def _camera_launcher(packed, cam_packed, rays, u, max_depth, n, dev, prefix):
+    """launch() of the camera walk on the pixels (rays = (pixel_xy,)) or on
+    given rays (rays = (o, d, weight)); returns (ld, VisiblePoints)."""
     if dev.type != "cuda":
         raise ValueError(f"the SPPM camera kernel runs on cuda tensors, not {dev}")
     if not 2 <= max_depth <= DEPTH_MAX:
         raise ValueError(f"max_depth {max_depth} outside 2..{DEPTH_MAX}")
-    n = pixel_xy.shape[0]
     if n == 0:
         raise ValueError("no pixels")
-    _check(pixel_xy, (n, 2), torch.float32, dev, "pixel_xy")
     n_u = 4 * max_depth + 1
-    _check(u_halton, (n_u, n), torch.float32, dev, "u_halton")
+    _check(u, (n_u, n), torch.float32, dev, "the slot matrix")
     table, nodes_f, nodes_i = pmk.geometry_args(packed, dev)
     prm = pmk._kernel_params(packed, cam_packed, None, None)
     prm.max_depth = max_depth
@@ -235,17 +293,17 @@ def prepare_camera(packed, cam_packed, pixel_xy, u_halton, max_depth):
     valid = torch.empty((n,), dtype=torch.int32, device=dev)
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = lib.sppm_camera_launch if len(rays) == 1 else lib.sppm_camera_rays_launch
     args = (table.data_ptr(), table.shape[0], _ptr(nodes_f), _ptr(nodes_i), ctypes.byref(prm),
-            pixel_xy.data_ptr(), u_halton.data_ptr(), n_u, *(t.data_ptr() for t in v3),
+            *(r.data_ptr() for r in rays), u.data_ptr(), n_u, *(t.data_ptr() for t in v3),
             mat.data_ptr(), valid.data_ptr(), n, stream)
 
     def outs():
         ld, p, wo, beta, ng, dpdu = v3
         return ld, VisiblePoints(p, wo, beta, mat.to(torch.int64), ng, dpdu, valid != 0)
 
-    name = "sppm_camera_mega_cam" if nodes_f is None else "sppm_camera_mega_cam_bvh"
-    return _launcher(lib, name, lib.sppm_camera_launch, args, outs,
-                     (packed, pixel_xy, u_halton, v3, mat, valid))
+    name = prefix if nodes_f is None else prefix + "_bvh"
+    return _launcher(lib, name, fn, args, outs, (packed, rays, u, v3, mat, valid))
 
 
 def sppm_photon_mega(packed, ro, rd, beta, active, u_rows, max_depth):
@@ -437,19 +495,31 @@ def sppm_camera_mega_cam_reference(packed, cam_packed, pixel_xy, u_halton, max_d
     return), on any device.  `work`, a dict, gets the counts of the
     triangle and box tests ("mt", "slab"), lobe evaluations ("lobe") and
     slot values read ("slot") the kernel performs on these inputs."""
-    dev = pixel_xy.device
     smp = SlotSampler(u_halton, max_depth)
-    ox, oy, oz, dx, dy, dz, weight = pmk._raygen(
-        pixel_xy[:, 0], pixel_xy[:, 1], None, None, smp, cam_packed
-    )
-    o, d = (ox, oy, oz), (dx, dy, dz)
+    ray = pmk._raygen(pixel_xy[:, 0], pixel_xy[:, 1], None, None, smp, cam_packed)
+    pmk.tally(work, "slot", torch.full_like(ray[0], 4.0))  # film and lens
+    return camera_walk_reference(packed, ray[:3], ray[3:6], ray[6], smp, max_depth, work)
+
+
+def sppm_camera_mega_reference(packed, o, d, cam_weight, u, max_depth, work=None):
+    """Plain PyTorch version of `sppm_camera_mega` on its slot matrix u
+    (slot_values; `work` as for the camera pass)."""
+    return camera_walk_reference(packed, o.unbind(-1), d.unbind(-1), cam_weight.to(o.dtype),
+                                 SlotSampler(u, max_depth), max_depth, work)
+
+
+def camera_walk_reference(packed, o, d, weight, smp, max_depth, work=None):
+    """The walk (`_camera_loop`) from rays o, d ((N,) x, y, z each) with
+    weights (N,), its values read through the SlotSampler smp.  Returns
+    (ld (N, 3), VisiblePoints)."""
+    ox = o[0]
+    dev = ox.device
     geom = pmk.PlainGeometry(packed, dev, work)
     table = geom.table
     max_lobes = int(table[:, 15].max())
     n_lights = len(packed.light_p)
     light_p = torch.tensor(packed.light_p, dtype=torch.float32, device=dev)
     light_emit = torch.tensor(packed.light_emit, dtype=torch.float32, device=dev)
-    pmk.tally(work, "slot", torch.full_like(ox, 4.0))  # film and lens
     active = weight > 0.0
     b0 = torch.where(active, weight, 0.0)
     b = [b0, b0, b0]

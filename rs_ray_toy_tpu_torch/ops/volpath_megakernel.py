@@ -18,14 +18,18 @@ ratio tracking for the shadow segment on a hashed per-ray RNG chain
 -> `_raygen` + `_vol_bounce_loop`), sample slot for sample slot, on its
 subset, which `unsupported_feature` pins: one camera medium, no
 per-primitive interfaces, triangles, the path kernel's lobes, point and
-(homogeneous media only) sphere lights, the stratified sampler.  The
+(homogeneous media only) sphere lights, the stratified sampler.
+`li_volpath_mega` runs the same loop on given rays (o, d, weight: the JAX
+package's `li_volpath_mega`, its `_kernel_vol` / `_kernel_vol_bvh`), every
+ray starting in the camera medium.  The
 scattering-sampling half of estimate_direct is statically zero there (no
 emissive primitives, no infinite lights), so neither version draws for it.
 
 On a CUDA tensor the wrapper launches csrc/volpath_megakernel.cu (built
 by ops/_build.py) or raises.  On a CPU tensor it runs
 `li_volpath_mega_cam_reference`, the plain PyTorch version: the path
-kernel's raygen and then `vol_bounce_loop_reference` on those rays, over
+kernel's raygen and then `vol_bounce_loop_reference` on those rays (on
+given rays `li_volpath_mega_reference`, the loop alone), over
 flat (N,) tensors with masked lanes, with the medium building blocks of
 scene/medium.py and the light sampling of lights/lights.py.  The grid
 density is read in float32 (the TPU kernel's bf16 hi/lo one-hot taps were
@@ -49,9 +53,10 @@ from . import path_megakernel as pmk
 
 DEPTH_MAX = pmk.DEPTH_MAX
 
-# Kernel launches made by li_volpath_mega_cam, by kernel (brute force,
-# BVH); the one piece of module state.
-LAUNCHES = {"volpath_mega_cam": 0, "volpath_mega_cam_bvh": 0}
+# Kernel launches made by li_volpath_mega_cam and li_volpath_mega, by kernel
+# (camera or given rays; brute force, BVH); the one piece of module state.
+LAUNCHES = {"volpath_mega_cam": 0, "volpath_mega_cam_bvh": 0, "volpath_mega": 0,
+            "volpath_mega_bvh": 0}
 
 
 class PackedVolpath(NamedTuple):
@@ -182,13 +187,18 @@ def _vol_params(packed):
 
 
 def load_kernel():
-    """The Volpath kernel's library (built on first use)."""
+    """The Volpath kernel's library (built on first use): the camera entry
+    `volpath_mega_cam_launch` and the rays-in entry
+    `volpath_mega_rays_launch`."""
     lib = pmk.load_library(
         "volpath_megakernel", "volpath_mega_cam", (ctypes.POINTER(_VolParams), ctypes.c_void_p)
     )
     lib.volpath_mega_cam_vol_params_size.restype = ctypes.c_int
     if lib.volpath_mega_cam_vol_params_size() != ctypes.sizeof(_VolParams):
         raise RuntimeError("volpath_megakernel medium block differs from _VolParams")
+    lib.volpath_mega_rays_launch.restype = ctypes.c_int
+    lib.volpath_mega_rays_launch.argtypes = pmk.RAYS_LAUNCH_ARGS + [
+        ctypes.POINTER(_VolParams), ctypes.c_void_p]
     return lib
 
 
@@ -208,10 +218,8 @@ def li_volpath_mega_cam(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, 
     return prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)()
 
 
-def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
-    """Check the CUDA inputs, build the parameter blocks and the outputs,
-    and return launch(): one kernel launch on the current stream
-    returning (L, weight).  Relaunching rewrites the same outputs."""
+def _launch_params(packed, cam_packed, sampler, spec, dev):
+    """(Params, VolParams, the grid density or None) of a launch on `dev`."""
     if not 1 <= spec.max_depth <= DEPTH_MAX:
         raise ValueError(f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}")
     prm = pmk._kernel_params(packed.scene, cam_packed, sampler, spec)
@@ -220,19 +228,50 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
     if packed.grid:
         density = packed.medium["density"][0]
         if (
-            density.device != pixel_xy.device
+            density.device != dev
             or density.dtype != torch.float32
             or not density.is_contiguous()
             or tuple(density.shape) != (vprm.nz, vprm.ny, vprm.nx)
         ):
             raise ValueError(
                 f"grid density must be contiguous float32 ({vprm.nz}, {vprm.ny}, {vprm.nx}) "
-                f"on {pixel_xy.device}"
+                f"on {dev}"
             )
+    return prm, vprm, density
+
+
+def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
+    """Check the CUDA inputs, build the parameter blocks and the outputs,
+    and return launch(): one kernel launch on the current stream
+    returning (L, weight).  Relaunching rewrites the same outputs."""
+    prm, vprm, density = _launch_params(packed, cam_packed, sampler, spec, pixel_xy.device)
     return pmk.launcher(
         load_kernel(), "volpath_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm, LAUNCHES,
         extra=(ctypes.byref(vprm), density),
     )
+
+
+def li_volpath_mega(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec):
+    """The bounce loop on given rays (kernel #8 of the JAX package,
+    `li_volpath_mega`): o, d (N, 3) float32 (d unit length), cam_weight
+    (N,) (a ray with weight <= 0 is not traced), pixel_id (N,) integer
+    pixel ids, s_idx (N,) or a scalar; every ray starts in the camera
+    medium.  Returns L (N, 3).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if o.device.type == "cpu":
+        return li_volpath_mega_reference(packed, o, d, cam_weight, pixel_id, s_idx, sampler,
+                                         spec)
+    return prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec)()
+
+
+def prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec):
+    """launch() of the rays-in kernel on the current stream, returning L;
+    every accepted launch adds one to LAUNCHES["volpath_mega"] (or
+    ["volpath_mega_bvh"])."""
+    prm, vprm, density = _launch_params(packed, None, sampler, spec, o.device)
+    return pmk.rays_launcher(load_kernel(), "volpath_mega", packed.scene, o, d, cam_weight,
+                             pixel_id, s_idx, prm, LAUNCHES, extra=(ctypes.byref(vprm), density))
 
 
 # ---- the plain PyTorch version ----
@@ -257,6 +296,15 @@ def li_volpath_mega_cam_reference(
     d = torch.stack([dx, dy, dz], -1)
     L = vol_bounce_loop_reference(packed, o, d, weight > 0.0, pid, sid, sampler, spec, work)
     return L, weight
+
+
+def li_volpath_mega_reference(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec,
+                              work=None):
+    """Plain PyTorch version of `li_volpath_mega` (same arguments and
+    return; `work` as for the camera pass)."""
+    sid = pmk._sample_indices(s_idx, o.shape[0], o.device)
+    return vol_bounce_loop_reference(packed, o, d, cam_weight > 0.0, pixel_id, sid, sampler,
+                                     spec, work)
 
 
 def vol_bounce_loop_reference(packed, o, d, active, pid, sid, sampler, spec, work=None):

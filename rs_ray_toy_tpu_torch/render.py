@@ -4,8 +4,8 @@
 and renders.  SPPM runs its iterations (integrators/sppm.render_sppm:
 per iteration one launch each of the camera, photon and deposit kernels
 of ops/sppm_megakernel.py) on the Halton sampler it builds itself.  Every
-other integrator renders, under the scene's stratified sampler or (Path
-and AO) its HaltonSampler, in sample passes of k_spp samples, the largest
+other integrator renders, under the scene's stratified sampler or (Path,
+AO, Debug and DirectLighting) its HaltonSampler, in sample passes of k_spp samples, the largest
 divisor of spp up to 16: every pixel's k samples form one sample-outer
 batch that a single fused call traces, and the film adds the batch with
 the aligned reshape-add.  The
@@ -19,19 +19,21 @@ scene in the path kernel's textured subset goes to its textured instance
 (an image texture's kd, K7's tap inside); outside it, and under every
 other integrator but AO, it raises naming the feature.
 
-AO, and Path on a scene outside the path kernel's subset that the
-wavefront loop takes (partial spheres, more than 8 spheres or lights,
-distant and triangle lights, more than one environment light, an
-environment light beside a specular lobe, a mesh above the kernel's
-65,536 triangles, max_depth 0 or above 15, Oren-Nayar matte, rough glass, Translucent, Mix and
-thin or transmissive Disney materials, and a subsurface Disney material
-outside the path kernel's subsurface subset), render through the
-wavefront loop instead
-(`render_wavefront_job`): raygen on the host (camera/realistic), then
-integrators/ao.li_ao or integrators/path.li_path over SceneCtx, whose
-triangle queries are kernels K4 and K3 (spheres in plain torch).  Path
-says so on stderr, as the JAX package does.  Scenes outside every subset
-raise NotImplementedError (`select_kernel`).
+AO, and Path, Debug and DirectLighting on a scene outside the fused
+kernel's subset that the wavefront loop takes (partial spheres, more than
+8 spheres or lights, distant and triangle lights, environment lights,
+meshes above the kernels' triangle limit or too deep for their stack,
+max_depth 0 or past the kernel's range, the HaltonSampler under Debug and
+DirectLighting, smooth normals, Oren-Nayar matte, rough glass,
+Translucent, Mix and thin or transmissive Disney materials, and a
+subsurface Disney material outside the path kernel's subsurface subset),
+render through the wavefront loop instead (`render_wavefront_job`):
+raygen on the host (camera/realistic), then integrators/ao.li_ao,
+integrators/path.li_path or integrators/direct.li_levels over SceneCtx,
+whose triangle queries are kernels K4 and K3 (spheres in plain torch).
+Path, Debug and DirectLighting say so on stderr, as the JAX package
+does.  Scenes outside every subset raise NotImplementedError
+(`select_kernel`).
 
 Every tensor lives on the explicit `device`.  On "cuda" the passes run
 the CUDA kernel and are timed with CUDA events; on "cpu" they run the
@@ -46,6 +48,7 @@ import torch
 
 from .camera.realistic import RealisticCamera
 from .film import film as fmod
+from .integrators import direct as wdirect
 from .integrators import path as wpath
 from .integrators import sppm
 from .integrators.ao import li_ao
@@ -146,18 +149,19 @@ FUSED = {
 def make_sampler(job, seed=0):
     """The render's sampler: for SPPM a Halton sampler of n_iters samples
     at the pixel centres (sppm.rs:130, render.py:43-48), else the scene's:
-    its StratifiedSampler, or its HaltonSampler under Path and AO; Debug,
-    DirectLighting and Volpath take no HaltonSampler and raise
-    NotImplementedError naming it."""
+    its StratifiedSampler, or its HaltonSampler under Path, AO, Debug and
+    DirectLighting (Debug and DirectLighting then in the wavefront loop);
+    Volpath takes no HaltonSampler and raises NotImplementedError naming
+    it."""
     film = job.film
     kind = job.integrator.kind
     if kind == "sppm":
         spec = SamplerSpec("halton", nsamp=job.integrator.n_iters, sample_at_center=True)
         return HaltonSampler(spec, film.xres, film.yres, seed=seed)
     if job.sampler.kind == "halton":
-        if kind not in ("path", "ao"):
+        if kind not in ("path", "ao", "debug", "direct"):
             raise NotImplementedError(f"HaltonSampler under the {kind} integrator "
-                                      "(Path, AO and SPPM render with it)")
+                                      "(Path, AO, Debug, DirectLighting and SPPM render with it)")
         return HaltonSampler(job.sampler, film.xres, film.yres, seed=seed)
     return StratifiedSampler(job.sampler, seed=seed)
 
@@ -175,12 +179,20 @@ def pass_spp(spp):
 WAVEFRONT = ("wavefront", None, None, None)
 
 
+# the integrators whose jobs outside their fused kernel the wavefront loop
+# renders, announced on stderr
+WAVEFRONT_FALLBACK = {"path": wpath.unsupported_feature, "debug": wdirect.unsupported_feature,
+                      "direct": wdirect.unsupported_feature}
+
+
 def wavefront_unsupported(job, sampler):
-    """The first feature of an AO or Path job outside the wavefront loop,
-    or None.  AO reads no light, material or medium: it takes any scene
-    of triangles and spheres, of any size, textured or not."""
-    if job.integrator.kind == "path":
-        return wpath.unsupported_feature(job.scene, job.integrator, sampler)
+    """The first feature of an AO, Path, Debug or DirectLighting job
+    outside the wavefront loop, or None.  AO reads no light, material or
+    medium: it takes any scene of triangles and spheres, of any size,
+    textured or not."""
+    kind = job.integrator.kind
+    if kind in WAVEFRONT_FALLBACK:
+        return WAVEFRONT_FALLBACK[kind](job.scene, job.integrator, sampler)
     if isinstance(sampler, StratifiedSampler) and not (
             pmk._pow2(sampler.spp) and pmk._pow2(sampler.xs) and pmk._pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
@@ -188,10 +200,11 @@ def wavefront_unsupported(job, sampler):
 
 
 def select_kernel(job, sampler):
-    """FUSED's entry for `job`, or WAVEFRONT for AO and for Path scenes
-    outside the path kernel that the wavefront loop takes (announced on
-    stderr); raises NotImplementedError naming the first feature outside
-    the chosen path's subset."""
+    """FUSED's entry for `job`, or WAVEFRONT for AO and for Path, Debug
+    and DirectLighting scenes outside their fused kernel that the
+    wavefront loop takes (announced on stderr); raises
+    NotImplementedError naming the first feature outside the chosen
+    path's subset."""
     kind = job.integrator.kind
     if kind == "ao":
         reason = wavefront_unsupported(job, sampler)
@@ -207,10 +220,11 @@ def select_kernel(job, sampler):
     else:
         reason = mod.unsupported_feature(job.scene, job.integrator, sampler)
     if reason is not None:
-        wreason = wavefront_unsupported(job, sampler) if kind == "path" else None
-        if kind == "path" and wreason is None:
-            # loud fallback, as the JAX package's render.py:217-224
-            print(f"rs_ray_toy_tpu_torch: scene outside the path-kernel subset ({reason})"
+        fallback = kind in WAVEFRONT_FALLBACK
+        wreason = wavefront_unsupported(job, sampler) if fallback else None
+        if fallback and wreason is None:
+            # loud fallback, as the JAX package's render.py:217-224, 236-240
+            print(f"rs_ray_toy_tpu_torch: scene outside the {entry[0]}-kernel subset ({reason})"
                   " — using the wavefront loop", file=sys.stderr)
             return WAVEFRONT
         if wreason is not None and wreason != reason:
@@ -225,7 +239,7 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0, wr
     `render_path`, `fused_kernel`, whether the BVH was used and the
     kernel launches it made.  SPPM: see render_sppm_job (spp_override
     does not apply; `write_to` takes the periodic images); AO and the
-    Path wavefront route: render_wavefront_job."""
+    Path, Debug and DirectLighting wavefront routes: render_wavefront_job."""
     device = require_device(device)
     film_spec = job.film
     sampler = make_sampler(job, seed)
@@ -298,19 +312,44 @@ def camera_rays(cam, sampler, pixel_xy, pixel_id, s_idx):
     return cam.generate_rays(pixel_xy + u_film, u_lens)
 
 
+# rays a level of the Debug / DirectLighting tree holds at most: a pass
+# whose deepest level would hold more is traced in chunks of camera rays
+LEVEL_RAYS_MAX = 1 << 22
+WAVEFRONT_LI = {"ao": li_ao, "path": wpath.li_path, "debug": wdirect.li_levels,
+                "direct": wdirect.li_levels}
+
+
+def chunked(li, chunk):
+    """li traced over consecutive chunks of `chunk` camera rays (every
+    ray's radiance is its own: the image is the same), radiance joined."""
+    def run(ctx, o, d, weight, sampler, pixel_id, s_idx, spec):
+        n = o.shape[0]
+        if n <= chunk:
+            return li(ctx, o, d, weight, sampler, pixel_id, s_idx, spec)
+        return torch.cat([li(ctx, o[a:a + chunk], d[a:a + chunk], weight[a:a + chunk], sampler,
+                             pixel_id[a:a + chunk], s_idx[a:a + chunk], spec)
+                          for a in range(0, n, chunk)])
+    return run
+
+
 def render_wavefront_job(job, device, sampler, spp, pupil_samples=1 << 20):
     """The wavefront render (render.py:400-457, 508-517): SceneCtx (its BVH
     build) and the camera are set-up; each timed pass of k_spp samples
     per pixel draws the film and lens values (sampler dims 0 and 1),
-    generates the camera rays on the host and runs li_ao or li_path over
-    them.  Returns render_job's keys, `render_path` "wavefront" and the
-    launches of each intersection kernel."""
+    generates the camera rays on the host and runs li_ao, li_path or
+    li_levels over them (li_levels in chunks of camera rays whose deepest
+    tree level holds up to LEVEL_RAYS_MAX rays).  Returns render_job's
+    keys, `render_path` "wavefront" and the launches of each intersection
+    kernel."""
     film_spec = job.film
     cam = RealisticCamera(job.camera, film_spec, pupil_samples=pupil_samples, device=device)
     ctx = SceneCtx.from_scene(job.scene, device)
     if device.type == "cuda":
         (ik if ctx.bvh is None else bk).load_kernel()  # build outside the timed region
-    li = li_ao if job.integrator.kind == "ao" else wpath.li_path
+    li = WAVEFRONT_LI[job.integrator.kind]
+    if li is wdirect.li_levels:
+        width = wdirect.rays_per_camera_ray(ctx.static_kinds, job.integrator)
+        li = chunked(li, max(1, LEVEL_RAYS_MAX // width))
 
     k_spp = pass_spp(spp)
     pixel_xy, pixel_id, sample_offset = sample_batch(film_spec, k_spp, device)

@@ -12,7 +12,8 @@ Slot rule (sampler/dims.py rule 3): slot d owns dimensions (2d, 2d+1);
 get_1d reads 2d, get_2d both.  Dimensions past the 1024 primes fall back
 to the counter-based hash, as in the JAX package; so does a slot the
 JAX package reads as a traced value (`traced_2d`: AO's probes, drawn
-inside a fori_loop).  The JAX package's
+inside a fori_loop; a per-ray tensor of slots: the Debug / DirectLighting
+tree's branch dimensions).  The JAX package's
 `payload_grid` (a gather-free broadcast of the slot values for the TPU)
 is not ported: `slot_matrix` evaluates every slot of a batch in one
 batched radical inverse.
@@ -125,11 +126,20 @@ class HaltonSampler:
         return torch.stack(rows, 0)
 
     def get_1d(self, pixel_id, sample_index, dim):
+        """(N,): slot `dim` -> Halton dimension 2 dim; a per-ray tensor of
+        slots (the Debug / DirectLighting tree's branch dimensions) the
+        counter-based hash at `dim`, as the JAX package answers a traced
+        slot."""
+        if torch.is_tensor(dim):
+            return rng.uniform_float(pixel_id, sample_index, dim, self.seed)
         return self.dims_values(pixel_id, sample_index, [2 * dim])[0]
 
     def get_2d(self, pixel_id, sample_index, dim):
         """(N, 2): slot `dim` -> Halton dimensions (2 dim, 2 dim + 1), so
-        that slots 0 (film) and 1 (lens) are the reference's dims 0-3."""
+        that slots 0 (film) and 1 (lens) are the reference's dims 0-3; a
+        per-ray tensor of slots `traced_2d`."""
+        if torch.is_tensor(dim):
+            return self.traced_2d(pixel_id, sample_index, dim)
         return self.dims_values(pixel_id, sample_index, [2 * dim, 2 * dim + 1]).T
 
     def traced_2d(self, pixel_id, sample_index, dim):

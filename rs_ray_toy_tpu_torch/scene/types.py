@@ -85,7 +85,7 @@ class LightSoA:
     sph_radius: np.ndarray  # (L,) float32
     tri_p: np.ndarray  # (L,3,3) float32 a triangle light's world vertices
     area: np.ndarray  # (L,) float32 the shape's area (a sphere's full area); 1 elsewhere
-    n_samples: np.ndarray  # (L,) int32, the schema's (1 by default); no ported kernel reads it
+    n_samples: np.ndarray  # (L,) int32, the schema's (1 by default); the all-lights strategy reads it
     world_radius: np.float32  # bounding sphere of the triangles and spheres
 
     @property

@@ -37,6 +37,7 @@ port, against the JAX package on the CPU.
 
 import functools
 import json
+import re
 import shutil
 from pathlib import Path
 
@@ -376,10 +377,19 @@ def test_routes(capsys):
 
 
 @pytest.mark.parametrize("integrator", ["Debug", "DirectLighting", "Volpath", "SPPM"])
-def test_other_kernels_raise_naming_the_bssrdf(tmp_path, integrator):
+def test_other_kernels_raise_naming_the_bssrdf(tmp_path, capsys, integrator):
+    """The kernels without the subsurface branch name the BSSRDF: Volpath
+    and SPPM raise, Debug and DirectLighting announce it and go to the
+    wavefront loop, whose tree evaluates the material's BSDF lobes as the
+    JAX package's li_levels does."""
     job = load_scene(_write(tmp_path, _with_materials([MAT_SSS], integrator)))
-    with pytest.raises(NotImplementedError,
-                       match=r"specular transmission \(DisneyMaterial scatter_distance BSSRDF\)"):
+    name = r"specular transmission \(DisneyMaterial scatter_distance BSSRDF\)"
+    if integrator in ("Debug", "DirectLighting"):
+        assert select_kernel(job, make_sampler(job)) == WAVEFRONT
+        err = capsys.readouterr().err
+        assert re.search(name, err) and "direct-kernel subset" in err and "wavefront loop" in err
+        return
+    with pytest.raises(NotImplementedError, match=name):
         select_kernel(job, make_sampler(job))
 
 

@@ -6,7 +6,9 @@ instance; the Disney lobes in the path kernel, and the wavefront loop
 on the materials only it takes; the path kernel's subsurface instances
 and the wavefront loop's subsurface branch; K7, the EWA texture tap, and
 the path kernel's textured instances; K3's deep instances and a mesh past
-120,000 triangles) against their plain PyTorch versions.
+120,000 triangles; the rays-in instances of the direct and Volpath kernels
+and of the SPPM camera walk, and the wavefront Debug / DirectLighting
+loop on the card against the CPU) against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -370,8 +372,9 @@ def test_sppm_render_launches_each_kernel_once_per_iteration(tmp_path):
     res = render_job(_sppm_job(tmp_path), dev, pupil_samples=1 << 16)
     assert res["fused_kernel"] == "sppm" and res["render_path"] == "megakernel" and not res["bvh"]
     assert res["launches"] == {
-        "sppm_camera_mega_cam": 2, "sppm_camera_mega_cam_bvh": 0, "sppm_photon_mega": 2,
-        "sppm_photon_mega_bvh": 0, "sppm_deposit_mega": 2,
+        "sppm_camera_mega_cam": 2, "sppm_camera_mega_cam_bvh": 0, "sppm_camera_mega": 0,
+        "sppm_camera_mega_bvh": 0, "sppm_photon_mega": 2, "sppm_photon_mega_bvh": 0,
+        "sppm_deposit_mega": 2,
     }
     assert [dict(c) for c in counts] == before
     img = res["rgb_srgb_input"]
@@ -875,3 +878,94 @@ def test_materials_wavefront_card_matches_cpu_over_lit_rays():
     assert int(lit.sum()) > 1000
     assert float((rel.amax(-1)[lit] > 1e-3).float().mean()) < 5e-3
 
+
+
+def _rays_in_bar(l, l_ref):
+    assert torch.isfinite(l).all() and float(l_ref.max()) > 0
+    rel = (l - l_ref).abs() / l_ref.abs().clamp(min=1e-3)
+    assert float((rel.amax(-1) > 1e-3).float().mean()) < 5e-3
+    assert float(torch.quantile(rel.flatten(), 0.99)) < 1e-5
+    assert abs(float(l.mean()) - float(l_ref.mean())) < 1e-6 + 3e-3 * abs(float(l_ref.mean()))
+
+
+@pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
+@pytest.mark.parametrize("kernel", ["direct", "volpath"])
+def test_rays_in_direct_and_volpath_kernels_match_plain_versions(tmp_path, kernel, bvh):
+    """#6 (the direct tree) and #8 (Volpath) on the host-traced camera
+    rays of a 64x36x16 pass, one launch each, against their plain versions
+    at the per-ray bar."""
+    dev = _device()
+    from rs_ray_toy_tpu_torch.render import camera_rays
+
+    if kernel == "direct":
+        job = _job(tmp_path, scene="scene_debug.json")
+        mod, packed = dmk, pmk.pack_scene(job.scene, dev, bvh)
+        fn, ref = dmk.li_levels_mega, dmk.li_levels_mega_reference
+    else:
+        job = _fog_job(tmp_path, "homogeneous")
+        mod, packed = vmk, vmk.pack_volpath(job.scene, dev, bvh)
+        fn, ref = vmk.li_volpath_mega, vmk.li_volpath_mega_reference
+    sampler = StratifiedSampler(job.sampler)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    o, d, w = camera_rays(RealisticCamera(job.camera, job.film, device=dev), sampler, pxy, pid,
+                          soff)
+    args = (packed, o, d, w, pid, soff, sampler, job.integrator)
+    name = f"{kernel}_mega" + ("_bvh" if bvh else "")
+    before = dict(mod.LAUNCHES)
+    l = fn(*args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[name] == before[name] + 1
+    assert sum(mod.LAUNCHES.values()) == sum(before.values()) + 1
+    _rays_in_bar(l, ref(*args))
+
+
+@pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
+def test_rays_in_sppm_camera_walk_matches_plain_version(tmp_path, bvh):
+    """#10 on the camera walk's own lens rays and slot values: against its
+    plain version (ld at the per-ray bar, VP valid equal on 99.5%)."""
+    dev = _device()
+    job = _sppm_job(tmp_path)
+    depth = job.integrator.max_depth
+    packed, cam, pxy, u = _sppm_inputs(job, dev, bvh)
+    ox, oy, oz, dx, dy, dz, w = pmk._raygen(pxy[:, 0], pxy[:, 1], None, None,
+                                            smk.SlotSampler(u, depth), cam)
+    o, d = torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)
+    pid = torch.arange(pxy.shape[0], device=dev)
+    name = "sppm_camera_mega" + ("_bvh" if bvh else "")
+    before = smk.LAUNCHES[name]
+    ld, vp = smk.sppm_camera_mega(packed, o, d, w, pid, 1, make_sampler(job), depth)
+    torch.cuda.synchronize()
+    assert smk.LAUNCHES[name] == before + 1
+    ld_ref, vp_ref = smk.sppm_camera_mega_reference(packed, o, d, w, u, depth)
+    _rays_in_bar(ld, ld_ref)
+    assert float((vp.valid == vp_ref.valid).float().mean()) >= 0.995
+
+
+@pytest.mark.parametrize("case", ["debug-glass", "direct-all-sphere-area"])
+def test_wavefront_li_levels_card_matches_cpu(tmp_path, case):
+    """The wavefront li_levels on the card (over K4) against the same on
+    the CPU on 80x45x16 camera rays: under 0.5% of the lit rays past 1e-3
+    relative, at least 1,000 of them."""
+    dev = _device()
+    from rs_ray_toy_tpu_torch.integrators.direct import li_levels
+    from rs_ray_toy_tpu_torch.render import camera_rays
+
+    scene = "scene_debug.json" if case == "debug-glass" else "scene_sphere_area.json"
+    job = load_scene(str(SAMPLES / scene))
+    if case != "debug-glass":
+        job.integrator.kind, job.integrator.light_strategy = "direct", "all"
+    job.film.xres, job.film.yres = 80, 45
+    sampler = StratifiedSampler(job.sampler)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    before = ik.LAUNCHES["intersect"]
+    l_card = li_levels(SceneCtx.from_scene(job.scene, dev), o, d, w, sampler, pid, soff,
+                       job.integrator).cpu()
+    assert ik.LAUNCHES["intersect"] > before
+    l_cpu = li_levels(SceneCtx.from_scene(job.scene, torch.device("cpu")), o.cpu(), d.cpu(),
+                      w.cpu(), sampler, pid.cpu(), soff.cpu(), job.integrator)
+    rel = (l_card - l_cpu).abs() / l_cpu.abs().clamp(min=1e-3)
+    lit = l_cpu.amax(-1) > 0
+    assert int(lit.sum()) > 1000
+    assert float((rel.amax(-1)[lit] > 1e-3).float().mean()) < 5e-3

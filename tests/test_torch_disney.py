@@ -306,16 +306,17 @@ def test_routes(tmp_path, capsys):
     assert "Disney fake subsurface (thin DisneyMaterial) lobes" in err and "wavefront" in err
 
 
-def test_bssrdf_disney_raises_at_load(tmp_path):
+def test_bssrdf_disney_raises_at_load(tmp_path, capsys):
     """A BSSRDF Disney material no longer raises at load: it loads with its
-    BSSRDF, and a kernel without the subsurface branch names it."""
+    BSSRDF, and a kernel without the subsurface branch names it (Debug's
+    announcing the wavefront loop)."""
     path = _write(tmp_path, _with_materials(
         [{**DISNEY, "scatter_distance": {"values": [0.5, 0.3, 0.2]}}], "Debug"))
     job = load_scene(path)
     assert bool(job.scene.materials["has_bssrdf"][-1])
-    with pytest.raises(NotImplementedError,
-                       match=r"specular transmission \(DisneyMaterial scatter_distance BSSRDF\)"):
-        select_kernel(job, make_sampler(job))
+    assert select_kernel(job, make_sampler(job)) == WAVEFRONT
+    assert "specular transmission (DisneyMaterial scatter_distance BSSRDF)" in (
+        capsys.readouterr().err)
     # thin: no BSSRDF (disney.rs:585-601)
     path = _write(tmp_path, _with_materials(
         [{**DISNEY, "thin": True, "scatter_distance": {"values": [0.5, 0.3, 0.2]}}]))
@@ -324,8 +325,15 @@ def test_bssrdf_disney_raises_at_load(tmp_path):
 
 
 @pytest.mark.parametrize("integrator", ["Debug", "DirectLighting", "Volpath", "SPPM"])
-def test_other_kernels_raise_naming_disney(tmp_path, integrator):
+def test_other_kernels_raise_naming_disney(tmp_path, capsys, integrator):
+    """Volpath and SPPM raise naming the Disney lobes; Debug and
+    DirectLighting name them announcing the wavefront loop."""
     path = _write(tmp_path, _with_materials([{**DISNEY, **CASES["plain"]}], integrator))
     job = load_scene(path)
+    if integrator in ("Debug", "DirectLighting"):
+        assert select_kernel(job, make_sampler(job)) == WAVEFRONT
+        err = capsys.readouterr().err
+        assert "Disney diffuse (DisneyMaterial) lobes" in err and "wavefront loop" in err
+        return
     with pytest.raises(NotImplementedError, match=r"Disney diffuse \(DisneyMaterial\) lobes"):
         select_kernel(job, make_sampler(job))

@@ -52,7 +52,14 @@ from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
 from rs_ray_toy_tpu_torch.integrators.path import li_path
 from rs_ray_toy_tpu_torch.interop import camera_from_jax, sampler_from_jax
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
-from rs_ray_toy_tpu_torch.render import make_sampler, pass_spp, render_job, sample_batch
+from rs_ray_toy_tpu_torch.render import (
+    WAVEFRONT,
+    make_sampler,
+    pass_spp,
+    render_job,
+    sample_batch,
+    select_kernel,
+)
 from rs_ray_toy_tpu_torch.sampler.halton import HaltonSampler
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec, load_scene
@@ -339,11 +346,20 @@ def test_render_job_matches_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("integrator", ["Debug", "DirectLighting", "Volpath"])
-def test_other_integrators_raise_under_halton(tmp_path, integrator):
+def test_other_integrators_raise_under_halton(tmp_path, capsys, integrator):
+    """Volpath raises under a HaltonSampler; Debug and DirectLighting take
+    it in the wavefront loop, announced naming it."""
     def edit(cfg):
         _halton(cfg)
         cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 3}
 
     job = load_scene(_write(tmp_path, edit))
+    if integrator in ("Debug", "DirectLighting"):
+        sampler = make_sampler(job)
+        assert isinstance(sampler, HaltonSampler)
+        assert select_kernel(job, sampler) == WAVEFRONT
+        err = capsys.readouterr().err
+        assert "(HaltonSampler)" in err and "wavefront loop" in err
+        return
     with pytest.raises(NotImplementedError, match="HaltonSampler"):
         render_job(job, "cpu", pupil_samples=PUPIL_SAMPLES)

@@ -241,18 +241,13 @@ def test_bvh_deeper_than_the_stack(tmp_path):
 @pytest.mark.parametrize("integ", ["Path", "Debug"])
 def test_deep_bvh_past_the_brute_force_bound(tmp_path, capsys, integ):
     """A tree of 64 levels or more over more than TRI_MAX triangles, the
-    path kernel's BVH range: its 64-entry stack cannot walk it, so Path
-    goes to the wavefront loop (announced, naming the depth) and renders
-    there over the deep instances' walk; Debug, which has no such loop,
-    raises naming the depth."""
+    fused kernels' BVH range: their 64-entry stack cannot walk it, so Path
+    and Debug go to the wavefront loop (announced, naming the depth) and
+    render there over the deep instances' walk."""
     path = write_deep_bvh_scene(str(tmp_path), integrator=integ, n_bulk=2000, xres=32, yres=18)
     job = load_scene(path)
     assert job.scene.triangles.count > pmk.TRI_MAX
     sampler = make_sampler(job)
-    if integ == "Debug":
-        with pytest.raises(NotImplementedError, match="a BVH of depth"):
-            select_kernel(job, sampler)
-        return
     assert select_kernel(job, sampler) == WAVEFRONT
     assert "a BVH of depth" in capsys.readouterr().err
     assert bk.pack_bvh(job.scene.triangles, "cpu").stack == DEEP_STACK

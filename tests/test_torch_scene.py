@@ -32,7 +32,7 @@ from rs_ray_toy_tpu_torch.bsdf.lobes import (
 )
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
-from rs_ray_toy_tpu_torch.render import make_sampler, select_kernel
+from rs_ray_toy_tpu_torch.render import WAVEFRONT, make_sampler, select_kernel
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.gen import FOG_AREA_LIGHT, THIN_FOG
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
@@ -153,8 +153,8 @@ def _sphere_under(integrator):
 
 
 def _halton_under(integrator):
-    """The fixture under a HaltonSampler and `integrator` (Path, AO and SPPM
-    render with it; the others raise)."""
+    """The fixture under a HaltonSampler and `integrator` (Path, AO, Debug,
+    DirectLighting and SPPM render with it; Volpath raises)."""
 
     def edit(cfg):
         cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 3}
@@ -186,22 +186,23 @@ UNSUPPORTED = {
     # any existing file as the map: image maps are not ported
     "image-map environment lights": _set(
         "infinite_lights", [{"light_type": "infinite", "mapname": "cube.obj"}]),
-    "sphere primitives": _sphere_under("Debug"),
+    # Debug and DirectLighting take spheres in the wavefront loop
+    "sphere primitives": _sphere_under("SPPM"),
     "participating media": _prim0(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     # a diffuse light needs a sphere light_shape, and only Volpath renders it
     "diffuse lights": _set("lights", [{"light_type": "diffuse"}]),
     "lights other than up to 8 point lights": _sppm_area_light,
     "medium_interface": _volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "grid media with lights other than point lights": _volpath(GRID_MEDIUM, FOG_AREA_LIGHT),
-    "HaltonSampler": _halton_under("Debug"),
+    "HaltonSampler": _halton_under("Volpath"),
     # AO renders through the wavefront loop, which takes a camera medium
     # (ignored) but only power-of-two stratified grids
     "AO integrator": lambda cfg: cfg.update(
         Integrator={"integrator_type": "AO"},
         Sampler={"sampler_type": "StratifiedSampler", "xsamp": 3, "ysamp": 3}),
     # a Disney material with a BSSRDF (non-zero scatter_distance, not thin)
-    # under Debug, whose kernel has no subsurface branch
-    "material type DisneyMaterial": _bssrdf_under("Debug"),
+    # under SPPM, whose kernels have no subsurface branch
+    "material type DisneyMaterial": _bssrdf_under("SPPM"),
 }
 
 
@@ -229,9 +230,11 @@ TRIANGLE_LIGHT = {"light_type": "diffuse", "spectrum": {"values": [5.0, 5.0, 5.0
     ("DirectLighting", ENV, "infinite lights"),
     ("SPPM", ENV, "infinite lights"),
 ], ids=lambda v: v if isinstance(v, str) else v["light_type"])
-def test_other_kernels_raise_on_what_only_path_takes(tmp_path, integrator, edit, feature):
+def test_other_kernels_raise_on_what_only_path_takes(tmp_path, capsys, integrator, edit, feature):
     """The Debug / DirectLighting, Volpath and SPPM kernels keep their
-    subsets: spheres, and lights outside each, raise naming the feature."""
+    subsets: spheres, and lights outside each, raise naming the feature;
+    Debug and DirectLighting name it announcing the wavefront loop, which
+    takes them."""
 
     def apply(cfg):
         block = {"integrator_type": integrator, "max_depth": 3}
@@ -246,6 +249,11 @@ def test_other_kernels_raise_on_what_only_path_takes(tmp_path, integrator, edit,
 
     path = write_scene(tmp_path, apply)
     job = load_scene(path)
+    if integrator in ("Debug", "DirectLighting"):
+        assert select_kernel(job, make_sampler(job)) == WAVEFRONT
+        err = capsys.readouterr().err
+        assert feature in err and "direct-kernel subset" in err and "wavefront loop" in err
+        return
     with pytest.raises(NotImplementedError, match=feature):
         select_kernel(job, make_sampler(job))
 

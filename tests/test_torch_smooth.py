@@ -57,7 +57,7 @@ from rs_ray_toy_tpu_torch.integrators.path import li_path
 from rs_ray_toy_tpu_torch.interop import from_jax_packed, from_jax_scene_ctx
 from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
-from rs_ray_toy_tpu_torch.render import render_job
+from rs_ray_toy_tpu_torch.render import WAVEFRONT, make_sampler, render_job, select_kernel
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.gen import write_smooth_grid_scene
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
@@ -334,7 +334,9 @@ def test_wavefront_matches_jax(tmp_path, sphere_grid, geometry, integrator):
 
 
 @pytest.mark.parametrize("integrator", ["Debug", "DirectLighting", "Volpath", "SPPM"])
-def test_flat_kernels_raise_on_smooth_meshes(tmp_path, integrator):
+def test_flat_kernels_raise_on_smooth_meshes(tmp_path, capsys, integrator):
+    """Volpath and SPPM raise on vertex normals; Debug and DirectLighting
+    name them announcing the wavefront loop, which shades them."""
     def edit(cfg):
         cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 3}
         if integrator == "Volpath":
@@ -342,5 +344,10 @@ def test_flat_kernels_raise_on_smooth_meshes(tmp_path, integrator):
                                        "preset": "Clorox"}
 
     job = load_scene(_octa_scene(tmp_path, edit=edit))
+    if integrator in ("Debug", "DirectLighting"):
+        assert select_kernel(job, make_sampler(job)) == WAVEFRONT
+        err = capsys.readouterr().err
+        assert "smooth shading (vertex normals)" in err and "wavefront loop" in err
+        return
     with pytest.raises(NotImplementedError, match=r"smooth shading \(vertex normals\)"):
         render_job(job, "cpu", pupil_samples=PUPIL_SAMPLES)

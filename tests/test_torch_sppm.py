@@ -340,8 +340,9 @@ UNSUPPORTED = {
     "participating media": lambda cfg: cfg["Aggregate"]["primitives"][0].update(
         medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "max_depth 1 outside 2..15": _edit(max_depth=1),
-    # the scene's HaltonSampler under Debug (Path, AO and SPPM take it)
-    "HaltonSampler": _edit(integrator_type="Debug"),
+    # the scene's HaltonSampler under Volpath (Path, AO, Debug,
+    # DirectLighting and SPPM take it)
+    "HaltonSampler": _edit(integrator_type="Volpath"),
 }
 
 
