@@ -224,12 +224,35 @@ Phase 13 Debug and DirectLighting past the direct kernel, and the rays-in
          subset (#10 on every pixel, VP valid and material equal on 99.5%),
          and its output against the camera instance's on the same samples
          reported (rays apart, relative mean difference).
+Phase 14 SPPM on glass and Disney materials, and K3's BVH4 walk: (a)
+         samples/scene_sppm_glass.json (the matte cube smooth glass:
+         specular reflection and transmission) and (b)
+         samples/scene_sppm_disney.json (it the five-lobe Disney material)
+         at 640x360, 4 iterations of 2^17 photons, through deploy_render,
+         one launch of each SPPM kernel's wide instance per iteration and
+         none of the base ones, each kernel held to its plain version as
+         in phase 6 (the camera walk, the photon walk on the main path's
+         and the seeded surface batch's photons, the deposit); then each
+         fixture's grid (its first material's 1,600 cubes, 19,224
+         triangles) at 2 iterations over the wide BVH instances, held the
+         same way; (c) #10's wide instances on the glass fixture's and the
+         Disney grid's first iteration's camera rays, held as in 13e; (d)
+         AO on phase 7b's grid, one pass at 8 spp over the BVH4 walk (the
+         loop's walk is the binary one: ops/bvh_kernel.WIDE_DEFAULT), 64
+         BVH4 any-hit launches, counts at 0 just before, and on its first
+         probe batch the BVH4 any hit held to its plain version as 7b holds
+         K3 and to the binary instance (hit or miss equal on all but 1e-5
+         of the rays); (e) the same closest and any hit on phase 7c's
+         76,824-triangle grid's camera rays and bounce-0 shadow rays; (f)
+         on phase 12e's 101-level tree (the BVH4's deep instances) on 2^17
+         rays aimed at it; each walk timed against the binary one on the
+         same rays, in turns.
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
 loop) and none of the others.  Every phase
 prints one line; any failure raises and exits non-zero.  The
-second-to-last line is a JSON record of the 46 kernels (K7's entry names
+second-to-last line is a JSON record of the 54 kernels (K7's entry names
 the textured instance it runs inside, whose launches it carries, and its
 launches alone in 12a), the last line
 {"ok": true, "device": {...}}.  A fuller record goes to
@@ -295,7 +318,9 @@ bytes, and their original row in BVH mode), the BVH nodes as above and,
 for the shaded kernel, the 15 shade floats (31 smooth, which also
 writes 6 attribute floats more a ray) and 2 ints of each triangle;
 their operations are the Moller-Trumbore and slab tests the plain
-version counts.  No single PyTorch call computes a sample pass, any of
+version counts.  The BVH4 walk reads each wide node's 144 bytes once
+instead of the binary nodes, and its plain version counts a slab test
+for each non-empty child slot it tests.  No single PyTorch call computes a sample pass, any of
 the SPPM kernels, or a closest hit over a triangle list or a BVH:
 `library_ms` is null.  A path-kernel instance held on a subset gives as
 `plain_ms` the time of the plain version's one run there, the run that
@@ -303,6 +328,7 @@ counts its work.
 """
 
 import contextlib
+import copy
 import io
 import json
 import statistics
@@ -370,6 +396,8 @@ SCENE_MATERIALS = ROOT / "samples" / "scene_materials.json"
 SCENE_SSS = ROOT / "samples" / "scene_sss.json"
 SCENE_SSS_MIXED = ROOT / "samples" / "scene_sss_mixed.json"
 SCENE_TEXTURED = ROOT / "samples" / "scene_textured.json"
+SCENE_SPPM_GLASS = ROOT / "samples" / "scene_sppm_glass.json"
+SCENE_SPPM_DISNEY = ROOT / "samples" / "scene_sppm_disney.json"
 HALTON6 = {"sampler_type": "HaltonSampler", "nsamp": 6}
 OUT = ROOT / "build" / "chip_smoke"
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
@@ -442,6 +470,17 @@ KERNELS["volpath_mega_bvh"] = dict(source=VOLPATH_SRC,
                                    replaces="rs_ray_toy_tpu/ops/volpath_megakernel.py:1015")
 KERNELS["sppm_camera_mega"] = dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:437")
 KERNELS["sppm_camera_mega_bvh"] = dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:461")
+# the SPPM kernels' wide instances (glass and Disney lobes) and K3's BVH4
+# walk, closest and any hit (phase 14)
+for _name in ("sppm_camera_mega_cam", "sppm_camera_mega_cam_bvh", "sppm_camera_mega",
+              "sppm_camera_mega_bvh", "sppm_photon_mega", "sppm_photon_mega_bvh",
+              "sppm_deposit_mega"):
+    KERNELS[_name + "_wide"] = KERNELS[_name]
+KERNELS["bvh4"] = dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:591")
+# the K3 walk the wavefront loop takes (ops/bvh_kernel.WIDE_DEFAULT): its
+# entry, the other's, and the launch counts of its closest and any hit
+WALK, OTHER_WALK = ("bvh4", "bvh") if bk.WIDE_DEFAULT else ("bvh", "bvh4")
+ANY, CLOSEST = bk.launch_key(True, bk.WIDE_DEFAULT), bk.launch_key(False, bk.WIDE_DEFAULT)
 # FP32 operations per counted test, density tap or walked deposit pair
 FLOPS = {"mt": 45, "slab": 27, "sph": 30, "lobe": 3, "track": 40, "pair": 9, "disney_ops": 1,
          "texel": 10, "fd_ray": 110 + 94 * 10 + 15}
@@ -469,6 +508,7 @@ ROW_HEAD_COLS = 9 + 7  # p0, e1, e2; ng, dpdu, lobe count
 NORMAL_COLS = 9  # a smooth mesh's raw vertex normals n0, n1, n2
 LOBE_COLS = 16
 NODE_READ_COLS = 12 + 3  # both child boxes; offset, n_prims, axis
+NODE4_BYTES = (24 + 12) * 4  # a wide node: four child boxes; their kind, a, b
 QUERY_BYTES = 28 + 8  # o, d, t_max in; t, triangle out
 SHADED_OUT_BYTES = 4 * 4 + 16 * 4  # t, triangle, material, area light; 16 attribute floats
 MISS_HOLD = 1e-5  # hit or miss may differ on this share of the held rays (ties)
@@ -911,6 +951,10 @@ def main():
     direct_wavefront_phase(record, card, dev)
     rays_in_phase(record, kernels, card, dev)
 
+    # ---- phase 14: SPPM on glass and Disney; K3's BVH4 walk ----
+    wide_sppm_phase(record, kernels, card, dev)
+    bvh4_phase(record, kernels, card, dev)
+
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -1087,13 +1131,13 @@ def hold_sppm_walks(job, dev, cross=False):
     return camera, photon, vp, ev, ev_batch, radius, smk.resolve_mat_tables(job.scene, dev)
 
 
-def hold_deposit(vp, ev, radius, mats, timed=True):
-    """The deposit kernel against its plain version on the same sorted
-    events (the kernel's VPs and events of one iteration); with `timed`,
-    its times and bound too."""
+def hold_deposit(vp, ev, radius, mats, timed=True, wide=False):
+    """The deposit kernel (its wide instance with `wide`) against its plain
+    version on the same sorted events (the kernel's VPs and events of one
+    iteration); with `timed`, its times and bound too."""
     lo, diag = sppm.grid_bounds(vp, radius)
     inp = smk.deposit_inputs(vp, radius, ev, lo, diag)
-    launch = smk.prepare_deposit(vp, mats, inp)
+    launch = smk.prepare_deposit(vp, mats, inp, wide)
     phi, m = launch()
     torch.cuda.synchronize()
     work = {}
@@ -1109,7 +1153,7 @@ def hold_deposit(vp, ev, radius, mats, timed=True):
         return held
     n = vp.p.shape[0]
     t_ms = timed_ms(launch, reps=10)
-    wrapper_ms = timed_ms(lambda: smk.deposit_mega(vp, radius, mats, ev, lo, diag))
+    wrapper_ms = timed_ms(lambda: smk.deposit_mega(vp, radius, mats, ev, lo, diag, wide))
     plain_ms = once_ms(lambda: smk.deposit_walk_reference(vp, mats, inp))
     # bytes: the VPs with a range, and each sorted event that some range holds once
     walking = inp.end > inp.start
@@ -1133,10 +1177,11 @@ def first_photons(ev, depth, share):
                  for e in ev)
 
 
-def drive_sppm(scene, png, bvh):
+def drive_sppm(scene, png, bvh, wide=False):
     """The SPPM main path through deploy_render with every count at 0 just
-    before: one launch of each SPPM kernel (BVH instances when `bvh`) per
-    iteration and none of the others.  Returns (result, coloured pixels)."""
+    before: one launch of each SPPM kernel (BVH instances when `bvh`, the
+    wide ones when `wide`) per iteration and none of the others.  Returns
+    (result, coloured pixels)."""
     zero_counts()
     res = deploy_render(str(scene), str(png))
     counts = all_counts()
@@ -1147,8 +1192,9 @@ def drive_sppm(scene, png, bvh):
     check(colored > 0, f"{png.name}: no coloured pixels")
     check(res["fused_kernel"] == "sppm" and res["render_path"] == "megakernel" and res["bvh"] == bvh,
           f"{png.name}: wrong path")
-    sfx = "_bvh" if bvh else ""
-    want = {f"sppm_camera_mega_cam{sfx}", f"sppm_photon_mega{sfx}", "sppm_deposit_mega"}
+    sfx, wsfx = "_bvh" * bvh, "_wide" * wide
+    want = {f"sppm_camera_mega_cam{sfx}{wsfx}", f"sppm_photon_mega{sfx}{wsfx}",
+            f"sppm_deposit_mega{wsfx}"}
     for k, v in counts.items():
         check(v == (res["passes"] if k in want else 0), f"{png.name}: launches {counts}")
     return res, colored
@@ -1271,15 +1317,19 @@ class RecordingCtx(SceneCtx):
         return super().intersect(o, d, t_max)
 
 
-def first_pass_batches(job, dev, spp):
+def first_pass_batches(job, dev, spp, wide=None):
     """The first pass of the wavefront render of `job` at `spp` samples per
     pixel, run again with a recording context: its first camera (shaded)
-    and occlusion batches, and the context."""
+    and occlusion batches, and the context.  `wide` (True or False) sets
+    the walk of its closest-hit and any-hit queries, which is otherwise
+    the loop's own (ops/bvh_kernel.WIDE_DEFAULT)."""
     sampler = make_sampler(job)
     sampler.xs, sampler.ys = (2, 4) if spp == 8 else (4, 4)
     sampler.spp = spp
     cam = RealisticCamera(job.camera, job.film, device=dev)
     ctx = RecordingCtx(SceneCtx.from_scene(job.scene, dev))
+    if wide is not None:
+        ctx.bvh = ctx.bvh._replace(wide=wide)
     pxy, pid, soff = sample_batch(job.film, spp, dev)
     o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
     li = li_ao if job.integrator.kind == "ao" else li_path
@@ -1319,6 +1369,8 @@ def query_bytes(query, ctx, n):
         return n * QUERY_BYTES + ctx.tri_packed.shape[0] * 9 * 4
     m, p = ctx.bvh.nodes_f.shape[0], ctx.bvh.prims_f.shape[0]
     nbytes = m * NODE_READ_COLS * 4 + p * (9 * 4 + 4)
+    if ctx.bvh.wide and query != "shaded":
+        nbytes = ctx.bvh.nodes4_f.shape[0] * NODE4_BYTES + p * (9 * 4 + 4)
     if query == "shaded":
         # the smooth instance reads 31 shade floats a triangle and writes 6
         # attribute floats more a ray
@@ -1440,14 +1492,14 @@ def wavefront_phase(record, kernels, card, dev):
     t0 = time.perf_counter()
     grid = write_grid_scene(str(OUT / "grid_ao"), base=str(SCENE_AO), integrator="AO")
     res, colored, counts = drive_wavefront(
-        grid, OUT / "chip_smoke_grid_ao.png", {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
+        grid, OUT / "chip_smoke_grid_ao.png", {"bvh_shaded": 1, ANY: n_probe}, 8)
     check(res["bvh"], "the AO grid did not take the BVH")
     job = load_scene(grid)
     ctx, batches = first_pass_batches(job, dev, 8)
     shaded = hold_query("shaded", ctx, batches["shaded"])
     any_hit = hold_query("any", ctx, batches["occluded"])
     closest = hold_query("closest", ctx, batches["occluded"])
-    wavefront_entry(kernels, "bvh", counts["bvh_any"] + counts["bvh_closest"], any_hit)
+    wavefront_entry(kernels, WALK, counts[ANY] + counts[CLOSEST], any_hit)
     wavefront_entry(kernels, "bvh_shaded", counts["bvh_shaded"], shaded)
     job.sampler.xsamp, job.sampler.ysamp = 2, 4
     warm = [render_job(job, dev) for _ in range(2)]
@@ -1479,7 +1531,7 @@ def wavefront_phase(record, kernels, card, dev):
     depth = job.integrator.max_depth
     check(job.scene.triangles.count > pmk.BVH_TRI_MAX, "the 80x80 grid fits the path kernel")
     res, colored, counts = drive_wavefront(
-        big, OUT / "chip_smoke_grid80_path.png", {"bvh_shaded": depth, "bvh_any": depth}, 8)
+        big, OUT / "chip_smoke_grid80_path.png", {"bvh_shaded": depth, ANY: depth}, 8)
     ctx, batches = first_pass_batches(job, dev, 8)
     check(ctx.bvh.depth < pmk.STACK_DEPTH, "the 80x80 grid's BVH is too deep")
     shaded_c = hold_query("shaded", ctx, batches["shaded"])
@@ -1494,8 +1546,8 @@ def wavefront_phase(record, kernels, card, dev):
                              warm_camera_mrays_per_s=[r["mrays_per_s"] for r in warm],
                              render_s=res["elapsed_s"], shaded=shaded_c, any_hit=any_c,
                              phase_s=time.perf_counter() - t0)
-    kernels["bvh"]["max_abs_err"] = max(any_c["max_abs_err"], closest["max_abs_err"],
-                                        any_hit["max_abs_err"])
+    kernels[WALK]["max_abs_err"] = max(any_c["max_abs_err"], closest["max_abs_err"],
+                                       any_hit["max_abs_err"])
     kernels["bvh_shaded"]["max_abs_err"] = max(shaded_c["max_abs_err"], shaded["max_abs_err"])
     print(f"phase 7c: Path, grid of {job.scene.triangles.count} triangles (BVH depth "
           f"{ctx.bvh.depth}) {job.film.xres}x{job.film.yres}x8, max_depth {depth}: {rays} rays, "
@@ -1901,7 +1953,7 @@ def halton_smooth_phase(record, kernels, card, dev):
     check(job.scene.triangles.count > pmk.BVH_TRI_MAX, "9g: the grid fits the path kernel")
     res, colored, counts = drive_wavefront(
         grid80, OUT / "chip_smoke_smooth_grid80.png",
-        {"bvh_shaded_smooth": depth, "bvh_any": depth}, 8)
+        {"bvh_shaded_smooth": depth, ANY: depth}, 8)
     ctx, batches = first_pass_batches(job, dev, 8)
     check(ctx.bvh.smooth, "9g: flat shade rows")
     shaded = hold_query("shaded", ctx, batches["shaded"])
@@ -2183,17 +2235,17 @@ def subsurface_phase(record, kernels, card, dev):
     t0 = time.perf_counter()
     grid = write_grid_scene(str(OUT / "grid_sss_mixed"), base=str(SCENE_SSS_MIXED))
     res, colored, counts = drive_announced(grid, OUT / "chip_smoke_grid_sss_mixed.png", "11e",
-                                           ("bvh_closest", "bvh_shaded", "bvh_any"))
+                                           (CLOSEST, "bvh_shaded", ANY))
     job = load_scene(grid)
     ctx, batches = first_pass_batches(job, dev, 16)
     check("closest" in batches, "11e: the grid's probe chain cast no closest-hit batch")
     closest = hold_query("closest", ctx, batches["closest"])
-    kernels["bvh"].update(closest_launches=counts["bvh_closest"], closest_ms=closest["ms"],
-                          closest_bound_ms=closest["bound_ms"],
-                          closest_plain_ms=closest["plain_ms"], closest_rays=closest["rays"],
-                          max_abs_err=max(kernels["bvh"]["max_abs_err"], closest["max_abs_err"]))
-    grid_bar = card_vs_cpu(grid, 80, 45, dev, "11e grid",
-                           ("bvh_closest", "bvh_shaded", "bvh_any"), lit_bar=True)
+    kernels[WALK].update(closest_launches=counts[CLOSEST], closest_ms=closest["ms"],
+                         closest_bound_ms=closest["bound_ms"],
+                         closest_plain_ms=closest["plain_ms"], closest_rays=closest["rays"],
+                         max_abs_err=max(kernels[WALK]["max_abs_err"], closest["max_abs_err"]))
+    grid_bar = card_vs_cpu(grid, 80, 45, dev, "11e grid", (CLOSEST, "bvh_shaded", ANY),
+                           lit_bar=True)
     record["phase11e_grid"] = dict(launches=counts, colored=colored,
                                    camera_rays=res["camera_rays"],
                                    render_mrays_per_s=res["mrays_per_s"], closest=closest,
@@ -2331,10 +2383,10 @@ def repairs_phase(record, card, dev):
                               integrator="AO", xres=160, yres=90)
     n_probe = load_scene(big_ao).integrator.n_samples
     res_ao, _, counts_ao = drive_wavefront(big_ao, OUT / "chip_smoke_grid112_ao.png",
-                                           {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
+                                           {"bvh_shaded": 1, ANY: n_probe}, 8)
     big_path = write_grid_scene(str(OUT / "grid112_path"), ny=112, nz=112, xres=160, yres=90)
     res_big, _, counts_big = drive_announced(big_path, OUT / "chip_smoke_grid112_path.png",
-                                             "12e", ("bvh_shaded", "bvh_any"))
+                                             "12e", ("bvh_shaded", ANY))
     job = load_scene(big_path)
     check(job.scene.triangles.count > 120_000, "12e: the 112x112 grid")
     # a BVH of 64 levels or more over more triangles than K1's brute force:
@@ -2343,7 +2395,7 @@ def repairs_phase(record, card, dev):
     deep = write_deep_bvh_scene(str(OUT / "deep_bvh"), integrator="Path", n_bulk=2000,
                                 xres=160, yres=90)
     res_deep, _, counts_deep = drive_announced(deep, OUT / "chip_smoke_deep_bvh.png", "12e",
-                                               ("bvh_shaded", "bvh_any"))
+                                               ("bvh_shaded", ANY))
     deep_job = load_scene(deep)
     check(deep_job.scene.triangles.count > pmk.TRI_MAX, "12e: the deep tree's triangles")
     ctx = SceneCtx.from_scene(deep_job.scene, dev)
@@ -2632,6 +2684,200 @@ def rays_in_line(held, t0, card):
             f"instance (diverged, relative mean difference) {held['vs_camera']}; "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
 
+
+# ---- phase 14: SPPM on glass and Disney (the wide instances); K3's BVH4 walk ----
+
+
+def sppm_grid(scene, tag):
+    """write_grid_scene of an SPPM fixture (its first material's 1,600
+    cubes, 19,224 triangles) at 2 iterations."""
+    grid = write_grid_scene(str(OUT / f"grid_sppm_{tag}"), base=str(scene), integrator="SPPM",
+                            max_depth=3)
+    cfg = json.loads(Path(grid).read_text())
+    cfg["Integrator"]["n_iters"] = 2
+    Path(grid).write_text(json.dumps(cfg))
+    return grid
+
+
+def wide_sppm_phase(record, kernels, card, dev):
+    """Phase 14a-c (see the module docstring)."""
+    held = {}
+    for tag, scene in (("glass", SCENE_SPPM_GLASS), ("disney", SCENE_SPPM_DISNEY)):
+        t0 = time.perf_counter()
+        res, colored = drive_sppm(scene, OUT / f"chip_smoke_sppm_{tag}.png", False, wide=True)
+        job = load_scene(str(scene))
+        depth = job.integrator.max_depth
+        camera, photon, vp, ev, ev_batch, radius, mats = hold_sppm_walks(job, dev)
+        deposit = hold_deposit(vp, ev, radius, mats, wide=True)
+        deposit_batch = hold_deposit(vp, first_photons(ev_batch, depth, 16), radius, mats,
+                                     timed=False, wide=True)
+        warm = render_job(job, dev)
+        grid = sppm_grid(scene, tag)
+        res_g, colored_g = drive_sppm(grid, OUT / f"chip_smoke_grid_sppm_{tag}.png", True,
+                                      wide=True)
+        job_g = load_scene(grid)
+        camera_g, photon_g, vp_g, ev_g, _, radius_g, mats_g = hold_sppm_walks(job_g, dev)
+        deposit_g = hold_deposit(vp_g, ev_g, radius_g, mats_g, timed=False, wide=True)
+        held[tag] = h = dict(
+            iterations=res["passes"], colored=colored, render_s=res["elapsed_s"],
+            camera_mrays_per_s=res["camera_mrays_per_s"],
+            photon_mrays_per_s=res["photon_mrays_per_s"],
+            warm_camera_photon_mrays_per_s=(warm["camera_mrays_per_s"],
+                                            warm["photon_mrays_per_s"]),
+            camera=camera, photon=photon, deposit=deposit, deposit_surface_batch=deposit_batch,
+            grid=dict(triangles=job_g.scene.triangles.count, iterations=res_g["passes"],
+                      colored=colored_g, camera_mrays_per_s=res_g["camera_mrays_per_s"],
+                      photon_mrays_per_s=res_g["photon_mrays_per_s"], camera=camera_g,
+                      photon=photon_g, deposit=deposit_g),
+            phase_s=time.perf_counter() - t0)
+        record[f"phase14_{tag}"] = h
+        main, batch = photon["main"], photon["surface_batch"]
+        print(
+            f"phase 14{'a' if tag == 'glass' else 'b'}: SPPM, {Path(scene).name} 640x360, "
+            f"{h['iterations']} iterations of {job.integrator.photons_per_iter} photons through "
+            f"the wide instances, {colored} coloured px; first render {res['elapsed_s']:.3f} s "
+            f"({res['camera_mrays_per_s']:.2f} camera / {res['photon_mrays_per_s']:.2f} photon "
+            f"Mrays/s), warm {warm['camera_mrays_per_s']:.1f} / {warm['photon_mrays_per_s']:.1f};"
+            f" camera kernel {camera['ms']:.3f} ms (plain {camera['plain_ms']:.1f}, bound "
+            f"{camera['bound_ms']:.4f} by {camera['bound_by']}), diverged "
+            f"{camera['diverged']:.2e}, VP valid equal {camera['valid_equal']:.4f}, {camera['vps']}"
+            f" VPs, record equal on {camera['vp_record_equal']:.5f} of {camera['vps_held']}; "
+            f"photon kernel {photon['ms']:.3f} ms (plain {photon['plain_ms']:.1f}, bound "
+            f"{photon['bound_ms']:.4f} by {photon['bound_by']}), events equal on "
+            f"{main['live_equal']:.4f} of {main['live_photons']} live photons, surface batch "
+            f"{batch['live_equal']:.4f} of {batch['live_photons']}; deposit kernel "
+            f"{deposit['ms']:.3f} ms (plain {deposit['plain_ms']:.1f}, bound "
+            f"{deposit['bound_ms']:.4f} by {deposit['bound_by']}), M total {deposit['m_total']}, "
+            f"phi rel err {deposit['phi_rel_err']:.2e} (surface batch "
+            f"{deposit_batch['phi_rel_err']:.2e}); its grid of {job_g.scene.triangles.count} "
+            f"triangles, {res_g['passes']} iterations over the BVH, {colored_g} coloured px: "
+            f"camera kernel {camera_g['ms']:.3f} ms (plain {camera_g['plain_ms']:.1f}, bound "
+            f"{camera_g['bound_ms']:.4f} by {camera_g['bound_by']}), diverged "
+            f"{camera_g['diverged']:.2e}, VP valid equal {camera_g['valid_equal']:.4f}; photon "
+            f"kernel {photon_g['ms']:.3f} ms (plain {photon_g['plain_ms']:.1f}, bound "
+            f"{photon_g['bound_ms']:.4f} by {photon_g['bound_by']}), events equal on "
+            f"{photon_g['main']['live_equal']:.4f} of {photon_g['main']['live_photons']}, surface "
+            f"batch {photon_g['surface_batch']['live_equal']:.4f}; deposit M total "
+            f"{deposit_g['m_total']}, phi rel err {deposit_g['phi_rel_err']:.2e}; "
+            f"{h['phase_s']:.1f} s [{card}]")
+    glass, disney = held["glass"], held["disney"]
+    err = lambda key, *path: max(_dig(held[t], *path)[key] for t in held)
+    for name, path, launches in (
+        ("sppm_camera_mega_cam_wide", ("camera",), glass["iterations"]),
+        ("sppm_photon_mega_wide", ("photon",), glass["iterations"]),
+        ("sppm_deposit_mega_wide", ("deposit",), glass["iterations"]),
+        ("sppm_camera_mega_cam_bvh_wide", ("grid", "camera"), glass["grid"]["iterations"]),
+        ("sppm_photon_mega_bvh_wide", ("grid", "photon"), glass["grid"]["iterations"]),
+    ):
+        extra = err("max_abs_err", *path)
+        if path == ("deposit",):
+            extra = max(extra, err("max_abs_err", "deposit_surface_batch"),
+                        err("max_abs_err", "grid", "deposit"))
+        add_entry(kernels, name, launches, _dig(glass, *path), extra)
+        kernels[name]["disney"] = {k: _dig(disney, *path)[k] for k in
+                                   ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+    # (c) the rays-in wide instances: the glass fixture, the Disney grid
+    for tag, scene, name in (
+        ("glass", SCENE_SPPM_GLASS, "sppm_camera_mega_wide"),
+        ("grid_disney_bvh", OUT / "grid_sppm_disney" / "grid.json", "sppm_camera_mega_bvh_wide"),
+    ):
+        t1 = time.perf_counter()
+        h = hold_sppm_rays_in(load_scene(str(scene)), dev, name)
+        add_entry(kernels, name, h["launches"], h)
+        record[f"phase14c_{tag}"] = dict(phase_s=time.perf_counter() - t1, **h)
+        print(f"phase 14c: {name} on {tag}'s first iteration's camera rays: VP valid equal "
+              f"{h['valid_equal']:.4f} (vs K8 {h['vp_valid_vs_camera']:.4f}); "
+              + rays_in_line(h, t1, card))
+
+
+def _dig(d, *path):
+    for k in path:
+        d = d[k]
+    return d
+
+
+def hold_walks(query, ctx, batch, stride=16):
+    """The BVH4 instance of `query` ("closest" or "any") held to the plain
+    BVH4 walk (hold_query) and to the binary instance on the same rays:
+    hit or miss equal on all but MISS_HOLD of them (exact ties can part
+    the two visit orders), where both hit the triangle and t equal.  Both
+    instances timed, in turns.  Returns (BVH4 numbers, binary numbers)."""
+    wide, binary = copy.copy(ctx), copy.copy(ctx)
+    wide.bvh, binary.bvh = ctx.bvh._replace(wide=True), ctx.bvh._replace(wide=False)
+    w = hold_query(query, wide, batch, stride)
+    o, d, t_max = batch
+    launch_w = bk.prepare_launch(wide.bvh, o, d, t_max, query == "any")
+    launch_b = bk.prepare_launch(binary.bvh, o, d, t_max, query == "any")
+    t_w, i_w = (x.clone() for x in launch_w())
+    t_b, i_b = (x.clone() for x in launch_b())
+    hit_w, hit_b = i_w >= 0, i_b >= 0
+    apart = float((hit_w != hit_b).double().mean())
+    check(apart <= MISS_HOLD, f"BVH4 {query}: hit or miss differs from binary on {apart:.2e}")
+    both = hit_w & hit_b
+    if query == "closest":
+        same = float(((i_w == i_b) & (t_w == t_b))[both].double().mean()) if both.any() else 1.0
+        check(same >= 1.0 - MISS_HOLD, f"BVH4 closest: {same:.6f} of the hits equal binary's")
+    ms_b = [timed_ms(launch_b, reps=10)]
+    ms_w = [w["ms"], timed_ms(launch_w, reps=10)]
+    ms_b.append(timed_ms(launch_b, reps=10))
+    w.update(vs_binary_apart=apart, ms_turns=ms_w)
+    b = dict(ms=statistics.median(ms_b), ms_turns=ms_b, hits=int(hit_b.sum()))
+    return w, b
+
+
+def bvh4_phase(record, kernels, card, dev):
+    """Phase 14d-f (see the module docstring)."""
+    t0 = time.perf_counter()
+    # (d) AO on the 19,224-triangle grid, one pass over the walk the loop
+    # does not take by default, counts at 0 just before; both walks on its
+    # first probe batch
+    job = load_scene(str(OUT / "grid_ao" / "grid.json"))
+    n_probe = job.integrator.n_samples
+    zero_counts()
+    ctx, batches = first_pass_batches(job, dev, 8, wide=not bk.WIDE_DEFAULT)
+    counts = {k: v for k, v in all_counts().items() if v}
+    other_any = bk.launch_key(True, not bk.WIDE_DEFAULT)
+    check(counts == {"bvh_shaded": 1, other_any: n_probe}, f"14d: launches {counts}")
+    ao_any = hold_walks("any", ctx, batches["occluded"])
+    # (e) the 76,824-triangle grid's camera (closest) and bounce-0 shadow rays
+    grid80 = load_scene(str(OUT / "grid80_path" / "grid.json"))
+    ctx80, batches80 = first_pass_batches(grid80, dev, 8)
+    p80_closest = hold_walks("closest", ctx80, batches80["shaded"])
+    p80_any = hold_walks("any", ctx80, batches80["occluded"])
+    # (f) the 101-level tree (50 wide levels: the deep instances), 2^17 aimed rays
+    deep = load_scene(str(OUT / "deep_bvh" / "deep.json"))
+    ctx_d = SceneCtx.from_scene(deep.scene, dev)
+    check(ctx_d.bvh.stack4 == bk.DEEP_STACK, f"14f: a wide tree of depth {ctx_d.bvh.depth4}")
+    aimed = aimed_rays(1 << 17, (35.0, 0.0, 0.0), 1.0, dev)
+    deep_closest = hold_walks("closest", ctx_d, aimed, stride=8)
+    deep_any = hold_walks("any", ctx_d, aimed, stride=8)
+    held = dict(ao_grid_any=ao_any, grid80_closest=p80_closest, grid80_any=p80_any,
+                deep_closest=deep_closest, deep_any=deep_any)
+    record["phase14_bvh4"] = dict(
+        launches=counts, nodes=ctx.bvh.nodes_f.shape[0], wide_nodes=ctx.bvh.nodes4_f.shape[0],
+        depth=ctx.bvh.depth, depth4=ctx.bvh.depth4, deep_depth=ctx_d.bvh.depth,
+        deep_depth4=ctx_d.bvh.depth4, default_wide=bk.WIDE_DEFAULT,
+        **{k: dict(bvh4=w, binary=b) for k, (w, b) in held.items()},
+        phase_s=time.perf_counter() - t0)
+    check(not bk.WIDE_DEFAULT, "14d: the loop's walk is the BVH4: its pass is 7b's")
+    wavefront_entry(kernels, "bvh4", counts["bvh4_any"] + counts.get("bvh4_closest", 0), ao_any[0])
+    kernels["bvh4"]["max_abs_err"] = max(w["max_abs_err"] for w, _ in held.values())
+    kernels["bvh4"].update(
+        binary_ms=ao_any[1]["ms"],
+        **{f"{k}_ms": w["ms"] for k, (w, _) in held.items() if k != "ao_grid_any"},
+        **{f"{k}_binary_ms": b["ms"] for k, (_, b) in held.items() if k != "ao_grid_any"})
+    print(f"phase 14d-f: K3's BVH4 walk ({ctx.bvh.nodes4_f.shape[0]} wide nodes of depth "
+          f"{ctx.bvh.depth4} for {ctx.bvh.nodes_f.shape[0]} binary of depth {ctx.bvh.depth} on "
+          f"the AO grid), AO grid pass launches {counts}; "
+          + "; ".join(
+              f"{tag} BVH4 {w['ms']:.3f} ms (turns {', '.join(f'{m:.3f}' for m in w['ms_turns'])};"
+              f" bound {w['bound_ms']:.4f} by {w['bound_by']}, plain {w['plain_ms']:.1f} over "
+              f"{w['plain_rays']} rays, hits {w['hits']}, vs plain hit/miss differ "
+              f"{w['miss_mismatch']:.2e}, vs binary {w['vs_binary_apart']:.2e}) against binary "
+              f"{b['ms']:.3f} ms (turns {', '.join(f'{m:.3f}' for m in b['ms_turns'])})"
+              for tag, (w, b) in held.items())
+          + f"; {time.perf_counter() - t0:.1f} s [{card}]")
 
 if __name__ == "__main__":
     sys.exit(main())

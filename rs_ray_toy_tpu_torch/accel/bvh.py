@@ -1,5 +1,7 @@
-"""BVH build (host) and the fused-children node tables the kernels walk
-(rs_ray_toy_tpu/accel/bvh.py and ops/bvh_pallas.pack_bvh_tables).
+"""BVH build (host) and the node tables the kernels walk
+(rs_ray_toy_tpu/accel/bvh.py and ops/bvh_pallas.pack_bvh_tables,
+pack_bvh4_tables): the binary tree's fused-children rows, and the same
+tree collapsed into 4-wide nodes (BVH4).
 
 The build is the repository's binned-SAH C++ builder (csrc/bvh_builder.cpp,
 12 buckets), compiled with g++ on first use (ops/_build.load_host) and
@@ -24,6 +26,9 @@ from ..ops import _build
 STACK_DEPTH = 64  # traversal stack (ops/bvh_pallas.STACK_DEPTH)
 DEEP_STACK = 256  # the BVH kernels' deep instances: trees of depth 64..255
 NODE_COLS = 16  # fused-children row: left box (6), right box (6), 4 zeros
+NODE4_COLS = 24  # a wide node's float row: per child slot bmin, bmax
+NODE4_I_COLS = 12  # its int row: per child slot kind, a, b
+CHILD_NONE, CHILD_INTERIOR, CHILD_LEAF = 0, 1, 2  # a wide child slot's kind
 
 _LIB = None
 
@@ -108,6 +113,23 @@ def stack_for(depth):
                               f"{DEEP_STACK} nodes)")
 
 
+def stack4_for(depth4):
+    """The stack the BVH4 walk needs over a wide tree of `depth4` levels:
+    a pop takes one entry and pushes up to four, so the stack holds at
+    most 3 (depth4 - 1) + 1 entries (three pending siblings a level above
+    the four just pushed).  STACK_DEPTH when that fits, else DEEP_STACK
+    (the deep instances); past DEEP_STACK it raises NotImplementedError.
+    (The JAX kernel clamps its 64-entry stack and drops what does not
+    fit.)"""
+    need = 3 * (depth4 - 1) + 1
+    if need <= STACK_DEPTH:
+        return STACK_DEPTH
+    if need <= DEEP_STACK:
+        return DEEP_STACK
+    raise NotImplementedError(f"a BVH4 of depth {depth4} (its walk needs {need} stack entries, "
+                              f"the deepest traversal stack holds {DEEP_STACK})")
+
+
 def tree_depth(bvh: FlatBVH) -> int:
     """Nodes on the longest root-to-leaf path."""
     depth = np.zeros(bvh.n_nodes, np.int64)
@@ -180,3 +202,64 @@ def pack_prim_tables(tri, bvh: FlatBVH, tri_f, has_n):
         shade_f[:, 24:30] = tf[:, 33:39]
         shade_f[:, 30] = has_n
     return prims_f, prims_i, shade_f
+
+
+def pack_bvh4_tables(bvh: FlatBVH):
+    """The binary tree collapsed into 4-wide nodes (ops/bvh_pallas
+    .pack_bvh4_tables), in the same breadth-first order: a wide node's
+    children are its binary node's grandchildren where they are interior,
+    its children where they are leaves (a leaf root is its own only
+    child), and each interior child is a wide node of its own.
+
+    Returns nodes4_f (W, 24) float32, per child slot c bmin, bmax in cols
+    6c..6c+5, and nodes4_i (W, 12) int32, per slot kind (CHILD_NONE,
+    CHILD_INTERIOR, CHILD_LEAF), a (the wide node's row, or the leaf's
+    first triangle) and b (0, or the leaf's triangle count).  An empty
+    slot carries bmin 1e30 and bmax -1e30, as in the JAX package; its
+    docstring says such a box never hits, but under the min / max slab
+    test the swapped slabs span all of space and it does: only the kind
+    keeps a walk out of it."""
+    bmin, bmax = bvh.bounds_min, bvh.bounds_max
+    off = np.asarray(bvh.offset, np.int64)
+    npr = np.asarray(bvh.n_prims, np.int64)
+
+    def kids(i):
+        if npr[i] > 0:
+            return [i]
+        out = []
+        for c in (i + 1, off[i]):
+            out.extend([c] if npr[c] > 0 else [c + 1, off[c]])
+        return out
+
+    order = [0]  # binary node of each wide node, breadth first
+    rows_f, rows_i = [], []
+    head = 0
+    while head < len(order):
+        b = order[head]
+        head += 1
+        row_f = np.zeros((4, 6), np.float32)
+        row_f[:, 0:3], row_f[:, 3:6] = 1e30, -1e30
+        row_i = np.zeros((4, 3), np.int32)
+        for c, k in enumerate(kids(b)):
+            row_f[c, 0:3], row_f[c, 3:6] = bmin[k], bmax[k]
+            if npr[k] > 0:
+                row_i[c] = (CHILD_LEAF, off[k], npr[k])
+            else:
+                row_i[c] = (CHILD_INTERIOR, len(order), 0)
+                order.append(k)
+        rows_f.append(row_f.reshape(-1))
+        rows_i.append(row_i.reshape(-1))
+    return np.stack(rows_f), np.stack(rows_i)
+
+
+def tree4_depth(nodes4_i) -> int:
+    """Wide nodes on the longest root-to-leaf path of a BVH4 (children
+    follow their parent in the breadth-first rows)."""
+    kind = np.asarray(nodes4_i)[:, 0::3]
+    child = np.asarray(nodes4_i)[:, 1::3]
+    depth = np.ones(kind.shape[0], np.int64)
+    for i in range(kind.shape[0] - 1, -1, -1):
+        inner = child[i][kind[i] == CHILD_INTERIOR]
+        if inner.size:
+            depth[i] = 1 + depth[inner].max()
+    return int(depth[0])

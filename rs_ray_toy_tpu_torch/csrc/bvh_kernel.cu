@@ -1,5 +1,5 @@
 // BVH closest hit, any hit and shaded closest hit for Hopper (sm_90a), K3:
-// one thread per ray.
+// one thread per ray; and the BVH4 closest and any hit (bvh4_kernel, below).
 //
 // Replaces the TPU kernels rs_ray_toy_tpu/ops/bvh_pallas.py · _traverse_kernel
 // with fused=True (pallas_call in _call: intersect_bvh_pallas with
@@ -71,6 +71,144 @@ bvh_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
     best = geom.template walk<kAny>(__ldg(o + 3 * i), __ldg(o + 3 * i + 1), __ldg(o + 3 * i + 2),
                            __ldg(d + 3 * i), __ldg(d + 3 * i + 1), __ldg(d + 3 * i + 2),
                            t_bound);
+  }
+  t_out[i] = best >= 0 ? t_bound : tm;
+  idx_out[i] = best >= 0 ? __ldg(prims_i + PRIM_I_COLS * best) : -1;
+}
+
+// ---- the BVH4 walk (bvh4_kernel) ----
+//
+// Replaces _traverse4_kernel (the body of pallas_call in _call under
+// RS_BVH_WIDE=1): the binary tree collapsed into 4-wide nodes
+// (accel/bvh.pack_bvh4_tables: per node a (24,) float row, child slot c's
+// bmin, bmax at 6c, and a (12,) int row, its kind 0 none / 1 interior / 2
+// leaf, a (wide node or first triangle) and b (triangle count)).  Per ray:
+// pop a wide node, load its rows as six float4 and three int4, test its
+// non-empty child slots in order against the ray's best t (an empty slot's
+// inverted box spans all of space under the min / max slab test: only its
+// kind keeps the walk out), test a hit leaf child's triangles there in leaf
+// order with strict < (any hit: return at the first), and push the hit
+// interior children far to near by the ray's own entry distance through the
+// TPU kernel's compare-swap network (ties keep slot order), so the nearest
+// pops next.  The TPU kernel orders a packet's pushes by the packet's
+// least entry distance and clamps its 64-entry stack, dropping subtrees
+// past it; here each ray orders its own and the stack holds the tree
+// (accel/bvh.stack4_for: 3 (levels - 1) + 1 entries, the deep instance past
+// 64).  Bound like the binary walk: dependent node and triangle loads and
+// divergence; a pop reads 144 bytes and makes up to four slab tests where
+// the binary walk's reads 80 and makes two.
+__device__ __forceinline__ bool slab_tn(const float* b, float ox, float oy, float oz, float ix,
+                                        float iy, float iz, float t_cur, float& tn) {
+  const float t0x = (b[0] - ox) * ix, t1x = (b[3] - ox) * ix;
+  const float t0y = (b[1] - oy) * iy, t1y = (b[4] - oy) * iy;
+  const float t0z = (b[2] - oz) * iz, t1z = (b[5] - oz) * iz;
+  tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  const float tf =
+      fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z)) * SLAB_SLOP;
+  return tn <= tf && tf > 0.0f && tn < t_cur && t_cur > 0.0f;
+}
+
+// after it, slot i holds the farther entry distance (descending order)
+__device__ __forceinline__ void order_pair(float* key, int* id, bool* push, int i, int j) {
+  if (key[i] < key[j]) {
+    const float k = key[i];
+    key[i] = key[j];
+    key[j] = k;
+    const int d = id[i];
+    id[i] = id[j];
+    id[j] = d;
+    const bool p = push[i];
+    push[i] = push[j];
+    push[j] = p;
+  }
+}
+
+// One ray's walk: the winner's leaf-order row (-1 on a miss), its t in t_bound
+template <bool kAny, int kStack>
+__device__ int walk4(const float* __restrict__ nodes4_f, const int* __restrict__ nodes4_i,
+                     const Bvh<kStack>& tris, float ox, float oy, float oz, float dx, float dy,
+                     float dz, float& t_bound) {
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  int best = -1;
+  int stack[kStack];
+  int sp = 0;
+  stack[sp++] = 0;
+  while (sp > 0) {
+    const int node = stack[--sp];
+    const float4* rf = reinterpret_cast<const float4*>(nodes4_f) + (size_t)node * 6;
+    const int4* ri = reinterpret_cast<const int4*>(nodes4_i) + (size_t)node * 3;
+    float box[24];
+    int slot[12];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      const float4 v = __ldg(rf + q);
+      box[4 * q] = v.x;
+      box[4 * q + 1] = v.y;
+      box[4 * q + 2] = v.z;
+      box[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int4 v = __ldg(ri + q);
+      slot[4 * q] = v.x;
+      slot[4 * q + 1] = v.y;
+      slot[4 * q + 2] = v.z;
+      slot[4 * q + 3] = v.w;
+    }
+    float key[4];
+    int id[4];
+    bool push[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kind = slot[3 * c], a = slot[3 * c + 1], b = slot[3 * c + 2];
+      key[c] = BIG_T;
+      id[c] = a;
+      push[c] = false;
+      float tn;
+      if (kind == 0 || !slab_tn(box + 6 * c, ox, oy, oz, ix, iy, iz, t_bound, tn)) continue;
+      if (kind == 2) {
+        for (int k = 0; k < b; ++k) {
+          float t;
+          if (tris.tri_hit(a + k, ox, oy, oz, dx, dy, dz, t) && t < t_bound) {
+            best = a + k;
+            if constexpr (kAny) return best;
+            t_bound = t;
+          }
+        }
+      } else {
+        key[c] = tn;
+        push[c] = true;
+      }
+    }
+    order_pair(key, id, push, 0, 1);
+    order_pair(key, id, push, 2, 3);
+    order_pair(key, id, push, 0, 2);
+    order_pair(key, id, push, 1, 3);
+    order_pair(key, id, push, 1, 2);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (push[c]) stack[sp++] = id[c];
+  }
+  return best;
+}
+
+template <bool kAny, int kStack>
+__global__ void __launch_bounds__(BLOCK)
+bvh4_kernel(const float* __restrict__ nodes4_f, const int* __restrict__ nodes4_i,
+            const float* __restrict__ prims_f, const int* __restrict__ prims_i, int n_prims,
+            const float* __restrict__ o, const float* __restrict__ d,
+            const float* __restrict__ t_max, float* __restrict__ t_out,
+            int* __restrict__ idx_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float tm = __ldg(t_max + i);
+  float t_bound = tm;
+  int best = -1;
+  if (tm > 0.0f) {
+    const Bvh<kStack> tris{nullptr, n_prims, prims_f, nullptr, nullptr};
+    best = walk4<kAny, kStack>(nodes4_f, nodes4_i, tris, __ldg(o + 3 * i), __ldg(o + 3 * i + 1),
+                               __ldg(o + 3 * i + 2), __ldg(d + 3 * i), __ldg(d + 3 * i + 1),
+                               __ldg(d + 3 * i + 2), t_bound);
   }
   t_out[i] = best >= 0 ? t_bound : tm;
   idx_out[i] = best >= 0 ? __ldg(prims_i + PRIM_I_COLS * best) : -1;
@@ -185,6 +323,20 @@ void launch_walk(int any_hit, int grid, cudaStream_t st, const float* nodes_f,
 }
 
 template <int kStack>
+void launch_walk4(int any_hit, int grid, cudaStream_t st, const float* nodes4_f,
+                  const int* nodes4_i, const float* prims_f, const int* prims_i, int n_prims,
+                  const float* o, const float* d, const float* t_max, float* t_out, int* idx_out,
+                  int n) {
+  if (any_hit) {
+    bvh4_kernel<true, kStack><<<grid, BLOCK, 0, st>>>(nodes4_f, nodes4_i, prims_f, prims_i,
+                                                     n_prims, o, d, t_max, t_out, idx_out, n);
+  } else {
+    bvh4_kernel<false, kStack><<<grid, BLOCK, 0, st>>>(nodes4_f, nodes4_i, prims_f, prims_i,
+                                                      n_prims, o, d, t_max, t_out, idx_out, n);
+  }
+}
+
+template <int kStack>
 void launch_shaded(int smooth, int grid, cudaStream_t st, const float* nodes_f,
                    const int* nodes_i, const float* prims_f, const int* prims_i,
                    const float* shade_f, int n_prims, const float* o, const float* d,
@@ -224,6 +376,27 @@ int bvh_launch(int any_hit, int deep, const float* nodes_f, const int* nodes_i,
   else
     launch_walk<STACK_DEPTH>(any_hit, grid, st, nodes_f, nodes_i, prims_f, prims_i, n_prims, o,
                              d, t_max, t_out, idx_out, n);
+  return (int)cudaGetLastError();
+}
+
+// Launch the BVH4 closest-hit (any_hit 0) or any-hit (1) walk over n rays,
+// the deep instance when `deep`; nodes4_f (W, 24) and nodes4_i (W, 12) as
+// accel/bvh.pack_bvh4_tables packs them.  Returns as bvh_launch.
+int bvh4_launch(int any_hit, int deep, const float* nodes4_f, const int* nodes4_i,
+                const float* prims_f, const int* prims_i, int n_prims, const float* o,
+                const float* d, const float* t_max, float* t_out, int* idx_out, int n,
+                void* stream) {
+  cudaGetLastError();
+  if (n <= 0) return 0;
+  if (n_prims <= 0) return (int)cudaErrorInvalidValue;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (deep)
+    launch_walk4<DEEP_STACK>(any_hit, grid, st, nodes4_f, nodes4_i, prims_f, prims_i, n_prims, o,
+                             d, t_max, t_out, idx_out, n);
+  else
+    launch_walk4<STACK_DEPTH>(any_hit, grid, st, nodes4_f, nodes4_i, prims_f, prims_i, n_prims,
+                              o, d, t_max, t_out, idx_out, n);
   return (int)cudaGetLastError();
 }
 

@@ -668,8 +668,8 @@ __device__ __forceinline__ float cc_g(float cos_theta) {
 
 // The Disney lobes (K5 e: DisneyDiffuse, retro, sheen, clearcoat, and the
 // Disney microfacet with its fresnel and separable G) are compiled in only
-// where kDisney is set: the path kernel's instances.  The other kernels take
-// none of them and keep their code.
+// where kDisney is set: the path kernel's instances and the SPPM kernels'
+// wide ones.  The other instances take none of them and keep their code.
 template <bool kDisney = false>
 __device__ void fresnel(const Lobe& lob, float cos_i, float fr[3]) {
   if (lob.fres == FRESNEL_DIELECTRIC) {
@@ -904,7 +904,8 @@ __device__ void concentric_disk(float u0, float u1, float& dxo, float& dyo) {
 // lobe's direction in the local frame, its f and pdf (divided by the lobe
 // count), whether a fresnel-specular lobe transmitted (the etaScale
 // factor) and whether the picked lobe is specular.  A zero f or pdf ends the
-// path.  kSt (the path kernel's subsurface instances only) adds the specular
+// path.  kSt (the path kernel's subsurface instances and the SPPM walks' wide
+// ones) adds the specular
 // transmission lobe: its refraction, f and pdf, and the other lobes' pdfs
 // added to a chosen one's, since it does not reflect (reflection.rs:358).
 struct BsdfSample {

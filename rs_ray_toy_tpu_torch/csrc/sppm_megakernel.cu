@@ -41,6 +41,21 @@
 // and a distance test each, and the lobe evaluations of the few near pairs.
 // The events of one iteration fit in L2 (262,144 x 40 B at the fixture).
 //
+// The lobes: every kernel takes a last template flag kWide.  Without it (the
+// base instances) a walk samples and evaluates lambert, the microfacet and
+// the specular reflection kinds, and a VP is a lambert (diffuse) or
+// microfacet (glossy) vertex.  With it (the wide instances, chosen only for
+// a scene with a Disney lobe or specular transmission:
+// ops/sppm_megakernel.wide_lobes) the lobe set of the JAX kernels'
+// supports_sppm_camera: common.cuh's lobe_f<true> and bsdf_sample<true,
+// true> add Disney's diffuse, retro, sheen, clearcoat and microfacet lobes
+// and the specular transmission of glass (refraction with the radiance
+// scale (eta_i / eta_t)^2, in the photon walk too, as the JAX kernels'
+// _bsdf_sample_k scales it), and the VP classes add Disney's diffuse, retro
+// and sheen (diffuse) and its clearcoat and microfacet (glossy).  A specular
+// vertex makes no VP; the walk goes through it.  The flag leaves the base
+// instances' code as it was.
+//
 // Numerics follow the plain PyTorch versions (ops/sppm_megakernel.py)
 // expression by expression; see common.cuh.
 
@@ -48,7 +63,6 @@
 
 namespace {
 
-constexpr int LOBE_LAMBERT = LOBE_LAMBERT_REFL;  // the ported diffuse kind
 constexpr int EV_COLS = 10;                       // p, wi, beta, live
 constexpr int MAT_COLS = 16 + 16 * 5;             // a resolved material row
 // luminance weights (core/spectrum.luminance), rounded as the plain
@@ -59,9 +73,21 @@ __device__ __forceinline__ float luminance(float r, float g, float b) {
   return LUM_R * r + LUM_G * g + LUM_B * b;
 }
 
+// the VP classes (ops/sppm_megakernel.DIFFUSE_KINDS / GLOSSY_KINDS)
+template <bool kWide>
+__device__ __forceinline__ bool diffuse_kind(int k) {
+  return k == LOBE_LAMBERT_REFL ||
+         (kWide && (k == LOBE_DISNEY_DIFFUSE || k == LOBE_DISNEY_RETRO || k == LOBE_DISNEY_SHEEN));
+}
+template <bool kWide>
+__device__ __forceinline__ bool glossy_kind(int k) {
+  return k == LOBE_MF_REFL ||
+         (kWide && (k == LOBE_DISNEY_CLEARCOAT || k == LOBE_DISNEY_MICROFACET_REFL));
+}
+
 // ---- K8: the camera walk ----
 
-template <bool kBvh, bool kRaysIn>
+template <bool kBvh, bool kRaysIn, bool kWide = false>
 __global__ void __launch_bounds__(BLOCK)
     sppm_camera_kernel(const float* __restrict__ table, int n_tris,
                        const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
@@ -132,7 +158,7 @@ __global__ void __launch_bounds__(BLOCK)
       if (f_gate) {
         for (int l = 0; l < n_lob; ++l) {
           float lf[3];
-          lobe_f(load_lobe(row, l), wol_x, wol_y, wo_z, wil_x, wil_y, wi_ng, lf);
+          lobe_f<kWide>(load_lobe(row, l), wol_x, wol_y, wo_z, wil_x, wil_y, wi_ng, lf);
           for (int c = 0; c < 3; ++c) fn[c] = fn[c] + lf[c];
         }
       }
@@ -151,8 +177,8 @@ __global__ void __launch_bounds__(BLOCK)
     bool diffuse = false, glossy = false;
     for (int l = 0; l < n_lob; ++l) {
       const int kind = (int)__ldg(row + 16 + 16 * l);
-      diffuse = diffuse || kind == LOBE_LAMBERT;
-      glossy = glossy || kind == LOBE_MF_REFL;
+      diffuse = diffuse || diffuse_kind<kWide>(kind);
+      glossy = glossy || glossy_kind<kWide>(kind);
     }
     if (diffuse || (glossy && depth == p.max_depth - 1)) {
       const float rec[15] = {px, py, pz, wox, woy, woz, br, bg, bb, ngx, ngy, ngz, dux, duy, duz};
@@ -164,7 +190,8 @@ __global__ void __launch_bounds__(BLOCK)
     if (depth >= p.max_depth - 1) break;
 
     // ---- BSDF sample and the camera roulette (sppm.rs:236-253) ----
-    const BsdfSample bs = bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, uv(col + 1), uv(col + 2));
+    const BsdfSample bs =
+        bsdf_sample<kWide, kWide>(row, n_lob, wol_x, wol_y, wo_z, uv(col + 1), uv(col + 2));
     const float nwx = ssx * bs.wx + tsx * bs.wy + ngx * bs.wz;
     const float nwy = ssy * bs.wx + tsy * bs.wy + ngy * bs.wz;
     const float nwz = ssz * bs.wx + tsz * bs.wy + ngz * bs.wz;
@@ -206,7 +233,7 @@ __global__ void __launch_bounds__(BLOCK)
 
 // ---- K9: the photon walk ----
 
-template <bool kBvh>
+template <bool kBvh, bool kWide = false>
 __global__ void __launch_bounds__(BLOCK)
     sppm_photon_kernel(const float* __restrict__ table, int n_tris,
                        const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
@@ -249,7 +276,7 @@ __global__ void __launch_bounds__(BLOCK)
     const float wol_y = dot3(wox, woy, woz, tsx, tsy, tsz);
     const float wo_z = dot3(wox, woy, woz, ngx, ngy, ngz);
     const float* ud = u + (size_t)(3 * depth) * n + i;
-    const BsdfSample bs = bsdf_sample(row, n_lob, wol_x, wol_y, wo_z, ud[0], ud[n]);
+    const BsdfSample bs = bsdf_sample<kWide, kWide>(row, n_lob, wol_x, wol_y, wo_z, ud[0], ud[n]);
     const float nwx = ssx * bs.wx + tsx * bs.wy + ngx * bs.wz;
     const float nwy = ssy * bs.wx + tsy * bs.wy + ngy * bs.wz;
     const float nwz = ssz * bs.wx + tsz * bs.wy + ngz * bs.wz;
@@ -283,6 +310,7 @@ __global__ void __launch_bounds__(BLOCK)
 
 // ---- K10: the deposit ----
 
+template <bool kWide = false>
 __global__ void __launch_bounds__(BLOCK)
     sppm_deposit_kernel(const float* __restrict__ vp_p, const float* __restrict__ vp_wo,
                         const float* __restrict__ vp_ng, const float* __restrict__ vp_dpdu,
@@ -320,7 +348,7 @@ __global__ void __launch_bounds__(BLOCK)
         const float wil_y = wix * tsx + wiy * tsy + wiz * tsz;
         for (int l = 0; l < n_lob; ++l) {
           float lf[3];
-          lobe_f(load_lobe(mrow, l), wol_x, wol_y, wo_z, wil_x, wil_y, wi_ng, lf);
+          lobe_f<kWide>(load_lobe(mrow, l), wol_x, wol_y, wo_z, wil_x, wil_y, wi_ng, lf);
           for (int c = 0; c < 3; ++c) fr[c] = fr[c] + lf[c];
         }
       }
@@ -349,7 +377,7 @@ int check_table(int n_tris, const float* nodes_f, const int* nodes_i) {
   return (n_tris <= 0 || n_tris > TRI_MAX) ? (int)cudaErrorInvalidValue : 0;
 }
 
-template <bool kRaysIn>
+template <bool kRaysIn, bool kWide>
 int launch_camera(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
                   const Params* params, const float* in_a, const float* in_d, const float* in_w,
                   const float* u, int n_u, float* out_ld, float* out_p, float* out_wo,
@@ -364,17 +392,43 @@ int launch_camera(const float* table, int n_tris, const float* nodes_f, const in
   const int grid = (n + BLOCK - 1) / BLOCK;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nodes_f != nullptr) {
-    sppm_camera_kernel<true, kRaysIn><<<grid, BLOCK, 0, st>>>(
+    sppm_camera_kernel<true, kRaysIn, kWide><<<grid, BLOCK, 0, st>>>(
         table, n_tris, nodes_f, nodes_i, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
         out_ng, out_dpdu, out_mat, out_valid, n, *params);
     return (int)cudaGetLastError();
   }
-  const cudaError_t attr = allow_table_smem(sppm_camera_kernel<false, kRaysIn>);
+  const cudaError_t attr = allow_table_smem(sppm_camera_kernel<false, kRaysIn, kWide>);
   if (attr != cudaSuccess) return (int)attr;
   const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  sppm_camera_kernel<false, kRaysIn><<<grid, BLOCK, smem, st>>>(
+  sppm_camera_kernel<false, kRaysIn, kWide><<<grid, BLOCK, smem, st>>>(
       table, n_tris, nullptr, nullptr, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
       out_ng, out_dpdu, out_mat, out_valid, n, *params);
+  return (int)cudaGetLastError();
+}
+
+template <bool kWide>
+int launch_photon(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
+                  int max_depth, const float* ro, const float* rd, const float* beta,
+                  const int* alive, const float* u, float* ev_p, float* ev_wi, float* ev_beta,
+                  int* ev_live, int n, void* stream) {
+  cudaGetLastError();
+  if (n <= 0) return 0;
+  if (max_depth < 2) return (int)cudaErrorInvalidValue;
+  if (const int bad = check_table(n_tris, nodes_f, nodes_i)) return bad;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nodes_f != nullptr) {
+    sppm_photon_kernel<true, kWide><<<grid, BLOCK, 0, st>>>(
+        table, n_tris, nodes_f, nodes_i, max_depth, ro, rd, beta, alive, u, ev_p, ev_wi, ev_beta,
+        ev_live, n);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t attr = allow_table_smem(sppm_photon_kernel<false, kWide>);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
+  sppm_photon_kernel<false, kWide><<<grid, BLOCK, smem, st>>>(
+      table, n_tris, nullptr, nullptr, max_depth, ro, rd, beta, alive, u, ev_p, ev_wi, ev_beta,
+      ev_live, n);
   return (int)cudaGetLastError();
 }
 
@@ -384,61 +438,56 @@ extern "C" {
 
 // Each launch returns cudaGetLastError() of the launch (0 when it was
 // accepted); nothing is synchronised.  Brute force when nodes_f is null, the
-// BVH walk otherwise.
+// BVH walk otherwise; the wide instances (kWide) when `wide` is not 0.
 
 // K8 over n pixels; u is the (n_u, n) Halton slot matrix, n_u = 4 * max_depth + 1
-int sppm_camera_launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
-                       const Params* params, const float* pixel_xy, const float* u, int n_u,
-                       float* out_ld, float* out_p, float* out_wo, float* out_beta, float* out_ng,
-                       float* out_dpdu, int* out_mat, int* out_valid, int n, void* stream) {
-  return launch_camera<false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr, nullptr,
-                              u, n_u, out_ld, out_p, out_wo, out_beta, out_ng, out_dpdu, out_mat,
-                              out_valid, n, stream);
+int sppm_camera_launch(int wide, const float* table, int n_tris, const float* nodes_f,
+                       const int* nodes_i, const Params* params, const float* pixel_xy,
+                       const float* u, int n_u, float* out_ld, float* out_p, float* out_wo,
+                       float* out_beta, float* out_ng, float* out_dpdu, int* out_mat,
+                       int* out_valid, int n, void* stream) {
+  if (wide)
+    return launch_camera<false, true>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr,
+                                      nullptr, u, n_u, out_ld, out_p, out_wo, out_beta, out_ng,
+                                      out_dpdu, out_mat, out_valid, n, stream);
+  return launch_camera<false, false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr,
+                                     nullptr, u, n_u, out_ld, out_p, out_wo, out_beta, out_ng,
+                                     out_dpdu, out_mat, out_valid, n, stream);
 }
 
 // K8 on given rays: o, d (n, 3) and weight (n,); u as above (its film and
 // lens rows unread)
-int sppm_camera_rays_launch(const float* table, int n_tris, const float* nodes_f,
+int sppm_camera_rays_launch(int wide, const float* table, int n_tris, const float* nodes_f,
                             const int* nodes_i, const Params* params, const float* o,
                             const float* d, const float* weight, const float* u, int n_u,
                             float* out_ld, float* out_p, float* out_wo, float* out_beta,
                             float* out_ng, float* out_dpdu, int* out_mat, int* out_valid, int n,
                             void* stream) {
-  return launch_camera<true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, u, n_u,
-                             out_ld, out_p, out_wo, out_beta, out_ng, out_dpdu, out_mat,
-                             out_valid, n, stream);
+  if (wide)
+    return launch_camera<true, true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, u,
+                                     n_u, out_ld, out_p, out_wo, out_beta, out_ng, out_dpdu,
+                                     out_mat, out_valid, n, stream);
+  return launch_camera<true, false>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, u, n_u,
+                                    out_ld, out_p, out_wo, out_beta, out_ng, out_dpdu, out_mat,
+                                    out_valid, n, stream);
 }
 
 // K9 over n photons; u is the (3 * (max_depth - 1), n) bounce / roulette
 // matrix; the events are ((max_depth - 1) * n, .) depth-major
-int sppm_photon_launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
-                       int max_depth, const float* ro, const float* rd, const float* beta,
-                       const int* alive, const float* u, float* ev_p, float* ev_wi,
-                       float* ev_beta, int* ev_live, int n, void* stream) {
-  cudaGetLastError();
-  if (n <= 0) return 0;
-  if (max_depth < 2) return (int)cudaErrorInvalidValue;
-  if (const int bad = check_table(n_tris, nodes_f, nodes_i)) return bad;
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nodes_f != nullptr) {
-    sppm_photon_kernel<true><<<grid, BLOCK, 0, st>>>(table, n_tris, nodes_f, nodes_i, max_depth,
-                                                     ro, rd, beta, alive, u, ev_p, ev_wi, ev_beta,
-                                                     ev_live, n);
-    return (int)cudaGetLastError();
-  }
-  const cudaError_t attr = allow_table_smem(sppm_photon_kernel<false>);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  sppm_photon_kernel<false><<<grid, BLOCK, smem, st>>>(table, n_tris, nullptr, nullptr, max_depth,
-                                                       ro, rd, beta, alive, u, ev_p, ev_wi,
-                                                       ev_beta, ev_live, n);
-  return (int)cudaGetLastError();
+int sppm_photon_launch(int wide, const float* table, int n_tris, const float* nodes_f,
+                       const int* nodes_i, int max_depth, const float* ro, const float* rd,
+                       const float* beta, const int* alive, const float* u, float* ev_p,
+                       float* ev_wi, float* ev_beta, int* ev_live, int n, void* stream) {
+  if (wide)
+    return launch_photon<true>(table, n_tris, nodes_f, nodes_i, max_depth, ro, rd, beta, alive, u,
+                               ev_p, ev_wi, ev_beta, ev_live, n, stream);
+  return launch_photon<false>(table, n_tris, nodes_f, nodes_i, max_depth, ro, rd, beta, alive, u,
+                              ev_p, ev_wi, ev_beta, ev_live, n, stream);
 }
 
 // K10 over n VPs: events is the (E, 10) sorted event table, mats the
 // (n_mats, 96) resolved material rows
-int sppm_deposit_launch(const float* vp_p, const float* vp_wo, const float* vp_ng,
+int sppm_deposit_launch(int wide, const float* vp_p, const float* vp_wo, const float* vp_ng,
                         const float* vp_dpdu, const int* vp_mat, const float* vp_r2,
                         const int* start, const int* end, const float* events, const float* mats,
                         int n_mats, float* phi, int* m, int n, void* stream) {
@@ -446,8 +495,13 @@ int sppm_deposit_launch(const float* vp_p, const float* vp_wo, const float* vp_n
   if (n <= 0) return 0;
   if (n_mats < 1) return (int)cudaErrorInvalidValue;
   const int grid = (n + BLOCK - 1) / BLOCK;
-  sppm_deposit_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      vp_p, vp_wo, vp_ng, vp_dpdu, vp_mat, vp_r2, start, end, events, mats, phi, m, n);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide)
+    sppm_deposit_kernel<true><<<grid, BLOCK, 0, st>>>(vp_p, vp_wo, vp_ng, vp_dpdu, vp_mat, vp_r2,
+                                                      start, end, events, mats, phi, m, n);
+  else
+    sppm_deposit_kernel<false><<<grid, BLOCK, 0, st>>>(vp_p, vp_wo, vp_ng, vp_dpdu, vp_mat,
+                                                       vp_r2, start, end, events, mats, phi, m, n);
   return (int)cudaGetLastError();
 }
 

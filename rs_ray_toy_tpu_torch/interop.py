@@ -29,6 +29,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from .accel.bvh import tree4_depth
 from .accel.geometry import pack_shade_tables, sphere_tables
 from .integrators.common import SceneCtx, bssrdf_tables, material_rows
 from .integrators.sppm import PhotonLights, SPPMState
@@ -273,7 +274,9 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
     environments (ctx.infinite_envs, with env_rgb the constant texel of
     each).  bvh_tables: the dict of the JAX package's pack_bvh_tables
     (nodes2_f, nodes_i, prims_f, prims_i, shade_f with flat or smooth
-    rows, max_leaf, depth) for a BVH context, None for brute force."""
+    rows, max_leaf, depth, and the BVH4's nodes4_f, nodes4_i) for a BVH
+    context, None for brute force; its closest-hit and any-hit queries
+    walk the binary tree (`_replace(wide=True)`: the BVH4)."""
     a = np.asarray
     tri = ctx.tri
     if len(env_rgb) != len(ctx.infinite_envs):
@@ -298,7 +301,8 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
         bvh = bk.BvhTables(
             t("nodes2_f", np.float32), t("nodes_i", np.int32), t("prims_f", np.float32),
             t("prims_i", np.int32), t("shade_f", np.float32), int(bvh_tables["max_leaf"]),
-            int(bvh_tables["depth"]),
+            int(bvh_tables["depth"]), t("nodes4_f", np.float32), t("nodes4_i", np.int32),
+            tree4_depth(np.asarray(bvh_tables["nodes4_i"])),
         )
     mats = {k: a(ctx.mats[k]) for k in MAT_KEYS}
     lt = ctx.lights

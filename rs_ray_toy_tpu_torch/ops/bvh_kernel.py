@@ -4,14 +4,20 @@ intersect_bvh_pallas_shaded).
 
 `pack_bvh` builds the wavefront kernels' tables for a triangle scene: the
 repository's SAH BVH with leaves of KERNEL_LEAF triangles (SceneCtx's
-kernel leaf), its fused-children node rows, and the triangles in leaf
-order (intersect rows, original row / material / area light, and the 15
-flat shade columns, or 31 with the vertex normals, their partials and
+kernel leaf), its fused-children node rows, the same tree collapsed into
+4-wide nodes (BVH4: accel/bvh.pack_bvh4_tables), and the triangles in
+leaf order (intersect rows, original row / material / area light, and the
+15 flat shade columns, or 31 with the vertex normals, their partials and
 has_n when any triangle has vertex normals), for any number of
-triangles.  A tree of 64 levels or more is walked by the kernels' deep
-instances, whose stack holds 256 nodes (accel/bvh.stack_for); a tree of
-256 levels or more raises NotImplementedError: there is no slower walk to
-fall back to.
+triangles.  Its `wide` argument picks the walk of the closest-hit and
+any-hit queries: the binary walk (`bvh_kernel`, the JAX package's
+default) or the BVH4 walk (`bvh4_kernel`, its `RS_BVH_WIDE=1` kernel);
+WIDE_DEFAULT is the one the wavefront loop takes (PERF.md: the faster
+on the card).  The shaded walk is binary either way: the JAX package has
+no wide one.  A tree of 64 levels or more is walked by the kernels' deep
+instances, whose stack holds 256 nodes (accel/bvh.stack_for; the BVH4
+walk's by stack4_for); a tree too deep for 256 raises
+NotImplementedError: there is no slower walk to fall back to.
 
 - `intersect_bvh(tables, o, d, t_max)`: closest hit with t in
   [TRI_EPS, t_max): (t, idx, valid), t = t_max and idx = -1 on a miss.
@@ -39,10 +45,15 @@ from ..accel.bvh import (
     SHADE_COLS_FLAT,
     SHADE_COLS_SMOOTH,
     DEEP_STACK,
+    NODE4_COLS,
+    NODE4_I_COLS,
     build_bvh,
+    pack_bvh4_tables,
     pack_bvh_tables,
     pack_prim_tables,
+    stack4_for,
     stack_for,
+    tree4_depth,
     tree_depth,
 )
 from ..accel.geometry import shade_rows
@@ -53,8 +64,18 @@ KERNEL_LEAF = 16  # SceneCtx's kernel leaf size (integrators/common.py in the JA
 ATTR_ROWS = 16  # u, v, uv (2), ns (3), ng (3), dpdu (3), dpdv (3)
 ATTR_ROWS_SMOOTH = 22  # ... and dndu (3), dndv (3)
 
+# the walk of the wavefront loop's closest-hit and any-hit queries: the
+# binary one (PERF.md §6 holds both walks' times on the same rays)
+WIDE_DEFAULT = False
+
 # Kernel launches, by kernel; the one piece of module state.
-LAUNCHES = {"bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0, "bvh_shaded_smooth": 0}
+LAUNCHES = {"bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0, "bvh_shaded_smooth": 0,
+            "bvh4_closest": 0, "bvh4_any": 0}
+
+
+def launch_key(any_hit, wide):
+    """The LAUNCHES key of a closest-hit or any-hit walk."""
+    return ("bvh4_" if wide else "bvh_") + ("any" if any_hit else "closest")
 _LIB = None
 
 
@@ -68,6 +89,10 @@ class BvhTables(NamedTuple):
     shade_f: torch.Tensor
     max_leaf: int
     depth: int
+    nodes4_f: torch.Tensor = None  # (W, 24) float32: per child slot bmin, bmax
+    nodes4_i: torch.Tensor = None  # (W, 12) int32: per child slot kind, a, b
+    depth4: int = 0  # wide nodes on the longest path
+    wide: bool = False  # closest and any hit walk the BVH4
 
     @property
     def smooth(self):
@@ -78,17 +103,28 @@ class BvhTables(NamedTuple):
         """The walk's stack: the deep instances' above 63 levels."""
         return stack_for(self.depth)
 
+    @property
+    def stack4(self):
+        """The BVH4 walk's stack (accel/bvh.stack4_for)."""
+        return stack4_for(self.depth4)
 
-def pack_bvh(tri, device) -> BvhTables:
+
+def pack_bvh(tri, device, wide=None) -> BvhTables:
+    """The tables of the triangles `tri`, both walks' nodes; the closest-hit
+    and any-hit queries walk the BVH4 when `wide` (default WIDE_DEFAULT)."""
     flat = build_bvh(tri, KERNEL_LEAF)
     depth = tree_depth(flat)
     stack_for(depth)  # raises for a tree too deep for every instance
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     nodes_f, nodes_i = pack_bvh_tables(flat)
+    nodes4_f, nodes4_i = pack_bvh4_tables(flat)
+    depth4 = tree4_depth(nodes4_i)
+    stack4_for(depth4)
     tri_f, tri_i = shade_rows(tri)
     prims_f, prims_i, shade_f = pack_prim_tables(tri, flat, tri_f, tri_i[:, 0])
     return BvhTables(t(nodes_f), t(nodes_i), t(prims_f), t(prims_i), t(shade_f), flat.max_leaf,
-                     depth)
+                     depth, t(nodes4_f), t(nodes4_i), depth4,
+                     WIDE_DEFAULT if wide is None else bool(wide))
 
 
 # ---- the plain PyTorch versions ----
@@ -106,7 +142,7 @@ def intersect_bvh_shaded_reference(tables, o, d, t_max, work=None):
     """Plain version of the shaded kernel, with its outputs: (t, idx,
     material, area light, attrs (16, N), or (22, N) on smooth rows);
     misses carry t_max, -1, -1, -1 and zeros."""
-    t, row = traverse.walk(tables, o, d, t_max, False, work)
+    t, row = traverse.walk(tables._replace(wide=False), o, d, t_max, False, work)  # binary
     valid = row >= 0
     r = row.clamp(min=0)
     g = tables.prims_f[r]
@@ -169,6 +205,8 @@ def load_kernel():
         lib.bvh_launch.argtypes = [i, i, p, p, p, p, i, p, p, p, p, p, i, p]
         lib.bvh_shaded_launch.restype = i
         lib.bvh_shaded_launch.argtypes = [i, p, p, p, p, p, i, i, p, p, p, p, p, p, p, p, i, p]
+        lib.bvh4_launch.restype = i
+        lib.bvh4_launch.argtypes = [i, i, p, p, p, p, i, p, p, p, p, p, i, p]
         lib.bvh_error_string.restype = ctypes.c_char_p
         lib.bvh_error_string.argtypes = [i]
         if lib.bvh_deep_stack() != DEEP_STACK:
@@ -191,13 +229,24 @@ def _check_tables(tables, dev):
             raise ValueError(f"BVH table {name} must be contiguous {dtype} {shape} on {dev}")
     if not 0 < p or tables.depth >= DEEP_STACK:
         raise ValueError(f"{p} primitives / depth {tables.depth} outside the kernels' limits")
+    if tables.wide:
+        w = tables.nodes4_f.shape[0] if tables.nodes4_f is not None else 0
+        for name, x, dtype, shape in (
+            ("nodes4_f", tables.nodes4_f, torch.float32, (w, NODE4_COLS)),
+            ("nodes4_i", tables.nodes4_i, torch.int32, (w, NODE4_I_COLS)),
+        ):
+            if (x is None or x.device != dev or x.dtype != dtype or x.shape != shape
+                    or not x.is_contiguous()):
+                raise ValueError(f"BVH4 table {name} must be contiguous {dtype} {shape} on {dev}")
+        tables.stack4  # raises for a wide tree too deep for every instance
     return p
 
 
 def prepare_launch(tables, o, d, t_max, any_hit):
     """Check the CUDA inputs, allocate the outputs and return launch(): one
-    launch of the closest-hit (any_hit False) or any-hit walk on the
-    current stream returning (t, idx int32); relaunching rewrites them."""
+    launch of the closest-hit (any_hit False) or any-hit walk, the BVH4
+    walk where the tables are `wide`, on the current stream returning
+    (t, idx int32); relaunching rewrites them."""
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"the BVH kernel runs on cuda tensors, not {dev}")
@@ -208,14 +257,18 @@ def prepare_launch(tables, o, d, t_max, any_hit):
     idx_out = torch.empty(n, dtype=torch.int32, device=dev)
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    key = "bvh_any" if any_hit else "bvh_closest"
-    deep = int(tables.stack == DEEP_STACK)
+    key = launch_key(any_hit, tables.wide)
+    if tables.wide:
+        fn, nodes = lib.bvh4_launch, (tables.nodes4_f, tables.nodes4_i)
+        deep = int(tables.stack4 == DEEP_STACK)
+    else:
+        fn, nodes = lib.bvh_launch, (tables.nodes_f, tables.nodes_i)
+        deep = int(tables.stack == DEEP_STACK)
 
     def launch():
-        err = lib.bvh_launch(int(any_hit), deep, tables.nodes_f.data_ptr(), tables.nodes_i.data_ptr(),
-                             tables.prims_f.data_ptr(), tables.prims_i.data_ptr(), p,
-                             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(),
-                             idx_out.data_ptr(), n, stream)
+        err = fn(int(any_hit), deep, nodes[0].data_ptr(), nodes[1].data_ptr(),
+                 tables.prims_f.data_ptr(), tables.prims_i.data_ptr(), p, o.data_ptr(),
+                 d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(), idx_out.data_ptr(), n, stream)
         if err != 0:
             msg = lib.bvh_error_string(err).decode()
             raise RuntimeError(f"{key} kernel launch failed: CUDA error {err} ({msg})")

@@ -133,8 +133,10 @@ ELEM_MAX = 16  # lens elements
 BIN_MAX = 64  # exit-pupil bins
 BIG_T = 3.0e38
 SPEC_KINDS = (LOBE_SPEC_REFL, LOBE_SPEC_TRANS, LOBE_FRESNEL_SPEC)
-# the lobes of the Volpath and SPPM kernels; the path kernel adds Disney's
-# (K5 e), the wavefront loop every lobe the loader emits under Path
+# the lobes of the Volpath kernel and of the SPPM kernels' base instances;
+# the path kernel adds Disney's (K5 e), the SPPM kernels' wide instances
+# Disney's and specular transmission, the wavefront loop every lobe the
+# loader emits under Path
 BASE_KINDS = (LOBE_LAMBERT_REFL, LOBE_MF_REFL, LOBE_SPEC_REFL, LOBE_FRESNEL_SPEC)
 DISNEY_KINDS = (LOBE_DISNEY_DIFFUSE, LOBE_DISNEY_RETRO, LOBE_DISNEY_SHEEN,
                 LOBE_DISNEY_CLEARCOAT, LOBE_DISNEY_MICROFACET_REFL)
@@ -1520,6 +1522,12 @@ def _inv_dir(d):
 def _slab(b, ox, oy, oz, ix, iy, iz, t_cur):
     """Slab test of the boxes b[:, 0:6] = (min xyz, max xyz) with the
     traversal's t bound (ops/bvh_pallas._slab6)."""
+    return _slab_tn(b, ox, oy, oz, ix, iy, iz, t_cur)[0]
+
+
+def _slab_tn(b, ox, oy, oz, ix, iy, iz, t_cur):
+    """_slab, and each box's entry distance tn (the BVH4 walk orders its
+    pushes by it)."""
     t0x, t1x = (b[:, 0] - ox) * ix, (b[:, 3] - ox) * ix
     t0y, t1y = (b[:, 1] - oy) * iy, (b[:, 4] - oy) * iy
     t0z, t1z = (b[:, 2] - oz) * iz, (b[:, 5] - oz) * iz
@@ -1529,7 +1537,7 @@ def _slab(b, ox, oy, oz, ix, iy, iz, t_cur):
     tf = torch.minimum(
         torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)), torch.maximum(t0z, t1z)
     ) * 1.0000004
-    return (tn <= tf) & (tf > 0.0) & (tn < t_cur) & (t_cur > 0.0)
+    return (tn <= tf) & (tf > 0.0) & (tn < t_cur) & (t_cur > 0.0), tn
 
 
 def tally(work, key, count):

@@ -23,11 +23,19 @@ and the Morton-sorted deposit (K10), one CUDA source
 
 Subset (`unsupported_feature`): triangles (brute force up to TRI_MAX,
 the BVH above), up to LIGHT_MAX point lights (a camera medium is ignored,
-as in the JAX package), the path
-kernel's lobes without Disney's (BASE_KINDS), max_depth 2..DEPTH_MAX.  The triangle
-table is pack_scene's, whose column 47 carries the material id; the VP's
-BSDF in the deposit comes from `resolve_mat_tables`, one row per
-material in the table's lobe layout.
+as in the JAX package), the lobes of the JAX package's
+supports_sppm_camera (SPPM_KINDS: lambert and Disney's diffuse, retro and
+sheen, the two visible-normal Trowbridge-Reitz microfacets, Disney's
+clearcoat, specular reflection and transmission and fresnel specular;
+unscaled), max_depth 2..DEPTH_MAX.  The triangle table is pack_scene's,
+whose column 47 carries the material id; the VP's BSDF in the deposit
+comes from `resolve_mat_tables`, one row per material in the table's lobe
+layout.  A scene whose used lobes are all among pmk.BASE_KINDS takes the
+kernels' base instances; one with a Disney lobe or specular transmission
+their wide instances (`wide_lobes`: the Disney lobes' f, pdf and samples
+and the specular refraction, common.cuh's kDisney and kSt), named with
+"_wide" in LAUNCHES.  Specular vertices (a glass's reflection and
+transmission) make no VP: the walks go through them.
 
 On CUDA tensors each wrapper launches its kernel of
 csrc/sppm_megakernel.cu (built by ops/_build.py) or raises; on CPU
@@ -42,17 +50,29 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..bsdf.lobes import LOBE_LAMBERT_REFL, LOBE_MF_REFL
+from ..bsdf.lobes import (
+    LOBE_DISNEY_CLEARCOAT,
+    LOBE_DISNEY_DIFFUSE,
+    LOBE_DISNEY_MICROFACET_REFL,
+    LOBE_DISNEY_RETRO,
+    LOBE_DISNEY_SHEEN,
+    LOBE_LAMBERT_REFL,
+    LOBE_MF_REFL,
+)
 from ..config import SHADOW_EPSILON
 from ..sampler.dims import CAMERA_FILM, CAMERA_LENS, SPPM_BSDF, SPPM_NEE, SPPM_RR, sppm_dim0
 from . import _build
 from . import path_megakernel as pmk
 
 DEPTH_MAX = pmk.DEPTH_MAX
-# of the ported lobe kinds, those that make a VP (bsdf/eval.num_components
-# over DIFFUSE | R | T, resp. GLOSSY | R | T)
-DIFFUSE_KINDS = (LOBE_LAMBERT_REFL,)
-GLOSSY_KINDS = (LOBE_MF_REFL,)
+# of the kernels' lobe kinds (SPPM_KINDS), those that make a VP
+# (bsdf/eval.num_components over DIFFUSE | R | T, resp. GLOSSY | R | T;
+# the JAX package's DIFFUSE_KINDS / GLOSSY_KINDS)
+DIFFUSE_KINDS = (LOBE_LAMBERT_REFL, LOBE_DISNEY_DIFFUSE, LOBE_DISNEY_RETRO, LOBE_DISNEY_SHEEN)
+GLOSSY_KINDS = (LOBE_MF_REFL, LOBE_DISNEY_CLEARCOAT, LOBE_DISNEY_MICROFACET_REFL)
+# the kinds supports_sppm_camera takes: COS_KINDS + MF_KINDS + clearcoat +
+# SPEC_KINDS (the specular ones make no VP)
+SPPM_KINDS = DIFFUSE_KINDS + GLOSSY_KINDS + pmk.SPEC_KINDS
 LUM_R, LUM_G, LUM_B = 0.212671, 0.715160, 0.072169  # core/spectrum.luminance
 MAT_COL = 47  # the table column with the triangle's material id
 MAT_COLS = 16 + 16 * pmk.LOBES_MAX  # a resolved material row
@@ -62,13 +82,12 @@ GRID_RES_MAX = 1024  # cells per axis of the Morton grid
 
 # Kernel launches by kernel; the one piece of module state.
 LAUNCHES = {
-    "sppm_camera_mega_cam": 0,
-    "sppm_camera_mega_cam_bvh": 0,
-    "sppm_camera_mega": 0,
-    "sppm_camera_mega_bvh": 0,
-    "sppm_photon_mega": 0,
-    "sppm_photon_mega_bvh": 0,
-    "sppm_deposit_mega": 0,
+    base + bvh + wide: 0
+    for wide in ("", "_wide")
+    for base, bvh in (("sppm_camera_mega_cam", ""), ("sppm_camera_mega_cam", "_bvh"),
+                      ("sppm_camera_mega", ""), ("sppm_camera_mega", "_bvh"),
+                      ("sppm_photon_mega", ""), ("sppm_photon_mega", "_bvh"),
+                      ("sppm_deposit_mega", ""))
 }
 
 
@@ -94,11 +113,18 @@ def unsupported_feature(scene, spec) -> Optional[str]:
     if not 2 <= spec.max_depth <= DEPTH_MAX:
         # max_depth 1 makes no deposit event (sppm.py:426-432)
         return f"max_depth {spec.max_depth} outside 2..{DEPTH_MAX}"
-    return pmk.scene_unsupported(scene, None, pmk.BASE_KINDS)
+    return pmk.scene_unsupported(scene, None, SPPM_KINDS)
 
 
 def supports(scene, spec) -> bool:
     return unsupported_feature(scene, spec) is None
+
+
+def wide_lobes(packed) -> bool:
+    """Whether the packed scene's live lobes need the kernels' wide
+    instances: a lobe outside pmk.BASE_KINDS (Disney's, or specular
+    transmission)."""
+    return any(k not in pmk.BASE_KINDS for k in packed.kinds_present)
 
 
 def pack_sppm(scene, device, bvh=None) -> pmk.PackedScene:
@@ -117,7 +143,11 @@ def resolve_mat_tables(scene, device):
 
 def mat_table(r, device):
     """The MAT_COLS rows from resolved arrays: kinds (M, L), s0 / s1 / s2
-    (M, L, 3), au, av, fres, ea, eb (M, L) and n_lobes (M,)."""
+    (M, L, 3), au, av, fres, ea, eb (M, L) and n_lobes (M,), in the path
+    kernel's row layout: every column common.cuh's lobe_f reads, the
+    Disney lobes' too (roughness or the clearcoat's weight in au, its
+    gloss in av; the Disney microfacet's metallic and eta in ea / eb, its
+    c_spec0 in s1)."""
     kinds = np.asarray(r["kinds"])
     rows = np.zeros((kinds.shape[0], MAT_COLS), np.float32)
     rows[:, 15] = np.asarray(r["n_lobes"])
@@ -182,12 +212,14 @@ def load_kernel():
     """The SPPM kernels' library (built on first use)."""
     lib = _build.load("sppm_megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sppm_camera_launch.argtypes = [p, i, p, p, ctypes.POINTER(pmk._Params), p, p, i] + [p] * 8 + [i, p]
-    lib.sppm_camera_rays_launch.argtypes = ([p, i, p, p, ctypes.POINTER(pmk._Params)] + [p] * 4
+    # each launch's first argument: 1 for the wide instances (wide_lobes)
+    lib.sppm_camera_launch.argtypes = ([i, p, i, p, p, ctypes.POINTER(pmk._Params), p, p, i]
+                                       + [p] * 8 + [i, p])
+    lib.sppm_camera_rays_launch.argtypes = ([i, p, i, p, p, ctypes.POINTER(pmk._Params)] + [p] * 4
                                             + [i] + [p] * 8 + [i, p])
     lib.sppm_camera_rays_launch.restype = ctypes.c_int
-    lib.sppm_photon_launch.argtypes = [p, i, p, p, i] + [p] * 9 + [i, p]
-    lib.sppm_deposit_launch.argtypes = [p] * 10 + [i, p, p, i, p]
+    lib.sppm_photon_launch.argtypes = [i, p, i, p, p, i] + [p] * 9 + [i, p]
+    lib.sppm_deposit_launch.argtypes = [i] + [p] * 10 + [i, p, p, i, p]
     for fn in (lib.sppm_camera_launch, lib.sppm_photon_launch, lib.sppm_deposit_launch):
         fn.restype = ctypes.c_int
     lib.sppm_error_string.restype = ctypes.c_char_p
@@ -263,8 +295,8 @@ def sppm_camera_mega(packed, o, d, cam_weight, pixel_id, s_idx, sampler, max_dep
 
 def prepare_camera_rays(packed, o, d, cam_weight, u, max_depth):
     """launch() of the rays-in camera walk (sppm_camera_mega's result) on
-    the slot matrix u; adds one to LAUNCHES["sppm_camera_mega"] (or
-    ["sppm_camera_mega_bvh"]) when the launch is accepted."""
+    the slot matrix u; adds one to LAUNCHES["sppm_camera_mega"] (or its
+    "_bvh" / "_wide" instance's) when the launch is accepted."""
     dev = o.device
     n = o.shape[0]
     _check(o, (n, 3), torch.float32, dev, "o")
@@ -294,15 +326,16 @@ def _camera_launcher(packed, cam_packed, rays, u, max_depth, n, dev, prefix):
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = lib.sppm_camera_launch if len(rays) == 1 else lib.sppm_camera_rays_launch
-    args = (table.data_ptr(), table.shape[0], _ptr(nodes_f), _ptr(nodes_i), ctypes.byref(prm),
-            *(r.data_ptr() for r in rays), u.data_ptr(), n_u, *(t.data_ptr() for t in v3),
-            mat.data_ptr(), valid.data_ptr(), n, stream)
+    wide = wide_lobes(packed)
+    args = (int(wide), table.data_ptr(), table.shape[0], _ptr(nodes_f), _ptr(nodes_i),
+            ctypes.byref(prm), *(r.data_ptr() for r in rays), u.data_ptr(), n_u,
+            *(t.data_ptr() for t in v3), mat.data_ptr(), valid.data_ptr(), n, stream)
 
     def outs():
         ld, p, wo, beta, ng, dpdu = v3
         return ld, VisiblePoints(p, wo, beta, mat.to(torch.int64), ng, dpdu, valid != 0)
 
-    name = prefix if nodes_f is None else prefix + "_bvh"
+    name = prefix + "_bvh" * (nodes_f is not None) + "_wide" * wide
     return _launcher(lib, name, fn, args, outs, (packed, rays, u, v3, mat, valid))
 
 
@@ -342,10 +375,11 @@ def prepare_photon(packed, ro, rd, beta, active, u_rows, max_depth):
     live = torch.empty((e,), dtype=torch.int32, device=dev)
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (table.data_ptr(), table.shape[0], _ptr(nodes_f), _ptr(nodes_i), max_depth,
+    wide = wide_lobes(packed)
+    args = (int(wide), table.data_ptr(), table.shape[0], _ptr(nodes_f), _ptr(nodes_i), max_depth,
             ro.data_ptr(), rd.data_ptr(), beta.data_ptr(), alive.data_ptr(), u_rows.data_ptr(),
             *(t.data_ptr() for t in ev), live.data_ptr(), n, stream)
-    name = "sppm_photon_mega" if nodes_f is None else "sppm_photon_mega_bvh"
+    name = "sppm_photon_mega" + "_bvh" * (nodes_f is not None) + "_wide" * wide
     return _launcher(lib, name, lib.sppm_photon_launch, args, lambda: (*ev, live != 0),
                      (packed, ro, rd, beta, alive, u_rows, ev, live))
 
@@ -394,21 +428,23 @@ def deposit_inputs(vp, radius, events, lo, diag):
     )
 
 
-def deposit_mega(vp, radius, mats, events, lo, diag):
+def deposit_mega(vp, radius, mats, events, lo, diag, wide=False):
     """phi (N, 3) and M (N,) int64 of one iteration: vp the VisiblePoints,
     radius (N,) their radii, mats the resolve_mat_tables rows, events the
     photon walk's (ev_p, ev_wi, ev_beta, ev_live), lo / diag (3,) the grid
-    box.  The sort runs in torch (deposit_inputs); the range walk is the
-    kernel on CUDA tensors and its plain version on CPU tensors."""
+    box; `wide` (wide_lobes of the packed scene) takes the kernel's wide
+    instance, which evaluates the Disney lobes.  The sort runs in torch
+    (deposit_inputs); the range walk is the kernel on CUDA tensors and its
+    plain version on CPU tensors."""
     inp = deposit_inputs(vp, radius, events, lo, diag)
     if vp.p.device.type == "cpu":
         return deposit_walk_reference(vp, mats, inp)
-    return prepare_deposit(vp, mats, inp)()
+    return prepare_deposit(vp, mats, inp, wide)()
 
 
-def prepare_deposit(vp, mats, inp):
+def prepare_deposit(vp, mats, inp, wide=False):
     """Check the CUDA inputs, build the outputs, and return launch() (the
-    range walk's phi and M)."""
+    range walk's phi and M; the wide instance with `wide`)."""
     dev = vp.p.device
     if dev.type != "cuda":
         raise ValueError(f"the SPPM deposit kernel runs on cuda tensors, not {dev}")
@@ -426,10 +462,11 @@ def prepare_deposit(vp, mats, inp):
     m = torch.empty((n,), dtype=torch.int32, device=dev)
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (vp.p.data_ptr(), vp.wo.data_ptr(), vp.ng.data_ptr(), vp.dpdu.data_ptr(), mat.data_ptr(),
-            inp.r2.data_ptr(), inp.start.data_ptr(), inp.end.data_ptr(), inp.events.data_ptr(),
-            mats.data_ptr(), mats.shape[0], phi.data_ptr(), m.data_ptr(), n, stream)
-    return _launcher(lib, "sppm_deposit_mega", lib.sppm_deposit_launch, args,
+    args = (int(wide), vp.p.data_ptr(), vp.wo.data_ptr(), vp.ng.data_ptr(), vp.dpdu.data_ptr(),
+            mat.data_ptr(), inp.r2.data_ptr(), inp.start.data_ptr(), inp.end.data_ptr(),
+            inp.events.data_ptr(), mats.data_ptr(), mats.shape[0], phi.data_ptr(), m.data_ptr(), n,
+            stream)
+    return _launcher(lib, "sppm_deposit_mega" + "_wide" * wide, lib.sppm_deposit_launch, args,
                      lambda: (phi, m.to(torch.int64)), (vp, mat, mats, inp, phi, m))
 
 
@@ -474,7 +511,7 @@ def _hit_frame(table, best, found, d):
 def _bounce(row, n_lob, frame, ng, wol, ub0, ub1, active, work):
     """One BSDF sample: (new direction, f, pdf, ok)."""
     wsx, wsy, wsz, fs, pdf, _ = pmk._bsdf_sample(row, n_lob, *wol, ub0, ub1)
-    pmk.tally(work, "lobe", active)
+    pmk.tally_lobe(work, active, pmk._chosen_kind(row, n_lob, ub0), pdf=True)
     ssx, ssy, ssz, tsx, tsy, tsz = frame
     nw = (ssx * wsx + tsx * wsy + ng[0] * wsz, ssy * wsx + tsy * wsy + ng[1] * wsz,
           ssz * wsx + tsz * wsy + ng[2] * wsz)
@@ -493,8 +530,9 @@ def _next_origin(p, ng, nw, eps):
 def sppm_camera_mega_cam_reference(packed, cam_packed, pixel_xy, u_halton, max_depth, work=None):
     """Plain PyTorch version of `sppm_camera_mega_cam` (same arguments and
     return), on any device.  `work`, a dict, gets the counts of the
-    triangle and box tests ("mt", "slab"), lobe evaluations ("lobe") and
-    slot values read ("slot") the kernel performs on these inputs."""
+    triangle and box tests ("mt", "slab"), lobe evaluations ("lobe"), the
+    Disney lobes' operations beyond them ("disney_ops", pmk.tally_lobe)
+    and slot values read ("slot") the kernel performs on these inputs."""
     smp = SlotSampler(u_halton, max_depth)
     ray = pmk._raygen(pixel_xy[:, 0], pixel_xy[:, 1], None, None, smp, cam_packed)
     pmk.tally(work, "slot", torch.full_like(ray[0], 4.0))  # film and lens
@@ -551,9 +589,10 @@ def camera_walk_reference(packed, o, d, weight, smp, max_depth, work=None):
         f_gate = ((wi_ng * wol[2]) > 0.0) & (wol[2] != 0.0)
         fn = [zero, zero, zero]
         for l in range(max_lobes):
-            lf = pmk._lobe_f(pmk._lobe(row, 16 + 16 * l), *wol, wil_x, wil_y, wi_ng)
+            lob = pmk._lobe(row, 16 + 16 * l)
+            lf = pmk._lobe_f(lob, *wol, wil_x, wil_y, wi_ng)
             use = f_gate & (l < n_lob)
-            pmk.tally(work, "lobe", active & use)
+            pmk.tally_lobe(work, active & use, lob["kind"], pdf=False)
             fn = [fn[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
         off = torch.where(wi_ng < 0.0, -eps, eps)
         so = tuple(pc + nc * off for pc, nc in zip(p, ng))
@@ -648,7 +687,7 @@ def deposit_walk_reference(vp, mats, inp, work=None):
     the kernel adds them.  The VPs are ordered by range length, longest
     first, so step j works on the prefix of VPs still walking.  `work`
     gets the (VP, event) pairs walked ("pair") and the lobe evaluations of
-    the near pairs ("lobe")."""
+    the near pairs ("lobe", and "disney_ops" as for the camera walk)."""
     dev = vp.p.device
     n = vp.p.shape[0]
     length = (inp.end - inp.start).to(torch.int64)
@@ -684,9 +723,10 @@ def deposit_walk_reference(vp, mats, inp, work=None):
         zero = torch.zeros_like(d2)
         fr = [zero, zero, zero]
         for l in range(max_lobes):
-            lf = pmk._lobe_f(pmk._lobe(mrow[:w], 16 + 16 * l), *wl, wil_x, wil_y, wi_ng)
+            lob = pmk._lobe(mrow[:w], 16 + 16 * l)
+            lf = pmk._lobe_f(lob, *wl, wil_x, wil_y, wi_ng)
             use = gate & (l < mrow[:w, 15])
-            pmk.tally(work, "lobe", use)
+            pmk.tally_lobe(work, use, lob["kind"], pdf=False)
             fr = [fr[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
         acc[:w] = acc[:w] + torch.stack([fr[c] * ev[:, 6 + c] for c in range(3)], -1)
         m[:w] = m[:w] + near

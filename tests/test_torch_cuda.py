@@ -8,7 +8,9 @@ and the wavefront loop's subsurface branch; K7, the EWA texture tap, and
 the path kernel's textured instances; K3's deep instances and a mesh past
 120,000 triangles; the rays-in instances of the direct and Volpath kernels
 and of the SPPM camera walk, and the wavefront Debug / DirectLighting
-loop on the card against the CPU) against their plain PyTorch versions.
+loop on the card against the CPU; the SPPM kernels' wide instances on
+glass and Disney materials and K3's BVH4 walk) against their plain
+PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -290,10 +292,11 @@ def test_fog_render_launches_the_volpath_kernel_once_per_pass(tmp_path):
     assert float((res["rgb_srgb_input"].sum(-1) > 0).float().mean()) > 0.5
 
 
-def _sppm_job(tmp_path, grid=False):
-    """samples/scene_sppm.json at 64x36, 2 iterations of 4096 photons; or
-    an 8x8 grid of cubes (792 triangles) under the same SPPM block."""
-    cfg = json.loads((SAMPLES / "scene_sppm.json").read_text())
+def _sppm_job(tmp_path, grid=False, scene="scene_sppm.json"):
+    """samples/scene_sppm.json (or `scene`) at 64x36, 2 iterations of 4096
+    photons; or an 8x8 grid of cubes (792 triangles) in its first
+    material under the same SPPM block."""
+    cfg = json.loads((SAMPLES / scene).read_text())
     cfg["Film"]["xres"], cfg["Film"]["yres"] = 64, 36
     cfg["Integrator"].update(n_iters=2, photons_per_iter=4096)
     shutil.copy(SAMPLES / "cube.obj", tmp_path)
@@ -372,11 +375,73 @@ def test_sppm_render_launches_each_kernel_once_per_iteration(tmp_path):
     res = render_job(_sppm_job(tmp_path), dev, pupil_samples=1 << 16)
     assert res["fused_kernel"] == "sppm" and res["render_path"] == "megakernel" and not res["bvh"]
     assert res["launches"] == {
-        "sppm_camera_mega_cam": 2, "sppm_camera_mega_cam_bvh": 0, "sppm_camera_mega": 0,
-        "sppm_camera_mega_bvh": 0, "sppm_photon_mega": 2, "sppm_photon_mega_bvh": 0,
-        "sppm_deposit_mega": 2,
+        **{k: 0 for k in smk.LAUNCHES},
+        "sppm_camera_mega_cam": 2, "sppm_photon_mega": 2, "sppm_deposit_mega": 2,
     }
     assert [dict(c) for c in counts] == before
+    img = res["rgb_srgb_input"]
+    assert torch.isfinite(img).all() and float(img.max()) > 0
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["fixture", "grid"])
+@pytest.mark.parametrize("scene", ["scene_sppm_glass.json", "scene_sppm_disney.json"])
+def test_sppm_wide_instances_match_plain_versions(tmp_path, scene, grid):
+    """The wide instances of K8, K9 and K10 (glass: specular transmission;
+    Disney: its five lobes) on one iteration's inputs, brute force on the
+    fixture and over the BVH on its 8x8 grid, against their plain
+    versions: ld to the per-ray bar, VP valid and material on 99.5% of the
+    pixels and the record where both are valid, events on 99.5% of the
+    photons, M equal and phi within 1e-5."""
+    dev = _device()
+    job = _sppm_job(tmp_path, grid, scene)
+    depth = job.integrator.max_depth
+    packed, cam, pxy, u = _sppm_inputs(job, dev, grid)
+    assert smk.wide_lobes(packed)
+    sfx = "_bvh" * grid + "_wide"
+    before = dict(smk.LAUNCHES)
+    ld, vp = smk.sppm_camera_mega_cam(packed, cam, pxy, u, depth)
+    lights = sppm.photon_lights(packed, job.scene.lights, dev)
+    n_ph = job.integrator.photons_per_iter
+    ph = sppm.emit_photons(lights, n_ph + torch.arange(n_ph, device=dev), depth)
+    ev = smk.sppm_photon_mega(packed, *ph, depth)
+    radius = torch.full((pxy.shape[0],), job.integrator.radius, device=dev)
+    lo, diag = sppm.grid_bounds(vp, radius)
+    mats = smk.resolve_mat_tables(job.scene, dev)
+    phi, m = smk.deposit_mega(vp, radius, mats, ev, lo, diag, wide=True)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in smk.LAUNCHES.items() if v != before[k]} == {
+        f"sppm_camera_mega_cam{sfx}": 1, f"sppm_photon_mega{sfx}": 1, "sppm_deposit_mega_wide": 1}
+    ld_ref, vp_ref = smk.sppm_camera_mega_cam_reference(packed, cam, pxy, u, depth)
+    rel = (ld - ld_ref).abs() / ld_ref.abs().clamp(min=1e-3)
+    ok = rel.amax(-1) <= 1e-3
+    assert float((~ok).float().mean()) < 5e-3 and float(ld_ref.max()) > 0
+    assert float((vp.valid == vp_ref.valid).float().mean()) >= 0.995
+    both = vp.valid & vp_ref.valid & ok
+    assert int(both.sum()) > 10 and (vp.mat[both] == vp_ref.mat[both]).all()
+    for f in ("p", "wo", "beta", "ng", "dpdu"):
+        torch.testing.assert_close(getattr(vp, f)[both], getattr(vp_ref, f)[both], rtol=2e-4,
+                                   atol=1e-5)
+    ev_ref = smk.sppm_photon_mega_reference(packed, *ph, depth)
+    same = ev[3] == ev_ref[3]
+    for k in range(3):
+        same &= torch.isclose(ev[k], ev_ref[k], rtol=1e-4, atol=1e-5).all(-1) | ~ev_ref[3]
+    assert float(same.reshape(depth - 1, n_ph).all(0).float().mean()) >= 0.995
+    phi_ref, m_ref = smk.deposit_mega_reference(vp, radius, mats, ev, lo, diag)
+    assert torch.equal(m, m_ref)
+    torch.testing.assert_close(phi, phi_ref, rtol=1e-5, atol=0.0)
+
+
+def test_sppm_glass_render_launches_the_wide_instances(tmp_path):
+    """samples/scene_sppm_glass.json through render_job: one launch of each
+    wide instance per iteration, none of the base ones."""
+    dev = _device()
+    res = render_job(_sppm_job(tmp_path, scene="scene_sppm_glass.json"), dev,
+                     pupil_samples=1 << 16)
+    assert res["fused_kernel"] == "sppm" and res["render_path"] == "megakernel"
+    assert res["launches"] == {
+        **{k: 0 for k in smk.LAUNCHES},
+        "sppm_camera_mega_cam_wide": 2, "sppm_photon_mega_wide": 2, "sppm_deposit_mega_wide": 2,
+    }
     img = res["rgb_srgb_input"]
     assert torch.isfinite(img).all() and float(img.max()) > 0
 
@@ -423,8 +488,10 @@ def test_wavefront_bvh_kernels_match_plain_versions(tmp_path):
     occ = bk.occluded_bvh(ctx.bvh, o, d, t_max)
     t_s, idx_s, valid_s, at = bk.intersect_bvh_shaded(ctx.bvh, o, d, t_max)
     torch.cuda.synchronize()
+    wide = ctx.bvh.wide
     assert {k: v - before[k] for k, v in bk.LAUNCHES.items()} == {
-        "bvh_closest": 1, "bvh_any": 1, "bvh_shaded": 1, "bvh_shaded_smooth": 0}
+        **{k: 0 for k in bk.LAUNCHES}, bk.launch_key(False, wide): 1,
+        bk.launch_key(True, wide): 1, "bvh_shaded": 1}
     t_ref, idx_ref, valid_ref = bk.intersect_bvh_reference(ctx.bvh, o, d, t_max)
     assert int(valid_ref.sum()) > 5000 and not bool(valid_ref[t_max == 0].any())
     for tt, ii, vv in ((t, idx, valid), (t_s, idx_s, valid_s)):
@@ -441,8 +508,7 @@ def test_wavefront_renders_launch_the_intersection_kernels(tmp_path, monkeypatch
     ao = _job(tmp_path, scene="scene_ao.json")
     res = render_job(ao, dev, spp_override=4, pupil_samples=1 << 16)
     assert res["render_path"] == "wavefront" and not res["bvh"]
-    assert res["launches"] == {"intersect": 65, "bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0,
-                               "bvh_shaded_smooth": 0}
+    assert res["launches"] == {"intersect": 65, **{k: 0 for k in bk.LAUNCHES}}
     assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
     monkeypatch.setattr(pmk, "BVH_TRI_MAX", 400)
     grid = load_scene(write_grid_scene(str(tmp_path / "grid"), ny=6, nz=6, xres=64, yres=36))
@@ -450,8 +516,8 @@ def test_wavefront_renders_launch_the_intersection_kernels(tmp_path, monkeypatch
     res = render_job(grid, dev, spp_override=4, pupil_samples=1 << 16)
     assert res["render_path"] == "wavefront" and res["bvh"] and dict(pmk.LAUNCHES) == before
     depth = grid.integrator.max_depth
-    assert res["launches"] == {"intersect": 0, "bvh_closest": 0, "bvh_any": depth,
-                               "bvh_shaded": depth, "bvh_shaded_smooth": 0}
+    assert res["launches"] == {"intersect": 0, **{k: 0 for k in bk.LAUNCHES},
+                               bk.launch_key(True, bk.WIDE_DEFAULT): depth, "bvh_shaded": depth}
     assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
 
 
@@ -651,7 +717,7 @@ def test_smooth_shaded_bvh_instance_matches_plain_version(tmp_path):
     t, idx, valid, at = bk.intersect_bvh_shaded(ctx.bvh, o, d, t_max)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in bk.LAUNCHES.items()} == {
-        "bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0, "bvh_shaded_smooth": 1}
+        **{k: 0 for k in bk.LAUNCHES}, "bvh_shaded_smooth": 1}
     t_ref, idx_ref, mat, al, a_ref = bk.intersect_bvh_shaded_reference(ctx.bvh, o, d, t_max)
     assert int((idx_ref >= 0).sum()) > 2000
     assert torch.equal(idx, idx_ref) and torch.equal(t, t_ref) and torch.equal(at["mat"], mat)
@@ -853,6 +919,36 @@ def test_bvh_kernels_past_the_old_limits(tmp_path, scene):
                        bk.occluded_bvh_reference(tables, o, d, t_max))
 
 
+@pytest.mark.parametrize("scene", ["grid40", "deep"])
+def test_bvh4_kernels_match_plain_walk_and_binary_kernels(tmp_path, scene):
+    """The BVH4 instances (closest and any hit; the deep ones on the 97-level
+    tree's 48 wide levels) on 2^16 seeded rays against the plain BVH4 walk
+    (equal) and the binary kernels (hit or miss, triangle and t equal
+    except on exact ties, which these rays do not meet)."""
+    dev = _device()
+    path = (write_deep_bvh_scene(str(tmp_path)) if scene == "deep"
+            else write_grid_scene(str(tmp_path), ny=40, nz=40))
+    binary = bk.pack_bvh(load_scene(path).scene.triangles, dev, wide=False)
+    wide = binary._replace(wide=True)
+    assert (wide.stack4 == bk.DEEP_STACK) == (scene == "deep")
+    # the deep tree's triangles crowd about (35, 0, 0)
+    yz = 1.5 if scene == "deep" else 6.0
+    o, d, t_max = _aimed_rays(1 << 16, 4, dev, x=(34.5, 36.0), y=(-yz, yz), z=(-yz, yz))
+    before = dict(bk.LAUNCHES)
+    t, idx, valid = bk.intersect_bvh(wide, o, d, t_max)
+    occ = bk.occluded_bvh(wide, o, d, t_max)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in bk.LAUNCHES.items() if v != before[k]} == {
+        "bvh4_closest": 1, "bvh4_any": 1}
+    t_r, idx_r, valid_r = bk.intersect_bvh_reference(wide, o, d, t_max)
+    assert int(valid_r.sum()) > 1000
+    assert torch.equal(valid, valid_r) and torch.equal(idx, idx_r) and torch.equal(t, t_r)
+    assert torch.equal(occ, bk.occluded_bvh_reference(wide, o, d, t_max))
+    t_b, idx_b, valid_b = bk.intersect_bvh(binary, o, d, t_max)
+    assert torch.equal(valid, valid_b) and torch.equal(idx, idx_b) and torch.equal(t, t_b)
+    assert torch.equal(occ, bk.occluded_bvh(binary, o, d, t_max))
+
+
 def test_materials_wavefront_card_matches_cpu_over_lit_rays():
     """samples/scene_materials.json's wavefront li_path on the card against
     the same on the CPU at 80x45x16: under 0.5% of the lit rays past 1e-3
@@ -932,6 +1028,28 @@ def test_rays_in_sppm_camera_walk_matches_plain_version(tmp_path, bvh):
     o, d = torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)
     pid = torch.arange(pxy.shape[0], device=dev)
     name = "sppm_camera_mega" + ("_bvh" if bvh else "")
+    before = smk.LAUNCHES[name]
+    ld, vp = smk.sppm_camera_mega(packed, o, d, w, pid, 1, make_sampler(job), depth)
+    torch.cuda.synchronize()
+    assert smk.LAUNCHES[name] == before + 1
+    ld_ref, vp_ref = smk.sppm_camera_mega_reference(packed, o, d, w, u, depth)
+    _rays_in_bar(ld, ld_ref)
+    assert float((vp.valid == vp_ref.valid).float().mean()) >= 0.995
+
+
+@pytest.mark.parametrize("bvh", [False, True], ids=["brute", "bvh"])
+def test_rays_in_sppm_wide_instances_match_plain_version(tmp_path, bvh):
+    """#10's wide instances on the glass fixture's own lens rays and slot
+    values, as the test above holds the base ones."""
+    dev = _device()
+    job = _sppm_job(tmp_path, scene="scene_sppm_glass.json")
+    depth = job.integrator.max_depth
+    packed, cam, pxy, u = _sppm_inputs(job, dev, bvh)
+    ox, oy, oz, dx, dy, dz, w = pmk._raygen(pxy[:, 0], pxy[:, 1], None, None,
+                                            smk.SlotSampler(u, depth), cam)
+    o, d = torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)
+    pid = torch.arange(pxy.shape[0], device=dev)
+    name = "sppm_camera_mega" + ("_bvh" if bvh else "") + "_wide"
     before = smk.LAUNCHES[name]
     ld, vp = smk.sppm_camera_mega(packed, o, d, w, pid, 1, make_sampler(job), depth)
     torch.cuda.synchronize()
