@@ -238,7 +238,7 @@ Phase 14 SPPM on glass and Disney materials, and K3's BVH4 walk: (a)
          same way; (c) #10's wide instances on the glass fixture's and the
          Disney grid's first iteration's camera rays, held as in 13e; (d)
          AO on phase 7b's grid, one pass at 8 spp over the BVH4 walk (the
-         loop's walk is the binary one: ops/bvh_kernel.WIDE_DEFAULT), 64
+         loop's walk is the binary one; pack_bvh(..., wide=True)), 64
          BVH4 any-hit launches, counts at 0 just before, and on its first
          probe batch the BVH4 any hit held to its plain version as 7b holds
          K3 and to the binary instance (hit or miss equal on all but 1e-5
@@ -477,10 +477,6 @@ for _name in ("sppm_camera_mega_cam", "sppm_camera_mega_cam_bvh", "sppm_camera_m
               "sppm_deposit_mega"):
     KERNELS[_name + "_wide"] = KERNELS[_name]
 KERNELS["bvh4"] = dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:591")
-# the K3 walk the wavefront loop takes (ops/bvh_kernel.WIDE_DEFAULT): its
-# entry, the other's, and the launch counts of its closest and any hit
-WALK, OTHER_WALK = ("bvh4", "bvh") if bk.WIDE_DEFAULT else ("bvh", "bvh4")
-ANY, CLOSEST = bk.launch_key(True, bk.WIDE_DEFAULT), bk.launch_key(False, bk.WIDE_DEFAULT)
 # FP32 operations per counted test, density tap or walked deposit pair
 FLOPS = {"mt": 45, "slab": 27, "sph": 30, "lobe": 3, "track": 40, "pair": 9, "disney_ops": 1,
          "texel": 10, "fd_ray": 110 + 94 * 10 + 15}
@@ -1131,13 +1127,13 @@ def hold_sppm_walks(job, dev, cross=False):
     return camera, photon, vp, ev, ev_batch, radius, smk.resolve_mat_tables(job.scene, dev)
 
 
-def hold_deposit(vp, ev, radius, mats, timed=True, wide=False):
-    """The deposit kernel (its wide instance with `wide`) against its plain
+def hold_deposit(vp, ev, radius, mats, timed=True):
+    """The deposit kernel (its wide instance on wide rows) against its plain
     version on the same sorted events (the kernel's VPs and events of one
     iteration); with `timed`, its times and bound too."""
     lo, diag = sppm.grid_bounds(vp, radius)
     inp = smk.deposit_inputs(vp, radius, ev, lo, diag)
-    launch = smk.prepare_deposit(vp, mats, inp, wide)
+    launch = smk.prepare_deposit(vp, mats, inp)
     phi, m = launch()
     torch.cuda.synchronize()
     work = {}
@@ -1153,7 +1149,7 @@ def hold_deposit(vp, ev, radius, mats, timed=True, wide=False):
         return held
     n = vp.p.shape[0]
     t_ms = timed_ms(launch, reps=10)
-    wrapper_ms = timed_ms(lambda: smk.deposit_mega(vp, radius, mats, ev, lo, diag, wide))
+    wrapper_ms = timed_ms(lambda: smk.deposit_mega(vp, radius, mats, ev, lo, diag))
     plain_ms = once_ms(lambda: smk.deposit_walk_reference(vp, mats, inp))
     # bytes: the VPs with a range, and each sorted event that some range holds once
     walking = inp.end > inp.start
@@ -1317,19 +1313,19 @@ class RecordingCtx(SceneCtx):
         return super().intersect(o, d, t_max)
 
 
-def first_pass_batches(job, dev, spp, wide=None):
+def first_pass_batches(job, dev, spp, wide=False):
     """The first pass of the wavefront render of `job` at `spp` samples per
     pixel, run again with a recording context: its first camera (shaded)
-    and occlusion batches, and the context.  `wide` (True or False) sets
-    the walk of its closest-hit and any-hit queries, which is otherwise
-    the loop's own (ops/bvh_kernel.WIDE_DEFAULT)."""
+    and occlusion batches, and the context.  With `wide` its closest-hit
+    and any-hit queries walk the BVH4 (pack_bvh(..., wide=True)), not the
+    loop's binary tree."""
     sampler = make_sampler(job)
     sampler.xs, sampler.ys = (2, 4) if spp == 8 else (4, 4)
     sampler.spp = spp
     cam = RealisticCamera(job.camera, job.film, device=dev)
     ctx = RecordingCtx(SceneCtx.from_scene(job.scene, dev))
-    if wide is not None:
-        ctx.bvh = ctx.bvh._replace(wide=wide)
+    if wide:
+        ctx.bvh = bk.pack_bvh(job.scene.triangles, dev, wide=True)
     pxy, pid, soff = sample_batch(job.film, spp, dev)
     o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
     li = li_ao if job.integrator.kind == "ao" else li_path
@@ -1492,14 +1488,14 @@ def wavefront_phase(record, kernels, card, dev):
     t0 = time.perf_counter()
     grid = write_grid_scene(str(OUT / "grid_ao"), base=str(SCENE_AO), integrator="AO")
     res, colored, counts = drive_wavefront(
-        grid, OUT / "chip_smoke_grid_ao.png", {"bvh_shaded": 1, ANY: n_probe}, 8)
+        grid, OUT / "chip_smoke_grid_ao.png", {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
     check(res["bvh"], "the AO grid did not take the BVH")
     job = load_scene(grid)
     ctx, batches = first_pass_batches(job, dev, 8)
     shaded = hold_query("shaded", ctx, batches["shaded"])
     any_hit = hold_query("any", ctx, batches["occluded"])
     closest = hold_query("closest", ctx, batches["occluded"])
-    wavefront_entry(kernels, WALK, counts[ANY] + counts[CLOSEST], any_hit)
+    wavefront_entry(kernels, "bvh", counts["bvh_any"] + counts["bvh_closest"], any_hit)
     wavefront_entry(kernels, "bvh_shaded", counts["bvh_shaded"], shaded)
     job.sampler.xsamp, job.sampler.ysamp = 2, 4
     warm = [render_job(job, dev) for _ in range(2)]
@@ -1531,7 +1527,7 @@ def wavefront_phase(record, kernels, card, dev):
     depth = job.integrator.max_depth
     check(job.scene.triangles.count > pmk.BVH_TRI_MAX, "the 80x80 grid fits the path kernel")
     res, colored, counts = drive_wavefront(
-        big, OUT / "chip_smoke_grid80_path.png", {"bvh_shaded": depth, ANY: depth}, 8)
+        big, OUT / "chip_smoke_grid80_path.png", {"bvh_shaded": depth, "bvh_any": depth}, 8)
     ctx, batches = first_pass_batches(job, dev, 8)
     check(ctx.bvh.depth < pmk.STACK_DEPTH, "the 80x80 grid's BVH is too deep")
     shaded_c = hold_query("shaded", ctx, batches["shaded"])
@@ -1546,7 +1542,7 @@ def wavefront_phase(record, kernels, card, dev):
                              warm_camera_mrays_per_s=[r["mrays_per_s"] for r in warm],
                              render_s=res["elapsed_s"], shaded=shaded_c, any_hit=any_c,
                              phase_s=time.perf_counter() - t0)
-    kernels[WALK]["max_abs_err"] = max(any_c["max_abs_err"], closest["max_abs_err"],
+    kernels["bvh"]["max_abs_err"] = max(any_c["max_abs_err"], closest["max_abs_err"],
                                        any_hit["max_abs_err"])
     kernels["bvh_shaded"]["max_abs_err"] = max(shaded_c["max_abs_err"], shaded["max_abs_err"])
     print(f"phase 7c: Path, grid of {job.scene.triangles.count} triangles (BVH depth "
@@ -1953,7 +1949,7 @@ def halton_smooth_phase(record, kernels, card, dev):
     check(job.scene.triangles.count > pmk.BVH_TRI_MAX, "9g: the grid fits the path kernel")
     res, colored, counts = drive_wavefront(
         grid80, OUT / "chip_smoke_smooth_grid80.png",
-        {"bvh_shaded_smooth": depth, ANY: depth}, 8)
+        {"bvh_shaded_smooth": depth, "bvh_any": depth}, 8)
     ctx, batches = first_pass_batches(job, dev, 8)
     check(ctx.bvh.smooth, "9g: flat shade rows")
     shaded = hold_query("shaded", ctx, batches["shaded"])
@@ -2235,17 +2231,17 @@ def subsurface_phase(record, kernels, card, dev):
     t0 = time.perf_counter()
     grid = write_grid_scene(str(OUT / "grid_sss_mixed"), base=str(SCENE_SSS_MIXED))
     res, colored, counts = drive_announced(grid, OUT / "chip_smoke_grid_sss_mixed.png", "11e",
-                                           (CLOSEST, "bvh_shaded", ANY))
+                                           ("bvh_closest", "bvh_shaded", "bvh_any"))
     job = load_scene(grid)
     ctx, batches = first_pass_batches(job, dev, 16)
     check("closest" in batches, "11e: the grid's probe chain cast no closest-hit batch")
     closest = hold_query("closest", ctx, batches["closest"])
-    kernels[WALK].update(closest_launches=counts[CLOSEST], closest_ms=closest["ms"],
-                         closest_bound_ms=closest["bound_ms"],
-                         closest_plain_ms=closest["plain_ms"], closest_rays=closest["rays"],
-                         max_abs_err=max(kernels[WALK]["max_abs_err"], closest["max_abs_err"]))
-    grid_bar = card_vs_cpu(grid, 80, 45, dev, "11e grid", (CLOSEST, "bvh_shaded", ANY),
-                           lit_bar=True)
+    kernels["bvh"].update(closest_launches=counts["bvh_closest"], closest_ms=closest["ms"],
+                          closest_bound_ms=closest["bound_ms"],
+                          closest_plain_ms=closest["plain_ms"], closest_rays=closest["rays"],
+                          max_abs_err=max(kernels["bvh"]["max_abs_err"], closest["max_abs_err"]))
+    grid_bar = card_vs_cpu(grid, 80, 45, dev, "11e grid",
+                           ("bvh_closest", "bvh_shaded", "bvh_any"), lit_bar=True)
     record["phase11e_grid"] = dict(launches=counts, colored=colored,
                                    camera_rays=res["camera_rays"],
                                    render_mrays_per_s=res["mrays_per_s"], closest=closest,
@@ -2383,10 +2379,10 @@ def repairs_phase(record, card, dev):
                               integrator="AO", xres=160, yres=90)
     n_probe = load_scene(big_ao).integrator.n_samples
     res_ao, _, counts_ao = drive_wavefront(big_ao, OUT / "chip_smoke_grid112_ao.png",
-                                           {"bvh_shaded": 1, ANY: n_probe}, 8)
+                                           {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
     big_path = write_grid_scene(str(OUT / "grid112_path"), ny=112, nz=112, xres=160, yres=90)
     res_big, _, counts_big = drive_announced(big_path, OUT / "chip_smoke_grid112_path.png",
-                                             "12e", ("bvh_shaded", ANY))
+                                             "12e", ("bvh_shaded", "bvh_any"))
     job = load_scene(big_path)
     check(job.scene.triangles.count > 120_000, "12e: the 112x112 grid")
     # a BVH of 64 levels or more over more triangles than K1's brute force:
@@ -2395,7 +2391,7 @@ def repairs_phase(record, card, dev):
     deep = write_deep_bvh_scene(str(OUT / "deep_bvh"), integrator="Path", n_bulk=2000,
                                 xres=160, yres=90)
     res_deep, _, counts_deep = drive_announced(deep, OUT / "chip_smoke_deep_bvh.png", "12e",
-                                               ("bvh_shaded", ANY))
+                                               ("bvh_shaded", "bvh_any"))
     deep_job = load_scene(deep)
     check(deep_job.scene.triangles.count > pmk.TRI_MAX, "12e: the deep tree's triangles")
     ctx = SceneCtx.from_scene(deep_job.scene, dev)
@@ -2708,16 +2704,16 @@ def wide_sppm_phase(record, kernels, card, dev):
         job = load_scene(str(scene))
         depth = job.integrator.max_depth
         camera, photon, vp, ev, ev_batch, radius, mats = hold_sppm_walks(job, dev)
-        deposit = hold_deposit(vp, ev, radius, mats, wide=True)
+        deposit = hold_deposit(vp, ev, radius, mats)
         deposit_batch = hold_deposit(vp, first_photons(ev_batch, depth, 16), radius, mats,
-                                     timed=False, wide=True)
+                                     timed=False)
         warm = render_job(job, dev)
         grid = sppm_grid(scene, tag)
         res_g, colored_g = drive_sppm(grid, OUT / f"chip_smoke_grid_sppm_{tag}.png", True,
                                       wide=True)
         job_g = load_scene(grid)
         camera_g, photon_g, vp_g, ev_g, _, radius_g, mats_g = hold_sppm_walks(job_g, dev)
-        deposit_g = hold_deposit(vp_g, ev_g, radius_g, mats_g, timed=False, wide=True)
+        deposit_g = hold_deposit(vp_g, ev_g, radius_g, mats_g, timed=False)
         held[tag] = h = dict(
             iterations=res["passes"], colored=colored, render_s=res["elapsed_s"],
             camera_mrays_per_s=res["camera_mrays_per_s"],
@@ -2797,14 +2793,15 @@ def _dig(d, *path):
     return d
 
 
-def hold_walks(query, ctx, batch, stride=16):
-    """The BVH4 instance of `query` ("closest" or "any") held to the plain
-    BVH4 walk (hold_query) and to the binary instance on the same rays:
+def hold_walks(query, ctx, tables4, batch, stride=16):
+    """The BVH4 instance of `query` ("closest" or "any") over `ctx`'s
+    triangles' BVH4 tables `tables4` held to the plain BVH4 walk
+    (hold_query) and to the binary instance on the same rays:
     hit or miss equal on all but MISS_HOLD of them (exact ties can part
     the two visit orders), where both hit the triangle and t equal.  Both
     instances timed, in turns.  Returns (BVH4 numbers, binary numbers)."""
     wide, binary = copy.copy(ctx), copy.copy(ctx)
-    wide.bvh, binary.bvh = ctx.bvh._replace(wide=True), ctx.bvh._replace(wide=False)
+    wide.bvh, binary.bvh = tables4, tables4._replace(wide=False)
     w = hold_query(query, wide, batch, stride)
     o, d, t_max = batch
     launch_w = bk.prepare_launch(wide.bvh, o, d, t_max, query == "any")
@@ -2829,38 +2826,37 @@ def hold_walks(query, ctx, batch, stride=16):
 def bvh4_phase(record, kernels, card, dev):
     """Phase 14d-f (see the module docstring)."""
     t0 = time.perf_counter()
-    # (d) AO on the 19,224-triangle grid, one pass over the walk the loop
-    # does not take by default, counts at 0 just before; both walks on its
-    # first probe batch
+    # (d) AO on the 19,224-triangle grid, one pass over the BVH4 walk,
+    # counts at 0 just before; both walks on its first probe batch
     job = load_scene(str(OUT / "grid_ao" / "grid.json"))
     n_probe = job.integrator.n_samples
     zero_counts()
-    ctx, batches = first_pass_batches(job, dev, 8, wide=not bk.WIDE_DEFAULT)
+    ctx, batches = first_pass_batches(job, dev, 8, wide=True)
     counts = {k: v for k, v in all_counts().items() if v}
-    other_any = bk.launch_key(True, not bk.WIDE_DEFAULT)
-    check(counts == {"bvh_shaded": 1, other_any: n_probe}, f"14d: launches {counts}")
-    ao_any = hold_walks("any", ctx, batches["occluded"])
+    check(counts == {"bvh_shaded": 1, "bvh4_any": n_probe}, f"14d: launches {counts}")
+    ao_any = hold_walks("any", ctx, ctx.bvh, batches["occluded"])
     # (e) the 76,824-triangle grid's camera (closest) and bounce-0 shadow rays
     grid80 = load_scene(str(OUT / "grid80_path" / "grid.json"))
     ctx80, batches80 = first_pass_batches(grid80, dev, 8)
-    p80_closest = hold_walks("closest", ctx80, batches80["shaded"])
-    p80_any = hold_walks("any", ctx80, batches80["occluded"])
+    t80 = bk.pack_bvh(grid80.scene.triangles, dev, wide=True)
+    p80_closest = hold_walks("closest", ctx80, t80, batches80["shaded"])
+    p80_any = hold_walks("any", ctx80, t80, batches80["occluded"])
     # (f) the 101-level tree (50 wide levels: the deep instances), 2^17 aimed rays
     deep = load_scene(str(OUT / "deep_bvh" / "deep.json"))
     ctx_d = SceneCtx.from_scene(deep.scene, dev)
-    check(ctx_d.bvh.stack4 == bk.DEEP_STACK, f"14f: a wide tree of depth {ctx_d.bvh.depth4}")
+    t_d = bk.pack_bvh(deep.scene.triangles, dev, wide=True)
+    check(t_d.stack4 == bk.DEEP_STACK, f"14f: a wide tree of depth {t_d.depth4}")
     aimed = aimed_rays(1 << 17, (35.0, 0.0, 0.0), 1.0, dev)
-    deep_closest = hold_walks("closest", ctx_d, aimed, stride=8)
-    deep_any = hold_walks("any", ctx_d, aimed, stride=8)
+    deep_closest = hold_walks("closest", ctx_d, t_d, aimed, stride=8)
+    deep_any = hold_walks("any", ctx_d, t_d, aimed, stride=8)
     held = dict(ao_grid_any=ao_any, grid80_closest=p80_closest, grid80_any=p80_any,
                 deep_closest=deep_closest, deep_any=deep_any)
     record["phase14_bvh4"] = dict(
         launches=counts, nodes=ctx.bvh.nodes_f.shape[0], wide_nodes=ctx.bvh.nodes4_f.shape[0],
-        depth=ctx.bvh.depth, depth4=ctx.bvh.depth4, deep_depth=ctx_d.bvh.depth,
-        deep_depth4=ctx_d.bvh.depth4, default_wide=bk.WIDE_DEFAULT,
+        depth=ctx.bvh.depth, depth4=ctx.bvh.depth4, deep_depth=t_d.depth,
+        deep_depth4=t_d.depth4,
         **{k: dict(bvh4=w, binary=b) for k, (w, b) in held.items()},
         phase_s=time.perf_counter() - t0)
-    check(not bk.WIDE_DEFAULT, "14d: the loop's walk is the BVH4: its pass is 7b's")
     wavefront_entry(kernels, "bvh4", counts["bvh4_any"] + counts.get("bvh4_closest", 0), ao_any[0])
     kernels["bvh4"]["max_abs_err"] = max(w["max_abs_err"] for w, _ in held.values())
     kernels["bvh4"].update(

@@ -49,9 +49,12 @@ def walk4(tables, o, d, t_max, any_hit, work=None):
     by this ray's entry distance (ties keep slot order), so the nearest
     is popped next.  Any hit stops at the first triangle hit.  The stack
     holds tables.stack4 entries, enough for the tree (accel/bvh
-    .stack4_for).  Returns (t, leaf-order row) as `walk`; `work` gets the
-    slab tests of the non-empty slots and the Moller-Trumbore tests the
-    kernel makes ("slab", "mt")."""
+    .stack4_for); a push past it raises rather than drop a subtree.
+    Returns (t, leaf-order row) as `walk`; `work` gets the slab tests of
+    the non-empty slots and the Moller-Trumbore tests the kernel makes
+    ("slab", "mt")."""
+    if tables.nodes4_f is None:
+        raise ValueError("tables without the BVH4's nodes (pack_bvh(..., wide=True))")
     dev = o.device
     nodes_f, nodes_i = tables.nodes4_f.to(dev), tables.nodes4_i.to(dev).to(torch.int64)
     geo = tables.prims_f.to(dev)[:, :9]
@@ -109,7 +112,9 @@ def walk4(tables, o, d, t_max, any_hit, work=None):
                 v[i], v[j] = torch.where(lt, v[j], v[i]), torch.where(lt, v[i], v[j])
         for s_ in range(4):
             p = push[s_] & ~found if any_hit else push[s_]
-            slot = sp.clamp(max=tables.stack4 - 1)  # the packer sizes the stack
+            if bool((p & (sp >= tables.stack4)).any()):
+                raise RuntimeError(f"the BVH4 walk's {tables.stack4}-entry stack overflowed")
+            slot = torch.where(p, sp, 0)
             stack[lane, slot] = torch.where(p, ids[s_], stack[lane, slot])
             sp = sp + p
         done = (sp == 0) | found

@@ -118,7 +118,8 @@ def sppm_image(state, iters_done, n_photons, h, w):
 def iteration(state, it, packed, cam_packed, mats, lights, pixel_xy, u_halton, spec):
     """One SPPM iteration (camera walk, emission, photon walk, deposit,
     update) with sample index `it`: the kernels' wide instances where the
-    scene's lobes need them (smk.wide_lobes).  Returns the new state."""
+    scene's lobes need them (smk.wide_lobes, smk.mats_wide).  Returns the
+    new state."""
     ld_delta, vp = smk.sppm_camera_mega_cam(packed, cam_packed, pixel_xy, u_halton,
                                             spec.max_depth)
     state = state._replace(ld=state.ld + ld_delta)
@@ -127,8 +128,7 @@ def iteration(state, it, packed, cam_packed, mats, lights, pixel_xy, u_halton, s
     halton_index = it * n_photons + torch.arange(n_photons, device=pixel_xy.device)
     ro, rd, beta, active, u_rows = emit_photons(lights, halton_index, spec.max_depth)
     events = smk.sppm_photon_mega(packed, ro, rd, beta, active, u_rows, spec.max_depth)
-    phi, m = smk.deposit_mega(vp, state.radius, mats, events, lo, diag,
-                              smk.wide_lobes(packed))
+    phi, m = smk.deposit_mega(vp, state.radius, mats, events, lo, diag)
     return radius_tau_update(state, vp, phi, m)
 
 

@@ -4,17 +4,17 @@ intersect_bvh_pallas_shaded).
 
 `pack_bvh` builds the wavefront kernels' tables for a triangle scene: the
 repository's SAH BVH with leaves of KERNEL_LEAF triangles (SceneCtx's
-kernel leaf), its fused-children node rows, the same tree collapsed into
-4-wide nodes (BVH4: accel/bvh.pack_bvh4_tables), and the triangles in
-leaf order (intersect rows, original row / material / area light, and the
-15 flat shade columns, or 31 with the vertex normals, their partials and
+kernel leaf), its fused-children node rows, and the triangles in leaf
+order (intersect rows, original row / material / area light, and the 15
+flat shade columns, or 31 with the vertex normals, their partials and
 has_n when any triangle has vertex normals), for any number of
-triangles.  Its `wide` argument picks the walk of the closest-hit and
-any-hit queries: the binary walk (`bvh_kernel`, the JAX package's
-default) or the BVH4 walk (`bvh4_kernel`, its `RS_BVH_WIDE=1` kernel);
-WIDE_DEFAULT is the one the wavefront loop takes (PERF.md: the faster
-on the card).  The shaded walk is binary either way: the JAX package has
-no wide one.  A tree of 64 levels or more is walked by the kernels' deep
+triangles.  The closest-hit and any-hit queries walk the binary tree
+(`bvh_kernel`, the JAX package's default walk, and the faster one on the
+card: PERF.md §6); `pack_bvh(..., wide=True)` also collapses the tree
+into 4-wide nodes (BVH4: accel/bvh.pack_bvh4_tables) and has those
+queries walk them (`bvh4_kernel`, the JAX package's `RS_BVH_WIDE=1`
+kernel).  The shaded walk is binary either way: the JAX package has no
+wide one.  A tree of 64 levels or more is walked by the kernels' deep
 instances, whose stack holds 256 nodes (accel/bvh.stack_for; the BVH4
 walk's by stack4_for); a tree too deep for 256 raises
 NotImplementedError: there is no slower walk to fall back to.
@@ -64,10 +64,6 @@ KERNEL_LEAF = 16  # SceneCtx's kernel leaf size (integrators/common.py in the JA
 ATTR_ROWS = 16  # u, v, uv (2), ns (3), ng (3), dpdu (3), dpdv (3)
 ATTR_ROWS_SMOOTH = 22  # ... and dndu (3), dndv (3)
 
-# the walk of the wavefront loop's closest-hit and any-hit queries: the
-# binary one (PERF.md §6 holds both walks' times on the same rays)
-WIDE_DEFAULT = False
-
 # Kernel launches, by kernel; the one piece of module state.
 LAUNCHES = {"bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0, "bvh_shaded_smooth": 0,
             "bvh4_closest": 0, "bvh4_any": 0}
@@ -76,6 +72,8 @@ LAUNCHES = {"bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0, "bvh_shaded_smooth"
 def launch_key(any_hit, wide):
     """The LAUNCHES key of a closest-hit or any-hit walk."""
     return ("bvh4_" if wide else "bvh_") + ("any" if any_hit else "closest")
+
+
 _LIB = None
 
 
@@ -89,6 +87,7 @@ class BvhTables(NamedTuple):
     shade_f: torch.Tensor
     max_leaf: int
     depth: int
+    # the BVH4 (pack_bvh(..., wide=True)), None without it
     nodes4_f: torch.Tensor = None  # (W, 24) float32: per child slot bmin, bmax
     nodes4_i: torch.Tensor = None  # (W, 12) int32: per child slot kind, a, b
     depth4: int = 0  # wide nodes on the longest path
@@ -109,22 +108,25 @@ class BvhTables(NamedTuple):
         return stack4_for(self.depth4)
 
 
-def pack_bvh(tri, device, wide=None) -> BvhTables:
-    """The tables of the triangles `tri`, both walks' nodes; the closest-hit
-    and any-hit queries walk the BVH4 when `wide` (default WIDE_DEFAULT)."""
+def pack_bvh(tri, device, wide=False) -> BvhTables:
+    """The tables of the triangles `tri`.  With `wide`, the BVH4's nodes
+    too, and the closest-hit and any-hit queries walk them (`_replace(wide=
+    False)` of those tables walks the binary tree)."""
     flat = build_bvh(tri, KERNEL_LEAF)
     depth = tree_depth(flat)
     stack_for(depth)  # raises for a tree too deep for every instance
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    wide_rows = ()
+    if wide:
+        nodes4_f, nodes4_i = pack_bvh4_tables(flat)
+        depth4 = tree4_depth(nodes4_i)
+        stack4_for(depth4)  # raises for a wide tree too deep for every instance
+        wide_rows = (t(nodes4_f), t(nodes4_i), depth4, True)
     nodes_f, nodes_i = pack_bvh_tables(flat)
-    nodes4_f, nodes4_i = pack_bvh4_tables(flat)
-    depth4 = tree4_depth(nodes4_i)
-    stack4_for(depth4)
     tri_f, tri_i = shade_rows(tri)
     prims_f, prims_i, shade_f = pack_prim_tables(tri, flat, tri_f, tri_i[:, 0])
     return BvhTables(t(nodes_f), t(nodes_i), t(prims_f), t(prims_i), t(shade_f), flat.max_leaf,
-                     depth, t(nodes4_f), t(nodes4_i), depth4,
-                     WIDE_DEFAULT if wide is None else bool(wide))
+                     depth, *wide_rows)
 
 
 # ---- the plain PyTorch versions ----

@@ -428,23 +428,34 @@ def deposit_inputs(vp, radius, events, lo, diag):
     )
 
 
-def deposit_mega(vp, radius, mats, events, lo, diag, wide=False):
+def deposit_mega(vp, radius, mats, events, lo, diag):
     """phi (N, 3) and M (N,) int64 of one iteration: vp the VisiblePoints,
     radius (N,) their radii, mats the resolve_mat_tables rows, events the
     photon walk's (ev_p, ev_wi, ev_beta, ev_live), lo / diag (3,) the grid
-    box; `wide` (wide_lobes of the packed scene) takes the kernel's wide
-    instance, which evaluates the Disney lobes.  The sort runs in torch
-    (deposit_inputs); the range walk is the kernel on CUDA tensors and its
-    plain version on CPU tensors."""
+    box.  The sort runs in torch (deposit_inputs); the range walk is the
+    kernel on CUDA tensors (its wide instance, which evaluates the Disney
+    lobes, where `mats` holds a lobe outside pmk.BASE_KINDS: mats_wide)
+    and its plain version on CPU tensors."""
     inp = deposit_inputs(vp, radius, events, lo, diag)
     if vp.p.device.type == "cpu":
         return deposit_walk_reference(vp, mats, inp)
-    return prepare_deposit(vp, mats, inp, wide)()
+    return prepare_deposit(vp, mats, inp)()
 
 
-def prepare_deposit(vp, mats, inp, wide=False):
+def mats_wide(mats) -> bool:
+    """Whether the resolve_mat_tables rows `mats` hold a lobe outside
+    pmk.BASE_KINDS (kind at column 16 + 16 l, l below the row's n_lobes
+    at column 15): the deposit's wide instance then evaluates them."""
+    rows = mats.detach().cpu()
+    kinds = rows[:, 16::16][:, : pmk.LOBES_MAX]
+    live = torch.arange(kinds.shape[1]) < rows[:, 15:16]
+    base = torch.isin(kinds, torch.tensor(pmk.BASE_KINDS, dtype=kinds.dtype))
+    return bool((live & ~base).any())
+
+
+def prepare_deposit(vp, mats, inp):
     """Check the CUDA inputs, build the outputs, and return launch() (the
-    range walk's phi and M; the wide instance with `wide`)."""
+    range walk's phi and M; the wide instance where mats_wide(mats))."""
     dev = vp.p.device
     if dev.type != "cuda":
         raise ValueError(f"the SPPM deposit kernel runs on cuda tensors, not {dev}")
@@ -460,6 +471,7 @@ def prepare_deposit(vp, mats, inp, wide=False):
         raise ValueError("VP material ids outside the material rows")
     phi = torch.empty((n, 3), dtype=torch.float32, device=dev)
     m = torch.empty((n,), dtype=torch.int32, device=dev)
+    wide = mats_wide(mats)
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (int(wide), vp.p.data_ptr(), vp.wo.data_ptr(), vp.ng.data_ptr(), vp.dpdu.data_ptr(),
@@ -718,18 +730,26 @@ def deposit_walk_reference(vp, mats, inp, work=None):
         wi = (ev[:, 3], ev[:, 4], ev[:, 5])
         wi_ng = wi[0] * g[0] + wi[1] * g[1] + wi[2] * g[2]
         gate = near & ((wi_ng * wl[2]) > 0.0) & (wl[2] != 0.0)
+        m[:w] = m[:w] + near
+        # the lobes of the gated pairs alone (the others add nothing)
+        v = torch.nonzero(gate).squeeze(1)
+        if not v.numel():
+            continue
+        wi = tuple(c[v] for c in wi)
+        f = tuple(c[v] for c in f)
+        wl = tuple(c[v] for c in wl)
         wil_x = wi[0] * f[0] + wi[1] * f[1] + wi[2] * f[2]
         wil_y = wi[0] * f[3] + wi[1] * f[4] + wi[2] * f[5]
-        zero = torch.zeros_like(d2)
+        rows = mrow[v]
+        zero = torch.zeros_like(wil_x)
         fr = [zero, zero, zero]
         for l in range(max_lobes):
-            lob = pmk._lobe(mrow[:w], 16 + 16 * l)
-            lf = pmk._lobe_f(lob, *wl, wil_x, wil_y, wi_ng)
-            use = gate & (l < mrow[:w, 15])
+            lob = pmk._lobe(rows, 16 + 16 * l)
+            lf = pmk._lobe_f(lob, *wl, wil_x, wil_y, wi_ng[v])
+            use = l < rows[:, 15]
             pmk.tally_lobe(work, use, lob["kind"], pdf=False)
             fr = [fr[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
-        acc[:w] = acc[:w] + torch.stack([fr[c] * ev[:, 6 + c] for c in range(3)], -1)
-        m[:w] = m[:w] + near
+        acc[v] = acc[v] + torch.stack([fr[c] * ev[v, 6 + c] for c in range(3)], -1)
     phi = torch.empty_like(acc)
     phi[order] = acc
     m_out = torch.empty_like(m)

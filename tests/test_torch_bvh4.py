@@ -10,7 +10,9 @@ equal on every ray, where both hit the triangle equal and t within rtol
 1e-6; and the binary plain walk on more rays the same way, any hit
 equal.  (Exact ties at shared edges could part the two walks, whose
 visit orders differ; these rays have none.)  A tree deeper than the
-shallow stack holds takes the deep instances.
+shallow stack holds takes the deep instances; the binary tables alone
+(pack_bvh's default) are packed for a tree whose BVH4 walk no stack
+holds.
 """
 
 import jax.numpy as jnp
@@ -97,8 +99,8 @@ def test_plain_bvh4_walk_matches_jax_kernel(grid, monkeypatch):
 def test_bvh4_walk_matches_binary_walk(grid):
     path, _, _ = grid
     tri = load_scene(path).scene.triangles
-    binary = bk.pack_bvh(tri, "cpu", wide=False)
-    wide = binary._replace(wide=True)
+    wide = bk.pack_bvh(tri, "cpu", wide=True)
+    binary = wide._replace(wide=False)
     o, d, t_max = (t32(x) for x in _rays(11))
     o, d, t_max = (torch.cat([x] * 4) for x in (o, d, t_max))
     d = d + 0.02 * torch.randn(d.shape, generator=torch.Generator().manual_seed(3))
@@ -138,3 +140,41 @@ def test_deep_tree_takes_the_deep_bvh4_instance(tmp_path):
     with pytest.raises(NotImplementedError, match="BVH4 of depth"):
         bvh_mod.stack4_for((bvh_mod.DEEP_STACK + 2) // 3 + 1)
     assert bvh_mod.stack4_for((bvh_mod.DEEP_STACK - 1) // 3 + 1) == bvh_mod.DEEP_STACK
+
+
+def test_binary_tables_take_a_tree_the_bvh4_stack_refuses(tmp_path, monkeypatch):
+    """pack_bvh packs the BVH4 only when asked.  With the deep stack
+    lowered to 98 entries, write_deep_bvh_scene's 97-level tree still fits
+    the binary walk's deep instances while its BVH4 walk (48 wide levels,
+    3 * 47 + 1 = 142 entries) fits no stack, as a binary tree of 173-255
+    levels does at 256: the binary tables pack and walk, `wide=True`
+    raises naming the BVH4, and the BVH4 walk refuses tables without its
+    nodes."""
+    tri = load_scene(write_deep_bvh_scene(str(tmp_path))).scene.triangles
+    monkeypatch.setattr(bvh_mod, "DEEP_STACK", 98)
+    tables = bk.pack_bvh(tri, "cpu")
+    assert tables.depth == 97 and tables.stack == 98
+    assert not tables.wide and tables.nodes4_f is None
+    with pytest.raises(NotImplementedError, match="BVH4 of depth 48"):
+        bk.pack_bvh(tri, "cpu", wide=True)
+    rng = np.random.default_rng(5)
+    o = torch.zeros((256, 3))
+    d = torch.as_tensor(np.array([35.0, 0.0, 0.0]) + rng.uniform(-1.0, 1.0, (256, 3)),
+                        dtype=torch.float32)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t_max = torch.full((256,), float("inf"))
+    assert int(bk.intersect_bvh(tables, o, d, t_max)[2].sum()) > 50
+    with pytest.raises(ValueError, match="BVH4"):
+        bk.intersect_bvh(tables._replace(wide=True), o, d, t_max)
+
+
+def test_plain_bvh4_walk_raises_when_its_stack_overflows(grid, monkeypatch):
+    """The plain BVH4 walk never drops a subtree: on tables whose stack
+    is sized too small for the tree it raises (the JAX kernel clamps and
+    overwrites)."""
+    path, _, _ = grid
+    tables = bk.pack_bvh(load_scene(path).scene.triangles, "cpu", wide=True)
+    monkeypatch.setattr(bk.BvhTables, "stack4", property(lambda self: 2))
+    o, d, t_max = (t32(x) for x in _rays(5))
+    with pytest.raises(RuntimeError, match="stack overflowed"):
+        bk.intersect_bvh(tables, o, d, t_max)

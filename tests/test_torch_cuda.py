@@ -407,7 +407,7 @@ def test_sppm_wide_instances_match_plain_versions(tmp_path, scene, grid):
     radius = torch.full((pxy.shape[0],), job.integrator.radius, device=dev)
     lo, diag = sppm.grid_bounds(vp, radius)
     mats = smk.resolve_mat_tables(job.scene, dev)
-    phi, m = smk.deposit_mega(vp, radius, mats, ev, lo, diag, wide=True)
+    phi, m = smk.deposit_mega(vp, radius, mats, ev, lo, diag)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in smk.LAUNCHES.items() if v != before[k]} == {
         f"sppm_camera_mega_cam{sfx}": 1, f"sppm_photon_mega{sfx}": 1, "sppm_deposit_mega_wide": 1}
@@ -517,7 +517,7 @@ def test_wavefront_renders_launch_the_intersection_kernels(tmp_path, monkeypatch
     assert res["render_path"] == "wavefront" and res["bvh"] and dict(pmk.LAUNCHES) == before
     depth = grid.integrator.max_depth
     assert res["launches"] == {"intersect": 0, **{k: 0 for k in bk.LAUNCHES},
-                               bk.launch_key(True, bk.WIDE_DEFAULT): depth, "bvh_shaded": depth}
+                               "bvh_any": depth, "bvh_shaded": depth}
     assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
 
 
@@ -928,8 +928,8 @@ def test_bvh4_kernels_match_plain_walk_and_binary_kernels(tmp_path, scene):
     dev = _device()
     path = (write_deep_bvh_scene(str(tmp_path)) if scene == "deep"
             else write_grid_scene(str(tmp_path), ny=40, nz=40))
-    binary = bk.pack_bvh(load_scene(path).scene.triangles, dev, wide=False)
-    wide = binary._replace(wide=True)
+    wide = bk.pack_bvh(load_scene(path).scene.triangles, dev, wide=True)
+    binary = wide._replace(wide=False)
     assert (wide.stack4 == bk.DEEP_STACK) == (scene == "deep")
     # the deep tree's triangles crowd about (35, 0, 0)
     yz = 1.5 if scene == "deep" else 6.0

@@ -100,6 +100,10 @@ def test_gate_matches_jax(side):
     assert jsmk.supports_sppm_camera(js.ctx, js.job.integrator, None)
     packed = smk.pack_sppm(job.scene, "cpu")
     assert smk.wide_lobes(packed)
+    # the deposit picks its wide instance from the material rows alone
+    assert smk.mats_wide(smk.resolve_mat_tables(job.scene, "cpu"))
+    base = load_scene(str(SAMPLES / "scene_sppm.json")).scene
+    assert not smk.mats_wide(smk.resolve_mat_tables(base, "cpu"))
     assert select_kernel(job, make_sampler(job))[0] == "sppm"
     kinds = set(packed.kinds_present)
     assert kinds & ({5} if name == "glass" else set(pmk.DISNEY_KINDS))
@@ -230,7 +234,7 @@ def test_deposit_matches_jax_kernel(side):
     conv = from_jax_sppm("cpu", vp=vp_ref, resolved=js.resolved, photons=ev)
     vp, r = conv["vp"], torch.as_tensor(radius)
     lo, diag = sppm.grid_bounds(vp, r)
-    phi, m = smk.deposit_mega(vp, r, conv["resolved"], conv["photons"], lo, diag, wide=True)
+    phi, m = smk.deposit_mega(vp, r, conv["resolved"], conv["photons"], lo, diag)
     assert m_ref.sum() > 1000 and (phi_ref > 0).any()
     assert np.array_equal(m.numpy(), m_ref)
     np.testing.assert_allclose(phi.numpy(), phi_ref, rtol=1e-5, atol=1e-6 * phi_ref.max())
