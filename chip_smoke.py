@@ -15,6 +15,11 @@ Phase 2  the Path main path: renders samples/scene.json at 640x360, 16
          image, the PNG and that every pass launched the path kernel;
          then holds the kernel to the same per-ray bar against its plain
          version on that pass's 3.7M-ray batch, and times both there.
+         This and every brute-force hold of the path kernel and K4 also
+         print the chunked walk's MT and slab tests a ray, the MT tests
+         the walk over every row would make, the bound of that walk
+         beside the bound, and the block size, blocks per SM, registers
+         and shared memory of the launch (pmk.occupancy, ik.occupancy).
 Phase 3  the Debug main path: the same for samples/scene_debug.json
          (Debug, max_depth 4) through the direct kernel; then a 160x90x16
          DirectLighting variant with the one-light strategy, held to the
@@ -66,7 +71,9 @@ Phase 7  the wavefront loop, whose intersection queries are kernels K4
          (brute force) and K3 (BVH closest and any hit, and the shaded
          closest hit): (a) AO on samples/scene_ao.json at 640x360, 16 spp,
          64 probes, through K4 alone (one camera and 64 probe launches a
-         pass); (b) AO on the 19,224-triangle grid at 640x360x8: the
+         pass), whose chunked walk is also timed in turns against its walk
+         over every row on a probe batch (t and triangle equal on every
+         probe; the chunked walk, the loop's, must be the faster); (b) AO on the 19,224-triangle grid at 640x360x8: the
          shaded kernel for the camera hits, the any-hit kernel for the
          probes; (c) Path on an 80x80 grid of cubes (76,824 triangles,
          above the path kernel's 65,536) at 640x360x8, max_depth 5, which
@@ -114,7 +121,8 @@ Phase 9  the path kernel's Halton and smooth instances and K3-shaded's
          launches; (e) samples/scene_smooth.json (the cubes and two smooth
          UV spheres, 1,956 triangles) at 640x360x16 through the smooth
          camera instance, and the smooth rays-in instance on its camera
-         rays; (f) write_smooth_grid_scene's 20 spheres (19,236
+         rays, then as a yardstick both timed in turns against the BVH
+         instances on the same samples (pack_scene(..., bvh=True)); (f) write_smooth_grid_scene's 20 spheres (19,236
          triangles) at 640x360x8 through the smooth BVH camera instance,
          and the smooth rays-in BVH instance on its camera rays; (g) its
          80 spheres (76,836 triangles) at 640x360x8, past the path kernel:
@@ -282,7 +290,8 @@ environment was picked, the BSDF sample, and the roulette value where it
 is drawn; on a smooth mesh each triangle row's 9 raw normal columns
 count too.  For the Volpath kernel the
 density grid is read once too.  The operations are the Moller-Trumbore tests (45 each), slab
-tests (27), sphere tests (30: the object-space quadratic and its roots;
+tests (27; a brute-force walk's are its chunk box tests, and its MT
+tests those its chunked walk makes), sphere tests (30: the object-space quadratic and its roots;
 the ray's transform into the sphere is left out), lobe evaluations (3,
 lambert's; a floor) and the grid
 tracking steps' trilinear density taps (40: the point and its scaled
@@ -626,6 +635,36 @@ def bound(work, scale, n_rays, packed, ray_bytes=RAY_BYTES, extra_bytes=0):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def walk_numbers(work, scale, n_rays, bound_fn):
+    """The chunked brute-force walk's counts per ray (MT tests, chunk slab
+    tests, and the MT tests the walk over every row would make:
+    "mt_brute") and the bound of that walk over every row: `bound_fn`
+    (work -> (ms, by)) on the same counts with mt_brute's MT tests and no
+    slab test.  Empty for a walk that counts no "mt_brute"."""
+    if "mt_brute" not in work:
+        return {}
+    per_ray = lambda k: scale * float(work.get(k, 0)) / n_rays
+    brute = {k: v for k, v in work.items() if k not in ("mt", "slab")}
+    brute["mt"] = work["mt_brute"]
+    bound_brute_ms, bound_brute_by = bound_fn(brute)
+    return dict(mt_per_ray=per_ray("mt"), slab_per_ray=per_ray("slab"),
+                mt_brute_per_ray=per_ray("mt_brute"), bound_brute_ms=bound_brute_ms,
+                bound_brute_by=bound_brute_by)
+
+
+def walk_text(held):
+    """The walk's counts, brute-force bound and occupancy of a hold, for
+    its line (empty for the walks that count none)."""
+    if "bound_brute_ms" not in held:
+        return ""
+    occ = held.get("occupancy")
+    occ_s = (f"; block {occ['block']}, {occ['blocks_per_sm']} blocks/SM, {occ['registers']} "
+             f"registers, {occ['smem']} B shared" if occ else "")
+    return (f"; walk: {held['mt_per_ray']:.2f} MT and {held['slab_per_ray']:.2f} slab tests a ray "
+            f"(every row: {held['mt_brute_per_ray']:.2f} MT), bound over every row "
+            f"{held['bound_brute_ms']:.4f} ms by {held['bound_brute_by']}{occ_s}")
+
+
 def tex_bytes(pyr, texels):
     """Texel bytes a tap batch must read: the pyramid once, or where the
     taps weigh fewer texels than it holds, those."""
@@ -702,12 +741,14 @@ def hold(mod, job, stride, dev):
     max_abs_err = max(float((l[sub] - l_ref).abs().max()), float((w[sub] - w_ref).abs().max()))
     del l, w, l_ref, w_ref
     ms = timed_ms(mod.prepare_launch(*args), reps=10)
+    extra = {"occupancy": pmk.occupancy()} if mod is pmk and packed.bvh is None else {}
     wrapper_ms = timed_ms(lambda: fn(*args))
     slots = halton_slots(packed, job.integrator, sampler, True)
     # under Halton the kernel reads no pixel id or sample index, but slot values
     ray_bytes = RAY_BYTES - (8 if slots else 0)
     bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=ray_bytes)
-    extra = {}
+    extra.update(walk_numbers(work, scale, n,
+                              lambda w: bound(w, scale, n, packed, ray_bytes=ray_bytes)))
     if slots is not None:
         extra["slot_ms"] = timed_ms(lambda: sampler.slot_matrix(pid, soff, slots))
         extra["slot_rows"] = pmk.slot_cols(slots)[1]
@@ -746,7 +787,7 @@ def describe(tag, res, launches, colored, held, warm, card):
         f"{held['plain_rays']} rays; kernel vs plain: diverged {held['diverged']:.2e}, q99 "
         f"{held['q99']:.2e} ({held['lit']} lit: {held['lit_diverged']:.2e}, "
         f"{held['lit_q99']:.2e}), mean {held['mean']:.6g} vs {held['mean_ref']:.6g}, "
-        f"max_abs_err {held['max_abs_err']:.3g} [{card}]"
+        f"max_abs_err {held['max_abs_err']:.3g}{walk_text(held)} [{card}]"
     )
 
 
@@ -1337,9 +1378,10 @@ def first_pass_batches(job, dev, spp, wide=False):
 # query: (prepare_launch, the wrapper, the plain version)
 QUERIES = {
     "intersect": (
-        lambda ctx, o, d, t: ik.prepare_launch(ctx.tri_packed, o, d, t),
-        lambda ctx, o, d, t: ik.intersect_triangles(ctx.tri_packed, o, d, t),
-        lambda ctx, o, d, t, work: ik.intersect_triangles_reference(ctx.tri_packed, o, d, t, work),
+        lambda ctx, o, d, t: ik.prepare_launch(ctx.tri_packed, o, d, t, ctx.chunks),
+        lambda ctx, o, d, t: ik.intersect_triangles(ctx.tri_packed, o, d, t, ctx.chunks),
+        lambda ctx, o, d, t, work: ik.intersect_triangles_reference(ctx.tri_packed, o, d, t, work,
+                                                                    ctx.chunks),
     ),
     "closest": (
         lambda ctx, o, d, t: bk.prepare_launch(ctx.bvh, o, d, t, False),
@@ -1414,15 +1456,40 @@ def hold_query(query, ctx, batch, stride=16):
         max_abs_err = max(max_abs_err, float((a_k - a_p).abs().max()))
     stats["max_abs_err"] = max_abs_err
     stats["ms"] = timed_ms(launch, reps=10)
+    if query == "intersect" and ctx.chunks is not None:
+        stats["occupancy"] = ik.occupancy()
     stats["wrapper_ms"] = timed_ms(lambda: wrapper(ctx, o, d, t_max))
     stats["plain_ms"] = once_ms(lambda: plain(ctx, o[sub], d[sub], t_max[sub], None))
     scale = n / sub.numel()
-    flops = scale * sum(FLOPS[k] * float(v) for k, v in work.items() if k in FLOPS)
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, query_bytes(query, ctx, n) / PEAK_BYTES * 1e3
-    stats["bound_ms"] = max(t_ops, t_bytes)
-    stats["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+
+    def query_bound(w):
+        flops = scale * sum(FLOPS[k] * float(v) for k, v in w.items() if k in FLOPS)
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, query_bytes(query, ctx, n) / PEAK_BYTES * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    stats["bound_ms"], stats["bound_by"] = query_bound(work)
+    stats.update(walk_numbers(work, scale, n, query_bound))
     stats["work"] = {k: float(v) * scale for k, v in work.items()}
     return stats
+
+
+def k4_walks(ctx, batch, turns=3):
+    """K4's chunked walk against its walk over every row (intersect_kernel)
+    on one batch: both timed in turns (median of each), their t and
+    triangle compared on every ray; the decision is the faster walk, and
+    the wavefront loop launches the chunked one."""
+    o, d, t_max = batch
+    chunked = ik.prepare_launch(ctx.tri_packed, o, d, t_max, ctx.chunks)
+    every = ik.prepare_launch(ctx.tri_packed, o, d, t_max)
+    t_c, i_c = (x.clone() for x in chunked())
+    t_e, i_e = every()
+    torch.cuda.synchronize()
+    check(torch.equal(i_c, i_e) and torch.equal(t_c, t_e), "K4: the chunked walk's hits differ")
+    times = [(timed_ms(chunked, reps=10), timed_ms(every, reps=10)) for _ in range(turns)]
+    ms_c = statistics.median(t for t, _ in times)
+    ms_e = statistics.median(t for _, t in times)
+    check(ms_c < ms_e, f"K4: the chunked walk {ms_c:.3f} ms is not faster than {ms_e:.3f} ms")
+    return dict(chunked_ms=ms_c, every_row_ms=ms_e, decision="chunked walk")
 
 
 def drive_wavefront(scene, png, want, spp_override=None):
@@ -1463,7 +1530,9 @@ def wavefront_phase(record, kernels, card, dev):
         SCENE_AO, OUT / "chip_smoke_ao.png", {"intersect": 1 + n_probe})
     check(not res["bvh"], "the AO fixture took the BVH")
     ctx, batches = first_pass_batches(ao, dev, 16)
+    check(ctx.chunks is not None, "7a: no chunk rows for K4")
     k4 = hold_query("intersect", ctx, batches["occluded"])
+    k4.update(k4_walks(ctx, batches["occluded"]))
     warm = [render_job(ao, dev) for _ in range(2)]
     rays = res["camera_rays"]
     rate = lambda r, m: (r["camera_rays"] * m) / max(r["elapsed_s"], 1e-9) / 1e6
@@ -1482,7 +1551,10 @@ def wavefront_phase(record, kernels, card, dev):
           f"K4 {k4['ms']:.3f} ms a probe launch (wrapper {k4['wrapper_ms']:.3f}), bound "
           f"{k4['bound_ms']:.4f} ms by {k4['bound_by']}, plain {k4['plain_ms']:.1f} ms over "
           f"{k4['plain_rays']} rays, hits {k4['hits']}, hit/miss differ {k4['miss_mismatch']:.2e}, "
-          f"max_abs_err {k4['max_abs_err']:.3g}; {time.perf_counter() - t0:.1f} s [{card}]")
+          f"max_abs_err {k4['max_abs_err']:.3g}{walk_text(k4)}; the walk over every row on the "
+          f"same probes {k4['every_row_ms']:.3f} ms in turns with the chunked walk's "
+          f"{k4['chunked_ms']:.3f} ms, t and triangle equal on every probe: K4 takes the "
+          f"{k4['decision']}; {time.perf_counter() - t0:.1f} s [{card}]")
 
     # (b) AO on the 19,224-triangle grid through K3
     t0 = time.perf_counter()
@@ -1615,12 +1687,14 @@ def hold_rays(job, packed, rays, stride, dev):
     max_abs_err = float((l[sub] - l_ref).abs().max())
     del l, l_ref
     ms = timed_ms(pmk.prepare_rays_launch(*args), reps=10)
+    extra = {"occupancy": pmk.occupancy()} if packed.bvh is None else {}
     wrapper_ms = timed_ms(lambda: pmk.li_path_mega(*args))
     scale = n / sub.numel()
     slots = halton_slots(packed, job.integrator, sampler, False)
-    bound_ms, bound_by = bound(work, scale, n, packed,
-                               ray_bytes=RAYS_IN_BYTES - (8 if slots else 0))
-    extra = {}
+    ray_bytes = RAYS_IN_BYTES - (8 if slots else 0)
+    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=ray_bytes)
+    extra.update(walk_numbers(work, scale, n,
+                              lambda w: bound(w, scale, n, packed, ray_bytes=ray_bytes)))
     if slots is not None:
         extra["slot_ms"] = timed_ms(lambda: sampler.slot_matrix(pid, sid, slots))
         extra["slot_rows"] = pmk.slot_cols(slots)[1]
@@ -1823,6 +1897,35 @@ def drive_rays(job, stride, dev, bvh=None):
     return name, counts[name], hold_rays(job, packed, (o, d, w, pid, soff, sampler), stride, dev)
 
 
+def bvh_yardstick(job, dev, turns=2):
+    """The BVH instances against the brute-force ones on a brute-force
+    scene's pass (pack_scene(..., bvh=True)): the camera instances on one
+    pass's samples and the rays-in ones on its camera rays, each pair timed
+    in turns (median), and the rays whose radiance is not bit-equal (the
+    BVH's leaf order may pick the other triangle of an exact tie)."""
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    sampler = make_sampler(job)
+    pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    packs = {"brute": pmk.pack_scene(job.scene, dev), "bvh": pmk.pack_scene(job.scene, dev, bvh=True)}
+    check(packs["bvh"].bvh is not None and packs["brute"].bvh is None, "yardstick: wrong packs")
+    cam_p = pmk.pack_camera(cam)
+    out = dict(rays=int(pxy.shape[0]))
+    for key, prep, args in (
+        ("cam", pmk.prepare_launch, (cam_p, pxy, pid, soff, sampler, job.integrator)),
+        ("rays", pmk.prepare_rays_launch, (o, d, w, pid, soff, sampler, job.integrator)),
+    ):
+        launch = {k: prep(p, *args) for k, p in packs.items()}
+        first = lambda r: r[0] if isinstance(r, tuple) else r
+        l_b, l_t = first(launch["brute"]()).clone(), first(launch["bvh"]())
+        torch.cuda.synchronize()
+        out[f"{key}_rays_apart"] = int((l_b != l_t).any(-1).sum())
+        times = [{k: timed_ms(f, reps=10) for k, f in launch.items()} for _ in range(turns)]
+        for k in packs:
+            out[f"{key}_{k}_ms"] = statistics.median(t[k] for t in times)
+    return out
+
+
 def rays_line(tag, name, held, t0, card):
     slot = (f"slot matrix {held['slot_ms']:.3f} ms ({held['slot_rows']} rows), "
             if "slot_ms" in held else "")
@@ -1831,7 +1934,7 @@ def rays_line(tag, name, held, t0, card):
             f"{held['bound_by']}, plain {held['plain_ms']:.1f} ms over {held['plain_rays']} rays, "
             f"diverged {held['diverged']:.2e}, q99 {held['q99']:.2e} ({held['lit']} lit: "
             f"{held['lit_diverged']:.2e}, {held['lit_q99']:.2e}), mean {held['mean']:.6g} vs "
-            f"{held['mean_ref']:.6g}, max_abs_err {held['max_abs_err']:.3g}; "
+            f"{held['mean_ref']:.6g}, max_abs_err {held['max_abs_err']:.3g}{walk_text(held)}; "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
@@ -1928,6 +2031,15 @@ def halton_smooth_phase(record, kernels, card, dev):
     add_entry(kernels, name, launches, held)
     record["phase9e_rays"] = dict(launches=launches, phase_s=time.perf_counter() - t0, **held)
     print(rays_line("phase 9e: rays-in #3 smooth on its camera rays", name, held, t0, card))
+    t0 = time.perf_counter()
+    yard = bvh_yardstick(job, dev)
+    record["phase9e_bvh_yardstick"] = yard
+    print(f"phase 9e: yardstick, the smooth fixture's pass through the BVH instances "
+          f"(pack_scene(..., bvh=True)) in turns with the brute-force ones on the same samples: "
+          f"camera {yard['cam_bvh_ms']:.3f} ms against {yard['cam_brute_ms']:.3f}, rays-in "
+          f"{yard['rays_bvh_ms']:.3f} against {yard['rays_brute_ms']:.3f} on its camera rays "
+          f"({yard['cam_rays_apart']} / {yard['rays_rays_apart']} of {yard['rays']} rays not "
+          f"bit-equal); {time.perf_counter() - t0:.1f} s [{card}]")
 
     # (f) 20 smooth spheres (19,236 triangles) through #2, and #4 on its rays
     grid20 = Path(write_smooth_grid_scene(str(OUT / "smooth_grid20"), n=20))

@@ -477,6 +477,150 @@ struct Geometry {
   }
 };
 
+// ---- the brute-force walk with chunk culling (K1's brute-force instances, K4) ----
+//
+// The rows are grouped into chunks of consecutive rows, each under a padded
+// box (ops/path_megakernel.build_tri_chunks, the JAX package's
+// _build_tri_chunks without its 256-row and 24-chunk limits).  The walk
+// visits the chunks in table order, slab-tests each box against the ray's
+// current bound and runs the chunk's rows only when the box is hit; every
+// row first meets a division-free reject, and mt_hit decides the rest.  The
+// cull and the reject are conservative, so the winner and its t are
+// Geometry<false>'s, bit for bit: a box holds its triangles with a margin of
+// 1e-3 + 1e-4 max|coordinate|, and the box's t bound carries a relative slack
+// of 2^-7 besides, for mt_hit's t, which near |det| = TRI_EPS can fall short
+// of the distance to the plane by more than the margin.
+
+// CHUNK_MAX bounds the chunk rows' shared memory: build_tri_chunks closes a
+// chunk at 16 rows, or after 4 rows where its box's surface area would more
+// than double, so every chunk but the last holds at least 4 rows and a table
+// of TRI_MAX rows makes at most TRI_MAX / 4 chunks, 16 KB beside the rows'
+// 72 KB.
+constexpr int CHUNK_MAX = TRI_MAX / 4;
+constexpr int CHUNK_COLS = 8;             // bmin xyz, bmax xyz, first row, end row
+constexpr float CULL_SLOP = 1.0078125f;   // 1 + 2^-7 on a chunk box's t bound
+constexpr float REJECT_SLOP = 1.0000153f; // 1 + 2^-16 (0x1.0001p0)
+constexpr float REJECT_TINY = 0x1p-100f;  // |det| times this stays normal
+constexpr float TRI_EPS_LO = 9.9998e-8f;  // TRI_EPS less 2e-5 of it
+
+// The slab test of a chunk's box b0 = (min x, y, z, max x), b1 = (max y, z,
+// first row, end row) against the segment [0, t_bound (1 + 2^-7)] (the JAX
+// package's _chunk_box_hit with the slack); i* from inv_dir.
+__device__ __forceinline__ bool chunk_hit(float4 b0, float4 b1, float ox, float oy, float oz,
+                                          float ix, float iy, float iz, float t_bound) {
+  const float t0x = (b0.x - ox) * ix, t1x = (b0.w - ox) * ix;
+  const float t0y = (b0.y - oy) * iy, t1y = (b1.x - oy) * iy;
+  const float t0z = (b0.z - oz) * iz, t1z = (b1.y - oz) * iz;
+  const float tlo = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  const float thi = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  return tlo <= fminf(thi, t_bound * CULL_SLOP) && thi >= 0.0f;
+}
+
+// The division-free early reject before mt_hit: true only where mt_hit
+// returns false or a t >= t_bound.  det and the u, v and t numerators are
+// mt_hit's expressions (the survivor's mt_hit reuses them); flipped by det's
+// sign they give u = U * (1 / |det|) exactly, so U < -|det| 2^-100 is u < 0
+// past any underflow to -0.0 (which u >= 0 accepts), U > |det| (1 + 2^-16)
+// is u > 1 past the reciprocal's and the products' roundings, and so on for
+// v, u + v and t in [TRI_EPS, t_bound).  A NaN compares false: mt_hit decides.
+__device__ __forceinline__ bool mt_reject(const float* g, float ox, float oy, float oz,
+                                          float dx, float dy, float dz, float t_bound) {
+  const float p0x = g[0], p0y = g[1], p0z = g[2];
+  const float e1x = g[3], e1y = g[4], e1z = g[5];
+  const float e2x = g[6], e2y = g[7], e2z = g[8];
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float a = fabsf(det);
+  if (!(a >= TRI_EPS)) return true;
+  const bool neg = det < 0.0f;
+  const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
+  const float un = tvx * pvx + tvy * pvy + tvz * pvz;
+  const float su = neg ? -un : un;
+  const float tiny = a * REJECT_TINY, top = a * REJECT_SLOP;
+  if (su < -tiny || su > top) return true;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float vn = dx * qvx + dy * qvy + dz * qvz;
+  const float sv = neg ? -vn : vn;
+  if (sv < -tiny || su + sv > top) return true;
+  const float tn = e2x * qvx + e2y * qvy + e2z * qvz;
+  const float st = neg ? -tn : tn;
+  return st < a * TRI_EPS_LO || st > a * t_bound * REJECT_SLOP;
+}
+
+// The chunked brute-force walk over rows and chunk boxes staged in shared
+// memory (load_chunk_geometry), with Geometry's interface: table is the
+// packed scene's (T, TABLE_COLS) table (null in K4).
+struct ChunkGeometry {
+  const float* s_geo;   // GEO_COLS per row
+  const float4* s_box;  // CHUNK_COLS / 4 float4 per chunk
+  int n_chunks;
+  const float* table;
+
+  // any_hit: stop at the first hit with t < t_bound (shadow rays)
+  template <bool kAny>
+  __device__ int walk(float ox, float oy, float oz, float dx, float dy, float dz,
+                      float& t_bound) const {
+    const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+    int best = -1;
+    for (int c = 0; c < n_chunks; ++c) {
+      const float4 b0 = s_box[2 * c], b1 = s_box[2 * c + 1];
+      if (!chunk_hit(b0, b1, ox, oy, oz, ix, iy, iz, t_bound)) continue;
+      const int end = (int)b1.w;
+      for (int j = (int)b1.z; j < end; ++j) {
+        const float* g = s_geo + j * GEO_COLS;
+        float t;
+        if (!mt_reject(g, ox, oy, oz, dx, dy, dz, t_bound) &&
+            mt_hit(g, ox, oy, oz, dx, dy, dz, t) && t < t_bound) {
+          best = j;
+          if constexpr (kAny) return best;
+          t_bound = t;
+        }
+      }
+    }
+    return best;
+  }
+
+  __device__ int closest_below(float ox, float oy, float oz, float dx, float dy, float dz,
+                               float t_lim, float& t_best) const {
+    t_best = t_lim;
+    return walk<false>(ox, oy, oz, dx, dy, dz, t_best);
+  }
+  __device__ int closest(float ox, float oy, float oz, float dx, float dy, float dz,
+                         float& t_best) const {
+    return closest_below(ox, oy, oz, dx, dy, dz, BIG_T, t_best);
+  }
+  __device__ bool occluded(float ox, float oy, float oz, float dx, float dy, float dz,
+                           float t_max) const {
+    return walk<true>(ox, oy, oz, dx, dy, dz, t_max) >= 0;
+  }
+};
+
+// Kernel prologue of the chunked walk: the chunk rows, then the rows'
+// intersect columns (of a table kCols wide), staged in the dynamic shared
+// memory s_dyn, n_chunks * CHUNK_COLS + n_tris * GEO_COLS floats; the whole
+// block syncs once.
+template <int kCols>
+__device__ ChunkGeometry load_chunk_geometry(float4* s_dyn, const float* table, int n_tris,
+                                             const float* chunks, int n_chunks) {
+  float* s_box = reinterpret_cast<float*>(s_dyn);
+  for (int k = threadIdx.x; k < n_chunks * CHUNK_COLS; k += blockDim.x)
+    s_box[k] = __ldg(chunks + k);
+  float* s_geo = s_box + n_chunks * CHUNK_COLS;
+  for (int k = threadIdx.x; k < n_tris * GEO_COLS; k += blockDim.x)
+    s_geo[k] = __ldg(table + (k / GEO_COLS) * kCols + k % GEO_COLS);
+  __syncthreads();
+  return ChunkGeometry{s_geo, s_dyn, n_chunks, table};
+}
+
+// The chunked walk's dynamic shared memory
+__host__ __device__ constexpr size_t chunk_smem(int n_tris, int n_chunks) {
+  return ((size_t)n_chunks * CHUNK_COLS + (size_t)n_tris * GEO_COLS) * sizeof(float);
+}
+
 // The shading normal of a smooth mesh at a triangle hit (accel/geometry.py
 // surface_interaction): the barycentrics rebuilt from the winner's row (p0,
 // e1, e2 in cols 0-8) with its guards, the raw vertex normals n0, n1, n2 (cols

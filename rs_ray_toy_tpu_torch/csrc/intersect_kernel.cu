@@ -20,6 +20,14 @@
 // |det| >= 1e-7, u and v in [0, 1], t >= 1e-7).  Built with --fmad=false, so
 // t is the plain version's (ops/intersect_kernel.intersect_triangles_reference)
 // bit for bit.
+//
+// The wavefront loop launches intersect_chunk_kernel, the same query over
+// common.cuh's chunked walk (ChunkGeometry: a slab test of each chunk's
+// padded box against the ray's current best, the hit chunks' rows behind a
+// division-free reject; the winner and t as above, bit for bit), with the
+// rows and chunk rows in dynamic shared memory sized to the table, so a
+// small table leaves the SM's shared memory to more blocks.
+// intersect_kernel, the walk over every row, stays for the comparison.
 
 #include "common.cuh"
 
@@ -47,6 +55,28 @@ intersect_kernel(const float* __restrict__ tri, int n_tris, const float* __restr
   idx_out[i] = best;
 }
 
+__global__ void __launch_bounds__(BLOCK)
+intersect_chunk_kernel(const float* __restrict__ tri, int n_tris, const float* __restrict__ chunks,
+                       int n_chunks, const float* __restrict__ o, const float* __restrict__ d,
+                       const float* __restrict__ t_max, float* __restrict__ t_out,
+                       int* __restrict__ idx_out, int n) {
+  extern __shared__ float4 s_dyn[];
+  const ChunkGeometry geom =
+      load_chunk_geometry<PACKED_COLS>(s_dyn, tri, n_tris, chunks, n_chunks);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t_best = fminf(__ldg(t_max + i), BIG_T);
+  const int best = geom.walk<false>(__ldg(o + 3 * i), __ldg(o + 3 * i + 1), __ldg(o + 3 * i + 2),
+                                    __ldg(d + 3 * i), __ldg(d + 3 * i + 1), __ldg(d + 3 * i + 2),
+                                    t_best);
+  t_out[i] = best >= 0 ? t_best : __int_as_float(0x7f800000);  // +inf on a miss
+  idx_out[i] = best;
+}
+
+// The last chunked launch's block size, blocks resident per SM, registers
+// per thread and dynamic shared memory bytes
+int g_occupancy[4] = {0, 0, 0, 0};
+
 }  // namespace
 
 extern "C" {
@@ -63,6 +93,38 @@ int intersect_launch(const float* tri, int n_tris, const float* o, const float* 
   intersect_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       tri, n_tris, o, d, t_max, t_out, idx_out, n);
   return (int)cudaGetLastError();
+}
+
+// The same over the chunked walk: chunks the (n_chunks, CHUNK_COLS) chunk
+// rows that cover the table (ops/path_megakernel.build_tri_chunks).
+int intersect_chunk_launch(const float* tri, int n_tris, const float* chunks, int n_chunks,
+                           const float* o, const float* d, const float* t_max, float* t_out,
+                           int* idx_out, int n, void* stream) {
+  cudaGetLastError();  // clear any stale error of this runtime
+  if (n <= 0) return 0;
+  if (n_tris <= 0 || n_tris > K4_TRI_MAX || n_chunks <= 0 || n_chunks > K4_TRI_MAX / 4 ||
+      chunks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = chunk_smem(n_tris, n_chunks);  // 44 KB at most: no opt-in
+  int n_blocks = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_blocks, intersect_chunk_kernel, BLOCK, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, intersect_chunk_kernel);
+  if (err != cudaSuccess) return (int)err;
+  g_occupancy[0] = BLOCK;
+  g_occupancy[1] = n_blocks;
+  g_occupancy[2] = attr.numRegs;
+  g_occupancy[3] = (int)smem;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  intersect_chunk_kernel<<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      tri, n_tris, chunks, n_chunks, o, d, t_max, t_out, idx_out, n);
+  return (int)cudaGetLastError();
+}
+
+void intersect_occupancy(int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[k];
 }
 
 const char* intersect_error_string(int err) {

@@ -35,9 +35,13 @@
 // (a) no packets and no padding: each thread walks its own ray to
 // termination, so dead rays retire instead of idling in a masked tile;
 // (b) brute force (T <= 2048): the intersect-side triangle columns (p0, e1,
-// e2: 36 B per triangle, 72 KB at TRI_MAX) staged once per block in shared
-// memory, where all lanes of a warp read the same triangle, so loads
-// broadcast; BVH mode: a per-ray stack walk with the node rows and the
+// e2: 36 B per triangle, 72 KB at TRI_MAX) and the chunk rows (a padded box
+// over up to 16 consecutive rows, 32 B each) staged once per block in shared
+// memory, where all lanes of a warp read the same row, so loads broadcast;
+// a walk slab-tests each chunk's box against its current best t and runs
+// only the hit chunks' rows, each behind a division-free reject
+// (common.cuh, ChunkGeometry); the block size is the one at which most
+// threads are resident for the table's shared memory (choose_block); BVH mode: a per-ray stack walk with the node rows and the
 // triangle table read through the read-only cache (common.cuh, Geometry);
 // the spheres' intersect columns (world-to-object rows and radius, 52 B
 // each) staged in shared memory in both modes, their lobe rows read through
@@ -67,8 +71,19 @@
 // by expression; see common.cuh.  sinf and cosf are CUDA's (not correctly
 // rounded; no fast-math).
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "texture.cuh"
+
+// The triangle walk of an instance: the chunked brute force (common.cuh,
+// ChunkGeometry) or the BVH walk
+template <bool kBvh>
+using PathGeometry = std::conditional_t<kBvh, Geometry<true>, ChunkGeometry>;
+
+// The brute-force instances' largest block (see choose_block)
+constexpr int CHUNK_BLOCK_MAX = 384;
+constexpr size_t CHUNK_SMEM_MAX = chunk_smem(TRI_MAX, CHUNK_MAX);
 
 constexpr int ENV_BINS = 16;  // rows of a constant map's Distribution2D (8x8 texels)
 constexpr int SLOT_MAX = 176;  // sampler slots of the slot-to-row map
@@ -243,7 +258,7 @@ __device__ __forceinline__ float sw_f(const WideParams& w, float cos_w) {
 // writes the next ray.  Out of line: one copy per instance, called where a
 // sample chose the transmission lobe; the arrays live in its frame.
 template <bool kBvh>
-__device__ __noinline__ bool subsurface(const Geometry<kBvh> geom, const Params& p,
+__device__ __noinline__ bool subsurface(const PathGeometry<kBvh> geom, const Params& p,
                                         const WideParams& w, const float* pt, const float* fr,
                                         const float* u, float* beta, float* L, float* ray) {
   const float px = pt[0], py = pt[1], pz = pt[2];
@@ -448,7 +463,7 @@ __device__ void textured_kd(const float* row, const float* tex, const TexMap& tm
 // ---- the bounce loop (_bounce_loop), one ray ----
 
 template <bool kBvh, bool kSmooth, bool kBss, bool kTex, class Smp>
-__device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
+__device__ void bounce_loop(const PathGeometry<kBvh>& geom, const float* table,
                             const float* sph_rows, const float* s_sph, const Params& p,
                             const WideParams& w, const Smp& smp, float ox, float oy,
                             float oz, float dx, float dy, float dz, bool active, float L[3],
@@ -778,8 +793,9 @@ __device__ void bounce_loop(const Geometry<kBvh>& geom, const float* table,
 // ---- one sample pass per thread: camera rays (kRaysIn false) or given rays ----
 
 template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss, bool kTex>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(kBvh ? BLOCK : CHUNK_BLOCK_MAX)
     path_mega_kernel(const float* __restrict__ table, int n_tris,
+                     const float* __restrict__ chunks, int n_chunks,
                      const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
                      const float* __restrict__ sph_rows, const float* __restrict__ in_a,
                      const float* __restrict__ in_d, const float* __restrict__ in_w,
@@ -788,11 +804,16 @@ __global__ void __launch_bounds__(BLOCK)
                      float* __restrict__ out_w, int n, const __grid_constant__ Params p,
                      const __grid_constant__ WideParams w, const float* __restrict__ tex,
                      const __grid_constant__ TexMap tm) {
-  extern __shared__ float s_geo[];
+  extern __shared__ float4 s_dyn[];  // brute force: the chunk rows, then the rows
   __shared__ float s_sph[SPH_MAX * SPH_GEO];
   for (int k = threadIdx.x; k < w.n_sph * SPH_GEO; k += blockDim.x)
     s_sph[k] = __ldg(sph_rows + (k / SPH_GEO) * TABLE_COLS + k % SPH_GEO);
-  const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
+  const PathGeometry<kBvh> geom = [&] {
+    if constexpr (kBvh)
+      return load_geometry<true>(nullptr, table, n_tris, nodes_f, nodes_i);
+    else
+      return load_chunk_geometry<TABLE_COLS>(s_dyn, table, n_tris, chunks, n_chunks);
+  }();
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -859,25 +880,60 @@ struct Launch {
   const float* slot_u;
   const float* tex;  // the textured instances: the image's pyramid, else null
   const TexMap* tm;
+  const float* chunks;  // brute force: (n_chunks, CHUNK_COLS) chunk rows
+  int n_chunks;
 };
+
+// The last brute-force launch's block size, its blocks resident per SM, the
+// instance's registers per thread and the block's dynamic shared memory
+int g_occupancy[4] = {0, 0, 0, 0};
+
+// The block size of a brute-force launch: of the multiples of 32 from BLOCK
+// to CHUNK_BLOCK_MAX, the one at which the most threads are resident on an
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers x block size
+// and shared memory per block), the smaller on a tie.  Every block stages
+// the whole table, so the shared memory per block is the table's whatever the
+// block size, and a larger block stages it for more rays.
+template <class Kernel>
+cudaError_t choose_block(Kernel kernel, size_t smem, int& block) {
+  int best = 0;
+  block = BLOCK;
+  for (int b = BLOCK; b <= CHUNK_BLOCK_MAX; b += 32) {
+    int n_blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_blocks, kernel, b, smem);
+    if (err != cudaSuccess) return err;
+    if (n_blocks * b > best) best = n_blocks * b, block = b;
+  }
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  g_occupancy[0] = block;
+  g_occupancy[1] = best / block;
+  g_occupancy[2] = attr.numRegs;
+  g_occupancy[3] = (int)smem;
+  return cudaSuccess;
+}
 
 template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss = false,
           bool kTex = false>
 int launch_instance(const Launch& a) {
-  const int grid = (a.n + BLOCK - 1) / BLOCK;
+  const auto kernel = path_mega_kernel<kBvh, kRaysIn, kSlots, kSmooth, kBss, kTex>;
+  int block = BLOCK;
   size_t smem = 0;
   if constexpr (!kBvh) {
     // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
-    const cudaError_t attr = cudaFuncSetAttribute(
-        path_mega_kernel<false, kRaysIn, kSlots, kSmooth, kBss, kTex>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
-    if (attr != cudaSuccess) return (int)attr;
-    smem = (size_t)a.n_tris * GEO_COLS * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)CHUNK_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    smem = chunk_smem(a.n_tris, a.n_chunks);
+    err = choose_block(kernel, smem, block);
+    if (err != cudaSuccess) return (int)err;
   }
-  path_mega_kernel<kBvh, kRaysIn, kSlots, kSmooth, kBss, kTex>
-      <<<grid, BLOCK, smem, a.stream>>>(a.table, a.n_tris, a.nodes_f, a.nodes_i, a.sph_rows,
-                                        a.in_a, a.in_d, a.in_w, a.pid, a.sid, a.slot_u, a.out_l,
-                                        a.out_w, a.n, *a.params, *a.wide, a.tex, *a.tm);
+  const int grid = (a.n + block - 1) / block;
+  kernel<<<grid, block, smem, a.stream>>>(a.table, a.n_tris, a.chunks, a.n_chunks, a.nodes_f,
+                                          a.nodes_i, a.sph_rows, a.in_a, a.in_d, a.in_w, a.pid,
+                                          a.sid, a.slot_u, a.out_l, a.out_w, a.n, *a.params,
+                                          *a.wide, a.tex, *a.tm);
   return (int)cudaGetLastError();
 }
 
@@ -916,7 +972,9 @@ int launch(const Launch& a) {
       return (int)cudaErrorInvalidValue;
     return launch_shading<true, kRaysIn>(a);
   }
-  if (a.n_tris < 0 || a.n_tris > TRI_MAX || (a.n_tris > 0 && a.table == nullptr))
+  if (a.n_tris < 0 || a.n_tris > TRI_MAX || (a.n_tris > 0 && a.table == nullptr) ||
+      a.n_chunks < 0 || a.n_chunks > CHUNK_MAX || (a.n_tris > 0) != (a.n_chunks > 0) ||
+      (a.n_chunks > 0 && a.chunks == nullptr))
     return (int)cudaErrorInvalidValue;
   return launch_shading<false, kRaysIn>(a);
 }
@@ -926,7 +984,8 @@ int launch(const Launch& a) {
 extern "C" {
 
 // Launch one camera sample pass on `stream`: brute force when nodes_f is
-// null, the BVH walk otherwise; sph_rows the (n_sph, TABLE_COLS) sphere rows
+// null (the chunked walk over the (n_chunks, CHUNK_COLS) rows `chunks` that
+// cover the table), the BVH walk otherwise; sph_rows the (n_sph, TABLE_COLS) sphere rows
 // (null without spheres); slot_u the Halton slot matrix, (NC, n) float32 rows
 // of the slots wide->slot_row maps, or null for the stratified sampler; the
 // smooth instance when wide->smooth; the textured instance when tex (the
@@ -936,11 +995,12 @@ int path_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
                          const int* nodes_i, const Params* params, const float* pixel_xy,
                          const int* pid, const int* sid, float* out_l, float* out_w, int n,
                          void* stream, const float* sph_rows, const WideParams* wide,
-                         const float* slot_u, const float* tex, const TexMap* tm) {
+                         const float* slot_u, const float* tex, const TexMap* tm,
+                         const float* chunks, int n_chunks) {
   return launch<false>(Launch{table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr,
                               nullptr, pid, sid, out_l, out_w, n,
                               static_cast<cudaStream_t>(stream), sph_rows, wide, slot_u, tex,
-                              tm});
+                              tm, chunks, n_chunks});
 }
 
 // The same on given rays: o, d (n, 3) and weight (n,); out_l only.
@@ -948,11 +1008,12 @@ int path_mega_rays_launch(const float* table, int n_tris, const float* nodes_f,
                           const int* nodes_i, const Params* params, const float* o,
                           const float* d, const float* weight, const int* pid, const int* sid,
                           float* out_l, int n, void* stream, const float* sph_rows,
-                          const WideParams* wide, const float* slot_u) {
+                          const WideParams* wide, const float* slot_u, const float* chunks,
+                          int n_chunks) {
   static const TexMap no_tex{};
   return launch<true>(Launch{table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid,
                              out_l, nullptr, n, static_cast<cudaStream_t>(stream), sph_rows,
-                             wide, slot_u, nullptr, &no_tex});
+                             wide, slot_u, nullptr, &no_tex, chunks, n_chunks});
 }
 
 const char* path_mega_cam_error_string(int err) {
@@ -964,5 +1025,13 @@ int path_mega_cam_params_size() { return (int)sizeof(Params); }
 int path_mega_wide_params_size() { return (int)sizeof(WideParams); }
 
 int path_mega_tex_map_size() { return (int)sizeof(TexMap); }
+
+// The last brute-force launch's block size, blocks per SM, registers per
+// thread and dynamic shared memory bytes, into out[0..3]
+void path_mega_occupancy(int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[k];
+}
+
+int path_mega_chunk_max() { return CHUNK_MAX; }
 
 }  // extern "C"

@@ -4,7 +4,8 @@
 loop's queries whatever the accelerator, as the JAX package's does
 (:86-165): up to BRUTE_FORCE_CUTOFF triangles every triangle query is
 the brute-force kernel K4 (ops/intersect_kernel; occlusion is its hit
-flag), above it a BVH with leaves of 16 triangles and kernel K3
+flag) over the chunked walk, whose chunk rows the context builds from its
+table, above it a BVH with leaves of 16 triangles and kernel K3
 (ops/bvh_kernel): closest and any hit, and the shaded closest hit that
 returns the winner's surface attributes.  Spheres are intersected brute
 force in plain torch and min-combined with the triangle winner
@@ -91,6 +92,8 @@ class SceneCtx:
         self.n_lights = int(lights.kind.shape[0])
         self.bvh = bvh
         self.n_tris = int(tri_packed.shape[0])
+        # brute force: K4's chunk rows (None past its table limit: every row)
+        self.chunks = ik.pack_chunks(tri_packed) if bvh is None else None
         # the lobe kinds of the material table (the JAX SceneCtx's
         # static_kinds), which prune the Debug / DirectLighting tree
         slots = beval.lobe_count(mat_rows)
@@ -126,7 +129,7 @@ class SceneCtx:
             return self._no_hit(o)
         if self.bvh is not None:
             return geom.tri_hit(*bk.intersect_bvh(self.bvh, o, d, t_max))
-        return geom.tri_hit(*ik.intersect_triangles(self.tri_packed, o, d, t_max))
+        return geom.tri_hit(*ik.intersect_triangles(self.tri_packed, o, d, t_max, self.chunks))
 
     def intersect(self, o, d, t_max):
         hit = self._tri_intersect(o, d, t_max)

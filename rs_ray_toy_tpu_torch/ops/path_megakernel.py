@@ -132,6 +132,10 @@ DEPTH_MAX = 15
 ELEM_MAX = 16  # lens elements
 BIN_MAX = 64  # exit-pupil bins
 BIG_T = 3.0e38
+CHUNK_ROWS = 16  # build_tri_chunks closes a chunk at this many rows
+CHUNK_MAX = TRI_MAX // 4  # csrc/common.cuh: chunks of TRI_MAX rows, all but the last >= 4 rows
+CHUNK_COLS = 8  # a chunk row: bmin xyz, bmax xyz, first row, end row
+CULL_SLOP = 1.0 + 2.0**-7  # csrc/common.cuh: the slack of a chunk box's t bound
 SPEC_KINDS = (LOBE_SPEC_REFL, LOBE_SPEC_TRANS, LOBE_FRESNEL_SPEC)
 # the lobes of the Volpath kernel and of the SPPM kernels' base instances;
 # the path kernel adds Disney's (K5 e), the SPPM kernels' wide instances
@@ -262,6 +266,9 @@ class PackedScene(NamedTuple):
     smooth: bool = False  # mesh_smooth: interpolate the raw vertex normals
     bssrdf: Optional[BssrdfC] = None  # the subsurface branch's constants
     tex: Optional[TexC] = None  # the textured kd's image (TEX0 block filled)
+    # brute force: (C, CHUNK_COLS) float32 chunk rows over the table
+    # (build_tri_chunks, chunk_rows), which K1's walk culls by; None in BVH mode
+    chunks: Optional[torch.Tensor] = None
 
 
 def _pow2(n):
@@ -689,6 +696,63 @@ def pack_texture(scene, mat, device):
     return TexC(pyramid(scene.registry.images[rec.image_id], device), rec)
 
 
+def build_tri_chunks(p0, e1, e2, t_count, max_tris=TRI_MAX, max_chunks=CHUNK_MAX):
+    """Greedy chunks of consecutive triangle rows (the JAX package's
+    _build_tri_chunks, path_megakernel.py:919, whose TPU limits were
+    max_tris=256, max_chunks=24; here any brute-force table): a chunk
+    closes at CHUNK_ROWS rows, or after 4 rows where the next row would
+    more than double its box's surface area.  Returns ((lo, hi, bmin,
+    bmax), ...) covering [0, t_count), each box padded by 1e-3 + 1e-4
+    max|coordinate| (python floats, from float64), or None for an empty
+    table, one past max_tris or more than max_chunks chunks."""
+    if t_count <= 0 or t_count > max_tris:
+        return None
+    p0 = np.asarray(p0[:t_count], np.float64)
+    v = np.stack([p0, p0 + np.asarray(e1[:t_count], np.float64),
+                  p0 + np.asarray(e2[:t_count], np.float64)], 1)
+    tlo, thi = v.min(1), v.max(1)
+
+    def area(lo, hi):
+        d = np.maximum(hi - lo, 0.0)
+        return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
+    raw = []
+    lo_i, cur_lo, cur_hi = 0, tlo[0].copy(), thi[0].copy()
+    for i in range(1, t_count):
+        nlo = np.minimum(cur_lo, tlo[i])
+        nhi = np.maximum(cur_hi, thi[i])
+        cnt = i - lo_i
+        if cnt >= CHUNK_ROWS or (cnt >= 4 and area(nlo, nhi) > 2.0 * area(cur_lo, cur_hi) + 1e-12):
+            raw.append((lo_i, i, cur_lo, cur_hi))
+            lo_i, cur_lo, cur_hi = i, tlo[i].copy(), thi[i].copy()
+        else:
+            cur_lo, cur_hi = nlo, nhi
+    raw.append((lo_i, t_count, cur_lo, cur_hi))
+    if len(raw) > max_chunks:
+        return None
+    out = []
+    for lo_i, hi_i, blo, bhi in raw:
+        pad = 1e-3 + 1e-4 * np.maximum(np.abs(blo), np.abs(bhi))
+        out.append((int(lo_i), int(hi_i), tuple(float(x) for x in blo - pad),
+                    tuple(float(x) for x in bhi + pad)))
+    return tuple(out)
+
+
+def chunk_rows(chunks):
+    """(C, CHUNK_COLS) float32 rows of build_tri_chunks' chunks: bmin and
+    bmax rounded outward to float32, then the first and end row."""
+    rows = np.zeros((len(chunks), CHUNK_COLS), np.float32)
+    for c, (lo, hi, bmin, bmax) in enumerate(chunks):
+        b64 = np.array(bmin + bmax)
+        b32 = b64.astype(np.float32)
+        down = np.nextafter(b32, np.float32(-np.inf))
+        up = np.nextafter(b32, np.float32(np.inf))
+        rows[c, 0:3] = np.where(b32[:3] > b64[:3], down[:3], b32[:3])
+        rows[c, 3:6] = np.where(b32[3:] < b64[3:], up[3:], b32[3:])
+        rows[c, 6:8] = lo, hi
+    return rows
+
+
 def pack_scene(scene, device, bvh=None) -> PackedScene:
     """(T, 115) float32 per-triangle table, the sphere rows and the lights.
 
@@ -702,11 +766,12 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
                   uv1, uv2, and 1 where the row's material takes kd from the
                   texture, -1 elsewhere), zeros otherwise.
 
-    BVH mode (bvh=True, or bvh=None and more than TRI_MAX triangles): a
-    SAH BVH with leaves of up to BVH_LEAF triangles, its fused-children
-    node tables, and the table's rows reordered into leaf order
-    (ops/path_megakernel.pack_scene's RS_MEGA_BVH mode; all 115 columns
-    are kept)."""
+    Brute force: the chunk rows K1's walk culls by (build_tri_chunks over
+    the whole table).  BVH mode (bvh=True, or bvh=None and more than
+    TRI_MAX triangles): a SAH BVH with leaves of up to BVH_LEAF
+    triangles, its fused-children node tables, and the table's rows
+    reordered into leaf order (ops/path_megakernel.pack_scene's
+    RS_MEGA_BVH mode; all 115 columns are kept), and no chunks."""
     tri = scene.triangles
     p0 = tri.p0.astype(np.float32)
     r = _resolve_mat_arrays(scene.materials, tri.mat)
@@ -728,7 +793,7 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
         table[:, TEX0 + 9] = np.where((tri.mat >= 0) & (s0_tex >= 0), 1.0, -1.0)
     sph_rows = pack_spheres(scene)
     kinds = kinds_present(table if sph_rows is None else np.concatenate([table, sph_rows]))
-    tables = None
+    tables, chunks = None, None
     if t_count > 0 and ((t_count > TRI_MAX) if bvh is None else bvh):
         flat = build_bvh(tri, BVH_LEAF)
         if tree_depth(flat) >= STACK_DEPTH:
@@ -740,6 +805,9 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
             torch.as_tensor(nodes_i, device=device),
             flat.max_leaf,
         )
+    elif 0 < t_count <= TRI_MAX:
+        found = build_tri_chunks(table[:, 0:3], table[:, 3:6], table[:, 6:9], t_count)
+        chunks = torch.as_tensor(chunk_rows(found), device=device)
     lights = scene.lights
     return PackedScene(
         bssrdf=pack_bssrdf(scene.materials, tri.mat),
@@ -751,6 +819,7 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
         sph_table=None if sph_rows is None else torch.as_tensor(sph_rows, device=device),
         smooth=mesh_smooth(tri),
         tex=tex,
+        chunks=chunks,
         **pack_lights(scene),
     )
 
@@ -1096,6 +1165,7 @@ def load_library(name, prefix, extra_argtypes=()):
 
 
 _WIDE_ARGS = (ctypes.c_void_p, ctypes.POINTER(_WideParams), ctypes.c_void_p)
+_CHUNK_ARGS = (ctypes.c_void_p, ctypes.c_int)  # the chunk rows and their count
 # the rays-in entries' common arguments: table, n_tris, nodes_f, nodes_i,
 # params, o, d, weight, pid, sid, out_l, n, stream
 RAYS_LAUNCH_ARGS = [
@@ -1111,17 +1181,46 @@ def load_kernel():
     both taking the sphere rows, WideParams and the Halton slot matrix
     (null under the stratified sampler) after the common arguments, the
     camera entry then the textured scene's pyramid (null without one) and
-    its TexMap."""
+    its TexMap, and both last the chunk rows of a brute-force table and
+    their count (null and 0 with a BVH)."""
     lib = load_library("path_megakernel", "path_mega_cam",
-                       _WIDE_ARGS + (ctypes.c_void_p, ctypes.POINTER(_TexMap)))
+                       _WIDE_ARGS + (ctypes.c_void_p, ctypes.POINTER(_TexMap)) + _CHUNK_ARGS)
     if lib.path_mega_wide_params_size() != ctypes.sizeof(_WideParams):
         raise RuntimeError("path_megakernel WideParams differs from _WideParams")
     if lib.path_mega_tex_map_size() != ctypes.sizeof(_TexMap):
         raise RuntimeError("path_megakernel TexMap differs from ops/texture._TexMap")
+    if lib.path_mega_chunk_max() != CHUNK_MAX:
+        raise RuntimeError("path_megakernel's chunk limit differs from CHUNK_MAX")
     rays = lib.path_mega_rays_launch
     rays.restype = ctypes.c_int
-    rays.argtypes = RAYS_LAUNCH_ARGS + list(_WIDE_ARGS)
+    rays.argtypes = RAYS_LAUNCH_ARGS + list(_WIDE_ARGS) + list(_CHUNK_ARGS)
+    lib.path_mega_occupancy.restype = None
+    lib.path_mega_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def occupancy():
+    """The last brute-force launch of the path kernel: its block size,
+    blocks resident per SM, registers per thread and dynamic shared memory
+    bytes, as the library chose and measured them (choose_block)."""
+    out = (ctypes.c_int * 4)()
+    load_kernel().path_mega_occupancy(out)
+    return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
+
+
+def chunk_args(packed, dev):
+    """(chunk rows, count) of a brute-force `packed` for a launch on `dev`:
+    contiguous float32 (C, CHUNK_COLS), 0 < C <= CHUNK_MAX, for a non-empty
+    table; (None, 0) with a BVH or no triangle."""
+    chunks = packed.chunks
+    if packed.bvh is not None or packed.table.shape[0] == 0:
+        return None, 0
+    if (chunks is None or chunks.device != dev or chunks.dtype != torch.float32
+            or chunks.dim() != 2 or chunks.shape[1] != CHUNK_COLS
+            or not 0 < chunks.shape[0] <= CHUNK_MAX or not chunks.is_contiguous()):
+        raise ValueError(f"a brute-force table needs contiguous float32 (C, {CHUNK_COLS}) chunk "
+                         f"rows, 0 < C <= {CHUNK_MAX}, on {dev} (pack_scene)")
+    return chunks, chunks.shape[0]
 
 
 def _sphere_arg(packed, dev):
@@ -1186,7 +1285,8 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
         tm = tex_map(tex.pyr, tex.rec, sampler.spp)
     return launcher(load_kernel(), "path_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm,
                     LAUNCHES, extra=(sph, ctypes.byref(wide), reader and reader.u,
-                                     None if tex is None else tex.pyr.data, ctypes.byref(tm)),
+                                     None if tex is None else tex.pyr.data, ctypes.byref(tm),
+                                     *chunk_args(packed, dev)),
                     allow_empty=sph is not None,
                     variant=kernel_name("", halton=reader is not None, smooth=packed.smooth,
                                         bss=packed.bssrdf is not None, tex=tex is not None))
@@ -1224,7 +1324,8 @@ def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
     wide = _wide_params(packed, reader)
     sph = _sphere_arg(packed, o.device)
     return rays_launcher(load_kernel(), "path_mega", packed, o, d, weight, pixel_id, s_idx, prm,
-                         LAUNCHES, extra=(sph, ctypes.byref(wide), u),
+                         LAUNCHES, extra=(sph, ctypes.byref(wide), u,
+                                          *chunk_args(packed, o.device)),
                          allow_empty=sph is not None,
                          variant=kernel_name("", halton=u is not None, smooth=packed.smooth,
                                              bss=packed.bssrdf is not None))
@@ -1519,6 +1620,93 @@ def _inv_dir(d):
     return 1.0 / torch.where(torch.abs(d) < 1e-20, tiny, d)
 
 
+REJECT_SLOP = 1.0 + 2.0**-16  # csrc/common.cuh mt_reject's margins
+REJECT_TINY = 2.0**-100
+TRI_EPS_LO = 9.9998e-8
+
+
+def mt_reject(g, ox, oy, oz, dx, dy, dz, t_bound):
+    """csrc/common.cuh's division-free early reject before Moller-Trumbore,
+    expression for expression (the kernels run it; the plain walks test
+    every row with _mt, whose answer it never changes): True only where
+    _mt gives no hit or a t >= t_bound."""
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = g
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    a = torch.abs(det)
+    neg = det < 0.0
+    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+    un = tvx * pvx + tvy * pvy + tvz * pvz
+    su = torch.where(neg, -un, un)
+    tiny, top = a * REJECT_TINY, a * REJECT_SLOP
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    vn = dx * qvx + dy * qvy + dz * qvz
+    sv = torch.where(neg, -vn, vn)
+    tn = e2x * qvx + e2y * qvy + e2z * qvz
+    st = torch.where(neg, -tn, tn)
+    return (~(a >= TRI_EPS) | (su < -tiny) | (su > top) | (sv < -tiny) | (su + sv > top)
+            | (st < a * TRI_EPS_LO) | (st > a * t_bound * REJECT_SLOP))
+
+
+def _chunk_hit(b, ox, oy, oz, ix, iy, iz, t_bound):
+    """csrc/common.cuh chunk_hit: the slab test of the chunk box b (a chunk
+    row's python floats) against [0, t_bound (1 + 2^-7)]; fmin / fmax as
+    fminf / fmaxf."""
+    t0x, t1x = (b[0] - ox) * ix, (b[3] - ox) * ix
+    t0y, t1y = (b[1] - oy) * iy, (b[4] - oy) * iy
+    t0z, t1z = (b[2] - oz) * iz, (b[5] - oz) * iz
+    tlo = torch.fmax(torch.fmax(torch.fmin(t0x, t1x), torch.fmin(t0y, t1y)), torch.fmin(t0z, t1z))
+    thi = torch.fmin(torch.fmin(torch.fmax(t0x, t1x), torch.fmax(t0y, t1y)), torch.fmax(t0z, t1z))
+    return (tlo <= torch.fmin(thi, t_bound * CULL_SLOP)) & (thi >= 0.0)
+
+
+def chunk_walk(cols, chunks, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit, work=None):
+    """The chunked brute-force walk (csrc/common.cuh ChunkGeometry) of the
+    live rays over the (9, T) geometry columns `cols` and the chunk rows
+    `chunks` ((C, CHUNK_COLS) float32): each chunk in table order, its box
+    slab-tested against the ray's current t bound, its rows tested (table
+    order, strict <) where the box is hit.  Returns (t, row): t_bound (a
+    per-ray tensor) and -1 where nothing is hit; with any_hit a ray stops at
+    its first hit in table order (its row; its t is then t_bound).  `work` gets the slab tests
+    ("slab") and the rows tested ("mt"), as the kernel makes them, and the
+    rows the walk over every row would test ("mt_brute": all of them, or
+    up to the first hit of an any-hit walk, which is the same row)."""
+    t_best = t_bound.clone()
+    best = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+    inv = tuple(_inv_dir(c) for c in (dx, dy, dz))
+    ray = (ox, oy, oz, dx, dy, dz)
+    slabs = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
+    tests = torch.zeros_like(slabs)
+    for row in chunks.tolist():
+        lo, hi = int(row[6]), int(row[7])
+        walking = live & (best < 0) if any_hit else live
+        slabs = slabs + walking
+        idx = torch.nonzero(walking & _chunk_hit(row, ox, oy, oz, *inv, t_best)).squeeze(1)
+        hit, t = _mt(cols[:, lo:hi], *(c[idx, None] for c in ray))
+        hit = hit & (t < t_best[idx, None])
+        found = hit.any(1)
+        if any_hit:
+            # the kernel stops at the first hit: it tests the chunk up to it
+            first = hit.int().argmax(1)
+            tests[idx] += torch.where(found, first + 1, hi - lo)
+            best[idx] = torch.where(found, lo + first, best[idx])
+        else:
+            tests[idx] += hi - lo
+            # min takes the first of equal t: ties keep the lower row
+            t_c, j_c = torch.where(hit, t, BIG_T).min(1)
+            t_best[idx] = torch.where(found, t_c, t_best[idx])
+            best[idx] = torch.where(found, lo + j_c, best[idx])
+    tally(work, "slab", slabs)
+    tally(work, "mt", tests)
+    n_rows = cols.shape[1]
+    tally(work, "mt_brute", live * (torch.where(best >= 0, best + 1, n_rows) if any_hit else n_rows))
+    return t_best, best
+
+
 def _slab(b, ox, oy, oz, ix, iy, iz, t_cur):
     """Slab test of the boxes b[:, 0:6] = (min xyz, max xyz) with the
     traversal's t bound (ops/bvh_pallas._slab6)."""
@@ -1588,14 +1776,20 @@ class PlainGeometry:
     child (by the sign of the ray's direction on the split axis) last; a
     leaf tests its triangles in table order with strict <.  `work`, when
     given, counts the Moller-Trumbore ("mt") and slab ("slab") tests of
-    the live rays, as the kernel performs them."""
+    the live rays, as the kernel performs them.  With `cull` (K1's
+    plain versions; the other kernels walk every row) brute force takes
+    the chunked walk over `packed.chunks` (chunk_walk), which finds the
+    same hits."""
 
-    def __init__(self, packed, device, work=None):
+    def __init__(self, packed, device, work=None, cull=False):
         self.table = packed.table.to(device)
         self.work = work
         self.bvh = packed.bvh
+        self.chunks = None
         if self.bvh is None:
             self.cols = self.table[:, :9].T.contiguous()  # (9, T): p0, e1, e2
+            if cull and packed.chunks is not None:
+                self.chunks = packed.chunks.to(device)
         else:
             self.geo = self.table[:, :9].contiguous()
             self.nodes_f = self.bvh.nodes_f.to(device)
@@ -1607,6 +1801,9 @@ class PlainGeometry:
         miss."""
         if self.bvh is not None:
             return self.walk(ox, oy, oz, dx, dy, dz, torch.zeros_like(ox) + t_lim, live, False)
+        if self.chunks is not None:
+            return chunk_walk(self.cols, self.chunks, ox, oy, oz, dx, dy, dz,
+                              torch.zeros_like(ox) + t_lim, live, False, self.work)
         t_best = torch.zeros_like(ox) + t_lim
         best = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
         for j, g, ray in self._blocks(ox, oy, oz, dx, dy, dz):
@@ -1631,9 +1828,13 @@ class PlainGeometry:
     def occluded(self, ox, oy, oz, dx, dy, dz, t_max, live):
         """Any hit with t in [TRI_EPS, t_max) along the caller's
         direction (t_max a float or per ray); False where not live."""
-        if self.bvh is not None:
+        if self.bvh is not None or self.chunks is not None:
             t_bound = torch.zeros_like(ox) + t_max
-            _, row = self.walk(ox, oy, oz, dx, dy, dz, t_bound, live, True)
+            if self.bvh is not None:
+                _, row = self.walk(ox, oy, oz, dx, dy, dz, t_bound, live, True)
+            else:
+                _, row = chunk_walk(self.cols, self.chunks, ox, oy, oz, dx, dy, dz, t_bound, live,
+                                    True, self.work)
             return row >= 0
         occ = torch.zeros_like(ox, dtype=torch.bool)
         tests = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
@@ -2076,7 +2277,7 @@ def bounce_loop_reference(packed, ox, oy, oz, dx, dy, dz, active, pid, sid, samp
     textured row's lobe 0 takes its s0 from textured_kd_reference, at
     bounce 0 over the differential rays `fd`."""
     dev = ox.device
-    geom = PlainGeometry(packed, dev, work)
+    geom = PlainGeometry(packed, dev, work, cull=True)
     spheres = None if packed.sph_table is None else PlainSpheres(packed.sph_table, dev, work)
     table = geom.table
     rows_all = table if spheres is None else torch.cat([table, spheres.rows])

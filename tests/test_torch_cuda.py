@@ -467,14 +467,19 @@ def test_wavefront_intersect_kernel_matches_plain_version():
     dev = _device()
     ctx = SceneCtx.from_scene(load_scene(str(SAMPLES / "scene.json")).scene, dev)
     o, d, t_max = _aimed_rays(1 << 16, 1, dev)
+    assert ctx.chunks is not None  # the loop's walk: the chunked one
     before = ik.LAUNCHES["intersect"]
-    t, idx, hit = ik.intersect_triangles(ctx.tri_packed, o, d, t_max)
+    t, idx, hit = ik.intersect_triangles(ctx.tri_packed, o, d, t_max, ctx.chunks)
     torch.cuda.synchronize()
     assert ik.LAUNCHES["intersect"] == before + 1
-    t_ref, idx_ref, hit_ref = ik.intersect_triangles_reference(ctx.tri_packed, o, d, t_max)
+    t_ref, idx_ref, hit_ref = ik.intersect_triangles_reference(ctx.tri_packed, o, d, t_max,
+                                                               chunks=ctx.chunks)
     assert int(hit_ref.sum()) > 1000
     assert torch.equal(hit, hit_ref) and torch.equal(idx, idx_ref)
     assert torch.equal(t[hit], t_ref[hit]) and bool(torch.isinf(t[~hit]).all())
+    # the walk over every row finds the same hits
+    t_e, idx_e, _ = ik.intersect_triangles(ctx.tri_packed, o, d, t_max)
+    assert torch.equal(idx_e, idx) and torch.equal(t_e, t)
 
 
 def test_wavefront_bvh_kernels_match_plain_versions(tmp_path):
