@@ -255,6 +255,27 @@ Phase 14 SPPM on glass and Disney materials, and K3's BVH4 walk: (a)
          on phase 12e's 101-level tree (the BVH4's deep instances) on 2^17
          rays aimed at it; each walk timed against the binary one on the
          same rays, in turns.
+Phase 15 K3's node64 walk and K6's brute force on the chunked walk: (a)
+         on the ao-grid's first probe batch (any and closest hit),
+         path-grid80's camera rays (closest) and bounce-0 shadow rays
+         (any), grid-sss-mixed's first probe-chain batch (closest) and
+         phase 12e's 101-level tree's 2^17 aimed rays (both, the deep
+         instances), bvh64_kernel (the loop's walk, driven in phases 7b-c,
+         9g, 11e and 12e) and, for the comparison, bvh_kernel's walk over the
+         fused-children rows (`fused_rows=True`): t and triangle (any hit:
+         the triangle it stopped at) equal to the plain node64 walk's
+         (accel/traverse.walk64) on every ray, bit for bit, both timed in
+         turns (their times recorded, not ranked); the plain walk's steps a
+         ray (mean, 99th percentile, the warps' longest) and the bound with
+         the node64 rows and with the fused-children rows; (b) the Volpath
+         kernel's chunked brute-force instance against its walk over every
+         row (`every_row=True`) on one pass of the fog fixture, fog_area and
+         the grid fog (5a-c's scenes) and #8 on the fog's camera rays: radiance
+         (and camera weight) bit-equal on every ray, both timed in turns,
+         and the plain version's chunked-walk counts over each pass's first
+         quarter (consecutive rays: per ray MT and chunk box tests, per
+         warp of 32 the chunks and rows it runs against the walk over every
+         row's; walk_ab.chunk_counts).
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
@@ -327,9 +348,12 @@ bytes, and their original row in BVH mode), the BVH nodes as above and,
 for the shaded kernel, the 15 shade floats (31 smooth, which also
 writes 6 attribute floats more a ray) and 2 ints of each triangle;
 their operations are the Moller-Trumbore and slab tests the plain
-version counts.  The BVH4 walk reads each wide node's 144 bytes once
-instead of the binary nodes, and its plain version counts a slab test
-for each non-empty child slot it tests.  No single PyTorch call computes a sample pass, any of
+version counts.  The node64 walk reads each interior node's 64-byte row
+once instead of every node's fused-children columns (its slab and MT
+tests are the binary walk's, counted by its plain version); the BVH4
+walk reads each wide node's 144 bytes once instead of the binary nodes,
+and its plain version counts a slab test for each non-empty child slot
+it tests.  No single PyTorch call computes a sample pass, any of
 the SPPM kernels, or a closest hit over a triangle list or a BVH:
 `library_ms` is null.  A path-kernel instance held on a subset gives as
 `plain_ms` the time of the plain version's one run there, the run that
@@ -352,7 +376,6 @@ import torch
 
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.integrators import sppm
-from rs_ray_toy_tpu_torch.integrators.ao import li_ao
 from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
 from rs_ray_toy_tpu_torch.integrators.direct import li_levels
 from rs_ray_toy_tpu_torch.integrators.path import li_path
@@ -388,6 +411,8 @@ from rs_ray_toy_tpu_torch.scene import mipmap
 from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 from rs_ray_toy_tpu_torch.scene.png import load_image
+from rs_ray_toy_tpu_torch.accel import traverse
+from rs_ray_toy_tpu_torch.walk_ab import aimed_rays, chunk_counts, first_pass_batches
 
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "samples" / "scene.json"
@@ -442,8 +467,8 @@ KERNELS = {
     "sppm_photon_mega_bvh": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:1407"),
     "sppm_deposit_mega": dict(source=SPPM_SRC, replaces=f"{SPPM_REF}:923"),
     "intersect": dict(source=INTERSECT_SRC, replaces="rs_ray_toy_tpu/ops/intersect_pallas.py:46"),
-    # both instances of the walk: closest hit and any hit
-    "bvh": dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:249"),
+    # both instances of the node64 walk: closest hit and any hit
+    "bvh64": dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:249"),
     "bvh_shaded": dict(source=BVH_SRC, replaces="rs_ray_toy_tpu/ops/bvh_pallas.py:400"),
 }
 # the path kernel's Halton and smooth instances (phase 9), each replacing
@@ -514,6 +539,7 @@ NORMAL_COLS = 9  # a smooth mesh's raw vertex normals n0, n1, n2
 LOBE_COLS = 16
 NODE_READ_COLS = 12 + 3  # both child boxes; offset, n_prims, axis
 NODE4_BYTES = (24 + 12) * 4  # a wide node: four child boxes; their kind, a, b
+NODE64_BYTES = 16 * 4  # a node64 row: both child boxes, their references, the axis
 QUERY_BYTES = 28 + 8  # o, d, t_max in; t, triangle out
 SHADED_OUT_BYTES = 4 * 4 + 16 * 4  # t, triangle, material, area light; 16 attribute floats
 MISS_HOLD = 1e-5  # hit or miss may differ on this share of the held rays (ties)
@@ -741,7 +767,8 @@ def hold(mod, job, stride, dev):
     max_abs_err = max(float((l[sub] - l_ref).abs().max()), float((w[sub] - w_ref).abs().max()))
     del l, w, l_ref, w_ref
     ms = timed_ms(mod.prepare_launch(*args), reps=10)
-    extra = {"occupancy": pmk.occupancy()} if mod is pmk and packed.bvh is None else {}
+    extra = ({"occupancy": mod.occupancy()} if mod in (pmk, vmk) and packed.bvh is None
+             else {})
     wrapper_ms = timed_ms(lambda: fn(*args))
     slots = halton_slots(packed, job.integrator, sampler, True)
     # under Halton the kernel reads no pixel id or sample index, but slot values
@@ -991,6 +1018,10 @@ def main():
     # ---- phase 14: SPPM on glass and Disney; K3's BVH4 walk ----
     wide_sppm_phase(record, kernels, card, dev)
     bvh4_phase(record, kernels, card, dev)
+
+    # ---- phase 15: K3's node64 walk; K6's brute force on the chunked walk ----
+    node64_phase(record, kernels, card, dev)
+    chunked_volpath_phase(record, kernels, card, dev)
 
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
@@ -1330,51 +1361,6 @@ def sppm_phase(record, kernels, card, dev):
 # ---- phase 7: the wavefront loop ----
 
 
-class RecordingCtx(SceneCtx):
-    """SceneCtx that keeps the inputs of the first call of each of the
-    loop's queries, as (o, d, t_max) under "shaded" and "occluded" and,
-    over a BVH, "closest" (the subsurface probe chain's re-casts)."""
-
-    def __init__(self, ctx):
-        super().__init__(ctx.tri_packed, ctx.shade, ctx.mat_rows, ctx.lights, ctx.bvh,
-                         ctx.bssrdf)
-        self.batches = {}
-
-    def intersect_shaded(self, o, d, t_max):
-        self.batches.setdefault("shaded", (o, d, t_max))
-        return super().intersect_shaded(o, d, t_max)
-
-    def occluded(self, o, d, t_max):
-        self.batches.setdefault("occluded", (o, d, t_max))
-        return super().occluded(o, d, t_max)
-
-    def intersect(self, o, d, t_max):
-        if self.bvh is not None:
-            self.batches.setdefault("closest", (o, d, t_max))
-        return super().intersect(o, d, t_max)
-
-
-def first_pass_batches(job, dev, spp, wide=False):
-    """The first pass of the wavefront render of `job` at `spp` samples per
-    pixel, run again with a recording context: its first camera (shaded)
-    and occlusion batches, and the context.  With `wide` its closest-hit
-    and any-hit queries walk the BVH4 (pack_bvh(..., wide=True)), not the
-    loop's binary tree."""
-    sampler = make_sampler(job)
-    sampler.xs, sampler.ys = (2, 4) if spp == 8 else (4, 4)
-    sampler.spp = spp
-    cam = RealisticCamera(job.camera, job.film, device=dev)
-    ctx = RecordingCtx(SceneCtx.from_scene(job.scene, dev))
-    if wide:
-        ctx.bvh = bk.pack_bvh(job.scene.triangles, dev, wide=True)
-    pxy, pid, soff = sample_batch(job.film, spp, dev)
-    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
-    li = li_ao if job.integrator.kind == "ao" else li_path
-    li(ctx, o, d, w, sampler, pid, soff, job.integrator)
-    torch.cuda.synchronize()
-    return ctx, ctx.batches
-
-
 # query: (prepare_launch, the wrapper, the plain version)
 QUERIES = {
     "intersect": (
@@ -1409,6 +1395,8 @@ def query_bytes(query, ctx, n):
     nbytes = m * NODE_READ_COLS * 4 + p * (9 * 4 + 4)
     if ctx.bvh.wide and query != "shaded":
         nbytes = ctx.bvh.nodes4_f.shape[0] * NODE4_BYTES + p * (9 * 4 + 4)
+    elif query != "shaded":
+        nbytes = ctx.bvh.nodes64.shape[0] * NODE64_BYTES + p * (9 * 4 + 4)
     if query == "shaded":
         # the smooth instance reads 31 shade floats a triangle and writes 6
         # attribute floats more a ray
@@ -1560,14 +1548,14 @@ def wavefront_phase(record, kernels, card, dev):
     t0 = time.perf_counter()
     grid = write_grid_scene(str(OUT / "grid_ao"), base=str(SCENE_AO), integrator="AO")
     res, colored, counts = drive_wavefront(
-        grid, OUT / "chip_smoke_grid_ao.png", {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
+        grid, OUT / "chip_smoke_grid_ao.png", {"bvh_shaded": 1, "bvh64_any": n_probe}, 8)
     check(res["bvh"], "the AO grid did not take the BVH")
     job = load_scene(grid)
     ctx, batches = first_pass_batches(job, dev, 8)
     shaded = hold_query("shaded", ctx, batches["shaded"])
     any_hit = hold_query("any", ctx, batches["occluded"])
     closest = hold_query("closest", ctx, batches["occluded"])
-    wavefront_entry(kernels, "bvh", counts["bvh_any"] + counts["bvh_closest"], any_hit)
+    wavefront_entry(kernels, "bvh64", counts["bvh64_any"] + counts["bvh64_closest"], any_hit)
     wavefront_entry(kernels, "bvh_shaded", counts["bvh_shaded"], shaded)
     job.sampler.xsamp, job.sampler.ysamp = 2, 4
     warm = [render_job(job, dev) for _ in range(2)]
@@ -1599,7 +1587,7 @@ def wavefront_phase(record, kernels, card, dev):
     depth = job.integrator.max_depth
     check(job.scene.triangles.count > pmk.BVH_TRI_MAX, "the 80x80 grid fits the path kernel")
     res, colored, counts = drive_wavefront(
-        big, OUT / "chip_smoke_grid80_path.png", {"bvh_shaded": depth, "bvh_any": depth}, 8)
+        big, OUT / "chip_smoke_grid80_path.png", {"bvh_shaded": depth, "bvh64_any": depth}, 8)
     ctx, batches = first_pass_batches(job, dev, 8)
     check(ctx.bvh.depth < pmk.STACK_DEPTH, "the 80x80 grid's BVH is too deep")
     shaded_c = hold_query("shaded", ctx, batches["shaded"])
@@ -1614,7 +1602,7 @@ def wavefront_phase(record, kernels, card, dev):
                              warm_camera_mrays_per_s=[r["mrays_per_s"] for r in warm],
                              render_s=res["elapsed_s"], shaded=shaded_c, any_hit=any_c,
                              phase_s=time.perf_counter() - t0)
-    kernels["bvh"]["max_abs_err"] = max(any_c["max_abs_err"], closest["max_abs_err"],
+    kernels["bvh64"]["max_abs_err"] = max(any_c["max_abs_err"], closest["max_abs_err"],
                                        any_hit["max_abs_err"])
     kernels["bvh_shaded"]["max_abs_err"] = max(shaded_c["max_abs_err"], shaded["max_abs_err"])
     print(f"phase 7c: Path, grid of {job.scene.triangles.count} triangles (BVH depth "
@@ -2061,7 +2049,7 @@ def halton_smooth_phase(record, kernels, card, dev):
     check(job.scene.triangles.count > pmk.BVH_TRI_MAX, "9g: the grid fits the path kernel")
     res, colored, counts = drive_wavefront(
         grid80, OUT / "chip_smoke_smooth_grid80.png",
-        {"bvh_shaded_smooth": depth, "bvh_any": depth}, 8)
+        {"bvh_shaded_smooth": depth, "bvh64_any": depth}, 8)
     ctx, batches = first_pass_batches(job, dev, 8)
     check(ctx.bvh.smooth, "9g: flat shade rows")
     shaded = hold_query("shaded", ctx, batches["shaded"])
@@ -2343,17 +2331,17 @@ def subsurface_phase(record, kernels, card, dev):
     t0 = time.perf_counter()
     grid = write_grid_scene(str(OUT / "grid_sss_mixed"), base=str(SCENE_SSS_MIXED))
     res, colored, counts = drive_announced(grid, OUT / "chip_smoke_grid_sss_mixed.png", "11e",
-                                           ("bvh_closest", "bvh_shaded", "bvh_any"))
+                                           ("bvh64_closest", "bvh_shaded", "bvh64_any"))
     job = load_scene(grid)
     ctx, batches = first_pass_batches(job, dev, 16)
     check("closest" in batches, "11e: the grid's probe chain cast no closest-hit batch")
     closest = hold_query("closest", ctx, batches["closest"])
-    kernels["bvh"].update(closest_launches=counts["bvh_closest"], closest_ms=closest["ms"],
+    kernels["bvh64"].update(closest_launches=counts["bvh64_closest"], closest_ms=closest["ms"],
                           closest_bound_ms=closest["bound_ms"],
                           closest_plain_ms=closest["plain_ms"], closest_rays=closest["rays"],
-                          max_abs_err=max(kernels["bvh"]["max_abs_err"], closest["max_abs_err"]))
+                          max_abs_err=max(kernels["bvh64"]["max_abs_err"], closest["max_abs_err"]))
     grid_bar = card_vs_cpu(grid, 80, 45, dev, "11e grid",
-                           ("bvh_closest", "bvh_shaded", "bvh_any"), lit_bar=True)
+                           ("bvh64_closest", "bvh_shaded", "bvh64_any"), lit_bar=True)
     record["phase11e_grid"] = dict(launches=counts, colored=colored,
                                    camera_rays=res["camera_rays"],
                                    render_mrays_per_s=res["mrays_per_s"], closest=closest,
@@ -2491,10 +2479,10 @@ def repairs_phase(record, card, dev):
                               integrator="AO", xres=160, yres=90)
     n_probe = load_scene(big_ao).integrator.n_samples
     res_ao, _, counts_ao = drive_wavefront(big_ao, OUT / "chip_smoke_grid112_ao.png",
-                                           {"bvh_shaded": 1, "bvh_any": n_probe}, 8)
+                                           {"bvh_shaded": 1, "bvh64_any": n_probe}, 8)
     big_path = write_grid_scene(str(OUT / "grid112_path"), ny=112, nz=112, xres=160, yres=90)
     res_big, _, counts_big = drive_announced(big_path, OUT / "chip_smoke_grid112_path.png",
-                                             "12e", ("bvh_shaded", "bvh_any"))
+                                             "12e", ("bvh_shaded", "bvh64_any"))
     job = load_scene(big_path)
     check(job.scene.triangles.count > 120_000, "12e: the 112x112 grid")
     # a BVH of 64 levels or more over more triangles than K1's brute force:
@@ -2503,7 +2491,7 @@ def repairs_phase(record, card, dev):
     deep = write_deep_bvh_scene(str(OUT / "deep_bvh"), integrator="Path", n_bulk=2000,
                                 xres=160, yres=90)
     res_deep, _, counts_deep = drive_announced(deep, OUT / "chip_smoke_deep_bvh.png", "12e",
-                                               ("bvh_shaded", "bvh_any"))
+                                               ("bvh_shaded", "bvh64_any"))
     deep_job = load_scene(deep)
     check(deep_job.scene.triangles.count > pmk.TRI_MAX, "12e: the deep tree's triangles")
     ctx = SceneCtx.from_scene(deep_job.scene, dev)
@@ -2536,15 +2524,6 @@ def repairs_phase(record, card, dev):
           f"ms, {deep_any['hits']} hits), each held to its plain version; "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
 
-
-def aimed_rays(n, target, spread, dev, seed=9):
-    """n seeded rays from the origin at points within `spread` of `target`
-    on each axis, unbounded: (o, d, t_max) on `dev`."""
-    rng = np.random.default_rng(seed)
-    aim = np.asarray(target) + rng.uniform(-spread, spread, (n, 3))
-    d = (aim / np.linalg.norm(aim, axis=-1, keepdims=True)).astype(np.float32)
-    return (torch.zeros((n, 3), device=dev), torch.as_tensor(d, device=dev),
-            torch.full((n,), torch.inf, device=dev))
 
 # ---- phase 13: Debug / DirectLighting through the wavefront loop; #6, #8, #10 ----
 
@@ -2986,6 +2965,183 @@ def bvh4_phase(record, kernels, card, dev):
               f"{b['ms']:.3f} ms (turns {', '.join(f'{m:.3f}' for m in b['ms_turns'])})"
               for tag, (w, b) in held.items())
           + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+
+# ---- phase 15: K3's node64 walk; K6's brute force on the chunked walk ----
+
+
+def turns(launches, reps=10):
+    """Each launch timed in turns (the order, then the reverse), median of
+    `reps` after a warm-up each time: {name: (median of the turns, [turns])}."""
+    times = {k: [] for k in launches}
+    for order in (list(launches), list(launches)[::-1]):
+        for k in order:
+            times[k].append(timed_ms(launches[k], reps=reps))
+    return {k: (statistics.median(v), v) for k, v in times.items()}
+
+
+def hold_node64(any_hit, ctx, batch, tag):
+    """K3's node64 walk (bvh64_kernel) on one batch against its plain version
+    (accel/traverse.walk64) and bvh_kernel's walk over the fused-children
+    rows (`fused_rows=True`), each on every ray: t and triangle equal, bit
+    for bit (any hit: the triangle the walk stopped at, and t_max); the two
+    kernels timed in turns.  Returns the numbers: times, occupancy, the
+    plain version's counts and steps a ray (traverse.step_stats), the
+    bound with the node64 rows read once and, beside it, with the
+    fused-children rows."""
+    o, d, t_max = batch
+    n = o.shape[0]
+    tables = ctx.bvh._replace(wide=False)
+    launches = {"bvh_kernel": bk.prepare_launch(tables, o, d, t_max, any_hit, fused_rows=True),
+                "node64": bk.prepare_launch(tables, o, d, t_max, any_hit)}
+    outs = {k: [x.clone() for x in launch()] for k, launch in launches.items()}
+    occupancy = bk.occupancy()
+    torch.cuda.synchronize()
+    work = {}
+    (t_p, row_p, steps), plain_ms = timed_once(
+        lambda: traverse.walk64(tables, o, d, t_max, any_hit, work))
+    idx_p = torch.where(row_p >= 0, tables.prims_i[row_p.clamp(min=0), 0].long(), -1)
+    for k, (t_k, i_k) in outs.items():
+        check(torch.equal(i_k.long(), idx_p) and torch.equal(t_k, t_p),
+              f"15a {tag}: {k}'s hits differ from the plain node64 walk's")
+    hits = int((idx_p >= 0).sum())
+    check(hits > 0, f"15a {tag}: no hit")
+    ms = turns(launches)
+    flops = sum(FLOPS[k] * float(v) for k, v in work.items() if k in FLOPS)
+    p = tables.prims_f.shape[0]
+    rows64 = tables.nodes64.shape[0] * NODE64_BYTES + p * (9 * 4 + 4) + n * QUERY_BYTES
+    rows_old = tables.nodes_f.shape[0] * NODE_READ_COLS * 4 + p * (9 * 4 + 4) + n * QUERY_BYTES
+
+    def bound_of(nbytes):
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    (bound_ms, bound_by), (bound_old_ms, bound_old_by) = bound_of(rows64), bound_of(rows_old)
+    return dict(rays=n, hits=hits, ms=ms["node64"][0], bvh_kernel_ms=ms["bvh_kernel"][0],
+                ms_turns={k: v[1] for k, v in ms.items()}, occupancy=occupancy,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_old_ms=bound_old_ms, bound_old_by=bound_old_by,
+                steps=traverse.step_stats(steps, t_max > 0.0),
+                work={k: float(v) for k, v in work.items()}, max_abs_err=0.0, plain_rays=n)
+
+
+def node64_phase(record, kernels, card, dev):
+    """Phase 15a (see the module docstring)."""
+    t0 = time.perf_counter()
+    # the node64 walk against its plain version and bvh_kernel on every
+    # ray of each batch, in turns
+    ao = load_scene(str(OUT / "grid_ao" / "grid.json"))
+    ctx, batches = first_pass_batches(ao, dev, 8)
+    cases = {"ao_grid_any": (True, ctx, batches["occluded"]),
+             "ao_grid_closest": (False, ctx, batches["occluded"])}
+    grid80 = load_scene(str(OUT / "grid80_path" / "grid.json"))
+    ctx80, batches80 = first_pass_batches(grid80, dev, 8)
+    cases.update(grid80_closest=(False, ctx80, batches80["shaded"]),
+                 grid80_any=(True, ctx80, batches80["occluded"]))
+    sss = load_scene(str(OUT / "grid_sss_mixed" / "grid.json"))
+    ctx_s, batches_s = first_pass_batches(sss, dev, 16)
+    cases["probe_chain_closest"] = (False, ctx_s, batches_s["closest"])
+    deep = load_scene(str(OUT / "deep_bvh" / "deep.json"))
+    ctx_d = SceneCtx.from_scene(deep.scene, dev)
+    check(ctx_d.bvh.stack == bk.DEEP_STACK, f"15a: a tree of depth {ctx_d.bvh.depth}")
+    aimed = aimed_rays(1 << 17, (35.0, 0.0, 0.0), 1.0, dev)
+    cases.update(deep_closest=(False, ctx_d, aimed), deep_any=(True, ctx_d, aimed))
+    held = {case: hold_node64(a, c, b, case) for case, (a, c, b) in cases.items()}
+    kernels["bvh64"].update(
+        node64_ms={k: h["ms"] for k, h in held.items()},
+        bvh_kernel_ms={k: h["bvh_kernel_ms"] for k, h in held.items()},
+        node64_bound_ms={k: h["bound_ms"] for k, h in held.items()},
+        fused_rows_bound_ms={k: h["bound_old_ms"] for k, h in held.items()})
+    record["phase15_node64"] = dict(**held, phase_s=time.perf_counter() - t0)
+    print("phase 15a: K3's node64 walk on every ray equal to its plain version and to "
+          "bvh_kernel; " + "; ".join(
+              f"{tag} {h['rays']} rays, {h['hits']} hits: node64 {h['ms']:.4f} ms (turns "
+              f"{', '.join(f'{m:.4f}' for m in h['ms_turns']['node64'])}) against bvh_kernel "
+              f"{h['bvh_kernel_ms']:.4f} ms (turns "
+              f"{', '.join(f'{m:.4f}' for m in h['ms_turns']['bvh_kernel'])}); bound "
+              f"{h['bound_ms']:.4f} ms by {h['bound_by']} (fused-children rows "
+              f"{h['bound_old_ms']:.4f} by {h['bound_old_by']}); plain {h['plain_ms']:.1f} ms; "
+              f"steps a ray mean {h['steps']['mean']:.2f}, p99 {h['steps']['p99']:.0f}, warps' "
+              f"longest {h['steps']['warp_max_mean']:.2f} on average, max {h['steps']['max']:.0f}; "
+              f"occupancy {h['occupancy']}"
+              for tag, h in held.items())
+          + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def rays_apart(a, b):
+    """Rays whose channels are not all bit-equal (NaN equal to NaN)."""
+    same = (a == b) | (a.isnan() & b.isnan())
+    return int((~same.all(-1)).sum())
+
+
+def hold_chunked(job, dev, tag, rays):
+    """K6's chunked instance against its walk over every row on one pass of
+    `job` (and with `rays` #8 on the pass's camera rays): radiance and
+    weight bit-equal on every ray, both timed in turns; the plain version's
+    counts over the pass's first quarter (consecutive rays, the kernel's
+    warps: chunk_counts)."""
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    packed = vmk.pack_volpath(job.scene, dev)
+    check(packed.bvh is None and packed.chunks is not None, f"15b {tag}: no chunk rows")
+    sampler = make_sampler(job)
+    pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+    args = (packed, pmk.pack_camera(cam), pxy, pid, soff, sampler, job.integrator)
+    pairs = {"cam": (vmk.prepare_launch(*args), vmk.prepare_launch(*args, every_row=True))}
+    if rays:
+        o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+        r_args = (packed, o, d, w, pid, soff, sampler, job.integrator)
+        pairs["rays"] = (vmk.prepare_rays_launch(*r_args),
+                         vmk.prepare_rays_launch(*r_args, every_row=True))
+    out = {}
+    for key, (chunked, every) in pairs.items():
+        new = [x.clone() for x in ((chunked(),) if key == "rays" else chunked())]
+        occupancy = vmk.occupancy()
+        ref = (every(),) if key == "rays" else every()
+        apart = rays_apart(new[0], ref[0])
+        check(apart == 0, f"15b {tag} {key}: {apart} rays apart from the walk over every row")
+        if key == "cam":
+            check(torch.equal(new[1], ref[1]), f"15b {tag}: camera weights differ")
+        ms = turns({"every_row": every, "chunked": chunked})
+        out[key] = dict(rays=pxy.shape[0], rays_apart=apart, ms=ms["chunked"][0],
+                        every_row_ms=ms["every_row"][0], ms_turns={k: v[1] for k, v in ms.items()},
+                        occupancy=occupancy)
+    q = slice(0, pxy.shape[0] // 4)
+    work = {}
+    vmk.li_volpath_mega_cam_reference(packed, pmk.pack_camera(cam), pxy[q], pid[q], soff[q],
+                                      sampler, job.integrator, work=work)
+    out["counts"] = chunk_counts(work, q.stop)
+    return out
+
+
+def chunked_volpath_phase(record, kernels, card, dev):
+    """Phase 15b (see the module docstring)."""
+    t0 = time.perf_counter()
+    held = {tag: hold_chunked(load_scene(str(scene)), dev, tag, tag == "fog")
+            for tag, scene in (("fog", SCENE_FOG),
+                               ("fog_area", OUT / "fog_area" / "fog_area.json"),
+                               ("grid_fog", OUT / "grid_fog" / "grid_fog.json"))}
+    kernels["volpath_mega_cam"].update(
+        every_row_ms={t: h["cam"]["every_row_ms"] for t, h in held.items()},
+        chunked_ms={t: h["cam"]["ms"] for t, h in held.items()})
+    kernels["volpath_mega"].update(every_row_ms=held["fog"]["rays"]["every_row_ms"],
+                                   chunked_ms=held["fog"]["rays"]["ms"])
+    record["phase15_chunked_volpath"] = dict(**held, phase_s=time.perf_counter() - t0)
+    print("phase 15b: K6's chunked walk against its walk over every row, radiance bit-equal; "
+          + "; ".join(
+              f"{tag} {key} {h[key]['rays']} rays: chunked {h[key]['ms']:.3f} ms against every row "
+              f"{h[key]['every_row_ms']:.3f} ms (turns "
+              + ", ".join(f"{k} {', '.join(f'{m:.3f}' for m in v)}"
+                          for k, v in h[key]["ms_turns"].items())
+              + f"), {h[key]['rays_apart']} rays apart, occupancy {h[key]['occupancy']}"
+              for tag, h in held.items() for key in ("cam", "rays") if key in h)
+          + "; counts over the first quarter of each pass: " + "; ".join(
+              f"{tag} {h['counts']['mt_per_ray']:.2f} MT and {h['counts']['slab_per_ray']:.2f} "
+              f"chunk box tests a ray (every row {h['counts']['mt_brute_per_ray']:.1f} MT), a warp "
+              f"runs {h['counts']['chunk_warp_per_warp']:.2f} chunks, "
+              f"{h['counts']['mt_warp_per_warp']:.1f} rows against "
+              f"{h['counts']['mt_brute_warp_per_warp']:.1f} ({h['counts']['warp_row_share']:.1%})"
+              for tag, h in held.items())
+          + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+
 
 if __name__ == "__main__":
     sys.exit(main())

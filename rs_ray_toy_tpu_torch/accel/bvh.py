@@ -1,7 +1,9 @@
 """BVH build (host) and the node tables the kernels walk
 (rs_ray_toy_tpu/accel/bvh.py and ops/bvh_pallas.pack_bvh_tables,
-pack_bvh4_tables): the binary tree's fused-children rows, and the same
-tree collapsed into 4-wide nodes (BVH4).
+pack_bvh4_tables): the binary tree's fused-children rows, the same rows
+as one 64-byte row per interior node with both children's references in
+it (`pack_node64_tables`, K3's walk on the card), and the same tree
+collapsed into 4-wide nodes (BVH4).
 
 The build is the repository's binned-SAH C++ builder (csrc/bvh_builder.cpp,
 12 buckets), compiled with g++ on first use (ops/_build.load_host) and
@@ -29,6 +31,8 @@ NODE_COLS = 16  # fused-children row: left box (6), right box (6), 4 zeros
 NODE4_COLS = 24  # a wide node's float row: per child slot bmin, bmax
 NODE4_I_COLS = 12  # its int row: per child slot kind, a, b
 CHILD_NONE, CHILD_INTERIOR, CHILD_LEAF = 0, 1, 2  # a wide child slot's kind
+# the bits of one child's leaf count in a node64 row (pack_node64_tables)
+LEAF_COUNT_BITS = 8
 
 _LIB = None
 
@@ -165,6 +169,46 @@ def pack_bvh_tables(bvh: FlatBVH):
         nodes2_f[interior, 6:9] = nmin[c1]
         nodes2_f[interior, 9:12] = nmax[c1]
     return nodes2_f, nodes_i
+
+
+def child_refs(nodes_i, interior_row, nodes):
+    """The node64 references and leaf counts of binary nodes `nodes` (rows
+    of nodes_i, pack_bvh_tables'): an interior node's row in the node64
+    table (>= 0) and count 0, a leaf's -1 - (its first leaf-order row) and
+    its triangle count."""
+    nodes = np.asarray(nodes, np.int64)
+    first = np.asarray(nodes_i, np.int64)[nodes, 0]
+    count = np.asarray(nodes_i, np.int64)[nodes, 1]
+    if (count >= 1 << LEAF_COUNT_BITS).any():
+        raise NotImplementedError(f"a leaf of {int(count.max())} triangles (a node64 row holds "
+                                  f"leaf counts below {1 << LEAF_COUNT_BITS})")
+    return np.where(count > 0, -1 - first, interior_row[nodes]), count
+
+
+def pack_node64_tables(nodes2_f, nodes_i):
+    """One 64-byte row per interior node of pack_bvh_tables' binary tables,
+    in their order (ops/bvh_kernel's walk on the card): cols 0:12 both
+    children's boxes as the fused-children row has them (left min, max,
+    right min, max: the same float32 values); as int32 bits, cols 12, 13
+    the left and right child's reference (child_refs: a leaf's -1 - its
+    first row), col 14 the split axis and col 15 both children's leaf
+    counts (left | right << LEAF_COUNT_BITS; 0 for an interior child).  A
+    leaf is known at its parent and is never fetched as a node.  A tree
+    that is one leaf has no row: its walk starts at the leaf of all rows.
+
+    Returns nodes64 (I, 16) float32."""
+    nodes_i = np.asarray(nodes_i, np.int64)
+    interior = np.flatnonzero(nodes_i[:, 1] == 0)
+    row = np.full(nodes_i.shape[0], -1, np.int64)
+    row[interior] = np.arange(interior.size)
+    nodes64 = np.zeros((interior.size, NODE_COLS), np.float32)
+    nodes64[:, 0:12] = np.asarray(nodes2_f, np.float32)[interior, 0:12]
+    bits = nodes64.view(np.int32)
+    bits[:, 12], n_left = child_refs(nodes_i, row, interior + 1)
+    bits[:, 13], n_right = child_refs(nodes_i, row, nodes_i[interior, 0])
+    bits[:, 14] = nodes_i[interior, 2]
+    bits[:, 15] = n_left | n_right << LEAF_COUNT_BITS
+    return nodes64
 
 
 SHADE_COLS_FLAT = 15  # uv0, uv1, uv2, dpdu, dpdv, ng

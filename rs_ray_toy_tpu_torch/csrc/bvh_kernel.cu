@@ -1,5 +1,7 @@
 // BVH closest hit, any hit and shaded closest hit for Hopper (sm_90a), K3:
-// one thread per ray; and the BVH4 closest and any hit (bvh4_kernel, below).
+// one thread per ray; the closest and any hit over the node64 rows
+// (bvh64_kernel, the wavefront loop's walk; bvh_kernel's closest and any hit
+// stay for the comparison) and the BVH4 (bvh4_kernel, below).
 //
 // Replaces the TPU kernels rs_ray_toy_tpu/ops/bvh_pallas.py · _traverse_kernel
 // with fused=True (pallas_call in _call: intersect_bvh_pallas with
@@ -71,6 +73,52 @@ bvh_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
     best = geom.template walk<kAny>(__ldg(o + 3 * i), __ldg(o + 3 * i + 1), __ldg(o + 3 * i + 2),
                            __ldg(d + 3 * i), __ldg(d + 3 * i + 1), __ldg(d + 3 * i + 2),
                            t_bound);
+  }
+  t_out[i] = best >= 0 ? t_bound : tm;
+  idx_out[i] = best >= 0 ? __ldg(prims_i + PRIM_I_COLS * best) : -1;
+}
+
+// ---- the node64 walk (bvh64_kernel), the wavefront loop's closest and any hit ----
+//
+// Replaces the same TPU kernel (_traverse_kernel, closest and any hit), as
+// bvh_kernel does, with a walk redesigned for this card: common.cuh's Bvh64
+// over the node64 rows (accel/bvh.pack_node64_tables).  bvh_kernel's walk
+// waits on two dependent loads a visited node (its int4, then its child
+// boxes as 12 scalar loads), fetches a leaf as a node before its first
+// triangle, reads each triangle as 9 scalar loads with a division in every
+// Moller-Trumbore test, and pushes and pops the near child at every step.
+// Here an interior node is one 64-byte row (four float4 loads, both
+// children's references in it), a leaf is known at its parent, a triangle
+// row is three float4 loads and meets the division-free reject first (the
+// next row's loads in flight meanwhile), the near child is entered without a
+// push (a leaf's count rides in its parent's row and on the stack beside its
+// reference), and a ray's loads are issued together before its t_max is tested.
+// The stack stays a per-thread local array (64 entries, 256 in the deep
+// instances for trees of 64 to 255 levels): the card measured it faster than
+// one in shared memory laid out thread-interleaved (PERF.md §6 row 13).  The
+// hits, t and any hit's row are bvh_kernel's, ray for ray.  What bounds it is
+// still the latency of dependent loads and the divergence of a warp's walks:
+// per ray 28 bytes in and 8 out, and the tables (a few MB) stay in L2.
+constexpr int BVH64_BLOCK_MAX = 256;
+
+template <bool kAny, int kStack>
+__global__ void __launch_bounds__(BVH64_BLOCK_MAX)
+bvh64_kernel(const float4* __restrict__ nodes64, int root_count,
+             const float4* __restrict__ prims_f, const int* __restrict__ prims_i,
+             const float* __restrict__ o, const float* __restrict__ d,
+             const float* __restrict__ t_max, float* __restrict__ t_out,
+             int* __restrict__ idx_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // the ray's loads issued together, ahead of the test of t_max
+  const float tm = __ldg(t_max + i);
+  const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
+  const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1), dz = __ldg(d + 3 * i + 2);
+  float t_bound = tm;
+  int best = -1;
+  if (tm > 0.0f) {
+    const Bvh64<kStack> geom{nodes64, prims_f, root_count};
+    best = geom.template walk<kAny>(ox, oy, oz, dx, dy, dz, t_bound);
   }
   t_out[i] = best >= 0 ? t_bound : tm;
   idx_out[i] = best >= 0 ? __ldg(prims_i + PRIM_I_COLS * best) : -1;
@@ -353,6 +401,35 @@ void launch_shaded(int smooth, int grid, cudaStream_t st, const float* nodes_f,
   }
 }
 
+// The last bvh64_kernel launch's block size, blocks resident per SM,
+// registers per thread and dynamic shared memory (none)
+int g_occupancy64[4] = {0, 0, 0, 0};
+
+// One bvh64_kernel launch, its block size chosen by occupancy
+template <bool kAny, int kStack>
+int launch64(cudaStream_t st, const float4* nodes64, int root_count, const float4* prims_f,
+             const int* prims_i, const float* o, const float* d, const float* t_max,
+             float* t_out, int* idx_out, int n) {
+  const auto kernel = bvh64_kernel<kAny, kStack>;
+  int block = BLOCK;
+  const cudaError_t err = choose_block(kernel, BVH64_BLOCK_MAX, [](int) { return (size_t)0; },
+                                       block, g_occupancy64);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(n + block - 1) / block, block, 0, st>>>(nodes64, root_count, prims_f, prims_i, o, d,
+                                                   t_max, t_out, idx_out, n);
+  return (int)cudaGetLastError();
+}
+
+template <bool kAny>
+int launch64_stack(int deep, cudaStream_t st, const float4* nodes64, int root_count,
+                   const float4* prims_f, const int* prims_i, const float* o, const float* d,
+                   const float* t_max, float* t_out, int* idx_out, int n) {
+  return deep ? launch64<kAny, DEEP_STACK>(st, nodes64, root_count, prims_f, prims_i, o, d,
+                                           t_max, t_out, idx_out, n)
+              : launch64<kAny, STACK_DEPTH>(st, nodes64, root_count, prims_f, prims_i, o, d,
+                                            t_max, t_out, idx_out, n);
+}
+
 }  // namespace
 
 extern "C" {
@@ -420,6 +497,34 @@ int bvh_shaded_launch(int deep, const float* nodes_f, const int* nodes_i, const 
     launch_shaded<STACK_DEPTH>(smooth, grid, st, nodes_f, nodes_i, prims_f, prims_i, shade_f,
                                n_prims, o, d, t_max, t_out, idx_out, mat_out, al_out, attrs, n);
   return (int)cudaGetLastError();
+}
+
+// Launch the node64 walk, closest hit (any_hit 0) or any hit (1), over n
+// rays: nodes64 the (I, 16) node64 rows, root at row 0 (I = 0: the tree is
+// one leaf of all n_prims rows), the deep instance (a DEEP_STACK stack) when
+// `deep`.  Returns as bvh_launch.
+int bvh64_launch(int any_hit, int deep, const float* nodes64, int n_nodes, const float* prims_f,
+                 const int* prims_i, int n_prims, const float* o, const float* d,
+                 const float* t_max, float* t_out, int* idx_out, int n, void* stream) {
+  cudaGetLastError();
+  if (n <= 0) return 0;
+  if (n_prims <= 0 || n_nodes < 0 || (n_nodes > 0 && nodes64 == nullptr) ||
+      (n_nodes == 0 && n_prims >= 1 << LEAF_COUNT_BITS))
+    return (int)cudaErrorInvalidValue;
+  const int root_count = n_nodes > 0 ? 0 : n_prims;
+  const auto* nodes = reinterpret_cast<const float4*>(nodes64);
+  const auto* prims = reinterpret_cast<const float4*>(prims_f);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return any_hit ? launch64_stack<true>(deep, st, nodes, root_count, prims, prims_i, o, d, t_max,
+                                        t_out, idx_out, n)
+                 : launch64_stack<false>(deep, st, nodes, root_count, prims, prims_i, o, d, t_max,
+                                         t_out, idx_out, n);
+}
+
+// The last bvh64_launch's block size, blocks per SM, registers per thread
+// and dynamic shared memory bytes, into out[0..3]
+void bvh64_occupancy(int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy64[k];
 }
 
 const char* bvh_error_string(int err) {

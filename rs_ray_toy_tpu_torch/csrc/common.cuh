@@ -621,6 +621,114 @@ __host__ __device__ constexpr size_t chunk_smem(int n_tris, int n_chunks) {
   return ((size_t)n_chunks * CHUNK_COLS + (size_t)n_tris * GEO_COLS) * sizeof(float);
 }
 
+// ---- K3's binary walk for Hopper: one 64-byte fetch per interior node ----
+//
+// The node64 rows (accel/bvh.pack_node64_tables), one per interior node: both
+// children's boxes (the fused-children row's 12 floats, the same values) and,
+// as int bits, both children's references, the split axis and both children's
+// leaf counts, read as four float4.  A reference >= 0 is an interior row; a
+// leaf's is -1 - its first leaf-order row, its count in col 15 (left | right
+// << LEAF_COUNT_BITS), so a leaf is known at its parent and never fetched as
+// a node.  The walk goes straight into the near hit child (by the sign of the
+// ray's direction on the split axis) and pushes the far one only where both
+// are hit; a leaf or a row with no child hit pops.  Geometry<true> visits in
+// the same order (it pushes the far hit child, then the near one, and pops the
+// near one at once), so the winner, its t and an any-hit walk's row are
+// Geometry<true>'s.  Each leaf row, 48 bytes in leaf order, is read as three
+// float4, the next row's loads issued before it is tested, and meets the
+// division-free mt_reject before mt_hit, which leaves the answer as it is.
+// The stack, a per-thread array of kStack entries, holds the far children
+// still to visit (reference and leaf count): at most one an interior level
+// above the current node.
+constexpr int LEAF_COUNT_BITS = 8;
+
+// slab_hit on the box (x0, y0, z0) - (x1, y1, z1), expression for expression
+__device__ __forceinline__ bool slab6_hit(float x0, float y0, float z0, float x1, float y1,
+                                          float z1, float ox, float oy, float oz, float ix,
+                                          float iy, float iz, float t_cur) {
+  const float t0x = (x0 - ox) * ix, t1x = (x1 - ox) * ix;
+  const float t0y = (y0 - oy) * iy, t1y = (y1 - oy) * iy;
+  const float t0z = (z0 - oz) * iz, t1z = (z1 - oz) * iz;
+  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  const float tf =
+      fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z)) * SLAB_SLOP;
+  return tn <= tf && tf > 0.0f && tn < t_cur && t_cur > 0.0f;
+}
+
+template <int kStack>
+struct Bvh64 {
+  const float4* nodes;  // (I, 4) float4: the node64 rows
+  const float4* prims;  // (P, 3) float4: p0, e1, e2, pad in leaf order
+  int root_count;       // 0: the root is row 0; else a leaf of rows [0, root_count)
+
+  // any_hit: stop at the first hit with t < t_bound (shadow rays)
+  template <bool kAny>
+  __device__ int walk(float ox, float oy, float oz, float dx, float dy, float dz,
+                      float& t_bound) const {
+    const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+    int2 stack[kStack];  // (reference, leaf count)
+    int sp = 0;
+    int best = -1;
+    int ref = root_count > 0 ? -1 : 0, count = root_count;
+    while (true) {
+      if (ref >= 0) {
+        const float4* row = nodes + 4 * (size_t)ref;
+        const float4 b0 = __ldg(row), b1 = __ldg(row + 1), b2 = __ldg(row + 2);
+        const float4 b3 = __ldg(row + 3);
+        const bool hit_l =
+            slab6_hit(b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, ox, oy, oz, ix, iy, iz, t_bound);
+        const bool hit_r =
+            slab6_hit(b1.z, b1.w, b2.x, b2.y, b2.z, b2.w, ox, oy, oz, ix, iy, iz, t_bound);
+        const int axis = __float_as_int(b3.z), counts = __float_as_int(b3.w);
+        const float d_ax = axis == 0 ? dx : (axis == 1 ? dy : dz);
+        const bool left_near = d_ax >= 0.0f;
+        const int left = __float_as_int(b3.x), right = __float_as_int(b3.y);
+        const int n_left = counts & ((1 << LEAF_COUNT_BITS) - 1);
+        const int n_right = counts >> LEAF_COUNT_BITS;
+        const int near = left_near ? left : right, far = left_near ? right : left;
+        const int n_near = left_near ? n_left : n_right, n_far = left_near ? n_right : n_left;
+        const bool hit_near = left_near ? hit_l : hit_r;
+        const bool hit_far = left_near ? hit_r : hit_l;
+        if (hit_near) {
+          if (hit_far) stack[sp++] = make_int2(far, n_far);
+          ref = near, count = n_near;
+          continue;
+        }
+        if (hit_far) {
+          ref = far, count = n_far;
+          continue;
+        }
+      } else {
+        const int first = -1 - ref;
+        const int end = first + count;
+        // each row's loads are issued before the row ahead of it is tested
+        const float4* row = prims + 3 * (size_t)first;
+        float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
+        for (int j = first; j < end; ++j) {
+          float4 na = a, nb = b, nc = c;
+          if (j + 1 < end) {
+            row += 3;
+            na = __ldg(row), nb = __ldg(row + 1), nc = __ldg(row + 2);
+          }
+          const float g[GEO_COLS] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+          float t;
+          if (!mt_reject(g, ox, oy, oz, dx, dy, dz, t_bound) &&
+              mt_hit(g, ox, oy, oz, dx, dy, dz, t) && t < t_bound) {
+            best = j;
+            if constexpr (kAny) return best;
+            t_bound = t;
+          }
+          a = na, b = nb, c = nc;
+        }
+      }
+      if (sp == 0) break;
+      const int2 top = stack[--sp];
+      ref = top.x, count = top.y;
+    }
+    return best;
+  }
+};
+
 // The shading normal of a smooth mesh at a triangle hit (accel/geometry.py
 // surface_interaction): the barycentrics rebuilt from the winner's row (p0,
 // e1, e2 in cols 0-8) with its guards, the raw vertex normals n0, n1, n2 (cols
@@ -1212,5 +1320,34 @@ __device__ __forceinline__ float power_heuristic(float f_pdf, float g_pdf) {
 
 constexpr int BLOCK = 128;
 constexpr size_t SMEM_MAX = (size_t)TRI_MAX * GEO_COLS * sizeof(float);
+// the chunked walk's largest dynamic shared memory: TRI_MAX rows in chunks
+constexpr size_t CHUNK_SMEM_MAX = chunk_smem(TRI_MAX, CHUNK_MAX);
+
+// The block size of a launch: of the multiples of 32 from BLOCK to
+// block_max, the one at which the most threads are resident on an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers x block size,
+// and the dynamic shared memory smem_of(block size) a block takes), the
+// smaller on a tie.  occ gets the block size, blocks resident per SM, the
+// kernel's registers per thread and the block's dynamic shared memory.
+template <class Kernel, class SmemOf>
+cudaError_t choose_block(Kernel kernel, int block_max, SmemOf smem_of, int& block, int* occ) {
+  int best = 0;
+  block = BLOCK;
+  for (int b = BLOCK; b <= block_max; b += 32) {
+    int n_blocks = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_blocks, kernel, b, smem_of(b));
+    if (err != cudaSuccess) return err;
+    if (n_blocks * b > best) best = n_blocks * b, block = b;
+  }
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  occ[0] = block;
+  occ[1] = best / block;
+  occ[2] = attr.numRegs;
+  occ[3] = (int)smem_of(block);
+  return cudaSuccess;
+}
 
 }  // namespace

@@ -83,7 +83,6 @@ using PathGeometry = std::conditional_t<kBvh, Geometry<true>, ChunkGeometry>;
 
 // The brute-force instances' largest block (see choose_block)
 constexpr int CHUNK_BLOCK_MAX = 384;
-constexpr size_t CHUNK_SMEM_MAX = chunk_smem(TRI_MAX, CHUNK_MAX);
 
 constexpr int ENV_BINS = 16;  // rows of a constant map's Distribution2D (8x8 texels)
 constexpr int SLOT_MAX = 176;  // sampler slots of the slot-to-row map
@@ -888,32 +887,6 @@ struct Launch {
 // instance's registers per thread and the block's dynamic shared memory
 int g_occupancy[4] = {0, 0, 0, 0};
 
-// The block size of a brute-force launch: of the multiples of 32 from BLOCK
-// to CHUNK_BLOCK_MAX, the one at which the most threads are resident on an
-// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers x block size
-// and shared memory per block), the smaller on a tie.  Every block stages
-// the whole table, so the shared memory per block is the table's whatever the
-// block size, and a larger block stages it for more rays.
-template <class Kernel>
-cudaError_t choose_block(Kernel kernel, size_t smem, int& block) {
-  int best = 0;
-  block = BLOCK;
-  for (int b = BLOCK; b <= CHUNK_BLOCK_MAX; b += 32) {
-    int n_blocks = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_blocks, kernel, b, smem);
-    if (err != cudaSuccess) return err;
-    if (n_blocks * b > best) best = n_blocks * b, block = b;
-  }
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  g_occupancy[0] = block;
-  g_occupancy[1] = best / block;
-  g_occupancy[2] = attr.numRegs;
-  g_occupancy[3] = (int)smem;
-  return cudaSuccess;
-}
-
 template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss = false,
           bool kTex = false>
 int launch_instance(const Launch& a) {
@@ -926,7 +899,9 @@ int launch_instance(const Launch& a) {
                                            (int)CHUNK_SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     smem = chunk_smem(a.n_tris, a.n_chunks);
-    err = choose_block(kernel, smem, block);
+    // every block stages the whole table, so a larger block stages it for
+    // more rays: choose_block weighs only the threads resident
+    err = choose_block(kernel, CHUNK_BLOCK_MAX, [&](int) { return smem; }, block, g_occupancy);
     if (err != cudaSuccess) return (int)err;
   }
   const int grid = (a.n + block - 1) / block;

@@ -34,6 +34,13 @@
 // The design is the path kernel's (path_megakernel.cu): each thread walks its
 // own ray to termination, triangles staged in shared memory up to TRI_MAX or
 // walked in the BVH above, constants in __grid_constant__ parameter blocks.
+// Brute force walks the chunks (kChunk: common.cuh ChunkGeometry, the chunk
+// boxes and rows staged in shared memory, a box missed before the ray's best
+// t skips its rows, each row meets the division-free reject first), whose
+// block size the launch picks by occupancy; it finds Geometry<false>'s hits,
+// so the medium's draws, which depend only on the hits, and the radiance are
+// those of the walk over every row (kChunk false), which stays launchable
+// (a null chunks pointer) for the comparison.
 // Tracking loops run until the ray leaves its segment (delta and ratio
 // tracking end with probability one; the JAX loops have no step bound
 // either); a NaN position ends the walk, since `t < t_max` fails.
@@ -42,6 +49,8 @@
 // scene/medium.py) expression by expression; see common.cuh.  logf, expf,
 // sinf and cosf are CUDA's (not correctly rounded; no fast-math), which
 // torch's CUDA kernels also call.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -223,17 +232,38 @@ __device__ float ratio_track(const VolParams& v, const float* __restrict__ dens,
 
 // ---- one sample pass per thread ----
 
-template <bool kBvh, bool kRaysIn>
-__global__ void __launch_bounds__(BLOCK)
+// The chunked instances' largest block (choose_block)
+constexpr int VOL_BLOCK_MAX = 256;
+// kCapRegs: the chunked instance of homogeneous media, capped by
+// __launch_bounds__ to the registers of this many VOL_BLOCK_MAX blocks an SM
+// (85: six blocks of 128 where the uncapped instance's 109 fit four); its
+// loop spills little under the cap.  Grid media take the uncapped instance:
+// under the cap their tracking loops spill more than the warps gain.
+constexpr int VOL_CAP_BLOCKS = 3;
+
+// The triangle walk of an instance: the BVH, the chunked brute force, or
+// the brute force over every row
+template <bool kBvh, bool kChunk>
+using VolGeometry = std::conditional_t<kChunk, ChunkGeometry, Geometry<kBvh>>;
+
+template <bool kBvh, bool kRaysIn, bool kChunk = false, bool kCapRegs = false>
+__global__ void __launch_bounds__(kChunk ? VOL_BLOCK_MAX : BLOCK, kCapRegs ? VOL_CAP_BLOCKS : 1)
     volpath_mega_kernel(const float* __restrict__ table, int n_tris,
+                        const float* __restrict__ chunks, int n_chunks,
                         const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
                         const float* __restrict__ in_a, const float* __restrict__ in_d,
                         const float* __restrict__ in_w, const int* __restrict__ pid,
                         const int* __restrict__ sid, float* __restrict__ out_l,
                         float* __restrict__ out_w, int n, const __grid_constant__ Params p,
                         const __grid_constant__ VolParams v, const float* __restrict__ density) {
-  extern __shared__ float s_geo[];
-  const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
+  extern __shared__ float4 s_dyn[];  // brute force: (the chunk rows, then) the rows
+  const VolGeometry<kBvh, kChunk> geom = [&] {
+    if constexpr (kChunk)
+      return load_chunk_geometry<TABLE_COLS>(s_dyn, table, n_tris, chunks, n_chunks);
+    else
+      return load_geometry<kBvh>(reinterpret_cast<float*>(s_dyn), table, n_tris, nodes_f,
+                                 nodes_i);
+  }();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Sampler smp{(uint32_t)pid[i], (uint32_t)sid[i], &p};
@@ -476,11 +506,15 @@ __global__ void __launch_bounds__(BLOCK)
   if constexpr (!kRaysIn) out_w[i] = weight;
 }
 
+// The last chunked launch's block size, blocks resident per SM, registers
+// per thread and dynamic shared memory bytes
+int g_occupancy[4] = {0, 0, 0, 0};
+
 template <bool kRaysIn>
 int launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
            const Params* params, const float* in_a, const float* in_d, const float* in_w,
            const int* pid, const int* sid, float* out_l, float* out_w, int n, void* stream,
-           const VolParams* vol, const float* density) {
+           const VolParams* vol, const float* density, const float* chunks, int n_chunks) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (n <= 0) return 0;
   if (params->n_lights < 1 || params->n_lights > LIGHT_MAX) return (int)cudaErrorInvalidValue;
@@ -492,11 +526,28 @@ int launch(const float* table, int n_tris, const float* nodes_f, const int* node
     if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
       return (int)cudaErrorInvalidValue;
     volpath_mega_kernel<true, kRaysIn><<<grid, BLOCK, 0, st>>>(
-        table, n_tris, nodes_f, nodes_i, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params,
-        *vol, density);
+        table, n_tris, nullptr, 0, nodes_f, nodes_i, in_a, in_d, in_w, pid, sid, out_l, out_w, n,
+        *params, *vol, density);
     return (int)cudaGetLastError();
   }
   if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
+  if (chunks != nullptr) {
+    if (n_chunks <= 0 || n_chunks > CHUNK_MAX) return (int)cudaErrorInvalidValue;
+    const auto kernel = vol->grid ? volpath_mega_kernel<false, kRaysIn, true>
+                                  : volpath_mega_kernel<false, kRaysIn, true, true>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)CHUNK_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    // every block stages the whole table: choose_block weighs the threads resident
+    const size_t smem = chunk_smem(n_tris, n_chunks);
+    int block = BLOCK;
+    err = choose_block(kernel, VOL_BLOCK_MAX, [&](int) { return smem; }, block, g_occupancy);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(n + block - 1) / block, block, smem, st>>>(
+        table, n_tris, chunks, n_chunks, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l,
+        out_w, n, *params, *vol, density);
+    return (int)cudaGetLastError();
+  }
   // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
   const cudaError_t attr =
       cudaFuncSetAttribute(volpath_mega_kernel<false, kRaysIn>,
@@ -504,8 +555,8 @@ int launch(const float* table, int n_tris, const float* nodes_f, const int* node
   if (attr != cudaSuccess) return (int)attr;
   const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
   volpath_mega_kernel<false, kRaysIn><<<grid, BLOCK, smem, st>>>(
-      table, n_tris, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params,
-      *vol, density);
+      table, n_tris, nullptr, 0, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l, out_w, n,
+      *params, *vol, density);
   return (int)cudaGetLastError();
 }
 
@@ -513,16 +564,19 @@ int launch(const float* table, int n_tris, const float* nodes_f, const int* node
 
 extern "C" {
 
-// Launch one sample pass on `stream`: brute force when nodes_f is null, the
-// BVH walk otherwise; `density` is the (nz, ny, nx) grid, null for a
-// homogeneous medium.  Returns cudaGetLastError() of the launch (0 when it
-// was accepted); nothing is synchronised.
+// Launch one sample pass on `stream`: the BVH walk when nodes_f is not null,
+// else brute force: the chunked walk over the (n_chunks, CHUNK_COLS) rows
+// `chunks` that cover the table, or the walk over every row where chunks is
+// null; `density` is the (nz, ny, nx) grid, null for a homogeneous medium.
+// Returns cudaGetLastError() of the launch (0 when it was accepted);
+// nothing is synchronised.
 int volpath_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
                             const int* nodes_i, const Params* params, const float* pixel_xy,
                             const int* pid, const int* sid, float* out_l, float* out_w, int n,
-                            void* stream, const VolParams* vol, const float* density) {
+                            void* stream, const VolParams* vol, const float* density,
+                            const float* chunks, int n_chunks) {
   return launch<false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr, nullptr, pid,
-                       sid, out_l, out_w, n, stream, vol, density);
+                       sid, out_l, out_w, n, stream, vol, density, chunks, n_chunks);
 }
 
 // The same on given rays: o, d (n, 3) and weight (n,), every ray in the
@@ -531,9 +585,10 @@ int volpath_mega_rays_launch(const float* table, int n_tris, const float* nodes_
                              const int* nodes_i, const Params* params, const float* o,
                              const float* d, const float* weight, const int* pid,
                              const int* sid, float* out_l, int n, void* stream,
-                             const VolParams* vol, const float* density) {
+                             const VolParams* vol, const float* density, const float* chunks,
+                             int n_chunks) {
   return launch<true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid, out_l,
-                      nullptr, n, stream, vol, density);
+                      nullptr, n, stream, vol, density, chunks, n_chunks);
 }
 
 const char* volpath_mega_cam_error_string(int err) {
@@ -543,5 +598,11 @@ const char* volpath_mega_cam_error_string(int err) {
 int volpath_mega_cam_params_size() { return (int)sizeof(Params); }
 
 int volpath_mega_cam_vol_params_size() { return (int)sizeof(VolParams); }
+
+// The last chunked launch's block size, blocks per SM, registers per thread
+// and dynamic shared memory bytes, into out[0..3]
+void volpath_mega_occupancy(int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[k];
+}
 
 }  // extern "C"

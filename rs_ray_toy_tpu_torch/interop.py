@@ -29,7 +29,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .accel.bvh import tree4_depth
+from .accel.bvh import pack_node64_tables, tree4_depth
 from .accel.geometry import pack_shade_tables, sphere_tables
 from .integrators.common import SceneCtx, bssrdf_tables, material_rows
 from .integrators.sppm import PhotonLights, SPPMState
@@ -276,7 +276,8 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
     (nodes2_f, nodes_i, prims_f, prims_i, shade_f with flat or smooth
     rows, max_leaf, depth, and the BVH4's nodes4_f, nodes4_i) for a BVH
     context, None for brute force; its closest-hit and any-hit queries
-    walk the binary tree (`_replace(wide=True)`: the BVH4)."""
+    walk the binary tree as the loop does (over the node64 rows built from
+    nodes2_f and nodes_i; `_replace(wide=True)`: the BVH4)."""
     a = np.asarray
     tri = ctx.tri
     if len(env_rgb) != len(ctx.infinite_envs):
@@ -298,11 +299,13 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
     bvh = None
     if bvh_tables is not None:
         t = lambda k, dt: torch.as_tensor(np.array(a(bvh_tables[k]), dt), device=device)
+        nodes64 = pack_node64_tables(a(bvh_tables["nodes2_f"]), a(bvh_tables["nodes_i"]))
         bvh = bk.BvhTables(
             t("nodes2_f", np.float32), t("nodes_i", np.int32), t("prims_f", np.float32),
             t("prims_i", np.int32), t("shade_f", np.float32), int(bvh_tables["max_leaf"]),
             int(bvh_tables["depth"]), t("nodes4_f", np.float32), t("nodes4_i", np.int32),
             tree4_depth(np.asarray(bvh_tables["nodes4_i"])),
+            nodes64=torch.as_tensor(nodes64, device=device),
         )
     mats = {k: a(ctx.mats[k]) for k in MAT_KEYS}
     lt = ctx.lights

@@ -9,11 +9,16 @@ order (intersect rows, original row / material / area light, and the 15
 flat shade columns, or 31 with the vertex normals, their partials and
 has_n when any triangle has vertex normals), for any number of
 triangles.  The closest-hit and any-hit queries walk the binary tree
-(`bvh_kernel`, the JAX package's default walk, and the faster one on the
-card: PERF.md §6); `pack_bvh(..., wide=True)` also collapses the tree
-into 4-wide nodes (BVH4: accel/bvh.pack_bvh4_tables) and has those
-queries walk them (`bvh4_kernel`, the JAX package's `RS_BVH_WIDE=1`
-kernel).  The shaded walk is binary either way: the JAX package has no
+(the JAX package's default walk, and the faster one on the card than the
+BVH4's: PERF.md §6) over the node64 rows (accel/bvh.pack_node64_tables:
+one 64-byte fetch per interior node, both children's references in it)
+with `bvh64_kernel`.  `bvh_kernel`, the walk over the fused-children rows
+that it replaced, finds the same hits in the same order; it stays
+launchable (`prepare_launch(..., fused_rows=True)`) for the comparison
+on the card.  `pack_bvh(..., wide=True)` also collapses the tree into
+4-wide nodes (BVH4: accel/bvh.pack_bvh4_tables) and has those queries
+walk them (`bvh4_kernel`, the JAX package's `RS_BVH_WIDE=1` kernel).
+The shaded walk is `bvh_kernel`'s either way: the JAX package has no
 wide one.  A tree of 64 levels or more is walked by the kernels' deep
 instances, whose stack holds 256 nodes (accel/bvh.stack_for; the BVH4
 walk's by stack4_for); a tree too deep for 256 raises
@@ -50,6 +55,7 @@ from ..accel.bvh import (
     build_bvh,
     pack_bvh4_tables,
     pack_bvh_tables,
+    pack_node64_tables,
     pack_prim_tables,
     stack4_for,
     stack_for,
@@ -64,14 +70,16 @@ KERNEL_LEAF = 16  # SceneCtx's kernel leaf size (integrators/common.py in the JA
 ATTR_ROWS = 16  # u, v, uv (2), ns (3), ng (3), dpdu (3), dpdv (3)
 ATTR_ROWS_SMOOTH = 22  # ... and dndu (3), dndv (3)
 
-# Kernel launches, by kernel; the one piece of module state.
-LAUNCHES = {"bvh_closest": 0, "bvh_any": 0, "bvh_shaded": 0, "bvh_shaded_smooth": 0,
-            "bvh4_closest": 0, "bvh4_any": 0}
+# Kernel launches, by kernel; the one piece of module state.  bvh_closest
+# and bvh_any count the comparison's launches of bvh_kernel (fused_rows).
+LAUNCHES = {"bvh64_closest": 0, "bvh64_any": 0, "bvh_shaded": 0, "bvh_shaded_smooth": 0,
+            "bvh4_closest": 0, "bvh4_any": 0, "bvh_closest": 0, "bvh_any": 0}
 
 
 def launch_key(any_hit, wide):
-    """The LAUNCHES key of a closest-hit or any-hit walk."""
-    return ("bvh4_" if wide else "bvh_") + ("any" if any_hit else "closest")
+    """The LAUNCHES key of a closest-hit or any-hit query: the BVH4's walk
+    where `wide`, else bvh64_kernel's."""
+    return ("bvh4_" if wide else "bvh64_") + ("any" if any_hit else "closest")
 
 
 _LIB = None
@@ -92,6 +100,9 @@ class BvhTables(NamedTuple):
     nodes4_i: torch.Tensor = None  # (W, 12) int32: per child slot kind, a, b
     depth4: int = 0  # wide nodes on the longest path
     wide: bool = False  # closest and any hit walk the BVH4
+    # (I, 16) float32 node64 rows, one per interior node (accel/bvh
+    # .pack_node64_tables): the binary closest and any hit walk them
+    nodes64: torch.Tensor = None
 
     @property
     def smooth(self):
@@ -109,9 +120,10 @@ class BvhTables(NamedTuple):
 
 
 def pack_bvh(tri, device, wide=False) -> BvhTables:
-    """The tables of the triangles `tri`.  With `wide`, the BVH4's nodes
-    too, and the closest-hit and any-hit queries walk them (`_replace(wide=
-    False)` of those tables walks the binary tree)."""
+    """The tables of the triangles `tri`, the node64 rows among them.  With
+    `wide`, the BVH4's nodes too, and the closest-hit and any-hit queries
+    walk them (`_replace(wide=False)` of those tables walks the binary
+    tree)."""
     flat = build_bvh(tri, KERNEL_LEAF)
     depth = tree_depth(flat)
     stack_for(depth)  # raises for a tree too deep for every instance
@@ -126,7 +138,7 @@ def pack_bvh(tri, device, wide=False) -> BvhTables:
     tri_f, tri_i = shade_rows(tri)
     prims_f, prims_i, shade_f = pack_prim_tables(tri, flat, tri_f, tri_i[:, 0])
     return BvhTables(t(nodes_f), t(nodes_i), t(prims_f), t(prims_i), t(shade_f), flat.max_leaf,
-                     depth, *wide_rows)
+                     depth, *wide_rows, nodes64=t(pack_node64_tables(nodes_f, nodes_i)))
 
 
 # ---- the plain PyTorch versions ----
@@ -144,7 +156,7 @@ def intersect_bvh_shaded_reference(tables, o, d, t_max, work=None):
     """Plain version of the shaded kernel, with its outputs: (t, idx,
     material, area light, attrs (16, N), or (22, N) on smooth rows);
     misses carry t_max, -1, -1, -1 and zeros."""
-    t, row = traverse.walk(tables._replace(wide=False), o, d, t_max, False, work)  # binary
+    t, row = traverse.walk(tables, o, d, t_max, False, work, fused_rows=True)  # its walk
     valid = row >= 0
     r = row.clamp(min=0)
     g = tables.prims_f[r]
@@ -209,6 +221,10 @@ def load_kernel():
         lib.bvh_shaded_launch.argtypes = [i, p, p, p, p, p, i, i, p, p, p, p, p, p, p, p, i, p]
         lib.bvh4_launch.restype = i
         lib.bvh4_launch.argtypes = [i, i, p, p, p, p, i, p, p, p, p, p, i, p]
+        lib.bvh64_launch.restype = i
+        lib.bvh64_launch.argtypes = [i, i, p, i, p, p, i, p, p, p, p, p, i, p]
+        lib.bvh64_occupancy.restype = None
+        lib.bvh64_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.bvh_error_string.restype = ctypes.c_char_p
         lib.bvh_error_string.argtypes = [i]
         if lib.bvh_deep_stack() != DEEP_STACK:
@@ -217,7 +233,7 @@ def load_kernel():
     return _LIB
 
 
-def _check_tables(tables, dev):
+def _check_tables(tables, dev, fused_rows=False):
     m, p = tables.nodes_f.shape[0], tables.prims_f.shape[0]
     for name, x, dtype, shape in (
         ("nodes_f", tables.nodes_f, torch.float32, (m, 16)),
@@ -241,35 +257,50 @@ def _check_tables(tables, dev):
                     or not x.is_contiguous()):
                 raise ValueError(f"BVH4 table {name} must be contiguous {dtype} {shape} on {dev}")
         tables.stack4  # raises for a wide tree too deep for every instance
+    elif not fused_rows:
+        x = tables.nodes64
+        if (x is None or x.device != dev or x.dtype != torch.float32 or x.dim() != 2
+                or x.shape[1] != 16 or not x.shape[0] < m or not x.is_contiguous()
+                or (x.shape[0] == 0) != (m == 1)):
+            raise ValueError(f"BVH table nodes64 must be contiguous float32 (I, 16) on {dev}, "
+                             f"a row per interior node")
     return p
 
 
-def prepare_launch(tables, o, d, t_max, any_hit):
+def prepare_launch(tables, o, d, t_max, any_hit, fused_rows=False):
     """Check the CUDA inputs, allocate the outputs and return launch(): one
     launch of the closest-hit (any_hit False) or any-hit walk, the BVH4
-    walk where the tables are `wide`, on the current stream returning
-    (t, idx int32); relaunching rewrites them."""
+    walk where the tables are `wide`, else the node64 walk (bvh64_kernel;
+    with `fused_rows`, bvh_kernel's walk over the fused-children rows, for
+    the comparison), on the current stream returning (t, idx int32);
+    relaunching rewrites them."""
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"the BVH kernel runs on cuda tensors, not {dev}")
     o, d, t_max = ray_args(o, d, t_max)
-    p = _check_tables(tables, dev)
+    if fused_rows and tables.wide:
+        raise ValueError("the walk over the fused-children rows is the binary tree's")
+    p = _check_tables(tables, dev, fused_rows)
     n = o.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     idx_out = torch.empty(n, dtype=torch.int32, device=dev)
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    key = launch_key(any_hit, tables.wide)
     if tables.wide:
-        fn, nodes = lib.bvh4_launch, (tables.nodes4_f, tables.nodes4_i)
-        deep = int(tables.stack4 == DEEP_STACK)
+        key, fn = launch_key(any_hit, True), lib.bvh4_launch
+        args = (int(any_hit), int(tables.stack4 == DEEP_STACK), tables.nodes4_f.data_ptr(),
+                tables.nodes4_i.data_ptr())
+    elif fused_rows:
+        key, fn = "bvh_" + ("any" if any_hit else "closest"), lib.bvh_launch
+        args = (int(any_hit), int(tables.stack == DEEP_STACK), tables.nodes_f.data_ptr(),
+                tables.nodes_i.data_ptr())
     else:
-        fn, nodes = lib.bvh_launch, (tables.nodes_f, tables.nodes_i)
-        deep = int(tables.stack == DEEP_STACK)
+        key, fn = launch_key(any_hit, False), lib.bvh64_launch
+        args = (int(any_hit), int(tables.stack == DEEP_STACK), tables.nodes64.data_ptr(),
+                tables.nodes64.shape[0])
 
     def launch():
-        err = fn(int(any_hit), deep, nodes[0].data_ptr(), nodes[1].data_ptr(),
-                 tables.prims_f.data_ptr(), tables.prims_i.data_ptr(), p, o.data_ptr(),
+        err = fn(*args, tables.prims_f.data_ptr(), tables.prims_i.data_ptr(), p, o.data_ptr(),
                  d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(), idx_out.data_ptr(), n, stream)
         if err != 0:
             msg = lib.bvh_error_string(err).decode()
@@ -280,6 +311,15 @@ def prepare_launch(tables, o, d, t_max, any_hit):
     return launch
 
 
+def occupancy():
+    """The last bvh64_kernel launch: its block size, blocks resident per
+    SM, registers per thread and dynamic shared memory bytes (none), as
+    the library chose and measured them."""
+    out = (ctypes.c_int * 4)()
+    load_kernel().bvh64_occupancy(out)
+    return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
+
+
 def prepare_shaded_launch(tables, o, d, t_max):
     """As prepare_launch for the shaded kernel (its smooth instance on
     smooth rows); launch() returns (t, idx, material, area light (int32),
@@ -288,7 +328,7 @@ def prepare_shaded_launch(tables, o, d, t_max):
     if dev.type != "cuda":
         raise ValueError(f"the BVH kernel runs on cuda tensors, not {dev}")
     o, d, t_max = ray_args(o, d, t_max)
-    p = _check_tables(tables, dev)
+    p = _check_tables(tables, dev, fused_rows=True)
     n = o.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     ints = torch.empty((3, n), dtype=torch.int32, device=dev)

@@ -267,7 +267,8 @@ class PackedScene(NamedTuple):
     bssrdf: Optional[BssrdfC] = None  # the subsurface branch's constants
     tex: Optional[TexC] = None  # the textured kd's image (TEX0 block filled)
     # brute force: (C, CHUNK_COLS) float32 chunk rows over the table
-    # (build_tri_chunks, chunk_rows), which K1's walk culls by; None in BVH mode
+    # (build_tri_chunks, chunk_rows), which K1's and K6's walks cull by; None
+    # in BVH mode
     chunks: Optional[torch.Tensor] = None
 
 
@@ -766,8 +767,8 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
                   uv1, uv2, and 1 where the row's material takes kd from the
                   texture, -1 elsewhere), zeros otherwise.
 
-    Brute force: the chunk rows K1's walk culls by (build_tri_chunks over
-    the whole table).  BVH mode (bvh=True, or bvh=None and more than
+    Brute force: the chunk rows K1's and K6's walks cull by
+    (build_tri_chunks over the whole table).  BVH mode (bvh=True, or bvh=None and more than
     TRI_MAX triangles): a SAH BVH with leaves of up to BVH_LEAF
     triangles, its fused-children node tables, and the table's rows
     reordered into leaf order (ops/path_megakernel.pack_scene's
@@ -1664,6 +1665,15 @@ def _chunk_hit(b, ox, oy, oz, ix, iy, iz, t_bound):
     return (tlo <= torch.fmin(thi, t_bound * CULL_SLOP)) & (thi >= 0.0)
 
 
+WARP = 32  # a warp's lanes: consecutive rays of a batch
+
+
+def _warps(x):
+    """x (N,) as (ceil(N / WARP), WARP): the rays of each warp, the last
+    padded with zeros."""
+    return torch.nn.functional.pad(x, (0, -x.numel() % WARP)).view(-1, WARP)
+
+
 def chunk_walk(cols, chunks, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit, work=None):
     """The chunked brute-force walk (csrc/common.cuh ChunkGeometry) of the
     live rays over the (9, T) geometry columns `cols` and the chunk rows
@@ -1674,18 +1684,29 @@ def chunk_walk(cols, chunks, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit, wor
     its first hit in table order (its row; its t is then t_bound).  `work` gets the slab tests
     ("slab") and the rows tested ("mt"), as the kernel makes them, and the
     rows the walk over every row would test ("mt_brute": all of them, or
-    up to the first hit of an any-hit walk, which is the same row)."""
+    up to the first hit of an any-hit walk, which is the same row); and as
+    a warp of WARP consecutive rays runs them, where the rays are the
+    kernel's lanes in order: the chunks whose rows a warp runs because any
+    of its lanes hits the box ("chunk_warp"), their rows ("mt_warp"), and
+    the rows the walk over every row runs a warp, until its last lane is
+    done ("mt_brute_warp")."""
     t_best = t_bound.clone()
     best = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
     inv = tuple(_inv_dir(c) for c in (dx, dy, dz))
     ray = (ox, oy, oz, dx, dy, dz)
     slabs = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
     tests = torch.zeros_like(slabs)
+    runs = torch.zeros(-(-ox.numel() // WARP), dtype=torch.int64, device=ox.device)
+    run_rows = torch.zeros_like(runs)
     for row in chunks.tolist():
         lo, hi = int(row[6]), int(row[7])
         walking = live & (best < 0) if any_hit else live
         slabs = slabs + walking
-        idx = torch.nonzero(walking & _chunk_hit(row, ox, oy, oz, *inv, t_best)).squeeze(1)
+        box = walking & _chunk_hit(row, ox, oy, oz, *inv, t_best)
+        if work is not None:
+            run = _warps(box).any(1)
+            runs, run_rows = runs + run, run_rows + (hi - lo) * run
+        idx = torch.nonzero(box).squeeze(1)
         hit, t = _mt(cols[:, lo:hi], *(c[idx, None] for c in ray))
         hit = hit & (t < t_best[idx, None])
         found = hit.any(1)
@@ -1703,7 +1724,12 @@ def chunk_walk(cols, chunks, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit, wor
     tally(work, "slab", slabs)
     tally(work, "mt", tests)
     n_rows = cols.shape[1]
-    tally(work, "mt_brute", live * (torch.where(best >= 0, best + 1, n_rows) if any_hit else n_rows))
+    brute = live * (torch.where(best >= 0, best + 1, n_rows) if any_hit else n_rows)
+    tally(work, "mt_brute", brute)
+    if work is not None:
+        tally(work, "chunk_warp", runs)
+        tally(work, "mt_warp", run_rows)
+        tally(work, "mt_brute_warp", _warps(brute).amax(1))
     return t_best, best
 
 
@@ -1776,10 +1802,10 @@ class PlainGeometry:
     child (by the sign of the ray's direction on the split axis) last; a
     leaf tests its triangles in table order with strict <.  `work`, when
     given, counts the Moller-Trumbore ("mt") and slab ("slab") tests of
-    the live rays, as the kernel performs them.  With `cull` (K1's
-    plain versions; the other kernels walk every row) brute force takes
-    the chunked walk over `packed.chunks` (chunk_walk), which finds the
-    same hits."""
+    the live rays, as the kernel performs them.  With `cull` (K1's and
+    K6's plain versions; the other kernels walk every row) brute force
+    takes the chunked walk over `packed.chunks` (chunk_walk), which finds
+    the same hits."""
 
     def __init__(self, packed, device, work=None, cull=False):
         self.table = packed.table.to(device)
@@ -1853,7 +1879,8 @@ class PlainGeometry:
     def walk(self, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit):
         """The BVH stack walk of the live rays, bounded by the per-ray
         t_bound: (t, table row), t_bound and -1 where nothing is hit; with
-        any_hit a ray stops at its first hit (its t is then t_bound)."""
+        any_hit a ray stops at its first hit (its row; its t is then
+        t_bound)."""
         t_out = t_bound.clone()
         row_out = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
         idx = torch.nonzero(live).squeeze(1)
@@ -1879,11 +1906,14 @@ class PlainGeometry:
             g = self.geo[torch.where(valid, tri, 0)].unbind(-1)
             hit, t = _mt(g, *(c[:, None] for c in o + d))
             hit = valid & hit & (t < tb[:, None])
-            tally(self.work, "mt", valid)
             found = hit.any(1)
             if any_hit:
-                best = torch.where(found, 1, best)
+                # the kernel stops at the first hit: it tests the leaf up to it
+                first = torch.where(hit, k, k.numel()).min(1).values
+                tally(self.work, "mt", torch.where(found, first + 1, valid.sum(1)))
+                best = torch.where(found, off + first, best)
             else:
+                tally(self.work, "mt", valid)
                 tm = torch.where(hit, t, BIG_T)
                 t_min = tm.min(1).values
                 first = torch.where(hit & (tm == t_min[:, None]), k, k.numel()).min(1).values

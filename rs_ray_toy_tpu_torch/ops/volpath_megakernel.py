@@ -26,11 +26,16 @@ scattering-sampling half of estimate_direct is statically zero there (no
 emissive primitives, no infinite lights), so neither version draws for it.
 
 On a CUDA tensor the wrapper launches csrc/volpath_megakernel.cu (built
-by ops/_build.py) or raises.  On a CPU tensor it runs
+by ops/_build.py) or raises; on a brute-force table the kernel takes the
+chunked walk (csrc/common.cuh ChunkGeometry over the packed scene's
+chunks), which finds the hits of the walk over every row, so the medium's
+draws and the radiance are that walk's (`every_row=True` launches it, for
+the comparison).  On a CPU tensor it runs
 `li_volpath_mega_cam_reference`, the plain PyTorch version: the path
 kernel's raygen and then `vol_bounce_loop_reference` on those rays (on
 given rays `li_volpath_mega_reference`, the loop alone), over
-flat (N,) tensors with masked lanes, with the medium building blocks of
+flat (N,) tensors with masked lanes (the chunked walk, as the kernel, on a
+brute-force table: PlainGeometry with cull), with the medium building blocks of
 scene/medium.py and the light sampling of lights/lights.py.  The grid
 density is read in float32 (the TPU kernel's bf16 hi/lo one-hot taps were
 a TPU device; the JAX package's jnp path is the reference for grid media).
@@ -78,6 +83,10 @@ class PackedVolpath(NamedTuple):
     @property
     def bvh(self):
         return self.scene.bvh
+
+    @property
+    def chunks(self):
+        return self.scene.chunks
 
     @property
     def grid(self):
@@ -190,16 +199,25 @@ def load_kernel():
     """The Volpath kernel's library (built on first use): the camera entry
     `volpath_mega_cam_launch` and the rays-in entry
     `volpath_mega_rays_launch`."""
-    lib = pmk.load_library(
-        "volpath_megakernel", "volpath_mega_cam", (ctypes.POINTER(_VolParams), ctypes.c_void_p)
-    )
+    vol_args = (ctypes.POINTER(_VolParams), ctypes.c_void_p) + pmk._CHUNK_ARGS
+    lib = pmk.load_library("volpath_megakernel", "volpath_mega_cam", vol_args)
     lib.volpath_mega_cam_vol_params_size.restype = ctypes.c_int
     if lib.volpath_mega_cam_vol_params_size() != ctypes.sizeof(_VolParams):
         raise RuntimeError("volpath_megakernel medium block differs from _VolParams")
     lib.volpath_mega_rays_launch.restype = ctypes.c_int
-    lib.volpath_mega_rays_launch.argtypes = pmk.RAYS_LAUNCH_ARGS + [
-        ctypes.POINTER(_VolParams), ctypes.c_void_p]
+    lib.volpath_mega_rays_launch.argtypes = pmk.RAYS_LAUNCH_ARGS + list(vol_args)
+    lib.volpath_mega_occupancy.restype = None
+    lib.volpath_mega_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def occupancy():
+    """The last chunked launch of the Volpath kernel: its block size, blocks
+    resident per SM, registers per thread and dynamic shared memory bytes,
+    as the library chose and measured them (choose_block)."""
+    out = (ctypes.c_int * 4)()
+    load_kernel().volpath_mega_occupancy(out)
+    return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
 
 
 def li_volpath_mega_cam(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
@@ -240,14 +258,28 @@ def _launch_params(packed, cam_packed, sampler, spec, dev):
     return prm, vprm, density
 
 
-def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
+def _chunk_args(packed, dev, every_row):
+    """The chunk rows and their count a launch passes: none for the walk
+    over every row (`every_row`) or a BVH; pmk.chunk_args checks them."""
+    if every_row:
+        if packed.bvh is not None:
+            raise ValueError("the walk over every row is brute force's")
+        return None, 0
+    return pmk.chunk_args(packed.scene, dev)
+
+
+def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec,
+                   every_row=False):
     """Check the CUDA inputs, build the parameter blocks and the outputs,
     and return launch(): one kernel launch on the current stream
-    returning (L, weight).  Relaunching rewrites the same outputs."""
-    prm, vprm, density = _launch_params(packed, cam_packed, sampler, spec, pixel_xy.device)
+    returning (L, weight).  Relaunching rewrites the same outputs.  A
+    brute-force table takes the chunked walk, or with `every_row` the walk
+    over every row."""
+    dev = pixel_xy.device
+    prm, vprm, density = _launch_params(packed, cam_packed, sampler, spec, dev)
     return pmk.launcher(
         load_kernel(), "volpath_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm, LAUNCHES,
-        extra=(ctypes.byref(vprm), density),
+        extra=(ctypes.byref(vprm), density, *_chunk_args(packed, dev, every_row)),
     )
 
 
@@ -265,13 +297,19 @@ def li_volpath_mega(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec):
     return prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec)()
 
 
-def prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec):
+def prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec,
+                        every_row=False):
     """launch() of the rays-in kernel on the current stream, returning L;
     every accepted launch adds one to LAUNCHES["volpath_mega"] (or
-    ["volpath_mega_bvh"])."""
-    prm, vprm, density = _launch_params(packed, None, sampler, spec, o.device)
+    ["volpath_mega_bvh"]); `every_row` as for prepare_launch."""
+    dev = o.device
+    if dev.type != "cuda":
+        raise ValueError(f"the volpath_mega kernel runs on cuda tensors, not {dev}")
+    prm, vprm, density = _launch_params(packed, None, sampler, spec, dev)
     return pmk.rays_launcher(load_kernel(), "volpath_mega", packed.scene, o, d, cam_weight,
-                             pixel_id, s_idx, prm, LAUNCHES, extra=(ctypes.byref(vprm), density))
+                             pixel_id, s_idx, prm, LAUNCHES,
+                             extra=(ctypes.byref(vprm), density,
+                                    *_chunk_args(packed, dev, every_row)))
 
 
 # ---- the plain PyTorch version ----
@@ -312,7 +350,7 @@ def vol_bounce_loop_reference(packed, o, d, active, pid, sid, sampler, spec, wor
     float32 (d unit length), active (N,) bool, pid and sid (N,) integer
     u32 values.  Returns L (N, 3)."""
     dev = o.device
-    geom = pmk.PlainGeometry(packed, dev, work)
+    geom = pmk.PlainGeometry(packed, dev, work, cull=True)
     table = geom.table
     max_lobes = int(table[:, 15].max())
     mediums = {k: (t.to(dev) if isinstance(t, torch.Tensor) else t)

@@ -1,30 +1,62 @@
-"""The path kernel's brute-force instances against another revision's, on
-one NVIDIA GPU.
+"""The redesigned walks against another revision's, on one NVIDIA GPU: the
+path kernel's brute-force instances (K1), the Volpath kernel's (K6) and
+the wavefront loop's BVH closest and any hit (K3).
 
-    python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR [--reps 10] [--out DIR]
+    python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR [--reps 10] [--out DIR] [--only k3,k6]
+    python -m rs_ray_toy_tpu_torch.walk_ab --variant NAME [--only k3] ...
+    python -m rs_ray_toy_tpu_torch.walk_ab --counts [--device cpu] [--scale 4]
 
 DIR is a checkout of the other revision (e.g. `git archive` of the parent
-commit unpacked under build/).  Each tree builds its own kernels; then a
+commit unpacked under build/).  `--variant NAME` puts in its place a copy
+of this tree (under --out) with one of VARIANTS' source edits, the design
+choices of the redesigned walks undone one at a time: `no_prefetch` (K3's
+node64 walk loads each leaf row when it tests it, not the next row's while
+it tests one), `late_ray_loads` (bvh64_kernel loads a ray's origin and
+direction after it tests t_max) and `swap_k6_cap` (K6's chunked walk takes
+the register-capped instance for grid media and the uncapped one for
+homogeneous media, the other way round).  `--only` keeps the cases of
+some kernels: k1, k6, k3.  Each tree builds its own kernels; then a
 worker process runs under each tree in turns (the other revision, this
 tree, this tree, the other revision), so that both meet the card in the
-same state.  A worker renders one sample pass of each case through the
-path kernel's brute-force instances (`li_path_mega_cam`, and
-`li_path_mega` on the pass's camera rays), times each launch with CUDA
-events (median of --reps after one warm-up) and keeps its radiance; the
-cases cover every brute-force instance the fixtures reach (base, spheres,
-environment, Halton, smooth, Halton + smooth, Disney, subsurface,
-subsurface + Halton, textured) and, as a yardstick, the smooth fixture
-through the BVH instances (`pack_scene(..., bvh=True)`).  The last line of
-the output is a JSON object: per case the four times in turn order, the
-other revision's radiance against this tree's (rays whose three channels
-are not all bit-equal; NaN equal to NaN), and this tree's occupancy
-(block size, blocks per SM, registers, shared memory) where it reports one.
-Both workers' records go to --out.
+same state.  A worker times each case's launch with CUDA events (median of
+--reps after one warm-up) and keeps its output.  K1: one sample pass of
+each case through `li_path_mega_cam`, and `li_path_mega` on the pass's
+camera rays; the cases cover every brute-force instance the fixtures reach
+(base, spheres, environment, Halton, smooth, Halton + smooth, Disney,
+subsurface, subsurface + Halton, textured) and, as a yardstick, the smooth
+fixture through the BVH instances (`pack_scene(..., bvh=True)`).  K6: one
+pass of the fog fixture, fog_area and the 16^3 grid fog through
+`li_volpath_mega_cam` at chip_smoke.py's sizes, and the fog's camera rays
+through `li_volpath_mega`.  K3: the loop's closest-hit or any-hit walk
+(`bvh_kernel.prepare_launch` on the loop's tables) on the ao-grid's first
+probe batch, path-grid80's camera and bounce-0 shadow rays, the
+subsurface probe chain's first closest-hit batch on grid-sss-mixed and
+2^17 rays aimed at the 101-level tree.  The last line of the output is a
+JSON object: per case the four times in turn order, the other revision's
+output against this tree's (rays whose radiance channels, or whose t and
+triangle, are not all bit-equal; NaN equal to NaN), the K3 kernel each
+tree launched, and this tree's occupancy (block size, blocks per SM,
+registers, shared memory) where it reports one.  Both workers' records go
+to --out.
+
+`--counts` runs no kernel: the plain versions, on --device, count what
+the redesigned walks do.  K6 (fog, fog_area, grid_fog, their films
+divided by --scale on each side): per ray the chunked walk's MT and chunk
+box tests and the MT tests of the walk over every row, and per warp of 32
+consecutive rays (the kernel's lanes) the chunks whose rows it runs and
+those rows against the rows the walk over every row runs it (chunk_walk's
+"chunk_warp", "mt_warp", "mt_brute_warp").  K3, on a CUDA device only
+(the first passes at full size): the node64 walk's steps a ray (interior
+rows fetched and leaves tested; accel/traverse.step_stats: mean, 99th
+percentile, the warps' longest walks) on the ao-grid's first probe batch
+(any hit, and closest hit on the same rays) and on the probe chain's first
+batch (closest hit).  The last line is a JSON object of those numbers.
 """
 
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,15 +79,179 @@ CASES = {
     "textured": ("scene_textured.json", False, False, False),
     "smooth_bvh": ("scene_smooth.json", False, True, True),
 }
+VOL_CASES = ("fog", "fog_area", "grid_fog")  # K6, the fog's rays-in twin too
+# K3: case -> (first-pass batch, any hit)
+BVH_CASES = {
+    "ao_grid_any": ("ao_grid", True),
+    "ao_grid_closest": ("ao_grid", False),
+    "grid80_closest": ("grid80_camera", False),
+    "grid80_any": ("grid80_shadow", True),
+    "probe_chain_closest": ("probe_chain", False),
+    "deep_closest": ("deep", False),
+    "deep_any": ("deep", True),
+}
+GROUPS = ("k1", "k6", "k3")  # --only: CASES, VOL_CASES, BVH_CASES
+_LEAF_LOOP = """        const float4* row = prims + 3 * (size_t)first;
+        float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
+        for (int j = first; j < end; ++j) {
+          float4 na = a, nb = b, nc = c;
+          if (j + 1 < end) {
+            row += 3;
+            na = __ldg(row), nb = __ldg(row + 1), nc = __ldg(row + 2);
+          }
+"""
+_RAY_LOADS = """  // the ray's loads issued together, ahead of the test of t_max
+  const float tm = __ldg(t_max + i);
+  const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
+  const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1), dz = __ldg(d + 3 * i + 2);
+  float t_bound = tm;
+  int best = -1;
+  if (tm > 0.0f) {
+"""
+_K6_CAP = """    const auto kernel = vol->grid ? volpath_mega_kernel<false, kRaysIn, true>
+                                  : volpath_mega_kernel<false, kRaysIn, true, true>;"""
+# --variant: (file under the package, text found there once, its replacement)
+VARIANTS = {
+    "no_prefetch": [
+        ("csrc/common.cuh", _LEAF_LOOP, """        for (int j = first; j < end; ++j) {
+          const float4* row = prims + 3 * (size_t)j;
+          const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
+"""),
+        ("csrc/common.cuh", "          a = na, b = nb, c = nc;\n", ""),
+    ],
+    "late_ray_loads": [
+        ("csrc/bvh_kernel.cu", _RAY_LOADS, """  const float tm = __ldg(t_max + i);
+  float t_bound = tm;
+  int best = -1;
+  if (tm > 0.0f) {
+    const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
+    const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1), dz = __ldg(d + 3 * i + 2);
+"""),
+    ],
+    "swap_k6_cap": [
+        ("csrc/volpath_megakernel.cu", _K6_CAP,
+         """    const auto kernel = vol->grid ? volpath_mega_kernel<false, kRaysIn, true, true>
+                                  : volpath_mega_kernel<false, kRaysIn, true>;"""),
+    ],
+}
 
 
-def worker(out, reps):
-    """Every case through the `rs_ray_toy_tpu_torch` on sys.path: writes
-    <out>/<case>.pt (radiance) and <out>/times.json."""
+def aimed_rays(n, target, spread, dev, seed=9):
+    """n seeded rays from the origin at points within `spread` of `target`
+    on each axis, unbounded: (o, d, t_max) on `dev`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    aim = np.asarray(target) + rng.uniform(-spread, spread, (n, 3))
+    d = (aim / np.linalg.norm(aim, axis=-1, keepdims=True)).astype(np.float32)
+    return (torch.zeros((n, 3), device=dev), torch.as_tensor(d, device=dev),
+            torch.full((n,), torch.inf, device=dev))
+
+
+def recording_ctx(ctx):
+    """A copy of the wavefront loop's SceneCtx `ctx` that keeps the inputs
+    of the first call of each of the loop's queries, as (o, d, t_max) in
+    its `batches` under "shaded" and "occluded" and, over a BVH, "closest"
+    (the subsurface probe chain's re-casts)."""
+    base = type(ctx)
+
+    class RecordingCtx(base):
+        def intersect_shaded(self, o, d, t_max):
+            self.batches.setdefault("shaded", (o, d, t_max))
+            return super().intersect_shaded(o, d, t_max)
+
+        def occluded(self, o, d, t_max):
+            self.batches.setdefault("occluded", (o, d, t_max))
+            return super().occluded(o, d, t_max)
+
+        def intersect(self, o, d, t_max):
+            if self.bvh is not None:
+                self.batches.setdefault("closest", (o, d, t_max))
+            return super().intersect(o, d, t_max)
+
+    rec = RecordingCtx(ctx.tri_packed, ctx.shade, ctx.mat_rows, ctx.lights, ctx.bvh, ctx.bssrdf)
+    rec.batches = {}
+    return rec
+
+
+def first_pass_batches(job, dev, spp, wide=False):
+    """The first pass of the wavefront render of `job` at `spp` samples per
+    pixel, run again with a recording context (recording_ctx): the
+    context and its first batches.  With `wide` its closest-hit and any-hit
+    queries walk the BVH4 (pack_bvh(..., wide=True)), not the loop's
+    binary tree."""
     import torch
 
     from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+    from rs_ray_toy_tpu_torch.integrators.ao import li_ao
+    from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
+    from rs_ray_toy_tpu_torch.integrators.path import li_path
+    from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
+    from rs_ray_toy_tpu_torch.render import camera_rays, make_sampler, sample_batch
+
+    sampler = make_sampler(job)
+    sampler.xs, sampler.ys = (2, 4) if spp == 8 else (4, 4)
+    sampler.spp = spp
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    ctx = recording_ctx(SceneCtx.from_scene(job.scene, dev))
+    if wide:
+        ctx.bvh = bk.pack_bvh(job.scene.triangles, dev, wide=True)
+    pxy, pid, soff = sample_batch(job.film, spp, dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    li = li_ao if job.integrator.kind == "ao" else li_path
+    li(ctx, o, d, w, sampler, pid, soff, job.integrator)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return ctx, ctx.batches
+
+
+def vol_scene(case, out):
+    """The K6 case's scene as chip_smoke.py's phase 5 writes it, under out."""
+    from rs_ray_toy_tpu_torch.scene.gen import THIN_FOG, write_fog_scene, write_grid_fog_scene
+
+    if case == "fog":
+        return str(SAMPLES / "scene_fog.json")
+    if case == "fog_area":
+        return write_fog_scene(str(out / "fog_area"), area_light=True,
+                               base=str(SAMPLES / "scene_fog.json"), medium=THIN_FOG, xres=160,
+                               yres=90)
+    return write_grid_fog_scene(str(out / "grid_fog"), n=16, sigma_scale=0.5)
+
+
+def bvh_batches(out, dev):
+    """{batch: (SceneCtx, (o, d, t_max))} of the K3 cases, at chip_smoke.py's
+    sizes (phases 7b, 7c, 11e and 12e)."""
+    from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
+    from rs_ray_toy_tpu_torch.scene.gen import write_deep_bvh_scene, write_grid_scene
+    from rs_ray_toy_tpu_torch.scene.loader import load_scene
+
+    grid_ao = write_grid_scene(str(out / "grid_ao"), base=str(SAMPLES / "scene_ao.json"),
+                               integrator="AO")
+    ctx, b = first_pass_batches(load_scene(grid_ao), dev, 8)
+    batches = {"ao_grid": (ctx, b["occluded"])}
+    grid80 = write_grid_scene(str(out / "grid80_path"), ny=80, nz=80, integrator="Path")
+    ctx, b = first_pass_batches(load_scene(grid80), dev, 8)
+    batches.update(grid80_camera=(ctx, b["shaded"]), grid80_shadow=(ctx, b["occluded"]))
+    sss = write_grid_scene(str(out / "grid_sss_mixed"), base=str(SAMPLES / "scene_sss_mixed.json"))
+    ctx, b = first_pass_batches(load_scene(sss), dev, 16)
+    batches["probe_chain"] = (ctx, b["closest"])
+    deep = write_deep_bvh_scene(str(out / "deep_bvh"), integrator="Path", n_bulk=2000, xres=160,
+                                yres=90)
+    ctx = SceneCtx.from_scene(load_scene(deep).scene, dev)
+    batches["deep"] = (ctx, aimed_rays(1 << 17, (35.0, 0.0, 0.0), 1.0, dev))
+    return batches
+
+
+def worker(out, reps, only):
+    """Every case of the groups `only` through the `rs_ray_toy_tpu_torch` on
+    sys.path: writes <out>/<case>.pt (outputs) and <out>/times.json."""
+    import torch
+
+    from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+    from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
     from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+    from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
     from rs_ray_toy_tpu_torch.render import camera_rays, make_sampler, pass_spp, sample_batch
     from rs_ray_toy_tpu_torch.scene.gen import write_variant
     from rs_ray_toy_tpu_torch.scene.loader import load_scene
@@ -72,35 +268,134 @@ def worker(out, reps):
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def occupancy(mod):
+        return mod.occupancy() if hasattr(mod, "occupancy") else None
+
     dev = torch.device("cuda")
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
     record = {}
-    for case, (scene, halton, bvh, rays) in CASES.items():
-        path = SAMPLES / scene
-        if halton:
-            path = write_variant(str(path), str(out / "scenes" / case), 640, 360, HALTON6)
-        job = load_scene(str(path))
-        packed = pmk.pack_scene(job.scene, dev, bvh=bvh or None)
+
+    def camera_pass(case, mod, packed, job, rays):
         cam = RealisticCamera(job.camera, job.film, device=dev)
         sampler = make_sampler(job)
         pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
-        args = (packed, pmk.pack_camera(cam), pxy, pid, soff, sampler, job.integrator)
-        launch = pmk.prepare_launch(*args)
+        launch = mod.prepare_launch(packed, pmk.pack_camera(cam), pxy, pid, soff, sampler,
+                                    job.integrator)
         rec = {"rays": pxy.shape[0], "ms": timed_ms(launch)}
-        if hasattr(pmk, "occupancy") and not bvh:
-            rec["occupancy"] = pmk.occupancy()
+        if packed.bvh is None:
+            rec["occupancy"] = occupancy(mod)
         l, _ = launch()
         saved = {"cam": l.cpu()}
         if rays:
             o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
-            launch = pmk.prepare_rays_launch(packed, o, d, w, pid, soff, sampler, job.integrator)
+            launch = mod.prepare_rays_launch(packed, o, d, w, pid, soff, sampler, job.integrator)
             rec["rays_ms"] = timed_ms(launch)
             saved["rays"] = launch().cpu()
         torch.save(saved, out / f"{case}.pt")
         record[case] = rec
         print(f"{case}: {rec}", flush=True)
+
+    for case, (scene, halton, bvh, rays) in (CASES.items() if "k1" in only else ()):
+        path = SAMPLES / scene
+        if halton:
+            path = write_variant(str(path), str(out / "scenes" / case), 640, 360, HALTON6)
+        job = load_scene(str(path))
+        camera_pass(case, pmk, pmk.pack_scene(job.scene, dev, bvh=bvh or None), job, rays)
+    for case in (VOL_CASES if "k6" in only else ()):
+        job = load_scene(vol_scene(case, out / "scenes"))
+        camera_pass(case, vmk, vmk.pack_volpath(job.scene, dev), job, case == "fog")
+    batches = bvh_batches(out / "scenes", dev) if "k3" in only else {}
+    for case, (batch, any_hit) in (BVH_CASES.items() if "k3" in only else ()):
+        ctx, (o, d, t_max) = batches[batch]
+        launch = bk.prepare_launch(ctx.bvh, o, d, t_max, any_hit)
+        before = dict(bk.LAUNCHES)
+        rec = {"rays": o.shape[0], "ms": timed_ms(launch),
+               "walk": next(k for k, v in bk.LAUNCHES.items() if v != before[k])}
+        if hasattr(bk, "occupancy"):
+            rec["occupancy"] = bk.occupancy()
+        t, idx = launch()
+        torch.save({"hit": torch.stack([t, idx.float()], -1).cpu()}, out / f"{case}.pt")
+        record[case] = rec
+        print(f"{case}: {rec}", flush=True)
     (out / "times.json").write_text(json.dumps(record))
+
+
+def chunk_counts(work, n):
+    """The chunked walk's counts of a plain run over n consecutive rays
+    (chunk_walk's keys): per ray its MT and chunk box tests and the MT tests
+    of the walk over every row; per warp the chunks it runs, their rows and
+    the rows of the walk over every row; and the share of those rows the
+    chunked walk runs."""
+    from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+
+    w = {k: float(v) for k, v in work.items()}
+    warps = -(-n // pmk.WARP)
+    return dict(rays=n, mt_per_ray=w["mt"] / n, slab_per_ray=w["slab"] / n,
+                mt_brute_per_ray=w["mt_brute"] / n, chunk_warp_per_warp=w["chunk_warp"] / warps,
+                mt_warp_per_warp=w["mt_warp"] / warps,
+                mt_brute_warp_per_warp=w["mt_brute_warp"] / warps,
+                warp_row_share=w["mt_warp"] / w["mt_brute_warp"])
+
+
+def counts(dev, scale):
+    """The plain versions' counts of the redesigned walks (the module
+    docstring's --counts); returns them as a dict."""
+    import torch
+
+    from rs_ray_toy_tpu_torch.accel import traverse
+    from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+    from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+    from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
+    from rs_ray_toy_tpu_torch.render import make_sampler, pass_spp, sample_batch
+    from rs_ray_toy_tpu_torch.scene.loader import load_scene
+
+    out = ROOT / "build" / "walk_counts"
+    found = {}
+    for case in VOL_CASES:
+        job = load_scene(vol_scene(case, out))
+        job.film.xres, job.film.yres = job.film.xres // scale, job.film.yres // scale
+        packed = vmk.pack_volpath(job.scene, dev)
+        cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+        sampler = make_sampler(job)
+        pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+        work = {}
+        vmk.li_volpath_mega_cam_reference(packed, cam, pxy, pid, soff, sampler, job.integrator,
+                                          work=work)
+        found[case] = dict(film=f"{job.film.xres}x{job.film.yres}x{pass_spp(sampler.spp)}",
+                           chunks=int(packed.chunks.shape[0]), rows=int(packed.table.shape[0]),
+                           **chunk_counts(work, pxy.shape[0]))
+        print(f"{case}: {found[case]}", flush=True)
+    if torch.device(dev).type == "cuda":
+        batches = bvh_batches(out, dev)
+        for case, (batch, any_hit) in BVH_CASES.items():
+            if batch not in ("ao_grid", "probe_chain"):
+                continue
+            ctx, (o, d, t_max) = batches[batch]
+            work = {}
+            _, _, steps = traverse.walk64(ctx.bvh, o, d, t_max, any_hit, work)
+            found[case] = dict(rays=o.shape[0], **traverse.step_stats(steps, t_max > 0.0),
+                               nodes_per_ray=float(work["node"]) / o.shape[0],
+                               mt_per_ray=float(work["mt"]) / o.shape[0])
+            print(f"{case}: {found[case]}", flush=True)
+    return found
+
+
+def variant_tree(name, out):
+    """A copy of this tree's package, csrc/ and samples/ under `out` with the
+    source edits of VARIANTS[name]."""
+    tree = out / f"variant_{name}"
+    shutil.rmtree(tree, ignore_errors=True)
+    skip = shutil.ignore_patterns("__pycache__", "*.so")
+    for part in ("rs_ray_toy_tpu_torch", "csrc", "samples"):
+        shutil.copytree(ROOT / part, tree / part, ignore=skip)
+    for rel, old, new in VARIANTS[name]:
+        path = tree / "rs_ray_toy_tpu_torch" / rel
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"walk_ab: variant {name}: the text to edit is not once in {rel}")
+        path.write_text(text.replace(old, new))
+    return tree
 
 
 def run_tree(tree, args):
@@ -111,37 +406,57 @@ def run_tree(tree, args):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout of the other revision")
+    ap.add_argument("--variant", choices=sorted(VARIANTS),
+                    help="this tree with one source edit in the other revision's place")
+    ap.add_argument("--only", default=",".join(GROUPS), help="the kernels' cases: k1,k6,k3")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=str(ROOT / "build" / "walk_ab"))
+    ap.add_argument("--counts", action="store_true", help="count with the plain versions")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--scale", type=int, default=1, help="--counts: K6's films divided by this")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
+    only = a.only.split(",")
+    if not set(only) <= set(GROUPS):
+        ap.error(f"--only takes some of {GROUPS}")
     if a.worker:
-        return worker(a.worker, a.reps)
+        return worker(a.worker, a.reps, only)
+    if a.counts:
+        print(json.dumps(counts(a.device, a.scale)))
+        return None
     import torch
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    trees = {"parent": Path(a.parent).resolve(), "change": ROOT}
+    out = Path(a.out).resolve()  # the workers run in their trees
+    if (a.parent is None) == (a.variant is None):
+        ap.error("give --parent or --variant")
+    other = variant_tree(a.variant, out) if a.variant else Path(a.parent).resolve()
+    trees = {"parent": other, "change": ROOT}
     build = [sys.executable, "-c", "from rs_ray_toy_tpu_torch.ops import _build; "
-             "_build.build('path_megakernel')"]
+             "[_build.build(k) for k in ('path_megakernel', 'volpath_megakernel', "
+             "'bvh_kernel')]"]
     procs = [subprocess.Popen(build, cwd=t, env=dict(os.environ, PYTHONPATH=str(t)))
              for t in trees.values()]
     if any(p.wait() for p in procs):
         raise SystemExit("walk_ab: a build failed")
-    out = Path(a.out).resolve()  # the workers run in their trees
     turns = [("parent", 0), ("change", 0), ("change", 1), ("parent", 1)]
     for name, k in turns:
         run_tree(trees[name], [sys.executable, str(Path(__file__).resolve()), "--worker",
-                               str(out / f"{name}{k}"), "--reps", str(a.reps)])
+                               str(out / f"{name}{k}"), "--reps", str(a.reps),
+                               "--only", a.only])
     times = {f"{n}{k}": json.loads((out / f"{n}{k}" / "times.json").read_text())
              for n, k in turns}
     summary = {}
-    for case in CASES:
+    groups = dict(zip(GROUPS, (CASES, VOL_CASES, BVH_CASES)))
+    for case in (c for g in only for c in groups[g]):
         ref = torch.load(out / "parent0" / f"{case}.pt")
         new = torch.load(out / "change0" / f"{case}.pt")
         row = {"rays": times["change0"][case]["rays"],
                "ms": [times[f"{n}{k}"][case]["ms"] for n, k in turns],
                "occupancy": times["change0"][case].get("occupancy")}
+        if case in BVH_CASES:
+            row["walks"] = [times[f"{n}0"][case]["walk"] for n in ("parent", "change")]
         for key in ref:
             same = (ref[key] == new[key]) | (ref[key].isnan() & new[key].isnan())
             row[f"{key}_rays_apart"] = int((~same.all(-1)).sum())

@@ -11,7 +11,11 @@ about half of the hits, and t_max = 0 (dead lanes) on every third ray.
 Bars: hit or miss (any hit: occluded) equal on every ray, and where both
 hit the triangle equal and t within rtol 1e-6; shaded attributes within
 rtol 1e-5 / atol 1e-6 (uv within atol 1e-4, see the test), material and
-area light equal.
+area light equal.  The closest-hit and any-hit queries walk the node64 rows
+(accel/bvh.pack_node64_tables, the loop's walk, built from the port's and
+from the JAX package's binary tables); the walk over the fused-children
+rows (bvh_kernel's) finds the same hits: each other's t and row, any
+hit's too, bit for bit.
 """
 
 import jax.numpy as jnp
@@ -30,6 +34,7 @@ from rs_ray_toy_tpu.ops.bvh_pallas import (
 from rs_ray_toy_tpu.scene.loader import load_scene as jax_load_scene
 from rs_ray_toy_tpu.scene.types import empty_spheres
 from rs_ray_toy_tpu_torch.accel import bvh as bvh_mod
+from rs_ray_toy_tpu_torch.accel import traverse
 from rs_ray_toy_tpu_torch.interop import from_jax_scene_ctx
 from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
 from rs_ray_toy_tpu_torch.scene.gen import write_grid_scene
@@ -74,12 +79,21 @@ def test_tables_equal_jax(grid):
                                atol=1e-7)
 
 
-def test_closest_and_any_hit_match_jax_kernel(grid):
+@pytest.fixture(scope="module")
+def jax_hits(grid):
+    """The JAX kernels' closest hit (t, idx, valid) and occlusion on the
+    seed-5 rays, and the rays."""
     _, jctx, jtab = grid
-    ctx = from_jax_scene_ctx(jctx, "cpu", jtab)
     o, d, t_max = _rays(5)
     jo, jd, jt = jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max)
-    t_j, idx_j, valid_j = (np.asarray(x) for x in intersect_bvh_pallas(jtab, jo, jd, jt, interpret=True))
+    hits = tuple(np.asarray(x) for x in intersect_bvh_pallas(jtab, jo, jd, jt, interpret=True))
+    return (o, d, t_max), hits, np.asarray(occluded_bvh_pallas(jtab, jo, jd, jt, interpret=True))
+
+
+def test_closest_and_any_hit_match_jax_kernel(grid, jax_hits):
+    _, jctx, jtab = grid
+    ctx = from_jax_scene_ctx(jctx, "cpu", jtab)
+    (o, d, t_max), (t_j, idx_j, valid_j), occ_j = jax_hits
     t, idx, valid = bk.intersect_bvh(ctx.bvh, t32(o), t32(d), t32(t_max))
     assert 300 < valid_j.sum() < 1000
     assert not valid_j[t_max == 0].any()
@@ -87,9 +101,36 @@ def test_closest_and_any_hit_match_jax_kernel(grid):
     np.testing.assert_array_equal(idx.numpy()[valid_j], idx_j[valid_j])
     np.testing.assert_allclose(t.numpy()[valid_j], t_j[valid_j], rtol=1e-6)
     np.testing.assert_array_equal(t.numpy()[~valid_j], t_max[~valid_j])
-    occ_j = np.asarray(occluded_bvh_pallas(jtab, jo, jd, jt, interpret=True))
     np.testing.assert_array_equal(bk.occluded_bvh(ctx.bvh, t32(o), t32(d), t32(t_max)).numpy(), occ_j)
     np.testing.assert_array_equal(occ_j, valid_j)
+
+
+def test_both_walks_match_jax_kernel(grid, jax_hits):
+    """The node64 walk (bvh64_kernel's plain version, the loop's) and the
+    walk over the fused-children rows (bvh_kernel's), on the port's own
+    tables and on the JAX package's: the JAX kernel's hits, and each
+    other's t, row and any hit's row bit for bit."""
+    path, jctx, jtab = grid
+    (o, d, t_max), (t_j, idx_j, valid_j), occ_j = jax_hits
+    ray = (t32(o), t32(d), t32(t_max))
+    for tables in (bk.pack_bvh(load_scene(path).scene.triangles, "cpu"),
+                   from_jax_scene_ctx(jctx, "cpu", jtab).bvh):
+        assert tables.nodes64 is not None
+        for fused_rows in (False, True):
+            row = traverse.walk(tables, *ray, False, fused_rows=fused_rows)[1]
+            valid = row >= 0
+            np.testing.assert_array_equal(valid.numpy(), valid_j)
+            idx = tables.prims_i[row.clamp(min=0), 0].numpy()
+            np.testing.assert_array_equal(idx[valid_j], idx_j[valid_j])
+            occ = traverse.walk(tables, *ray, True, fused_rows=fused_rows)[1] >= 0
+            np.testing.assert_array_equal(occ.numpy(), occ_j)
+        t, idx, valid = bk.intersect_bvh(tables, *ray)
+        np.testing.assert_allclose(t.numpy()[valid_j], t_j[valid_j], rtol=1e-6)
+        np.testing.assert_array_equal(bk.occluded_bvh(tables, *ray).numpy(), occ_j)
+        for any_hit in (False, True):
+            t_n, row_n = traverse.walk(tables, *ray, any_hit)
+            t_b, row_b = traverse.walk(tables, *ray, any_hit, fused_rows=True)
+            assert torch.equal(row_n, row_b) and torch.equal(t_n, t_b)
 
 
 def test_shaded_hit_matches_jax_kernel(grid):

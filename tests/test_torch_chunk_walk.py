@@ -21,8 +21,14 @@ kernels make one by one (--fmad=false).  The plain
 mirror of the kernels' division-free early reject (`mt_reject`) rejects
 nothing the exact test accepts on seeded near-edge rays (u, v and u + v
 at 0 and 1, t at TRI_EPS and at the bound) and on rays whose u underflows
-to -0.0.  (tests/test_torch_cuda.py holds K4's chunked kernel to its
-walk over every row on the card.)
+to -0.0.  The Volpath kernel's plain version on its chunked walk (its
+brute-force instances' since they took it) gives the radiance and camera
+weights of the same version over every row, bit for bit, on the fog
+fixture, fog_area and a grid plume at 64x36 (grid 64x32) x 4 spp, with
+fewer Moller-Trumbore tests, and counts the chunks and rows each warp of 32
+consecutive rays runs (tests/test_torch_volpath.py holds it to the JAX
+Volpath kernel).  (tests/test_torch_cuda.py holds K4's and the Volpath
+kernel's chunked instances to their walks over every row on the card.)
 """
 
 from functools import lru_cache
@@ -37,8 +43,13 @@ import torch
 from rs_ray_toy_tpu.integrators.common import SceneCtx as JaxSceneCtx
 from rs_ray_toy_tpu.ops.path_megakernel import _build_tri_chunks, _closest_hit, _occluded
 from rs_ray_toy_tpu.scene.loader import load_scene as jax_load_scene
+from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
+from rs_ray_toy_tpu_torch.render import make_sampler, sample_batch
+from rs_ray_toy_tpu_torch.scene.gen import THIN_FOG, write_fog_scene, write_grid_fog_scene
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
+from rs_ray_toy_tpu_torch.walk_ab import chunk_counts
 
 SAMPLES = Path(__file__).resolve().parents[1] / "samples"
 
@@ -226,3 +237,33 @@ def test_reject_keeps_every_hit():
     assert bool(hit.all()) and bool((t == 2.0).all())
     rejected = pmk.mt_reject(g, *ray, torch.full((k,), pmk.BIG_T))
     assert not bool(rejected.any())
+
+
+@pytest.mark.parametrize("kind", ["fog", "fog_area", "grid_fog"])
+def test_volpath_chunked_walk_equals_every_row(tmp_path, kind):
+    if kind == "grid_fog":
+        path = write_grid_fog_scene(str(tmp_path), n=8, xres=64, yres=32, max_depth=3,
+                                    sigma_scale=0.6)
+    else:
+        path = write_fog_scene(str(tmp_path), area_light=kind == "fog_area",
+                               base=str(SAMPLES / "scene_fog.json"), medium=THIN_FOG, xres=64,
+                               yres=36)
+    job = load_scene(path)
+    packed = vmk.pack_volpath(job.scene, "cpu")
+    assert packed.bvh is None and packed.chunks.shape[0] > 1
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device="cpu",
+                                          pupil_samples=1 << 12))
+    pxy, pid, soff = sample_batch(job.film, 4, "cpu")
+    args = (cam, pxy, pid, soff, make_sampler(job), job.integrator)
+    work, work_every = {}, {}
+    l, w = vmk.li_volpath_mega_cam_reference(packed, *args, work=work)
+    every = packed._replace(scene=packed.scene._replace(chunks=None))
+    l_e, w_e = vmk.li_volpath_mega_cam_reference(every, *args, work=work_every)
+    assert float(l.max()) > 0
+    assert torch.equal(l, l_e) and torch.equal(w, w_e)
+    # the walk over every row makes the tests the chunked walk counts for it
+    assert int(work["mt_brute"]) == int(work_every["mt"]) > 10 * int(work["mt"])
+    found = chunk_counts(work, pxy.shape[0])
+    assert 0 < found["mt_warp_per_warp"] < found["mt_brute_warp_per_warp"]
+    assert found["mt_per_ray"] <= found["mt_warp_per_warp"]
+    assert 0 < found["warp_row_share"] < 1

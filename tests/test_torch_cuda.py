@@ -9,8 +9,9 @@ the path kernel's textured instances; K3's deep instances and a mesh past
 120,000 triangles; the rays-in instances of the direct and Volpath kernels
 and of the SPPM camera walk, and the wavefront Debug / DirectLighting
 loop on the card against the CPU; the SPPM kernels' wide instances on
-glass and Disney materials and K3's BVH4 walk) against their plain
-PyTorch versions.
+glass and Disney materials and K3's BVH4 walk; K3's node64 walk against
+its plain version and bvh_kernel, and the Volpath kernel's chunked walk
+against its walk over every row) against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -26,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from rs_ray_toy_tpu_torch.accel import traverse
+from rs_ray_toy_tpu_torch.accel.bvh import pack_node64_tables
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.integrators import sppm
 from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
@@ -37,7 +40,7 @@ from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
 from rs_ray_toy_tpu_torch.ops import texture as tex_ops
 from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
-from rs_ray_toy_tpu_torch.render import make_sampler, render_job, sample_batch
+from rs_ray_toy_tpu_torch.render import camera_rays, make_sampler, render_job, sample_batch
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.gen import (
     THIN_FOG,
@@ -522,7 +525,7 @@ def test_wavefront_renders_launch_the_intersection_kernels(tmp_path, monkeypatch
     assert res["render_path"] == "wavefront" and res["bvh"] and dict(pmk.LAUNCHES) == before
     depth = grid.integrator.max_depth
     assert res["launches"] == {"intersect": 0, **{k: 0 for k in bk.LAUNCHES},
-                               "bvh_any": depth, "bvh_shaded": depth}
+                               "bvh64_any": depth, "bvh_shaded": depth}
     assert torch.isfinite(res["rgb_srgb_input"]).all() and float(res["rgb_srgb_input"].max()) > 0
 
 
@@ -814,10 +817,11 @@ def test_subsurface_grid_wavefront_matches_cpu(tmp_path):
     o, d, w = camera_rays(camera, sampler, pxy, pid, soff)
     ctx = SceneCtx.from_scene(job.scene, dev)
     assert ctx.bvh is not None and ctx.bssrdf is not None
-    before = bk.LAUNCHES["bvh_closest"]
+    closest = bk.launch_key(False, False)
+    before = bk.LAUNCHES[closest]
     l = li_path(ctx, o, d, w, sampler, pid, soff, job.integrator)
     torch.cuda.synchronize()
-    assert bk.LAUNCHES["bvh_closest"] > before
+    assert bk.LAUNCHES[closest] > before
     cpu = torch.device("cpu")
     l_ref = li_path(SceneCtx.from_scene(job.scene, cpu), o.cpu(), d.cpu(), w.cpu(), sampler,
                     pid.cpu(), soff.cpu(), job.integrator)
@@ -952,6 +956,98 @@ def test_bvh4_kernels_match_plain_walk_and_binary_kernels(tmp_path, scene):
     t_b, idx_b, valid_b = bk.intersect_bvh(binary, o, d, t_max)
     assert torch.equal(valid, valid_b) and torch.equal(idx, idx_b) and torch.equal(t, t_b)
     assert torch.equal(occ, bk.occluded_bvh(binary, o, d, t_max))
+
+
+@pytest.mark.parametrize("scene", ["grid40", "deep"])
+def test_node64_walk_matches_plain_walk_and_bvh_kernel(tmp_path, scene):
+    """bvh64_kernel (closest and any hit; the deep instance on the 97-level
+    tree) on 2^16 seeded rays: t and triangle (any hit: the triangle it
+    stopped at) equal to the plain node64 walk's and bvh_kernel's on every
+    ray."""
+    dev = _device()
+    path = (write_deep_bvh_scene(str(tmp_path)) if scene == "deep"
+            else write_grid_scene(str(tmp_path), ny=40, nz=40))
+    tables = bk.pack_bvh(load_scene(path).scene.triangles, dev)
+    yz = 1.5 if scene == "deep" else 6.0
+    o, d, t_max = _aimed_rays(1 << 16, 5, dev, x=(34.5, 36.0), y=(-yz, yz), z=(-yz, yz))
+    for any_hit in (False, True):
+        t_r, row_r, _ = traverse.walk64(tables, o, d, t_max, any_hit)
+        idx_r = torch.where(row_r >= 0, tables.prims_i[row_r.clamp(min=0), 0].long(), -1)
+        assert int((idx_r >= 0).sum()) > 1000
+        t_o, idx_o = (x.clone() for x in bk.prepare_launch(tables, o, d, t_max, any_hit,
+                                                             fused_rows=True)())
+        assert torch.equal(idx_o.long(), idx_r) and torch.equal(t_o, t_r)
+        before = dict(bk.LAUNCHES)
+        t, idx = bk.prepare_launch(tables, o, d, t_max, any_hit)()
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in bk.LAUNCHES.items() if v != before[k]} == {
+            bk.launch_key(any_hit, False): 1}
+        assert torch.equal(idx.long(), idx_r) and torch.equal(t, t_r)
+        occ = bk.occupancy()
+        assert occ["blocks_per_sm"] > 0 and occ["block"] % 32 == 0 and occ["smem"] == 0
+
+
+def test_node64_walk_leaves_past_row_2_23(tmp_path):
+    """bvh64_kernel on a root and two leaves of 16 of the grid's rows at
+    rows 2^23 + 3 and 2^23 + 40 of a table of 2^23 + 64 rows, 2^16 rays
+    aimed at them: t and triangle equal to the plain node64 walk's on
+    every ray, closest and any hit."""
+    dev = _device()
+    grid = bk.pack_bvh(load_scene(write_grid_scene(str(tmp_path), ny=6, nz=6)).scene.triangles,
+                       dev)
+    geo = grid.prims_f[:32]
+    corners = torch.cat([geo[:, 0:3], geo[:, 0:3] + geo[:, 3:6], geo[:, 0:3] + geo[:, 6:9]])
+    box = torch.cat([corners.amin(0) - 1e-3, corners.amax(0) + 1e-3])
+    shift, far, p = (1 << 23) + 3, (1 << 23) + 40, (1 << 23) + 64
+    prims_f = torch.zeros((p, 12), device=dev)
+    prims_i = torch.zeros((p, 4), dtype=torch.int32, device=dev)
+    prims_f[shift:shift + 16], prims_f[far:far + 16] = geo[:16], geo[16:32]
+    prims_i[shift:shift + 16], prims_i[far:far + 16] = grid.prims_i[:16], grid.prims_i[16:32]
+    nodes_f = torch.zeros((3, 16), device=dev)
+    nodes_f[0, 0:6], nodes_f[0, 6:12] = box, box
+    nodes_i = torch.tensor([[2, 0, 0, 0], [shift, 16, 0, 0], [far, 16, 0, 0]],
+                           dtype=torch.int32, device=dev)
+    nodes64 = pack_node64_tables(nodes_f.cpu().numpy(), nodes_i.cpu().numpy())
+    tables = grid._replace(nodes_f=nodes_f, nodes_i=nodes_i, prims_f=prims_f, prims_i=prims_i,
+                           shade_f=torch.zeros((p, grid.shade_f.shape[1]), device=dev),
+                           max_leaf=16, depth=2, nodes64=torch.as_tensor(nodes64, device=dev))
+    g = geo[torch.arange(1 << 16, device=dev) % 32, :9]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u, v = torch.rand((2, 1 << 16, 1), device=dev, generator=gen) * 0.5
+    o = torch.zeros((1 << 16, 3), device=dev)
+    d = g[:, 0:3] + u * g[:, 3:6] + v * g[:, 6:9]
+    d = d / d.norm(dim=-1, keepdim=True)
+    t_max = torch.full((1 << 16,), torch.inf, device=dev)
+    for any_hit in (False, True):
+        t_r, row_r, _ = traverse.walk64(tables, o, d, t_max, any_hit)
+        assert int((row_r >= shift).sum()) > 1000 and int((row_r >= far).sum()) > 100
+        idx_r = torch.where(row_r >= 0, prims_i[row_r.clamp(min=0), 0].long(), -1)
+        t, idx = bk.prepare_launch(tables, o, d, t_max, any_hit)()
+        assert torch.equal(idx.long(), idx_r) and torch.equal(t, t_r)
+
+
+@pytest.mark.parametrize("medium", ["homogeneous", "area", "grid"])
+def test_chunked_volpath_matches_walk_over_every_row(tmp_path, medium):
+    """The Volpath kernel's chunked brute force, camera and given rays,
+    against its walk over every row on the same samples: radiance and
+    weight bit-equal on every ray."""
+    dev = _device()
+    job = _fog_job(tmp_path, medium)
+    cam = RealisticCamera(job.camera, job.film, pupil_samples=1 << 12, device=dev)
+    packed = vmk.pack_volpath(job.scene, dev)
+    assert packed.bvh is None and packed.chunks is not None
+    sampler = StratifiedSampler(job.sampler)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    args = (packed, pmk.pack_camera(cam), pxy, pid, soff, sampler, job.integrator)
+    l_c, w_c = (x.clone() for x in vmk.prepare_launch(*args)())
+    occ = vmk.occupancy()
+    assert occ["smem"] > 0 and occ["blocks_per_sm"] > 0
+    l_e, w_e = vmk.prepare_launch(*args, every_row=True)()
+    assert torch.equal(l_c, l_e) and torch.equal(w_c, w_e) and float(l_c.max()) > 0
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    r_args = (packed, o, d, w, pid, soff, sampler, job.integrator)
+    l_c = vmk.prepare_rays_launch(*r_args)().clone()
+    assert torch.equal(l_c, vmk.prepare_rays_launch(*r_args, every_row=True)())
 
 
 def test_materials_wavefront_card_matches_cpu_over_lit_rays():

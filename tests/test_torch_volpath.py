@@ -17,6 +17,8 @@ plume (`write_grid_fog_scene`).
   below 1e-5, means within 3e-3.  The fixture's glossy cubes make about
   0.2% of the rays chaotic (the reference's Trowbridge-Reitz sampler,
   ROADMAP Queue 3); 36,864 rays keep them from moving the mean.
+- The same with the plain version on the chunked walk (chunks built over
+  the JAX table as pack_scene builds them), the brute-force kernel's walk.
 - Against JAX `integrators/volpath.li_volpath` (the jnp path): the port's
   bounce loop driven with JAX's camera rays, at the same per-ray bar, on
   the fog scenes with every cube matte (no chaotic sampling, so 4 spp
@@ -48,6 +50,7 @@ from rs_ray_toy_tpu.render import render_job as jax_render_job
 from rs_ray_toy_tpu.sampler.stratified import StratifiedSampler as JaxStratified
 from rs_ray_toy_tpu.scene.loader import load_scene as jax_load_scene
 from rs_ray_toy_tpu_torch.interop import camera_from_jax, from_jax_volpath
+from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
 from rs_ray_toy_tpu_torch.render import deploy_render
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
@@ -144,6 +147,26 @@ def test_radiance_matches_jax_kernel(interpret, kind, geometry):
                                    job.integrator)
     _bar(l.numpy(), r["l_ref"])
     assert (r["w_ref"] > 0).sum() > 1000
+    np.testing.assert_allclose(w.numpy(), r["w_ref"], rtol=2e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["fog", "fog_area"])
+def test_chunked_walk_matches_jax_kernel(interpret, kind):
+    """The plain version on the chunked walk (the brute-force kernel's since
+    it took it), its chunks built over the JAX package's table as
+    pack_scene builds them, against the same JAX kernel run."""
+    r = interpret(kind)
+    job = load_scene(r["path"])
+    jp = r["jpacked"]
+    packed = from_jax_volpath(np.asarray(jp[0]), jp[5].lights, jp[8], None, "cpu")
+    g = packed.table[:, :9].numpy()
+    chunks = pmk.build_tri_chunks(g[:, 0:3], g[:, 3:6], g[:, 6:9], g.shape[0])
+    packed = packed._replace(scene=packed.scene._replace(
+        chunks=torch.as_tensor(pmk.chunk_rows(chunks))))
+    assert packed.chunks.shape[0] > 1
+    l, w = vmk.li_volpath_mega_cam(packed, r["cam"], *r["args"], StratifiedSampler(job.sampler),
+                                   job.integrator)
+    _bar(l.numpy(), r["l_ref"])
     np.testing.assert_allclose(w.numpy(), r["w_ref"], rtol=2e-5, atol=1e-7)
 
 
