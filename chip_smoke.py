@@ -19,7 +19,13 @@ Phase 2  the Path main path: renders samples/scene.json at 640x360, 16
          print the chunked walk's MT and slab tests a ray, the MT tests
          the walk over every row would make, the bound of that walk
          beside the bound, and the block size, blocks per SM, registers
-         and shared memory of the launch (pmk.occupancy, ik.occupancy).
+         and shared memory of the launch (pmk.occupancy, ik.occupancy);
+         every hold of the path kernel's BVH instances (phases 4, 8c, 8e,
+         9f, 9i, 10b, 11b-d, 12c), which walk the node64 rows and the
+         48-byte leaf rows (common.cuh Bvh64), prints that walk's MT and
+         slab tests and interior rows a ray, its steps a walk (closest
+         hits, any hits and the subsurface probe chain's apart) and the
+         launch's occupancy (pmk.occupancy(bvh=True)).
 Phase 3  the Debug main path: the same for samples/scene_debug.json
          (Debug, max_depth 4) through the direct kernel; then a 160x90x16
          DirectLighting variant with the one-light strategy, held to the
@@ -350,7 +356,10 @@ writes 6 attribute floats more a ray) and 2 ints of each triangle;
 their operations are the Moller-Trumbore and slab tests the plain
 version counts.  The node64 walk reads each interior node's 64-byte row
 once instead of every node's fused-children columns (its slab and MT
-tests are the binary walk's, counted by its plain version); the BVH4
+tests are the binary walk's, counted by its plain version), and in the
+path kernel's BVH instances each leaf row's 48 bytes once instead of the
+table's 9 geometry columns (the flat untextured instances read none of
+those: they shade from the other columns); the BVH4
 walk reads each wide node's 144 bytes once instead of the binary nodes,
 and its plain version counts a slab test for each non-empty child slot
 it tests.  No single PyTorch call computes a sample pass, any of
@@ -538,6 +547,8 @@ ROW_HEAD_COLS = 9 + 7  # p0, e1, e2; ng, dpdu, lobe count
 NORMAL_COLS = 9  # a smooth mesh's raw vertex normals n0, n1, n2
 LOBE_COLS = 16
 NODE_READ_COLS = 12 + 3  # both child boxes; offset, n_prims, axis
+NODE64_BYTES = 64  # a node64 row: both child boxes, references, axis, leaf counts
+PRIM_ROW_BYTES = 48  # a node64 walk's leaf row: p0, e1, e2, pad
 NODE4_BYTES = (24 + 12) * 4  # a wide node: four child boxes; their kind, a, b
 NODE64_BYTES = 16 * 4  # a node64 row: both child boxes, their references, the axis
 QUERY_BYTES = 28 + 8  # o, d, t_max in; t, triangle out
@@ -637,14 +648,21 @@ def per_ray_bar(l, l_ref):
     return stats
 
 
-def bound(work, scale, n_rays, packed, ray_bytes=RAY_BYTES, extra_bytes=0):
+def bound(work, scale, n_rays, packed, ray_bytes=RAY_BYTES, extra_bytes=0, node64=False):
     """(bound_ms, bound_by) of one pass over n_rays (see the module
     docstring); `work` is the plain version's counts, `scale` the batch
-    over the rays it ran on; `packed` None for no triangle table."""
+    over the rays it ran on; `packed` None for no triangle table; with
+    `node64` a BVH is read as the path kernel walks it: its node64 rows
+    and 48-byte leaf rows, and of the table only the columns shading
+    reads."""
     flops = scale * sum(FLOPS[k] * float(v) for k, v in work.items() if k in FLOPS)
     nbytes = n_rays * ray_bytes + extra_bytes + scale * SLOT_BYTES * float(work.get("slot", 0))
+    node64 = node64 and packed is not None and packed.bvh is not None
     if packed is not None:
-        head = ROW_HEAD_COLS + (NORMAL_COLS if getattr(packed, "smooth", False) else 0)
+        smooth = getattr(packed, "smooth", False)
+        head = ROW_HEAD_COLS + (NORMAL_COLS if smooth else 0)
+        if node64 and not smooth and getattr(packed, "tex", None) is None:
+            head -= pmk.GEO_COLS  # the walk reads them from the leaf rows
         nbytes += int((head + LOBE_COLS * packed.table[:, 15]).sum()) * 4
     sph = getattr(packed, "sph_table", None)
     if sph is not None:
@@ -653,7 +671,10 @@ def bound(work, scale, n_rays, packed, ray_bytes=RAY_BYTES, extra_bytes=0):
     if tex is not None:
         nbytes += packed.table.shape[0] * TEX_BLOCK_COLS * 4
         nbytes += tex_bytes(tex.pyr, scale * float(work.get("texel", 0)))
-    if packed is not None and packed.bvh is not None:
+    if node64:
+        nbytes += (packed.bvh.nodes64.shape[0] * NODE64_BYTES
+                   + packed.bvh.prims.shape[0] * PRIM_ROW_BYTES)
+    elif packed is not None and packed.bvh is not None:
         nbytes += packed.bvh.nodes_f.shape[0] * NODE_READ_COLS * 4
     if getattr(packed, "grid", False):
         nbytes += packed.medium["density"][0].numel() * 4
@@ -678,14 +699,38 @@ def walk_numbers(work, scale, n_rays, bound_fn):
                 bound_brute_by=bound_brute_by)
 
 
+def bvh_walk_numbers(work, scale, n_rays):
+    """The node64 walk's counts (the path kernel's BVH instances): per ray
+    its MT and slab tests and the interior rows it fetches ("node"), and
+    per walk its steps, by kind of walk (closest, any hit, and the
+    subsurface probe chain's: PlainGeometry's step tallies).  Empty for a
+    walk that counts no "node"."""
+    if "node" not in work:
+        return {}
+    per_ray = lambda k: scale * float(work.get(k, 0)) / n_rays
+    out = dict(mt_per_ray=per_ray("mt"), slab_per_ray=per_ray("slab"),
+               node_per_ray=per_ray("node"))
+    for tag in ("closest", "any", "probe"):
+        walks = float(work.get(f"{tag}_walks", 0))
+        if walks:
+            out[f"{tag}_steps_per_walk"] = float(work[f"{tag}_steps"]) / walks
+    return out
+
+
 def walk_text(held):
     """The walk's counts, brute-force bound and occupancy of a hold, for
     its line (empty for the walks that count none)."""
-    if "bound_brute_ms" not in held:
-        return ""
     occ = held.get("occupancy")
     occ_s = (f"; block {occ['block']}, {occ['blocks_per_sm']} blocks/SM, {occ['registers']} "
              f"registers, {occ['smem']} B shared" if occ else "")
+    if "node_per_ray" in held:
+        steps = ", ".join(f"{held[k]:.2f} {k.split('_')[0]}" for k in
+                          ("closest_steps_per_walk", "any_steps_per_walk",
+                           "probe_steps_per_walk") if k in held)
+        return (f"; node64 walk: {held['mt_per_ray']:.2f} MT and {held['slab_per_ray']:.2f} slab "
+                f"tests and {held['node_per_ray']:.2f} rows a ray, steps a walk {steps}{occ_s}")
+    if "bound_brute_ms" not in held:
+        return ""
     return (f"; walk: {held['mt_per_ray']:.2f} MT and {held['slab_per_ray']:.2f} slab tests a ray "
             f"(every row: {held['mt_brute_per_ray']:.2f} MT), bound over every row "
             f"{held['bound_brute_ms']:.4f} ms by {held['bound_brute_by']}{occ_s}")
@@ -767,15 +812,19 @@ def hold(mod, job, stride, dev):
     max_abs_err = max(float((l[sub] - l_ref).abs().max()), float((w[sub] - w_ref).abs().max()))
     del l, w, l_ref, w_ref
     ms = timed_ms(mod.prepare_launch(*args), reps=10)
-    extra = ({"occupancy": mod.occupancy()} if mod in (pmk, vmk) and packed.bvh is None
-             else {})
+    bvh = packed.bvh is not None
+    extra = ({"occupancy": mod.occupancy(bvh=True)} if mod is pmk and bvh
+             else {"occupancy": mod.occupancy()} if mod in (pmk, vmk) and not bvh else {})
     wrapper_ms = timed_ms(lambda: fn(*args))
     slots = halton_slots(packed, job.integrator, sampler, True)
     # under Halton the kernel reads no pixel id or sample index, but slot values
     ray_bytes = RAY_BYTES - (8 if slots else 0)
-    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=ray_bytes)
+    node64 = mod is pmk
+    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=ray_bytes, node64=node64)
     extra.update(walk_numbers(work, scale, n,
                               lambda w: bound(w, scale, n, packed, ray_bytes=ray_bytes)))
+    if node64:
+        extra.update(bvh_walk_numbers(work, scale, n))
     if slots is not None:
         extra["slot_ms"] = timed_ms(lambda: sampler.slot_matrix(pid, soff, slots))
         extra["slot_rows"] = pmk.slot_cols(slots)[1]
@@ -1675,14 +1724,15 @@ def hold_rays(job, packed, rays, stride, dev):
     max_abs_err = float((l[sub] - l_ref).abs().max())
     del l, l_ref
     ms = timed_ms(pmk.prepare_rays_launch(*args), reps=10)
-    extra = {"occupancy": pmk.occupancy()} if packed.bvh is None else {}
+    extra = {"occupancy": pmk.occupancy(bvh=packed.bvh is not None)}
     wrapper_ms = timed_ms(lambda: pmk.li_path_mega(*args))
     scale = n / sub.numel()
     slots = halton_slots(packed, job.integrator, sampler, False)
     ray_bytes = RAYS_IN_BYTES - (8 if slots else 0)
-    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=ray_bytes)
+    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=ray_bytes, node64=True)
     extra.update(walk_numbers(work, scale, n,
                               lambda w: bound(w, scale, n, packed, ray_bytes=ray_bytes)))
+    extra.update(bvh_walk_numbers(work, scale, n))
     if slots is not None:
         extra["slot_ms"] = timed_ms(lambda: sampler.slot_matrix(pid, sid, slots))
         extra["slot_rows"] = pmk.slot_cols(slots)[1]

@@ -2,12 +2,13 @@
 
 Closest hit and any hit over the wavefront kernels' BVH tables
 (ops/bvh_kernel.BvhTables): the stack walk of ops/path_megakernel
-.PlainGeometry (the one the camera kernels' plain versions use, and
-csrc/common.cuh's Geometry<true> walks on the card) over the leaf-ordered
-triangle rows, bounded by each ray's t_max, the leaf-order winner mapped
-back to the scene's triangle row (`fused_rows`: bvh_kernel's walk), and
-the same walk over the node64 rows (`walk64`: csrc/common.cuh Bvh64, which
-finds the same hits in the same order; the closest and any hit's walk);
+.PlainGeometry over the fused-children rows (csrc/common.cuh's
+Geometry<true> walks them on the card) over the leaf-ordered triangle
+rows, bounded by each ray's t_max, the leaf-order winner mapped back to
+the scene's triangle row (`fused_rows`: bvh_kernel's walk), and the same
+walk over the node64 rows (`walk64`: csrc/common.cuh Bvh64, which finds
+the same hits in the same order; the closest and any hit's walk, and
+ops/path_megakernel.walk_node64, the path kernel's);
 or, where the tables say `wide`, the
 BVH4 walk (`walk4`, ops/bvh_pallas._traverse4_kernel for one ray).  Lanes
 with t_max <= 0 miss.  These are K3's plain versions; the wavefront loop
@@ -17,8 +18,8 @@ reaches them on CPU tensors.
 import torch
 
 from ..ops.path_megakernel import (BIG_T, BvhTables, PackedScene, PlainGeometry, _inv_dir, _mt,
-                                   _slab, _slab_tn, tally)
-from .bvh import CHILD_INTERIOR, CHILD_LEAF, CHILD_NONE, LEAF_COUNT_BITS
+                                   _slab_tn, tally, walk_node64)
+from .bvh import CHILD_INTERIOR, CHILD_LEAF, CHILD_NONE
 
 
 def _geometry(tables, work):
@@ -44,111 +45,17 @@ def walk(tables, o, d, t_max, any_hit, work=None, fused_rows=False):
 
 def walk64(tables, o, d, t_max, any_hit, work=None):
     """The binary walk over the node64 rows (accel/bvh.pack_node64_tables;
-    csrc/common.cuh Bvh64) of one ray per lane, the rays still walking
-    compacted after every step.  A step either fetches an interior row,
-    slab-tests both children against the ray's best t, goes on into the
-    near hit child (by the sign of the ray's direction on the split axis)
-    and pushes the far one, with its leaf count, only where both are hit;
-    or tests a leaf's rows in leaf order with strict < (any hit: stops at
-    the first); a step that hits nothing pops.  That is the order of the
-    binary walk
-    (PlainGeometry.walk, which pushes the near child and pops it at once),
-    so t, the row and any hit's row are its own.  Returns (t, leaf-order
-    row, steps: the rows fetched and leaves tested per ray, 0 where t_max
-    <= 0); `work` gets the slab and Moller-Trumbore tests the kernel makes
-    ("slab", "mt") and the interior rows it fetches ("node")."""
+    csrc/common.cuh Bvh64) of one ray per lane: ops/path_megakernel
+    .walk_node64 over the tables' leaf-order rows, the path kernel's plain
+    walk too.  Returns (t, leaf-order row, steps: the rows fetched and
+    leaves tested per ray, 0 where t_max <= 0); `work` gets the slab and
+    Moller-Trumbore tests the kernel makes ("slab", "mt") and the interior
+    rows it fetches ("node")."""
     if tables.nodes64 is None:
         raise ValueError("tables without the node64 rows (pack_bvh)")
     dev = o.device
-    rows = tables.nodes64.to(dev)
-    leaf_root = rows.shape[0] == 0  # the tree is one leaf of every row
-    if leaf_root:
-        rows = torch.zeros((1, rows.shape[1]), dtype=rows.dtype, device=dev)
-    boxes = rows[:, :12]
-    refs = rows.view(torch.int32)[:, 12:16].to(torch.int64)  # left, right, axis, counts
-    count_mask = (1 << LEAF_COUNT_BITS) - 1
-    counts = torch.stack([refs[:, 3] & count_mask, refs[:, 3] >> LEAF_COUNT_BITS], -1)
-    geo = tables.prims_f.to(dev)[:, :9]
-    t_out = t_max.clone()
-    row_out = torch.full(t_max.shape, -1, dtype=torch.int64, device=dev)
-    steps_out = torch.zeros_like(row_out)
-    idx = torch.nonzero(t_max > 0.0).squeeze(1)
-    ro, rd = o[idx].unbind(-1), d[idx].unbind(-1)
-    inv = tuple(_inv_dir(c) for c in rd)
-    tb = t_max[idx]
-    best = torch.full_like(idx, -1)
-    ref = torch.full_like(idx, -1 if leaf_root else 0)
-    count = torch.full_like(idx, tables.prims_f.shape[0] if leaf_root else 0)
-    steps = torch.zeros_like(idx)
-    m = idx.numel()
-    stack = torch.zeros((m, tables.stack, 2), dtype=torch.int64, device=dev)  # ref, count
-    sp = torch.zeros_like(idx)
-    k = torch.arange(tables.max_leaf, device=dev)
-    while m:
-        lane = torch.arange(m, device=dev)
-        steps = steps + 1
-        inner = ref >= 0
-        # an interior row: both children's boxes against the best t
-        b = boxes[torch.where(inner, ref, 0)]
-        hit_l = inner & _slab(b[:, 0:6], *ro, *inv, tb)
-        hit_r = inner & _slab(b[:, 6:12], *ro, *inv, tb)
-        tally(work, "slab", 2 * inner)
-        tally(work, "node", inner)
-        r = torch.where(inner, ref, 0)
-        left, right, axis, _ = refs[r].unbind(-1)
-        n_left, n_right = counts[r].unbind(-1)
-        d_ax = torch.where(axis == 0, rd[0], torch.where(axis == 1, rd[1], rd[2]))
-        near_left = d_ax >= 0.0
-        near = torch.stack([torch.where(near_left, left, right),
-                            torch.where(near_left, n_left, n_right)], -1)
-        far = torch.stack([torch.where(near_left, right, left),
-                           torch.where(near_left, n_right, n_left)], -1)
-        hit_near = torch.where(near_left, hit_l, hit_r)
-        hit_far = torch.where(near_left, hit_r, hit_l)
-        push = hit_near & hit_far
-        slot = sp.clamp(max=tables.stack - 1)  # the packer sizes the stack
-        stack[lane, slot] = torch.where(push[:, None], far, stack[lane, slot])
-        sp = sp + push
-        nxt = torch.where(hit_near[:, None], near, far)
-        # a leaf: its rows in leaf order
-        first_row = -1 - ref
-        valid = ~inner[:, None] & (k < count[:, None])
-        g = geo[torch.where(valid, first_row[:, None] + k, 0)].unbind(-1)
-        hit, t = _mt(g, *(x[:, None] for x in ro + rd))
-        hit = valid & hit & (t < tb[:, None])
-        found = hit.any(1)
-        if any_hit:
-            # the kernel stops at the first hit: it tests the leaf up to it
-            first = torch.where(hit, k, k.numel()).min(1).values
-            tally(work, "mt", torch.where(found, first + 1, valid.sum(1)))
-            best = torch.where(found, first_row + first, best)
-        else:
-            tally(work, "mt", valid)
-            tm = torch.where(hit, t, BIG_T)
-            t_min = tm.min(1).values
-            first = torch.where(hit & (tm == t_min[:, None]), k, k.numel()).min(1).values
-            tb = torch.where(found, t_min, tb)
-            best = torch.where(found, first_row + first, best)
-        # a leaf, or a row with neither child hit: pop
-        pop = ~inner | ~(hit_near | hit_far)
-        popped = pop & (sp > 0)
-        sp = sp - popped.long()
-        nxt = torch.where(popped[:, None], stack[lane, sp.clamp(min=0)], nxt)
-        done = (pop & ~popped) | (found if any_hit else False)
-        ref, count = nxt.unbind(-1)
-        if bool(done.any()):
-            t_out[idx[done]] = tb[done]
-            row_out[idx[done]] = best[done]
-            steps_out[idx[done]] = steps[done]
-            keep = ~done
-            idx, tb, best, steps = idx[keep], tb[keep], best[keep], steps[keep]
-            ref, count = ref[keep], count[keep]
-            stack, sp = stack[keep], sp[keep]
-            ro = tuple(c[keep] for c in ro)
-            rd = tuple(c[keep] for c in rd)
-            inv = tuple(c[keep] for c in inv)
-            m = idx.numel()
-    return t_out, row_out, steps_out
+    return walk_node64(tables.nodes64.to(dev), tables.prims_f.to(dev)[:, :9], tables.max_leaf,
+                       tables.stack, o, d, t_max, t_max > 0.0, any_hit, work)
 
 
 def step_stats(steps, live, warp=32):

@@ -729,6 +729,47 @@ struct Bvh64 {
   }
 };
 
+// Bvh64's walk as a call: one copy of its code for every call site
+template <bool kAny, int kStack>
+__device__ __noinline__ int bvh64_walk_call(const Bvh64<kStack> bvh, float ox, float oy,
+                                            float oz, float dx, float dy, float dz,
+                                            float& t_bound) {
+  return bvh.template walk<kAny>(ox, oy, oz, dx, dy, dz, t_bound);
+}
+
+// Bvh64 with Geometry's interface (the path kernel's BVH instances): the
+// walk over the node64 rows and the 48-byte leaf rows, and `table`, the
+// packed scene's (T, TABLE_COLS) rows in the same leaf order, where shading
+// reads the winner's row.  kCall: the walk is called out of line
+// (bvh64_walk_call) instead of inlined at each call site.
+template <int kStack, bool kCall = false>
+struct Bvh64Geometry {
+  Bvh64<kStack> bvh;
+  const float* table;
+
+  template <bool kAny>
+  __device__ int walk(float ox, float oy, float oz, float dx, float dy, float dz,
+                      float& t_bound) const {
+    if constexpr (kCall)
+      return bvh64_walk_call<kAny, kStack>(bvh, ox, oy, oz, dx, dy, dz, t_bound);
+    else
+      return bvh.template walk<kAny>(ox, oy, oz, dx, dy, dz, t_bound);
+  }
+  __device__ int closest_below(float ox, float oy, float oz, float dx, float dy, float dz,
+                               float t_lim, float& t_best) const {
+    t_best = t_lim;
+    return walk<false>(ox, oy, oz, dx, dy, dz, t_best);
+  }
+  __device__ int closest(float ox, float oy, float oz, float dx, float dy, float dz,
+                         float& t_best) const {
+    return closest_below(ox, oy, oz, dx, dy, dz, BIG_T, t_best);
+  }
+  __device__ bool occluded(float ox, float oy, float oz, float dx, float dy, float dz,
+                           float t_max) const {
+    return walk<true>(ox, oy, oz, dx, dy, dz, t_max) >= 0;
+  }
+};
+
 // The shading normal of a smooth mesh at a triangle hit (accel/geometry.py
 // surface_interaction): the barycentrics rebuilt from the winner's row (p0,
 // e1, e2 in cols 0-8) with its guards, the raw vertex normals n0, n1, n2 (cols

@@ -41,8 +41,15 @@
 // a walk slab-tests each chunk's box against its current best t and runs
 // only the hit chunks' rows, each behind a division-free reject
 // (common.cuh, ChunkGeometry); the block size is the one at which most
-// threads are resident for the table's shared memory (choose_block); BVH mode: a per-ray stack walk with the node rows and the
-// triangle table read through the read-only cache (common.cuh, Geometry);
+// threads are resident for the table's shared memory (choose_block); BVH
+// mode: the node64 walk (common.cuh, Bvh64: one 64-byte row an interior
+// node, read as four float4, into the near hit child without a push, a leaf
+// known at its parent and never fetched as a node, its 48-byte rows read as
+// three float4 with the next row's loads in flight, each behind the
+// division-free reject), through the read-only cache, the same walk in the
+// subsurface probe chain, in blocks of 128 under a launch bound that keeps 9
+// of them resident an SM (BVH_MIN_BLOCKS); the winner's 115-column row, in
+// the same leaf order, is read only to shade;
 // the spheres' intersect columns (world-to-object rows and radius, 52 B
 // each) staged in shared memory in both modes, their lobe rows read through
 // the read-only cache; (c) lens, pupil and point-light constants in one
@@ -77,12 +84,26 @@
 #include "texture.cuh"
 
 // The triangle walk of an instance: the chunked brute force (common.cuh,
-// ChunkGeometry) or the BVH walk
-template <bool kBvh>
-using PathGeometry = std::conditional_t<kBvh, Geometry<true>, ChunkGeometry>;
+// ChunkGeometry) or the walk of the node64 rows (common.cuh, Bvh64Geometry),
+// called out of line in the subsurface instances (kBss), whose six walk sites
+// (the bounce loop's closest hit and three shadow rays, the probe chain's
+// closest hits and its exit's shadow ray) would otherwise each carry a copy
+// of it; the card runs them much faster with one copy of each walk, and the
+// other instances faster with the walk inlined (PERF.md §6: `walk_ab
+// --variant inline_bss_walks`).
+template <bool kBvh, bool kBss>
+using PathGeometry =
+    std::conditional_t<kBvh, Bvh64Geometry<STACK_DEPTH, kBss>, ChunkGeometry>;
 
 // The brute-force instances' largest block (see choose_block)
 constexpr int CHUNK_BLOCK_MAX = 384;
+// The BVH instances' blocks of BLOCK threads, and the blocks of them an SM
+// keeps resident: the bound caps the instances at 56 registers (spilling a
+// few hundred bytes) for 9 blocks, 1,152 threads, which the card runs faster
+// than 4-5 blocks at 90-110 registers without a spill: the walks wait on
+// dependent loads, and more resident warps hide them (PERF.md §6: `walk_ab
+// --variant uncap_bvh_regs`).
+constexpr int BVH_MIN_BLOCKS = 9;
 
 constexpr int ENV_BINS = 16;  // rows of a constant map's Distribution2D (8x8 texels)
 constexpr int SLOT_MAX = 176;  // sampler slots of the slot-to-row map
@@ -120,8 +141,8 @@ struct WideParams {
   short slot_row[SLOT_MAX];  // Halton: slot -> first row of the slot matrix, -1 unused
 };
 
-// the kernel's parameters: the three blocks and 15 pointer or int arguments
-static_assert(sizeof(Params) + sizeof(WideParams) + sizeof(TexMap) + 16 * 8 <= 4096,
+// the kernel's parameters: the three blocks and 18 pointer or int arguments
+static_assert(sizeof(Params) + sizeof(WideParams) + sizeof(TexMap) + 18 * 8 <= 4096,
               "kernel parameters exceed the 4 KB limit");
 
 namespace {
@@ -257,7 +278,7 @@ __device__ __forceinline__ float sw_f(const WideParams& w, float cos_w) {
 // writes the next ray.  Out of line: one copy per instance, called where a
 // sample chose the transmission lobe; the arrays live in its frame.
 template <bool kBvh>
-__device__ __noinline__ bool subsurface(const PathGeometry<kBvh> geom, const Params& p,
+__device__ __noinline__ bool subsurface(const PathGeometry<kBvh, true> geom, const Params& p,
                                         const WideParams& w, const float* pt, const float* fr,
                                         const float* u, float* beta, float* L, float* ray) {
   const float px = pt[0], py = pt[1], pz = pt[2];
@@ -462,7 +483,7 @@ __device__ void textured_kd(const float* row, const float* tex, const TexMap& tm
 // ---- the bounce loop (_bounce_loop), one ray ----
 
 template <bool kBvh, bool kSmooth, bool kBss, bool kTex, class Smp>
-__device__ void bounce_loop(const PathGeometry<kBvh>& geom, const float* table,
+__device__ void bounce_loop(const PathGeometry<kBvh, kBss>& geom, const float* table,
                             const float* sph_rows, const float* s_sph, const Params& p,
                             const WideParams& w, const Smp& smp, float ox, float oy,
                             float oz, float dx, float dy, float dz, bool active, float L[3],
@@ -792,24 +813,21 @@ __device__ void bounce_loop(const PathGeometry<kBvh>& geom, const float* table,
 // ---- one sample pass per thread: camera rays (kRaysIn false) or given rays ----
 
 template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss, bool kTex>
-__global__ void __launch_bounds__(kBvh ? BLOCK : CHUNK_BLOCK_MAX)
-    path_mega_kernel(const float* __restrict__ table, int n_tris,
-                     const float* __restrict__ chunks, int n_chunks,
-                     const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
-                     const float* __restrict__ sph_rows, const float* __restrict__ in_a,
-                     const float* __restrict__ in_d, const float* __restrict__ in_w,
-                     const int* __restrict__ pid, const int* __restrict__ sid,
-                     const float* __restrict__ slot_u, float* __restrict__ out_l,
-                     float* __restrict__ out_w, int n, const __grid_constant__ Params p,
-                     const __grid_constant__ WideParams w, const float* __restrict__ tex,
-                     const __grid_constant__ TexMap tm) {
+__device__ __forceinline__ void path_mega_pass(
+    const float* __restrict__ table, int n_tris, const float* __restrict__ chunks, int n_chunks,
+    const float4* __restrict__ nodes64, const float4* __restrict__ prims, int root_count,
+    const float* __restrict__ sph_rows, const float* __restrict__ in_a,
+    const float* __restrict__ in_d, const float* __restrict__ in_w, const int* __restrict__ pid,
+    const int* __restrict__ sid, const float* __restrict__ slot_u, float* __restrict__ out_l,
+    float* __restrict__ out_w, int n, const Params& p, const WideParams& w,
+    const float* __restrict__ tex, const TexMap& tm) {
   extern __shared__ float4 s_dyn[];  // brute force: the chunk rows, then the rows
   __shared__ float s_sph[SPH_MAX * SPH_GEO];
   for (int k = threadIdx.x; k < w.n_sph * SPH_GEO; k += blockDim.x)
     s_sph[k] = __ldg(sph_rows + (k / SPH_GEO) * TABLE_COLS + k % SPH_GEO);
-  const PathGeometry<kBvh> geom = [&] {
+  const PathGeometry<kBvh, kBss> geom = [&] {
     if constexpr (kBvh)
-      return load_geometry<true>(nullptr, table, n_tris, nodes_f, nodes_i);
+      return PathGeometry<true, kBss>{{nodes64, prims, root_count}, table};
     else
       return load_chunk_geometry<TABLE_COLS>(s_dyn, table, n_tris, chunks, n_chunks);
   }();
@@ -862,12 +880,41 @@ __global__ void __launch_bounds__(kBvh ? BLOCK : CHUNK_BLOCK_MAX)
   if constexpr (!kRaysIn) out_w[i] = weight;
 }
 
+#define PATH_MEGA_PARAMS                                                                        \
+  const float *__restrict__ table, int n_tris, const float *__restrict__ chunks, int n_chunks,  \
+      const float4 *__restrict__ nodes64, const float4 *__restrict__ prims, int root_count,     \
+      const float *__restrict__ sph_rows, const float *__restrict__ in_a,                       \
+      const float *__restrict__ in_d, const float *__restrict__ in_w,                           \
+      const int *__restrict__ pid, const int *__restrict__ sid,                                 \
+      const float *__restrict__ slot_u, float *__restrict__ out_l, float *__restrict__ out_w,   \
+      int n, const __grid_constant__ Params p, const __grid_constant__ WideParams w,            \
+      const float *__restrict__ tex, const __grid_constant__ TexMap tm
+#define PATH_MEGA_ARGS                                                                       \
+  table, n_tris, chunks, n_chunks, nodes64, prims, root_count, sph_rows, in_a, in_d, in_w, \
+      pid, sid, slot_u, out_l, out_w, n, p, w, tex, tm
+
+// The brute-force instances (kBvh false, kept a template argument so that
+// they keep their names), up to CHUNK_BLOCK_MAX threads a block (choose_block)
+template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss, bool kTex>
+__global__ void __launch_bounds__(CHUNK_BLOCK_MAX) path_mega_kernel(PATH_MEGA_PARAMS) {
+  static_assert(!kBvh, "the BVH instances are path_mega_bvh_kernel");
+  path_mega_pass<false, kRaysIn, kSlots, kSmooth, kBss, kTex>(PATH_MEGA_ARGS);
+}
+
+// The BVH instances: blocks of BLOCK threads, BVH_MIN_BLOCKS of them resident
+// an SM
+template <bool kRaysIn, bool kSlots, bool kSmooth, bool kBss, bool kTex>
+__global__ void __launch_bounds__(BLOCK, BVH_MIN_BLOCKS) path_mega_bvh_kernel(PATH_MEGA_PARAMS) {
+  path_mega_pass<true, kRaysIn, kSlots, kSmooth, kBss, kTex>(PATH_MEGA_ARGS);
+}
+
 // The arguments of one launch, whichever instance takes them
 struct Launch {
   const float* table;
   int n_tris;
-  const float *nodes_f;
-  const int* nodes_i;
+  const float* nodes64;  // BVH mode: the node64 rows (null for a one-leaf tree)
+  const float* prims;    // BVH mode: the (n_tris, 12) leaf rows; null: brute force
+  int root_count;        // BVH mode: the tree is one leaf of this many rows
   const Params* params;
   const float *in_a, *in_d, *in_w;
   const int *pid, *sid;
@@ -883,32 +930,42 @@ struct Launch {
   int n_chunks;
 };
 
-// The last brute-force launch's block size, its blocks resident per SM, the
-// instance's registers per thread and the block's dynamic shared memory
-int g_occupancy[4] = {0, 0, 0, 0};
+// The last launch's block size, its blocks resident per SM, the instance's
+// registers per thread and the block's dynamic shared memory: brute force,
+// then BVH
+int g_occupancy[2][4] = {};
 
 template <bool kBvh, bool kRaysIn, bool kSlots, bool kSmooth, bool kBss = false,
           bool kTex = false>
 int launch_instance(const Launch& a) {
-  const auto kernel = path_mega_kernel<kBvh, kRaysIn, kSlots, kSmooth, kBss, kTex>;
+  const auto kernel = [] {
+    if constexpr (kBvh)
+      return path_mega_bvh_kernel<kRaysIn, kSlots, kSmooth, kBss, kTex>;
+    else
+      return path_mega_kernel<false, kRaysIn, kSlots, kSmooth, kBss, kTex>;
+  }();
   int block = BLOCK;
   size_t smem = 0;
+  cudaError_t err;
   if constexpr (!kBvh) {
     // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)CHUNK_SMEM_MAX);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)CHUNK_SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     smem = chunk_smem(a.n_tris, a.n_chunks);
     // every block stages the whole table, so a larger block stages it for
     // more rays: choose_block weighs only the threads resident
-    err = choose_block(kernel, CHUNK_BLOCK_MAX, [&](int) { return smem; }, block, g_occupancy);
-    if (err != cudaSuccess) return (int)err;
+    err = choose_block(kernel, CHUNK_BLOCK_MAX, [&](int) { return smem; }, block, g_occupancy[0]);
+  } else {
+    // blocks of BLOCK (the launch bound); choose_block measures their occupancy
+    err = choose_block(kernel, BLOCK, [](int) { return (size_t)0; }, block, g_occupancy[1]);
   }
+  if (err != cudaSuccess) return (int)err;
   const int grid = (a.n + block - 1) / block;
-  kernel<<<grid, block, smem, a.stream>>>(a.table, a.n_tris, a.chunks, a.n_chunks, a.nodes_f,
-                                          a.nodes_i, a.sph_rows, a.in_a, a.in_d, a.in_w, a.pid,
-                                          a.sid, a.slot_u, a.out_l, a.out_w, a.n, *a.params,
-                                          *a.wide, a.tex, *a.tm);
+  kernel<<<grid, block, smem, a.stream>>>(
+      a.table, a.n_tris, a.chunks, a.n_chunks, reinterpret_cast<const float4*>(a.nodes64),
+      reinterpret_cast<const float4*>(a.prims), a.root_count, a.sph_rows, a.in_a, a.in_d, a.in_w,
+      a.pid, a.sid, a.slot_u, a.out_l, a.out_w, a.n, *a.params, *a.wide, a.tex, *a.tm);
   return (int)cudaGetLastError();
 }
 
@@ -942,8 +999,9 @@ int launch(const Launch& a) {
                             a.n_tris <= 0 || a.tm->n_levels < 1 ||
                             a.tm->n_levels > TEX_LEVELS)))
     return (int)cudaErrorInvalidValue;
-  if (a.nodes_f != nullptr) {
-    if (a.n_tris <= 0 || a.n_tris > BVH_TRI_MAX || a.nodes_i == nullptr)
+  if (a.prims != nullptr) {
+    if (a.n_tris <= 0 || a.n_tris > BVH_TRI_MAX || a.table == nullptr || a.root_count < 0 ||
+        a.root_count > a.n_tris || (a.root_count == 0) != (a.nodes64 != nullptr))
       return (int)cudaErrorInvalidValue;
     return launch_shading<true, kRaysIn>(a);
   }
@@ -958,37 +1016,40 @@ int launch(const Launch& a) {
 
 extern "C" {
 
-// Launch one camera sample pass on `stream`: brute force when nodes_f is
-// null (the chunked walk over the (n_chunks, CHUNK_COLS) rows `chunks` that
-// cover the table), the BVH walk otherwise; sph_rows the (n_sph, TABLE_COLS) sphere rows
+// Launch one camera sample pass on `stream`: brute force when prims is null
+// (the chunked walk over the (n_chunks, CHUNK_COLS) rows `chunks` that cover
+// the table), else the walk of the BVH's node64 rows `nodes64` (null where the
+// tree is one leaf of root_count rows; root_count 0 otherwise) over the
+// (n_tris, 12) float32 leaf rows `prims` (p0, e1, e2, pad), the table in the
+// same leaf order; sph_rows the (n_sph, TABLE_COLS) sphere rows
 // (null without spheres); slot_u the Halton slot matrix, (NC, n) float32 rows
 // of the slots wide->slot_row maps, or null for the stratified sampler; the
 // smooth instance when wide->smooth; the textured instance when tex (the
 // image's pyramid, tm its TexMap) is not null.  Returns cudaGetLastError() of
 // the launch (0 when it was accepted); nothing is synchronised.
-int path_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
-                         const int* nodes_i, const Params* params, const float* pixel_xy,
+int path_mega_cam_launch(const float* table, int n_tris, const float* nodes64,
+                         const float* prims, const Params* params, const float* pixel_xy,
                          const int* pid, const int* sid, float* out_l, float* out_w, int n,
                          void* stream, const float* sph_rows, const WideParams* wide,
                          const float* slot_u, const float* tex, const TexMap* tm,
-                         const float* chunks, int n_chunks) {
-  return launch<false>(Launch{table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr,
-                              nullptr, pid, sid, out_l, out_w, n,
+                         const float* chunks, int n_chunks, int root_count) {
+  return launch<false>(Launch{table, n_tris, nodes64, prims, root_count, params, pixel_xy,
+                              nullptr, nullptr, pid, sid, out_l, out_w, n,
                               static_cast<cudaStream_t>(stream), sph_rows, wide, slot_u, tex,
                               tm, chunks, n_chunks});
 }
 
 // The same on given rays: o, d (n, 3) and weight (n,); out_l only.
-int path_mega_rays_launch(const float* table, int n_tris, const float* nodes_f,
-                          const int* nodes_i, const Params* params, const float* o,
+int path_mega_rays_launch(const float* table, int n_tris, const float* nodes64,
+                          const float* prims, const Params* params, const float* o,
                           const float* d, const float* weight, const int* pid, const int* sid,
                           float* out_l, int n, void* stream, const float* sph_rows,
                           const WideParams* wide, const float* slot_u, const float* chunks,
-                          int n_chunks) {
+                          int n_chunks, int root_count) {
   static const TexMap no_tex{};
-  return launch<true>(Launch{table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid,
-                             out_l, nullptr, n, static_cast<cudaStream_t>(stream), sph_rows,
-                             wide, slot_u, nullptr, &no_tex, chunks, n_chunks});
+  return launch<true>(Launch{table, n_tris, nodes64, prims, root_count, params, o, d, weight,
+                             pid, sid, out_l, nullptr, n, static_cast<cudaStream_t>(stream),
+                             sph_rows, wide, slot_u, nullptr, &no_tex, chunks, n_chunks});
 }
 
 const char* path_mega_cam_error_string(int err) {
@@ -1001,10 +1062,11 @@ int path_mega_wide_params_size() { return (int)sizeof(WideParams); }
 
 int path_mega_tex_map_size() { return (int)sizeof(TexMap); }
 
-// The last brute-force launch's block size, blocks per SM, registers per
-// thread and dynamic shared memory bytes, into out[0..3]
-void path_mega_occupancy(int* out) {
-  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[k];
+// The last brute-force (bvh 0) or BVH (bvh 1) launch's block size, blocks
+// per SM, registers per thread and dynamic shared memory bytes, into
+// out[0..3]
+void path_mega_occupancy(int bvh, int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[bvh != 0][k];
 }
 
 int path_mega_chunk_max() { return CHUNK_MAX; }

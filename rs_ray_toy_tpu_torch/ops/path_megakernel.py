@@ -33,7 +33,9 @@ winner's raw vertex normals at its rebuilt barycentrics, and ng is
 faced onto it (`supports` pins that subset).  Up to TRI_MAX triangles the
 hits are brute force; above it (or when `pack_scene` is asked to) the
 table is reordered into the leaf order of a BVH and every hit walks the
-tree per ray (accel/bvh.py), up to BVH_TRI_MAX triangles.
+tree per ray (accel/bvh.py), up to BVH_TRI_MAX triangles: its node64 rows
+and 48-byte leaf rows (`BvhTables.nodes64`, `prims`; csrc/common.cuh
+Bvh64, `walk_node64` in the plain version).
 
 On a CUDA tensor the wrappers launch csrc/path_megakernel.cu (built by
 ops/_build.py) or raise.  On a CPU tensor they run
@@ -56,7 +58,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..accel.bvh import STACK_DEPTH, build_bvh, pack_bvh_tables, tree_depth
+from ..accel.bvh import (LEAF_COUNT_BITS, STACK_DEPTH, build_bvh, pack_bvh_tables,
+                         pack_node64_tables, tree_depth)
 from ..bsdf.lobes import (
     DIST_DISNEY_SEPARABLE_G,
     DIST_TROWBRIDGE_REITZ,
@@ -122,6 +125,8 @@ SPH_EPS = 1e-4
 TRI_MAX = 2048  # brute force up to here
 BVH_TRI_MAX = 65536  # the in-kernel BVH up to here (MEGA_BVH_TRI_MAX)
 BVH_LEAF = 16  # requested leaf size of the kernels' BVH
+GEO_COLS = 9  # a triangle row's intersect columns: p0, e1, e2
+PRIM_COLS = 12  # a node64 walk's leaf row: p0, e1, e2, pad (48 bytes)
 LOBES_MAX = 5
 NRM_COL = 16 + 16 * LOBES_MAX  # raw vertex normals n0, n1, n2 (smooth shading)
 TEX0 = NRM_COL + 9  # textured-kd block: dpdv, uv0, uv1, uv2, textured flag
@@ -202,6 +207,11 @@ class BvhTables(NamedTuple):
     nodes_i: torch.Tensor  # (M, 4) int32: offset, n_prims, axis, 0
     max_leaf: int  # most triangles in one leaf
     stack: int = STACK_DEPTH  # entries of the walk's stack (accel/bvh.stack_for)
+    # the same tree as node64 rows, the path kernel's walk (csrc/common.cuh
+    # Bvh64); None: the plain walk goes over the fused-children rows
+    nodes64: Optional[torch.Tensor] = None  # (I, 16) float32, one row per interior node
+    prims: Optional[torch.Tensor] = None  # (P, 12) float32 leaf order: p0, e1, e2, pad
+    root_count: int = 0  # the tree is one leaf of this many rows (no node64 row)
 
 
 class EnvC(NamedTuple):
@@ -772,7 +782,11 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
     TRI_MAX triangles): a SAH BVH with leaves of up to BVH_LEAF
     triangles, its fused-children node tables, and the table's rows
     reordered into leaf order (ops/path_megakernel.pack_scene's
-    RS_MEGA_BVH mode; all 115 columns are kept), and no chunks."""
+    RS_MEGA_BVH mode; all 115 columns are kept), and no chunks; beside
+    them the same tree's node64 rows (accel/bvh.pack_node64_tables) and
+    the leaf-order rows' cols 0:9 as 48-byte rows (`prims`), which the
+    path kernel walks (the other kernels walk the fused-children rows),
+    and `root_count`, the rows of a tree that is one leaf."""
     tri = scene.triangles
     p0 = tri.p0.astype(np.float32)
     r = _resolve_mat_arrays(scene.materials, tri.mat)
@@ -801,10 +815,16 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
             raise ValueError(f"BVH deeper than the {STACK_DEPTH}-entry traversal stack")
         nodes_f, nodes_i = pack_bvh_tables(flat)
         table = table[flat.prim_index]
+        nodes64 = pack_node64_tables(nodes_f, nodes_i)
+        prims = np.zeros((t_count, PRIM_COLS), np.float32)
+        prims[:, 0:GEO_COLS] = table[:, 0:GEO_COLS]
         tables = BvhTables(
             torch.as_tensor(nodes_f, device=device),
             torch.as_tensor(nodes_i, device=device),
             flat.max_leaf,
+            nodes64=torch.as_tensor(nodes64, device=device),
+            prims=torch.as_tensor(prims, device=device),
+            root_count=0 if nodes64.shape[0] else t_count,
         )
     elif 0 < t_count <= TRI_MAX:
         found = build_tri_chunks(table[:, 0:3], table[:, 3:6], table[:, 6:9], t_count)
@@ -1182,10 +1202,14 @@ def load_kernel():
     both taking the sphere rows, WideParams and the Halton slot matrix
     (null under the stratified sampler) after the common arguments, the
     camera entry then the textured scene's pyramid (null without one) and
-    its TexMap, and both last the chunk rows of a brute-force table and
-    their count (null and 0 with a BVH)."""
+    its TexMap, and both then the chunk rows of a brute-force table and
+    their count (null and 0 with a BVH) and last the BVH's root_count.
+    Over a BVH the common arguments' two node tables are the node64 rows
+    (null for a tree that is one leaf) and the leaf rows `prims`
+    (geometry_args with `node64`)."""
     lib = load_library("path_megakernel", "path_mega_cam",
-                       _WIDE_ARGS + (ctypes.c_void_p, ctypes.POINTER(_TexMap)) + _CHUNK_ARGS)
+                       _WIDE_ARGS + (ctypes.c_void_p, ctypes.POINTER(_TexMap)) + _CHUNK_ARGS
+                       + (ctypes.c_int,))
     if lib.path_mega_wide_params_size() != ctypes.sizeof(_WideParams):
         raise RuntimeError("path_megakernel WideParams differs from _WideParams")
     if lib.path_mega_tex_map_size() != ctypes.sizeof(_TexMap):
@@ -1194,18 +1218,19 @@ def load_kernel():
         raise RuntimeError("path_megakernel's chunk limit differs from CHUNK_MAX")
     rays = lib.path_mega_rays_launch
     rays.restype = ctypes.c_int
-    rays.argtypes = RAYS_LAUNCH_ARGS + list(_WIDE_ARGS) + list(_CHUNK_ARGS)
+    rays.argtypes = RAYS_LAUNCH_ARGS + list(_WIDE_ARGS) + list(_CHUNK_ARGS) + [ctypes.c_int]
     lib.path_mega_occupancy.restype = None
-    lib.path_mega_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.path_mega_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
-def occupancy():
-    """The last brute-force launch of the path kernel: its block size,
-    blocks resident per SM, registers per thread and dynamic shared memory
-    bytes, as the library chose and measured them (choose_block)."""
+def occupancy(bvh=False):
+    """The last brute-force (or, with `bvh`, BVH) launch of the path
+    kernel: its block size, blocks resident per SM, registers per thread
+    and dynamic shared memory bytes, as the library chose and measured
+    them (choose_block)."""
     out = (ctypes.c_int * 4)()
-    load_kernel().path_mega_occupancy(out)
+    load_kernel().path_mega_occupancy(int(bvh), out)
     return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
 
 
@@ -1287,8 +1312,8 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
     return launcher(load_kernel(), "path_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm,
                     LAUNCHES, extra=(sph, ctypes.byref(wide), reader and reader.u,
                                      None if tex is None else tex.pyr.data, ctypes.byref(tm),
-                                     *chunk_args(packed, dev)),
-                    allow_empty=sph is not None,
+                                     *chunk_args(packed, dev), root_count(packed)),
+                    allow_empty=sph is not None, node64=True,
                     variant=kernel_name("", halton=reader is not None, smooth=packed.smooth,
                                         bss=packed.bssrdf is not None, tex=tex is not None))
 
@@ -1326,20 +1351,21 @@ def prepare_rays_launch(packed, o, d, weight, pixel_id, s_idx, sampler, spec):
     sph = _sphere_arg(packed, o.device)
     return rays_launcher(load_kernel(), "path_mega", packed, o, d, weight, pixel_id, s_idx, prm,
                          LAUNCHES, extra=(sph, ctypes.byref(wide), u,
-                                          *chunk_args(packed, o.device)),
-                         allow_empty=sph is not None,
+                                          *chunk_args(packed, o.device), root_count(packed)),
+                         allow_empty=sph is not None, node64=True,
                          variant=kernel_name("", halton=u is not None, smooth=packed.smooth,
                                              bss=packed.bssrdf is not None))
 
 
 def rays_launcher(lib, prefix, packed, o, d, weight, pixel_id, s_idx, prm, launches, extra=(),
-                  allow_empty=False, variant=""):
+                  allow_empty=False, variant="", node64=False):
     """launch() for the rays-in entry `<prefix>_rays_launch` of `lib`
     (errors named by `<prefix>_cam_error_string`) on the current stream,
     returning L (N, 3): o, d (N, 3) float32, weight
     (N,), pixel_id (N,) integer, s_idx (N,) or a scalar; `extra`,
     arguments after the common ones (RAYS_LAUNCH_ARGS), kept alive with
-    it (None passes a null pointer).  Every accepted launch adds one to
+    it (None passes a null pointer); the BVH's tables as geometry_args
+    gives them with `node64`.  Every accepted launch adds one to
     `launches[prefix + variant]` (`prefix + "_bvh" + variant` for the BVH
     kernel)."""
     dev = o.device
@@ -1353,7 +1379,7 @@ def rays_launcher(lib, prefix, packed, o, d, weight, pixel_id, s_idx, prm, launc
         raise ValueError("weight must be an (N,) tensor on o's device")
     if pixel_id.shape != (n,) or pixel_id.is_floating_point() or pixel_id.device != dev:
         raise ValueError("pixel_id must be an integer (N,) tensor on o's device")
-    table, nodes_f, nodes_i = geometry_args(packed, dev, allow_empty)
+    table, nodes_f, nodes_i = geometry_args(packed, dev, allow_empty, node64)
     oc, dc = o.contiguous(), d.contiguous()
     wc = weight.to(torch.float32).contiguous()
     pid32 = pixel_id.to(torch.int32).contiguous()
@@ -1363,7 +1389,7 @@ def rays_launcher(lib, prefix, packed, o, d, weight, pixel_id, s_idx, prm, launc
     fn = getattr(lib, f"{prefix}_rays_launch")
     ptr = lambda t: None if t is None else t.data_ptr()
     extra_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra)
-    name = prefix + ("" if nodes_f is None else "_bvh") + variant
+    name = prefix + ("" if packed.bvh is None else "_bvh") + variant
 
     def launch():
         err = fn(
@@ -1381,11 +1407,20 @@ def rays_launcher(lib, prefix, packed, o, d, weight, pixel_id, s_idx, prm, launc
     return launch
 
 
-def geometry_args(packed, dev, allow_empty=False):
+def root_count(packed):
+    """The rows of a BVH that is one leaf (the path kernel's last
+    argument); 0 for a tree with interior rows, or brute force."""
+    return 0 if packed.bvh is None else packed.bvh.root_count
+
+
+def geometry_args(packed, dev, allow_empty=False, node64=False):
     """(table, nodes_f, nodes_i) of `packed`, checked for a launch on `dev`:
     a contiguous float32 (T, TABLE_COLS) table with 0 < T <= TRI_MAX
     (BVH_TRI_MAX with a BVH; T = 0 allowed with `allow_empty`) and the
-    BVH's node tables, None without."""
+    BVH's node tables, None without.  With `node64` (the path kernel) the
+    BVH's tables are (nodes64, prims) instead: the node64 rows, None for a
+    tree that is one leaf of root_count rows, and the (T, PRIM_COLS) leaf
+    rows."""
     table, bvh = packed.table, packed.bvh
     t_max = TRI_MAX if bvh is None else BVH_TRI_MAX
     if (
@@ -1402,6 +1437,19 @@ def geometry_args(packed, dev, allow_empty=False):
         )
     if bvh is None:
         return table, None, None
+    if node64:
+        nodes64, prims, t = bvh.nodes64, bvh.prims, table.shape[0]
+        if (
+            nodes64 is None or prims is None
+            or nodes64.device != dev or prims.device != dev
+            or nodes64.dtype != torch.float32 or prims.dtype != torch.float32
+            or nodes64.dim() != 2 or nodes64.shape[1] != 16 or prims.shape != (t, PRIM_COLS)
+            or not (nodes64.is_contiguous() and prims.is_contiguous())
+            or (nodes64.shape[0] == 0) != (bvh.root_count > 0) or not 0 <= bvh.root_count <= t
+        ):
+            raise ValueError(f"BVH tables must be contiguous float32 node64 rows (I, 16) and leaf "
+                             f"rows (T, {PRIM_COLS}) on {dev}, root_count > 0 exactly where I = 0")
+        return table, (nodes64 if nodes64.shape[0] else None), prims
     nodes_f, nodes_i = bvh.nodes_f, bvh.nodes_i
     m = nodes_f.shape[0]
     if (
@@ -1415,10 +1463,11 @@ def geometry_args(packed, dev, allow_empty=False):
 
 
 def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extra=(),
-             allow_empty=False, variant=""):
+             allow_empty=False, variant="", node64=False):
     """launch() for a camera-fused kernel of `lib` (see prepare_launch);
     `extra`, arguments after the common ones, are kept alive with it
-    (None passes a null pointer).  Every accepted launch adds one to
+    (None passes a null pointer); the BVH's tables as geometry_args gives
+    them with `node64`.  Every accepted launch adds one to
     `launches[prefix + variant]`, or to `launches[prefix + "_bvh" +
     variant]` for the BVH kernel."""
     dev = pixel_xy.device
@@ -1429,7 +1478,7 @@ def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extr
         raise ValueError("pixel_xy must be float32 of shape (N, 2), N > 0")
     if pixel_id.shape != (n,) or pixel_id.is_floating_point() or pixel_id.device != dev:
         raise ValueError("pixel_id must be an integer (N,) tensor on pixel_xy's device")
-    table, nodes_f, nodes_i = geometry_args(packed, dev, allow_empty)
+    table, nodes_f, nodes_i = geometry_args(packed, dev, allow_empty, node64)
     pxy = pixel_xy.contiguous()
     # u32 ids travel as their int32 bit patterns
     pid32 = pixel_id.to(torch.int32).contiguous()
@@ -1442,7 +1491,7 @@ def launcher(lib, prefix, packed, pixel_xy, pixel_id, s_idx, prm, launches, extr
     ni = None if nodes_i is None else nodes_i.data_ptr()
     extra_args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra)
     table_ptr = table.data_ptr() if table.shape[0] else None
-    name = prefix + ("" if nodes_f is None else "_bvh") + variant
+    name = prefix + ("" if packed.bvh is None else "_bvh") + variant
 
     def launch():
         err = fn(
@@ -1792,17 +1841,147 @@ def tally_lobe(work, mask, kind, pdf):
 PLAIN_BLOCK = 1 << 22  # elements of the (rays, triangles) block a brute-force plain test takes
 
 
+def walk_node64(rows, geo, max_leaf, stack_depth, o, d, t_max, live, any_hit, work=None):
+    """The binary walk over the node64 rows `rows` (accel/bvh
+    .pack_node64_tables; csrc/common.cuh Bvh64) and the leaf-order rows
+    whose cols 0:9 are `geo`, of the live lanes' rays o, d (N, 3), the rays
+    still walking compacted after every step.  A step either fetches an
+    interior row, slab-tests both children against the ray's best t, goes
+    on into the near hit child (by the sign of the ray's direction on the
+    split axis) and pushes the far one, with its leaf count, only where
+    both are hit; or tests a leaf's rows in leaf order with strict < (any
+    hit: stops at the first); a step that hits nothing pops.  That is the
+    order of the walk over the fused-children rows (PlainGeometry.walk
+    with no node64 rows, which pushes the near child and pops it at once),
+    so t, the row and any hit's row are its own.  A tree with no row is
+    one leaf of every row of `geo`.  Returns (t, leaf-order row, steps:
+    the rows fetched and leaves tested per ray), t_max, -1 and 0 where the
+    lane is not live or t_max <= 0; `work` gets the slab and
+    Moller-Trumbore tests the kernel makes ("slab", "mt") and the interior
+    rows it fetches ("node")."""
+    dev = o.device
+    count_bits = LEAF_COUNT_BITS
+    count_mask = (1 << count_bits) - 1
+    leaf_root = rows.shape[0] == 0
+    if leaf_root:
+        if geo.shape[0] > count_mask:
+            raise NotImplementedError(f"a leaf of {geo.shape[0]} triangles (a node64 walk "
+                                      f"takes leaf counts below {1 << count_bits})")
+        rows = torch.zeros((1, rows.shape[1]), dtype=rows.dtype, device=dev)
+    boxes = rows[:, :12]
+    refs = rows.view(torch.int32)[:, 12:16].to(torch.int64)  # left, right, axis, counts
+    # each child as one key, reference << LEAF_COUNT_BITS | leaf count (the
+    # walk's state and its stack entries): (I, 2) left, right
+    kids = torch.stack([refs[:, 0] << count_bits | refs[:, 3] & count_mask,
+                        refs[:, 1] << count_bits | refs[:, 3] >> count_bits], -1)
+    axis = refs[:, 2]
+    t_out = t_max.clone()
+    row_out = torch.full(t_max.shape, -1, dtype=torch.int64, device=dev)
+    steps_out = torch.zeros_like(row_out)
+    idx = torch.nonzero(live & (t_max > 0.0)).squeeze(1)
+    ro, rd = o[idx].unbind(-1), d[idx].unbind(-1)
+    inv = tuple(_inv_dir(c) for c in rd)
+    tb = t_max[idx]
+    best = torch.full_like(idx, -1)
+    key = torch.full_like(idx, (-1 << count_bits | geo.shape[0]) if leaf_root else 0)
+    steps = torch.zeros_like(idx)
+    m = idx.numel()
+    stack = torch.zeros((m, stack_depth), dtype=torch.int64, device=dev)
+    sp = torch.zeros_like(idx)
+    k = torch.arange(max(max_leaf, geo.shape[0] if leaf_root else 0), device=dev)
+    while m:
+        lane = torch.arange(m, device=dev)
+        steps = steps + 1
+        ref, count = key >> count_bits, key & count_mask
+        inner = ref >= 0
+        # an interior row: both children's boxes against the best t
+        r = torch.where(inner, ref, 0)
+        b = boxes[r]
+        hit_l = inner & _slab(b[:, 0:6], *ro, *inv, tb)
+        hit_r = inner & _slab(b[:, 6:12], *ro, *inv, tb)
+        tally(work, "slab", 2 * inner)
+        tally(work, "node", inner)
+        ax = axis[r]
+        d_ax = torch.where(ax == 0, rd[0], torch.where(ax == 1, rd[1], rd[2]))
+        near_left = d_ax >= 0.0
+        kl, kr = kids[r].unbind(-1)
+        near, far = torch.where(near_left, kl, kr), torch.where(near_left, kr, kl)
+        hit_near = torch.where(near_left, hit_l, hit_r)
+        hit_far = torch.where(near_left, hit_r, hit_l)
+        push = hit_near & hit_far
+        slot = sp.clamp(max=stack_depth - 1)  # the packer sizes the stack
+        stack[lane, slot] = torch.where(push, far, stack[lane, slot])
+        sp = sp + push
+        nxt = torch.where(hit_near, near, far)
+        # a leaf: its rows in leaf order
+        first_row = -1 - ref
+        valid = ~inner[:, None] & (k < count[:, None])
+        g = geo[torch.where(valid, first_row[:, None] + k, 0)].unbind(-1)
+        hit, t = _mt(g, *(x[:, None] for x in ro + rd))
+        hit = valid & hit & (t < tb[:, None])
+        found = hit.any(1)
+        if any_hit:
+            # the kernel stops at the first hit: it tests the leaf up to it
+            first = torch.where(hit, k, k.numel()).min(1).values
+            tally(work, "mt", torch.where(found, first + 1, valid.sum(1)))
+            best = torch.where(found, first_row + first, best)
+        else:
+            tally(work, "mt", valid)
+            tm = torch.where(hit, t, BIG_T)
+            t_min = tm.min(1).values
+            first = torch.where(hit & (tm == t_min[:, None]), k, k.numel()).min(1).values
+            tb = torch.where(found, t_min, tb)
+            best = torch.where(found, first_row + first, best)
+        # a leaf, or a row with neither child hit: pop
+        pop = ~inner | ~(hit_near | hit_far)
+        popped = pop & (sp > 0)
+        sp = sp - popped.long()
+        key = torch.where(popped, stack[lane, sp.clamp(min=0)], nxt)
+        done = (pop & ~popped) | (found if any_hit else False)
+        if bool(done.any()):
+            t_out[idx[done]] = tb[done]
+            row_out[idx[done]] = best[done]
+            steps_out[idx[done]] = steps[done]
+            keep = ~done
+            idx, tb, best, steps, key = idx[keep], tb[keep], best[keep], steps[keep], key[keep]
+            stack, sp = stack[keep], sp[keep]
+            ro = tuple(c[keep] for c in ro)
+            rd = tuple(c[keep] for c in rd)
+            inv = tuple(c[keep] for c in inv)
+            m = idx.numel()
+    return t_out, row_out, steps_out
+
+
+def tally_steps(work, tag, steps, walked):
+    """A batch of walks' lengths (walk_node64's steps) under `tag`: the
+    walks ("<tag>_walks") and their steps ("<tag>_steps"), and per warp of
+    WARP consecutive lanes with a walk ("<tag>_warps") its longest walk
+    ("<tag>_warp_steps"), the steps the warp's lanes wait on together."""
+    if work is None:
+        return
+    tally(work, f"{tag}_walks", walked)
+    tally(work, f"{tag}_steps", steps)
+    tally(work, f"{tag}_warps", _warps(walked.long()).any(1))
+    tally(work, f"{tag}_warp_steps", _warps(steps).amax(1))
+
+
 class PlainGeometry:
-    """The kernels' geometry (csrc/common.cuh, Geometry) on flat (N,)
-    tensors.  Brute force: every triangle in table order, strict < (ties
-    keep the lower row), a block of triangles tested at a time.  BVH: the
-    per-ray stack walk, the rays that still walk compacted after every
-    step; at an interior node both children's boxes are slab-tested
-    against the ray's best t and only hit children are pushed, the near
-    child (by the sign of the ray's direction on the split axis) last; a
-    leaf tests its triangles in table order with strict <.  `work`, when
-    given, counts the Moller-Trumbore ("mt") and slab ("slab") tests of
-    the live rays, as the kernel performs them.  With `cull` (K1's and
+    """The kernels' geometry (csrc/common.cuh: Geometry, ChunkGeometry,
+    Bvh64) on flat (N,) tensors.  Brute force: every triangle in table
+    order, strict < (ties keep the lower row), a block of triangles tested
+    at a time.  BVH: the per-ray walk of the node64 rows (walk_node64, the
+    path kernel's Bvh64), the rays that still walk compacted after every
+    step; or, where the tables have no node64 rows, the stack walk of the
+    fused-children rows (Geometry<true>, the other kernels' walk): at an
+    interior node both children's boxes are slab-tested against the ray's
+    best t and only hit children are pushed, the near child (by the sign
+    of the ray's direction on the split axis) last; a leaf tests its
+    triangles in table order with strict <.  Both visit in one order and
+    make the same tests, so they find the same hits.  `work`, when given,
+    counts the Moller-Trumbore ("mt") and slab ("slab") tests of the live
+    rays, as the kernel performs them, and on the node64 rows the
+    interior rows fetched ("node") and each walk's steps (tally_steps,
+    tagged "closest", "any" or the caller's `tag`).  With `cull` (K1's and
     K6's plain versions; the other kernels walk every row) brute force
     takes the chunked walk over `packed.chunks` (chunk_walk), which finds
     the same hits."""
@@ -1816,17 +1995,22 @@ class PlainGeometry:
             self.cols = self.table[:, :9].T.contiguous()  # (9, T): p0, e1, e2
             if cull and packed.chunks is not None:
                 self.chunks = packed.chunks.to(device)
+        elif self.bvh.nodes64 is not None:
+            self.nodes64 = self.bvh.nodes64.to(device)
+            self.geo = self.bvh.prims.to(device)[:, :GEO_COLS]
         else:
+            self.nodes64 = None
             self.geo = self.table[:, :9].contiguous()
             self.nodes_f = self.bvh.nodes_f.to(device)
             self.nodes_i = self.bvh.nodes_i.to(device).to(torch.int64)
 
-    def closest(self, ox, oy, oz, dx, dy, dz, live, t_lim=BIG_T):
+    def closest(self, ox, oy, oz, dx, dy, dz, live, t_lim=BIG_T, tag="closest"):
         """(t, row) of the closest hit with t < t_lim (a float or per ray),
         t = t_lim and row -1 on a miss; a lane that is not live reports a
-        miss."""
+        miss.  `tag` names the walks' steps in `work`."""
         if self.bvh is not None:
-            return self.walk(ox, oy, oz, dx, dy, dz, torch.zeros_like(ox) + t_lim, live, False)
+            return self.walk(ox, oy, oz, dx, dy, dz, torch.zeros_like(ox) + t_lim, live, False,
+                             tag)
         if self.chunks is not None:
             return chunk_walk(self.cols, self.chunks, ox, oy, oz, dx, dy, dz,
                               torch.zeros_like(ox) + t_lim, live, False, self.work)
@@ -1857,7 +2041,7 @@ class PlainGeometry:
         if self.bvh is not None or self.chunks is not None:
             t_bound = torch.zeros_like(ox) + t_max
             if self.bvh is not None:
-                _, row = self.walk(ox, oy, oz, dx, dy, dz, t_bound, live, True)
+                _, row = self.walk(ox, oy, oz, dx, dy, dz, t_bound, live, True, "any")
             else:
                 _, row = chunk_walk(self.cols, self.chunks, ox, oy, oz, dx, dy, dz, t_bound, live,
                                     True, self.work)
@@ -1876,11 +2060,20 @@ class PlainGeometry:
         tally(self.work, "mt", tests)
         return occ
 
-    def walk(self, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit):
-        """The BVH stack walk of the live rays, bounded by the per-ray
-        t_bound: (t, table row), t_bound and -1 where nothing is hit; with
-        any_hit a ray stops at its first hit (its row; its t is then
-        t_bound)."""
+    def walk(self, ox, oy, oz, dx, dy, dz, t_bound, live, any_hit, tag=None):
+        """The BVH walk of the live rays, bounded by the per-ray t_bound:
+        (t, table row), t_bound and -1 where nothing is hit; with any_hit a
+        ray stops at its first hit (its row; its t is then t_bound).  Over
+        the node64 rows where the tables have them, else over the
+        fused-children rows; the node64 walk's steps go to `work` under
+        `tag` (tally_steps)."""
+        if self.nodes64 is not None:
+            o, d = torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)
+            t, row, steps = walk_node64(self.nodes64, self.geo, self.bvh.max_leaf, self.bvh.stack,
+                                        o, d, t_bound, live, any_hit, self.work)
+            if tag is not None:
+                tally_steps(self.work, tag, steps, live & (t_bound > 0.0))
+            return t, row
         t_out = t_bound.clone()
         row_out = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
         idx = torch.nonzero(live).squeeze(1)
@@ -2645,7 +2838,7 @@ def subsurface_reference(geom, bss, p, frame, us, is_trans, beta, light_p, light
         inv_sl = 1.0 / torch.clamp(sl, min=1e-20)
         pdx, pdy, pdz = sgx * inv_sl, sgy * inv_sl, sgz * inv_sl
         live = alive & (sl > 1e-9)
-        t, best = geom.closest(cx, cy, cz, pdx, pdy, pdz, live, sl * (1.0 - 1e-4))
+        t, best = geom.closest(cx, cy, cz, pdx, pdy, pdz, live, sl * (1.0 - 1e-4), tag="probe")
         gk = live & (best >= 0)
         nrm = geom.table[best.clamp(min=0), 9:12]
         pnx, pny, pnz = (torch.where(gk, nrm[:, c], 0.0) for c in range(3))

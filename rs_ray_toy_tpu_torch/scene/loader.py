@@ -12,13 +12,16 @@ metal, mirror, glass, translucent, mix, Disney with its BSSRDF, debug),
 diffuse lights on a sphere (a partial one sampled whole, as the JAX
 loader does) or one triangle `light_shape`, infinite lights in `lights`
 and `infinite_lights` on a constant map (no `mapname`, or one that does
-not exist), the camera medium (`Camera.medium`: Homogeneous or
+not exist); a point, distant or diffuse light listed in `infinite_lights`
+is one more NEE light, and a light of an unknown `light_type` or a
+diffuse light of an unknown `shape_type` is skipped, as in the JAX
+loader; the camera medium (`Camera.medium`: Homogeneous or
 GridDensity, by preset or the reference's default coefficients), Film,
 StratifiedSampler, HaltonSampler, RealisticCamera and the Path, Debug,
 DirectLighting, Volpath, SPPM and AO integrators (any other name is AO,
 as in the JAX package).  Every other feature the schema can name raises
 NotImplementedError with the feature's name (an existing environment
-image among them); nothing is dropped silently.  Host numpy throughout;
+image among them); beside those lights, nothing is dropped silently.  Host numpy throughout;
 `load_scene` returns the same `RenderJob` fields as the JAX package.
 """
 
@@ -610,7 +613,8 @@ def _diffuse_shape(lcfg, meshes):
     """A diffuse light's shape (renderprocess.rs:999-1017): (shape kind,
     sphere o2w, sphere radius, triangle vertices, area).  A sphere's area
     is the full sphere's and it is sampled whole, whatever its clips (the
-    JAX loader's)."""
+    JAX loader's).  None for a shape_type other than sphere or triangle:
+    the JAX loader skips such a light without a word."""
     shape_cfg = lcfg.get("light_shape")
     if not isinstance(shape_cfg, dict):
         raise NotImplementedError("diffuse lights without a light_shape")
@@ -627,7 +631,7 @@ def _diffuse_shape(lcfg, meshes):
         p = tri["p"]
         area = 0.5 * np.linalg.norm(np.cross(p[1] - p[0], p[2] - p[0]))
         return AREA_SHAPE_TRIANGLE, np.eye(4), 1.0, p, area
-    raise NotImplementedError(f"diffuse lights on a {stype or 'untyped'} light_shape")
+    return None
 
 
 def _build_env_map(texmap_path, to_world: Transform, escape_le):
@@ -656,9 +660,13 @@ def _build_env_map(texmap_path, to_world: Transform, escape_le):
 
 
 def _make_lights(cfg, meshes, world_radius, root_dir):
-    """(LightSoA of the `lights` section, environments).  An infinite
-    light in `lights` is sampled by NEE; one in `infinite_lights` is
-    collected by escaped rays only (scene.rs keeps the two lists)."""
+    """(LightSoA, environments).  An infinite light in `lights` is sampled
+    by NEE; one in `infinite_lights` is collected by escaped rays only
+    (scene.rs keeps the two lists).  As in the JAX loader, a point,
+    distant or diffuse light is an NEE light in either section (the
+    `infinite_lights` ones after the `lights` ones), and a light of an
+    unknown light_type, or a diffuse light of an unknown shape_type, is
+    skipped."""
     rows = []
     infinite: List[EnvLight] = []
     escape_only: List[EnvLight] = []
@@ -684,8 +692,6 @@ def _make_lights(cfg, meshes, world_radius, root_dir):
                 infinite.append(env)
                 row(LIGHT_INFINITE, make_spectrum(lcfg, "l", 1.0) * make_spectrum(lcfg, "scale", 1.0),
                     env_id=len(infinite) - 1, n_samples=read_i64(lcfg, "n_samples", 1))
-            elif escape:
-                raise NotImplementedError(f"{ltype or 'untyped'} lights in infinite_lights")
             elif ltype == "point":
                 # PointLight at the light-to-world image of the origin
                 row(LIGHT_POINT, make_spectrum(lcfg, "spectrum", 1.0),
@@ -697,10 +703,10 @@ def _make_lights(cfg, meshes, world_radius, root_dir):
                 row(LIGHT_DISTANT, make_spectrum(lcfg, "l", 1.0) * make_spectrum(lcfg, "scale", 1.0),
                     w=d / np.linalg.norm(d))
             elif ltype == "diffuse":
-                row(LIGHT_DIFFUSE_AREA, make_spectrum(lcfg, "spectrum", 1.0),
-                    shape=_diffuse_shape(lcfg, meshes), n_samples=read_i64(lcfg, "n_samples", 1))
-            else:
-                raise NotImplementedError(f"{ltype or 'untyped'} lights")
+                shape = _diffuse_shape(lcfg, meshes)
+                if shape is not None:
+                    row(LIGHT_DIFFUSE_AREA, make_spectrum(lcfg, "spectrum", 1.0),
+                        shape=shape, n_samples=read_i64(lcfg, "n_samples", 1))
     n = len(rows)
     col = lambda i, dtype, shape: np.asarray([r[i] for r in rows], dtype).reshape((n,) + shape)
     lights = LightSoA(

@@ -1,8 +1,8 @@
 """The redesigned walks against another revision's, on one NVIDIA GPU: the
-path kernel's brute-force instances (K1), the Volpath kernel's (K6) and
-the wavefront loop's BVH closest and any hit (K3).
+path kernel's brute-force instances (K1) and BVH instances (K1 BVH), the
+Volpath kernel's (K6) and the wavefront loop's BVH closest and any hit (K3).
 
-    python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR [--reps 10] [--out DIR] [--only k3,k6]
+    python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR [--reps 10] [--out DIR] [--only k1bvh]
     python -m rs_ray_toy_tpu_torch.walk_ab --variant NAME [--only k3] ...
     python -m rs_ray_toy_tpu_torch.walk_ab --counts [--device cpu] [--scale 4]
 
@@ -12,10 +12,14 @@ of this tree (under --out) with one of VARIANTS' source edits, the design
 choices of the redesigned walks undone one at a time: `no_prefetch` (K3's
 node64 walk loads each leaf row when it tests it, not the next row's while
 it tests one), `late_ray_loads` (bvh64_kernel loads a ray's origin and
-direction after it tests t_max) and `swap_k6_cap` (K6's chunked walk takes
+direction after it tests t_max), `swap_k6_cap` (K6's chunked walk takes
 the register-capped instance for grid media and the uncapped one for
-homogeneous media, the other way round).  `--only` keeps the cases of
-some kernels: k1, k6, k3.  Each tree builds its own kernels; then a
+homogeneous media, the other way round), `uncap_bvh_regs` (K1's BVH
+instances without the launch bound that caps their registers for 9
+resident blocks an SM) and `inline_bss_walks` (K1's subsurface BVH
+instances inline their walks at every call site instead of calling one
+copy of each).  `--only` keeps the cases of
+some kernels: k1, k6, k3, k1bvh.  Each tree builds its own kernels; then a
 worker process runs under each tree in turns (the other revision, this
 tree, this tree, the other revision), so that both meet the card in the
 same state.  A worker times each case's launch with CUDA events (median of
@@ -24,7 +28,14 @@ each case through `li_path_mega_cam`, and `li_path_mega` on the pass's
 camera rays; the cases cover every brute-force instance the fixtures reach
 (base, spheres, environment, Halton, smooth, Halton + smooth, Disney,
 subsurface, subsurface + Halton, textured) and, as a yardstick, the smooth
-fixture through the BVH instances (`pack_scene(..., bvh=True)`).  K6: one
+fixture through the BVH instances (`pack_scene(..., bvh=True)`).  K1 BVH
+(#2, #4): one sample pass of each of K1BVH_CASES through the BVH instances
+at chip_smoke.py's sizes (the 19,224-triangle grid of cubes, with the
+sphere-area fixture's spheres and light, in the subsurface, Disney and
+textured materials, under a 6-sample HaltonSampler, write_smooth_grid_scene's
+20 spheres and the smooth fixture packed with bvh=True), 8 stratified
+samples a pixel for the grids at 640x360 (1.84M rays), and the rays-in
+twin on the pass's camera rays (not the textured grid's).  K6: one
 pass of the fog fixture, fog_area and the 16^3 grid fog through
 `li_volpath_mega_cam` at chip_smoke.py's sizes, and the fog's camera rays
 through `li_volpath_mega`.  K3: the loop's closest-hit or any-hit walk
@@ -40,7 +51,7 @@ registers, shared memory) where it reports one.  Both workers' records go
 to --out.
 
 `--counts` runs no kernel: the plain versions, on --device, count what
-the redesigned walks do.  K6 (fog, fog_area, grid_fog, their films
+the redesigned walks do (only the groups of --only).  K6 (fog, fog_area, grid_fog, their films
 divided by --scale on each side): per ray the chunked walk's MT and chunk
 box tests and the MT tests of the walk over every row, and per warp of 32
 consecutive rays (the kernel's lanes) the chunks whose rows it runs and
@@ -50,7 +61,13 @@ those rows against the rows the walk over every row runs it (chunk_walk's
 rows fetched and leaves tested; accel/traverse.step_stats: mean, 99th
 percentile, the warps' longest walks) on the ao-grid's first probe batch
 (any hit, and closest hit on the same rays) and on the probe chain's first
-batch (closest hit).  The last line is a JSON object of those numbers.
+batch (closest hit).  K1 BVH, on a CUDA device only: over the first
+quarter of each K1BVH_CASES pass (consecutive rays, so that 32 of them are
+a warp's lanes), the node64 walk's steps per walk and per warp its longest
+walk (PlainGeometry's step tallies), apart for the closest hits, the any
+hits (shadow rays) and the subsurface probe chain's closest hits, and per
+ray its MT and slab tests and interior rows.  The last line is a JSON
+object of those numbers.
 """
 
 import argparse
@@ -79,6 +96,19 @@ CASES = {
     "textured": ("scene_textured.json", False, False, False),
     "smooth_bvh": ("scene_smooth.json", False, True, True),
 }
+# K1's BVH instances: case -> (scene, Halton 6 spp, rays-in twin); the
+# scenes as k1bvh_job writes them
+K1BVH_CASES = {
+    "grid": ("grid", False, True),
+    "grid_spheres": ("grid_spheres", False, True),
+    "grid_sss": ("grid_sss", False, True),
+    "smooth_grid20": ("smooth_grid20", False, True),
+    "grid_halton6": ("grid", True, True),
+    "smooth_grid20_halton6": ("smooth_grid20", True, True),
+    "disney_grid": ("grid_disney", False, True),
+    "textured_grid": ("grid_tex", False, False),
+    "smooth_fixture": ("smooth", False, True),
+}
 VOL_CASES = ("fog", "fog_area", "grid_fog")  # K6, the fog's rays-in twin too
 # K3: case -> (first-pass batch, any hit)
 BVH_CASES = {
@@ -90,7 +120,7 @@ BVH_CASES = {
     "deep_closest": ("deep", False),
     "deep_any": ("deep", True),
 }
-GROUPS = ("k1", "k6", "k3")  # --only: CASES, VOL_CASES, BVH_CASES
+GROUPS = ("k1", "k6", "k3", "k1bvh")  # --only: CASES, VOL_CASES, BVH_CASES, K1BVH_CASES
 _LEAF_LOOP = """        const float4* row = prims + 3 * (size_t)first;
         float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
         for (int j = first; j < end; ++j) {
@@ -127,6 +157,14 @@ VARIANTS = {
     const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
     const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1), dz = __ldg(d + 3 * i + 2);
 """),
+    ],
+    "inline_bss_walks": [
+        ("csrc/path_megakernel.cu", "Bvh64Geometry<STACK_DEPTH, kBss>",
+         "Bvh64Geometry<STACK_DEPTH, false>"),
+    ],
+    "uncap_bvh_regs": [
+        ("csrc/path_megakernel.cu", "__launch_bounds__(BLOCK, BVH_MIN_BLOCKS)",
+         "__launch_bounds__(BLOCK, 1)"),
     ],
     "swap_k6_cap": [
         ("csrc/volpath_megakernel.cu", _K6_CAP,
@@ -219,6 +257,34 @@ def vol_scene(case, out):
     return write_grid_fog_scene(str(out / "grid_fog"), n=16, sigma_scale=0.5)
 
 
+def k1bvh_job(scene, halton, out):
+    """The job of a K1BVH_CASES scene, written under out as chip_smoke.py's
+    phases 4, 8c, 9f, 9i, 10b, 11b and 12c write it: 640x360, a grid at 8
+    stratified samples a pixel (1.84M rays), or with `halton` one pass of
+    6 Halton samples (1.38M rays)."""
+    from rs_ray_toy_tpu_torch.scene.gen import (write_grid_scene, write_smooth_grid_scene,
+                                                write_variant)
+    from rs_ray_toy_tpu_torch.scene.loader import load_scene
+
+    bases = {"grid": "scene.json", "grid_spheres": "scene_sphere_area.json",
+             "grid_sss": "scene_sss.json", "grid_disney": "scene_disney.json"}
+    where = str(out / scene)
+    if scene == "smooth":
+        path = str(SAMPLES / "scene_smooth.json")
+    elif scene == "smooth_grid20":
+        path = write_smooth_grid_scene(where, n=20)
+    elif scene == "grid_tex":
+        path = write_grid_scene(where, textured=True)
+    else:
+        path = write_grid_scene(where, base=str(SAMPLES / bases[scene]))
+    if halton:
+        path = write_variant(path, where + "_halton6", 640, 360, HALTON6)
+    job = load_scene(path)
+    if not halton and scene != "smooth":
+        job.sampler.xsamp, job.sampler.ysamp = 2, 4
+    return job
+
+
 def bvh_batches(out, dev):
     """{batch: (SceneCtx, (o, d, t_max))} of the K3 cases, at chip_smoke.py's
     sizes (phases 7b, 7c, 11e and 12e)."""
@@ -285,6 +351,11 @@ def worker(out, reps, only):
         rec = {"rays": pxy.shape[0], "ms": timed_ms(launch)}
         if packed.bvh is None:
             rec["occupancy"] = occupancy(mod)
+        elif mod is pmk:
+            try:  # a revision that reports the BVH instances' occupancy
+                rec["occupancy"] = mod.occupancy(bvh=True)
+            except TypeError:
+                pass
         l, _ = launch()
         saved = {"cam": l.cpu()}
         if rays:
@@ -302,6 +373,9 @@ def worker(out, reps, only):
             path = write_variant(str(path), str(out / "scenes" / case), 640, 360, HALTON6)
         job = load_scene(str(path))
         camera_pass(case, pmk, pmk.pack_scene(job.scene, dev, bvh=bvh or None), job, rays)
+    for case, (scene, halton, rays) in (K1BVH_CASES.items() if "k1bvh" in only else ()):
+        job = k1bvh_job(scene, halton, out / "scenes")
+        camera_pass(case, pmk, pmk.pack_scene(job.scene, dev, bvh=True), job, rays)
     for case in (VOL_CASES if "k6" in only else ()):
         job = load_scene(vol_scene(case, out / "scenes"))
         camera_pass(case, vmk, vmk.pack_volpath(job.scene, dev), job, case == "fog")
@@ -338,9 +412,25 @@ def chunk_counts(work, n):
                 warp_row_share=w["mt_warp"] / w["mt_brute_warp"])
 
 
-def counts(dev, scale):
+def step_counts(work, n):
+    """The node64 walk's counts of a plain K1 run over n consecutive rays
+    (PlainGeometry's tallies): per ray its MT and slab tests and interior
+    rows; per kind of walk (closest, any, probe) the walks, their mean
+    steps and the mean over the warps of each warp's longest walk."""
+    w = {k: float(v) for k, v in work.items()}
+    out = dict(rays=n, mt_per_ray=w["mt"] / n, slab_per_ray=w["slab"] / n,
+               node_per_ray=w["node"] / n)
+    for tag in ("closest", "any", "probe"):
+        if w.get(f"{tag}_walks"):
+            out[tag] = dict(walks=w[f"{tag}_walks"],
+                            steps_per_walk=w[f"{tag}_steps"] / w[f"{tag}_walks"],
+                            warp_longest=w[f"{tag}_warp_steps"] / w[f"{tag}_warps"])
+    return out
+
+
+def counts(dev, scale, only=GROUPS):
     """The plain versions' counts of the redesigned walks (the module
-    docstring's --counts); returns them as a dict."""
+    docstring's --counts) of the groups `only`; returns them as a dict."""
     import torch
 
     from rs_ray_toy_tpu_torch.accel import traverse
@@ -352,7 +442,20 @@ def counts(dev, scale):
 
     out = ROOT / "build" / "walk_counts"
     found = {}
-    for case in VOL_CASES:
+    cuda = torch.device(dev).type == "cuda"
+    for case, (scene, halton, _) in (K1BVH_CASES.items() if cuda and "k1bvh" in only else ()):
+        job = k1bvh_job(scene, halton, out)
+        packed = pmk.pack_scene(job.scene, dev, bvh=True)
+        cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+        sampler = make_sampler(job)
+        pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+        part = slice(0, pxy.shape[0] // 4)
+        work = {}
+        pmk.li_path_mega_cam_reference(packed, cam, pxy[part], pid[part], soff[part], sampler,
+                                       job.integrator, work=work)
+        found[case] = step_counts(work, pxy[part].shape[0])
+        print(f"{case}: {found[case]}", flush=True)
+    for case in (VOL_CASES if "k6" in only else ()):
         job = load_scene(vol_scene(case, out))
         job.film.xres, job.film.yres = job.film.xres // scale, job.film.yres // scale
         packed = vmk.pack_volpath(job.scene, dev)
@@ -366,7 +469,7 @@ def counts(dev, scale):
                            chunks=int(packed.chunks.shape[0]), rows=int(packed.table.shape[0]),
                            **chunk_counts(work, pxy.shape[0]))
         print(f"{case}: {found[case]}", flush=True)
-    if torch.device(dev).type == "cuda":
+    if cuda and "k3" in only:
         batches = bvh_batches(out, dev)
         for case, (batch, any_hit) in BVH_CASES.items():
             if batch not in ("ao_grid", "probe_chain"):
@@ -422,7 +525,7 @@ def main(argv=None):
     if a.worker:
         return worker(a.worker, a.reps, only)
     if a.counts:
-        print(json.dumps(counts(a.device, a.scale)))
+        print(json.dumps(counts(a.device, a.scale, only)))
         return None
     import torch
 
@@ -448,7 +551,7 @@ def main(argv=None):
     times = {f"{n}{k}": json.loads((out / f"{n}{k}" / "times.json").read_text())
              for n, k in turns}
     summary = {}
-    groups = dict(zip(GROUPS, (CASES, VOL_CASES, BVH_CASES)))
+    groups = dict(zip(GROUPS, (CASES, VOL_CASES, BVH_CASES, K1BVH_CASES)))
     for case in (c for g in only for c in groups[g]):
         ref = torch.load(out / "parent0" / f"{case}.pt")
         new = torch.load(out / "change0" / f"{case}.pt")

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from rs_ray_toy_tpu_torch.accel import traverse
-from rs_ray_toy_tpu_torch.accel.bvh import pack_node64_tables
+from rs_ray_toy_tpu_torch.accel.bvh import build_bvh, pack_node64_tables, tree_depth
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.integrators import sppm
 from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
@@ -1024,6 +1024,74 @@ def test_node64_walk_leaves_past_row_2_23(tmp_path):
         idx_r = torch.where(row_r >= 0, prims_i[row_r.clamp(min=0), 0].long(), -1)
         t, idx = bk.prepare_launch(tables, o, d, t_max, any_hit)()
         assert torch.equal(idx.long(), idx_r) and torch.equal(t, t_r)
+
+
+def _k1_bvh_scene(tmp_path, scene):
+    """A scene K1 packs with bvh=True: the 8x8 grid of cubes (792
+    triangles), the fixture's middle cube alone in matte (12 triangles: the
+    tree is one leaf) or write_deep_bvh_scene's tree of STACK_DEPTH - 1 =
+    63 levels (264 triangles), at 64x36."""
+    if scene == "grid8":
+        return load_scene(write_grid_scene(str(tmp_path), ny=8, nz=8, xres=64, yres=36))
+    if scene == "deep63":
+        return load_scene(write_deep_bvh_scene(str(tmp_path), integrator="Path", n_bulk=150,
+                                               reach=19, xres=64, yres=36))
+    cfg = json.loads((SAMPLES / "scene.json").read_text())
+    cfg["Film"]["xres"], cfg["Film"]["yres"] = 64, 36
+    cfg["Aggregate"]["primitives"] = [dict(cfg["Aggregate"]["primitives"][2],
+                                           material_name="mat_matte")]
+    shutil.copy(SAMPLES / "cube.obj", tmp_path)
+    (tmp_path / "scene.json").write_text(json.dumps(cfg))
+    return load_scene(str(tmp_path / "scene.json"))
+
+
+@pytest.mark.parametrize("scene", ["grid8", "one_leaf", "deep63"])
+def test_k1_bvh_walk_matches_plain_version(tmp_path, scene):
+    """K1's BVH tables (pack_scene(..., bvh=True): the node64 rows, the
+    48-byte leaf rows, root_count) walked on the card by the walk K1's BVH
+    instances run (common.cuh Bvh64, launched alone as bvh64_kernel) on
+    2^16 seeded rays: t and leaf-order row (any hit: the row it stopped at)
+    equal to the plain version's walk on every ray; then the camera and
+    rays-in BVH instances on one 16-spp pass against their plain versions
+    at the per-ray bar, their launches counted, and the BVH launch's
+    occupancy reported."""
+    dev = _device()
+    job = _k1_bvh_scene(tmp_path, scene)
+    packed = pmk.pack_scene(job.scene, dev, bvh=True)
+    bvh, n = packed.bvh, packed.table.shape[0]
+    depth = tree_depth(build_bvh(job.scene.triangles, pmk.BVH_LEAF))
+    assert (bvh.root_count == n) == (scene == "one_leaf") and (bvh.root_count in (0, n))
+    assert (depth == pmk.STACK_DEPTH - 1) == (scene == "deep63")
+    # K1's rows as K3's tables, prims_i's first column the leaf-order row
+    prims_i = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    prims_i[:, 0] = torch.arange(n, device=dev)
+    tables = bk.BvhTables(bvh.nodes_f, bvh.nodes_i, bvh.prims, prims_i,
+                          torch.zeros((n, 15), device=dev), bvh.max_leaf, depth,
+                          nodes64=bvh.nodes64)
+    box = {"grid8": ((-6.0, 6.0), (-6.0, 6.0)), "one_leaf": ((-1.0, 1.0), (-2.8, -0.8)),
+           "deep63": ((-1.5, 1.5), (-1.5, 1.5))}[scene]
+    o, d, t_max = _aimed_rays(1 << 16, 5, dev, x=(34.0, 36.0), y=box[0], z=box[1])
+    geom = pmk.PlainGeometry(packed, dev)
+    live = torch.ones(1 << 16, dtype=torch.bool, device=dev)
+    for any_hit in (False, True):
+        t_r, row_r = geom.walk(*o.unbind(-1), *d.unbind(-1), t_max.clone(), live, any_hit)
+        assert int((row_r >= 0).sum()) > 1000
+        t, row = bk.prepare_launch(tables, o, d, t_max, any_hit)()
+        assert torch.equal(row.long(), row_r) and torch.equal(t, t_r)
+    packed_rays = _hold(pmk, job, dev, bvh=True)
+    assert packed_rays.bvh is not None
+    occ = pmk.occupancy(bvh=True)
+    assert occ["blocks_per_sm"] > 0 and occ["block"] % 32 == 0 and occ["smem"] == 0
+    camera = RealisticCamera(job.camera, job.film, pupil_samples=1 << 14, device=dev)
+    sampler = StratifiedSampler(job.sampler)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    o, d, wt = camera_rays(camera, sampler, pxy, pid, soff)
+    rays = (packed, o, d, wt, pid, soff, sampler, job.integrator)
+    before = pmk.LAUNCHES["path_mega_bvh"]
+    l = pmk.li_path_mega(*rays)
+    torch.cuda.synchronize()
+    assert pmk.LAUNCHES["path_mega_bvh"] == before + 1
+    _wide_bar(l, pmk.li_path_mega_reference(*rays))
 
 
 @pytest.mark.parametrize("medium", ["homogeneous", "area", "grid"])
