@@ -20,12 +20,15 @@ Phase 2  the Path main path: renders samples/scene.json at 640x360, 16
          the walk over every row would make, the bound of that walk
          beside the bound, and the block size, blocks per SM, registers
          and shared memory of the launch (pmk.occupancy, ik.occupancy);
-         every hold of the path kernel's BVH instances (phases 4, 8c, 8e,
-         9f, 9i, 10b, 11b-d, 12c), which walk the node64 rows and the
-         48-byte leaf rows (common.cuh Bvh64), prints that walk's MT and
-         slab tests and interior rows a ray, its steps a walk (closest
-         hits, any hits and the subsurface probe chain's apart) and the
-         launch's occupancy (pmk.occupancy(bvh=True)).
+         every hold of the path, direct and Volpath kernels' BVH
+         instances (phases 4, 5d, 8c, 8e, 9f, 9i, 10b, 11b-d, 12c, 13c,
+         13d), which walk the node64 rows and the 48-byte leaf rows
+         (common.cuh Bvh64), prints that walk's MT and slab tests and
+         interior rows a ray, its steps a walk (closest hits, any hits and
+         the subsurface probe chain's apart) and the launch's occupancy
+         (`occupancy(bvh=True)` of the kernel's module; for the direct and
+         Volpath instances also ptxas's spill stores, and the `kernels`
+         line carries it).
 Phase 3  the Debug main path: the same for samples/scene_debug.json
          (Debug, max_depth 4) through the direct kernel; then a 160x90x16
          DirectLighting variant with the one-light strategy, held to the
@@ -356,10 +359,11 @@ writes 6 attribute floats more a ray) and 2 ints of each triangle;
 their operations are the Moller-Trumbore and slab tests the plain
 version counts.  The node64 walk reads each interior node's 64-byte row
 once instead of every node's fused-children columns (its slab and MT
-tests are the binary walk's, counted by its plain version), and in the
-path kernel's BVH instances each leaf row's 48 bytes once instead of the
-table's 9 geometry columns (the flat untextured instances read none of
-those: they shade from the other columns); the BVH4
+tests are the binary walk's, counted by its plain version, an any hit's
+MT tests up to the row where it stops), and in the path, direct and
+Volpath kernels' BVH instances each leaf row's 48 bytes once instead of
+the table's 9 geometry columns (the flat untextured instances read none
+of those: they shade from the other columns); the BVH4
 walk reads each wide node's 144 bytes once instead of the binary nodes,
 and its plain version counts a slab test for each non-empty child slot
 it tests.  No single PyTorch call computes a sample pass, any of
@@ -443,6 +447,7 @@ SCENE_SPPM_GLASS = ROOT / "samples" / "scene_sppm_glass.json"
 SCENE_SPPM_DISNEY = ROOT / "samples" / "scene_sppm_disney.json"
 HALTON6 = {"sampler_type": "HaltonSampler", "nsamp": 6}
 OUT = ROOT / "build" / "chip_smoke"
+PTXAS = {}  # phase 0's ptxas lines by kernel source
 PATH_SRC = "rs_ray_toy_tpu_torch/csrc/path_megakernel.cu"
 DIRECT_SRC = "rs_ray_toy_tpu_torch/csrc/direct_megakernel.cu"
 VOLPATH_SRC = "rs_ray_toy_tpu_torch/csrc/volpath_megakernel.cu"
@@ -723,6 +728,8 @@ def walk_text(held):
     occ = held.get("occupancy")
     occ_s = (f"; block {occ['block']}, {occ['blocks_per_sm']} blocks/SM, {occ['registers']} "
              f"registers, {occ['smem']} B shared" if occ else "")
+    if occ and "spill_stores" in occ:
+        occ_s += f", {occ['stack']} B stack, {occ['spill_stores']} B spill stores"
     if "node_per_ray" in held:
         steps = ", ".join(f"{held[k]:.2f} {k.split('_')[0]}" for k in
                           ("closest_steps_per_walk", "any_steps_per_walk",
@@ -812,19 +819,15 @@ def hold(mod, job, stride, dev):
     max_abs_err = max(float((l[sub] - l_ref).abs().max()), float((w[sub] - w_ref).abs().max()))
     del l, w, l_ref, w_ref
     ms = timed_ms(mod.prepare_launch(*args), reps=10)
-    bvh = packed.bvh is not None
-    extra = ({"occupancy": mod.occupancy(bvh=True)} if mod is pmk and bvh
-             else {"occupancy": mod.occupancy()} if mod in (pmk, vmk) and not bvh else {})
+    extra = occupancy_of(mod, packed, False)
     wrapper_ms = timed_ms(lambda: fn(*args))
     slots = halton_slots(packed, job.integrator, sampler, True)
     # under Halton the kernel reads no pixel id or sample index, but slot values
     ray_bytes = RAY_BYTES - (8 if slots else 0)
-    node64 = mod is pmk
-    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=ray_bytes, node64=node64)
+    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=ray_bytes, node64=True)
     extra.update(walk_numbers(work, scale, n,
                               lambda w: bound(w, scale, n, packed, ray_bytes=ray_bytes)))
-    if node64:
-        extra.update(bvh_walk_numbers(work, scale, n))
+    extra.update(bvh_walk_numbers(work, scale, n))
     if slots is not None:
         extra["slot_ms"] = timed_ms(lambda: sampler.slot_matrix(pid, soff, slots))
         extra["slot_rows"] = pmk.slot_cols(slots)[1]
@@ -837,14 +840,39 @@ def hold(mod, job, stride, dev):
     )
 
 
+def occupancy_of(mod, packed, rays_in):
+    """{"occupancy": ...} of the launch just made by `mod` on `packed`: the
+    path kernel's either launch, the Volpath kernel's chunked or BVH one,
+    the direct kernel's BVH one (block size, blocks per SM, registers,
+    shared memory), for the direct and Volpath BVH instances with ptxas's
+    spill stores (`rays_in`: of the rays-in instance); {} where the module
+    reports none."""
+    bvh = packed.bvh is not None
+    if mod is dmk and not bvh or mod not in (pmk, dmk, vmk):
+        return {}
+    occ = mod.occupancy(bvh=bvh)
+    if bvh and mod in (dmk, vmk):
+        rays = ("b", str(int(rays_in)))
+        lib, key = (("direct_megakernel", ("direct_mega_kernel", (("b", "1"), rays)))
+                    if mod is dmk else
+                    ("volpath_megakernel", ("volpath_mega_bvh_kernel", (rays,))))
+        found = _build.instances(PTXAS[lib]).get(key)
+        check(found is not None, f"no ptxas line of {key}")
+        occ.update(ptxas_registers=found[0], stack=found[1], spill_stores=found[2])
+    return {"occupancy": occ}
+
+
 def add_entry(kernels, name, launches, held, extra_err=0.0):
-    """kernels[name]: the `kernels` line's entry from a hold's numbers."""
+    """kernels[name]: the `kernels` line's entry from a hold's numbers (and
+    its launch's occupancy, where the hold has it)."""
     kernels[name] = dict(
         name=name, route="cuda", **KERNELS[name], launches=launches,
         max_abs_err=max(held["max_abs_err"], extra_err), ms=held["ms"],
         plain_ms=held["plain_ms"], bound_ms=held["bound_ms"], bound_by=held["bound_by"],
         library_ms=None, rays=held["rays"], plain_rays=held["plain_rays"],
     )
+    if "occupancy" in held:
+        kernels[name]["occupancy"] = held["occupancy"]
 
 
 def warm_rates(job, dev, n=3):
@@ -892,6 +920,7 @@ def main():
     bk.load_kernel()
     tex_ops.load_kernel()
     ptxas = {name: _build.ptxas_lines(log) for name, log in logs.items()}
+    PTXAS.update(ptxas)
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
                   build_s=build_s, ptxas=ptxas)
     print(f"phase 0: card [{card}] torch {torch.__version__} (CUDA {torch.version.cuda}) "
@@ -2695,11 +2724,11 @@ def given_rays(job, dev):
 
 
 def hold_rays_in(job, packed, rays, stride, dev, fns, name):
-    """A rays-in kernel (fns: its wrapper, plain version, prepare and the
-    camera instance's wrapper) against its plain version on `rays`, counts at 0
-    before its main launch; also its output against the camera instance's
-    on the same samples.  Returns the measured numbers."""
-    fn, ref, prepare, cam_fn = fns
+    """A rays-in kernel (fns: its module, wrapper, plain version, prepare and
+    the camera instance's wrapper) against its plain version on `rays`, counts
+    at 0 before its main launch; also its output against the camera
+    instance's on the same samples.  Returns the measured numbers."""
+    mod, fn, ref, prepare, cam_fn = fns
     o, d, w, pid, sid, sampler, pxy = rays
     args = (packed, o, d, w, pid, sid, sampler, job.integrator)
     zero_counts()
@@ -2720,12 +2749,14 @@ def hold_rays_in(job, packed, rays, stride, dev, fns, name):
     vs_cam = agreement(l, l_cam)
     del l, l_ref, l_cam
     ms = timed_ms(prepare(*args), reps=10)
+    extra = occupancy_of(mod, packed, True)
     scale = n / sub.numel()
-    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=RAYS_IN_BYTES)
+    bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=RAYS_IN_BYTES, node64=True)
+    extra.update(bvh_walk_numbers(work, scale, n))
     return dict(rays=n, plain_rays=int(sub.numel()), bvh=packed.bvh is not None,
                 launches=counts[name], max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, vs_camera=vs_cam,
-                work={k: float(v) * scale for k, v in work.items()}, **bar)
+                work={k: float(v) * scale for k, v in work.items()}, **bar, **extra)
 
 
 def hold_sppm_rays_in(job, dev, name):
@@ -2775,9 +2806,9 @@ def rays_in_phase(record, kernels, card, dev):
                                   integrator="Debug", max_depth=4)
     grid_fog = write_grid_scene(str(OUT / "grid_volpath13"), base=str(SCENE_FOG),
                                 integrator="Volpath")
-    direct_fns = (dmk.li_levels_mega, dmk.li_levels_mega_reference, dmk.prepare_rays_launch,
+    direct_fns = (dmk, dmk.li_levels_mega, dmk.li_levels_mega_reference, dmk.prepare_rays_launch,
                   dmk.li_levels_mega_cam)
-    vol_fns = (vmk.li_volpath_mega, vmk.li_volpath_mega_reference, vmk.prepare_rays_launch,
+    vol_fns = (vmk, vmk.li_volpath_mega, vmk.li_volpath_mega_reference, vmk.prepare_rays_launch,
                vmk.li_volpath_mega_cam)
     for step, tag, scene, name, fns, pack, spp, stride in (
         ("13c", "debug", SCENE_DEBUG, "direct_mega", direct_fns, pmk.pack_scene, None, 4),
@@ -2796,7 +2827,7 @@ def rays_in_phase(record, kernels, card, dev):
         add_entry(kernels, name, held["launches"], held)
         record[f"phase{step}_{tag}"] = dict(phase_s=time.perf_counter() - t1, **held)
         print(f"phase {step}: {name} on {tag}'s host-traced camera rays: "
-              + rays_in_line(held, t1, card))
+              + rays_in_line(held, t1, card) + walk_text(held))
     for tag, scene, name in (
         ("sppm", SCENE_SPPM, "sppm_camera_mega"),
         ("grid_sppm_bvh", OUT / "grid_sppm" / "grid.json", "sppm_camera_mega_bvh"),

@@ -639,7 +639,9 @@ __host__ __device__ constexpr size_t chunk_smem(int n_tris, int n_chunks) {
 // division-free mt_reject before mt_hit, which leaves the answer as it is.
 // The stack, a per-thread array of kStack entries, holds the far children
 // still to visit (reference and leaf count): at most one an interior level
-// above the current node.
+// above the current node.  kPrefetch false loads each leaf row when it is
+// tested (the direct and Volpath kernels' BVH instances, under their
+// 56-register cap, run faster so: PERF.md §6).
 constexpr int LEAF_COUNT_BITS = 8;
 
 // slab_hit on the box (x0, y0, z0) - (x1, y1, z1), expression for expression
@@ -655,7 +657,7 @@ __device__ __forceinline__ bool slab6_hit(float x0, float y0, float z0, float x1
   return tn <= tf && tf > 0.0f && tn < t_cur && t_cur > 0.0f;
 }
 
-template <int kStack>
+template <int kStack, bool kPrefetch = true>
 struct Bvh64 {
   const float4* nodes;  // (I, 4) float4: the node64 rows
   const float4* prims;  // (P, 3) float4: p0, e1, e2, pad in leaf order
@@ -701,24 +703,39 @@ struct Bvh64 {
       } else {
         const int first = -1 - ref;
         const int end = first + count;
-        // each row's loads are issued before the row ahead of it is tested
-        const float4* row = prims + 3 * (size_t)first;
-        float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
-        for (int j = first; j < end; ++j) {
-          float4 na = a, nb = b, nc = c;
-          if (j + 1 < end) {
-            row += 3;
-            na = __ldg(row), nb = __ldg(row + 1), nc = __ldg(row + 2);
+        if constexpr (kPrefetch) {
+          // each row's loads are issued before the row ahead of it is tested
+          const float4* row = prims + 3 * (size_t)first;
+          float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
+          for (int j = first; j < end; ++j) {
+            float4 na = a, nb = b, nc = c;
+            if (j + 1 < end) {
+              row += 3;
+              na = __ldg(row), nb = __ldg(row + 1), nc = __ldg(row + 2);
+            }
+            const float g[GEO_COLS] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+            float t;
+            if (!mt_reject(g, ox, oy, oz, dx, dy, dz, t_bound) &&
+                mt_hit(g, ox, oy, oz, dx, dy, dz, t) && t < t_bound) {
+              best = j;
+              if constexpr (kAny) return best;
+              t_bound = t;
+            }
+            a = na, b = nb, c = nc;
           }
-          const float g[GEO_COLS] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
-          float t;
-          if (!mt_reject(g, ox, oy, oz, dx, dy, dz, t_bound) &&
-              mt_hit(g, ox, oy, oz, dx, dy, dz, t) && t < t_bound) {
-            best = j;
-            if constexpr (kAny) return best;
-            t_bound = t;
+        } else {
+          for (int j = first; j < end; ++j) {
+            const float4* row = prims + 3 * (size_t)j;
+            const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
+            const float g[GEO_COLS] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+            float t;
+            if (!mt_reject(g, ox, oy, oz, dx, dy, dz, t_bound) &&
+                mt_hit(g, ox, oy, oz, dx, dy, dz, t) && t < t_bound) {
+              best = j;
+              if constexpr (kAny) return best;
+              t_bound = t;
+            }
           }
-          a = na, b = nb, c = nc;
         }
       }
       if (sp == 0) break;
@@ -729,29 +746,29 @@ struct Bvh64 {
   }
 };
 
-// Bvh64's walk as a call: one copy of its code for every call site
-template <bool kAny, int kStack>
-__device__ __noinline__ int bvh64_walk_call(const Bvh64<kStack> bvh, float ox, float oy,
-                                            float oz, float dx, float dy, float dz,
-                                            float& t_bound) {
+// A Bvh64's walk as a call: one copy of its code for every call site
+template <bool kAny, class Walk>
+__device__ __noinline__ int bvh64_walk_call(const Walk bvh, float ox, float oy, float oz,
+                                            float dx, float dy, float dz, float& t_bound) {
   return bvh.template walk<kAny>(ox, oy, oz, dx, dy, dz, t_bound);
 }
 
-// Bvh64 with Geometry's interface (the path kernel's BVH instances): the
-// walk over the node64 rows and the 48-byte leaf rows, and `table`, the
-// packed scene's (T, TABLE_COLS) rows in the same leaf order, where shading
-// reads the winner's row.  kCall: the walk is called out of line
-// (bvh64_walk_call) instead of inlined at each call site.
-template <int kStack, bool kCall = false>
+// Bvh64 with Geometry's interface (the BVH instances of the path, direct and
+// Volpath kernels): the walk over the node64 rows and the 48-byte leaf rows
+// (Walk, a Bvh64 of kStack entries), and `table`, the packed scene's (T,
+// TABLE_COLS) rows in the same leaf order, where shading reads the winner's
+// row.  kCall: the walk is called out of line (bvh64_walk_call) instead of
+// inlined at each call site.
+template <int kStack, bool kCall = false, class Walk = Bvh64<kStack>>
 struct Bvh64Geometry {
-  Bvh64<kStack> bvh;
+  Walk bvh;
   const float* table;
 
   template <bool kAny>
   __device__ int walk(float ox, float oy, float oz, float dx, float dy, float dz,
                       float& t_bound) const {
     if constexpr (kCall)
-      return bvh64_walk_call<kAny, kStack>(bvh, ox, oy, oz, dx, dy, dz, t_bound);
+      return bvh64_walk_call<kAny>(bvh, ox, oy, oz, dx, dy, dz, t_bound);
     else
       return bvh.template walk<kAny>(ox, oy, oz, dx, dy, dz, t_bound);
   }

@@ -26,9 +26,12 @@
 // What bounds it on this card: like the path kernel, divergent per-thread
 // FP32 ALU work (Moller-Trumbore, slab tests, lobes) over small read-only
 // tables; 20 bytes in and 16 bytes out per ray.  Geometry as in
-// common.cuh: staged in shared memory for brute force, a per-ray BVH stack
-// walk otherwise.  Given rays add 28 bytes in (o, d, weight) and write no
-// weight.
+// common.cuh: staged in shared memory for brute force; over a BVH the walk of
+// its node64 rows and 48-byte leaf rows (Bvh64Geometry, the path kernel's BVH
+// walk) through the read-only cache, the winner's row of the table, in the
+// same leaf order, read only to shade, in blocks of BLOCK under a launch
+// bound of DIRECT_BVH_MIN_BLOCKS an SM.  Given rays add 28 bytes in (o, d,
+// weight) and write no weight.
 
 #include "common.cuh"
 
@@ -70,16 +73,43 @@ __device__ bool select_matching(const float* row, int n_lob, int a, int b, Lobe&
   return has;
 }
 
+// The BVH instances (kBvh): the walk of the node64 rows, inlined at its call
+// sites (the closest hit of a tree node, the shadow ray of each light
+// strategy), each leaf row loaded when it is tested and meeting the
+// division-free reject first, in blocks of BLOCK threads under a launch
+// bound that keeps DIRECT_BVH_MIN_BLOCKS of them resident an SM (56
+// registers, where the occupancy API's choice was 4 blocks at 120): the walks
+// wait on dependent loads, and more resident warps hide them.  Each choice won
+// on the card (PERF.md §6: `walk_ab --variant call_walks`,
+// `DIRECT_BVH_MIN_BLOCKS=1`, `DIRECT_LEAF_PREFETCH=true`, `no_reject`).  The
+// brute-force instances take no minimum (0: their ptxas lines as before).
+constexpr int DIRECT_BVH_MIN_BLOCKS = 9;
+constexpr bool DIRECT_LEAF_PREFETCH = false;
+using DirectBvhGeometry =
+    Bvh64Geometry<STACK_DEPTH, false, Bvh64<STACK_DEPTH, DIRECT_LEAF_PREFETCH>>;
+
+// One sample pass per thread.  Brute force: the n_tris rows of `table`
+// staged in shared memory (geo_a and geo_b null).  BVH (kBvh): geo_a holds
+// the node64 rows (null for a tree that is one leaf of root_count rows) and
+// geo_b the 48-byte leaf rows, both read as float4 rows.
 template <bool kBvh, bool kRaysIn>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, kBvh ? DIRECT_BVH_MIN_BLOCKS : 0)
     direct_mega_kernel(const float* __restrict__ table, int n_tris,
-                       const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                       const float* __restrict__ geo_a, const float* __restrict__ geo_b,
                        const float* __restrict__ in_a, const float* __restrict__ in_d,
                        const float* __restrict__ in_w, const int* __restrict__ pid,
                        const int* __restrict__ sid, float* __restrict__ out_l,
-                       float* __restrict__ out_w, int n, const __grid_constant__ Params p) {
+                       float* __restrict__ out_w, int n, const __grid_constant__ Params p,
+                       int root_count) {
   extern __shared__ float s_geo[];
-  const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
+  const auto geom = [&] {
+    if constexpr (kBvh)
+      return DirectBvhGeometry{{reinterpret_cast<const float4*>(geo_a),
+                                reinterpret_cast<const float4*>(geo_b), root_count},
+                               table};
+    else
+      return load_geometry<false>(s_geo, table, n_tris, nullptr, nullptr);
+  }();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Sampler smp{(uint32_t)pid[i], (uint32_t)sid[i], &p};
@@ -270,20 +300,32 @@ __global__ void __launch_bounds__(BLOCK)
   if constexpr (!kRaysIn) out_w[i] = weight;
 }
 
+// The last BVH launch's block size, blocks resident per SM, registers per
+// thread and dynamic shared memory bytes
+int g_occupancy[4] = {};
+
 template <bool kRaysIn>
-int launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
-           const Params* params, const float* in_a, const float* in_d, const float* in_w,
-           const int* pid, const int* sid, float* out_l, float* out_w, int n, void* stream) {
+int launch(const float* table, int n_tris, const float* nodes64, const float* prims,
+           int root_count, const Params* params, const float* in_a, const float* in_d,
+           const float* in_w, const int* pid, const int* sid, float* out_l, float* out_w, int n,
+           void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (n <= 0) return 0;
   if (params->max_depth < 1 || params->max_depth > DEPTH_MAX) return (int)cudaErrorInvalidValue;
   const int grid = (n + BLOCK - 1) / BLOCK;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nodes_f != nullptr) {
-    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
+  if (prims != nullptr) {
+    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || table == nullptr || root_count < 0 ||
+        root_count > n_tris || (root_count == 0) != (nodes64 != nullptr))
       return (int)cudaErrorInvalidValue;
-    direct_mega_kernel<true, kRaysIn><<<grid, BLOCK, 0, st>>>(
-        table, n_tris, nodes_f, nodes_i, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params);
+    const auto kernel = direct_mega_kernel<true, kRaysIn>;
+    // blocks of BLOCK (the launch bound); choose_block measures their occupancy
+    int block = BLOCK;
+    const cudaError_t err =
+        choose_block(kernel, BLOCK, [](int) { return (size_t)0; }, block, g_occupancy);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, BLOCK, 0, st>>>(table, n_tris, nodes64, prims, in_a, in_d, in_w, pid, sid,
+                                   out_l, out_w, n, *params, root_count);
     return (int)cudaGetLastError();
   }
   if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
@@ -293,7 +335,7 @@ int launch(const float* table, int n_tris, const float* nodes_f, const int* node
   if (attr != cudaSuccess) return (int)attr;
   const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
   direct_mega_kernel<false, kRaysIn><<<grid, BLOCK, smem, st>>>(
-      table, n_tris, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params);
+      table, n_tris, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params, 0);
   return (int)cudaGetLastError();
 }
 
@@ -301,24 +343,27 @@ int launch(const float* table, int n_tris, const float* nodes_f, const int* node
 
 extern "C" {
 
-// Launch one sample pass on `stream`: brute force when nodes_f is null, the
-// BVH walk otherwise.  Returns cudaGetLastError() of the launch (0 when it
-// was accepted); nothing is synchronised.
-int direct_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
-                           const int* nodes_i, const Params* params, const float* pixel_xy,
+// Launch one sample pass on `stream`: brute force when prims is null, else
+// the walk of the BVH's node64 rows `nodes64` (null where the tree is one
+// leaf of root_count rows; root_count 0 otherwise) over the (n_tris, 12)
+// float32 leaf rows `prims` (p0, e1, e2, pad), the table in the same leaf
+// order.  Returns cudaGetLastError() of the launch (0 when it was accepted);
+// nothing is synchronised.
+int direct_mega_cam_launch(const float* table, int n_tris, const float* nodes64,
+                           const float* prims, const Params* params, const float* pixel_xy,
                            const int* pid, const int* sid, float* out_l, float* out_w, int n,
-                           void* stream) {
-  return launch<false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr, nullptr, pid,
-                       sid, out_l, out_w, n, stream);
+                           void* stream, int root_count) {
+  return launch<false>(table, n_tris, nodes64, prims, root_count, params, pixel_xy, nullptr,
+                       nullptr, pid, sid, out_l, out_w, n, stream);
 }
 
 // The same on given rays: o, d (n, 3) and weight (n,); out_l only.
-int direct_mega_rays_launch(const float* table, int n_tris, const float* nodes_f,
-                            const int* nodes_i, const Params* params, const float* o,
+int direct_mega_rays_launch(const float* table, int n_tris, const float* nodes64,
+                            const float* prims, const Params* params, const float* o,
                             const float* d, const float* weight, const int* pid, const int* sid,
-                            float* out_l, int n, void* stream) {
-  return launch<true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid, out_l,
-                      nullptr, n, stream);
+                            float* out_l, int n, void* stream, int root_count) {
+  return launch<true>(table, n_tris, nodes64, prims, root_count, params, o, d, weight, pid, sid,
+                      out_l, nullptr, n, stream);
 }
 
 const char* direct_mega_cam_error_string(int err) {
@@ -326,5 +371,11 @@ const char* direct_mega_cam_error_string(int err) {
 }
 
 int direct_mega_cam_params_size() { return (int)sizeof(Params); }
+
+// The last BVH launch's block size, blocks per SM, registers per thread and
+// dynamic shared memory bytes, into out[0..3]
+void direct_mega_occupancy(int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[k];
+}
 
 }  // extern "C"

@@ -34,6 +34,10 @@
 // The design is the path kernel's (path_megakernel.cu): each thread walks its
 // own ray to termination, triangles staged in shared memory up to TRI_MAX or
 // walked in the BVH above, constants in __grid_constant__ parameter blocks.
+// The BVH instances walk the node64 rows and the 48-byte leaf rows (common.cuh
+// Bvh64Geometry, the path kernel's BVH walk), through the read-only cache,
+// the winner's row of the table, in the same leaf order, read only to shade;
+// in blocks of BLOCK under a launch bound of VOL_BVH_MIN_BLOCKS an SM.
 // Brute force walks the chunks (kChunk: common.cuh ChunkGeometry, the chunk
 // boxes and rows staged in shared memory, a box missed before the ray's best
 // t skips its rows, each row meets the division-free reject first), whose
@@ -241,28 +245,43 @@ constexpr int VOL_BLOCK_MAX = 256;
 // under the cap their tracking loops spill more than the warps gain.
 constexpr int VOL_CAP_BLOCKS = 3;
 
-// The triangle walk of an instance: the BVH, the chunked brute force, or
-// the brute force over every row
-template <bool kBvh, bool kChunk>
-using VolGeometry = std::conditional_t<kChunk, ChunkGeometry, Geometry<kBvh>>;
+// The BVH instances: the walk of the node64 rows, inlined at its two call
+// sites (the closest hit and the shadow ray of each bounce), each leaf row
+// loaded when it is tested and meeting the division-free reject first, in
+// blocks of BLOCK threads under a launch bound that keeps VOL_BVH_MIN_BLOCKS
+// of them resident an SM (56 registers, where the occupancy API's choice was
+// 4 blocks at 111): the walks wait on dependent loads, and more resident warps
+// hide them, in both media.  Each choice won on the card (PERF.md §6:
+// `walk_ab --variant call_walks`, `VOL_BVH_MIN_BLOCKS=1`,
+// `VOL_LEAF_PREFETCH=true`, `no_reject`).
+constexpr int VOL_BVH_MIN_BLOCKS = 9;
+constexpr bool VOL_LEAF_PREFETCH = false;
 
-template <bool kBvh, bool kRaysIn, bool kChunk = false, bool kCapRegs = false>
-__global__ void __launch_bounds__(kChunk ? VOL_BLOCK_MAX : BLOCK, kCapRegs ? VOL_CAP_BLOCKS : 1)
-    volpath_mega_kernel(const float* __restrict__ table, int n_tris,
-                        const float* __restrict__ chunks, int n_chunks,
-                        const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
-                        const float* __restrict__ in_a, const float* __restrict__ in_d,
-                        const float* __restrict__ in_w, const int* __restrict__ pid,
-                        const int* __restrict__ sid, float* __restrict__ out_l,
-                        float* __restrict__ out_w, int n, const __grid_constant__ Params p,
-                        const __grid_constant__ VolParams v, const float* __restrict__ density) {
+// The triangle walk of an instance: the BVH's node64 rows, the chunked brute
+// force, or the brute force over every row
+template <bool kBvh, bool kChunk>
+using VolGeometry = std::conditional_t<
+    kBvh,
+    Bvh64Geometry<STACK_DEPTH, false, Bvh64<STACK_DEPTH, VOL_LEAF_PREFETCH>>,
+    std::conditional_t<kChunk, ChunkGeometry, Geometry<false>>>;
+
+template <bool kBvh, bool kRaysIn, bool kChunk>
+__device__ __forceinline__ void volpath_mega_pass(
+    const float* __restrict__ table, int n_tris, const float* __restrict__ chunks, int n_chunks,
+    const float4* __restrict__ nodes64, const float4* __restrict__ prims, int root_count,
+    const float* __restrict__ in_a, const float* __restrict__ in_d,
+    const float* __restrict__ in_w, const int* __restrict__ pid, const int* __restrict__ sid,
+    float* __restrict__ out_l, float* __restrict__ out_w, int n, const Params& p,
+    const VolParams& v, const float* __restrict__ density) {
   extern __shared__ float4 s_dyn[];  // brute force: (the chunk rows, then) the rows
   const VolGeometry<kBvh, kChunk> geom = [&] {
-    if constexpr (kChunk)
+    if constexpr (kBvh)
+      return VolGeometry<true, false>{{nodes64, prims, root_count}, table};
+    else if constexpr (kChunk)
       return load_chunk_geometry<TABLE_COLS>(s_dyn, table, n_tris, chunks, n_chunks);
     else
-      return load_geometry<kBvh>(reinterpret_cast<float*>(s_dyn), table, n_tris, nodes_f,
-                                 nodes_i);
+      return load_geometry<false>(reinterpret_cast<float*>(s_dyn), table, n_tris, nullptr,
+                                  nullptr);
   }();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -506,15 +525,45 @@ __global__ void __launch_bounds__(kChunk ? VOL_BLOCK_MAX : BLOCK, kCapRegs ? VOL
   if constexpr (!kRaysIn) out_w[i] = weight;
 }
 
-// The last chunked launch's block size, blocks resident per SM, registers
-// per thread and dynamic shared memory bytes
-int g_occupancy[4] = {0, 0, 0, 0};
+#define VOL_MEGA_PARAMS                                                                         \
+  const float *__restrict__ table, int n_tris, const float *__restrict__ chunks, int n_chunks,  \
+      const float4 *__restrict__ nodes64, const float4 *__restrict__ prims, int root_count,     \
+      const float *__restrict__ in_a, const float *__restrict__ in_d,                           \
+      const float *__restrict__ in_w, const int *__restrict__ pid,                              \
+      const int *__restrict__ sid, float *__restrict__ out_l, float *__restrict__ out_w, int n, \
+      const __grid_constant__ Params p, const __grid_constant__ VolParams v,                    \
+      const float *__restrict__ density
+#define VOL_MEGA_ARGS                                                                          \
+  table, n_tris, chunks, n_chunks, nodes64, prims, root_count, in_a, in_d, in_w, pid, sid, \
+      out_l, out_w, n, p, v, density
+
+// The brute-force instances (kBvh false, kept a template argument so that
+// they keep their names)
+template <bool kBvh, bool kRaysIn, bool kChunk = false, bool kCapRegs = false>
+__global__ void __launch_bounds__(kChunk ? VOL_BLOCK_MAX : BLOCK, kCapRegs ? VOL_CAP_BLOCKS : 1)
+    volpath_mega_kernel(VOL_MEGA_PARAMS) {
+  static_assert(!kBvh, "the BVH instances are volpath_mega_bvh_kernel");
+  volpath_mega_pass<false, kRaysIn, kChunk>(VOL_MEGA_ARGS);
+}
+
+// The BVH instances: blocks of BLOCK threads, VOL_BVH_MIN_BLOCKS of them
+// resident an SM
+template <bool kRaysIn>
+__global__ void __launch_bounds__(BLOCK, VOL_BVH_MIN_BLOCKS)
+    volpath_mega_bvh_kernel(VOL_MEGA_PARAMS) {
+  volpath_mega_pass<true, kRaysIn, false>(VOL_MEGA_ARGS);
+}
+
+// The last launch's block size, blocks resident per SM, registers per
+// thread and dynamic shared memory bytes: chunked brute force, then BVH
+int g_occupancy[2][4] = {};
 
 template <bool kRaysIn>
-int launch(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
-           const Params* params, const float* in_a, const float* in_d, const float* in_w,
-           const int* pid, const int* sid, float* out_l, float* out_w, int n, void* stream,
-           const VolParams* vol, const float* density, const float* chunks, int n_chunks) {
+int launch(const float* table, int n_tris, const float* nodes64, const float* prims,
+           int root_count, const Params* params, const float* in_a, const float* in_d,
+           const float* in_w, const int* pid, const int* sid, float* out_l, float* out_w, int n,
+           void* stream, const VolParams* vol, const float* density, const float* chunks,
+           int n_chunks) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (n <= 0) return 0;
   if (params->n_lights < 1 || params->n_lights > LIGHT_MAX) return (int)cudaErrorInvalidValue;
@@ -522,12 +571,20 @@ int launch(const float* table, int n_tris, const float* nodes_f, const int* node
     return (int)cudaErrorInvalidValue;
   const int grid = (n + BLOCK - 1) / BLOCK;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nodes_f != nullptr) {
-    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr)
+  if (prims != nullptr) {
+    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || table == nullptr || root_count < 0 ||
+        root_count > n_tris || (root_count == 0) != (nodes64 != nullptr))
       return (int)cudaErrorInvalidValue;
-    volpath_mega_kernel<true, kRaysIn><<<grid, BLOCK, 0, st>>>(
-        table, n_tris, nullptr, 0, nodes_f, nodes_i, in_a, in_d, in_w, pid, sid, out_l, out_w, n,
-        *params, *vol, density);
+    const auto kernel = volpath_mega_bvh_kernel<kRaysIn>;
+    // blocks of BLOCK (the launch bound); choose_block measures their occupancy
+    int block = BLOCK;
+    const cudaError_t err =
+        choose_block(kernel, BLOCK, [](int) { return (size_t)0; }, block, g_occupancy[1]);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, BLOCK, 0, st>>>(table, n_tris, nullptr, 0,
+                                   reinterpret_cast<const float4*>(nodes64),
+                                   reinterpret_cast<const float4*>(prims), root_count, in_a, in_d,
+                                   in_w, pid, sid, out_l, out_w, n, *params, *vol, density);
     return (int)cudaGetLastError();
   }
   if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
@@ -541,10 +598,10 @@ int launch(const float* table, int n_tris, const float* nodes_f, const int* node
     // every block stages the whole table: choose_block weighs the threads resident
     const size_t smem = chunk_smem(n_tris, n_chunks);
     int block = BLOCK;
-    err = choose_block(kernel, VOL_BLOCK_MAX, [&](int) { return smem; }, block, g_occupancy);
+    err = choose_block(kernel, VOL_BLOCK_MAX, [&](int) { return smem; }, block, g_occupancy[0]);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(n + block - 1) / block, block, smem, st>>>(
-        table, n_tris, chunks, n_chunks, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l,
+        table, n_tris, chunks, n_chunks, nullptr, nullptr, 0, in_a, in_d, in_w, pid, sid, out_l,
         out_w, n, *params, *vol, density);
     return (int)cudaGetLastError();
   }
@@ -555,7 +612,7 @@ int launch(const float* table, int n_tris, const float* nodes_f, const int* node
   if (attr != cudaSuccess) return (int)attr;
   const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
   volpath_mega_kernel<false, kRaysIn><<<grid, BLOCK, smem, st>>>(
-      table, n_tris, nullptr, 0, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l, out_w, n,
+      table, n_tris, nullptr, 0, nullptr, nullptr, 0, in_a, in_d, in_w, pid, sid, out_l, out_w, n,
       *params, *vol, density);
   return (int)cudaGetLastError();
 }
@@ -564,31 +621,35 @@ int launch(const float* table, int n_tris, const float* nodes_f, const int* node
 
 extern "C" {
 
-// Launch one sample pass on `stream`: the BVH walk when nodes_f is not null,
-// else brute force: the chunked walk over the (n_chunks, CHUNK_COLS) rows
-// `chunks` that cover the table, or the walk over every row where chunks is
-// null; `density` is the (nz, ny, nx) grid, null for a homogeneous medium.
+// Launch one sample pass on `stream`: brute force when prims is null (the
+// chunked walk over the (n_chunks, CHUNK_COLS) rows `chunks` that cover the
+// table, or the walk over every row where chunks is null), else the walk of
+// the BVH's node64 rows `nodes64` (null where the tree is one leaf of
+// root_count rows; root_count 0 otherwise) over the (n_tris, 12) float32 leaf
+// rows `prims` (p0, e1, e2, pad), the table in the same leaf order;
+// `density` is the (nz, ny, nx) grid, null for a homogeneous medium.
 // Returns cudaGetLastError() of the launch (0 when it was accepted);
 // nothing is synchronised.
-int volpath_mega_cam_launch(const float* table, int n_tris, const float* nodes_f,
-                            const int* nodes_i, const Params* params, const float* pixel_xy,
+int volpath_mega_cam_launch(const float* table, int n_tris, const float* nodes64,
+                            const float* prims, const Params* params, const float* pixel_xy,
                             const int* pid, const int* sid, float* out_l, float* out_w, int n,
                             void* stream, const VolParams* vol, const float* density,
-                            const float* chunks, int n_chunks) {
-  return launch<false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr, nullptr, pid,
-                       sid, out_l, out_w, n, stream, vol, density, chunks, n_chunks);
+                            const float* chunks, int n_chunks, int root_count) {
+  return launch<false>(table, n_tris, nodes64, prims, root_count, params, pixel_xy, nullptr,
+                       nullptr, pid, sid, out_l, out_w, n, stream, vol, density, chunks,
+                       n_chunks);
 }
 
 // The same on given rays: o, d (n, 3) and weight (n,), every ray in the
 // camera medium; out_l only.
-int volpath_mega_rays_launch(const float* table, int n_tris, const float* nodes_f,
-                             const int* nodes_i, const Params* params, const float* o,
+int volpath_mega_rays_launch(const float* table, int n_tris, const float* nodes64,
+                             const float* prims, const Params* params, const float* o,
                              const float* d, const float* weight, const int* pid,
                              const int* sid, float* out_l, int n, void* stream,
                              const VolParams* vol, const float* density, const float* chunks,
-                             int n_chunks) {
-  return launch<true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, pid, sid, out_l,
-                      nullptr, n, stream, vol, density, chunks, n_chunks);
+                             int n_chunks, int root_count) {
+  return launch<true>(table, n_tris, nodes64, prims, root_count, params, o, d, weight, pid, sid,
+                      out_l, nullptr, n, stream, vol, density, chunks, n_chunks);
 }
 
 const char* volpath_mega_cam_error_string(int err) {
@@ -599,10 +660,10 @@ int volpath_mega_cam_params_size() { return (int)sizeof(Params); }
 
 int volpath_mega_cam_vol_params_size() { return (int)sizeof(VolParams); }
 
-// The last chunked launch's block size, blocks per SM, registers per thread
-// and dynamic shared memory bytes, into out[0..3]
-void volpath_mega_occupancy(int* out) {
-  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[k];
+// The last chunked (bvh 0) or BVH (bvh 1) launch's block size, blocks per
+// SM, registers per thread and dynamic shared memory bytes, into out[0..3]
+void volpath_mega_occupancy(int bvh, int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[bvh != 0][k];
 }
 
 }  // extern "C"

@@ -17,7 +17,10 @@ sample slot: a node with branch id b reads its slots from
 package's `li_levels_mega`, its `_kernel` / `_kernel_bvh`).
 
 On a CUDA tensor the wrapper launches csrc/direct_megakernel.cu (built by
-ops/_build.py) or raises.  On a CPU tensor it runs
+ops/_build.py) or raises; over a BVH the kernel walks its node64 rows and
+48-byte leaf rows (`BvhTables.nodes64`, `prims`, `root_count`; the path
+kernel's BVH walk, csrc/common.cuh Bvh64Geometry), which the plain version
+walks too (PlainGeometry).  On a CPU tensor it runs
 `li_levels_mega_cam_reference` (`li_levels_mega_reference` on given
 rays), the plain PyTorch version: the tree
 unrolled over static branch ids on flat (N,) tensors with masked lanes,
@@ -102,11 +105,28 @@ def tree_shape(packed, spec):
 
 def load_kernel():
     """The direct kernel's library (built on first use): the camera entry
-    `direct_mega_cam_launch` and the rays-in entry `direct_mega_rays_launch`."""
-    lib = pmk.load_library("direct_megakernel", "direct_mega_cam")
+    `direct_mega_cam_launch` and the rays-in entry `direct_mega_rays_launch`,
+    both taking the BVH's root_count after the common arguments, whose two
+    node tables over a BVH are the node64 rows (null for a tree that is one
+    leaf) and the leaf rows (pmk.geometry_args with `node64`)."""
+    lib = pmk.load_library("direct_megakernel", "direct_mega_cam", (ctypes.c_int,))
     lib.direct_mega_rays_launch.restype = ctypes.c_int
-    lib.direct_mega_rays_launch.argtypes = pmk.RAYS_LAUNCH_ARGS
+    lib.direct_mega_rays_launch.argtypes = pmk.RAYS_LAUNCH_ARGS + [ctypes.c_int]
+    lib.direct_mega_occupancy.restype = None
+    lib.direct_mega_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def occupancy(bvh=True):
+    """The last BVH launch of the direct kernel: its block size, blocks
+    resident per SM, registers per thread and dynamic shared memory bytes,
+    as the library measured them (choose_block).  The brute-force launch
+    reports none: `bvh` False raises."""
+    if not bvh:
+        raise ValueError("the direct kernel reports the occupancy of its BVH launch only")
+    out = (ctypes.c_int * 4)()
+    load_kernel().direct_mega_occupancy(out)
+    return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
 
 
 def li_levels_mega_cam(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec):
@@ -143,7 +163,8 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
     returning (L, weight).  Relaunching rewrites the same outputs."""
     prm = _tree_params(packed, cam_packed, sampler, spec)
     return pmk.launcher(
-        load_kernel(), "direct_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm, LAUNCHES
+        load_kernel(), "direct_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm, LAUNCHES,
+        extra=(pmk.root_count(packed),), node64=True,
     )
 
 
@@ -165,7 +186,7 @@ def prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec
     ["direct_mega_bvh"])."""
     prm = _tree_params(packed, None, sampler, spec)
     return pmk.rays_launcher(load_kernel(), "direct_mega", packed, o, d, cam_weight, pixel_id,
-                             s_idx, prm, LAUNCHES)
+                             s_idx, prm, LAUNCHES, extra=(pmk.root_count(packed),), node64=True)
 
 
 # ---- the plain PyTorch version ----

@@ -207,8 +207,9 @@ class BvhTables(NamedTuple):
     nodes_i: torch.Tensor  # (M, 4) int32: offset, n_prims, axis, 0
     max_leaf: int  # most triangles in one leaf
     stack: int = STACK_DEPTH  # entries of the walk's stack (accel/bvh.stack_for)
-    # the same tree as node64 rows, the path kernel's walk (csrc/common.cuh
-    # Bvh64); None: the plain walk goes over the fused-children rows
+    # the same tree as node64 rows, the path, direct and Volpath kernels'
+    # walk (csrc/common.cuh Bvh64); None: the plain walk goes over the
+    # fused-children rows
     nodes64: Optional[torch.Tensor] = None  # (I, 16) float32, one row per interior node
     prims: Optional[torch.Tensor] = None  # (P, 12) float32 leaf order: p0, e1, e2, pad
     root_count: int = 0  # the tree is one leaf of this many rows (no node64 row)
@@ -785,8 +786,9 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
     RS_MEGA_BVH mode; all 115 columns are kept), and no chunks; beside
     them the same tree's node64 rows (accel/bvh.pack_node64_tables) and
     the leaf-order rows' cols 0:9 as 48-byte rows (`prims`), which the
-    path kernel walks (the other kernels walk the fused-children rows),
-    and `root_count`, the rows of a tree that is one leaf."""
+    path, direct and Volpath kernels walk (the SPPM kernels walk the
+    fused-children rows), and `root_count`, the rows of a tree that is one
+    leaf."""
     tri = scene.triangles
     p0 = tri.p0.astype(np.float32)
     r = _resolve_mat_arrays(scene.materials, tri.mat)
@@ -1408,8 +1410,8 @@ def rays_launcher(lib, prefix, packed, o, d, weight, pixel_id, s_idx, prm, launc
 
 
 def root_count(packed):
-    """The rows of a BVH that is one leaf (the path kernel's last
-    argument); 0 for a tree with interior rows, or brute force."""
+    """The rows of a BVH that is one leaf (an argument of the path, direct
+    and Volpath kernels); 0 for a tree with interior rows, or brute force."""
     return 0 if packed.bvh is None else packed.bvh.root_count
 
 
@@ -1417,8 +1419,8 @@ def geometry_args(packed, dev, allow_empty=False, node64=False):
     """(table, nodes_f, nodes_i) of `packed`, checked for a launch on `dev`:
     a contiguous float32 (T, TABLE_COLS) table with 0 < T <= TRI_MAX
     (BVH_TRI_MAX with a BVH; T = 0 allowed with `allow_empty`) and the
-    BVH's node tables, None without.  With `node64` (the path kernel) the
-    BVH's tables are (nodes64, prims) instead: the node64 rows, None for a
+    BVH's node tables, None without.  With `node64` (the path, direct and
+    Volpath kernels) the BVH's tables are (nodes64, prims) instead: the node64 rows, None for a
     tree that is one leaf of root_count rows, and the (T, PRIM_COLS) leaf
     rows."""
     table, bvh = packed.table, packed.bvh
@@ -1970,18 +1972,20 @@ class PlainGeometry:
     Bvh64) on flat (N,) tensors.  Brute force: every triangle in table
     order, strict < (ties keep the lower row), a block of triangles tested
     at a time.  BVH: the per-ray walk of the node64 rows (walk_node64, the
-    path kernel's Bvh64), the rays that still walk compacted after every
-    step; or, where the tables have no node64 rows, the stack walk of the
-    fused-children rows (Geometry<true>, the other kernels' walk): at an
+    Bvh64 walk of the path, direct and Volpath kernels), the rays that
+    still walk compacted after every step; or, where the tables have no
+    node64 rows, the stack walk of the fused-children rows (Geometry<true>,
+    the SPPM kernels' walk): at an
     interior node both children's boxes are slab-tested against the ray's
     best t and only hit children are pushed, the near child (by the sign
     of the ray's direction on the split axis) last; a leaf tests its
     triangles in table order with strict <.  Both visit in one order and
     make the same tests, so they find the same hits.  `work`, when given,
     counts the Moller-Trumbore ("mt") and slab ("slab") tests of the live
-    rays, as the kernel performs them, and on the node64 rows the
-    interior rows fetched ("node") and each walk's steps (tally_steps,
-    tagged "closest", "any" or the caller's `tag`).  With `cull` (K1's and
+    rays, as the kernel performs them, the interior rows fetched ("node")
+    and each walk's steps, the nodes it visits (tally_steps, tagged
+    "closest", "any" or the caller's `tag`): equal over both trees' rows.
+    With `cull` (K1's and
     K6's plain versions; the other kernels walk every row) brute force
     takes the chunked walk over `packed.chunks` (chunk_walk), which finds
     the same hits."""
@@ -2065,29 +2069,34 @@ class PlainGeometry:
         (t, table row), t_bound and -1 where nothing is hit; with any_hit a
         ray stops at its first hit (its row; its t is then t_bound).  Over
         the node64 rows where the tables have them, else over the
-        fused-children rows; the node64 walk's steps go to `work` under
-        `tag` (tally_steps)."""
+        fused-children rows; either walk's interior rows ("node") and, under
+        `tag`, its steps (tally_steps: the nodes it visits, a lane with
+        t_bound <= 0 none) go to `work`."""
+        walked = live & (t_bound > 0.0)
         if self.nodes64 is not None:
             o, d = torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)
             t, row, steps = walk_node64(self.nodes64, self.geo, self.bvh.max_leaf, self.bvh.stack,
                                         o, d, t_bound, live, any_hit, self.work)
             if tag is not None:
-                tally_steps(self.work, tag, steps, live & (t_bound > 0.0))
+                tally_steps(self.work, tag, steps, walked)
             return t, row
         t_out = t_bound.clone()
         row_out = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+        steps_out = torch.zeros_like(row_out)
         idx = torch.nonzero(live).squeeze(1)
         o = (ox[idx], oy[idx], oz[idx])
         d = (dx[idx], dy[idx], dz[idx])
         inv = tuple(_inv_dir(c) for c in d)
         tb = t_bound[idx]
         best = torch.full_like(idx, -1)
+        steps = torch.zeros_like(idx)
         m = idx.numel()
         stack = torch.zeros((m, self.bvh.stack), dtype=torch.int64, device=ox.device)
         sp = torch.ones_like(idx)  # the root, node 0, is on the stack
         k = torch.arange(self.bvh.max_leaf, device=ox.device)
         while m:
             lane = torch.arange(m, device=ox.device)
+            steps = steps + 1
             sp = sp - 1
             node = stack[lane, sp]
             ni = self.nodes_i[node]
@@ -2118,6 +2127,7 @@ class PlainGeometry:
             hit_l = interior & _slab(row[:, 0:6], *o, *inv, tb)
             hit_r = interior & _slab(row[:, 6:12], *o, *inv, tb)
             tally(self.work, "slab", 2 * interior)
+            tally(self.work, "node", interior)
             d_ax = torch.where(axis == 0, d[0], torch.where(axis == 1, d[1], d[2]))
             near_left = d_ax >= 0.0
             left, right = node + 1, off
@@ -2132,12 +2142,16 @@ class PlainGeometry:
             if bool(done.any()):
                 t_out[idx[done]] = tb[done]
                 row_out[idx[done]] = best[done]
+                steps_out[idx[done]] = steps[done]
                 keep = ~done
                 idx, tb, best, stack, sp = idx[keep], tb[keep], best[keep], stack[keep], sp[keep]
+                steps = steps[keep]
                 o = tuple(c[keep] for c in o)
                 d = tuple(c[keep] for c in d)
                 inv = tuple(c[keep] for c in inv)
                 m = idx.numel()
+        if tag is not None:
+            tally_steps(self.work, tag, torch.where(walked, steps_out, 0), walked)
         return t_out, row_out
 
 

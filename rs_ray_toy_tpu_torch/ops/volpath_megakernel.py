@@ -26,7 +26,10 @@ scattering-sampling half of estimate_direct is statically zero there (no
 emissive primitives, no infinite lights), so neither version draws for it.
 
 On a CUDA tensor the wrapper launches csrc/volpath_megakernel.cu (built
-by ops/_build.py) or raises; on a brute-force table the kernel takes the
+by ops/_build.py) or raises; over a BVH the kernel walks its node64 rows
+and 48-byte leaf rows (`BvhTables.nodes64`, `prims`, `root_count`; the
+path kernel's BVH walk, csrc/common.cuh Bvh64Geometry), which the plain
+version walks too (PlainGeometry); on a brute-force table the kernel takes the
 chunked walk (csrc/common.cuh ChunkGeometry over the packed scene's
 chunks), which finds the hits of the walk over every row, so the medium's
 draws and the radiance are that walk's (`every_row=True` launches it, for
@@ -198,8 +201,13 @@ def _vol_params(packed):
 def load_kernel():
     """The Volpath kernel's library (built on first use): the camera entry
     `volpath_mega_cam_launch` and the rays-in entry
-    `volpath_mega_rays_launch`."""
-    vol_args = (ctypes.POINTER(_VolParams), ctypes.c_void_p) + pmk._CHUNK_ARGS
+    `volpath_mega_rays_launch`, both taking after the common arguments the
+    medium block, the density grid, the chunk rows of a brute-force table
+    and their count, and last the BVH's root_count; over a BVH the common
+    arguments' two node tables are the node64 rows (null for a tree that
+    is one leaf) and the leaf rows (pmk.geometry_args with `node64`)."""
+    vol_args = ((ctypes.POINTER(_VolParams), ctypes.c_void_p) + pmk._CHUNK_ARGS
+                + (ctypes.c_int,))
     lib = pmk.load_library("volpath_megakernel", "volpath_mega_cam", vol_args)
     lib.volpath_mega_cam_vol_params_size.restype = ctypes.c_int
     if lib.volpath_mega_cam_vol_params_size() != ctypes.sizeof(_VolParams):
@@ -207,16 +215,17 @@ def load_kernel():
     lib.volpath_mega_rays_launch.restype = ctypes.c_int
     lib.volpath_mega_rays_launch.argtypes = pmk.RAYS_LAUNCH_ARGS + list(vol_args)
     lib.volpath_mega_occupancy.restype = None
-    lib.volpath_mega_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.volpath_mega_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
-def occupancy():
-    """The last chunked launch of the Volpath kernel: its block size, blocks
-    resident per SM, registers per thread and dynamic shared memory bytes,
-    as the library chose and measured them (choose_block)."""
+def occupancy(bvh=False):
+    """The last chunked (or, with `bvh`, BVH) launch of the Volpath
+    kernel: its block size, blocks resident per SM, registers per thread
+    and dynamic shared memory bytes, as the library chose and measured them
+    (choose_block)."""
     out = (ctypes.c_int * 4)()
-    load_kernel().volpath_mega_occupancy(out)
+    load_kernel().volpath_mega_occupancy(int(bvh), out)
     return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
 
 
@@ -258,14 +267,15 @@ def _launch_params(packed, cam_packed, sampler, spec, dev):
     return prm, vprm, density
 
 
-def _chunk_args(packed, dev, every_row):
-    """The chunk rows and their count a launch passes: none for the walk
-    over every row (`every_row`) or a BVH; pmk.chunk_args checks them."""
+def _geometry_extra(packed, dev, every_row):
+    """The arguments a launch passes after the density grid: the chunk rows
+    and their count (none for the walk over every row, `every_row`, or a
+    BVH; pmk.chunk_args checks them) and the BVH's root_count."""
     if every_row:
         if packed.bvh is not None:
             raise ValueError("the walk over every row is brute force's")
-        return None, 0
-    return pmk.chunk_args(packed.scene, dev)
+        return None, 0, 0
+    return (*pmk.chunk_args(packed.scene, dev), pmk.root_count(packed.scene))
 
 
 def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec,
@@ -274,12 +284,13 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec,
     and return launch(): one kernel launch on the current stream
     returning (L, weight).  Relaunching rewrites the same outputs.  A
     brute-force table takes the chunked walk, or with `every_row` the walk
-    over every row."""
+    over every row; a BVH the walk of its node64 rows."""
     dev = pixel_xy.device
     prm, vprm, density = _launch_params(packed, cam_packed, sampler, spec, dev)
     return pmk.launcher(
         load_kernel(), "volpath_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm, LAUNCHES,
-        extra=(ctypes.byref(vprm), density, *_chunk_args(packed, dev, every_row)),
+        extra=(ctypes.byref(vprm), density, *_geometry_extra(packed, dev, every_row)),
+        node64=True,
     )
 
 
@@ -309,7 +320,8 @@ def prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec
     return pmk.rays_launcher(load_kernel(), "volpath_mega", packed.scene, o, d, cam_weight,
                              pixel_id, s_idx, prm, LAUNCHES,
                              extra=(ctypes.byref(vprm), density,
-                                    *_chunk_args(packed, dev, every_row)))
+                                    *_geometry_extra(packed, dev, every_row)),
+                             node64=True)
 
 
 # ---- the plain PyTorch version ----

@@ -1,25 +1,36 @@
 """The redesigned walks against another revision's, on one NVIDIA GPU: the
 path kernel's brute-force instances (K1) and BVH instances (K1 BVH), the
-Volpath kernel's (K6) and the wavefront loop's BVH closest and any hit (K3).
+Volpath kernel's brute-force (K6) and BVH instances (K6 BVH), the direct
+kernel's BVH instances (K2 BVH) and the wavefront loop's BVH closest and
+any hit (K3).
 
     python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR [--reps 10] [--out DIR] [--only k1bvh]
     python -m rs_ray_toy_tpu_torch.walk_ab --variant NAME [--only k3] ...
+    python -m rs_ray_toy_tpu_torch.walk_ab --variant CONSTANT=VALUE [--only k2bvh,k6bvh] ...
     python -m rs_ray_toy_tpu_torch.walk_ab --counts [--device cpu] [--scale 4]
 
 DIR is a checkout of the other revision (e.g. `git archive` of the parent
 commit unpacked under build/).  `--variant NAME` puts in its place a copy
 of this tree (under --out) with one of VARIANTS' source edits, the design
-choices of the redesigned walks undone one at a time: `no_prefetch` (K3's
-node64 walk loads each leaf row when it tests it, not the next row's while
-it tests one), `late_ray_loads` (bvh64_kernel loads a ray's origin and
-direction after it tests t_max), `swap_k6_cap` (K6's chunked walk takes
+choices of the redesigned walks undone one at a time: `no_prefetch`
+(Bvh64's default, the node64 walk of K3 and of K1's BVH instances, loads
+each leaf row when it tests it, not the next row's while it tests one),
+`late_ray_loads` (bvh64_kernel loads a ray's origin and direction after it
+tests t_max), `swap_k6_cap` (K6's chunked walk takes
 the register-capped instance for grid media and the uncapped one for
 homogeneous media, the other way round), `uncap_bvh_regs` (K1's BVH
 instances without the launch bound that caps their registers for 9
-resident blocks an SM) and `inline_bss_walks` (K1's subsurface BVH
+resident blocks an SM), `inline_bss_walks` (K1's subsurface BVH
 instances inline their walks at every call site instead of calling one
-copy of each).  `--only` keeps the cases of
-some kernels: k1, k6, k3, k1bvh.  Each tree builds its own kernels; then a
+copy of each), `no_reject` (Bvh64 tests each leaf row with mt_hit alone,
+without the division-free reject first) and `call_walks` (K2's and K6's
+BVH instances call one out-of-line copy of each walk); `CONSTANT=VALUE` a
+copy whose one `constexpr` of that name, in the one kernel source that has
+it, takes VALUE: K2's and K6's BVH instances take `DIRECT_` /
+`VOL_BVH_MIN_BLOCKS` (the launch bound's resident blocks) and
+`_LEAF_PREFETCH` (e.g. `--variant VOL_BVH_MIN_BLOCKS=1`).  `--only` keeps the cases of
+some kernels: k1, k6, k3, k1bvh, k2bvh, k6bvh.  Each tree builds the kernels
+of those cases; then a
 worker process runs under each tree in turns (the other revision, this
 tree, this tree, the other revision), so that both meet the card in the
 same state.  A worker times each case's launch with CUDA events (median of
@@ -35,7 +46,13 @@ sphere-area fixture's spheres and light, in the subsurface, Disney and
 textured materials, under a 6-sample HaltonSampler, write_smooth_grid_scene's
 20 spheres and the smooth fixture packed with bvh=True), 8 stratified
 samples a pixel for the grids at 640x360 (1.84M rays), and the rays-in
-twin on the pass's camera rays (not the textured grid's).  K6: one
+twin on the pass's camera rays (not the textured grid's).  K2 BVH (#5b,
+#6) and K6 BVH (#7b, #8): one sample pass of each of K2BVH_CASES and
+K6BVH_CASES at chip_smoke.py's sizes (the 19,224-triangle grid of cubes
+under Debug at 640x360x16, 3.69M rays, as phases 4 and 13c write it; the
+same grid in the fixture's fog, and in write_grid_fog_scene's 16^3 grid
+medium, at 640x360x8, 1.84M rays, as phases 5d and 13d write the first),
+and the rays-in twin on the pass's camera rays.  K6: one
 pass of the fog fixture, fog_area and the 16^3 grid fog through
 `li_volpath_mega_cam` at chip_smoke.py's sizes, and the fog's camera rays
 through `li_volpath_mega`.  K3: the loop's closest-hit or any-hit walk
@@ -61,8 +78,9 @@ those rows against the rows the walk over every row runs it (chunk_walk's
 rows fetched and leaves tested; accel/traverse.step_stats: mean, 99th
 percentile, the warps' longest walks) on the ao-grid's first probe batch
 (any hit, and closest hit on the same rays) and on the probe chain's first
-batch (closest hit).  K1 BVH, on a CUDA device only: over the first
-quarter of each K1BVH_CASES pass (consecutive rays, so that 32 of them are
+batch (closest hit).  K1 BVH, K2 BVH and K6 BVH, on a CUDA device only
+(K6 BVH's films divided by --scale on each side): over the first
+quarter of each case's pass (consecutive rays, so that 32 of them are
 a warp's lanes), the node64 walk's steps per walk and per warp its longest
 walk (PlainGeometry's step tallies), apart for the closest hits, the any
 hits (shadow rays) and the subsurface probe chain's closest hits, and per
@@ -73,10 +91,12 @@ object of those numbers.
 import argparse
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -109,6 +129,10 @@ K1BVH_CASES = {
     "textured_grid": ("grid_tex", False, False),
     "smooth_fixture": ("smooth", False, True),
 }
+# K2's and K6's BVH instances: case -> scene as bvh_job writes it (each
+# with its rays-in twin)
+K2BVH_CASES = {"debug_grid": "grid_debug"}
+K6BVH_CASES = {"fog_grid": "grid_fog_bvh", "grid_medium_grid": "grid_medium_bvh"}
 VOL_CASES = ("fog", "fog_area", "grid_fog")  # K6, the fog's rays-in twin too
 # K3: case -> (first-pass batch, any hit)
 BVH_CASES = {
@@ -120,16 +144,12 @@ BVH_CASES = {
     "deep_closest": ("deep", False),
     "deep_any": ("deep", True),
 }
-GROUPS = ("k1", "k6", "k3", "k1bvh")  # --only: CASES, VOL_CASES, BVH_CASES, K1BVH_CASES
-_LEAF_LOOP = """        const float4* row = prims + 3 * (size_t)first;
-        float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
-        for (int j = first; j < end; ++j) {
-          float4 na = a, nb = b, nc = c;
-          if (j + 1 < end) {
-            row += 3;
-            na = __ldg(row), nb = __ldg(row + 1), nc = __ldg(row + 2);
-          }
-"""
+# --only: CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES, K6BVH_CASES
+GROUPS = ("k1", "k6", "k3", "k1bvh", "k2bvh", "k6bvh")
+# the kernel source each group's cases launch
+SOURCES = {"k1": "path_megakernel", "k6": "volpath_megakernel", "k3": "bvh_kernel",
+           "k1bvh": "path_megakernel", "k2bvh": "direct_megakernel",
+           "k6bvh": "volpath_megakernel"}
 _RAY_LOADS = """  // the ray's loads issued together, ahead of the test of t_max
   const float tm = __ldg(t_max + i);
   const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
@@ -140,15 +160,10 @@ _RAY_LOADS = """  // the ray's loads issued together, ahead of the test of t_max
 """
 _K6_CAP = """    const auto kernel = vol->grid ? volpath_mega_kernel<false, kRaysIn, true>
                                   : volpath_mega_kernel<false, kRaysIn, true, true>;"""
-# --variant: (file under the package, text found there once, its replacement)
+# --variant: (file under the package, text found there as many times as the
+# edit is listed, its replacement)
 VARIANTS = {
-    "no_prefetch": [
-        ("csrc/common.cuh", _LEAF_LOOP, """        for (int j = first; j < end; ++j) {
-          const float4* row = prims + 3 * (size_t)j;
-          const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
-"""),
-        ("csrc/common.cuh", "          a = na, b = nb, c = nc;\n", ""),
-    ],
+    "no_prefetch": [("csrc/common.cuh", "bool kPrefetch = true", "bool kPrefetch = false")],
     "late_ray_loads": [
         ("csrc/bvh_kernel.cu", _RAY_LOADS, """  const float tm = __ldg(t_max + i);
   float t_bound = tm;
@@ -161,6 +176,14 @@ VARIANTS = {
     "inline_bss_walks": [
         ("csrc/path_megakernel.cu", "Bvh64Geometry<STACK_DEPTH, kBss>",
          "Bvh64Geometry<STACK_DEPTH, false>"),
+    ],
+    "no_reject": [  # in both leaf loops of Bvh64
+        ("csrc/common.cuh", "if (!mt_reject(g, ox, oy, oz, dx, dy, dz, t_bound) &&\n"
+                            "                mt_hit(", "if (mt_hit("),
+    ] * 2,
+    "call_walks": [
+        (f"csrc/{src}.cu", "Bvh64Geometry<STACK_DEPTH, false,", "Bvh64Geometry<STACK_DEPTH, true,")
+        for src in ("direct_megakernel", "volpath_megakernel")
     ],
     "uncap_bvh_regs": [
         ("csrc/path_megakernel.cu", "__launch_bounds__(BLOCK, BVH_MIN_BLOCKS)",
@@ -285,6 +308,27 @@ def k1bvh_job(scene, halton, out):
     return job
 
 
+def bvh_job(scene, out):
+    """The job of a K2BVH_CASES or K6BVH_CASES scene, written under out as
+    chip_smoke.py's phases 4, 5d, 13c and 13d write it: write_grid_scene's
+    grid of cubes (19,224 triangles, a BVH) at 640x360 under Debug
+    (max_depth 4, 16 stratified samples a pixel), or under Volpath in the
+    fixture's fog or in write_grid_fog_scene's 16^3 grid medium (sigma
+    scale 0.5), 8 samples a pixel."""
+    from rs_ray_toy_tpu_torch.scene.gen import write_grid_fog_scene, write_grid_scene
+    from rs_ray_toy_tpu_torch.scene.loader import load_scene
+
+    where = str(out / scene)
+    if scene == "grid_debug":
+        return load_scene(write_grid_scene(where, base=str(SAMPLES / "scene_debug.json"),
+                                           integrator="Debug", max_depth=4))
+    base = (str(SAMPLES / "scene_fog.json") if scene == "grid_fog_bvh"
+            else write_grid_fog_scene(where + "_medium", n=16, sigma_scale=0.5))
+    job = load_scene(write_grid_scene(where, base=base, integrator="Volpath"))
+    job.sampler.xsamp, job.sampler.ysamp = 2, 4
+    return job
+
+
 def bvh_batches(out, dev):
     """{batch: (SceneCtx, (o, d, t_max))} of the K3 cases, at chip_smoke.py's
     sizes (phases 7b, 7c, 11e and 12e)."""
@@ -316,6 +360,7 @@ def worker(out, reps, only):
 
     from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
     from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
+    from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
     from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
     from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
     from rs_ray_toy_tpu_torch.render import camera_rays, make_sampler, pass_spp, sample_batch
@@ -351,10 +396,10 @@ def worker(out, reps, only):
         rec = {"rays": pxy.shape[0], "ms": timed_ms(launch)}
         if packed.bvh is None:
             rec["occupancy"] = occupancy(mod)
-        elif mod is pmk:
+        else:
             try:  # a revision that reports the BVH instances' occupancy
                 rec["occupancy"] = mod.occupancy(bvh=True)
-            except TypeError:
+            except (AttributeError, TypeError):
                 pass
         l, _ = launch()
         saved = {"cam": l.cpu()}
@@ -376,6 +421,12 @@ def worker(out, reps, only):
     for case, (scene, halton, rays) in (K1BVH_CASES.items() if "k1bvh" in only else ()):
         job = k1bvh_job(scene, halton, out / "scenes")
         camera_pass(case, pmk, pmk.pack_scene(job.scene, dev, bvh=True), job, rays)
+    for case, scene in (K2BVH_CASES.items() if "k2bvh" in only else ()):
+        job = bvh_job(scene, out / "scenes")
+        camera_pass(case, dmk, pmk.pack_scene(job.scene, dev), job, True)
+    for case, scene in (K6BVH_CASES.items() if "k6bvh" in only else ()):
+        job = bvh_job(scene, out / "scenes")
+        camera_pass(case, vmk, vmk.pack_volpath(job.scene, dev), job, True)
     for case in (VOL_CASES if "k6" in only else ()):
         job = load_scene(vol_scene(case, out / "scenes"))
         camera_pass(case, vmk, vmk.pack_volpath(job.scene, dev), job, case == "fog")
@@ -435,6 +486,7 @@ def counts(dev, scale, only=GROUPS):
 
     from rs_ray_toy_tpu_torch.accel import traverse
     from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+    from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
     from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
     from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
     from rs_ray_toy_tpu_torch.render import make_sampler, pass_spp, sample_batch
@@ -454,6 +506,24 @@ def counts(dev, scale, only=GROUPS):
         pmk.li_path_mega_cam_reference(packed, cam, pxy[part], pid[part], soff[part], sampler,
                                        job.integrator, work=work)
         found[case] = step_counts(work, pxy[part].shape[0])
+        print(f"{case}: {found[case]}", flush=True)
+    bvh_cases = ([(c, s, dmk) for c, s in K2BVH_CASES.items()] if "k2bvh" in only else []) + (
+        [(c, s, vmk) for c, s in K6BVH_CASES.items()] if "k6bvh" in only else [])
+    for case, scene, mod in (bvh_cases if cuda else ()):
+        job = bvh_job(scene, out)
+        if mod is vmk:
+            job.film.xres, job.film.yres = job.film.xres // scale, job.film.yres // scale
+        packed = vmk.pack_volpath(job.scene, dev) if mod is vmk else pmk.pack_scene(job.scene, dev)
+        cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+        sampler = make_sampler(job)
+        pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+        part = slice(0, pxy.shape[0] // 4)
+        ref = (vmk.li_volpath_mega_cam_reference if mod is vmk
+               else dmk.li_levels_mega_cam_reference)
+        work = {}
+        ref(packed, cam, pxy[part], pid[part], soff[part], sampler, job.integrator, work=work)
+        found[case] = dict(film=f"{job.film.xres}x{job.film.yres}x{pass_spp(sampler.spp)}",
+                           **step_counts(work, pxy[part].shape[0]))
         print(f"{case}: {found[case]}", flush=True)
     for case in (VOL_CASES if "k6" in only else ()):
         job = load_scene(vol_scene(case, out))
@@ -484,19 +554,35 @@ def counts(dev, scale, only=GROUPS):
     return found
 
 
+def constant_edit(name):
+    """The source edit of a `CONSTANT=VALUE` variant: (file under the
+    package, the constant's definition, it with VALUE), the one kernel
+    source that defines `constexpr <type> CONSTANT = ...;`."""
+    const, value = name.split("=", 1)
+    pattern = re.compile(rf"constexpr (?:int|bool|float) {re.escape(const)} = [^;]+;")
+    found = [(path, m) for path in sorted((ROOT / "rs_ray_toy_tpu_torch" / "csrc").iterdir())
+             for m in pattern.finditer(path.read_text())]
+    if len(found) != 1:
+        raise SystemExit(f"walk_ab: variant {name}: {const} is not defined once in csrc/")
+    path, m = found[0]
+    old = m.group(0)
+    return [(f"csrc/{path.name}", old, old.split(" = ")[0] + f" = {value};")]
+
+
 def variant_tree(name, out):
     """A copy of this tree's package, csrc/ and samples/ under `out` with the
-    source edits of VARIANTS[name]."""
-    tree = out / f"variant_{name}"
+    source edits of VARIANTS[name] (or of the `CONSTANT=VALUE` edit)."""
+    tree = out / f"variant_{name.replace('=', '_')}"
     shutil.rmtree(tree, ignore_errors=True)
     skip = shutil.ignore_patterns("__pycache__", "*.so")
     for part in ("rs_ray_toy_tpu_torch", "csrc", "samples"):
         shutil.copytree(ROOT / part, tree / part, ignore=skip)
-    for rel, old, new in VARIANTS[name]:
+    edits = Counter(constant_edit(name) if "=" in name else VARIANTS[name])
+    for (rel, old, new), times in edits.items():
         path = tree / "rs_ray_toy_tpu_torch" / rel
         text = path.read_text()
-        if text.count(old) != 1:
-            raise SystemExit(f"walk_ab: variant {name}: the text to edit is not once in {rel}")
+        if text.count(old) != times:
+            raise SystemExit(f"walk_ab: variant {name}: the text to edit is not {times}x in {rel}")
         path.write_text(text.replace(old, new))
     return tree
 
@@ -509,9 +595,10 @@ def run_tree(tree, args):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout of the other revision")
-    ap.add_argument("--variant", choices=sorted(VARIANTS),
-                    help="this tree with one source edit in the other revision's place")
-    ap.add_argument("--only", default=",".join(GROUPS), help="the kernels' cases: k1,k6,k3")
+    ap.add_argument("--variant", help="this tree with one source edit (a name of VARIANTS, "
+                                      "or CONSTANT=VALUE) in the other revision's place")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help=f"the kernels' cases: some of {','.join(GROUPS)}")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=str(ROOT / "build" / "walk_ab"))
     ap.add_argument("--counts", action="store_true", help="count with the plain versions")
@@ -522,6 +609,8 @@ def main(argv=None):
     only = a.only.split(",")
     if not set(only) <= set(GROUPS):
         ap.error(f"--only takes some of {GROUPS}")
+    if a.variant is not None and "=" not in a.variant and a.variant not in VARIANTS:
+        ap.error(f"--variant takes one of {sorted(VARIANTS)} or CONSTANT=VALUE")
     if a.worker:
         return worker(a.worker, a.reps, only)
     if a.counts:
@@ -536,9 +625,9 @@ def main(argv=None):
         ap.error("give --parent or --variant")
     other = variant_tree(a.variant, out) if a.variant else Path(a.parent).resolve()
     trees = {"parent": other, "change": ROOT}
+    sources = sorted({SOURCES[g] for g in only})
     build = [sys.executable, "-c", "from rs_ray_toy_tpu_torch.ops import _build; "
-             "[_build.build(k) for k in ('path_megakernel', 'volpath_megakernel', "
-             "'bvh_kernel')]"]
+             f"[_build.build(k) for k in {sources}]"]
     procs = [subprocess.Popen(build, cwd=t, env=dict(os.environ, PYTHONPATH=str(t)))
              for t in trees.values()]
     if any(p.wait() for p in procs):
@@ -551,7 +640,8 @@ def main(argv=None):
     times = {f"{n}{k}": json.loads((out / f"{n}{k}" / "times.json").read_text())
              for n, k in turns}
     summary = {}
-    groups = dict(zip(GROUPS, (CASES, VOL_CASES, BVH_CASES, K1BVH_CASES)))
+    groups = dict(zip(GROUPS, (CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES,
+                               K6BVH_CASES)))
     for case in (c for g in only for c in groups[g]):
         ref = torch.load(out / "parent0" / f"{case}.pt")
         new = torch.load(out / "change0" / f"{case}.pt")

@@ -11,7 +11,8 @@ and of the SPPM camera walk, and the wavefront Debug / DirectLighting
 loop on the card against the CPU; the SPPM kernels' wide instances on
 glass and Disney materials and K3's BVH4 walk; K3's node64 walk against
 its plain version and bvh_kernel, and the Volpath kernel's chunked walk
-against its walk over every row) against their plain PyTorch versions.
+against its walk over every row; the direct and Volpath kernels' BVH
+instances on the node64 walk) against their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -1092,6 +1093,89 @@ def test_k1_bvh_walk_matches_plain_version(tmp_path, scene):
     torch.cuda.synchronize()
     assert pmk.LAUNCHES["path_mega_bvh"] == before + 1
     _wide_bar(l, pmk.li_path_mega_reference(*rays))
+
+
+def _k2_k6_bvh_job(tmp_path, kernel, scene):
+    """A 64x36 scene the direct (Debug, max_depth 4) or Volpath kernel (the
+    fixture's thin fog) packs with bvh=True: the 8x8 grid of cubes (792
+    triangles) or the fixture's third cube alone (12 triangles: the tree is
+    one leaf)."""
+    base = str(SAMPLES / ("scene_debug.json" if kernel == "direct" else "scene_fog.json"))
+    integrator = "Debug" if kernel == "direct" else "Volpath"
+    path = write_grid_scene(str(tmp_path), ny=8, nz=8, base=base, integrator=integrator,
+                            max_depth=4, xres=64, yres=36)
+    if scene == "one_leaf":
+        cfg = json.loads(Path(path).read_text())
+        cfg["Aggregate"]["primitives"] = [cfg["Aggregate"]["primitives"][2]]
+        Path(path).write_text(json.dumps(cfg))
+    return load_scene(path)
+
+
+@pytest.mark.parametrize("scene", ["grid8", "one_leaf"])
+@pytest.mark.parametrize("kernel", ["direct", "volpath"])
+def test_k2_k6_bvh_instances_walk_node64(tmp_path, kernel, scene):
+    """K2's and K6's BVH tables (the node64 rows, the 48-byte leaf rows,
+    root_count) walked on the card by common.cuh's Bvh64 as bvh64_kernel
+    launches it (K3's instance, which loads the next leaf row while it tests
+    one; K2's and K6's instances load each row when they test it, the same
+    tests in the same order) on 2^16 seeded rays: t and leaf-order row (any
+    hit: the row it stopped at) equal to the plain walk's on every ray;
+    then the camera instance (#5b, #7b) and the
+    rays-in instance (#6, #8) on a 16-spp pass, one launch each, against
+    their plain versions at the per-ray bar, and the BVH launch's
+    occupancy.  A tree that is one leaf launches the BVH instances too,
+    and their radiance (and camera weight) is bit-equal to the brute-force
+    instance's over the same leaf-order table: both test its rows in order."""
+    dev = _device()
+    job = _k2_k6_bvh_job(tmp_path, kernel, scene)
+    mod = dmk if kernel == "direct" else vmk
+    packed = _hold(mod, job, dev, bvh=True)
+    bvh, n = packed.bvh, packed.table.shape[0]
+    assert (bvh.root_count, n) == ((12, 12) if scene == "one_leaf" else (0, 792))
+    assert (bvh.nodes64.shape[0] == 0) == (scene == "one_leaf")
+    occ = mod.occupancy(bvh=True)
+    assert occ["blocks_per_sm"] > 0 and occ["block"] % 32 == 0 and occ["smem"] == 0
+    prims_i = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    prims_i[:, 0] = torch.arange(n, device=dev)
+    depth = tree_depth(build_bvh(job.scene.triangles, pmk.BVH_LEAF))
+    tables = bk.BvhTables(bvh.nodes_f, bvh.nodes_i, bvh.prims, prims_i,
+                          torch.zeros((n, 15), device=dev), bvh.max_leaf, depth,
+                          nodes64=bvh.nodes64)
+    o, d, t_max = _aimed_rays(1 << 16, 5, dev, x=(34.0, 36.0), y=(-3.0, 3.0), z=(-2.0, 2.0))
+    geom = pmk.PlainGeometry(packed, dev)
+    live = torch.ones(1 << 16, dtype=torch.bool, device=dev)
+    for any_hit in (False, True):
+        t_r, row_r = geom.walk(*o.unbind(-1), *d.unbind(-1), t_max.clone(), live, any_hit)
+        assert int((row_r >= 0).sum()) > 1000
+        t, row = bk.prepare_launch(tables, o, d, t_max, any_hit)()
+        assert torch.equal(row.long(), row_r) and torch.equal(t, t_r)
+    camera = RealisticCamera(job.camera, job.film, pupil_samples=1 << 14, device=dev)
+    sampler = StratifiedSampler(job.sampler)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    o, d, w = camera_rays(camera, sampler, pxy, pid, soff)
+    rays = (packed, o, d, w, pid, soff, sampler, job.integrator)
+    name = f"{kernel}_mega_bvh"
+    before = dict(mod.LAUNCHES)
+    l_rays = mod.prepare_rays_launch(*rays)().clone()
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[name] == before[name] + 1
+    assert sum(mod.LAUNCHES.values()) == sum(before.values()) + 1
+    ref = dmk.li_levels_mega_reference if mod is dmk else vmk.li_volpath_mega_reference
+    _rays_in_bar(l_rays, ref(*rays))
+    if scene != "one_leaf":
+        return
+    cam_args = (pmk.pack_camera(camera), pxy, pid, soff, sampler, job.integrator)
+    l_bvh, w_bvh = (x.clone() for x in mod.prepare_launch(packed, *cam_args)())
+    if mod is dmk:
+        brute = packed._replace(bvh=None)
+        l_b, w_b = dmk.prepare_launch(brute, *cam_args)()
+        l_rb = dmk.prepare_rays_launch(brute, *rays[1:])()
+    else:
+        brute = packed._replace(scene=packed.scene._replace(bvh=None))
+        l_b, w_b = vmk.prepare_launch(brute, *cam_args, every_row=True)()
+        l_rb = vmk.prepare_rays_launch(brute, *rays[1:], every_row=True)()
+    assert float(l_bvh.max()) > 0 and torch.equal(l_bvh, l_b) and torch.equal(w_bvh, w_b)
+    assert torch.equal(l_rays, l_rb)
 
 
 @pytest.mark.parametrize("medium", ["homogeneous", "area", "grid"])
