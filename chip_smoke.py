@@ -15,11 +15,15 @@ Phase 2  the Path main path: renders samples/scene.json at 640x360, 16
          image, the PNG and that every pass launched the path kernel;
          then holds the kernel to the same per-ray bar against its plain
          version on that pass's 3.7M-ray batch, and times both there.
-         This and every brute-force hold of the path kernel and K4 also
+         This and every brute-force hold of the path, direct and
+         Volpath kernels and K4 also
          print the chunked walk's MT and slab tests a ray, the MT tests
-         the walk over every row would make, the bound of that walk
+         the walk over every row would make (where the plain version ran
+         on every ray, also per warp of 32 the chunks and rows it runs),
+         the bound of that walk
          beside the bound, and the block size, blocks per SM, registers
-         and shared memory of the launch (pmk.occupancy, ik.occupancy);
+         and shared memory of the launch (pmk.occupancy, dmk.occupancy,
+         vmk.occupancy, ik.occupancy);
          every hold of the path, direct and Volpath kernels' BVH
          instances (phases 4, 5d, 8c, 8e, 9f, 9i, 10b, 11b-d, 12c, 13c,
          13d), which walk the node64 rows and the 48-byte leaf rows
@@ -30,9 +34,9 @@ Phase 2  the Path main path: renders samples/scene.json at 640x360, 16
          Volpath instances also ptxas's spill stores, and the `kernels`
          line carries it).
 Phase 3  the Debug main path: the same for samples/scene_debug.json
-         (Debug, max_depth 4) through the direct kernel; then a 160x90x16
-         DirectLighting variant with the one-light strategy, held to the
-         same bar.
+         (Debug, max_depth 4) through the direct kernel's chunked
+         brute-force instance; then a 160x90x16 DirectLighting variant
+         with the one-light strategy, held to the same bar.
 Phase 4  mesh scenes: the 1,600-cube grid (19,200 triangles of grid, 19,224
          in all, over the in-kernel BVH) written into build/chip_smoke/,
          rendered with Path at 640x360x8 through the path kernel's BVH
@@ -93,7 +97,10 @@ Phase 7  the wavefront loop, whose intersection queries are kernels K4
          bounce-0 shadow rays), the BVH closest-hit instance on 7b's probe
          batch: hit or miss equal on all but 1e-5 of the rays, where both
          hit the triangle equal and t within rtol 1e-6, the shaded
-         attributes within rtol 1e-5 / atol 1e-6; (d) the wavefront
+         attributes within rtol 1e-5 / atol 1e-6 (the shaded kernel walks
+         the node64 rows: its line gives that walk's MT and slab tests and
+         interior rows a ray and the launch's block, blocks per SM and
+         registers, bk.occupancy(shaded=True)); (d) the wavefront
          li_path (over K4) against the path kernel on samples/scene.json
          at 160x90x16, the same estimator in two implementations, held to
          the per-ray bar (0.5% of rays past 1e-3 relative, means within
@@ -353,11 +360,13 @@ compare) and 3 per lobe evaluation of the near pairs.  The intersection
 kernels move per ray its origin, direction and t_max in (28 bytes) and t
 and the triangle out (8; the shaded kernel also material, area light and
 16 attribute floats), and read once the triangles' intersect columns (36
-bytes, and their original row in BVH mode), the BVH nodes as above and,
-for the shaded kernel, the 15 shade floats (31 smooth, which also
-writes 6 attribute floats more a ray) and 2 ints of each triangle;
-their operations are the Moller-Trumbore and slab tests the plain
-version counts.  The node64 walk reads each interior node's 64-byte row
+bytes, and their original row in BVH mode) and the BVH nodes as above;
+the shaded kernel (the node64 walk) reads the node64 rows and the
+48-byte leaf rows once and, of each triangle that some ray wins, its 15
+shade floats (31 smooth, which also writes 6 attribute floats more a
+ray) and 3 ints (original row, material, area light); their operations
+are the Moller-Trumbore and slab tests the plain version counts.  The
+node64 walk reads each interior node's 64-byte row
 once instead of every node's fused-children columns (its slab and MT
 tests are the binary walk's, counted by its plain version, an any hit's
 MT tests up to the row where it stops), and in the path, direct and
@@ -425,6 +434,7 @@ from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec
 from rs_ray_toy_tpu_torch.scene.loader import load_scene
 from rs_ray_toy_tpu_torch.scene.png import load_image
 from rs_ray_toy_tpu_torch.accel import traverse
+from rs_ray_toy_tpu_torch.accel.bvh import SHADE_COLS_FLAT, SHADE_COLS_SMOOTH
 from rs_ray_toy_tpu_torch.walk_ab import aimed_rays, chunk_counts, first_pass_batches
 
 ROOT = Path(__file__).resolve().parent
@@ -699,9 +709,16 @@ def walk_numbers(work, scale, n_rays, bound_fn):
     brute = {k: v for k, v in work.items() if k not in ("mt", "slab")}
     brute["mt"] = work["mt_brute"]
     bound_brute_ms, bound_brute_by = bound_fn(brute)
-    return dict(mt_per_ray=per_ray("mt"), slab_per_ray=per_ray("slab"),
-                mt_brute_per_ray=per_ray("mt_brute"), bound_brute_ms=bound_brute_ms,
-                bound_brute_by=bound_brute_by)
+    out = dict(mt_per_ray=per_ray("mt"), slab_per_ray=per_ray("slab"),
+               mt_brute_per_ray=per_ray("mt_brute"), bound_brute_ms=bound_brute_ms,
+               bound_brute_by=bound_brute_by)
+    if scale == 1 and "chunk_warp" in work:
+        # the plain version ran on every ray in order: its warps are the kernel's
+        warps = -(-n_rays // pmk.WARP)
+        out.update(chunk_warp_per_warp=float(work["chunk_warp"]) / warps,
+                   mt_warp_per_warp=float(work["mt_warp"]) / warps,
+                   mt_brute_warp_per_warp=float(work["mt_brute_warp"]) / warps)
+    return out
 
 
 def bvh_walk_numbers(work, scale, n_rays):
@@ -737,9 +754,12 @@ def walk_text(held):
         return (f"; node64 walk: {held['mt_per_ray']:.2f} MT and {held['slab_per_ray']:.2f} slab "
                 f"tests and {held['node_per_ray']:.2f} rows a ray, steps a walk {steps}{occ_s}")
     if "bound_brute_ms" not in held:
-        return ""
+        return occ_s
+    warp = (f", a warp runs {held['chunk_warp_per_warp']:.2f} chunks, "
+            f"{held['mt_warp_per_warp']:.1f} rows (every row: "
+            f"{held['mt_brute_warp_per_warp']:.1f})" if "chunk_warp_per_warp" in held else "")
     return (f"; walk: {held['mt_per_ray']:.2f} MT and {held['slab_per_ray']:.2f} slab tests a ray "
-            f"(every row: {held['mt_brute_per_ray']:.2f} MT), bound over every row "
+            f"(every row: {held['mt_brute_per_ray']:.2f} MT){warp}, bound over every row "
             f"{held['bound_brute_ms']:.4f} ms by {held['bound_brute_by']}{occ_s}")
 
 
@@ -842,24 +862,30 @@ def hold(mod, job, stride, dev):
 
 def occupancy_of(mod, packed, rays_in):
     """{"occupancy": ...} of the launch just made by `mod` on `packed`: the
-    path kernel's either launch, the Volpath kernel's chunked or BVH one,
-    the direct kernel's BVH one (block size, blocks per SM, registers,
-    shared memory), for the direct and Volpath BVH instances with ptxas's
-    spill stores (`rays_in`: of the rays-in instance); {} where the module
-    reports none."""
+    path kernel's, the direct kernel's or the Volpath kernel's chunked or
+    BVH one (block size, blocks per SM, registers, shared memory), for the
+    direct and Volpath BVH instances with ptxas's spill stores (`rays_in`:
+    of the rays-in instance); {} where the module reports none."""
     bvh = packed.bvh is not None
-    if mod is dmk and not bvh or mod not in (pmk, dmk, vmk):
+    if mod not in (pmk, dmk, vmk):
         return {}
     occ = mod.occupancy(bvh=bvh)
     if bvh and mod in (dmk, vmk):
         rays = ("b", str(int(rays_in)))
-        lib, key = (("direct_megakernel", ("direct_mega_kernel", (("b", "1"), rays)))
+        lib, key = (("direct_megakernel",
+                     ("direct_mega_kernel", (("b", "1"), rays, ("b", "0"))))
                     if mod is dmk else
                     ("volpath_megakernel", ("volpath_mega_bvh_kernel", (rays,))))
         found = _build.instances(PTXAS[lib]).get(key)
         check(found is not None, f"no ptxas line of {key}")
         occ.update(ptxas_registers=found[0], stack=found[1], spill_stores=found[2])
     return {"occupancy": occ}
+
+
+# a hold's walk counts that its `kernels` entry carries
+WALK_KEYS = ("mt_per_ray", "slab_per_ray", "mt_brute_per_ray", "chunk_warp_per_warp",
+             "mt_warp_per_warp", "mt_brute_warp_per_warp", "bound_brute_ms", "bound_brute_by",
+             "node_per_ray")
 
 
 def add_entry(kernels, name, launches, held, extra_err=0.0):
@@ -873,6 +899,9 @@ def add_entry(kernels, name, launches, held, extra_err=0.0):
     )
     if "occupancy" in held:
         kernels[name]["occupancy"] = held["occupancy"]
+    walk = {k: held[k] for k in WALK_KEYS if k in held}
+    if walk:
+        kernels[name]["walk"] = walk
 
 
 def warm_rates(job, dev, n=3):
@@ -1465,22 +1494,24 @@ QUERIES = {
 }
 
 
-def query_bytes(query, ctx, n):
-    """Bytes of one query over n rays (see the module docstring)."""
+def query_bytes(query, ctx, n, winners=0):
+    """Bytes of one query over n rays (see the module docstring); `winners`,
+    the shaded query's distinct winning triangles."""
     if query == "intersect":
         return n * QUERY_BYTES + ctx.tri_packed.shape[0] * 9 * 4
-    m, p = ctx.bvh.nodes_f.shape[0], ctx.bvh.prims_f.shape[0]
-    nbytes = m * NODE_READ_COLS * 4 + p * (9 * 4 + 4)
+    p = ctx.bvh.prims_f.shape[0]
     if ctx.bvh.wide and query != "shaded":
         nbytes = ctx.bvh.nodes4_f.shape[0] * NODE4_BYTES + p * (9 * 4 + 4)
     elif query != "shaded":
         nbytes = ctx.bvh.nodes64.shape[0] * NODE64_BYTES + p * (9 * 4 + 4)
     if query == "shaded":
-        # the smooth instance reads 31 shade floats a triangle and writes 6
-        # attribute floats more a ray
-        cols = ctx.bvh.shade_f.shape[1]
+        # the node64 rows and 48-byte leaf rows once, and of each winner its
+        # shade floats (31 on smooth rows, which write 6 attribute floats
+        # more a ray) and 3 ints (original row, material, area light)
+        nbytes = ctx.bvh.nodes64.shape[0] * NODE64_BYTES + p * PRIM_ROW_BYTES
+        cols = SHADE_COLS_SMOOTH if ctx.bvh.smooth else SHADE_COLS_FLAT
         out = SHADED_OUT_BYTES + (24 if ctx.bvh.smooth else 0)
-        return nbytes + n * (28 + out) + p * (cols * 4 + 2 * 4)
+        return nbytes + n * (28 + out) + winners * (cols * 4 + 3 * 4)
     return nbytes + n * QUERY_BYTES
 
 
@@ -1521,22 +1552,40 @@ def hold_query(query, ctx, batch, stride=16):
         check(bool(torch.isclose(a_k, a_p, rtol=1e-5, atol=1e-6).all()), "shaded: attributes differ")
         max_abs_err = max(max_abs_err, float((a_k - a_p).abs().max()))
     stats["max_abs_err"] = max_abs_err
+    winners = int(torch.unique(out[1][out[1] >= 0]).numel()) if query == "shaded" else 0
     stats["ms"] = timed_ms(launch, reps=10)
     if query == "intersect" and ctx.chunks is not None:
         stats["occupancy"] = ik.occupancy()
+    if query == "shaded":
+        stats["occupancy"] = bk.occupancy(shaded=True)
+        stats["winners"] = winners
     stats["wrapper_ms"] = timed_ms(lambda: wrapper(ctx, o, d, t_max))
     stats["plain_ms"] = once_ms(lambda: plain(ctx, o[sub], d[sub], t_max[sub], None))
     scale = n / sub.numel()
 
     def query_bound(w):
         flops = scale * sum(FLOPS[k] * float(v) for k, v in w.items() if k in FLOPS)
-        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, query_bytes(query, ctx, n) / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FLOPS * 1e3
+        t_bytes = query_bytes(query, ctx, n, winners) / PEAK_BYTES * 1e3
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
     stats["bound_ms"], stats["bound_by"] = query_bound(work)
     stats.update(walk_numbers(work, scale, n, query_bound))
+    if query == "shaded":
+        stats.update(bvh_walk_numbers(work, scale, n))
     stats["work"] = {k: float(v) * scale for k, v in work.items()}
     return stats
+
+
+def shaded_text(h):
+    """The node64 walk's counts and the launch's occupancy of a shaded
+    hold, for its line (empty for the other queries)."""
+    if "winners" not in h:
+        return ""
+    occ = h["occupancy"]
+    return (f"; node64 walk: {h['mt_per_ray']:.2f} MT and {h['slab_per_ray']:.2f} slab tests and "
+            f"{h['node_per_ray']:.2f} rows a ray, {h['winners']} triangles won; block "
+            f"{occ['block']}, {occ['blocks_per_sm']} blocks/SM, {occ['registers']} registers")
 
 
 def k4_walks(ctx, batch, turns=3):
@@ -1654,7 +1703,7 @@ def wavefront_phase(record, kernels, card, dev):
               f"{tag} {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}, bound {h['bound_ms']:.4f} by "
               f"{h['bound_by']}, plain {h['plain_ms']:.1f} over {h['plain_rays']} rays, hits "
               f"{h['hits']}, hit/miss differ {h['miss_mismatch']:.2e}, max_abs_err "
-              f"{h['max_abs_err']:.3g})"
+              f"{h['max_abs_err']:.3g}{shaded_text(h)})"
               for tag, h in (("K3-shaded", shaded), ("K3 any", any_hit), ("K3 closest", closest)))
           + f"; {time.perf_counter() - t0:.1f} s [{card}]")
 
@@ -1692,7 +1741,7 @@ def wavefront_phase(record, kernels, card, dev):
           + "; ".join(
               f"{tag} {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}, bound {h['bound_ms']:.4f} by "
               f"{h['bound_by']}, plain {h['plain_ms']:.1f} over {h['plain_rays']} rays, hits "
-              f"{h['hits']}, hit/miss differ {h['miss_mismatch']:.2e})"
+              f"{h['hits']}, hit/miss differ {h['miss_mismatch']:.2e}{shaded_text(h)})"
               for tag, h in (("K3-shaded", shaded_c), ("K3 any", any_c)))
           + f"; {time.perf_counter() - t0:.1f} s [{card}]")
 
@@ -2144,7 +2193,8 @@ def halton_smooth_phase(record, kernels, card, dev):
           f"camera Mrays/s; K3-shaded smooth {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}, "
           f"bound {h['bound_ms']:.4f} by {h['bound_by']}, plain {h['plain_ms']:.1f} over "
           f"{h['plain_rays']} rays, hits {h['hits']}, hit/miss differ {h['miss_mismatch']:.2e}, "
-          f"max_abs_err {h['max_abs_err']:.3g}); {time.perf_counter() - t0:.1f} s [{card}]")
+          f"max_abs_err {h['max_abs_err']:.3g}{shaded_text(h)}); {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
 
     # (h) the wavefront li_path against the path kernel on the smooth fixture
     t0 = time.perf_counter()
@@ -2598,7 +2648,8 @@ def repairs_phase(record, card, dev):
           f"{deep_shaded['rays']} aimed rays K3-shaded deep {deep_shaded['ms']:.3f} ms (bound "
           f"{deep_shaded['bound_ms']:.4f} by {deep_shaded['bound_by']}, plain "
           f"{deep_shaded['plain_ms']:.1f} ms on {deep_shaded['plain_rays']}, "
-          f"{deep_shaded['hits']} hits), K3 any deep {deep_any['ms']:.3f} ms (bound "
+          f"{deep_shaded['hits']} hits{shaded_text(deep_shaded)}), K3 any deep "
+          f"{deep_any['ms']:.3f} ms (bound "
           f"{deep_any['bound_ms']:.4f} by {deep_any['bound_by']}, plain {deep_any['plain_ms']:.1f} "
           f"ms, {deep_any['hits']} hits), each held to its plain version; "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
@@ -2752,6 +2803,8 @@ def hold_rays_in(job, packed, rays, stride, dev, fns, name):
     extra = occupancy_of(mod, packed, True)
     scale = n / sub.numel()
     bound_ms, bound_by = bound(work, scale, n, packed, ray_bytes=RAYS_IN_BYTES, node64=True)
+    extra.update(walk_numbers(work, scale, n,
+                              lambda w: bound(w, scale, n, packed, ray_bytes=RAYS_IN_BYTES)))
     extra.update(bvh_walk_numbers(work, scale, n))
     return dict(rays=n, plain_rays=int(sub.numel()), bvh=packed.bvh is not None,
                 launches=counts[name], max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,

@@ -1,7 +1,8 @@
 // BVH closest hit, any hit and shaded closest hit for Hopper (sm_90a), K3:
-// one thread per ray; the closest and any hit over the node64 rows
-// (bvh64_kernel, the wavefront loop's walk; bvh_kernel's closest and any hit
-// stay for the comparison) and the BVH4 (bvh4_kernel, below).
+// one thread per ray; the closest and any hit (bvh64_kernel, the wavefront
+// loop's walk; bvh_kernel's closest and any hit stay for the comparison) and
+// the shaded closest hit (bvh_shaded_kernel) over the node64 rows, and the
+// BVH4 (bvh4_kernel, below).
 //
 // Replaces the TPU kernels rs_ray_toy_tpu/ops/bvh_pallas.py · _traverse_kernel
 // with fused=True (pallas_call in _call: intersect_bvh_pallas with
@@ -16,9 +17,10 @@
 // shade rows in leaf order: flat (P, 15) [uv0, uv1, uv2, dpdu, dpdv, ng], or
 // for a mesh with vertex normals (P, 31) [..., n0, n1, n2, dndu, dndv,
 // has_n], which the smooth instance (_traverse_shaded_kernel with
-// smooth=True) reads.
+// smooth=True) reads; beside them the same tree's node64 rows
+// (accel/bvh.pack_node64_tables), which bvh64_kernel and the shaded kernel walk.
 //
-// Per ray: common.cuh's Geometry<true> walk (a per-ray stack of up to 64
+// Per ray (bvh_kernel): common.cuh's Geometry<true> walk (a per-ray stack of up to 64
 // nodes, or 256 in the deep instances for trees of 64 to 255 levels, chosen
 // per launch by the tables' depth; at an interior node both child boxes are slab-tested against the
 // current best t and only the hit children are pushed, near child last; a
@@ -262,13 +264,36 @@ bvh4_kernel(const float* __restrict__ nodes4_f, const int* __restrict__ nodes4_i
   idx_out[i] = best >= 0 ? __ldg(prims_i + PRIM_I_COLS * best) : -1;
 }
 
-// Barycentric u, v of the ray on the row g = (p0, e1, e2): mt_hit's
-// expressions, so the values are those the walk tested
-__device__ __forceinline__ void mt_uv(const float* g, float ox, float oy, float oz, float dx,
+// ---- the shaded closest hit (bvh_shaded_kernel) on the node64 walk ----
+//
+// Replaces _traverse_shaded_kernel (intersect_bvh_pallas_shaded).  The walk
+// is bvh64_kernel's: common.cuh's Bvh64 over the node64 rows and the 48-byte
+// leaf rows, the division-free reject before Moller-Trumbore, a
+// tree that is one leaf (no node64 row) walked from its root_count rows.
+// It visits in Geometry<true>'s order, so the winner and its t are those of
+// the fused-children walk that this kernel took before, ray for ray.  The
+// block is the occupancy API's choice up to BVH64_BLOCK_MAX (choose_block),
+// with no bound for more resident blocks.  The flat instance keeps the next
+// leaf row's loads in flight (Bvh64's kPrefetch, as bvh64_kernel); the
+// smooth and deep instances load each leaf row when it is tested, which
+// ran them 9-10% faster on the card, where the prefetch ran the flat
+// batches 1-2% faster (PERF.md §6, `walk_ab --variant`).  A launch
+// bound for 5 resident blocks and shade rows padded to 16 / 32 columns for
+// float4 loads each lost there too.  Once the walk is done the winner's row
+// is read once: its geometry as three float4 (Moller-Trumbore's u, v again,
+// the walk's expressions), its shade row, then its original row, material
+// and area light as one int4.
+template <bool kSmooth, int kStack>
+constexpr bool kShadedPrefetch = !kSmooth && kStack == STACK_DEPTH;
+
+// Barycentric u, v of the ray on the leaf row r = (p0, e1, e2, pad) as
+// three float4: mt_hit's expressions, so the values are those the walk tested
+__device__ __forceinline__ void mt_uv(const float4* r, float ox, float oy, float oz, float dx,
                                       float dy, float dz, float& u, float& v) {
-  const float p0x = __ldg(g + 0), p0y = __ldg(g + 1), p0z = __ldg(g + 2);
-  const float e1x = __ldg(g + 3), e1y = __ldg(g + 4), e1z = __ldg(g + 5);
-  const float e2x = __ldg(g + 6), e2y = __ldg(g + 7), e2z = __ldg(g + 8);
+  const float4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2);
+  const float p0x = a.x, p0y = a.y, p0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
   const float pvx = dy * e2z - dz * e2y;
   const float pvy = dz * e2x - dx * e2z;
   const float pvz = dx * e2y - dy * e2x;
@@ -282,24 +307,25 @@ __device__ __forceinline__ void mt_uv(const float* g, float ox, float oy, float 
   v = (dx * qvx + dy * qvy + dz * qvz) * inv;
 }
 
-template <bool kSmooth, int kStack = STACK_DEPTH>
-__global__ void __launch_bounds__(BLOCK)
-bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
-                  const float* __restrict__ prims_f, const int* __restrict__ prims_i,
-                  const float* __restrict__ shade_f, int n_prims, const float* __restrict__ o,
+template <bool kSmooth, int kStack>
+__global__ void __launch_bounds__(BVH64_BLOCK_MAX)
+bvh_shaded_kernel(const float4* __restrict__ nodes64, int root_count,
+                  const float4* __restrict__ prims_f, const int* __restrict__ prims_i,
+                  const float* __restrict__ shade_f, const float* __restrict__ o,
                   const float* __restrict__ d, const float* __restrict__ t_max,
                   float* __restrict__ t_out, int* __restrict__ idx_out,
                   int* __restrict__ mat_out, int* __restrict__ al_out,
                   float* __restrict__ attrs, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  // the ray's loads issued together, ahead of the test of t_max
+  const float tm = __ldg(t_max + i);
   const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
   const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1), dz = __ldg(d + 3 * i + 2);
-  const float tm = __ldg(t_max + i);
   float t_bound = tm;
   int best = -1;
   if (tm > 0.0f) {
-    const Bvh<kStack> geom{nullptr, n_prims, prims_f, nodes_f, nodes_i};
+    const Bvh64<kStack, kShadedPrefetch<kSmooth, kStack>> geom{nodes64, prims_f, root_count};
     best = geom.template walk<false>(ox, oy, oz, dx, dy, dz, t_bound);
   }
   constexpr int kCols = kSmooth ? SHADE_COLS_SMOOTH : SHADE_COLS_FLAT;
@@ -310,7 +336,7 @@ bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nod
   int idx = -1, mat = -1, al = -1;
   if (best >= 0) {
     float u, v;
-    mt_uv(prims_f + (size_t)PRIM_COLS * best, ox, oy, oz, dx, dy, dz, u, v);
+    mt_uv(prims_f + 3 * (size_t)best, ox, oy, oz, dx, dy, dz, u, v);
     const float* s = shade_f + (size_t)kCols * best;
     const float w = 1.0f - u - v;
     a[0] = u;
@@ -343,10 +369,10 @@ bvh_shaded_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nod
 #pragma unroll
       for (int c = 0; c < 6; ++c) a[16 + c] = __ldg(s + 24 + c);  // dndu, dndv
     }
-    const int* pi = prims_i + PRIM_I_COLS * best;
-    idx = __ldg(pi + 0);
-    mat = __ldg(pi + 1);
-    al = __ldg(pi + 2);
+    const int4 pi = __ldg(reinterpret_cast<const int4*>(prims_i) + best);
+    idx = pi.x;
+    mat = pi.y;
+    al = pi.z;
   }
   t_out[i] = best >= 0 ? t_bound : tm;
   idx_out[i] = idx;
@@ -384,23 +410,6 @@ void launch_walk4(int any_hit, int grid, cudaStream_t st, const float* nodes4_f,
   }
 }
 
-template <int kStack>
-void launch_shaded(int smooth, int grid, cudaStream_t st, const float* nodes_f,
-                   const int* nodes_i, const float* prims_f, const int* prims_i,
-                   const float* shade_f, int n_prims, const float* o, const float* d,
-                   const float* t_max, float* t_out, int* idx_out, int* mat_out, int* al_out,
-                   float* attrs, int n) {
-  if (smooth) {
-    bvh_shaded_kernel<true, kStack><<<grid, BLOCK, 0, st>>>(
-        nodes_f, nodes_i, prims_f, prims_i, shade_f, n_prims, o, d, t_max, t_out, idx_out,
-        mat_out, al_out, attrs, n);
-  } else {
-    bvh_shaded_kernel<false, kStack><<<grid, BLOCK, 0, st>>>(
-        nodes_f, nodes_i, prims_f, prims_i, shade_f, n_prims, o, d, t_max, t_out, idx_out,
-        mat_out, al_out, attrs, n);
-  }
-}
-
 // The last bvh64_kernel launch's block size, blocks resident per SM,
 // registers per thread and dynamic shared memory (none)
 int g_occupancy64[4] = {0, 0, 0, 0};
@@ -428,6 +437,44 @@ int launch64_stack(int deep, cudaStream_t st, const float4* nodes64, int root_co
                                            t_max, t_out, idx_out, n)
               : launch64<kAny, STACK_DEPTH>(st, nodes64, root_count, prims_f, prims_i, o, d,
                                             t_max, t_out, idx_out, n);
+}
+
+// A shaded query's arguments
+struct ShadedArgs {
+  const float4* nodes64;
+  int root_count;
+  const float4* prims_f;
+  const int* prims_i;
+  const float* shade_f;
+  const float *o, *d, *t_max;
+  float* t_out;
+  int *idx_out, *mat_out, *al_out;
+  float* attrs;
+  int n;
+};
+
+// The last bvh_shaded_kernel launch's block size, blocks resident per SM,
+// registers per thread and dynamic shared memory (none)
+int g_occupancy_shaded[4] = {0, 0, 0, 0};
+
+// One bvh_shaded_kernel launch, its block size chosen by occupancy
+template <bool kSmooth, int kStack>
+int launch_shaded(cudaStream_t st, const ShadedArgs& a) {
+  const auto kernel = bvh_shaded_kernel<kSmooth, kStack>;
+  int block = BLOCK;
+  const cudaError_t err = choose_block(kernel, BVH64_BLOCK_MAX, [](int) { return (size_t)0; },
+                                       block, g_occupancy_shaded);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(a.n + block - 1) / block, block, 0, st>>>(
+      a.nodes64, a.root_count, a.prims_f, a.prims_i, a.shade_f, a.o, a.d, a.t_max, a.t_out,
+      a.idx_out, a.mat_out, a.al_out, a.attrs, a.n);
+  return (int)cudaGetLastError();
+}
+
+template <bool kSmooth>
+int launch_shaded_stack(int deep, cudaStream_t st, const ShadedArgs& a) {
+  return deep ? launch_shaded<kSmooth, DEEP_STACK>(st, a)
+              : launch_shaded<kSmooth, STACK_DEPTH>(st, a);
 }
 
 }  // namespace
@@ -477,26 +524,33 @@ int bvh4_launch(int any_hit, int deep, const float* nodes4_f, const int* nodes4_
   return (int)cudaGetLastError();
 }
 
-// Launch the shaded closest-hit walk; with `smooth` the smooth instance on
-// (n_prims, 31) shade rows, with `deep` the deep one.  attrs is (16, n): u,
-// v, uv, ns, ng, dpdu, dpdv, or (22, n) smooth: ..., dndu, dndv.
-int bvh_shaded_launch(int deep, const float* nodes_f, const int* nodes_i, const float* prims_f,
+// Launch the shaded closest-hit walk over the node64 rows nodes64 (I, 16),
+// root at row 0 (I = 0: the tree is one leaf of all n_prims rows), and the
+// (n_prims, 12) leaf rows; with `smooth` the smooth instance on (n_prims,
+// 31) shade rows (flat: (n_prims, 15)), with `deep` the deep one.  attrs is
+// (16, n): u, v, uv, ns, ng, dpdu, dpdv, or (22, n) smooth: ..., dndu,
+// dndv.  Returns as bvh_launch.
+int bvh_shaded_launch(int deep, const float* nodes64, int n_nodes, const float* prims_f,
                       const int* prims_i, const float* shade_f, int smooth, int n_prims,
                       const float* o, const float* d, const float* t_max, float* t_out,
                       int* idx_out, int* mat_out, int* al_out, float* attrs, int n,
                       void* stream) {
   cudaGetLastError();
   if (n <= 0) return 0;
-  if (n_prims <= 0) return (int)cudaErrorInvalidValue;
-  const int grid = (n + BLOCK - 1) / BLOCK;
+  if (n_prims <= 0 || n_nodes < 0 || (n_nodes > 0 && nodes64 == nullptr) ||
+      (n_nodes == 0 && n_prims >= 1 << LEAF_COUNT_BITS))
+    return (int)cudaErrorInvalidValue;
+  const ShadedArgs a{reinterpret_cast<const float4*>(nodes64), n_nodes > 0 ? 0 : n_prims,
+                     reinterpret_cast<const float4*>(prims_f), prims_i, shade_f, o, d, t_max,
+                     t_out, idx_out, mat_out, al_out, attrs, n};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (deep)
-    launch_shaded<DEEP_STACK>(smooth, grid, st, nodes_f, nodes_i, prims_f, prims_i, shade_f,
-                              n_prims, o, d, t_max, t_out, idx_out, mat_out, al_out, attrs, n);
-  else
-    launch_shaded<STACK_DEPTH>(smooth, grid, st, nodes_f, nodes_i, prims_f, prims_i, shade_f,
-                               n_prims, o, d, t_max, t_out, idx_out, mat_out, al_out, attrs, n);
-  return (int)cudaGetLastError();
+  return smooth ? launch_shaded_stack<true>(deep, st, a) : launch_shaded_stack<false>(deep, st, a);
+}
+
+// The last bvh_shaded_launch's block size, blocks per SM, registers per
+// thread and dynamic shared memory bytes, into out[0..3]
+void bvh_shaded_occupancy(int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy_shaded[k];
 }
 
 // Launch the node64 walk, closest hit (any_hit 0) or any hit (1), over n

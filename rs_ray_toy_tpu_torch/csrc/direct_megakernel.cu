@@ -26,12 +26,16 @@
 // What bounds it on this card: like the path kernel, divergent per-thread
 // FP32 ALU work (Moller-Trumbore, slab tests, lobes) over small read-only
 // tables; 20 bytes in and 16 bytes out per ray.  Geometry as in
-// common.cuh: staged in shared memory for brute force; over a BVH the walk of
-// its node64 rows and 48-byte leaf rows (Bvh64Geometry, the path kernel's BVH
-// walk) through the read-only cache, the winner's row of the table, in the
-// same leaf order, read only to shade, in blocks of BLOCK under a launch
-// bound of DIRECT_BVH_MIN_BLOCKS an SM.  Given rays add 28 bytes in (o, d,
-// weight) and write no weight.
+// common.cuh: for brute force the chunked walk (ChunkGeometry, K1's and K6's:
+// the chunk boxes and the rows' intersect columns staged in shared memory, a
+// chunk's rows run only where its box is hit, each behind the division-free
+// reject; the winner and its t are the walk over every row's); over a BVH
+// the walk of its node64 rows and 48-byte leaf rows (Bvh64Geometry, the path
+// kernel's BVH walk) through the read-only cache, the winner's row of the
+// table, in the same leaf order, read only to shade.  The instances run in
+// blocks of BLOCK under a launch bound of DIRECT_MIN_BLOCKS an SM, but for
+// brute force on a table too large for that many blocks' shared memory
+// (kUncap).  Given rays add 28 bytes in (o, d, weight) and write no weight.
 
 #include "common.cuh"
 
@@ -77,38 +81,52 @@ __device__ bool select_matching(const float* row, int n_lob, int a, int b, Lobe&
 // sites (the closest hit of a tree node, the shadow ray of each light
 // strategy), each leaf row loaded when it is tested and meeting the
 // division-free reject first, in blocks of BLOCK threads under a launch
-// bound that keeps DIRECT_BVH_MIN_BLOCKS of them resident an SM (56
-// registers, where the occupancy API's choice was 4 blocks at 120): the walks
-// wait on dependent loads, and more resident warps hide them.  Each choice won
-// on the card (PERF.md §6: `walk_ab --variant call_walks`,
-// `DIRECT_BVH_MIN_BLOCKS=1`, `DIRECT_LEAF_PREFETCH=true`, `no_reject`).  The
-// brute-force instances take no minimum (0: their ptxas lines as before).
-constexpr int DIRECT_BVH_MIN_BLOCKS = 9;
+// bound that keeps DIRECT_MIN_BLOCKS of them resident an SM (56 registers,
+// where the occupancy API's choice was 4 blocks at 120): the walks wait on
+// dependent loads, and more resident warps hide them.  Each choice won on
+// the card (PERF.md §6: `walk_ab --variant call_walks`, `DIRECT_MIN_BLOCKS=1`
+// (then DIRECT_BVH_MIN_BLOCKS), `DIRECT_LEAF_PREFETCH=true`, `no_reject`).
+// The brute-force (chunked) instances take the same bound for the same
+// reason where the table's shared memory lets the bound's blocks be
+// resident: 9 blocks at 56 registers beat the uncapped 4 at 110 by 14-18% and
+// 6 at 80 by 3-4% on the Debug fixture, 8 at 64 and 10 at 48 within 2% on
+// its camera pass (10 lost 7% on its rays) (`walk_ab --variant
+// DIRECT_MIN_BLOCKS=N --only k2`).  A larger table keeps fewer blocks
+// resident whatever their registers, and there the cap only spills: the
+// launch takes the instance (kUncap) without it, in blocks of up to
+// DIRECT_BLOCK_MAX, wherever that keeps more threads resident (choose_block
+// on both): on a grid of 1,896 rows (72 KB a block) 2 blocks of 256 at 110
+// registers ran 21% faster than the capped 3 of 128 (`--variant k2_capped`).
+constexpr int DIRECT_MIN_BLOCKS = 9;
+constexpr int DIRECT_BLOCK_MAX = 384;
 constexpr bool DIRECT_LEAF_PREFETCH = false;
 using DirectBvhGeometry =
     Bvh64Geometry<STACK_DEPTH, false, Bvh64<STACK_DEPTH, DIRECT_LEAF_PREFETCH>>;
 
-// One sample pass per thread.  Brute force: the n_tris rows of `table`
-// staged in shared memory (geo_a and geo_b null).  BVH (kBvh): geo_a holds
-// the node64 rows (null for a tree that is one leaf of root_count rows) and
-// geo_b the 48-byte leaf rows, both read as float4 rows.
-template <bool kBvh, bool kRaysIn>
-__global__ void __launch_bounds__(BLOCK, kBvh ? DIRECT_BVH_MIN_BLOCKS : 0)
+// One sample pass per thread.  Brute force: the chunked walk over the
+// n_chunks chunk rows geo_a and the n_tris rows of `table`, both staged in
+// shared memory (geo_b null).  BVH (kBvh): geo_a holds the node64 rows (null
+// for a tree that is one leaf of root_count rows) and geo_b the 48-byte leaf
+// rows, both read as float4 rows.  kUncap: a brute-force instance without the
+// register cap (see DIRECT_MIN_BLOCKS).
+template <bool kBvh, bool kRaysIn, bool kUncap = false>
+__global__ void __launch_bounds__(kUncap ? DIRECT_BLOCK_MAX : BLOCK,
+                                  kUncap ? 1 : DIRECT_MIN_BLOCKS)
     direct_mega_kernel(const float* __restrict__ table, int n_tris,
                        const float* __restrict__ geo_a, const float* __restrict__ geo_b,
                        const float* __restrict__ in_a, const float* __restrict__ in_d,
                        const float* __restrict__ in_w, const int* __restrict__ pid,
                        const int* __restrict__ sid, float* __restrict__ out_l,
                        float* __restrict__ out_w, int n, const __grid_constant__ Params p,
-                       int root_count) {
-  extern __shared__ float s_geo[];
+                       int root_count, int n_chunks) {
+  extern __shared__ float4 s_dyn[];  // brute force: the chunk rows, then the rows
   const auto geom = [&] {
     if constexpr (kBvh)
       return DirectBvhGeometry{{reinterpret_cast<const float4*>(geo_a),
                                 reinterpret_cast<const float4*>(geo_b), root_count},
                                table};
     else
-      return load_geometry<false>(s_geo, table, n_tris, nullptr, nullptr);
+      return load_chunk_geometry<TABLE_COLS>(s_dyn, table, n_tris, geo_a, n_chunks);
   }();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -300,15 +318,15 @@ __global__ void __launch_bounds__(BLOCK, kBvh ? DIRECT_BVH_MIN_BLOCKS : 0)
   if constexpr (!kRaysIn) out_w[i] = weight;
 }
 
-// The last BVH launch's block size, blocks resident per SM, registers per
-// thread and dynamic shared memory bytes
-int g_occupancy[4] = {};
+// The last launch's block size, blocks resident per SM, registers per
+// thread and dynamic shared memory bytes: chunked brute force, then BVH
+int g_occupancy[2][4] = {};
 
 template <bool kRaysIn>
 int launch(const float* table, int n_tris, const float* nodes64, const float* prims,
            int root_count, const Params* params, const float* in_a, const float* in_d,
            const float* in_w, const int* pid, const int* sid, float* out_l, float* out_w, int n,
-           void* stream) {
+           void* stream, const float* chunks, int n_chunks) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (n <= 0) return 0;
   if (params->max_depth < 1 || params->max_depth > DEPTH_MAX) return (int)cudaErrorInvalidValue;
@@ -322,20 +340,35 @@ int launch(const float* table, int n_tris, const float* nodes64, const float* pr
     // blocks of BLOCK (the launch bound); choose_block measures their occupancy
     int block = BLOCK;
     const cudaError_t err =
-        choose_block(kernel, BLOCK, [](int) { return (size_t)0; }, block, g_occupancy);
+        choose_block(kernel, BLOCK, [](int) { return (size_t)0; }, block, g_occupancy[1]);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, BLOCK, 0, st>>>(table, n_tris, nodes64, prims, in_a, in_d, in_w, pid, sid,
-                                   out_l, out_w, n, *params, root_count);
+                                   out_l, out_w, n, *params, root_count, 0);
     return (int)cudaGetLastError();
   }
-  if (n_tris <= 0 || n_tris > TRI_MAX) return (int)cudaErrorInvalidValue;
-  const cudaError_t attr = cudaFuncSetAttribute(direct_mega_kernel<false, kRaysIn>,
-                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                (int)SMEM_MAX);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  direct_mega_kernel<false, kRaysIn><<<grid, BLOCK, smem, st>>>(
-      table, n_tris, nullptr, nullptr, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params, 0);
+  if (n_tris <= 0 || n_tris > TRI_MAX || table == nullptr || chunks == nullptr ||
+      n_chunks <= 0 || n_chunks > CHUNK_MAX)
+    return (int)cudaErrorInvalidValue;
+  // each block stages the whole table: the capped instance in blocks of
+  // BLOCK, or the uncapped one where it keeps more threads resident
+  const size_t smem = chunk_smem(n_tris, n_chunks);
+  const auto capped = direct_mega_kernel<false, kRaysIn>;
+  const auto uncapped = direct_mega_kernel<false, kRaysIn, true>;
+  int block[2], occ[2][4];
+  for (int k = 0; k < 2; ++k) {
+    const auto kernel = k ? uncapped : capped;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)CHUNK_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    err = choose_block(kernel, k ? DIRECT_BLOCK_MAX : BLOCK, [&](int) { return smem; }, block[k],
+                       occ[k]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int k = occ[1][0] * occ[1][1] > occ[0][0] * occ[0][1] ? 1 : 0;
+  for (int j = 0; j < 4; ++j) g_occupancy[0][j] = occ[k][j];
+  (k ? uncapped : capped)<<<(n + block[k] - 1) / block[k], block[k], smem, st>>>(
+      table, n_tris, chunks, nullptr, in_a, in_d, in_w, pid, sid, out_l, out_w, n, *params, 0,
+      n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -343,27 +376,29 @@ int launch(const float* table, int n_tris, const float* nodes64, const float* pr
 
 extern "C" {
 
-// Launch one sample pass on `stream`: brute force when prims is null, else
-// the walk of the BVH's node64 rows `nodes64` (null where the tree is one
-// leaf of root_count rows; root_count 0 otherwise) over the (n_tris, 12)
-// float32 leaf rows `prims` (p0, e1, e2, pad), the table in the same leaf
-// order.  Returns cudaGetLastError() of the launch (0 when it was accepted);
-// nothing is synchronised.
+// Launch one sample pass on `stream`: brute force when prims is null (the
+// chunked walk over the (n_chunks, CHUNK_COLS) rows `chunks` that cover the
+// table), else the walk of the BVH's node64 rows `nodes64` (null where the
+// tree is one leaf of root_count rows; root_count 0 otherwise) over the
+// (n_tris, 12) float32 leaf rows `prims` (p0, e1, e2, pad), the table in the
+// same leaf order (chunks null, n_chunks 0).  Returns cudaGetLastError() of
+// the launch (0 when it was accepted); nothing is synchronised.
 int direct_mega_cam_launch(const float* table, int n_tris, const float* nodes64,
                            const float* prims, const Params* params, const float* pixel_xy,
                            const int* pid, const int* sid, float* out_l, float* out_w, int n,
-                           void* stream, int root_count) {
+                           void* stream, const float* chunks, int n_chunks, int root_count) {
   return launch<false>(table, n_tris, nodes64, prims, root_count, params, pixel_xy, nullptr,
-                       nullptr, pid, sid, out_l, out_w, n, stream);
+                       nullptr, pid, sid, out_l, out_w, n, stream, chunks, n_chunks);
 }
 
 // The same on given rays: o, d (n, 3) and weight (n,); out_l only.
 int direct_mega_rays_launch(const float* table, int n_tris, const float* nodes64,
                             const float* prims, const Params* params, const float* o,
                             const float* d, const float* weight, const int* pid, const int* sid,
-                            float* out_l, int n, void* stream, int root_count) {
+                            float* out_l, int n, void* stream, const float* chunks, int n_chunks,
+                            int root_count) {
   return launch<true>(table, n_tris, nodes64, prims, root_count, params, o, d, weight, pid, sid,
-                      out_l, nullptr, n, stream);
+                      out_l, nullptr, n, stream, chunks, n_chunks);
 }
 
 const char* direct_mega_cam_error_string(int err) {
@@ -372,10 +407,10 @@ const char* direct_mega_cam_error_string(int err) {
 
 int direct_mega_cam_params_size() { return (int)sizeof(Params); }
 
-// The last BVH launch's block size, blocks per SM, registers per thread and
-// dynamic shared memory bytes, into out[0..3]
-void direct_mega_occupancy(int* out) {
-  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[k];
+// The last chunked (bvh 0) or BVH (bvh 1) launch's block size, blocks per
+// SM, registers per thread and dynamic shared memory bytes, into out[0..3]
+void direct_mega_occupancy(int bvh, int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[bvh != 0][k];
 }
 
 }  // extern "C"

@@ -12,17 +12,18 @@ triangles.  The closest-hit and any-hit queries walk the binary tree
 (the JAX package's default walk, and the faster one on the card than the
 BVH4's: PERF.md §6) over the node64 rows (accel/bvh.pack_node64_tables:
 one 64-byte fetch per interior node, both children's references in it)
-with `bvh64_kernel`.  `bvh_kernel`, the walk over the fused-children rows
-that it replaced, finds the same hits in the same order; it stays
-launchable (`prepare_launch(..., fused_rows=True)`) for the comparison
-on the card.  `pack_bvh(..., wide=True)` also collapses the tree into
-4-wide nodes (BVH4: accel/bvh.pack_bvh4_tables) and has those queries
-walk them (`bvh4_kernel`, the JAX package's `RS_BVH_WIDE=1` kernel).
-The shaded walk is `bvh_kernel`'s either way: the JAX package has no
-wide one.  A tree of 64 levels or more is walked by the kernels' deep
-instances, whose stack holds 256 nodes (accel/bvh.stack_for; the BVH4
-walk's by stack4_for); a tree too deep for 256 raises
-NotImplementedError: there is no slower walk to fall back to.
+with `bvh64_kernel`, and so does the shaded closest hit
+(`bvh_shaded_kernel`).  `bvh_kernel`, the walk over the fused-children rows
+that the closest and any hit replaced, finds the same hits in the same
+order; it stays launchable (`prepare_launch(..., fused_rows=True)`) for
+the comparison on the card.  `pack_bvh(..., wide=True)` also collapses
+the tree into 4-wide nodes (BVH4: accel/bvh.pack_bvh4_tables) and has
+those queries walk them (`bvh4_kernel`, the JAX package's `RS_BVH_WIDE=1`
+kernel).  The shaded walk is the binary one over the node64 rows either
+way: the JAX package has no wide one.  A tree of 64 levels or more is
+walked by the kernels' deep instances, whose stack holds 256 nodes
+(accel/bvh.stack_for; the BVH4 walk's by stack4_for); a tree too deep for
+256 raises NotImplementedError: there is no slower walk to fall back to.
 
 - `intersect_bvh(tables, o, d, t_max)`: closest hit with t in
   [TRI_EPS, t_max): (t, idx, valid), t = t_max and idx = -1 on a miss.
@@ -36,7 +37,8 @@ NotImplementedError: there is no slower walk to fall back to.
 A lane with t_max <= 0 misses without walking (the loop's dead lanes).  On
 a CUDA tensor each wrapper launches csrc/bvh_kernel.cu (built by
 ops/_build.py) or raises; on a CPU tensor it runs the plain version: the
-stack walk of accel/traverse (`*_reference`).
+stack walk of accel/traverse (`*_reference`; the shaded one walks the
+node64 rows, `traverse.walk64`).
 """
 
 import ctypes
@@ -101,7 +103,7 @@ class BvhTables(NamedTuple):
     depth4: int = 0  # wide nodes on the longest path
     wide: bool = False  # closest and any hit walk the BVH4
     # (I, 16) float32 node64 rows, one per interior node (accel/bvh
-    # .pack_node64_tables): the binary closest and any hit walk them
+    # .pack_node64_tables): the binary closest, any and shaded hit walk them
     nodes64: torch.Tensor = None
 
     @property
@@ -152,11 +154,17 @@ def occluded_bvh_reference(tables, o, d, t_max, work=None):
     return traverse.occluded_bvh(tables, o, d, t_max, work)
 
 
-def intersect_bvh_shaded_reference(tables, o, d, t_max, work=None):
+def intersect_bvh_shaded_reference(tables, o, d, t_max, work=None, fused_rows=False):
     """Plain version of the shaded kernel, with its outputs: (t, idx,
     material, area light, attrs (16, N), or (22, N) on smooth rows);
-    misses carry t_max, -1, -1, -1 and zeros."""
-    t, row = traverse.walk(tables, o, d, t_max, False, work, fused_rows=True)  # its walk
+    misses carry t_max, -1, -1, -1 and zeros.  Its walk is the node64
+    walk's (traverse.walk64), whose counts `work` gets; with `fused_rows`
+    the walk over the fused-children rows that the kernel took before the
+    node64 rows, which finds the same hits (for the comparison)."""
+    if fused_rows:
+        t, row = traverse.walk(tables, o, d, t_max, False, work, fused_rows=True)
+    else:
+        t, row, _ = traverse.walk64(tables, o, d, t_max, False, work)
     valid = row >= 0
     r = row.clamp(min=0)
     g = tables.prims_f[r]
@@ -218,7 +226,9 @@ def load_kernel():
         lib.bvh_launch.restype = i
         lib.bvh_launch.argtypes = [i, i, p, p, p, p, i, p, p, p, p, p, i, p]
         lib.bvh_shaded_launch.restype = i
-        lib.bvh_shaded_launch.argtypes = [i, p, p, p, p, p, i, i, p, p, p, p, p, p, p, p, i, p]
+        lib.bvh_shaded_launch.argtypes = [i, p, i, p, p, p, i, i, p, p, p, p, p, p, p, p, i, p]
+        lib.bvh_shaded_occupancy.restype = None
+        lib.bvh_shaded_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.bvh4_launch.restype = i
         lib.bvh4_launch.argtypes = [i, i, p, p, p, p, i, p, p, p, p, p, i, p]
         lib.bvh64_launch.restype = i
@@ -311,24 +321,27 @@ def prepare_launch(tables, o, d, t_max, any_hit, fused_rows=False):
     return launch
 
 
-def occupancy():
-    """The last bvh64_kernel launch: its block size, blocks resident per
-    SM, registers per thread and dynamic shared memory bytes (none), as
-    the library chose and measured them."""
+def occupancy(shaded=False):
+    """The last bvh64_kernel launch (with `shaded`, bvh_shaded_kernel's):
+    its block size, blocks resident per SM, registers per thread and
+    dynamic shared memory bytes (none), as the library chose and measured
+    them."""
     out = (ctypes.c_int * 4)()
-    load_kernel().bvh64_occupancy(out)
+    lib = load_kernel()
+    (lib.bvh_shaded_occupancy if shaded else lib.bvh64_occupancy)(out)
     return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
 
 
 def prepare_shaded_launch(tables, o, d, t_max):
     """As prepare_launch for the shaded kernel (its smooth instance on
-    smooth rows); launch() returns (t, idx, material, area light (int32),
-    attrs (16, N), or (22, N) smooth)."""
+    smooth rows), which walks the node64 rows (of the binary tree, also
+    where the tables are `wide`); launch() returns (t, idx, material, area
+    light (int32), attrs (16, N), or (22, N) smooth)."""
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"the BVH kernel runs on cuda tensors, not {dev}")
     o, d, t_max = ray_args(o, d, t_max)
-    p = _check_tables(tables, dev, fused_rows=True)
+    p = _check_tables(tables._replace(wide=False), dev)
     n = o.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     ints = torch.empty((3, n), dtype=torch.int32, device=dev)
@@ -342,7 +355,7 @@ def prepare_shaded_launch(tables, o, d, t_max):
 
     def launch():
         err = lib.bvh_shaded_launch(
-            deep, tables.nodes_f.data_ptr(), tables.nodes_i.data_ptr(), tables.prims_f.data_ptr(),
+            deep, tables.nodes64.data_ptr(), tables.nodes64.shape[0], tables.prims_f.data_ptr(),
             tables.prims_i.data_ptr(), tables.shade_f.data_ptr(), int(smooth), p, o.data_ptr(),
             d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(), ints[0].data_ptr(),
             ints[1].data_ptr(), ints[2].data_ptr(), attrs.data_ptr(), n, stream,

@@ -17,10 +17,14 @@ sample slot: a node with branch id b reads its slots from
 package's `li_levels_mega`, its `_kernel` / `_kernel_bvh`).
 
 On a CUDA tensor the wrapper launches csrc/direct_megakernel.cu (built by
-ops/_build.py) or raises; over a BVH the kernel walks its node64 rows and
-48-byte leaf rows (`BvhTables.nodes64`, `prims`, `root_count`; the path
-kernel's BVH walk, csrc/common.cuh Bvh64Geometry), which the plain version
-walks too (PlainGeometry).  On a CPU tensor it runs
+ops/_build.py) or raises; brute force takes the chunked walk over
+`PackedScene.chunks` (csrc/common.cuh ChunkGeometry, K1's and K6's brute
+force: a chunk's rows are tested only where its padded box is hit), over a
+BVH the kernel walks its node64 rows and 48-byte leaf rows
+(`BvhTables.nodes64`, `prims`, `root_count`; the path kernel's BVH walk,
+csrc/common.cuh Bvh64Geometry); the plain version walks the same
+(PlainGeometry with `cull`), and finds the same hits as the walk over
+every row.  On a CPU tensor it runs
 `li_levels_mega_cam_reference` (`li_levels_mega_reference` on given
 rays), the plain PyTorch version: the tree
 unrolled over static branch ids on flat (N,) tensors with masked lanes,
@@ -106,26 +110,27 @@ def tree_shape(packed, spec):
 def load_kernel():
     """The direct kernel's library (built on first use): the camera entry
     `direct_mega_cam_launch` and the rays-in entry `direct_mega_rays_launch`,
-    both taking the BVH's root_count after the common arguments, whose two
-    node tables over a BVH are the node64 rows (null for a tree that is one
-    leaf) and the leaf rows (pmk.geometry_args with `node64`)."""
-    lib = pmk.load_library("direct_megakernel", "direct_mega_cam", (ctypes.c_int,))
+    both taking after the common arguments the chunk rows of a brute-force
+    table and their count (null and 0 with a BVH), then the BVH's
+    root_count; over a BVH the common arguments' two node tables are the
+    node64 rows (null for a tree that is one leaf) and the leaf rows
+    (pmk.geometry_args with `node64`)."""
+    extra = pmk._CHUNK_ARGS + (ctypes.c_int,)
+    lib = pmk.load_library("direct_megakernel", "direct_mega_cam", extra)
     lib.direct_mega_rays_launch.restype = ctypes.c_int
-    lib.direct_mega_rays_launch.argtypes = pmk.RAYS_LAUNCH_ARGS + [ctypes.c_int]
+    lib.direct_mega_rays_launch.argtypes = pmk.RAYS_LAUNCH_ARGS + list(extra)
     lib.direct_mega_occupancy.restype = None
-    lib.direct_mega_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.direct_mega_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
 def occupancy(bvh=True):
-    """The last BVH launch of the direct kernel: its block size, blocks
-    resident per SM, registers per thread and dynamic shared memory bytes,
-    as the library measured them (choose_block).  The brute-force launch
-    reports none: `bvh` False raises."""
-    if not bvh:
-        raise ValueError("the direct kernel reports the occupancy of its BVH launch only")
+    """The last BVH (or, `bvh` False, chunked brute-force) launch of the
+    direct kernel: its block size, blocks resident per SM, registers per
+    thread and dynamic shared memory bytes, as the library chose and
+    measured them (choose_block)."""
     out = (ctypes.c_int * 4)()
-    load_kernel().direct_mega_occupancy(out)
+    load_kernel().direct_mega_occupancy(int(bvh), out)
     return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
 
 
@@ -164,7 +169,7 @@ def prepare_launch(packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, spec)
     prm = _tree_params(packed, cam_packed, sampler, spec)
     return pmk.launcher(
         load_kernel(), "direct_mega_cam", packed, pixel_xy, pixel_id, s_idx, prm, LAUNCHES,
-        extra=(pmk.root_count(packed),), node64=True,
+        extra=(*pmk.chunk_args(packed, pixel_xy.device), pmk.root_count(packed)), node64=True,
     )
 
 
@@ -184,9 +189,13 @@ def prepare_rays_launch(packed, o, d, cam_weight, pixel_id, s_idx, sampler, spec
     """launch() of the rays-in kernel on the current stream, returning L;
     every accepted launch adds one to LAUNCHES["direct_mega"] (or
     ["direct_mega_bvh"])."""
+    if o.device.type != "cuda":
+        raise ValueError(f"the direct_mega kernel runs on cuda tensors, not {o.device}")
     prm = _tree_params(packed, None, sampler, spec)
     return pmk.rays_launcher(load_kernel(), "direct_mega", packed, o, d, cam_weight, pixel_id,
-                             s_idx, prm, LAUNCHES, extra=(pmk.root_count(packed),), node64=True)
+                             s_idx, prm, LAUNCHES,
+                             extra=(*pmk.chunk_args(packed, o.device), pmk.root_count(packed)),
+                             node64=True)
 
 
 # ---- the plain PyTorch version ----
@@ -252,10 +261,12 @@ def li_levels_mega_reference(packed, o, d, cam_weight, pixel_id, s_idx, sampler,
 def tree_reference(packed, ray, weight, pid, sid, sampler, spec, work=None):
     """The tree (`_chain_loop`) from rays (ox, oy, oz, dx, dy, dz) of
     (N,) float32 with weights (N,); pid and sid (N,) int64.  Returns L
-    (N, 3)."""
+    (N, 3).  Brute force walks the chunks (the kernel's ChunkGeometry), and
+    `work` gets that walk's counts beside those of the walk over every row
+    (pmk.chunk_walk)."""
     ox, oy, oz, dx, dy, dz = ray
     dev = ox.device
-    geom = pmk.PlainGeometry(packed, dev, work)
+    geom = pmk.PlainGeometry(packed, dev, work, cull=True)
     table = geom.table
     debug, strategy_all, max_depth, can_chain, has_st = tree_shape(packed, spec)
     max_lobes = int(table[:, 15].max())

@@ -1,12 +1,13 @@
 """The redesigned walks against another revision's, on one NVIDIA GPU: the
 path kernel's brute-force instances (K1) and BVH instances (K1 BVH), the
 Volpath kernel's brute-force (K6) and BVH instances (K6 BVH), the direct
-kernel's BVH instances (K2 BVH) and the wavefront loop's BVH closest and
-any hit (K3).
+kernel's brute-force (K2) and BVH instances (K2 BVH) and the wavefront
+loop's BVH closest and any hit (K3) and shaded closest hit (K3-shaded).
 
     python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR [--reps 10] [--out DIR] [--only k1bvh]
     python -m rs_ray_toy_tpu_torch.walk_ab --variant NAME [--only k3] ...
     python -m rs_ray_toy_tpu_torch.walk_ab --variant CONSTANT=VALUE [--only k2bvh,k6bvh] ...
+    python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR --only k2,k3s
     python -m rs_ray_toy_tpu_torch.walk_ab --counts [--device cpu] [--scale 4]
 
 DIR is a checkout of the other revision (e.g. `git archive` of the parent
@@ -23,13 +24,18 @@ instances without the launch bound that caps their registers for 9
 resident blocks an SM), `inline_bss_walks` (K1's subsurface BVH
 instances inline their walks at every call site instead of calling one
 copy of each), `no_reject` (Bvh64 tests each leaf row with mt_hit alone,
-without the division-free reject first) and `call_walks` (K2's and K6's
-BVH instances call one out-of-line copy of each walk); `CONSTANT=VALUE` a
+without the division-free reject first), `call_walks` (K2's and K6's
+BVH instances call one out-of-line copy of each walk), `k2_capped`
+(K2's brute force takes its register-capped instance on every table),
+`shaded_no_prefetch` (K3-shaded's flat instance, too, loads each leaf row
+when it tests it) and `shaded_min_blocks` (K3-shaded under a launch bound
+for 5 resident blocks of 256 an SM); `CONSTANT=VALUE` a
 copy whose one `constexpr` of that name, in the one kernel source that has
-it, takes VALUE: K2's and K6's BVH instances take `DIRECT_` /
-`VOL_BVH_MIN_BLOCKS` (the launch bound's resident blocks) and
-`_LEAF_PREFETCH` (e.g. `--variant VOL_BVH_MIN_BLOCKS=1`).  `--only` keeps the cases of
-some kernels: k1, k6, k3, k1bvh, k2bvh, k6bvh.  Each tree builds the kernels
+it, takes VALUE: K2's instances, brute force and BVH, take
+`DIRECT_MIN_BLOCKS` (the launch bound's resident blocks), K6's BVH
+instances `VOL_BVH_MIN_BLOCKS`, both `_LEAF_PREFETCH` (e.g. `--variant
+VOL_BVH_MIN_BLOCKS=1`).  `--only` keeps the cases of
+some kernels: k1, k6, k3, k1bvh, k2bvh, k6bvh, k2, k3s.  Each tree builds the kernels
 of those cases; then a
 worker process runs under each tree in turns (the other revision, this
 tree, this tree, the other revision), so that both meet the card in the
@@ -52,20 +58,32 @@ K6BVH_CASES at chip_smoke.py's sizes (the 19,224-triangle grid of cubes
 under Debug at 640x360x16, 3.69M rays, as phases 4 and 13c write it; the
 same grid in the fixture's fog, and in write_grid_fog_scene's 16^3 grid
 medium, at 640x360x8, 1.84M rays, as phases 5d and 13d write the first),
-and the rays-in twin on the pass's camera rays.  K6: one
+and the rays-in twin on the pass's camera rays.  K2 (#5a, #6 brute force,
+the chunked walk): one pass of samples/scene_debug.json (Debug) at
+640x360x16 (3.69M rays) and its rays-in twin, the one-light
+DirectLighting variant at 160x90x16, as chip_smoke.py's phase 3, and a
+grid of 1,896 triangles under Debug (brute force near TRI_MAX, where the
+table's shared memory leaves few blocks resident) at 640x360x16, with
+its rays-in twin.  K6: one
 pass of the fog fixture, fog_area and the 16^3 grid fog through
 `li_volpath_mega_cam` at chip_smoke.py's sizes, and the fog's camera rays
 through `li_volpath_mega`.  K3: the loop's closest-hit or any-hit walk
 (`bvh_kernel.prepare_launch` on the loop's tables) on the ao-grid's first
 probe batch, path-grid80's camera and bounce-0 shadow rays, the
 subsurface probe chain's first closest-hit batch on grid-sss-mixed and
-2^17 rays aimed at the 101-level tree.  The last line of the output is a
+2^17 rays aimed at the 101-level tree.  K3-shaded (#14): the shaded
+closest hit (`bvh_kernel.prepare_shaded_launch`) on the first shaded
+batch of the ao-grid (its camera rays), of path-grid80 and of
+write_smooth_grid_scene's 80 spheres (76,836 triangles, the smooth
+instance: each a Path render's first bounce, 640x360x8) and on the 101-level
+tree's aimed rays; its outputs t, triangle, material, area light and the
+attribute rows compared.  The last line of the output is a
 JSON object: per case the four times in turn order, the other revision's
 output against this tree's (rays whose radiance channels, or whose t and
 triangle, are not all bit-equal; NaN equal to NaN), the K3 kernel each
-tree launched, and this tree's occupancy (block size, blocks per SM,
-registers, shared memory) where it reports one.  Both workers' records go
-to --out.
+tree launched, and this tree's and the other's occupancy (block size,
+blocks per SM, registers, shared memory) where they report one.  Both
+workers' records go to --out.
 
 `--counts` runs no kernel: the plain versions, on --device, count what
 the redesigned walks do (only the groups of --only).  K6 (fog, fog_area, grid_fog, their films
@@ -84,8 +102,13 @@ quarter of each case's pass (consecutive rays, so that 32 of them are
 a warp's lanes), the node64 walk's steps per walk and per warp its longest
 walk (PlainGeometry's step tallies), apart for the closest hits, the any
 hits (shadow rays) and the subsurface probe chain's closest hits, and per
-ray its MT and slab tests and interior rows.  The last line is a JSON
-object of those numbers.
+ray its MT and slab tests and interior rows.  K2 (films divided by
+--scale): the chunked walk's counts as K6's, over the Debug fixture's
+pass and the one-light variant's (every walk of the tree: closest hits
+and shadow rays).  K3-shaded, on a CUDA device only: the node64 walk's
+steps a ray (mean, 99th percentile, the warps' longest) and MT and slab
+tests and interior rows a ray on each of its batches.  The last line is a
+JSON object of those numbers.
 """
 
 import argparse
@@ -134,6 +157,14 @@ K1BVH_CASES = {
 K2BVH_CASES = {"debug_grid": "grid_debug"}
 K6BVH_CASES = {"fog_grid": "grid_fog_bvh", "grid_medium_grid": "grid_medium_bvh"}
 VOL_CASES = ("fog", "fog_area", "grid_fog")  # K6, the fog's rays-in twin too
+# K2's brute-force (chunked) instances: case -> (scene, DirectLighting one
+# light at 160x90, rays-in twin too); "grid_brute" is k2_job's grid
+K2_CASES = {"debug_fixture": ("scene_debug.json", False, True),
+            "direct_one_160x90": ("scene_debug.json", True, False),
+            "debug_grid_brute": ("grid_brute", False, True)}
+# K3-shaded: case -> first-pass batch
+SHADED_CASES = {"ao_grid_shaded": "ao_grid_camera", "grid80_shaded": "grid80_camera",
+                "smooth80_shaded": "smooth80_camera", "deep_shaded": "deep"}
 # K3: case -> (first-pass batch, any hit)
 BVH_CASES = {
     "ao_grid_any": ("ao_grid", True),
@@ -145,11 +176,11 @@ BVH_CASES = {
     "deep_any": ("deep", True),
 }
 # --only: CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES, K6BVH_CASES
-GROUPS = ("k1", "k6", "k3", "k1bvh", "k2bvh", "k6bvh")
+GROUPS = ("k1", "k6", "k3", "k1bvh", "k2bvh", "k6bvh", "k2", "k3s")
 # the kernel source each group's cases launch
 SOURCES = {"k1": "path_megakernel", "k6": "volpath_megakernel", "k3": "bvh_kernel",
            "k1bvh": "path_megakernel", "k2bvh": "direct_megakernel",
-           "k6bvh": "volpath_megakernel"}
+           "k6bvh": "volpath_megakernel", "k2": "direct_megakernel", "k3s": "bvh_kernel"}
 _RAY_LOADS = """  // the ray's loads issued together, ahead of the test of t_max
   const float tm = __ldg(t_max + i);
   const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
@@ -188,6 +219,19 @@ VARIANTS = {
     "uncap_bvh_regs": [
         ("csrc/path_megakernel.cu", "__launch_bounds__(BLOCK, BVH_MIN_BLOCKS)",
          "__launch_bounds__(BLOCK, 1)"),
+    ],
+    "shaded_no_prefetch": [
+        ("csrc/bvh_kernel.cu", "Bvh64<kStack, kShadedPrefetch<kSmooth, kStack>>",
+         "Bvh64<kStack, false>"),
+    ],
+    "k2_capped": [
+        ("csrc/direct_megakernel.cu",
+         "const int k = occ[1][0] * occ[1][1] > occ[0][0] * occ[0][1] ? 1 : 0;",
+         "const int k = 0;"),
+    ],
+    "shaded_min_blocks": [
+        ("csrc/bvh_kernel.cu", "__launch_bounds__(BVH64_BLOCK_MAX)\nbvh_shaded_kernel(",
+         "__launch_bounds__(BVH64_BLOCK_MAX, 5)\nbvh_shaded_kernel("),
     ],
     "swap_k6_cap": [
         ("csrc/volpath_megakernel.cu", _K6_CAP,
@@ -329,28 +373,62 @@ def bvh_job(scene, out):
     return job
 
 
-def bvh_batches(out, dev):
-    """{batch: (SceneCtx, (o, d, t_max))} of the K3 cases, at chip_smoke.py's
-    sizes (phases 7b, 7c, 11e and 12e)."""
+def bvh_batches(out, dev, need=None):
+    """{batch: (SceneCtx, (o, d, t_max))} of the K3 and K3-shaded cases (or
+    of the batches `need`), at chip_smoke.py's sizes (phases 7b, 7c, 9g, 11e
+    and 12e)."""
     from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
-    from rs_ray_toy_tpu_torch.scene.gen import write_deep_bvh_scene, write_grid_scene
+    from rs_ray_toy_tpu_torch.scene.gen import (write_deep_bvh_scene, write_grid_scene,
+                                                write_smooth_grid_scene)
     from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
-    grid_ao = write_grid_scene(str(out / "grid_ao"), base=str(SAMPLES / "scene_ao.json"),
-                               integrator="AO")
-    ctx, b = first_pass_batches(load_scene(grid_ao), dev, 8)
-    batches = {"ao_grid": (ctx, b["occluded"])}
-    grid80 = write_grid_scene(str(out / "grid80_path"), ny=80, nz=80, integrator="Path")
-    ctx, b = first_pass_batches(load_scene(grid80), dev, 8)
-    batches.update(grid80_camera=(ctx, b["shaded"]), grid80_shadow=(ctx, b["occluded"]))
-    sss = write_grid_scene(str(out / "grid_sss_mixed"), base=str(SAMPLES / "scene_sss_mixed.json"))
-    ctx, b = first_pass_batches(load_scene(sss), dev, 16)
-    batches["probe_chain"] = (ctx, b["closest"])
-    deep = write_deep_bvh_scene(str(out / "deep_bvh"), integrator="Path", n_bulk=2000, xres=160,
-                                yres=90)
-    ctx = SceneCtx.from_scene(load_scene(deep).scene, dev)
-    batches["deep"] = (ctx, aimed_rays(1 << 17, (35.0, 0.0, 0.0), 1.0, dev))
+    need = set(need or [b for b, _ in BVH_CASES.values()] + list(SHADED_CASES.values()))
+    batches = {}
+    if need & {"ao_grid", "ao_grid_camera"}:
+        grid_ao = write_grid_scene(str(out / "grid_ao"), base=str(SAMPLES / "scene_ao.json"),
+                                   integrator="AO")
+        ctx, b = first_pass_batches(load_scene(grid_ao), dev, 8)
+        batches.update(ao_grid=(ctx, b["occluded"]), ao_grid_camera=(ctx, b["shaded"]))
+    if need & {"grid80_camera", "grid80_shadow"}:
+        grid80 = write_grid_scene(str(out / "grid80_path"), ny=80, nz=80, integrator="Path")
+        ctx, b = first_pass_batches(load_scene(grid80), dev, 8)
+        batches.update(grid80_camera=(ctx, b["shaded"]), grid80_shadow=(ctx, b["occluded"]))
+    if "smooth80_camera" in need:
+        smooth80 = write_smooth_grid_scene(str(out / "smooth_grid80"), n=80)
+        ctx, b = first_pass_batches(load_scene(smooth80), dev, 8)
+        batches["smooth80_camera"] = (ctx, b["shaded"])
+    if "probe_chain" in need:
+        sss = write_grid_scene(str(out / "grid_sss_mixed"),
+                               base=str(SAMPLES / "scene_sss_mixed.json"))
+        ctx, b = first_pass_batches(load_scene(sss), dev, 16)
+        batches["probe_chain"] = (ctx, b["closest"])
+    if "deep" in need:
+        deep = write_deep_bvh_scene(str(out / "deep_bvh"), integrator="Path", n_bulk=2000,
+                                    xres=160, yres=90)
+        ctx = SceneCtx.from_scene(load_scene(deep).scene, dev)
+        batches["deep"] = (ctx, aimed_rays(1 << 17, (35.0, 0.0, 0.0), 1.0, dev))
     return batches
+
+
+def k2_job(scene, one_light, out):
+    """The job of a K2_CASES case: the scene at its 640x360x16, or with
+    `one_light` at 160x90 under DirectLighting with one light a hit
+    (chip_smoke.py's phase 3); "grid_brute" is write_grid_scene's grid of
+    13 x 12 cubes (1,896 triangles, brute force near TRI_MAX) under the
+    Debug fixture's integrator, written under out."""
+    from rs_ray_toy_tpu_torch.scene.gen import write_grid_scene
+    from rs_ray_toy_tpu_torch.scene.loader import load_scene
+
+    if scene == "grid_brute":
+        job = load_scene(write_grid_scene(str(out / scene), ny=13, nz=12,
+                                          base=str(SAMPLES / "scene_debug.json"),
+                                          integrator="Debug", max_depth=4))
+    else:
+        job = load_scene(str(SAMPLES / scene))
+    if one_light:
+        job.film.xres, job.film.yres = 160, 90
+        job.integrator.kind, job.integrator.light_strategy = "direct", "one"
+    return job
 
 
 def worker(out, reps, only):
@@ -379,8 +457,11 @@ def worker(out, reps, only):
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def occupancy(mod):
-        return mod.occupancy() if hasattr(mod, "occupancy") else None
+    def occupancy(mod, bvh):
+        try:  # a revision whose module reports this launch's occupancy
+            return mod.occupancy(bvh=bvh)
+        except (AttributeError, TypeError, ValueError):
+            return None
 
     dev = torch.device("cuda")
     out = Path(out)
@@ -393,14 +474,8 @@ def worker(out, reps, only):
         pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
         launch = mod.prepare_launch(packed, pmk.pack_camera(cam), pxy, pid, soff, sampler,
                                     job.integrator)
-        rec = {"rays": pxy.shape[0], "ms": timed_ms(launch)}
-        if packed.bvh is None:
-            rec["occupancy"] = occupancy(mod)
-        else:
-            try:  # a revision that reports the BVH instances' occupancy
-                rec["occupancy"] = mod.occupancy(bvh=True)
-            except (AttributeError, TypeError):
-                pass
+        rec = {"rays": pxy.shape[0], "ms": timed_ms(launch),
+               "occupancy": occupancy(mod, packed.bvh is not None)}
         l, _ = launch()
         saved = {"cam": l.cpu()}
         if rays:
@@ -421,6 +496,9 @@ def worker(out, reps, only):
     for case, (scene, halton, rays) in (K1BVH_CASES.items() if "k1bvh" in only else ()):
         job = k1bvh_job(scene, halton, out / "scenes")
         camera_pass(case, pmk, pmk.pack_scene(job.scene, dev, bvh=True), job, rays)
+    for case, (scene, one_light, rays) in (K2_CASES.items() if "k2" in only else ()):
+        job = k2_job(scene, one_light, out / "scenes")
+        camera_pass(case, dmk, pmk.pack_scene(job.scene, dev), job, rays)
     for case, scene in (K2BVH_CASES.items() if "k2bvh" in only else ()):
         job = bvh_job(scene, out / "scenes")
         camera_pass(case, dmk, pmk.pack_scene(job.scene, dev), job, True)
@@ -430,7 +508,9 @@ def worker(out, reps, only):
     for case in (VOL_CASES if "k6" in only else ()):
         job = load_scene(vol_scene(case, out / "scenes"))
         camera_pass(case, vmk, vmk.pack_volpath(job.scene, dev), job, case == "fog")
-    batches = bvh_batches(out / "scenes", dev) if "k3" in only else {}
+    need = ([b for b, _ in BVH_CASES.values()] if "k3" in only else []) + (
+        list(SHADED_CASES.values()) if "k3s" in only else [])
+    batches = bvh_batches(out / "scenes", dev, need) if need else {}
     for case, (batch, any_hit) in (BVH_CASES.items() if "k3" in only else ()):
         ctx, (o, d, t_max) = batches[batch]
         launch = bk.prepare_launch(ctx.bvh, o, d, t_max, any_hit)
@@ -441,6 +521,19 @@ def worker(out, reps, only):
             rec["occupancy"] = bk.occupancy()
         t, idx = launch()
         torch.save({"hit": torch.stack([t, idx.float()], -1).cpu()}, out / f"{case}.pt")
+        record[case] = rec
+        print(f"{case}: {rec}", flush=True)
+    for case, batch in (SHADED_CASES.items() if "k3s" in only else ()):
+        ctx, (o, d, t_max) = batches[batch]
+        launch = bk.prepare_shaded_launch(ctx.bvh, o, d, t_max)
+        rec = {"rays": o.shape[0], "smooth": bool(ctx.bvh.smooth), "ms": timed_ms(launch)}
+        try:  # a revision that reports the shaded launch's occupancy
+            rec["occupancy"] = bk.occupancy(shaded=True)
+        except TypeError:
+            pass
+        t, idx, mat, al, attrs = launch()
+        torch.save({"hit": torch.stack([t, idx.float(), mat.float(), al.float()], -1).cpu(),
+                    "attrs": attrs.T.cpu()}, out / f"{case}.pt")
         record[case] = rec
         print(f"{case}: {rec}", flush=True)
     (out / "times.json").write_text(json.dumps(record))
@@ -525,6 +618,20 @@ def counts(dev, scale, only=GROUPS):
         found[case] = dict(film=f"{job.film.xres}x{job.film.yres}x{pass_spp(sampler.spp)}",
                            **step_counts(work, pxy[part].shape[0]))
         print(f"{case}: {found[case]}", flush=True)
+    for case, (scene, one_light, _) in (K2_CASES.items() if "k2" in only else ()):
+        job = k2_job(scene, one_light, out)
+        job.film.xres, job.film.yres = job.film.xres // scale, job.film.yres // scale
+        packed = pmk.pack_scene(job.scene, dev)
+        cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+        sampler = make_sampler(job)
+        pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+        work = {}
+        dmk.li_levels_mega_cam_reference(packed, cam, pxy, pid, soff, sampler, job.integrator,
+                                         work=work)
+        found[case] = dict(film=f"{job.film.xres}x{job.film.yres}x{pass_spp(sampler.spp)}",
+                           chunks=int(packed.chunks.shape[0]), rows=int(packed.table.shape[0]),
+                           **chunk_counts(work, pxy.shape[0]))
+        print(f"{case}: {found[case]}", flush=True)
     for case in (VOL_CASES if "k6" in only else ()):
         job = load_scene(vol_scene(case, out))
         job.film.xres, job.film.yres = job.film.xres // scale, job.film.yres // scale
@@ -539,18 +646,19 @@ def counts(dev, scale, only=GROUPS):
                            chunks=int(packed.chunks.shape[0]), rows=int(packed.table.shape[0]),
                            **chunk_counts(work, pxy.shape[0]))
         print(f"{case}: {found[case]}", flush=True)
-    if cuda and "k3" in only:
-        batches = bvh_batches(out, dev)
-        for case, (batch, any_hit) in BVH_CASES.items():
-            if batch not in ("ao_grid", "probe_chain"):
-                continue
-            ctx, (o, d, t_max) = batches[batch]
-            work = {}
-            _, _, steps = traverse.walk64(ctx.bvh, o, d, t_max, any_hit, work)
-            found[case] = dict(rays=o.shape[0], **traverse.step_stats(steps, t_max > 0.0),
-                               nodes_per_ray=float(work["node"]) / o.shape[0],
-                               mt_per_ray=float(work["mt"]) / o.shape[0])
-            print(f"{case}: {found[case]}", flush=True)
+    walks = ([(c, b, a) for c, (b, a) in BVH_CASES.items() if b in ("ao_grid", "probe_chain")]
+             if "k3" in only else []) + (
+        [(c, b, False) for c, b in SHADED_CASES.items()] if "k3s" in only else [])
+    batches = bvh_batches(out, dev, [b for _, b, _ in walks]) if cuda and walks else {}
+    for case, batch, any_hit in (walks if cuda else ()):
+        ctx, (o, d, t_max) = batches[batch]
+        work = {}
+        _, _, steps = traverse.walk64(ctx.bvh, o, d, t_max, any_hit, work)
+        found[case] = dict(rays=o.shape[0], **traverse.step_stats(steps, t_max > 0.0),
+                           nodes_per_ray=float(work["node"]) / o.shape[0],
+                           mt_per_ray=float(work["mt"]) / o.shape[0],
+                           slab_per_ray=float(work["slab"]) / o.shape[0])
+        print(f"{case}: {found[case]}", flush=True)
     return found
 
 
@@ -603,7 +711,8 @@ def main(argv=None):
     ap.add_argument("--out", default=str(ROOT / "build" / "walk_ab"))
     ap.add_argument("--counts", action="store_true", help="count with the plain versions")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--scale", type=int, default=1, help="--counts: K6's films divided by this")
+    ap.add_argument("--scale", type=int, default=1,
+                    help="--counts: K6's and K2's films divided by this")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     only = a.only.split(",")
@@ -641,13 +750,14 @@ def main(argv=None):
              for n, k in turns}
     summary = {}
     groups = dict(zip(GROUPS, (CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES,
-                               K6BVH_CASES)))
+                               K6BVH_CASES, K2_CASES, SHADED_CASES)))
     for case in (c for g in only for c in groups[g]):
         ref = torch.load(out / "parent0" / f"{case}.pt")
         new = torch.load(out / "change0" / f"{case}.pt")
         row = {"rays": times["change0"][case]["rays"],
                "ms": [times[f"{n}{k}"][case]["ms"] for n, k in turns],
-               "occupancy": times["change0"][case].get("occupancy")}
+               "occupancy": times["change0"][case].get("occupancy"),
+               "occupancy_other": times["parent0"][case].get("occupancy")}
         if case in BVH_CASES:
             row["walks"] = [times[f"{n}0"][case]["walk"] for n in ("parent", "change")]
         for key in ref:

@@ -12,7 +12,9 @@ loop on the card against the CPU; the SPPM kernels' wide instances on
 glass and Disney materials and K3's BVH4 walk; K3's node64 walk against
 its plain version and bvh_kernel, and the Volpath kernel's chunked walk
 against its walk over every row; the direct and Volpath kernels' BVH
-instances on the node64 walk) against their plain PyTorch versions.
+instances on the node64 walk; the direct kernel's brute force on the
+chunked walk and K3's shaded closest hit on the node64 walk) against
+their plain PyTorch versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -1167,7 +1169,10 @@ def test_k2_k6_bvh_instances_walk_node64(tmp_path, kernel, scene):
     cam_args = (pmk.pack_camera(camera), pxy, pid, soff, sampler, job.integrator)
     l_bvh, w_bvh = (x.clone() for x in mod.prepare_launch(packed, *cam_args)())
     if mod is dmk:
-        brute = packed._replace(bvh=None)
+        # brute force walks chunks of the same leaf-order rows
+        tab = packed.table.cpu().numpy()
+        chunks = pmk.chunk_rows(pmk.build_tri_chunks(tab[:, 0:3], tab[:, 3:6], tab[:, 6:9], n))
+        brute = packed._replace(bvh=None, chunks=torch.as_tensor(chunks, device=dev))
         l_b, w_b = dmk.prepare_launch(brute, *cam_args)()
         l_rb = dmk.prepare_rays_launch(brute, *rays[1:])()
     else:
@@ -1176,6 +1181,108 @@ def test_k2_k6_bvh_instances_walk_node64(tmp_path, kernel, scene):
         l_rb = vmk.prepare_rays_launch(brute, *rays[1:], every_row=True)()
     assert float(l_bvh.max()) > 0 and torch.equal(l_bvh, l_b) and torch.equal(w_bvh, w_b)
     assert torch.equal(l_rays, l_rb)
+
+
+@pytest.mark.parametrize("rays", [False, True], ids=["camera", "rays_in"])
+@pytest.mark.parametrize("variant", ["debug", "direct-one", "debug-grid"])
+def test_direct_chunked_instances_match_plain_versions(tmp_path, variant, rays):
+    """#5a and #6 on the chunked walk (the Debug fixture, 64x36x16, under
+    Debug and under DirectLighting with one light a hit, and a grid of
+    1,896 triangles under Debug, whose shared memory leaves few blocks
+    resident: the instance without the register cap): one launch of the
+    brute-force instance, at the per-ray bar against the plain version
+    (whose chunked walk finds the walk over every row's hits: the same
+    radiance, bit for bit), and the launch's occupancy."""
+    dev = _device()
+    if variant == "debug-grid":
+        job = load_scene(write_grid_scene(str(tmp_path), ny=13, nz=12,
+                                          base=str(SAMPLES / "scene_debug.json"),
+                                          integrator="Debug", max_depth=4, xres=64, yres=36))
+    else:
+        job = _job(tmp_path, scene="scene_debug.json")
+    if variant == "direct-one":
+        job.integrator.kind, job.integrator.light_strategy = "direct", "one"
+    packed = pmk.pack_scene(job.scene, dev)
+    assert packed.bvh is None and packed.chunks is not None
+    sampler = StratifiedSampler(job.sampler)
+    camera = RealisticCamera(job.camera, job.film, pupil_samples=1 << 14, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 16, dev)
+    if rays:
+        o, d, w = camera_rays(camera, sampler, pxy, pid, soff)
+        args = (packed, o, d, w, pid, soff, sampler, job.integrator)
+        fn, ref, name = dmk.li_levels_mega, dmk.li_levels_mega_reference, "direct_mega"
+    else:
+        args = (packed, pmk.pack_camera(camera), pxy, pid, soff, sampler, job.integrator)
+        fn, ref, name = dmk.li_levels_mega_cam, dmk.li_levels_mega_cam_reference, "direct_mega_cam"
+    before = dict(dmk.LAUNCHES)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in dmk.LAUNCHES.items() if v != before[k]} == {name: 1}
+    work = {}
+    out_ref = ref(*args, work=work)
+    every = ref(packed._replace(chunks=None), *args[1:])
+    l, l_ref, l_every = (x[0] if not rays else x for x in (out, out_ref, every))
+    assert torch.equal(l_ref, l_every)
+    assert float(work["mt"]) < float(work["mt_brute"])
+    _rays_in_bar(l, l_ref)
+    occ = dmk.occupancy(bvh=False)
+    assert occ["blocks_per_sm"] > 0 and occ["block"] % 32 == 0
+    assert occ["smem"] == (packed.chunks.numel() + packed.table.shape[0] * pmk.GEO_COLS) * 4
+
+
+def _shaded_case(tmp_path, case, dev):
+    """K3-shaded's tables and 2^15 seeded rays (t_max infinite, finite or
+    0) of a case: the 12x12 grid of cubes (flat), four smooth spheres
+    (smooth), the 101-level tree (deep: 2,180 triangles, the deep
+    instance) and the fixture's third cube alone (one_leaf: 12 triangles,
+    the tree one leaf with no node64 row)."""
+    from rs_ray_toy_tpu_torch.scene.gen import write_smooth_grid_scene
+
+    n = 1 << 15
+    if case == "smooth":
+        path = write_smooth_grid_scene(str(tmp_path), n=4, xres=64, yres=36)
+        rays = _aimed_rays(n, 2, dev, x=(37.0, 39.0), y=(-7.0, 7.0), z=(-4.5, 4.5))
+    elif case == "deep":
+        path = write_deep_bvh_scene(str(tmp_path), integrator="Path", n_bulk=2000, xres=64,
+                                    yres=36)
+        rays = _aimed_rays(n, 3, dev, x=(34.0, 36.0), y=(-1.0, 1.0), z=(-1.0, 1.0))
+    else:
+        path = write_grid_scene(str(tmp_path), ny=12, nz=12, xres=64, yres=36)
+        if case == "one_leaf":
+            cfg = json.loads(Path(path).read_text())
+            cfg["Aggregate"]["primitives"] = [cfg["Aggregate"]["primitives"][2]]
+            Path(path).write_text(json.dumps(cfg))
+        rays = _aimed_rays(n, 2, dev, x=(34.5, 36.0), y=(-3.5, 3.5), z=(-2.5, 2.5))
+    return bk.pack_bvh(load_scene(path).scene.triangles, dev), rays
+
+
+@pytest.mark.parametrize("case", ["flat", "smooth", "deep", "one_leaf"])
+def test_shaded_node64_instances_match_plain_version(tmp_path, case):
+    """#14 on the node64 walk, flat and smooth, its deep instance and a tree
+    that is one leaf: one launch of its instance, t, triangle, material
+    and area light equal to the plain version's on every ray and every
+    attribute row within rtol 1e-5 / atol 1e-6; the walk over the
+    fused-children rows (the kernel's before) finds the same hits; and
+    the launch's occupancy."""
+    dev = _device()
+    tables, (o, d, t_max) = _shaded_case(tmp_path, case, dev)
+    assert tables.smooth == (case == "smooth")
+    assert (tables.stack == bk.DEEP_STACK) == (case == "deep")
+    assert (tables.nodes64.shape[0] == 0) == (case == "one_leaf")
+    key = "bvh_shaded_smooth" if tables.smooth else "bvh_shaded"
+    before = dict(bk.LAUNCHES)
+    t, idx, mat, al, attrs = bk.prepare_shaded_launch(tables, o, d, t_max)()
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in bk.LAUNCHES.items() if v != before[k]} == {key: 1}
+    t_r, idx_r, mat_r, al_r, attrs_r = bk.intersect_bvh_shaded_reference(tables, o, d, t_max)
+    assert int((idx_r >= 0).sum()) > 1000
+    assert torch.equal(t, t_r) and torch.equal(idx.long(), idx_r)
+    assert torch.equal(mat.long(), mat_r) and torch.equal(al.long(), al_r)
+    torch.testing.assert_close(attrs, attrs_r, rtol=1e-5, atol=1e-6)
+    t_f, idx_f = bk.intersect_bvh_shaded_reference(tables, o, d, t_max, fused_rows=True)[:2]
+    assert torch.equal(t_f, t_r) and torch.equal(idx_f, idx_r)
+    occ = bk.occupancy(shaded=True)
+    assert occ["blocks_per_sm"] > 0 and occ["block"] % 32 == 0 and occ["smem"] == 0
 
 
 @pytest.mark.parametrize("medium", ["homogeneous", "area", "grid"])
