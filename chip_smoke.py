@@ -70,7 +70,12 @@ Phase 6  the SPPM main path through its three kernels: (a)
          started inside the cubes (a fifth to a third of them deposit; at
          least an eighth must); the deposit (the kernel's VPs and events,
          one sort) with M equal and phi within 1e-5 relative, on the main
-         path's events and on those of the batch's first sixteenth; (c) the 19,224-triangle grid
+         path's events and on those of the batch's first sixteenth; the
+         camera walk's counts (the chunked walk's MT and chunk box tests a
+         ray, per warp of 32 the chunks and rows it runs, the bound of the
+         walk over every row beside the bound; over a BVH the node64 walk's
+         tests, rows and steps) and its launch's block (smk.occupancy),
+         here and in 6c, 13e and 14; (c) the 19,224-triangle grid
          under the same SPPM block, 2 iterations, through the BVH
          instances of the camera and photon kernels, held the same way on
          all of its pixels and photons: few of its pixels see direct
@@ -202,9 +207,15 @@ Phase 11 subsurface Path, the path kernel's BSSRDF instances: (a)
 Phase 12 textured Path and the repairs: (a) K7, the EWA texture tap, alone
          (csrc/texture_kernel.cu) on 2^20 seeded lookups of
          samples/tex_checker.png's pyramid in each of the three wraps, with
-         anisotropic, clamped and degenerate footprints, against its plain
+         anisotropic, clamped and degenerate footprints, and on 2^16 of
+         walk_ab.k7_footprints' adversarial ones (repeat), against its plain
          version (scene/mipmap.ewa_lookup): max relative error (floor
-         1e-6) under 1e-5; (b, d) samples/scene_textured.json (every cube's
+         1e-6) under 1e-5, and whether bit-equal; the texels a lookup
+         scans (the rows and column spans of the bounded tap, counted by
+         ops/texture.ScanCounter with the plain version, which also checks
+         that no weighed texel lies outside them) and weighs, the warps'
+         longest scan and the launch's block (tex_ops.occupancy);
+         (b, d) samples/scene_textured.json (every cube's
          kd the image) at 640x360x16 through deploy_render, the CLI's path:
          the PNG written, nothing on stderr, one launch of the textured
          camera instance a pass, and that instance held to its plain
@@ -435,7 +446,9 @@ from rs_ray_toy_tpu_torch.scene.loader import load_scene
 from rs_ray_toy_tpu_torch.scene.png import load_image
 from rs_ray_toy_tpu_torch.accel import traverse
 from rs_ray_toy_tpu_torch.accel.bvh import SHADE_COLS_FLAT, SHADE_COLS_SMOOTH
-from rs_ray_toy_tpu_torch.walk_ab import aimed_rays, chunk_counts, first_pass_batches
+from rs_ray_toy_tpu_torch.walk_ab import (aimed_rays, chunk_counts, first_pass_batches,
+                                         k7_footprints, sppm_camera_rays, sppm_inputs,
+                                         tex_queries)
 
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "samples" / "scene.json"
@@ -1145,18 +1158,6 @@ def main():
     }))
 
 
-def sppm_inputs(job, dev, it=0):
-    """What one SPPM iteration's kernels take, as render_sppm makes it."""
-    packed = smk.pack_sppm(job.scene, dev)
-    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
-    w, h = job.film.xres, job.film.yres
-    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
-    pid = (ys * w + xs).reshape(-1)
-    pxy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.float32)
-    u = make_sampler(job).slot_matrix(pid, it, smk.sppm_slots(job.integrator.max_depth))
-    return packed, cam, pxy, u
-
-
 def agreement(a, b):
     """(rows off by more than 1e-3 relative, relative difference of the
     means) of radiance `a` against `b`."""
@@ -1270,12 +1271,13 @@ def hold_sppm_walks(job, dev, cross=False):
     t_ms = timed_ms(launch, reps=10)
     wrapper_ms = timed_ms(lambda: smk.sppm_camera_mega_cam(packed, cam, pxy, u, depth))
     plain_ms = once_ms(lambda: smk.sppm_camera_mega_cam_reference(packed, cam, pxy, u, depth))
-    b_ms, b_by = bound(work, 1.0, n, packed, SPPM_CAM_BYTES)
+    b_ms, b_by = bound(work, 1.0, n, packed, SPPM_CAM_BYTES, node64=True)
     camera = dict(rays=n, plain_rays=n, bvh=packed.bvh is not None, max_abs_err=err, ms=t_ms,
                   wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                   valid_equal=valid_eq, mat_equal=mat_eq, vps=int(vp.valid.sum()),
                   vps_held=n_held, vp_record_equal=record_eq,
-                  work={k: float(v) for k, v in work.items()}, **bar)
+                  work={k: float(v) for k, v in work.items()},
+                  **sppm_walk_numbers(work, n, packed, SPPM_CAM_BYTES, False), **bar)
     if cross:
         sub = torch.randperm(n, generator=torch.Generator().manual_seed(8))[: n // 8].to(dev)
         # the plain version on the CPU over the same eighth
@@ -1304,6 +1306,17 @@ def hold_sppm_walks(job, dev, cross=False):
                   wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                   main=main, surface_batch=batch, work={k: float(v) for k, v in work.items()})
     return camera, photon, vp, ev, ev_batch, radius, smk.resolve_mat_tables(job.scene, dev)
+
+
+def sppm_walk_numbers(work, n, packed, ray_bytes, rays_in):
+    """The camera walk's counts (the chunked walk's, with the bound of the
+    walk over every row, or the node64 walk's) and its launch's occupancy
+    (smk.occupancy of the instance just launched)."""
+    out = dict(walk_numbers(work, 1.0, n, lambda w: bound(w, 1.0, n, packed, ray_bytes)))
+    out.update(bvh_walk_numbers(work, 1.0, n))
+    out["occupancy"] = smk.occupancy(bvh=packed.bvh is not None, rays_in=rays_in,
+                                     wide=smk.wide_lobes(packed))
+    return out
 
 
 def hold_deposit(vp, ev, radius, mats, timed=True):
@@ -1409,7 +1422,7 @@ def sppm_phase(record, kernels, card, dev):
         f"bound {camera['bound_ms']:.4f} by {camera['bound_by']}), diverged "
         f"{camera['diverged']:.2e}, q99 {camera['q99']:.2e}, VP valid equal "
         f"{camera['valid_equal']:.4f}, {camera['vps']} VPs, record equal on "
-        f"{camera['vp_record_equal']:.5f} of {camera['vps_held']}; "
+        f"{camera['vp_record_equal']:.5f} of {camera['vps_held']}{walk_text(camera)}; "
         f"photon kernel {photon['ms']:.3f} ms (wrapper {photon['wrapper_ms']:.3f}, plain "
         f"{photon['plain_ms']:.1f}, bound {photon['bound_ms']:.4f} by {photon['bound_by']}), events "
         f"equal on {main['live_equal']:.4f} of {main['live_photons']} live photons "
@@ -1455,7 +1468,7 @@ def sppm_phase(record, kernels, card, dev):
         f"{camera['vp_record_equal']:.5f} of {camera['vps_held']} "
         f"(diverged px, relative mean difference: on an eighth {cross['eighth']}, kernel vs plain "
         f"on the CPU {cross['kernel_vs_cpu']}, plain on the card vs on the CPU "
-        f"{cross['plain_vs_cpu']}); photon kernel {photon['ms']:.3f} ms (plain "
+        f"{cross['plain_vs_cpu']}){walk_text(camera)}; photon kernel {photon['ms']:.3f} ms (plain "
         f"{photon['plain_ms']:.1f}, bound {photon['bound_ms']:.4f} by {photon['bound_by']}), events "
         f"equal on {main['live_equal']:.4f} of {main['live_photons']} live photons, surface batch "
         f"{batch['live_equal']:.4f} of {batch['live_photons']}; deposit {deposit['ms']:.3f} ms, "
@@ -2492,43 +2505,37 @@ def subsurface_phase(record, kernels, card, dev):
 # ---- phase 12: textured Path; the repairs ----
 
 
-def tex_queries(n, seed, dev):
-    """n seeded lookups: st over [-1.2, 2.2)^2, footprint axes from 1e-4 to
-    0.3 uv, the second often much shorter (the max_aniso clamp), a
-    sixteenth with a zero second axis and a thirty-second with both zero
-    (degenerate: level 0's bilinear tap)."""
-    rng = np.random.default_rng(seed)
-    st = rng.uniform(-1.2, 2.2, (n, 2))
-    scale = 10 ** rng.uniform(-4.0, -0.5, (n, 1))
-    d0 = rng.normal(size=(n, 2)) * scale
-    d1 = rng.normal(size=(n, 2)) * scale * 10 ** rng.uniform(-2.0, 0.0, (n, 1))
-    d1[: n // 16] = 0.0
-    d0[: n // 32] = 0.0
-    f = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
-    return f(st), f(d0), f(d1)
-
-
-def hold_tex(pyr, n, seed, dev):
-    """K7 alone on n seeded lookups against its plain version on the same
-    ones: max relative error (floor 1e-6) under 1e-5.  Returns the
-    measured numbers and the bound (the lookups' 36 bytes, the texels
-    the taps weigh, 10 FP32 operations each)."""
-    st, d0, d1 = tex_queries(n, seed, dev)
+def hold_tex(pyr, queries):
+    """K7 alone on the lookups `queries` (st, dst0, dst1) against its plain
+    version on the same ones: max relative error (floor 1e-6) under 1e-5.
+    Returns the measured numbers, the bound (the lookups' 36 bytes, the
+    texels the taps weigh, 10 FP32 operations each), the texels a lookup
+    scans (the spans of both levels) and weighs, the warps' longest scan
+    (ops/texture.ScanCounter: none weighed outside the spans) and the
+    launch's occupancy."""
+    st, d0, d1 = queries
+    n = st.shape[0]
     launch = tex_ops.prepare_launch(pyr, st, d0, d1)
     out = launch().clone()
     torch.cuda.synchronize()
-    work = {}
+    counter = tex_ops.ScanCounter()
+    work = {"ewa_scan": counter}
     ref, plain_ms = timed_once(lambda: tex_ops.tex_lookup_reference(pyr, st, d0, d1, work))
     check(bool(torch.isfinite(out).all()), "12a: non-finite taps")
     rel = float(((out - ref).abs() / ref.abs().clamp(min=1e-6)).max())
     check(rel < 1e-5, f"12a: K7 vs its plain version: max relative error {rel:.3g}")
+    scan = counter.summary()
+    check(scan["uncovered"] == 0, f"12a: {scan['uncovered']} weighed texels outside the spans")
     texels = float(work["texel"])
     t_ops = FLOPS["texel"] * texels / PEAK_FLOPS * 1e3
     t_bytes = (n * TEX_QUERY_BYTES + tex_bytes(pyr, texels)) / PEAK_BYTES * 1e3
     return dict(rays=n, plain_rays=n, max_rel_err=rel, max_abs_err=float((out - ref).abs().max()),
+                bit_equal=bool(((out == ref) | (out.isnan() & ref.isnan())).all()),
                 ms=timed_ms(launch, reps=10), wrapper_ms=timed_ms(lambda: tex_ops.tex_lookup(
                     pyr, st, d0, d1)), plain_ms=plain_ms, texels=texels,
-                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                scanned_per_lookup=scan["scanned"], weighed_per_lookup=scan["weighed"],
+                warp_longest_scan=scan["warp_longest"], occupancy=tex_ops.occupancy())
 
 
 def texture_phase(record, kernels, card, dev):
@@ -2541,14 +2548,22 @@ def texture_phase(record, kernels, card, dev):
     for wrap, name in ((mipmap.WRAP_REPEAT, "repeat"), (mipmap.WRAP_BLACK, "black"),
                        (mipmap.WRAP_CLAMP, "clamp")):
         pyr = mipmap.pyramid(mipmap.build_mipmap(image, wrap=wrap), dev)
-        taps[name] = hold_tex(pyr, 1 << 20, 12 + wrap, dev)
+        taps[name] = hold_tex(pyr, tex_queries(1 << 20, 12 + wrap, dev))
+        if wrap == mipmap.WRAP_REPEAT:
+            taps["adversarial"] = hold_tex(pyr, k7_footprints(1 << 16, 19, dev))
     check(tex_ops.LAUNCHES["tex_lookup"] > 0, "12a: K7 was not launched")
     record["phase12a"] = dict(taps=taps, phase_s=time.perf_counter() - t0)
-    print("phase 12a: K7 alone on 2^20 seeded lookups of tex_checker.png's pyramid: " + "; ".join(
-        f"{w}: {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}), {h['texels']:.0f} texels "
-        f"weighed, bound {h['bound_ms']:.4f} ms by {h['bound_by']}, plain {h['plain_ms']:.1f} ms, "
-        f"max rel err {h['max_rel_err']:.2e}" for w, h in taps.items())
-        + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+    occ = taps["repeat"]["occupancy"]
+    print("phase 12a: K7 alone on 2^20 seeded lookups of tex_checker.png's pyramid (and 2^16 "
+          "adversarial ones, repeat): " + "; ".join(
+              f"{w}: {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}), {h['texels']:.0f} texels "
+              f"weighed, {h['scanned_per_lookup']:.1f} scanned and {h['weighed_per_lookup']:.1f} "
+              f"weighed a lookup (window 512), the warps' longest scan "
+              f"{h['warp_longest_scan']:.1f}, bound {h['bound_ms']:.4f} ms by {h['bound_by']}, "
+              f"plain {h['plain_ms']:.1f} ms, max rel err {h['max_rel_err']:.2e}, bit-equal "
+              f"{h['bit_equal']}" for w, h in taps.items())
+          + f"; block {occ['block']}, {occ['blocks_per_sm']} blocks/SM, {occ['registers']} "
+          f"registers; {time.perf_counter() - t0:.1f} s [{card}]")
 
     # (d) the CLI on samples/scene_textured.json: no stderr, one launch of
     # the textured instance a pass; (b) that instance held to its plain
@@ -2578,7 +2593,9 @@ def texture_phase(record, kernels, card, dev):
         max_abs_err=max(h["max_abs_err"] for h in taps.values()),
         max_rel_err=max(h["max_rel_err"] for h in taps.values()), ms=rep["ms"],
         plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-        library_ms=None, rays=rep["rays"], plain_rays=rep["plain_rays"])
+        library_ms=None, rays=rep["rays"], plain_rays=rep["plain_rays"],
+        scanned_per_lookup=rep["scanned_per_lookup"], weighed_per_lookup=rep["weighed_per_lookup"],
+        warp_longest_scan=rep["warp_longest_scan"], occupancy=rep["occupancy"])
 
     # (c) the textured grid over the BVH instance, 640x360x8
     grid = write_grid_scene(str(OUT / "grid_tex"), textured=True)
@@ -2822,9 +2839,7 @@ def hold_sppm_rays_in(job, dev, name):
     sampler = make_sampler(job)
     n = pxy.shape[0]
     pid = (pxy[:, 1] * job.film.xres + pxy[:, 0]).to(torch.int64)
-    ox, oy, oz, dx, dy, dz, w = pmk._raygen(pxy[:, 0], pxy[:, 1], None, None,
-                                            smk.SlotSampler(u, depth), cam)
-    o, d = torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1)
+    o, d, w = sppm_camera_rays(cam, pxy, u, depth)
     zero_counts()
     ld, vp = smk.sppm_camera_mega(packed, o, d, w, pid, 0, sampler, depth)
     torch.cuda.synchronize()
@@ -2843,13 +2858,14 @@ def hold_sppm_rays_in(job, dev, name):
     ld_cam, vp_cam = smk.sppm_camera_mega_cam(packed, cam, pxy, u, depth)
     vs_cam = agreement(ld, ld_cam)
     ms = timed_ms(smk.prepare_camera_rays(packed, o, d, w, u_rays, depth), reps=10)
-    bound_ms, bound_by = bound(work, 1.0, n, packed, SPPM_RAYS_BYTES)
+    bound_ms, bound_by = bound(work, 1.0, n, packed, SPPM_RAYS_BYTES, node64=True)
     return dict(rays=n, plain_rays=n, bvh=packed.bvh is not None, launches=counts[name],
                 max_abs_err=float((ld - ld_ref).abs().max()), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, valid_equal=valid_eq, mat_equal=mat_eq,
                 vs_camera=vs_cam,
                 vp_valid_vs_camera=float((vp.valid == vp_cam.valid).double().mean()),
-                work={k: float(v) for k, v in work.items()}, **bar)
+                work={k: float(v) for k, v in work.items()},
+                **sppm_walk_numbers(work, n, packed, SPPM_RAYS_BYTES, True), **bar)
 
 
 def rays_in_phase(record, kernels, card, dev):
@@ -2891,7 +2907,7 @@ def rays_in_phase(record, kernels, card, dev):
         record[f"phase13e_{tag}"] = dict(phase_s=time.perf_counter() - t1, **held)
         print(f"phase 13e: {name} on {tag}'s first iteration's camera rays: VP valid equal "
               f"{held['valid_equal']:.4f} (vs K8 {held['vp_valid_vs_camera']:.4f}); "
-              + rays_in_line(held, t1, card))
+              + rays_in_line(held, t1, card) + walk_text(held))
     record["phase13_rays_in_s"] = time.perf_counter() - t0
 
 
@@ -2962,7 +2978,8 @@ def wide_sppm_phase(record, kernels, card, dev):
             f" camera kernel {camera['ms']:.3f} ms (plain {camera['plain_ms']:.1f}, bound "
             f"{camera['bound_ms']:.4f} by {camera['bound_by']}), diverged "
             f"{camera['diverged']:.2e}, VP valid equal {camera['valid_equal']:.4f}, {camera['vps']}"
-            f" VPs, record equal on {camera['vp_record_equal']:.5f} of {camera['vps_held']}; "
+            f" VPs, record equal on {camera['vp_record_equal']:.5f} of {camera['vps_held']}"
+            f"{walk_text(camera)}; "
             f"photon kernel {photon['ms']:.3f} ms (plain {photon['plain_ms']:.1f}, bound "
             f"{photon['bound_ms']:.4f} by {photon['bound_by']}), events equal on "
             f"{main['live_equal']:.4f} of {main['live_photons']} live photons, surface batch "
@@ -2974,7 +2991,8 @@ def wide_sppm_phase(record, kernels, card, dev):
             f"triangles, {res_g['passes']} iterations over the BVH, {colored_g} coloured px: "
             f"camera kernel {camera_g['ms']:.3f} ms (plain {camera_g['plain_ms']:.1f}, bound "
             f"{camera_g['bound_ms']:.4f} by {camera_g['bound_by']}), diverged "
-            f"{camera_g['diverged']:.2e}, VP valid equal {camera_g['valid_equal']:.4f}; photon "
+            f"{camera_g['diverged']:.2e}, VP valid equal {camera_g['valid_equal']:.4f}"
+            f"{walk_text(camera_g)}; photon "
             f"kernel {photon_g['ms']:.3f} ms (plain {photon_g['plain_ms']:.1f}, bound "
             f"{photon_g['bound_ms']:.4f} by {photon_g['bound_by']}), events equal on "
             f"{photon_g['main']['live_equal']:.4f} of {photon_g['main']['live_photons']}, surface "
@@ -3009,7 +3027,7 @@ def wide_sppm_phase(record, kernels, card, dev):
         record[f"phase14c_{tag}"] = dict(phase_s=time.perf_counter() - t1, **h)
         print(f"phase 14c: {name} on {tag}'s first iteration's camera rays: VP valid equal "
               f"{h['valid_equal']:.4f} (vs K8 {h['vp_valid_vs_camera']:.4f}); "
-              + rays_in_line(h, t1, card))
+              + rays_in_line(h, t1, card) + walk_text(h))
 
 
 def _dig(d, *path):

@@ -15,6 +15,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int TABLE_COLS = 115;  // per-triangle table width (pack_scene)
@@ -1376,36 +1378,8 @@ __device__ __forceinline__ float power_heuristic(float f_pdf, float g_pdf) {
   return denom > 0.0f ? f2 / fmaxf(denom, 1e-30f) : 0.0f;
 }
 
-constexpr int BLOCK = 128;
 constexpr size_t SMEM_MAX = (size_t)TRI_MAX * GEO_COLS * sizeof(float);
 // the chunked walk's largest dynamic shared memory: TRI_MAX rows in chunks
 constexpr size_t CHUNK_SMEM_MAX = chunk_smem(TRI_MAX, CHUNK_MAX);
-
-// The block size of a launch: of the multiples of 32 from BLOCK to
-// block_max, the one at which the most threads are resident on an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers x block size,
-// and the dynamic shared memory smem_of(block size) a block takes), the
-// smaller on a tie.  occ gets the block size, blocks resident per SM, the
-// kernel's registers per thread and the block's dynamic shared memory.
-template <class Kernel, class SmemOf>
-cudaError_t choose_block(Kernel kernel, int block_max, SmemOf smem_of, int& block, int* occ) {
-  int best = 0;
-  block = BLOCK;
-  for (int b = BLOCK; b <= block_max; b += 32) {
-    int n_blocks = 0;
-    const cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_blocks, kernel, b, smem_of(b));
-    if (err != cudaSuccess) return err;
-    if (n_blocks * b > best) best = n_blocks * b, block = b;
-  }
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  occ[0] = block;
-  occ[1] = best / block;
-  occ[2] = attr.numRegs;
-  occ[3] = (int)smem_of(block);
-  return cudaSuccess;
-}
 
 }  // namespace

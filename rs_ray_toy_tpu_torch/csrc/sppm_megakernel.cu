@@ -56,6 +56,21 @@
 // vertex makes no VP; the walk goes through it.  The flag leaves the base
 // instances' code as it was.
 //
+// K8's geometry is its siblings' (the path, direct and Volpath kernels'):
+// brute force the chunked walk (common.cuh ChunkGeometry: the chunk boxes and
+// the rows' intersect columns staged in shared memory, a chunk's rows run
+// only where its box is hit, each behind the division-free reject), over a
+// BVH the walk of its node64 rows and 48-byte leaf rows (Bvh64Geometry), the
+// any-hit shadow ray stopping at the first row it hits.  Both visit in the
+// order of the walks they replace (table order; the fused-children order),
+// so every hit, and every output, is theirs.  K9 keeps Geometry<kBvh> (the
+// rows staged whole, or the fused-children rows).  K8's instances take no
+// register cap: each launch runs in the block of BLOCK..SPPM_BLOCK_MAX that
+// keeps the most threads resident an SM (choose_block, at an instance's
+// first launch and again only for a brute-force table of another size; a
+// large table's shared memory leaves few blocks resident, and there larger
+// blocks keep more threads).
+//
 // Numerics follow the plain PyTorch versions (ops/sppm_megakernel.py)
 // expression by expression; see common.cuh.
 
@@ -87,19 +102,39 @@ __device__ __forceinline__ bool glossy_kind(int k) {
 
 // ---- K8: the camera walk ----
 
+// K8's largest block.  Without a register cap (~80 registers, 6 blocks of
+// 128 an SM) K8 ran 5-15% faster over a BVH and within the noise on brute
+// force than under the direct kernel's bound for 9 blocks (56 registers, 200-
+// 300 B of spill stores), and the 1,896-row grid's blocks of 320 48% faster
+// than its 3 of 128 (PERF.md §6, `walk_ab --variant k8_capped`).  Uncapped,
+// the BVH walk keeps the next leaf row's loads in flight (Bvh64's default):
+// 6-13% faster than loading each row when tested (`--variant no_prefetch`).
+constexpr int SPPM_BLOCK_MAX = 384;
+
+// Brute force: the chunked walk over the n_chunks chunk rows geo_a and the
+// n_tris rows of `table`, both staged in shared memory (geo_b null).  BVH
+// (kBvh): geo_a holds the node64 rows (null for a tree that is one leaf of
+// root_count rows) and geo_b the 48-byte leaf rows, both read as float4 rows.
 template <bool kBvh, bool kRaysIn, bool kWide = false>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(SPPM_BLOCK_MAX)
     sppm_camera_kernel(const float* __restrict__ table, int n_tris,
-                       const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                       const float* __restrict__ geo_a, const float* __restrict__ geo_b,
                        const float* __restrict__ in_a, const float* __restrict__ in_d,
                        const float* __restrict__ in_w, const float* __restrict__ u,
                        float* __restrict__ out_ld, float* __restrict__ out_p,
                        float* __restrict__ out_wo, float* __restrict__ out_beta,
                        float* __restrict__ out_ng, float* __restrict__ out_dpdu,
                        int* __restrict__ out_mat, int* __restrict__ out_valid, int n,
-                       const __grid_constant__ Params p) {
-  extern __shared__ float s_geo[];
-  const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
+                       const __grid_constant__ Params p, int root_count, int n_chunks) {
+  extern __shared__ float4 s_dyn[];  // brute force: the chunk rows, then the rows
+  const auto geom = [&] {
+    if constexpr (kBvh)
+      return Bvh64Geometry<STACK_DEPTH>{{reinterpret_cast<const float4*>(geo_a),
+                                         reinterpret_cast<const float4*>(geo_b), root_count},
+                                        table};
+    else
+      return load_chunk_geometry<TABLE_COLS>(s_dyn, table, n_tris, geo_a, n_chunks);
+  }();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   // slot matrix rows: film (0, 1), lens (2, 3; unread on given rays), then
@@ -377,32 +412,68 @@ int check_table(int n_tris, const float* nodes_f, const int* nodes_i) {
   return (n_tris <= 0 || n_tris > TRI_MAX) ? (int)cudaErrorInvalidValue : 0;
 }
 
+// The last K8 launch's block size, blocks resident per SM, registers per
+// thread and dynamic shared memory bytes, by [bvh][rays_in][wide]
+int g_occupancy[2][2][2][4] = {};
+
+// The block of a K8 launch with smem bytes of dynamic shared memory:
+// choose_block's, kept in occ and chosen again only when smem differs from
+// the last choice's (a brute-force table of another size), so that a launch
+// makes no occupancy query on the host while it stays the same
+template <class Kernel>
+cudaError_t camera_block(Kernel kernel, size_t smem, int* occ, int& block) {
+  if (occ[0] == 0 || occ[3] != (int)smem) {
+    if (smem > 0) {
+      // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CHUNK_SMEM_MAX);
+      if (err != cudaSuccess) return err;
+    }
+    const cudaError_t err =
+        choose_block(kernel, SPPM_BLOCK_MAX, [&](int) { return smem; }, block, occ);
+    if (err != cudaSuccess) return err;
+  }
+  block = occ[0];
+  return cudaSuccess;
+}
+
 template <bool kRaysIn, bool kWide>
-int launch_camera(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
+int launch_camera(const float* table, int n_tris, const float* nodes64, const float* prims,
                   const Params* params, const float* in_a, const float* in_d, const float* in_w,
                   const float* u, int n_u, float* out_ld, float* out_p, float* out_wo,
                   float* out_beta, float* out_ng, float* out_dpdu, int* out_mat, int* out_valid,
-                  int n, void* stream) {
+                  int n, void* stream, const float* chunks, int n_chunks, int root_count) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (n <= 0) return 0;
   if (params->n_lights < 1 || params->n_lights > LIGHT_MAX || params->max_depth < 1 ||
       n_u != 4 * params->max_depth + 1)
     return (int)cudaErrorInvalidValue;
-  if (const int bad = check_table(n_tris, nodes_f, nodes_i)) return bad;
-  const int grid = (n + BLOCK - 1) / BLOCK;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nodes_f != nullptr) {
-    sppm_camera_kernel<true, kRaysIn, kWide><<<grid, BLOCK, 0, st>>>(
-        table, n_tris, nodes_f, nodes_i, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
-        out_ng, out_dpdu, out_mat, out_valid, n, *params);
+  if (prims != nullptr) {
+    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || table == nullptr || root_count < 0 ||
+        root_count > n_tris || (root_count == 0) != (nodes64 != nullptr))
+      return (int)cudaErrorInvalidValue;
+    const auto kernel = sppm_camera_kernel<true, kRaysIn, kWide>;
+    int block;
+    const cudaError_t err = camera_block(kernel, 0, g_occupancy[1][kRaysIn][kWide], block);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(n + block - 1) / block, block, 0, st>>>(
+        table, n_tris, nodes64, prims, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
+        out_ng, out_dpdu, out_mat, out_valid, n, *params, root_count, 0);
     return (int)cudaGetLastError();
   }
-  const cudaError_t attr = allow_table_smem(sppm_camera_kernel<false, kRaysIn, kWide>);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  sppm_camera_kernel<false, kRaysIn, kWide><<<grid, BLOCK, smem, st>>>(
-      table, n_tris, nullptr, nullptr, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
-      out_ng, out_dpdu, out_mat, out_valid, n, *params);
+  if (n_tris <= 0 || n_tris > TRI_MAX || table == nullptr || chunks == nullptr ||
+      n_chunks <= 0 || n_chunks > CHUNK_MAX || root_count != 0)
+    return (int)cudaErrorInvalidValue;
+  // each block stages the whole table
+  const size_t smem = chunk_smem(n_tris, n_chunks);
+  const auto kernel = sppm_camera_kernel<false, kRaysIn, kWide>;
+  int block;
+  const cudaError_t err = camera_block(kernel, smem, g_occupancy[0][kRaysIn][kWide], block);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(n + block - 1) / block, block, smem, st>>>(
+      table, n_tris, chunks, nullptr, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
+      out_ng, out_dpdu, out_mat, out_valid, n, *params, 0, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -437,39 +508,55 @@ int launch_photon(const float* table, int n_tris, const float* nodes_f, const in
 extern "C" {
 
 // Each launch returns cudaGetLastError() of the launch (0 when it was
-// accepted); nothing is synchronised.  Brute force when nodes_f is null, the
-// BVH walk otherwise; the wide instances (kWide) when `wide` is not 0.
+// accepted); nothing is synchronised; the wide instances (kWide) when `wide`
+// is not 0.  K8 (the camera walk): brute force when prims is null (the
+// chunked walk over the (n_chunks, CHUNK_COLS) rows `chunks` that cover the
+// table; root_count 0), else the walk of the BVH's node64 rows `nodes64`
+// (null where the tree is one leaf of root_count rows; root_count 0
+// otherwise) over the (n_tris, 12) float32 leaf rows `prims`, the table in
+// the same leaf order (chunks null, n_chunks 0).  K9 (the photon walk): brute
+// force when nodes_f is null, else the walk of the fused-children rows.
 
 // K8 over n pixels; u is the (n_u, n) Halton slot matrix, n_u = 4 * max_depth + 1
-int sppm_camera_launch(int wide, const float* table, int n_tris, const float* nodes_f,
-                       const int* nodes_i, const Params* params, const float* pixel_xy,
+int sppm_camera_launch(int wide, const float* table, int n_tris, const float* nodes64,
+                       const float* prims, const Params* params, const float* pixel_xy,
                        const float* u, int n_u, float* out_ld, float* out_p, float* out_wo,
                        float* out_beta, float* out_ng, float* out_dpdu, int* out_mat,
-                       int* out_valid, int n, void* stream) {
+                       int* out_valid, int n, void* stream, const float* chunks, int n_chunks,
+                       int root_count) {
   if (wide)
-    return launch_camera<false, true>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr,
+    return launch_camera<false, true>(table, n_tris, nodes64, prims, params, pixel_xy, nullptr,
                                       nullptr, u, n_u, out_ld, out_p, out_wo, out_beta, out_ng,
-                                      out_dpdu, out_mat, out_valid, n, stream);
-  return launch_camera<false, false>(table, n_tris, nodes_f, nodes_i, params, pixel_xy, nullptr,
+                                      out_dpdu, out_mat, out_valid, n, stream, chunks, n_chunks,
+                                      root_count);
+  return launch_camera<false, false>(table, n_tris, nodes64, prims, params, pixel_xy, nullptr,
                                      nullptr, u, n_u, out_ld, out_p, out_wo, out_beta, out_ng,
-                                     out_dpdu, out_mat, out_valid, n, stream);
+                                     out_dpdu, out_mat, out_valid, n, stream, chunks, n_chunks,
+                                     root_count);
 }
 
 // K8 on given rays: o, d (n, 3) and weight (n,); u as above (its film and
 // lens rows unread)
-int sppm_camera_rays_launch(int wide, const float* table, int n_tris, const float* nodes_f,
-                            const int* nodes_i, const Params* params, const float* o,
+int sppm_camera_rays_launch(int wide, const float* table, int n_tris, const float* nodes64,
+                            const float* prims, const Params* params, const float* o,
                             const float* d, const float* weight, const float* u, int n_u,
                             float* out_ld, float* out_p, float* out_wo, float* out_beta,
                             float* out_ng, float* out_dpdu, int* out_mat, int* out_valid, int n,
-                            void* stream) {
+                            void* stream, const float* chunks, int n_chunks, int root_count) {
   if (wide)
-    return launch_camera<true, true>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, u,
+    return launch_camera<true, true>(table, n_tris, nodes64, prims, params, o, d, weight, u,
                                      n_u, out_ld, out_p, out_wo, out_beta, out_ng, out_dpdu,
-                                     out_mat, out_valid, n, stream);
-  return launch_camera<true, false>(table, n_tris, nodes_f, nodes_i, params, o, d, weight, u, n_u,
+                                     out_mat, out_valid, n, stream, chunks, n_chunks, root_count);
+  return launch_camera<true, false>(table, n_tris, nodes64, prims, params, o, d, weight, u, n_u,
                                     out_ld, out_p, out_wo, out_beta, out_ng, out_dpdu, out_mat,
-                                    out_valid, n, stream);
+                                    out_valid, n, stream, chunks, n_chunks, root_count);
+}
+
+// The last K8 launch of the instance (bvh, rays_in, wide): its block size,
+// blocks per SM, registers per thread and dynamic shared memory bytes, into
+// out[0..3] (zeros before its first launch)
+void sppm_camera_occupancy(int bvh, int rays_in, int wide, int* out) {
+  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[bvh != 0][rays_in != 0][wide != 0][k];
 }
 
 // K9 over n photons; u is the (3 * (max_depth - 1), n) bounce / roulette

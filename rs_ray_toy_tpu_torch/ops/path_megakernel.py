@@ -278,7 +278,7 @@ class PackedScene(NamedTuple):
     bssrdf: Optional[BssrdfC] = None  # the subsurface branch's constants
     tex: Optional[TexC] = None  # the textured kd's image (TEX0 block filled)
     # brute force: (C, CHUNK_COLS) float32 chunk rows over the table
-    # (build_tri_chunks, chunk_rows), which K1's and K6's walks cull by; None
+    # (build_tri_chunks, chunk_rows), which K1's, K2's, K6's and K8's walks cull by; None
     # in BVH mode
     chunks: Optional[torch.Tensor] = None
 
@@ -778,7 +778,7 @@ def pack_scene(scene, device, bvh=None) -> PackedScene:
                   uv1, uv2, and 1 where the row's material takes kd from the
                   texture, -1 elsewhere), zeros otherwise.
 
-    Brute force: the chunk rows K1's and K6's walks cull by
+    Brute force: the chunk rows K1's, K2's, K6's and K8's walks cull by
     (build_tri_chunks over the whole table).  BVH mode (bvh=True, or bvh=None and more than
     TRI_MAX triangles): a SAH BVH with leaves of up to BVH_LEAF
     triangles, its fused-children node tables, and the table's rows
@@ -1975,7 +1975,7 @@ class PlainGeometry:
     Bvh64 walk of the path, direct and Volpath kernels), the rays that
     still walk compacted after every step; or, where the tables have no
     node64 rows, the stack walk of the fused-children rows (Geometry<true>,
-    the SPPM kernels' walk): at an
+    the SPPM photon walk's): at an
     interior node both children's boxes are slab-tested against the ray's
     best t and only hit children are pushed, the near child (by the sign
     of the ray's direction on the split axis) last; a leaf tests its
@@ -1985,8 +1985,8 @@ class PlainGeometry:
     rays, as the kernel performs them, the interior rows fetched ("node")
     and each walk's steps, the nodes it visits (tally_steps, tagged
     "closest", "any" or the caller's `tag`): equal over both trees' rows.
-    With `cull` (K1's and
-    K6's plain versions; the other kernels walk every row) brute force
+    With `cull` (K1's, K2's, K6's and
+    K8's plain versions; the other kernels walk every row) brute force
     takes the chunked walk over `packed.chunks` (chunk_walk), which finds
     the same hits."""
 

@@ -37,6 +37,13 @@ and the specular refraction, common.cuh's kDisney and kSt), named with
 "_wide" in LAUNCHES.  Specular vertices (a glass's reflection and
 transmission) make no VP: the walks go through them.
 
+The camera walk's geometry is the path, direct and Volpath kernels':
+the chunked brute-force walk over `packed.chunks` (pmk.chunk_args), or
+the walk of the BVH's node64 rows and 48-byte leaf rows (pmk.geometry_args
+with `node64`, pmk.root_count); its plain version walks the same
+(PlainGeometry with `cull`).  The photon walk keeps the walk over every
+row, or over the fused-children rows.
+
 On CUDA tensors each wrapper launches its kernel of
 csrc/sppm_megakernel.cu (built by ops/_build.py) or raises; on CPU
 tensors it runs its plain PyTorch version (`*_reference`), which mirrors
@@ -212,11 +219,14 @@ def load_kernel():
     """The SPPM kernels' library (built on first use)."""
     lib = _build.load("sppm_megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
-    # each launch's first argument: 1 for the wide instances (wide_lobes)
+    # each launch's first argument: 1 for the wide instances (wide_lobes);
+    # the camera walk's last: the chunk rows, their count and root_count
     lib.sppm_camera_launch.argtypes = ([i, p, i, p, p, ctypes.POINTER(pmk._Params), p, p, i]
-                                       + [p] * 8 + [i, p])
+                                       + [p] * 8 + [i, p, p, i, i])
     lib.sppm_camera_rays_launch.argtypes = ([i, p, i, p, p, ctypes.POINTER(pmk._Params)] + [p] * 4
-                                            + [i] + [p] * 8 + [i, p])
+                                            + [i] + [p] * 8 + [i, p, p, i, i])
+    lib.sppm_camera_occupancy.restype = None
+    lib.sppm_camera_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.sppm_camera_rays_launch.restype = ctypes.c_int
     lib.sppm_photon_launch.argtypes = [i, p, i, p, p, i] + [p] * 9 + [i, p]
     lib.sppm_deposit_launch.argtypes = [i] + [p] * 10 + [i, p, p, i, p]
@@ -228,6 +238,18 @@ def load_kernel():
     if lib.sppm_params_size() != ctypes.sizeof(pmk._Params):
         raise RuntimeError("sppm_megakernel parameter block differs from _Params")
     return lib
+
+
+def occupancy(bvh=False, rays_in=False, wide=False):
+    """The last launch of the camera walk's instance (BVH or chunked brute
+    force, on given rays or the camera's, wide or base): its block size,
+    blocks resident per SM, registers per thread and dynamic shared memory
+    bytes, as the library chose and measured them (choose_block, at the
+    instance's first launch and again for a brute-force table of another
+    size)."""
+    out = (ctypes.c_int * 4)()
+    load_kernel().sppm_camera_occupancy(int(bvh), int(rays_in), int(wide), out)
+    return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
 
 
 def _check(x, shape, dtype, dev, what):
@@ -317,7 +339,8 @@ def _camera_launcher(packed, cam_packed, rays, u, max_depth, n, dev, prefix):
         raise ValueError("no pixels")
     n_u = 4 * max_depth + 1
     _check(u, (n_u, n), torch.float32, dev, "the slot matrix")
-    table, nodes_f, nodes_i = pmk.geometry_args(packed, dev)
+    table, nodes64, prims = pmk.geometry_args(packed, dev, node64=True)
+    chunks, n_chunks = pmk.chunk_args(packed, dev)
     prm = pmk._kernel_params(packed, cam_packed, None, None)
     prm.max_depth = max_depth
     v3 = [torch.empty((n, 3), dtype=torch.float32, device=dev) for _ in range(6)]
@@ -327,15 +350,16 @@ def _camera_launcher(packed, cam_packed, rays, u, max_depth, n, dev, prefix):
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = lib.sppm_camera_launch if len(rays) == 1 else lib.sppm_camera_rays_launch
     wide = wide_lobes(packed)
-    args = (int(wide), table.data_ptr(), table.shape[0], _ptr(nodes_f), _ptr(nodes_i),
+    args = (int(wide), table.data_ptr(), table.shape[0], _ptr(nodes64), _ptr(prims),
             ctypes.byref(prm), *(r.data_ptr() for r in rays), u.data_ptr(), n_u,
-            *(t.data_ptr() for t in v3), mat.data_ptr(), valid.data_ptr(), n, stream)
+            *(t.data_ptr() for t in v3), mat.data_ptr(), valid.data_ptr(), n, stream,
+            _ptr(chunks), n_chunks, pmk.root_count(packed))
 
     def outs():
         ld, p, wo, beta, ng, dpdu = v3
         return ld, VisiblePoints(p, wo, beta, mat.to(torch.int64), ng, dpdu, valid != 0)
 
-    name = prefix + "_bvh" * (nodes_f is not None) + "_wide" * wide
+    name = prefix + "_bvh" * (packed.bvh is not None) + "_wide" * wide
     return _launcher(lib, name, fn, args, outs, (packed, rays, u, v3, mat, valid))
 
 
@@ -560,11 +584,12 @@ def sppm_camera_mega_reference(packed, o, d, cam_weight, u, max_depth, work=None
 
 def camera_walk_reference(packed, o, d, weight, smp, max_depth, work=None):
     """The walk (`_camera_loop`) from rays o, d ((N,) x, y, z each) with
-    weights (N,), its values read through the SlotSampler smp.  Returns
-    (ld (N, 3), VisiblePoints)."""
+    weights (N,), its values read through the SlotSampler smp, over the
+    kernel's geometry: the chunked walk, or the node64 rows (PlainGeometry
+    with `cull`).  Returns (ld (N, 3), VisiblePoints)."""
     ox = o[0]
     dev = ox.device
-    geom = pmk.PlainGeometry(packed, dev, work)
+    geom = pmk.PlainGeometry(packed, dev, work, cull=True)
     table = geom.table
     max_lobes = int(table[:, 15].max())
     n_lights = len(packed.light_p)

@@ -12,6 +12,13 @@ The path kernel's textured instances (ops/path_megakernel.py) run the
 same tap inside their bounce loop; `tex_map` builds the parameter block
 both read: the levels' (h, w, offset), the wrap mode and max_aniso, and
 the image texture's UV mapping and scale.
+
+The tap visits of each level's 16 x 16 window only the rows and, in each,
+the columns that can hold r^2 < 1 (texture.cuh ewa_row_span);
+`ewa_row_spans` is the plain twin of that arithmetic, in float32 as the
+kernel computes it, and `ScanCounter` counts with it, through the plain
+version's `work`, the texels a tap scans and weighs and checks that the
+spans hold every texel of non-zero weight.
 """
 
 import ctypes
@@ -19,8 +26,15 @@ import ctypes
 import numpy as np
 import torch
 
-from ..scene.mipmap import LEVELS_MAX, ewa_lookup
+from ..scene.mipmap import EWA_WINDOW, LEVELS_MAX, ewa_lookup
 from . import _build
+
+# csrc/texture.cuh's span margins (ewa_row_span)
+SPAN_MARGIN = 2.0**-12
+SPAN_FLOOR = 2.0**-20
+SPAN_DISC_ERR = 2.0**-20
+SPAN_ROOT_ERR = 2.0**-21
+WARP = 32  # a warp's lanes: consecutive lookups
 
 # Kernel launches made by tex_lookup; the one piece of module state.
 LAUNCHES = {"tex_lookup": 0}
@@ -74,13 +88,104 @@ def load_kernel():
         lib.tex_error_string.argtypes = [ctypes.c_int]
         if lib.tex_map_size() != ctypes.sizeof(_TexMap):
             raise RuntimeError("texture_kernel's TexMap differs from _TexMap")
+        lib.tex_occupancy.restype = None
+        lib.tex_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
         _LIB = lib
     return _LIB
 
 
+def occupancy():
+    """tex_lookup_kernel's launch: its block size, blocks resident per SM,
+    registers per thread and dynamic shared memory bytes, as the library
+    chose and measured them (zeros before the first launch)."""
+    out = (ctypes.c_int * 4)()
+    load_kernel().tex_occupancy(out)
+    return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
+
+
+def ewa_row_spans(a, b, c, s, t, s0, t0):
+    """The columns (j0, j1), each (N, EWA_WINDOW) int64, that the tap
+    visits in each row of a level's window (texture.cuh ewa_row_span, in
+    float32 expression for expression): a, b, c the ellipse's float32
+    coefficients, s, t the texel-space centre and s0, t0 (int64) the
+    window's first column and row, as mipmap.ewa_level computes them.  A
+    row the tap skips has j1 < j0; without finite coefficients with a > 0
+    and a finite centre every row is whole (0, EWA_WINDOW - 1)."""
+    r2_top = 1.0 + (SPAN_MARGIN * (a.abs() + b.abs() + c.abs()) + SPAN_FLOOR)
+    spans = (a > 0.0) & torch.isfinite(r2_top) & torch.isfinite(s) & torch.isfinite(t)
+    inv_a = 1.0 / a
+    col0 = s0.to(s.dtype) - s
+    zero = torch.zeros_like(s)
+    j0s, j1s = [], []
+    for i in range(EWA_WINDOW):
+        tt = (t0 + i).to(s.dtype) - t
+        bt = b * tt
+        ct2 = c * (tt * tt)
+        four_a = 4.0 * a
+        disc = bt * bt - four_a * (ct2 - r2_top)
+        err = SPAN_DISC_ERR * (bt * bt + four_a * (ct2.abs() + r2_top))
+        sq = torch.sqrt(torch.fmax(disc, zero) + err)
+        slack = SPAN_ROOT_ERR * (bt.abs() + sq) * inv_a + 1.0
+        lo = (-bt - sq) * (0.5 * inv_a) - slack - col0
+        hi = (-bt + sq) * (0.5 * inv_a) + slack - col0
+        j0 = torch.ceil(torch.fmin(torch.fmax(lo, zero - 1.0), zero + EWA_WINDOW))
+        j1 = torch.floor(torch.fmax(torch.fmin(hi, zero + EWA_WINDOW), zero - 1.0))
+        j0 = torch.clamp(j0.to(torch.int64), min=0)
+        j1 = torch.clamp(j1.to(torch.int64), max=EWA_WINDOW - 1)
+        skip = disc < -err
+        j0s.append(torch.where(spans, torch.where(skip, 0, j0), 0))
+        j1s.append(torch.where(spans, torch.where(skip, -1, j1), EWA_WINDOW - 1))
+    return torch.stack(j0s, 1), torch.stack(j1s, 1)
+
+
+class ScanCounter:
+    """The `work["ewa_scan"]` hook of mipmap.ewa_level: on each level's tap
+    of the live lanes it takes the spans (ewa_row_spans) and the window
+    texels of non-zero weight, and counts per lane the texels the bounded
+    tap scans, those of the whole window and those it weighs, and the
+    weighed texels outside the spans ("uncovered", which must be 0).
+    `summary()` gives them per lookup, over lookups of both levels (the
+    calls come in pairs, level l0 then l1, on the same lanes), with the
+    mean over the warps of 32 consecutive lanes of each warp's longest
+    scan."""
+
+    def __init__(self):
+        self.lanes = []  # per call: (live, scanned, weighed)
+        self.uncovered = 0
+
+    def __call__(self, live, a, b, c, s, t, s0, t0, weighed):
+        j0, j1 = ewa_row_spans(a, b, c, s, t, s0, t0)
+        col = torch.arange(EWA_WINDOW, device=s.device)
+        inside = (col >= j0[:, :, None]) & (col <= j1[:, :, None])
+        self.uncovered += int((weighed & ~inside & live[:, None, None]).sum())
+        scanned = torch.clamp(j1 - j0 + 1, min=0).sum(1)
+        self.lanes.append((live, torch.where(live, scanned, 0),
+                           torch.where(live, weighed.sum((1, 2)), 0)))
+
+    def summary(self):
+        """{"lookups", "scanned", "window", "weighed" (texels a lookup, both
+        levels), "warp_longest" (the warps' longest scan, mean over the
+        warps with a live lane), "uncovered"}."""
+        lookups = scanned = weighed = longest = warps = 0
+        for (live, sc0, w0), (_, sc1, w1) in zip(self.lanes[0::2], self.lanes[1::2]):
+            lookups += int(live.sum())
+            scanned += int((sc0 + sc1).sum())
+            weighed += int((w0 + w1).sum())
+            pad = -live.numel() % WARP
+            per_warp = torch.nn.functional.pad(sc0 + sc1, (0, pad)).view(-1, WARP)
+            has = torch.nn.functional.pad(live, (0, pad)).view(-1, WARP).any(1)
+            longest += int(per_warp.amax(1)[has].sum())
+            warps += int(has.sum())
+        n = max(lookups, 1)
+        return dict(lookups=lookups, scanned=scanned / n, window=2 * EWA_WINDOW**2,
+                    weighed=weighed / n, warp_longest=longest / max(warps, 1),
+                    uncovered=self.uncovered)
+
+
 def tex_lookup_reference(pyr, st, dst0, dst1, work=None):
     """Plain version of tex_lookup (mipmap.ewa_lookup); `work` counts the
-    texels of non-zero weight ("texel")."""
+    texels of non-zero weight ("texel"; a ScanCounter under "ewa_scan"
+    counts the scans)."""
     return ewa_lookup(pyr, st[:, 0], st[:, 1], dst0[:, 0], dst0[:, 1], dst1[:, 0], dst1[:, 1],
                       work=work)
 

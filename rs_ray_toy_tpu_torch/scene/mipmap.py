@@ -174,7 +174,10 @@ def bilerp_level(pyr, level, s_in, t_in):
 def ewa_level(pyr, level, s_in, t_in, d0s_in, d0t_in, d1s_in, d1t_in, live=None, work=None):
     """The elliptical Gaussian tap on the per-lane levels (_ewa_level): st
     in uv units, the axes in uv units.  `work` counts the texels of
-    non-zero weight on the `live` lanes ("texel")."""
+    non-zero weight on the `live` lanes ("texel"); a callable under its
+    "ewa_scan" (ops/texture.ScanCounter) also gets the lanes, the ellipse
+    and window (a, b, c, s, t, s0, t0) and the (N, EWA_WINDOW, EWA_WINDOW)
+    texels of non-zero weight."""
     meta = pyr.meta[level]
     h, w = meta[:, 0].to(DTYPE), meta[:, 1].to(DTYPE)
     sn, tn = st_norm(s_in, t_in, pyr.wrap)
@@ -198,6 +201,8 @@ def ewa_level(pyr, level, s_in, t_in, d0s_in, d0t_in, d1s_in, d1t_in, live=None,
     acc = torch.zeros((s.shape[0], 3), dtype=DTYPE, device=s.device)
     wsum = torch.zeros_like(s)
     count = torch.zeros(s.shape, dtype=torch.int64, device=s.device)
+    scan = None if work is None else work.get("ewa_scan")
+    weighed = []
     for i in range(EWA_WINDOW):  # window rows (t), then columns (s)
         tt = (t0 + i).to(DTYPE) - t
         for j in range(EWA_WINDOW):
@@ -208,8 +213,12 @@ def ewa_level(pyr, level, s_in, t_in, d0s_in, d0t_in, d1s_in, d1t_in, live=None,
             acc = acc + wgt[:, None] * texel(pyr, meta, s0 + j, t0 + i)
             wsum = wsum + wgt
             count = count + (wgt > 0.0)
+            if scan is not None:
+                weighed.append(wgt > 0.0)
     if work is not None:
         work["texel"] = work.get("texel", 0) + torch.where(live, count, 0).sum()
+    if scan is not None:
+        scan(live, a, b, c, s, t, s0, t0, torch.stack(weighed, 1).view(-1, EWA_WINDOW, EWA_WINDOW))
     return acc / torch.clamp(wsum, min=1e-9)[:, None]
 
 

@@ -1,8 +1,9 @@
 """The redesigned walks against another revision's, on one NVIDIA GPU: the
 path kernel's brute-force instances (K1) and BVH instances (K1 BVH), the
 Volpath kernel's brute-force (K6) and BVH instances (K6 BVH), the direct
-kernel's brute-force (K2) and BVH instances (K2 BVH) and the wavefront
-loop's BVH closest and any hit (K3) and shaded closest hit (K3-shaded).
+kernel's brute-force (K2) and BVH instances (K2 BVH), the wavefront
+loop's BVH closest and any hit (K3) and shaded closest hit (K3-shaded),
+the EWA texture tap (K7) and the SPPM camera walk (K8).
 
     python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR [--reps 10] [--out DIR] [--only k1bvh]
     python -m rs_ray_toy_tpu_torch.walk_ab --variant NAME [--only k3] ...
@@ -14,8 +15,9 @@ DIR is a checkout of the other revision (e.g. `git archive` of the parent
 commit unpacked under build/).  `--variant NAME` puts in its place a copy
 of this tree (under --out) with one of VARIANTS' source edits, the design
 choices of the redesigned walks undone one at a time: `no_prefetch`
-(Bvh64's default, the node64 walk of K3 and of K1's BVH instances, loads
-each leaf row when it tests it, not the next row's while it tests one),
+(Bvh64's default, the node64 walk of K3 and of K1's and K8's BVH
+instances, loads each leaf row when it tests it, not the next row's while
+it tests one),
 `late_ray_loads` (bvh64_kernel loads a ray's origin and direction after it
 tests t_max), `swap_k6_cap` (K6's chunked walk takes
 the register-capped instance for grid media and the uncapped one for
@@ -28,14 +30,20 @@ without the division-free reject first), `call_walks` (K2's and K6's
 BVH instances call one out-of-line copy of each walk), `k2_capped`
 (K2's brute force takes its register-capped instance on every table),
 `shaded_no_prefetch` (K3-shaded's flat instance, too, loads each leaf row
-when it tests it) and `shaded_min_blocks` (K3-shaded under a launch bound
-for 5 resident blocks of 256 an SM); `CONSTANT=VALUE` a
+when it tests it), `shaded_min_blocks` (K3-shaded under a launch bound
+for 5 resident blocks of 256 an SM), `tex_block256` (K7 alone in blocks of
+256, not the occupancy API's block), `tex_rgba` (K7 reads each texel as one
+16-byte load from an RGBA copy of the pyramid, alone and inside K1),
+`tex_inline` (the tap inlined, not called, alone and inside K1) and
+`k8_capped` (K8 under the direct kernel's launch bound, 9 blocks of 128 an
+SM, every launch in blocks of 128); `CONSTANT=VALUE` a
 copy whose one `constexpr` of that name, in the one kernel source that has
 it, takes VALUE: K2's instances, brute force and BVH, take
 `DIRECT_MIN_BLOCKS` (the launch bound's resident blocks), K6's BVH
 instances `VOL_BVH_MIN_BLOCKS`, both `_LEAF_PREFETCH` (e.g. `--variant
-VOL_BVH_MIN_BLOCKS=1`).  `--only` keeps the cases of
-some kernels: k1, k6, k3, k1bvh, k2bvh, k6bvh, k2, k3s.  Each tree builds the kernels
+VOL_BVH_MIN_BLOCKS=1`).  `--only` keeps
+the cases of some kernels: k1, k6, k3, k1bvh, k2bvh, k6bvh, k2, k3s, k7,
+k8.  Each tree builds the kernels
 of those cases; then a
 worker process runs under each tree in turns (the other revision, this
 tree, this tree, the other revision), so that both meet the card in the
@@ -77,7 +85,18 @@ batch of the ao-grid (its camera rays), of path-grid80 and of
 write_smooth_grid_scene's 80 spheres (76,836 triangles, the smooth
 instance: each a Path render's first bounce, 640x360x8) and on the 101-level
 tree's aimed rays; its outputs t, triangle, material, area light and the
-attribute rows compared.  The last line of the output is a
+attribute rows compared.  K7: the tap alone (`tex_ops.prepare_launch`) on
+chip_smoke.py 12a's 2^20 seeded lookups (tex_queries) in each wrap and on
+2^20 of k7_footprints' adversarial ones (repeat), its out compared; and a
+pass of the textured fixture (#1 T, 640x360x16) and of the textured grid
+over the BVH (#2 T, 640x360x8) through K1 (`li_path_mega_cam`).  K8: the
+camera walk (`smk.prepare_camera`, #9) on the first SPPM iteration of
+samples/scene_sppm.json, its glass and Disney fixtures (the wide
+instances), their 19,224-triangle grids (BVH) and a grid of 1,896
+triangles under brute force (sppm_job), and its rays-in twin (#10) on the
+walk's own lens rays; ld and every VP output compared.  Both groups also
+render warm through render_job (RENDERS: the textured fixture, the SPPM
+fixture; one render, then 5 timed) and compare the images.  The last line of the output is a
 JSON object: per case the four times in turn order, the other revision's
 output against this tree's (rays whose radiance channels, or whose t and
 triangle, are not all bit-equal; NaN equal to NaN), the K3 kernel each
@@ -107,8 +126,14 @@ ray its MT and slab tests and interior rows.  K2 (films divided by
 pass and the one-light variant's (every walk of the tree: closest hits
 and shadow rays).  K3-shaded, on a CUDA device only: the node64 walk's
 steps a ray (mean, 99th percentile, the warps' longest) and MT and slab
-tests and interior rows a ray on each of its batches.  The last line is a
-JSON object of those numbers.
+tests and interior rows a ray on each of its batches.  K7
+(k7_counts; K7 alone on (1 << 20) / --scale^2 lookups, the textured
+passes' films divided by --scale): the texels a lookup scans and weighs,
+the warps' longest scan, and for #1 T / #2 T the camera rays whose first
+hit taps EWA and the differential lens traces of the pass.  K8 (films
+divided by --scale): the chunked walk's counts as K2's, or the node64
+walk's as K1 BVH's, over the camera walk's plain version on every pixel.
+The last line is a JSON object of those numbers.
 """
 
 import argparse
@@ -175,12 +200,29 @@ BVH_CASES = {
     "deep_closest": ("deep", False),
     "deep_any": ("deep", True),
 }
-# --only: CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES, K6BVH_CASES
-GROUPS = ("k1", "k6", "k3", "k1bvh", "k2bvh", "k6bvh", "k2", "k3s")
-# the kernel source each group's cases launch
-SOURCES = {"k1": "path_megakernel", "k6": "volpath_megakernel", "k3": "bvh_kernel",
-           "k1bvh": "path_megakernel", "k2bvh": "direct_megakernel",
-           "k6bvh": "volpath_megakernel", "k2": "direct_megakernel", "k3s": "bvh_kernel"}
+# K7: case -> the wrap of K7 alone on chip_smoke.py 12a's lookups (or
+# "adversarial": k7_footprints' under the repeat wrap), or the textured
+# scene of a pass through K1 ("fixture": #1 T, "grid": #2 T); "k7_render"
+# the warm render of samples/scene_textured.json (RENDERS)
+K7_CASES = {"k7_repeat": 0, "k7_black": 1, "k7_clamp": 2, "k7_adversarial": "adversarial",
+            "k7_textured": "fixture", "k7_textured_grid": "grid", "k7_render": "render"}
+# K8 (#9, with its rays-in twin #10): case -> the SPPM scene as sppm_job
+# writes it; "sppm_render" the warm render of samples/scene_sppm.json
+K8_CASES = {"sppm_fixture": "fixture", "sppm_glass": "glass", "sppm_disney": "disney",
+            "sppm_grid": "grid", "sppm_glass_grid": "glass_grid",
+            "sppm_disney_grid": "disney_grid", "sppm_grid_brute": "grid_brute",
+            "sppm_render": "render"}
+# the render cases: case -> the scene rendered warm through render_job
+RENDERS = {"k7_render": "scene_textured.json", "sppm_render": "scene_sppm.json"}
+# --only: CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES, K6BVH_CASES,
+# K2_CASES, SHADED_CASES, K7_CASES, K8_CASES
+GROUPS = ("k1", "k6", "k3", "k1bvh", "k2bvh", "k6bvh", "k2", "k3s", "k7", "k8")
+# the kernel sources each group's cases launch
+SOURCES = {"k1": ("path_megakernel",), "k6": ("volpath_megakernel",), "k3": ("bvh_kernel",),
+           "k1bvh": ("path_megakernel",), "k2bvh": ("direct_megakernel",),
+           "k6bvh": ("volpath_megakernel",), "k2": ("direct_megakernel",),
+           "k3s": ("bvh_kernel",), "k7": ("texture_kernel", "path_megakernel"),
+           "k8": ("sppm_megakernel",)}
 _RAY_LOADS = """  // the ray's loads issued together, ahead of the test of t_max
   const float tm = __ldg(t_max + i);
   const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
@@ -191,6 +233,9 @@ _RAY_LOADS = """  // the ray's loads issued together, ahead of the test of t_max
 """
 _K6_CAP = """    const auto kernel = vol->grid ? volpath_mega_kernel<false, kRaysIn, true>
                                   : volpath_mega_kernel<false, kRaysIn, true, true>;"""
+_TEX_LAUNCH = """    def launch():
+        err = lib.tex_lookup_launch(pyr.data.data_ptr(),"""
+_RGBA = "    rgba = torch.nn.functional.pad(pyr.data.view(-1, 3), (0, 1)).reshape(-1)\n"
 # --variant: (file under the package, text found there as many times as the
 # edit is listed, its replacement)
 VARIANTS = {
@@ -238,6 +283,28 @@ VARIANTS = {
          """    const auto kernel = vol->grid ? volpath_mega_kernel<false, kRaysIn, true, true>
                                   : volpath_mega_kernel<false, kRaysIn, true>;"""),
     ],
+    "tex_block256": [("csrc/texture_kernel.cu", "  block = g_tex_occupancy[0];\n",
+                      "  block = TEX_BLOCK;\n")],
+    "tex_inline": [("csrc/texture.cuh", "__device__ __noinline__ void tex_ewa_level(",
+                    "__device__ __forceinline__ void tex_ewa_level(")],
+    "tex_rgba": [
+        ("csrc/texture.cuh", """  const float* p = data + tm.off[l] + (size_t)(ti * w + si) * 3;
+  v[0] = __ldg(p);
+  v[1] = __ldg(p + 1);
+  v[2] = __ldg(p + 2);""", """  const float4 q = __ldg(reinterpret_cast<const float4*>(data) + tm.off[l] / 3 + ti * w + si);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;"""),
+        ("ops/texture.py", _TEX_LAUNCH, _TEX_LAUNCH.replace("pyr.data.data_ptr()", "rgba.data_ptr()")
+         .replace("    def launch():", _RGBA + "\n    def launch():")),
+        ("ops/path_megakernel.py", "None if tex is None else tex.pyr.data,",
+         "None if tex is None else torch.nn.functional.pad(tex.pyr.data.view(-1, 3), "
+         "(0, 1)).reshape(-1),"),
+    ],
+    "k8_capped": [("csrc/sppm_megakernel.cu", "__launch_bounds__(SPPM_BLOCK_MAX)",
+                   "__launch_bounds__(BLOCK, 9)")]
+    + [("csrc/sppm_megakernel.cu", "choose_block(kernel, SPPM_BLOCK_MAX,",
+        "choose_block(kernel, BLOCK,")],
 }
 
 
@@ -431,6 +498,146 @@ def k2_job(scene, one_light, out):
     return job
 
 
+def tex_queries(n, seed, dev):
+    """n seeded lookups (chip_smoke.py 12a's): st over [-1.2, 2.2)^2,
+    footprint axes from 1e-4 to 0.3 uv, the second often much shorter (the
+    max_aniso clamp), a sixteenth with a zero second axis and a
+    thirty-second with both zero (degenerate: level 0's bilinear tap)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    st = rng.uniform(-1.2, 2.2, (n, 2))
+    scale = 10 ** rng.uniform(-4.0, -0.5, (n, 1))
+    d0 = rng.normal(size=(n, 2)) * scale
+    d1 = rng.normal(size=(n, 2)) * scale * 10 ** rng.uniform(-2.0, 0.0, (n, 1))
+    d1[: n // 16] = 0.0
+    d0[: n // 32] = 0.0
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    return f(st), f(d0), f(d1)
+
+
+def k7_footprints(n, seed, dev):
+    """n seeded lookups at the edges of K7's spans, in eighths: thin
+    ellipses near the diagonals (the major axis up to 0.3 uv, the minor
+    1e-4 to 0.3 of it); long ones, 8 : 1 at any angle, whose radii the
+    16-texel window clamps at 7; footprints of 1e1 to 1e6 uv (the coarsest
+    level, the ellipse's determinant clamped at 1e-12); of 1e12 to 1e20 uv
+    (its coefficients past float32's range: infinite or NaN); an infinite
+    st (NaN in texel space under the repeat wrap); a minor axis 1e-12 to
+    1e-6 of the major (the max_aniso clamp stretches it); a zero minor
+    axis, and both axes at most 1e-9 uv (level 0's bilinear tap).  Returns
+    (st, dst0, dst1) (n, 2) float32 on `dev`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    k = np.arange(n) * 8 // n  # the eighth
+    st = rng.uniform(-1.2, 2.2, (n, 2))
+    theta = np.where(k == 1, rng.uniform(0.0, 2.0 * np.pi, n),
+                     np.pi / 4 + np.pi / 2 * rng.integers(0, 4, n) + rng.normal(0.0, 0.05, n))
+    major = np.select([k == 1, k == 2, k == 3], [10 ** rng.uniform(-1.5, -0.5, n),
+                                                 10 ** rng.uniform(1.0, 6.0, n),
+                                                 10 ** rng.uniform(12.0, 20.0, n)],
+                      10 ** rng.uniform(-3.0, -0.5, n))
+    ratio = np.select([k == 1, k == 2, k == 3, k == 5, k == 6],
+                      [np.full(n, 0.125), rng.uniform(0.1, 1.0, n), rng.uniform(0.1, 1.0, n),
+                       10 ** rng.uniform(-12.0, -6.0, n), np.zeros(n)],
+                      10 ** rng.uniform(-4.0, -0.5, n))
+    u = np.stack([np.cos(theta), np.sin(theta)], -1)
+    d0 = major[:, None] * u
+    d1 = (major * ratio)[:, None] * np.stack([-u[:, 1], u[:, 0]], -1)
+    bad = k == 4
+    st[bad, rng.integers(0, 2, n)[bad]] = np.inf * rng.choice([-1.0, 1.0], int(bad.sum()))
+    tiny = k == 7
+    d0[tiny] *= 1e-9 / np.abs(d0[tiny]).max(-1, keepdims=True)
+    d1[tiny] = 0.0
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    return f(st), f(d0), f(d1)
+
+
+def k7_pyramid(wrap, dev):
+    """samples/tex_checker.png's pyramid under `wrap` (chip_smoke.py 12a's)."""
+    from rs_ray_toy_tpu_torch.scene import mipmap
+    from rs_ray_toy_tpu_torch.scene.png import load_image
+
+    image = load_image(str(SAMPLES / "tex_checker.png"), True)
+    return mipmap.pyramid(mipmap.build_mipmap(image, wrap=wrap), dev)
+
+
+def k7_job(scene, out):
+    """The textured scene of a K7_CASES pass: samples/scene_textured.json at
+    640x360x16 (#1 T) or write_grid_scene's textured grid at 640x360x8 (#2
+    T), as chip_smoke.py's 12b and 12c write them."""
+    from rs_ray_toy_tpu_torch.scene.loader import load_scene
+
+    if scene == "fixture":
+        return load_scene(str(SAMPLES / "scene_textured.json"))
+    return k1bvh_job("grid_tex", False, out)
+
+
+def sppm_job(scene, out):
+    """The job of a K8_CASES scene, written under out: samples/
+    scene_sppm.json, scene_sppm_glass.json or scene_sppm_disney.json at
+    640x360; "*grid" write_grid_scene's grid of that fixture's first
+    material (19,224 triangles, a BVH) at max_depth 3, as chip_smoke.py's
+    phases 6c and 14 write them; "grid_brute" its grid of 13 x 12 cubes
+    (1,896 triangles: brute force near TRI_MAX)."""
+    from rs_ray_toy_tpu_torch.scene.gen import write_grid_scene
+    from rs_ray_toy_tpu_torch.scene.loader import load_scene
+
+    base = {"fixture": "scene_sppm.json", "glass": "scene_sppm_glass.json",
+            "disney": "scene_sppm_disney.json"}
+    if scene in base:
+        return load_scene(str(SAMPLES / base[scene]))
+    size = dict(ny=13, nz=12) if scene == "grid_brute" else {}
+    fixture = "fixture" if scene in ("grid", "grid_brute") else scene.split("_")[0]
+    return load_scene(write_grid_scene(str(out / f"sppm_{scene}"), base=str(SAMPLES / base[fixture]),
+                                       integrator="SPPM", max_depth=3, **size))
+
+
+def sppm_inputs(job, dev, it=0):
+    """What the SPPM iteration `it`'s camera walk takes, as render_sppm makes
+    it: (packed, camera, pixel_xy, the Halton slot matrix)."""
+    import torch
+
+    from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+    from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+    from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
+    from rs_ray_toy_tpu_torch.render import make_sampler
+
+    packed = smk.pack_sppm(job.scene, dev)
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+    w, h = job.film.xres, job.film.yres
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+    pid = (ys * w + xs).reshape(-1)
+    pxy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.float32)
+    u = make_sampler(job).slot_matrix(pid, it, smk.sppm_slots(job.integrator.max_depth))
+    return packed, cam, pxy, u
+
+
+def sppm_camera_rays(cam, pxy, u, depth):
+    """The camera rays the walk traces from the slot matrix's film and lens
+    values (chip_smoke.py 13e's given rays): (o, d (N, 3), weight (N,))."""
+    import torch
+
+    from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+    from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
+
+    ox, oy, oz, dx, dy, dz, w = pmk._raygen(pxy[:, 0], pxy[:, 1], None, None,
+                                            smk.SlotSampler(u, depth), cam)
+    return torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1), w
+
+
+def sppm_outputs(ld, vp):
+    """The camera walk's outputs as one (N, 20) float32 row a pixel: ld, the
+    VP's p, wo, beta, ng, dpdu, material and valid."""
+    import torch
+
+    return torch.cat([ld, vp.p, vp.wo, vp.beta, vp.ng, vp.dpdu, vp.mat[:, None].float(),
+                      vp.valid[:, None].float()], -1)
+
+
 def worker(out, reps, only):
     """Every case of the groups `only` through the `rs_ray_toy_tpu_torch` on
     sys.path: writes <out>/<case>.pt (outputs) and <out>/times.json."""
@@ -440,8 +647,11 @@ def worker(out, reps, only):
     from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
     from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
     from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+    from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
+    from rs_ray_toy_tpu_torch.ops import texture as tex_ops
     from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
-    from rs_ray_toy_tpu_torch.render import camera_rays, make_sampler, pass_spp, sample_batch
+    from rs_ray_toy_tpu_torch.render import (camera_rays, make_sampler, pass_spp, render_job,
+                                             sample_batch)
     from rs_ray_toy_tpu_torch.scene.gen import write_variant
     from rs_ray_toy_tpu_torch.scene.loader import load_scene
 
@@ -536,6 +746,62 @@ def worker(out, reps, only):
                     "attrs": attrs.T.cpu()}, out / f"{case}.pt")
         record[case] = rec
         print(f"{case}: {rec}", flush=True)
+    def warm_render(case):
+        """RENDERS[case] through render_job: one render to warm up, then the
+        median of 5 renders' wall seconds (its "ms" the median in ms), their
+        Mrays/s and the image."""
+        job = load_scene(str(SAMPLES / RENDERS[case]))
+        render_job(job, dev)
+        runs = [render_job(job, dev) for _ in range(5)]
+        rates = [[r.get(k) for k in ("mrays_per_s", "camera_mrays_per_s", "photon_mrays_per_s")]
+                 for r in runs]
+        rec = {"rays": int(runs[0]["rgb_srgb_input"].numel() // 3),
+               "ms": 1e3 * statistics.median(r["elapsed_s"] for r in runs), "mrays_per_s": rates}
+        torch.save({"image": runs[-1]["rgb_srgb_input"].reshape(-1, 3).cpu()},
+                   out / f"{case}.pt")
+        record[case] = rec
+        print(f"{case}: {rec}", flush=True)
+
+    for case, what in (K7_CASES.items() if "k7" in only else ()):
+        if what == "render":
+            warm_render(case)
+            continue
+        if what in ("fixture", "grid"):
+            job = k7_job(what, out / "scenes")
+            camera_pass(case, pmk, pmk.pack_scene(job.scene, dev, bvh=True if what == "grid"
+                                                  else None), job, False)
+            continue
+        pyr = k7_pyramid(0 if what == "adversarial" else what, dev)
+        queries = (k7_footprints(1 << 20, 19, dev) if what == "adversarial"
+                   else tex_queries(1 << 20, 12 + what, dev))
+        launch = tex_ops.prepare_launch(pyr, *queries)
+        rec = {"rays": queries[0].shape[0], "ms": timed_ms(launch)}
+        if hasattr(tex_ops, "occupancy"):
+            rec["occupancy"] = tex_ops.occupancy()
+        torch.save({"out": launch().cpu()}, out / f"{case}.pt")
+        record[case] = rec
+        print(f"{case}: {rec}", flush=True)
+    for case, scene in (K8_CASES.items() if "k8" in only else ()):
+        if scene == "render":
+            warm_render(case)
+            continue
+        job = sppm_job(scene, out / "scenes")
+        depth = job.integrator.max_depth
+        packed, cam, pxy, u = sppm_inputs(job, dev)
+        bvh, wide = packed.bvh is not None, smk.wide_lobes(packed)
+        launch = smk.prepare_camera(packed, cam, pxy, u, depth)
+        rec = {"rays": pxy.shape[0], "bvh": bvh, "ms": timed_ms(launch)}
+        saved = {"cam": sppm_outputs(*launch()).cpu()}
+        o, d, w = sppm_camera_rays(cam, pxy, u, depth)
+        launch = smk.prepare_camera_rays(packed, o, d, w, u, depth)
+        rec["rays_ms"] = timed_ms(launch)
+        saved["rays"] = sppm_outputs(*launch()).cpu()
+        if hasattr(smk, "occupancy"):
+            rec["occupancy"] = smk.occupancy(bvh=bvh, wide=wide)
+            rec["rays_occupancy"] = smk.occupancy(bvh=bvh, rays_in=True, wide=wide)
+        torch.save(saved, out / f"{case}.pt")
+        record[case] = rec
+        print(f"{case}: {rec}", flush=True)
     (out / "times.json").write_text(json.dumps(record))
 
 
@@ -572,6 +838,46 @@ def step_counts(work, n):
     return out
 
 
+def k7_counts(what, dev, scale, out):
+    """K7's counts of a K7_CASES case (ops/texture.ScanCounter over the plain
+    version): per lookup the texels the tap scans (the spans of both
+    levels) against the whole windows', the texels it weighs, the warps'
+    longest scan (32 consecutive lookups), and the weighed texels outside
+    the spans (0).  K7 alone on (1 << 20) / scale^2 of its lookups; a
+    textured pass (its film divided by scale on each side) through K1's
+    plain version in quarters of consecutive rays, with the camera rays
+    whose bounce-0 hit is textured (each one EWA lookup) and the
+    differential lens traces the pass makes (two a camera ray)."""
+    from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+    from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+    from rs_ray_toy_tpu_torch.ops import texture as tex_ops
+    from rs_ray_toy_tpu_torch.render import make_sampler, pass_spp, sample_batch
+
+    counter = tex_ops.ScanCounter()
+    work = {"ewa_scan": counter}
+    if what not in ("fixture", "grid"):
+        n = (1 << 20) // scale**2
+        queries = (k7_footprints(n, 19, dev) if what == "adversarial"
+                   else tex_queries(n, 12 + what, dev))
+        tex_ops.tex_lookup_reference(k7_pyramid(0 if what == "adversarial" else what, dev),
+                                     *queries, work)
+        return dict(texel_per_lookup=float(work["texel"]) / n, **counter.summary())
+    job = k7_job(what, out)
+    job.film.xres, job.film.yres = job.film.xres // scale, job.film.yres // scale
+    packed = pmk.pack_scene(job.scene, dev, bvh=True if what == "grid" else None)
+    cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+    sampler = make_sampler(job)
+    pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+    n = pxy.shape[0]
+    q = -(-n // 4)
+    for k in range(0, n, q):
+        pmk.li_path_mega_cam_reference(packed, cam, pxy[k:k + q], pid[k:k + q], soff[k:k + q],
+                                       sampler, job.integrator, work=work)
+    return dict(film=f"{job.film.xres}x{job.film.yres}x{pass_spp(sampler.spp)}", rays=n,
+                textured_first_hits=float(work["fd_ray"]) / 2, differential_traces=2 * n,
+                **counter.summary())
+
+
 def counts(dev, scale, only=GROUPS):
     """The plain versions' counts of the redesigned walks (the module
     docstring's --counts) of the groups `only`; returns them as a dict."""
@@ -581,6 +887,7 @@ def counts(dev, scale, only=GROUPS):
     from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
     from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
     from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
+    from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
     from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
     from rs_ray_toy_tpu_torch.render import make_sampler, pass_spp, sample_batch
     from rs_ray_toy_tpu_torch.scene.loader import load_scene
@@ -645,6 +952,26 @@ def counts(dev, scale, only=GROUPS):
         found[case] = dict(film=f"{job.film.xres}x{job.film.yres}x{pass_spp(sampler.spp)}",
                            chunks=int(packed.chunks.shape[0]), rows=int(packed.table.shape[0]),
                            **chunk_counts(work, pxy.shape[0]))
+        print(f"{case}: {found[case]}", flush=True)
+    for case, what in (K7_CASES.items() if "k7" in only else ()):
+        if what == "render":
+            continue
+        found[case] = k7_counts(what, dev, scale, out)
+        print(f"{case}: {found[case]}", flush=True)
+    for case, scene in (K8_CASES.items() if "k8" in only else ()):
+        if scene == "render":
+            continue
+        job = sppm_job(scene, out)
+        job.film.xres, job.film.yres = job.film.xres // scale, job.film.yres // scale
+        packed, cam, pxy, u = sppm_inputs(job, dev)
+        work = {}
+        smk.sppm_camera_mega_cam_reference(packed, cam, pxy, u, job.integrator.max_depth,
+                                           work=work)
+        n = pxy.shape[0]
+        walk = (step_counts(work, n) if packed.bvh is not None else
+                dict(chunks=int(packed.chunks.shape[0]), **chunk_counts(work, n)))
+        found[case] = dict(film=f"{job.film.xres}x{job.film.yres}",
+                           rows=int(packed.table.shape[0]), **walk)
         print(f"{case}: {found[case]}", flush=True)
     walks = ([(c, b, a) for c, (b, a) in BVH_CASES.items() if b in ("ao_grid", "probe_chain")]
              if "k3" in only else []) + (
@@ -734,7 +1061,7 @@ def main(argv=None):
         ap.error("give --parent or --variant")
     other = variant_tree(a.variant, out) if a.variant else Path(a.parent).resolve()
     trees = {"parent": other, "change": ROOT}
-    sources = sorted({SOURCES[g] for g in only})
+    sources = sorted({src for g in only for src in SOURCES[g]})
     build = [sys.executable, "-c", "from rs_ray_toy_tpu_torch.ops import _build; "
              f"[_build.build(k) for k in {sources}]"]
     procs = [subprocess.Popen(build, cwd=t, env=dict(os.environ, PYTHONPATH=str(t)))
@@ -750,7 +1077,7 @@ def main(argv=None):
              for n, k in turns}
     summary = {}
     groups = dict(zip(GROUPS, (CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES,
-                               K6BVH_CASES, K2_CASES, SHADED_CASES)))
+                               K6BVH_CASES, K2_CASES, SHADED_CASES, K7_CASES, K8_CASES)))
     for case in (c for g in only for c in groups[g]):
         ref = torch.load(out / "parent0" / f"{case}.pt")
         new = torch.load(out / "change0" / f"{case}.pt")
@@ -765,6 +1092,8 @@ def main(argv=None):
             row[f"{key}_rays_apart"] = int((~same.all(-1)).sum())
         if "rays_ms" in times["change0"][case]:
             row["rays_ms"] = [times[f"{n}{k}"][case]["rays_ms"] for n, k in turns]
+        if "rays_occupancy" in times["change0"][case]:
+            row["rays_occupancy"] = times["change0"][case]["rays_occupancy"]
         summary[case] = row
     print(json.dumps(summary))
 

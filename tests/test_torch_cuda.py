@@ -56,6 +56,8 @@ from rs_ray_toy_tpu_torch.scene.gen import (
 from rs_ray_toy_tpu_torch.scene import mipmap
 from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec, load_scene
 from rs_ray_toy_tpu_torch.scene.png import load_image
+from rs_ray_toy_tpu_torch.walk_ab import (k7_footprints, k7_pyramid, sppm_camera_rays,
+                                         sppm_outputs, tex_queries)
 
 SAMPLES = Path(__file__).resolve().parents[1] / "samples"
 pytestmark = pytest.mark.cuda
@@ -1447,3 +1449,123 @@ def test_wavefront_li_levels_card_matches_cpu(tmp_path, case):
     lit = l_cpu.amax(-1) > 0
     assert int(lit.sum()) > 1000
     assert float((rel.amax(-1)[lit] > 1e-3).float().mean()) < 5e-3
+
+
+@pytest.mark.parametrize("wrap", ["repeat", "black", "clamp"])
+def test_texture_tap_bit_equal_on_adversarial_footprints(wrap):
+    """K7's bounded tap (only the rows and column spans of each window
+    that can hold r^2 < 1) against its plain version, which scans the whole
+    window, on walk_ab.k7_footprints' adversarial lookups (thin diagonal
+    ellipses, radii clamped at 7, the determinant clamped, coefficients past
+    float32's range, infinite st, degenerate footprints) and 2^14 seeded
+    ones: bit-equal, NaN equal to NaN; and the launch's block.  Past 1e11 uv
+    an axis overflows the ellipse's scale (F, inf - inf): there the kernel,
+    as the plain version, carries NaN coefficients, weighs nothing and
+    returns 0."""
+    dev = _device()
+    w = mipmap.WRAP_NAMES[wrap]
+    pyr = k7_pyramid(w, dev)
+    queries = [torch.cat(pair) for pair in zip(k7_footprints(1 << 14, 60 + w, dev),
+                                                tex_queries(1 << 14, 70 + w, dev))]
+    before = tex_ops.LAUNCHES["tex_lookup"]
+    out = tex_ops.tex_lookup(pyr, *queries)
+    torch.cuda.synchronize()
+    assert tex_ops.LAUNCHES["tex_lookup"] == before + 1
+    ref = tex_ops.tex_lookup_reference(pyr, *queries)
+    same = ((out == ref) | (out.isnan() & ref.isnan())).all(-1)
+    overflow = (queries[1].abs().amax(-1) > 1e11) | (queries[2].abs().amax(-1) > 1e11)
+    assert int(overflow.sum()) > 0 and bool(same.all())
+    assert bool(torch.isfinite(out[overflow]).all())
+    occ = tex_ops.occupancy()
+    assert occ["block"] % 32 == 0 and 128 <= occ["block"] <= 256 and occ["blocks_per_sm"] > 0
+
+
+def _k8_job(tmp_path, case):
+    """A 64x36 SPPM scene for K8's walks: the fixture, its glass or Disney
+    variant (the wide instances), a 13 x 12 grid of cubes (1,896 triangles,
+    brute force near TRI_MAX), the 8 x 8 grid (792 triangles) or the
+    fixture's third cube alone (12 triangles: a BVH of one leaf)."""
+    scene = {"glass": "scene_sppm_glass.json", "disney": "scene_sppm_disney.json"}.get(
+        case, "scene_sppm.json")
+    if case in ("fixture", "glass", "disney", "grid8"):
+        return _sppm_job(tmp_path, case == "grid8", scene)
+    _sppm_job(tmp_path)  # writes tmp_path / "sppm.json"
+    path = str(tmp_path / "sppm.json")
+    if case == "one_leaf":
+        cfg = json.loads(Path(path).read_text())
+        cfg["Aggregate"]["primitives"] = [cfg["Aggregate"]["primitives"][2]]
+        Path(path).write_text(json.dumps(cfg))
+        return load_scene(path)
+    return load_scene(write_grid_scene(str(tmp_path / "grid"), ny=13, nz=12, base=path,
+                                       integrator="SPPM", max_depth=3))
+
+
+@pytest.mark.parametrize("case", ["fixture", "glass", "disney", "grid_brute", "grid8",
+                                  "one_leaf"])
+def test_sppm_camera_walk_on_chunks_and_node64(tmp_path, case):
+    """K8 (#9) and its rays-in twin (#10) on the chunked walk (brute force;
+    the wide instances for glass and Disney) or the node64 walk (a BVH; one
+    leaf: root_count, no node64 row), one launch each, against their plain
+    versions: ld at the per-ray bar, VP valid on 99.5% of the pixels.  The
+    plain versions walk the same as the kernel, bit-equal on the card to
+    the walks they replace (every row; the fused-children rows).  The one
+    leaf's BVH instance and the chunked instance over the same leaf-order
+    rows test them in order: bit-equal outputs.  And the launch's block."""
+    dev = _device()
+    job = _k8_job(tmp_path, case)
+    depth = job.integrator.max_depth
+    bvh = case in ("grid8", "one_leaf")
+    packed, cam, pxy, u = _sppm_inputs(job, dev, bvh)
+    assert (packed.bvh is not None) == bvh and (packed.chunks is not None) != bvh
+    wide = smk.wide_lobes(packed)
+    assert wide == (case in ("glass", "disney"))
+    o, d, w = sppm_camera_rays(cam, pxy, u, depth)
+    sfx = "_bvh" * bvh + "_wide" * wide
+    before = dict(smk.LAUNCHES)
+    out = sppm_outputs(*smk.prepare_camera(packed, cam, pxy, u, depth)())
+    out_rays = sppm_outputs(*smk.prepare_camera_rays(packed, o, d, w, u, depth)())
+    torch.cuda.synchronize()
+    want = {f"sppm_camera_mega_cam{sfx}": 1, f"sppm_camera_mega{sfx}": 1}
+    assert {k: v - before[k] for k, v in smk.LAUNCHES.items() if v != before[k]} == want
+    for rays_in in (False, True):
+        occ = smk.occupancy(bvh=bvh, rays_in=rays_in, wide=wide)
+        assert occ["blocks_per_sm"] > 0 and occ["block"] % 32 == 0
+    replaced = (packed._replace(bvh=packed.bvh._replace(nodes64=None)) if bvh
+                else packed._replace(chunks=None))
+    ref = sppm_outputs(*smk.sppm_camera_mega_cam_reference(packed, cam, pxy, u, depth))
+    assert torch.equal(ref, sppm_outputs(*smk.sppm_camera_mega_cam_reference(
+        replaced, cam, pxy, u, depth)))
+    ref_rays = sppm_outputs(*smk.sppm_camera_mega_reference(packed, o, d, w, u, depth))
+    for a, b in ((out, ref), (out_rays, ref_rays)):
+        assert float(b[:, :3].max()) > 0 and bool(torch.isfinite(a).all())
+        rel = (a[:, :3] - b[:, :3]).abs() / b[:, :3].abs().clamp(min=1e-3)
+        assert float((rel.amax(-1) > 1e-3).float().mean()) < 5e-3
+        assert float((a[:, -1] == b[:, -1]).float().mean()) >= 0.995
+    if case != "one_leaf":
+        return
+    n = packed.table.shape[0]
+    assert packed.bvh.root_count == n == 12 and packed.bvh.nodes64.shape[0] == 0
+    tab = packed.table.cpu().numpy()
+    chunks = pmk.chunk_rows(pmk.build_tri_chunks(tab[:, 0:3], tab[:, 3:6], tab[:, 6:9], n))
+    brute = packed._replace(bvh=None, chunks=torch.as_tensor(chunks, device=dev))
+    assert torch.equal(out, sppm_outputs(*smk.prepare_camera(brute, cam, pxy, u, depth)()))
+    assert torch.equal(out_rays, sppm_outputs(*smk.prepare_camera_rays(brute, o, d, w, u,
+                                                                        depth)()))
+
+
+def test_sppm_camera_walk_refuses_malformed_tables(tmp_path):
+    """K8 without its chunk rows, with chunk rows of the wrong width, or over
+    a BVH without its node64 rows raises: it never falls back to another
+    walk or to the plain version."""
+    dev = _device()
+    job = _sppm_job(tmp_path)
+    depth = job.integrator.max_depth
+    packed, cam, pxy, u = _sppm_inputs(job, dev, False)
+    for bad in (packed._replace(chunks=None),
+                packed._replace(chunks=packed.chunks[:, :4].contiguous())):
+        with pytest.raises(ValueError, match="chunk rows"):
+            smk.prepare_camera(bad, cam, pxy, u, depth)
+    packed = smk.pack_sppm(job.scene, dev, True)
+    with pytest.raises(ValueError, match="node64"):
+        smk.prepare_camera(packed._replace(bvh=packed.bvh._replace(nodes64=None)), cam, pxy, u,
+                           depth)
