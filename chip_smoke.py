@@ -71,11 +71,13 @@ Phase 6  the SPPM main path through its three kernels: (a)
          least an eighth must); the deposit (the kernel's VPs and events,
          one sort) with M equal and phi within 1e-5 relative, on the main
          path's events and on those of the batch's first sixteenth; the
-         camera walk's counts (the chunked walk's MT and chunk box tests a
-         ray, per warp of 32 the chunks and rows it runs, the bound of the
-         walk over every row beside the bound; over a BVH the node64 walk's
-         tests, rows and steps) and its launch's block (smk.occupancy),
-         here and in 6c, 13e and 14; (c) the 19,224-triangle grid
+         camera and photon walks' counts (the chunked walk's MT and chunk
+         box tests a ray, per warp of 32 the chunks and rows it runs, the
+         bound of the walk over every row beside the bound; over a BVH the
+         node64 walk's tests, rows and steps) and each launch's block
+         (smk.occupancy), here and in 6c, 13e and 14; the photon walk and
+         the deposit timed bare (the module docstring's `ms`); (c) the
+         19,224-triangle grid
          under the same SPPM block, 2 iterations, through the BVH
          instances of the camera and photon kernels, held the same way on
          all of its pixels and photons: few of its pixels see direct
@@ -380,8 +382,8 @@ are the Moller-Trumbore and slab tests the plain version counts.  The
 node64 walk reads each interior node's 64-byte row
 once instead of every node's fused-children columns (its slab and MT
 tests are the binary walk's, counted by its plain version, an any hit's
-MT tests up to the row where it stops), and in the path, direct and
-Volpath kernels' BVH instances each leaf row's 48 bytes once instead of
+MT tests up to the row where it stops), and in the path, direct,
+Volpath and SPPM kernels' BVH instances each leaf row's 48 bytes once instead of
 the table's 9 geometry columns (the flat untextured instances read none
 of those: they shade from the other columns); the BVH4
 walk reads each wide node's 144 bytes once instead of the binary nodes,
@@ -390,7 +392,12 @@ it tests.  No single PyTorch call computes a sample pass, any of
 the SPPM kernels, or a closest hit over a triangle list or a BVH:
 `library_ms` is null.  A path-kernel instance held on a subset gives as
 `plain_ms` the time of the plain version's one run there, the run that
-counts its work.
+counts its work.  The SPPM photon walk's and deposit's `ms` is their
+time as the card runs them (walk_ab.bare_ms: back-to-back calls of the
+entry point alone between two CUDA events, queued behind a sleep of the
+device, over their count); `closure_ms` is the older window around one
+whole launch closure (the host's enqueue and the outputs' casts in it),
+`wrapper_ms` the wrapper's call (the deposit's with its sort).
 """
 
 import contextlib
@@ -446,7 +453,8 @@ from rs_ray_toy_tpu_torch.scene.loader import load_scene
 from rs_ray_toy_tpu_torch.scene.png import load_image
 from rs_ray_toy_tpu_torch.accel import traverse
 from rs_ray_toy_tpu_torch.accel.bvh import SHADE_COLS_FLAT, SHADE_COLS_SMOOTH
-from rs_ray_toy_tpu_torch.walk_ab import (aimed_rays, chunk_counts, first_pass_batches,
+from rs_ray_toy_tpu_torch.walk_ab import (aimed_rays, bare_launch, bare_ms, chunk_counts,
+                                         first_pass_batches, first_photons, surface_photons,
                                          k7_footprints, sppm_camera_rays, sppm_inputs,
                                          tex_queries)
 
@@ -912,6 +920,9 @@ def add_entry(kernels, name, launches, held, extra_err=0.0):
     )
     if "occupancy" in held:
         kernels[name]["occupancy"] = held["occupancy"]
+    for key in ("closure_ms", "wrapper_ms"):
+        if key in held:
+            kernels[name][key] = held[key]
     walk = {k: held[k] for k in WALK_KEYS if k in held}
     if walk:
         kernels[name]["walk"] = walk
@@ -1166,41 +1177,6 @@ def agreement(a, b):
     return int((rel.amax(-1) > 1e-3).sum()), float((a.mean() - b.mean()) / b.mean())
 
 
-def surface_photons(scene, n, depth, dev, seed=12):
-    """A seeded batch of photons, many of which deposit, made as
-    tests/test_torch_sppm.py makes its photons: half start inside a cube
-    whose material has a diffuse lobe (within 0.8 of its inscribed ball,
-    so each depth hits its inner faces) in a random direction, half
-    outside (x in [26.2, 29.8], y and z in [-6, 6]) aimed at a random point
-    of any cube; 95% of them active; uniform bounce and roulette values.
-    The scene's triangles must be cube.obj instances, 12 rows each.
-    Returns (ro, rd, beta, active, u_rows) on `dev`."""
-    tri = scene.triangles
-    check(tri.count % 12 == 0, "the photon batch needs a scene of cubes")
-    verts = np.stack([tri.p0, tri.p1, tri.p2], 1).astype(np.float64).reshape(-1, 36, 3)
-    centre = verts.mean(1)
-    half = np.abs(((tri.p0[::12] - centre) * tri.ng[::12]).sum(-1))  # centre to a face
-    mats = scene.materials
-    diffuse = np.array([np.isin(mats["kind"][m, : mats["n_lobes"][m]], smk.DIFFUSE_KINDS).any()
-                        for m in tri.mat[::12]])
-    rng = np.random.default_rng(seed)
-    inside = np.arange(n) < n // 2
-    pick = np.where(inside, rng.choice(np.nonzero(diffuse)[0], n), rng.integers(0, len(centre), n))
-    c, h = centre[pick], half[pick, None]
-    off = rng.normal(size=(n, 3))
-    off *= 0.8 * h * rng.random((n, 1)) ** (1 / 3) / np.linalg.norm(off, axis=-1, keepdims=True)
-    outside = np.array([28.0, 0.0, 0.0]) + rng.uniform(-6.0, 6.0, (n, 3)) * [0.3, 1.0, 1.0]
-    ro = np.where(inside[:, None], c + off, outside)
-    target = c + 0.9 * h * rng.uniform(-1.0, 1.0, (n, 3))
-    rd = np.where(inside[:, None], rng.normal(size=(n, 3)), target - ro)
-    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    beta = rng.uniform(1.0, 50.0, (n, 3))
-    active = rng.random(n) < 0.95
-    u_rows = rng.random((3 * (depth - 1), n))
-    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
-    return f32(ro), f32(rd), f32(beta), torch.as_tensor(active, device=dev), f32(u_rows)
-
-
 def hold_photons(packed, ph, depth, floor):
     """The photon kernel against its plain version on photons `ph`: the
     events agree (the live flags equal; p, wi and beta at rtol 1e-4, atol
@@ -1296,15 +1272,21 @@ def hold_sppm_walks(job, dev, cross=False):
     batch, ev_batch, _, _ = hold_photons(
         packed, surface_photons(job.scene, n_ph, depth, dev), depth, n_ph // 8
     )
-    t_ms = timed_ms(launch, reps=10)
+    t_ms = bare_ms(bare_launch(launch))
+    closure_ms = timed_ms(launch, reps=10)
     wrapper_ms = timed_ms(lambda: smk.sppm_photon_mega(packed, *ph, depth))
     plain_ms = once_ms(lambda: smk.sppm_photon_mega_reference(packed, *ph, depth))
     ray_bytes = int(ph[3].sum()) * PHOTON_RAY_BYTES
-    b_ms, b_by = bound(work, 1.0, n_ph, packed, SPPM_PHOTON_BYTES, ray_bytes)
+    photon_bound = lambda w: bound(w, 1.0, n_ph, packed, SPPM_PHOTON_BYTES, ray_bytes, node64=True)
+    b_ms, b_by = photon_bound(work)
     photon = dict(rays=n_ph, plain_rays=n_ph, bvh=packed.bvh is not None,
                   max_abs_err=max(main["max_abs_err"], batch["max_abs_err"]), ms=t_ms,
-                  wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                  main=main, surface_batch=batch, work={k: float(v) for k, v in work.items()})
+                  closure_ms=closure_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                  bound_ms=b_ms, bound_by=b_by, main=main, surface_batch=batch,
+                  work={k: float(v) for k, v in work.items()},
+                  **walk_numbers(work, 1.0, n_ph, photon_bound), **bvh_walk_numbers(work, 1.0, n_ph),
+                  occupancy=smk.occupancy(bvh=packed.bvh is not None, wide=smk.wide_lobes(packed),
+                                          kernel="photon"))
     return camera, photon, vp, ev, ev_batch, radius, smk.resolve_mat_tables(job.scene, dev)
 
 
@@ -1340,7 +1322,8 @@ def hold_deposit(vp, ev, radius, mats, timed=True):
     if not timed:
         return held
     n = vp.p.shape[0]
-    t_ms = timed_ms(launch, reps=10)
+    t_ms = bare_ms(bare_launch(launch))
+    closure_ms = timed_ms(launch, reps=10)
     wrapper_ms = timed_ms(lambda: smk.deposit_mega(vp, radius, mats, ev, lo, diag))
     plain_ms = once_ms(lambda: smk.deposit_walk_reference(vp, mats, inp))
     # bytes: the VPs with a range, and each sorted event that some range holds once
@@ -1353,16 +1336,11 @@ def hold_deposit(vp, ev, radius, mats, timed=True):
     read_events = int((edge.cumsum(0)[:n_ev] > 0).sum())
     extra = int(walking.sum()) * VP_WALK_BYTES + read_events * EVENT_BYTES + mats.numel() * 4
     b_ms, b_by = bound(work, 1.0, n, None, VP_BYTES, extra)
-    return dict(rays=n, plain_rays=n, ms=t_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, walked_pairs=float(work.get("pair", 0)),
-                events=n_ev, read_events=read_events, walking_vps=int(walking.sum()), **held)
-
-
-def first_photons(ev, depth, share):
-    """The depth-major events `ev` of the first 1/`share` of the photons."""
-    n = ev[3].shape[0] // (depth - 1)
-    return tuple(e.reshape(depth - 1, n, -1)[:, : n // share].reshape(-1, *e.shape[1:])
-                 for e in ev)
+    return dict(rays=n, plain_rays=n, ms=t_ms, closure_ms=closure_ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                walked_pairs=float(work.get("pair", 0)), events=n_ev, read_events=read_events,
+                walking_vps=int(walking.sum()),
+                occupancy=smk.occupancy(wide=smk.mats_wide(mats), kernel="deposit"), **held)
 
 
 def drive_sppm(scene, png, bvh, wide=False):
@@ -1423,12 +1401,14 @@ def sppm_phase(record, kernels, card, dev):
         f"{camera['diverged']:.2e}, q99 {camera['q99']:.2e}, VP valid equal "
         f"{camera['valid_equal']:.4f}, {camera['vps']} VPs, record equal on "
         f"{camera['vp_record_equal']:.5f} of {camera['vps_held']}{walk_text(camera)}; "
-        f"photon kernel {photon['ms']:.3f} ms (wrapper {photon['wrapper_ms']:.3f}, plain "
-        f"{photon['plain_ms']:.1f}, bound {photon['bound_ms']:.4f} by {photon['bound_by']}), events "
+        f"photon kernel {photon['ms']:.4f} ms (closure {photon['closure_ms']:.3f}, wrapper "
+        f"{photon['wrapper_ms']:.3f}, plain {photon['plain_ms']:.1f}, bound "
+        f"{photon['bound_ms']:.4f} by {photon['bound_by']}){walk_text(photon)}, events "
         f"equal on {main['live_equal']:.4f} of {main['live_photons']} live photons "
         f"({main['live_events']} live events), surface batch {batch['live_equal']:.4f} of "
-        f"{batch['live_photons']}; deposit kernel {deposit['ms']:.3f} ms (wrapper with the sort "
-        f"{deposit['wrapper_ms']:.3f}, plain {deposit['plain_ms']:.1f}, bound "
+        f"{batch['live_photons']}; deposit kernel {deposit['ms']:.4f} ms (closure "
+        f"{deposit['closure_ms']:.3f}, wrapper with the sort {deposit['wrapper_ms']:.3f}, plain "
+        f"{deposit['plain_ms']:.1f}, block {deposit['occupancy']['block']}, bound "
         f"{deposit['bound_ms']:.4f} by {deposit['bound_by']}), {deposit['walked_pairs']:.0f} pairs "
         f"walked, {deposit['read_events']} events in ranges, M total {deposit['m_total']}, phi rel "
         f"err {deposit['phi_rel_err']:.2e}, bit-equal {deposit['bit_equal']}; on the surface "
@@ -1468,10 +1448,12 @@ def sppm_phase(record, kernels, card, dev):
         f"{camera['vp_record_equal']:.5f} of {camera['vps_held']} "
         f"(diverged px, relative mean difference: on an eighth {cross['eighth']}, kernel vs plain "
         f"on the CPU {cross['kernel_vs_cpu']}, plain on the card vs on the CPU "
-        f"{cross['plain_vs_cpu']}){walk_text(camera)}; photon kernel {photon['ms']:.3f} ms (plain "
-        f"{photon['plain_ms']:.1f}, bound {photon['bound_ms']:.4f} by {photon['bound_by']}), events "
+        f"{cross['plain_vs_cpu']}){walk_text(camera)}; photon kernel {photon['ms']:.4f} ms "
+        f"(closure {photon['closure_ms']:.3f}, plain {photon['plain_ms']:.1f}, bound "
+        f"{photon['bound_ms']:.4f} by {photon['bound_by']}){walk_text(photon)}, events "
         f"equal on {main['live_equal']:.4f} of {main['live_photons']} live photons, surface batch "
-        f"{batch['live_equal']:.4f} of {batch['live_photons']}; deposit {deposit['ms']:.3f} ms, "
+        f"{batch['live_equal']:.4f} of {batch['live_photons']}; deposit {deposit['ms']:.4f} ms "
+        f"(closure {deposit['closure_ms']:.3f}), "
         f"M total {deposit['m_total']} (surface batch {deposit_batch['m_total']}), phi rel err "
         f"{deposit['phi_rel_err']:.2e} / {deposit_batch['phi_rel_err']:.2e}; "
         f"{record['phase6_grid']['phase_s']:.1f} s [{card}]"
@@ -2980,11 +2962,13 @@ def wide_sppm_phase(record, kernels, card, dev):
             f"{camera['diverged']:.2e}, VP valid equal {camera['valid_equal']:.4f}, {camera['vps']}"
             f" VPs, record equal on {camera['vp_record_equal']:.5f} of {camera['vps_held']}"
             f"{walk_text(camera)}; "
-            f"photon kernel {photon['ms']:.3f} ms (plain {photon['plain_ms']:.1f}, bound "
-            f"{photon['bound_ms']:.4f} by {photon['bound_by']}), events equal on "
+            f"photon kernel {photon['ms']:.4f} ms (closure {photon['closure_ms']:.3f}, plain "
+            f"{photon['plain_ms']:.1f}, bound {photon['bound_ms']:.4f} by "
+            f"{photon['bound_by']}){walk_text(photon)}, events equal on "
             f"{main['live_equal']:.4f} of {main['live_photons']} live photons, surface batch "
             f"{batch['live_equal']:.4f} of {batch['live_photons']}; deposit kernel "
-            f"{deposit['ms']:.3f} ms (plain {deposit['plain_ms']:.1f}, bound "
+            f"{deposit['ms']:.4f} ms (closure {deposit['closure_ms']:.3f}, plain "
+            f"{deposit['plain_ms']:.1f}, bound "
             f"{deposit['bound_ms']:.4f} by {deposit['bound_by']}), M total {deposit['m_total']}, "
             f"phi rel err {deposit['phi_rel_err']:.2e} (surface batch "
             f"{deposit_batch['phi_rel_err']:.2e}); its grid of {job_g.scene.triangles.count} "
@@ -2993,8 +2977,9 @@ def wide_sppm_phase(record, kernels, card, dev):
             f"{camera_g['bound_ms']:.4f} by {camera_g['bound_by']}), diverged "
             f"{camera_g['diverged']:.2e}, VP valid equal {camera_g['valid_equal']:.4f}"
             f"{walk_text(camera_g)}; photon "
-            f"kernel {photon_g['ms']:.3f} ms (plain {photon_g['plain_ms']:.1f}, bound "
-            f"{photon_g['bound_ms']:.4f} by {photon_g['bound_by']}), events equal on "
+            f"kernel {photon_g['ms']:.4f} ms (closure {photon_g['closure_ms']:.3f}, plain "
+            f"{photon_g['plain_ms']:.1f}, bound {photon_g['bound_ms']:.4f} by "
+            f"{photon_g['bound_by']}){walk_text(photon_g)}, events equal on "
             f"{photon_g['main']['live_equal']:.4f} of {photon_g['main']['live_photons']}, surface "
             f"batch {photon_g['surface_batch']['live_equal']:.4f}; deposit M total "
             f"{deposit_g['m_total']}, phi rel err {deposit_g['phi_rel_err']:.2e}; "

@@ -21,25 +21,30 @@
 // alive after the hit test), depth-major; then a BSDF sample and the photon
 // roulette q = max(0, 1 - y(new) / y(old)), killed when u < q.
 //
-// K10, sppm_deposit_kernel, one thread per VP: replaces _deposit_kernel
-// (pallas_call in _deposit_run).  The events come Morton-sorted from torch
-// (ops/sppm_megakernel.deposit_inputs) with each VP's range of sorted events
-// [searchsorted(morton(cmin)), searchsorted(morton(cmax), right)): Morton
-// order is monotone, so the range holds every event whose cell lies in the
-// VP's p +- r cell box.  The thread walks its range in order and adds, for
-// an event within the radius (|p_ev - p_vp|^2 <= r^2), beta_ev * f(wo, wi)
-// over the VP material's lobes when wi lies on wo's side of ng, and one to
-// M; every other event adds 0.  No atomics: each VP owns its sums, so they
-// are deterministic.  (The JAX kernel walks per-1024-VP tile ranges in
-// chunks of 8192 events, a VMEM limit; the per-VP range is a subset of its
-// tile's, and the events outside it add 0.)
+// K10, sppm_deposit_kernel, one thread per VP in pixel order: replaces
+// _deposit_kernel (pallas_call in _deposit_run).  The events come
+// Morton-sorted from torch (ops/sppm_megakernel.deposit_inputs) with each
+// VP's range of sorted events [searchsorted(morton(cmin)),
+// searchsorted(morton(cmax), right)): Morton order is monotone, so the range
+// holds every event whose cell lies in the VP's p +- r cell box.  The thread
+// adds, over its range in order, for an event within the radius (|p_ev -
+// p_vp|^2 <= r^2), beta_ev * f(wo, wi) over the VP material's lobes when wi
+// lies on wo's side of ng, and one to M; every other event adds 0.  No
+// atomics: each VP owns its sums, so they are deterministic.  (The JAX kernel
+// walks per-1024-VP tile ranges in chunks of 8192 events, a VMEM limit; the
+// per-VP range is a subset of its tile's, and the events outside it add 0.)
+// Most VPs have an empty range (95-99% on the SPPM fixtures): such a thread
+// writes zeros and leaves before it reads its VP.  A warp's walking lanes
+// read the rows of their ranges once, coalesced, into a per-warp tile in
+// shared memory; each lane tests the tile's rows of its own range, and the
+// lanes then evaluate the lobes of their shaded pairs together.
 //
 // What bounds them on this card: K8 and K9 are the path kernel's shape,
-// divergent per-thread FP32 work over read-only tables (triangles staged in
-// shared memory up to TRI_MAX, or the BVH through the read-only cache); K10
-// is the (VP, event) pairs of the ranges, about 40 bytes an event from L1/L2
-// and a distance test each, and the lobe evaluations of the few near pairs.
-// The events of one iteration fit in L2 (262,144 x 40 B at the fixture).
+// divergent per-thread FP32 work over read-only tables (the chunked walk's
+// rows staged in shared memory, or the BVH through the read-only cache); K10
+// is the bytes of the walking VPs and of the events their ranges hold, about
+// 40 bytes an event, and the lobe evaluations of the few near pairs.  The
+// events of one iteration fit in L2 (262,144 x 40 B at the fixture).
 //
 // The lobes: every kernel takes a last template flag kWide.  Without it (the
 // base instances) a walk samples and evaluates lambert, the microfacet and
@@ -56,23 +61,24 @@
 // vertex makes no VP; the walk goes through it.  The flag leaves the base
 // instances' code as it was.
 //
-// K8's geometry is its siblings' (the path, direct and Volpath kernels'):
-// brute force the chunked walk (common.cuh ChunkGeometry: the chunk boxes and
-// the rows' intersect columns staged in shared memory, a chunk's rows run
-// only where its box is hit, each behind the division-free reject), over a
-// BVH the walk of its node64 rows and 48-byte leaf rows (Bvh64Geometry), the
-// any-hit shadow ray stopping at the first row it hits.  Both visit in the
-// order of the walks they replace (table order; the fused-children order),
-// so every hit, and every output, is theirs.  K9 keeps Geometry<kBvh> (the
-// rows staged whole, or the fused-children rows).  K8's instances take no
-// register cap: each launch runs in the block of BLOCK..SPPM_BLOCK_MAX that
-// keeps the most threads resident an SM (choose_block, at an instance's
-// first launch and again only for a brute-force table of another size; a
-// large table's shared memory leaves few blocks resident, and there larger
-// blocks keep more threads).
+// K8's and K9's geometry is their siblings' (the path, direct and Volpath
+// kernels'): brute force the chunked walk (common.cuh ChunkGeometry: the chunk
+// boxes and the rows' intersect columns staged in shared memory, a chunk's
+// rows run only where its box is hit, each behind the division-free reject),
+// over a BVH the walk of its node64 rows and 48-byte leaf rows
+// (Bvh64Geometry), the any-hit shadow ray stopping at the first row it hits.
+// Both visit in the order of the walks they replace (table order; the
+// fused-children order), so every hit, and every output, is theirs.  The
+// three kernels take no register cap: each launch runs in the block of
+// BLOCK..SPPM_BLOCK_MAX that keeps the most threads resident an SM
+// (choose_block, at an instance's first launch and again only for a
+// brute-force table of another size; a large table's shared memory leaves
+// few blocks resident, and there larger blocks keep more threads).
 //
 // Numerics follow the plain PyTorch versions (ops/sppm_megakernel.py)
 // expression by expression; see common.cuh.
+
+#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
@@ -102,7 +108,7 @@ __device__ __forceinline__ bool glossy_kind(int k) {
 
 // ---- K8: the camera walk ----
 
-// K8's largest block.  Without a register cap (~80 registers, 6 blocks of
+// K8's, K9's and K10's largest block.  Without a register cap (~80 registers, 6 blocks of
 // 128 an SM) K8 ran 5-15% faster over a BVH and within the noise on brute
 // force than under the direct kernel's bound for 9 blocks (56 registers, 200-
 // 300 B of spill stores), and the 1,896-row grid's blocks of 320 48% faster
@@ -268,17 +274,33 @@ __global__ void __launch_bounds__(SPPM_BLOCK_MAX)
 
 // ---- K9: the photon walk ----
 
+// K9's BVH instances keep the next leaf row's loads in flight (Bvh64's
+// default) where PHOTON_LEAF_PREFETCH (`walk_ab --variant
+// PHOTON_LEAF_PREFETCH=false --only k9` times the other choice).
+constexpr bool PHOTON_LEAF_PREFETCH = true;
+
+// geo_a, geo_b, root_count and n_chunks as for sppm_camera_kernel: the
+// chunked walk over the chunk rows geo_a (brute force), or the node64 rows
+// geo_a and leaf rows geo_b (kBvh).  The walk makes closest hits only.
 template <bool kBvh, bool kWide = false>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(SPPM_BLOCK_MAX)
     sppm_photon_kernel(const float* __restrict__ table, int n_tris,
-                       const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                       const float* __restrict__ geo_a, const float* __restrict__ geo_b,
                        int max_depth, const float* __restrict__ ro, const float* __restrict__ rd,
                        const float* __restrict__ beta, const int* __restrict__ alive,
                        const float* __restrict__ u, float* __restrict__ ev_p,
                        float* __restrict__ ev_wi, float* __restrict__ ev_beta,
-                       int* __restrict__ ev_live, int n) {
-  extern __shared__ float s_geo[];
-  const Geometry<kBvh> geom = load_geometry<kBvh>(s_geo, table, n_tris, nodes_f, nodes_i);
+                       int* __restrict__ ev_live, int n, int root_count, int n_chunks) {
+  extern __shared__ float4 s_dyn[];  // brute force: the chunk rows, then the rows
+  const auto geom = [&] {
+    if constexpr (kBvh)
+      return Bvh64Geometry<STACK_DEPTH, false, Bvh64<STACK_DEPTH, PHOTON_LEAF_PREFETCH>>{
+          {reinterpret_cast<const float4*>(geo_a), reinterpret_cast<const float4*>(geo_b),
+           root_count},
+          table};
+    else
+      return load_chunk_geometry<TABLE_COLS>(s_dyn, table, n_tris, geo_a, n_chunks);
+  }();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float ox = ro[3 * i], oy = ro[3 * i + 1], oz = ro[3 * i + 2];
@@ -345,16 +367,72 @@ __global__ void __launch_bounds__(BLOCK)
 
 // ---- K10: the deposit ----
 
+constexpr int WARP = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+constexpr int TILE_WORDS = WARP * EV_COLS / 2;  // a tile: WARP rows as float2 words
+
+// One thread a VP, in pixel order.  A VP whose range is empty writes phi 0
+// and M 0 and leaves before it reads its record.  The walking lanes of a
+// warp read the rows their ranges hold once, WARP rows at a time, into the
+// warp's two tiles in shared memory, by asynchronous copies (cp.async) that
+// the walking lanes share, consecutive lanes on consecutive 8-byte words: a
+// tile starts at the lowest row past the last tile that some lane's range
+// holds (the gaps between the lanes' ranges are not read), and the next
+// tile's copies fly while the lanes walk the current one, the first's while
+// they read their VPs.  Each lane tests the tile's rows of its own range in
+// ascending order (the distance and the side of wi), counts M and adds
+// 0 * beta for a pair it does not shade; then the lanes evaluate the lobes
+// of the pairs they shade together, each lane its own in ascending order, so
+// the warp runs the lobes as often as its busiest lane needs them, not once
+// for each row where any lane does.  Every term is the walk's expression,
+// and every nonzero term is added in the walk's order: a 0 * beta term
+// leaves a sum as it is (the sum is never -0), or makes it NaN in any order.
+// Dynamic shared memory: two tiles a warp (deposit_smem).
 template <bool kWide = false>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(SPPM_BLOCK_MAX)
     sppm_deposit_kernel(const float* __restrict__ vp_p, const float* __restrict__ vp_wo,
                         const float* __restrict__ vp_ng, const float* __restrict__ vp_dpdu,
                         const int* __restrict__ vp_mat, const float* __restrict__ vp_r2,
                         const int* __restrict__ start, const int* __restrict__ end,
                         const float* __restrict__ events, const float* __restrict__ mats,
                         float* __restrict__ phi, int* __restrict__ m_out, int n) {
+  extern __shared__ float2 s_tiles[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int lane = threadIdx.x % WARP;
+  int first = 0, last = 0;
+  if (i < n) first = start[i], last = end[i];
+  const bool walking = first < last;
+  if (i < n && !walking) {
+    phi[3 * i + 0] = 0.0f;
+    phi[3 * i + 1] = 0.0f;
+    phi[3 * i + 2] = 0.0f;
+    m_out[i] = 0;
+  }
+  const unsigned mask = __ballot_sync(FULL_MASK, walking);
+  if (!walking) return;
+  const int hi = __reduce_max_sync(mask, last);
+  const int rank = __popc(mask & ((1u << lane) - 1u)), n_walk = __popc(mask);
+  float2* tiles = s_tiles + (threadIdx.x / WARP) * (2 * TILE_WORDS);
+  // this lane's share of the copies of the tile at `base` into `tile`, one
+  // commit group (empty past the span)
+  const auto fetch = [&](int base, float2* tile) {
+    if (base < hi) {
+      // a row is 40 bytes, so every row starts 8-byte aligned
+      const float2* src = reinterpret_cast<const float2*>(events + (size_t)base * EV_COLS);
+      const int n_words = min(WARP, hi - base) * (EV_COLS / 2);
+      for (int w = rank; w < n_words; w += n_walk)
+        __pipeline_memcpy_async(tile + w, src + w, sizeof(float2));
+    }
+    __pipeline_commit();
+  };
+  // the lowest row at or past `row` that some lane's range holds (hi: none)
+  const auto next_row = [&](int row) {
+    return __reduce_min_sync(mask, last > row ? max(first, row) : hi);
+  };
+  int base = next_row(0);
+  fetch(base, tiles);
+
   const float px = vp_p[3 * i], py = vp_p[3 * i + 1], pz = vp_p[3 * i + 2];
   const float ngx = vp_ng[3 * i], ngy = vp_ng[3 * i + 1], ngz = vp_ng[3 * i + 2];
   float ssx, ssy, ssz, tsx, tsy, tsz;
@@ -369,29 +447,53 @@ __global__ void __launch_bounds__(BLOCK)
   const int n_lob = (int)__ldg(mrow + 15);
   float pr = 0.0f, pg = 0.0f, pb = 0.0f;
   int m = 0;
-  for (int k = start[i]; k < end[i]; ++k) {
-    const float* ev = events + (size_t)k * EV_COLS;
-    const float ddx = px - __ldg(ev + 0), ddy = py - __ldg(ev + 1), ddz = pz - __ldg(ev + 2);
-    const float d2 = ddx * ddx + ddy * ddy + ddz * ddz;
-    const bool near = d2 <= r2 && __ldg(ev + 9) > 0.0f;
-    float fr[3] = {0.0f, 0.0f, 0.0f};
-    if (near) {
-      const float wix = __ldg(ev + 3), wiy = __ldg(ev + 4), wiz = __ldg(ev + 5);
-      const float wi_ng = wix * ngx + wiy * ngy + wiz * ngz;
-      if ((wi_ng * wo_z) > 0.0f && wo_z != 0.0f) {
-        const float wil_x = wix * ssx + wiy * ssy + wiz * ssz;
-        const float wil_y = wix * tsx + wiy * tsy + wiz * tsz;
-        for (int l = 0; l < n_lob; ++l) {
-          float lf[3];
-          lobe_f<kWide>(load_lobe(mrow, l), wol_x, wol_y, wo_z, wil_x, wil_y, wi_ng, lf);
-          for (int c = 0; c < 3; ++c) fr[c] = fr[c] + lf[c];
-        }
+  for (int cur = 0; base < hi; cur ^= 1) {
+    const int next = next_row(base + WARP);
+    fetch(next, tiles + (cur ^ 1) * TILE_WORDS);
+    __pipeline_wait_prior(1);  // this lane's copies of the current tile have landed
+    __syncwarp(mask);          // and every walking lane's
+    const float* rows = reinterpret_cast<const float*>(tiles + cur * TILE_WORDS);
+    const int k_end = min(last, base + WARP);
+    unsigned shade = 0;  // the tile's rows whose lobes this lane evaluates
+    for (int k = max(first, base); k < k_end; ++k) {
+      const float* ev = rows + (k - base) * EV_COLS;
+      const float ddx = px - ev[0], ddy = py - ev[1], ddz = pz - ev[2];
+      const float d2 = ddx * ddx + ddy * ddy + ddz * ddz;
+      const bool near = d2 <= r2 && ev[9] > 0.0f;
+      bool gated = false;
+      if (near) {
+        const float wi_ng = ev[3] * ngx + ev[4] * ngy + ev[5] * ngz;
+        gated = (wi_ng * wo_z) > 0.0f && wo_z != 0.0f;
+        m = m + 1;
       }
-      m = m + 1;
+      if (gated) {
+        shade |= 1u << (k - base);
+      } else {  // f = 0: the walk's term 0 * beta
+        pr = pr + 0.0f * ev[6];
+        pg = pg + 0.0f * ev[7];
+        pb = pb + 0.0f * ev[8];
+      }
     }
-    pr = pr + fr[0] * __ldg(ev + 6);
-    pg = pg + fr[1] * __ldg(ev + 7);
-    pb = pb + fr[2] * __ldg(ev + 8);
+    while (shade != 0) {
+      const int r = __ffs(shade) - 1;
+      shade &= shade - 1u;
+      const float* ev = rows + r * EV_COLS;
+      const float wix = ev[3], wiy = ev[4], wiz = ev[5];
+      const float wi_ng = wix * ngx + wiy * ngy + wiz * ngz;
+      const float wil_x = wix * ssx + wiy * ssy + wiz * ssz;
+      const float wil_y = wix * tsx + wiy * tsy + wiz * tsz;
+      float fr[3] = {0.0f, 0.0f, 0.0f};
+      for (int l = 0; l < n_lob; ++l) {
+        float lf[3];
+        lobe_f<kWide>(load_lobe(mrow, l), wol_x, wol_y, wo_z, wil_x, wil_y, wi_ng, lf);
+        for (int c = 0; c < 3; ++c) fr[c] = fr[c] + lf[c];
+      }
+      pr = pr + fr[0] * ev[6];
+      pg = pg + fr[1] * ev[7];
+      pb = pb + fr[2] * ev[8];
+    }
+    __syncwarp(mask);  // every walking lane is done with the tile before it is refilled
+    base = next;
   }
   phi[3 * i + 0] = pr;
   phi[3 * i + 1] = pg;
@@ -399,29 +501,24 @@ __global__ void __launch_bounds__(BLOCK)
   m_out[i] = m;
 }
 
-template <typename K>
-cudaError_t allow_table_smem(K kernel) {
-  // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+// K10's dynamic shared memory in blocks of `block` threads: two tiles a warp
+__host__ __device__ constexpr size_t deposit_smem(int block) {
+  return (size_t)(block / WARP) * 2 * TILE_WORDS * sizeof(float2);
 }
 
-int check_table(int n_tris, const float* nodes_f, const int* nodes_i) {
-  if (nodes_f != nullptr)
-    return (n_tris <= 0 || n_tris > BVH_TRI_MAX || nodes_i == nullptr) ? (int)cudaErrorInvalidValue
-                                                                       : 0;
-  return (n_tris <= 0 || n_tris > TRI_MAX) ? (int)cudaErrorInvalidValue : 0;
-}
-
-// The last K8 launch's block size, blocks resident per SM, registers per
-// thread and dynamic shared memory bytes, by [bvh][rays_in][wide]
+// The last launch's block size, blocks resident per SM, registers per thread
+// and dynamic shared memory bytes: K8's by [bvh][rays_in][wide], K9's by
+// [bvh][wide], K10's by [wide]
 int g_occupancy[2][2][2][4] = {};
+int g_photon_occupancy[2][2][4] = {};
+int g_deposit_occupancy[2][4] = {};
 
-// The block of a K8 launch with smem bytes of dynamic shared memory:
+// The block of a K8 or K9 launch with smem bytes of dynamic shared memory:
 // choose_block's, kept in occ and chosen again only when smem differs from
 // the last choice's (a brute-force table of another size), so that a launch
 // makes no occupancy query on the host while it stays the same
 template <class Kernel>
-cudaError_t camera_block(Kernel kernel, size_t smem, int* occ, int& block) {
+cudaError_t walk_block(Kernel kernel, size_t smem, int* occ, int& block) {
   if (occ[0] == 0 || occ[3] != (int)smem) {
     if (smem > 0) {
       // the whole TRI_MAX table exceeds the 48 KB default for dynamic shared memory
@@ -437,6 +534,19 @@ cudaError_t camera_block(Kernel kernel, size_t smem, int* occ, int& block) {
   return cudaSuccess;
 }
 
+// 0 where the tables of a K8 or K9 launch are well formed (the extern "C"
+// comment below), else cudaErrorInvalidValue
+int check_walk(const float* table, int n_tris, const float* nodes64, const float* prims,
+               const float* chunks, int n_chunks, int root_count) {
+  const bool bad =
+      prims != nullptr
+          ? n_tris <= 0 || n_tris > BVH_TRI_MAX || table == nullptr || root_count < 0 ||
+                root_count > n_tris || (root_count == 0) != (nodes64 != nullptr)
+          : n_tris <= 0 || n_tris > TRI_MAX || table == nullptr || chunks == nullptr ||
+                n_chunks <= 0 || n_chunks > CHUNK_MAX || root_count != 0;
+  return bad ? (int)cudaErrorInvalidValue : 0;
+}
+
 template <bool kRaysIn, bool kWide>
 int launch_camera(const float* table, int n_tris, const float* nodes64, const float* prims,
                   const Params* params, const float* in_a, const float* in_d, const float* in_w,
@@ -448,28 +558,24 @@ int launch_camera(const float* table, int n_tris, const float* nodes64, const fl
   if (params->n_lights < 1 || params->n_lights > LIGHT_MAX || params->max_depth < 1 ||
       n_u != 4 * params->max_depth + 1)
     return (int)cudaErrorInvalidValue;
+  if (const int bad = check_walk(table, n_tris, nodes64, prims, chunks, n_chunks, root_count))
+    return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (prims != nullptr) {
-    if (n_tris <= 0 || n_tris > BVH_TRI_MAX || table == nullptr || root_count < 0 ||
-        root_count > n_tris || (root_count == 0) != (nodes64 != nullptr))
-      return (int)cudaErrorInvalidValue;
     const auto kernel = sppm_camera_kernel<true, kRaysIn, kWide>;
     int block;
-    const cudaError_t err = camera_block(kernel, 0, g_occupancy[1][kRaysIn][kWide], block);
+    const cudaError_t err = walk_block(kernel, 0, g_occupancy[1][kRaysIn][kWide], block);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(n + block - 1) / block, block, 0, st>>>(
         table, n_tris, nodes64, prims, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
         out_ng, out_dpdu, out_mat, out_valid, n, *params, root_count, 0);
     return (int)cudaGetLastError();
   }
-  if (n_tris <= 0 || n_tris > TRI_MAX || table == nullptr || chunks == nullptr ||
-      n_chunks <= 0 || n_chunks > CHUNK_MAX || root_count != 0)
-    return (int)cudaErrorInvalidValue;
   // each block stages the whole table
   const size_t smem = chunk_smem(n_tris, n_chunks);
   const auto kernel = sppm_camera_kernel<false, kRaysIn, kWide>;
   int block;
-  const cudaError_t err = camera_block(kernel, smem, g_occupancy[0][kRaysIn][kWide], block);
+  const cudaError_t err = walk_block(kernel, smem, g_occupancy[0][kRaysIn][kWide], block);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(n + block - 1) / block, block, smem, st>>>(
       table, n_tris, chunks, nullptr, in_a, in_d, in_w, u, out_ld, out_p, out_wo, out_beta,
@@ -478,28 +584,54 @@ int launch_camera(const float* table, int n_tris, const float* nodes64, const fl
 }
 
 template <bool kWide>
-int launch_photon(const float* table, int n_tris, const float* nodes_f, const int* nodes_i,
+int launch_photon(const float* table, int n_tris, const float* nodes64, const float* prims,
                   int max_depth, const float* ro, const float* rd, const float* beta,
                   const int* alive, const float* u, float* ev_p, float* ev_wi, float* ev_beta,
-                  int* ev_live, int n, void* stream) {
+                  int* ev_live, int n, void* stream, const float* chunks, int n_chunks,
+                  int root_count) {
   cudaGetLastError();
   if (n <= 0) return 0;
   if (max_depth < 2) return (int)cudaErrorInvalidValue;
-  if (const int bad = check_table(n_tris, nodes_f, nodes_i)) return bad;
-  const int grid = (n + BLOCK - 1) / BLOCK;
+  if (const int bad = check_walk(table, n_tris, nodes64, prims, chunks, n_chunks, root_count))
+    return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nodes_f != nullptr) {
-    sppm_photon_kernel<true, kWide><<<grid, BLOCK, 0, st>>>(
-        table, n_tris, nodes_f, nodes_i, max_depth, ro, rd, beta, alive, u, ev_p, ev_wi, ev_beta,
-        ev_live, n);
+  if (prims != nullptr) {
+    const auto kernel = sppm_photon_kernel<true, kWide>;
+    int block;
+    const cudaError_t err = walk_block(kernel, 0, g_photon_occupancy[1][kWide], block);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(n + block - 1) / block, block, 0, st>>>(table, n_tris, nodes64, prims, max_depth, ro,
+                                                      rd, beta, alive, u, ev_p, ev_wi, ev_beta,
+                                                      ev_live, n, root_count, 0);
     return (int)cudaGetLastError();
   }
-  const cudaError_t attr = allow_table_smem(sppm_photon_kernel<false, kWide>);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = (size_t)n_tris * GEO_COLS * sizeof(float);
-  sppm_photon_kernel<false, kWide><<<grid, BLOCK, smem, st>>>(
-      table, n_tris, nullptr, nullptr, max_depth, ro, rd, beta, alive, u, ev_p, ev_wi, ev_beta,
-      ev_live, n);
+  // each block stages the whole table
+  const size_t smem = chunk_smem(n_tris, n_chunks);
+  const auto kernel = sppm_photon_kernel<false, kWide>;
+  int block;
+  const cudaError_t err = walk_block(kernel, smem, g_photon_occupancy[0][kWide], block);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(n + block - 1) / block, block, smem, st>>>(table, n_tris, chunks, nullptr, max_depth,
+                                                       ro, rd, beta, alive, u, ev_p, ev_wi,
+                                                       ev_beta, ev_live, n, 0, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+template <bool kWide>
+int launch_deposit(const float* vp_p, const float* vp_wo, const float* vp_ng,
+                   const float* vp_dpdu, const int* vp_mat, const float* vp_r2, const int* start,
+                   const int* end, const float* events, const float* mats, float* phi, int* m,
+                   int n, cudaStream_t st) {
+  const auto kernel = sppm_deposit_kernel<kWide>;
+  int* occ = g_deposit_occupancy[kWide];
+  if (occ[0] == 0) {  // the block is chosen at the instance's first launch
+    int block;
+    const cudaError_t err = choose_block(kernel, SPPM_BLOCK_MAX, deposit_smem, block, occ);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int block = occ[0];
+  kernel<<<(n + block - 1) / block, block, deposit_smem(block), st>>>(
+      vp_p, vp_wo, vp_ng, vp_dpdu, vp_mat, vp_r2, start, end, events, mats, phi, m, n);
   return (int)cudaGetLastError();
 }
 
@@ -509,13 +641,12 @@ extern "C" {
 
 // Each launch returns cudaGetLastError() of the launch (0 when it was
 // accepted); nothing is synchronised; the wide instances (kWide) when `wide`
-// is not 0.  K8 (the camera walk): brute force when prims is null (the
-// chunked walk over the (n_chunks, CHUNK_COLS) rows `chunks` that cover the
-// table; root_count 0), else the walk of the BVH's node64 rows `nodes64`
-// (null where the tree is one leaf of root_count rows; root_count 0
-// otherwise) over the (n_tris, 12) float32 leaf rows `prims`, the table in
-// the same leaf order (chunks null, n_chunks 0).  K9 (the photon walk): brute
-// force when nodes_f is null, else the walk of the fused-children rows.
+// is not 0.  K8 (the camera walk) and K9 (the photon walk): brute force when
+// prims is null (the chunked walk over the (n_chunks, CHUNK_COLS) rows
+// `chunks` that cover the table; root_count 0), else the walk of the BVH's
+// node64 rows `nodes64` (null where the tree is one leaf of root_count rows;
+// root_count 0 otherwise) over the (n_tris, 12) float32 leaf rows `prims`,
+// the table in the same leaf order (chunks null, n_chunks 0).
 
 // K8 over n pixels; u is the (n_u, n) Halton slot matrix, n_u = 4 * max_depth + 1
 int sppm_camera_launch(int wide, const float* table, int n_tris, const float* nodes64,
@@ -552,24 +683,32 @@ int sppm_camera_rays_launch(int wide, const float* table, int n_tris, const floa
                                     out_valid, n, stream, chunks, n_chunks, root_count);
 }
 
-// The last K8 launch of the instance (bvh, rays_in, wide): its block size,
-// blocks per SM, registers per thread and dynamic shared memory bytes, into
-// out[0..3] (zeros before its first launch)
-void sppm_camera_occupancy(int bvh, int rays_in, int wide, int* out) {
-  for (int k = 0; k < 4; ++k) out[k] = g_occupancy[bvh != 0][rays_in != 0][wide != 0][k];
+// The last launch of an instance, of K8 (kernel 0: bvh, rays_in, wide), K9
+// (kernel 1: bvh, wide) or K10 (kernel 2: wide): its block size, blocks per
+// SM, registers per thread and dynamic shared memory bytes, into out[0..3]
+// (zeros before its first launch)
+void sppm_occupancy(int kernel, int bvh, int rays_in, int wide, int* out) {
+  const int b = bvh != 0, r = rays_in != 0, w = wide != 0;
+  const int* occ = kernel == 0   ? g_occupancy[b][r][w]
+                   : kernel == 1 ? g_photon_occupancy[b][w]
+                                 : g_deposit_occupancy[w];
+  for (int k = 0; k < 4; ++k) out[k] = occ[k];
 }
 
 // K9 over n photons; u is the (3 * (max_depth - 1), n) bounce / roulette
 // matrix; the events are ((max_depth - 1) * n, .) depth-major
-int sppm_photon_launch(int wide, const float* table, int n_tris, const float* nodes_f,
-                       const int* nodes_i, int max_depth, const float* ro, const float* rd,
+int sppm_photon_launch(int wide, const float* table, int n_tris, const float* nodes64,
+                       const float* prims, int max_depth, const float* ro, const float* rd,
                        const float* beta, const int* alive, const float* u, float* ev_p,
-                       float* ev_wi, float* ev_beta, int* ev_live, int n, void* stream) {
+                       float* ev_wi, float* ev_beta, int* ev_live, int n, void* stream,
+                       const float* chunks, int n_chunks, int root_count) {
   if (wide)
-    return launch_photon<true>(table, n_tris, nodes_f, nodes_i, max_depth, ro, rd, beta, alive, u,
-                               ev_p, ev_wi, ev_beta, ev_live, n, stream);
-  return launch_photon<false>(table, n_tris, nodes_f, nodes_i, max_depth, ro, rd, beta, alive, u,
-                              ev_p, ev_wi, ev_beta, ev_live, n, stream);
+    return launch_photon<true>(table, n_tris, nodes64, prims, max_depth, ro, rd, beta, alive, u,
+                               ev_p, ev_wi, ev_beta, ev_live, n, stream, chunks, n_chunks,
+                               root_count);
+  return launch_photon<false>(table, n_tris, nodes64, prims, max_depth, ro, rd, beta, alive, u,
+                              ev_p, ev_wi, ev_beta, ev_live, n, stream, chunks, n_chunks,
+                              root_count);
 }
 
 // K10 over n VPs: events is the (E, 10) sorted event table, mats the
@@ -581,15 +720,12 @@ int sppm_deposit_launch(int wide, const float* vp_p, const float* vp_wo, const f
   cudaGetLastError();
   if (n <= 0) return 0;
   if (n_mats < 1) return (int)cudaErrorInvalidValue;
-  const int grid = (n + BLOCK - 1) / BLOCK;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide)
-    sppm_deposit_kernel<true><<<grid, BLOCK, 0, st>>>(vp_p, vp_wo, vp_ng, vp_dpdu, vp_mat, vp_r2,
-                                                      start, end, events, mats, phi, m, n);
-  else
-    sppm_deposit_kernel<false><<<grid, BLOCK, 0, st>>>(vp_p, vp_wo, vp_ng, vp_dpdu, vp_mat,
-                                                       vp_r2, start, end, events, mats, phi, m, n);
-  return (int)cudaGetLastError();
+    return launch_deposit<true>(vp_p, vp_wo, vp_ng, vp_dpdu, vp_mat, vp_r2, start, end, events,
+                                mats, phi, m, n, st);
+  return launch_deposit<false>(vp_p, vp_wo, vp_ng, vp_dpdu, vp_mat, vp_r2, start, end, events,
+                               mats, phi, m, n, st);
 }
 
 const char* sppm_error_string(int err) {

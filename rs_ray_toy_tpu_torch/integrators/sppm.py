@@ -115,11 +115,13 @@ def sppm_image(state, iters_done, n_photons, h, w):
     return l.reshape(h, w, 3)
 
 
-def iteration(state, it, packed, cam_packed, mats, lights, pixel_xy, u_halton, spec):
+def iteration(state, it, packed, cam_packed, mats, lights, pixel_xy, u_halton, spec,
+              mats_wide=None):
     """One SPPM iteration (camera walk, emission, photon walk, deposit,
     update) with sample index `it`: the kernels' wide instances where the
-    scene's lobes need them (smk.wide_lobes, smk.mats_wide).  Returns the
-    new state."""
+    scene's lobes need them (smk.wide_lobes; the deposit's `mats_wide`,
+    smk.mats_wide(mats), taken here when not given).  Returns the new
+    state."""
     ld_delta, vp = smk.sppm_camera_mega_cam(packed, cam_packed, pixel_xy, u_halton,
                                             spec.max_depth)
     state = state._replace(ld=state.ld + ld_delta)
@@ -128,7 +130,7 @@ def iteration(state, it, packed, cam_packed, mats, lights, pixel_xy, u_halton, s
     halton_index = it * n_photons + torch.arange(n_photons, device=pixel_xy.device)
     ro, rd, beta, active, u_rows = emit_photons(lights, halton_index, spec.max_depth)
     events = smk.sppm_photon_mega(packed, ro, rd, beta, active, u_rows, spec.max_depth)
-    phi, m = smk.deposit_mega(vp, state.radius, mats, events, lo, diag)
+    phi, m = smk.deposit_mega(vp, state.radius, mats, events, lo, diag, mats_wide)
     return radius_tau_update(state, vp, phi, m)
 
 
@@ -151,6 +153,7 @@ def render_sppm(packed, cam_packed, mats, lights, sampler, film_spec, spec, devi
     state = SPPMState(torch.full((h * w,), spec.radius, dtype=torch.float32, device=device),
                       z(h * w, 3), z(h * w), z(h * w, 3))
     wf = max(1, spec.write_freq)
+    wide = smk.mats_wide(mats)  # once a render: the material rows stay the same
     elapsed = 0.0
     done = 0
     while done < spec.n_iters:
@@ -163,7 +166,7 @@ def render_sppm(packed, cam_packed, mats, lights, sampler, film_spec, spec, devi
         for it in range(done, nxt):
             u_halton = sampler.slot_matrix(pixel_id, it, slots)
             state = iteration(state, it, packed, cam_packed, mats, lights, pixel_xy, u_halton,
-                              spec)
+                              spec, wide)
         if device.type == "cuda":
             end.record()
             torch.cuda.synchronize(device)

@@ -1975,7 +1975,7 @@ class PlainGeometry:
     Bvh64 walk of the path, direct and Volpath kernels), the rays that
     still walk compacted after every step; or, where the tables have no
     node64 rows, the stack walk of the fused-children rows (Geometry<true>,
-    the SPPM photon walk's): at an
+    the walk the node64 walk replaced): at an
     interior node both children's boxes are slab-tested against the ray's
     best t and only hit children are pushed, the near child (by the sign
     of the ray's direction on the split axis) last; a leaf tests its
@@ -1985,8 +1985,8 @@ class PlainGeometry:
     rays, as the kernel performs them, the interior rows fetched ("node")
     and each walk's steps, the nodes it visits (tally_steps, tagged
     "closest", "any" or the caller's `tag`): equal over both trees' rows.
-    With `cull` (K1's, K2's, K6's and
-    K8's plain versions; the other kernels walk every row) brute force
+    With `cull` (K1's, K2's, K6's,
+    K8's and K9's plain versions; the other kernels walk every row) brute force
     takes the chunked walk over `packed.chunks` (chunk_walk), which finds
     the same hits."""
 

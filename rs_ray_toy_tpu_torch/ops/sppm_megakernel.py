@@ -19,7 +19,10 @@ and the Morton-sorted deposit (K10), one CUDA source
   count over the events within the VP's radius.  `deposit_inputs` keys
   the events by the Morton code of their grid cell, sorts them (stable
   torch.sort) and gives each VP its range of sorted events, which holds
-  every event its radius can reach; the kernel walks the range.
+  every event its radius can reach; the kernel walks the range.  A VP
+  with an empty range leaves before it reads its record; a warp's walking
+  VPs read the rows of their ranges once, and each adds its own events in
+  range order (`deposit_warp_walk`, the walk's float32 twin).
 
 Subset (`unsupported_feature`): triangles (brute force up to TRI_MAX,
 the BVH above), up to LIGHT_MAX point lights (a camera medium is ignored,
@@ -37,12 +40,12 @@ and the specular refraction, common.cuh's kDisney and kSt), named with
 "_wide" in LAUNCHES.  Specular vertices (a glass's reflection and
 transmission) make no VP: the walks go through them.
 
-The camera walk's geometry is the path, direct and Volpath kernels':
-the chunked brute-force walk over `packed.chunks` (pmk.chunk_args), or
-the walk of the BVH's node64 rows and 48-byte leaf rows (pmk.geometry_args
-with `node64`, pmk.root_count); its plain version walks the same
-(PlainGeometry with `cull`).  The photon walk keeps the walk over every
-row, or over the fused-children rows.
+The camera and photon walks' geometry is the path, direct and Volpath
+kernels': the chunked brute-force walk over `packed.chunks`
+(pmk.chunk_args), or the walk of the BVH's node64 rows and 48-byte leaf
+rows (pmk.geometry_args with `node64`, pmk.root_count); their plain
+versions walk the same (PlainGeometry with `cull`).  Each launch runs in
+the block the library picks (`occupancy`).
 
 On CUDA tensors each wrapper launches its kernel of
 csrc/sppm_megakernel.cu (built by ops/_build.py) or raises; on CPU
@@ -136,7 +139,14 @@ def wide_lobes(packed) -> bool:
 
 def pack_sppm(scene, device, bvh=None) -> pmk.PackedScene:
     """pack_scene: the triangle table (its column 47 is the material id)
-    and the point lights, in BVH leaf order above TRI_MAX triangles."""
+    and the point lights, in BVH leaf order above TRI_MAX triangles.
+    Raises where a triangle's material id is not a row of
+    resolve_mat_tables(scene): every VP's id comes from column 47, so the
+    deposit's material rows hold every id the render's VPs carry."""
+    mat = np.asarray(scene.triangles.mat)
+    n_mats = scene.materials["kind"].shape[0]
+    if mat.size and (mat.min() < 0 or mat.max() >= n_mats):
+        raise ValueError(f"triangle material ids outside the scene's {n_mats} materials")
     return pmk.pack_scene(scene, device, bvh)
 
 
@@ -220,15 +230,16 @@ def load_kernel():
     lib = _build.load("sppm_megakernel")
     p, i = ctypes.c_void_p, ctypes.c_int
     # each launch's first argument: 1 for the wide instances (wide_lobes);
-    # the camera walk's last: the chunk rows, their count and root_count
+    # the camera and photon walks' last: the chunk rows, their count and
+    # root_count
     lib.sppm_camera_launch.argtypes = ([i, p, i, p, p, ctypes.POINTER(pmk._Params), p, p, i]
                                        + [p] * 8 + [i, p, p, i, i])
     lib.sppm_camera_rays_launch.argtypes = ([i, p, i, p, p, ctypes.POINTER(pmk._Params)] + [p] * 4
                                             + [i] + [p] * 8 + [i, p, p, i, i])
-    lib.sppm_camera_occupancy.restype = None
-    lib.sppm_camera_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.sppm_occupancy.restype = None
+    lib.sppm_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.sppm_camera_rays_launch.restype = ctypes.c_int
-    lib.sppm_photon_launch.argtypes = [i, p, i, p, p, i] + [p] * 9 + [i, p]
+    lib.sppm_photon_launch.argtypes = [i, p, i, p, p, i] + [p] * 9 + [i, p, p, i, i]
     lib.sppm_deposit_launch.argtypes = [i] + [p] * 10 + [i, p, p, i, p]
     for fn in (lib.sppm_camera_launch, lib.sppm_photon_launch, lib.sppm_deposit_launch):
         fn.restype = ctypes.c_int
@@ -240,15 +251,21 @@ def load_kernel():
     return lib
 
 
-def occupancy(bvh=False, rays_in=False, wide=False):
-    """The last launch of the camera walk's instance (BVH or chunked brute
-    force, on given rays or the camera's, wide or base): its block size,
-    blocks resident per SM, registers per thread and dynamic shared memory
-    bytes, as the library chose and measured them (choose_block, at the
-    instance's first launch and again for a brute-force table of another
+OCCUPANCY_KERNELS = ("camera", "photon", "deposit")
+
+
+def occupancy(bvh=False, rays_in=False, wide=False, kernel="camera"):
+    """The last launch of an instance of the camera walk (BVH or chunked
+    brute force, on given rays or the camera's, wide or base), of the
+    photon walk (`kernel` "photon": BVH or brute force, wide or base) or of
+    the deposit ("deposit": wide or base): its block size, blocks resident
+    per SM, registers per thread and dynamic shared memory bytes, as the
+    library chose and measured them (choose_block, at the instance's first
+    launch and, for a walk, again for a brute-force table of another
     size)."""
     out = (ctypes.c_int * 4)()
-    load_kernel().sppm_camera_occupancy(int(bvh), int(rays_in), int(wide), out)
+    load_kernel().sppm_occupancy(OCCUPANCY_KERNELS.index(kernel), int(bvh), int(rays_in),
+                                 int(wide), out)
     return dict(zip(("block", "blocks_per_sm", "registers", "smem"), out))
 
 
@@ -261,11 +278,23 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _walk_args(packed, dev):
+    """The camera and photon walks' tables of `packed`, checked for a launch
+    on `dev`: (the table, then the launch's pointer arguments nodes64 and
+    prims, and chunks, their count and root_count; each pointer None where
+    the walk has no such table)."""
+    table, nodes64, prims = pmk.geometry_args(packed, dev, node64=True)
+    chunks, n_chunks = pmk.chunk_args(packed, dev)
+    return table, _ptr(nodes64), _ptr(prims), _ptr(chunks), n_chunks, pmk.root_count(packed)
+
+
 def _launcher(lib, name, fn, args, outs, keep):
     """launch(): one launch of `fn` on the current stream returning
     `outs()`; adds one to LAUNCHES[name] when the launch is accepted.
     `keep` holds the tensors behind the pointers in `args` that nothing
-    else keeps alive, for as long as launch() can run."""
+    else keeps alive, for as long as launch() can run.  launch.bare() is
+    the ctypes call alone (no count, no outputs, its error code returned),
+    for timing the kernel as the card runs it."""
 
     def launch():
         err = fn(*args)
@@ -276,6 +305,7 @@ def _launcher(lib, name, fn, args, outs, keep):
         return outs()
 
     launch.keep = keep
+    launch.bare = lambda: fn(*args)
     return launch
 
 
@@ -339,8 +369,7 @@ def _camera_launcher(packed, cam_packed, rays, u, max_depth, n, dev, prefix):
         raise ValueError("no pixels")
     n_u = 4 * max_depth + 1
     _check(u, (n_u, n), torch.float32, dev, "the slot matrix")
-    table, nodes64, prims = pmk.geometry_args(packed, dev, node64=True)
-    chunks, n_chunks = pmk.chunk_args(packed, dev)
+    table, *walk = _walk_args(packed, dev)
     prm = pmk._kernel_params(packed, cam_packed, None, None)
     prm.max_depth = max_depth
     v3 = [torch.empty((n, 3), dtype=torch.float32, device=dev) for _ in range(6)]
@@ -350,10 +379,9 @@ def _camera_launcher(packed, cam_packed, rays, u, max_depth, n, dev, prefix):
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = lib.sppm_camera_launch if len(rays) == 1 else lib.sppm_camera_rays_launch
     wide = wide_lobes(packed)
-    args = (int(wide), table.data_ptr(), table.shape[0], _ptr(nodes64), _ptr(prims),
-            ctypes.byref(prm), *(r.data_ptr() for r in rays), u.data_ptr(), n_u,
-            *(t.data_ptr() for t in v3), mat.data_ptr(), valid.data_ptr(), n, stream,
-            _ptr(chunks), n_chunks, pmk.root_count(packed))
+    args = (int(wide), table.data_ptr(), table.shape[0], *walk[:2], ctypes.byref(prm),
+            *(r.data_ptr() for r in rays), u.data_ptr(), n_u, *(t.data_ptr() for t in v3),
+            mat.data_ptr(), valid.data_ptr(), n, stream, *walk[2:])
 
     def outs():
         ld, p, wo, beta, ng, dpdu = v3
@@ -392,7 +420,7 @@ def prepare_photon(packed, ro, rd, beta, active, u_rows, max_depth):
     if active.shape != (n,) or active.device != dev:
         raise ValueError(f"active must be an (n,) tensor on {dev}")
     _check(u_rows, (3 * (max_depth - 1), n), torch.float32, dev, "u_rows")
-    table, nodes_f, nodes_i = pmk.geometry_args(packed, dev)
+    table, *walk = _walk_args(packed, dev)
     alive = active.to(torch.int32).contiguous()
     e = (max_depth - 1) * n
     ev = [torch.empty((e, 3), dtype=torch.float32, device=dev) for _ in range(3)]
@@ -400,10 +428,10 @@ def prepare_photon(packed, ro, rd, beta, active, u_rows, max_depth):
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     wide = wide_lobes(packed)
-    args = (int(wide), table.data_ptr(), table.shape[0], _ptr(nodes_f), _ptr(nodes_i), max_depth,
-            ro.data_ptr(), rd.data_ptr(), beta.data_ptr(), alive.data_ptr(), u_rows.data_ptr(),
-            *(t.data_ptr() for t in ev), live.data_ptr(), n, stream)
-    name = "sppm_photon_mega" + "_bvh" * (nodes_f is not None) + "_wide" * wide
+    args = (int(wide), table.data_ptr(), table.shape[0], *walk[:2], max_depth, ro.data_ptr(),
+            rd.data_ptr(), beta.data_ptr(), alive.data_ptr(), u_rows.data_ptr(),
+            *(t.data_ptr() for t in ev), live.data_ptr(), n, stream, *walk[2:])
+    name = "sppm_photon_mega" + "_bvh" * (packed.bvh is not None) + "_wide" * wide
     return _launcher(lib, name, lib.sppm_photon_launch, args, lambda: (*ev, live != 0),
                      (packed, ro, rd, beta, alive, u_rows, ev, live))
 
@@ -452,18 +480,22 @@ def deposit_inputs(vp, radius, events, lo, diag):
     )
 
 
-def deposit_mega(vp, radius, mats, events, lo, diag):
+def deposit_mega(vp, radius, mats, events, lo, diag, wide=None):
     """phi (N, 3) and M (N,) int64 of one iteration: vp the VisiblePoints,
     radius (N,) their radii, mats the resolve_mat_tables rows, events the
     photon walk's (ev_p, ev_wi, ev_beta, ev_live), lo / diag (3,) the grid
     box.  The sort runs in torch (deposit_inputs); the range walk is the
     kernel on CUDA tensors (its wide instance, which evaluates the Disney
     lobes, where `mats` holds a lobe outside pmk.BASE_KINDS: mats_wide)
-    and its plain version on CPU tensors."""
+    and its plain version on CPU tensors.  `wide`, mats_wide(mats) taken
+    once a render by a caller whose VPs come from a pack_sppm table (whose
+    material ids it checked against the rows), spares the kernel's launch
+    that choice and the check of the VPs' ids, each a read back to the
+    host (prepare_deposit)."""
     inp = deposit_inputs(vp, radius, events, lo, diag)
     if vp.p.device.type == "cpu":
         return deposit_walk_reference(vp, mats, inp)
-    return prepare_deposit(vp, mats, inp)()
+    return prepare_deposit(vp, mats, inp, wide)()
 
 
 def mats_wide(mats) -> bool:
@@ -477,9 +509,12 @@ def mats_wide(mats) -> bool:
     return bool((live & ~base).any())
 
 
-def prepare_deposit(vp, mats, inp):
+def prepare_deposit(vp, mats, inp, wide=None):
     """Check the CUDA inputs, build the outputs, and return launch() (the
-    range walk's phi and M; the wide instance where mats_wide(mats))."""
+    range walk's phi and M; the wide instance where `wide`).  With `wide`
+    None it is mats_wide(mats), and the VPs' material ids are checked
+    against the rows here; a caller that passes `wide` vouches for both
+    (deposit_mega), so that the launch reads nothing back to the host."""
     dev = vp.p.device
     if dev.type != "cuda":
         raise ValueError(f"the SPPM deposit kernel runs on cuda tensors, not {dev}")
@@ -491,11 +526,12 @@ def prepare_deposit(vp, mats, inp):
     _check(mats, (mats.shape[0], MAT_COLS), torch.float32, dev, "material rows")
     _check(inp.events, (inp.events.shape[0], EV_COLS), torch.float32, dev, "sorted events")
     mat = vp.mat.to(torch.int32).contiguous()
-    if bool((mat < 0).any()) or bool((mat >= mats.shape[0]).any()):
-        raise ValueError("VP material ids outside the material rows")
+    if wide is None:
+        if bool((mat < 0).any()) or bool((mat >= mats.shape[0]).any()):
+            raise ValueError("VP material ids outside the material rows")
+        wide = mats_wide(mats)
     phi = torch.empty((n, 3), dtype=torch.float32, device=dev)
     m = torch.empty((n,), dtype=torch.int32, device=dev)
-    wide = mats_wide(mats)
     lib = load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (int(wide), vp.p.data_ptr(), vp.wo.data_ptr(), vp.ng.data_ptr(), vp.dpdu.data_ptr(),
@@ -678,9 +714,10 @@ def camera_walk_reference(packed, o, d, weight, smp, max_depth, work=None):
 
 def sppm_photon_mega_reference(packed, ro, rd, beta, active, u_rows, max_depth, work=None):
     """Plain PyTorch version of `sppm_photon_mega` (same arguments and
-    return), on any device; `work` as for the camera walk, "slot" the
-    bounce and roulette uniforms read."""
-    geom = pmk.PlainGeometry(packed, ro.device, work)
+    return), on any device, over the kernel's geometry (the chunked walk,
+    or the node64 rows: PlainGeometry with `cull`); `work` as for the
+    camera walk, "slot" the bounce and roulette uniforms read."""
+    geom = pmk.PlainGeometry(packed, ro.device, work, cull=True)
     table = geom.table
     o, d, b = ro.unbind(-1), rd.unbind(-1), list(beta.unbind(-1))
     active = active.clone()
@@ -760,23 +797,121 @@ def deposit_walk_reference(vp, mats, inp, work=None):
         v = torch.nonzero(gate).squeeze(1)
         if not v.numel():
             continue
-        wi = tuple(c[v] for c in wi)
-        f = tuple(c[v] for c in f)
-        wl = tuple(c[v] for c in wl)
-        wil_x = wi[0] * f[0] + wi[1] * f[1] + wi[2] * f[2]
-        wil_y = wi[0] * f[3] + wi[1] * f[4] + wi[2] * f[5]
-        rows = mrow[v]
-        zero = torch.zeros_like(wil_x)
-        fr = [zero, zero, zero]
-        for l in range(max_lobes):
-            lob = pmk._lobe(rows, 16 + 16 * l)
-            lf = pmk._lobe_f(lob, *wl, wil_x, wil_y, wi_ng[v])
-            use = l < rows[:, 15]
-            pmk.tally_lobe(work, use, lob["kind"], pdf=False)
-            fr = [fr[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
+        fr = _lobe_sum(ev[v], tuple(c[v] for c in f), tuple(c[v] for c in wl), wi_ng[v], mrow[v],
+                       max_lobes, work)
         acc[v] = acc[v] + torch.stack([fr[c] * ev[v, 6 + c] for c in range(3)], -1)
     phi = torch.empty_like(acc)
     phi[order] = acc
     m_out = torch.empty_like(m)
     m_out[order] = m
+    return phi, m_out
+
+
+def _lobe_sum(ev, frame, wol, wi_ng, rows, max_lobes, work):
+    """f(wo, wi) of gated pairs, one a lane: the event rows ev (its wi in
+    columns 3-5), the VPs' shading frame (ss, ts), wo in it, wi . ng and
+    material rows; summed over each row's lobes in order (the kernel's
+    lobe loop)."""
+    wi = (ev[:, 3], ev[:, 4], ev[:, 5])
+    wil_x = wi[0] * frame[0] + wi[1] * frame[1] + wi[2] * frame[2]
+    wil_y = wi[0] * frame[3] + wi[1] * frame[4] + wi[2] * frame[5]
+    zero = torch.zeros_like(wil_x)
+    fr = [zero, zero, zero]
+    for l in range(max_lobes):
+        lob = pmk._lobe(rows, 16 + 16 * l)
+        lf = pmk._lobe_f(lob, *wol, wil_x, wil_y, wi_ng)
+        use = l < rows[:, 15]
+        pmk.tally_lobe(work, use, lob["kind"], pdf=False)
+        fr = [fr[c] + torch.where(use, lf[c], 0.0) for c in range(3)]
+    return fr
+
+
+def deposit_warp_walk(vp, mats, inp, work=None):
+    """The deposit kernel's walk on DepositInputs, warp by warp, in float32
+    on any device: its twin for the tests (csrc/sppm_megakernel.cu
+    sppm_deposit_kernel).  Lanes are the VPs in pixel order, pmk.WARP to a
+    warp, the last warp's lanes past N empty.  A lane whose range is empty
+    gets phi 0 and M 0 and reads nothing.  A warp's walking lanes read tiles
+    of WARP rows, each starting at the lowest row past the last tile that
+    one of their ranges holds.  In a tile each lane first tests the rows of
+    its own range in ascending order, counting M and adding 0 * beta for
+    each pair it does not shade, then adds f * beta for the pairs it shades,
+    in ascending order.  Returns (phi (N, 3), M (N,) int64), which equal
+    deposit_walk_reference's wherever the events' beta is finite.  `work`
+    gets the VP records read ("vp_read"), the event rows the warps read
+    ("row_read"), the (VP, event) pairs walked ("pair") and the lobe
+    passes the warps run ("shade_warp": per tile its busiest lane's shaded
+    pairs) beside the rows where some lane shades ("shade_union": what
+    one lobe pass per walked row would run)."""
+    dev = vp.p.device
+    n = vp.p.shape[0]
+    warp = pmk.WARP
+    n_warps = -(-n // warp)
+    lane_pad = n_warps * warp - n
+    first = torch.nn.functional.pad(inp.start.to(torch.int64), (0, lane_pad))
+    last = torch.nn.functional.pad(inp.end.to(torch.int64), (0, lane_pad))
+    walking = first < last
+    lanes = walking.reshape(n_warps, warp)
+    hi = torch.where(lanes, last.reshape(n_warps, warp), 0).amax(1)
+    pmk.tally(work, "vp_read", walking)
+    pmk.tally(work, "pair", torch.where(walking, last - first, 0))
+    w = torch.nonzero(walking).squeeze(1)  # the walking lanes, each a VP below N
+    s, e, wid = first[w], last[w], w // warp
+    # each walking warp's next tile: the lowest row at or past `row` that a range holds
+    big = int(hi.max()) + 1 if w.numel() else 1
+
+    def next_tile(row):
+        need = torch.where(e > row[wid], torch.maximum(s, row[wid]), big)
+        return torch.full((n_warps,), big, dtype=torch.int64, device=dev).scatter_reduce(
+            0, wid, need, "amin")
+
+    base = next_tile(torch.zeros((n_warps,), dtype=torch.int64, device=dev))
+    # the walking lanes' records: p, frame, wo in it, material row, radius^2
+    p = vp.p[w]
+    ng = vp.ng[w].unbind(-1)
+    frame = pmk.shading_frame(*ng, *vp.dpdu[w].unbind(-1))
+    wo = vp.wo[w].unbind(-1)
+    wol = (pmk._dot3(*wo, *frame[:3]), pmk._dot3(*wo, *frame[3:]), pmk._dot3(*wo, *ng))
+    mrow, r2 = mats[vp.mat[w]], inp.r2[w]
+    max_lobes = int(mats[:, 15].max())
+    acc = torch.zeros((w.shape[0], 3), dtype=torch.float32, device=dev)
+    m = torch.zeros((w.shape[0],), dtype=torch.int64, device=dev)
+    while w.numel():
+        live = base < hi
+        if not bool(live.any()):
+            break
+        pmk.tally(work, "row_read", torch.where(live, torch.clamp(hi - base, max=warp), 0))
+        shade = []
+        for r in range(warp):
+            k = base[wid] + r
+            v = torch.nonzero((s <= k) & (k < e)).squeeze(1)  # k < hi where a lane holds it
+            ev = inp.events[k[v]]
+            dd = [p[v, c] - ev[:, c] for c in range(3)]
+            d2 = dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
+            near = (d2 <= r2[v]) & (ev[:, 9] > 0.0)
+            g = tuple(c[v] for c in ng)
+            wo_z = wol[2][v]
+            wi_ng = ev[:, 3] * g[0] + ev[:, 4] * g[1] + ev[:, 5] * g[2]
+            gate = near & ((wi_ng * wo_z) > 0.0) & (wo_z != 0.0)
+            m[v] = m[v] + near
+            zero = v[~gate]
+            acc[zero] = acc[zero] + 0.0 * ev[~gate, 6:9]
+            shade.append((v[gate], ev[gate], wi_ng[gate]))
+        busiest = torch.zeros((w.shape[0],), dtype=torch.int64, device=dev)
+        for v, ev, wi_ng in shade:  # ascending rows: each lane's shaded pairs in order
+            if not v.numel():
+                continue
+            busiest[v] += 1
+            pmk.tally(work, "shade_union", torch.ones((1,), dtype=torch.int64).expand(
+                int(torch.unique(wid[v]).numel())))
+            fr = _lobe_sum(ev, tuple(c[v] for c in frame), tuple(c[v] for c in wol), wi_ng,
+                           mrow[v], max_lobes, work)
+            acc[v] = acc[v] + torch.stack([fr[c] * ev[:, 6 + c] for c in range(3)], -1)
+        pmk.tally(work, "shade_warp", torch.zeros((n_warps,), dtype=torch.int64,
+                                                  device=dev).scatter_reduce(0, wid, busiest,
+                                                                             "amax"))
+        base = torch.where(live, next_tile(base + warp), base)
+    phi = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    m_out = torch.zeros((n,), dtype=torch.int64, device=dev)
+    phi[w], m_out[w] = acc, m
     return phi, m_out

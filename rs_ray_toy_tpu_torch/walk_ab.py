@@ -3,12 +3,14 @@ path kernel's brute-force instances (K1) and BVH instances (K1 BVH), the
 Volpath kernel's brute-force (K6) and BVH instances (K6 BVH), the direct
 kernel's brute-force (K2) and BVH instances (K2 BVH), the wavefront
 loop's BVH closest and any hit (K3) and shaded closest hit (K3-shaded),
-the EWA texture tap (K7) and the SPPM camera walk (K8).
+the EWA texture tap (K7) and the SPPM camera walk (K8), photon walk (K9)
+and deposit (K10).
 
     python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR [--reps 10] [--out DIR] [--only k1bvh]
     python -m rs_ray_toy_tpu_torch.walk_ab --variant NAME [--only k3] ...
     python -m rs_ray_toy_tpu_torch.walk_ab --variant CONSTANT=VALUE [--only k2bvh,k6bvh] ...
     python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR --only k2,k3s
+    python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR --only k9,k10
     python -m rs_ray_toy_tpu_torch.walk_ab --counts [--device cpu] [--scale 4]
 
 DIR is a checkout of the other revision (e.g. `git archive` of the parent
@@ -36,14 +38,16 @@ for 5 resident blocks of 256 an SM), `tex_block256` (K7 alone in blocks of
 16-byte load from an RGBA copy of the pyramid, alone and inside K1),
 `tex_inline` (the tap inlined, not called, alone and inside K1) and
 `k8_capped` (K8 under the direct kernel's launch bound, 9 blocks of 128 an
-SM, every launch in blocks of 128); `CONSTANT=VALUE` a
+SM, every launch in blocks of 128) and `k10_sync_copies` (K10's tiles
+filled by loads that each lane waits for, not by asynchronous copies);
+`CONSTANT=VALUE` a
 copy whose one `constexpr` of that name, in the one kernel source that has
 it, takes VALUE: K2's instances, brute force and BVH, take
 `DIRECT_MIN_BLOCKS` (the launch bound's resident blocks), K6's BVH
 instances `VOL_BVH_MIN_BLOCKS`, both `_LEAF_PREFETCH` (e.g. `--variant
 VOL_BVH_MIN_BLOCKS=1`).  `--only` keeps
 the cases of some kernels: k1, k6, k3, k1bvh, k2bvh, k6bvh, k2, k3s, k7,
-k8.  Each tree builds the kernels
+k8, k9, k10.  Each tree builds the kernels
 of those cases; then a
 worker process runs under each tree in turns (the other revision, this
 tree, this tree, the other revision), so that both meet the card in the
@@ -94,9 +98,21 @@ camera walk (`smk.prepare_camera`, #9) on the first SPPM iteration of
 samples/scene_sppm.json, its glass and Disney fixtures (the wide
 instances), their 19,224-triangle grids (BVH) and a grid of 1,896
 triangles under brute force (sppm_job), and its rays-in twin (#10) on the
-walk's own lens rays; ld and every VP output compared.  Both groups also
-render warm through render_job (RENDERS: the textured fixture, the SPPM
-fixture; one render, then 5 timed) and compare the images.  The last line of the output is a
+walk's own lens rays; ld and every VP output compared.  K9 and K10, on
+the SPPM scenes of K8's cases: the photon walk (`smk.prepare_photon`, #11)
+on the first iteration's emitted photons, and the deposit
+(`smk.prepare_deposit`, #12) on the camera walk's VPs and those photons'
+events (deposit_inputs, the fixed radius), each timed as the card runs it
+(bare_ms: back-to-back calls of the ctypes entry point alone, queued
+behind a sleep of the device, over their count; the wrapper's outputs and
+casts stay out of the window), beside the kernel's own time by name from
+torch.profiler (profiled_ms) and the old window around the whole launch
+closure ("closure_ms"); their events (p, wi, beta, live) and phi and M
+compared, and also on surface_photons' seeded batch (the deposit on its
+first sixteenth, first_photons), as chip_smoke.py holds them.  The
+groups also render warm through render_job (RENDERS: the textured
+fixture under k7, the SPPM fixture under k8 and k9; one render, then 5
+timed) and compare the images.  The last line of the output is a
 JSON object: per case the four times in turn order, the other revision's
 output against this tree's (rays whose radiance channels, or whose t and
 triangle, are not all bit-equal; NaN equal to NaN), the K3 kernel each
@@ -133,6 +149,13 @@ the warps' longest scan, and for #1 T / #2 T the camera rays whose first
 hit taps EWA and the differential lens traces of the pass.  K8 (films
 divided by --scale): the chunked walk's counts as K2's, or the node64
 walk's as K1 BVH's, over the camera walk's plain version on every pixel.
+K9: the same over the photon walk's plain version on the first
+iteration's emitted photons and on the surface batch.  K10 (films divided
+by --scale): over the deposit's warp walk (smk.deposit_warp_walk) on that
+iteration's VPs and the emitted photons' events, the walking VPs, the
+pairs they walk, the event rows a walking warp reads and the lobe passes
+it runs (its busiest lane's shaded pairs a tile) beside one pass for each
+row where some lane shades.
 The last line is a JSON object of those numbers.
 """
 
@@ -212,17 +235,24 @@ K8_CASES = {"sppm_fixture": "fixture", "sppm_glass": "glass", "sppm_disney": "di
             "sppm_grid": "grid", "sppm_glass_grid": "glass_grid",
             "sppm_disney_grid": "disney_grid", "sppm_grid_brute": "grid_brute",
             "sppm_render": "render"}
+# K9 (#11) and K10 (#12): case -> the SPPM scene as sppm_job writes it;
+# "k9_render" the warm render of samples/scene_sppm.json (both kernels)
+K9_CASES = {f"k9_{c[5:]}": s for c, s in K8_CASES.items() if c != "sppm_render"}
+K9_CASES["k9_render"] = "render"
+K10_CASES = {f"k10_{c[5:]}": s for c, s in K8_CASES.items() if c != "sppm_render"}
 # the render cases: case -> the scene rendered warm through render_job
-RENDERS = {"k7_render": "scene_textured.json", "sppm_render": "scene_sppm.json"}
+RENDERS = {"k7_render": "scene_textured.json", "sppm_render": "scene_sppm.json",
+           "k9_render": "scene_sppm.json"}
 # --only: CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES, K6BVH_CASES,
-# K2_CASES, SHADED_CASES, K7_CASES, K8_CASES
-GROUPS = ("k1", "k6", "k3", "k1bvh", "k2bvh", "k6bvh", "k2", "k3s", "k7", "k8")
+# K2_CASES, SHADED_CASES, K7_CASES, K8_CASES, K9_CASES, K10_CASES
+GROUPS = ("k1", "k6", "k3", "k1bvh", "k2bvh", "k6bvh", "k2", "k3s", "k7", "k8", "k9", "k10")
 # the kernel sources each group's cases launch
 SOURCES = {"k1": ("path_megakernel",), "k6": ("volpath_megakernel",), "k3": ("bvh_kernel",),
            "k1bvh": ("path_megakernel",), "k2bvh": ("direct_megakernel",),
            "k6bvh": ("volpath_megakernel",), "k2": ("direct_megakernel",),
            "k3s": ("bvh_kernel",), "k7": ("texture_kernel", "path_megakernel"),
-           "k8": ("sppm_megakernel",)}
+           "k8": ("sppm_megakernel",), "k9": ("sppm_megakernel",),
+           "k10": ("sppm_megakernel",)}
 _RAY_LOADS = """  // the ray's loads issued together, ahead of the test of t_max
   const float tm = __ldg(t_max + i);
   const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
@@ -301,6 +331,9 @@ VARIANTS = {
          "None if tex is None else torch.nn.functional.pad(tex.pyr.data.view(-1, 3), "
          "(0, 1)).reshape(-1),"),
     ],
+    "k10_sync_copies": [("csrc/sppm_megakernel.cu",
+                         "__pipeline_memcpy_async(tile + w, src + w, sizeof(float2));",
+                         "tile[w] = __ldg(src + w);")],
     "k8_capped": [("csrc/sppm_megakernel.cu", "__launch_bounds__(SPPM_BLOCK_MAX)",
                    "__launch_bounds__(BLOCK, 9)")]
     + [("csrc/sppm_megakernel.cu", "choose_block(kernel, SPPM_BLOCK_MAX,",
@@ -638,12 +671,187 @@ def sppm_outputs(ld, vp):
                       vp.valid[:, None].float()], -1)
 
 
+def surface_photons(scene, n, depth, dev, seed=12):
+    """A seeded batch of photons, many of which deposit, made as
+    tests/test_torch_sppm.py makes its photons: half start inside a cube
+    whose material has a diffuse lobe (any cube where none has one),
+    within 0.8 of its inscribed ball so that each depth hits its inner
+    faces, in a random direction, half
+    outside (x in [26.2, 29.8], y and z in [-6, 6]) aimed at a random point
+    of any cube; 95% of them active; uniform bounce and roulette values.
+    The scene's triangles must be cube.obj instances, 12 rows each.
+    Returns (ro, rd, beta, active, u_rows) on `dev`."""
+    import numpy as np
+    import torch
+
+    from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
+
+    tri = scene.triangles
+    if tri.count % 12:
+        raise ValueError("the photon batch needs a scene of cubes")
+    verts = np.stack([tri.p0, tri.p1, tri.p2], 1).astype(np.float64).reshape(-1, 36, 3)
+    centre = verts.mean(1)
+    half = np.abs(((tri.p0[::12] - centre) * tri.ng[::12]).sum(-1))  # centre to a face
+    mats = scene.materials
+    diffuse = np.array([np.isin(mats["kind"][m, : mats["n_lobes"][m]], smk.DIFFUSE_KINDS).any()
+                        for m in tri.mat[::12]])
+    pool = np.nonzero(diffuse)[0] if diffuse.any() else np.arange(len(centre))
+    rng = np.random.default_rng(seed)
+    inside = np.arange(n) < n // 2
+    pick = np.where(inside, rng.choice(pool, n), rng.integers(0, len(centre), n))
+    c, h = centre[pick], half[pick, None]
+    off = rng.normal(size=(n, 3))
+    off *= 0.8 * h * rng.random((n, 1)) ** (1 / 3) / np.linalg.norm(off, axis=-1, keepdims=True)
+    outside = np.array([28.0, 0.0, 0.0]) + rng.uniform(-6.0, 6.0, (n, 3)) * [0.3, 1.0, 1.0]
+    ro = np.where(inside[:, None], c + off, outside)
+    target = c + 0.9 * h * rng.uniform(-1.0, 1.0, (n, 3))
+    rd = np.where(inside[:, None], rng.normal(size=(n, 3)), target - ro)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    beta = rng.uniform(1.0, 50.0, (n, 3))
+    active = rng.random(n) < 0.95
+    u_rows = rng.random((3 * (depth - 1), n))
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    return f32(ro), f32(rd), f32(beta), torch.as_tensor(active, device=dev), f32(u_rows)
+
+
+def first_photons(ev, depth, share):
+    """The depth-major events `ev` of the first 1/`share` of the photons."""
+    n = ev[3].shape[0] // (depth - 1)
+    return tuple(e.reshape(depth - 1, n, -1)[:, : n // share].reshape(-1, *e.shape[1:])
+                 for e in ev)
+
+
+def adversarial_deposit(mats, n=200, n_events=640, seed=5, dev="cpu"):
+    """Seeded adversarial inputs of the deposit's walk (VisiblePoints and
+    DepositInputs on `dev`; `mats` the material rows): the VPs and events
+    in a unit box, radius 0.35; lanes 0-31 with empty ranges but one;
+    lanes 32-63 with disjoint ranges of 1-5 events; lane 64 one range of
+    200 events beside short ones in its warp; the rest random ranges of
+    0-40 events, a tenth of them not valid (r^2 -1, an empty range); N =
+    200, so the last warp's lanes past N hold no VP; every material row
+    used; a tenth of the events dead (all zeros)."""
+    import numpy as np
+    import torch
+
+    from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
+
+    rng = np.random.default_rng(seed)
+
+    def unit(k):
+        v = rng.normal(size=(k, 3))
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    start = rng.integers(0, n_events - 40, n)
+    length = rng.integers(0, 41, n)
+    length[:32] = 0
+    length[17] = 3
+    start[32:64] = 5 * np.arange(32) + 10
+    length[32:64] = rng.integers(1, 6, 32)
+    start[64], length[64] = 300, 200
+    valid = rng.random(n) > 0.1
+    length[~valid] = 0
+    end = start + length
+    start, end = np.where(length > 0, start, 0), np.where(length > 0, end, 0)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    vp = smk.VisiblePoints(
+        p=f32(rng.random((n, 3))), wo=f32(unit(n)), beta=f32(rng.uniform(0.1, 2.0, (n, 3))),
+        mat=torch.as_tensor(rng.integers(0, mats.shape[0], n), device=dev), ng=f32(unit(n)),
+        dpdu=f32(np.where(rng.random((n, 1)) < 0.1, 0.0, unit(n))),
+        valid=torch.as_tensor(valid, device=dev))
+    live = (rng.random(n_events) > 0.1).astype(np.float32)
+    ev = np.concatenate([rng.random((n_events, 3)), unit(n_events),
+                         rng.uniform(0.5, 20.0, (n_events, 3)), live[:, None]], -1)
+    ev[live == 0, :9] = 0.0
+    i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)
+    inp = smk.DepositInputs(events=f32(ev), start=i32(start), end=i32(end),
+                            r2=f32(np.where(valid, 0.35 ** 2, -1.0)))
+    return vp, inp
+
+
+def sppm_iteration_inputs(job, dev):
+    """The first SPPM iteration of `job` up to the photon walk, as
+    render_sppm runs it, on `dev`: (packed, the camera walk's VPs, radius,
+    the emitted photons, the surface batch (surface_photons), the material
+    rows)."""
+    import torch
+
+    from rs_ray_toy_tpu_torch.integrators import sppm
+    from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
+
+    spec = job.integrator
+    packed, cam, pxy, u = sppm_inputs(job, dev)
+    _, vp = smk.sppm_camera_mega_cam(packed, cam, pxy, u, spec.max_depth)
+    radius = torch.full((pxy.shape[0],), spec.radius, dtype=torch.float32, device=dev)
+    lights = sppm.photon_lights(packed, job.scene.lights, dev)
+    n_ph = spec.photons_per_iter
+    ph = sppm.emit_photons(lights, torch.arange(n_ph, device=dev), spec.max_depth)
+    batch = surface_photons(job.scene, n_ph, spec.max_depth, dev)
+    return packed, vp, radius, ph, batch, smk.resolve_mat_tables(job.scene, dev)
+
+
+def bare_launch(launch):
+    """The ctypes call alone of an SPPM launch closure (ops/sppm_megakernel
+    _launcher): its `bare`, or, from a revision without it, its entry
+    point `fn` on `args` read from the closure."""
+    if hasattr(launch, "bare"):
+        return launch.bare
+    cells = dict(zip(launch.__code__.co_freevars, (c.cell_contents for c in launch.__closure__)))
+    fn, args = cells["fn"], cells["args"]
+    return lambda: fn(*args)
+
+
+def bare_ms(bare, count=200, reps=5):
+    """A kernel's device time as the card runs it: `count` back-to-back
+    calls of `bare` (the entry point alone, returning its error code)
+    between two CUDA events, queued behind a sleep of the device long enough
+    that the host's enqueue stays out of the window, over the count; the
+    median of `reps` such windows after a warm-up."""
+    import torch
+
+    for _ in range(3):
+        if bare() != 0:
+            raise RuntimeError("walk_ab: a bare launch failed")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(count * 50_000)  # ~25 us of the device a launch
+        start.record()
+        for _ in range(count):
+            bare()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    return statistics.median(times)
+
+
+def profiled_ms(bare, name, count=20):
+    """The mean device time of the kernels whose name holds `name` over
+    `count` calls of `bare`, by torch.profiler (CUPTI); None where the
+    profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(count):
+                bare()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if name in e.key]
+        n = sum(e.count for e in rows)
+        us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total for e in rows)
+    except RuntimeError:
+        return None
+    return us / n / 1e3 if n and us else None
+
+
 def worker(out, reps, only):
     """Every case of the groups `only` through the `rs_ray_toy_tpu_torch` on
     sys.path: writes <out>/<case>.pt (outputs) and <out>/times.json."""
     import torch
 
     from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+    from rs_ray_toy_tpu_torch.integrators import sppm
     from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
     from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
     from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
@@ -781,6 +989,59 @@ def worker(out, reps, only):
         torch.save({"out": launch().cpu()}, out / f"{case}.pt")
         record[case] = rec
         print(f"{case}: {rec}", flush=True)
+    def sppm_occupancy(**kw):
+        try:  # a revision that reports the photon walk's and the deposit's occupancy
+            return smk.occupancy(**kw)
+        except TypeError:
+            return None
+
+    def timed_bare(case, rec, launch, kernel):
+        bare = bare_launch(launch)
+        rec.update(ms=bare_ms(bare), kernel_ms=profiled_ms(bare, kernel),
+                   closure_ms=timed_ms(launch))
+        print(f"{case}: {rec}", flush=True)
+        record[case] = rec
+
+    def events_rows(ev):
+        return torch.cat([*ev[:3], ev[3][:, None].float()], -1).cpu()
+
+    sppm_scenes = dict.fromkeys(
+        [s for s in K9_CASES.values() if "k9" in only and s != "render"]
+        + [s for s in K10_CASES.values() if "k10" in only])
+    for scene in sppm_scenes:
+        job = sppm_job(scene, out / "scenes")
+        depth = job.integrator.max_depth
+        packed, vp, radius, ph, batch, mats = sppm_iteration_inputs(job, dev)
+        bvh, wide = packed.bvh is not None, smk.wide_lobes(packed)
+        launch = smk.prepare_photon(packed, *ph, depth)
+        ev = launch()
+        ev_batch = smk.prepare_photon(packed, *batch, depth)()
+        if "k9" in only:
+            torch.save({"events": events_rows(ev), "surface": events_rows(ev_batch)},
+                       out / f"k9_{scene}.pt")
+            timed_bare(f"k9_{scene}", dict(rays=ph[0].shape[0], bvh=bvh, live=int(ev[3].sum()),
+                                           occupancy=sppm_occupancy(kernel="photon", bvh=bvh,
+                                                                    wide=wide)),
+                       launch, "sppm_photon_kernel")
+        if "k10" not in only:
+            continue
+        lo, diag = sppm.grid_bounds(vp, radius)
+        saved = {}
+        for key, events in (("deposit", ev), ("surface", first_photons(ev_batch, depth, 16))):
+            inp = smk.deposit_inputs(vp, radius, events, lo, diag)
+            phi, m = smk.prepare_deposit(vp, mats, inp)()
+            saved[key] = torch.cat([phi, m[:, None].float()], -1).cpu()
+        torch.save(saved, out / f"k10_{scene}.pt")
+        inp = smk.deposit_inputs(vp, radius, ev, lo, diag)
+        walking = inp.end > inp.start
+        rec = dict(rays=vp.p.shape[0], walking=int(walking.sum()),
+                   pairs=int((inp.end - inp.start)[walking].sum()))
+        launch = smk.prepare_deposit(vp, mats, inp)
+        launch()
+        rec["occupancy"] = sppm_occupancy(kernel="deposit", wide=smk.mats_wide(mats))
+        timed_bare(f"k10_{scene}", rec, launch, "sppm_deposit_kernel")
+    if "k9" in only:
+        warm_render("k9_render")
     for case, scene in (K8_CASES.items() if "k8" in only else ()):
         if scene == "render":
             warm_render(case)
@@ -885,6 +1146,7 @@ def counts(dev, scale, only=GROUPS):
 
     from rs_ray_toy_tpu_torch.accel import traverse
     from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
+    from rs_ray_toy_tpu_torch.integrators import sppm
     from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
     from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
     from rs_ray_toy_tpu_torch.ops import sppm_megakernel as smk
@@ -973,6 +1235,47 @@ def counts(dev, scale, only=GROUPS):
         found[case] = dict(film=f"{job.film.xres}x{job.film.yres}",
                            rows=int(packed.table.shape[0]), **walk)
         print(f"{case}: {found[case]}", flush=True)
+    sppm_scenes = dict.fromkeys(
+        [s for s in K9_CASES.values() if "k9" in only and s != "render"]
+        + [s for s in K10_CASES.values() if "k10" in only])
+    for scene in sppm_scenes:
+        job = sppm_job(scene, out)
+        job.film.xres, job.film.yres = job.film.xres // scale, job.film.yres // scale
+        depth = job.integrator.max_depth
+        packed, vp, radius, ph, batch, mats = sppm_iteration_inputs(job, dev)
+        rows = int(packed.table.shape[0])
+        for key, photons in (("emitted", ph), ("surface", batch)):
+            if "k9" not in only:
+                break
+            work = {}
+            ev = smk.sppm_photon_mega_reference(packed, *photons, depth, work=work)
+            n = photons[0].shape[0]
+            walk = (step_counts(work, n) if packed.bvh is not None else
+                    dict(chunks=int(packed.chunks.shape[0]), **chunk_counts(work, n)))
+            found[f"k9_{scene}_{key}"] = dict(rows=rows, live_events=int(ev[3].sum()), **walk)
+            print(f"k9_{scene}_{key}: {found[f'k9_{scene}_{key}']}", flush=True)
+            if key == "emitted":
+                events = ev
+        if "k10" not in only:
+            continue
+        if "k9" not in only:
+            events = smk.sppm_photon_mega_reference(packed, *ph, depth)
+        lo, diag = sppm.grid_bounds(vp, radius)
+        inp = smk.deposit_inputs(vp, radius, events, lo, diag)
+        work = {}
+        smk.deposit_warp_walk(vp, mats, inp, work)
+        walking = inp.end > inp.start
+        lanes = torch.nn.functional.pad(walking, (0, -walking.numel() % pmk.WARP))
+        n_warps = int(lanes.reshape(-1, pmk.WARP).any(1).sum())
+        found[f"k10_{scene}"] = dict(
+            film=f"{job.film.xres}x{job.film.yres}", vps=vp.p.shape[0],
+            walking=int(walking.sum()), live_events=int(events[3].sum()),
+            pairs=float(work.get("pair", 0)), rows_read=float(work.get("row_read", 0)),
+            walking_warps=n_warps,
+            **{f"{k}_per_walking_warp": float(work.get(key, 0)) / n_warps if n_warps else None
+               for k, key in (("rows", "row_read"), ("pairs", "pair"), ("lobe_passes", "shade_warp"),
+                              ("lobe_passes_one_a_row", "shade_union"))})
+        print(f"k10_{scene}: {found[f'k10_{scene}']}", flush=True)
     walks = ([(c, b, a) for c, (b, a) in BVH_CASES.items() if b in ("ao_grid", "probe_chain")]
              if "k3" in only else []) + (
         [(c, b, False) for c, b in SHADED_CASES.items()] if "k3s" in only else [])
@@ -1077,7 +1380,8 @@ def main(argv=None):
              for n, k in turns}
     summary = {}
     groups = dict(zip(GROUPS, (CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES,
-                               K6BVH_CASES, K2_CASES, SHADED_CASES, K7_CASES, K8_CASES)))
+                               K6BVH_CASES, K2_CASES, SHADED_CASES, K7_CASES, K8_CASES,
+                               K9_CASES, K10_CASES)))
     for case in (c for g in only for c in groups[g]):
         ref = torch.load(out / "parent0" / f"{case}.pt")
         new = torch.load(out / "change0" / f"{case}.pt")
@@ -1090,8 +1394,9 @@ def main(argv=None):
         for key in ref:
             same = (ref[key] == new[key]) | (ref[key].isnan() & new[key].isnan())
             row[f"{key}_rays_apart"] = int((~same.all(-1)).sum())
-        if "rays_ms" in times["change0"][case]:
-            row["rays_ms"] = [times[f"{n}{k}"][case]["rays_ms"] for n, k in turns]
+        for key in ("rays_ms", "kernel_ms", "closure_ms"):
+            if key in times["change0"][case]:
+                row[key] = [times[f"{n}{k}"][case][key] for n, k in turns]
         if "rays_occupancy" in times["change0"][case]:
             row["rays_occupancy"] = times["change0"][case]["rays_occupancy"]
         summary[case] = row

@@ -32,6 +32,7 @@ import torch
 
 from rs_ray_toy_tpu_torch.accel import traverse
 from rs_ray_toy_tpu_torch.accel.bvh import build_bvh, pack_node64_tables, tree_depth
+from rs_ray_toy_tpu_torch.bsdf.lobes import LOBE_LAMBERT_REFL
 from rs_ray_toy_tpu_torch.camera.realistic import RealisticCamera
 from rs_ray_toy_tpu_torch.integrators import sppm
 from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
@@ -56,8 +57,9 @@ from rs_ray_toy_tpu_torch.scene.gen import (
 from rs_ray_toy_tpu_torch.scene import mipmap
 from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec, load_scene
 from rs_ray_toy_tpu_torch.scene.png import load_image
-from rs_ray_toy_tpu_torch.walk_ab import (k7_footprints, k7_pyramid, sppm_camera_rays,
-                                         sppm_outputs, tex_queries)
+from rs_ray_toy_tpu_torch.walk_ab import (adversarial_deposit, k7_footprints, k7_pyramid,
+                                         sppm_camera_rays, sppm_outputs, surface_photons,
+                                         tex_queries)
 
 SAMPLES = Path(__file__).resolve().parents[1] / "samples"
 pytestmark = pytest.mark.cuda
@@ -1569,3 +1571,130 @@ def test_sppm_camera_walk_refuses_malformed_tables(tmp_path):
     with pytest.raises(ValueError, match="node64"):
         smk.prepare_camera(packed._replace(bvh=packed.bvh._replace(nodes64=None)), cam, pxy, u,
                            depth)
+
+
+@pytest.mark.parametrize("case", ["fixture", "glass", "grid_brute", "grid8", "glass_grid8",
+                                  "one_leaf"])
+def test_sppm_photon_walk_on_chunks_and_node64(tmp_path, case):
+    """K9 (#11) on the chunked walk (brute force; the wide instance for
+    glass) or the node64 walk (a BVH, wide on the glass grid; one leaf:
+    root_count, no node64 row), one launch, on 4,096 seeded photons started
+    at the cubes (walk_ab.surface_photons), against its plain version,
+    which walks the same: the live flags equal and p, wi and beta at rtol
+    1e-4 on 99.5% of the photons, the bar of the other SPPM holds here
+    (torch's ops on the card differ from the kernel's in last bits, the
+    first hits included; walk_ab --parent holds every event bit-equal to
+    the walk this one replaced).  The one leaf's BVH instance and the
+    chunked instance over the same leaf-order rows test them in order:
+    bit-equal events.  And the launch's block."""
+    dev = _device()
+    job = (_sppm_job(tmp_path, True, "scene_sppm_glass.json") if case == "glass_grid8"
+           else _k8_job(tmp_path, case))
+    depth = job.integrator.max_depth
+    bvh = case in ("grid8", "glass_grid8", "one_leaf")
+    packed = smk.pack_sppm(job.scene, dev, bvh or None)
+    assert (packed.bvh is not None) == bvh and (packed.chunks is not None) != bvh
+    wide = smk.wide_lobes(packed)
+    assert wide == case.startswith("glass")
+    n_ph = 4096
+    ph = surface_photons(job.scene, n_ph, depth, dev)
+    sfx = "_bvh" * bvh + "_wide" * wide
+    before = dict(smk.LAUNCHES)
+    ev = smk.prepare_photon(packed, *ph, depth)()
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in smk.LAUNCHES.items() if v != before[k]} == {
+        f"sppm_photon_mega{sfx}": 1}
+    occ = smk.occupancy(bvh=bvh, wide=wide, kernel="photon")
+    assert occ["blocks_per_sm"] > 0 and occ["block"] % 32 == 0
+    ev_ref = smk.sppm_photon_mega_reference(packed, *ph, depth)
+    assert int(ev_ref[3].sum()) > n_ph // 8
+    assert float((ev[3] == ev_ref[3]).float().mean()) >= 0.995
+    same = ev[3] == ev_ref[3]
+    for k in range(3):
+        same &= torch.isclose(ev[k], ev_ref[k], rtol=1e-4, atol=1e-5).all(-1) | ~ev_ref[3]
+    assert float(same.reshape(depth - 1, n_ph).all(0).float().mean()) >= 0.995
+    if case != "one_leaf":
+        return
+    n = packed.table.shape[0]
+    assert packed.bvh.root_count == n == 12 and packed.bvh.nodes64.shape[0] == 0
+    tab = packed.table.cpu().numpy()
+    chunks = pmk.chunk_rows(pmk.build_tri_chunks(tab[:, 0:3], tab[:, 3:6], tab[:, 6:9], n))
+    brute = packed._replace(bvh=None, chunks=torch.as_tensor(chunks, device=dev))
+    for a, b in zip(ev, smk.prepare_photon(brute, *ph, depth)()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scene", ["scene_sppm.json", "scene_sppm_disney.json"])
+def test_sppm_deposit_warp_walk_matches_plain_version(tmp_path, scene):
+    """K10 (#12), base instance on the fixture's material rows and wide on
+    the Disney fixture's, on walk_ab.adversarial_deposit's inputs (empty
+    ranges, disjoint ranges in one warp, one of 200 events, lanes past N)
+    and on a 64x36 job's first iteration (its VPs and photon events):
+    against the plain range walk (deposit_walk_reference, on the card) and
+    the warp walk's float32 twin on the CPU, M equal, phi bit-equal on the
+    VPs of a material whose one lobe is lambert (the fixture's matte rows:
+    its f has no sampling function of torch's) and within 1e-5 relative
+    elsewhere (the lobes'
+    functions differ in last bits between the kernel and torch, as in
+    chip_smoke.py's holds); one launch each, and the launch's block."""
+    dev = _device()
+    mats = smk.resolve_mat_tables(load_scene(str(SAMPLES / scene)).scene, dev)
+    wide = smk.mats_wide(mats)
+    assert wide == (scene == "scene_sppm_disney.json")
+    lambert = (mats[:, 15] == 1) & (mats[:, 16] == LOBE_LAMBERT_REFL)
+    name = "sppm_deposit_mega" + "_wide" * wide
+
+    def held(phi, m, phi_ref, m_ref, vp):
+        assert torch.equal(m, m_ref) and bool(torch.isfinite(phi).all())
+        flat = lambert.to(phi.device)[vp.mat]
+        assert torch.equal(phi[flat], phi_ref[flat])
+        rel = ((phi - phi_ref).abs() / phi_ref.abs().clamp(min=1e-30)).max()
+        assert float(rel) <= 1e-5
+
+    vp, inp = adversarial_deposit(mats, dev=dev)
+    before = dict(smk.LAUNCHES)
+    phi, m = smk.prepare_deposit(vp, mats, inp)()
+    torch.cuda.synchronize()
+    assert smk.LAUNCHES[name] == before[name] + 1
+    occ = smk.occupancy(wide=wide, kernel="deposit")
+    assert occ["blocks_per_sm"] > 0 and occ["block"] % 32 == 0
+    assert occ["smem"] == occ["block"] * 2 * smk.EV_COLS * 4  # two tiles of rows a warp
+    assert int(m.sum()) > 100
+    assert bool(lambert[vp.mat][m > 0].any()) == (not wide)  # the fixture's matte rows
+    held(phi, m, *smk.deposit_walk_reference(vp, mats, inp), vp)
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
+    vp_cpu = smk.VisiblePoints(*map(cpu, vp))
+    held(phi.cpu(), m.cpu(), *smk.deposit_warp_walk(vp_cpu, mats.cpu(),
+                                                    smk.DepositInputs(*map(cpu, inp))), vp_cpu)
+
+    job = _sppm_job(tmp_path, scene=scene)
+    depth = job.integrator.max_depth
+    packed, cam, pxy, u = _sppm_inputs(job, dev, False)
+    _, vp = smk.sppm_camera_mega_cam(packed, cam, pxy, u, depth)
+    lights = sppm.photon_lights(packed, job.scene.lights, dev)
+    n_ph = job.integrator.photons_per_iter
+    ev = smk.sppm_photon_mega(packed, *sppm.emit_photons(lights, torch.arange(n_ph, device=dev),
+                                                          depth), depth)
+    ev = tuple(torch.cat([a, b]) for a, b in zip(ev, smk.sppm_photon_mega(
+        packed, *surface_photons(job.scene, n_ph, depth, dev), depth)))
+    radius = torch.full((pxy.shape[0],), job.integrator.radius, device=dev)
+    lo, diag = sppm.grid_bounds(vp, radius)
+    inp = smk.deposit_inputs(vp, radius, ev, lo, diag)
+    phi, m = smk.prepare_deposit(vp, mats, inp, wide)()
+    assert int(m.sum()) > 0
+    held(phi, m, *smk.deposit_walk_reference(vp, mats, inp), vp)
+
+
+def test_sppm_photon_walk_refuses_malformed_tables(tmp_path):
+    """K9 without its chunk rows, or over a BVH without its node64 rows,
+    raises: it never falls back to another walk or to the plain version."""
+    dev = _device()
+    job = _sppm_job(tmp_path)
+    depth = job.integrator.max_depth
+    ph = surface_photons(job.scene, 256, depth, dev)
+    packed = smk.pack_sppm(job.scene, dev)
+    with pytest.raises(ValueError, match="chunk rows"):
+        smk.prepare_photon(packed._replace(chunks=None), *ph, depth)
+    packed = smk.pack_sppm(job.scene, dev, True)
+    with pytest.raises(ValueError, match="node64"):
+        smk.prepare_photon(packed._replace(bvh=packed.bvh._replace(nodes64=None)), *ph, depth)
