@@ -305,6 +305,38 @@ Phase 15 K3's node64 walk and K6's brute force on the chunked walk: (a)
          quarter (consecutive rays: per ray MT and chunk box tests, per
          warp of 32 the chunks and rows it runs against the walk over every
          row's; walk_ab.chunk_counts).
+Phase 16 the wavefront Volpath loop, filtered films and 3x3 grids: (a)
+         scene.gen.write_interface_scene (the fog fixture's first cube
+         smooth glass holding a homogeneous medium through its
+         medium_interface, the bench's sphere light among the cubes) at
+         640x360x16 and (b) the 19,224-triangle grid of
+         samples/scene_sphere_area.json (two spheres, a sphere light) in
+         the fog fixture's camera medium at 640x360x8, through
+         deploy_render: announced on stderr with the Volpath kernel's
+         refusal, no Volpath-kernel launch, the loop's queries K4 (a) or K3
+         closest, any and shaded hit (b), each launched once a query
+         (max_depth x 3 + 1 a pass: the shaded hit, the shadow ray and the
+         scattering sample a bounce), the image and the PNG, first and warm
+         Mrays/s and the peak device memory; the loop on the card against
+         the same on the CPU on a seeded 64th of one pass's camera rays at
+         the per-ray bar, at least 1,000 lit rays; each query
+         kernel held to its plain version as in 7 on a seeded sixteenth of
+         the first pass's camera rays (the closest hit too) and first
+         shadow rays and timed there, K3's closest hit also timed on the
+         first scattering samples (live only where aimed at the light); one
+         warm render of (a) under torch.profiler: the device's busy share
+         and its top kernels; (c) samples/scene_fog.json under a 16-sample
+         HaltonSampler at 160x90 through the loop (announced), held card
+         against CPU on a sixteenth; (d) samples/scene.json with a
+         GaussianFilter (radius 2, alpha 2) through the path kernel and
+         samples/scene_debug.json with a TriangleFilter (radius 2) through
+         the direct kernel, each at 640x360x16 through deploy_render, one
+         kernel launch a pass, rendered again: the two films bit-equal; the
+         footprint add's ms a pass (film.add_samples at p_film, the film
+         jitter drawn outside the kernel) beside the kernel's, the jitter's and
+         the aligned add's; (e) samples/scene.json (Path, announced) and
+         samples/scene_ao.json (AO) under a 3x3 StratifiedSampler at
+         640x360x9 through the wavefront loop over K4.
 
 Every driven main path starts with all launch counts at 0 and must show
 the launches of its kernels (one per pass, or per query of the wavefront
@@ -419,6 +451,8 @@ from rs_ray_toy_tpu_torch.integrators import sppm
 from rs_ray_toy_tpu_torch.integrators.common import SceneCtx
 from rs_ray_toy_tpu_torch.integrators.direct import li_levels
 from rs_ray_toy_tpu_torch.integrators.path import li_path
+from rs_ray_toy_tpu_torch.integrators.volpath import li_volpath
+from rs_ray_toy_tpu_torch.film import film as fmod
 from rs_ray_toy_tpu_torch.ops import _build
 from rs_ray_toy_tpu_torch.ops import bvh_kernel as bk
 from rs_ray_toy_tpu_torch.ops import direct_megakernel as dmk
@@ -430,6 +464,7 @@ from rs_ray_toy_tpu_torch.ops import volpath_megakernel as vmk
 from rs_ray_toy_tpu_torch.render import (
     camera_rays,
     deploy_render,
+    film_points,
     make_sampler,
     pass_spp,
     render_job,
@@ -440,6 +475,7 @@ from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
 from rs_ray_toy_tpu_torch.scene.gen import (
     THIN_FOG,
     write_fog_scene,
+    write_interface_scene,
     write_grid_fog_scene,
     write_deep_bvh_scene,
     write_grid_scene,
@@ -455,8 +491,8 @@ from rs_ray_toy_tpu_torch.accel import traverse
 from rs_ray_toy_tpu_torch.accel.bvh import SHADE_COLS_FLAT, SHADE_COLS_SMOOTH
 from rs_ray_toy_tpu_torch.walk_ab import (aimed_rays, bare_launch, bare_ms, chunk_counts,
                                          first_pass_batches, first_photons, surface_photons,
-                                         k7_footprints, sppm_camera_rays, sppm_inputs,
-                                         tex_queries)
+                                         k7_footprints, recording_ctx, sppm_camera_rays,
+                                         sppm_inputs, tex_queries)
 
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "samples" / "scene.json"
@@ -1153,6 +1189,10 @@ def main():
     # ---- phase 15: K3's node64 walk; K6's brute force on the chunked walk ----
     node64_phase(record, kernels, card, dev)
     chunked_volpath_phase(record, kernels, card, dev)
+
+    # ---- phase 16: the wavefront Volpath loop; filtered films; 3x3 grids ----
+    volpath_wavefront_phase(record, card, dev)
+    film_grid_phase(record, card, dev)
 
     lines = [kernels[name] for name in KERNELS]
     record["kernels"] = lines
@@ -2320,20 +2360,20 @@ def materials_phase(record, kernels, card, dev):
           f"[{card}]")
 
 
-def drive_announced(scene, png, tag, want=("intersect",)):
-    """deploy_render of a Path scene the path kernel rejects, counts at 0
-    before: it must announce the wavefront loop on stderr and launch the
-    intersection kernels `want`, each at least once, and no other.
-    Returns (result, coloured pixels, counts)."""
+def drive_announced(scene, png, tag, want=("intersect",), spp_override=None, reason=""):
+    """deploy_render of a scene its fused kernel rejects, counts at 0
+    before: it must announce the wavefront loop on stderr (naming
+    `reason`) and launch the intersection kernels `want`, each at least
+    once, and no other.  Returns (result, coloured pixels, counts)."""
     zero_counts()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        res = deploy_render(str(scene), str(png))
+        res = deploy_render(str(scene), str(png), spp_override=spp_override)
     counts = all_counts()
     rgb = res["rgb_srgb_input"]
     colored = int((rgb.sum(-1) > 0).sum())
-    check(res["render_path"] == "wavefront" and "wavefront loop" in err.getvalue(),
-          f"{tag}: not announced on the wavefront loop")
+    check(res["render_path"] == "wavefront" and "wavefront loop" in err.getvalue()
+          and reason in err.getvalue(), f"{tag}: not announced on the wavefront loop")
     check(bool(torch.isfinite(rgb).all()) and colored > 0, f"{tag}: image")
     check(all(counts[k] > 0 for k in want) and sum(counts.values()) == sum(counts[k] for k in want),
           f"{tag} launches {counts}")
@@ -2678,11 +2718,11 @@ def smooth_glass(cfg):
             mat["u_roughness"] = mat["v_roughness"] = 0.0
 
 
-def levels_card_vs_cpu(job, dev, stride, tag):
-    """The wavefront li_levels on the card against the same on the CPU, on
-    a seeded 1/`stride` of one pass's camera rays: the per-ray bar (under
-    0.5% past 1e-3 relative, means within 3e-3) on at least 1,000 lit rays,
-    the shares over the lit rays reported."""
+def levels_card_vs_cpu(job, dev, stride, tag, li=li_levels):
+    """The wavefront li_levels (or `li`, li_volpath) on the card against
+    the same on the CPU, on a seeded 1/`stride` of one pass's camera rays:
+    the per-ray bar (under 0.5% past 1e-3 relative, means within 3e-3) on
+    at least 1,000 lit rays, the shares over the lit rays reported."""
     sampler = make_sampler(job)
     cam = RealisticCamera(job.camera, job.film, device=dev)
     pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
@@ -2691,11 +2731,11 @@ def levels_card_vs_cpu(job, dev, stride, tag):
     sub = sub.sort().values.to(dev)
     o, d, w = camera_rays(cam, sampler, pxy[sub], pid[sub], soff[sub])
     args = (o, d, w, sampler, pid[sub], soff[sub], job.integrator)
-    l_card = li_levels(SceneCtx.from_scene(job.scene, dev), *args)
+    l_card = li(SceneCtx.from_scene(job.scene, dev), *args)
     torch.cuda.synchronize()
     cpu = torch.device("cpu")
     t_cpu = time.perf_counter()
-    l_cpu = li_levels(SceneCtx.from_scene(job.scene, cpu), *(
+    l_cpu = li(SceneCtx.from_scene(job.scene, cpu), *(
         a.cpu() if torch.is_tensor(a) else a for a in args))
     cpu_s = time.perf_counter() - t_cpu
     l_card, l_cpu = l_card.cpu().double(), l_cpu.double()
@@ -3278,6 +3318,205 @@ def chunked_volpath_phase(record, kernels, card, dev):
               f"{h['counts']['mt_brute_warp_per_warp']:.1f} ({h['counts']['warp_row_share']:.1%})"
               for tag, h in held.items())
           + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+# ---- phase 16: the wavefront Volpath loop, filtered films, 3x3 grids ----
+
+
+def loop_queries(spec, scatter):
+    """The wavefront Volpath loop's queries a pass: each of max_depth
+    bounces the shaded closest hit, the shadow ray and, when some light
+    is not delta, the scattering sample's closest hit; and the last
+    step's shaded closest hit."""
+    return spec.max_depth * (3 if scatter else 2) + 1
+
+
+def volpath_batches(job, dev):
+    """The first pass of the wavefront Volpath render of `job` with a
+    recording context: its context and first batch of each query."""
+    sampler = make_sampler(job)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    ctx = recording_ctx(SceneCtx.from_scene(job.scene, dev))
+    pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    li_volpath(ctx, o, d, w, sampler, pid, soff, job.integrator)
+    torch.cuda.synchronize()
+    return ctx, ctx.batches
+
+
+def profiled_render(job, dev, top=6):
+    """One warm render of `job` under torch.profiler: the device's busy
+    share of the render's window and its top kernels (profile_render)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rs_ray_toy_tpu_torch.profile_render import device_kernels
+
+    window_ms = render_job(job, dev)["elapsed_s"] * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render_job(job, dev)
+    ks = device_kernels(prof)
+    busy_ms = sum(us for _, us in ks.values()) / 1e3
+    ranked = sorted(ks.items(), key=lambda kv: -kv[1][1])[:top]
+    return dict(render_ms=window_ms, busy_ms=busy_ms, busy_share=busy_ms / window_ms,
+                top=[(name[:60], n, us / 1e3) for name, (n, us) in ranked])
+
+
+def volpath_wavefront_phase(record, card, dev):
+    """Phase 16a-c (see the module docstring)."""
+    iface = write_interface_scene(str(OUT / "interface"), area_light=True)
+    grid = write_grid_scene(str(OUT / "grid_fog_spheres"), base=str(SCENE_SPHERE_AREA),
+                            integrator="Volpath")
+    cfg = json.loads(Path(grid).read_text())
+    cfg["Camera"]["medium"] = dict(THIN_FOG)
+    Path(grid).write_text(json.dumps(cfg))
+    halton = write_variant(str(SCENE_FOG), str(OUT / "fog_halton"), 160, 90,
+                           {"sampler_type": "HaltonSampler", "nsamp": 16})
+    bvh_keys = {"shaded": "bvh_shaded", "occluded": "bvh64_any", "closest": "bvh64_closest"}
+    for step, tag, scene, spp, stride, reason in (
+        ("16a", "interface", iface, None, 64, "medium_interface"),
+        ("16b", "grid_fog_spheres", grid, 8, 64, "sphere primitives"),
+        ("16c", "fog_halton", halton, None, 16, "HaltonSampler"),
+    ):
+        t1 = time.perf_counter()
+        job = load_scene(str(scene))
+        if spp == 8:
+            job.sampler.xsamp, job.sampler.ysamp = 2, 4
+        bvh = job.scene.triangles.count > 256
+        want = tuple(bvh_keys.values()) if bvh else ("intersect",)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, colored, counts = drive_announced(scene, OUT / f"chip_smoke_{tag}.png", step, want,
+                                               spp_override=spp, reason=reason)
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(res["fused_kernel"] is None and res["bvh"] == bvh, f"{step}: {res}")
+        scatter = bool((job.scene.lights.kind > 1).any())
+        per_pass = loop_queries(job.integrator, scatter)
+        if bvh:
+            check(counts["bvh_shaded"] == res["passes"] * (job.integrator.max_depth + 1)
+                  and counts["bvh64_any"] == res["passes"] * job.integrator.max_depth
+                  and counts["bvh64_closest"] == res["passes"] * job.integrator.max_depth,
+                  f"{step}: launches {launched(counts)}")
+        else:
+            check(counts["intersect"] == res["passes"] * per_pass,
+                  f"{step}: {counts['intersect']} K4 launches for {res['passes']} pass(es) of "
+                  f"{per_pass} queries")
+        check(colored > 0.5 * job.film.xres * job.film.yres, f"{step}: {colored} coloured px")
+        warm = render_job(job, dev)["mrays_per_s"]
+        bar = levels_card_vs_cpu(job, dev, stride, step, li=li_volpath)
+        out = dict(passes=res["passes"], launches=launched(counts), colored=colored,
+                   first_mrays_per_s=res["mrays_per_s"], warm_mrays_per_s=warm,
+                   render_s=res["elapsed_s"], peak_bytes=peak, card_vs_cpu=bar)
+        queries = ""
+        if step != "16c":
+            ctx, batches = volpath_batches(job, dev)
+            cam_batch, shadow = batches["shaded"], batches["occluded"]
+            if bvh:
+                # the scattering samples' closest hits live only where a ray
+                # is aimed at the sphere light: held on the camera rays,
+                # timed on the loop's own first batch of them
+                held = dict(shaded=hold_query("shaded", ctx, cam_batch),
+                            occluded=hold_query("any", ctx, shadow),
+                            closest=hold_query("closest", ctx, cam_batch))
+                held["closest"]["scatter_batch_ms"] = timed_ms(
+                    bk.prepare_launch(ctx.bvh, *batches["closest"], False), reps=10)
+            else:
+                held = dict(shaded=hold_query("intersect", ctx, cam_batch),
+                            occluded=hold_query("intersect", ctx, shadow))
+            out["queries"] = held
+            queries = "; first batches (camera rays; shadow rays): " + ", ".join(
+                f"{k} {h['rays']} rays {h['ms']:.3f} ms (wrapper {h['wrapper_ms']:.3f}, bound "
+                f"{h['bound_ms']:.4f} by {h['bound_by']})" for k, h in held.items())
+            if bvh:
+                queries += (f", closest on the first scattering samples "
+                            f"{held['closest']['scatter_batch_ms']:.3f} ms")
+        if step == "16a":
+            out["profile"] = prof = profiled_render(job, dev)
+            check(prof["busy_ms"] > 0, f"16a: the profiler saw no device time: {prof}")
+            queries += (f"; profiled warm render {prof['render_ms']:.1f} ms, device busy "
+                        f"{prof['busy_share']:.1%}, top " + ", ".join(
+                            f"{n} x{c} {ms:.1f} ms" for n, c, ms in prof["top"]))
+        out["phase_s"] = time.perf_counter() - t1
+        record[f"phase{step}"] = out
+        print(f"phase {step}: Volpath, {Path(scene).name} {job.film.xres}x{job.film.yres}x"
+              f"{res['camera_rays'] // (job.film.xres * job.film.yres)} through the wavefront loop "
+              f"(announced: {reason}): {res['passes']} pass(es), launches {launched(counts)} "
+              f"({per_pass} queries a pass), {colored} coloured px, first "
+              f"{res['mrays_per_s']:.2f} / warm {warm:.2f} camera Mrays/s, peak "
+              f"{peak / 2**30:.2f} GiB; li_volpath on the card vs the CPU on 1/{stride} of a pass: "
+              f"{card_cpu_line(bar)}, mean {bar['mean']:.6g} vs {bar['mean_ref']:.6g} (CPU "
+              f"{bar['cpu_s']:.1f} s){queries}; {out['phase_s']:.1f} s [{card}]")
+
+
+def film_grid_phase(record, card, dev):
+    """Phase 16d-e (see the module docstring)."""
+    for tag, base, kernel, fused, mod, filt in (
+        ("gauss_path", SCENE, "path_mega_cam", "path", pmk,
+         {"filter_type": "GaussianFilter", "radius": [2.0, 2.0], "alpha": 2.0}),
+        ("triangle_debug", SCENE_DEBUG, "direct_mega_cam", "direct", dmk,
+         {"filter_type": "TriangleFilter", "radius": [2.0, 2.0]}),
+    ):
+        t1 = time.perf_counter()
+        scene = write_variant(str(base), str(OUT / tag))
+        cfg = json.loads(Path(scene).read_text())
+        cfg["Film"]["Filter"] = filt
+        Path(scene).write_text(json.dumps(cfg))
+        res, colored, launches = drive(scene, OUT / f"chip_smoke_{tag}.png", kernel, fused)
+        job = load_scene(scene)
+        again = render_job(job, dev)
+        same = (torch.equal(res["film"].xyz, again["film"].xyz)
+                and torch.equal(res["film"].weight, again["film"].weight))
+        check(same, f"16d {tag}: two renders' films differ")
+        fn, _, pack = PASSES[mod]
+        sampler = make_sampler(job)
+        packed = pack(job.scene, dev)
+        cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+        pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+        args = (packed, cam, pxy, pid, soff, sampler, job.integrator)
+        l, w = fn(*args)
+        p_film = film_points(sampler, pxy, pid, soff)
+        box = copy.copy(job.film)
+        box.filter_type, box.filter_radius = "BoxFilter", np.array([0.5, 0.5])
+        times = dict(
+            kernel_ms=timed_ms(mod.prepare_launch(*args), reps=10),
+            jitter_ms=timed_ms(lambda: film_points(sampler, pxy, pid, soff)),
+            add_ms=timed_ms(lambda: fmod.add_samples(fmod.make_film(job.film, dev), job.film,
+                                                     p_film, l, w)),
+            aligned_add_ms=timed_ms(lambda: fmod.add_samples(fmod.make_film(box, dev), box, pxy,
+                                                             l, w)),
+        )
+        warm = [render_job(job, dev)["mrays_per_s"] for _ in range(2)]
+        record[f"phase16d_{tag}"] = dict(launches=launches, colored=colored, bit_equal=same,
+                                         first_mrays_per_s=res["mrays_per_s"],
+                                         warm_mrays_per_s=warm, **times,
+                                         phase_s=time.perf_counter() - t1)
+        print(f"phase 16d: {Path(base).name} with a {filt['filter_type']} of radius 2 "
+              f"640x360x16 through {kernel}: {res['passes']} pass(es), {launches} launch(es), "
+              f"{colored} coloured px, two renders' films bit-equal; first "
+              f"{res['mrays_per_s']:.2f} / warm {', '.join(f'{m:.1f}' for m in warm)} Mrays/s; "
+              f"a pass: kernel {times['kernel_ms']:.3f} ms, film jitter {times['jitter_ms']:.3f} "
+              f"ms, footprint add {times['add_ms']:.3f} ms (the aligned add "
+              f"{times['aligned_add_ms']:.3f} ms); {time.perf_counter() - t1:.1f} s [{card}]")
+    grid3 = {"sampler_type": "StratifiedSampler", "xsamp": 3, "ysamp": 3, "jitter": True}
+    for tag, base in (("path_3x3", SCENE), ("ao_3x3", SCENE_AO)):
+        t1 = time.perf_counter()
+        scene = write_variant(str(base), str(OUT / tag), sampler=grid3)
+        job = load_scene(scene)
+        png = OUT / f"chip_smoke_{tag}.png"
+        if tag == "ao_3x3":
+            res, colored, counts = drive_wavefront(
+                scene, png, {"intersect": 1 + job.integrator.n_samples})
+        else:
+            res, colored, counts = drive_announced(scene, png, "16e", reason="power of two only")
+        check(res["camera_rays"] == job.film.xres * job.film.yres * 9 and res["passes"] == 1,
+              f"16e {tag}: {res['camera_rays']} rays in {res['passes']} passes")
+        warm = render_job(job, dev)["mrays_per_s"]
+        record[f"phase16e_{tag}"] = dict(launches=launched(counts), colored=colored,
+                                         first_mrays_per_s=res["mrays_per_s"],
+                                         warm_mrays_per_s=warm,
+                                         phase_s=time.perf_counter() - t1)
+        print(f"phase 16e: {Path(base).name} under a 3x3 StratifiedSampler 640x360x9 through "
+              f"the wavefront loop: {res['passes']} pass, launches {launched(counts)}, "
+              f"{colored} coloured px, first {res['mrays_per_s']:.2f} / warm {warm:.2f} camera "
+              f"Mrays/s; {time.perf_counter() - t1:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

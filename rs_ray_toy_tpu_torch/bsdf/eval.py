@@ -793,7 +793,14 @@ def bsdf_sample(params, fr, wo_w, u, flags=BXDF_ALL):
     match = torch.stack([_matches(lob, l, n_lob, flags)[0] for l, lob in enumerate(lobs)], -1)
     matching = match.sum(-1)
     comp = torch.minimum((u0 * matching).to(torch.int64), matching)
-    cum = torch.cumsum(match.to(torch.int64), -1)
+    # the running count of matching lobes: a scan over the few lobe
+    # columns, one add each (a cumsum over a short innermost dim is slow on
+    # a card)
+    running, cums = torch.zeros_like(n_lob), []
+    for l in range(slots):
+        running = running + match[:, l]
+        cums.append(running)
+    cum = torch.stack(cums, -1)
     chosen = torch.argmax(((cum == (comp + 1)[:, None]) & match).to(torch.int64), -1)
     u0r = torch.clamp(u0 * matching - comp.to(DTYPE), max=ONE_MINUS_EPSILON)
     lob = {k: (tuple(_take(c, chosen) for c in zip(*(lb[k] for lb in lobs)))

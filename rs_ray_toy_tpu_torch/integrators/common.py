@@ -13,6 +13,12 @@ force in plain torch and min-combined with the triangle winner
 `intersect_shaded` and `occluded` alike.  On CPU tensors the kernels'
 plain versions answer.
 
+For Volpath the context also holds the packed media (scene/medium
+.pack_mediums, None without media), the camera medium's id, each
+triangle's and sphere's medium_interface ids (`prim_media`) and the
+lights' power distribution (Distribution1D over lights.power, float32 on
+the device, as the JAX SceneCtx builds it).
+
 `estimate_direct`, `uniform_sample_one_light` and
 `uniform_sample_all_lights` are integrator/mod.rs:304-558 in batched form: the light-sampling branch with its power-
 heuristic MIS weight (1 for delta lights), and for scenes with
@@ -29,7 +35,7 @@ import torch
 from ..accel import geometry as geom
 from ..bsdf import eval as beval
 from ..config import DTYPE, SHADOW_EPSILON
-from ..core.sampling import power_heuristic
+from ..core.sampling import Distribution1D, power_heuristic
 from ..core.spectrum import luminance
 from ..core.vec import div, dot
 from ..lights import lights as lmod
@@ -37,7 +43,8 @@ from ..ops import bvh_kernel as bk
 from ..ops import intersect_kernel as ik
 from ..bsdf.lobes import MAX_LOBES
 from ..ops.path_megakernel import _resolve_mat_arrays, fill_lobe_columns
-from ..scene.types import LIGHT_INFINITE
+from ..scene import medium as med
+from ..scene.types import LIGHT_INFINITE, has_interfaces, media_rows
 
 BRUTE_FORCE_CUTOFF = 256  # accel/bvh.py: brute force up to here
 
@@ -80,9 +87,17 @@ class SceneCtx:
     bvh: K3's tables (ops/bvh_kernel; with the 31 smooth shade columns,
     which the shaded kernel's smooth instance reads, when any triangle has
     vertex normals) or None for brute force, bssrdf: bssrdf_tables or
-    None.  `from_scene` builds them from a loaded scene."""
+    None; mediums, camera_medium, prim_media ({"tri": (T, 2), "sph": (S, 2)}
+    int64 [med_in, med_out], -1 for none; None: no interface) and
+    light_dist as the module docstring says.  `from_scene` builds them
+    from a loaded scene."""
 
-    def __init__(self, tri_packed, shade, mat_rows, lights, bvh=None, bssrdf=None):
+    def __init__(self, tri_packed, shade, mat_rows, lights, bvh=None, bssrdf=None,
+                 mediums=None, camera_medium=-1, prim_media=None, light_dist=None):
+        self.mediums = mediums
+        self.camera_medium = camera_medium
+        self.prim_media = prim_media
+        self.light_dist = light_dist
         self.tri_packed = tri_packed
         self.bssrdf = bssrdf
         self.shade = shade
@@ -113,7 +128,30 @@ class SceneCtx:
             lights=lmod.scene_lights(scene, device),
             bvh=bk.pack_bvh(tri, device) if tri.count > BRUTE_FORCE_CUTOFF else None,
             bssrdf=bssrdf_tables(scene.materials, device),
+            mediums=med.pack_mediums(scene.mediums, device) if scene.mediums else None,
+            camera_medium=scene.camera_medium,
+            prim_media=prim_media(tri, scene.spheres, device),
+            light_dist=(Distribution1D(lmod.power(scene.lights)).as_device(device)
+                        if scene.lights.count else None),
         )
+
+    def medium_interfaces(self, hit):
+        """(med_in, med_out) of each hit primitive, -1 where it has no
+        interface or there is no hit (the JAX li_volpath's lookup by
+        hit.kind and hit.index)."""
+        none = torch.full_like(hit.index, -1)
+        if self.prim_media is None:
+            return none, none
+        out = []
+        for side in (0, 1):
+            m = none
+            for kind, key in ((geom.PRIM_TRI, "tri"), (geom.PRIM_SPHERE, "sph")):
+                table = self.prim_media[key]
+                if table.shape[0]:
+                    row = table[hit.index.clamp(0, table.shape[0] - 1), side]
+                    m = torch.where(hit.valid & (hit.kind == kind), row, m)
+            out.append(m)
+        return tuple(out)
 
     def _no_hit(self, o):
         n = o.shape[0]
@@ -195,6 +233,15 @@ class SceneCtx:
 
     def frame(self, si):
         return beval.make_frame(si.ns, si.ng, si.dpdu)
+
+
+def prim_media(tri, sph, device):
+    """SceneCtx's prim_media of a triangle and a sphere SoA (or None for
+    no spheres), or None when no primitive has an interface."""
+    if not has_interfaces(tri, sph):
+        return None
+    return {"tri": torch.as_tensor(media_rows(tri), device=device),
+            "sph": torch.as_tensor(media_rows(sph), device=device)}
 
 
 def shadow_unoccluded(ctx, si, p_light):

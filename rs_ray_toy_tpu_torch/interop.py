@@ -14,7 +14,9 @@ photon lights and rays); `from_jax_scene_ctx` builds the wavefront
 loop's SceneCtx from a JAX SceneCtx's triangle and sphere SoAs (smooth
 vertex normals included), packed triangles, material table (with each
 lobe's scale and distribution code, and the BSSRDF profiles), lights,
-environments and (optionally) its BVH kernel tables; `sampler_from_jax`
+environments, media (its packed medium table, camera medium, each
+triangle's and sphere's interface ids and the lights' power
+distribution) and (optionally) its BVH kernel tables; `sampler_from_jax`
 builds the port's HaltonSampler with a JAX HaltonSampler's spec and
 seed; `registry_from_jax` the texture registry of a JAX loader's (its
 records' kinds, UV mapping and scale, and each image's exact MIPMap
@@ -31,7 +33,7 @@ import torch
 
 from .accel.bvh import pack_node64_tables, tree4_depth
 from .accel.geometry import pack_shade_tables, sphere_tables
-from .integrators.common import SceneCtx, bssrdf_tables, material_rows
+from .integrators.common import SceneCtx, bssrdf_tables, material_rows, prim_media
 from .integrators.sppm import PhotonLights, SPPMState
 from .lights.lights import light_table
 from .ops import bvh_kernel as bk
@@ -318,6 +320,13 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
         world_radius=float(a(lt.world_radius)), n_samples=a(lt.n_samples),
         envs=tuple(_env_from_jax(e, rgb, device) for e, rgb in zip(ctx.infinite_envs, env_rgb)),
     )
+    for ns, src in ((soa, tri), (sph_ns, sph)):
+        ns.med_in, ns.med_out = a(src.med_in), a(src.med_out)
+    mediums = None
+    if ctx.mediums is not None:
+        mediums = {k: v if isinstance(v, int) else torch.as_tensor(np.array(a(v)), device=device)
+                   for k, v in ctx.mediums.items()}
+    dist = ctx._power_distribution
     return SceneCtx(
         tri_packed=torch.as_tensor(np.array(a(ctx.tri_packed), np.float32).reshape(-1, 12)
                                    if tri.count else np.zeros((0, 12), np.float32), device=device),
@@ -326,4 +335,10 @@ def from_jax_scene_ctx(ctx, device, bvh_tables=None, env_rgb=()):
         lights=lights,
         bvh=bvh,
         bssrdf=bssrdf_tables(mats, device),
+        mediums=mediums,
+        camera_medium=int(ctx.camera_medium),
+        prim_media=prim_media(soa, sph_ns, device),
+        light_dist=None if dist is None else {
+            k: torch.as_tensor(np.array(a(v), np.float32), device=device)
+            for k, v in dist.items()},
     )

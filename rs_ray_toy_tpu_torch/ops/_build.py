@@ -153,10 +153,19 @@ def compare(new, old):
     return lines
 
 
+_LOADED = {}  # (name, nvcc flags) -> the loaded library of this package's csrc/
+
+
 def load(name):
-    """The built library for csrc/<name>.cu (building it if needed)."""
-    path, _ = build(name)
-    return ctypes.CDLL(str(path))
+    """The built library for csrc/<name>.cu (building it if needed), loaded
+    once a process: later calls with the same flags return it without
+    hashing the sources again.  (walk_ab builds another tree's csrc/, or
+    a variant's, and loads it in a process of that tree.)"""
+    key = (name, NVCC_FLAGS)
+    if key not in _LOADED:
+        path, _ = build(name)
+        _LOADED[key] = ctypes.CDLL(str(path))
+    return _LOADED[key]
 
 
 def load_host(name):

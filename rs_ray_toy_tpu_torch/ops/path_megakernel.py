@@ -349,8 +349,9 @@ def _light_unsupported(scene, volpath, path, wavefront, spec_live):
 def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=False,
                       wavefront=False, allow_smooth=False) -> Optional[str]:
     """The checks the kernels share (common_scene_checks): power-of-two
-    stratified grid (no check when `sampler` is None; a HaltonSampler only
-    with `path` or `wavefront`), up to tri_max (default BVH_TRI_MAX)
+    stratified grid but in the wavefront loop, which takes any grid (no
+    check when `sampler` is None; a HaltonSampler only with `path` or
+    `wavefront`), up to tri_max (default BVH_TRI_MAX)
     triangles but in the wavefront loop, flat unless `allow_smooth`, up
     to LIGHT_MAX point lights, and every live lobe of a used material among `kinds` (microfacets:
     visible-normal Trowbridge-Reitz only; unscaled, up to LOBES_MAX of
@@ -372,8 +373,8 @@ def scene_unsupported(scene, sampler, kinds, volpath=False, tri_max=None, path=F
     if isinstance(sampler, HaltonSampler):
         if not (path or wavefront):
             return "HaltonSampler"
-    elif sampler is not None and not (_pow2(sampler.spp) and _pow2(sampler.xs)
-                                      and _pow2(sampler.ys)):
+    elif sampler is not None and not wavefront and not (
+            _pow2(sampler.spp) and _pow2(sampler.xs) and _pow2(sampler.ys)):
         return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     tri = scene.triangles
     sph = scene.spheres

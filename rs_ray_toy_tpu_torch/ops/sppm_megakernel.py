@@ -25,8 +25,9 @@ and the Morton-sorted deposit (K10), one CUDA source
   range order (`deposit_warp_walk`, the walk's float32 twin).
 
 Subset (`unsupported_feature`): triangles (brute force up to TRI_MAX,
-the BVH above), up to LIGHT_MAX point lights (a camera medium is ignored,
-as in the JAX package), the lobes of the JAX package's
+the BVH above), up to LIGHT_MAX point lights (a camera medium and the
+primitives' medium_interfaces are ignored, as in the JAX package, whose
+SPPM reads no medium), the lobes of the JAX package's
 supports_sppm_camera (SPPM_KINDS: lambert and Disney's diffuse, retro and
 sheen, the two visible-normal Trowbridge-Reitz microfacets, Disney's
 clearcoat, specular reflection and transmission and fresnel specular;

@@ -56,7 +56,7 @@ from ..core.sampling import Distribution1D, power_heuristic
 from ..lights import lights as lmod
 from ..sampler.dims import VOL_LIGHT, VOL_NEXT, VOL_PICK, VOL_RR, volpath_dim0
 from ..scene import medium as med
-from ..scene.types import LIGHT_POINT
+from ..scene.types import LIGHT_POINT, has_interfaces
 from . import path_megakernel as pmk
 
 DEPTH_MAX = pmk.DEPTH_MAX
@@ -98,11 +98,15 @@ class PackedVolpath(NamedTuple):
 
 def unsupported_feature(scene, spec, sampler):
     """Name of the first scene feature outside the kernel's subset, or
-    None when the Volpath kernel renders the job exactly."""
+    None when the Volpath kernel renders the job exactly (the JAX
+    package's supports_volpath: camera medium 0, the only medium, and no
+    per-primitive interface)."""
     if spec.kind != "volpath":
         return f"{spec.kind} integrator"
     if not 1 <= spec.max_depth <= DEPTH_MAX:
         return f"max_depth {spec.max_depth} outside 1..{DEPTH_MAX}"
+    if has_interfaces(scene.triangles, scene.spheres):
+        return "per-primitive media interfaces (medium_interface)"
     if scene.camera_medium < 0:
         return "Volpath without a camera medium"
     if len(scene.mediums) != 1:

@@ -5,10 +5,13 @@ and renders.  SPPM runs its iterations (integrators/sppm.render_sppm:
 per iteration one launch each of the camera, photon and deposit kernels
 of ops/sppm_megakernel.py) on the Halton sampler it builds itself.  Every
 other integrator renders, under the scene's stratified sampler or (Path,
-AO, Debug and DirectLighting) its HaltonSampler, in sample passes of k_spp samples, the largest
-divisor of spp up to 16: every pixel's k samples form one sample-outer
-batch that a single fused call traces, and the film adds the batch with
-the aligned reshape-add.  The
+AO, Debug, DirectLighting and Volpath) its HaltonSampler, in sample passes of k_spp samples,
+the largest divisor of spp up to 16: every pixel's k samples form one
+sample-outer batch that a single fused call traces, and the film adds the
+batch: with the aligned reshape-add for a box inside one pixel, else at
+p_film = pixel + the film jitter (sampler slot 0, drawn by the sampler's
+torch ops for a fused pass, whose kernel draws the same value itself) with
+the filter's footprint (film/film.py).  The
 integrator picks the call: Path goes to the path kernel
 (`li_path_mega_cam`), Debug and DirectLighting to the direct kernel
 (`li_levels_mega_cam`), Volpath to the Volpath kernel
@@ -19,21 +22,23 @@ scene in the path kernel's textured subset goes to its textured instance
 (an image texture's kd, K7's tap inside); outside it, and under every
 other integrator but AO, it raises naming the feature.
 
-AO, and Path, Debug and DirectLighting on a scene outside the fused
-kernel's subset that the wavefront loop takes (partial spheres, more than
-8 spheres or lights, distant and triangle lights, environment lights,
-meshes above the kernels' triangle limit or too deep for their stack,
-max_depth 0 or past the kernel's range, the HaltonSampler under Debug and
-DirectLighting, smooth normals, Oren-Nayar matte, rough glass,
-Translucent, Mix and thin or transmissive Disney materials, and a
-subsurface Disney material outside the path kernel's subsurface subset),
+AO, and Path, Debug, DirectLighting and Volpath on a scene outside the
+fused kernel's subset that the wavefront loop takes (partial spheres,
+more than 8 spheres or lights, distant and triangle lights, environment
+lights, meshes above the kernels' triangle limit or too deep for their
+stack, max_depth 0 or past the kernel's range, the HaltonSampler under
+Debug, DirectLighting and Volpath, stratified grids that are not a power
+of two, smooth normals, Oren-Nayar matte, rough glass, Translucent, Mix
+and thin or transmissive Disney materials, a subsurface Disney material
+outside the path kernel's subsurface subset, and for Volpath any media:
+none, several, per-primitive interfaces, grid media under any light),
 render through the wavefront loop instead (`render_wavefront_job`):
 raygen on the host (camera/realistic), then integrators/ao.li_ao,
-integrators/path.li_path or integrators/direct.li_levels over SceneCtx,
-whose triangle queries are kernels K4 and K3 (spheres in plain torch).
-Path, Debug and DirectLighting say so on stderr, as the JAX package
-does.  Scenes outside every subset raise NotImplementedError
-(`select_kernel`).
+integrators/path.li_path, integrators/direct.li_levels or
+integrators/volpath.li_volpath over SceneCtx, whose triangle queries are
+kernels K4 and K3 (spheres in plain torch).  Path, Debug, DirectLighting
+and Volpath say so on stderr, as the JAX package does.  Scenes outside
+every subset raise NotImplementedError (`select_kernel`).
 
 Every tensor lives on the explicit `device`.  On "cuda" the passes run
 the CUDA kernel and are timed with CUDA events; on "cpu" they run the
@@ -51,6 +56,7 @@ from .film import film as fmod
 from .integrators import direct as wdirect
 from .integrators import path as wpath
 from .integrators import sppm
+from .integrators import volpath as wvol
 from .integrators.ao import li_ao
 from .integrators.common import SceneCtx, scrub_radiance
 from .ops import bvh_kernel as bk
@@ -149,19 +155,13 @@ FUSED = {
 def make_sampler(job, seed=0):
     """The render's sampler: for SPPM a Halton sampler of n_iters samples
     at the pixel centres (sppm.rs:130, render.py:43-48), else the scene's:
-    its StratifiedSampler, or its HaltonSampler under Path, AO, Debug and
-    DirectLighting (Debug and DirectLighting then in the wavefront loop);
-    Volpath takes no HaltonSampler and raises NotImplementedError naming
-    it."""
+    its StratifiedSampler or its HaltonSampler (Debug, DirectLighting and
+    Volpath then in the wavefront loop)."""
     film = job.film
-    kind = job.integrator.kind
-    if kind == "sppm":
+    if job.integrator.kind == "sppm":
         spec = SamplerSpec("halton", nsamp=job.integrator.n_iters, sample_at_center=True)
         return HaltonSampler(spec, film.xres, film.yres, seed=seed)
     if job.sampler.kind == "halton":
-        if kind not in ("path", "ao", "debug", "direct"):
-            raise NotImplementedError(f"HaltonSampler under the {kind} integrator "
-                                      "(Path, AO, Debug, DirectLighting and SPPM render with it)")
         return HaltonSampler(job.sampler, film.xres, film.yres, seed=seed)
     return StratifiedSampler(job.sampler, seed=seed)
 
@@ -182,20 +182,17 @@ WAVEFRONT = ("wavefront", None, None, None)
 # the integrators whose jobs outside their fused kernel the wavefront loop
 # renders, announced on stderr
 WAVEFRONT_FALLBACK = {"path": wpath.unsupported_feature, "debug": wdirect.unsupported_feature,
-                      "direct": wdirect.unsupported_feature}
+                      "direct": wdirect.unsupported_feature, "volpath": wvol.unsupported_feature}
 
 
 def wavefront_unsupported(job, sampler):
-    """The first feature of an AO, Path, Debug or DirectLighting job
-    outside the wavefront loop, or None.  AO reads no light, material or
-    medium: it takes any scene of triangles and spheres, of any size,
-    textured or not."""
+    """The first feature of an AO, Path, Debug, DirectLighting or Volpath
+    job outside the wavefront loop, or None.  AO reads no light, material
+    or medium: it takes any scene of triangles and spheres, of any size,
+    textured or not, under either sampler and any stratified grid."""
     kind = job.integrator.kind
     if kind in WAVEFRONT_FALLBACK:
         return WAVEFRONT_FALLBACK[kind](job.scene, job.integrator, sampler)
-    if isinstance(sampler, StratifiedSampler) and not (
-            pmk._pow2(sampler.spp) and pmk._pow2(sampler.xs) and pmk._pow2(sampler.ys)):
-        return f"stratified grid {sampler.xs}x{sampler.ys} (power of two only)"
     return None
 
 
@@ -272,13 +269,16 @@ def render_job(job, device, spp_override=None, pupil_samples=1 << 20, seed=0, wr
         for s_base in range(0, spp, k_spp):
             s_idx = sample_offset + s_base
             # the kernel derives each ray's film jitter (sampler slot 0) itself;
-            # the aligned film add puts every sample on its own pixel
+            # the aligned film add puts every sample on its own pixel, another
+            # filter reads the same jitter drawn here
             l, weight = li_pass(
                 packed, cam_packed, pixel_xy, pixel_id, s_idx, sampler, job.integrator
             )
             l = scrub_radiance(l)
             l = torch.where((weight > 0.0)[:, None], l, 0.0)
-            film = fmod.add_samples(film, film_spec, pixel_xy, l, weight)
+            p_film = pixel_xy if fmod.aligned(film_spec) else film_points(
+                sampler, pixel_xy, pixel_id, s_idx)
+            film = fmod.add_samples(film, film_spec, p_film, l, weight)
     elapsed = timer.seconds
     launches = sum(mod.LAUNCHES.values()) - launches0
 
@@ -303,20 +303,28 @@ def wavefront_launches():
     return {**ik.LAUNCHES, **bk.LAUNCHES}
 
 
-def camera_rays(cam, sampler, pixel_xy, pixel_id, s_idx):
+def film_points(sampler, pixel_xy, pixel_id, s_idx):
+    """The samples' raster positions p_film: each pixel's corner plus the
+    film jitter, sampler dim 0 (render.py:461-462)."""
+    return pixel_xy + sampler.get_2d(pixel_id, s_idx, CAMERA_FILM)
+
+
+def camera_rays(cam, sampler, pixel_xy, pixel_id, s_idx, p_film=None):
     """One pass's camera rays as the wavefront render makes them: the film
-    and lens values of sampler dims 0 and 1, then the lens trace
+    and lens values of sampler dims 0 and 1 (p_film, when given, the
+    first's raster positions), then the lens trace
     (camera/realistic.generate_rays).  Returns (o, d, weight)."""
-    u_film = sampler.get_2d(pixel_id, s_idx, CAMERA_FILM)
+    if p_film is None:
+        p_film = film_points(sampler, pixel_xy, pixel_id, s_idx)
     u_lens = sampler.get_2d(pixel_id, s_idx, CAMERA_LENS)
-    return cam.generate_rays(pixel_xy + u_film, u_lens)
+    return cam.generate_rays(p_film, u_lens)
 
 
 # rays a level of the Debug / DirectLighting tree holds at most: a pass
 # whose deepest level would hold more is traced in chunks of camera rays
 LEVEL_RAYS_MAX = 1 << 22
 WAVEFRONT_LI = {"ao": li_ao, "path": wpath.li_path, "debug": wdirect.li_levels,
-                "direct": wdirect.li_levels}
+                "direct": wdirect.li_levels, "volpath": wvol.li_volpath}
 
 
 def chunked(li, chunk):
@@ -336,11 +344,11 @@ def render_wavefront_job(job, device, sampler, spp, pupil_samples=1 << 20):
     """The wavefront render (render.py:400-457, 508-517): SceneCtx (its BVH
     build) and the camera are set-up; each timed pass of k_spp samples
     per pixel draws the film and lens values (sampler dims 0 and 1),
-    generates the camera rays on the host and runs li_ao, li_path or
-    li_levels over them (li_levels in chunks of camera rays whose deepest
-    tree level holds up to LEVEL_RAYS_MAX rays).  Returns render_job's
-    keys, `render_path` "wavefront" and the launches of each intersection
-    kernel."""
+    generates the camera rays on the host and runs li_ao, li_path,
+    li_levels (in chunks of camera rays whose deepest tree level holds up
+    to LEVEL_RAYS_MAX rays) or li_volpath (every ray born in the camera
+    medium) over them.  Returns render_job's keys, `render_path`
+    "wavefront" and the launches of each intersection kernel."""
     film_spec = job.film
     cam = RealisticCamera(job.camera, film_spec, pupil_samples=pupil_samples, device=device)
     ctx = SceneCtx.from_scene(job.scene, device)
@@ -358,10 +366,11 @@ def render_wavefront_job(job, device, sampler, spp, pupil_samples=1 << 20):
     with PassTimer(device) as timer:
         for s_base in range(0, spp, k_spp):
             s_idx = sample_offset + s_base
-            o, d, weight = camera_rays(cam, sampler, pixel_xy, pixel_id, s_idx)
+            p_film = film_points(sampler, pixel_xy, pixel_id, s_idx)
+            o, d, weight = camera_rays(cam, sampler, pixel_xy, pixel_id, s_idx, p_film)
             l = scrub_radiance(li(ctx, o, d, weight, sampler, pixel_id, s_idx, job.integrator))
             l = torch.where((weight > 0.0)[:, None], l, 0.0)
-            film = fmod.add_samples(film, film_spec, pixel_xy, l, weight)
+            film = fmod.add_samples(film, film_spec, p_film, l, weight)
     elapsed = timer.seconds
     launches = {k: v - launches0[k] for k, v in wavefront_launches().items()}
     n_rays = film_spec.xres * film_spec.yres * spp

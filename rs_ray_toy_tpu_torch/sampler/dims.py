@@ -30,7 +30,8 @@ def path_dim0(bounce: int) -> int:
 
 VOLPATH_DPB = 8
 VOL_PICK = 0  # light pick (1d)
-VOL_LIGHT = 1  # light sample (2d); +2, the counter-branch sample, is unread
+VOL_LIGHT = 1  # light sample (2d)
+VOL_SCATTER = 2  # the scattering sample of NEE (2d; read when some light is not delta)
 VOL_NEXT = 3  # phase or BSDF sample of the next direction (2d)
 VOL_RR = 4  # Russian roulette (1d)
 

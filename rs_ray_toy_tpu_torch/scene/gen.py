@@ -11,6 +11,9 @@ the mesh scene of the SPPM kernels' BVH instances).
 Volpath, optionally with the sphere light of the JAX bench's `fog_area`
 row (bench.py:103-111, 138-143); `write_grid_fog_scene` gives the fixture
 an n^3 GridDensity camera medium, the bench's `grid_fog` row.
+`write_interface_scene` makes the fog fixture's first cube smooth glass
+holding a homogeneous medium through a per-primitive medium_interface,
+which only the wavefront Volpath loop renders.
 `write_wavefront_scene` gives a base scene what only the wavefront Path
 loop renders: a partial sphere, a distant light and a triangle-area light.
 `write_deep_bvh_scene` writes a mesh whose BVH is deeper than the
@@ -142,6 +145,31 @@ def write_fog_scene(out_dir, area_light=False, base=FIXTURE, medium=BENCH_FOG, x
     if area_light:
         cfg["lights"] = list(cfg.get("lights") or []) + [FOG_AREA_LIGHT]
     return _write(cfg, base, out_dir, "fog_area.json" if area_light else "fog.json")
+
+
+# a cube's interior medium: sigma_t 0.67-0.71 per unit, albedo 0.82-1, so a
+# ray crossing the 2-unit cube scatters about once
+INTERFACE_MEDIUM = {"medium_type": "Homogeneous", "g": 0.0, "preset": "Potato"}
+
+
+def write_interface_scene(out_dir, base=str(SAMPLES / "scene_fog.json"), area_light=False,
+                          xres=None, yres=None):
+    """Write interface.json under out_dir: the base scene (the fog
+    fixture: Volpath in its thin camera fog) with its first primitive, the
+    left cube, smooth glass of eta 1.5 whose medium_interface holds
+    INTERFACE_MEDIUM inside and none outside, and with `area_light` the
+    bench's fog_area sphere light among the cubes.  Its media: the cube's
+    (id 0), then the camera's.  Returns the json path."""
+    cfg = _load(base, xres, yres)
+    cfg["Integrator"] = {**(cfg.get("Integrator") or {}), "integrator_type": "Volpath"}
+    cfg["materials"] = list(cfg["materials"]) + [
+        {"material_type": "GlassMaterial", "material_name": "mat_glass_medium", "eta": 1.5}]
+    prim = cfg["Aggregate"]["primitives"][0]
+    prim["material_name"] = "mat_glass_medium"
+    prim["medium_interface"] = {"inside": dict(INTERFACE_MEDIUM)}
+    if area_light:
+        cfg["lights"] = list(cfg.get("lights") or []) + [FOG_AREA_LIGHT]
+    return _write(cfg, base, out_dir, "interface.json")
 
 
 def write_grid_fog_scene(

@@ -15,9 +15,13 @@ and `infinite_lights` on a constant map (no `mapname`, or one that does
 not exist); a point, distant or diffuse light listed in `infinite_lights`
 is one more NEE light, and a light of an unknown `light_type` or a
 diffuse light of an unknown `shape_type` is skipped, as in the JAX
-loader; the camera medium (`Camera.medium`: Homogeneous or
-GridDensity, by preset or the reference's default coefficients), Film,
-StratifiedSampler, HaltonSampler, RealisticCamera and the Path, Debug,
+loader; media (Homogeneous or GridDensity, by preset or the reference's
+default coefficients): a primitive's `medium_interface` (each side's
+medium appended in file order, a primitive skipped for its material or
+mesh included, as in the JAX loader) and the camera's `Camera.medium`,
+appended last, so that medium ids agree with the JAX package's; Film with
+its box, triangle or Gaussian filter, StratifiedSampler, HaltonSampler,
+RealisticCamera and the Path, Debug,
 DirectLighting, Volpath, SPPM and AO integrators (any other name is AO,
 as in the JAX package).  Every other feature the schema can name raises
 NotImplementedError with the feature's name (an existing environment
@@ -126,6 +130,7 @@ class FilmSpec:
     max_sample_luminance: float
     filter_type: str
     filter_radius: np.ndarray
+    gaussian_alpha: float = 2.0
 
 
 @dataclass
@@ -261,16 +266,18 @@ def load_scene(path: str) -> RenderJob:
             "to_world": make_to_world(obj_cfg),
         }
 
-    tris, sphs = _make_aggregate(cfg, meshes, mat_ids)
+    tris, sphs, mediums = _make_aggregate(cfg, meshes, mat_ids)
     lights, infinite = _make_lights(cfg, meshes, _world_radius(tris, sphs), root_dir)
     bundle = SceneBundle(
         triangles=_pack_triangles(tris),
         lights=lights,
         materials=mat_builder.pack(),
+        mediums=mediums,
         spheres=_pack_spheres(sphs),
         infinite=infinite,
         registry=registry,
     )
+    # the camera medium after the aggregate's (the JAX loader's order)
     cam_medium = _parse_medium((cfg.get("Camera", {}) or {}).get("medium"))
     if cam_medium is not None:
         bundle.mediums.append(cam_medium)
@@ -486,35 +493,49 @@ def _sphere_from_cfg(cfg, extra_to_world=None):
 
 
 def _make_aggregate(cfg, meshes, mat_ids):
-    """(triangles, spheres) of the aggregate; a primitive whose material
-    or mesh is unknown is skipped, as in the reference."""
+    """(triangles, spheres, media) of the aggregate; a primitive whose
+    material or mesh is unknown is skipped, as in the reference.  A
+    primitive's medium_interface (renderprocess.rs:1193-1207) appends its
+    inside medium, then its outside one, before that check, as the JAX
+    loader's parse_mi does; every triangle and sphere it makes carries
+    their ids (med_in, med_out; -1 for a side without a medium)."""
     agg = cfg.get("Aggregate", {}) or {}
     tris: List[Dict] = []
     sphs: List[Dict] = []
+    mediums: List[MediumSpec] = []
+
+    def parse_mi(prim):
+        ids = []
+        mi_cfg = prim.get("medium_interface")
+        for side in ("inside", "outside"):
+            spec = _parse_medium(mi_cfg.get(side)) if isinstance(mi_cfg, dict) else None
+            if spec is not None:
+                mediums.append(spec)
+            ids.append(len(mediums) - 1 if spec is not None else -1)
+        return dict(med_in=ids[0], med_out=ids[1])
+
     for prim in agg.get("primitives", []) or []:
         ptype = read_string(prim, "primitive_type", "")
-        if isinstance(prim.get("medium_interface"), dict):
-            raise NotImplementedError("participating media (medium_interface)")
         mat_id = mat_ids.get(read_string(prim, "material_name", "DefaultMaterialName"), -1)
+        media = parse_mi(prim)
         instances = prim.get("instances")
         if ptype == "sphere":
             if mat_id < 0:
                 continue
             xfs = [make_to_world(inst) for inst in instances] if isinstance(instances, list) \
                 else [None]
-            sphs.extend(dict(_sphere_from_cfg(prim, xf), mat=mat_id) for xf in xfs)
+            sphs.extend(dict(_sphere_from_cfg(prim, xf), mat=mat_id, **media) for xf in xfs)
             continue
         if ptype != "triangle":
             continue
         obj_name = read_string(prim, "obj_name", "DefaultObjName")
         if obj_name not in meshes or mat_id < 0:
             continue
-        if isinstance(instances, list):
-            for inst in instances:
-                tris.extend(_expand_mesh(meshes[obj_name], make_to_world(inst), mat_id))
-        else:
-            tris.extend(_expand_mesh(meshes[obj_name], None, mat_id))
-    return tris, sphs
+        xfs = [make_to_world(inst) for inst in instances] if isinstance(instances, list) \
+            else [None]
+        for xf in xfs:
+            tris.extend(dict(t, **media) for t in _expand_mesh(meshes[obj_name], xf, mat_id))
+    return tris, sphs, mediums
 
 
 def _pack_spheres(sphs) -> SphereSoA:
@@ -537,14 +558,17 @@ def _pack_spheres(sphs) -> SphereSoA:
         theta_max=f32(np.arccos(np.clip(z_max / radius, -1, 1))),
         phi_max=f32(np.deg2rad(np.clip([s["phi_max_deg"] for s in sphs], 0.0, 360.0))),
         mat=np.asarray([s["mat"] for s in sphs], np.int32),
+        med_in=np.asarray([s["med_in"] for s in sphs], np.int32),
+        med_out=np.asarray([s["med_out"] for s in sphs], np.int32),
     )
 
 
 def _pack_triangles(tris) -> TriangleSoA:
     if not tris:
         z3, z2 = np.zeros((0, 3), np.float32), np.zeros((0, 2), np.float32)
-        return TriangleSoA(z3, z3, z3, z3, z3, z3, z2, z2, z2, np.zeros(0, np.int32), z3, z3, z3,
-                           np.zeros(0, bool))
+        z = np.zeros(0, np.int32)
+        return TriangleSoA(z3, z3, z3, z3, z3, z3, z2, z2, z2, z, z3, z3, z3, np.zeros(0, bool),
+                           z, z)
     p = np.stack([t["p"] for t in tris])  # (T,3,3)
     default_uv = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]])
     uv = np.stack([t["uv"] if t["uv"] is not None else default_uv for t in tris])
@@ -586,6 +610,8 @@ def _pack_triangles(tris) -> TriangleSoA:
         dpdu=f32(dpdu),
         dpdv=f32(dpdv),
         has_n=np.array([t["n"] is not None for t in tris]),
+        med_in=np.asarray([t["med_in"] for t in tris], np.int32),
+        med_out=np.asarray([t["med_out"] for t in tris], np.int32),
     )
 
 
@@ -786,6 +812,7 @@ def _make_film_spec(fcfg) -> FilmSpec:
         max_sample_luminance=read_f64(fcfg, "max_sample_luminance", float("inf")),
         filter_type=ftype,
         filter_radius=radius,
+        gaussian_alpha=read_f64(filter_cfg, "alpha", 2.0),
     )
 
 

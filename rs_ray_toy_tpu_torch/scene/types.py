@@ -45,6 +45,10 @@ class TriangleSoA:
     dpdu: np.ndarray  # (T,3)
     dpdv: np.ndarray  # (T,3)
     has_n: np.ndarray  # (T,) bool: the mesh gave vertex normals
+    # the primitive's medium_interface: medium ids inside and outside, -1
+    # for none
+    med_in: np.ndarray  # (T,) int32
+    med_out: np.ndarray  # (T,) int32
 
     @property
     def count(self):
@@ -62,10 +66,25 @@ class SphereSoA:
     theta_max: np.ndarray
     phi_max: np.ndarray  # (S,) float32 radians
     mat: np.ndarray  # (S,) int32 material ids
+    med_in: np.ndarray  # (S,) int32, as TriangleSoA's
+    med_out: np.ndarray  # (S,) int32
 
     @property
     def count(self):
         return self.radius.shape[0]
+
+
+def media_rows(soa):
+    """(n, 2) int64 [med_in, med_out] of a triangle or sphere table; (0, 2)
+    for None (no spheres)."""
+    if soa is None:
+        return np.full((0, 2), -1, np.int64)
+    return np.stack([soa.med_in, soa.med_out], -1).astype(np.int64).reshape(-1, 2)
+
+
+def has_interfaces(tri, sph):
+    """Whether some triangle or sphere has a medium_interface."""
+    return any(bool((media_rows(soa) >= 0).any()) for soa in (tri, sph))
 
 
 @dataclass

@@ -11,6 +11,7 @@ and deposit (K10).
     python -m rs_ray_toy_tpu_torch.walk_ab --variant CONSTANT=VALUE [--only k2bvh,k6bvh] ...
     python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR --only k2,k3s
     python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR --only k9,k10
+    python -m rs_ray_toy_tpu_torch.walk_ab --parent DIR --only host
     python -m rs_ray_toy_tpu_torch.walk_ab --counts [--device cpu] [--scale 4]
 
 DIR is a checkout of the other revision (e.g. `git archive` of the parent
@@ -47,7 +48,11 @@ it, takes VALUE: K2's instances, brute force and BVH, take
 instances `VOL_BVH_MIN_BLOCKS`, both `_LEAF_PREFETCH` (e.g. `--variant
 VOL_BVH_MIN_BLOCKS=1`).  `--only` keeps
 the cases of some kernels: k1, k6, k3, k1bvh, k2bvh, k6bvh, k2, k3s, k7,
-k8, k9, k10.  Each tree builds the kernels
+k8, k9, k10, and `host`, the host's share of the renders (HOST_CASES: the
+warm renders of the Path, Debug, fog and SPPM fixtures through their
+kernels and of samples/scene_materials.json through the wavefront Path
+loop, and the path kernel's wrapper call on the fixture's pass, library
+load included).  Each tree builds the kernels
 of those cases; then a
 worker process runs under each tree in turns (the other revision, this
 tree, this tree, the other revision), so that both meet the card in the
@@ -160,6 +165,7 @@ The last line is a JSON object of those numbers.
 """
 
 import argparse
+import copy
 import json
 import os
 import re
@@ -241,18 +247,27 @@ K9_CASES = {f"k9_{c[5:]}": s for c, s in K8_CASES.items() if c != "sppm_render"}
 K9_CASES["k9_render"] = "render"
 K10_CASES = {f"k10_{c[5:]}": s for c, s in K8_CASES.items() if c != "sppm_render"}
 # the render cases: case -> the scene rendered warm through render_job
+# the host's share: case -> the scene rendered warm, or "wrapper": the path
+# kernel's wrapper call on samples/scene.json's pass
+HOST_CASES = {"host_fixture": "scene.json", "host_debug": "scene_debug.json",
+              "host_fog": "scene_fog.json", "host_sppm": "scene_sppm.json",
+              "host_materials": "scene_materials.json", "host_wrapper": "wrapper"}
 RENDERS = {"k7_render": "scene_textured.json", "sppm_render": "scene_sppm.json",
-           "k9_render": "scene_sppm.json"}
+           "k9_render": "scene_sppm.json",
+           **{c: s for c, s in HOST_CASES.items() if s != "wrapper"}}
 # --only: CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES, K6BVH_CASES,
-# K2_CASES, SHADED_CASES, K7_CASES, K8_CASES, K9_CASES, K10_CASES
-GROUPS = ("k1", "k6", "k3", "k1bvh", "k2bvh", "k6bvh", "k2", "k3s", "k7", "k8", "k9", "k10")
+# K2_CASES, SHADED_CASES, K7_CASES, K8_CASES, K9_CASES, K10_CASES, HOST_CASES
+GROUPS = ("k1", "k6", "k3", "k1bvh", "k2bvh", "k6bvh", "k2", "k3s", "k7", "k8", "k9", "k10",
+          "host")
 # the kernel sources each group's cases launch
 SOURCES = {"k1": ("path_megakernel",), "k6": ("volpath_megakernel",), "k3": ("bvh_kernel",),
            "k1bvh": ("path_megakernel",), "k2bvh": ("direct_megakernel",),
            "k6bvh": ("volpath_megakernel",), "k2": ("direct_megakernel",),
            "k3s": ("bvh_kernel",), "k7": ("texture_kernel", "path_megakernel"),
            "k8": ("sppm_megakernel",), "k9": ("sppm_megakernel",),
-           "k10": ("sppm_megakernel",)}
+           "k10": ("sppm_megakernel",),
+           "host": ("path_megakernel", "direct_megakernel", "volpath_megakernel",
+                    "sppm_megakernel", "intersect_kernel")}
 _RAY_LOADS = """  // the ray's loads issued together, ahead of the test of t_max
   const float tm = __ldg(t_max + i);
   const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1), oz = __ldg(o + 3 * i + 2);
@@ -375,7 +390,8 @@ def recording_ctx(ctx):
                 self.batches.setdefault("closest", (o, d, t_max))
             return super().intersect(o, d, t_max)
 
-    rec = RecordingCtx(ctx.tri_packed, ctx.shade, ctx.mat_rows, ctx.lights, ctx.bvh, ctx.bssrdf)
+    rec = copy.copy(ctx)
+    rec.__class__ = RecordingCtx
     rec.batches = {}
     return rec
 
@@ -1063,6 +1079,18 @@ def worker(out, reps, only):
         torch.save(saved, out / f"{case}.pt")
         record[case] = rec
         print(f"{case}: {rec}", flush=True)
+    for case, scene in (HOST_CASES.items() if "host" in only else ()):
+        if scene != "wrapper":
+            warm_render(case)
+            continue
+        job = load_scene(str(SAMPLES / "scene.json"))
+        sampler = make_sampler(job)
+        cam = pmk.pack_camera(RealisticCamera(job.camera, job.film, device=dev))
+        pxy, pid, soff = sample_batch(job.film, pass_spp(sampler.spp), dev)
+        args = (pmk.pack_scene(job.scene, dev), cam, pxy, pid, soff, sampler, job.integrator)
+        record[case] = {"rays": pxy.shape[0], "ms": timed_ms(lambda: pmk.li_path_mega_cam(*args))}
+        torch.save({"cam": pmk.li_path_mega_cam(*args)[0].cpu()}, out / f"{case}.pt")
+        print(f"{case}: {record[case]}", flush=True)
     (out / "times.json").write_text(json.dumps(record))
 
 
@@ -1381,7 +1409,7 @@ def main(argv=None):
     summary = {}
     groups = dict(zip(GROUPS, (CASES, VOL_CASES, BVH_CASES, K1BVH_CASES, K2BVH_CASES,
                                K6BVH_CASES, K2_CASES, SHADED_CASES, K7_CASES, K8_CASES,
-                               K9_CASES, K10_CASES)))
+                               K9_CASES, K10_CASES, HOST_CASES)))
     for case in (c for g in only for c in groups[g]):
         ref = torch.load(out / "parent0" / f"{case}.pt")
         new = torch.load(out / "change0" / f"{case}.pt")

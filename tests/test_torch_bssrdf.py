@@ -378,16 +378,18 @@ def test_routes(capsys):
 
 @pytest.mark.parametrize("integrator", ["Debug", "DirectLighting", "Volpath", "SPPM"])
 def test_other_kernels_raise_naming_the_bssrdf(tmp_path, capsys, integrator):
-    """The kernels without the subsurface branch name the BSSRDF: Volpath
-    and SPPM raise, Debug and DirectLighting announce it and go to the
-    wavefront loop, whose tree evaluates the material's BSDF lobes as the
-    JAX package's li_levels does."""
+    """The kernels without the subsurface branch name the BSSRDF: SPPM
+    raises, Debug, DirectLighting and Volpath announce it and go to the
+    wavefront loop, whose tree or bounce loop evaluates the material's BSDF
+    lobes as the JAX package's li_levels and li_volpath do."""
     job = load_scene(_write(tmp_path, _with_materials([MAT_SSS], integrator)))
     name = r"specular transmission \(DisneyMaterial scatter_distance BSSRDF\)"
-    if integrator in ("Debug", "DirectLighting"):
+    if integrator in ("Debug", "DirectLighting", "Volpath"):
         assert select_kernel(job, make_sampler(job)) == WAVEFRONT
         err = capsys.readouterr().err
-        assert re.search(name, err) and "direct-kernel subset" in err and "wavefront loop" in err
+        kernel = "volpath" if integrator == "Volpath" else "direct"
+        assert re.search(name, err) and f"{kernel}-kernel subset" in err
+        assert "wavefront loop" in err
         return
     with pytest.raises(NotImplementedError, match=name):
         select_kernel(job, make_sampler(job))

@@ -13,8 +13,10 @@ glass and Disney materials and K3's BVH4 walk; K3's node64 walk against
 its plain version and bvh_kernel, and the Volpath kernel's chunked walk
 against its walk over every row; the direct and Volpath kernels' BVH
 instances on the node64 walk; the direct kernel's brute force on the
-chunked walk and K3's shaded closest hit on the node64 walk) against
-their plain PyTorch versions.
+chunked walk and K3's shaded closest hit on the node64 walk; the
+wavefront Volpath loop on the card against the CPU, and the filtered
+film's footprint add, the same bits twice) against their plain PyTorch
+versions.
 
 Marked `cuda`; each test skips without a CUDA device.  Run them on a
 machine with an NVIDIA GPU:
@@ -1451,6 +1453,102 @@ def test_wavefront_li_levels_card_matches_cpu(tmp_path, case):
     lit = l_cpu.amax(-1) > 0
     assert int(lit.sum()) > 1000
     assert float((rel.amax(-1)[lit] > 1e-3).float().mean()) < 5e-3
+
+
+@pytest.mark.parametrize("case", ["interface", "grid-fog-spheres"])
+def test_wavefront_li_volpath_card_matches_cpu(tmp_path, case):
+    """The wavefront li_volpath on the card (over K4, or K3 on the grid)
+    against the same on the CPU on 80x45x8 camera rays: under 0.5% of the
+    lit rays past 1e-3 relative, at least 1,000 of them; every query a
+    kernel launch."""
+    dev = _device()
+    from rs_ray_toy_tpu_torch.integrators.volpath import li_volpath
+    from rs_ray_toy_tpu_torch.scene.gen import write_interface_scene
+
+    if case == "interface":
+        scene = write_interface_scene(str(tmp_path), area_light=True)
+    else:
+        scene = write_grid_scene(str(tmp_path), base=str(SAMPLES / "scene_sphere_area.json"),
+                                 integrator="Volpath")
+        cfg = json.loads(Path(scene).read_text())
+        cfg["Camera"]["medium"] = dict(THIN_FOG)
+        Path(scene).write_text(json.dumps(cfg))
+    job = load_scene(scene)
+    job.film.xres, job.film.yres = 80, 45
+    job.sampler.xsamp, job.sampler.ysamp = 2, 4
+    sampler = StratifiedSampler(job.sampler)
+    cam = RealisticCamera(job.camera, job.film, device=dev)
+    pxy, pid, soff = sample_batch(job.film, 8, dev)
+    o, d, w = camera_rays(cam, sampler, pxy, pid, soff)
+    ctx = SceneCtx.from_scene(job.scene, dev)
+    before = {**ik.LAUNCHES, **bk.LAUNCHES}
+    l_card = li_volpath(ctx, o, d, w, sampler, pid, soff, job.integrator).cpu()
+    after = {**ik.LAUNCHES, **bk.LAUNCHES}
+    queries = job.integrator.max_depth * 3 + 1  # a sphere light: the scattering sample too
+    if ctx.bvh is None:
+        assert after["intersect"] - before["intersect"] == queries
+    else:
+        assert after["bvh_shaded"] - before["bvh_shaded"] == job.integrator.max_depth + 1
+        assert after["bvh64_any"] - before["bvh64_any"] == job.integrator.max_depth
+        assert after["bvh64_closest"] - before["bvh64_closest"] == job.integrator.max_depth
+    l_cpu = li_volpath(SceneCtx.from_scene(job.scene, torch.device("cpu")), o.cpu(), d.cpu(),
+                       w.cpu(), sampler, pid.cpu(), soff.cpu(), job.integrator)
+    rel = (l_card - l_cpu).abs() / l_cpu.abs().clamp(min=1e-3)
+    lit = l_cpu.amax(-1) > 0
+    assert int(lit.sum()) > 1000
+    assert float((rel.amax(-1)[lit] > 1e-3).float().mean()) < 5e-3
+
+
+@pytest.mark.parametrize("filt", ["TriangleFilter", "GaussianFilter"])
+def test_footprint_film_add_is_deterministic_on_the_card(filt):
+    """The filtered film add of 16 seeded 640x360 grids (jitters of 0 and
+    ones that round up among them) on the card: the same bits twice, and
+    within 1e-5 relative of the CPU's add per pixel."""
+    dev = _device()
+    from rs_ray_toy_tpu_torch.film import film as fmod
+    from rs_ray_toy_tpu_torch.scene.loader import FilmSpec
+
+    w_, h_, k = 640, 360, 16
+    spec = FilmSpec(w_, h_, 35.0, 1.0, float("inf"), filt, np.array([2.0, 2.0]), 2.0)
+    rng = np.random.default_rng(5)
+    ys, xs = np.mgrid[0:h_, 0:w_]
+    pxy = np.tile(np.stack([xs.ravel(), ys.ravel()], -1), (k, 1)).astype(np.float32)
+    u = rng.random(pxy.shape).astype(np.float32)
+    u[:999] = 0.0
+    u[pxy[:, 0] >= 600, 0] = np.float32(1.0 - 2.0**-20)
+    args = [torch.as_tensor(a) for a in (pxy + u, rng.random((pxy.shape[0], 3)).astype(np.float32),
+                                         rng.random(pxy.shape[0]).astype(np.float32))]
+    cpu = fmod.add_samples(fmod.make_film(spec, "cpu"), spec, *args)
+    runs = [fmod.add_samples(fmod.make_film(spec, dev), spec, *(a.to(dev) for a in args))
+            for _ in range(2)]
+    assert torch.equal(runs[0].xyz, runs[1].xyz) and torch.equal(runs[0].weight, runs[1].weight)
+    np.testing.assert_allclose(runs[0].xyz.cpu().numpy(), cpu.xyz.numpy(), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(runs[0].weight.cpu().numpy(), cpu.weight.numpy(), rtol=1e-5,
+                               atol=0)
+
+
+def test_partial_batch_film_add_is_deterministic_on_the_card():
+    """A Gaussian film add of seeded samples anywhere on a 640x360 film,
+    not whole grids (the sorted pairs' segment sums): the same bits
+    twice on the card, and within 1e-5 relative of the CPU's add."""
+    dev = _device()
+    from rs_ray_toy_tpu_torch.film import film as fmod
+    from rs_ray_toy_tpu_torch.scene.loader import FilmSpec
+
+    spec = FilmSpec(640, 360, 35.0, 1.0, float("inf"), "GaussianFilter", np.array([2.0, 2.0]),
+                    2.0)
+    rng = np.random.default_rng(6)
+    n = 1_000_003
+    args = [torch.as_tensor(a) for a in (
+        (rng.random((n, 2)) * np.array([640, 360])).astype(np.float32),
+        rng.random((n, 3)).astype(np.float32), rng.random(n).astype(np.float32))]
+    cpu = fmod.add_samples(fmod.make_film(spec, "cpu"), spec, *args)
+    runs = [fmod.add_samples(fmod.make_film(spec, dev), spec, *(a.to(dev) for a in args))
+            for _ in range(2)]
+    assert torch.equal(runs[0].xyz, runs[1].xyz) and torch.equal(runs[0].weight, runs[1].weight)
+    np.testing.assert_allclose(runs[0].xyz.cpu().numpy(), cpu.xyz.numpy(), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(runs[0].weight.cpu().numpy(), cpu.weight.numpy(), rtol=1e-5,
+                               atol=0)
 
 
 @pytest.mark.parametrize("wrap", ["repeat", "black", "clamp"])

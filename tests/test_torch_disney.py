@@ -326,13 +326,13 @@ def test_bssrdf_disney_raises_at_load(tmp_path, capsys):
 
 @pytest.mark.parametrize("integrator", ["Debug", "DirectLighting", "Volpath", "SPPM"])
 def test_other_kernels_raise_naming_disney(tmp_path, capsys, integrator):
-    """Volpath raises naming the Disney lobes; Debug and DirectLighting
-    name them announcing the wavefront loop.  SPPM takes the plain Disney
-    material (the SPPM kernels' wide instances) and raises naming the
-    lobes of a transmissive one, which the JAX SPPM kernels refuse too."""
+    """Debug, DirectLighting and Volpath name the Disney lobes announcing
+    the wavefront loop.  SPPM takes the plain Disney material (the SPPM
+    kernels' wide instances) and raises naming the lobes of a transmissive
+    one, which the JAX SPPM kernels refuse too."""
     path = _write(tmp_path, _with_materials([{**DISNEY, **CASES["plain"]}], integrator))
     job = load_scene(path)
-    if integrator in ("Debug", "DirectLighting"):
+    if integrator in ("Debug", "DirectLighting", "Volpath"):
         assert select_kernel(job, make_sampler(job)) == WAVEFRONT
         err = capsys.readouterr().err
         assert "Disney diffuse (DisneyMaterial) lobes" in err and "wavefront loop" in err
@@ -344,6 +344,3 @@ def test_other_kernels_raise_naming_disney(tmp_path, capsys, integrator):
                            match=r"microfacet transmission \(.*DisneyMaterial spec_trans\) lobes"):
             job = load_scene(path)
             select_kernel(job, make_sampler(job))
-        return
-    with pytest.raises(NotImplementedError, match=r"Disney diffuse \(DisneyMaterial\) lobes"):
-        select_kernel(job, make_sampler(job))

@@ -347,19 +347,18 @@ def test_render_job_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("integrator", ["Debug", "DirectLighting", "Volpath"])
 def test_other_integrators_raise_under_halton(tmp_path, capsys, integrator):
-    """Volpath raises under a HaltonSampler; Debug and DirectLighting take
-    it in the wavefront loop, announced naming it."""
+    """Debug, DirectLighting and Volpath (in a camera fog) take a
+    HaltonSampler in the wavefront loop, announced naming it."""
     def edit(cfg):
         _halton(cfg)
         cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 3}
+        if integrator == "Volpath":
+            cfg["Camera"]["medium"] = {"medium_type": "Homogeneous", "g": 0.0,
+                                       "preset": "Clorox"}
 
     job = load_scene(_write(tmp_path, edit))
-    if integrator in ("Debug", "DirectLighting"):
-        sampler = make_sampler(job)
-        assert isinstance(sampler, HaltonSampler)
-        assert select_kernel(job, sampler) == WAVEFRONT
-        err = capsys.readouterr().err
-        assert "(HaltonSampler)" in err and "wavefront loop" in err
-        return
-    with pytest.raises(NotImplementedError, match="HaltonSampler"):
-        render_job(job, "cpu", pupil_samples=PUPIL_SAMPLES)
+    sampler = make_sampler(job)
+    assert isinstance(sampler, HaltonSampler)
+    assert select_kernel(job, sampler) == WAVEFRONT
+    err = capsys.readouterr().err
+    assert "(HaltonSampler)" in err and "wavefront loop" in err

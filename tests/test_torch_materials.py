@@ -268,11 +268,11 @@ def test_path_kernel_names_what_it_lacks(tmp_path, name, feature):
     ("SPPM", "mat_rough_glass", "microfacet transmission"),
 ])
 def test_other_kernels_raise_naming_the_material(tmp_path, capsys, integrator, name, feature):
-    """Volpath and SPPM raise naming the material's lobes; Debug and
-    DirectLighting name them announcing the wavefront loop."""
+    """SPPM raises naming the material's lobes; Debug, DirectLighting and
+    Volpath name them announcing the wavefront loop."""
     path = _write(tmp_path, _with_materials([MATS[name]], integrator))
     job = load_scene(path)
-    if integrator in ("Debug", "DirectLighting"):
+    if integrator in ("Debug", "DirectLighting", "Volpath"):
         assert select_kernel(job, make_sampler(job)) == WAVEFRONT
         err = capsys.readouterr().err
         assert feature in err and "wavefront loop" in err

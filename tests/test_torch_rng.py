@@ -6,6 +6,8 @@ these functions, so the bar is exact equality over >= 1M (pixel, sample,
 dim) triples from a numpy seed, with the u32 extremes included.
 """
 
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -15,9 +17,11 @@ from rs_ray_toy_tpu.core import rng as jrng
 from rs_ray_toy_tpu.sampler.stratified import StratifiedSampler as JaxStratified
 from rs_ray_toy_tpu.scene.loader import SamplerSpec as JaxSamplerSpec
 from rs_ray_toy_tpu_torch.core import rng
+from rs_ray_toy_tpu_torch.ops import path_megakernel as pmk
 from rs_ray_toy_tpu_torch.sampler.stratified import StratifiedSampler
-from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec
+from rs_ray_toy_tpu_torch.scene.loader import SamplerSpec, load_scene
 
+SAMPLES = Path(__file__).resolve().parents[1] / "samples"
 N = 1 << 20
 EDGES = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
 
@@ -89,6 +93,32 @@ def test_stratified_get_1d_get_2d_bit_equal(triples, jitter, dim):
 
 
 def test_stratified_rejects_non_power_of_two():
-    port = StratifiedSampler(SamplerSpec("stratified", True, 3, 3))
-    with pytest.raises(NotImplementedError, match="power-of-two"):
-        port.get_1d(torch.zeros(4, dtype=torch.int64), torch.zeros(4, dtype=torch.int64), 0)
+    """The kernels' in-kernel sampler takes only power-of-two grids: their
+    shared gate refuses any other grid naming it, and the wavefront
+    loop's does not (its sampler, StratifiedSampler, takes any grid)."""
+    scene = load_scene(str(SAMPLES / "scene.json")).scene
+    for xs, ys in ((3, 3), (4, 3), (1, 5)):
+        sampler = StratifiedSampler(SamplerSpec("stratified", True, xs, ys))
+        assert pmk.scene_unsupported(scene, sampler, pmk.BASE_KINDS) == (
+            f"stratified grid {xs}x{ys} (power of two only)")
+        assert pmk.scene_unsupported(scene, sampler, pmk.BASE_KINDS, wavefront=True) is None
+    pow2 = StratifiedSampler(SamplerSpec("stratified", True, 4, 2))
+    assert pmk.scene_unsupported(scene, pow2, pmk.BASE_KINDS) is None
+
+
+def test_stratified_non_power_of_two_bit_equal(triples):
+    """A 3x3 grid takes the JAX package's keyed rotation: bit-equal over
+    the triples' pixels and every sample index, the u32 extremes
+    included."""
+    pid, sid, _ = triples
+    sid = sid % 9
+    port = StratifiedSampler(SamplerSpec("stratified", True, 3, 3), seed=3)
+    ref = JaxStratified(JaxSamplerSpec("stratified", True, 3, 3), seed=3)
+    jp, js = jnp.asarray(pid), jnp.asarray(sid)
+    for dim in (0, 8, 41):
+        got1 = port.get_1d(_t(pid), _t(sid), dim).numpy()
+        got2 = port.get_2d(_t(pid), _t(sid), dim).numpy()
+        want1 = np.asarray(ref.get_1d(jp, js, dim))
+        want2 = np.asarray(ref.get_2d(jp, js, dim))
+        assert np.array_equal(got1.view(np.uint32), want1.view(np.uint32))
+        assert np.array_equal(got2.view(np.uint32), want2.view(np.uint32))

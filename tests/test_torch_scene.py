@@ -124,13 +124,14 @@ def _prim0(**kw):
     return edit
 
 
-def _volpath(medium=THIN_FOG, light=None, integrator="Volpath", **prim0):
+def _volpath(medium=THIN_FOG, light=None, integrator="Volpath", max_depth=3, **prim0):
     """The fixture under `integrator` in the camera medium `medium`, with an
     extra light and primitive-0 keys."""
 
     def edit(cfg):
-        cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 3}
-        cfg["Camera"]["medium"] = medium
+        cfg["Integrator"] = {"integrator_type": integrator, "max_depth": max_depth}
+        if medium is not None:
+            cfg["Camera"]["medium"] = medium
         if light is not None:
             cfg["lights"].append(light)
         cfg["Aggregate"]["primitives"][0].update(prim0)
@@ -163,6 +164,27 @@ def _halton_under(integrator):
     return edit
 
 
+def _texture(**keys):
+    """An ImageTexture on samples/tex_checker.png with `keys` (unused by
+    any material)."""
+    return _set("rgb_texture", [{"texture_type": "ImageTexture", "texture_name": "checker",
+                                 "filename": str(SAMPLES / "tex_checker.png"), **keys}])
+
+
+def _textured(base_edit):
+    """`base_edit`, then every cube's kd the checker texture."""
+
+    def edit(cfg):
+        base_edit(cfg)
+        _texture()(cfg)
+        cfg["materials"].append({"material_type": "MatteMaterial", "material_name": "t",
+                                 "kd": "checker"})
+        for prim in cfg["Aggregate"]["primitives"]:
+            prim["material_name"] = "t"
+
+    return edit
+
+
 def _sppm_area_light(cfg):
     cfg["Integrator"] = {"integrator_type": "SPPM", "max_depth": 3, "n_iters": 1}
     cfg["lights"].append(FOG_AREA_LIGHT)
@@ -188,18 +210,20 @@ UNSUPPORTED = {
         "infinite_lights", [{"light_type": "infinite", "mapname": "cube.obj"}]),
     # Debug and DirectLighting take spheres in the wavefront loop
     "sphere primitives": _sphere_under("SPPM"),
-    "participating media": _prim0(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     # a diffuse light needs a sphere light_shape, and only Volpath renders it
     "diffuse lights": _set("lights", [{"light_type": "diffuse"}]),
     "lights other than up to 8 point lights": _sppm_area_light,
-    "medium_interface": _volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
-    "grid media with lights other than point lights": _volpath(GRID_MEDIUM, FOG_AREA_LIGHT),
-    "HaltonSampler": _halton_under("Volpath"),
-    # AO renders through the wavefront loop, which takes a camera medium
-    # (ignored) but only power-of-two stratified grids
-    "AO integrator": lambda cfg: cfg.update(
-        Integrator={"integrator_type": "AO"},
-        Sampler={"sampler_type": "StratifiedSampler", "xsamp": 3, "ysamp": 3}),
+    # the Volpath kernel refuses the scene first for its media, and its
+    # wavefront loop evaluates no texture
+    "without a camera medium; and the wavefront loop's: textured kd":
+        _textured(_volpath(medium=None)),
+    "media interfaces \\(medium_interface\\); and the wavefront loop's: textured kd":
+        _textured(_volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}})),
+    # past the Volpath kernel's depths and below the wavefront loop's
+    "max_depth -1": _volpath(max_depth=-1),
+    "cylindrical texture mapping": _texture(mapping={"mapping": "cylindrical"}),
+    "diffuse lights on an unknown mesh": _set("lights", [
+        {"light_type": "diffuse", "light_shape": {"shape_type": "triangle", "obj_name": "nope"}}]),
     # a Disney material with a BSSRDF (non-zero scatter_distance, not thin)
     # under SPPM, whose kernels have no subsurface branch
     "material type DisneyMaterial": _bssrdf_under("SPPM"),
@@ -233,8 +257,8 @@ TRIANGLE_LIGHT = {"light_type": "diffuse", "spectrum": {"values": [5.0, 5.0, 5.0
 def test_other_kernels_raise_on_what_only_path_takes(tmp_path, capsys, integrator, edit, feature):
     """The Debug / DirectLighting, Volpath and SPPM kernels keep their
     subsets: spheres, and lights outside each, raise naming the feature;
-    Debug and DirectLighting name it announcing the wavefront loop, which
-    takes them."""
+    Debug, DirectLighting and Volpath name it announcing the wavefront
+    loop, which takes them."""
 
     def apply(cfg):
         block = {"integrator_type": integrator, "max_depth": 3}
@@ -249,13 +273,45 @@ def test_other_kernels_raise_on_what_only_path_takes(tmp_path, capsys, integrato
 
     path = write_scene(tmp_path, apply)
     job = load_scene(path)
-    if integrator in ("Debug", "DirectLighting"):
+    if integrator in ("Debug", "DirectLighting", "Volpath"):
         assert select_kernel(job, make_sampler(job)) == WAVEFRONT
         err = capsys.readouterr().err
-        assert feature in err and "direct-kernel subset" in err and "wavefront loop" in err
+        kernel = "volpath" if integrator == "Volpath" else "direct"
+        assert feature in err and f"{kernel}-kernel subset" in err and "wavefront loop" in err
         return
     with pytest.raises(NotImplementedError, match=feature):
         select_kernel(job, make_sampler(job))
+
+
+# what the Volpath kernel or the AO loop refused before the wavefront
+# Volpath loop and the stratified grids of any size: (edit, the refusal
+# announced on stderr, or None for AO, which announces nothing)
+WAVEFRONT_TAKES = {
+    "medium_interface": (_volpath(medium_interface={"inside": {"medium_type": "Homogeneous"}}),
+                         "medium_interface"),
+    "grid-media-area-light": (_volpath(GRID_MEDIUM, FOG_AREA_LIGHT),
+                              "grid media with lights other than point lights"),
+    "volpath-halton": (lambda cfg: (_volpath()(cfg), _halton_under("Volpath")(cfg)),
+                       "HaltonSampler"),
+    "ao-3x3": (lambda cfg: cfg.update(
+        Integrator={"integrator_type": "AO"},
+        Sampler={"sampler_type": "StratifiedSampler", "xsamp": 3, "ysamp": 3}), None),
+}
+
+
+@pytest.mark.parametrize("case", list(WAVEFRONT_TAKES))
+def test_wavefront_loop_takes_what_the_kernels_refuse(tmp_path, capsys, case):
+    """Per-primitive interfaces, grid media under a sphere light and the
+    HaltonSampler under Volpath go to the wavefront loop, announced with
+    the Volpath kernel's refusal; AO takes a 3x3 stratified grid."""
+    edit, refusal = WAVEFRONT_TAKES[case]
+    job = load_scene(write_scene(tmp_path, edit))
+    assert select_kernel(job, make_sampler(job)) == WAVEFRONT
+    err = capsys.readouterr().err
+    if refusal is None:
+        assert err == ""
+    else:
+        assert refusal in err and "volpath-kernel subset" in err and "wavefront loop" in err
 
 
 @pytest.mark.parametrize("name", ["Whitted", "BDPT"])

@@ -335,7 +335,7 @@ def test_wavefront_matches_jax(tmp_path, sphere_grid, geometry, integrator):
 
 @pytest.mark.parametrize("integrator", ["Debug", "DirectLighting", "Volpath", "SPPM"])
 def test_flat_kernels_raise_on_smooth_meshes(tmp_path, capsys, integrator):
-    """Volpath and SPPM raise on vertex normals; Debug and DirectLighting
+    """SPPM raises on vertex normals; Debug, DirectLighting and Volpath
     name them announcing the wavefront loop, which shades them."""
     def edit(cfg):
         cfg["Integrator"] = {"integrator_type": integrator, "max_depth": 3}
@@ -344,7 +344,7 @@ def test_flat_kernels_raise_on_smooth_meshes(tmp_path, capsys, integrator):
                                        "preset": "Clorox"}
 
     job = load_scene(_octa_scene(tmp_path, edit=edit))
-    if integrator in ("Debug", "DirectLighting"):
+    if integrator in ("Debug", "DirectLighting", "Volpath"):
         assert select_kernel(job, make_sampler(job)) == WAVEFRONT
         err = capsys.readouterr().err
         assert "smooth shading (vertex normals)" in err and "wavefront loop" in err

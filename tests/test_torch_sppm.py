@@ -335,14 +335,13 @@ def _sphere(cfg):
 UNSUPPORTED = {
     "sphere primitives": _sphere,
     "lights other than up to 8 point lights": _add("lights", None, FOG_AREA_LIGHT),
-    # a camera medium is ignored, as in the JAX package; a primitive's
-    # medium_interface is refused at load
-    "participating media": lambda cfg: cfg["Aggregate"]["primitives"][0].update(
-        medium_interface={"inside": {"medium_type": "Homogeneous"}}),
     "max_depth 1 outside 2..15": _edit(max_depth=1),
-    # the scene's HaltonSampler under Volpath (Path, AO, Debug,
-    # DirectLighting and SPPM take it)
-    "HaltonSampler": _edit(integrator_type="Volpath"),
+    "max_depth 16 outside 2..15": _edit(max_depth=16),
+    # a smooth mesh (the SPPM kernels shade flat)
+    "smooth shading": lambda cfg: (
+        cfg["objs"].append({"obj_name": "ball", "filename": str(SAMPLES / "sphere_smooth.obj")}),
+        cfg["Aggregate"]["primitives"].append({"primitive_type": "triangle", "obj_name": "ball",
+                                               "material_name": "mat_matte"})),
 }
 
 

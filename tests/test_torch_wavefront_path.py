@@ -121,8 +121,8 @@ def test_scenes_outside_every_path_raise(tmp_path, monkeypatch):
     """Past the path kernel, a Path scene the wavefront loop does not take
     either raises, naming both features (here a textured grid above a
     lowered kernel limit: the loop evaluates no texture); AO takes any
-    number of triangles and textures, and raises on a stratified grid
-    that is not a power of two.  AO reads no light: a sphere light beside
+    number of triangles and textures, and any stratified grid (3x3 too).
+    AO reads no light: a sphere light beside
     its scene renders through the wavefront loop."""
     from rs_ray_toy_tpu_torch.render import WAVEFRONT, make_sampler, select_kernel
 
@@ -134,8 +134,7 @@ def test_scenes_outside_every_path_raise(tmp_path, monkeypatch):
     job.integrator.kind = "ao"
     assert select_kernel(job, make_sampler(job)) == WAVEFRONT
     job.sampler.xsamp = 3
-    with pytest.raises(NotImplementedError, match="AO integrator.*power of two"):
-        select_kernel(job, make_sampler(job))
+    assert select_kernel(job, make_sampler(job)) == WAVEFRONT
     cfg = json.loads((SAMPLES / "scene_ao.json").read_text())
     cfg["lights"].append({"light_type": "diffuse", "spectrum": {"values": [5.0, 5.0, 5.0]},
                           "light_shape": {"shape_type": "sphere", "radius": 0.5,
